@@ -1,0 +1,518 @@
+// Flash-attention forward for Hopper (sm_90a), two entry points.
+//
+// Replaces the TPU kernels of long_context_attention_tpu/ops/flash.py:
+//   lca_flash_fwd_causal_self <- _fwd_kernel_tri / _fwd_kernel_tri_sqrt
+//                                (shared body _tri_body): causal
+//                                self-attention, s_q == s_kv, GQA;
+//   lca_flash_fwd_pos         <- _fwd_kernel: q rows at global positions
+//                                q_off + i against kv columns at j, optional
+//                                causal mask, bf16 or int8 K/V with fp32
+//                                per-token scales (chunked prefill against
+//                                the quantized cache).
+//
+// What bounds it on an H100: tensor-core operations. The causal
+// self-attention does 2*b*h*s^2*d live FLOPs, the general form up to
+// 4*b*h*s_q*s_kv*d, against 989 TFLOP/s bf16; the bytes (q, k, v once) are
+// a few percent of that time at the serving shapes.
+//
+// Design: one 128-thread block per (q tile of 64 rows, head, batch row);
+// each warp owns 16 q rows. Products run on mma.sync m16n8k16 (bf16 in,
+// fp32 accumulate) fed by ldmatrix from shared memory. Scores,
+// probabilities, the softmax statistics and the output accumulator stay in
+// registers: a score accumulator fragment is reused as the A operand of
+// the PV product, as in FlashAttention-2, and a row's statistics are
+// reduced across the four lanes that hold it. K/V tiles of 64 columns
+// arrive by cp.async into a double buffer, so the next tile loads while
+// this one computes; int8 tiles land in a staging buffer and are widened
+// to bf16 (exactly) in shared memory. The block stops at the causal
+// diagonal, so fully masked tiles cost nothing: the TPU's triangular
+// (iq, ik) tables and sqrt decode are grid devices with no counterpart
+// here. No TMA or wgmma yet.
+//
+// Numerics follow the TPU kernels exactly:
+//   fast form: scale*log2e is folded into q in bf16 (one rounding), then
+//     p = exp2(min(s, 90)), l += rowsum(p), acc += bf16(p * v_scale) @ v;
+//     out = acc / l, lse = log(l); a row with l == 0 gives out 0, lse -inf.
+//   safe form (online softmax): the self-attention kernel works in exp2
+//     units (s *= scale*log2e, lse = m*ln2 + log l); the position kernel in
+//     natural units (s = dot * k_scale * scale, lse = m + log l).
+//   int8 K/V: s = dot(q, k_int8 as bf16) * k_scale[col]; l sums p before
+//     V's scale; p *= v_scale[col] before the bf16 PV product.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int D = 128;
+constexpr int BQ = 64;
+constexpr int BKV = 64;
+constexpr int NTHREADS = 128;
+constexpr int LD = D + 8;  // bf16 pitch of q/k/v tiles: the 8 rows of an
+                           // ldmatrix land in distinct banks
+constexpr float kClamp = 90.f;
+constexpr float kNegInf = -1e30f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+constexpr int TILE_BYTES = BKV * LD * 2;  // one bf16 k or v tile
+constexpr int Q_BYTES = BQ * LD * 2;
+constexpr int OFF_K = Q_BYTES;                  // 2 stages of k
+constexpr int OFF_V = OFF_K + 2 * TILE_BYTES;   // 2 stages of v
+constexpr int OFF_SC = OFF_V + 2 * TILE_BYTES;  // k and v scales (int8)
+constexpr int SMEM_BYTES = OFF_SC + 2 * BKV * 4;
+// int8 tiles: stage 0 of the k (v) region holds the widened bf16 tile, and
+// the int8 staging double buffer (2 x BKV x D bytes) sits in stage 1's room
+static_assert(2 * BKV * D <= TILE_BYTES, "int8 staging must fit stage 1");
+
+struct Params {
+  const void* q;
+  const void* k;
+  const void* v;
+  const float* ks;
+  const float* vs;
+  void* out;
+  float* lse;
+  int h, h_kv, s_q, s_kv;
+  long long q_sb, q_ss, q_sh;  // element strides (batch, seq, head)
+  long long k_sb, k_ss, k_sh;
+  long long v_sb, v_ss, v_sh;
+  long long o_sb, o_ss, o_sh;
+  long long c_sb, c_sh, c_ss;  // k/v scale strides (batch, head, seq)
+  int q_off;                   // global position of q row 0
+  int causal;
+  float qfold;   // fast form: scale*log2e folded into q
+  float sscale;  // safe form: multiplier of the raw score
+};
+
+union Pack16 {  // 16 bytes as 8 bf16 bit patterns or 16 int8 values
+  uint4 u;
+  unsigned short h[8];
+  int8_t b[16];
+};
+
+__device__ __forceinline__ float bf16_bits_to_float(unsigned short x) {
+  return __uint_as_float(((unsigned)x) << 16);
+}
+
+__device__ __forceinline__ unsigned short float_to_bf16_bits(float x) {
+  return __bfloat16_as_ushort(__float2bfloat16_rn(x));  // nearest even
+}
+
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  return (unsigned)float_to_bf16_bits(lo) |
+         ((unsigned)float_to_bf16_bits(hi) << 16);
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* ptr) {
+  return (unsigned)__cvta_generic_to_shared(ptr);
+}
+
+__device__ __forceinline__ void cp_async16(unsigned dst, const void* src,
+                                           bool valid) {
+  // src-size 0 fills the 16 bytes with zeros (rows past the sequence)
+  const int n = valid ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(n));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], unsigned addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(unsigned (&r)[4], unsigned addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// c += a (16x16 bf16, row) * b (16x8 bf16, col), fp32 accumulate
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// TRI: causal self-attention (the _tri_body kernel); else position form.
+template <bool TRI, bool SAFE, bool QUANT>
+__global__ void __launch_bounds__(NTHREADS)
+    flash_fwd_kernel(const Params p) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  unsigned short* sQ = reinterpret_cast<unsigned short*>(smem);
+  float* sKs = reinterpret_cast<float*>(smem + OFF_SC);
+  float* sVs = sKs + BKV;
+
+  const int nq = (p.s_q + BQ - 1) / BQ;
+  // the self-attention grid starts with the longest rows (the diagonal's
+  // far end), so the short ones fill the tail
+  const int iq = TRI ? (nq - 1 - (int)blockIdx.x) : (int)blockIdx.x;
+  const int ih = blockIdx.y;
+  const int ib = blockIdx.z;
+  const int ihk = ih / (p.h / p.h_kv);
+  const int q0 = iq * BQ;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;  // fragment row (and row + 8)
+  const int t = lane & 3;   // fragment column pair
+
+  constexpr int EB = QUANT ? 1 : 2;       // bytes per k/v element
+  constexpr int CPR = D * EB / 16;        // 16-byte chunks per kv row
+  constexpr int RAW_PITCH = QUANT ? D : LD * 2;
+  const char* kb =
+      static_cast<const char*>(p.k) + (ib * p.k_sb + ihk * p.k_sh) * EB;
+  const char* vb =
+      static_cast<const char*>(p.v) + (ib * p.v_sb + ihk * p.v_sh) * EB;
+  const long long kss = p.k_ss * EB;  // kv row strides in bytes
+  const long long vss = p.v_ss * EB;
+
+  // stage s of the raw tiles cp.async fills (bf16: the operand tiles
+  // themselves; int8: the staging buffer in stage 1's room)
+  unsigned char* const k_region = smem + OFF_K;
+  unsigned char* const v_region = smem + OFF_V;
+  auto raw_k = [&](int s) -> unsigned char* {
+    return QUANT ? k_region + TILE_BYTES + s * BKV * D
+                 : k_region + s * TILE_BYTES;
+  };
+  auto raw_v = [&](int s) -> unsigned char* {
+    return QUANT ? v_region + TILE_BYTES + s * BKV * D
+                 : v_region + s * TILE_BYTES;
+  };
+  auto issue = [&](int jt, int s) {
+    const int kv0 = jt * BKV;
+    unsigned char* dk = raw_k(s);
+    unsigned char* dv = raw_v(s);
+    for (int c = tid; c < BKV * CPR; c += NTHREADS) {
+      const int r = c / CPR, col = (c % CPR) * 16;
+      const bool ok = kv0 + r < p.s_kv;
+      const long long rr = ok ? kv0 + r : 0;
+      const int doff = r * RAW_PITCH + col;
+      cp_async16(smem_addr(dk + doff), kb + rr * kss + col, ok);
+      cp_async16(smem_addr(dv + doff), vb + rr * vss + col, ok);
+    }
+    cp_async_commit();
+  };
+
+  // the kv tiles this q tile sees: up to the causal diagonal
+  const int q_first = p.q_off + q0;
+  const int q_last = p.q_off + min(q0 + BQ, p.s_q) - 1;
+  const bool causal = TRI || p.causal;
+  int nk = TRI ? iq + 1 : (p.s_kv + BKV - 1) / BKV;
+  if (!TRI && causal) nk = q_last < 0 ? 0 : min(nk, q_last / BKV + 1);
+  if (nk > 0) issue(0, 0);
+
+  const __nv_bfloat16* qb = static_cast<const __nv_bfloat16*>(p.q) +
+                            ib * p.q_sb + ih * p.q_sh;
+  for (int c = tid; c < BQ * (D / 8); c += NTHREADS) {
+    const int r = c / (D / 8);
+    const int col = (c % (D / 8)) * 8;
+    Pack16 val;
+    val.u = make_uint4(0, 0, 0, 0);
+    if (q0 + r < p.s_q)
+      val.u = *reinterpret_cast<const uint4*>(
+          qb + (long long)(q0 + r) * p.q_ss + col);
+    if (!SAFE) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        val.h[i] = float_to_bf16_bits(bf16_bits_to_float(val.h[i]) * p.qfold);
+    }
+    *reinterpret_cast<uint4*>(sQ + r * LD + col) = val.u;
+  }
+  __syncthreads();
+
+  // the warp's 16 q rows as A fragments, for the whole kv walk
+  unsigned qa[D / 16][4];
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    ldsm_x4(qa[kk], smem_addr(sQ + (warp * 16 + (lane & 15)) * LD + kk * 16 +
+                              (lane >> 4) * 8));
+
+  float o[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+  float m_row[2] = {kNegInf, kNegInf};  // rows g and g + 8
+  float l_row[2] = {0.f, 0.f};
+  const int row_pos0 = (TRI ? 0 : p.q_off) + q0 + warp * 16 + g;
+  const int mi = lane >> 3;  // which 8x8 matrix this lane addresses
+
+  for (int jt = 0; jt < nk; ++jt) {
+    const int kv0 = jt * BKV;
+    const int stage = jt & 1;
+    if (jt + 1 < nk) {
+      issue(jt + 1, stage ^ 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const unsigned short* sK;
+    const unsigned short* sV;
+    if (QUANT) {  // widen the int8 tile to bf16 (exact) and fetch scales
+      unsigned short* wk = reinterpret_cast<unsigned short*>(k_region);
+      unsigned short* wv = reinterpret_cast<unsigned short*>(v_region);
+      const unsigned char* rk = raw_k(stage);
+      const unsigned char* rv = raw_v(stage);
+      for (int c = tid; c < BKV * (D / 16); c += NTHREADS) {
+        const int r = c / (D / 16), col = (c % (D / 16)) * 16;
+        Pack16 kq, vq, k0, k1, v0, v1;
+        kq.u = *reinterpret_cast<const uint4*>(rk + r * D + col);
+        vq.u = *reinterpret_cast<const uint4*>(rv + r * D + col);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          k0.h[i] = float_to_bf16_bits((float)kq.b[i]);
+          k1.h[i] = float_to_bf16_bits((float)kq.b[8 + i]);
+          v0.h[i] = float_to_bf16_bits((float)vq.b[i]);
+          v1.h[i] = float_to_bf16_bits((float)vq.b[8 + i]);
+        }
+        *reinterpret_cast<uint4*>(wk + r * LD + col) = k0.u;
+        *reinterpret_cast<uint4*>(wk + r * LD + col + 8) = k1.u;
+        *reinterpret_cast<uint4*>(wv + r * LD + col) = v0.u;
+        *reinterpret_cast<uint4*>(wv + r * LD + col + 8) = v1.u;
+      }
+      if (tid < BKV) {
+        const int j = kv0 + tid;
+        const long long at =
+            ib * p.c_sb + ihk * p.c_sh + (long long)j * p.c_ss;
+        sKs[tid] = j < p.s_kv ? p.ks[at] : 0.f;
+        sVs[tid] = j < p.s_kv ? p.vs[at] : 0.f;
+      }
+      __syncthreads();
+      sK = wk;
+      sV = wv;
+    } else {
+      sK = reinterpret_cast<const unsigned short*>(raw_k(stage));
+      sV = reinterpret_cast<const unsigned short*>(raw_v(stage));
+    }
+
+    // S = Q K^T: 8 n-tiles of 8 kv columns; a lane holds rows g and g + 8
+    float s[BKV / 8][4];
+#pragma unroll
+    for (int n = 0; n < BKV / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+#pragma unroll
+      for (int np = 0; np < BKV / 16; ++np) {
+        unsigned b[4];  // b0, b1 of n-tile 2np, then of n-tile 2np + 1
+        ldsm_x4(b, smem_addr(sK + (np * 16 + (lane & 7) + (mi >> 1) * 8) * LD +
+                             kk * 16 + (mi & 1) * 8));
+        mma_bf16(s[2 * np], qa[kk], b[0], b[1]);
+        mma_bf16(s[2 * np + 1], qa[kk], b[2], b[3]);
+      }
+    }
+
+    // scale, mask and the softmax, in registers
+    const int kv_last = kv0 + BKV - 1;
+    const bool masked = (causal && kv_last > q_first) || kv_last >= p.s_kv;
+    float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int n = 0; n < BKV / 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int cl = n * 8 + 2 * t + (e & 1);
+        float v = s[n][e];
+        if (QUANT) v *= sKs[cl];
+        if (SAFE) v *= p.sscale;
+        if (masked) {
+          const int col = kv0 + cl;
+          const int row = row_pos0 + (e >> 1) * 8;
+          if (col >= p.s_kv || (causal && col > row)) v = kNegInf;
+        }
+        s[n][e] = v;
+        if (SAFE) mx[e >> 1] = fmaxf(mx[e >> 1], v);
+      }
+    }
+    float alpha[2] = {1.f, 1.f};
+    if (SAFE) {
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 1));
+        mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 2));
+        const float m_new = fmaxf(m_row[hh], mx[hh]);
+        alpha[hh] = TRI ? exp2f(m_row[hh] - m_new) : expf(m_row[hh] - m_new);
+        m_row[hh] = m_new;
+      }
+    }
+    float rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int n = 0; n < BKV / 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float v = s[n][e];
+        float pv;
+        if (SAFE) {
+          const float m = m_row[e >> 1];
+          pv = TRI ? exp2f(v - m) : expf(v - m);
+          if (v == kNegInf) pv = 0.f;  // masked entry
+        } else {
+          pv = exp2f(fminf(v, kClamp));  // exp2(-1e30) == 0
+        }
+        rs[e >> 1] += pv;
+        if (QUANT) pv *= sVs[n * 8 + 2 * t + (e & 1)];
+        s[n][e] = pv;
+      }
+    }
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      rs[hh] += __shfl_xor_sync(0xffffffffu, rs[hh], 1);
+      rs[hh] += __shfl_xor_sync(0xffffffffu, rs[hh], 2);
+      l_row[hh] = SAFE ? l_row[hh] * alpha[hh] + rs[hh] : l_row[hh] + rs[hh];
+    }
+    if (SAFE) {
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+        o[n][0] *= alpha[0];
+        o[n][1] *= alpha[0];
+        o[n][2] *= alpha[1];
+        o[n][3] *= alpha[1];
+      }
+    }
+
+    // O += P V: the score fragments of kv columns 16kc..16kc+15 are the A
+    // operand; ldmatrix.trans hands over V as the B operand
+#pragma unroll
+    for (int kc = 0; kc < BKV / 16; ++kc) {
+      unsigned pa[4];
+      pa[0] = pack_bf16(s[2 * kc][0], s[2 * kc][1]);
+      pa[1] = pack_bf16(s[2 * kc][2], s[2 * kc][3]);
+      pa[2] = pack_bf16(s[2 * kc + 1][0], s[2 * kc + 1][1]);
+      pa[3] = pack_bf16(s[2 * kc + 1][2], s[2 * kc + 1][3]);
+#pragma unroll
+      for (int dp = 0; dp < D / 16; ++dp) {
+        unsigned b[4];  // b0, b1 of d-tile 2dp, then of d-tile 2dp + 1
+        ldsm_x4_t(b, smem_addr(sV + (kc * 16 + (lane & 7) + (mi & 1) * 8) * LD +
+                               dp * 16 + (mi >> 1) * 8));
+        mma_bf16(o[2 * dp], pa, b[0], b[1]);
+        mma_bf16(o[2 * dp + 1], pa, b[2], b[3]);
+      }
+    }
+    __syncthreads();  // the next tile overwrites this stage
+  }
+
+  // emit: out = acc / l (0 on a dead row), lse in natural log units
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int qi = q0 + warp * 16 + g + hh * 8;
+    if (qi >= p.s_q) continue;
+    const float l = l_row[hh];
+    __nv_bfloat16* orow = static_cast<__nv_bfloat16*>(p.out) + ib * p.o_sb +
+                          (long long)qi * p.o_ss + ih * p.o_sh;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      const float x0 = l == 0.f ? 0.f : o[n][2 * hh] / l;
+      const float x1 = l == 0.f ? 0.f : o[n][2 * hh + 1] / l;
+      *reinterpret_cast<unsigned*>(orow + n * 8 + 2 * t) = pack_bf16(x0, x1);
+    }
+    if (t == 0) {
+      float v = logf(l);
+      if (SAFE) v = TRI ? m_row[hh] * kLn2 + v : m_row[hh] + v;
+      p.lse[((long long)ib * p.h + ih) * p.s_q + qi] =
+          l == 0.f ? __int_as_float(0xff800000) : v;  // -inf on a dead row
+    }
+  }
+}
+
+Params make_params(const void* q, const void* k, const void* v,
+                   const float* ks, const float* vs, void* out, float* lse,
+                   const long long* dims, float qfold, float sscale) {
+  // dims: b, h, h_kv, s_q, s_kv, q strides (b, s, h), k strides (b, s, h),
+  // v strides (b, s, h), out strides (b, s, h), scale strides (b, h, s),
+  // q_off, causal
+  Params p;
+  p.q = q;
+  p.k = k;
+  p.v = v;
+  p.ks = ks;
+  p.vs = vs;
+  p.out = out;
+  p.lse = lse;
+  p.h = (int)dims[1];
+  p.h_kv = (int)dims[2];
+  p.s_q = (int)dims[3];
+  p.s_kv = (int)dims[4];
+  p.q_sb = dims[5];
+  p.q_ss = dims[6];
+  p.q_sh = dims[7];
+  p.k_sb = dims[8];
+  p.k_ss = dims[9];
+  p.k_sh = dims[10];
+  p.v_sb = dims[11];
+  p.v_ss = dims[12];
+  p.v_sh = dims[13];
+  p.o_sb = dims[14];
+  p.o_ss = dims[15];
+  p.o_sh = dims[16];
+  p.c_sb = dims[17];
+  p.c_sh = dims[18];
+  p.c_ss = dims[19];
+  p.q_off = (int)dims[20];
+  p.causal = (int)dims[21];
+  p.qfold = qfold;
+  p.sscale = sscale;
+  return p;
+}
+
+template <bool TRI, bool SAFE, bool QUANT>
+int launch(const Params& p, int b, cudaStream_t stream) {
+  auto kern = flash_fwd_kernel<TRI, SAFE, QUANT>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid((p.s_q + BQ - 1) / BQ, p.h, b);
+  kern<<<grid, NTHREADS, SMEM_BYTES, stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int lca_flash_fwd_causal_self(const void* q, const void* k,
+                                         const void* v, void* out, float* lse,
+                                         const long long* dims, float qfold,
+                                         float sscale, int safe,
+                                         void* stream) {
+  const Params p =
+      make_params(q, k, v, nullptr, nullptr, out, lse, dims, qfold, sscale);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int b = (int)dims[0];
+  return safe ? launch<true, true, false>(p, b, st)
+              : launch<true, false, false>(p, b, st);
+}
+
+extern "C" int lca_flash_fwd_pos(const void* q, const void* k, const void* v,
+                                 const float* ks, const float* vs, void* out,
+                                 float* lse, const long long* dims,
+                                 float qfold, float sscale, int safe,
+                                 void* stream) {
+  const Params p = make_params(q, k, v, ks, vs, out, lse, dims, qfold, sscale);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int b = (int)dims[0];
+  const bool quant = ks != nullptr;
+  if (safe)
+    return quant ? launch<false, true, true>(p, b, st)
+                 : launch<false, true, false>(p, b, st);
+  return quant ? launch<false, false, true>(p, b, st)
+               : launch<false, false, false>(p, b, st);
+}
+
+extern "C" const char* lca_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
