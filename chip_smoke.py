@@ -8,11 +8,14 @@ Phases, one JSON line each; any failure exits non-zero:
   1. device: the card, its power limit, torch and CUDA versions;
   2. build: nvcc builds every kernel under long_context_attention_tpu_torch/
      csrc/ (one process per source, in parallel) into build/kernels/;
-  3. kernels: each kernel against its plain PyTorch version at the serving
-     slice's shapes (B7 through decode_attention, the wrapper the decode
-     step calls, against the same call on CPU copies of the layer), each
-     output row held against its own size (ROW_REL_TOL), with its time, the plain version's, a PyTorch library call's
-     (timed here only) and the least time the card could take;
+  3. kernels: each kernel against its plain PyTorch version at its path's
+     shapes (B7 through decode_attention, the wrapper the decode step calls,
+     against the same call on CPU copies of the layer; the backward kernels
+     B2a, B2b and B5 at the trainer's per-layer attention shape, causal,
+     with offsets that leave rows dead, and ragged), each output row held
+     against its own size (ROW_REL_TOL), with its time, the plain version's,
+     a PyTorch library call's (timed here only) and the least time the card
+     could take;
   4. slice: the 0.88B llama config at full width and depth, random weights
      from a seed, served by Engine(cache_dtype="int8", weight_dtype="int8"):
      prefill_chunked of 4 x 8192 tokens in chunks of 2048, then decode_scan
@@ -20,11 +23,25 @@ Phases, one JSON line each; any failure exits non-zero:
      with a bf16 cache. Each run starts from zeroed launch counters and
      checks that every kernel of its path launched as often as the path
      implies; logits must be finite and the first decode step must agree
-     with a prefill of prompt + that token (teacher forcing).
+     with a prefill of prompt + that token (teacher forcing);
+  5. train: the same config trained by make_train_step (AdamW lr 1e-4,
+     weight decay 1e-4, as the JAX benchmark's optax.adamw(1e-4)) at b=1,
+     s=8192 under remat none, full and attn, with exact launch counts per
+     step (B1 and B5; B2a, B2b and B3 never) and a falling loss, and one
+     profiled step;
+  6. grad_check: the config at 2 layers, s=1024: loss and every parameter
+     gradient on the card under remat none, attn and full against the same
+     backward on CPU copies (plain versions), each leaf within GRAD_TOL of
+     its largest value;
+  7. offsets: the JAX trainer's per-layer call, flash_attention with
+     q_offsets=[0], kv_offsets=[0] (B3 + B2a + B2b), against the
+     no-offsets path (B1 + B5) on the same inputs, row by row.
 Then the kernel table, the card's name and power limit, and as the last line
 {"ok": true, "device": {...}}.
 """
 
+import dataclasses
+import functools
 import json
 import math
 import subprocess
@@ -66,6 +83,29 @@ LSE_TOL = 1e-3
 # prefill of prompt + token: the JAX suite's int8-cache gate
 # (tests/test_serving.py:47).
 TEACHER_TOL = 0.5
+# The backward kernels are held to ROW_REL_TOL too: each row of dq, dk and
+# dv against its own size. Kernel and plain version compute the same fp32
+# products from the same bf16 casts of p and ds, summed in another order;
+# B5 adds dq with fp32 atomics, whose order changes from run to run, so its
+# dq is not bit-stable, and the row limit covers that as well.
+CANCEL_FLOOR = 2.0 ** -10
+
+# Training: the trainer's shapes (benchmarks/bench_train.py:45-49: b=1,
+# s=8192, optax.adamw(1e-4), whose weight decay is 1e-4).
+TRAIN_SEQ = 8192
+TRAIN_STEPS = (("none", 3), ("full", 2), ("attn", 2))
+LR, WEIGHT_DECAY = 1e-4, 1e-4
+# Gradient check: the card's loss and each parameter gradient against the
+# same backward on CPU copies (the plain versions), max |card - cpu| over
+# max |cpu| per leaf. Both sides round the same bf16 model at other places
+# (cuBLAS and the CPU's GEMMs, the kernels' summation order); the grads are
+# bf16, one ulp 2^-8 of a value. On the H100 the worst leaf came to 0.011
+# (1-1.4 ulps of its largest value) and the loss (about 10.9) to 4.4e-5
+# apart; the limits are ~3x and ~20x that, so a fault of a few percent in
+# any leaf fails.
+GRAD_LAYERS, GRAD_SEQ = 2, 1024
+GRAD_TOL = 0.03
+LOSS_TOL = 1e-3
 
 
 def emit(obj):
@@ -113,12 +153,21 @@ def check(name, err, tol):
         raise AssertionError(f"{name}: max abs error {err} > {tol}")
 
 
-def check_out(name, got, want):
+def check_out(name, got, want, cancel_rows=None):
     """Hold an output (..., d) row by row against its size (ROW_REL_TOL);
-    print the case's numbers and return (max abs error, worst row)."""
+    print the case's numbers and return (max abs error, worst row).
+
+    ``cancel_rows`` (an index into dim 1) names rows whose exact value is 0
+    by cancellation: a query row that sees a single column has p = 1, so
+    ds = dp - delta is fp32 rounding noise on both sides. Such a row is
+    held against CANCEL_FLOOR of the output's largest value instead of its
+    own (noise) size."""
     got, want = got.float(), want.float()
     diff = (got - want).abs().amax(-1)
     size = want.abs().amax(-1)
+    if cancel_rows is not None:
+        floor = CANCEL_FLOOR * float(want.abs().max())
+        size[:, cancel_rows] = size[:, cancel_rows].clamp_min(floor)
     rel = torch.where(size > 0, diff / size.clamp_min(1e-30),
                       torch.where(diff > 0, math.inf, 0.0))
     worst = float(rel.max())
@@ -368,6 +417,136 @@ def kernel_b7(K, decode, gen, dev):
                nbytes_int8, times["lib"], PEAK_INT8_OPS)
 
 
+def live_pairs(s_q, s_kv, q_start, causal):
+    """(q row, kv column) pairs the causal mask keeps (all if not causal)."""
+    if not causal:
+        return s_q * s_kv
+    return sum(min(max(q_start + i + 1, 0), s_kv) for i in range(s_q))
+
+
+def sdpa_backward_ms(q, k, v, dout):
+    """SDPA's flash backward (fwd+bwd minus fwd), causal, K/V repeated to
+    the query heads (its flash backend takes no GQA)."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    g = q.shape[2] // k.shape[2]
+    qh = q.transpose(1, 2).detach().requires_grad_()
+    kh, vh = (t.transpose(1, 2).repeat_interleave(g, 1).detach()
+              .requires_grad_() for t in (k, v))
+    doh = dout.transpose(1, 2)
+
+    def fwd():
+        with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+            return F.scaled_dot_product_attention(qh, kh, vh, is_causal=True)
+
+    def fwd_bwd():
+        torch.autograd.grad(fwd(), (qh, kh, vh), doh)
+
+    return time_ms(fwd_bwd) - time_ms(fwd)
+
+
+def kernel_bwd(K, flash, gen, dev):
+    """B2a, B2b and B5 against their plain versions at the trainer's
+    per-layer attention shape (b=1, s=8192, 16/8 heads, d=128), on the
+    forward's own out and lse: causal from position 0 (all three), causal
+    with kv offset s/2 so the first half of the rows see nothing (B2a,
+    B2b: those dq rows, and the dk/dv rows no q row sees, must be exactly
+    0), and ragged lengths, non-causal included."""
+    b, s, h, hk, d = 1, TRAIN_SEQ, MODEL["n_heads"], MODEL["n_kv_heads"], 128
+    scale = d ** -0.5
+    q = torch.randn((b, s, h, d), generator=gen, device=dev).bfloat16()
+    k = torch.randn((b, s, hk, d), generator=gen, device=dev).bfloat16()
+    v = torch.randn((b, s, hk, d), generator=gen, device=dev).bfloat16()
+    dout = torch.randn((b, s, h, d), generator=gen, device=dev).bfloat16()
+
+    def inputs(q, k, v, dout, q_start):
+        if q_start is None:
+            out, lse = flash.flash_fwd_causal_self(q, k, v, scale=scale)
+        else:
+            out, lse = flash.flash_fwd_pos(q, k.transpose(1, 2),
+                                           v.transpose(1, 2), q_start=q_start,
+                                           causal=True, scale=scale)
+        delta = (dout.float() * out.float()).sum(-1).transpose(1, 2)
+        return q, k, v, dout, lse, delta.contiguous()
+
+    checks = {"B2a": [], "B2b": [], "B5": []}
+
+    def run_pair(tag, args, q_start, causal=True, dead_rows=0, dead_cols=0):
+        kw = dict(scale=scale, q_start=q_start, causal=causal)
+        dq = flash.flash_bwd_dq(*args, **kw)
+        pdq = flash.flash_bwd_dq_plain(*args, **kw)
+        torch.cuda.synchronize()
+        if dead_rows and dq[:, :dead_rows].any():
+            raise AssertionError(f"B2a {tag}: dead rows have nonzero dq")
+        one_col = -q_start if causal else None  # sees column 0 only
+        checks["B2a"].append(check_out(f"B2a dq {tag}", dq, pdq, one_col))
+        del dq, pdq
+        dk, dv = flash.flash_bwd_dkv(*args, **kw)
+        pdk, pdv = flash.flash_bwd_dkv_plain(*args, **kw)
+        torch.cuda.synchronize()
+        unseen = slice(-dead_cols, None) if dead_cols else slice(0)
+        if dk[:, unseen].any() or dv[:, unseen].any():
+            raise AssertionError(f"B2b {tag}: unseen kv rows have nonzero "
+                                 f"dk/dv")
+        checks["B2b"].append(check_out(f"B2b dk {tag}", dk, pdk))
+        checks["B2b"].append(check_out(f"B2b dv {tag}", dv, pdv))
+        del dk, dv, pdk, pdv
+        torch.cuda.empty_cache()
+
+    def run_fused(tag, args, causal=True):
+        got = flash.flash_bwd_fused(*args, scale=scale, causal=causal)
+        want = flash.flash_bwd_fused_plain(*args, scale=scale, causal=causal)
+        torch.cuda.synchronize()
+        for name, a, w in zip(("dq", "dk", "dv"), got, want):
+            one_col = 0 if causal and name == "dq" else None
+            checks["B5"].append(check_out(f"B5 {name} {tag}", a, w, one_col))
+        del got, want
+        torch.cuda.empty_cache()
+
+    causal_args = inputs(q, k, v, dout, None)
+    run_fused("causal", causal_args)
+    run_pair("causal", causal_args, 0)
+    half = s // 2
+    run_pair("kv offset s/2", inputs(q, k, v, dout, -half), -half,
+             dead_rows=half, dead_cols=half)
+    # ragged: 1000 rows, partial tiles at the end; a dead band of 300 rows
+    rq, rk, rv, rdo = (t[:, :1000].contiguous() for t in (q, k, v, dout))
+    run_fused("ragged", inputs(rq, rk, rv, rdo, None))
+    run_pair("ragged q_start=-300", inputs(rq, rk, rv, rdo, -300), -300,
+             dead_rows=300, dead_cols=300)
+    out, lse = flash.flash_fwd_pos(rq, rk.transpose(1, 2), rv.transpose(1, 2),
+                                   causal=False, scale=scale)
+    delta = (rdo.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    run_pair("ragged non-causal", (rq, rk, rv, rdo, lse, delta), 0,
+             causal=False)
+    run_fused("ragged non-causal", (rq, rk, rv, rdo, lse, delta),
+              causal=False)
+
+    # times at the causal shape
+    kw = dict(scale=scale, causal=True)
+    ms = {"B2a": time_ms(lambda: flash.flash_bwd_dq(*causal_args, **kw)),
+          "B2b": time_ms(lambda: flash.flash_bwd_dkv(*causal_args, **kw)),
+          "B5": time_ms(lambda: flash.flash_bwd_fused(*causal_args, **kw))}
+    plain = {"B2a": flash.flash_bwd_dq_plain, "B2b": flash.flash_bwd_dkv_plain,
+             "B5": flash.flash_bwd_fused_plain}
+    plain_ms = {}
+    for name, fn in plain.items():
+        plain_ms[name] = time_ms(lambda: fn(*causal_args, **kw), iters=1,
+                                 warmup=1)
+        torch.cuda.empty_cache()
+    lib_ms = sdpa_backward_ms(q, k, v, dout)
+    live = b * h * live_pairs(s, s, 0, True)
+    in_bytes = 2 * (2 * q.numel() + k.numel() + v.numel()) + 8 * b * h * s
+    grads = {"B2a": 4 * q.numel(), "B2b": 8 * k.numel(),
+             "B5": 4 * q.numel() + 8 * k.numel()}
+    products = {"B2a": 3, "B2b": 4, "B5": 5}  # matmuls of depth d per pair
+    kern = {"B2a": "flash_bwd_dq", "B2b": "flash_bwd_dkv",
+            "B5": "flash_bwd_fused"}
+    return [row(K[kern[n]], "flash_bwd.cu", checks[n], ms[n], plain_ms[n],
+                2 * products[n] * d * live, in_bytes + grads[n], lib_ms)
+            for n in ("B2a", "B2b", "B5")]
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the serving slice
 # ---------------------------------------------------------------------------
@@ -385,8 +564,11 @@ def profiled(fn):
         out = fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    # device kernels only: a GPU user annotation (the optimizer's step
+    # range) spans kernels already counted
     kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
     by_name = {}
     for e in kernels:
         n, t = by_name.get(e.name, (0, 0.0))
@@ -508,6 +690,183 @@ def slice_phase(pkg, build, dev, card):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 5: the training slice
+# ---------------------------------------------------------------------------
+
+
+def train_batch(vocab, seq, dev):
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    tokens = torch.randint(0, vocab, (1, seq), generator=gen, device=dev)
+    return tokens, torch.roll(tokens, -1, dims=1), torch.ones(
+        (1, seq), dtype=torch.float32, device=dev)
+
+
+def train_phase(pkg, build, dev, card):
+    """make_train_step on the 0.88B config at b=1, s=8192: one warm-up step,
+    then timed steps on the same batch under each remat policy, each step's
+    launch counts checked exactly. Returns the counts of the `none` run."""
+    from long_context_attention_tpu_torch.models.llama import (
+        init_params, make_train_step, param_leaves)
+
+    L = MODEL["n_layers"]
+    tokens, labels, mask = train_batch(MODEL["vocab"], TRAIN_SEQ, dev)
+    opt = functools.partial(torch.optim.AdamW, lr=LR,
+                            weight_decay=WEIGHT_DECAY)
+    main_counts = None
+    for remat, steps in TRAIN_STEPS:
+        cfg = pkg.ModelConfig(**MODEL, remat=remat)
+        params = init_params(torch.Generator(device=dev).manual_seed(SEED),
+                             cfg, device=dev)
+        n_params = sum(t.numel() for t in param_leaves(params))
+        step = make_train_step(cfg, opt, device=dev)
+        params, state, loss = step(params, None, tokens, labels, mask)
+        losses = [float(loss)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        build.reset_launch_counts()
+        times = []
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            params, state, loss = step(params, state, tokens, labels, mask)
+            losses.append(float(loss))  # synchronizes
+            times.append(time.perf_counter() - t0)
+        counts = expect_counts(build, {
+            "flash_fwd_causal_self": steps * L * (2 if remat == "full" else 1),
+            "flash_bwd_fused": steps * L, "flash_bwd_dq": 0,
+            "flash_bwd_dkv": 0, "flash_fwd_pos": 0})
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"remat={remat}: loss not finite: {losses}")
+        if remat == "none":
+            main_counts = counts
+            if not losses[-1] < losses[0]:
+                raise AssertionError(f"the loss did not fall: {losses}")
+        # the whole timed window over its steps; the spread beside it
+        ms = 1e3 * sum(times) / steps
+        flops = 6 * TRAIN_SEQ * n_params  # the 6ND convention
+        emit({"phase": "train", "card": card, "remat": remat, "batch": 1,
+              "seq": TRAIN_SEQ, "params": n_params, "steps": steps,
+              "ms_per_step": ms, "ms_min": 1e3 * min(times),
+              "ms_max": 1e3 * max(times), "ms_all": [1e3 * t for t in times],
+              "tok_per_s": TRAIN_SEQ / (ms / 1e3),
+              "tflops_6nd": flops / (ms / 1e3) / 1e12,
+              "mfu": flops / (ms / 1e3) / PEAK_BF16_FLOPS,
+              "max_memory_allocated_gb":
+                  torch.cuda.max_memory_allocated() / 2 ** 30,
+              "losses": losses, "launches_per_step":
+                  {n: c // steps for n, c in counts.items()}})
+        if remat == "none":
+            _, prof = profiled(lambda: step(params, state, tokens, labels,
+                                            mask)[2])
+            emit({"phase": "train_profile", "remat": remat, **prof})
+        del params, state, step, loss
+        torch.cuda.empty_cache()
+    return main_counts
+
+
+def named_leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from named_leaves(v, f"{prefix}{k}/")
+    else:
+        yield prefix.rstrip("/"), tree
+
+
+def grad_check_phase(pkg, build, dev, card):
+    """The loss and every parameter gradient of loss_local on the card
+    (kernels) under remat none, attn and full against the same backward on
+    CPU copies without remat (plain versions), at 2 layers, full width,
+    b=1, s=1024, each card run's B1/B5 launches checked."""
+    from long_context_attention_tpu_torch.models.llama import (
+        init_params, loss_local)
+
+    cfg = pkg.ModelConfig(**{**MODEL, "n_layers": GRAD_LAYERS})
+    params = init_params(torch.Generator(device=dev).manual_seed(SEED), cfg,
+                         device=dev)
+    tokens, labels, mask = train_batch(cfg.vocab, GRAD_SEQ, dev)
+
+    def loss_and_grads(where, remat):
+        def leaf(t):
+            return t.detach().to(where, copy=True).requires_grad_()
+
+        p = {k: ({kk: leaf(vv) for kk, vv in v.items()}
+                 if isinstance(v, dict) else leaf(v))
+             for k, v in params.items()}
+        loss = loss_local(p, tokens.to(where), labels.to(where),
+                          mask.to(where),
+                          dataclasses.replace(cfg, remat=remat))
+        loss.backward()
+        return float(loss.detach()), {n: t.grad.float().cpu()
+                                      for n, t in named_leaves(p)}
+
+    loss_cpu, g_cpu = loss_and_grads(torch.device("cpu"), "none")
+    for remat in ("none", "attn", "full"):
+        build.reset_launch_counts()
+        loss_card, g_card = loss_and_grads(dev, remat)
+        counts = expect_counts(build, {
+            "flash_fwd_causal_self": GRAD_LAYERS * (2 if remat == "full"
+                                                    else 1),
+            "flash_bwd_fused": GRAD_LAYERS})
+        leaves = {}
+        for n, want in g_cpu.items():
+            size = float(want.abs().max())
+            leaves[n] = {"rel_err": float((g_card[n] - want).abs().max())
+                         / size, "max_abs": size,
+                         "mean_abs": float(want.abs().mean())}
+        worst = max(x["rel_err"] for x in leaves.values())
+        emit({"phase": "grad_check", "card": card, "remat": remat,
+              "layers": GRAD_LAYERS, "seq": GRAD_SEQ, "loss_card": loss_card,
+              "loss_cpu": loss_cpu, "loss_tol": LOSS_TOL,
+              "grad_tol": GRAD_TOL, "worst_rel_err": worst,
+              "launches": {n: counts[n] for n in ("flash_fwd_causal_self",
+                                                  "flash_bwd_fused")},
+              "leaves": leaves})
+        check(f"grad_check remat={remat} loss", abs(loss_card - loss_cpu),
+              LOSS_TOL)
+        for n, x in leaves.items():
+            check(f"grad_check remat={remat} {n} (relative to its largest "
+                  f"value)", x["rel_err"], GRAD_TOL)
+
+
+def offsets_phase(build, flash, dev, card):
+    """flash_attention with one-chunk offsets (B3 + B2a + B2b, the JAX
+    trainer's per-layer call) against the no-offsets path (B1 + B5) on the
+    same inputs, fwd and bwd through autograd. Returns the offsets run's
+    launch counts."""
+    b, s, h, hk, d = 1, TRAIN_SEQ, MODEL["n_heads"], MODEL["n_kv_heads"], 128
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    q, k, v, dout = (torch.randn(shape, generator=gen, device=dev).bfloat16()
+                     .requires_grad_()
+                     for shape in ((b, s, h, d), (b, s, hk, d), (b, s, hk, d),
+                                   (b, s, h, d)))
+    dout = dout.detach()
+    runs = {}
+    for name, kw in (("offsets", dict(q_offsets=[0], kv_offsets=[0])),
+                     ("static", {})):
+        build.reset_launch_counts()
+        out = flash.flash_attention(q, k, v, causal=True, **kw)
+        grads = torch.autograd.grad(out, (q, k, v), dout)
+        torch.cuda.synchronize()
+        runs[name] = (build.launch_counts(), (out.detach(), *grads))
+    counts, got = runs["offsets"]
+    want_counts = {"flash_fwd_pos": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1,
+                   "flash_fwd_causal_self": 0, "flash_bwd_fused": 0}
+    static_counts, want = runs["static"]
+    for n, c in want_counts.items():
+        if counts[n] != c:
+            raise AssertionError(f"offsets path: {n} launched {counts[n]} "
+                                 f"times, expected {c} (all: {counts})")
+    if static_counts["flash_fwd_causal_self"] != 1 or static_counts[
+            "flash_bwd_fused"] != 1:
+        raise AssertionError(f"static path counts {static_counts}")
+    errs = {name: check_out(f"offsets vs static {name}", a, w,
+                            0 if name == "dq" else None)
+            for name, a, w in zip(("out", "dq", "dk", "dv"), got, want)}
+    emit({"phase": "offsets", "card": card, "seq": s, "launches": counts,
+          "row_rel_err": {n: r for n, (_, r) in errs.items()}})
+    return counts
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
@@ -537,16 +896,27 @@ def main():
     gen = torch.Generator(device=dev).manual_seed(SEED)
     rows = []
     for fn, mod in ((kernel_b1, flash), (kernel_b3, flash),
-                    (kernel_b6, decode), (kernel_b7, decode)):
-        r = fn(K, mod, gen, dev)
+                    (kernel_b6, decode), (kernel_b7, decode),
+                    (kernel_bwd, flash)):
+        res = fn(K, mod, gen, dev)
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
-        emit({"phase": "kernel", **r})
-        rows.append(r)
+        for r in res if isinstance(res, list) else [res]:
+            emit({"phase": "kernel", **r})
+            rows.append(r)
 
+    # each kernel's launches on its own path: serving (B1, B3, B6, B7),
+    # training (B5), the offsets call (B2a, B2b)
     counts = slice_phase(pkg, build, dev, smi)
+    torch.cuda.empty_cache()
+    train_counts = train_phase(pkg, build, dev, smi)
+    grad_check_phase(pkg, build, dev, smi)
+    torch.cuda.empty_cache()
+    offsets_counts = offsets_phase(build, flash, dev, smi)
+    path = {"flash_bwd_fused": train_counts, "flash_bwd_dq": offsets_counts,
+            "flash_bwd_dkv": offsets_counts}
     for r in rows:
-        r["launches"] = counts[r["name"]]
+        r["launches"] = path.get(r["name"], counts)[r["name"]]
     emit({"kernels": rows})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -1,34 +1,46 @@
-"""Llama-style GQA decoder, serving side, in PyTorch.
+"""Llama-style GQA decoder in PyTorch: serving and single-device training.
 
-Counterpart of the serving half of ``long_context_attention_tpu/models/
-llama.py``: the same config, parameter dict (layers stacked on a leading
-axis, bf16 weights, fp32 norms), RMSNorm, RoPE over global positions and
-dense SwiGLU FFN, with
+Counterpart of ``long_context_attention_tpu/models/llama.py``: the same
+config, parameter dict (layers stacked on a leading axis, bf16 weights, fp32
+norms), RMSNorm, RoPE over global positions and dense SwiGLU FFN, with
 
-* :func:`forward_local`: the single-device full-prompt forward (what
-  ``Engine.prefill`` runs), attention through ``flash_attention_fwd``;
+* :func:`forward_local`: the single-device full-sequence forward,
+  differentiable, attention through the autograd ``flash_attention``
+  (kernels B1 forward, B5 backward), each layer rematerialized per
+  ``ModelConfig.remat``;
+* :func:`loss_local` and :func:`make_train_step`: next-token cross entropy
+  and one optimizer step on one device;
 * :func:`prefill_chunk_step`: one prompt chunk against the cache so far
   (chunk self-attention, attention over the cache prefix, LSE merge);
 * :func:`decode_step`: one token per row against the cache (append, then
   attend).
 
-Both cache steps update the cache IN PLACE. USP/ring sharding, MoE, tensor
-and pipeline parallelism and training come in later slices.
+Both cache steps update the cache IN PLACE, and so does a train step its
+params. USP/ring sharding, MoE, tensor and pipeline parallelism come in
+later slices.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional
+import functools
+from typing import Any, Callable, Dict, List, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from long_context_attention_tpu_torch.ops.decode import (
     cache_append,
     decode_attention,
 )
 from long_context_attention_tpu_torch.ops.flash import (
+    FLASH_ATTENTION_OP,
+    flash_attention,
     flash_attention_fwd,
     flash_attention_fwd_cache,
 )
@@ -42,10 +54,12 @@ from long_context_attention_tpu_torch.utils.config import (
 )
 
 __all__ = ["ModelConfig", "init_params", "rmsnorm", "rope", "forward_local",
+           "loss_local", "make_train_step", "param_leaves",
            "prefill_chunk_step", "decode_step", "layer_params"]
 
 Params = Dict[str, Any]
 LAYOUTS = ("basic", "zigzag", "stripe")
+REMATS = ("none", "full", "attn", "dots")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -71,6 +85,8 @@ class ModelConfig:
     n_experts: int = 0
     moe_capacity_factor: float = 2.0
     safe_softmax: bool = False
+    # activation checkpointing per layer in training: none|full|attn|dots
+    # (_maybe_remat); serving ignores it
     remat: str = "none"
 
     def __post_init__(self):
@@ -88,8 +104,7 @@ class ModelConfig:
                                          "than the Hopper kernels"),
                            ("block_sizes", "per-model kernel tile sizes"),
                            ("n_experts", "MoE layers"),
-                           ("moe_capacity_factor", "MoE layers"),
-                           ("remat", "rematerialization (training)")):
+                           ("moe_capacity_factor", "MoE layers")):
             if getattr(self, name) != _PARITY_DEFAULTS[name]:
                 raise not_ported(f"{what} ({name}={getattr(self, name)!r})")
 
@@ -142,9 +157,13 @@ def init_params(generator: torch.Generator, cfg: ModelConfig,
             "lm_head": dense(cfg.dim, (cfg.dim, cfg.vocab))}
 
 
-def layer_params(params: Params, i: int) -> Params:
-    """Layer ``i``'s slice of the stacked layer weights (views)."""
-    return {k: v[i] for k, v in params["layers"].items()}
+def layer_params(params: Params) -> List[Params]:
+    """The stacked layer weights (tensors or int8 QTensors) as one dict of
+    views per layer, with one ``unbind`` per stacked weight: in training its
+    backward stacks the L layer grads once, where L index views would each
+    scatter into a full (L, ...) zero tensor."""
+    cols = {k: v.unbind() for k, v in params["layers"].items()}
+    return [dict(zip(cols, vals)) for vals in zip(*cols.values())]
 
 
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
@@ -185,27 +204,72 @@ def _qkv(cfg: ModelConfig, lp: Params, h: torch.Tensor, positions):
             rope(k, positions, cfg.rope_theta), v)
 
 
-@torch.no_grad()
+def _layer(cfg: ModelConfig, positions: torch.Tensor, x: torch.Tensor,
+           lp: Params):
+    """One decoder layer of the full-sequence forward: (x, k, v)."""
+    b, s, _ = x.shape
+    h = rmsnorm(x, lp["attn_norm"], cfg.norm_eps)
+    q, k, v = _qkv(cfg, lp, h, positions)
+    attn = flash_attention(q, k, v, causal=True, safe_softmax=cfg.safe_softmax)
+    x = x + (attn.reshape(b, s, cfg.q_dim) @ lp["wo"]).to(x.dtype)
+    hh = rmsnorm(x, lp["mlp_norm"], cfg.norm_eps)
+    x = x + _ffn(cfg, lp, hh).to(x.dtype)
+    return x, k, v
+
+
+_MATMULS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+            torch.ops.aten.addmm.default)
+
+
+def _save_attention(ctx, op, *args, **kwargs):
+    """remat="attn": keep the attention op's (out, lse), recompute the rest
+    (the JAX policy saves the ring attention's out and lse by name)."""
+    return (CheckpointPolicy.MUST_SAVE if op is FLASH_ATTENTION_OP
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """remat="dots": keep matmul outputs, recompute elementwise work (JAX's
+    checkpoint_dots)."""
+    return (CheckpointPolicy.MUST_SAVE if op in _MATMULS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _maybe_remat(body: Callable, cfg: ModelConfig) -> Callable:
+    """Wrap a layer body in activation checkpointing per ``cfg.remat``:
+    "none" saves every activation for the backward; "full" keeps only the
+    layer's input and recomputes the layer in the backward; "attn" is
+    "full" plus the attention op's (out, lse), so the backward recomputes
+    the projections but not the attention kernel; "dots" keeps the matmul
+    outputs. Outside autograd (serving) the body runs as it is."""
+    if cfg.remat not in REMATS:
+        raise ValueError(f"remat must be none|full|attn|dots, got "
+                         f"{cfg.remat!r}")
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return body
+    kw = {}
+    if cfg.remat != "full":
+        policy = _save_attention if cfg.remat == "attn" else _save_dots
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, policy)
+    return functools.partial(checkpoint, body, use_reentrant=False, **kw)
+
+
 def forward_local(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
                   return_kv: bool = False, last_index: Optional[int] = None):
     """Single-device forward: tokens (b, s) int -> logits fp32 (b, s, vocab).
 
+    Differentiable; serving callers run it under ``torch.no_grad()``.
     ``return_kv=True`` also returns the per-layer post-RoPE (k, v), each
     (n_layers, b, s, h_kv, d). ``last_index`` projects only that position
     through lm_head (logits (b, 1, vocab))."""
     b, s = tokens.shape
     positions = torch.arange(s, dtype=torch.int32, device=tokens.device)
     x = params["embed"][tokens]
+    body = _maybe_remat(functools.partial(_layer, cfg, positions), cfg)
     ks, vs = [], []
-    for i in range(cfg.n_layers):
-        lp = layer_params(params, i)
-        h = rmsnorm(x, lp["attn_norm"], cfg.norm_eps)
-        q, k, v = _qkv(cfg, lp, h, positions)
-        attn, _ = flash_attention_fwd(q, k, v, causal=True,
-                                      safe_softmax=cfg.safe_softmax)
-        x = x + (attn.reshape(b, s, cfg.q_dim) @ lp["wo"]).to(x.dtype)
-        hh = rmsnorm(x, lp["mlp_norm"], cfg.norm_eps)
-        x = x + _ffn(cfg, lp, hh).to(x.dtype)
+    for lp in layer_params(params):
+        x, k, v = body(x, lp)
         if return_kv:
             ks.append(k)
             vs.append(v)
@@ -216,6 +280,70 @@ def forward_local(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
     if return_kv:
         return logits, (torch.stack(ks), torch.stack(vs))
     return logits
+
+
+def loss_local(params: Params, tokens: torch.Tensor, labels: torch.Tensor,
+               mask: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Masked-mean next-token cross entropy on one device: tokens, labels,
+    mask (b, s); labels[i] is the token after tokens[i]. -sum(log p(label) *
+    mask) / max(sum(mask), 1), over fp32 logits."""
+    logits = forward_local(params, tokens, cfg)
+    logp = torch.log_softmax(logits, dim=-1)
+    ll = torch.gather(logp, -1, labels[..., None].long())[..., 0]
+    maskf = mask.float()
+    return -(ll * maskf).sum() / torch.clamp(maskf.sum(), min=1.0)
+
+
+def param_leaves(params: Params) -> List[torch.Tensor]:
+    """The parameter tensors of a params dict, in its key order (the list
+    an optimizer is built over)."""
+    if isinstance(params, dict):
+        return [t for v in params.values() for t in param_leaves(v)]
+    return [params]
+
+
+def make_train_step(cfg: ModelConfig, optimizer: Callable, mesh=None, *,
+                    device=None):
+    """One-device train step, ``step(params, opt_state, tokens, labels,
+    mask) -> (params, opt_state, loss)``, the JAX package's call shape.
+
+    ``optimizer`` is a factory that builds a PyTorch optimizer over a list
+    of tensors, e.g. ``functools.partial(torch.optim.AdamW, lr=1e-4,
+    weight_decay=1e-4)`` (optax.adamw's decay is 1e-4, torch's default
+    1e-2). ``opt_state`` is the optimizer that factory built over
+    :func:`param_leaves` of these params, or None on the first step to
+    build it. The step updates ``params`` IN PLACE and returns them with
+    the optimizer and the detached loss. ``device``: where the step runs
+    (None means the card; raises without one); params and batch elsewhere
+    raise. A ``mesh`` (the sharded train step) is not ported yet."""
+    if mesh is not None:
+        raise not_ported("the sharded train step (mesh)")
+    dev = resolve_device(device)
+
+    def step(params, opt_state, tokens, labels, mask):
+        leaves = param_leaves(params)
+        for name, t in (("params['embed']", params["embed"]),
+                        ("tokens", tokens), ("labels", labels),
+                        ("mask", mask)):
+            if t.device != dev:
+                raise ValueError(f"{name} is on {t.device}, but the step "
+                                 f"runs on {dev}")
+        if opt_state is None:
+            opt_state = optimizer(leaves)
+        owned = {id(p) for grp in opt_state.param_groups
+                 for p in grp["params"]}
+        if owned != {id(p) for p in leaves}:
+            raise ValueError("opt_state does not hold these params: build it "
+                             "with optimizer(param_leaves(params))")
+        for p in leaves:
+            p.requires_grad_(True)
+        loss = loss_local(params, tokens, labels, mask, cfg)
+        loss.backward()
+        opt_state.step()
+        opt_state.zero_grad(set_to_none=True)
+        return params, opt_state, loss.detach()
+
+    return step
 
 
 @torch.no_grad()
@@ -235,8 +363,7 @@ def prefill_chunk_step(params: Params, cache, tokens: torch.Tensor,
                              device=tokens.device) + start
     x = params["embed"][tokens]
     scale = cfg.head_dim ** -0.5
-    for i in range(cfg.n_layers):
-        lp = layer_params(params, i)
+    for i, lp in enumerate(layer_params(params)):
         h = rmsnorm(x, lp["attn_norm"], cfg.norm_eps)
         q, k, v = _qkv(cfg, lp, h, positions)
         out, lse = flash_attention_fwd(q, k, v, causal=True,
@@ -284,8 +411,7 @@ def decode_step(params: Params, cache, tokens: torch.Tensor,
     att_len = pos + live
     scale = cfg.head_dim ** -0.5
     dt = cache.dtype
-    for i in range(cfg.n_layers):
-        lp = layer_params(params, i)
+    for i, lp in enumerate(layer_params(params)):
         h = rmsnorm(x, lp["attn_norm"], cfg.norm_eps)
         q, k, v = _qkv(cfg, lp, h, pos[:, None])
         kq, ks1 = quantize_kv(k.transpose(1, 2), dt)  # (b, h_kv, 1, d)

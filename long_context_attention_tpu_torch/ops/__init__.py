@@ -6,6 +6,7 @@ from long_context_attention_tpu_torch.ops.decode import (  # noqa: F401
 )
 from long_context_attention_tpu_torch.ops.flash import (  # noqa: F401
     flash_attention,
+    flash_attention_bwd,
     flash_attention_fwd,
     flash_attention_fwd_cache,
 )
@@ -21,6 +22,7 @@ from long_context_attention_tpu_torch.ops.merge import (  # noqa: F401
 )
 from long_context_attention_tpu_torch.ops.reference import (  # noqa: F401
     xla_attention,
+    xla_attention_bwd,
 )
 from long_context_attention_tpu_torch.ops.wquant import (  # noqa: F401
     QTensor,

@@ -150,6 +150,20 @@ KERNELS: Dict[str, Kernel] = {
         "flash_fwd_pos", "flash_fwd.cu", "lca_flash_fwd_pos",
         [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _F, _F, _I, _VP],
         "long_context_attention_tpu/ops/flash.py:696"),
+    # the backward entries share one C signature: q, k, v, dout, lse, delta,
+    # dq, dk, dv (null where unused), dims, scale, stream
+    "flash_bwd_dq": Kernel(
+        "flash_bwd_dq", "flash_bwd.cu", "lca_flash_bwd_dq",
+        [_VP] * 10 + [_F, _VP],
+        "long_context_attention_tpu/ops/flash.py:1089"),
+    "flash_bwd_dkv": Kernel(
+        "flash_bwd_dkv", "flash_bwd.cu", "lca_flash_bwd_dkv",
+        [_VP] * 10 + [_F, _VP],
+        "long_context_attention_tpu/ops/flash.py:1174"),
+    "flash_bwd_fused": Kernel(
+        "flash_bwd_fused", "flash_bwd.cu", "lca_flash_bwd_fused",
+        [_VP] * 10 + [_F, _VP],
+        "long_context_attention_tpu/ops/flash.py:1291"),
     "cache_append": Kernel(
         "cache_append", "cache_append.cu", "lca_cache_append",
         [_VP] * 11,

@@ -1,38 +1,51 @@
-"""Flash attention forward on Hopper: the public API and its two kernels.
+"""Flash attention on Hopper: the public API, forward and backward, and its
+five kernels.
 
-Counterpart of ``long_context_attention_tpu/ops/flash.py``, forward only.
-The public functions keep the JAX package's names, BSHD layout, kwargs and
-``(out, lse fp32)`` contract. Two kernel wrappers sit under them, each with
-a plain PyTorch version of the same arithmetic in this module:
+Counterpart of ``long_context_attention_tpu/ops/flash.py``. The public
+functions keep the JAX package's names, BSHD layout, kwargs and ``(out, lse
+fp32)`` contract. Five kernel wrappers sit under them, each with a plain
+PyTorch version of the same arithmetic in this module:
 
 * :func:`flash_fwd_causal_self` (kernel B1, ``csrc/flash_fwd.cu``):
   causal self-attention with s_q == s_kv, the TPU's ``_fwd_kernel_tri``.
 * :func:`flash_fwd_pos` (kernel B3, ``csrc/flash_fwd.cu``): q rows at
   global positions ``q_start + i`` against a BHSD kv (a cache slice, taken
   by strides), optionally causal, bf16 or int8 K/V with per-token scales,
-  the TPU's ``_fwd_kernel`` as chunked prefill uses it.
+  the TPU's ``_fwd_kernel``.
+* :func:`flash_bwd_dq` (B2a), :func:`flash_bwd_dkv` (B2b) and
+  :func:`flash_bwd_fused` (B5), ``csrc/flash_bwd.cu``: the TPU's
+  ``_dq_kernel``, ``_dkv_kernel`` and ``_bwd_fused_kernel``, fp32 partials.
+
+:func:`flash_attention` is differentiable. As in the JAX package
+(``_flash_bwd_bhsd``), causal self-attention with no position offsets runs
+B1 forward and the one-pass B5 backward; one-chunk ``q_offsets`` /
+``kv_offsets`` (the ring step's call) run B3 forward and B2a + B2b
+backward. The forward is one ``torch.library`` op, so a selective-
+checkpoint policy can save its (out, lse) and skip it in the recompute.
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches the kernel or raises. Features the kernels do not take (sliding
 windows, sinks, softcap, segments, ALiBi, dropout, position chunks and
-strides, non-causal self-attention) raise ``NotImplementedError``; they and
-the backward kernels come in later slices.
+strides, non-causal self-attention without offsets) raise
+``NotImplementedError``; they come in later slices.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from long_context_attention_tpu_torch.ops import _build
 from long_context_attention_tpu_torch.utils.config import NEG_INF, not_ported
 
-__all__ = ["flash_attention", "flash_attention_fwd",
-           "flash_attention_fwd_cache", "flash_fwd_causal_self",
+__all__ = ["flash_attention", "flash_attention_bwd", "flash_attention_fwd",
+           "flash_attention_fwd_cache", "flash_bwd_dkv", "flash_bwd_dkv_plain",
+           "flash_bwd_dq", "flash_bwd_dq_plain", "flash_bwd_fused",
+           "flash_bwd_fused_plain", "flash_fwd_causal_self",
            "flash_fwd_causal_self_plain", "flash_fwd_pos",
-           "flash_fwd_pos_plain"]
+           "flash_fwd_pos_plain", "FLASH_ATTENTION_OP"]
 
 _LOG2E = math.log2(math.e)
 _LN2 = math.log(2.0)
@@ -45,8 +58,8 @@ def _forward_only(*tensors) -> None:
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in tensors):
         raise NotImplementedError(
-            "the PyTorch port is forward-only so far: the flash backward "
-            "kernels (B2, B5) come with the training slice")
+            "this attention path is forward-only, as in the JAX package: "
+            "the quantized-KV and cache paths have no backward")
 
 
 def _fold(q: torch.Tensor, scale: float) -> torch.Tensor:
@@ -256,6 +269,232 @@ def flash_fwd_pos(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# B2a, B2b, B5: the backward (fp32 partials)
+# ---------------------------------------------------------------------------
+
+
+def _p_ds(q, k, v, dout, lse, delta, *, q_start: int, causal: bool,
+          scale: float):
+    """p = exp(s - lse) and ds = p * (dp - delta) * scale, fp32 (b, h, s_q,
+    s_kv), with s = (q . k) * scale from the raw q; p is 0 on masked
+    entries and on rows whose lse is -inf (the TPU's _recompute_p and
+    _ds_to_dqk). Also returns k and v repeated to h heads, in fp32."""
+    s_q, h = q.shape[1], q.shape[2]
+    s_kv = k.shape[1]
+    g = h // k.shape[2]
+    kf = k.float().repeat_interleave(g, dim=2)
+    vf = v.float().repeat_interleave(g, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kf).mul_(scale)
+    lse4 = lse.float()[..., None]
+    bad = torch.isneginf(lse4)
+    s.sub_(torch.where(bad, torch.zeros_like(lse4), lse4))
+    if causal:
+        rows = q_start + torch.arange(s_q, device=q.device)
+        cols = torch.arange(s_kv, device=q.device)
+        bad = bad | (cols[None, :] > rows[:, None])
+    p = s.exp_().masked_fill_(bad, 0.0)
+    dp = torch.einsum("bqhd,bkhd->bhqk", dout.float(), vf)
+    ds = dp.sub_(delta.float()[..., None]).mul_(p).mul_(scale)
+    return p, ds, kf, vf
+
+
+def _group_sum(x: torch.Tensor, h_kv: int) -> torch.Tensor:
+    """(b, s, h, d) per query head -> (b, s, h_kv, d), summed over each
+    kv head's group of query heads."""
+    b, s, h, d = x.shape
+    return x.reshape(b, s, h_kv, h // h_kv, d).sum(dim=3)
+
+
+def flash_bwd_dq_plain(q, k, v, dout, lse, delta, *, scale: float,
+                       q_start: int = 0, causal: bool = True):
+    """Plain version of kernel B2a (same arithmetic and casts, whole rows).
+
+    q, dout (b, s_q, h, d); k, v (b, s_kv, h_kv, d); lse, delta (b, h, s_q)
+    fp32; q row i at position q_start + i, kv column j at j. Returns dq
+    (b, s_q, h, d) fp32 = bf16(ds) @ k (ds cast to k's dtype)."""
+    _, ds, kf, _ = _p_ds(q, k, v, dout, lse, delta, q_start=q_start,
+                         causal=causal, scale=scale)
+    return torch.einsum("bhqk,bkhd->bqhd", ds.to(k.dtype).float(), kf)
+
+
+def flash_bwd_dkv_plain(q, k, v, dout, lse, delta, *, scale: float,
+                        q_start: int = 0, causal: bool = True):
+    """Plain version of kernel B2b: dk, dv (b, s_kv, h_kv, d) fp32, summed
+    over each kv head's query heads; dv = bf16(p)^T @ dout (p cast to
+    dout's dtype), dk = bf16(ds)^T @ q (ds cast to q's dtype)."""
+    p, ds, _, _ = _p_ds(q, k, v, dout, lse, delta, q_start=q_start,
+                        causal=causal, scale=scale)
+    h_kv = k.shape[2]
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(dout.dtype).float(),
+                      dout.float())
+    del p
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds.to(q.dtype).float(), q.float())
+    return _group_sum(dk, h_kv), _group_sum(dv, h_kv)
+
+
+def flash_bwd_fused_plain(q, k, v, dout, lse, delta, *, scale: float,
+                          causal: bool = True):
+    """Plain version of kernel B5: self-attention (s_q == s_kv, positions
+    from 0 on both sides) -> dq, dk, dv fp32, with B2a's and B2b's casts."""
+    p, ds, kf, _ = _p_ds(q, k, v, dout, lse, delta, q_start=0,
+                         causal=causal, scale=scale)
+    h_kv = k.shape[2]
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(dout.dtype).float(),
+                      dout.float())
+    del p
+    ds16 = ds.to(q.dtype).float()
+    del ds
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds16, kf)
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds16, q.float())
+    return dq, _group_sum(dk, h_kv), _group_sum(dv, h_kv)
+
+
+def _bwd_launch(kernel: str, q, k, v, dout, lse, delta, *, scale: float,
+                q_start: int, causal: bool, dq=None, dk=None, dv=None):
+    """Check the operands of a backward kernel and launch it on the
+    current stream; the outputs are fp32 BSHD buffers made by the caller."""
+    b, s_q, h, d = q.shape
+    _, s_kv, h_kv, _ = k.shape
+    if (dout.shape != q.shape or v.shape != k.shape or k.shape[0] != b
+            or k.shape[3] != d or h % h_kv):
+        raise ValueError(f"shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)}, dout {tuple(dout.shape)} do "
+                         f"not match")
+    if d != _HEAD_DIM:
+        raise NotImplementedError(f"the backward kernels are built for "
+                                  f"head_dim {_HEAD_DIM}, got {d}")
+    for name, t in (("q", q), ("k", k), ("v", v), ("dout", dout)):
+        _check_cuda_operand(name, t, torch.bfloat16, q.device)
+    for name, t in (("lse", lse), ("delta", delta)):
+        if (t.shape != (b, h, s_q) or t.dtype != torch.float32
+                or t.device != q.device or not t.is_contiguous()):
+            raise ValueError(f"{name} must be contiguous fp32 (b, h, s_q) on "
+                             f"{q.device}")
+    dq_st = dq.stride()[:3] if dq is not None else (0, 0, 0)
+    dk_st = dk.stride()[:3] if dk is not None else (0, 0, 0)
+    dims = _build.dims_array([
+        b, h, h_kv, s_q, s_kv, *q.stride()[:3], *k.stride()[:3],
+        *v.stride()[:3], *dout.stride()[:3], *dq_st, *dk_st, int(q_start),
+        int(causal)])
+    _build.KERNELS[kernel](
+        _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(dout),
+        _build.ptr(lse), _build.ptr(delta), _build.ptr(dq), _build.ptr(dk),
+        _build.ptr(dv), dims, scale, _build.stream_ptr(q.device))
+
+
+def flash_bwd_dq(q, k, v, dout, lse, delta, *, scale: float,
+                 q_start: int = 0, causal: bool = True):
+    """Kernel B2a wrapper: dq (b, s_q, h, d) fp32 of bf16 BSHD q, k, v and
+    dout (read by strides) with fp32 (b, h, s_q) lse and delta. One block
+    per q tile walks the kv tiles up to the causal diagonal and writes once
+    (no atomics: deterministic). CPU tensors take
+    :func:`flash_bwd_dq_plain`."""
+    if q.device.type == "cpu":
+        return flash_bwd_dq_plain(q, k, v, dout, lse, delta, scale=scale,
+                                  q_start=q_start, causal=causal)
+    dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    _bwd_launch("flash_bwd_dq", q, k, v, dout, lse, delta, scale=scale,
+                q_start=q_start, causal=causal, dq=dq)
+    return dq
+
+
+def flash_bwd_dkv(q, k, v, dout, lse, delta, *, scale: float,
+                  q_start: int = 0, causal: bool = True):
+    """Kernel B2b wrapper: dk, dv (b, s_kv, h_kv, d) fp32. One block per kv
+    tile walks its group's query heads and their q tiles from the causal
+    diagonal on. CPU tensors take :func:`flash_bwd_dkv_plain`."""
+    if q.device.type == "cpu":
+        return flash_bwd_dkv_plain(q, k, v, dout, lse, delta, scale=scale,
+                                   q_start=q_start, causal=causal)
+    dk = torch.empty(k.shape, dtype=torch.float32, device=q.device)
+    dv = torch.empty(k.shape, dtype=torch.float32, device=q.device)
+    _bwd_launch("flash_bwd_dkv", q, k, v, dout, lse, delta, scale=scale,
+                q_start=q_start, causal=causal, dk=dk, dv=dv)
+    return dk, dv
+
+
+def flash_bwd_fused(q, k, v, dout, lse, delta, *, scale: float,
+                    causal: bool = True):
+    """Kernel B5 wrapper: self-attention (s_q == s_kv) -> dq, dk, dv fp32
+    in one pass. dq is summed with fp32 atomics into a zeroed buffer, so its
+    last bits vary from run to run. CPU tensors take
+    :func:`flash_bwd_fused_plain`."""
+    if q.device.type == "cpu":
+        return flash_bwd_fused_plain(q, k, v, dout, lse, delta, scale=scale,
+                                     causal=causal)
+    if q.shape[1] != k.shape[1]:
+        raise ValueError(f"B5 is self-attention: s_q {q.shape[1]} != s_kv "
+                         f"{k.shape[1]}")
+    dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    dk = torch.empty(k.shape, dtype=torch.float32, device=q.device)
+    dv = torch.empty(k.shape, dtype=torch.float32, device=q.device)
+    _bwd_launch("flash_bwd_fused", q, k, v, dout, lse, delta, scale=scale,
+                q_start=0, causal=causal, dq=dq, dk=dk, dv=dv)
+    return dq, dk, dv
+
+
+def _flash_bwd(q, k, v, out, lse, dout, *, q_start: Optional[int],
+               causal: bool, scale: float):
+    """fp32 (dq, dk, dv) by the JAX package's dispatch (_flash_bwd_bhsd):
+    static self-attention (q_start None) runs B5, positions run B2a +
+    B2b. delta = rowsum(dout * out) is an fp32 torch pass, as XLA's."""
+    dout = dout.contiguous()
+    delta = (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    lse = lse.contiguous()
+    if q_start is None:
+        return flash_bwd_fused(q, k, v, dout, lse, delta, scale=scale,
+                               causal=causal)
+    dq = flash_bwd_dq(q, k, v, dout, lse, delta, scale=scale,
+                      q_start=q_start, causal=causal)
+    dk, dv = flash_bwd_dkv(q, k, v, dout, lse, delta, scale=scale,
+                           q_start=q_start, causal=causal)
+    return dq, dk, dv
+
+
+# ---------------------------------------------------------------------------
+# The differentiable forward: one torch.library op with its backward
+# ---------------------------------------------------------------------------
+
+
+@torch.library.custom_op("lca_torch::flash_attention", mutates_args=())
+def _flash_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              positional: bool, q_start: int, causal: bool, scale: float,
+              safe_softmax: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(out, lse) of BSHD q, k, v: B1 for causal self-attention, or B3 with
+    q rows at positions q_start + i when ``positional``."""
+    if positional:
+        return flash_fwd_pos(q, k.transpose(1, 2), v.transpose(1, 2),
+                             q_start=q_start, causal=causal, scale=scale,
+                             safe_softmax=safe_softmax)
+    return flash_fwd_causal_self(q, k, v, scale=scale,
+                                 safe_softmax=safe_softmax)
+
+
+def _flash_op_setup(ctx, inputs, output) -> None:
+    q, k, v, positional, q_start, causal, scale, _ = inputs
+    ctx.save_for_backward(q, k, v, *output)
+    ctx.q_start = q_start if positional else None
+    ctx.causal = causal
+    ctx.scale = scale
+
+
+def _flash_op_backward(ctx, dout, dlse):
+    del dlse  # the lse cotangent is not propagated (as in flash-attn)
+    q, k, v, out, lse = ctx.saved_tensors
+    dq, dk, dv = _flash_bwd(q, k, v, out, lse, dout, q_start=ctx.q_start,
+                            causal=ctx.causal, scale=ctx.scale)
+    return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype),
+            None, None, None, None, None)
+
+
+_flash_op.register_autograd(_flash_op_backward, setup_context=_flash_op_setup)
+
+# The op a selective-checkpoint policy names to keep the attention forward
+# out of the recompute (models/llama.py, remat="attn").
+FLASH_ATTENTION_OP = torch.ops.lca_torch.flash_attention.default
+
+
+# ---------------------------------------------------------------------------
 # Public API (the JAX package's names and kwargs)
 # ---------------------------------------------------------------------------
 
@@ -286,27 +525,66 @@ def _scale(q, softmax_scale) -> float:
             else 1.0 / math.sqrt(q.shape[-1]))
 
 
+def _one_chunk(offsets, name: str) -> int:
+    """The start position of a one-chunk ``q_offsets`` / ``kv_offsets``."""
+    vals = torch.as_tensor(offsets).reshape(-1).tolist()
+    if len(vals) != 1:
+        raise not_ported(f"{name} with {len(vals)} position chunks (ring "
+                         f"layouts)")
+    return int(vals[0])
+
+
+def _q_start(s_q: int, s_kv: int, features) -> Optional[int]:
+    """Pop ``q_offsets`` / ``kv_offsets`` from ``features``. None means
+    static self-attention (no offsets and s_q == s_kv); otherwise the
+    position of q row 0 relative to kv column 0: the offsets' difference,
+    or s_kv - s_q (bottom-right alignment) when only the lengths differ."""
+    q_off = features.pop("q_offsets", None)
+    kv_off = features.pop("kv_offsets", None)
+    if q_off is None and kv_off is None:
+        return None if s_q == s_kv else s_kv - s_q
+    return ((0 if q_off is None else _one_chunk(q_off, "q_offsets"))
+            - (0 if kv_off is None else _one_chunk(kv_off, "kv_offsets")))
+
+
 def flash_attention(q, k, v, *, causal: bool = False,
                     softmax_scale: Optional[float] = None,
                     block_sizes=None, interpret=None, return_lse: bool = False,
                     tri_grid=None, safe_softmax: bool = False, **features):
-    """Flash attention forward, BSHD: q (b, s, h, d); k, v (b, s, h_kv, d).
+    """Flash attention, BSHD: q (b, s_q, h, d); k, v (b, s_kv, h_kv, d).
 
-    The port takes causal self-attention (s_q == s_kv), which runs kernel
-    B1; the JAX API's feature kwargs (:data:`_FEATURE_DEFAULTS`) raise
+    Differentiable. Causal self-attention with no offsets runs kernel B1
+    forward and B5 backward; one-chunk ``q_offsets`` / ``kv_offsets``
+    (token i at offset + i, stride 1), or s_q != s_kv (bottom-right
+    aligned), run B3 forward and B2a + B2b backward, causal or not. The
+    other feature kwargs (:data:`_FEATURE_DEFAULTS`) raise
     ``NotImplementedError`` unless left at their defaults. ``block_sizes``,
     ``interpret`` and ``tri_grid`` are accepted for API parity; the Hopper
-    kernel picks its own tiles and always walks only the live ones. Forward
-    only."""
+    kernels pick their own tiles and walk only the live ones."""
     del block_sizes, interpret, tri_grid
-    _forward_only(q, k, v)
-    _reject_features("self-attention (kernels B3/B4 in full)", features)
-    if not causal or q.shape[1] != k.shape[1]:
-        raise not_ported("attention other than causal self-attention "
-                         "(kernels B3/B4 in full)")
-    out, lse = flash_fwd_causal_self(q, k, v, scale=_scale(q, softmax_scale),
-                                     safe_softmax=safe_softmax)
+    q_start = _q_start(q.shape[1], k.shape[1], features)
+    _reject_features("flash_attention (kernels B3/B4 in full)", features)
+    if q_start is None and not causal:
+        raise not_ported("non-causal self-attention (kernel B4)")
+    out, lse = _flash_op(q, k, v, q_start is not None, q_start or 0,
+                         bool(causal), float(_scale(q, softmax_scale)),
+                         bool(safe_softmax))
     return (out, lse) if return_lse else out
+
+
+def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = False,
+                        softmax_scale: Optional[float] = None,
+                        block_sizes=None, interpret=None,
+                        safe_softmax: bool = False, **features):
+    """Backward-only entry (the ring backward's per-step call), BSHD in and
+    out: fp32 (dq, dk, dv) partials of this kv block. Static self-attention
+    runs B5, one-chunk offsets (or s_q != s_kv) B2a + B2b. The backward
+    recomputes in fp32 whatever the forward's softmax form was."""
+    del block_sizes, interpret, safe_softmax
+    q_start = _q_start(q.shape[1], k.shape[1], features)
+    _reject_features("flash_attention_bwd (kernels B2/B5 in full)", features)
+    return _flash_bwd(q, k, v, out, lse, dout, q_start=q_start,
+                      causal=bool(causal), scale=_scale(q, softmax_scale))
 
 
 def flash_attention_fwd(q, k, v, *, k_scale=None, v_scale=None,
@@ -315,10 +593,12 @@ def flash_attention_fwd(q, k, v, *, k_scale=None, v_scale=None,
                         safe_softmax: bool = False, block_sizes=None,
                         interpret=None, return_lse=None, tri_grid=None,
                         **features):
-    """Forward-only entry: returns (out, lse).
+    """Forward entry: returns (out, lse), differentiable as
+    :func:`flash_attention` is.
 
     ``k_scale`` / ``v_scale`` ((b, h_kv, s_kv) fp32) switch on the int8-KV
-    path (kernel B3, bottom-right aligned when s_q != s_kv)."""
+    path (kernel B3, bottom-right aligned when s_q != s_kv), which is
+    forward-only."""
     del return_lse
     if k_scale is None:
         return flash_attention(q, k, v, causal=causal,

@@ -32,15 +32,16 @@ class QTensor:
     ``q``: (..., in, out) int8; ``scale``: (..., out) fp32, so that the
     logical weight is ``q * scale[..., None, :]``. ``padded``: the
     (..., in8, out8) zero-padded, column-major buffer that ``q`` is a view
-    of (sizes rounded up to multiples of 8). Leading (layer) axes index all
-    three together (:meth:`__getitem__`)."""
+    of (sizes rounded up to multiples of 8). :meth:`unbind` splits the
+    leading (layer) axis of all three together, as a tensor's does."""
 
     q: torch.Tensor
     scale: torch.Tensor
     padded: torch.Tensor
 
-    def __getitem__(self, i) -> "QTensor":
-        return QTensor(self.q[i], self.scale[i], self.padded[i])
+    def unbind(self):
+        return [QTensor(*t) for t in zip(self.q.unbind(), self.scale.unbind(),
+                                         self.padded.unbind())]
 
 
 def _up8(n: int) -> int:

@@ -137,8 +137,9 @@ class Engine:
         b, s = tokens.shape
         self._check_fits(s)
         self._check_device(params, tokens=tokens)
-        logits, (kv_k, kv_v) = forward_local(
-            params, tokens, self.cfg, return_kv=True, last_index=s - 1)
+        with torch.no_grad():
+            logits, (kv_k, kv_v) = forward_local(
+                params, tokens, self.cfg, return_kv=True, last_index=s - 1)
         cache = self.init_cache(b)
         for layer in range(self.cfg.n_layers):
             cache.write_prompt(layer, kv_k[layer], kv_v[layer])

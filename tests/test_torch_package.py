@@ -72,10 +72,12 @@ def test_build_dir_is_gitignored():
 
 
 def test_unported_features_raise():
-    """Features outside this slice raise NotImplementedError, and so does a
-    call that would need a gradient."""
+    """Features outside the ported slices raise NotImplementedError, and so
+    does a gradient through the int8-KV path, which is forward-only in the
+    JAX package too."""
     from long_context_attention_tpu_torch.ops.decode import decode_attention
-    from long_context_attention_tpu_torch.ops.flash import flash_attention
+    from long_context_attention_tpu_torch.ops.flash import (
+        flash_attention, flash_attention_fwd)
     from long_context_attention_tpu_torch.ops.kv_cache import KVCache
 
     q = torch.zeros(1, 8, 2, 128, dtype=torch.bfloat16)
@@ -83,9 +85,11 @@ def test_unported_features_raise():
         flash_attention(q, q, q, causal=False)
     with pytest.raises(NotImplementedError):
         flash_attention(q, q, q, causal=True, window_size=(4, -1))
-    with pytest.raises(NotImplementedError, match="training slice"):
-        flash_attention(q.float().requires_grad_(), q.float(), q.float(),
-                        causal=True)
+    kv8 = torch.zeros(1, 8, 2, 128, dtype=torch.int8)
+    scales = torch.ones(1, 2, 8)
+    with pytest.raises(NotImplementedError, match="forward-only"):
+        flash_attention_fwd(q.requires_grad_(), kv8, kv8, k_scale=scales,
+                            v_scale=scales, causal=True)
     with pytest.raises(NotImplementedError):
         KVCache.init(1, 1, 8, 1, 8, dtype="int4", device="cpu")
     cache = torch.zeros(1, 2, 8, 128, dtype=torch.bfloat16)
@@ -119,7 +123,7 @@ def test_engine_rejects_params_off_its_device():
 @pytest.mark.parametrize("field,value", [
     ("window_left", 64), ("softcap", 30.0), ("sink_tokens", 4),
     ("attn_impl", "xla"), ("block_sizes", "BlockSizes"), ("n_experts", 4),
-    ("moe_capacity_factor", 1.0), ("remat", "full")])
+    ("moe_capacity_factor", 1.0)])
 def test_model_config_rejects_unported_fields(field, value):
     """ModelConfig keeps the JAX config's fields; a value that needs a
     slice not ported yet raises instead of being ignored."""
