@@ -10,20 +10,25 @@ Phases, one JSON line each; any failure exits non-zero:
      csrc/ (one process per source, in parallel) into build/kernels/;
   3. kernels: each kernel against its plain PyTorch version at its path's
      shapes (B7 through decode_attention, the wrapper the decode step calls,
-     against the same call on CPU copies of the layer; the backward kernels
-     B2a, B2b and B5 at the trainer's per-layer attention shape, causal,
-     with offsets that leave rows dead, and ragged), each output row held
-     against its own size (ROW_REL_TOL), with its time, the plain version's,
-     a PyTorch library call's (timed here only) and the least time the card
-     could take;
-  4. slice: the 0.88B llama config at full width and depth, random weights
-     from a seed, served by Engine(cache_dtype="int8", weight_dtype="int8"):
-     prefill_chunked of 4 x 8192 tokens in chunks of 2048, then decode_scan
-     of 32 greedy tokens; then one generate at b=2 over a 1024-token prompt
-     with a bf16 cache. Each run starts from zeroed launch counters and
-     checks that every kernel of its path launched as often as the path
-     implies; logits must be finite and the first decode step must agree
-     with a prefill of prompt + that token (teacher forcing);
+     against the same call on CPU copies of the layer; B4, B3 and B7 also
+     with the sliding window, sinks and softcap, and a band check: every
+     kv tile outside a kernel's walk poisoned with NaN must leave its
+     output finite and bit-equal; the backward kernels B2a, B2b and B5 at
+     the trainer's per-layer attention shape, causal, with offsets that
+     leave rows dead, and ragged), each output row held against its own
+     size (ROW_REL_TOL), with its time, the plain version's, a PyTorch
+     library call's (timed here only) and the least time the card could
+     take;
+  4. slice, then slice_windowed: the 0.88B llama config at full width and
+     depth, random weights from a seed, served by Engine(cache_dtype="int8",
+     weight_dtype="int8"): prefill_chunked of 4 x 8192 tokens in chunks of
+     2048, then decode_scan of 32 greedy tokens; then one generate at b=2
+     over a 1024-token prompt with a bf16 cache. The windowed run serves the
+     same model with a 4096-token sliding window and 4 attention sinks
+     (kernels B4, B3, B6, B7; B1 never). Each run starts from zeroed launch
+     counters and checks that every kernel of its path launched as often
+     as the path implies; logits must be finite and the first decode step
+     must agree with a prefill of prompt + that token (teacher forcing);
   5. train: the same config trained by make_train_step (AdamW lr 1e-4,
      weight decay 1e-4, as the JAX benchmark's optax.adamw(1e-4)) at b=1,
      s=8192 under remat none, full and attn, with exact launch counts per
@@ -35,7 +40,8 @@ Phases, one JSON line each; any failure exits non-zero:
      its largest value;
   7. offsets: the JAX trainer's per-layer call, flash_attention with
      q_offsets=[0], kv_offsets=[0] (B3 + B2a + B2b), against the
-     no-offsets path (B1 + B5) on the same inputs, row by row.
+     no-offsets path (B1 + B5) on the same inputs, row by row; and the
+     windowed forward with offsets (B3) against none (B4).
 Then the kernel table, the card's name and power limit, and as the last line
 {"ok": true, "device": {...}}.
 """
@@ -62,6 +68,14 @@ MODEL = dict(vocab=32000, dim=2048, n_layers=16, n_heads=16, n_kv_heads=8,
 BATCH, PROMPT, CHUNK, NEW = 4, 8192, 2048, 32
 S_MAX = ((PROMPT + NEW + 4095) // 4096) * 4096
 GEN_BATCH, GEN_PROMPT, GEN_NEW = 2, 1024, 16
+# The windowed serving config, the same model with the sliding_window of
+# Mistral-7B-v0.1's published config.json and the four initial tokens that
+# StreamingLLM keeps as attention sinks (arXiv:2309.17453). Softcap 50 is
+# Gemma-2's attn_logit_softcapping; no public model pairs it with this
+# window and these sinks, so only the kernel phase holds it.
+WINDOW, SINKS, SOFTCAP = 4096, 4, 50.0
+WINDOWED = dict(window_left=WINDOW, sink_tokens=SINKS)
+FLASH_KV_TILE = 64  # the kv tile of csrc/flash_fwd.cu (BKV)
 
 # Kernel vs plain version (same inputs). Each output row -- one query row
 # of one head, its d features -- is held against its own size: the row's
@@ -181,16 +195,74 @@ def check_out(name, got, want, cancel_rows=None):
     return err, worst
 
 
-def row(kernel, source, checks, ms, plain_ms, flops, nbytes, library_ms,
-        peak=PEAK_BF16_FLOPS):
+def case_row(checks, ms, plain_ms, flops, nbytes, library_ms,
+             peak=PEAK_BF16_FLOPS):
+    """A kernel's numbers at one shape: errors, times, its bound."""
     b_ms, b_by = bound(flops, nbytes, peak)
-    return {"name": kernel.name, "route": "cuda",
-            "source": f"long_context_attention_tpu_torch/csrc/{source}",
-            "replaces": kernel.replaces, "launches": None,
-            "max_abs_err": max(e for e, _ in checks),
+    return {"launches": None, "max_abs_err": max(e for e, _ in checks),
             "row_rel_err": max(r for _, r in checks), "ms": ms,
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": library_ms}
+
+
+def row(kernel, source, checks, ms, plain_ms, flops, nbytes, library_ms,
+        peak=PEAK_BF16_FLOPS):
+    return {"name": kernel.name, "route": "cuda",
+            "source": f"long_context_attention_tpu_torch/csrc/{source}",
+            "replaces": kernel.replaces,
+            **case_row(checks, ms, plain_ms, flops, nbytes, library_ms, peak)}
+
+
+def visible(s_q, s_kv, q_start=0, causal=True, left=-1, right=-1, sink=0,
+            dev="cpu"):
+    """(s_q, s_kv) bool: True where the q row at position q_start + i sees
+    kv column j (flash-attn masks: causal sets right to 0; columns below
+    sink stay visible through the left window)."""
+    rows = q_start + torch.arange(s_q, device=dev)[:, None]
+    cols = torch.arange(s_kv, device=dev)[None, :]
+    vis = torch.ones((s_q, s_kv), dtype=torch.bool, device=dev)
+    if causal:
+        right = 0
+    if right >= 0:
+        vis &= cols <= rows + right
+    if left >= 0:
+        vis &= (cols >= rows - left) | (cols < sink)
+    return vis
+
+
+def live_pairs(s_q, s_kv, q_start, causal, **window):
+    """(q row, kv column) pairs the masks keep: the work of one head."""
+    return int(visible(s_q, s_kv, q_start, causal, **window).sum())
+
+
+def unseen_tiles(vis, tile):
+    """kv tiles of `tile` columns that no row of `vis` sees."""
+    seen = torch.zeros(-(-vis.shape[1] // tile) * tile, dtype=torch.bool,
+                       device=vis.device)
+    seen[:vis.shape[1]] = vis.any(0)
+    return (~seen.view(-1, tile).any(-1)).nonzero()[:, 0].tolist()
+
+
+def poison(t, dim, tiles, tile):
+    """A copy of t with the columns of `tiles` along `dim` set to NaN."""
+    if not tiles:
+        raise AssertionError("band check: no kv tile lies outside the walk")
+    cols = torch.cat([torch.arange(i * tile, min((i + 1) * tile,
+                                                 t.shape[dim]))
+                      for i in tiles]).to(t.device)
+    return t.index_fill(dim, cols, math.nan)
+
+
+def band_check(name, got, want, n_tiles):
+    """The band check: with every kv tile outside the kernel's walk (the
+    sink tiles and each q tile's window band) poisoned with NaN, the output
+    must be finite and bit-equal to the clean run's."""
+    ok = bool(torch.isfinite(got).all()) and torch.equal(got, want)
+    emit({"phase": "check", "case": f"{name} band check",
+          "poisoned_tiles": n_tiles, "finite_and_equal": ok})
+    if not ok:
+        raise AssertionError(f"{name}: kv tiles outside the walk changed "
+                             f"the output")
 
 
 # ---------------------------------------------------------------------------
@@ -231,6 +303,65 @@ def kernel_b1(K, flash, gen, dev):
     nbytes = 2 * (2 * q.numel() + k.numel() + v.numel()) + 4 * b * h * s
     return row(K["flash_fwd_causal_self"], "flash_fwd.cu", checks, ms,
                plain_ms, flops, nbytes, lib_ms)
+
+
+def kernel_b4(K, flash, gen, dev):
+    """B4 against its plain version: the windowed path's chunk
+    self-attention (b=4, s=2048, window 4096, 4 sinks) in the fast, online
+    and softcap forms, the non-causal cases, the one-shot prefill's shape
+    (b=1, s=8192) and its band check; times at the chunk's shape."""
+    h, hk, d = MODEL["n_heads"], MODEL["n_kv_heads"], 128
+    scale = d ** -0.5
+    win = dict(causal=True, window_size=(WINDOW, -1), sink_tokens=SINKS)
+    checks = []
+
+    def qkv(b, s):
+        return [torch.randn(shape, generator=gen, device=dev).bfloat16()
+                for shape in ((b, s, h, d), (b, s, hk, d), (b, s, hk, d))]
+
+    def case(tag, q, k, v, **kw):
+        o, l = flash.flash_fwd_static(q, k, v, scale=scale, **kw)
+        po, pl_ = flash.flash_fwd_static_plain(q, k, v, scale=scale, **kw)
+        torch.cuda.synchronize()
+        checks.append(check_out(f"B4 out {tag}", o, po))
+        check(f"B4 lse {tag}", max_err(l, pl_), LSE_TOL)
+        return o
+
+    q, k, v = qkv(BATCH, CHUNK)
+    for tag, kw in (
+            ("window sinks", win),
+            ("window sinks safe", dict(win, safe_softmax=True)),
+            ("window sinks softcap", dict(win, softcap=SOFTCAP)),
+            ("non-causal", dict(causal=False)),
+            ("non-causal softcap", dict(causal=False, softcap=SOFTCAP)),
+            ("non-causal window (512, 256) sinks",
+             dict(causal=False, window_size=(512, 256), sink_tokens=SINKS))):
+        case(f"{tag} b={BATCH} s={CHUNK}", q, k, v, **kw)
+    # the one-shot prefill's shape; its last 2048 rows never see kv tiles
+    # 1..31, which the band check poisons
+    q1, k1, v1 = qkv(1, PROMPT)
+    out = case(f"window sinks b=1 s={PROMPT}", q1, k1, v1, **win)
+    rows = slice(PROMPT - CHUNK, PROMPT)
+    vis = visible(PROMPT, PROMPT, 0, True, left=WINDOW, sink=SINKS, dev=dev)
+    tiles = unseen_tiles(vis[rows], FLASH_KV_TILE)
+    kp, vp = (poison(t, 1, tiles, FLASH_KV_TILE) for t in (k1, v1))
+    got, _ = flash.flash_fwd_static(q1, kp, vp, scale=scale, **win)
+    torch.cuda.synchronize()
+    band_check("B4", got[:, rows], out[:, rows], len(tiles))
+    del q1, k1, v1, kp, vp, got, out, vis
+    torch.cuda.empty_cache()
+
+    ms = time_ms(lambda: flash.flash_fwd_static(q, k, v, scale=scale, **win))
+    plain_ms = time_ms(lambda: flash.flash_fwd_static_plain(
+        q, k, v, scale=scale, **win), iters=3, warmup=1)
+    mask = visible(CHUNK, CHUNK, 0, True, left=WINDOW, sink=SINKS, dev=dev)
+    qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        qh, kh, vh, attn_mask=mask, enable_gqa=True))
+    flops = 4 * BATCH * h * d * int(mask.sum())
+    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel()) + 4 * BATCH * h * CHUNK
+    return row(K["flash_fwd_static"], "flash_fwd.cu", checks, ms, plain_ms,
+               flops, nbytes, lib_ms)
 
 
 def kernel_b3(K, flash, gen, dev):
@@ -288,8 +419,75 @@ def kernel_b3(K, flash, gen, dev):
     flops = 4 * b * h * s_q * start * d
     nbytes = (2 * 2 * q.numel() + 4 * b * h * s_q
               + 2 * b * hk * start * (d + 4))
-    return row(K["flash_fwd_pos"], "flash_fwd.cu", checks, ms, plain_ms,
-               flops, nbytes, lib_ms)
+    res = row(K["flash_fwd_pos"], "flash_fwd.cu", checks, ms, plain_ms,
+              flops, nbytes, lib_ms)
+    del kd, vd
+    res["windowed"] = kernel_b3_windowed(flash, q, k, v, ksl, vsl, start,
+                                         scale, dev)
+    return res
+
+
+def kernel_b3_windowed(flash, q, k, v, ksl, vsl, start, scale, dev):
+    """B3 as the windowed path's cache-prefix call runs it (2048 rows at
+    q_start 6144 over the int8 prefix, window 4096, 4 sinks) in the fast,
+    online and softcap forms and over bf16; a chunk longer than the window
+    without sinks (rows past it see no slot: out 0, lse -inf); a band over
+    the sink tiles; the band check; and its times."""
+    b, s_q, h, d = q.shape
+    hk = k.shape[1]
+    win = dict(window_size=(WINDOW, -1), sink_tokens=SINKS)
+    kb16, vb16 = ((t.float() * sc[..., None]).bfloat16()
+                  for t, sc in ((k, ksl), (v, vsl)))
+    checks = []
+
+    def case(tag, qq, args, q_start, **kw):
+        o, l = flash.flash_fwd_pos(qq, *args, q_start=q_start, causal=True,
+                                   scale=scale, **kw)
+        po, pl_ = flash.flash_fwd_pos_plain(qq, *args, q_start=q_start,
+                                            causal=True, scale=scale, **kw)
+        torch.cuda.synchronize()
+        checks.append(check_out(f"B3 out {tag}", o, po))
+        check(f"B3 lse {tag}", max_err(l, pl_), LSE_TOL)
+        return o, l
+
+    quant = (k, v, ksl, vsl)
+    clean, _ = case("int8 window sinks", q, quant, start, **win)
+    case("int8 window sinks safe", q, quant, start, safe_softmax=True, **win)
+    case("int8 window sinks softcap", q, quant, start, softcap=SOFTCAP, **win)
+    case("bf16 window sinks", q, (kb16, vb16, None, None), start, **win)
+    o, l = case("int8 chunk longer than window 1000, no sinks", q, quant,
+                start, window_size=(1000, -1))
+    if o[:, 1000:].any() or not torch.isneginf(l[:, :, 1000:]).all():
+        raise AssertionError("B3: rows past the window are not out 0, "
+                             "lse -inf")
+    # 100 rows at q_start 100 with 70 sinks and window 60: the band and the
+    # sinks share kv tiles 0 and 1
+    case("int8 band over the sinks", q[:, :100].contiguous(),
+         tuple(t[..., :200, :] if t.dim() == 4 else t[..., :200]
+               for t in quant), 100, window_size=(60, -1), sink_tokens=70)
+    vis = visible(s_q, start, start, True, left=WINDOW, sink=SINKS, dev=dev)
+    tiles = unseen_tiles(vis, FLASH_KV_TILE)
+    ksp, vsp = (poison(t, 2, tiles, FLASH_KV_TILE) for t in (ksl, vsl))
+    got, _ = flash.flash_fwd_pos(q, k, v, ksp, vsp, q_start=start,
+                                 causal=True, scale=scale, **win)
+    torch.cuda.synchronize()
+    band_check("B3", got, clean, len(tiles))
+
+    ms = time_ms(lambda: flash.flash_fwd_pos(
+        q, k, v, ksl, vsl, q_start=start, causal=True, scale=scale, **win))
+    plain_ms = time_ms(lambda: flash.flash_fwd_pos_plain(
+        q, k, v, ksl, vsl, q_start=start, causal=True, scale=scale, **win),
+        iters=2, warmup=1)
+    qh = q.transpose(1, 2)
+    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        qh, kb16, vb16, attn_mask=vis, enable_gqa=True))
+    cols = int(vis.any(0).sum())  # the prefix columns some row sees
+    nbytes = (2 * 2 * q.numel() + 4 * b * h * s_q
+              + 2 * b * hk * cols * (d + 4))
+    res = case_row(checks, ms, plain_ms, 4 * b * h * d * int(vis.sum()),
+                   nbytes, lib_ms)
+    return {"case": f"int8 prefix {start}, {s_q} rows, window {WINDOW}, "
+                    f"{SINKS} sinks", **res}
 
 
 def kernel_b6(K, decode, gen, dev):
@@ -356,7 +554,8 @@ def kernel_b7(K, decode, gen, dev):
     lens = torch.tensor([PROMPT + 1, PROMPT - 42, PROMPT + NEW, PROMPT - 193],
                         dtype=torch.int32, device=dev)
     layer, scale = L // 3, d ** -0.5
-    checks, times = [], {}
+    win = dict(window_size=(WINDOW, -1), sink_tokens=SINKS)
+    checks, wchecks, times = [], [], {}
     for cache_dtype in ("int8", "bfloat16"):
         if cache_dtype == "int8":
             kc = torch.randint(-127, 128, (L, b, hk, S_MAX, d), generator=gen,
@@ -387,6 +586,20 @@ def kernel_b7(K, decode, gen, dev):
                                     o.cpu(), po))
             check(f"B7 lse {cache_dtype} safe={safe}", max_err(l.cpu(), pl_),
                   LSE_TOL)
+        for tag, kw in (("window sinks", win),
+                        ("window sinks safe", dict(win, safe_softmax=True)),
+                        ("window sinks softcap", dict(win, softcap=SOFTCAP))):
+            if cache_dtype == "bfloat16" and tag != "window sinks":
+                continue
+            o, l = decode.decode_attention(q, *cache, layer=layer,
+                                           return_lse=True, **kw)
+            po, pl_ = decode.decode_attention(q.cpu(), *cpu, layer=0,
+                                              return_lse=True, **kw)
+            torch.cuda.synchronize()
+            wchecks.append(check_out(f"B7 out {cache_dtype} {tag}", o.cpu(),
+                                     po))
+            check(f"B7 lse {cache_dtype} {tag}", max_err(l.cpu(), pl_),
+                  LSE_TOL)
         if cache_dtype == "int8":
             # the kernel alone, on the operands the wrapper makes
             q_in, q_rs, bkv = decode.decode_query_operands(
@@ -411,17 +624,66 @@ def kernel_b7(K, decode, gen, dev):
             live = int(lens.sum())
             nbytes_int8 = (2 * hk * live * d + 8 * hk * live
                            + b * h * d * 2 * 2)
+            del kd, vd
+            int8_case = (q, kc, vc, ks, vs)
+    windowed = kernel_b7_windowed(decode, *int8_case, lens, layer, wchecks)
     # int8 ops: q.k and p.v, 2 each per (head, column, feature)
-    return row(K["decode_attention"], "decode_attention.cu", checks,
-               times["ms"], times["plain_ms"], 4 * h * int(lens.sum()) * d,
-               nbytes_int8, times["lib"], PEAK_INT8_OPS)
+    res = row(K["decode_attention"], "decode_attention.cu", checks,
+              times["ms"], times["plain_ms"], 4 * h * int(lens.sum()) * d,
+              nbytes_int8, times["lib"], PEAK_INT8_OPS)
+    res["windowed"] = windowed
+    return res
 
 
-def live_pairs(s_q, s_kv, q_start, causal):
-    """(q row, kv column) pairs the causal mask keeps (all if not causal)."""
-    if not causal:
-        return s_q * s_kv
-    return sum(min(max(q_start + i + 1, 0), s_kv) for i in range(s_q))
+def kernel_b7_windowed(decode, q, kc, vc, ks, vs, lens, layer, checks):
+    """B7 with the window and sinks over the int8 cache: the band check
+    (each row's kv tiles outside its sink tile and window band get NaN
+    scales) and the times, with the bound of the sink and band tokens."""
+    b, h, d = q.shape
+    hk, s_max = kc.shape[2], kc.shape[3]
+    scale = d ** -0.5
+    win = dict(window_size=(WINDOW, -1), sink_tokens=SINKS)
+    q_in, q_rs, bkv = decode.decode_query_operands(q, kc, True, scale=scale,
+                                                   block_kv=4096)
+    ksp, vsp = ks.clone(), vs.clone()
+    n_tiles = 0
+    for r, n in enumerate(lens.tolist()):
+        band = range(max(n - 1 - WINDOW, 0) // bkv, (n - 1) // bkv + 1)
+        for t in range(-(-s_max // bkv)):
+            if t != 0 and t not in band:  # tile 0 holds the sinks
+                ksp[layer, r, :, 0, t * bkv:(t + 1) * bkv] = math.nan
+                vsp[layer, r, :, 0, t * bkv:(t + 1) * bkv] = math.nan
+                n_tiles += 1
+    clean = decode.decode_attention(q, kc, vc, lens, ks, vs, layer=layer,
+                                    **win)
+    got = decode.decode_attention(q, kc, vc, lens, ksp, vsp, layer=layer,
+                                  **win)
+    torch.cuda.synchronize()
+    band_check("B7", got, clean, n_tiles)
+    del ksp, vsp
+
+    args = (q_in, q_rs, kc, vc, ks, vs, lens)
+    kw = dict(layer=layer, block_kv=bkv, scale=scale, window_left=WINDOW,
+              sink_tokens=SINKS)
+    ms = time_ms(lambda: decode.decode_attention_core(*args, **kw), iters=20)
+    plain_ms = time_ms(lambda: decode.decode_attention_core_plain(
+        *args, **kw), iters=3, warmup=1)
+    n = int(lens.max())
+    cols = torch.arange(n, device=q.device)[None, :]
+    last = lens.long()[:, None] - 1
+    vis = (cols <= last) & ((cols >= last - WINDOW) | (cols < SINKS))
+    kd, vd = ((t[layer, :, :, :n].float() * sc[layer, :, :, 0, :n, None])
+              .bfloat16() for t, sc in ((kc, ks), (vc, vs)))
+    qh = q[:, :, None, :]
+    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        qh, kd, vd, attn_mask=vis[:, None, None, :], enable_gqa=True),
+        iters=20)
+    seen = int(vis.sum())  # sink and band tokens over the rows
+    nbytes = 2 * hk * seen * d + 8 * hk * seen + b * h * d * 2 * 2
+    res = case_row(checks, ms, plain_ms, 4 * h * seen * d, nbytes, lib_ms,
+                   PEAK_INT8_OPS)
+    return {"case": f"int8 cache, lengths {lens.tolist()}, window {WINDOW}, "
+                    f"{SINKS} sinks", **res}
 
 
 def sdpa_backward_ms(q, k, v, dout):
@@ -590,13 +852,22 @@ def expect_counts(build, want):
     return got
 
 
-def slice_phase(pkg, build, dev, card):
+def serve_phase(pkg, build, dev, card, windowed):
+    """Serve the 0.88B config (dense, or with the sliding window and sinks):
+    prefill_chunked + decode_scan with exact launch counts, teacher
+    forcing, profiles of one decode step and a two-chunk prefill, and a
+    generate at b=2. Returns the prefill_chunked + decode_scan run's launch
+    counts and its serving numbers."""
     from long_context_attention_tpu_torch.models.llama import (
         decode_step, init_params)
     from long_context_attention_tpu_torch.serving.engine import Engine
 
-    cfg = pkg.ModelConfig(**MODEL)
+    tag = "slice_windowed" if windowed else "slice"
+    cfg = pkg.ModelConfig(**MODEL, **(WINDOWED if windowed else {}))
     L = cfg.n_layers
+    # a chunk's self-attention: B4 under the window, B1 without it
+    own, other = (("flash_fwd_static", "flash_fwd_causal_self") if windowed
+                  else ("flash_fwd_causal_self", "flash_fwd_static"))
     gen = torch.Generator(device=dev).manual_seed(SEED)
     params = init_params(gen, cfg, device=dev)
     prompt = torch.randint(0, cfg.vocab, (BATCH, PROMPT), generator=gen,
@@ -626,7 +897,7 @@ def slice_phase(pkg, build, dev, card):
     torch.cuda.synchronize()
     decode_s = time.perf_counter() - t0
     counts = expect_counts(build, {
-        "flash_fwd_causal_self": L * (PROMPT // CHUNK),
+        own: L * (PROMPT // CHUNK), other: 0,
         "flash_fwd_pos": L * (PROMPT // CHUNK - 1),
         "cache_append": L * NEW, "decode_attention": L * NEW})
     if not torch.isfinite(logits).all():
@@ -636,39 +907,44 @@ def slice_phase(pkg, build, dev, card):
         raise AssertionError(f"decode_scan shapes {tuple(toks.shape)}, "
                              f"lengths {cache.length.tolist()}")
 
-    # teacher forcing: step 1 of decode vs a prefill of prompt + first; that
-    # step runs under the profiler for the decode-step breakdown
+    # teacher forcing: step 1 of decode vs a prefill of prompt + first (its
+    # self-attention kernel at s=8193); that step runs under the profiler
+    # for the decode-step breakdown
     for f, t in fork.items():
         getattr(cache, f).copy_(t)
     torch.cuda.synchronize()
     step1, profile = profiled(lambda: decode_step(dparams, cache, first,
                                                   cfg)[0])
-    emit({"phase": "decode_profile", **profile})
+    emit({"phase": "decode_profile", "serving": tag, **profile})
     del cache, fork
     tf_logits, _ = eng.prefill(params, torch.cat([prompt, first[:, None]],
                                                  dim=1))
     if not (torch.isfinite(step1).all() and torch.isfinite(tf_logits).all()):
         raise AssertionError("teacher-forcing logits are not finite")
-    # breakdown of a two-chunk prefill (B1 on both chunks, B3 on the second)
+    # breakdown of a two-chunk prefill (the self-attention kernel on both
+    # chunks, B3 on the second)
     _, prefill_profile = profiled(lambda: eng.prefill_chunked(
         params, prompt[:, :2 * CHUNK], CHUNK)[0])
-    emit({"phase": "prefill_profile", "tokens": BATCH * 2 * CHUNK,
-          **prefill_profile})
+    emit({"phase": "prefill_profile", "serving": tag,
+          "tokens": BATCH * 2 * CHUNK, **prefill_profile})
     tf_err = float((step1 - tf_logits).abs().max())
     tf_argmax = float((step1.argmax(-1) == tf_logits.argmax(-1)).float()
                       .mean())
-    check("teacher forcing", tf_err, TEACHER_TOL)
-    emit({"phase": "slice", "card": card, "model": "llama-0.88B",
-          "batch": BATCH,
-          "prompt": PROMPT, "chunk": CHUNK, "new_tokens": NEW,
-          "cache_dtype": "int8", "weight_dtype": "int8",
-          "prefill_s": prefill_s,
-          "prefill_tok_per_s": BATCH * PROMPT / prefill_s,
-          "decode_ms_per_step": 1e3 * decode_s / NEW,
-          "decode_tok_per_s": BATCH * NEW / decode_s,
-          "teacher_forcing_max_abs_err": tf_err, "teacher_tol": TEACHER_TOL,
-          "teacher_argmax_agree": tf_argmax, "launches": counts})
+    check(f"{tag} teacher forcing", tf_err, TEACHER_TOL)
+    numbers = {"prefill_s": prefill_s,
+               "prefill_tok_per_s": BATCH * PROMPT / prefill_s,
+               "decode_ms_per_step": 1e3 * decode_s / NEW,
+               "decode_tok_per_s": BATCH * NEW / decode_s}
+    emit({"phase": tag, "card": card, "model": "llama-0.88B",
+          "window_left": cfg.window_left, "sink_tokens": cfg.sink_tokens,
+          "batch": BATCH, "prompt": PROMPT, "chunk": CHUNK,
+          "new_tokens": NEW, "cache_dtype": "int8", "weight_dtype": "int8",
+          **numbers, "teacher_forcing_max_abs_err": tf_err,
+          "teacher_tol": TEACHER_TOL, "teacher_argmax_agree": tf_argmax,
+          "launches": counts})
 
+    # generate over a prompt shorter than the window: with sinks, the band
+    # and the sink tile overlap
     gen_eng = Engine(cfg=cfg, s_max=GEN_PROMPT + GEN_NEW,
                      cache_dtype="bfloat16", weight_dtype="int8", device=dev)
     gprompt = prompt[:GEN_BATCH, :GEN_PROMPT]
@@ -678,16 +954,16 @@ def slice_phase(pkg, build, dev, card):
     torch.cuda.synchronize()
     gen_s = time.perf_counter() - t0
     gcounts = expect_counts(build, {
-        "flash_fwd_causal_self": L, "flash_fwd_pos": 0,
+        own: L, other: 0, "flash_fwd_pos": 0,
         "cache_append": L * GEN_NEW, "decode_attention": L * GEN_NEW})
     if not torch.isfinite(res.prefill_logits).all() or res.tokens.shape != (
             GEN_BATCH, GEN_NEW):
         raise AssertionError("generate gave non-finite logits or bad shapes")
-    emit({"phase": "generate", "card": card, "batch": GEN_BATCH,
-          "prompt": GEN_PROMPT,
-          "new_tokens": GEN_NEW, "cache_dtype": "bfloat16",
-          "weight_dtype": "int8", "seconds": gen_s, "launches": gcounts})
-    return counts
+    emit({"phase": "generate", "serving": tag, "card": card,
+          "batch": GEN_BATCH, "prompt": GEN_PROMPT, "new_tokens": GEN_NEW,
+          "cache_dtype": "bfloat16", "weight_dtype": "int8",
+          "seconds": gen_s, "launches": gcounts})
+    return counts, numbers
 
 
 # ---------------------------------------------------------------------------
@@ -831,8 +1107,9 @@ def grad_check_phase(pkg, build, dev, card):
 def offsets_phase(build, flash, dev, card):
     """flash_attention with one-chunk offsets (B3 + B2a + B2b, the JAX
     trainer's per-layer call) against the no-offsets path (B1 + B5) on the
-    same inputs, fwd and bwd through autograd. Returns the offsets run's
-    launch counts."""
+    same inputs, fwd and bwd through autograd; then the windowed forward
+    (window 4096, 4 sinks) with the same offsets (B3) against none (B4).
+    Returns the offsets run's launch counts."""
     b, s, h, hk, d = 1, TRAIN_SEQ, MODEL["n_heads"], MODEL["n_kv_heads"], 128
     gen = torch.Generator(device=dev).manual_seed(SEED + 2)
     q, k, v, dout = (torch.randn(shape, generator=gen, device=dev).bfloat16()
@@ -862,6 +1139,25 @@ def offsets_phase(build, flash, dev, card):
     errs = {name: check_out(f"offsets vs static {name}", a, w,
                             0 if name == "dq" else None)
             for name, a, w in zip(("out", "dq", "dk", "dv"), got, want)}
+
+    win = dict(causal=True, window_size=(WINDOW, -1), sink_tokens=SINKS)
+    wruns = {}
+    with torch.no_grad():
+        for name, kw, kernel in (
+                ("offsets", dict(q_offsets=[0], kv_offsets=[0]),
+                 "flash_fwd_pos"), ("static", {}, "flash_fwd_static")):
+            build.reset_launch_counts()
+            out, lse = flash.flash_attention(q, k, v, return_lse=True,
+                                             **win, **kw)
+            torch.cuda.synchronize()
+            wcounts = build.launch_counts()
+            if wcounts[kernel] != 1 or sum(wcounts.values()) != 1:
+                raise AssertionError(f"windowed {name} path counts {wcounts}")
+            wruns[name] = (out, lse)
+    (o, l), (wo, wl) = wruns["offsets"], wruns["static"]
+    errs["windowed out"] = check_out("windowed offsets (B3) vs static (B4) "
+                                     "out", o, wo)
+    check("windowed offsets vs static lse", max_err(l, wl), LSE_TOL)
     emit({"phase": "offsets", "card": card, "seq": s, "launches": counts,
           "row_rel_err": {n: r for n, (_, r) in errs.items()}})
     return counts
@@ -895,9 +1191,9 @@ def main():
     K = build.KERNELS
     gen = torch.Generator(device=dev).manual_seed(SEED)
     rows = []
-    for fn, mod in ((kernel_b1, flash), (kernel_b3, flash),
-                    (kernel_b6, decode), (kernel_b7, decode),
-                    (kernel_bwd, flash)):
+    for fn, mod in ((kernel_b1, flash), (kernel_b4, flash),
+                    (kernel_b3, flash), (kernel_b6, decode),
+                    (kernel_b7, decode), (kernel_bwd, flash)):
         res = fn(K, mod, gen, dev)
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
@@ -906,17 +1202,25 @@ def main():
             rows.append(r)
 
     # each kernel's launches on its own path: serving (B1, B3, B6, B7),
+    # windowed serving (B4; B3, B6, B7 in their "windowed" entries),
     # training (B5), the offsets call (B2a, B2b)
-    counts = slice_phase(pkg, build, dev, smi)
+    counts, dense = serve_phase(pkg, build, dev, smi, windowed=False)
+    torch.cuda.empty_cache()
+    wcounts, windowed = serve_phase(pkg, build, dev, smi, windowed=True)
+    emit({"phase": "serving_compare", "card": smi, "dense": dense,
+          "windowed": {**windowed, "window_left": WINDOW,
+                       "sink_tokens": SINKS}})
     torch.cuda.empty_cache()
     train_counts = train_phase(pkg, build, dev, smi)
     grad_check_phase(pkg, build, dev, smi)
     torch.cuda.empty_cache()
     offsets_counts = offsets_phase(build, flash, dev, smi)
-    path = {"flash_bwd_fused": train_counts, "flash_bwd_dq": offsets_counts,
-            "flash_bwd_dkv": offsets_counts}
+    path = {"flash_fwd_static": wcounts, "flash_bwd_fused": train_counts,
+            "flash_bwd_dq": offsets_counts, "flash_bwd_dkv": offsets_counts}
     for r in rows:
         r["launches"] = path.get(r["name"], counts)[r["name"]]
+        if "windowed" in r:
+            r["windowed"]["launches"] = wcounts[r["name"]]
     emit({"kernels": rows})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -3,11 +3,20 @@
 //
 // Replaces the TPU kernel long_context_attention_tpu/ops/decode.py
 // _decode_kernel (wrapper decode_attention), for the dense layered cache with
-// a bf16 cache or an int8 cache on the s8 x s8 path (mxu_int8).
+// a bf16 cache or an int8 cache on the s8 x s8 path (mxu_int8), with an
+// optional sliding window, StreamingLLM sinks and logit softcap.
 //
-// What bounds it on an H100: memory. Every live cache byte is read once:
-// 2*b*h_kv*len*d values plus 8*b*h_kv*len scale bytes for int8, against
-// 3.35 TB/s; the arithmetic is a few operations per byte.
+// What bounds it on an H100: memory. Every visible cache byte is read
+// once: 2*b*h_kv*n*d values plus 8*b*h_kv*n scale bytes for int8, where n
+// is a row's visible columns (its length, or its sinks plus its window
+// band), against 3.35 TB/s; the arithmetic is a few operations per byte.
+//
+// The kv walk takes a row's live tiles only, each once: the sink tiles
+// that lie before the window's band, then the band from the tile of column
+// len - 1 - left to that of len - 1 (the TPU's banded grid, decode.py
+// :353-373, with its double-count guards). Tiles outside it are never read,
+// nor are a sink tile's columns past the sinks or the band's first tile's
+// columns left of the window.
 //
 // Design: one 256-thread block per (kv split, kv head, batch row). All g
 // query heads of the group share the kv head's stream. The kv range is cut
@@ -24,6 +33,9 @@
 //      (a warp reads one 128-byte int8 row or 256-byte bf16 row); int32
 //      (int8) or fp32 (bf16) partials are reduced across warps in shared
 //      memory and added to the fp32 accumulator, int8 as int32 * ps.
+// Columns left of the window and not sinks score -inf (p = 0) inside a live
+// tile; softcap (s = cap * tanh(s / cap)) runs before the mask, and the
+// wrapper then takes the online form.
 // With more than one split, a second small kernel merges the splits'
 // partials (the -inf-safe LSE merge of ops/merge.py merge_partials), in the
 // same entry point. Because the int8 P quantization is per tile, `bkv` is part of the
@@ -54,7 +66,10 @@ struct Params {
   float* out;          // (b, splits, h_kv, G, D) fp32 partials
   float* lse;          // (b, splits, h_kv, G)
   int b, h_kv, G, s_max, layer, bkv, splits, tiles_per_split;
+  int left;            // window: columns >= len - 1 - left (-1: all)
+  int sink;            // columns < sink stay visible (left >= 0)
   float sscale;        // safe bf16 form: score scale
+  float cap;           // softcap (0: none)
 };
 
 // 16 bytes seen as 4 words (4 int8 or 2 bf16 values each)
@@ -152,22 +167,38 @@ __global__ void __launch_bounds__(NT) decode_kernel(const Params p) {
     qscale[r] = (INT8 && r < G) ? p.qs[qrow0 + r] : 0.f;
   __syncthreads();
 
+  // the row's live tiles, each once: the sink tiles before the window's
+  // band, then the band [start_t, last_t]; a split takes a run of them
   const int nk = (p.s_max + p.bkv - 1) / p.bkv;
-  const int t0 = sp * p.tiles_per_split;
-  const int t1 = min(nk, t0 + p.tiles_per_split);
-  for (int t = t0; t < t1; ++t) {
-    const int c0 = t * p.bkv;
-    if (c0 >= len) break;  // later tiles lie past the row's length
-    const int n = min(p.bkv, len - c0);  // live columns, all <= len - 1
+  const int last_t = len > 0 ? min((len - 1) / p.bkv, nk - 1) : -1;
+  const int first_col = p.left >= 0 ? max(len - 1 - p.left, 0) : 0;
+  const int start_t = first_col / p.bkv;
+  const int n_sink =
+      p.left >= 0 ? min(min((p.sink + p.bkv - 1) / p.bkv, start_t), last_t + 1)
+                  : 0;
+  const int n_live = n_sink + max(last_t - start_t + 1, 0);
+  const int i0 = sp * p.tiles_per_split;
+  const int i1 = min(n_live, i0 + p.tiles_per_split);
+  for (int it = i0; it < i1; ++it) {
+    const bool sink_tile = it < n_sink;
+    const int c0 = (sink_tile ? it : start_t + (it - n_sink)) * p.bkv;
+    // the tile's columns to read, [c0 + lo, c0 + hi), all <= len - 1: a
+    // sink tile ends at the last sink, the band's first tile starts at the
+    // window's first column (or at 0 where it holds sinks)
+    const int hi = min(p.bkv, (sink_tile ? min(p.sink, len) : len) - c0);
+    const int lo = c0 < p.sink ? 0 : max(first_col - c0, 0);
+    // only a tile that holds both sinks and the window's start has columns
+    // to mask: those between the last sink and the window
+    const bool gap = max(p.sink, c0 + lo) < min(first_col, c0 + hi);
 
     // 1. scores
-    for (int j0 = 0; j0 < n; j0 += RPI * UNROLL) {
+    for (int j0 = lo; j0 < hi; j0 += RPI * UNROLL) {
       Pack16 kr[UNROLL];
 #pragma unroll
       for (int u = 0; u < UNROLL; ++u) {
         const int j = j0 + u * RPI + rsub;
         kr[u].u = make_uint4(0, 0, 0, 0);
-        if (j < n)
+        if (j < hi)
           kr[u].u = *reinterpret_cast<const uint4*>(
               kbase + (long long)(c0 + j) * D * EB + ch * 16);
       }
@@ -187,7 +218,7 @@ __global__ void __launch_bounds__(NT) decode_kernel(const Params p) {
             for (int off = CH / 2; off > 0; off >>= 1)
               acc += __shfl_xor_sync(0xffffffffu, acc, off);
             s = (float)acc * qscale[r];
-            if (j < n) s *= ksb[c0 + j];
+            if (j < hi) s *= ksb[c0 + j];
           } else {
             float acc = 0.f;
 #pragma unroll
@@ -202,7 +233,10 @@ __global__ void __launch_bounds__(NT) decode_kernel(const Params p) {
               acc += __shfl_xor_sync(0xffffffffu, acc, off);
             s = SAFE ? acc * p.sscale : acc;
           }
-          if (ch == 0 && j < n) sP[r * p.bkv + j] = s;
+          if (p.cap > 0.f) s = p.cap * tanhf(s / p.cap);
+          const int col = c0 + j;
+          if (gap && col < first_col && col >= p.sink) s = kNegInf;
+          if (ch == 0 && j < hi) sP[r * p.bkv + j] = s;
         }
       }
     }
@@ -215,7 +249,7 @@ __global__ void __launch_bounds__(NT) decode_kernel(const Params p) {
       for (int r = 0; r < MAXG; ++r) {
         a[r] = kNegInf;
         if (r < G)
-          for (int j = tid; j < n; j += NT)
+          for (int j = lo + tid; j < hi; j += NT)
             a[r] = fmaxf(a[r], sP[r * p.bkv + j]);
       }
       block_reduce<true>(a, G, sRed, sT);
@@ -232,9 +266,10 @@ __global__ void __launch_bounds__(NT) decode_kernel(const Params p) {
       bmax[r] = 0.f;
       if (r < G) {
         const float m = SAFE ? sM[r] : 0.f;
-        for (int j = tid; j < n; j += NT) {
+        for (int j = lo + tid; j < hi; j += NT) {
           const float s = sP[r * p.bkv + j];
           float pv = SAFE ? expf(s - m) : exp2f(fminf(s, kClamp));
+          if (SAFE && s == kNegInf) pv = 0.f;  // masked column
           a[r] += pv;
           if (INT8) {
             pv *= vsb[c0 + j];
@@ -253,8 +288,9 @@ __global__ void __launch_bounds__(NT) decode_kernel(const Params p) {
       block_reduce<true>(bmax, G, sRed, sT);
       if (tid < G) sPs[tid] = fmaxf(sT[tid], 1e-20f) * (1.0f / 127.0f);
       __syncthreads();
-      for (int i = tid; i < G * n; i += NT) {
-        const int r = i / n, j = i % n;
+      const int nl = hi - lo;
+      for (int i = tid; i < G * nl; i += NT) {
+        const int r = i / nl, j = lo + i % nl;
         sP[r * p.bkv + j] = rintf(sP[r * p.bkv + j] / sPs[r]);
       }
     }
@@ -270,13 +306,13 @@ __global__ void __launch_bounds__(NT) decode_kernel(const Params p) {
         facc[r][e] = 0.f;
         iacc[r][e] = 0;
       }
-    for (int j0 = warp; j0 < n; j0 += NW * UNROLL) {
+    for (int j0 = lo + warp; j0 < hi; j0 += NW * UNROLL) {
       uint2 vw[UNROLL];
 #pragma unroll
       for (int u = 0; u < UNROLL; ++u) {
         const int j = j0 + u * NW;
         vw[u] = make_uint2(0, 0);
-        if (j < n) {
+        if (j < hi) {
           const char* row = vbase + (long long)(c0 + j) * D * EB;
           if (INT8)
             vw[u].x = *reinterpret_cast<const unsigned*>(row + lane * 4);
@@ -287,7 +323,7 @@ __global__ void __launch_bounds__(NT) decode_kernel(const Params p) {
 #pragma unroll
       for (int u = 0; u < UNROLL; ++u) {
         const int j = j0 + u * NW;
-        if (j >= n) break;
+        if (j >= hi) break;
         float ve[4];
         int vi[4];
         if (INT8) {
@@ -404,7 +440,8 @@ size_t smem_bytes(int G, int bkv) {
 
 }  // namespace
 
-// dims: b, h_kv, G, s_max, layer, bkv, splits, tiles_per_split.
+// dims: b, h_kv, G, s_max, layer, bkv, splits, tiles_per_split, left, sink.
+// A split takes tiles_per_split of a row's live tiles.
 // out (b, h_kv, G, D) and lse (b, h_kv, G) fp32; with splits > 1 the
 // partials go to part_out (b, splits, h_kv, G, D) / part_lse first.
 extern "C" int lca_decode_attention(const void* q, const float* qs,
@@ -413,7 +450,7 @@ extern "C" int lca_decode_attention(const void* q, const float* qs,
                                     const int* lengths, float* part_out,
                                     float* part_lse, float* out, float* lse,
                                     const long long* dims, float sscale,
-                                    int safe, void* stream) {
+                                    float cap, int safe, void* stream) {
   Params p;
   p.q = q;
   p.qs = qs;
@@ -430,7 +467,10 @@ extern "C" int lca_decode_attention(const void* q, const float* qs,
   p.bkv = (int)dims[5];
   p.splits = (int)dims[6];
   p.tiles_per_split = (int)dims[7];
+  p.left = (int)dims[8];
+  p.sink = (int)dims[9];
   p.sscale = sscale;
+  p.cap = cap;
   if (p.G < 1 || p.G > MAXG) return (int)cudaErrorInvalidValue;
   const bool merge = p.splits > 1;
   if (merge && (part_out == nullptr || part_lse == nullptr))

@@ -1,19 +1,22 @@
-// Flash-attention forward for Hopper (sm_90a), two entry points.
+// Flash-attention forward for Hopper (sm_90a), three entry points.
 //
 // Replaces the TPU kernels of long_context_attention_tpu/ops/flash.py:
 //   lca_flash_fwd_causal_self <- _fwd_kernel_tri / _fwd_kernel_tri_sqrt
 //                                (shared body _tri_body): causal
 //                                self-attention, s_q == s_kv, GQA;
+//   lca_flash_fwd_static      <- _fwd_kernel_static: self-attention with
+//                                positions from tile ids, causal or not,
+//                                sliding window (left, right), StreamingLLM
+//                                sinks and logit softcap;
 //   lca_flash_fwd_pos         <- _fwd_kernel: q rows at global positions
-//                                q_off + i against kv columns at j, optional
-//                                causal mask, bf16 or int8 K/V with fp32
-//                                per-token scales (chunked prefill against
-//                                the quantized cache).
+//                                q_off + i against kv columns at j, the same
+//                                masks and softcap, bf16 or int8 K/V with
+//                                fp32 per-token scales (chunked prefill
+//                                against the quantized cache).
 //
-// What bounds it on an H100: tensor-core operations. The causal
-// self-attention does 2*b*h*s^2*d live FLOPs, the general form up to
-// 4*b*h*s_q*s_kv*d, against 989 TFLOP/s bf16; the bytes (q, k, v once) are
-// a few percent of that time at the serving shapes.
+// What bounds it on an H100: tensor-core operations. Each visible (row,
+// column) pair costs 4*d FLOPs (QK and PV), against 989 TFLOP/s bf16; the
+// bytes (q, k, v once) are a few percent of that time at the serving shapes.
 //
 // Design: one 128-thread block per (q tile of 64 rows, head, batch row);
 // each warp owns 16 q rows. Products run on mma.sync m16n8k16 (bf16 in,
@@ -24,20 +27,30 @@
 // reduced across the four lanes that hold it. K/V tiles of 64 columns
 // arrive by cp.async into a double buffer, so the next tile loads while
 // this one computes; int8 tiles land in a staging buffer and are widened
-// to bf16 (exactly) in shared memory. The block stops at the causal
-// diagonal, so fully masked tiles cost nothing: the TPU's triangular
-// (iq, ik) tables and sqrt decode are grid devices with no counterpart
-// here. No TMA or wgmma yet.
+// to bf16 (exactly) in shared memory. No TMA or wgmma yet.
+//
+// The kv walk visits only tiles a row of the q tile can see, each once:
+// the sink tiles that lie before the band, then the band from the window's
+// first tile to the causal (or right-window) last one (the TPU's banded
+// grid _banded_gt and its double-count guards). A windowed row's cost
+// follows the window, not the kv length, and a tile outside the walk is
+// never read. The TPU's triangular (iq, ik) tables and sqrt decode are grid
+// devices with no counterpart here.
 //
 // Numerics follow the TPU kernels exactly:
 //   fast form: scale*log2e is folded into q in bf16 (one rounding), then
 //     p = exp2(min(s, 90)), l += rowsum(p), acc += bf16(p * v_scale) @ v;
 //     out = acc / l, lse = log(l); a row with l == 0 gives out 0, lse -inf.
-//   safe form (online softmax): the self-attention kernel works in exp2
-//     units (s *= scale*log2e, lse = m*ln2 + log l); the position kernel in
-//     natural units (s = dot * k_scale * scale, lse = m + log l).
+//   online forms (safe softmax): the self-attention kernels (_tri_body,
+//     _fwd_kernel_static) work in exp2 units (s *= scale*log2e, lse = m*ln2
+//     + log l); the position kernel in natural units (s = dot * k_scale *
+//     scale, lse = m + log l).
+//   softcap: natural units, s = cap * tanh(dot * k_scale * scale / cap),
+//     then the online form.
 //   int8 K/V: s = dot(q, k_int8 as bf16) * k_scale[col]; l sums p before
 //     V's scale; p *= v_scale[col] before the bf16 PV product.
+//   masks (flash-attn semantics, global positions): drop col > row + right
+//     (right = 0 when causal) and col < row - left unless col < sink.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -54,6 +67,12 @@ constexpr int LD = D + 8;  // bf16 pitch of q/k/v tiles: the 8 rows of an
 constexpr float kClamp = 90.f;
 constexpr float kNegInf = -1e30f;
 constexpr float kLn2 = 0.6931471805599453f;
+
+// softmax forms (template parameter FORM)
+constexpr int kFast = 0;        // max-free clamped exp2, scale folded into q
+constexpr int kOnlineExp2 = 1;  // online softmax in exp2 units
+constexpr int kOnlineNat = 2;   // online softmax in natural units
+constexpr int kSoftcap = 3;     // capped scores, online, natural units
 
 constexpr int TILE_BYTES = BKV * LD * 2;  // one bf16 k or v tile
 constexpr int Q_BYTES = BQ * LD * 2;
@@ -80,9 +99,11 @@ struct Params {
   long long o_sb, o_ss, o_sh;
   long long c_sb, c_sh, c_ss;  // k/v scale strides (batch, head, seq)
   int q_off;                   // global position of q row 0
-  int causal;
+  int left, right;             // window; -1 = unbounded (right 0: causal)
+  int sink;                    // columns < sink stay visible (left >= 0)
   float qfold;   // fast form: scale*log2e folded into q
-  float sscale;  // safe form: multiplier of the raw score
+  float sscale;  // online forms: multiplier of the raw score
+  float cap;     // softcap form: the cap
 };
 
 union Pack16 {  // 16 bytes as 8 bf16 bit patterns or 16 int8 values
@@ -149,19 +170,23 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// TRI: causal self-attention (the _tri_body kernel); else position form.
-template <bool TRI, bool SAFE, bool QUANT>
+// TRI: causal self-attention with compile-time masks; else the masks of
+// Params. FORM: the softmax form; QUANT: int8 K/V with fp32 scales.
+template <bool TRI, int FORM, bool QUANT>
 __global__ void __launch_bounds__(NTHREADS)
     flash_fwd_kernel(const Params p) {
+  constexpr bool ONLINE = FORM != kFast;
+  constexpr bool EXP2 = FORM == kOnlineExp2;
   extern __shared__ __align__(128) unsigned char smem[];
   unsigned short* sQ = reinterpret_cast<unsigned short*>(smem);
   float* sKs = reinterpret_cast<float*>(smem + OFF_SC);
   float* sVs = sKs + BKV;
 
   const int nq = (p.s_q + BQ - 1) / BQ;
-  // the self-attention grid starts with the longest rows (the diagonal's
-  // far end), so the short ones fill the tail
-  const int iq = TRI ? (nq - 1 - (int)blockIdx.x) : (int)blockIdx.x;
+  // the grid starts with the last q tiles, the longest rows under a causal
+  // or window mask (the diagonal's far end), so the short ones fill the
+  // tail
+  const int iq = nq - 1 - (int)blockIdx.x;
   const int ih = blockIdx.y;
   const int ib = blockIdx.z;
   const int ihk = ih / (p.h / p.h_kv);
@@ -171,6 +196,30 @@ __global__ void __launch_bounds__(NTHREADS)
   const int lane = tid & 31;
   const int g = lane >> 2;  // fragment row (and row + 8)
   const int t = lane & 3;   // fragment column pair
+
+  // the masks; compile-time constants on the causal self-attention grid
+  const int q_off = TRI ? 0 : p.q_off;
+  const int left = TRI ? -1 : p.left;
+  const int right = TRI ? 0 : p.right;
+  const int sink = TRI ? 0 : p.sink;
+
+  // the kv tiles this q tile sees, each once: the sink tiles that lie
+  // before the band, then the band [band_lo, band_hi] (_banded_gt)
+  const int q_first = q_off + q0;
+  const int q_last = q_off + min(q0 + BQ, p.s_q) - 1;
+  int band_lo = 0, band_hi = (p.s_kv + BKV - 1) / BKV - 1, n_sink = 0;
+  if (right >= 0) {
+    const int hi = q_last + right;
+    band_hi = hi < 0 ? -1 : min(band_hi, hi / BKV);
+  }
+  if (left >= 0) {
+    band_lo = max(q_first - left, 0) / BKV;
+    n_sink = min(min((sink + BKV - 1) / BKV, band_lo), band_hi + 1);
+  }
+  const int nk = n_sink + max(band_hi - band_lo + 1, 0);
+  auto tile_of = [&](int jt) -> int {
+    return jt < n_sink ? jt : band_lo + (jt - n_sink);
+  };
 
   constexpr int EB = QUANT ? 1 : 2;       // bytes per k/v element
   constexpr int CPR = D * EB / 16;        // 16-byte chunks per kv row
@@ -195,7 +244,7 @@ __global__ void __launch_bounds__(NTHREADS)
                  : v_region + s * TILE_BYTES;
   };
   auto issue = [&](int jt, int s) {
-    const int kv0 = jt * BKV;
+    const int kv0 = tile_of(jt) * BKV;
     unsigned char* dk = raw_k(s);
     unsigned char* dv = raw_v(s);
     for (int c = tid; c < BKV * CPR; c += NTHREADS) {
@@ -208,13 +257,6 @@ __global__ void __launch_bounds__(NTHREADS)
     }
     cp_async_commit();
   };
-
-  // the kv tiles this q tile sees: up to the causal diagonal
-  const int q_first = p.q_off + q0;
-  const int q_last = p.q_off + min(q0 + BQ, p.s_q) - 1;
-  const bool causal = TRI || p.causal;
-  int nk = TRI ? iq + 1 : (p.s_kv + BKV - 1) / BKV;
-  if (!TRI && causal) nk = q_last < 0 ? 0 : min(nk, q_last / BKV + 1);
   if (nk > 0) issue(0, 0);
 
   const __nv_bfloat16* qb = static_cast<const __nv_bfloat16*>(p.q) +
@@ -227,7 +269,7 @@ __global__ void __launch_bounds__(NTHREADS)
     if (q0 + r < p.s_q)
       val.u = *reinterpret_cast<const uint4*>(
           qb + (long long)(q0 + r) * p.q_ss + col);
-    if (!SAFE) {
+    if (!ONLINE) {
 #pragma unroll
       for (int i = 0; i < 8; ++i)
         val.h[i] = float_to_bf16_bits(bf16_bits_to_float(val.h[i]) * p.qfold);
@@ -250,11 +292,11 @@ __global__ void __launch_bounds__(NTHREADS)
     for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
   float m_row[2] = {kNegInf, kNegInf};  // rows g and g + 8
   float l_row[2] = {0.f, 0.f};
-  const int row_pos0 = (TRI ? 0 : p.q_off) + q0 + warp * 16 + g;
+  const int row_pos0 = q_off + q0 + warp * 16 + g;
   const int mi = lane >> 3;  // which 8x8 matrix this lane addresses
 
   for (int jt = 0; jt < nk; ++jt) {
-    const int kv0 = jt * BKV;
+    const int kv0 = tile_of(jt) * BKV;
     const int stage = jt & 1;
     if (jt + 1 < nk) {
       issue(jt + 1, stage ^ 1);
@@ -320,9 +362,12 @@ __global__ void __launch_bounds__(NTHREADS)
       }
     }
 
-    // scale, mask and the softmax, in registers
+    // scale, cap, mask and the softmax, in registers; a tile that every
+    // row of the q tile sees whole skips the mask (_tile_interior)
     const int kv_last = kv0 + BKV - 1;
-    const bool masked = (causal && kv_last > q_first) || kv_last >= p.s_kv;
+    const bool interior =
+        kv_last < p.s_kv && (right < 0 || kv_last <= q_first + right) &&
+        (left < 0 || kv0 >= q_last - left || kv_last < sink);
     float mx[2] = {kNegInf, kNegInf};
 #pragma unroll
     for (int n = 0; n < BKV / 8; ++n) {
@@ -331,24 +376,27 @@ __global__ void __launch_bounds__(NTHREADS)
         const int cl = n * 8 + 2 * t + (e & 1);
         float v = s[n][e];
         if (QUANT) v *= sKs[cl];
-        if (SAFE) v *= p.sscale;
-        if (masked) {
+        if (ONLINE) v *= p.sscale;
+        if (FORM == kSoftcap) v = tanhf(v / p.cap) * p.cap;
+        if (!interior) {
           const int col = kv0 + cl;
           const int row = row_pos0 + (e >> 1) * 8;
-          if (col >= p.s_kv || (causal && col > row)) v = kNegInf;
+          if (col >= p.s_kv || (right >= 0 && col > row + right) ||
+              (left >= 0 && col < row - left && col >= sink))
+            v = kNegInf;
         }
         s[n][e] = v;
-        if (SAFE) mx[e >> 1] = fmaxf(mx[e >> 1], v);
+        if (ONLINE) mx[e >> 1] = fmaxf(mx[e >> 1], v);
       }
     }
     float alpha[2] = {1.f, 1.f};
-    if (SAFE) {
+    if (ONLINE) {
 #pragma unroll
       for (int hh = 0; hh < 2; ++hh) {
         mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 1));
         mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 2));
         const float m_new = fmaxf(m_row[hh], mx[hh]);
-        alpha[hh] = TRI ? exp2f(m_row[hh] - m_new) : expf(m_row[hh] - m_new);
+        alpha[hh] = EXP2 ? exp2f(m_row[hh] - m_new) : expf(m_row[hh] - m_new);
         m_row[hh] = m_new;
       }
     }
@@ -359,9 +407,9 @@ __global__ void __launch_bounds__(NTHREADS)
       for (int e = 0; e < 4; ++e) {
         const float v = s[n][e];
         float pv;
-        if (SAFE) {
+        if (ONLINE) {
           const float m = m_row[e >> 1];
-          pv = TRI ? exp2f(v - m) : expf(v - m);
+          pv = EXP2 ? exp2f(v - m) : expf(v - m);
           if (v == kNegInf) pv = 0.f;  // masked entry
         } else {
           pv = exp2f(fminf(v, kClamp));  // exp2(-1e30) == 0
@@ -375,9 +423,9 @@ __global__ void __launch_bounds__(NTHREADS)
     for (int hh = 0; hh < 2; ++hh) {
       rs[hh] += __shfl_xor_sync(0xffffffffu, rs[hh], 1);
       rs[hh] += __shfl_xor_sync(0xffffffffu, rs[hh], 2);
-      l_row[hh] = SAFE ? l_row[hh] * alpha[hh] + rs[hh] : l_row[hh] + rs[hh];
+      l_row[hh] = ONLINE ? l_row[hh] * alpha[hh] + rs[hh] : l_row[hh] + rs[hh];
     }
-    if (SAFE) {
+    if (ONLINE) {
 #pragma unroll
       for (int n = 0; n < D / 8; ++n) {
         o[n][0] *= alpha[0];
@@ -424,7 +472,7 @@ __global__ void __launch_bounds__(NTHREADS)
     }
     if (t == 0) {
       float v = logf(l);
-      if (SAFE) v = TRI ? m_row[hh] * kLn2 + v : m_row[hh] + v;
+      if (ONLINE) v = EXP2 ? m_row[hh] * kLn2 + v : m_row[hh] + v;
       p.lse[((long long)ib * p.h + ih) * p.s_q + qi] =
           l == 0.f ? __int_as_float(0xff800000) : v;  // -inf on a dead row
     }
@@ -433,10 +481,11 @@ __global__ void __launch_bounds__(NTHREADS)
 
 Params make_params(const void* q, const void* k, const void* v,
                    const float* ks, const float* vs, void* out, float* lse,
-                   const long long* dims, float qfold, float sscale) {
+                   const long long* dims, float qfold, float sscale,
+                   float cap) {
   // dims: b, h, h_kv, s_q, s_kv, q strides (b, s, h), k strides (b, s, h),
   // v strides (b, s, h), out strides (b, s, h), scale strides (b, h, s),
-  // q_off, causal
+  // q_off, left, right, sink
   Params p;
   p.q = q;
   p.k = k;
@@ -465,15 +514,18 @@ Params make_params(const void* q, const void* k, const void* v,
   p.c_sh = dims[18];
   p.c_ss = dims[19];
   p.q_off = (int)dims[20];
-  p.causal = (int)dims[21];
+  p.left = (int)dims[21];
+  p.right = (int)dims[22];
+  p.sink = (int)dims[23];
   p.qfold = qfold;
   p.sscale = sscale;
+  p.cap = cap;
   return p;
 }
 
-template <bool TRI, bool SAFE, bool QUANT>
+template <bool TRI, int FORM, bool QUANT>
 int launch(const Params& p, int b, cudaStream_t stream) {
-  auto kern = flash_fwd_kernel<TRI, SAFE, QUANT>;
+  auto kern = flash_fwd_kernel<TRI, FORM, QUANT>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
   if (e != cudaSuccess) return (int)e;
@@ -484,33 +536,66 @@ int launch(const Params& p, int b, cudaStream_t stream) {
 
 }  // namespace
 
+// Kernel B1: causal self-attention (dims' window fields: -1, 0, 0).
 extern "C" int lca_flash_fwd_causal_self(const void* q, const void* k,
                                          const void* v, void* out, float* lse,
                                          const long long* dims, float qfold,
                                          float sscale, int safe,
                                          void* stream) {
-  const Params p =
-      make_params(q, k, v, nullptr, nullptr, out, lse, dims, qfold, sscale);
+  const Params p = make_params(q, k, v, nullptr, nullptr, out, lse, dims,
+                               qfold, sscale, 0.f);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int b = (int)dims[0];
-  return safe ? launch<true, true, false>(p, b, st)
-              : launch<true, false, false>(p, b, st);
+  return safe ? launch<true, kOnlineExp2, false>(p, b, st)
+              : launch<true, kFast, false>(p, b, st);
 }
 
+// Kernel B4: self-attention (s_q == s_kv, q_off 0) with any window, sinks
+// and softcap. form: 0 fast, 1 online (exp2 units), 2 softcap.
+extern "C" int lca_flash_fwd_static(const void* q, const void* k,
+                                    const void* v, void* out, float* lse,
+                                    const long long* dims, float qfold,
+                                    float sscale, float cap, int form,
+                                    void* stream) {
+  const Params p = make_params(q, k, v, nullptr, nullptr, out, lse, dims,
+                               qfold, sscale, cap);
+  if (p.q_off != 0 || p.s_q != p.s_kv) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int b = (int)dims[0];
+  switch (form) {
+    case 0: return launch<false, kFast, false>(p, b, st);
+    case 1: return launch<false, kOnlineExp2, false>(p, b, st);
+    case 2: return launch<false, kSoftcap, false>(p, b, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// Kernel B3: q rows at q_off + i, bf16 or int8 K/V (ks != null), any
+// window, sinks and softcap. form: 0 fast, 1 online (natural units), 2
+// softcap.
 extern "C" int lca_flash_fwd_pos(const void* q, const void* k, const void* v,
                                  const float* ks, const float* vs, void* out,
                                  float* lse, const long long* dims,
-                                 float qfold, float sscale, int safe,
-                                 void* stream) {
-  const Params p = make_params(q, k, v, ks, vs, out, lse, dims, qfold, sscale);
+                                 float qfold, float sscale, float cap,
+                                 int form, void* stream) {
+  const Params p =
+      make_params(q, k, v, ks, vs, out, lse, dims, qfold, sscale, cap);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int b = (int)dims[0];
-  const bool quant = ks != nullptr;
-  if (safe)
-    return quant ? launch<false, true, true>(p, b, st)
-                 : launch<false, true, false>(p, b, st);
-  return quant ? launch<false, false, true>(p, b, st)
-               : launch<false, false, false>(p, b, st);
+  if (ks != nullptr) {
+    switch (form) {
+      case 0: return launch<false, kFast, true>(p, b, st);
+      case 1: return launch<false, kOnlineNat, true>(p, b, st);
+      case 2: return launch<false, kSoftcap, true>(p, b, st);
+      default: return (int)cudaErrorInvalidValue;
+    }
+  }
+  switch (form) {
+    case 0: return launch<false, kFast, false>(p, b, st);
+    case 1: return launch<false, kOnlineNat, false>(p, b, st);
+    case 2: return launch<false, kSoftcap, false>(p, b, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 extern "C" const char* lca_error_string(int err) {

@@ -6,8 +6,9 @@ norms), RMSNorm, RoPE over global positions and dense SwiGLU FFN, with
 
 * :func:`forward_local`: the single-device full-sequence forward,
   differentiable, attention through the autograd ``flash_attention``
-  (kernels B1 forward, B5 backward), each layer rematerialized per
-  ``ModelConfig.remat``;
+  (kernels B1 forward, B5 backward; B4 forward for a sliding window,
+  sinks or softcap, which serve but do not train yet), each layer
+  rematerialized per ``ModelConfig.remat``;
 * :func:`loss_local` and :func:`make_train_step`: next-token cross entropy
   and one optimizer step on one device;
 * :func:`prefill_chunk_step`: one prompt chunk against the cache so far
@@ -97,16 +98,28 @@ class ModelConfig:
         # need a slice not ported yet. ``layout`` orders the sequence across
         # a mesh's ring; on one device (the only mode here) every layout is
         # the same model.
-        for name, what in (("window_left", "sliding-window models"),
-                           ("softcap", "softcapped models"),
-                           ("sink_tokens", "attention sinks"),
-                           ("attn_impl", "attention implementations other "
+        for name, what in (("attn_impl", "attention implementations other "
                                          "than the Hopper kernels"),
                            ("block_sizes", "per-model kernel tile sizes"),
                            ("n_experts", "MoE layers"),
                            ("moe_capacity_factor", "MoE layers")):
             if getattr(self, name) != _PARITY_DEFAULTS[name]:
                 raise not_ported(f"{what} ({name}={getattr(self, name)!r})")
+
+    @property
+    def shaped_attention(self) -> bool:
+        """True for a sliding window, sinks or a softcap: such a model
+        serves, and its gradient is the windowed training slice, not ported
+        yet."""
+        return (self.window_left >= 0 or self.sink_tokens > 0
+                or self.softcap > 0)
+
+    def attention_kwargs(self) -> Dict[str, Any]:
+        """The attention-shape kwargs every attention call of the model
+        passes, as the JAX model does."""
+        return dict(window_size=(self.window_left, -1), softcap=self.softcap,
+                    sink_tokens=self.sink_tokens,
+                    safe_softmax=self.safe_softmax)
 
     @property
     def q_dim(self) -> int:
@@ -210,7 +223,7 @@ def _layer(cfg: ModelConfig, positions: torch.Tensor, x: torch.Tensor,
     b, s, _ = x.shape
     h = rmsnorm(x, lp["attn_norm"], cfg.norm_eps)
     q, k, v = _qkv(cfg, lp, h, positions)
-    attn = flash_attention(q, k, v, causal=True, safe_softmax=cfg.safe_softmax)
+    attn = flash_attention(q, k, v, causal=True, **cfg.attention_kwargs())
     x = x + (attn.reshape(b, s, cfg.q_dim) @ lp["wo"]).to(x.dtype)
     hh = rmsnorm(x, lp["mlp_norm"], cfg.norm_eps)
     x = x + _ffn(cfg, lp, hh).to(x.dtype)
@@ -286,12 +299,23 @@ def loss_local(params: Params, tokens: torch.Tensor, labels: torch.Tensor,
                mask: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """Masked-mean next-token cross entropy on one device: tokens, labels,
     mask (b, s); labels[i] is the token after tokens[i]. -sum(log p(label) *
-    mask) / max(sum(mask), 1), over fp32 logits."""
+    mask) / max(sum(mask), 1), over fp32 logits. Under autograd a config
+    with a window, sinks or softcap raises ``NotImplementedError``."""
+    if torch.is_grad_enabled():
+        _check_trainable(cfg)
     logits = forward_local(params, tokens, cfg)
     logp = torch.log_softmax(logits, dim=-1)
     ll = torch.gather(logp, -1, labels[..., None].long())[..., 0]
     maskf = mask.float()
     return -(ll * maskf).sum() / torch.clamp(maskf.sum(), min=1.0)
+
+
+def _check_trainable(cfg: ModelConfig) -> None:
+    if cfg.shaped_attention:
+        raise not_ported(
+            f"training a model with window_left={cfg.window_left}, "
+            f"sink_tokens={cfg.sink_tokens}, softcap={cfg.softcap} (the "
+            f"windowed backward of kernels B2a, B2b and B5)")
 
 
 def param_leaves(params: Params) -> List[torch.Tensor]:
@@ -315,9 +339,11 @@ def make_train_step(cfg: ModelConfig, optimizer: Callable, mesh=None, *,
     build it. The step updates ``params`` IN PLACE and returns them with
     the optimizer and the detached loss. ``device``: where the step runs
     (None means the card; raises without one); params and batch elsewhere
-    raise. A ``mesh`` (the sharded train step) is not ported yet."""
+    raise. A ``mesh`` (the sharded train step) and a config with a window,
+    sinks or softcap are not ported yet."""
     if mesh is not None:
         raise not_ported("the sharded train step (mesh)")
+    _check_trainable(cfg)
     dev = resolve_device(device)
 
     def step(params, opt_state, tokens, labels, mask):
@@ -353,8 +379,11 @@ def prefill_chunk_step(params: Params, cache, tokens: torch.Tensor,
     """Process one prompt chunk against the cache so far (chunked prefill).
 
     tokens (b, s_c) at global positions [start, start + s_c). The chunk's
-    causal self-attention (kernel B1) and its attention over the cache
-    prefix (kernel B3, int8 or bf16) merge by LSE. The chunk's K/V are
+    causal self-attention (kernel B1, or B4 under a window or softcap) and
+    its attention over the cache prefix (kernel B3, int8 or bf16, over the
+    sink tiles and the window band only) merge by LSE. The chunk's
+    self-attention takes the sinks that lie inside it (global positions
+    below ``sink_tokens``), the prefix call the rest. The chunk's K/V are
     written into the cache at [start, ...) and ``cache.length`` is set to
     start + s_c, IN PLACE. Returns (logits (b, s_c or 1, vocab) fp32,
     cache)."""
@@ -363,12 +392,14 @@ def prefill_chunk_step(params: Params, cache, tokens: torch.Tensor,
                              device=tokens.device) + start
     x = params["embed"][tokens]
     scale = cfg.head_dim ** -0.5
+    shape = cfg.attention_kwargs()
+    # the chunk's own sinks: its local columns below sink_tokens - start
+    local = dict(shape, sink_tokens=max(cfg.sink_tokens - start, 0))
     for i, lp in enumerate(layer_params(params)):
         h = rmsnorm(x, lp["attn_norm"], cfg.norm_eps)
         q, k, v = _qkv(cfg, lp, h, positions)
         out, lse = flash_attention_fwd(q, k, v, causal=True,
-                                       safe_softmax=cfg.safe_softmax,
-                                       softmax_scale=scale)
+                                       softmax_scale=scale, **local)
         if start > 0:
             kcl = cache.k[i, :, :, :start]
             vcl = cache.v[i, :, :, :start]
@@ -376,10 +407,11 @@ def prefill_chunk_step(params: Params, cache, tokens: torch.Tensor,
             if cache.k_scale is not None:
                 kscl = cache.k_scale[i, :, :, 0, :start]
                 vscl = cache.v_scale[i, :, :, 0, :start]
+            # causal: the prefix is strictly past the chunk's rows, and the
+            # finite right bound gives the kernel its banded walk
             c_out, c_lse = flash_attention_fwd_cache(
-                q, kcl, vcl, k_scale=kscl, v_scale=vscl,
-                safe_softmax=cfg.safe_softmax, q_start=start,
-                softmax_scale=scale, causal=True)
+                q, kcl, vcl, k_scale=kscl, v_scale=vscl, q_start=start,
+                softmax_scale=scale, causal=True, **shape)
             acc, _ = merge_attn_blocks(out.float(), lse, c_out, c_lse)
             out = acc.to(x.dtype)
         cache.write_prompt(i, k, v, start)
@@ -421,7 +453,7 @@ def decode_step(params: Params, cache, tokens: torch.Tensor,
         attn = decode_attention(q[:, 0], cache.k, cache.v, att_len,
                                 cache.k_scale, cache.v_scale,
                                 softmax_scale=scale, layer=i,
-                                safe_softmax=cfg.safe_softmax)
+                                **cfg.attention_kwargs())
         x = x + qdot(attn.reshape(b, 1, cfg.q_dim), lp["wo"]).to(x.dtype)
         hh = rmsnorm(x, lp["mlp_norm"], cfg.norm_eps)
         x = x + _ffn(cfg, lp, hh).to(x.dtype)

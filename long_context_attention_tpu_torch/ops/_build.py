@@ -146,9 +146,13 @@ KERNELS: Dict[str, Kernel] = {
         "flash_fwd_causal_self", "flash_fwd.cu", "lca_flash_fwd_causal_self",
         [_VP, _VP, _VP, _VP, _VP, _VP, _F, _F, _I, _VP],
         "long_context_attention_tpu/ops/flash.py:338"),
+    "flash_fwd_static": Kernel(
+        "flash_fwd_static", "flash_fwd.cu", "lca_flash_fwd_static",
+        [_VP] * 6 + [_F, _F, _F, _I, _VP],
+        "long_context_attention_tpu/ops/flash.py:475"),
     "flash_fwd_pos": Kernel(
         "flash_fwd_pos", "flash_fwd.cu", "lca_flash_fwd_pos",
-        [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _F, _F, _I, _VP],
+        [_VP] * 8 + [_F, _F, _F, _I, _VP],
         "long_context_attention_tpu/ops/flash.py:696"),
     # the backward entries share one C signature: q, k, v, dout, lse, delta,
     # dq, dk, dv (null where unused), dims, scale, stream
@@ -170,7 +174,7 @@ KERNELS: Dict[str, Kernel] = {
         "long_context_attention_tpu/ops/decode.py:40"),
     "decode_attention": Kernel(
         "decode_attention", "decode_attention.cu", "lca_decode_attention",
-        [_VP] * 12 + [_F, _I, _VP],
+        [_VP] * 12 + [_F, _F, _I, _VP],
         "long_context_attention_tpu/ops/decode.py:296"),
 }
 

@@ -11,11 +11,13 @@ KV cache (layer-stacked or not), bf16 or int8:
   head to the cache up to per-row lengths.
 
 Each wrapper runs its plain version (``*_plain``, same arithmetic) for CPU
-tensors and launches its kernel, or raises, for CUDA tensors. Not ported
-yet, and raising ``NotImplementedError``: paged caches, sliding windows and
-sinks, softcap, ALiBi, sharded-cache columns (``first_cols``,
-``sink_cols``), multi-token verify runs, ``kv_splits``, fp8/int4 caches and
-the int8 dequant-cast path (``mxu_int8=False``).
+tensors and launches its kernel, or raises, for CUDA tensors. Decode takes
+a sliding window with StreamingLLM sinks and a logit softcap; the kernel
+walks a row's sink tiles and window band only. Not ported yet, and raising
+``NotImplementedError``: paged caches, ALiBi, sharded-cache columns
+(``first_cols``, ``sink_cols``, ``sink_band``), multi-token verify runs,
+``kv_splits``, fp8/int4 caches and the int8 dequant-cast path
+(``mxu_int8=False``).
 """
 
 from __future__ import annotations
@@ -169,14 +171,20 @@ def reference_block_kv(block_kv: int, s_max: int, h_kv: int, rows: int,
 def decode_attention_core_plain(q_in, q_rs, k_cache, v_cache, k_scale,
                                 v_scale, lengths, *, layer: int,
                                 block_kv: int, scale: float,
-                                safe_softmax: bool = False):
-    """Plain version of kernel B7, tile by tile as the kernel goes.
+                                safe_softmax: bool = False,
+                                window_left: int = -1, sink_tokens: int = 0,
+                                softcap: float = 0.0):
+    """Plain version of kernel B7, tile by tile on the kernel's tile grid.
 
     q_in (b, h_kv, G, d): int8 with fp32 row scales q_rs (b, h_kv, G) that
     already carry the softmax scale (and log2e in the fast form), or bf16
     (folded in the fast form) with q_rs None. Cache (L, b, h_kv, s_max, d),
-    scales (L, b, h_kv, 1, s_max). Returns fp32 out (b, h_kv, G, d) and lse
-    (b, h_kv, G)."""
+    scales (L, b, h_kv, 1, s_max). A row at length n sees columns [n - 1 -
+    window_left, n - 1] (all up to n - 1 when window_left < 0) and those
+    below ``sink_tokens``; ``softcap`` caps the scores before the mask and
+    needs the online form (``safe_softmax``). Every tile is visited here;
+    the kernel skips those with no visible column, which add nothing.
+    Returns fp32 out (b, h_kv, G, d) and lse (b, h_kv, G)."""
     kc, vc = k_cache[layer], v_cache[layer]
     b, h_kv, G, d = q_in.shape
     s_max = kc.shape[2]
@@ -186,6 +194,8 @@ def decode_attention_core_plain(q_in, q_rs, k_cache, v_cache, k_scale,
     l = torch.zeros((b, h_kv, G), dtype=torch.float32, device=dev)
     acc = torch.zeros((b, h_kv, G, d), dtype=torch.float32, device=dev)
     qpos = lengths.to(device=dev, dtype=torch.long) - 1
+    first = (qpos - window_left if window_left >= 0
+             else torch.zeros_like(qpos))
     qf = q_in.float()
     for c0 in range(0, s_max, block_kv):
         kt = kc[:, :, c0:c0 + block_kv].float()
@@ -197,8 +207,12 @@ def decode_attention_core_plain(q_in, q_rs, k_cache, v_cache, k_scale,
             s = s * k_scale[layer][:, :, :, c0:c0 + n]
         elif safe_softmax:
             s = s * scale
-        cols = torch.arange(c0, c0 + n, device=dev)
-        invisible = (cols[None, :] > qpos[:, None])[:, None, None, :]
+        if softcap:
+            s = softcap * torch.tanh(s / softcap)
+        cols = torch.arange(c0, c0 + n, device=dev)[None, :]
+        invisible = (cols > qpos[:, None]) | (
+            (cols < first[:, None]) & (cols >= sink_tokens))
+        invisible = invisible[:, None, None, :]
         s = s.masked_fill(invisible, NEG_INF)
         if safe_softmax:
             m_new = torch.maximum(m, s.amax(dim=-1))
@@ -232,19 +246,23 @@ def decode_attention_core_plain(q_in, q_rs, k_cache, v_cache, k_scale,
 
 def decode_attention_core(q_in, q_rs, k_cache, v_cache, k_scale, v_scale,
                           lengths, *, layer: int, block_kv: int, scale: float,
-                          safe_softmax: bool = False):
+                          safe_softmax: bool = False, window_left: int = -1,
+                          sink_tokens: int = 0, softcap: float = 0.0):
     """Kernel B7 wrapper (arguments as :func:`decode_attention_core_plain`).
 
-    The kv range splits into runs of whole ``block_kv`` tiles, one block per
-    (run, kv head, row), so small batches still fill the card; a second
-    kernel in the same entry point merges the runs' partials with the
-    arithmetic of :func:`merge_partials`. CPU tensors take the plain
-    version."""
+    A row's live ``block_kv`` tiles (its sink tiles, then its window band,
+    or all up to its length) split into runs, one block per (run, kv head,
+    row), so small batches still fill the card; a second kernel in the
+    same entry point merges the runs' partials with the arithmetic of
+    :func:`merge_partials`. CPU tensors take the plain version."""
+    if softcap and not safe_softmax:
+        raise ValueError("softcap needs the online form (safe_softmax)")
     if q_in.device.type == "cpu":
         return decode_attention_core_plain(
             q_in, q_rs, k_cache, v_cache, k_scale, v_scale, lengths,
             layer=layer, block_kv=block_kv, scale=scale,
-            safe_softmax=safe_softmax)
+            safe_softmax=safe_softmax, window_left=window_left,
+            sink_tokens=sink_tokens, softcap=softcap)
     b, h_kv, G, d = q_in.shape
     L, _, _, s_max, _ = k_cache.shape
     dev = q_in.device
@@ -276,6 +294,9 @@ def decode_attention_core(q_in, q_rs, k_cache, v_cache, k_scale, v_scale,
     # point returns cudaErrorInvalidValue) and raises there
     lens = lengths.to(device=dev, dtype=torch.int32).contiguous()
     nk = -(-s_max // block_kv)
+    if window_left >= 0:  # the most live tiles a row can have
+        nk = min(nk, -(-sink_tokens // block_kv)
+                 + (window_left + block_kv) // block_kv + 1)
     splits = max(1, min(nk, -(-_TARGET_BLOCKS // (b * h_kv))))
     per_split = -(-nk // splits)
     splits = -(-nk // per_split)
@@ -288,12 +309,13 @@ def decode_attention_core(q_in, q_rs, k_cache, v_cache, k_scale, v_scale,
         part_lse = torch.empty((b, splits, h_kv, G), dtype=torch.float32,
                                device=dev)
     dims = _build.dims_array([b, h_kv, G, s_max, layer, block_kv, splits,
-                              per_split])
+                              per_split, window_left,
+                              sink_tokens if window_left >= 0 else 0])
     p = _build.ptr
     _build.KERNELS["decode_attention"](
         p(q_in), p(q_rs), p(k_cache), p(v_cache), p(k_scale), p(v_scale),
         p(lens), p(part_out), p(part_lse), p(out), p(lse), dims, scale,
-        int(safe_softmax), _build.stream_ptr(dev))
+        float(softcap), int(safe_softmax), _build.stream_ptr(dev))
     return out, lse
 
 
@@ -332,12 +354,16 @@ def decode_attention(q, k_cache, v_cache, lengths, k_scale=None,
     q (b, h, d) (or (b, 1, h, d)); cache (b, h_kv, s_max, d) or the stacked
     (L, b, h_kv, s_max, d) with ``layer`` (an int); int8 caches pass scales
     in the cache's (.., h_kv, 1, s_max) layout; ``lengths`` (b,) int32 is
-    the visible prefix per row including the newest token. The int8 path
-    row-quantizes q (absmax/127, scale and log2e folded into the row scale)
-    and runs s8 x s8 products, requantizing P per ``block_kv`` tile; the
-    tile follows the JAX package's rule (:func:`reference_block_kv`).
-    Returns out (b, h, d) bf16 (+ lse (b, h) fp32 with ``return_lse``)."""
-    del interpret, sink_tokens, sink_band  # sinks act only with a window
+    the visible prefix per row including the newest token. A left
+    ``window_size`` keeps the last window + 1 columns of each row, and
+    ``sink_tokens`` the first ones beside them (sinks act only with a
+    window); ``softcap`` caps the scores and takes the online form. The
+    int8 path row-quantizes q (absmax/127, scale and log2e folded into the
+    row scale) and runs s8 x s8 products, requantizing P per ``block_kv``
+    tile; the tile follows the JAX package's rule
+    (:func:`reference_block_kv`). Returns out (b, h, d) bf16 (+ lse (b, h)
+    fp32 with ``return_lse``)."""
+    del interpret
     multi = q.dim() == 4
     if multi:
         if q.shape[1] != 1:
@@ -347,10 +373,16 @@ def decode_attention(q, k_cache, v_cache, lengths, k_scale=None,
         raise not_ported("the paged cache")
     if kv_splits not in (None, 1):
         raise not_ported("kv_splits")
-    if tuple(window_size)[0] >= 0 or softcap or alibi_slopes is not None:
-        raise not_ported("windowed, softcapped and ALiBi decode")
-    if first_cols is not None or sink_cols is not None:
-        raise not_ported("sequence-sharded decode (first_cols/sink_cols)")
+    if alibi_slopes is not None:
+        raise not_ported("ALiBi decode")
+    if first_cols is not None or sink_cols is not None or sink_band:
+        raise not_ported("sequence-sharded decode (first_cols/sink_cols/"
+                         "sink_band)")
+    if softcap < 0:
+        raise ValueError(f"softcap must be >= 0, got {softcap}")
+    w_left = int(tuple(window_size)[0])
+    sink = int(sink_tokens) if w_left >= 0 else 0
+    online = bool(safe_softmax) or softcap > 0
     layered = layer is not None
     li = int(layer) if layered else 0
     kc = k_cache if layered else k_cache[None]
@@ -364,10 +396,11 @@ def decode_attention(q, k_cache, v_cache, lengths, k_scale=None,
     scale = softmax_scale if softmax_scale is not None else d ** -0.5
     q_in, q_rs, bkv = decode_query_operands(q, kc, quant, scale=scale,
                                             block_kv=block_kv,
-                                            safe_softmax=safe_softmax)
+                                            safe_softmax=online)
     out, lse = decode_attention_core(q_in, q_rs, kc, vc, ks, vs, lengths,
                                      layer=li, block_kv=bkv, scale=scale,
-                                     safe_softmax=safe_softmax)
+                                     safe_softmax=online, window_left=w_left,
+                                     sink_tokens=sink, softcap=float(softcap))
     out = out.to(torch.bfloat16).reshape(b, h, d)
     lse = lse.reshape(b, h)
     if multi:

@@ -1,32 +1,37 @@
 """Flash attention on Hopper: the public API, forward and backward, and its
-five kernels.
+six kernels.
 
 Counterpart of ``long_context_attention_tpu/ops/flash.py``. The public
 functions keep the JAX package's names, BSHD layout, kwargs and ``(out, lse
-fp32)`` contract. Five kernel wrappers sit under them, each with a plain
+fp32)`` contract. Six kernel wrappers sit under them, each with a plain
 PyTorch version of the same arithmetic in this module:
 
 * :func:`flash_fwd_causal_self` (kernel B1, ``csrc/flash_fwd.cu``):
   causal self-attention with s_q == s_kv, the TPU's ``_fwd_kernel_tri``.
+* :func:`flash_fwd_static` (kernel B4, ``csrc/flash_fwd.cu``): any other
+  self-attention with s_q == s_kv and positions from 0 -- non-causal,
+  sliding window, StreamingLLM sinks, softcap -- the TPU's
+  ``_fwd_kernel_static``.
 * :func:`flash_fwd_pos` (kernel B3, ``csrc/flash_fwd.cu``): q rows at
   global positions ``q_start + i`` against a BHSD kv (a cache slice, taken
-  by strides), optionally causal, bf16 or int8 K/V with per-token scales,
-  the TPU's ``_fwd_kernel``.
+  by strides), with the same masks and softcap, bf16 or int8 K/V with
+  per-token scales, the TPU's ``_fwd_kernel``.
 * :func:`flash_bwd_dq` (B2a), :func:`flash_bwd_dkv` (B2b) and
   :func:`flash_bwd_fused` (B5), ``csrc/flash_bwd.cu``: the TPU's
   ``_dq_kernel``, ``_dkv_kernel`` and ``_bwd_fused_kernel``, fp32 partials.
 
-:func:`flash_attention` is differentiable. As in the JAX package
-(``_flash_bwd_bhsd``), causal self-attention with no position offsets runs
-B1 forward and the one-pass B5 backward; one-chunk ``q_offsets`` /
-``kv_offsets`` (the ring step's call) run B3 forward and B2a + B2b
-backward. The forward is one ``torch.library`` op, so a selective-
-checkpoint policy can save its (out, lse) and skip it in the recompute.
+:func:`flash_attention` routes its forward as the JAX package's
+``_flash_fwd_bhsd`` does: B1 for plain causal self-attention, B4 for any
+other self-attention without offsets, B3 with one-chunk offsets or s_q !=
+s_kv (bottom-right aligned). It is differentiable: B5 is the backward of
+B1 and B4, B2a + B2b that of B3. The forward is one ``torch.library`` op,
+so a selective-checkpoint policy can save its (out, lse) and skip it in
+the recompute. The backward of windows, sinks and softcap is not ported
+yet: a gradient through them raises ``NotImplementedError``.
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
-launches the kernel or raises. Features the kernels do not take (sliding
-windows, sinks, softcap, segments, ALiBi, dropout, position chunks and
-strides, non-causal self-attention without offsets) raise
+launches the kernel or raises. Features the kernels do not take (segments,
+ALiBi, dropout, position chunks and strides) raise
 ``NotImplementedError``; they come in later slices.
 """
 
@@ -45,21 +50,31 @@ __all__ = ["flash_attention", "flash_attention_bwd", "flash_attention_fwd",
            "flash_bwd_dq", "flash_bwd_dq_plain", "flash_bwd_fused",
            "flash_bwd_fused_plain", "flash_fwd_causal_self",
            "flash_fwd_causal_self_plain", "flash_fwd_pos",
-           "flash_fwd_pos_plain", "FLASH_ATTENTION_OP"]
+           "flash_fwd_pos_plain", "flash_fwd_static",
+           "flash_fwd_static_plain", "FLASH_ATTENTION_OP"]
 
 _LOG2E = math.log2(math.e)
 _LN2 = math.log(2.0)
 # Fast-softmax score clamp in exp2 units (raw score <= _CLAMP / log2(e)).
 _CLAMP = 90.0
 _HEAD_DIM = 128  # the head dim the Hopper kernels are built for
+# softmax forms of the forward kernels' C entry points
+_FAST, _ONLINE, _SOFTCAP = 0, 1, 2
+
+_QUANT_FORWARD_ONLY = ("this attention path is forward-only, as in the JAX "
+                       "package: the quantized-KV and cache paths have no "
+                       "backward")
+_SHAPE_FORWARD_ONLY = str(not_ported(
+    "the gradient of sliding windows, attention sinks and softcap (their "
+    "masks in kernels B2a, B2b and B5, the windowed training slice)"))
 
 
-def _forward_only(*tensors) -> None:
+def _forward_only(why: str, *tensors) -> None:
+    """Raise ``NotImplementedError(why)`` when autograd would record a
+    gradient through ``tensors``, which this path has no backward for."""
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            "this attention path is forward-only, as in the JAX package: "
-            "the quantized-KV and cache paths have no backward")
+        raise NotImplementedError(why)
 
 
 def _fold(q: torch.Tensor, scale: float) -> torch.Tensor:
@@ -79,6 +94,40 @@ def _check_cuda_operand(name: str, t: torch.Tensor, dtype, device) -> None:
         raise ValueError(f"{name} must be 16-byte aligned in every row")
 
 
+def _masks(causal: bool, window_size, sink_tokens: int, softcap: float
+           ) -> Tuple[int, int, int]:
+    """(left, right, sink) of the forward kernels from the JAX kwargs:
+    flash-attn semantics, causal overrides the right window to 0; -1 means
+    unbounded; sinks act only through a left window (flash.py:1794)."""
+    left, right = (int(w) for w in window_size)
+    if softcap < 0:
+        raise ValueError(f"softcap must be >= 0, got {softcap}")
+    if causal:
+        right = 0
+    return left, right, (int(sink_tokens) if left >= 0 else 0)
+
+
+def _mask(q_pos: torch.Tensor, s_kv: int, left: int, right: int, sink: int
+          ) -> Optional[torch.Tensor]:
+    """Boolean (s_q, s_kv) mask over q rows at ``q_pos`` and kv columns at
+    0..s_kv-1, True where the score is dropped (_tile_mask)."""
+    if left < 0 and right < 0:
+        return None
+    rows = q_pos[:, None]
+    cols = torch.arange(s_kv, device=q_pos.device)[None, :]
+    mask = torch.zeros((rows.shape[0], s_kv), dtype=torch.bool,
+                       device=q_pos.device)
+    if right >= 0:
+        mask |= cols > rows + right
+    if left >= 0:
+        mask |= (cols < rows - left) & (cols >= sink)
+    return mask
+
+
+def _form(safe_softmax: bool, softcap: float) -> int:
+    return _SOFTCAP if softcap > 0 else (_ONLINE if safe_softmax else _FAST)
+
+
 def _finish(acc, l, m, safe: bool, exp2_units: bool, out_dtype):
     """out = acc / l and lse, with the dead-row identity (out 0, lse -inf)."""
     dead = l == 0.0
@@ -92,6 +141,69 @@ def _finish(acc, l, m, safe: bool, exp2_units: bool, out_dtype):
     return out.to(out_dtype), lse
 
 
+def _attend_plain(q, kf, vf, mask, *, scale: float, form: int,
+                  exp2_units: bool, softcap: float, vdt, k_scale=None,
+                  v_scale=None):
+    """The forward kernels' arithmetic, whole rows at once.
+
+    q (b, s_q, h, d); kf, vf (b, h, s_kv, d) fp32 holding the operand
+    dtype's values, repeated to h heads; k_scale / v_scale (b, h, s_kv) or
+    None; mask (s_q, s_kv), True = drop. Fast form: q folded by scale*log2e
+    in its dtype, p = exp2(min(s, 90)). Online forms: the exact softmax
+    (the kernels' running max gives the same values up to rounding), in
+    exp2 units when ``exp2_units`` and natural units otherwise; softcap:
+    s = cap * tanh(s * scale / cap) in natural units. l sums p before V's
+    scale; the PV product takes p (times V's scale) cast to ``vdt``."""
+    online = form != _FAST
+    units2 = exp2_units and form != _SOFTCAP
+    qf = (q if online else _fold(q, scale)).float()
+    sc = torch.einsum("bqhd,bhkd->bhqk", qf, kf)
+    if k_scale is not None:
+        sc.mul_(k_scale[:, :, None, :])
+    if online:
+        sc.mul_(scale * _LOG2E if units2 else scale)
+    if form == _SOFTCAP:
+        sc = torch.tanh(sc.div_(softcap)).mul_(softcap)
+    if mask is not None:
+        sc.masked_fill_(mask, NEG_INF)
+    m = None
+    if online:
+        m = sc.amax(dim=-1)
+        sc.sub_(m[..., None])
+        p = sc.exp2_() if units2 else sc.exp_()
+        if mask is not None:
+            p.masked_fill_(mask, 0.0)
+    else:
+        p = sc.clamp_(max=_CLAMP).exp2_()
+    l = p.sum(dim=-1)
+    if v_scale is not None:
+        p.mul_(v_scale[:, :, None, :])
+    acc = torch.einsum("bhqk,bhkd->bhqd", p.to(vdt).float(), vf)
+    out, lse = _finish(acc, l, m, online, units2, q.dtype)
+    return out.transpose(1, 2), lse
+
+
+def _self_dims(q, k, v, out, left: int, right: int, sink: int):
+    """The C entry points' dims for self-attention (no scales, q_off 0)."""
+    b, s, h, _ = q.shape
+    return _build.dims_array([
+        b, h, k.shape[2], s, s, *q.stride()[:3], *k.stride()[:3],
+        *v.stride()[:3], *out.stride()[:3], 0, 0, 0, 0, left, right, sink])
+
+
+def _check_self(name: str, q, k, v) -> None:
+    b, s, h, d = q.shape
+    h_kv = k.shape[2]
+    if k.shape != (b, s, h_kv, d) or v.shape != k.shape or h % h_kv:
+        raise ValueError(f"shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)} are not self-attention")
+    if d != _HEAD_DIM:
+        raise NotImplementedError(f"the {name} kernel is built for head_dim "
+                                  f"{_HEAD_DIM}, got {d}")
+    for arg, t in (("q", q), ("k", k), ("v", v)):
+        _check_cuda_operand(arg, t, torch.bfloat16, q.device)
+
+
 # ---------------------------------------------------------------------------
 # B1: causal self-attention
 # ---------------------------------------------------------------------------
@@ -100,33 +212,13 @@ def _finish(acc, l, m, safe: bool, exp2_units: bool, out_dtype):
 def flash_fwd_causal_self_plain(q: torch.Tensor, k: torch.Tensor,
                                 v: torch.Tensor, *, scale: float,
                                 safe_softmax: bool = False):
-    """Plain version of kernel B1 (same arithmetic, whole rows at once).
+    """Plain version of kernel B1: :func:`flash_fwd_static_plain` with the
+    causal mask (the two kernels share their arithmetic).
 
     q (b, s, h, d); k, v (b, s, h_kv, d) -> out (b, s, h, d) in q's dtype,
-    lse (b, h, s) fp32. Fast form: q folded by scale*log2e in its dtype,
-    p = exp2(min(s, 90)), out = (bf16(p) @ v) / rowsum(p). Safe form: the
-    exact softmax in exp2 units (the kernel's online max gives the same
-    values up to rounding)."""
-    b, s, h, d = q.shape
-    g = h // k.shape[2]
-    qf = q.float() if safe_softmax else _fold(q, scale).float()
-    kf = k.float().repeat_interleave(g, dim=2)
-    vf = v.float().repeat_interleave(g, dim=2)
-    sc = torch.einsum("bqhd,bkhd->bhqk", qf, kf)
-    if safe_softmax:
-        sc = sc * (scale * _LOG2E)
-    mask = torch.ones((s, s), dtype=torch.bool, device=q.device).triu(1)
-    sc = sc.masked_fill(mask, NEG_INF)
-    m = None
-    if safe_softmax:
-        m = sc.amax(dim=-1)
-        p = torch.exp2(sc - m[..., None]).masked_fill(mask, 0.0)
-    else:
-        p = torch.exp2(torch.clamp(sc, max=_CLAMP))
-    l = p.sum(dim=-1)
-    acc = torch.einsum("bhqk,bkhd->bhqd", p.to(v.dtype).float(), vf)
-    out, lse = _finish(acc, l, m, safe_softmax, True, q.dtype)
-    return out.transpose(1, 2), lse
+    lse (b, h, s) fp32."""
+    return flash_fwd_static_plain(q, k, v, scale=scale, causal=True,
+                                  safe_softmax=safe_softmax)
 
 
 def flash_fwd_causal_self(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -139,25 +231,71 @@ def flash_fwd_causal_self(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         return flash_fwd_causal_self_plain(q, k, v, scale=scale,
                                            safe_softmax=safe_softmax)
+    _check_self("B1", q, k, v)
     b, s, h, d = q.shape
-    h_kv = k.shape[2]
-    if k.shape != (b, s, h_kv, d) or v.shape != k.shape or h % h_kv:
-        raise ValueError(f"shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
-                         f"v {tuple(v.shape)} are not causal self-attention")
-    if d != _HEAD_DIM:
-        raise NotImplementedError(f"the B1 kernel is built for head_dim "
-                                  f"{_HEAD_DIM}, got {d}")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        _check_cuda_operand(name, t, torch.bfloat16, q.device)
     out = torch.empty((b, s, h, d), dtype=torch.bfloat16, device=q.device)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
-    dims = _build.dims_array([
-        b, h, h_kv, s, s, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-        *out.stride()[:3], 0, 0, 0, 0, 1])
     _build.KERNELS["flash_fwd_causal_self"](
         _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(out),
-        _build.ptr(lse), dims, scale * _LOG2E, scale * _LOG2E,
-        int(safe_softmax), _build.stream_ptr(q.device))
+        _build.ptr(lse), _self_dims(q, k, v, out, -1, 0, 0),
+        scale * _LOG2E, scale * _LOG2E, int(safe_softmax),
+        _build.stream_ptr(q.device))
+    return out, lse
+
+
+# ---------------------------------------------------------------------------
+# B4: self-attention with positions from 0, any mask
+# ---------------------------------------------------------------------------
+
+
+def flash_fwd_static_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           *, scale: float, causal: bool = False,
+                           window_size=(-1, -1), sink_tokens: int = 0,
+                           softcap: float = 0.0, safe_softmax: bool = False):
+    """Plain version of kernel B4 (same arithmetic, whole rows at once).
+
+    q (b, s, h, d); k, v (b, s, h_kv, d), row i and column j both at
+    position i, j -> out (b, s, h, d) in q's dtype, lse (b, h, s) fp32. The
+    online form works in exp2 units (_fwd_kernel_static), softcap in
+    natural units."""
+    s, h = q.shape[1], q.shape[2]
+    g = h // k.shape[2]
+    left, right, sink = _masks(causal, window_size, sink_tokens, softcap)
+    mask = _mask(torch.arange(s, device=q.device), s, left, right, sink)
+    kf, vf = (t.transpose(1, 2).float().repeat_interleave(g, dim=1)
+              for t in (k, v))
+    return _attend_plain(q, kf, vf, mask, scale=scale,
+                         form=_form(safe_softmax, softcap), exp2_units=True,
+                         softcap=softcap, vdt=v.dtype)
+
+
+def flash_fwd_static(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                     scale: float, causal: bool = False, window_size=(-1, -1),
+                     sink_tokens: int = 0, softcap: float = 0.0,
+                     safe_softmax: bool = False):
+    """Kernel B4 wrapper: self-attention forward, BSHD in and out.
+
+    q (b, s, h, d) bf16; k, v (b, s, h_kv, d) bf16 -> out (b, s, h, d) bf16
+    and lse (b, h, s) fp32; causal or not, ``window_size`` (left, right),
+    ``sink_tokens`` and ``softcap`` as in :func:`flash_attention`. The
+    kernel walks the sink tiles and each q tile's band only. CPU tensors
+    take :func:`flash_fwd_static_plain`."""
+    if q.device.type == "cpu":
+        return flash_fwd_static_plain(
+            q, k, v, scale=scale, causal=causal, window_size=window_size,
+            sink_tokens=sink_tokens, softcap=softcap,
+            safe_softmax=safe_softmax)
+    left, right, sink = _masks(causal, window_size, sink_tokens, softcap)
+    _check_self("B4", q, k, v)
+    b, s, h, d = q.shape
+    out = torch.empty((b, s, h, d), dtype=torch.bfloat16, device=q.device)
+    lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    form = _form(safe_softmax, softcap)
+    _build.KERNELS["flash_fwd_static"](
+        _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(out),
+        _build.ptr(lse), _self_dims(q, k, v, out, left, right, sink),
+        scale * _LOG2E, scale * _LOG2E if form == _ONLINE else scale,
+        float(softcap), form, _build.stream_ptr(q.device))
     return out, lse
 
 
@@ -170,63 +308,54 @@ def flash_fwd_pos_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         k_scale: Optional[torch.Tensor] = None,
                         v_scale: Optional[torch.Tensor] = None, *,
                         q_start: int = 0, causal: bool = False,
-                        scale: float, safe_softmax: bool = False):
+                        window_size=(-1, -1), sink_tokens: int = 0,
+                        softcap: float = 0.0, scale: float,
+                        safe_softmax: bool = False):
     """Plain version of kernel B3 (same arithmetic, whole rows at once).
 
     q (b, s_q, h, d) at positions q_start + i; k, v (b, h_kv, s_kv, d) at
     positions j, bf16 or int8 with fp32 scales (b, h_kv, s_kv). Fast form:
     s = (q folded) . k * k_scale, p = exp2(min(s, 90)), l = rowsum(p) before
-    V's scale, acc = bf16(p * v_scale) @ v. Safe form: s = q . k * k_scale *
-    scale and the exact softmax in natural units."""
-    b, s_q, h, d = q.shape
+    V's scale, acc = bf16(p * v_scale) @ v. Online form: s = q . k * k_scale
+    * scale and the exact softmax in natural units; softcap caps s first."""
+    s_q, h = q.shape[1], q.shape[2]
     s_kv = k.shape[2]
     g = h // k.shape[1]
     quant = k_scale is not None
     vdt = torch.bfloat16 if quant else v.dtype
-    qf = q.float() if safe_softmax else _fold(q, scale).float()
-    kf = k.to(vdt).float().repeat_interleave(g, dim=1)
-    vf = v.to(vdt).float().repeat_interleave(g, dim=1)
-    sc = torch.einsum("bqhd,bhkd->bhqk", qf, kf)
+    left, right, sink = _masks(causal, window_size, sink_tokens, softcap)
+    mask = _mask(q_start + torch.arange(s_q, device=q.device), s_kv, left,
+                 right, sink)
+    kf, vf = (t.to(vdt).float().repeat_interleave(g, dim=1) for t in (k, v))
+    ks = vs = None
     if quant:
-        sc = sc * k_scale.float().repeat_interleave(g, dim=1)[:, :, None, :]
-    if safe_softmax:
-        sc = sc * scale
-    mask = None
-    if causal:
-        rows = q_start + torch.arange(s_q, device=q.device)
-        cols = torch.arange(s_kv, device=q.device)
-        mask = cols[None, :] > rows[:, None]
-        sc = sc.masked_fill(mask, NEG_INF)
-    m = None
-    if safe_softmax:
-        m = sc.amax(dim=-1)
-        p = torch.exp(sc - m[..., None])
-        if mask is not None:
-            p = p.masked_fill(mask, 0.0)
-    else:
-        p = torch.exp2(torch.clamp(sc, max=_CLAMP))
-    l = p.sum(dim=-1)
-    if quant:
-        p = p * v_scale.float().repeat_interleave(g, dim=1)[:, :, None, :]
-    acc = torch.einsum("bhqk,bhkd->bhqd", p.to(vdt).float(), vf)
-    out, lse = _finish(acc, l, m, safe_softmax, False, q.dtype)
-    return out.transpose(1, 2), lse
+        ks, vs = (t.float().repeat_interleave(g, dim=1)
+                  for t in (k_scale, v_scale))
+    return _attend_plain(q, kf, vf, mask, scale=scale,
+                         form=_form(safe_softmax, softcap), exp2_units=False,
+                         softcap=softcap, vdt=vdt, k_scale=ks, v_scale=vs)
 
 
 def flash_fwd_pos(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   k_scale: Optional[torch.Tensor] = None,
                   v_scale: Optional[torch.Tensor] = None, *,
-                  q_start: int = 0, causal: bool = False, scale: float,
+                  q_start: int = 0, causal: bool = False,
+                  window_size=(-1, -1), sink_tokens: int = 0,
+                  softcap: float = 0.0, scale: float,
                   safe_softmax: bool = False):
     """Kernel B3 wrapper: q (b, s_q, h, d) bf16 against k, v (b, h_kv, s_kv,
     d), bf16 or int8 with fp32 scales (b, h_kv, s_kv). k, v and the scales
-    may be strided views (a cache slice); they are read in place. Returns
+    may be strided views (a cache slice); they are read in place. Masks and
+    softcap as in :func:`flash_attention`, over q rows at ``q_start + i``;
+    the kernel walks the sink tiles and each q tile's band only. Returns
     out (b, s_q, h, d) bf16 and lse (b, h, s_q) fp32. CPU tensors take
     :func:`flash_fwd_pos_plain`."""
     if q.device.type == "cpu":
-        return flash_fwd_pos_plain(q, k, v, k_scale, v_scale,
-                                   q_start=q_start, causal=causal,
-                                   scale=scale, safe_softmax=safe_softmax)
+        return flash_fwd_pos_plain(
+            q, k, v, k_scale, v_scale, q_start=q_start, causal=causal,
+            window_size=window_size, sink_tokens=sink_tokens,
+            softcap=softcap, scale=scale, safe_softmax=safe_softmax)
+    left, right, sink = _masks(causal, window_size, sink_tokens, softcap)
     b, s_q, h, d = q.shape
     _, h_kv, s_kv, _ = k.shape
     if k.shape != (b, h_kv, s_kv, d) or v.shape != k.shape or h % h_kv:
@@ -259,11 +388,11 @@ def flash_fwd_pos(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kst = (k.stride(0), k.stride(2), k.stride(1))  # (batch, seq, head)
     dims = _build.dims_array([
         b, h, h_kv, s_q, s_kv, *q.stride()[:3], *kst, *kst,
-        *out.stride()[:3], *sc_strides, int(q_start), int(causal)])
+        *out.stride()[:3], *sc_strides, int(q_start), left, right, sink])
     _build.KERNELS["flash_fwd_pos"](
         _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(k_scale),
         _build.ptr(v_scale), _build.ptr(out), _build.ptr(lse), dims,
-        scale * _LOG2E, scale, int(safe_softmax),
+        scale * _LOG2E, scale, float(softcap), _form(safe_softmax, softcap),
         _build.stream_ptr(q.device))
     return out, lse
 
@@ -455,36 +584,48 @@ def _flash_bwd(q, k, v, out, lse, dout, *, q_start: Optional[int],
 # The differentiable forward: one torch.library op with its backward
 # ---------------------------------------------------------------------------
 
+# kernels of the op's forward (argument ``route``)
+_B1, _B4, _B3 = 0, 1, 2
+
 
 @torch.library.custom_op("lca_torch::flash_attention", mutates_args=())
-def _flash_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-              positional: bool, q_start: int, causal: bool, scale: float,
-              safe_softmax: bool) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(out, lse) of BSHD q, k, v: B1 for causal self-attention, or B3 with
-    q rows at positions q_start + i when ``positional``."""
-    if positional:
-        return flash_fwd_pos(q, k.transpose(1, 2), v.transpose(1, 2),
-                             q_start=q_start, causal=causal, scale=scale,
-                             safe_softmax=safe_softmax)
-    return flash_fwd_causal_self(q, k, v, scale=scale,
-                                 safe_softmax=safe_softmax)
+def _flash_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, route: int,
+              q_start: int, causal: bool, window_left: int,
+              window_right: int, sink_tokens: int, softcap: float,
+              scale: float, safe_softmax: bool
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(out, lse) of BSHD q, k, v through kernel B1, B4 or B3 (``route``);
+    B3 puts q rows at positions q_start + i."""
+    if route == _B1:
+        return flash_fwd_causal_self(q, k, v, scale=scale,
+                                     safe_softmax=safe_softmax)
+    masks = dict(causal=causal, window_size=(window_left, window_right),
+                 sink_tokens=sink_tokens, softcap=softcap, scale=scale,
+                 safe_softmax=safe_softmax)
+    if route == _B4:
+        return flash_fwd_static(q, k, v, **masks)
+    return flash_fwd_pos(q, k.transpose(1, 2), v.transpose(1, 2),
+                         q_start=q_start, **masks)
 
 
 def _flash_op_setup(ctx, inputs, output) -> None:
-    q, k, v, positional, q_start, causal, scale, _ = inputs
+    (q, k, v, route, q_start, causal, left, right, _, softcap, scale,
+     _) = inputs
     ctx.save_for_backward(q, k, v, *output)
-    ctx.q_start = q_start if positional else None
+    ctx.q_start = q_start if route == _B3 else None
     ctx.causal = causal
     ctx.scale = scale
+    ctx.shaped = left >= 0 or (right >= 0 and not causal) or softcap > 0
 
 
 def _flash_op_backward(ctx, dout, dlse):
     del dlse  # the lse cotangent is not propagated (as in flash-attn)
+    if ctx.shaped:  # flash_attention refuses these before the forward
+        raise NotImplementedError(_SHAPE_FORWARD_ONLY)
     q, k, v, out, lse = ctx.saved_tensors
     dq, dk, dv = _flash_bwd(q, k, v, out, lse, dout, q_start=ctx.q_start,
                             causal=ctx.causal, scale=ctx.scale)
-    return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype),
-            None, None, None, None, None)
+    return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)) + (None,) * 9
 
 
 _flash_op.register_autograd(_flash_op_backward, setup_context=_flash_op_setup)
@@ -500,6 +641,7 @@ FLASH_ATTENTION_OP = torch.ops.lca_torch.flash_attention.default
 
 
 # kwargs of the JAX API whose non-default values the port does not take yet
+# (the forward entries take window_size, softcap and sink_tokens)
 _FEATURE_DEFAULTS = dict(
     window_size=(-1, -1), softcap=0.0, q_offsets=None, kv_offsets=None,
     q_stride=1, kv_stride=1, q_segment_ids=None, kv_segment_ids=None,
@@ -549,26 +691,42 @@ def _q_start(s_q: int, s_kv: int, features) -> Optional[int]:
 
 def flash_attention(q, k, v, *, causal: bool = False,
                     softmax_scale: Optional[float] = None,
-                    block_sizes=None, interpret=None, return_lse: bool = False,
-                    tri_grid=None, safe_softmax: bool = False, **features):
+                    window_size=(-1, -1), softcap: float = 0.0,
+                    sink_tokens: int = 0, block_sizes=None, interpret=None,
+                    return_lse: bool = False, tri_grid=None,
+                    safe_softmax: bool = False, **features):
     """Flash attention, BSHD: q (b, s_q, h, d); k, v (b, s_kv, h_kv, d).
 
-    Differentiable. Causal self-attention with no offsets runs kernel B1
-    forward and B5 backward; one-chunk ``q_offsets`` / ``kv_offsets``
-    (token i at offset + i, stride 1), or s_q != s_kv (bottom-right
-    aligned), run B3 forward and B2a + B2b backward, causal or not. The
-    other feature kwargs (:data:`_FEATURE_DEFAULTS`) raise
-    ``NotImplementedError`` unless left at their defaults. ``block_sizes``,
-    ``interpret`` and ``tri_grid`` are accepted for API parity; the Hopper
-    kernels pick their own tiles and walk only the live ones."""
-    del block_sizes, interpret, tri_grid
+    ``window_size`` (left, right) is a sliding window over global
+    positions (-1: unbounded; causal sets right to 0), ``sink_tokens``
+    keeps positions below it visible through the left window, ``softcap``
+    caps the scores (cap * tanh(s / cap), online softmax). Forward by the
+    JAX package's routing: causal self-attention with no window, softcap or
+    offsets runs B1 (``tri_grid=False`` sends it to B4 as in JAX), any other
+    self-attention without offsets B4, one-chunk ``q_offsets`` /
+    ``kv_offsets`` (token i at offset + i, stride 1) or s_q != s_kv
+    (bottom-right aligned) B3. Differentiable without a window, sinks or
+    softcap: B5 backward after B1 and B4, B2a + B2b after B3; with them a
+    gradient raises ``NotImplementedError``. The other feature kwargs
+    (:data:`_FEATURE_DEFAULTS`) raise unless left at their defaults.
+    ``block_sizes`` and ``interpret`` are accepted for API parity; the
+    Hopper kernels pick their own tiles and walk only the live ones."""
+    del block_sizes, interpret
     q_start = _q_start(q.shape[1], k.shape[1], features)
-    _reject_features("flash_attention (kernels B3/B4 in full)", features)
-    if q_start is None and not causal:
-        raise not_ported("non-causal self-attention (kernel B4)")
-    out, lse = _flash_op(q, k, v, q_start is not None, q_start or 0,
-                         bool(causal), float(_scale(q, softmax_scale)),
-                         bool(safe_softmax))
+    _reject_features("flash_attention (kernel B3 in full)", features)
+    left, right, sink = _masks(causal, window_size, sink_tokens, softcap)
+    if left >= 0 or (right >= 0 and not causal) or softcap > 0:
+        _forward_only(_SHAPE_FORWARD_ONLY, q, k, v)
+    if q_start is not None:
+        route = _B3
+    elif (causal and tuple(window_size) == (-1, -1) and not softcap
+          and tri_grid is not False):
+        route = _B1
+    else:
+        route = _B4
+    out, lse = _flash_op(q, k, v, route, q_start or 0, bool(causal), left,
+                         right, sink, float(softcap),
+                         float(_scale(q, softmax_scale)), bool(safe_softmax))
     return (out, lse) if return_lse else out
 
 
@@ -590,44 +748,51 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = False,
 def flash_attention_fwd(q, k, v, *, k_scale=None, v_scale=None,
                         causal: bool = False,
                         softmax_scale: Optional[float] = None,
-                        safe_softmax: bool = False, block_sizes=None,
-                        interpret=None, return_lse=None, tri_grid=None,
-                        **features):
+                        window_size=(-1, -1), softcap: float = 0.0,
+                        sink_tokens: int = 0, safe_softmax: bool = False,
+                        block_sizes=None, interpret=None, return_lse=None,
+                        tri_grid=None, **features):
     """Forward entry: returns (out, lse), differentiable as
     :func:`flash_attention` is.
 
     ``k_scale`` / ``v_scale`` ((b, h_kv, s_kv) fp32) switch on the int8-KV
-    path (kernel B3, bottom-right aligned when s_q != s_kv), which is
-    forward-only."""
+    path (kernel B3, bottom-right aligned when s_q != s_kv, with the same
+    window, sinks and softcap), which is forward-only."""
     del return_lse
+    shape = dict(causal=causal, window_size=window_size, softcap=softcap,
+                 sink_tokens=sink_tokens, safe_softmax=safe_softmax)
     if k_scale is None:
-        return flash_attention(q, k, v, causal=causal,
-                               softmax_scale=softmax_scale,
+        return flash_attention(q, k, v, softmax_scale=softmax_scale,
                                block_sizes=block_sizes, interpret=interpret,
-                               return_lse=True, tri_grid=tri_grid,
-                               safe_softmax=safe_softmax, **features)
-    _forward_only(q, k, v)
+                               return_lse=True, tri_grid=tri_grid, **shape,
+                               **features)
+    _forward_only(_QUANT_FORWARD_ONLY, q, k, v)
     _reject_features("the int8-KV path (kernel B3 in full)", features)
     return flash_fwd_pos(q, k.transpose(1, 2), v.transpose(1, 2),
                          k_scale, v_scale, q_start=k.shape[1] - q.shape[1],
-                         causal=causal, scale=_scale(q, softmax_scale),
-                         safe_softmax=safe_softmax)
+                         scale=_scale(q, softmax_scale), **shape)
 
 
 def flash_attention_fwd_cache(q, k_cache, v_cache, *, k_scale=None,
-                              v_scale=None, softmax_scale=None, q_start=0,
-                              block_sizes=None, interpret=None,
-                              safe_softmax=False, causal=False, **features):
+                              v_scale=None, softmax_scale=None,
+                              window_size=(-1, -1), softcap=0.0, q_start=0,
+                              sink_tokens=0, block_sizes=None,
+                              interpret=None, safe_softmax=False,
+                              causal=False, **features):
     """Forward-only attention of q (b, s_q, h, d) against a BHSD cache slice
     (b, h_kv, s_kv, d), bf16 or int8 with (b, h_kv, s_kv) fp32 scales: the
     chunked-prefill building block (kernel B3). q rows sit at global
     positions ``q_start + i`` and cache slots at ``j``; ``causal=True``
-    masks slots past each row. Returns (out, lse), mergeable with the
-    chunk's own causal attention through ``ops.merge``."""
+    masks slots past each row, and ``window_size``, ``sink_tokens`` and
+    ``softcap`` apply at those positions (the kernel walks only the sink
+    tiles and each q tile's window band). A row that sees no slot gives out
+    0 and lse -inf. Returns (out, lse), mergeable with the chunk's own
+    attention through ``ops.merge``."""
     del block_sizes, interpret
-    _forward_only(q, k_cache, v_cache)
+    _forward_only(_QUANT_FORWARD_ONLY, q, k_cache, v_cache)
     _reject_features("the cache path (kernel B3 in full)", features)
     return flash_fwd_pos(q, k_cache, v_cache, k_scale, v_scale,
                          q_start=int(q_start), causal=causal,
-                         scale=_scale(q, softmax_scale),
+                         window_size=window_size, sink_tokens=sink_tokens,
+                         softcap=softcap, scale=_scale(q, softmax_scale),
                          safe_softmax=safe_softmax)

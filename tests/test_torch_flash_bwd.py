@@ -156,6 +156,30 @@ def test_autograd_matches_jax_grad(rng, dtype, dispatch):
     _assert_grads((q.grad, k.grad, v.grad), want, _tol(dtype))
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_noncausal_autograd_matches_jax(rng, dtype):
+    """Non-causal self-attention without offsets: the port's forward is
+    kernel B4 (its plain version here) and its backward B5, against the
+    JAX flash_attention(causal=False) output and jax.grad, GQA g=2."""
+    (jq, tq), (jk, tk), (jv, tv), (jdo, tdo) = _inputs(rng, dtype)
+
+    def jloss(q, k, v):
+        out = jflash.flash_attention(q, k, v, causal=False, block_sizes=BS)
+        return jnp.sum(out.astype(jnp.float32) * jdo.astype(jnp.float32))
+
+    want = jax.grad(jloss, argnums=(0, 1, 2))(jq, jk, jv)
+    q, k, v = (t.clone().requires_grad_() for t in (tq, tk, tv))
+    out, lse = tflash.flash_attention(q, k, v, causal=False, return_lse=True)
+    jo = jflash.flash_attention(jq, jk, jv, causal=False, block_sizes=BS)
+    np.testing.assert_allclose(_np(out), _np(jo), **_tol(dtype))
+    (out.float() * tdo.float()).sum().backward()
+    assert q.grad.dtype == tq.dtype
+    _assert_grads((q.grad, k.grad, v.grad), want, _tol(dtype))
+    oracle = tref.xla_attention_bwd(tq, tk, tv, out.detach(), lse.detach(),
+                                    tdo, causal=False)
+    _assert_grads((q.grad, k.grad, v.grad), oracle, _tol(dtype))
+
+
 def test_bottom_right_alignment_matches_jax(rng):
     """s_q < s_kv without offsets aligns the causal mask bottom-right (the
     JAX API's rule): B3 + B2a + B2b with q_start = s_kv - s_q, fp32, against
@@ -196,14 +220,18 @@ def test_xla_attention_bwd_matches_jax(rng):
 
 
 def test_backward_unported_features_raise():
-    """Offsets of more than one chunk (ring layouts) and non-causal
-    self-attention without offsets (kernel B4) raise."""
+    """Offsets of more than one chunk (ring layouts) raise, and so does a
+    gradient through a window, sinks or softcap (their backward is the
+    next slice): no wrong gradient comes back."""
     q = torch.zeros(1, 8, 2, 16)
     with pytest.raises(NotImplementedError, match="position chunks"):
         tflash.flash_attention(q, q, q, causal=True, q_offsets=[0, 4],
                                kv_offsets=[0, 4])
-    with pytest.raises(NotImplementedError, match="B4"):
-        tflash.flash_attention(q, q, q, causal=False)
+    qg = q.clone().requires_grad_()
+    for kw in (dict(window_size=(4, -1)), dict(softcap=5.0),
+               dict(causal=False, window_size=(2, 3))):
+        with pytest.raises(NotImplementedError, match="sliding windows"):
+            tflash.flash_attention(qg, q, q, **{"causal": True, **kw})
     with pytest.raises(NotImplementedError):
         tflash.flash_attention_bwd(q, q, q, q, torch.zeros(1, 2, 8), q,
                                    causal=True, window_size=(4, -1))

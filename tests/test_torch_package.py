@@ -74,7 +74,8 @@ def test_build_dir_is_gitignored():
 def test_unported_features_raise():
     """Features outside the ported slices raise NotImplementedError, and so
     does a gradient through the int8-KV path, which is forward-only in the
-    JAX package too."""
+    JAX package too, and one through a sliding window (its backward is the
+    next slice)."""
     from long_context_attention_tpu_torch.ops.decode import decode_attention
     from long_context_attention_tpu_torch.ops.flash import (
         flash_attention, flash_attention_fwd)
@@ -82,9 +83,11 @@ def test_unported_features_raise():
 
     q = torch.zeros(1, 8, 2, 128, dtype=torch.bfloat16)
     with pytest.raises(NotImplementedError):
-        flash_attention(q, q, q, causal=False)
-    with pytest.raises(NotImplementedError):
-        flash_attention(q, q, q, causal=True, window_size=(4, -1))
+        flash_attention(q, q, q, causal=False,
+                        alibi_slopes=torch.ones(2))
+    with pytest.raises(NotImplementedError, match="sliding windows"):
+        flash_attention(q.clone().requires_grad_(), q, q, causal=True,
+                        window_size=(4, -1))
     kv8 = torch.zeros(1, 8, 2, 128, dtype=torch.int8)
     scales = torch.ones(1, 2, 8)
     with pytest.raises(NotImplementedError, match="forward-only"):
@@ -95,7 +98,7 @@ def test_unported_features_raise():
     cache = torch.zeros(1, 2, 8, 128, dtype=torch.bfloat16)
     with pytest.raises(NotImplementedError):
         decode_attention(q[:, 0], cache, cache, torch.ones(1, dtype=torch.int32),
-                         window_size=(4, -1))
+                         alibi_slopes=torch.ones(2))
 
 
 def test_engine_rejects_params_off_its_device():
@@ -126,12 +129,21 @@ def test_engine_rejects_params_off_its_device():
     ("moe_capacity_factor", 1.0)])
 def test_model_config_rejects_unported_fields(field, value):
     """ModelConfig keeps the JAX config's fields; a value that needs a
-    slice not ported yet raises instead of being ignored."""
-    from long_context_attention_tpu_torch.models.llama import ModelConfig
+    slice not ported yet raises instead of being ignored. A window, sinks
+    or softcap serve, so the config takes them, and training such a model
+    (their backward) raises."""
+    from long_context_attention_tpu_torch.models.llama import (
+        ModelConfig, make_train_step)
     from long_context_attention_tpu_torch.utils.config import BlockSizes
 
     if value == "BlockSizes":
         value = BlockSizes(block_q=512)
+    if field in ("window_left", "softcap", "sink_tokens"):
+        cfg = ModelConfig(**{field: value})
+        assert getattr(cfg, field) == value
+        with pytest.raises(NotImplementedError, match=field):
+            make_train_step(cfg, torch.optim.SGD, device="cpu")
+        return
     with pytest.raises(NotImplementedError, match=field):
         ModelConfig(**{field: value})
 
