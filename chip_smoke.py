@@ -15,10 +15,12 @@ Phases, one JSON line each; any failure exits non-zero:
      kv tile outside a kernel's walk poisoned with NaN must leave its
      output finite and bit-equal; the backward kernels B2a, B2b and B5 at
      the trainer's per-layer attention shape, causal, with offsets that
-     leave rows dead, and ragged), each output row held against its own
-     size (ROW_REL_TOL), with its time, the plain version's, a PyTorch
-     library call's (timed here only) and the least time the card could
-     take;
+     leave rows dead, and ragged; the sage kernels B8a, B8c and B8b on the
+     int8 operands of a 4 x 8192 prefill, with window and sinks, one-chunk
+     offsets, s_q != s_kv, dead rows, ragged, and B8b's band check), each
+     output row held against its own size (ROW_REL_TOL), with its time,
+     the plain version's, a PyTorch library call's (timed here only) and
+     the least time the card could take;
   4. slice, then slice_windowed: the 0.88B llama config at full width and
      depth, random weights from a seed, served by Engine(cache_dtype="int8",
      weight_dtype="int8"): prefill_chunked of 4 x 8192 tokens in chunks of
@@ -29,19 +31,28 @@ Phases, one JSON line each; any failure exits non-zero:
      counters and checks that every kernel of its path launched as often
      as the path implies; logits must be finite and the first decode step
      must agree with a prefill of prompt + that token (teacher forcing);
-  5. train: the same config trained by make_train_step (AdamW lr 1e-4,
-     weight decay 1e-4, as the JAX benchmark's optax.adamw(1e-4)) at b=1,
-     s=8192 under remat none, full and attn, with exact launch counts per
-     step (B1 and B5; B2a, B2b and B3 never) and a falling loss, and one
-     profiled step;
-  6. grad_check: the config at 2 layers, s=1024: loss and every parameter
-     gradient on the card under remat none, attn and full against the same
-     backward on CPU copies (plain versions), each leaf within GRAD_TOL of
-     its largest value;
-  7. offsets: the JAX trainer's per-layer call, flash_attention with
+  5. slice_sage: the same model with attn_impl="sage", Engine.prefill of
+     4 x 8192 in one shot against attn_impl="pallas" on the same weights,
+     dense (B8a) and windowed (B8b), timed in turns, with exact launch
+     counts and the logit gap; then decode_scan of 32 steps from the sage
+     prefill (B6, B7), teacher forcing, and a generate at b=2;
+  6. train, then train_sage: the same config trained by make_train_step
+     (AdamW lr 1e-4, weight decay 1e-4, as the JAX benchmark's
+     optax.adamw(1e-4)) at b=1, s=8192 under remat none, full and attn
+     (sage: none and attn), with exact launch counts per step (B1 or B8a,
+     and B5; B2a, B2b and B3 never) and a falling loss, and one profiled
+     step each;
+  7. grad_check: the config at 2 layers, s=1024: loss and every parameter
+     gradient on the card under remat none, attn and full (sage: none and
+     attn) against the same backward on CPU copies (plain versions), each
+     leaf within GRAD_TOL of its largest value;
+  8. offsets: the JAX trainer's per-layer call, flash_attention with
      q_offsets=[0], kv_offsets=[0] (B3 + B2a + B2b), against the
      no-offsets path (B1 + B5) on the same inputs, row by row; and the
-     windowed forward with offsets (B3) against none (B4).
+     windowed forward with offsets (B3) against none (B4);
+  9. sage_api: the public sage calls at b=1, s=8192: non-causal (B8c),
+     one-chunk offsets (B8b) against none (B8a), and the pre-quantized
+     entry (B8b).
 Then the kernel table, the card's name and power limit, and as the last line
 {"ok": true, "device": {...}}.
 """
@@ -60,6 +71,8 @@ import torch.nn.functional as F
 PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 tensor-core rate
 PEAK_INT8_OPS = 1979e12    # H100 SXM dense int8 tensor-core rate
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3 rate
+# sage's operations are half int8 (QK) and half bf16 (PV): their joint rate
+PEAK_SAGE_OPS = 2 / (1 / PEAK_INT8_OPS + 1 / PEAK_BF16_FLOPS)
 SEED = 0
 
 # The 0.88B llama config that bench.py serves (full width and depth).
@@ -108,6 +121,9 @@ CANCEL_FLOOR = 2.0 ** -10
 # s=8192, optax.adamw(1e-4), whose weight decay is 1e-4).
 TRAIN_SEQ = 8192
 TRAIN_STEPS = (("none", 3), ("full", 2), ("attn", 2))
+SAGE_TRAIN_STEPS = (("none", 3), ("attn", 2))
+# the self-attention forward kernel of the model's layer, by attn_impl
+FORWARD_KERNEL = {"pallas": "flash_fwd_causal_self", "sage": "sage_fwd_tri"}
 LR, WEIGHT_DECAY = 1e-4, 1e-4
 # Gradient check: the card's loss and each parameter gradient against the
 # same backward on CPU copies (the plain versions), max |card - cpu| over
@@ -488,6 +504,109 @@ def kernel_b3_windowed(flash, q, k, v, ksl, vsl, start, scale, dev):
                    nbytes, lib_ms)
     return {"case": f"int8 prefix {start}, {s_q} rows, window {WINDOW}, "
                     f"{SINKS} sinks", **res}
+
+
+def sage_operands(sage, q, k, v, scale):
+    """The int8 operands the sage entry points hand their kernels: q8 with
+    scale*log2e folded into its (b, h, s) scales, K centred, both BSHD."""
+    q8, qs = sage._quant_q(q, scale)
+    k8, ks, v8, vs, _ = sage.sage_quantize_kv(k.transpose(1, 2),
+                                              v.transpose(1, 2))
+    return q8, qs, k8.transpose(1, 2), ks, v8.transpose(1, 2), vs
+
+
+def kernel_b8(K, sage, gen, dev):
+    """B8a, B8c and B8b against their plain versions on the int8 operands
+    of the 0.88B model's one-shot prefill (b=4, s=8192, 16/8 heads): B8a
+    causal and ragged; B8c, and ragged with s_q != s_kv; B8b with window
+    4096 and 4 sinks, at q_start 0 (one-chunk offsets), with s_q != s_kv
+    (bottom-right), with dead rows, and the band check. Times at the main
+    shape, SDPA's flash kernel on the bf16 inputs beside them, and the
+    whole sage_attention call (quantizers, kernel, lse correction)."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    b, s, h, hk, d = BATCH, PROMPT, MODEL["n_heads"], MODEL["n_kv_heads"], 128
+    scale = d ** -0.5
+    q, k, v = (torch.randn(shape, generator=gen, device=dev).bfloat16()
+               for shape in ((b, s, h, d), (b, s, hk, d), (b, s, hk, d)))
+    ops = sage_operands(sage, q, k, v, scale)
+    ragged = sage_operands(sage, q[:1, :1000], k[:1, :1000], v[:1, :1000],
+                           scale)
+    checks = {"B8a": [], "B8b": [], "B8c": []}
+    fns = {"B8a": (sage.sage_fwd_tri, sage.sage_fwd_tri_plain),
+           "B8c": (sage.sage_fwd_rect, sage.sage_fwd_rect_plain),
+           "B8b": (sage.sage_fwd_pos, sage.sage_fwd_pos_plain)}
+
+    def case(name, tag, args, **kw):
+        fn, plain = fns[name]
+        o, l = fn(*args, **kw)
+        po, pl_ = plain(*args, **kw)
+        torch.cuda.synchronize()
+        checks[name].append(check_out(f"{name} out {tag}", o, po))
+        check(f"{name} lse {tag}", max_err(l, pl_), LSE_TOL)
+        del po, pl_
+        torch.cuda.empty_cache()
+        return o, l
+
+    win = dict(causal=True, window_size=(WINDOW, -1), sink_tokens=SINKS)
+    case("B8a", f"b={b} s={s}", ops)
+    case("B8a", "ragged s=1000", ragged)
+    case("B8c", f"b={b} s={s}", ops)
+    case("B8c", "ragged s_q=1000 s_kv=777",
+         (*ragged[:2], ragged[2][:, :777], ragged[3][:, :, :777],
+          ragged[4][:, :777], ragged[5][:, :, :777]))
+    clean, _ = case("B8b", f"window sinks b={b} s={s}", ops, **win)
+    case("B8b", "causal q_start 0 (one-chunk offsets)", ops, q_start=0,
+         causal=True)
+    tail = (ops[0][:, -CHUNK:], ops[1][:, :, -CHUNK:], *ops[2:])
+    case("B8b", f"s_q={CHUNK} s_kv={s} bottom-right", tail,
+         q_start=s - CHUNK, causal=True)
+    case("B8b", f"s_q={CHUNK} s_kv={s} bottom-right window sinks", tail,
+         q_start=s - CHUNK, **win)
+    o, l = case("B8b", "ragged q_start=-8", ragged, q_start=-8, causal=True)
+    if o[:, :8].any() or not torch.isneginf(l[:, :, :8]).all():
+        raise AssertionError("B8b: dead rows are not out 0, lse -inf")
+    # band check: rows 6144.. never see kv tiles 1..31, whose scales get NaN
+    rows = slice(s - CHUNK, s)
+    vis = visible(s, s, 0, True, left=WINDOW, sink=SINKS, dev=dev)
+    tiles = unseen_tiles(vis[rows], FLASH_KV_TILE)
+    ksp, vsp = (poison(t, 2, tiles, FLASH_KV_TILE) for t in (ops[3], ops[5]))
+    got, _ = sage.sage_fwd_pos(ops[0], ops[1], ops[2], ksp, ops[4], vsp,
+                               **win)
+    torch.cuda.synchronize()
+    band_check("B8b", got[:, rows], clean[:, rows], len(tiles))
+    pairs = {"B8a": b * h * live_pairs(s, s, 0, True),
+             "B8c": b * h * s * s, "B8b": b * h * int(vis.sum())}
+    del ksp, vsp, got, clean, o, l, vis
+    torch.cuda.empty_cache()
+
+    kws = {"B8a": {}, "B8c": {}, "B8b": win}
+    ms = {n: time_ms(lambda: fns[n][0](*ops, **kws[n])) for n in kws}
+    plain_ms = {}
+    for n in kws:
+        plain_ms[n] = time_ms(lambda: fns[n][1](*ops, **kws[n]), iters=1,
+                              warmup=0)
+        torch.cuda.empty_cache()
+    call_kw = {"B8a": dict(causal=True), "B8c": dict(causal=False),
+               "B8b": win}
+    call_ms = {n: time_ms(lambda: sage.sage_attention(q, k, v, **call_kw[n]))
+               for n in call_kw}
+    qh = q.transpose(1, 2)
+    kr, vr = (t.transpose(1, 2).repeat_interleave(h // hk, 1) for t in (k, v))
+    with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+        lib_ms = {c: time_ms(lambda: F.scaled_dot_product_attention(
+            qh, kr, vr, is_causal=c)) for c in (True, False)}
+    nbytes = (q.numel() + k.numel() + v.numel() + 2 * q.numel()
+              + 4 * (2 * b * h * s + 2 * b * hk * s))
+    kern = {"B8a": "sage_fwd_tri", "B8b": "sage_fwd_pos", "B8c": "sage_fwd_rect"}
+    # 2*d int8 ops (QK) and 2*d bf16 FLOPs (PV) per visible pair
+    return [{**row(K[kern[n]], "flash_fwd.cu", checks[n], ms[n], plain_ms[n],
+                   4 * d * pairs[n], nbytes, lib_ms[n != "B8c"],
+                   PEAK_SAGE_OPS),
+             "library": "SDPA flash on the bf16 q, k, v (not the same "
+                        "function: no int8 quantization)",
+             "sage_attention_ms": call_ms[n]}
+            for n in ("B8a", "B8b", "B8c")]
 
 
 def kernel_b6(K, decode, gen, dev):
@@ -978,20 +1097,24 @@ def train_batch(vocab, seq, dev):
         (1, seq), dtype=torch.float32, device=dev)
 
 
-def train_phase(pkg, build, dev, card):
-    """make_train_step on the 0.88B config at b=1, s=8192: one warm-up step,
-    then timed steps on the same batch under each remat policy, each step's
-    launch counts checked exactly. Returns the counts of the `none` run."""
+def train_phase(pkg, build, dev, card, impl="pallas", plan=TRAIN_STEPS):
+    """make_train_step on the 0.88B config at b=1, s=8192 with attention
+    ``impl`` (pallas: B1 forward; sage: B8a; B5 backward for both): one
+    warm-up step, then timed steps on the same batch under each remat
+    policy of ``plan``, each step's launch counts checked exactly. Returns
+    the counts of the `none` run."""
     from long_context_attention_tpu_torch.models.llama import (
         init_params, make_train_step, param_leaves)
 
     L = MODEL["n_layers"]
+    fwd, other = FORWARD_KERNEL[impl], FORWARD_KERNEL[
+        "pallas" if impl == "sage" else "sage"]
     tokens, labels, mask = train_batch(MODEL["vocab"], TRAIN_SEQ, dev)
     opt = functools.partial(torch.optim.AdamW, lr=LR,
                             weight_decay=WEIGHT_DECAY)
     main_counts = None
-    for remat, steps in TRAIN_STEPS:
-        cfg = pkg.ModelConfig(**MODEL, remat=remat)
+    for remat, steps in plan:
+        cfg = pkg.ModelConfig(**MODEL, remat=remat, attn_impl=impl)
         params = init_params(torch.Generator(device=dev).manual_seed(SEED),
                              cfg, device=dev)
         n_params = sum(t.numel() for t in param_leaves(params))
@@ -1008,9 +1131,9 @@ def train_phase(pkg, build, dev, card):
             losses.append(float(loss))  # synchronizes
             times.append(time.perf_counter() - t0)
         counts = expect_counts(build, {
-            "flash_fwd_causal_self": steps * L * (2 if remat == "full" else 1),
+            fwd: steps * L * (2 if remat == "full" else 1), other: 0,
             "flash_bwd_fused": steps * L, "flash_bwd_dq": 0,
-            "flash_bwd_dkv": 0, "flash_fwd_pos": 0})
+            "flash_bwd_dkv": 0, "flash_fwd_pos": 0, "sage_fwd_pos": 0})
         if not all(math.isfinite(x) for x in losses):
             raise AssertionError(f"remat={remat}: loss not finite: {losses}")
         if remat == "none":
@@ -1020,7 +1143,8 @@ def train_phase(pkg, build, dev, card):
         # the whole timed window over its steps; the spread beside it
         ms = 1e3 * sum(times) / steps
         flops = 6 * TRAIN_SEQ * n_params  # the 6ND convention
-        emit({"phase": "train", "card": card, "remat": remat, "batch": 1,
+        emit({"phase": "train" if impl == "pallas" else "train_sage",
+              "card": card, "attn_impl": impl, "remat": remat, "batch": 1,
               "seq": TRAIN_SEQ, "params": n_params, "steps": steps,
               "ms_per_step": ms, "ms_min": 1e3 * min(times),
               "ms_max": 1e3 * max(times), "ms_all": [1e3 * t for t in times],
@@ -1034,7 +1158,8 @@ def train_phase(pkg, build, dev, card):
         if remat == "none":
             _, prof = profiled(lambda: step(params, state, tokens, labels,
                                             mask)[2])
-            emit({"phase": "train_profile", "remat": remat, **prof})
+            emit({"phase": "train_profile", "attn_impl": impl,
+                  "remat": remat, **prof})
         del params, state, step, loss
         torch.cuda.empty_cache()
     return main_counts
@@ -1048,15 +1173,19 @@ def named_leaves(tree, prefix=""):
         yield prefix.rstrip("/"), tree
 
 
-def grad_check_phase(pkg, build, dev, card):
-    """The loss and every parameter gradient of loss_local on the card
-    (kernels) under remat none, attn and full against the same backward on
-    CPU copies without remat (plain versions), at 2 layers, full width,
-    b=1, s=1024, each card run's B1/B5 launches checked."""
+def grad_check_phase(pkg, build, dev, card, impl="pallas",
+                     remats=("none", "attn", "full")):
+    """The loss and every parameter gradient of loss_local with attention
+    ``impl`` on the card (kernels) under each remat policy against the same
+    backward on CPU copies without remat (plain versions), at 2 layers,
+    full width, b=1, s=1024, each card run's forward kernel (B1 or B8a)
+    and B5 launches checked."""
     from long_context_attention_tpu_torch.models.llama import (
         init_params, loss_local)
 
-    cfg = pkg.ModelConfig(**{**MODEL, "n_layers": GRAD_LAYERS})
+    fwd = FORWARD_KERNEL[impl]
+    cfg = pkg.ModelConfig(**{**MODEL, "n_layers": GRAD_LAYERS},
+                          attn_impl=impl)
     params = init_params(torch.Generator(device=dev).manual_seed(SEED), cfg,
                          device=dev)
     tokens, labels, mask = train_batch(cfg.vocab, GRAD_SEQ, dev)
@@ -1076,12 +1205,11 @@ def grad_check_phase(pkg, build, dev, card):
                                       for n, t in named_leaves(p)}
 
     loss_cpu, g_cpu = loss_and_grads(torch.device("cpu"), "none")
-    for remat in ("none", "attn", "full"):
+    for remat in remats:
         build.reset_launch_counts()
         loss_card, g_card = loss_and_grads(dev, remat)
         counts = expect_counts(build, {
-            "flash_fwd_causal_self": GRAD_LAYERS * (2 if remat == "full"
-                                                    else 1),
+            fwd: GRAD_LAYERS * (2 if remat == "full" else 1),
             "flash_bwd_fused": GRAD_LAYERS})
         leaves = {}
         for n, want in g_cpu.items():
@@ -1090,18 +1218,18 @@ def grad_check_phase(pkg, build, dev, card):
                          / size, "max_abs": size,
                          "mean_abs": float(want.abs().mean())}
         worst = max(x["rel_err"] for x in leaves.values())
-        emit({"phase": "grad_check", "card": card, "remat": remat,
-              "layers": GRAD_LAYERS, "seq": GRAD_SEQ, "loss_card": loss_card,
+        emit({"phase": "grad_check", "card": card, "attn_impl": impl,
+              "remat": remat, "layers": GRAD_LAYERS, "seq": GRAD_SEQ,
+              "loss_card": loss_card,
               "loss_cpu": loss_cpu, "loss_tol": LOSS_TOL,
               "grad_tol": GRAD_TOL, "worst_rel_err": worst,
-              "launches": {n: counts[n] for n in ("flash_fwd_causal_self",
-                                                  "flash_bwd_fused")},
+              "launches": {n: counts[n] for n in (fwd, "flash_bwd_fused")},
               "leaves": leaves})
-        check(f"grad_check remat={remat} loss", abs(loss_card - loss_cpu),
-              LOSS_TOL)
+        check(f"grad_check {impl} remat={remat} loss",
+              abs(loss_card - loss_cpu), LOSS_TOL)
         for n, x in leaves.items():
-            check(f"grad_check remat={remat} {n} (relative to its largest "
-                  f"value)", x["rel_err"], GRAD_TOL)
+            check(f"grad_check {impl} remat={remat} {n} (relative to its "
+                  f"largest value)", x["rel_err"], GRAD_TOL)
 
 
 def offsets_phase(build, flash, dev, card):
@@ -1163,6 +1291,183 @@ def offsets_phase(build, flash, dev, card):
     return counts
 
 
+# every attention forward kernel a prefill could take
+PREFILL_KERNELS = ("flash_fwd_causal_self", "flash_fwd_static",
+                   "flash_fwd_pos", "sage_fwd_tri", "sage_fwd_pos",
+                   "sage_fwd_rect")
+
+
+def sage_serve_phase(pkg, build, dev, card):
+    """Serve the 0.88B config with attn_impl="sage" next to "pallas" on the
+    same weights and prompt: Engine.prefill of 4 x 8192 in one shot, dense
+    (B8a in every layer) and windowed (B8b), timed in turns (pallas, sage,
+    sage, pallas) with exact launch counts, the sage-vs-pallas last-token
+    logit gap and argmax agreement; then, dense, decode_scan of 32 steps
+    from the sage prefill's int8 cache (B6, B7: decode ignores attn_impl,
+    as in JAX) with teacher forcing against a sage prefill of prompt + the
+    first token (B8a at s=8193), and a generate at b=2 over 1024 tokens.
+    Returns the launch counts of the dense and the windowed sage prefill."""
+    from long_context_attention_tpu_torch.models.llama import (
+        decode_step, init_params)
+    from long_context_attention_tpu_torch.serving.engine import Engine
+
+    L = MODEL["n_layers"]
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    prompt = torch.randint(0, MODEL["vocab"], (BATCH, PROMPT), generator=gen,
+                           device=dev)
+    path = {}
+    for windowed in (False, True):
+        tag = "window" if windowed else "dense"
+        cfgs = {impl: pkg.ModelConfig(**MODEL, attn_impl=impl,
+                                      **(WINDOWED if windowed else {}))
+                for impl in ("pallas", "sage")}
+        params = init_params(torch.Generator(device=dev).manual_seed(SEED),
+                             cfgs["sage"], device=dev)
+        engs = {impl: Engine(cfg=cfg, s_max=S_MAX, cache_dtype="int8",
+                             weight_dtype="int8", device=dev)
+                for impl, cfg in cfgs.items()}
+        own = {"pallas": "flash_fwd_static" if windowed
+               else "flash_fwd_causal_self",
+               "sage": "sage_fwd_pos" if windowed else "sage_fwd_tri"}
+        for eng in engs.values():  # warm-up
+            eng.prefill(params, prompt[:, :CHUNK])
+        torch.cuda.synchronize()
+        times, logits = {"pallas": [], "sage": []}, {}
+        for impl in ("pallas", "sage", "sage", "pallas"):
+            build.reset_launch_counts()
+            t0 = time.perf_counter()
+            logits[impl], cache = engs[impl].prefill(params, prompt)
+            torch.cuda.synchronize()
+            times[impl].append(time.perf_counter() - t0)
+            counts = expect_counts(build, {
+                k: (L if k == own[impl] else 0) for k in PREFILL_KERNELS})
+            if impl == "sage":
+                path[own["sage"]] = counts
+                sage_cache = cache
+            del cache
+        for impl, lg in logits.items():
+            if not torch.isfinite(lg).all():
+                raise AssertionError(f"{impl} prefill logits not finite")
+        gap = (logits["sage"] - logits["pallas"]).abs()
+        agree = float((logits["sage"].argmax(-1)
+                       == logits["pallas"].argmax(-1)).float().mean())
+        emit({"phase": "slice_sage_prefill", "card": card, "model":
+              "llama-0.88B", "window_left": cfgs["sage"].window_left,
+              "sink_tokens": cfgs["sage"].sink_tokens, "batch": BATCH,
+              "prompt": PROMPT, "prefill_s": times,
+              "prefill_tok_per_s": {k: BATCH * PROMPT * len(v) / sum(v)
+                                    for k, v in times.items()},
+              "logit_gap_max": float(gap.max()),
+              "logit_gap_mean": float(gap.mean()),
+              "argmax_agree": agree, "launches": path[own["sage"]]})
+        if windowed:
+            del sage_cache
+            break
+        # decode from the sage prefill's cache, then teacher forcing
+        eng, cfg = engs["sage"], cfgs["sage"]
+        dparams = eng.decode_params(params)
+        first = torch.argmax(logits["sage"], -1).to(torch.int32)
+        fork = {f: getattr(sage_cache, f).clone() for f in
+                ("k", "v", "k_scale", "v_scale", "length")}
+        eng.decode_scan(dparams, sage_cache, 4, first)  # warm-up
+        for f, t in fork.items():
+            getattr(sage_cache, f).copy_(t)
+        build.reset_launch_counts()
+        t0 = time.perf_counter()
+        toks, sage_cache = eng.decode_scan(dparams, sage_cache, NEW, first)
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+        dcounts = expect_counts(build, {
+            **{k: 0 for k in PREFILL_KERNELS},
+            "cache_append": L * NEW, "decode_attention": L * NEW})
+        if toks.shape != (BATCH, NEW):
+            raise AssertionError(f"decode_scan shape {tuple(toks.shape)}")
+        for f, t in fork.items():
+            getattr(sage_cache, f).copy_(t)
+        step1, _ = decode_step(dparams, sage_cache, first, cfg)
+        del sage_cache, fork
+        build.reset_launch_counts()
+        tf_logits, _ = eng.prefill(params, torch.cat([prompt, first[:, None]],
+                                                     dim=1))
+        expect_counts(build, {"sage_fwd_tri": L, "flash_fwd_causal_self": 0})
+        tf_err = float((step1 - tf_logits).abs().max())
+        check("slice_sage teacher forcing", tf_err, TEACHER_TOL)
+        gen_eng = Engine(cfg=cfg, s_max=GEN_PROMPT + GEN_NEW,
+                         cache_dtype="bfloat16", weight_dtype="int8",
+                         device=dev)
+        build.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = gen_eng.generate(params, prompt[:GEN_BATCH, :GEN_PROMPT],
+                               GEN_NEW)
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t0
+        gcounts = expect_counts(build, {
+            **{k: (L if k == "sage_fwd_tri" else 0) for k in PREFILL_KERNELS},
+            "cache_append": L * GEN_NEW, "decode_attention": L * GEN_NEW})
+        if not torch.isfinite(res.prefill_logits).all() or res.tokens.shape != (
+                GEN_BATCH, GEN_NEW):
+            raise AssertionError("sage generate: non-finite logits or shapes")
+        emit({"phase": "slice_sage", "card": card, "model": "llama-0.88B",
+              "batch": BATCH, "prompt": PROMPT, "new_tokens": NEW,
+              "cache_dtype": "int8", "weight_dtype": "int8",
+              "decode_ms_per_step": 1e3 * decode_s / NEW,
+              "teacher_forcing_max_abs_err": tf_err,
+              "teacher_tol": TEACHER_TOL,
+              "teacher_argmax_agree": float((step1.argmax(-1) == tf_logits
+                                             .argmax(-1)).float().mean()),
+              "decode_launches": dcounts, "generate_s": gen_s,
+              "generate_launches": gcounts})
+        del engs, eng, gen_eng, params, dparams, res, step1, tf_logits
+        torch.cuda.empty_cache()
+    return path
+
+
+def sage_api_phase(build, sage, dev, card):
+    """The public sage entry points at the trainer's per-layer shape (b=1,
+    s=8192, 16/8 heads): non-causal sage_attention (B8c, the path of a
+    bidirectional model such as the JAX package's DiT); the causal call
+    with one-chunk offsets (B8b, the JAX ring's per-step call) against the
+    call without (B8a), row by row; and sage_attention_fwd_prequant over
+    an int8 K/V of ops.kv_cache (B8b). Each call from zeroed counts.
+    Returns the non-causal call's launch counts."""
+    from long_context_attention_tpu_torch.ops.kv_cache import quantize_kv
+
+    b, s, h, hk, d = 1, TRAIN_SEQ, MODEL["n_heads"], MODEL["n_kv_heads"], 128
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    q, k, v = (torch.randn(shape, generator=gen, device=dev).bfloat16()
+               for shape in ((b, s, h, d), (b, s, hk, d), (b, s, hk, d)))
+    k8, ks = quantize_kv(k, "int8")
+    v8, vs = quantize_kv(v, "int8")
+    runs = {}
+    for name, kernel, fn in (
+            ("noncausal", "sage_fwd_rect", lambda: sage.sage_attention(
+                q, k, v, causal=False, return_lse=True)),
+            ("causal", "sage_fwd_tri", lambda: sage.sage_attention(
+                q, k, v, causal=True, return_lse=True)),
+            ("offsets", "sage_fwd_pos", lambda: sage.sage_attention(
+                q, k, v, causal=True, q_offsets=[0], kv_offsets=[0],
+                return_lse=True)),
+            ("prequant", "sage_fwd_pos", lambda: sage.sage_attention_fwd_prequant(
+                q, k8, v8, ks.transpose(1, 2), vs.transpose(1, 2),
+                causal=True))):
+        build.reset_launch_counts()
+        out, lse = fn()
+        torch.cuda.synchronize()
+        counts = build.launch_counts()
+        if counts[kernel] != 1 or sum(counts.values()) != 1:
+            raise AssertionError(f"sage {name} call counts {counts}")
+        if not (torch.isfinite(out).all() and torch.isfinite(lse).all()):
+            raise AssertionError(f"sage {name} call: non-finite output")
+        runs[name] = (counts, out, lse)
+    (_, o, l), (_, wo, wl) = runs["offsets"], runs["causal"]
+    err = check_out("sage offsets (B8b) vs none (B8a) out", o, wo)
+    check("sage offsets vs none lse", max_err(l, wl), LSE_TOL)
+    emit({"phase": "sage_api", "card": card, "seq": s,
+          "launches": {n: c for n, (c, _, _) in runs.items()},
+          "offsets_row_rel_err": err[1]})
+    return runs["noncausal"][0]
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
@@ -1170,7 +1475,7 @@ def main():
         return 1
     import long_context_attention_tpu_torch as pkg
     from long_context_attention_tpu_torch.ops import _build as build
-    from long_context_attention_tpu_torch.ops import decode, flash
+    from long_context_attention_tpu_torch.ops import decode, flash, sage
 
     dev = torch.device("cuda")
     smi = smi_line()
@@ -1190,9 +1495,14 @@ def main():
 
     K = build.KERNELS
     gen = torch.Generator(device=dev).manual_seed(SEED)
+    seconds = {"build": time.perf_counter() - t0}
+
+    def lap(name):  # command time by phase, for the run's budget
+        seconds[name] = time.perf_counter() - t0 - sum(seconds.values())
+
     rows = []
     for fn, mod in ((kernel_b1, flash), (kernel_b4, flash),
-                    (kernel_b3, flash), (kernel_b6, decode),
+                    (kernel_b3, flash), (kernel_b8, sage), (kernel_b6, decode),
                     (kernel_b7, decode), (kernel_bwd, flash)):
         res = fn(K, mod, gen, dev)
         torch.cuda.synchronize()
@@ -1200,10 +1510,12 @@ def main():
         for r in res if isinstance(res, list) else [res]:
             emit({"phase": "kernel", **r})
             rows.append(r)
+    lap("kernels")
 
     # each kernel's launches on its own path: serving (B1, B3, B6, B7),
     # windowed serving (B4; B3, B6, B7 in their "windowed" entries),
-    # training (B5), the offsets call (B2a, B2b)
+    # training (B5), the offsets call (B2a, B2b), sage serving (B8a dense,
+    # B8b windowed), the non-causal sage call (B8c)
     counts, dense = serve_phase(pkg, build, dev, smi, windowed=False)
     torch.cuda.empty_cache()
     wcounts, windowed = serve_phase(pkg, build, dev, smi, windowed=True)
@@ -1211,12 +1523,29 @@ def main():
           "windowed": {**windowed, "window_left": WINDOW,
                        "sink_tokens": SINKS}})
     torch.cuda.empty_cache()
-    train_counts = train_phase(pkg, build, dev, smi)
-    grad_check_phase(pkg, build, dev, smi)
+    lap("slice")
+    sage_counts = sage_serve_phase(pkg, build, dev, smi)
     torch.cuda.empty_cache()
+    lap("slice_sage")
+    train_counts = train_phase(pkg, build, dev, smi)
+    torch.cuda.empty_cache()
+    train_phase(pkg, build, dev, smi, impl="sage", plan=SAGE_TRAIN_STEPS)
+    torch.cuda.empty_cache()
+    lap("train")
+    grad_check_phase(pkg, build, dev, smi)
+    grad_check_phase(pkg, build, dev, smi, impl="sage",
+                     remats=("none", "attn"))
+    torch.cuda.empty_cache()
+    lap("grad_check")
     offsets_counts = offsets_phase(build, flash, dev, smi)
+    rect_counts = sage_api_phase(build, sage, dev, smi)
+    lap("offsets")
+    emit({"phase": "timing", "seconds": seconds})
     path = {"flash_fwd_static": wcounts, "flash_bwd_fused": train_counts,
-            "flash_bwd_dq": offsets_counts, "flash_bwd_dkv": offsets_counts}
+            "flash_bwd_dq": offsets_counts, "flash_bwd_dkv": offsets_counts,
+            "sage_fwd_tri": sage_counts["sage_fwd_tri"],
+            "sage_fwd_pos": sage_counts["sage_fwd_pos"],
+            "sage_fwd_rect": rect_counts}
     for r in rows:
         r["launches"] = path.get(r["name"], counts)[r["name"]]
         if "windowed" in r:

@@ -14,6 +14,7 @@ from long_context_attention_tpu_torch.ops import (  # noqa: F401
     flash_attention,
     flash_attention_fwd,
     flash_attention_fwd_cache,
+    get_attn_impl,
     merge_attn_blocks,
     xla_attention,
 )

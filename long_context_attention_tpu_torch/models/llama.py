@@ -5,16 +5,22 @@ config, parameter dict (layers stacked on a leading axis, bf16 weights, fp32
 norms), RMSNorm, RoPE over global positions and dense SwiGLU FFN, with
 
 * :func:`forward_local`: the single-device full-sequence forward,
-  differentiable, attention through the autograd ``flash_attention``
-  (kernels B1 forward, B5 backward; B4 forward for a sliding window,
-  sinks or softcap, which serve but do not train yet), each layer
-  rematerialized per ``ModelConfig.remat``;
+  differentiable, attention through ``ModelConfig.attn_impl``: "pallas"
+  the autograd ``flash_attention`` (kernels B1 forward, B5 backward; B4
+  forward for a sliding window, sinks or softcap, which serve but do not
+  train yet), "sage" ``sage_attention_full`` (kernel B8a forward, B8b
+  with a window; the straight-through B5 backward), "xla" the fp32
+  oracle under torch autograd; each layer rematerialized per
+  ``ModelConfig.remat``;
 * :func:`loss_local` and :func:`make_train_step`: next-token cross entropy
   and one optimizer step on one device;
 * :func:`prefill_chunk_step`: one prompt chunk against the cache so far
   (chunk self-attention, attention over the cache prefix, LSE merge);
 * :func:`decode_step`: one token per row against the cache (append, then
   attend).
+
+The two cache steps run the flash and decode kernels whatever
+``attn_impl`` is, as the JAX package's do.
 
 Both cache steps update the cache IN PLACE, and so does a train step its
 params. USP/ring sharding, MoE, tensor and pipeline parallelism come in
@@ -47,6 +53,8 @@ from long_context_attention_tpu_torch.ops.flash import (
 )
 from long_context_attention_tpu_torch.ops.kv_cache import quantize_kv
 from long_context_attention_tpu_torch.ops.merge import merge_attn_blocks
+from long_context_attention_tpu_torch.ops.registry import get_attn_impl
+from long_context_attention_tpu_torch.ops.sage import SAGE_ATTENTION_OP
 from long_context_attention_tpu_torch.ops.wquant import qdot
 from long_context_attention_tpu_torch.utils.config import (
     BlockSizes,
@@ -94,13 +102,21 @@ class ModelConfig:
         if self.layout not in LAYOUTS:
             raise ValueError(f"unknown layout {self.layout!r}; expected one "
                              f"of {LAYOUTS}")
+        get_attn_impl(self.attn_impl)  # ValueError naming the impls
+        if self.attn_impl == "sage" and self.safe_softmax:
+            raise ValueError(
+                "safe_softmax is a pallas-kernel knob (the sage kernels are "
+                "max-free by construction; the xla oracle computes the "
+                "exact softmax either way)")
+        if self.attn_impl == "sage" and self.softcap > 0:
+            raise NotImplementedError(
+                "sage_attention does not implement softcap; use "
+                "attn_impl='pallas'")
         # Fields kept for parity with the JAX config whose other values
         # need a slice not ported yet. ``layout`` orders the sequence across
         # a mesh's ring; on one device (the only mode here) every layout is
         # the same model.
-        for name, what in (("attn_impl", "attention implementations other "
-                                         "than the Hopper kernels"),
-                           ("block_sizes", "per-model kernel tile sizes"),
+        for name, what in (("block_sizes", "per-model kernel tile sizes"),
                            ("n_experts", "MoE layers"),
                            ("moe_capacity_factor", "MoE layers")):
             if getattr(self, name) != _PARITY_DEFAULTS[name]:
@@ -223,7 +239,12 @@ def _layer(cfg: ModelConfig, positions: torch.Tensor, x: torch.Tensor,
     b, s, _ = x.shape
     h = rmsnorm(x, lp["attn_norm"], cfg.norm_eps)
     q, k, v = _qkv(cfg, lp, h, positions)
-    attn = flash_attention(q, k, v, causal=True, **cfg.attention_kwargs())
+    if cfg.attn_impl == "pallas":
+        attn = flash_attention(q, k, v, causal=True, **cfg.attention_kwargs())
+    else:  # the fwd-bwd stage of another registry impl
+        attn = get_attn_impl(cfg.attn_impl).full(
+            q, k, v, causal=True, window_size=(cfg.window_left, -1),
+            softcap=cfg.softcap, sink_tokens=cfg.sink_tokens)
     x = x + (attn.reshape(b, s, cfg.q_dim) @ lp["wo"]).to(x.dtype)
     hh = rmsnorm(x, lp["mlp_norm"], cfg.norm_eps)
     x = x + _ffn(cfg, lp, hh).to(x.dtype)
@@ -235,9 +256,11 @@ _MATMULS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
 
 
 def _save_attention(ctx, op, *args, **kwargs):
-    """remat="attn": keep the attention op's (out, lse), recompute the rest
-    (the JAX policy saves the ring attention's out and lse by name)."""
-    return (CheckpointPolicy.MUST_SAVE if op is FLASH_ATTENTION_OP
+    """remat="attn": keep the attention op's (out, lse), flash or sage,
+    recompute the rest (the JAX policy saves the ring attention's out and
+    lse by name)."""
+    return (CheckpointPolicy.MUST_SAVE
+            if op is FLASH_ATTENTION_OP or op is SAGE_ATTENTION_OP
             else CheckpointPolicy.PREFER_RECOMPUTE)
 
 

@@ -24,6 +24,18 @@ from long_context_attention_tpu_torch.ops.reference import (  # noqa: F401
     xla_attention,
     xla_attention_bwd,
 )
+from long_context_attention_tpu_torch.ops.registry import (  # noqa: F401
+    ATTN_IMPLS,
+    AttnImpl,
+    get_attn_impl,
+    register_attn_impl,
+)
+from long_context_attention_tpu_torch.ops.sage import (  # noqa: F401
+    sage_attention,
+    sage_attention_fwd,
+    sage_attention_fwd_prequant,
+    sage_attention_full,
+)
 from long_context_attention_tpu_torch.ops.wquant import (  # noqa: F401
     QTensor,
     qdot,

@@ -154,6 +154,17 @@ KERNELS: Dict[str, Kernel] = {
         "flash_fwd_pos", "flash_fwd.cu", "lca_flash_fwd_pos",
         [_VP] * 8 + [_F, _F, _F, _I, _VP],
         "long_context_attention_tpu/ops/flash.py:696"),
+    # the sage entries share one C signature: q8, qs, k8, ks, v8, vs, out,
+    # lse, dims, stream
+    "sage_fwd_tri": Kernel(
+        "sage_fwd_tri", "flash_fwd.cu", "lca_sage_fwd_tri", [_VP] * 10,
+        "long_context_attention_tpu/ops/sage.py:186"),
+    "sage_fwd_pos": Kernel(
+        "sage_fwd_pos", "flash_fwd.cu", "lca_sage_fwd_pos", [_VP] * 10,
+        "long_context_attention_tpu/ops/sage.py:246"),
+    "sage_fwd_rect": Kernel(
+        "sage_fwd_rect", "flash_fwd.cu", "lca_sage_fwd_rect", [_VP] * 10,
+        "long_context_attention_tpu/ops/sage.py:223"),
     # the backward entries share one C signature: q, k, v, dout, lse, delta,
     # dq, dk, dv (null where unused), dims, scale, stream
     "flash_bwd_dq": Kernel(

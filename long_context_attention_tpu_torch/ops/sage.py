@@ -1,0 +1,443 @@
+"""SageAttention-role int8-QK prefill attention on Hopper: the quantizers,
+the public API, and its three kernels.
+
+Counterpart of ``long_context_attention_tpu/ops/sage.py``, with its names,
+BSHD layout, kwargs and ``(out, lse fp32)`` contract. Q is quantized per
+(b, h, token) and K per (b, h_kv, token) after K is mean-centred over the
+tokens (exact under softmax: it shifts each row's scores by a constant); V
+is quantized per token and not centred. The quantizers are plain torch, as
+the JAX package leaves them to XLA. Three kernel wrappers sit under the
+API, each with a plain PyTorch version of the same arithmetic:
+
+* :func:`sage_fwd_tri` (kernel B8a, ``csrc/flash_fwd.cu``): causal
+  self-attention, the TPU's ``_sage_kernel_tri``;
+* :func:`sage_fwd_rect` (kernel B8c): no mask, the TPU's
+  ``_sage_kernel_rect``;
+* :func:`sage_fwd_pos` (kernel B8b): q rows at global positions ``q_start +
+  i``, causal, sliding window and sinks, the TPU's ``_sage_kernel_pos``.
+
+All three compute s = (q8 . k8)_int32 * qs * ks in exp2 units (the softmax
+scale and log2 e folded into q's scales), p = exp2(min(s, 90)) with no
+running max, l = rowsum(p) before V's scale multiplies p, and out =
+(bf16(p * vs) @ v8) / l, lse = ln l; a row that sees nothing gives out 0
+and lse -inf. :func:`sage_attention` adds the K-centring shift back to the
+lse, so it merges with any other block.
+
+:func:`sage_attention_full` is differentiable: one ``torch.library`` op
+whose backward is the bf16 flash backward (kernel B5, or B2a + B2b with
+offsets) on the unquantized inputs, anchored on the op's own (out, lse):
+the straight-through recipe of the JAX registry. ``pv_int8=True`` (the int8
+PV product) is not ported and raises ``NotImplementedError``, as do
+softcap, segments, dropout and ALiBi (which raise in JAX too). A wrapper
+given CPU tensors runs its plain version; given CUDA tensors it launches
+its kernel or raises.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from long_context_attention_tpu_torch.ops import _build
+from long_context_attention_tpu_torch.ops.flash import (
+    _CLAMP,
+    _HEAD_DIM,
+    _LOG2E,
+    _QUANT_FORWARD_ONLY,
+    _SHAPE_FORWARD_ONLY,
+    _check_cuda_operand,
+    _finish,
+    _flash_bwd,
+    _forward_only,
+    _mask,
+    _masks,
+    _one_chunk,
+    _scale,
+)
+from long_context_attention_tpu_torch.utils.config import NEG_INF, not_ported
+
+__all__ = ["sage_attention", "sage_attention_fwd", "sage_attention_full",
+           "sage_attention_fwd_prequant", "sage_quantize_kv", "sage_fwd_tri",
+           "sage_fwd_tri_plain", "sage_fwd_rect", "sage_fwd_rect_plain",
+           "sage_fwd_pos", "sage_fwd_pos_plain", "SAGE_ATTENTION_OP"]
+
+
+# ---------------------------------------------------------------------------
+# Quantizers (plain torch, one pass each)
+# ---------------------------------------------------------------------------
+
+
+def _quant_per_token(x: torch.Tensor):
+    """(..., d) float -> int8 values and (...,) fp32 absmax/127 scales.
+    Divides by the scale (not a reciprocal multiply) and rounds half to
+    even, as the JAX quantizer does, so the int8 values match."""
+    xf = x.float()
+    scale = xf.abs().amax(dim=-1) / 127.0
+    safe = scale.clamp_min(1e-30)[..., None]
+    vals = torch.round(xf / safe).clamp_(-127.0, 127.0).to(torch.int8)
+    return vals, scale
+
+
+def sage_quantize_kv(k_bhsd: torch.Tensor, v_bhsd: torch.Tensor):
+    """Quantize BHSD K/V for the sage kernels: K mean-centred over the
+    tokens per (b, h_kv, channel) in fp32 first. Returns (k8, ks, v8, vs,
+    k_mean): values int8 (b, h_kv, s, d), scales fp32 (b, h_kv, s), the
+    removed mean (b, h_kv, 1, d) fp32. Centring shifts q row i's scores by
+    -scale * (q_i . k_mean), which :func:`sage_attention` adds back to the
+    lse."""
+    kf = k_bhsd.float()
+    k_mean = kf.mean(dim=2, keepdim=True)
+    k8, ks = _quant_per_token(kf - k_mean)
+    v8, vs = _quant_per_token(v_bhsd)
+    return k8, ks, v8, vs, k_mean
+
+
+def _quant_q(q: torch.Tensor, scale: float):
+    """q (b, s, h, d) -> q8 (b, s, h, d) and its (b, h, s) scales with
+    scale * log2 e folded in: the kernels' scores land in exp2 units."""
+    q8, qs = _quant_per_token(q)
+    return q8, (qs * (scale * _LOG2E)).transpose(1, 2)
+
+
+# ---------------------------------------------------------------------------
+# Plain versions of B8a, B8c, B8b (one arithmetic, three masks)
+# ---------------------------------------------------------------------------
+
+
+def _sage_plain(q8, qs, k8, ks, v8, vs, mask, out_dtype):
+    """The kernels' arithmetic, whole rows at once, one batch row at a time
+    (bounds the (h, s_q, s_kv) score tensor). q8 (b, s_q, h, d), qs (b, h,
+    s_q); k8, v8 (b, s_kv, h_kv, d), ks, vs (b, h_kv, s_kv); mask (s_q,
+    s_kv) True = drop, or None. The int32 product q8 . k8 is exact in fp32
+    (127^2 * 128 < 2^24)."""
+    g = q8.shape[2] // k8.shape[2]
+    outs, lses = [], []
+    for i in range(q8.shape[0]):
+        qf = q8[i].transpose(0, 1).float()
+        kf, vf = (t[i].transpose(0, 1).float().repeat_interleave(g, dim=0)
+                  for t in (k8, v8))
+        s = torch.matmul(qf, kf.transpose(1, 2))
+        s.mul_(qs[i][:, :, None]).mul_(
+            ks[i].repeat_interleave(g, dim=0)[:, None, :])
+        if mask is not None:
+            s.masked_fill_(mask, NEG_INF)
+        p = s.clamp_(max=_CLAMP).exp2_()
+        l = p.sum(dim=-1)
+        p.mul_(vs[i].repeat_interleave(g, dim=0)[:, None, :])
+        acc = torch.matmul(p.to(torch.bfloat16).float(), vf)
+        del p, s
+        out, lse = _finish(acc, l, None, False, False, out_dtype)
+        outs.append(out.transpose(0, 1))
+        lses.append(lse)
+    return torch.stack(outs), torch.stack(lses)
+
+
+def sage_fwd_tri_plain(q8, qs, k8, ks, v8, vs, *, out_dtype=torch.bfloat16):
+    """Plain version of kernel B8a: causal self-attention (s_q == s_kv).
+
+    q8 (b, s, h, d) int8 with qs (b, h, s) fp32 (scale * log2 e folded);
+    k8, v8 (b, s, h_kv, d) int8 with ks, vs (b, h_kv, s) fp32 -> out (b, s,
+    h, d) in ``out_dtype``, lse (b, h, s) fp32 (uncorrected for K's mean)."""
+    s = q8.shape[1]
+    mask = _mask(torch.arange(s, device=q8.device), s, -1, 0, 0)
+    return _sage_plain(q8, qs, k8, ks, v8, vs, mask, out_dtype)
+
+
+def sage_fwd_rect_plain(q8, qs, k8, ks, v8, vs, *, out_dtype=torch.bfloat16):
+    """Plain version of kernel B8c: every row sees every kv column (any
+    s_q, s_kv); operands as in :func:`sage_fwd_tri_plain`."""
+    return _sage_plain(q8, qs, k8, ks, v8, vs, None, out_dtype)
+
+
+def sage_fwd_pos_plain(q8, qs, k8, ks, v8, vs, *, q_start: int = 0,
+                       causal: bool = False, window_size=(-1, -1),
+                       sink_tokens: int = 0, out_dtype=torch.bfloat16):
+    """Plain version of kernel B8b: q row i at position ``q_start + i``,
+    kv column j at j, with the causal mask, the window (left, right) and
+    the sinks of ``flash_attention`` (_sage_kernel_pos); operands as in
+    :func:`sage_fwd_tri_plain`."""
+    left, right, sink = _masks(causal, window_size, sink_tokens, 0.0)
+    mask = _mask(q_start + torch.arange(q8.shape[1], device=q8.device),
+                 k8.shape[1], left, right, sink)
+    return _sage_plain(q8, qs, k8, ks, v8, vs, mask, out_dtype)
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrappers
+# ---------------------------------------------------------------------------
+
+
+def _sage_launch(kernel: str, q8, qs, k8, ks, v8, vs, out_dtype, *,
+                 q_start: int = 0, left: int = -1, right: int = -1,
+                 sink: int = 0):
+    """Check the operands of a sage kernel and launch it on the current
+    stream; int8 values and fp32 scales are read by strides."""
+    b, s_q, h, d = q8.shape
+    _, s_kv, h_kv, _ = k8.shape
+    if (k8.shape != (b, s_kv, h_kv, d) or v8.shape != k8.shape
+            or h % h_kv):
+        raise ValueError(f"shapes q8 {tuple(q8.shape)}, k8 "
+                         f"{tuple(k8.shape)}, v8 {tuple(v8.shape)} do not "
+                         f"match")
+    if d != _HEAD_DIM:
+        raise NotImplementedError(f"the sage kernels are built for head_dim "
+                                  f"{_HEAD_DIM}, got {d}")
+    for name, t in (("q8", q8), ("k8", k8), ("v8", v8)):
+        _check_cuda_operand(name, t, torch.int8, q8.device)
+    for name, t, shape in (("qs", qs, (b, h, s_q)), ("ks", ks, (b, h_kv, s_kv)),
+                           ("vs", vs, (b, h_kv, s_kv))):
+        if (t.shape != shape or t.dtype != torch.float32
+                or t.device != q8.device):
+            raise ValueError(f"{name} must be fp32 {shape} on {q8.device}")
+    if out_dtype != torch.bfloat16:
+        raise ValueError(f"the sage kernels write bf16 (bf16 q), not "
+                         f"{out_dtype}")
+    out = torch.empty((b, s_q, h, d), dtype=out_dtype, device=q8.device)
+    lse = torch.empty((b, h, s_q), dtype=torch.float32, device=q8.device)
+    dims = _build.dims_array([
+        b, h, h_kv, s_q, s_kv, *q8.stride()[:3], *k8.stride()[:3],
+        *v8.stride()[:3], *out.stride()[:3], *qs.stride(), *ks.stride(),
+        *vs.stride(), int(q_start), left, right, sink])
+    _build.KERNELS[kernel](
+        _build.ptr(q8), _build.ptr(qs), _build.ptr(k8), _build.ptr(ks),
+        _build.ptr(v8), _build.ptr(vs), _build.ptr(out), _build.ptr(lse),
+        dims, _build.stream_ptr(q8.device))
+    return out, lse
+
+
+def sage_fwd_tri(q8, qs, k8, ks, v8, vs, *, out_dtype=torch.bfloat16):
+    """Kernel B8a wrapper: causal self-attention over int8 operands. Each q
+    tile walks its kv tiles up to the diagonal, the last one masked.
+    Operands and results as in :func:`sage_fwd_tri_plain`, which CPU
+    tensors take."""
+    if q8.device.type == "cpu":
+        return sage_fwd_tri_plain(q8, qs, k8, ks, v8, vs, out_dtype=out_dtype)
+    if q8.shape[1] != k8.shape[1]:
+        raise ValueError(f"B8a is self-attention: s_q {q8.shape[1]} != s_kv "
+                         f"{k8.shape[1]}")
+    return _sage_launch("sage_fwd_tri", q8, qs, k8, ks, v8, vs, out_dtype)
+
+
+def sage_fwd_rect(q8, qs, k8, ks, v8, vs, *, out_dtype=torch.bfloat16):
+    """Kernel B8c wrapper: no mask, every kv tile for every q tile. CPU
+    tensors take :func:`sage_fwd_rect_plain`."""
+    if q8.device.type == "cpu":
+        return sage_fwd_rect_plain(q8, qs, k8, ks, v8, vs,
+                                   out_dtype=out_dtype)
+    return _sage_launch("sage_fwd_rect", q8, qs, k8, ks, v8, vs, out_dtype)
+
+
+def sage_fwd_pos(q8, qs, k8, ks, v8, vs, *, q_start: int = 0,
+                 causal: bool = False, window_size=(-1, -1),
+                 sink_tokens: int = 0, out_dtype=torch.bfloat16):
+    """Kernel B8b wrapper: q rows at ``q_start + i``, masks as in
+    :func:`sage_fwd_pos_plain`; each q tile walks the sink tiles and its
+    window band only (the walk of kernels B3 and B4). CPU tensors take
+    :func:`sage_fwd_pos_plain`."""
+    if q8.device.type == "cpu":
+        return sage_fwd_pos_plain(q8, qs, k8, ks, v8, vs, q_start=q_start,
+                                  causal=causal, window_size=window_size,
+                                  sink_tokens=sink_tokens,
+                                  out_dtype=out_dtype)
+    left, right, sink = _masks(causal, window_size, sink_tokens, 0.0)
+    return _sage_launch("sage_fwd_pos", q8, qs, k8, ks, v8, vs, out_dtype,
+                        q_start=q_start, left=left, right=right, sink=sink)
+
+
+# ---------------------------------------------------------------------------
+# The differentiable forward: one torch.library op with its backward
+# ---------------------------------------------------------------------------
+
+# kernels of the op's forward (argument ``route``)
+_TRI, _RECT, _POS = 0, 1, 2
+
+
+@torch.library.custom_op("lca_torch::sage_attention", mutates_args=())
+def _sage_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, route: int,
+             q_start: int, causal: bool, window_left: int, window_right: int,
+             sink_tokens: int, scale: float
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(out, lse) of BSHD q, k, v: the quantizers, kernel B8a, B8c or B8b
+    (``route``), and the K-centring correction of the lse."""
+    q8, qs = _quant_q(q, scale)
+    k8, ks, v8, vs, k_mean = sage_quantize_kv(k.transpose(1, 2),
+                                              v.transpose(1, 2))
+    args = (q8, qs, k8.transpose(1, 2), ks, v8.transpose(1, 2), vs)
+    if route == _TRI:
+        out, lse = sage_fwd_tri(*args, out_dtype=q.dtype)
+    elif route == _RECT:
+        out, lse = sage_fwd_rect(*args, out_dtype=q.dtype)
+    else:
+        out, lse = sage_fwd_pos(*args, q_start=q_start, causal=causal,
+                                window_size=(window_left, window_right),
+                                sink_tokens=sink_tokens, out_dtype=q.dtype)
+    g = q.shape[2] // k.shape[2]
+    mean = k_mean[:, :, 0].repeat_interleave(g, dim=1)  # (b, h, d)
+    lse = lse + scale * torch.einsum("bshd,bhd->bhs", q.float(), mean)
+    return out, lse
+
+
+def _sage_op_setup(ctx, inputs, output) -> None:
+    q, k, v, route, q_start, causal, left, right, _, scale = inputs
+    ctx.save_for_backward(q, k, v, *output)
+    # static self-attention takes B5, positions B2a + B2b (_flash_bwd)
+    static = route != _POS and q.shape[1] == k.shape[1]
+    ctx.q_start = None if static else q_start
+    ctx.causal = causal
+    ctx.scale = scale
+    ctx.shaped = left >= 0 or (right >= 0 and not causal)
+
+
+def _sage_op_backward(ctx, dout, dlse):
+    """Straight-through: the bf16 flash backward on the unquantized inputs,
+    anchored on the quantized forward's (out, lse) (registry _sage_bwd)."""
+    del dlse  # the lse cotangent is not propagated (as in flash-attn)
+    if ctx.shaped:  # sage_attention refuses these before the forward
+        raise NotImplementedError(_SHAPE_FORWARD_ONLY)
+    q, k, v, out, lse = ctx.saved_tensors
+    dq, dk, dv = _flash_bwd(q, k, v, out, lse, dout, q_start=ctx.q_start,
+                            causal=ctx.causal, scale=ctx.scale)
+    return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)) + (None,) * 7
+
+
+_sage_op.register_autograd(_sage_op_backward, setup_context=_sage_op_setup)
+
+# The op a selective-checkpoint policy names to keep the sage forward out
+# of the recompute (models/llama.py, remat="attn").
+SAGE_ATTENTION_OP = torch.ops.lca_torch.sage_attention.default
+
+
+# ---------------------------------------------------------------------------
+# Public API (the JAX package's names and kwargs)
+# ---------------------------------------------------------------------------
+
+
+def _check_pv_int8(pv_int8: bool) -> None:
+    if pv_int8:
+        raise not_ported("pv_int8=True (sage's int8 PV product, whose P is "
+                         "requantized per row and per JAX kv tile)")
+
+
+def _check_strides(q_stride: int, kv_stride: int) -> None:
+    if q_stride != 1 or kv_stride != 1:
+        raise not_ported(f"q_stride={q_stride}, kv_stride={kv_stride} (ring "
+                         f"layouts)")
+
+
+def _route(s_q: int, s_kv: int, causal: bool, window, q_offsets,
+           kv_offsets) -> Tuple[int, int]:
+    """(kernel, q_start) by the JAX package's routing: B8a for plain causal
+    self-attention, B8c for no mask without offsets, B8b for the rest --
+    one-chunk offsets (q row 0 at q_offsets - kv_offsets), a window, or
+    s_q != s_kv (bottom-right aligned). The TPU's cap on B8a's tile table
+    (_TRI_TABLE_MAX) is scalar memory the Hopper kernel does not use."""
+    no_window = tuple(int(w) for w in window) == (-1, -1)
+    if q_offsets is None and kv_offsets is None:
+        if causal and s_q == s_kv and no_window:
+            return _TRI, 0
+        return (_RECT if not causal and no_window else _POS), s_kv - s_q
+    return _POS, ((0 if q_offsets is None
+                   else _one_chunk(q_offsets, "q_offsets"))
+                  - (0 if kv_offsets is None
+                     else _one_chunk(kv_offsets, "kv_offsets")))
+
+
+def sage_attention(q, k, v, *, causal: bool = False,
+                   softmax_scale: Optional[float] = None,
+                   pv_int8: bool = False, window_size=(-1, -1),
+                   sink_tokens: int = 0, q_offsets=None, kv_offsets=None,
+                   q_stride: int = 1, kv_stride: int = 1, block_sizes=None,
+                   interpret=None, return_lse: bool = False):
+    """INT8-QK attention, BSHD: q (b, s_q, h, d); k, v (b, s_kv, h_kv, d),
+    h % h_kv == 0. Routing as the JAX package's: B8a for causal
+    self-attention, B8c without a mask, B8b for one-chunk offsets, a
+    window (with sinks) or causal s_q != s_kv (bottom-right aligned).
+    ``return_lse`` adds the (b, h, s_q) fp32 lse, K-centring shift
+    included. Differentiable without a window (the straight-through
+    backward); a gradient through a window raises. Position chunks and
+    strides (ring layouts) and ``pv_int8=True`` raise
+    ``NotImplementedError``. ``block_sizes`` and ``interpret`` are accepted
+    for API parity; the Hopper kernels pick their own tiles."""
+    del block_sizes, interpret
+    _check_pv_int8(pv_int8)
+    _check_strides(q_stride, kv_stride)
+    if q.shape[2] % k.shape[2]:
+        raise ValueError(f"GQA requires h ({q.shape[2]}) % h_kv "
+                         f"({k.shape[2]}) == 0")
+    route, q_start = _route(q.shape[1], k.shape[1], causal, window_size,
+                            q_offsets, kv_offsets)
+    left, right, sink = _masks(causal, window_size, sink_tokens, 0.0)
+    if left >= 0 or (right >= 0 and not causal):
+        _forward_only(_SHAPE_FORWARD_ONLY, q, k, v)
+    out, lse = _sage_op(q, k, v, route, q_start, bool(causal), left, right,
+                        sink, float(_scale(q, softmax_scale)))
+    return (out, lse) if return_lse else out
+
+
+# the kwargs the sage entries take, and those they refuse unless neutral
+_SAGE_KWARGS = ("causal", "softmax_scale", "pv_int8", "block_sizes",
+                "interpret", "return_lse", "window_size", "sink_tokens",
+                "q_offsets", "kv_offsets", "q_stride", "kv_stride")
+_NEUTRAL = {"softcap": 0.0, "dropout_p": 0.0, "q_segment_ids": None,
+            "kv_segment_ids": None, "alibi_slopes": None, "dropout_key": None,
+            "dropout_seed": None}
+
+
+def _vet_kwargs(kw) -> dict:
+    """The sage kwargs of ``kw``; a feature sage does not implement raises
+    ``NotImplementedError`` unless neutral, an unknown kwarg ``TypeError``
+    (the JAX package's ``_vet_kwargs``)."""
+    rest = dict(kw)
+    taken = {name: rest.pop(name) for name in _SAGE_KWARGS if name in rest}
+    for name, ok in _NEUTRAL.items():
+        val = rest.pop(name, ok)
+        if (val is not None) if ok is None else (val != ok):
+            raise NotImplementedError(f"sage_attention does not implement "
+                                      f"{name}; use impl='pallas'")
+    if rest:
+        raise TypeError(f"unexpected kwargs {sorted(rest)}")
+    return taken
+
+
+def sage_attention_fwd(q, k, v, **kw):
+    """Registry fwd-stage entry: (out, lse) with the common registry kwargs
+    checked (:func:`_vet_kwargs`)."""
+    return sage_attention(q, k, v, **dict(_vet_kwargs(kw), return_lse=True))
+
+
+def sage_attention_full(q, k, v, **kw):
+    """Registry full-stage entry: differentiable end to end (quantized
+    forward, straight-through bf16 flash backward). Unlike the JAX
+    package's, which drops them, it honours ``window_size``,
+    ``sink_tokens`` and the offsets."""
+    return sage_attention(q, k, v, **dict(_vet_kwargs(kw), return_lse=False))
+
+
+def sage_attention_fwd_prequant(q, k8, v8, k_scale, v_scale, *,
+                                causal: bool = False,
+                                softmax_scale: Optional[float] = None,
+                                pv_int8: bool = False, window_size=(-1, -1),
+                                sink_tokens: int = 0, q_offsets=None,
+                                kv_offsets=None, q_stride: int = 1,
+                                kv_stride: int = 1, block_sizes=None,
+                                interpret=None):
+    """Sage forward (kernel B8b) over K/V already quantized by
+    ``ops.kv_cache.quantize_kv``: k8, v8 (b, s_kv, h_kv, d) int8 with
+    (b, h_kv, s_kv) fp32 scales, not centred, so the lse needs no shift.
+    q (b, s_q, h, d) is quantized here. Forward-only. Returns (out (b, s_q,
+    h, d), lse (b, h, s_q) fp32)."""
+    del block_sizes, interpret
+    _check_pv_int8(pv_int8)
+    _check_strides(q_stride, kv_stride)
+    if k8.dtype != torch.int8 or v8.dtype != torch.int8:
+        raise ValueError(f"k8 and v8 must be int8, got {k8.dtype}, "
+                         f"{v8.dtype}")
+    _forward_only(_QUANT_FORWARD_ONLY, q)
+    _, q_start = _route(q.shape[1], k8.shape[1], causal, window_size,
+                        q_offsets, kv_offsets)
+    q8, qs = _quant_q(q, _scale(q, softmax_scale))
+    return sage_fwd_pos(q8, qs, k8, k_scale.float(), v8, v_scale.float(),
+                        q_start=q_start, causal=causal,
+                        window_size=window_size, sink_tokens=sink_tokens,
+                        out_dtype=q.dtype)

@@ -131,11 +131,18 @@ def test_model_config_rejects_unported_fields(field, value):
     """ModelConfig keeps the JAX config's fields; a value that needs a
     slice not ported yet raises instead of being ignored. A window, sinks
     or softcap serve, so the config takes them, and training such a model
-    (their backward) raises."""
+    (their backward) raises. attn_impl takes the registry's impls (xla,
+    sage) and raises ValueError on an unknown one."""
     from long_context_attention_tpu_torch.models.llama import (
         ModelConfig, make_train_step)
     from long_context_attention_tpu_torch.utils.config import BlockSizes
 
+    if field == "attn_impl":
+        for impl in (value, "sage"):
+            assert ModelConfig(attn_impl=impl).attn_impl == impl
+        with pytest.raises(ValueError, match="unknown attention impl"):
+            ModelConfig(attn_impl="flashinfer")
+        return
     if value == "BlockSizes":
         value = BlockSizes(block_q=512)
     if field in ("window_left", "softcap", "sink_tokens"):
