@@ -17,7 +17,11 @@ Phases, one JSON line each; any failure exits non-zero:
      the trainer's per-layer attention shape, causal, with offsets that
      leave rows dead, and ragged; the sage kernels B8a, B8c and B8b on the
      int8 operands of a 4 x 8192 prefill, with window and sinks, one-chunk
-     offsets, s_q != s_kv, dead rows, ragged, and B8b's band check), each
+     offsets, s_q != s_kv, dead rows, ragged, and B8b's band check; the
+     block-sparse kernels B9a, B9b and B9c at b=1, s=32768 in tiles of 512
+     on the StreamingLLM, strided and per-head masks, a mask whose last
+     quarter of rows has no live tile, and a non-causal 8192 x 32768 random
+     mask), each
      output row held against its own size (ROW_REL_TOL), with its time,
      the plain version's, a PyTorch library call's (timed here only) and
      the least time the card could take;
@@ -52,7 +56,12 @@ Phases, one JSON line each; any failure exits non-zero:
      windowed forward with offsets (B3) against none (B4);
   9. sage_api: the public sage calls at b=1, s=8192: non-causal (B8c),
      one-chunk offsets (B8b) against none (B8a), and the pre-quantized
-     entry (B8b).
+     entry (B8b);
+ 10. usp_sparse: LongContextAttention(block_mask=...) on a one-rank NCCL
+     mesh from make_usp_mesh() at b=1, s=32768, forward and backward on
+     each of the three causal masks (exactly one B9a, B9b and B9c per call,
+     no other kernel), against a direct block_sparse_attention call, and
+     timed against the dense flash_attention(causal=True).
 Then the kernel table, the card's name and power limit, and as the last line
 {"ok": true, "device": {...}}.
 """
@@ -65,6 +74,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -136,6 +146,15 @@ LR, WEIGHT_DECAY = 1e-4, 1e-4
 GRAD_LAYERS, GRAD_SEQ = 2, 1024
 GRAD_TOL = 0.03
 LOSS_TOL = 1e-3
+
+# Block-sparse USP: the model's attention width at s = 32768 in tiles of
+# 512 (the API's default block), the masks users run
+# (benchmarks/bench_sparse.py:66-69, :189-196): StreamingLLM's sink tile
+# plus an 8-tile (4096-token) window, every 8th tile plus a 4-tile band,
+# and a window of 4 + 2 * (i % 5) tiles per head
+SPARSE_SEQ, SPARSE_BLOCK = 32768, 512
+SPARSE_TILES = SPARSE_SEQ // SPARSE_BLOCK
+SPARSE_KERNELS = ("sparse_fwd", "sparse_bwd_dq", "sparse_bwd_dkv")
 
 
 def emit(obj):
@@ -928,6 +947,165 @@ def kernel_bwd(K, flash, gen, dev):
             for n in ("B2a", "B2b", "B5")]
 
 
+def sparse_masks(sparse):
+    """The causal tile masks of the usp_sparse path (SPARSE_* above)."""
+    n, h = SPARSE_TILES, MODEL["n_heads"]
+    return {"streaming": sparse.global_local_block_mask(n, n, 8,
+                                                        sink_tiles=1),
+            "strided": sparse.strided_block_mask(n, n, 8, local_tiles=4),
+            "per_head": np.stack([sparse.global_local_block_mask(
+                n, n, 4 + 2 * (i % 5), sink_tiles=1) for i in range(h)])}
+
+
+def sparse_plan(sparse, mask, s_q, s_kv, causal):
+    """The live-tile plan block_sparse_attention builds for this call."""
+    h, hk = MODEL["n_heads"], MODEL["n_kv_heads"]
+    m = np.ascontiguousarray(mask)
+    return sparse._plan(m.tobytes(), m.shape, h, s_q // SPARSE_BLOCK,
+                        s_kv // SPARSE_BLOCK, causal, SPARSE_BLOCK,
+                        SPARSE_BLOCK, h // hk, 0, 1)
+
+
+def sparse_pairs(plan, h):
+    """Visible (row, column) pairs of a sparse call over its h heads: whole
+    live tiles, and on a straddling tile the pairs at or below the diagonal
+    by global position."""
+    bq, bkv = plan.bq, plan.bkv
+    per_tile = np.full(plan.straddle.shape, bq * bkv, dtype=np.int64)
+    rows = np.arange(bq)
+    for iq, ik in zip(*np.nonzero(plan.straddle)):
+        seen = plan.q_first[iq] + rows - plan.kv_first[ik] + 1
+        per_tile[iq, ik] = int(np.clip(seen, 0, bkv).sum())
+    heads = plan.mh.sum(0) if plan.per_head else plan.mh[0] * h
+    return int((heads * per_tile).sum())
+
+
+def dense_mask(plan, dev):
+    """(s_q, s_kv) bool: the pairs a shared-mask plan keeps."""
+    live = torch.from_numpy(plan.mh[0]).to(dev)
+    live = live.repeat_interleave(plan.bq, 0).repeat_interleave(plan.bkv, 1)
+    rows = torch.arange(live.shape[0], device=dev) + int(plan.q_first[0])
+    cols = torch.arange(live.shape[1], device=dev)
+    strad = torch.from_numpy(plan.straddle).to(dev)
+    strad = strad.repeat_interleave(plan.bq, 0).repeat_interleave(plan.bkv, 1)
+    return live & ~(strad & (cols[None, :] > rows[:, None]))
+
+
+def sdpa_masked_ms(q, k, v, dout, mask):
+    """SDPA's memory-efficient kernel (it takes a boolean mask; flash does
+    not) on the same function: (forward ms, backward ms), K/V repeated to
+    the query heads."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    g = q.shape[2] // k.shape[2]
+    qh = q.transpose(1, 2).detach().requires_grad_()
+    kh, vh = (t.transpose(1, 2).repeat_interleave(g, 1).detach()
+              .requires_grad_() for t in (k, v))
+    doh = dout.transpose(1, 2)
+
+    def fwd():
+        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+            return F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask)
+
+    def fwd_bwd():
+        torch.autograd.grad(fwd(), (qh, kh, vh), doh)
+
+    fwd_ms = time_ms(fwd, iters=3, warmup=1)
+    return fwd_ms, time_ms(fwd_bwd, iters=3, warmup=1) - fwd_ms
+
+
+def kernel_b9(K, sparse, gen, dev):
+    """B9a, B9b and B9c against their plain versions at the usp_sparse
+    path's shape (b=1, s=32768, 16/8 heads, d=128, tiles of 512): the three
+    causal masks, a mask whose last quarter of q rows has no live tile (out
+    0, lse -inf, dq 0 there), and a non-causal rectangular call (8192 rows
+    over the 32768 columns, random tiles at density 0.25). Times, the
+    bound and SDPA's masked call at the StreamingLLM mask."""
+    h, hk, d = MODEL["n_heads"], MODEL["n_kv_heads"], 128
+    s, n, scale = SPARSE_SEQ, SPARSE_TILES, d ** -0.5
+    q, dout = (torch.randn((1, s, h, d), generator=gen, device=dev).bfloat16()
+               for _ in range(2))
+    k, v = (torch.randn((1, s, hk, d), generator=gen, device=dev).bfloat16()
+            for _ in range(2))
+    masks = sparse_masks(sparse)
+    uncovered = masks["streaming"].copy()
+    uncovered[3 * n // 4:] = False
+    dead_rows = slice(3 * s // 4, s)
+    rect = s // 4
+    cases = [(f"{name} causal", m, True, s) for name, m in masks.items()]
+    cases += [("uncovered rows causal", uncovered, True, s),
+              (f"s_q={rect} non-causal random 0.25",
+               sparse.random_block_mask(rect // SPARSE_BLOCK, n, 0.25), False,
+               rect)]
+    checks = {"B9a": [], "B9b": [], "B9c": []}
+    for tag, mask, causal, s_q in cases:
+        qq, do = q[:, -s_q:].contiguous(), dout[:, -s_q:].contiguous()
+        plan = sparse_plan(sparse, mask, s_q, s, causal)
+        o, l = sparse.sparse_fwd(qq, k, v, plan, scale=scale)
+        po, pl_ = sparse.sparse_fwd_plain(qq, k, v, plan, scale=scale)
+        torch.cuda.synchronize()
+        checks["B9a"].append(check_out(f"B9a out {tag}", o, po))
+        check(f"B9a lse {tag}", max_err(l, pl_), LSE_TOL)
+        ops = sparse.sparse_bwd_operands(o, l, do, qq.dtype)
+        dq = sparse.sparse_bwd_dq(qq, k, v, *ops, plan, scale=scale)
+        pdq = sparse.sparse_bwd_dq_plain(qq, k, v, *ops, plan, scale=scale)
+        torch.cuda.synchronize()
+        if tag.startswith("uncovered"):
+            if (o[:, dead_rows].any() or dq[:, dead_rows].any()
+                    or not torch.isneginf(l[:, :, dead_rows]).all()):
+                raise AssertionError("B9a/B9b: uncovered rows are not out 0, "
+                                     "lse -inf, dq 0")
+        # row 0 sees column 0 alone under the causal mask: its ds cancels
+        checks["B9b"].append(check_out(f"B9b dq {tag}", dq, pdq,
+                                       0 if causal else None))
+        del dq, pdq, po, pl_
+        dk, dv = sparse.sparse_bwd_dkv(qq, k, v, *ops, plan, scale=scale)
+        pdk, pdv = sparse.sparse_bwd_dkv_plain(qq, k, v, *ops, plan,
+                                               scale=scale)
+        torch.cuda.synchronize()
+        checks["B9c"].append(check_out(f"B9c dk {tag}", dk, pdk))
+        checks["B9c"].append(check_out(f"B9c dv {tag}", dv, pdv))
+        emit({"phase": "check", "case": f"B9 {tag}",
+              "density": sparse.mask_density(mask, causal),
+              "pairs": sparse_pairs(plan, h)})
+        del dk, dv, pdk, pdv, o, l, ops
+        torch.cuda.empty_cache()
+
+    # times at the StreamingLLM mask
+    plan = sparse_plan(sparse, masks["streaming"], s, s, True)
+    o, l = sparse.sparse_fwd(q, k, v, plan, scale=scale)
+    ops = sparse.sparse_bwd_operands(o, l, dout, q.dtype)
+    fns = {"B9a": (sparse.sparse_fwd, sparse.sparse_fwd_plain, ()),
+           "B9b": (sparse.sparse_bwd_dq, sparse.sparse_bwd_dq_plain, ops),
+           "B9c": (sparse.sparse_bwd_dkv, sparse.sparse_bwd_dkv_plain, ops)}
+    ms, plain_ms = {}, {}
+    for name, (fn, plain, extra) in fns.items():
+        ms[name] = time_ms(lambda: fn(q, k, v, *extra, plan, scale=scale))
+        plain_ms[name] = time_ms(lambda: plain(q, k, v, *extra, plan,
+                                               scale=scale), iters=1, warmup=0)
+        torch.cuda.empty_cache()
+    vis = dense_mask(plan, dev)
+    lib_fwd, lib_bwd = sdpa_masked_ms(q, k, v, dout, vis)
+    del vis
+    torch.cuda.empty_cache()
+    pairs = sparse_pairs(plan, h)
+    in_bytes = 2 * (q.numel() + k.numel() + v.numel())
+    nbytes = {"B9a": in_bytes + 2 * q.numel() + 4 * h * s,
+              "B9b": in_bytes + 2 * q.numel() + 8 * h * s + 4 * q.numel(),
+              "B9c": in_bytes + 2 * q.numel() + 8 * h * s + 8 * k.numel()}
+    products = {"B9a": 2, "B9b": 3, "B9c": 4}  # matmuls of depth d per pair
+    kern = {"B9a": "sparse_fwd", "B9b": "sparse_bwd_dq",
+            "B9c": "sparse_bwd_dkv"}
+    return [{**row(K[kern[n]], "sparse.cu", checks[n], ms[n], plain_ms[n],
+                   2 * products[n] * d * pairs, nbytes[n],
+                   lib_fwd if n == "B9a" else lib_bwd),
+             "library": "SDPA memory-efficient with the dense boolean mask"
+                        + (" (backward: all three grads)" if n != "B9a"
+                           else ""),
+             "mask": "streaming", "pairs": pairs}
+            for n in ("B9a", "B9b", "B9c")]
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the serving slice
 # ---------------------------------------------------------------------------
@@ -1468,6 +1646,102 @@ def sage_api_phase(build, sage, dev, card):
     return runs["noncausal"][0]
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the block-sparse USP layer
+# ---------------------------------------------------------------------------
+
+
+def usp_sparse_phase(build, sparse, flash, dev, card):
+    """LongContextAttention(block_mask=...) at the path's shape (b=1,
+    s=32768, 16/8 heads, d=128, tiles of 512) on a one-rank NCCL world
+    from make_usp_mesh() (ring 1, ulysses 1: no collective runs, and the
+    zigzag order of one rank is the natural one). For each causal mask of
+    sparse_masks, from zeroed counts, one forward and backward: exactly one
+    B9a, one B9b and one B9c and no other kernel; out and grads finite and,
+    row by row, equal to a direct block_sparse_attention call's. Then the
+    layer's forward and forward+backward times against the dense
+    flash_attention(causal=True) (B1, B1 + B5) on the same inputs, timed
+    before and after the masks, with each mask's density, speedup and
+    efficiency (speedup * density / 0.5, benchmarks/bench_sparse.py:208).
+    Returns the launch counts summed over the three layer calls."""
+    import torch.distributed as dist
+
+    from long_context_attention_tpu_torch.parallel import (
+        LongContextAttention, make_usp_mesh)
+
+    b, s, h, hk, d = 1, SPARSE_SEQ, MODEL["n_heads"], MODEL["n_kv_heads"], 128
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    q, k, v = (torch.randn(shape, generator=gen, device=dev).bfloat16()
+               .requires_grad_()
+               for shape in ((b, s, h, d), (b, s, hk, d), (b, s, hk, d)))
+    dout = torch.randn((b, s, h, d), generator=gen, device=dev).bfloat16()
+    blocks = dict(sparse_block_q=SPARSE_BLOCK, sparse_block_kv=SPARSE_BLOCK)
+    only_b9 = {n: int(n in SPARSE_KERNELS) for n in build.KERNELS}
+
+    def fwd_ms(fn):
+        with torch.no_grad():
+            return time_ms(fn, iters=5, warmup=1)
+
+    def fwd_bwd_ms(fn):
+        return time_ms(lambda: torch.autograd.grad(fn(), (q, k, v), dout),
+                       iters=3, warmup=1)
+
+    def dense():
+        return flash.flash_attention(q, k, v, causal=True)
+
+    mesh = make_usp_mesh()
+    try:
+        if (mesh.ring, mesh.ulysses, mesh.seq_idx) != (1, 1, 0):
+            raise AssertionError(f"usp_sparse: mesh {mesh}")
+        layer = LongContextAttention(mesh, layout="zigzag")
+        dense_ms = [(fwd_ms(dense), fwd_bwd_ms(dense))]
+        total = dict.fromkeys(build.KERNELS, 0)
+        masks = {}
+        for name, mask in sparse_masks(sparse).items():
+            def call(mask=mask):
+                return layer(q, k, v, causal=True, block_mask=mask, **blocks)
+
+            build.reset_launch_counts()
+            out = call()
+            grads = torch.autograd.grad(out, (q, k, v), dout)
+            torch.cuda.synchronize()
+            counts = expect_counts(build, only_b9)
+            for n, c in counts.items():
+                total[n] += c
+            got = (out.detach(), *grads)
+            if not all(bool(torch.isfinite(t).all()) for t in got):
+                raise AssertionError(f"usp_sparse {name}: non-finite output")
+            ref = sparse.block_sparse_attention(
+                q, k, v, mask, causal=True, block_q=SPARSE_BLOCK,
+                block_kv=SPARSE_BLOCK)
+            want = (ref.detach(), *torch.autograd.grad(ref, (q, k, v), dout))
+            errs = {g: check_out(f"usp_sparse {name} {g} vs "
+                                 f"block_sparse_attention", a, w)[1]
+                    for g, a, w in zip(("out", "dq", "dk", "dv"), got, want)}
+            del out, grads, got, ref, want
+            torch.cuda.empty_cache()
+            masks[name] = {"density": sparse.mask_density(mask, causal=True),
+                           "fwd_ms": fwd_ms(call),
+                           "fwd_bwd_ms": fwd_bwd_ms(call),
+                           "row_rel_err": errs, "launches": counts}
+        dense_ms.append((fwd_ms(dense), fwd_bwd_ms(dense)))
+    finally:
+        dist.destroy_process_group()
+    dense_fwd = sum(f for f, _ in dense_ms) / 2
+    dense_fb = sum(fb for _, fb in dense_ms) / 2
+    for m in masks.values():
+        for key, ref_ms in (("fwd", dense_fwd), ("fwd_bwd", dense_fb)):
+            m[f"{key}_speedup"] = ref_ms / m[f"{key}_ms"]
+            m[f"{key}_efficiency"] = m[f"{key}_speedup"] * m["density"] / 0.5
+    emit({"phase": "usp_sparse", "card": card, "layer":
+          "LongContextAttention(layout='zigzag'), ring 1 x ulysses 1 (NCCL)",
+          "batch": b, "seq": s, "heads": h, "kv_heads": hk, "head_dim": d,
+          "block": SPARSE_BLOCK, "dense_causal_fwd_ms": [f for f, _ in dense_ms],
+          "dense_causal_fwd_bwd_ms": [fb for _, fb in dense_ms],
+          "masks": masks})
+    return total
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
@@ -1475,7 +1749,7 @@ def main():
         return 1
     import long_context_attention_tpu_torch as pkg
     from long_context_attention_tpu_torch.ops import _build as build
-    from long_context_attention_tpu_torch.ops import decode, flash, sage
+    from long_context_attention_tpu_torch.ops import decode, flash, sage, sparse
 
     dev = torch.device("cuda")
     smi = smi_line()
@@ -1503,7 +1777,8 @@ def main():
     rows = []
     for fn, mod in ((kernel_b1, flash), (kernel_b4, flash),
                     (kernel_b3, flash), (kernel_b8, sage), (kernel_b6, decode),
-                    (kernel_b7, decode), (kernel_bwd, flash)):
+                    (kernel_b7, decode), (kernel_bwd, flash),
+                    (kernel_b9, sparse)):
         res = fn(K, mod, gen, dev)
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
@@ -1515,7 +1790,8 @@ def main():
     # each kernel's launches on its own path: serving (B1, B3, B6, B7),
     # windowed serving (B4; B3, B6, B7 in their "windowed" entries),
     # training (B5), the offsets call (B2a, B2b), sage serving (B8a dense,
-    # B8b windowed), the non-causal sage call (B8c)
+    # B8b windowed), the non-causal sage call (B8c), the block-sparse USP
+    # layer (B9a, B9b, B9c)
     counts, dense = serve_phase(pkg, build, dev, smi, windowed=False)
     torch.cuda.empty_cache()
     wcounts, windowed = serve_phase(pkg, build, dev, smi, windowed=True)
@@ -1540,12 +1816,16 @@ def main():
     offsets_counts = offsets_phase(build, flash, dev, smi)
     rect_counts = sage_api_phase(build, sage, dev, smi)
     lap("offsets")
+    torch.cuda.empty_cache()
+    usp_counts = usp_sparse_phase(build, sparse, flash, dev, smi)
+    lap("usp_sparse")
     emit({"phase": "timing", "seconds": seconds})
     path = {"flash_fwd_static": wcounts, "flash_bwd_fused": train_counts,
             "flash_bwd_dq": offsets_counts, "flash_bwd_dkv": offsets_counts,
             "sage_fwd_tri": sage_counts["sage_fwd_tri"],
             "sage_fwd_pos": sage_counts["sage_fwd_pos"],
-            "sage_fwd_rect": rect_counts}
+            "sage_fwd_rect": rect_counts,
+            **{n: usp_counts for n in SPARSE_KERNELS}}
     for r in rows:
         r["launches"] = path.get(r["name"], counts)[r["name"]]
         if "windowed" in r:

@@ -36,6 +36,16 @@ from long_context_attention_tpu_torch.ops.sage import (  # noqa: F401
     sage_attention_fwd_prequant,
     sage_attention_full,
 )
+from long_context_attention_tpu_torch.ops.sparse import (  # noqa: F401
+    block_sparse_attention,
+    block_sparse_attention_fwd,
+    causal_block_mask,
+    global_local_block_mask,
+    mask_density,
+    random_block_mask,
+    sliding_window_block_mask,
+    strided_block_mask,
+)
 from long_context_attention_tpu_torch.ops.wquant import (  # noqa: F401
     QTensor,
     qdot,

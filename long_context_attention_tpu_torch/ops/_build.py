@@ -179,6 +179,21 @@ KERNELS: Dict[str, Kernel] = {
         "flash_bwd_fused", "flash_bwd.cu", "lca_flash_bwd_fused",
         [_VP] * 10 + [_F, _VP],
         "long_context_attention_tpu/ops/flash.py:1291"),
+    # the sparse entries share one C signature: q, k, v, dout, lse, delta,
+    # out (B9b: dq), out_lse, dk, dv (null where unused), the CSR walk
+    # (ptr, entries), dims, qfold, scale, stream
+    "sparse_fwd": Kernel(
+        "sparse_fwd", "sparse.cu", "lca_sparse_fwd",
+        [_VP] * 13 + [_F, _F, _VP],
+        "long_context_attention_tpu/ops/sparse.py:314"),
+    "sparse_bwd_dq": Kernel(
+        "sparse_bwd_dq", "sparse.cu", "lca_sparse_bwd_dq",
+        [_VP] * 13 + [_F, _F, _VP],
+        "long_context_attention_tpu/ops/sparse.py:469"),
+    "sparse_bwd_dkv": Kernel(
+        "sparse_bwd_dkv", "sparse.cu", "lca_sparse_bwd_dkv",
+        [_VP] * 13 + [_F, _F, _VP],
+        "long_context_attention_tpu/ops/sparse.py:516"),
     "cache_append": Kernel(
         "cache_append", "cache_append.cu", "lca_cache_append",
         [_VP] * 11,

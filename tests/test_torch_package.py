@@ -74,8 +74,8 @@ def test_build_dir_is_gitignored():
 def test_unported_features_raise():
     """Features outside the ported slices raise NotImplementedError, and so
     does a gradient through the int8-KV path, which is forward-only in the
-    JAX package too, and one through a sliding window (its backward is the
-    next slice)."""
+    JAX package too, one through a sliding window (its backward is the
+    next slice) and the dense USP layers."""
     from long_context_attention_tpu_torch.ops.decode import decode_attention
     from long_context_attention_tpu_torch.ops.flash import (
         flash_attention, flash_attention_fwd)
@@ -99,6 +99,17 @@ def test_unported_features_raise():
     with pytest.raises(NotImplementedError):
         decode_attention(q[:, 0], cache, cache, torch.ones(1, dtype=torch.int32),
                          alibi_slopes=torch.ones(2))
+    # the dense USP layers (block_mask=None) come with the dense ring
+    from long_context_attention_tpu_torch.parallel import (
+        LongContextAttention, UlyssesAttention, make_usp_mesh)
+
+    mesh = make_usp_mesh(device="cpu")
+    try:
+        for layer in (LongContextAttention, UlyssesAttention):
+            with pytest.raises(NotImplementedError, match="dense USP"):
+                layer(mesh)(q, q, q, causal=True)
+    finally:
+        torch.distributed.destroy_process_group()
 
 
 def test_engine_rejects_params_off_its_device():
