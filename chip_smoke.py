@@ -12,10 +12,14 @@ Phases, one JSON line each; any failure exits non-zero:
      shapes (B7 through decode_attention, the wrapper the decode step calls,
      against the same call on CPU copies of the layer; B4, B3 and B7 also
      with the sliding window, sinks and softcap, and a band check: every
-     kv tile outside a kernel's walk poisoned with NaN must leave its
-     output finite and bit-equal; the backward kernels B2a, B2b and B5 at
-     the trainer's per-layer attention shape, causal, with offsets that
-     leave rows dead, and ragged; the sage kernels B8a, B8c and B8b on the
+     kv tile outside a kernel's walk, at that kernel's tile width, poisoned
+     with NaN must leave its output finite and bit-equal; B1 and B3 also
+     where lengths, q_start and the window and sink edges cut their
+     128-wide tiles, B1 at the trainer's b=1, s=8192 and B3 over a bf16 kv
+     at the offsets call's shape, each timed; the backward kernels B2a, B2b
+     and B5 at the trainer's per-layer attention shape, causal, with
+     offsets that leave rows dead, and ragged; the sage kernels B8a, B8c
+     and B8b on the
      int8 operands of a 4 x 8192 prefill, with window and sinks, one-chunk
      offsets, s_q != s_kv, dead rows, ragged, and B8b's band check; the
      block-sparse kernels B9a, B9b and B9c at b=1, s=32768 in tiles of 512
@@ -98,7 +102,10 @@ GEN_BATCH, GEN_PROMPT, GEN_NEW = 2, 1024, 16
 # window and these sinks, so only the kernel phase holds it.
 WINDOW, SINKS, SOFTCAP = 4096, 4, 50.0
 WINDOWED = dict(window_left=WINDOW, sink_tokens=SINKS)
-FLASH_KV_TILE = 64  # the kv tile of csrc/flash_fwd.cu (BKV)
+# The kv-tile width of each kernel's walk, which its band check poisons: a
+# NaN inside a visited tile is not masked out of the PV product.
+B4_KV_TILE = 64    # csrc/flash_fwd.cu BKV (B4; the sage kernels B8a-B8c)
+B3_KV_TILE = 128   # csrc/flash_fwd_sm90.cu BKV (B1, B3)
 
 # Kernel vs plain version (same inputs). Each output row -- one query row
 # of one head, its d features -- is held against its own size: the row's
@@ -306,38 +313,61 @@ def band_check(name, got, want, n_tiles):
 
 
 def kernel_b1(K, flash, gen, dev):
+    """B1 against its plain version: the chunk's shape (b=4, s=2048) in the
+    fast and online forms, ragged lengths that cut a 128-row tile (1000 and
+    4096 + 37), and the trainer's shape (b=1, s=8192); times at the chunk's
+    shape and, in "train", at the trainer's."""
     b, s, h, hk, d = BATCH, CHUNK, MODEL["n_heads"], MODEL["n_kv_heads"], 128
-    q = torch.randn((b, s, h, d), generator=gen, device=dev).bfloat16()
-    k = torch.randn((b, s, hk, d), generator=gen, device=dev).bfloat16()
-    v = torch.randn((b, s, hk, d), generator=gen, device=dev).bfloat16()
     scale = d ** -0.5
     checks = []
-    for safe in (False, True):
+
+    def qkv(bb, ss):
+        return [torch.randn(shape, generator=gen, device=dev).bfloat16()
+                for shape in ((bb, ss, h, d), (bb, ss, hk, d),
+                              (bb, ss, hk, d))]
+
+    def case(tag, q, k, v, safe=False):
         o, l = flash.flash_fwd_causal_self(q, k, v, scale=scale,
                                            safe_softmax=safe)
         po, pl_ = flash.flash_fwd_causal_self_plain(q, k, v, scale=scale,
                                                     safe_softmax=safe)
         torch.cuda.synchronize()
-        checks.append(check_out(f"B1 out safe={safe}", o, po))
-        check(f"B1 lse safe={safe}", max_err(l, pl_), LSE_TOL)
-    # a ragged length: partial q and kv tiles at the end
-    qr, kr_, vr_ = (t[:1, :1000].contiguous() for t in (q, k, v))
-    o, l = flash.flash_fwd_causal_self(qr, kr_, vr_, scale=scale)
-    po, pl_ = flash.flash_fwd_causal_self_plain(qr, kr_, vr_, scale=scale)
-    torch.cuda.synchronize()
-    checks.append(check_out("B1 out ragged", o, po))
-    check("B1 lse ragged", max_err(l, pl_), LSE_TOL)
-    ms = time_ms(lambda: flash.flash_fwd_causal_self(q, k, v, scale=scale))
-    plain_ms = time_ms(lambda: flash.flash_fwd_causal_self_plain(
-        q, k, v, scale=scale), iters=3, warmup=1)
-    qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
-    kr, vr = (t.repeat_interleave(h // hk, dim=1) for t in (kh, vh))
-    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
-        qh, kr, vr, is_causal=True))
-    flops = 2 * b * h * s * s * d
-    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel()) + 4 * b * h * s
-    return row(K["flash_fwd_causal_self"], "flash_fwd.cu", checks, ms,
-               plain_ms, flops, nbytes, lib_ms)
+        checks.append(check_out(f"B1 out {tag} safe={safe}", o, po))
+        check(f"B1 lse {tag} safe={safe}", max_err(l, pl_), LSE_TOL)
+
+    def times(q, k, v):
+        bb, ss = q.shape[:2]
+        ms = time_ms(lambda: flash.flash_fwd_causal_self(q, k, v,
+                                                         scale=scale))
+        plain_ms = time_ms(lambda: flash.flash_fwd_causal_self_plain(
+            q, k, v, scale=scale), iters=3, warmup=1)
+        qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+        kr, vr = (t.repeat_interleave(h // hk, dim=1) for t in (kh, vh))
+        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            qh, kr, vr, is_causal=True))
+        flops = 2 * bb * h * ss * ss * d
+        nbytes = 2 * (2 * q.numel() + k.numel() + v.numel()) + 4 * bb * h * ss
+        return ms, plain_ms, flops, nbytes, lib_ms
+
+    q, k, v = qkv(b, s)
+    for safe in (False, True):
+        case(f"b={b} s={s}", q, k, v, safe)
+    # ragged lengths: partial q and kv tiles at the end
+    for sr in (1000, 4096 + 37):
+        qr, kr_, vr_ = qkv(1, sr)
+        for safe in (False, True):
+            case(f"ragged s={sr}", qr, kr_, vr_, safe)
+    res = row(K["flash_fwd_causal_self"], "flash_fwd_sm90.cu", checks,
+              *times(q, k, v))
+    # the trainer's forward: b=1, s=8192
+    del q, k, v
+    qt, kt, vt = qkv(1, TRAIN_SEQ)
+    checks = []
+    for safe in (False, True):
+        case(f"b=1 s={TRAIN_SEQ}", qt, kt, vt, safe)
+    res["train"] = {"case": f"b=1 s={TRAIN_SEQ}",
+                    **case_row(checks, *times(qt, kt, vt))}
+    return res
 
 
 def kernel_b4(K, flash, gen, dev):
@@ -378,8 +408,8 @@ def kernel_b4(K, flash, gen, dev):
     out = case(f"window sinks b=1 s={PROMPT}", q1, k1, v1, **win)
     rows = slice(PROMPT - CHUNK, PROMPT)
     vis = visible(PROMPT, PROMPT, 0, True, left=WINDOW, sink=SINKS, dev=dev)
-    tiles = unseen_tiles(vis[rows], FLASH_KV_TILE)
-    kp, vp = (poison(t, 1, tiles, FLASH_KV_TILE) for t in (k1, v1))
+    tiles = unseen_tiles(vis[rows], B4_KV_TILE)
+    kp, vp = (poison(t, 1, tiles, B4_KV_TILE) for t in (k1, v1))
     got, _ = flash.flash_fwd_static(q1, kp, vp, scale=scale, **win)
     torch.cuda.synchronize()
     band_check("B4", got[:, rows], out[:, rows], len(tiles))
@@ -442,6 +472,26 @@ def kernel_b3(K, flash, gen, dev):
                 raise AssertionError("B3: dead rows are not out 0, lse -inf")
         checks.append(check_out(f"B3 out ragged q_start={q_start}", o, po))
         check(f"B3 lse ragged q_start={q_start}", max_err(l, pl_), LSE_TOL)
+    # lengths, q_start, the window edge and the sink edge inside 128-wide
+    # tiles: 300 rows at q_start 1037 over a 1337-slot prefix, window 500,
+    # 70 sinks, int8 and bf16, in every form
+    sr, qr_start, kvr = 300, 1037, 1337
+    qr = q[:, :sr].contiguous()
+    i8 = (k[:, :, :kvr], v[:, :, :kvr], ksl[:, :, :kvr], vsl[:, :, :kvr])
+    b16 = ((i8[0].float() * i8[2][..., None]).bfloat16(),
+           (i8[1].float() * i8[3][..., None]).bfloat16(), None, None)
+    for kv_tag, args in (("int8", i8), ("bf16", b16)):
+        for f_tag, kw in (("fast", {}), ("safe", dict(safe_softmax=True)),
+                          ("softcap", dict(softcap=SOFTCAP))):
+            tag = f"{kv_tag} {f_tag} s_q={sr} q_start={qr_start} s_kv={kvr}"
+            kw = dict(kw, q_start=qr_start, causal=True, scale=scale,
+                      window_size=(500, -1), sink_tokens=70)
+            o, l = flash.flash_fwd_pos(qr, *args, **kw)
+            po, pl_ = flash.flash_fwd_pos_plain(qr, *args, **kw)
+            torch.cuda.synchronize()
+            checks.append(check_out(f"B3 out {tag} window 500 sinks 70", o,
+                                    po))
+            check(f"B3 lse {tag}", max_err(l, pl_), LSE_TOL)
     ms = time_ms(lambda: flash.flash_fwd_pos(
         q, k, v, ksl, vsl, q_start=start, causal=True, scale=scale))
     plain_ms = time_ms(lambda: flash.flash_fwd_pos_plain(
@@ -454,12 +504,48 @@ def kernel_b3(K, flash, gen, dev):
     flops = 4 * b * h * s_q * start * d
     nbytes = (2 * 2 * q.numel() + 4 * b * h * s_q
               + 2 * b * hk * start * (d + 4))
-    res = row(K["flash_fwd_pos"], "flash_fwd.cu", checks, ms, plain_ms,
+    res = row(K["flash_fwd_pos"], "flash_fwd_sm90.cu", checks, ms, plain_ms,
               flops, nbytes, lib_ms)
     del kd, vd
     res["windowed"] = kernel_b3_windowed(flash, q, k, v, ksl, vsl, start,
                                          scale, dev)
+    del q, kc, vc, ks, vs, k, v, ksl, vsl
+    torch.cuda.empty_cache()
+    res["bf16"] = kernel_b3_bf16(flash, gen, dev)
     return res
+
+
+def kernel_b3_bf16(flash, gen, dev):
+    """B3 over a bf16 kv as the training offsets call's forward runs it
+    (flash_attention with one-chunk offsets: b=1, s=8192, q_start 0,
+    causal), fast and online, with its times."""
+    b, s, h, hk, d = 1, TRAIN_SEQ, MODEL["n_heads"], MODEL["n_kv_heads"], 128
+    scale = d ** -0.5
+    q = torch.randn((b, s, h, d), generator=gen, device=dev).bfloat16()
+    k, v = (torch.randn((b, s, hk, d), generator=gen, device=dev).bfloat16()
+            .transpose(1, 2) for _ in range(2))
+    checks = []
+    for safe in (False, True):
+        o, l = flash.flash_fwd_pos(q, k, v, q_start=0, causal=True,
+                                   scale=scale, safe_softmax=safe)
+        po, pl_ = flash.flash_fwd_pos_plain(q, k, v, q_start=0, causal=True,
+                                            scale=scale, safe_softmax=safe)
+        torch.cuda.synchronize()
+        checks.append(check_out(f"B3 out bf16 b=1 s={s} safe={safe}", o, po))
+        check(f"B3 lse bf16 b=1 s={s} safe={safe}", max_err(l, pl_), LSE_TOL)
+    ms = time_ms(lambda: flash.flash_fwd_pos(q, k, v, q_start=0, causal=True,
+                                             scale=scale))
+    plain_ms = time_ms(lambda: flash.flash_fwd_pos_plain(
+        q, k, v, q_start=0, causal=True, scale=scale), iters=2, warmup=1)
+    qh = q.transpose(1, 2)
+    kr, vr = (t.repeat_interleave(h // hk, dim=1) for t in (k, v))
+    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        qh, kr, vr, is_causal=True))
+    flops = 4 * b * h * d * live_pairs(s, s, 0, True)
+    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel()) + 4 * b * h * s
+    return {"case": f"bf16 kv, b=1 s={s}, q_start 0, causal (the training "
+                    f"offsets call)",
+            **case_row(checks, ms, plain_ms, flops, nbytes, lib_ms)}
 
 
 def kernel_b3_windowed(flash, q, k, v, ksl, vsl, start, scale, dev):
@@ -501,8 +587,8 @@ def kernel_b3_windowed(flash, q, k, v, ksl, vsl, start, scale, dev):
          tuple(t[..., :200, :] if t.dim() == 4 else t[..., :200]
                for t in quant), 100, window_size=(60, -1), sink_tokens=70)
     vis = visible(s_q, start, start, True, left=WINDOW, sink=SINKS, dev=dev)
-    tiles = unseen_tiles(vis, FLASH_KV_TILE)
-    ksp, vsp = (poison(t, 2, tiles, FLASH_KV_TILE) for t in (ksl, vsl))
+    tiles = unseen_tiles(vis, B3_KV_TILE)
+    ksp, vsp = (poison(t, 2, tiles, B3_KV_TILE) for t in (ksl, vsl))
     got, _ = flash.flash_fwd_pos(q, k, v, ksp, vsp, q_start=start,
                                  causal=True, scale=scale, **win)
     torch.cuda.synchronize()
@@ -588,8 +674,8 @@ def kernel_b8(K, sage, gen, dev):
     # band check: rows 6144.. never see kv tiles 1..31, whose scales get NaN
     rows = slice(s - CHUNK, s)
     vis = visible(s, s, 0, True, left=WINDOW, sink=SINKS, dev=dev)
-    tiles = unseen_tiles(vis[rows], FLASH_KV_TILE)
-    ksp, vsp = (poison(t, 2, tiles, FLASH_KV_TILE) for t in (ops[3], ops[5]))
+    tiles = unseen_tiles(vis[rows], B4_KV_TILE)
+    ksp, vsp = (poison(t, 2, tiles, B4_KV_TILE) for t in (ops[3], ops[5]))
     got, _ = sage.sage_fwd_pos(ops[0], ops[1], ops[2], ksp, ops[4], vsp,
                                **win)
     torch.cuda.synchronize()
@@ -1830,6 +1916,10 @@ def main():
         r["launches"] = path.get(r["name"], counts)[r["name"]]
         if "windowed" in r:
             r["windowed"]["launches"] = wcounts[r["name"]]
+        if "train" in r:  # B1 in the 3 timed `none` training steps
+            r["train"]["launches"] = train_counts[r["name"]]
+        if "bf16" in r:  # B3 in the offsets call
+            r["bf16"]["launches"] = offsets_counts[r["name"]]
     emit({"kernels": rows})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

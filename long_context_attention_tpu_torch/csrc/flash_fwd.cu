@@ -1,19 +1,13 @@
-// Flash-attention forward for Hopper (sm_90a): three flash entry points and
-// three sage entry points that share their kv walk.
+// Flash-attention forward for Hopper (sm_90a) on mma.sync: one flash entry
+// point and three sage entry points that share their kv walk. The causal
+// self-attention (B1) and global-position (B3) forwards are wgmma/TMA
+// kernels of their own, in flash_fwd_sm90.cu.
 //
-// Replaces the TPU kernels of long_context_attention_tpu/ops/flash.py:
-//   lca_flash_fwd_causal_self <- _fwd_kernel_tri / _fwd_kernel_tri_sqrt
-//                                (shared body _tri_body): causal
-//                                self-attention, s_q == s_kv, GQA;
+// Replaces the TPU kernel of long_context_attention_tpu/ops/flash.py:
 //   lca_flash_fwd_static      <- _fwd_kernel_static: self-attention with
 //                                positions from tile ids, causal or not,
 //                                sliding window (left, right), StreamingLLM
-//                                sinks and logit softcap;
-//   lca_flash_fwd_pos         <- _fwd_kernel: q rows at global positions
-//                                q_off + i against kv columns at j, the same
-//                                masks and softcap, bf16 or int8 K/V with
-//                                fp32 per-token scales (chunked prefill
-//                                against the quantized cache).
+//                                sinks and logit softcap.
 //
 // What bounds it on an H100: tensor-core operations. Each visible (row,
 // column) pair costs 4*d FLOPs (QK and PV), against 989 TFLOP/s bf16; the
@@ -27,8 +21,7 @@
 // the PV product, as in FlashAttention-2, and a row's statistics are
 // reduced across the four lanes that hold it. K/V tiles of 64 columns
 // arrive by cp.async into a double buffer, so the next tile loads while
-// this one computes; int8 tiles land in a staging buffer and are widened
-// to bf16 (exactly) in shared memory. No TMA or wgmma yet.
+// this one computes. No TMA or wgmma yet.
 //
 // The kv walk visits only tiles a row of the q tile can see, each once:
 // the sink tiles that lie before the band, then the band from the window's
@@ -38,18 +31,14 @@
 // never read. The TPU's triangular (iq, ik) tables and sqrt decode are grid
 // devices with no counterpart here.
 //
-// Numerics follow the TPU kernels exactly:
+// Numerics follow the TPU kernel exactly:
 //   fast form: scale*log2e is folded into q in bf16 (one rounding), then
-//     p = exp2(min(s, 90)), l += rowsum(p), acc += bf16(p * v_scale) @ v;
-//     out = acc / l, lse = log(l); a row with l == 0 gives out 0, lse -inf.
-//   online forms (safe softmax): the self-attention kernels (_tri_body,
-//     _fwd_kernel_static) work in exp2 units (s *= scale*log2e, lse = m*ln2
-//     + log l); the position kernel in natural units (s = dot * k_scale *
-//     scale, lse = m + log l).
-//   softcap: natural units, s = cap * tanh(dot * k_scale * scale / cap),
-//     then the online form.
-//   int8 K/V: s = dot(q, k_int8 as bf16) * k_scale[col]; l sums p before
-//     V's scale; p *= v_scale[col] before the bf16 PV product.
+//     p = exp2(min(s, 90)), l += rowsum(p), acc += bf16(p) @ v; out = acc /
+//     l, lse = log(l); a row with l == 0 gives out 0, lse -inf.
+//   online form (safe softmax): exp2 units (s *= scale*log2e, lse = m*ln2
+//     + log l).
+//   softcap: natural units, s = cap * tanh(dot * scale / cap), then the
+//     online form.
 //   masks (flash-attn semantics, global positions): drop col > row + right
 //     (right = 0 when causal) and col < row - left unless col < sink.
 //
@@ -67,9 +56,9 @@
 // and 2*d bf16 FLOPs (PV, 989 TFLOP/s) per visible pair. QK runs on
 // mma.sync m16n8k32 s8 (ldmatrix's b16 view loads both int8 operands from
 // row-major tiles), whose s32 accumulator has the fp32 fragment layout, so
-// B1's register path from scores to the PV A operand carries over. V is
+// B4's register path from scores to the PV A operand carries over. V is
 // int8 in memory (half the bf16 bytes) and widened to bf16 in shared
-// memory per tile, as B3 widens its int8 cache.
+// memory per tile.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -90,25 +79,18 @@ constexpr float kLn2 = 0.6931471805599453f;
 // softmax forms (template parameter FORM)
 constexpr int kFast = 0;        // max-free clamped exp2, scale folded into q
 constexpr int kOnlineExp2 = 1;  // online softmax in exp2 units
-constexpr int kOnlineNat = 2;   // online softmax in natural units
 constexpr int kSoftcap = 3;     // capped scores, online, natural units
 
 constexpr int TILE_BYTES = BKV * LD * 2;  // one bf16 k or v tile
 constexpr int Q_BYTES = BQ * LD * 2;
 constexpr int OFF_K = Q_BYTES;                  // 2 stages of k
 constexpr int OFF_V = OFF_K + 2 * TILE_BYTES;   // 2 stages of v
-constexpr int OFF_SC = OFF_V + 2 * TILE_BYTES;  // k and v scales (int8)
-constexpr int SMEM_BYTES = OFF_SC + 2 * BKV * 4;
-// int8 tiles: stage 0 of the k (v) region holds the widened bf16 tile, and
-// the int8 staging double buffer (2 x BKV x D bytes) sits in stage 1's room
-static_assert(2 * BKV * D <= TILE_BYTES, "int8 staging must fit stage 1");
+constexpr int SMEM_BYTES = OFF_V + 2 * TILE_BYTES;
 
 struct Params {
   const void* q;
   const void* k;
   const void* v;
-  const float* ks;
-  const float* vs;
   void* out;
   float* lse;
   int h, h_kv, s_q, s_kv;
@@ -116,7 +98,6 @@ struct Params {
   long long k_sb, k_ss, k_sh;
   long long v_sb, v_ss, v_sh;
   long long o_sb, o_ss, o_sh;
-  long long c_sb, c_sh, c_ss;  // k/v scale strides (batch, head, seq)
   int q_off;                   // global position of q row 0
   int left, right;             // window; -1 = unbounded (right 0: causal)
   int sink;                    // columns < sink stay visible (left >= 0)
@@ -214,17 +195,14 @@ struct KvWalk {
   }
 };
 
-// TRI: causal self-attention with compile-time masks; else the masks of
-// Params. FORM: the softmax form; QUANT: int8 K/V with fp32 scales.
-template <bool TRI, int FORM, bool QUANT>
+// The masks of Params. FORM: the softmax form.
+template <int FORM>
 __global__ void __launch_bounds__(NTHREADS)
     flash_fwd_kernel(const Params p) {
   constexpr bool ONLINE = FORM != kFast;
   constexpr bool EXP2 = FORM == kOnlineExp2;
   extern __shared__ __align__(128) unsigned char smem[];
   unsigned short* sQ = reinterpret_cast<unsigned short*>(smem);
-  float* sKs = reinterpret_cast<float*>(smem + OFF_SC);
-  float* sVs = sKs + BKV;
 
   const int nq = (p.s_q + BQ - 1) / BQ;
   // the grid starts with the last q tiles, the longest rows under a causal
@@ -241,11 +219,10 @@ __global__ void __launch_bounds__(NTHREADS)
   const int g = lane >> 2;  // fragment row (and row + 8)
   const int t = lane & 3;   // fragment column pair
 
-  // the masks; compile-time constants on the causal self-attention grid
-  const int q_off = TRI ? 0 : p.q_off;
-  const int left = TRI ? -1 : p.left;
-  const int right = TRI ? 0 : p.right;
-  const int sink = TRI ? 0 : p.sink;
+  const int q_off = p.q_off;
+  const int left = p.left;
+  const int right = p.right;
+  const int sink = p.sink;
 
   const int q_first = q_off + q0;
   const int q_last = q_off + min(q0 + BQ, p.s_q) - 1;
@@ -253,9 +230,9 @@ __global__ void __launch_bounds__(NTHREADS)
   const int nk = walk.n;
   auto tile_of = [&](int jt) -> int { return walk.tile(jt); };
 
-  constexpr int EB = QUANT ? 1 : 2;       // bytes per k/v element
+  constexpr int EB = 2;                   // bytes per k/v element
   constexpr int CPR = D * EB / 16;        // 16-byte chunks per kv row
-  constexpr int RAW_PITCH = QUANT ? D : LD * 2;
+  constexpr int RAW_PITCH = LD * 2;
   const char* kb =
       static_cast<const char*>(p.k) + (ib * p.k_sb + ihk * p.k_sh) * EB;
   const char* vb =
@@ -263,17 +240,14 @@ __global__ void __launch_bounds__(NTHREADS)
   const long long kss = p.k_ss * EB;  // kv row strides in bytes
   const long long vss = p.v_ss * EB;
 
-  // stage s of the raw tiles cp.async fills (bf16: the operand tiles
-  // themselves; int8: the staging buffer in stage 1's room)
+  // stage s of the tiles cp.async fills
   unsigned char* const k_region = smem + OFF_K;
   unsigned char* const v_region = smem + OFF_V;
   auto raw_k = [&](int s) -> unsigned char* {
-    return QUANT ? k_region + TILE_BYTES + s * BKV * D
-                 : k_region + s * TILE_BYTES;
+    return k_region + s * TILE_BYTES;
   };
   auto raw_v = [&](int s) -> unsigned char* {
-    return QUANT ? v_region + TILE_BYTES + s * BKV * D
-                 : v_region + s * TILE_BYTES;
+    return v_region + s * TILE_BYTES;
   };
   auto issue = [&](int jt, int s) {
     const int kv0 = tile_of(jt) * BKV;
@@ -337,44 +311,10 @@ __global__ void __launch_bounds__(NTHREADS)
       cp_async_wait<0>();
     }
     __syncthreads();
-    const unsigned short* sK;
-    const unsigned short* sV;
-    if (QUANT) {  // widen the int8 tile to bf16 (exact) and fetch scales
-      unsigned short* wk = reinterpret_cast<unsigned short*>(k_region);
-      unsigned short* wv = reinterpret_cast<unsigned short*>(v_region);
-      const unsigned char* rk = raw_k(stage);
-      const unsigned char* rv = raw_v(stage);
-      for (int c = tid; c < BKV * (D / 16); c += NTHREADS) {
-        const int r = c / (D / 16), col = (c % (D / 16)) * 16;
-        Pack16 kq, vq, k0, k1, v0, v1;
-        kq.u = *reinterpret_cast<const uint4*>(rk + r * D + col);
-        vq.u = *reinterpret_cast<const uint4*>(rv + r * D + col);
-#pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          k0.h[i] = float_to_bf16_bits((float)kq.b[i]);
-          k1.h[i] = float_to_bf16_bits((float)kq.b[8 + i]);
-          v0.h[i] = float_to_bf16_bits((float)vq.b[i]);
-          v1.h[i] = float_to_bf16_bits((float)vq.b[8 + i]);
-        }
-        *reinterpret_cast<uint4*>(wk + r * LD + col) = k0.u;
-        *reinterpret_cast<uint4*>(wk + r * LD + col + 8) = k1.u;
-        *reinterpret_cast<uint4*>(wv + r * LD + col) = v0.u;
-        *reinterpret_cast<uint4*>(wv + r * LD + col + 8) = v1.u;
-      }
-      if (tid < BKV) {
-        const int j = kv0 + tid;
-        const long long at =
-            ib * p.c_sb + ihk * p.c_sh + (long long)j * p.c_ss;
-        sKs[tid] = j < p.s_kv ? p.ks[at] : 0.f;
-        sVs[tid] = j < p.s_kv ? p.vs[at] : 0.f;
-      }
-      __syncthreads();
-      sK = wk;
-      sV = wv;
-    } else {
-      sK = reinterpret_cast<const unsigned short*>(raw_k(stage));
-      sV = reinterpret_cast<const unsigned short*>(raw_v(stage));
-    }
+    const unsigned short* sK =
+        reinterpret_cast<const unsigned short*>(raw_k(stage));
+    const unsigned short* sV =
+        reinterpret_cast<const unsigned short*>(raw_v(stage));
 
     // S = Q K^T: 8 n-tiles of 8 kv columns; a lane holds rows g and g + 8
     float s[BKV / 8][4];
@@ -397,8 +337,8 @@ __global__ void __launch_bounds__(NTHREADS)
     // scale, cap, mask and the softmax, in registers; a tile that every
     // row of the q tile sees whole skips the mask (_tile_interior). The
     // interior test and the mask stay written out here (and in the sage
-    // kernel): moved into helper functions, they made B1 ~35% slower on
-    // the H100 (ptxas schedules the loop differently).
+    // kernel): moved into helper functions, they made this body ~35%
+    // slower on the H100 (ptxas schedules the loop differently).
     const int kv_last = kv0 + BKV - 1;
     const bool interior =
         kv_last < p.s_kv && (right < 0 || kv_last <= q_first + right) &&
@@ -410,7 +350,6 @@ __global__ void __launch_bounds__(NTHREADS)
       for (int e = 0; e < 4; ++e) {
         const int cl = n * 8 + 2 * t + (e & 1);
         float v = s[n][e];
-        if (QUANT) v *= sKs[cl];
         if (ONLINE) v *= p.sscale;
         if (FORM == kSoftcap) v = tanhf(v / p.cap) * p.cap;
         if (!interior) {
@@ -450,7 +389,6 @@ __global__ void __launch_bounds__(NTHREADS)
           pv = exp2f(fminf(v, kClamp));  // exp2(-1e30) == 0
         }
         rs[e >> 1] += pv;
-        if (QUANT) pv *= sVs[n * 8 + 2 * t + (e & 1)];
         s[n][e] = pv;
       }
     }
@@ -514,19 +452,16 @@ __global__ void __launch_bounds__(NTHREADS)
   }
 }
 
-Params make_params(const void* q, const void* k, const void* v,
-                   const float* ks, const float* vs, void* out, float* lse,
-                   const long long* dims, float qfold, float sscale,
-                   float cap) {
+Params make_params(const void* q, const void* k, const void* v, void* out,
+                   float* lse, const long long* dims, float qfold,
+                   float sscale, float cap) {
   // dims: b, h, h_kv, s_q, s_kv, q strides (b, s, h), k strides (b, s, h),
-  // v strides (b, s, h), out strides (b, s, h), scale strides (b, h, s),
-  // q_off, left, right, sink
+  // v strides (b, s, h), out strides (b, s, h), scale strides (b, h, s;
+  // unused), q_off, left, right, sink
   Params p;
   p.q = q;
   p.k = k;
   p.v = v;
-  p.ks = ks;
-  p.vs = vs;
   p.out = out;
   p.lse = lse;
   p.h = (int)dims[1];
@@ -545,9 +480,6 @@ Params make_params(const void* q, const void* k, const void* v,
   p.o_sb = dims[14];
   p.o_ss = dims[15];
   p.o_sh = dims[16];
-  p.c_sb = dims[17];
-  p.c_sh = dims[18];
-  p.c_ss = dims[19];
   p.q_off = (int)dims[20];
   p.left = (int)dims[21];
   p.right = (int)dims[22];
@@ -558,9 +490,9 @@ Params make_params(const void* q, const void* k, const void* v,
   return p;
 }
 
-template <bool TRI, int FORM, bool QUANT>
+template <int FORM>
 int launch(const Params& p, int b, cudaStream_t stream) {
-  auto kern = flash_fwd_kernel<TRI, FORM, QUANT>;
+  auto kern = flash_fwd_kernel<FORM>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
   if (e != cudaSuccess) return (int)e;
@@ -794,7 +726,7 @@ __global__ void __launch_bounds__(NTHREADS)
       l_row[hh] += rs[hh];
     }
 
-    // O += bf16(P) V, the score fragments as the A operand (as in B1)
+    // O += bf16(P) V, the score fragments as the A operand (as in B4)
 #pragma unroll
     for (int kc = 0; kc < BKV / 16; ++kc) {
       unsigned pa[4];
@@ -885,20 +817,6 @@ int launch_sage(const void* q, const float* qs, const void* k,
 
 }  // namespace
 
-// Kernel B1: causal self-attention (dims' window fields: -1, 0, 0).
-extern "C" int lca_flash_fwd_causal_self(const void* q, const void* k,
-                                         const void* v, void* out, float* lse,
-                                         const long long* dims, float qfold,
-                                         float sscale, int safe,
-                                         void* stream) {
-  const Params p = make_params(q, k, v, nullptr, nullptr, out, lse, dims,
-                               qfold, sscale, 0.f);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int b = (int)dims[0];
-  return safe ? launch<true, kOnlineExp2, false>(p, b, st)
-              : launch<true, kFast, false>(p, b, st);
-}
-
 // Kernel B4: self-attention (s_q == s_kv, q_off 0) with any window, sinks
 // and softcap. form: 0 fast, 1 online (exp2 units), 2 softcap.
 extern "C" int lca_flash_fwd_static(const void* q, const void* k,
@@ -906,43 +824,14 @@ extern "C" int lca_flash_fwd_static(const void* q, const void* k,
                                     const long long* dims, float qfold,
                                     float sscale, float cap, int form,
                                     void* stream) {
-  const Params p = make_params(q, k, v, nullptr, nullptr, out, lse, dims,
-                               qfold, sscale, cap);
+  const Params p = make_params(q, k, v, out, lse, dims, qfold, sscale, cap);
   if (p.q_off != 0 || p.s_q != p.s_kv) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int b = (int)dims[0];
   switch (form) {
-    case 0: return launch<false, kFast, false>(p, b, st);
-    case 1: return launch<false, kOnlineExp2, false>(p, b, st);
-    case 2: return launch<false, kSoftcap, false>(p, b, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
-}
-
-// Kernel B3: q rows at q_off + i, bf16 or int8 K/V (ks != null), any
-// window, sinks and softcap. form: 0 fast, 1 online (natural units), 2
-// softcap.
-extern "C" int lca_flash_fwd_pos(const void* q, const void* k, const void* v,
-                                 const float* ks, const float* vs, void* out,
-                                 float* lse, const long long* dims,
-                                 float qfold, float sscale, float cap,
-                                 int form, void* stream) {
-  const Params p =
-      make_params(q, k, v, ks, vs, out, lse, dims, qfold, sscale, cap);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int b = (int)dims[0];
-  if (ks != nullptr) {
-    switch (form) {
-      case 0: return launch<false, kFast, true>(p, b, st);
-      case 1: return launch<false, kOnlineNat, true>(p, b, st);
-      case 2: return launch<false, kSoftcap, true>(p, b, st);
-      default: return (int)cudaErrorInvalidValue;
-    }
-  }
-  switch (form) {
-    case 0: return launch<false, kFast, false>(p, b, st);
-    case 1: return launch<false, kOnlineNat, false>(p, b, st);
-    case 2: return launch<false, kSoftcap, false>(p, b, st);
+    case 0: return launch<kFast>(p, b, st);
+    case 1: return launch<kOnlineExp2>(p, b, st);
+    case 2: return launch<kSoftcap>(p, b, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -143,7 +143,8 @@ class Kernel:
 
 KERNELS: Dict[str, Kernel] = {
     "flash_fwd_causal_self": Kernel(
-        "flash_fwd_causal_self", "flash_fwd.cu", "lca_flash_fwd_causal_self",
+        "flash_fwd_causal_self", "flash_fwd_sm90.cu",
+        "lca_flash_fwd_causal_self",
         [_VP, _VP, _VP, _VP, _VP, _VP, _F, _F, _I, _VP],
         "long_context_attention_tpu/ops/flash.py:338"),
     "flash_fwd_static": Kernel(
@@ -151,7 +152,7 @@ KERNELS: Dict[str, Kernel] = {
         [_VP] * 6 + [_F, _F, _F, _I, _VP],
         "long_context_attention_tpu/ops/flash.py:475"),
     "flash_fwd_pos": Kernel(
-        "flash_fwd_pos", "flash_fwd.cu", "lca_flash_fwd_pos",
+        "flash_fwd_pos", "flash_fwd_sm90.cu", "lca_flash_fwd_pos",
         [_VP] * 8 + [_F, _F, _F, _I, _VP],
         "long_context_attention_tpu/ops/flash.py:696"),
     # the sage entries share one C signature: q8, qs, k8, ks, v8, vs, out,

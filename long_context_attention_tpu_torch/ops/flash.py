@@ -6,16 +6,17 @@ functions keep the JAX package's names, BSHD layout, kwargs and ``(out, lse
 fp32)`` contract. Six kernel wrappers sit under them, each with a plain
 PyTorch version of the same arithmetic in this module:
 
-* :func:`flash_fwd_causal_self` (kernel B1, ``csrc/flash_fwd.cu``):
-  causal self-attention with s_q == s_kv, the TPU's ``_fwd_kernel_tri``.
+* :func:`flash_fwd_causal_self` (kernel B1, ``csrc/flash_fwd_sm90.cu``:
+  wgmma and TMA, sm_90a only): causal self-attention with s_q == s_kv, the
+  TPU's ``_fwd_kernel_tri``.
 * :func:`flash_fwd_static` (kernel B4, ``csrc/flash_fwd.cu``): any other
   self-attention with s_q == s_kv and positions from 0 -- non-causal,
   sliding window, StreamingLLM sinks, softcap -- the TPU's
   ``_fwd_kernel_static``.
-* :func:`flash_fwd_pos` (kernel B3, ``csrc/flash_fwd.cu``): q rows at
-  global positions ``q_start + i`` against a BHSD kv (a cache slice, taken
-  by strides), with the same masks and softcap, bf16 or int8 K/V with
-  per-token scales, the TPU's ``_fwd_kernel``.
+* :func:`flash_fwd_pos` (kernel B3, ``csrc/flash_fwd_sm90.cu``): q rows
+  at global positions ``q_start + i`` against a BHSD kv (a cache slice,
+  taken by strides), with the same masks and softcap, bf16 or int8 K/V
+  with per-token scales, the TPU's ``_fwd_kernel``.
 * :func:`flash_bwd_dq` (B2a), :func:`flash_bwd_dkv` (B2b) and
   :func:`flash_bwd_fused` (B5), ``csrc/flash_bwd.cu``: the TPU's
   ``_dq_kernel``, ``_dkv_kernel`` and ``_bwd_fused_kernel``, fp32 partials.
@@ -92,6 +93,24 @@ def _check_cuda_operand(name: str, t: torch.Tensor, dtype, device) -> None:
     step = 16 // t.element_size()
     if any(s % step for s in t.stride()[:-1]) or t.data_ptr() % 16:
         raise ValueError(f"{name} must be 16-byte aligned in every row")
+
+
+def _tma_scales(k_scale: torch.Tensor, v_scale: torch.Tensor):
+    """The k and v scales (b, h_kv, s) fp32 as B3's TMA loads read them: in
+    place when both have unit stride along s and 16-byte aligned bases and
+    strides (a cache slice), else copies whose rows are padded to 16
+    bytes."""
+    def ready(t):
+        return t.stride(-1) == 1 and t.data_ptr() % 16 == 0 and all(
+            st % 4 == 0 for st in t.stride()[:-1])
+
+    if ready(k_scale) and ready(v_scale):
+        return k_scale, v_scale
+    b, h, s = k_scale.shape
+    pad = -(-s // 4) * 4
+    return tuple(torch.empty((b, h, pad), dtype=torch.float32,
+                             device=t.device)[..., :s].copy_(t)
+                 for t in (k_scale, v_scale))
 
 
 def _masks(causal: bool, window_size, sink_tokens: int, softcap: float
@@ -382,6 +401,7 @@ def flash_fwd_pos(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                  f"{q.device}")
         if v_scale.stride() != k_scale.stride():
             raise ValueError("k_scale and v_scale must share strides")
+        k_scale, v_scale = _tma_scales(k_scale, v_scale)
         sc_strides = k_scale.stride()
     out = torch.empty((b, s_q, h, d), dtype=torch.bfloat16, device=q.device)
     lse = torch.empty((b, h, s_q), dtype=torch.float32, device=q.device)

@@ -23,6 +23,7 @@ import torch
 from long_context_attention_tpu.ops import flash as jflash
 from long_context_attention_tpu.ops import kv_cache as jkv
 from long_context_attention_tpu.ops import reference as jref
+from long_context_attention_tpu.utils.config import BlockSizes
 from long_context_attention_tpu_torch.ops import flash as tflash
 from long_context_attention_tpu_torch.ops import kv_cache as tkv
 from long_context_attention_tpu_torch.ops import reference as tref
@@ -165,5 +166,57 @@ def test_int8_kv_fwd_matches_jax(rng):
     to, tl = tflash.flash_attention_fwd(
         tq, tk.transpose(1, 2), tv.transpose(1, 2), k_scale=tks, v_scale=tvs,
         causal=True)
+    np.testing.assert_allclose(_np(to), _np(jo), **BF16_TOL)
+    np.testing.assert_allclose(_np(tl), _np(jl), atol=1e-3)
+
+
+# Shapes whose lengths, q_start, window edge and sink edge cut the Hopper
+# kernels' 64- and 128-wide tiles, as chip_smoke.py's kernel phase runs them
+# on the card: (s_q, s_kv, q_start, window, sinks); JAX tiles of 128 x 256
+# (the function does not depend on them; smaller ones are slow to interpret).
+STRADDLE_CASES = {
+    "ragged_prefix": (100, 777, 700, -1, 0),
+    "window_200_sinks_4": (100, 777, 677, 200, 4),
+    "edges_inside_tiles": (75, 333, 258, 100, 70),
+}
+FORMS = {"fast": dict(), "safe": dict(safe_softmax=True),
+         "softcap": dict(softcap=5.0)}
+
+
+@pytest.mark.parametrize("form", sorted(FORMS))
+@pytest.mark.parametrize("cache_dtype", ["bfloat16", "int8"])
+@pytest.mark.parametrize("case", sorted(STRADDLE_CASES))
+def test_cache_forward_straddles_tiles(rng, case, cache_dtype, form):
+    """B3's plain version == JAX flash_attention_fwd_cache (causal) where
+    the prefix length, the chunk's rows, the window edge and the sink edge
+    fall inside kv tiles: the shapes the card's kernel is held to its plain
+    version at, tied here to the reference."""
+    s_q, s_kv, q_start, window, sinks = STRADDLE_CASES[case]
+    q = rng.standard_normal((B, s_q, H, D)).astype(np.float32)
+    jq, tq = _both(q, "bfloat16")
+    (jk, jv, jks, jvs), (tk, tv, tks, tvs) = _cache(rng, s_kv, cache_dtype)
+    kw = dict(q_start=q_start, causal=True, window_size=(window, -1),
+              sink_tokens=sinks, **FORMS[form])
+    jo, jl = jflash.flash_attention_fwd_cache(
+        jq, jk, jv, k_scale=jks, v_scale=jvs, block_sizes=BlockSizes(128, 256),
+        **kw)
+    to, tl = tflash.flash_fwd_pos_plain(tq, tk, tv, tks, tvs,
+                                        scale=D ** -0.5, **kw)
+    np.testing.assert_allclose(_np(to), _np(jo), **BF16_TOL)
+    np.testing.assert_allclose(_np(tl), _np(jl), atol=1e-3)
+
+
+@pytest.mark.parametrize("safe", [False, True], ids=["fast", "safe"])
+@pytest.mark.parametrize("s", [200, 300])
+def test_causal_self_straddles_tiles(rng, s, safe):
+    """B1's plain version == JAX flash_attention_fwd(causal=True) at lengths
+    that are not multiples of 64 or 128 (a partial last q and kv tile)."""
+    q, k, v = _qkv(rng, s, s)
+    (jq, tq), (jk, tk), (jv, tv) = (_both(x, "bfloat16") for x in (q, k, v))
+    jo, jl = jflash.flash_attention_fwd(jq, jk, jv, causal=True,
+                                        safe_softmax=safe,
+                                        block_sizes=BlockSizes(128, 256))
+    to, tl = tflash.flash_fwd_causal_self_plain(tq, tk, tv, scale=D ** -0.5,
+                                                safe_softmax=safe)
     np.testing.assert_allclose(_np(to), _np(jo), **BF16_TOL)
     np.testing.assert_allclose(_np(tl), _np(jl), atol=1e-3)
