@@ -18,7 +18,8 @@ Phases, one JSON line each; any failure exits non-zero:
      128-wide tiles, B1 at the trainer's b=1, s=8192 and B3 over a bf16 kv
      at the offsets call's shape, each timed; the backward kernels B2a, B2b
      and B5 at the trainer's per-layer attention shape, causal, with
-     offsets that leave rows dead, and ragged; the sage kernels B8a, B8c
+     offsets that leave rows dead, and ragged (B2b and B5 also timed at
+     s=32768); the sage kernels B8a, B8c
      and B8b on the
      int8 operands of a 4 x 8192 prefill, with window and sinks, one-chunk
      offsets, s_q != s_kv, dead rows, ragged, and B8b's band check; the
@@ -130,8 +131,9 @@ TEACHER_TOL = 0.5
 # The backward kernels are held to ROW_REL_TOL too: each row of dq, dk and
 # dv against its own size. Kernel and plain version compute the same fp32
 # products from the same bf16 casts of p and ds, summed in another order;
-# B5 adds dq with fp32 atomics, whose order changes from run to run, so its
-# dq is not bit-stable, and the row limit covers that as well.
+# B5 adds each tile's dq by a TMA reduce-add, in an order that changes from
+# run to run, so its dq is not bit-stable, and the row limit covers that as
+# well.
 CANCEL_FLOOR = 2.0 ** -10
 
 # Training: the trainer's shapes (benchmarks/bench_train.py:45-49: b=1,
@@ -247,10 +249,11 @@ def case_row(checks, ms, plain_ms, flops, nbytes, library_ms,
             "library_ms": library_ms}
 
 
-def row(kernel, source, checks, ms, plain_ms, flops, nbytes, library_ms,
+def row(kernel, checks, ms, plain_ms, flops, nbytes, library_ms,
         peak=PEAK_BF16_FLOPS):
+    """A kernel's line of the table; its source from the registry."""
     return {"name": kernel.name, "route": "cuda",
-            "source": f"long_context_attention_tpu_torch/csrc/{source}",
+            "source": f"long_context_attention_tpu_torch/csrc/{kernel.source}",
             "replaces": kernel.replaces,
             **case_row(checks, ms, plain_ms, flops, nbytes, library_ms, peak)}
 
@@ -357,7 +360,7 @@ def kernel_b1(K, flash, gen, dev):
         qr, kr_, vr_ = qkv(1, sr)
         for safe in (False, True):
             case(f"ragged s={sr}", qr, kr_, vr_, safe)
-    res = row(K["flash_fwd_causal_self"], "flash_fwd_sm90.cu", checks,
+    res = row(K["flash_fwd_causal_self"], checks,
               *times(q, k, v))
     # the trainer's forward: b=1, s=8192
     del q, k, v
@@ -425,7 +428,7 @@ def kernel_b4(K, flash, gen, dev):
         qh, kh, vh, attn_mask=mask, enable_gqa=True))
     flops = 4 * BATCH * h * d * int(mask.sum())
     nbytes = 2 * (2 * q.numel() + k.numel() + v.numel()) + 4 * BATCH * h * CHUNK
-    return row(K["flash_fwd_static"], "flash_fwd.cu", checks, ms, plain_ms,
+    return row(K["flash_fwd_static"], checks, ms, plain_ms,
                flops, nbytes, lib_ms)
 
 
@@ -504,7 +507,7 @@ def kernel_b3(K, flash, gen, dev):
     flops = 4 * b * h * s_q * start * d
     nbytes = (2 * 2 * q.numel() + 4 * b * h * s_q
               + 2 * b * hk * start * (d + 4))
-    res = row(K["flash_fwd_pos"], "flash_fwd_sm90.cu", checks, ms, plain_ms,
+    res = row(K["flash_fwd_pos"], checks, ms, plain_ms,
               flops, nbytes, lib_ms)
     del kd, vd
     res["windowed"] = kernel_b3_windowed(flash, q, k, v, ksl, vsl, start,
@@ -705,7 +708,7 @@ def kernel_b8(K, sage, gen, dev):
               + 4 * (2 * b * h * s + 2 * b * hk * s))
     kern = {"B8a": "sage_fwd_tri", "B8b": "sage_fwd_pos", "B8c": "sage_fwd_rect"}
     # 2*d int8 ops (QK) and 2*d bf16 FLOPs (PV) per visible pair
-    return [{**row(K[kern[n]], "flash_fwd.cu", checks[n], ms[n], plain_ms[n],
+    return [{**row(K[kern[n]], checks[n], ms[n], plain_ms[n],
                    4 * d * pairs[n], nbytes, lib_ms[n != "B8c"],
                    PEAK_SAGE_OPS),
              "library": "SDPA flash on the bf16 q, k, v (not the same "
@@ -764,7 +767,7 @@ def kernel_b6(K, decode, gen, dev):
     lib_ms = time_ms(indexed_copy, iters=20)
     n_live = int(live.sum())
     nbytes = 2 * n_live * 2 * hk * (d + 4)  # read new + write cache, k and v
-    return row(K["cache_append"], "cache_append.cu", [(0.0, 0.0)], ms,
+    return row(K["cache_append"], [(0.0, 0.0)], ms,
                plain_ms, 0, nbytes, lib_ms)
 
 
@@ -852,7 +855,7 @@ def kernel_b7(K, decode, gen, dev):
             int8_case = (q, kc, vc, ks, vs)
     windowed = kernel_b7_windowed(decode, *int8_case, lens, layer, wchecks)
     # int8 ops: q.k and p.v, 2 each per (head, column, feature)
-    res = row(K["decode_attention"], "decode_attention.cu", checks,
+    res = row(K["decode_attention"], checks,
               times["ms"], times["plain_ms"], 4 * h * int(lens.sum()) * d,
               nbytes_int8, times["lib"], PEAK_INT8_OPS)
     res["windowed"] = windowed
@@ -937,7 +940,9 @@ def kernel_bwd(K, flash, gen, dev):
     forward's own out and lse: causal from position 0 (all three), causal
     with kv offset s/2 so the first half of the rows see nothing (B2a,
     B2b: those dq rows, and the dk/dv rows no q row sees, must be exactly
-    0), and ragged lengths, non-causal included."""
+    0), and ragged lengths, non-causal included. Times at the causal shape,
+    and B2b's and B5's also at usp_sparse's dense reference (s = 32768),
+    each beside SDPA's flash backward at the same shape."""
     b, s, h, hk, d = 1, TRAIN_SEQ, MODEL["n_heads"], MODEL["n_kv_heads"], 128
     scale = d ** -0.5
     q = torch.randn((b, s, h, d), generator=gen, device=dev).bfloat16()
@@ -1021,15 +1026,46 @@ def kernel_bwd(K, flash, gen, dev):
                                  warmup=1)
         torch.cuda.empty_cache()
     lib_ms = sdpa_backward_ms(q, k, v, dout)
-    live = b * h * live_pairs(s, s, 0, True)
-    in_bytes = 2 * (2 * q.numel() + k.numel() + v.numel()) + 8 * b * h * s
-    grads = {"B2a": 4 * q.numel(), "B2b": 8 * k.numel(),
-             "B5": 4 * q.numel() + 8 * k.numel()}
+    del causal_args
+    torch.cuda.empty_cache()
     products = {"B2a": 3, "B2b": 4, "B5": 5}  # matmuls of depth d per pair
+
+    def work(n, q, k):  # (FLOPs, bytes) of one causal call
+        s = q.shape[1]
+        live = b * h * s * (s + 1) // 2
+        in_bytes = 2 * (2 * q.numel() + k.numel() * 2) + 8 * b * h * s
+        grads = {"B2a": 4 * q.numel(), "B2b": 8 * k.numel(),
+                 "B5": 4 * q.numel() + 8 * k.numel()}[n]
+        return 2 * products[n] * d * live, in_bytes + grads
+
+    # B5 and B2b at the dense reference's shape in usp_sparse (s = 32768)
+    gen32 = torch.Generator(device=dev).manual_seed(SEED + 5)
+    q32, dout32 = (torch.randn((b, SPARSE_SEQ, h, d), generator=gen32,
+                               device=dev).bfloat16() for _ in range(2))
+    k32, v32 = (torch.randn((b, SPARSE_SEQ, hk, d), generator=gen32,
+                            device=dev).bfloat16() for _ in range(2))
+    args32 = inputs(q32, k32, v32, dout32, None)
+    at32 = {}
+    for n, fn in (("B2b", flash.flash_bwd_dkv), ("B5", flash.flash_bwd_fused)):
+        t = time_ms(lambda: fn(*args32, **kw), iters=3, warmup=1)
+        b_ms, b_by = bound(*work(n, q32, k32))
+        at32[n] = {"seq": SPARSE_SEQ, "ms": t, "bound_ms": b_ms,
+                   "bound_by": b_by}
+    del args32
+    torch.cuda.empty_cache()
+    lib32 = sdpa_backward_ms(q32, k32, v32, dout32)
+    for n in at32:
+        at32[n]["library_ms"] = lib32
+    del q32, k32, v32, dout32
+    torch.cuda.empty_cache()
+
     kern = {"B2a": "flash_bwd_dq", "B2b": "flash_bwd_dkv",
             "B5": "flash_bwd_fused"}
-    return [row(K[kern[n]], "flash_bwd.cu", checks[n], ms[n], plain_ms[n],
-                2 * products[n] * d * live, in_bytes + grads[n], lib_ms)
+    return [{**row(K[kern[n]], checks[n], ms[n], plain_ms[n], *work(n, q, k),
+                   lib_ms),
+             "library": "SDPA flash backward (dq, dk, dv), K/V repeated to "
+                        "the query heads",
+             **({"at_usp_seq": at32[n]} if n in at32 else {})}
             for n in ("B2a", "B2b", "B5")]
 
 
@@ -1182,7 +1218,7 @@ def kernel_b9(K, sparse, gen, dev):
     products = {"B9a": 2, "B9b": 3, "B9c": 4}  # matmuls of depth d per pair
     kern = {"B9a": "sparse_fwd", "B9b": "sparse_bwd_dq",
             "B9c": "sparse_bwd_dkv"}
-    return [{**row(K[kern[n]], "sparse.cu", checks[n], ms[n], plain_ms[n],
+    return [{**row(K[kern[n]], checks[n], ms[n], plain_ms[n],
                    2 * products[n] * d * pairs, nbytes[n],
                    lib_fwd if n == "B9a" else lib_bwd),
              "library": "SDPA memory-efficient with the dense boolean mask"
@@ -1846,12 +1882,19 @@ def main():
 
     t0 = time.perf_counter()
     logs = build.build_all()
+    # B5's and B2b's dynamic shared memory (ptxas sees only static memory)
+    bwd_smem = {n: build.library("flash_bwd_sm90.cu").lca_flash_bwd_smem(f)
+                for n, f in (("B2b", 0), ("B5", 1))}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "sources": sorted(logs)})
+          "sources": sorted(logs),
+          "flash_bwd_sm90_dynamic_smem_bytes": bwd_smem})
     for src, log in logs.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if any(w in line for w in ("entry function", "registers",
+                                       "spill")):
                 print(f"ptxas {src}: {line.strip()}", file=sys.stderr)
+    print(f"flash_bwd_sm90.cu: dynamic shared memory per block {bwd_smem}",
+          file=sys.stderr)
 
     K = build.KERNELS
     gen = torch.Generator(device=dev).manual_seed(SEED)

@@ -1,49 +1,34 @@
-// Flash-attention backward for Hopper (sm_90a), three entry points.
+// Flash-attention backward for Hopper (sm_90a): kernel B2a.
 //
-// Replaces the TPU kernels of long_context_attention_tpu/ops/flash.py:
+// Replaces the TPU kernel of long_context_attention_tpu/ops/flash.py:
 //   lca_flash_bwd_dq    <- _dq_kernel (B2a): dq of one q tile, the kv tiles
-//                          walked inside the block;
-//   lca_flash_bwd_dkv   <- _dkv_kernel (B2b): dk and dv of one kv tile, the
-//                          GQA group's query heads and their q tiles walked
-//                          inside the block (the TPU grid (b, h_kv, nk, g,
-//                          nq) with the group folded in);
-//   lca_flash_bwd_fused <- _bwd_fused_kernel (B5): B2b's walk, plus dq. Per
-//                          tile p and dp are computed once and feed all three
-//                          gradients; dq is added with 16-byte fp32 vector
-//                          atomicAdd into a zeroed (b, s, h, d) buffer, in
-//                          place of the TPU's aliased-HBM dq read-modify-
-//                          write, which relies on a sequential grid that
-//                          Hopper does not have.
+//                          walked inside the block.
+// (B2b and B5, dk and dv with or without dq, are in flash_bwd_sm90.cu.)
 //
-// All three take bf16 q, dout (b, s_q, h, d) and k, v (b, s_kv, h_kv, d),
-// read by strides; fp32 lse and delta = rowsum(dout * out), (b, h, s_q)
-// contiguous; and write fp32 partials. q row i sits at position q_start + i
-// and kv column j at j; with the causal mask a column past its row's
-// position is dropped. A row whose lse is -inf (it saw no column in the
-// forward) contributes nothing.
+// It takes bf16 q, dout (b, s_q, h, d) and k, v (b, s_kv, h_kv, d), read by
+// strides; fp32 lse and delta = rowsum(dout * out), (b, h, s_q) contiguous;
+// and writes fp32 dq. q row i sits at position q_start + i and kv column j
+// at j; with the causal mask a column past its row's position is dropped. A
+// row whose lse is -inf (it saw no column in the forward) contributes
+// nothing.
 //
 // What bounds it on an H100: tensor-core operations. Per live (row,
-// column) pair B2a does 3 products of depth d (S, dP, dQ), B2b 4 (S, dP,
-// dV, dK), B5 5; the bytes (q, k, v, dout once, fp32 grads once) are a few
-// percent of that time at s = 8192.
+// column) pair it does 3 products of depth d (S, dP, dQ); the bytes (q, k,
+// v, dout once, fp32 dq once) are a few percent of that time at s = 8192.
 //
 // Design: 128-thread blocks, tiles of 64 rows on both sides, each warp
-// owning 16 rows of the block's own side. Products run on mma.sync
-// m16n8k16 (bf16 in, fp32 accumulate) fed by ldmatrix from shared memory.
-// Scores, probabilities and dS stay in registers and are reused as the A
-// operand of the next product (FlashAttention-2's accumulator-to-operand
-// reuse); only B5's dS goes through shared memory, because its dq product
-// needs the whole tile's dS transposed. The walked operand arrives by
+// owning 16 q rows. Products run on mma.sync m16n8k16 (bf16 in, fp32
+// accumulate) fed by ldmatrix from shared memory. Scores, probabilities and
+// dS stay in registers and are reused as the A operand of the next product
+// (FlashAttention-2's accumulator-to-operand reuse). The kv tiles arrive by
 // cp.async into a double buffer, so the next tile loads while this one
-// computes. Under the causal mask the walk stops at the diagonal (B2a) or
-// starts there (B2b, B5, the TPU's _q_band_static), so fully masked tiles
-// cost nothing. No TMA or wgmma yet.
+// computes. Under the causal mask the walk stops at the diagonal, so fully
+// masked tiles cost nothing.
 //
 // Numerics follow the TPU kernels (_recompute_p, _ds_to_dqk):
 //   s = (q . k) * scale in fp32 from the raw q (no log2e fold);
 //   p = exp(s - lse), 0 on masked entries and on rows with lse -inf;
-//   dp = dout . v; ds = p * (dp - delta) * scale;
-//   dv += bf16(p) . dout; dk += bf16(ds) . q; dq += bf16(ds) . k.
+//   dp = dout . v; ds = p * (dp - delta) * scale; dq += bf16(ds) . k.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -56,16 +41,11 @@ constexpr int BT = 64;  // rows of a tile, q and kv alike
 constexpr int NTHREADS = 128;
 constexpr int LD = D + 8;       // bf16 pitch of a tile: the 8 rows of an
                                 // ldmatrix land in distinct banks
-constexpr int LDS = BT + 8;     // bf16 pitch of B5's dS^T tile
 constexpr int TILE = BT * LD;   // bf16 elements of one tile
 constexpr int TILE_BYTES = TILE * 2;
 
-// B2a: q, dout, 2 stages each of k and v
+// q, dout, 2 stages each of k and v
 constexpr int DQ_SMEM = 6 * TILE_BYTES;
-// B2b / B5: k, v, 2 stages each of q and dout, 2 stages of lse and delta,
-// and (B5) the dS^T tile
-constexpr int DKV_SMEM = 6 * TILE_BYTES + 4 * BT * 4;
-constexpr int FUSED_SMEM = DKV_SMEM + BT * LDS * 2;
 
 struct Params {
   const __nv_bfloat16* q;
@@ -75,15 +55,12 @@ struct Params {
   const float* lse;
   const float* delta;
   float* dq;
-  float* dk;
-  float* dv;
   int h, h_kv, s_q, s_kv;
   long long q_sb, q_ss, q_sh;  // element strides (batch, seq, head)
   long long k_sb, k_ss, k_sh;
   long long v_sb, v_ss, v_sh;
   long long o_sb, o_ss, o_sh;     // dout
   long long dq_sb, dq_ss, dq_sh;
-  long long dk_sb, dk_ss, dk_sh;  // dk and dv
   int q_start;  // position of q row 0 (kv column j sits at j)
   int causal;
   float scale;
@@ -178,15 +155,6 @@ __device__ __forceinline__ unsigned bt_addr(const unsigned short* x, int k0,
   return smem_addr(x + (k0 + (lane & 7) + (mi & 1) * 8) * pitch + n0 +
                    (mi >> 1) * 8);
 }
-// A (ldmatrix.trans) for the 16 x 16 block at rows m0, depth k0 of a tile
-// stored X[k][m]
-__device__ __forceinline__ unsigned at_addr(const unsigned short* x, int k0,
-                                            int m0, int lane, int pitch) {
-  const int mi = lane >> 3;
-  return smem_addr(x + (k0 + (lane & 7) + (mi >> 1) * 8) * pitch + m0 +
-                   (mi & 1) * 8);
-}
-
 // ---------------------------------------------------------------------------
 // B2a: dq, one block per (q tile, head, batch row)
 // ---------------------------------------------------------------------------
@@ -342,239 +310,11 @@ __global__ void __launch_bounds__(NTHREADS)
   }
 }
 
-// ---------------------------------------------------------------------------
-// B2b / B5: dk and dv (and, FUSED, dq), one block per (kv tile, kv head,
-// batch row)
-// ---------------------------------------------------------------------------
-
-template <bool FUSED>
-__global__ void __launch_bounds__(NTHREADS)
-    flash_bwd_dkv_kernel(const Params p) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  unsigned short* sK = reinterpret_cast<unsigned short*>(smem);
-  unsigned short* sV = sK + TILE;
-  unsigned short* sQ = sV + TILE;      // 2 stages
-  unsigned short* sO = sQ + 2 * TILE;  // 2 stages
-  float* sL = reinterpret_cast<float*>(sO + 2 * TILE);  // 2 stages of lse
-  float* sD = sL + 2 * BT;                               // 2 stages of delta
-  unsigned short* sdS = reinterpret_cast<unsigned short*>(sD + 2 * BT);
-
-  const int ik = blockIdx.x;  // kv tile 0 sees the most q tiles: first
-  const int ihk = blockIdx.y;
-  const int ib = blockIdx.z;
-  const int grp = p.h / p.h_kv;
-  const int k0 = ik * BT;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-
-  // the q tiles that see this kv tile: all, or from the causal diagonal on
-  const int nq = (p.s_q + BT - 1) / BT;
-  int iq_lo = 0;
-  if (p.causal) {
-    const int first_row = k0 - p.q_start;  // first row that sees column k0
-    iq_lo = first_row <= 0 ? 0 : min(nq, first_row / BT);
-  }
-  const int nqi = nq - iq_lo;
-  const int n_items = grp * nqi;  // (query head of the group, q tile)
-
-  float dk[D / 8][4], dv[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
-
-  auto prefetch = [&](int it, int s) {
-    const int ih = ihk * grp + it / nqi;
-    const int q0 = (iq_lo + it % nqi) * BT;
-    load_tile(sQ + s * TILE, p.q + ib * p.q_sb + ih * p.q_sh, p.q_ss, q0,
-              p.s_q, tid);
-    load_tile(sO + s * TILE, p.dout + ib * p.o_sb + ih * p.o_sh, p.o_ss, q0,
-              p.s_q, tid);
-    cp_async_commit();
-    if (tid < BT) {  // rows past the sequence are dead: lse -inf
-      const int qi = q0 + tid;
-      const long long at = ((long long)ib * p.h + ih) * p.s_q + qi;
-      sL[s * BT + tid] = qi < p.s_q ? p.lse[at] : neg_inf();
-      sD[s * BT + tid] = qi < p.s_q ? p.delta[at] : 0.f;
-    }
-  };
-
-  if (n_items > 0) {
-    load_tile(sK, p.k + ib * p.k_sb + ihk * p.k_sh, p.k_ss, k0, p.s_kv, tid);
-    load_tile(sV, p.v + ib * p.v_sb + ihk * p.v_sh, p.v_ss, k0, p.s_kv, tid);
-    prefetch(0, 0);  // one commit group with k and v
-  }
-  const int kv_row0 = k0 + warp * 16 + g;  // this lane's kv rows: +0, +8
-
-  for (int it = 0; it < n_items; ++it) {
-    const int stage = it & 1;
-    const int ih = ihk * grp + it / nqi;
-    const int q0 = (iq_lo + it % nqi) * BT;
-    if (it + 1 < n_items) {
-      prefetch(it + 1, stage ^ 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const unsigned short* tQ = sQ + stage * TILE;
-    const unsigned short* tO = sO + stage * TILE;
-    const float* tL = sL + stage * BT;
-    const float* tD = sD + stage * BT;
-    const bool masked = (p.causal && k0 + BT - 1 > p.q_start + q0) ||
-                        k0 + BT > p.s_kv;
-
-    // two halves of 32 q columns keep the register count down
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int c0 = half * 32;
-      // S^T = K Q^T and dP^T = V dO^T: the warp's 16 kv rows x 32 q cols
-      float s[4][4], dp[4][4];
-#pragma unroll
-      for (int n = 0; n < 4; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        unsigned ka[4], va[4];
-        ldsm_x4(ka, a_addr(sK, warp * 16, kk * 16, lane));
-        ldsm_x4(va, a_addr(sV, warp * 16, kk * 16, lane));
-#pragma unroll
-        for (int np = 0; np < 2; ++np) {
-          unsigned b[4];
-          ldsm_x4(b, bn_addr(tQ, c0 + np * 16, kk * 16, lane));
-          mma_bf16(s[2 * np], ka, b[0], b[1]);
-          mma_bf16(s[2 * np + 1], ka, b[2], b[3]);
-          ldsm_x4(b, bn_addr(tO, c0 + np * 16, kk * 16, lane));
-          mma_bf16(dp[2 * np], va, b[0], b[1]);
-          mma_bf16(dp[2 * np + 1], va, b[2], b[3]);
-        }
-      }
-
-      // p^T into s, ds^T into dp
-#pragma unroll
-      for (int n = 0; n < 4; ++n) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int ql = c0 + n * 8 + 2 * t + (e & 1);  // q row in the tile
-          const int kv = kv_row0 + (e >> 1) * 8;
-          const float l = tL[ql];
-          bool bad = l == neg_inf();
-          if (masked)
-            bad = bad || kv >= p.s_kv ||
-                  (p.causal && kv > p.q_start + q0 + ql);
-          const float pv = bad ? 0.f : expf(s[n][e] * p.scale - l);
-          s[n][e] = pv;
-          dp[n][e] = pv * (dp[n][e] - tD[ql]) * p.scale;
-        }
-      }
-
-      // dV += bf16(P^T) dO and dK += bf16(dS^T) Q over these 32 q rows
-#pragma unroll
-      for (int kc = 0; kc < 2; ++kc) {
-        unsigned pa[4], da[4];
-        pa[0] = pack_bf16(s[2 * kc][0], s[2 * kc][1]);
-        pa[1] = pack_bf16(s[2 * kc][2], s[2 * kc][3]);
-        pa[2] = pack_bf16(s[2 * kc + 1][0], s[2 * kc + 1][1]);
-        pa[3] = pack_bf16(s[2 * kc + 1][2], s[2 * kc + 1][3]);
-        da[0] = pack_bf16(dp[2 * kc][0], dp[2 * kc][1]);
-        da[1] = pack_bf16(dp[2 * kc][2], dp[2 * kc][3]);
-        da[2] = pack_bf16(dp[2 * kc + 1][0], dp[2 * kc + 1][1]);
-        da[3] = pack_bf16(dp[2 * kc + 1][2], dp[2 * kc + 1][3]);
-#pragma unroll
-        for (int dpi = 0; dpi < D / 16; ++dpi) {
-          unsigned b[4];
-          ldsm_x4_t(b, bt_addr(tO, c0 + kc * 16, dpi * 16, lane, LD));
-          mma_bf16(dv[2 * dpi], pa, b[0], b[1]);
-          mma_bf16(dv[2 * dpi + 1], pa, b[2], b[3]);
-          ldsm_x4_t(b, bt_addr(tQ, c0 + kc * 16, dpi * 16, lane, LD));
-          mma_bf16(dk[2 * dpi], da, b[0], b[1]);
-          mma_bf16(dk[2 * dpi + 1], da, b[2], b[3]);
-        }
-        if (FUSED) {  // bf16(dS^T) rows = kv, cols = q, for the dq product
-          unsigned short* r0 = sdS + (warp * 16 + g) * LDS + c0 + kc * 16 +
-                               2 * t;
-          *reinterpret_cast<unsigned*>(r0) = da[0];
-          *reinterpret_cast<unsigned*>(r0 + 8 * LDS) = da[1];
-          *reinterpret_cast<unsigned*>(r0 + 8) = da[2];
-          *reinterpret_cast<unsigned*>(r0 + 8 * LDS + 8) = da[3];
-        }
-      }
-    }
-
-    if (FUSED) {
-      __syncthreads();  // the whole dS^T tile is in shared memory
-      // dQ (64 q x 128 d) += dS (64 q x 64 kv) K: the warp takes 16 q rows,
-      // d in two halves of 64; ldmatrix.trans reads dS out of dS^T
-#pragma unroll
-      for (int dh = 0; dh < 2; ++dh) {
-        float acc[8][4];
-#pragma unroll
-        for (int n = 0; n < 8; ++n)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-#pragma unroll
-        for (int kc = 0; kc < BT / 16; ++kc) {
-          unsigned a[4];
-          ldsm_x4_t(a, at_addr(sdS, kc * 16, warp * 16, lane, LDS));
-#pragma unroll
-          for (int dpi = 0; dpi < 4; ++dpi) {
-            unsigned b[4];
-            ldsm_x4_t(b, bt_addr(sK, kc * 16, dh * 64 + dpi * 16, lane, LD));
-            mma_bf16(acc[2 * dpi], a, b[0], b[1]);
-            mma_bf16(acc[2 * dpi + 1], a, b[2], b[3]);
-          }
-        }
-        // lanes t and t^1 hold columns 2t, 2t+1 of rows g and g+8: one
-        // exchange gives the even lane row g's four columns and the odd
-        // lane row g+8's, so each lane adds 16 bytes with one atomic (the
-        // L2's atomic rate, not the products, bounded the scalar form)
-        const bool odd = t & 1;
-        const int qi = q0 + warp * 16 + g + (odd ? 8 : 0);
-        float* row = p.dq + ib * p.dq_sb + (long long)qi * p.dq_ss +
-                     ih * p.dq_sh + dh * 64 + 2 * (t & ~1);
-#pragma unroll
-        for (int n = 0; n < 8; ++n) {
-          const float r0 = __shfl_xor_sync(0xffffffffu,
-                                           odd ? acc[n][0] : acc[n][2], 1);
-          const float r1 = __shfl_xor_sync(0xffffffffu,
-                                           odd ? acc[n][1] : acc[n][3], 1);
-          const float4 add = odd ? make_float4(r0, r1, acc[n][2], acc[n][3])
-                                 : make_float4(acc[n][0], acc[n][1], r0, r1);
-          if (qi < p.s_q)
-            atomicAdd(reinterpret_cast<float4*>(row + n * 8), add);
-        }
-      }
-    }
-    __syncthreads();  // the next item overwrites this stage (and dS^T)
-  }
-
-  // write dk and dv once (0 for a tile no q row sees)
-#pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    const int kv = kv_row0 + hh * 8;
-    if (kv >= p.s_kv) continue;
-    const long long at =
-        ib * p.dk_sb + (long long)kv * p.dk_ss + ihk * p.dk_sh;
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      *reinterpret_cast<float2*>(p.dk + at + n * 8 + 2 * t) =
-          make_float2(dk[n][2 * hh], dk[n][2 * hh + 1]);
-      *reinterpret_cast<float2*>(p.dv + at + n * 8 + 2 * t) =
-          make_float2(dv[n][2 * hh], dv[n][2 * hh + 1]);
-    }
-  }
-}
-
 Params make_params(const void* q, const void* k, const void* v,
                    const void* dout, const float* lse, const float* delta,
-                   float* dq, float* dk, float* dv, const long long* dims,
-                   float scale) {
+                   float* dq, const long long* dims, float scale) {
   // dims: b, h, h_kv, s_q, s_kv, then (batch, seq, head) strides of q, k,
-  // v, dout, dq and dk (dv shares dk's), q_start, causal
+  // v, dout, dq and dk (unused here), q_start, causal
   Params p;
   p.q = static_cast<const __nv_bfloat16*>(q);
   p.k = static_cast<const __nv_bfloat16*>(k);
@@ -583,17 +323,14 @@ Params make_params(const void* q, const void* k, const void* v,
   p.lse = lse;
   p.delta = delta;
   p.dq = dq;
-  p.dk = dk;
-  p.dv = dv;
   p.h = (int)dims[1];
   p.h_kv = (int)dims[2];
   p.s_q = (int)dims[3];
   p.s_kv = (int)dims[4];
-  long long* st[18] = {&p.q_sb,  &p.q_ss,  &p.q_sh,  &p.k_sb,  &p.k_ss,
-                       &p.k_sh,  &p.v_sb,  &p.v_ss,  &p.v_sh,  &p.o_sb,
-                       &p.o_ss,  &p.o_sh,  &p.dq_sb, &p.dq_ss, &p.dq_sh,
-                       &p.dk_sb, &p.dk_ss, &p.dk_sh};
-  for (int i = 0; i < 18; ++i) *st[i] = dims[5 + i];
+  long long* st[15] = {&p.q_sb, &p.q_ss, &p.q_sh, &p.k_sb,  &p.k_ss,
+                       &p.k_sh, &p.v_sb, &p.v_ss, &p.v_sh,  &p.o_sb,
+                       &p.o_ss, &p.o_sh, &p.dq_sb, &p.dq_ss, &p.dq_sh};
+  for (int i = 0; i < 15; ++i) *st[i] = dims[5 + i];
   p.q_start = (int)dims[23];
   p.causal = (int)dims[24];
   p.scale = scale;
@@ -613,32 +350,16 @@ int launch(K kern, dim3 grid, int smem, const Params& p,
 
 }  // namespace
 
+// the C signature of every backward entry point (dk, dv null here)
 #define LCA_BWD_ARGS                                                         \
   const void *q, const void *k, const void *v, const void *dout,             \
       const float *lse, const float *delta, float *dq, float *dk, float *dv, \
       const long long *dims, float scale, void *stream
 
 extern "C" int lca_flash_bwd_dq(LCA_BWD_ARGS) {
-  const Params p =
-      make_params(q, k, v, dout, lse, delta, dq, dk, dv, dims, scale);
+  const Params p = make_params(q, k, v, dout, lse, delta, dq, dims, scale);
   const dim3 grid((p.s_q + BT - 1) / BT, p.h, (unsigned)dims[0]);
   return launch(flash_bwd_dq_kernel, grid, DQ_SMEM, p,
-                static_cast<cudaStream_t>(stream));
-}
-
-extern "C" int lca_flash_bwd_dkv(LCA_BWD_ARGS) {
-  const Params p =
-      make_params(q, k, v, dout, lse, delta, dq, dk, dv, dims, scale);
-  const dim3 grid((p.s_kv + BT - 1) / BT, p.h_kv, (unsigned)dims[0]);
-  return launch(flash_bwd_dkv_kernel<false>, grid, DKV_SMEM, p,
-                static_cast<cudaStream_t>(stream));
-}
-
-extern "C" int lca_flash_bwd_fused(LCA_BWD_ARGS) {
-  const Params p =
-      make_params(q, k, v, dout, lse, delta, dq, dk, dv, dims, scale);
-  const dim3 grid((p.s_kv + BT - 1) / BT, p.h_kv, (unsigned)dims[0]);
-  return launch(flash_bwd_dkv_kernel<true>, grid, FUSED_SMEM, p,
                 static_cast<cudaStream_t>(stream));
 }
 

@@ -77,15 +77,10 @@
 //   masks (flash-attn semantics, global positions): drop col > row + right
 //     (right = 0 when causal) and col < row - left unless col < sink.
 //
-// The tensor maps are encoded on the host per call with
-// cuTensorMapEncodeTiled, reached through cudaGetDriverEntryPoint (the
-// library links only the CUDA runtime), and passed as __grid_constant__
-// kernel parameters.
+// The tensor maps are encoded on the host per call (sm90.cuh) and passed
+// as __grid_constant__ kernel parameters.
 
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "sm90.cuh"
 
 namespace {
 
@@ -167,119 +162,6 @@ struct Params {
   int nq, n_items;
 };
 
-// ---------------------------------------------------------------------------
-// PTX wrappers
-// ---------------------------------------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
-  return (uint32_t)__cvta_generic_to_shared(ptr);
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count));
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-
-// wait until the phase of parity `parity` has completed
-__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map,
-                                            uint32_t bar, int c0, int c1,
-                                            int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
-      "l"((uint64_t)map), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(bar)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map,
-                                            uint32_t bar, int c0, int c1,
-                                            int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
-      "l"((uint64_t)map), "r"(c0), "r"(c1), "r"(c2), "r"(bar)
-      : "memory");
-}
-
-// generic-proxy writes to shared memory become visible to wgmma and TMA
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void named_sync(int id, int count) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void setmaxnreg_inc() {
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
-}
-
-template <int N>
-__device__ __forceinline__ void setmaxnreg_dec() {
-  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// Keep the compiler from moving reads or writes of registers that an
-// in-flight wgmma reads or writes across its issue and its wait.
-template <int N>
-__device__ __forceinline__ void reg_fence(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-template <int N>
-__device__ __forceinline__ void reg_fence(uint32_t (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
-}
-
-// wgmma shared-memory matrix descriptor, 128-byte swizzle: start address,
-// leading and stride byte offsets, all in 16-byte units
-__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo,
-                                               uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
-}
-
 // K-major operand (Q, K): 8-row groups 1024 bytes apart; a k16 step moves
 // 32 bytes inside the 128-byte swizzle row
 __device__ __forceinline__ uint64_t desc_kmajor(uint32_t addr) {
@@ -291,26 +173,6 @@ __device__ __forceinline__ uint64_t desc_kmajor(uint32_t addr) {
 __device__ __forceinline__ uint64_t desc_mnmajor(uint32_t addr) {
   return desc_sw128(addr, BOX, 1024);
 }
-
-#define LCA_ACC8(a, i)                                                 \
-  "+f"(a[i]), "+f"(a[i + 1]), "+f"(a[i + 2]), "+f"(a[i + 3]),          \
-      "+f"(a[i + 4]), "+f"(a[i + 5]), "+f"(a[i + 6]), "+f"(a[i + 7])
-#define LCA_ACC64(a)                                                   \
-  LCA_ACC8(a, 0), LCA_ACC8(a, 8), LCA_ACC8(a, 16), LCA_ACC8(a, 24),    \
-      LCA_ACC8(a, 32), LCA_ACC8(a, 40), LCA_ACC8(a, 48), LCA_ACC8(a, 56)
-#define LCA_D64                                                        \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
-  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
-  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "  \
-  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "  \
-  "%58, %59, %60, %61, %62, %63}"
-
-#define LCA_OUT8(a, i)                                                 \
-  "=f"(a[i]), "=f"(a[i + 1]), "=f"(a[i + 2]), "=f"(a[i + 3]),          \
-      "=f"(a[i + 4]), "=f"(a[i + 5]), "=f"(a[i + 6]), "=f"(a[i + 7])
-#define LCA_OUT64(a)                                                   \
-  LCA_OUT8(a, 0), LCA_OUT8(a, 8), LCA_OUT8(a, 16), LCA_OUT8(a, 24),    \
-      LCA_OUT8(a, 32), LCA_OUT8(a, 40), LCA_OUT8(a, 48), LCA_OUT8(a, 56)
 
 // d (64 x 128 fp32) += A (64 x 16 bf16, shared, K-major) * B (16 x 128,
 // shared, K-major)
@@ -332,27 +194,6 @@ __device__ __forceinline__ void wgmma_ss_first(float (&d)[64], uint64_t da,
       ", %64, %65, 0, 1, 1, 0, 0;\n"
       : LCA_OUT64(d)
       : "l"(da), "l"(db));
-}
-
-// d (64 x 128 fp32) += A (64 x 16 bf16 in registers, the accumulator
-// fragment layout) * B (16 x 128, shared, MN-major)
-__device__ __forceinline__ void wgmma_rs(float (&d)[64], uint32_t a0,
-                                         uint32_t a1, uint32_t a2,
-                                         uint32_t a3, uint64_t db) {
-  asm volatile(
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " LCA_D64
-      ", {%64, %65, %66, %67}, %68, 1, 1, 1, 1;\n"
-      : LCA_ACC64(d)
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db));
-}
-
-__device__ __forceinline__ unsigned short float_to_bf16_bits(float x) {
-  return __bfloat16_as_ushort(__float2bfloat16_rn(x));  // nearest even
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  return (uint32_t)float_to_bf16_bits(lo) |
-         ((uint32_t)float_to_bf16_bits(hi) << 16);
 }
 
 // two int8 (bytes `sel` of w) -> two bf16, exactly: with the bytes spread
@@ -413,11 +254,6 @@ __device__ __forceinline__ void widen_tile(const unsigned char* raw,
   }
 }
 
-template <bool B>
-struct Flag {  // a compile-time bool for a generic lambda's argument
-  static constexpr bool value = B;
-};
-
 // ---------------------------------------------------------------------------
 // The items and the kv walk
 // ---------------------------------------------------------------------------
@@ -425,16 +261,6 @@ struct Flag {  // a compile-time bool for a generic lambda's argument
 struct Item {
   int q0, ih, ib;
 };
-
-// The block's j-th item: items in rows of gridDim.x, walked in a snake
-// order (left to right, then right to left), so that under the
-// longest-first order below each block's two items of a pair of rows sum
-// to about the same number of tiles
-__device__ __forceinline__ int item_index(int j) {
-  const int g = gridDim.x;
-  return (j & 1) ? (j + 1) * g - 1 - (int)blockIdx.x
-                 : j * g + (int)blockIdx.x;
-}
 
 // item t: q tiles from the last (the longest causal rows) to the first,
 // heads and batch rows inside
@@ -525,7 +351,7 @@ __global__ void __launch_bounds__(Roles<QUANT>::NT, 1)
       mbar_init(bar(B_VEMPTY + s), 8);
     }
     for (int r = 0; r < RAW_SLOTS; ++r) mbar_init(bar(B_RAW + r), 1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    fence_barrier_init();
   }
   __syncthreads();
 
@@ -911,63 +737,6 @@ __global__ void __launch_bounds__(Roles<QUANT>::NT, 1)
 // ---------------------------------------------------------------------------
 // Host side: tensor maps and launch
 // ---------------------------------------------------------------------------
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult res;
-#if CUDART_VERSION >= 12050
-    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
-                                     cudaEnableDefault, &res);
-#else
-    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault,
-                            &res);
-#endif
-    if (res == cudaDriverEntryPointSuccess) fn = (EncodeTiled)ptr;
-  }
-  return fn;
-}
-
-// A tiled map over `rank` dims (innermost first) with element strides for
-// dims 1.. (a size-1 dim takes the packed stride: TMA never steps it).
-bool encode(CUtensorMap* map, const void* base, CUtensorMapDataType type,
-            int esize, int rank, const long long* dims,
-            const long long* strides, const cuuint32_t* box,
-            CUtensorMapSwizzle swizzle) {
-  EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return false;
-  cuuint64_t gdim[4], gstride[3];
-  cuuint32_t estride[4] = {1, 1, 1, 1};
-  long long packed = dims[0] * esize;
-  for (int i = 0; i < rank; ++i) gdim[i] = (cuuint64_t)dims[i];
-  for (int i = 1; i < rank; ++i) {
-    gstride[i - 1] =
-        (cuuint64_t)(dims[i] == 1 ? packed : strides[i - 1] * esize);
-    packed = (long long)gstride[i - 1] * dims[i];
-  }
-  return fn(map, type, (cuuint32_t)rank, const_cast<void*>(base), gdim,
-            gstride, box, estride, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-int num_sms() {
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  }
-  return sms;
-}
 
 // dims: b, h, h_kv, s_q, s_kv, q strides (b, s, h), k strides (b, s, h),
 // v strides (b, s, h), out strides (b, s, h), scale strides (b, h, s),

@@ -7,8 +7,8 @@ as ``c_void_p``. Every C entry point returns ``cudaGetLastError()`` after its
 launch; :class:`Kernel` raises when that is not 0 and otherwise counts the
 launch. Nothing is built or loaded at import time: the first launch builds
 its source (or :func:`build_all` builds every source in parallel), into
-``build/kernels/`` at the repository root, keyed by a hash of the source and
-the flags.
+``build/kernels/`` at the repository root, keyed by a hash of the source, the
+shared headers (``csrc/*.cuh``) and the flags.
 """
 
 from __future__ import annotations
@@ -23,7 +23,8 @@ from pathlib import Path
 from typing import Dict, List, Optional, Sequence
 
 __all__ = ["Kernel", "KERNELS", "BUILD_DIR", "build_all", "launch_counts",
-           "reset_launch_counts", "ptr", "stream_ptr", "dims_array"]
+           "library", "reset_launch_counts", "ptr", "stream_ptr",
+           "dims_array"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -51,7 +52,9 @@ def _nvcc() -> str:
 
 
 def _lib_path(source: str) -> Path:
-    src = (CSRC / source).read_bytes()
+    # the key covers the source, the headers it may include and the flags
+    src = b"".join(p.read_bytes() for p in
+                   [CSRC / source, *sorted(CSRC.glob("*.cuh"))])
     key = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"{Path(source).stem}-{key}.so"
 
@@ -91,6 +94,12 @@ def build_all(sources: Optional[Sequence[str]] = None) -> Dict[str, str]:
         for s, job in jobs:
             _finish_build(s, job)
     return {s: _build_logs.get(s, "") for s in sources}
+
+
+def library(source: str) -> ctypes.CDLL:
+    """The loaded library of one ``csrc`` source (built on first use), for
+    its entry points other than kernels."""
+    return _load(source)
 
 
 def _load(source: str) -> ctypes.CDLL:
@@ -173,11 +182,11 @@ KERNELS: Dict[str, Kernel] = {
         [_VP] * 10 + [_F, _VP],
         "long_context_attention_tpu/ops/flash.py:1089"),
     "flash_bwd_dkv": Kernel(
-        "flash_bwd_dkv", "flash_bwd.cu", "lca_flash_bwd_dkv",
+        "flash_bwd_dkv", "flash_bwd_sm90.cu", "lca_flash_bwd_dkv",
         [_VP] * 10 + [_F, _VP],
         "long_context_attention_tpu/ops/flash.py:1174"),
     "flash_bwd_fused": Kernel(
-        "flash_bwd_fused", "flash_bwd.cu", "lca_flash_bwd_fused",
+        "flash_bwd_fused", "flash_bwd_sm90.cu", "lca_flash_bwd_fused",
         [_VP] * 10 + [_F, _VP],
         "long_context_attention_tpu/ops/flash.py:1291"),
     # the sparse entries share one C signature: q, k, v, dout, lse, delta,

@@ -17,9 +17,10 @@ PyTorch version of the same arithmetic in this module:
   at global positions ``q_start + i`` against a BHSD kv (a cache slice,
   taken by strides), with the same masks and softcap, bf16 or int8 K/V
   with per-token scales, the TPU's ``_fwd_kernel``.
-* :func:`flash_bwd_dq` (B2a), :func:`flash_bwd_dkv` (B2b) and
-  :func:`flash_bwd_fused` (B5), ``csrc/flash_bwd.cu``: the TPU's
-  ``_dq_kernel``, ``_dkv_kernel`` and ``_bwd_fused_kernel``, fp32 partials.
+* :func:`flash_bwd_dq` (B2a, ``csrc/flash_bwd.cu``), :func:`flash_bwd_dkv`
+  (B2b) and :func:`flash_bwd_fused` (B5, both ``csrc/flash_bwd_sm90.cu``:
+  wgmma and TMA, sm_90a only): the TPU's ``_dq_kernel``, ``_dkv_kernel``
+  and ``_bwd_fused_kernel``, fp32 partials.
 
 :func:`flash_attention` routes its forward as the JAX package's
 ``_flash_fwd_bhsd`` does: B1 for plain causal self-attention, B4 for any
@@ -83,16 +84,41 @@ def _fold(q: torch.Tensor, scale: float) -> torch.Tensor:
     return (q.float() * (scale * _LOG2E)).to(q.dtype)
 
 
+_TMA_MAX_STRIDE = 1 << 40  # bytes: cuTensorMapEncodeTiled's limit
+
+
+def strided_operand_problem(shape, strides, element_size: int,
+                            data_ptr: int) -> Optional[str]:
+    """Why a kernel cannot read an operand of this shape, element strides,
+    element size and address, or None when it can.
+
+    The kernels read rows of 16 bytes: by TMA (a tensor map over the view,
+    ``csrc/sm90.cuh`` ``encode``) or by ``cp.async``. Both need a unit
+    stride along the last dim, a 16-byte aligned base and, for every other
+    dim of more than one entry (a dim of one is never stepped), a positive
+    stride of a multiple of 16 bytes below TMA's 2^40."""
+    if shape[-1] > 1 and strides[-1] != 1:
+        return "needs a contiguous last dim"
+    if data_ptr % 16:
+        return "must start at a 16-byte aligned address"
+    for n, st in zip(shape[:-1], strides[:-1]):
+        nbytes = st * element_size
+        if n > 1 and (nbytes <= 0 or nbytes % 16
+                      or nbytes >= _TMA_MAX_STRIDE):
+            return (f"must be 16-byte aligned in every row (a stride of "
+                    f"{nbytes} bytes)")
+    return None
+
+
 def _check_cuda_operand(name: str, t: torch.Tensor, dtype, device) -> None:
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
     if t.dtype != dtype:
         raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
-    if t.stride(-1) != 1:
-        raise ValueError(f"{name} needs a contiguous last dim")
-    step = 16 // t.element_size()
-    if any(s % step for s in t.stride()[:-1]) or t.data_ptr() % 16:
-        raise ValueError(f"{name} must be 16-byte aligned in every row")
+    problem = strided_operand_problem(t.shape, t.stride(), t.element_size(),
+                                      t.data_ptr())
+    if problem is not None:
+        raise ValueError(f"{name} {problem}")
 
 
 def _tma_scales(k_scale: torch.Tensor, v_scale: torch.Tensor):
@@ -549,9 +575,10 @@ def flash_bwd_dq(q, k, v, dout, lse, delta, *, scale: float,
 
 def flash_bwd_dkv(q, k, v, dout, lse, delta, *, scale: float,
                   q_start: int = 0, causal: bool = True):
-    """Kernel B2b wrapper: dk, dv (b, s_kv, h_kv, d) fp32. One block per kv
+    """Kernel B2b wrapper: dk, dv (b, s_kv, h_kv, d) fp32. Each 128-row kv
     tile walks its group's query heads and their q tiles from the causal
-    diagonal on. CPU tensors take :func:`flash_bwd_dkv_plain`."""
+    diagonal on (persistent blocks, TMA, wgmma). CPU tensors take
+    :func:`flash_bwd_dkv_plain`."""
     if q.device.type == "cpu":
         return flash_bwd_dkv_plain(q, k, v, dout, lse, delta, scale=scale,
                                    q_start=q_start, causal=causal)
@@ -565,8 +592,9 @@ def flash_bwd_dkv(q, k, v, dout, lse, delta, *, scale: float,
 def flash_bwd_fused(q, k, v, dout, lse, delta, *, scale: float,
                     causal: bool = True):
     """Kernel B5 wrapper: self-attention (s_q == s_kv) -> dq, dk, dv fp32
-    in one pass. dq is summed with fp32 atomics into a zeroed buffer, so its
-    last bits vary from run to run. CPU tensors take
+    in one pass, B2b's walk plus dq. Each (kv tile, q tile) pair's dq is
+    added into a zeroed buffer by a TMA reduce-add, in no fixed order, so
+    its last bits vary from run to run. CPU tensors take
     :func:`flash_bwd_fused_plain`."""
     if q.device.type == "cpu":
         return flash_bwd_fused_plain(q, k, v, dout, lse, delta, scale=scale,
