@@ -19,10 +19,13 @@ Phases, one JSON line each; any failure exits non-zero:
      at the offsets call's shape, each timed; the backward kernels B2a, B2b
      and B5 at the trainer's per-layer attention shape, causal, with
      offsets that leave rows dead, and ragged (B2b and B5 also timed at
-     s=32768); the sage kernels B8a, B8c
-     and B8b on the
+     s=32768); sage's quantization kernels bit for bit against their plain
+     versions (a 4 x 8192 prefill, ragged, the q-only step of the
+     pre-quantized entry); the sage kernels B8a, B8c and B8b on the
      int8 operands of a 4 x 8192 prefill, with window and sinks, one-chunk
-     offsets, s_q != s_kv, dead rows, ragged, and B8b's band check; the
+     offsets, s_q != s_kv, dead rows, ragged, and B8b's band check, timed
+     beside B1 and B4 at the same shape and the whole sage_attention call
+     split into its quantization and its kernel; the
      block-sparse kernels B9a, B9b and B9c at b=1, s=32768 in tiles of 512
      on the StreamingLLM, strided and per-head masks, a mask whose last
      quarter of rows has no live tile, and a non-causal 8192 x 32768 random
@@ -86,6 +89,7 @@ import torch.nn.functional as F
 PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 tensor-core rate
 PEAK_INT8_OPS = 1979e12    # H100 SXM dense int8 tensor-core rate
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3 rate
+PEAK_FP32_FLOPS = 67e12    # H100 SXM fp32 rate outside the tensor cores
 # sage's operations are half int8 (QK) and half bf16 (PV): their joint rate
 PEAK_SAGE_OPS = 2 / (1 / PEAK_INT8_OPS + 1 / PEAK_BF16_FLOPS)
 SEED = 0
@@ -105,8 +109,9 @@ WINDOW, SINKS, SOFTCAP = 4096, 4, 50.0
 WINDOWED = dict(window_left=WINDOW, sink_tokens=SINKS)
 # The kv-tile width of each kernel's walk, which its band check poisons: a
 # NaN inside a visited tile is not masked out of the PV product.
-B4_KV_TILE = 64    # csrc/flash_fwd.cu BKV (B4; the sage kernels B8a-B8c)
+B4_KV_TILE = 64    # csrc/flash_fwd.cu BKV (B4; the sage kernel B8c)
 B3_KV_TILE = 128   # csrc/flash_fwd_sm90.cu BKV (B1, B3)
+B8_KV_TILE = 128   # csrc/sage_fwd_sm90.cu BKV (B8a, B8b)
 
 # Kernel vs plain version (same inputs). Each output row -- one query row
 # of one head, its d features -- is held against its own size: the row's
@@ -143,6 +148,8 @@ TRAIN_STEPS = (("none", 3), ("full", 2), ("attn", 2))
 SAGE_TRAIN_STEPS = (("none", 3), ("attn", 2))
 # the self-attention forward kernel of the model's layer, by attn_impl
 FORWARD_KERNEL = {"pallas": "flash_fwd_causal_self", "sage": "sage_fwd_tri"}
+# sage's quantization pass: one K/V and one q launch per sage call
+SAGE_QUANT = ("sage_quant_kv", "sage_quant_q")
 LR, WEIGHT_DECAY = 1e-4, 1e-4
 # Gradient check: the card's loss and each parameter gradient against the
 # same backward on CPU copies (the plain versions), max |card - cpu| over
@@ -256,6 +263,12 @@ def row(kernel, checks, ms, plain_ms, flops, nbytes, library_ms,
             "source": f"long_context_attention_tpu_torch/csrc/{kernel.source}",
             "replaces": kernel.replaces,
             **case_row(checks, ms, plain_ms, flops, nbytes, library_ms, peak)}
+
+
+def quant_counts(n):
+    """Expected launches of sage's quantization kernels on a path with n
+    sage calls (each one K/V and one q launch)."""
+    return dict.fromkeys(SAGE_QUANT, n)
 
 
 def visible(s_q, s_kv, q_start=0, causal=True, left=-1, right=-1, sink=0,
@@ -615,12 +628,80 @@ def kernel_b3_windowed(flash, q, k, v, ksl, vsl, start, scale, dev):
 
 
 def sage_operands(sage, q, k, v, scale):
-    """The int8 operands the sage entry points hand their kernels: q8 with
-    scale*log2e folded into its (b, h, s) scales, K centred, both BSHD."""
-    q8, qs = sage._quant_q(q, scale)
-    k8, ks, v8, vs, _ = sage.sage_quantize_kv(k.transpose(1, 2),
-                                              v.transpose(1, 2))
-    return q8, qs, k8.transpose(1, 2), ks, v8.transpose(1, 2), vs
+    """The int8 operands the sage entry points hand their kernels (the
+    quantization kernels): q8 with scale*log2e folded into its (b, h, s)
+    scales, K centred, all BSHD."""
+    k_mean = sage.sage_k_mean(k)
+    k8, ks, v8, vs = sage.sage_quant_kv(k, v, k_mean)
+    q8, qs, _ = sage.sage_quant_q(q, scale, k_mean)
+    return q8, qs, k8, ks, v8, vs
+
+
+def kernel_quant(K, sage, gen, dev):
+    """Sage's quantization kernels against their plain versions on the
+    inputs of the one-shot prefill (b=4, s=8192, 16/8 heads), a ragged
+    b=1, s=1000, and the pre-quantized entry's q-only step (no K mean, no
+    shift): int8 values and scales bit-equal, the lse shift (fp32 sums in
+    another order) within LSE_TOL. Times at the main shape, K's mean (a
+    torch reduction) beside them."""
+    b, s, h, hk, d = BATCH, PROMPT, MODEL["n_heads"], MODEL["n_kv_heads"], 128
+    scale = d ** -0.5
+    checks = {n: [] for n in SAGE_QUANT}
+
+    def inputs(bb, ss):
+        return [torch.randn(shape, generator=gen, device=dev).bfloat16()
+                for shape in ((bb, ss, h, d), (bb, ss, hk, d),
+                              (bb, ss, hk, d))]
+
+    def case(tag, q, k, v):
+        k_mean = sage.sage_k_mean(k)
+        got = sage.sage_quant_kv(k, v, k_mean)
+        want = sage.sage_quant_kv_plain(k, v, k_mean)
+        gq, wq = (fn(q, scale, k_mean) for fn in (sage.sage_quant_q,
+                                                   sage.sage_quant_q_plain))
+        pq, wpq = (fn(q, scale) for fn in (sage.sage_quant_q,
+                                           sage.sage_quant_q_plain))
+        torch.cuda.synchronize()
+        equal = {n: torch.equal(a, w) for n, a, w in zip(
+            ("k8", "ks", "v8", "vs", "q8", "qs", "prequant q8",
+             "prequant qs"), (*got, *gq[:2], *pq[:2]),
+            (*want, *wq[:2], *wpq[:2]))}
+        err = max_err(gq[2], wq[2])
+        emit({"phase": "check", "case": f"sage quantization {tag}",
+              "bit_equal": equal, "shift_max_abs_err": err,
+              "lse_tol": LSE_TOL})
+        if not all(equal.values()) or pq[2] is not None:
+            raise AssertionError(f"sage quantization {tag}: the kernels "
+                                 f"differ from their plain versions: {equal}")
+        check(f"sage quantization {tag} lse shift", err, LSE_TOL)
+        checks["sage_quant_kv"].append((0.0, 0.0))
+        checks["sage_quant_q"].append((err, 0.0))
+
+    case("ragged b=1 s=1000", *inputs(1, 1000))
+    q, k, v = inputs(b, s)
+    case(f"b={b} s={s}", q, k, v)
+    k_mean = sage.sage_k_mean(k)
+    ms = {"sage_quant_kv": time_ms(lambda: sage.sage_quant_kv(k, v, k_mean)),
+          "sage_quant_q": time_ms(lambda: sage.sage_quant_q(q, scale,
+                                                            k_mean))}
+    plain_ms = {
+        "sage_quant_kv": time_ms(lambda: sage.sage_quant_kv_plain(
+            k, v, k_mean), iters=3, warmup=1),
+        "sage_quant_q": time_ms(lambda: sage.sage_quant_q_plain(
+            q, scale, k_mean), iters=3, warmup=1)}
+    mean_ms = time_ms(lambda: sage.sage_k_mean(k))
+    # each element read once (bf16) and written once (int8); a scale (and
+    # a shift) per row; ~6 fp32 operations per element
+    elems = {"sage_quant_kv": k.numel() + v.numel(),
+             "sage_quant_q": q.numel()}
+    rows_out = {"sage_quant_kv": 2 * b * hk * s, "sage_quant_q": 2 * b * h * s}
+    res = []
+    for n in SAGE_QUANT:
+        nbytes = 3 * elems[n] + 4 * (rows_out[n] + k_mean.numel())
+        res.append({**row(K[n], checks[n], ms[n], plain_ms[n], 6 * elems[n],
+                          nbytes, None, PEAK_FP32_FLOPS),
+                    "library": None, "k_mean_ms": mean_ms})
+    return res
 
 
 def kernel_b8(K, sage, gen, dev):
@@ -632,6 +713,8 @@ def kernel_b8(K, sage, gen, dev):
     shape, SDPA's flash kernel on the bf16 inputs beside them, and the
     whole sage_attention call (quantizers, kernel, lse correction)."""
     from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from long_context_attention_tpu_torch.ops import flash
 
     b, s, h, hk, d = BATCH, PROMPT, MODEL["n_heads"], MODEL["n_kv_heads"], 128
     scale = d ** -0.5
@@ -674,11 +757,11 @@ def kernel_b8(K, sage, gen, dev):
     o, l = case("B8b", "ragged q_start=-8", ragged, q_start=-8, causal=True)
     if o[:, :8].any() or not torch.isneginf(l[:, :, :8]).all():
         raise AssertionError("B8b: dead rows are not out 0, lse -inf")
-    # band check: rows 6144.. never see kv tiles 1..31, whose scales get NaN
+    # band check: rows 6144.. never see kv tiles 1..15, whose scales get NaN
     rows = slice(s - CHUNK, s)
     vis = visible(s, s, 0, True, left=WINDOW, sink=SINKS, dev=dev)
-    tiles = unseen_tiles(vis[rows], B4_KV_TILE)
-    ksp, vsp = (poison(t, 2, tiles, B4_KV_TILE) for t in (ops[3], ops[5]))
+    tiles = unseen_tiles(vis[rows], B8_KV_TILE)
+    ksp, vsp = (poison(t, 2, tiles, B8_KV_TILE) for t in (ops[3], ops[5]))
     got, _ = sage.sage_fwd_pos(ops[0], ops[1], ops[2], ksp, ops[4], vsp,
                                **win)
     torch.cuda.synchronize()
@@ -699,6 +782,19 @@ def kernel_b8(K, sage, gen, dev):
                "B8b": win}
     call_ms = {n: time_ms(lambda: sage.sage_attention(q, k, v, **call_kw[n]))
                for n in call_kw}
+
+    def quantize():  # the call's quantization: K's mean and both kernels
+        k_mean = sage.sage_k_mean(k)
+        sage.sage_quant_kv(k, v, k_mean)
+        sage.sage_quant_q(q, scale, k_mean)
+
+    quant_ms = time_ms(quantize)
+    # pallas at the same shape: B1 (causal), B4 (window and sinks)
+    pallas = {
+        "B8a": ("flash_fwd_causal_self", time_ms(
+            lambda: flash.flash_fwd_causal_self(q, k, v, scale=scale))),
+        "B8b": ("flash_fwd_static", time_ms(lambda: flash.flash_fwd_static(
+            q, k, v, scale=scale, **win)))}
     qh = q.transpose(1, 2)
     kr, vr = (t.transpose(1, 2).repeat_interleave(h // hk, 1) for t in (k, v))
     with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
@@ -713,7 +809,11 @@ def kernel_b8(K, sage, gen, dev):
                    PEAK_SAGE_OPS),
              "library": "SDPA flash on the bf16 q, k, v (not the same "
                         "function: no int8 quantization)",
-             "sage_attention_ms": call_ms[n]}
+             "sage_attention_ms": call_ms[n], "quant_ms": quant_ms,
+             "kernel_ms": ms[n], "outside_kernel_ms": call_ms[n] - ms[n],
+             **({"pallas_same_shape": {"kernel": pallas[n][0],
+                                       "ms": pallas[n][1]}}
+                if n in pallas else {})}
             for n in ("B8a", "B8b", "B8c")]
 
 
@@ -1399,7 +1499,8 @@ def train_batch(vocab, seq, dev):
 
 def train_phase(pkg, build, dev, card, impl="pallas", plan=TRAIN_STEPS):
     """make_train_step on the 0.88B config at b=1, s=8192 with attention
-    ``impl`` (pallas: B1 forward; sage: B8a; B5 backward for both): one
+    ``impl`` (pallas: B1 forward; sage: B8a and its quantization kernels;
+    B5 backward for both): one
     warm-up step, then timed steps on the same batch under each remat
     policy of ``plan``, each step's launch counts checked exactly. Returns
     the counts of the `none` run."""
@@ -1430,10 +1531,11 @@ def train_phase(pkg, build, dev, card, impl="pallas", plan=TRAIN_STEPS):
             params, state, loss = step(params, state, tokens, labels, mask)
             losses.append(float(loss))  # synchronizes
             times.append(time.perf_counter() - t0)
+        n_fwd = steps * L * (2 if remat == "full" else 1)
         counts = expect_counts(build, {
-            fwd: steps * L * (2 if remat == "full" else 1), other: 0,
-            "flash_bwd_fused": steps * L, "flash_bwd_dq": 0,
-            "flash_bwd_dkv": 0, "flash_fwd_pos": 0, "sage_fwd_pos": 0})
+            fwd: n_fwd, other: 0, "flash_bwd_fused": steps * L,
+            "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "flash_fwd_pos": 0,
+            "sage_fwd_pos": 0, **quant_counts(n_fwd if impl == "sage" else 0)})
         if not all(math.isfinite(x) for x in losses):
             raise AssertionError(f"remat={remat}: loss not finite: {losses}")
         if remat == "none":
@@ -1508,9 +1610,10 @@ def grad_check_phase(pkg, build, dev, card, impl="pallas",
     for remat in remats:
         build.reset_launch_counts()
         loss_card, g_card = loss_and_grads(dev, remat)
+        n_fwd = GRAD_LAYERS * (2 if remat == "full" else 1)
         counts = expect_counts(build, {
-            fwd: GRAD_LAYERS * (2 if remat == "full" else 1),
-            "flash_bwd_fused": GRAD_LAYERS})
+            fwd: n_fwd, "flash_bwd_fused": GRAD_LAYERS,
+            **quant_counts(n_fwd if impl == "sage" else 0)})
         leaves = {}
         for n, want in g_cpu.items():
             size = float(want.abs().max())
@@ -1523,7 +1626,8 @@ def grad_check_phase(pkg, build, dev, card, impl="pallas",
               "loss_card": loss_card,
               "loss_cpu": loss_cpu, "loss_tol": LOSS_TOL,
               "grad_tol": GRAD_TOL, "worst_rel_err": worst,
-              "launches": {n: counts[n] for n in (fwd, "flash_bwd_fused")},
+              "launches": {n: counts[n] for n in (fwd, "flash_bwd_fused",
+                                                 *SAGE_QUANT)},
               "leaves": leaves})
         check(f"grad_check {impl} remat={remat} loss",
               abs(loss_card - loss_cpu), LOSS_TOL)
@@ -1600,7 +1704,8 @@ PREFILL_KERNELS = ("flash_fwd_causal_self", "flash_fwd_static",
 def sage_serve_phase(pkg, build, dev, card):
     """Serve the 0.88B config with attn_impl="sage" next to "pallas" on the
     same weights and prompt: Engine.prefill of 4 x 8192 in one shot, dense
-    (B8a in every layer) and windowed (B8b), timed in turns (pallas, sage,
+    (B8a in every layer) and windowed (B8b), each sage layer with one
+    launch of each quantization kernel, timed in turns (pallas, sage,
     sage, pallas) with exact launch counts, the sage-vs-pallas last-token
     logit gap and argmax agreement; then, dense, decode_scan of 32 steps
     from the sage prefill's int8 cache (B6, B7: decode ignores attn_impl,
@@ -1640,7 +1745,8 @@ def sage_serve_phase(pkg, build, dev, card):
             torch.cuda.synchronize()
             times[impl].append(time.perf_counter() - t0)
             counts = expect_counts(build, {
-                k: (L if k == own[impl] else 0) for k in PREFILL_KERNELS})
+                **{k: (L if k == own[impl] else 0) for k in PREFILL_KERNELS},
+                **quant_counts(L if impl == "sage" else 0)})
             if impl == "sage":
                 path[own["sage"]] = counts
                 sage_cache = cache
@@ -1678,7 +1784,7 @@ def sage_serve_phase(pkg, build, dev, card):
         torch.cuda.synchronize()
         decode_s = time.perf_counter() - t0
         dcounts = expect_counts(build, {
-            **{k: 0 for k in PREFILL_KERNELS},
+            **{k: 0 for k in PREFILL_KERNELS}, **quant_counts(0),
             "cache_append": L * NEW, "decode_attention": L * NEW})
         if toks.shape != (BATCH, NEW):
             raise AssertionError(f"decode_scan shape {tuple(toks.shape)}")
@@ -1689,7 +1795,8 @@ def sage_serve_phase(pkg, build, dev, card):
         build.reset_launch_counts()
         tf_logits, _ = eng.prefill(params, torch.cat([prompt, first[:, None]],
                                                      dim=1))
-        expect_counts(build, {"sage_fwd_tri": L, "flash_fwd_causal_self": 0})
+        expect_counts(build, {"sage_fwd_tri": L, "flash_fwd_causal_self": 0,
+                              **quant_counts(L)})
         tf_err = float((step1 - tf_logits).abs().max())
         check("slice_sage teacher forcing", tf_err, TEACHER_TOL)
         gen_eng = Engine(cfg=cfg, s_max=GEN_PROMPT + GEN_NEW,
@@ -1703,7 +1810,8 @@ def sage_serve_phase(pkg, build, dev, card):
         gen_s = time.perf_counter() - t0
         gcounts = expect_counts(build, {
             **{k: (L if k == "sage_fwd_tri" else 0) for k in PREFILL_KERNELS},
-            "cache_append": L * GEN_NEW, "decode_attention": L * GEN_NEW})
+            **quant_counts(L), "cache_append": L * GEN_NEW,
+            "decode_attention": L * GEN_NEW})
         if not torch.isfinite(res.prefill_logits).all() or res.tokens.shape != (
                 GEN_BATCH, GEN_NEW):
             raise AssertionError("sage generate: non-finite logits or shapes")
@@ -1728,8 +1836,10 @@ def sage_api_phase(build, sage, dev, card):
     bidirectional model such as the JAX package's DiT); the causal call
     with one-chunk offsets (B8b, the JAX ring's per-step call) against the
     call without (B8a), row by row; and sage_attention_fwd_prequant over
-    an int8 K/V of ops.kv_cache (B8b). Each call from zeroed counts.
-    Returns the non-causal call's launch counts."""
+    an int8 K/V of ops.kv_cache (B8b). Each call from zeroed counts: its
+    kernel once, the K/V and the q quantization kernels once each (the
+    pre-quantized entry the q one only), nothing else. Returns the
+    non-causal call's launch counts."""
     from long_context_attention_tpu_torch.ops.kv_cache import quantize_kv
 
     b, s, h, hk, d = 1, TRAIN_SEQ, MODEL["n_heads"], MODEL["n_kv_heads"], 128
@@ -1754,7 +1864,10 @@ def sage_api_phase(build, sage, dev, card):
         out, lse = fn()
         torch.cuda.synchronize()
         counts = build.launch_counts()
-        if counts[kernel] != 1 or sum(counts.values()) != 1:
+        want = {n: 0 for n in counts}
+        want.update({kernel: 1, "sage_quant_q": 1,
+                     "sage_quant_kv": int(name != "prequant")})
+        if counts != want:
             raise AssertionError(f"sage {name} call counts {counts}")
         if not (torch.isfinite(out).all() and torch.isfinite(lse).all()):
             raise AssertionError(f"sage {name} call: non-finite output")
@@ -1882,18 +1995,23 @@ def main():
 
     t0 = time.perf_counter()
     logs = build.build_all()
-    # B5's and B2b's dynamic shared memory (ptxas sees only static memory)
+    # the sm90 kernels' dynamic shared memory (ptxas sees only static
+    # memory)
     bwd_smem = {n: build.library("flash_bwd_sm90.cu").lca_flash_bwd_smem(f)
                 for n, f in (("B2b", 0), ("B5", 1))}
+    sage_smem = build.library("sage_fwd_sm90.cu").lca_sage_fwd_smem()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "sources": sorted(logs),
-          "flash_bwd_sm90_dynamic_smem_bytes": bwd_smem})
+          "flash_bwd_sm90_dynamic_smem_bytes": bwd_smem,
+          "sage_fwd_sm90_dynamic_smem_bytes": {"B8a, B8b": sage_smem}})
     for src, log in logs.items():
         for line in log.splitlines():
             if any(w in line for w in ("entry function", "registers",
                                        "spill")):
                 print(f"ptxas {src}: {line.strip()}", file=sys.stderr)
     print(f"flash_bwd_sm90.cu: dynamic shared memory per block {bwd_smem}",
+          file=sys.stderr)
+    print(f"sage_fwd_sm90.cu: dynamic shared memory per block {sage_smem}",
           file=sys.stderr)
 
     K = build.KERNELS
@@ -1905,7 +2023,8 @@ def main():
 
     rows = []
     for fn, mod in ((kernel_b1, flash), (kernel_b4, flash),
-                    (kernel_b3, flash), (kernel_b8, sage), (kernel_b6, decode),
+                    (kernel_b3, flash), (kernel_quant, sage),
+                    (kernel_b8, sage), (kernel_b6, decode),
                     (kernel_b7, decode), (kernel_bwd, flash),
                     (kernel_b9, sparse)):
         res = fn(K, mod, gen, dev)
@@ -1919,7 +2038,8 @@ def main():
     # each kernel's launches on its own path: serving (B1, B3, B6, B7),
     # windowed serving (B4; B3, B6, B7 in their "windowed" entries),
     # training (B5), the offsets call (B2a, B2b), sage serving (B8a dense,
-    # B8b windowed), the non-causal sage call (B8c), the block-sparse USP
+    # B8b windowed; the quantization kernels in the dense one), the
+    # non-causal sage call (B8c), the block-sparse USP
     # layer (B9a, B9b, B9c)
     counts, dense = serve_phase(pkg, build, dev, smi, windowed=False)
     torch.cuda.empty_cache()
@@ -1954,6 +2074,7 @@ def main():
             "sage_fwd_tri": sage_counts["sage_fwd_tri"],
             "sage_fwd_pos": sage_counts["sage_fwd_pos"],
             "sage_fwd_rect": rect_counts,
+            **{n: sage_counts["sage_fwd_tri"] for n in SAGE_QUANT},
             **{n: usp_counts for n in SPARSE_KERNELS}}
     for r in rows:
         r["launches"] = path.get(r["name"], counts)[r["name"]]

@@ -1,7 +1,8 @@
 // Flash-attention forward for Hopper (sm_90a) on mma.sync: one flash entry
-// point and three sage entry points that share their kv walk. The causal
-// self-attention (B1) and global-position (B3) forwards are wgmma/TMA
-// kernels of their own, in flash_fwd_sm90.cu.
+// point and one sage entry point. The causal self-attention (B1) and
+// global-position (B3) forwards, and the causal and global-position sage
+// forwards (B8a, B8b), are wgmma/TMA kernels of their own, in
+// flash_fwd_sm90.cu and sage_fwd_sm90.cu.
 //
 // Replaces the TPU kernel of long_context_attention_tpu/ops/flash.py:
 //   lca_flash_fwd_static      <- _fwd_kernel_static: self-attention with
@@ -42,16 +43,14 @@
 //   masks (flash-attn semantics, global positions): drop col > row + right
 //     (right = 0 when causal) and col < row - left unless col < sink.
 //
-// And the TPU kernels of long_context_attention_tpu/ops/sage.py (shared
-// step _sage_compute, emit _emit):
-//   lca_sage_fwd_tri  <- _sage_kernel_tri: causal self-attention;
-//   lca_sage_fwd_rect <- _sage_kernel_rect: no mask;
-//   lca_sage_fwd_pos  <- _sage_kernel_pos: q rows at q_off + i, causal,
-//                        window and sinks (the flash kernels' walk).
-// Inputs are int8 q, k, v with fp32 per-token scales (the wrapper's torch
-// quantizers; q's scales carry scale*log2e). s = (q8 . k8)_s32 * qs * ks in
-// exp2 units, p = exp2(min(s, 90)) with no running max, l += rowsum(p)
-// before p *= vs, acc += bf16(p) @ bf16(v8); out = acc / l, lse = ln l.
+// And the TPU kernel of long_context_attention_tpu/ops/sage.py (shared step
+// _sage_compute, emit _emit):
+//   lca_sage_fwd_rect <- _sage_kernel_rect: no mask, any s_q and s_kv.
+// Inputs are int8 q, k, v with fp32 per-token scales (the quantization
+// pass, sage_quant.cu; q's scales carry scale*log2e). s = (q8 . k8)_s32 *
+// qs * ks in exp2 units, p = exp2(min(s, 90)) with no running max, l +=
+// rowsum(p) before p *= vs, acc += bf16(p) @ bf16(v8); out = acc / l, lse =
+// ln l.
 // What bounds it: tensor-core operations, 2*d int8 ops (QK, 1979 TOP/s)
 // and 2*d bf16 FLOPs (PV, 989 TFLOP/s) per visible pair. QK runs on
 // mma.sync m16n8k32 s8 (ldmatrix's b16 view loads both int8 operands from
@@ -505,11 +504,6 @@ int launch(const Params& p, int b, cudaStream_t stream) {
 // Sage: int8 QK^T on the int8 tensor cores, max-free exp2 softmax, bf16 PV
 // ---------------------------------------------------------------------------
 
-// the walk of a sage entry point (template parameter MODE)
-constexpr int kSageTri = 0;   // causal self-attention, positions from 0
-constexpr int kSageRect = 1;  // no mask but the kv end
-constexpr int kSagePos = 2;   // q_off, window, sinks of SageParams
-
 constexpr int LD8 = D + 16;  // byte pitch of the int8 q and k tiles: the 8
                              // rows of an ldmatrix land in distinct banks
 constexpr int S_K8 = BQ * LD8;                // after the q8 tile
@@ -535,7 +529,6 @@ struct SageParams {
   long long qs_sb, qs_sh, qs_ss;  // scale strides (batch, head, seq)
   long long ks_sb, ks_sh, ks_ss;
   long long vs_sb, vs_sh, vs_ss;
-  int q_off, left, right, sink;  // as in Params
 };
 
 __device__ __forceinline__ void cp_async4(unsigned dst, const void* src,
@@ -556,7 +549,7 @@ __device__ __forceinline__ void mma_s8(int (&c)[4], const unsigned (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-template <int MODE>
+// Every q row sees every kv column; the last tile is cut at s_kv.
 __global__ void __launch_bounds__(NTHREADS)
     sage_fwd_kernel(const SageParams p) {
   extern __shared__ __align__(128) unsigned char smem[];
@@ -564,8 +557,7 @@ __global__ void __launch_bounds__(NTHREADS)
   unsigned short* sV = reinterpret_cast<unsigned short*>(smem + S_VW);
   float* sSc = reinterpret_cast<float*>(smem + S_SC);  // [stage][k, v][BKV]
 
-  const int nq = (p.s_q + BQ - 1) / BQ;
-  const int iq = nq - 1 - (int)blockIdx.x;  // longest causal rows first
+  const int iq = blockIdx.x;
   const int ih = blockIdx.y;
   const int ib = blockIdx.z;
   const int ihk = ih / (p.h / p.h_kv);
@@ -576,20 +568,14 @@ __global__ void __launch_bounds__(NTHREADS)
   const int g = lane >> 2;
   const int t = lane & 3;
 
-  const int q_off = MODE == kSagePos ? p.q_off : 0;
-  const int left = MODE == kSagePos ? p.left : -1;
-  const int right = MODE == kSageTri ? 0 : (MODE == kSageRect ? -1 : p.right);
-  const int sink = MODE == kSagePos ? p.sink : 0;
-  const int q_first = q_off + q0;
-  const int q_last = q_off + min(q0 + BQ, p.s_q) - 1;
-  const KvWalk walk(q_first, q_last, p.s_kv, left, right, sink);
+  const int nk = (p.s_kv + BKV - 1) / BKV;
 
   const int8_t* kb = p.k + ib * p.k_sb + ihk * p.k_sh;
   const int8_t* vb = p.v + ib * p.v_sb + ihk * p.v_sh;
   const float* ksb = p.ks + ib * p.ks_sb + ihk * p.ks_sh;
   const float* vsb = p.vs + ib * p.vs_sb + ihk * p.vs_sh;
   auto issue = [&](int jt, int s) {
-    const int kv0 = walk.tile(jt) * BKV;
+    const int kv0 = jt * BKV;
     unsigned char* dk = smem + S_K8 + s * BKV * LD8;
     unsigned char* dv = smem + S_V8 + s * BKV * D;
     for (int c = tid; c < BKV * (D / 16); c += NTHREADS) {
@@ -608,7 +594,7 @@ __global__ void __launch_bounds__(NTHREADS)
     }
     cp_async_commit();
   };
-  if (walk.n > 0) issue(0, 0);
+  if (nk > 0) issue(0, 0);
 
   // the q8 tile, and the per-row scales of this lane's rows g and g + 8
   const int8_t* qb = p.q + ib * p.q_sb + ih * p.q_sh;
@@ -643,13 +629,12 @@ __global__ void __launch_bounds__(NTHREADS)
 #pragma unroll
     for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
   float l_row[2] = {0.f, 0.f};
-  const int row_pos0 = q_off + q0 + warp * 16 + g;
   const int mi = lane >> 3;
 
-  for (int jt = 0; jt < walk.n; ++jt) {
-    const int kv0 = walk.tile(jt) * BKV;
+  for (int jt = 0; jt < nk; ++jt) {
+    const int kv0 = jt * BKV;
     const int stage = jt & 1;
-    if (jt + 1 < walk.n) {
+    if (jt + 1 < nk) {
       issue(jt + 1, stage ^ 1);
       cp_async_wait<1>();
     } else {
@@ -693,12 +678,10 @@ __global__ void __launch_bounds__(NTHREADS)
       }
     }
 
-    // s = s32 * q scale * k scale (exp2 units), mask, p = exp2(min(s, 90));
-    // l sums p before V's scale multiplies it (_sage_compute)
-    const int kv_last = kv0 + BKV - 1;
-    const bool interior =
-        kv_last < p.s_kv && (right < 0 || kv_last <= q_first + right) &&
-        (left < 0 || kv0 >= q_last - left || kv_last < sink);
+    // s = s32 * q scale * k scale (exp2 units), columns past s_kv masked,
+    // p = exp2(min(s, 90)); l sums p before V's scale multiplies it
+    // (_sage_compute)
+    const bool interior = kv0 + BKV <= p.s_kv;
     float sp[BKV / 8][4];
     float rs[2] = {0.f, 0.f};
 #pragma unroll
@@ -707,13 +690,7 @@ __global__ void __launch_bounds__(NTHREADS)
       for (int e = 0; e < 4; ++e) {
         const int cl = n * 8 + 2 * t + (e & 1);
         float v = (float)acc[n][e] * qsr[e >> 1] * sKs[cl];
-        if (!interior) {
-          const int col = kv0 + cl;
-          const int row = row_pos0 + (e >> 1) * 8;
-          if (col >= p.s_kv || (right >= 0 && col > row + right) ||
-              (left >= 0 && col < row - left && col >= sink))
-            v = kNegInf;
-        }
+        if (!interior && kv0 + cl >= p.s_kv) v = kNegInf;
         const float pv = exp2f(fminf(v, kClamp));
         rs[e >> 1] += pv;
         sp[n][e] = pv * sVs[cl];
@@ -771,7 +748,7 @@ SageParams make_sage_params(const void* q, const float* qs, const void* k,
                             void* out, float* lse, const long long* dims) {
   // dims: b, h, h_kv, s_q, s_kv, q strides (b, s, h), k strides (b, s, h),
   // v strides (b, s, h), out strides (b, s, h), q, k and v scale strides
-  // (b, h, s), q_off, left, right, sink
+  // (b, h, s) (then the position entries' q_off, left, right, sink, unused)
   SageParams p;
   p.q = static_cast<const int8_t*>(q);
   p.qs = qs;
@@ -791,22 +768,15 @@ SageParams make_sage_params(const void* q, const float* qs, const void* k,
                      &p.ks_sb, &p.ks_sh, &p.ks_ss, &p.vs_sb, &p.vs_sh,
                      &p.vs_ss};
   for (int i = 0; i < 21; ++i) *st[i] = dims[5 + i];
-  p.q_off = (int)dims[26];
-  p.left = (int)dims[27];
-  p.right = (int)dims[28];
-  p.sink = (int)dims[29];
   return p;
 }
 
-template <int MODE>
 int launch_sage(const void* q, const float* qs, const void* k,
                 const float* ks, const void* v, const float* vs, void* out,
                 float* lse, const long long* dims, void* stream) {
   const SageParams p = make_sage_params(q, qs, k, ks, v, vs, out, lse, dims);
   if (p.h_kv <= 0 || p.h % p.h_kv) return (int)cudaErrorInvalidValue;
-  if (MODE == kSageTri && (p.s_q != p.s_kv || p.q_off != 0))
-    return (int)cudaErrorInvalidValue;
-  auto kern = sage_fwd_kernel<MODE>;
+  auto kern = sage_fwd_kernel;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, SAGE_SMEM);
   if (e != cudaSuccess) return (int)e;
@@ -836,35 +806,16 @@ extern "C" int lca_flash_fwd_static(const void* q, const void* k,
   }
 }
 
-// Kernels B8a, B8c, B8b: sage attention over int8 q, k, v with fp32
-// per-token scales (q's with scale*log2e folded in). One signature: q8, qs,
-// k8, ks, v8, vs, out, lse, dims (make_sage_params), stream.
-// B8a: causal self-attention, s_q == s_kv, q_off 0 (dims' mask fields
-// ignored).
-extern "C" int lca_sage_fwd_tri(const void* q, const float* qs,
-                                const void* k, const float* ks, const void* v,
-                                const float* vs, void* out, float* lse,
-                                const long long* dims, void* stream) {
-  return launch_sage<kSageTri>(q, qs, k, ks, v, vs, out, lse, dims, stream);
-}
-
-// B8c: no mask (every kv column of every row), any s_q and s_kv.
+// Kernel B8c: sage attention over int8 q, k, v with fp32 per-token scales
+// (q's with scale*log2e folded in), no mask (every kv column of every row),
+// any s_q and s_kv. The signature of the sage entry points: q8, qs, k8, ks,
+// v8, vs, out, lse, dims (make_sage_params), stream.
 extern "C" int lca_sage_fwd_rect(const void* q, const float* qs,
                                  const void* k, const float* ks,
                                  const void* v, const float* vs, void* out,
                                  float* lse, const long long* dims,
                                  void* stream) {
-  return launch_sage<kSageRect>(q, qs, k, ks, v, vs, out, lse, dims, stream);
-}
-
-// B8b: q rows at q_off + i against kv columns at j, with the causal /
-// window (left, right) / sink masks of dims, walking the sink tiles and
-// each q tile's band only.
-extern "C" int lca_sage_fwd_pos(const void* q, const float* qs,
-                                const void* k, const float* ks, const void* v,
-                                const float* vs, void* out, float* lse,
-                                const long long* dims, void* stream) {
-  return launch_sage<kSagePos>(q, qs, k, ks, v, vs, out, lse, dims, stream);
+  return launch_sage(q, qs, k, ks, v, vs, out, lse, dims, stream);
 }
 
 extern "C" const char* lca_error_string(int err) {

@@ -196,64 +196,6 @@ __device__ __forceinline__ void wgmma_ss_first(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db));
 }
 
-// two int8 (bytes `sel` of w) -> two bf16, exactly: with the bytes spread
-// to the 16-bit halves, 0x4300 | (b & 0x7f) is the bf16 of 128 + (b & 0x7f),
-// and subtracting 128 (b >= 0) or 256 (b < 0: bit 7, read into the
-// subtrahend's exponent) leaves b; all values are integers below 256 in
-// magnitude, so the bf16 subtraction is exact
-__device__ __forceinline__ uint32_t widen2(uint32_t w, uint32_t sel) {
-  const uint32_t x = __byte_perm(w, 0u, sel);
-  const uint32_t t = (x & 0x007F007Fu) | 0x43004300u;
-  const uint32_t sub = (x & 0x00800080u) | 0x43004300u;
-  const __nv_bfloat162 r =
-      __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&t),
-              *reinterpret_cast<const __nv_bfloat162*>(&sub));
-  return *reinterpret_cast<const uint32_t*>(&r);
-}
-
-// Widen one int8 tile [128 rows][128 bytes] into the two swizzled bf16
-// boxes at dst, by the 128 threads of a producer warpgroup, two 16-byte
-// chunks at a time (their loads first, for the producer warp of each SM
-// sub-partition to overlap). Within each 8-thread phase of a 16-byte
-// access, four threads read row r and four row r + 1 (opposite halves of
-// the rows: conflict-free), and their bf16 chunks land on distinct banks of
-// the swizzled boxes.
-__device__ __forceinline__ void widen_tile(const unsigned char* raw,
-                                           unsigned char* dst, int ptid) {
-  constexpr int CHUNKS = BKV * D / 16 / 128;  // per thread
-  constexpr int BATCH = 2;
-#pragma unroll 1
-  for (int it = 0; it < CHUNKS; it += BATCH) {
-    uint4 w[BATCH];
-    int row[BATCH], c[BATCH];
-#pragma unroll
-    for (int u = 0; u < BATCH; ++u) {
-      const int idx = (it + u) * 128 + ptid;
-      const int j = idx & 15;
-      row[u] = 2 * (idx >> 4) + (((j >> 2) & 1) ^ (j >> 3));
-      c[u] = j & 7;  // 16-byte chunk of the int8 row
-      w[u] = *reinterpret_cast<const uint4*>(raw + row[u] * D + c[u] * 16);
-    }
-#pragma unroll
-    for (int u = 0; u < BATCH; ++u) {
-      uint4 lo, hi;
-      lo.x = widen2(w[u].x, 0x4140);
-      lo.y = widen2(w[u].x, 0x4342);
-      lo.z = widen2(w[u].y, 0x4140);
-      lo.w = widen2(w[u].y, 0x4342);
-      hi.x = widen2(w[u].z, 0x4140);
-      hi.y = widen2(w[u].z, 0x4342);
-      hi.z = widen2(w[u].w, 0x4140);
-      hi.w = widen2(w[u].w, 0x4342);
-      unsigned char* drow = dst + (c[u] >> 2) * BOX + row[u] * 128;
-      const int bc = (c[u] & 3) * 2;  // its first bf16 chunk in the box
-      const int sw = row[u] & 7;
-      *reinterpret_cast<uint4*>(drow + ((bc ^ sw) << 4)) = lo;
-      *reinterpret_cast<uint4*>(drow + (((bc + 1) ^ sw) << 4)) = hi;
-    }
-  }
-}
-
 // ---------------------------------------------------------------------------
 // The items and the kv walk
 // ---------------------------------------------------------------------------
@@ -274,36 +216,11 @@ __device__ __forceinline__ Item item_of(const Params& p, int t) {
   return x;
 }
 
-// The kv tiles a q tile of rows at positions [q_first, q_last] sees, each
-// once: the sink tiles that lie before the band, then the band [lo, hi]
-// (_banded_gt). left / right -1: unbounded; right 0: causal.
-struct KvWalk {
-  int lo, hi, n_sink, n;
-  __device__ KvWalk(int q_first, int q_last, int s_kv, int left, int right,
-                    int sink) {
-    lo = 0;
-    hi = (s_kv + BKV - 1) / BKV - 1;
-    n_sink = 0;
-    if (right >= 0) {
-      const int last = q_last + right;
-      hi = last < 0 ? -1 : min(hi, last / BKV);
-    }
-    if (left >= 0) {
-      lo = max(q_first - left, 0) / BKV;
-      n_sink = min(min((sink + BKV - 1) / BKV, lo), hi + 1);
-    }
-    n = n_sink + max(hi - lo + 1, 0);
-  }
-  __device__ int tile(int jt) const {
-    return jt < n_sink ? jt : lo + (jt - n_sink);
-  }
-};
-
 template <bool TRI>
-__device__ __forceinline__ KvWalk walk_of(const Params& p, int q0) {
+__device__ __forceinline__ KvWalk<BKV> walk_of(const Params& p, int q0) {
   const int q_off = TRI ? 0 : p.q_off;
-  return KvWalk(q_off + q0, q_off + min(q0 + BQ, p.s_q) - 1, p.s_kv,
-                TRI ? -1 : p.left, TRI ? 0 : p.right, TRI ? 0 : p.sink);
+  return KvWalk<BKV>(q_off + q0, q_off + min(q0 + BQ, p.s_q) - 1, p.s_kv,
+                     TRI ? -1 : p.left, TRI ? 0 : p.right, TRI ? 0 : p.sink);
 }
 
 // ---------------------------------------------------------------------------
@@ -368,7 +285,7 @@ __global__ void __launch_bounds__(Roles<QUANT>::NT, 1)
         const int t = item_index(j);
         if (t >= p.n_items) continue;
         const Item x = item_of(p, t);
-        const KvWalk w = walk_of<TRI>(p, x.q0);
+        const KvWalk<BKV> w = walk_of<TRI>(p, x.q0);
         const int ihk = x.ih / (p.h / p.h_kv);
         for (int jt = 0; jt < w.n; ++jt, ++it) {
           const int s = it % STAGES;
@@ -460,7 +377,7 @@ __global__ void __launch_bounds__(Roles<QUANT>::NT, 1)
         const unsigned char* slot = raw + (it % nslots) * RAW_SLOT;
         mbar_wait(bar((is_v ? B_VEMPTY : B_KEMPTY) + s), use(it) ^ 1);
         mbar_wait(bar(b_raw + it % nslots), (it / nslots) & 1);
-        widen_tile(slot, st + (is_v ? KV_BYTES : 0), wtid);
+        widen_rows<BKV>(slot, st + (is_v ? KV_BYTES : 0), 0, wtid);
         if (!is_v && wtid < SC_BYTES / 16)  // the scales, beside K
           reinterpret_cast<float4*>(st + 2 * KV_BYTES)[wtid] =
               reinterpret_cast<const float4*>(slot + RAW_BYTES)[wtid];
@@ -525,7 +442,7 @@ __global__ void __launch_bounds__(Roles<QUANT>::NT, 1)
       const int t = item_index(j);
       if (t >= p.n_items) continue;
       const Item x = item_of(p, t);
-      const KvWalk w = walk_of<TRI>(p, x.q0);
+      const KvWalk<BKV> w = walk_of<TRI>(p, x.q0);
       const int r0 = x.q0 + cw * 64;  // first q row of this warpgroup
       const int q_first = q_off + r0;
       const int q_last = q_off + min(r0 + 64, p.s_q) - 1;

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the wgmma/TMA kernels
-// (flash_fwd_sm90.cu, flash_bwd_sm90.cu): PTX wrappers for mbarriers, TMA,
-// wgmma and register allocation, the persistent blocks' snake order, and the
-// host's tensor-map encoder. Each source that includes it builds into its
+// (flash_fwd_sm90.cu, flash_bwd_sm90.cu, sage_fwd_sm90.cu): PTX wrappers for
+// mbarriers, TMA, cp.async, wgmma and register allocation, the persistent
+// blocks' snake order, the forward kernels' kv walk and int8 widening, and
+// the host's tensor-map encoder. Each source that includes it builds into its
 // own library, so everything here lives in an anonymous namespace.
 
 #pragma once
@@ -99,6 +100,23 @@ __device__ __forceinline__ void bulk_wait() {
   asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
+// 4 bytes from global to shared memory, asynchronously; src-size 0 writes
+// zeros (and reads nothing)
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+// one arrival on the mbarrier once the issuing thread's cp.async copies so
+// far have landed (.noinc: the barrier's expected count includes it)
+__device__ __forceinline__ void cp_async_mbar_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                   bar)
+               : "memory");
+}
+
 // stores to a shared-memory address (32 bits: no 64-bit generic pointer
 // for the compiler to keep live)
 __device__ __forceinline__ void st_shared_b32(uint32_t addr, uint32_t v) {
@@ -188,6 +206,19 @@ __device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo,
 #define LCA_OUT64(a)                                                   \
   LCA_OUT8(a, 0), LCA_OUT8(a, 8), LCA_OUT8(a, 16), LCA_OUT8(a, 24),    \
       LCA_OUT8(a, 32), LCA_OUT8(a, 40), LCA_OUT8(a, 48), LCA_OUT8(a, 56)
+// the same for s32 accumulators (int8 products)
+#define LCA_IACC8(a, i)                                                \
+  "+r"(a[i]), "+r"(a[i + 1]), "+r"(a[i + 2]), "+r"(a[i + 3]),          \
+      "+r"(a[i + 4]), "+r"(a[i + 5]), "+r"(a[i + 6]), "+r"(a[i + 7])
+#define LCA_IACC64(a)                                                  \
+  LCA_IACC8(a, 0), LCA_IACC8(a, 8), LCA_IACC8(a, 16), LCA_IACC8(a, 24), \
+      LCA_IACC8(a, 32), LCA_IACC8(a, 40), LCA_IACC8(a, 48), LCA_IACC8(a, 56)
+#define LCA_IOUT8(a, i)                                                \
+  "=r"(a[i]), "=r"(a[i + 1]), "=r"(a[i + 2]), "=r"(a[i + 3]),          \
+      "=r"(a[i + 4]), "=r"(a[i + 5]), "=r"(a[i + 6]), "=r"(a[i + 7])
+#define LCA_IOUT64(a)                                                  \
+  LCA_IOUT8(a, 0), LCA_IOUT8(a, 8), LCA_IOUT8(a, 16), LCA_IOUT8(a, 24), \
+      LCA_IOUT8(a, 32), LCA_IOUT8(a, 40), LCA_IOUT8(a, 48), LCA_IOUT8(a, 56)
 #define LCA_D32                                                        \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
   "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
@@ -219,6 +250,94 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return (uint32_t)float_to_bf16_bits(lo) |
          ((uint32_t)float_to_bf16_bits(hi) << 16);
 }
+
+// two int8 (bytes `sel` of w) -> two bf16, exactly: with the bytes spread
+// to the 16-bit halves, 0x4300 | (b & 0x7f) is the bf16 of 128 + (b & 0x7f),
+// and subtracting 128 (b >= 0) or 256 (b < 0: bit 7, read into the
+// subtrahend's exponent) leaves b; all values are integers below 256 in
+// magnitude, so the bf16 subtraction is exact
+__device__ __forceinline__ uint32_t widen2(uint32_t w, uint32_t sel) {
+  const uint32_t x = __byte_perm(w, 0u, sel);
+  const uint32_t t = (x & 0x007F007Fu) | 0x43004300u;
+  const uint32_t sub = (x & 0x00800080u) | 0x43004300u;
+  const __nv_bfloat162 r =
+      __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&t),
+              *reinterpret_cast<const __nv_bfloat162*>(&sub));
+  return *reinterpret_cast<const uint32_t*>(&r);
+}
+
+// Widen rows [r0, r0 + ROWS) of an int8 tile [128 rows][128 bytes] into the
+// two swizzled bf16 boxes at dst (d 0-63, then 64-127; 128 rows of 128
+// bytes each, 128-byte swizzle), by the 128 threads of a warpgroup, two
+// 16-byte chunks at a time (their loads first, for the warp of each SM
+// sub-partition to overlap). Within each 8-thread phase of a 16-byte
+// access, four threads read row r and four row r + 1 (opposite halves of
+// the rows: conflict-free), and their bf16 chunks land on distinct banks of
+// the swizzled boxes. r0 is a multiple of 8.
+template <int ROWS>
+__device__ __forceinline__ void widen_rows(const unsigned char* raw,
+                                           unsigned char* dst, int r0,
+                                           int ptid) {
+  constexpr int CHUNKS = ROWS * 128 / 16 / 128;  // per thread
+  constexpr int BATCH = 2;
+#pragma unroll 1
+  for (int it = 0; it < CHUNKS; it += BATCH) {
+    uint4 w[BATCH];
+    int row[BATCH], c[BATCH];
+#pragma unroll
+    for (int u = 0; u < BATCH; ++u) {
+      const int idx = (it + u) * 128 + ptid;
+      const int j = idx & 15;
+      row[u] = r0 + 2 * (idx >> 4) + (((j >> 2) & 1) ^ (j >> 3));
+      c[u] = j & 7;  // 16-byte chunk of the int8 row
+      w[u] = *reinterpret_cast<const uint4*>(raw + row[u] * 128 + c[u] * 16);
+    }
+#pragma unroll
+    for (int u = 0; u < BATCH; ++u) {
+      uint4 lo, hi;
+      lo.x = widen2(w[u].x, 0x4140);
+      lo.y = widen2(w[u].x, 0x4342);
+      lo.z = widen2(w[u].y, 0x4140);
+      lo.w = widen2(w[u].y, 0x4342);
+      hi.x = widen2(w[u].z, 0x4140);
+      hi.y = widen2(w[u].z, 0x4342);
+      hi.z = widen2(w[u].w, 0x4140);
+      hi.w = widen2(w[u].w, 0x4342);
+      unsigned char* drow = dst + (c[u] >> 2) * (128 * 128) + row[u] * 128;
+      const int bc = (c[u] & 3) * 2;  // its first bf16 chunk in the box
+      const int sw = row[u] & 7;
+      *reinterpret_cast<uint4*>(drow + ((bc ^ sw) << 4)) = lo;
+      *reinterpret_cast<uint4*>(drow + (((bc + 1) ^ sw) << 4)) = hi;
+    }
+  }
+}
+
+// The kv tiles of BKV columns that a q tile of rows at positions [q_first,
+// q_last] sees, each once: the sink tiles that lie before the band, then
+// the band [lo, hi] (_banded_gt). left / right -1: unbounded; right 0:
+// causal.
+template <int BKV>
+struct KvWalk {
+  int lo, hi, n_sink, n;
+  __device__ KvWalk(int q_first, int q_last, int s_kv, int left, int right,
+                    int sink) {
+    lo = 0;
+    hi = (s_kv + BKV - 1) / BKV - 1;
+    n_sink = 0;
+    if (right >= 0) {
+      const int last = q_last + right;
+      hi = last < 0 ? -1 : min(hi, last / BKV);
+    }
+    if (left >= 0) {
+      lo = max(q_first - left, 0) / BKV;
+      n_sink = min(min((sink + BKV - 1) / BKV, lo), hi + 1);
+    }
+    n = n_sink + max(hi - lo + 1, 0);
+  }
+  __device__ int tile(int jt) const {
+    return jt < n_sink ? jt : lo + (jt - n_sink);
+  }
+};
 
 template <bool B>
 struct Flag {  // a compile-time bool for a generic lambda's argument

@@ -22,9 +22,9 @@ import threading
 from pathlib import Path
 from typing import Dict, List, Optional, Sequence
 
-__all__ = ["Kernel", "KERNELS", "BUILD_DIR", "build_all", "launch_counts",
-           "library", "reset_launch_counts", "ptr", "stream_ptr",
-           "dims_array"]
+__all__ = ["Kernel", "KERNELS", "QUANT_PASSES", "BUILD_DIR", "build_all",
+           "launch_counts", "library", "reset_launch_counts", "ptr",
+           "stream_ptr", "dims_array"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -123,7 +123,8 @@ class Kernel:
 
     def __init__(self, name: str, source: str, symbol: str,
                  argtypes: List, replaces: str):
-        # replaces: file:line of the TPU kernel this one ports
+        # replaces: file:line of the TPU kernel this one ports (of the
+        # JAX function, for the QUANT_PASSES)
         self.name = name
         self.source = source
         self.symbol = symbol
@@ -167,14 +168,25 @@ KERNELS: Dict[str, Kernel] = {
     # the sage entries share one C signature: q8, qs, k8, ks, v8, vs, out,
     # lse, dims, stream
     "sage_fwd_tri": Kernel(
-        "sage_fwd_tri", "flash_fwd.cu", "lca_sage_fwd_tri", [_VP] * 10,
+        "sage_fwd_tri", "sage_fwd_sm90.cu", "lca_sage_fwd_tri", [_VP] * 10,
         "long_context_attention_tpu/ops/sage.py:186"),
     "sage_fwd_pos": Kernel(
-        "sage_fwd_pos", "flash_fwd.cu", "lca_sage_fwd_pos", [_VP] * 10,
+        "sage_fwd_pos", "sage_fwd_sm90.cu", "lca_sage_fwd_pos", [_VP] * 10,
         "long_context_attention_tpu/ops/sage.py:246"),
     "sage_fwd_rect": Kernel(
         "sage_fwd_rect", "flash_fwd.cu", "lca_sage_fwd_rect", [_VP] * 10,
         "long_context_attention_tpu/ops/sage.py:223"),
+    # sage's quantization pass, the port's counterpart of an XLA fusion (no
+    # Pallas kernel): ``replaces`` names the JAX quantizer it computes.
+    # k, v, k_mean, k8, ks, v8, vs, dims, stream
+    "sage_quant_kv": Kernel(
+        "sage_quant_kv", "sage_quant.cu", "lca_sage_quant_kv", [_VP] * 9,
+        "long_context_attention_tpu/ops/sage.py:92"),
+    # q, k_mean, q8, qs, shift, dims, qfold, scale, stream
+    "sage_quant_q": Kernel(
+        "sage_quant_q", "sage_quant.cu", "lca_sage_quant_q",
+        [_VP] * 6 + [_F, _F, _VP],
+        "long_context_attention_tpu/ops/sage.py:83"),
     # the backward entries share one C signature: q, k, v, dout, lse, delta,
     # dq, dk, dv (null where unused), dims, scale, stream
     "flash_bwd_dq": Kernel(
@@ -213,6 +225,10 @@ KERNELS: Dict[str, Kernel] = {
         [_VP] * 12 + [_F, _F, _I, _VP],
         "long_context_attention_tpu/ops/decode.py:296"),
 }
+
+
+# kernels that port no Pallas kernel but an XLA fusion of the JAX package
+QUANT_PASSES = ("sage_quant_kv", "sage_quant_q")
 
 
 def launch_counts() -> Dict[str, int]:

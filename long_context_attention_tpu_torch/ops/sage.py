@@ -1,20 +1,26 @@
-"""SageAttention-role int8-QK prefill attention on Hopper: the quantizers,
-the public API, and its three kernels.
+"""SageAttention-role int8-QK prefill attention on Hopper: the quantization
+pass, the public API, and its three kernels.
 
 Counterpart of ``long_context_attention_tpu/ops/sage.py``, with its names,
 BSHD layout, kwargs and ``(out, lse fp32)`` contract. Q is quantized per
 (b, h, token) and K per (b, h_kv, token) after K is mean-centred over the
 tokens (exact under softmax: it shifts each row's scores by a constant); V
-is quantized per token and not centred. The quantizers are plain torch, as
-the JAX package leaves them to XLA. Three kernel wrappers sit under the
-API, each with a plain PyTorch version of the same arithmetic:
+is quantized per token and not centred. The JAX package leaves that pass to
+one XLA fusion; here it is K's fp32 mean (one torch reduction) and two
+kernels of ``csrc/sage_quant.cu``, one sweep over the inputs:
+:func:`sage_quant_kv` (K and V) and :func:`sage_quant_q` (q, its scales
+with scale * log2 e folded in, and each row's lse shift), each with a plain
+version whose int8 values and scales are the kernel's bit for bit. Three
+attention kernel wrappers sit under the API, each with a plain PyTorch
+version of the same arithmetic:
 
-* :func:`sage_fwd_tri` (kernel B8a, ``csrc/flash_fwd.cu``): causal
+* :func:`sage_fwd_tri` (kernel B8a, ``csrc/sage_fwd_sm90.cu``): causal
   self-attention, the TPU's ``_sage_kernel_tri``;
-* :func:`sage_fwd_rect` (kernel B8c): no mask, the TPU's
-  ``_sage_kernel_rect``;
-* :func:`sage_fwd_pos` (kernel B8b): q rows at global positions ``q_start +
-  i``, causal, sliding window and sinks, the TPU's ``_sage_kernel_pos``.
+* :func:`sage_fwd_rect` (kernel B8c, ``csrc/flash_fwd.cu``): no mask, the
+  TPU's ``_sage_kernel_rect``;
+* :func:`sage_fwd_pos` (kernel B8b, ``csrc/sage_fwd_sm90.cu``): q rows at
+  global positions ``q_start + i``, causal, sliding window and sinks, the
+  TPU's ``_sage_kernel_pos``.
 
 All three compute s = (q8 . k8)_int32 * qs * ks in exp2 units (the softmax
 scale and log2 e folded into q's scales), p = exp2(min(s, 90)) with no
@@ -58,46 +64,138 @@ from long_context_attention_tpu_torch.ops.flash import (
 from long_context_attention_tpu_torch.utils.config import NEG_INF, not_ported
 
 __all__ = ["sage_attention", "sage_attention_fwd", "sage_attention_full",
-           "sage_attention_fwd_prequant", "sage_quantize_kv", "sage_fwd_tri",
-           "sage_fwd_tri_plain", "sage_fwd_rect", "sage_fwd_rect_plain",
-           "sage_fwd_pos", "sage_fwd_pos_plain", "SAGE_ATTENTION_OP"]
+           "sage_attention_fwd_prequant", "sage_quantize_kv", "sage_k_mean",
+           "sage_quant_kv", "sage_quant_kv_plain", "sage_quant_q",
+           "sage_quant_q_plain", "sage_fwd_tri", "sage_fwd_tri_plain",
+           "sage_fwd_rect", "sage_fwd_rect_plain", "sage_fwd_pos",
+           "sage_fwd_pos_plain", "SAGE_ATTENTION_OP"]
 
 
 # ---------------------------------------------------------------------------
-# Quantizers (plain torch, one pass each)
+# The quantization pass: K's mean, then one kernel for K and V and one for q
 # ---------------------------------------------------------------------------
 
 
 def _quant_per_token(x: torch.Tensor):
-    """(..., d) float -> int8 values and (...,) fp32 absmax/127 scales.
-    Divides by the scale (not a reciprocal multiply) and rounds half to
-    even, as the JAX quantizer does, so the int8 values match."""
+    """(..., d) float -> int8 values and (...,) fp32 absmax/127 scales, as
+    the JAX quantizer computes them: both divisions are IEEE divisions (on
+    the card too, where torch would multiply by the reciprocal of a Python
+    scalar divisor) and the rounding is half to even."""
     xf = x.float()
-    scale = xf.abs().amax(dim=-1) / 127.0
+    amax = xf.abs().amax(dim=-1)
+    scale = amax / amax.new_full((), 127.0)
     safe = scale.clamp_min(1e-30)[..., None]
     vals = torch.round(xf / safe).clamp_(-127.0, 127.0).to(torch.int8)
     return vals, scale
 
 
-def sage_quantize_kv(k_bhsd: torch.Tensor, v_bhsd: torch.Tensor):
-    """Quantize BHSD K/V for the sage kernels: K mean-centred over the
-    tokens per (b, h_kv, channel) in fp32 first. Returns (k8, ks, v8, vs,
-    k_mean): values int8 (b, h_kv, s, d), scales fp32 (b, h_kv, s), the
-    removed mean (b, h_kv, 1, d) fp32. Centring shifts q row i's scores by
-    -scale * (q_i . k_mean), which :func:`sage_attention` adds back to the
-    lse."""
-    kf = k_bhsd.float()
-    k_mean = kf.mean(dim=2, keepdim=True)
-    k8, ks = _quant_per_token(kf - k_mean)
-    v8, vs = _quant_per_token(v_bhsd)
-    return k8, ks, v8, vs, k_mean
+def sage_k_mean(k: torch.Tensor) -> torch.Tensor:
+    """K's fp32 mean over the tokens: k (b, s_kv, h_kv, d) -> (b, h_kv, d)
+    contiguous, one reduction that accumulates in fp32 (no fp32 copy of
+    k)."""
+    return k.mean(dim=1, dtype=torch.float32).contiguous()
 
 
-def _quant_q(q: torch.Tensor, scale: float):
-    """q (b, s, h, d) -> q8 (b, s, h, d) and its (b, h, s) scales with
-    scale * log2 e folded in: the kernels' scores land in exp2 units."""
+def sage_quant_kv_plain(k, v, k_mean):
+    """Plain version of the K/V quantization kernel: k, v (b, s_kv, h_kv, d)
+    float, k_mean (b, h_kv, d) fp32 -> k8, v8 int8 (b, s_kv, h_kv, d) and
+    ks, vs fp32 (b, h_kv, s_kv); K is centred by k_mean in fp32 first."""
+    k8, ks = _quant_per_token(k.float() - k_mean[:, None])
+    v8, vs = _quant_per_token(v)
+    return k8, ks.transpose(1, 2), v8, vs.transpose(1, 2)
+
+
+def sage_quant_q_plain(q, scale: float, k_mean=None):
+    """Plain version of the q quantization kernel: q (b, s, h, d) float ->
+    q8 int8 (b, s, h, d), qs fp32 (b, h, s) with scale * log2 e folded in
+    (the kernels' scores land in exp2 units), and, given K's mean (b, h_kv,
+    d), the lse shift scale * (q_row . k_mean) fp32 (b, h, s) that undoes
+    the K centring (else None)."""
     q8, qs = _quant_per_token(q)
-    return q8, (qs * (scale * _LOG2E)).transpose(1, 2)
+    qs = (qs * (scale * _LOG2E)).transpose(1, 2)
+    if k_mean is None:
+        return q8, qs, None
+    mean = k_mean.repeat_interleave(q.shape[2] // k_mean.shape[1], dim=1)
+    return q8, qs, scale * torch.einsum("bshd,bhd->bhs", q.float(), mean)
+
+
+def _check_quant_input(name, t, device) -> None:
+    if t.shape[-1] != _HEAD_DIM:
+        raise NotImplementedError(f"the sage quantization kernels are built "
+                                  f"for head_dim {_HEAD_DIM}, got "
+                                  f"{t.shape[-1]}")
+    _check_cuda_operand(name, t, torch.bfloat16, device)
+
+
+def _check_k_mean(k_mean, shape, device) -> None:
+    if (k_mean.shape != shape or k_mean.dtype != torch.float32
+            or k_mean.device != device or not k_mean.is_contiguous()):
+        raise ValueError(f"k_mean must be contiguous fp32 {shape} on "
+                         f"{device}")
+
+
+def sage_quant_kv(k, v, k_mean):
+    """K/V quantization kernel wrapper (``csrc/sage_quant.cu``, one launch):
+    operands and results as in :func:`sage_quant_kv_plain`, which CPU
+    tensors take; on the card k and v are bf16, the results contiguous."""
+    if k.device.type == "cpu":
+        return sage_quant_kv_plain(k, v, k_mean)
+    b, s, hk, d = k.shape
+    if v.shape != k.shape:
+        raise ValueError(f"shapes k {tuple(k.shape)}, v {tuple(v.shape)} do "
+                         f"not match")
+    for name, t in (("k", k), ("v", v)):
+        _check_quant_input(name, t, k.device)
+    _check_k_mean(k_mean, (b, hk, d), k.device)
+    k8, v8 = (torch.empty((b, s, hk, d), dtype=torch.int8, device=k.device)
+              for _ in range(2))
+    ks, vs = (torch.empty((b, hk, s), dtype=torch.float32, device=k.device)
+              for _ in range(2))
+    dims = _build.dims_array([b, s, hk, *k.stride()[:3], *v.stride()[:3]])
+    _build.KERNELS["sage_quant_kv"](
+        _build.ptr(k), _build.ptr(v), _build.ptr(k_mean), _build.ptr(k8),
+        _build.ptr(ks), _build.ptr(v8), _build.ptr(vs), dims,
+        _build.stream_ptr(k.device))
+    return k8, ks, v8, vs
+
+
+def sage_quant_q(q, scale: float, k_mean=None):
+    """q quantization kernel wrapper (``csrc/sage_quant.cu``, one launch):
+    operands and results as in :func:`sage_quant_q_plain`, which CPU
+    tensors take; on the card q is bf16, the results contiguous."""
+    if q.device.type == "cpu":
+        return sage_quant_q_plain(q, scale, k_mean)
+    b, s, h, d = q.shape
+    _check_quant_input("q", q, q.device)
+    hk = h
+    if k_mean is not None:
+        hk = k_mean.shape[1]
+        if h % hk:
+            raise ValueError(f"GQA requires h ({h}) % h_kv ({hk}) == 0")
+        _check_k_mean(k_mean, (b, hk, d), q.device)
+    q8 = torch.empty((b, s, h, d), dtype=torch.int8, device=q.device)
+    qs = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    shift = None if k_mean is None else torch.empty_like(qs)
+    dims = _build.dims_array([b, s, h, hk, *q.stride()[:3]])
+    _build.KERNELS["sage_quant_q"](
+        _build.ptr(q), _build.ptr(k_mean), _build.ptr(q8), _build.ptr(qs),
+        _build.ptr(shift), dims, scale * _LOG2E, scale,
+        _build.stream_ptr(q.device))
+    return q8, qs, shift
+
+
+def sage_quantize_kv(k_bhsd: torch.Tensor, v_bhsd: torch.Tensor):
+    """Quantize BHSD K/V for the sage kernels (the JAX package's function):
+    K mean-centred over the tokens per (b, h_kv, channel) in fp32 first.
+    Returns (k8, ks, v8, vs, k_mean): values int8 (b, h_kv, s, d), scales
+    fp32 (b, h_kv, s), the removed mean (b, h_kv, 1, d) fp32. Centring
+    shifts q row i's scores by -scale * (q_i . k_mean), which
+    :func:`sage_attention` adds back to the lse. On the card, one
+    :func:`sage_quant_kv` launch (values are BSHD-contiguous views)."""
+    k, v = k_bhsd.transpose(1, 2), v_bhsd.transpose(1, 2)
+    k_mean = sage_k_mean(k)
+    k8, ks, v8, vs = sage_quant_kv(k, v, k_mean)
+    return k8.transpose(1, 2), ks, v8.transpose(1, 2), vs, k_mean[:, :, None]
 
 
 # ---------------------------------------------------------------------------
@@ -258,12 +356,12 @@ def _sage_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, route: int,
              q_start: int, causal: bool, window_left: int, window_right: int,
              sink_tokens: int, scale: float
              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(out, lse) of BSHD q, k, v: the quantizers, kernel B8a, B8c or B8b
-    (``route``), and the K-centring correction of the lse."""
-    q8, qs = _quant_q(q, scale)
-    k8, ks, v8, vs, k_mean = sage_quantize_kv(k.transpose(1, 2),
-                                              v.transpose(1, 2))
-    args = (q8, qs, k8.transpose(1, 2), ks, v8.transpose(1, 2), vs)
+    """(out, lse) of BSHD q, k, v: the quantization pass, kernel B8a, B8c
+    or B8b (``route``), and the K-centring correction of the lse."""
+    k_mean = sage_k_mean(k)
+    k8, ks, v8, vs = sage_quant_kv(k, v, k_mean)
+    q8, qs, shift = sage_quant_q(q, scale, k_mean)
+    args = (q8, qs, k8, ks, v8, vs)
     if route == _TRI:
         out, lse = sage_fwd_tri(*args, out_dtype=q.dtype)
     elif route == _RECT:
@@ -272,10 +370,7 @@ def _sage_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, route: int,
         out, lse = sage_fwd_pos(*args, q_start=q_start, causal=causal,
                                 window_size=(window_left, window_right),
                                 sink_tokens=sink_tokens, out_dtype=q.dtype)
-    g = q.shape[2] // k.shape[2]
-    mean = k_mean[:, :, 0].repeat_interleave(g, dim=1)  # (b, h, d)
-    lse = lse + scale * torch.einsum("bshd,bhd->bhs", q.float(), mean)
-    return out, lse
+    return out, lse + shift
 
 
 def _sage_op_setup(ctx, inputs, output) -> None:
@@ -425,8 +520,9 @@ def sage_attention_fwd_prequant(q, k8, v8, k_scale, v_scale, *,
     """Sage forward (kernel B8b) over K/V already quantized by
     ``ops.kv_cache.quantize_kv``: k8, v8 (b, s_kv, h_kv, d) int8 with
     (b, h_kv, s_kv) fp32 scales, not centred, so the lse needs no shift.
-    q (b, s_q, h, d) is quantized here. Forward-only. Returns (out (b, s_q,
-    h, d), lse (b, h, s_q) fp32)."""
+    q (b, s_q, h, d) is quantized here (:func:`sage_quant_q` without K's
+    mean). Forward-only. Returns (out (b, s_q, h, d), lse (b, h, s_q)
+    fp32)."""
     del block_sizes, interpret
     _check_pv_int8(pv_int8)
     _check_strides(q_stride, kv_stride)
@@ -436,7 +532,7 @@ def sage_attention_fwd_prequant(q, k8, v8, k_scale, v_scale, *,
     _forward_only(_QUANT_FORWARD_ONLY, q)
     _, q_start = _route(q.shape[1], k8.shape[1], causal, window_size,
                         q_offsets, kv_offsets)
-    q8, qs = _quant_q(q, _scale(q, softmax_scale))
+    q8, qs, _ = sage_quant_q(q, _scale(q, softmax_scale))
     return sage_fwd_pos(q8, qs, k8, k_scale.float(), v8, v_scale.float(),
                         q_start=q_start, causal=causal,
                         window_size=window_size, sink_tokens=sink_tokens,

@@ -1,9 +1,11 @@
 """The port's kernel registry and the operand checks of its wrappers, on the
 CPU: every kernel binds a source under ``csrc/`` and names the Pallas kernel
-it replaces; B2b and B5 live in the wgmma/TMA source ``flash_bwd_sm90.cu``;
-a library is rebuilt when a shared header changes; and the strides a kernel
-cannot read (TMA's tensor maps, cp.async's 16-byte rows) raise, while the
-BSHD views the model and the cache hand the kernels pass."""
+it replaces (sage's quantization pass, the JAX function it computes); B2b
+and B5 live in the wgmma/TMA source ``flash_bwd_sm90.cu``, B8a and B8b in
+``sage_fwd_sm90.cu``; a library is rebuilt when a shared header changes;
+and the strides a kernel cannot read (TMA's tensor maps, cp.async's 16-byte
+rows) raise, while the BSHD views the model and the cache hand the kernels
+pass."""
 
 import pathlib
 
@@ -19,15 +21,34 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 B, S, H, HKV, D = 1, 1000, 16, 8, 128
 
 
-@pytest.mark.parametrize("name", sorted(_build.KERNELS))
+def _replaced_line(k):
+    path, line = k.replaces.rsplit(":", 1)
+    return (ROOT / path).read_text().splitlines()[int(line) - 1]
+
+
+@pytest.mark.parametrize("name", sorted(set(_build.KERNELS)
+                                        - set(_build.QUANT_PASSES)))
 def test_kernel_source_and_replaced_site(name):
     """The source exists under csrc/, and ``replaces`` names the line of
     the JAX package where the replaced Pallas kernel is defined."""
     k = _build.KERNELS[name]
     assert (_build.CSRC / k.source).is_file()
-    path, line = k.replaces.rsplit(":", 1)
-    text = (ROOT / path).read_text().splitlines()[int(line) - 1]
+    text = _replaced_line(k)
     assert text.startswith("def _") and "kernel" in text
+
+
+@pytest.mark.parametrize("name,function", [
+    ("sage_quant_kv", "sage_quantize_kv"),
+    ("sage_quant_q", "_quant_per_token"),
+])
+def test_quant_pass_source_and_replaced_function(name, function):
+    """Sage's quantization kernels port an XLA fusion, no Pallas kernel:
+    they live in ``sage_quant.cu`` and ``replaces`` names the line where
+    the JAX quantizer they compute is defined."""
+    k = _build.KERNELS[name]
+    assert name in _build.QUANT_PASSES and k.source == "sage_quant.cu"
+    assert (_build.CSRC / k.source).is_file()
+    assert _replaced_line(k).startswith(f"def {function}(")
 
 
 @pytest.mark.parametrize("name,source,site", [
@@ -46,6 +67,34 @@ def test_backward_kernel_sources(name, source, site):
     assert defined == [source]
 
 
+@pytest.mark.parametrize("name,source,site", [
+    ("sage_fwd_tri", "sage_fwd_sm90.cu", "sage.py:186"),
+    ("sage_fwd_pos", "sage_fwd_sm90.cu", "sage.py:246"),
+    ("sage_fwd_rect", "flash_fwd.cu", "sage.py:223"),
+])
+def test_sage_kernel_sources(name, source, site):
+    """B8a and B8b run from the Hopper source (wgmma, TMA); B8c stays on
+    the mma.sync template of flash_fwd.cu. Each C entry point is defined in
+    its source only."""
+    k = _build.KERNELS[name]
+    assert k.source == source
+    assert k.replaces == f"long_context_attention_tpu/ops/{site}"
+    defined = [p.name for p in sorted(_build.CSRC.glob("*.cu"))
+               if f'extern "C" int {k.symbol}(' in p.read_text()]
+    assert defined == [source]
+
+
+def test_sage_sm90_source_uses_the_s8_wgmma():
+    """B8a and B8b's QK^T runs on wgmma's int8 path (both operands K-major
+    from shared memory), built for sm_90a, on the shared Hopper header."""
+    assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+    src = (_build.CSRC / "sage_fwd_sm90.cu").read_text()
+    for needle in ("wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8",
+                   '#include "sm90.cuh"', "setmaxnreg_inc", "tma_load_4d",
+                   "cp_async_mbar_arrive"):
+        assert needle in src
+
+
 def test_sm90_sources_build_for_sm90a():
     """wgmma and setmaxnreg exist only for sm_90a."""
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
@@ -62,7 +111,8 @@ def test_build_key_covers_shared_headers(tmp_path, monkeypatch):
         (tmp_path / p.name).write_bytes(p.read_bytes())
     monkeypatch.setattr(_build, "CSRC", tmp_path)
     before = {s: _build._lib_path(s) for s in ("flash_bwd_sm90.cu",
-                                               "flash_fwd_sm90.cu")}
+                                               "flash_fwd_sm90.cu",
+                                               "sage_fwd_sm90.cu")}
     header = tmp_path / "sm90.cuh"
     header.write_text(header.read_text() + "\n// edited\n")
     after = {s: _build._lib_path(s) for s in before}

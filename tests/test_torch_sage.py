@@ -140,6 +140,63 @@ def test_quantizers_match_jax(rng, dtype):
     assert diff.max() <= 1 and diff.mean() < FLIP_SHARE
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_quant_pass_plain_matches_jax(rng, dtype):
+    """The plain versions of the quantization kernels, which the card holds
+    the kernels to bit for bit, equal the JAX quantizers exactly given the
+    same K mean: K (centred), V and q int8 values and scales, q's scales
+    with scale * log2 e folded in; the lse shift within 1e-5 of JAX's
+    scale * einsum (fp32 sums in another order)."""
+    (jq, tq), (jk, tk), (jv, tv) = _qkv(rng, dtype)
+    scale = 0.3
+    jk8, jks, jv8, jvs, jmean = jsage.sage_quantize_kv(
+        jnp.swapaxes(jk, 1, 2), jnp.swapaxes(jv, 1, 2))
+    mean = torch.from_numpy(np.asarray(jmean)[:, :, 0])  # (b, h_kv, d)
+    tk8, tks, tv8, tvs = tsage.sage_quant_kv_plain(tk, tv, mean)
+    assert tk8.shape == (B, S, HKV, D) and tks.shape == (B, HKV, S)
+    for got, want in ((tk8.transpose(1, 2), jk8), (tks, jks),
+                      (tv8.transpose(1, 2), jv8), (tvs, jvs)):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    jqb = jnp.swapaxes(jq, 1, 2)
+    jq8, jqs = jsage._quant_per_token(jqb)
+    tq8, tqs, shift = tsage.sage_quant_q_plain(tq, scale, mean)
+    np.testing.assert_array_equal(tq8.transpose(1, 2).numpy(),
+                                  np.asarray(jq8))
+    np.testing.assert_array_equal(
+        tqs.numpy(), np.asarray(jqs * (scale * jsage._LOG2E)))
+    jshift = scale * jnp.einsum(
+        "bhsd,bhd->bhs", jqb.astype(jnp.float32),
+        jnp.repeat(jmean[:, :, 0], H // HKV, axis=1))
+    _close(shift, jshift, dict(atol=1e-5, rtol=0))
+    q8, qs, none = tsage.sage_quant_q_plain(tq, scale)
+    assert none is None and torch.equal(q8, tq8) and torch.equal(qs, tqs)
+    _close(tsage.sage_k_mean(tk), mean, dict(atol=1e-6, rtol=1e-6))
+
+
+@pytest.mark.parametrize("entry", ["sage_attention", "prequant"])
+def test_quant_pass_per_call(rng, monkeypatch, entry):
+    """Each sage call quantizes through the pass: sage_attention runs one
+    K/V and one q quantization (with K's mean, for the lse shift); the
+    pre-quantized entry only the q one, without a mean."""
+    calls = []
+    for name in ("sage_quant_kv", "sage_quant_q"):
+        real = getattr(tsage, name)
+        monkeypatch.setattr(tsage, name, (lambda real, name: (
+            lambda *a, **k: calls.append(
+                (name, (a[2:] + (k.get("k_mean"),))[0] is not None))
+            or real(*a, **k)))(real, name))
+    (_, tq), (_, tk), (_, tv) = _qkv(rng, "float32")
+    if entry == "sage_attention":
+        tsage.sage_attention(tq, tk, tv, causal=True)
+        assert calls == [("sage_quant_kv", True), ("sage_quant_q", True)]
+    else:
+        k8, ks = tkv.quantize_kv(tk, "int8")
+        v8, vs = tkv.quantize_kv(tv, "int8")
+        tsage.sage_attention_fwd_prequant(tq, k8, v8, ks.transpose(1, 2),
+                                          vs.transpose(1, 2), causal=True)
+        assert calls == [("sage_quant_q", False)]
+
+
 # ---------------------------------------------------------------------------
 # sage_attention: the plain versions of B8a, B8c, B8b against JAX
 # ---------------------------------------------------------------------------
