@@ -15,8 +15,9 @@ Phases, one JSON line each; any failure exits non-zero:
      kv tile outside a kernel's walk, at that kernel's tile width, poisoned
      with NaN must leave its output finite and bit-equal; B1 and B3 also
      where lengths, q_start and the window and sink edges cut their
-     128-wide tiles, B1 at the trainer's b=1, s=8192 and B3 over a bf16 kv
-     at the offsets call's shape, each timed; the backward kernels B2a, B2b
+     128-wide tiles, B1 at the trainer's b=1, s=8192, B3 over a bf16 kv
+     at the offsets call's shape and B4 at the windowed one-shot prefill's
+     b=4, s=8192, each timed; the backward kernels B2a, B2b
      and B5 at the trainer's per-layer attention shape, causal, with
      offsets that leave rows dead, and ragged (B2b and B5 also timed at
      s=32768); sage's quantization kernels bit for bit against their plain
@@ -28,8 +29,9 @@ Phases, one JSON line each; any failure exits non-zero:
      split into its quantization and its kernel; the
      block-sparse kernels B9a, B9b and B9c at b=1, s=32768 in tiles of 512
      on the StreamingLLM, strided and per-head masks, a mask whose last
-     quarter of rows has no live tile, and a non-causal 8192 x 32768 random
-     mask), each
+     quarter of rows has no live tile, one with an empty kv column, and a
+     non-causal 8192 x 32768 random mask, and at s=6144 in tiles of 192),
+     each
      output row held against its own size (ROW_REL_TOL), with its time,
      the plain version's, a PyTorch library call's (timed here only) and
      the least time the card could take;
@@ -109,7 +111,7 @@ WINDOW, SINKS, SOFTCAP = 4096, 4, 50.0
 WINDOWED = dict(window_left=WINDOW, sink_tokens=SINKS)
 # The kv-tile width of each kernel's walk, which its band check poisons: a
 # NaN inside a visited tile is not masked out of the PV product.
-B4_KV_TILE = 64    # csrc/flash_fwd.cu BKV (B4; the sage kernel B8c)
+B4_KV_TILE = 128   # csrc/flash_fwd_sm90.cu BKV (B4)
 B3_KV_TILE = 128   # csrc/flash_fwd_sm90.cu BKV (B1, B3)
 B8_KV_TILE = 128   # csrc/sage_fwd_sm90.cu BKV (B8a, B8b)
 
@@ -389,8 +391,12 @@ def kernel_b1(K, flash, gen, dev):
 def kernel_b4(K, flash, gen, dev):
     """B4 against its plain version: the windowed path's chunk
     self-attention (b=4, s=2048, window 4096, 4 sinks) in the fast, online
-    and softcap forms, the non-causal cases, the one-shot prefill's shape
-    (b=1, s=8192) and its band check; times at the chunk's shape."""
+    and softcap forms, the non-causal cases, and the windowed one-shot
+    prefill's shape (b=4, s=8192; the plain version one batch row at a
+    time) with its band check at B4's 128-wide kv tiles; times, bound and
+    SDPA's bool-mask call at both shapes."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
     h, hk, d = MODEL["n_heads"], MODEL["n_kv_heads"], 128
     scale = d ** -0.5
     win = dict(causal=True, window_size=(WINDOW, -1), sink_tokens=SINKS)
@@ -400,13 +406,30 @@ def kernel_b4(K, flash, gen, dev):
         return [torch.randn(shape, generator=gen, device=dev).bfloat16()
                 for shape in ((b, s, h, d), (b, s, hk, d), (b, s, hk, d))]
 
+    def plain(q, k, v, **kw):  # one batch row at a time
+        parts = [flash.flash_fwd_static_plain(q[i:i + 1], k[i:i + 1],
+                                              v[i:i + 1], scale=scale, **kw)
+                 for i in range(q.shape[0])]
+        return tuple(torch.cat([p[j] for p in parts]) for j in range(2))
+
     def case(tag, q, k, v, **kw):
         o, l = flash.flash_fwd_static(q, k, v, scale=scale, **kw)
-        po, pl_ = flash.flash_fwd_static_plain(q, k, v, scale=scale, **kw)
+        po, pl_ = plain(q, k, v, **kw)
         torch.cuda.synchronize()
         checks.append(check_out(f"B4 out {tag}", o, po))
         check(f"B4 lse {tag}", max_err(l, pl_), LSE_TOL)
         return o
+
+    def times(q, k, v, sdpa):
+        b, s = q.shape[:2]
+        ms = time_ms(lambda: flash.flash_fwd_static(q, k, v, scale=scale,
+                                                    **win))
+        plain_ms = time_ms(lambda: plain(q, k, v, **win), iters=1, warmup=0)
+        mask = visible(s, s, 0, True, left=WINDOW, sink=SINKS, dev=dev)
+        lib_ms = time_ms(lambda: sdpa(mask))
+        flops = 4 * b * h * d * int(mask.sum())
+        nbytes = 2 * (2 * q.numel() + k.numel() + v.numel()) + 4 * b * h * s
+        return ms, plain_ms, flops, nbytes, lib_ms
 
     q, k, v = qkv(BATCH, CHUNK)
     for tag, kw in (
@@ -418,10 +441,21 @@ def kernel_b4(K, flash, gen, dev):
             ("non-causal window (512, 256) sinks",
              dict(causal=False, window_size=(512, 256), sink_tokens=SINKS))):
         case(f"{tag} b={BATCH} s={CHUNK}", q, k, v, **kw)
-    # the one-shot prefill's shape; its last 2048 rows never see kv tiles
-    # 1..31, which the band check poisons
-    q1, k1, v1 = qkv(1, PROMPT)
-    out = case(f"window sinks b=1 s={PROMPT}", q1, k1, v1, **win)
+    qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+    res = {**row(K["flash_fwd_static"], checks, *times(
+               q, k, v, lambda m: F.scaled_dot_product_attention(
+                   qh, kh, vh, attn_mask=m, enable_gqa=True))),
+           "case": f"b={BATCH} s={CHUNK}, window {WINDOW}, {SINKS} sinks "
+                   f"(a chunk of the windowed chunked prefill)",
+           "library": "SDPA with the bool band mask"}
+    del q, k, v, qh, kh, vh
+    torch.cuda.empty_cache()
+
+    # the windowed one-shot prefill's shape; its last 2048 rows never see kv
+    # tiles 1..15, which the band check poisons
+    checks = []
+    q1, k1, v1 = qkv(BATCH, PROMPT)
+    out = case(f"window sinks b={BATCH} s={PROMPT}", q1, k1, v1, **win)
     rows = slice(PROMPT - CHUNK, PROMPT)
     vis = visible(PROMPT, PROMPT, 0, True, left=WINDOW, sink=SINKS, dev=dev)
     tiles = unseen_tiles(vis[rows], B4_KV_TILE)
@@ -429,20 +463,24 @@ def kernel_b4(K, flash, gen, dev):
     got, _ = flash.flash_fwd_static(q1, kp, vp, scale=scale, **win)
     torch.cuda.synchronize()
     band_check("B4", got[:, rows], out[:, rows], len(tiles))
-    del q1, k1, v1, kp, vp, got, out, vis
+    del kp, vp, got, out, vis
     torch.cuda.empty_cache()
+    qh = q1.transpose(1, 2)
+    kr, vr = (t.transpose(1, 2).repeat_interleave(h // hk, 1)
+              for t in (k1, v1))
 
-    ms = time_ms(lambda: flash.flash_fwd_static(q, k, v, scale=scale, **win))
-    plain_ms = time_ms(lambda: flash.flash_fwd_static_plain(
-        q, k, v, scale=scale, **win), iters=3, warmup=1)
-    mask = visible(CHUNK, CHUNK, 0, True, left=WINDOW, sink=SINKS, dev=dev)
-    qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
-    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
-        qh, kh, vh, attn_mask=mask, enable_gqa=True))
-    flops = 4 * BATCH * h * d * int(mask.sum())
-    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel()) + 4 * BATCH * h * CHUNK
-    return row(K["flash_fwd_static"], checks, ms, plain_ms,
-               flops, nbytes, lib_ms)
+    def sdpa(mask):
+        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+            return F.scaled_dot_product_attention(qh, kr, vr, attn_mask=mask)
+
+    res["one_shot"] = {"case": f"b={BATCH} s={PROMPT}, window {WINDOW}, "
+                               f"{SINKS} sinks (Engine.prefill, windowed)",
+                       **case_row(checks, *times(q1, k1, v1, sdpa)),
+                       "library": "SDPA memory-efficient with the bool band "
+                                  "mask, K/V repeated to the query heads"}
+    del q1, k1, v1, qh, kr, vr
+    torch.cuda.empty_cache()
+    return res
 
 
 def kernel_b3(K, flash, gen, dev):
@@ -1179,13 +1217,14 @@ def sparse_masks(sparse):
                 n, n, 4 + 2 * (i % 5), sink_tiles=1) for i in range(h)])}
 
 
-def sparse_plan(sparse, mask, s_q, s_kv, causal):
-    """The live-tile plan block_sparse_attention builds for this call."""
+def sparse_plan(sparse, mask, s_q, s_kv, causal, block=None):
+    """The live-tile plan block_sparse_attention builds for this call (in
+    tiles of SPARSE_BLOCK unless `block` says otherwise)."""
     h, hk = MODEL["n_heads"], MODEL["n_kv_heads"]
+    block = block or SPARSE_BLOCK
     m = np.ascontiguousarray(mask)
-    return sparse._plan(m.tobytes(), m.shape, h, s_q // SPARSE_BLOCK,
-                        s_kv // SPARSE_BLOCK, causal, SPARSE_BLOCK,
-                        SPARSE_BLOCK, h // hk, 0, 1)
+    return sparse._plan(m.tobytes(), m.shape, h, s_q // block, s_kv // block,
+                        causal, block, block, h // hk, 0, 1)
 
 
 def sparse_pairs(plan, h):
@@ -1240,8 +1279,11 @@ def kernel_b9(K, sparse, gen, dev):
     """B9a, B9b and B9c against their plain versions at the usp_sparse
     path's shape (b=1, s=32768, 16/8 heads, d=128, tiles of 512): the three
     causal masks, a mask whose last quarter of q rows has no live tile (out
-    0, lse -inf, dq 0 there), and a non-causal rectangular call (8192 rows
-    over the 32768 columns, random tiles at density 0.25). Times, the
+    0, lse -inf, dq 0 there), a mask with an empty kv column (dk, dv 0
+    there), a non-causal rectangular call (8192 rows over the 32768
+    columns, random tiles at density 0.25), and the StreamingLLM mask in
+    tiles of 192 (an odd multiple of the kernels' 64: B9c's last 128-row
+    item of each kv tile is half the next tile's) at s=6144. Times, the
     bound and SDPA's masked call at the StreamingLLM mask."""
     h, hk, d = MODEL["n_heads"], MODEL["n_kv_heads"], 128
     s, n, scale = SPARSE_SEQ, SPARSE_TILES, d ** -0.5
@@ -1253,24 +1295,35 @@ def kernel_b9(K, sparse, gen, dev):
     uncovered = masks["streaming"].copy()
     uncovered[3 * n // 4:] = False
     dead_rows = slice(3 * s // 4, s)
+    empty_col = masks["streaming"].copy()
+    empty_col[:, n // 2] = False  # kv tile n/2: no live tile, dk = dv = 0
+    dead_cols = slice(s // 2, s // 2 + SPARSE_BLOCK)
     rect = s // 4
-    cases = [(f"{name} causal", m, True, s) for name, m in masks.items()]
-    cases += [("uncovered rows causal", uncovered, True, s),
+    s192, n192 = 6144, 6144 // 192
+    cases = [(f"{name} causal", m, True, s, s, SPARSE_BLOCK)
+             for name, m in masks.items()]
+    cases += [("uncovered rows causal", uncovered, True, s, s, SPARSE_BLOCK),
+              ("empty kv column causal", empty_col, True, s, s,
+               SPARSE_BLOCK),
               (f"s_q={rect} non-causal random 0.25",
                sparse.random_block_mask(rect // SPARSE_BLOCK, n, 0.25), False,
-               rect)]
+               rect, s, SPARSE_BLOCK),
+              (f"streaming causal tiles 192 s={s192}",
+               sparse.global_local_block_mask(n192, n192, 8, sink_tiles=1),
+               True, s192, s192, 192)]
     checks = {"B9a": [], "B9b": [], "B9c": []}
-    for tag, mask, causal, s_q in cases:
+    for tag, mask, causal, s_q, s_kv, blk in cases:
         qq, do = q[:, -s_q:].contiguous(), dout[:, -s_q:].contiguous()
-        plan = sparse_plan(sparse, mask, s_q, s, causal)
-        o, l = sparse.sparse_fwd(qq, k, v, plan, scale=scale)
-        po, pl_ = sparse.sparse_fwd_plain(qq, k, v, plan, scale=scale)
+        kk, vv = k[:, :s_kv], v[:, :s_kv]
+        plan = sparse_plan(sparse, mask, s_q, s_kv, causal, blk)
+        o, l = sparse.sparse_fwd(qq, kk, vv, plan, scale=scale)
+        po, pl_ = sparse.sparse_fwd_plain(qq, kk, vv, plan, scale=scale)
         torch.cuda.synchronize()
         checks["B9a"].append(check_out(f"B9a out {tag}", o, po))
         check(f"B9a lse {tag}", max_err(l, pl_), LSE_TOL)
         ops = sparse.sparse_bwd_operands(o, l, do, qq.dtype)
-        dq = sparse.sparse_bwd_dq(qq, k, v, *ops, plan, scale=scale)
-        pdq = sparse.sparse_bwd_dq_plain(qq, k, v, *ops, plan, scale=scale)
+        dq = sparse.sparse_bwd_dq(qq, kk, vv, *ops, plan, scale=scale)
+        pdq = sparse.sparse_bwd_dq_plain(qq, kk, vv, *ops, plan, scale=scale)
         torch.cuda.synchronize()
         if tag.startswith("uncovered"):
             if (o[:, dead_rows].any() or dq[:, dead_rows].any()
@@ -1281,10 +1334,13 @@ def kernel_b9(K, sparse, gen, dev):
         checks["B9b"].append(check_out(f"B9b dq {tag}", dq, pdq,
                                        0 if causal else None))
         del dq, pdq, po, pl_
-        dk, dv = sparse.sparse_bwd_dkv(qq, k, v, *ops, plan, scale=scale)
-        pdk, pdv = sparse.sparse_bwd_dkv_plain(qq, k, v, *ops, plan,
+        dk, dv = sparse.sparse_bwd_dkv(qq, kk, vv, *ops, plan, scale=scale)
+        pdk, pdv = sparse.sparse_bwd_dkv_plain(qq, kk, vv, *ops, plan,
                                                scale=scale)
         torch.cuda.synchronize()
+        if tag.startswith("empty kv column") and (
+                dk[:, dead_cols].any() or dv[:, dead_cols].any()):
+            raise AssertionError("B9c: the empty kv column's dk, dv are not 0")
         checks["B9c"].append(check_out(f"B9c dk {tag}", dk, pdk))
         checks["B9c"].append(check_out(f"B9c dv {tag}", dv, pdv))
         emit({"phase": "check", "case": f"B9 {tag}",
@@ -1711,7 +1767,8 @@ def sage_serve_phase(pkg, build, dev, card):
     from the sage prefill's int8 cache (B6, B7: decode ignores attn_impl,
     as in JAX) with teacher forcing against a sage prefill of prompt + the
     first token (B8a at s=8193), and a generate at b=2 over 1024 tokens.
-    Returns the launch counts of the dense and the windowed sage prefill."""
+    Returns the launch counts of the dense and the windowed sage prefill
+    (by kernel name) and of the windowed pallas one ("pallas window")."""
     from long_context_attention_tpu_torch.models.llama import (
         decode_step, init_params)
     from long_context_attention_tpu_torch.serving.engine import Engine
@@ -1750,6 +1807,8 @@ def sage_serve_phase(pkg, build, dev, card):
             if impl == "sage":
                 path[own["sage"]] = counts
                 sage_cache = cache
+            elif windowed:
+                path["pallas window"] = counts
             del cache
         for impl, lg in logits.items():
             if not torch.isfinite(lg).all():
@@ -1998,7 +2057,7 @@ def main():
     # the sm90 kernels' dynamic shared memory (ptxas sees only static
     # memory)
     bwd_smem = {n: build.library("flash_bwd_sm90.cu").lca_flash_bwd_smem(f)
-                for n, f in (("B2b", 0), ("B5", 1))}
+                for n, f in (("B2b, B9c", 0), ("B5", 1))}
     sage_smem = build.library("sage_fwd_sm90.cu").lca_sage_fwd_smem()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "sources": sorted(logs),
@@ -2080,6 +2139,8 @@ def main():
         r["launches"] = path.get(r["name"], counts)[r["name"]]
         if "windowed" in r:
             r["windowed"]["launches"] = wcounts[r["name"]]
+        if "one_shot" in r:  # B4 in the windowed one-shot pallas prefill
+            r["one_shot"]["launches"] = sage_counts["pallas window"][r["name"]]
         if "train" in r:  # B1 in the 3 timed `none` training steps
             r["train"]["launches"] = train_counts[r["name"]]
         if "bf16" in r:  # B3 in the offsets call

@@ -14,9 +14,18 @@
 //                          of the TPU's aliased-HBM dq read-modify-write,
 //                          which relies on a sequential grid that Hopper
 //                          does not have.
-// (B2a, lca_flash_bwd_dq, is in flash_bwd.cu.)
+// and the TPU kernel of long_context_attention_tpu/ops/sparse.py:
+//   lca_sparse_bwd_dkv  <- _sparse_dkv_kernel (B9c): dk and dv of a
+//                          block-sparse mask's kv tiles over each column's
+//                          live (GQA group head, q tile) entries.
+// (B2a, lca_flash_bwd_dq, is in flash_bwd.cu; B9a and B9b in sparse.cu.)
 //
-// Both take bf16 q, dout (b, s_q, h, d) and k, v (b, s_kv, h_kv, d), read by
+// B9c is B2b's pipeline with another walk, chosen by the kernel's template
+// parameter SPARSE: the producer, the consumers' products, softmax and
+// write-out are one body, and only the item, the steps and the mask's
+// positions come from the walk.
+//
+// All take bf16 q, dout (b, s_q, h, d) and k, v (b, s_kv, h_kv, d), read by
 // TMA through their strides (16-byte aligned, unit stride along d); fp32 lse
 // and delta = rowsum(dout * out), (b, h, s_q) contiguous; and write fp32
 // partials. q row i sits at position q_start + i and kv column j at j; with
@@ -32,14 +41,16 @@
 //
 // Design (FlashAttention-3's backward). One persistent block per SM walks
 // (kv tile, kv head, batch) items, longest causal walk first, dealt to the
-// blocks in a snake order. An item's kv tile is BKV = 128 rows; it walks
-// its group's query heads and, for each, the q tiles of BQ = 64 rows from
-// the causal diagonal on (the TPU's _q_band_static). A block has one
-// producer warpgroup and two consumer warpgroups:
-//   * producer warp 0 (setmaxnreg down to 24 or 32 registers) loads K and V
-//     once per item, and per step Q and dout by TMA into a ring of stages, with
-//     lse (in exp2 units; +inf for a dead row or a row past s_q, so its p is
-//     exp2(-inf) = 0) and delta beside them, loaded by its 32 lanes;
+// blocks in a snake order (B9c: its own items and schedule, below). An
+// item's kv tile is BKV = 128 rows; it walks its group's query heads and,
+// for each, the q tiles of BQ = 64 rows from the causal diagonal on (the
+// TPU's _q_band_static). A block has one producer warpgroup and two
+// consumer warpgroups:
+//   * producer warp 0 (setmaxnreg down to 24, 32 or 40 registers) loads K
+//     and V once per item, and per step Q and dout by TMA into a ring of
+//     stages, with lse (in exp2 units; +inf for a dead row or a row past
+//     s_q, so its p is exp2(-inf) = 0) and delta beside them, loaded by its
+//     32 lanes;
 //   * B5: producer warp 1 adds each step's dq tile to the output by TMA
 //     reduce-adds from shared memory (four 32-column fp32 boxes), off the
 //     consumers' path, and frees the tile once TMA has read it;
@@ -57,16 +68,36 @@
 //     in the reduce-add's swizzled layout.
 //
 // Shared memory (bytes; the 227 KB a block may use): K 32768 + V 32768 +
-// stages x (Q 16384 + dout 16384) + stages x 512 (lse, delta), and for B5
-// 2 dS^T tiles (16384 each) + the dq tile 32768; 3 stages for B5 (230912),
-// 4 for B2b (198656), + 256 of barriers and 1024 of alignment slack.
+// stages x (Q 16384 + dout 16384) + stages x 520 (lse, delta, B9c's step
+// positions), and for B5 2 dS^T tiles (16384 each) + the dq tile 32768; 3
+// stages for B5 (230936), 4 for B2b and B9c (198688), + 256 of barriers and
+// 1024 of alignment slack.
+//
+// B9c's walk. The host lists the items once per mask plan, longest walk
+// first (ops/sparse.py SparsePlan.dkv_items), and deals them to the
+// persistent blocks (SparsePlan.dkv_schedule): an item is BKV = 128 rows of a
+// mask column's kv tile (block_kv, a multiple of 64, holds one or more; the
+// last of an odd multiple of 64 is 64 rows, and the consumer whose rows
+// belong to the next column releases every stage unread and writes nothing),
+// with its step count; the kernel repeats each over the batch rows and, for
+// a mask shared by the heads, the kv heads. The steps are the column's CSR
+// range of (group index << 4 | flags, q tile, q_first, kv_first) entries, in
+// the JAX tables' order, each cut into block_q / 64 steps of BQ q rows; on a
+// MASKED entry a step that lies wholly above the diagonal is skipped, which
+// drops only zeros. The causal mask compares global positions (q_first,
+// kv_first: the layout's for ring shards), which the producer hands the
+// consumers beside lse as the step's first q position less the item's first
+// kv position. A column with no live entry writes zeros.
 //
 // Numerics follow the TPU kernels (_recompute_p, _ds_to_dqk):
 //   s = (q . k) * scale in fp32 from the raw q (no log2e fold);
 //   p = exp(s - lse) (computed as exp2(s * scale * log2e - lse * log2e)),
-//     0 on masked entries and on rows with lse -inf;
+//     0 on masked entries and on rows with lse -inf (B9c: the -inf-safe lse,
+//     +1e30 on dead rows);
 //   dp = dout . v; ds = p * (dp - delta) * scale;
 //   dv += bf16(p) . dout; dk += bf16(ds) . q; dq += bf16(ds) . k.
+//   B9c (_sparse_dkv_kernel) scales after the cast: ds = p * (dp - delta),
+//   dk = scale * sum bf16(ds) . q.
 //
 // The tensor maps are encoded on the host per call (sm90.cuh) and passed as
 // __grid_constant__ kernel parameters.
@@ -82,15 +113,17 @@ constexpr int NT = 384;   // a producer and two consumer warpgroups
 // registers a thread holds at launch (168); the consumers take what the
 // producer gives back (setmaxnreg.inc waits for it): B5's consumers hold
 // one more accumulator (dq) and get 240, leaving the producer 24; B2b's
-// producer keeps 32 (24 spill its loop), its consumers 232
+// producer keeps 32 (24 spill its loop), B9c's 40 (its column walk spills
+// 32), their consumers 232 either way
 constexpr int REGS_AT_LAUNCH = 65536 / NT / 8 * 8;
-template <bool FUSED>
+template <bool FUSED, bool SPARSE>
 struct Regs {
-  static constexpr int PRODUCER = FUSED ? 24 : 32;
+  static constexpr int PRODUCER = FUSED ? 24 : SPARSE ? 40 : 32;
   static constexpr int CONSUMER =
       (REGS_AT_LAUNCH * NT - 128 * PRODUCER) / 256 / 8 * 8;
 };
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kMasked = 4;  // a sparse column entry's flag (_F_MASKED)
 
 // Shared memory. A bf16 tile is stored as 64-column boxes of 128-byte rows,
 // swizzled in 1024-byte atoms of 8 rows (CU_TENSOR_MAP_SWIZZLE_128B, read by
@@ -103,6 +136,7 @@ constexpr int DS_BYTES = BKV * BQ * 2;  // bf16 dS^T [kv][q]: 16 KB
 constexpr int DQBOX = BQ * 128;      // 32 fp32 columns of the dq tile: 8 KB
 constexpr int DQ_BYTES = 4 * DQBOX;  // the 64 x 128 fp32 dq tile
 constexpr int LD_BYTES = 2 * BQ * 4;  // a step's lse and delta
+constexpr int META_BYTES = 8;         // B9c: a step's positions (int2)
 
 template <bool FUSED>
 struct Smem {
@@ -113,7 +147,8 @@ struct Smem {
   static constexpr int OFF_DS = OFF_ST + STAGES * 2 * QT_BYTES;
   static constexpr int OFF_DQ = OFF_DS + (FUSED ? 2 * DS_BYTES : 0);
   static constexpr int OFF_LD = OFF_DQ + (FUSED ? DQ_BYTES : 0);
-  static constexpr int OFF_BAR = OFF_LD + STAGES * LD_BYTES;
+  static constexpr int OFF_META = OFF_LD + STAGES * LD_BYTES;
+  static constexpr int OFF_BAR = OFF_META + STAGES * META_BYTES;
   static constexpr int BYTES = OFF_BAR + 256 + 1024;  // barriers, alignment
 };
 static_assert(Smem<true>::BYTES <= 232448 && Smem<false>::BYTES <= 232448,
@@ -142,6 +177,15 @@ struct Params {
   float scale;
   float sl2;  // scale * log2e
   int nq, nk, n_items;
+  // B9c: the column tables' CSR form, the host's items (column, first row
+  // in its kv tile, steps, 0) and each block's work items, block i's at
+  // sched[sched_ptr[i] .. sched_ptr[i + 1])
+  const int* ptr;
+  const int4* ent;
+  const int4* items;
+  const int* sched_ptr;
+  const int* sched;
+  int n_kv, bq, bkv, per_head;
 };
 
 // K-major operand (K, V rows; Q, dout rows): 8-row groups 1024 bytes apart;
@@ -185,23 +229,16 @@ __device__ __forceinline__ void wgmma64_first(float (&d)[32], uint64_t da,
 
 struct Item {
   int ik, ihk, ib;
+  int k0;    // first kv row
+  int n;     // steps
+  int rows;  // rows of the 128 that the item owns (B9c: 64 for the last
+             // item of an odd multiple of 64)
+  int sub, e0, e_end;  // B9c: k0 in its kv tile; its column's CSR range
 };
 
-// item t: kv tiles outside, kv tile 0 (the longest causal walk) first, kv
-// heads and batch rows inside. The order with the kv heads outside, whose
-// blocks running at once share fewer kv heads and dq rows, balanced the
-// blocks' work worse and ran 1.7x slower (scripts/torch_bwd_order.py).
-__device__ __forceinline__ Item item_of(const Params& p, int t) {
-  Item x;
-  const int r = t % (p.b * p.h_kv);
-  x.ik = t / (p.b * p.h_kv);
-  x.ihk = r % p.h_kv;
-  x.ib = r / p.h_kv;
-  return x;
-}
-
-// The steps of an item: the group's query heads, each with the q tiles
-// from the first that sees the kv tile (all under no mask) to the last.
+// The steps of a dense item: the group's query heads, each with the q
+// tiles from the first that sees the kv tile (all under no mask) to the
+// last.
 struct QWalk {
   int iq_lo, nqi, n;
   __device__ QWalk(const Params& p, int ik) {
@@ -219,18 +256,113 @@ struct QWalk {
   __device__ int q0(int js) const { return (iq_lo + js % nqi) * BQ; }
 };
 
+// Item t. Dense: kv tiles outside, kv tile 0 (the longest causal walk)
+// first, kv heads and batch rows inside. The order with the kv heads
+// outside, whose blocks running at once share fewer kv heads and dq rows,
+// balanced the blocks' work worse and ran 1.7x slower
+// (scripts/torch_bwd_order.py). B9c: the host's items in its order, each
+// repeated over the batch rows (and the kv heads of a shared mask) inside.
+template <bool SPARSE>
+__device__ __forceinline__ Item item_of(const Params& p, int t) {
+  Item x;
+  if constexpr (SPARSE) {
+    const int reps = p.per_head ? p.b : p.b * p.h_kv;
+    const int4 e = p.items[t / reps];
+    const int r = t % reps;
+    x.ib = r % p.b;
+    x.ihk = p.per_head ? e.x / p.n_kv : r / p.b;
+    x.ik = e.x % p.n_kv;
+    x.sub = e.y;
+    x.k0 = x.ik * p.bkv + e.y;
+    x.n = e.z;
+    x.rows = min(BKV, p.bkv - e.y);
+    x.e0 = p.ptr[e.x];
+    x.e_end = p.ptr[e.x + 1];
+  } else {
+    const int r = t % (p.b * p.h_kv);
+    x.ik = t / (p.b * p.h_kv);
+    x.ihk = r % p.h_kv;
+    x.ib = r / p.h_kv;
+    x.k0 = x.ik * BKV;
+    x.n = QWalk(p, x.ik).n;
+    x.rows = BKV;
+    x.sub = x.e0 = x.e_end = 0;
+  }
+  return x;
+}
+
+// The items of this persistent block, the j-th of them for j in [j0,
+// end): dense, item_index's snake over the longest-first order; B9c, the
+// host's list for the block (ops/sparse.py SparsePlan.dkv_schedule: items
+// longest first, each to the block with the least work so far, since a
+// column seen by every q tile, such as StreamingLLM's sink, outweighs the
+// rest several times and a snake leaves the blocks uneven).
+template <bool SPARSE>
+struct BlockItems {
+  int j0, end;
+  __device__ explicit BlockItems(const Params& p) {
+    if constexpr (SPARSE) {
+      j0 = p.sched_ptr[blockIdx.x];
+      end = p.sched_ptr[blockIdx.x + 1];
+    } else {
+      j0 = 0;
+      end = (p.n_items + (int)gridDim.x - 1) / (int)gridDim.x;
+    }
+  }
+  // item t of the block's j-th turn, or -1 when the snake has none
+  __device__ int at(const Params& p, int j) const {
+    if constexpr (SPARSE) return p.sched[j];
+    const int t = item_index(j);
+    return t < p.n_items ? t : -1;
+  }
+};
+
+// B9c: a step of a column's walk, q sub-tile j (of block_q / 64) of CSR
+// entry e; entries with no step are passed over
+struct ColStep {
+  int e, j;
+  int4 en;  // (group index << 4 | flags, q tile, q_first, kv_first)
+};
+
+__device__ __forceinline__ ColStep col_from(const Params& p, const Item& x,
+                                            int e) {
+  const int nsub = p.bq / BQ;
+  for (; e < x.e_end; ++e) {
+    const int4 en = p.ent[e];
+    int lo = 0;
+    if (en.x & kMasked) {  // skip j while q_first + 64 j + 63 < kv_first + sub
+      const int d = en.w + x.sub - en.z - (BQ - 1);
+      lo = d <= 0 ? 0 : (d + BQ - 1) / BQ;
+    }
+    if (lo < nsub) return ColStep{e, lo, en};
+  }
+  return ColStep{x.e_end, 0, make_int4(0, 0, 0, 0)};
+}
+
+__device__ __forceinline__ ColStep col_next(const Params& p, const Item& x,
+                                            const ColStep& c) {
+  if (c.j + 1 < p.bq / BQ) return ColStep{c.e, c.j + 1, c.en};
+  return col_from(p, x, c.e + 1);
+}
+
 // ---------------------------------------------------------------------------
 // The kernel
 // ---------------------------------------------------------------------------
 
-template <bool FUSED>
+// FUSED: B5 (dq too); SPARSE: B9c's walk; neither: B2b.
+template <bool FUSED, bool SPARSE>
 __global__ void __launch_bounds__(NT, 1)
     flash_bwd_sm90_kernel(const __grid_constant__ Maps maps, const Params p) {
+  static_assert(!(FUSED && SPARSE), "B9c computes no dq");
+  static_assert(Regs<FUSED, SPARSE>::CONSUMER == (FUSED ? 240 : 232),
+                "the consumers' register budget");
   using L = Smem<FUSED>;
   constexpr int STAGES = L::STAGES;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
-  unsigned char* smem = reinterpret_cast<unsigned char*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  // the 1024-byte aligned base as an offset into the shared array (an
+  // integer round trip of the address makes the shared loads generic)
+  unsigned char* smem =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   const uint32_t sbase = smem_u32(smem);
   auto bar = [&](int i) -> uint32_t { return sbase + L::OFF_BAR + 8 * i; };
   // stage of the i-th step of the block's stream, and the parity of its use
@@ -242,6 +374,12 @@ __global__ void __launch_bounds__(NT, 1)
   auto lse_delta = [&](int i) -> float* {  // lse[BQ] in exp2 units, delta[BQ]
     return reinterpret_cast<float*>(smem + L::OFF_LD +
                                     (i % STAGES) * LD_BYTES);
+  };
+  // B9c: the step's first q position less the item's first kv position, and
+  // its entry's MASKED flag
+  auto meta = [&](int i) -> int2* {
+    return reinterpret_cast<int2*>(smem + L::OFF_META +
+                                   (i % STAGES) * META_BYTES);
   };
 
   if (threadIdx.x == 0) {
@@ -264,30 +402,39 @@ __global__ void __launch_bounds__(NT, 1)
 
   if (wg == 0) {
     // ======================= producer warpgroup =======================
-    setmaxnreg_dec<Regs<FUSED>::PRODUCER>();
+    setmaxnreg_dec<Regs<FUSED, SPARSE>::PRODUCER>();
     if (warp == 0) {  // loads
       int it = 0, kvn = 0;
-      for (int j = 0; j * (int)gridDim.x < p.n_items; ++j) {
-        const int t = item_index(j);
-        if (t >= p.n_items) continue;
-        const Item x = item_of(p, t);
-        const QWalk w(p, x.ik);
-        if (w.n == 0) continue;
+      const BlockItems<SPARSE> items(p);
+      for (int j = items.j0; j < items.end; ++j) {
+        const int t = items.at(p, j);
+        if (t < 0) continue;
+        const Item x = item_of<SPARSE>(p, t);
+        if (x.n == 0) continue;
         if (lane == 0) {
           mbar_wait(bar(B_KVEMPTY), (kvn & 1) ^ 1);
           mbar_expect_tx(bar(B_KVFULL), 2 * KV_BYTES);
           for (int hb = 0; hb < 2; ++hb) {
             tma_load_4d(sbase + L::OFF_K + hb * KBOX, &maps.k, bar(B_KVFULL),
-                        64 * hb, x.ik * BKV, x.ihk, x.ib);
+                        64 * hb, x.k0, x.ihk, x.ib);
             tma_load_4d(sbase + L::OFF_V + hb * KBOX, &maps.v, bar(B_KVFULL),
-                        64 * hb, x.ik * BKV, x.ihk, x.ib);
+                        64 * hb, x.k0, x.ihk, x.ib);
           }
         }
         ++kvn;
-        for (int js = 0; js < w.n; ++js, ++it) {
+        const QWalk w(p, x.ik);
+        ColStep c{};
+        if constexpr (SPARSE) c = col_from(p, x, x.e0);
+        for (int js = 0; js < x.n; ++js, ++it) {
           const int s = it % STAGES;
-          const int ih = w.head(x, p, js);
-          const int q0 = w.q0(js);
+          int ih, q0;
+          if constexpr (SPARSE) {
+            ih = x.ihk * (p.h / p.h_kv) + (c.en.x >> 4);
+            q0 = c.en.y * p.bq + c.j * BQ;
+          } else {
+            ih = w.head(x, p, js);
+            q0 = w.q0(js);
+          }
           mbar_wait(bar(B_EMPTY + s), use(it) ^ 1);
           if (lane == 0) {
             const uint32_t st = stage(it);
@@ -298,6 +445,9 @@ __global__ void __launch_bounds__(NT, 1)
               tma_load_4d(st + QT_BYTES + hb * QBOX, &maps.dout,
                           bar(B_FULL + s), 64 * hb, q0, ih, x.ib);
             }
+            if constexpr (SPARSE)
+              *meta(it) = make_int2(c.en.z + c.j * BQ - (c.en.w + x.sub),
+                                    c.en.x & kMasked);
           }
           float* ld = lse_delta(it);
           for (int r = lane; r < BQ; r += 32) {
@@ -313,6 +463,7 @@ __global__ void __launch_bounds__(NT, 1)
             ld[BQ + r] = dl;
           }
           mbar_arrive(bar(B_FULL + s));
+          if constexpr (SPARSE) c = col_next(p, x, c);
         }
       }
     } else if (FUSED && warp == 1 && lane == 0) {  // dq reduce-adds
@@ -320,7 +471,7 @@ __global__ void __launch_bounds__(NT, 1)
       for (int j = 0; j * (int)gridDim.x < p.n_items; ++j) {
         const int t = item_index(j);
         if (t >= p.n_items) continue;
-        const Item x = item_of(p, t);
+        const Item x = item_of<false>(p, t);
         const QWalk w(p, x.ik);
         for (int js = 0; js < w.n; ++js, ++dn) {
           mbar_wait(bar(B_DQFULL), dn & 1);
@@ -338,30 +489,38 @@ __global__ void __launch_bounds__(NT, 1)
   }
 
   // ======================= consumer warpgroups =======================
-  setmaxnreg_inc<Regs<FUSED>::CONSUMER>();
+  setmaxnreg_inc<Regs<FUSED, SPARSE>::CONSUMER>();
   const int cw = wg - 1;          // which 64 kv rows of the item
   const int g = lane >> 2;        // accumulator row (and row + 8)
   const int cb = 2 * (lane & 3);  // accumulator column pair in each 8
   const uint32_t k_rows = sbase + L::OFF_K + cw * 64 * 128;
   const uint32_t v_rows = sbase + L::OFF_V + cw * 64 * 128;
 
+  // this lane's first kv row in an item (and that + 8)
+  const int r0 = cw * 64 + warp * 16 + g;
+
   int it = 0, kvn = 0, dn = 0;
-  for (int j = 0; j * (int)gridDim.x < p.n_items; ++j) {
-    const int t = item_index(j);
-    if (t >= p.n_items) continue;
-    const Item x = item_of(p, t);
+  const BlockItems<SPARSE> items(p);
+  for (int j = items.j0; j < items.end; ++j) {
+    const int t = items.at(p, j);
+    if (t < 0) continue;
+    const Item x = item_of<SPARSE>(p, t);
     const QWalk w(p, x.ik);
-    const int k0 = x.ik * BKV + cw * 64;  // first kv row of this warpgroup
-    const int kv_row0 = k0 + warp * 16 + g;
+    const int k0 = x.k0 + cw * 64;  // first kv row of this warpgroup
+    const int kv_row0 = x.k0 + r0;
+    // B9c: rows of the next mask column (the second half of a 64-row item)
+    const bool idle = SPARSE && cw * 64 >= x.rows;
 
     float dk[64], dv[64];
 #pragma unroll
     for (int i = 0; i < 64; ++i) dk[i] = dv[i] = 0.f;
 
     // P^T of one step in place of S^T: p = exp2(s * scale * log2e - lse
-    // * log2e), 0 where `masked` drops the (kv row, q row) pair
-    auto probs = [&](float (&sacc)[32], const float* ld, int q0,
-                     auto masked) {
+    // * log2e), 0 where `masked` drops the (kv row, q row) pair: a row past
+    // s_kv, or under the causal mask a kv row r of the item after q row c of
+    // the step (position r > rel + c)
+    auto probs = [&](float (&sacc)[32], const float* ld, int rel,
+                     bool causal, auto masked) {
 #pragma unroll
       for (int i8 = 0; i8 < 8; ++i8) {
         const float2 l = *reinterpret_cast<const float2*>(ld + 8 * i8 + cb);
@@ -369,22 +528,37 @@ __global__ void __launch_bounds__(NT, 1)
         for (int e = 0; e < 4; ++e) {
           float pe = exp2f(sacc[4 * i8 + e] * p.sl2 - ((e & 1) ? l.y : l.x));
           if (decltype(masked)::value) {
-            const int kv = kv_row0 + (e >> 1) * 8;
-            const int qpos = p.q_start + q0 + 8 * i8 + cb + (e & 1);
-            if (kv >= p.s_kv || (p.causal && kv > qpos)) pe = 0.f;
+            const int r = r0 + (e >> 1) * 8;
+            const int c = 8 * i8 + cb + (e & 1);
+            if (x.k0 + r >= p.s_kv || (causal && r > rel + c)) pe = 0.f;
           }
           sacc[4 * i8 + e] = pe;
         }
       }
     };
 
-    if (w.n > 0) {
+    if (x.n > 0) {
       mbar_wait(bar(B_KVFULL), kvn & 1);
-      for (int js = 0; js < w.n; ++js, ++it) {
+      for (int js = 0; js < x.n; ++js, ++it) {
         const int s = it % STAGES;
-        const int q0 = w.q0(js);
         const uint32_t st = stage(it);
         mbar_wait(bar(B_FULL + s), use(it));
+        if (idle) {  // release the stage unread
+          __syncwarp();
+          if (lane == 0) mbar_arrive(bar(B_EMPTY + s));
+          continue;
+        }
+        // the step's first q position less the item's first kv position
+        int rel;
+        bool causal;
+        if constexpr (SPARSE) {
+          const int2 m = *meta(it);
+          rel = m.x;
+          causal = m.y != 0;
+        } else {
+          rel = p.q_start + w.q0(js) - x.k0;
+          causal = p.causal;
+        }
 
         // S^T = K Q^T, then dP^T = V dout^T: 8 k16 steps, 4 in each d box
         float sacc[32], dpacc[32];
@@ -410,29 +584,31 @@ __global__ void __launch_bounds__(NT, 1)
         // of this warpgroup's leaves is masked
         const float* ld = lse_delta(it);
         const bool masked =
-            (p.causal && k0 + 63 > p.q_start + q0) || k0 + 63 >= p.s_kv;
+            (causal && cw * 64 + 63 > rel) || k0 + 63 >= p.s_kv;
         wgmma_wait<1>();
         reg_fence(sacc);
         if (masked)
-          probs(sacc, ld, q0, Flag<true>());
+          probs(sacc, ld, rel, causal, Flag<true>());
         else
-          probs(sacc, ld, q0, Flag<false>());
+          probs(sacc, ld, rel, causal, Flag<false>());
         wgmma_wait<0>();
         reg_fence(dpacc);
 
-        // dS^T = P^T (dP^T - delta) * scale; P^T and dS^T to bf16 as the A
-        // operands: accumulator (row, column pair) of 8-column group i8 ->
-        // the A fragment of k16 step i8 / 2
+        // dS^T = P^T (dP^T - delta) * scale (B9c: the scale after the
+        // cast); P^T and dS^T to bf16 as the A operands: accumulator (row,
+        // column pair) of 8-column group i8 -> the A fragment of k16 step
+        // i8 / 2
         uint32_t pa[16], da[16];
 #pragma unroll
         for (int i8 = 0; i8 < 8; ++i8) {
           const float2 dl =
               *reinterpret_cast<const float2*>(ld + BQ + 8 * i8 + cb);
 #pragma unroll
-          for (int e = 0; e < 4; ++e)
+          for (int e = 0; e < 4; ++e) {
             dpacc[4 * i8 + e] = sacc[4 * i8 + e] *
-                                (dpacc[4 * i8 + e] - ((e & 1) ? dl.y : dl.x)) *
-                                p.scale;
+                                (dpacc[4 * i8 + e] - ((e & 1) ? dl.y : dl.x));
+            if constexpr (!SPARSE) dpacc[4 * i8 + e] *= p.scale;
+          }
           pa[2 * i8] = pack_bf16(sacc[4 * i8], sacc[4 * i8 + 1]);
           pa[2 * i8 + 1] = pack_bf16(sacc[4 * i8 + 2], sacc[4 * i8 + 3]);
           da[2 * i8] = pack_bf16(dpacc[4 * i8], dpacc[4 * i8 + 1]);
@@ -518,7 +694,9 @@ __global__ void __launch_bounds__(NT, 1)
       ++kvn;
     }
 
-    // write dk and dv once (0 for a kv tile no q row sees)
+    // write dk and dv once (0 for a kv tile no q row sees; B9c: dk times
+    // the scale)
+    if (idle) continue;
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
       const int kv = kv_row0 + hh * 8;
@@ -527,8 +705,12 @@ __global__ void __launch_bounds__(NT, 1)
                            x.ihk * p.dk_sh;
 #pragma unroll
       for (int i8 = 0; i8 < 16; ++i8) {
-        *reinterpret_cast<float2*>(p.dk + at + 8 * i8 + cb) =
-            make_float2(dk[4 * i8 + 2 * hh], dk[4 * i8 + 2 * hh + 1]);
+        float2 dk2 = make_float2(dk[4 * i8 + 2 * hh], dk[4 * i8 + 2 * hh + 1]);
+        if constexpr (SPARSE) {
+          dk2.x *= p.scale;
+          dk2.y *= p.scale;
+        }
+        *reinterpret_cast<float2*>(p.dk + at + 8 * i8 + cb) = dk2;
         *reinterpret_cast<float2*>(p.dv + at + 8 * i8 + cb) =
             make_float2(dv[4 * i8 + 2 * hh], dv[4 * i8 + 2 * hh + 1]);
       }
@@ -540,15 +722,13 @@ __global__ void __launch_bounds__(NT, 1)
 // Host side: tensor maps and launch
 // ---------------------------------------------------------------------------
 
-// dims: b, h, h_kv, s_q, s_kv, then (batch, seq, head) element strides of
-// q, k, v, dout, dq and dk (dv shares dk's), q_start, causal (the layout of
-// flash_bwd.cu's entry points)
-template <bool FUSED>
-int launch(const void* q, const void* k, const void* v, const void* dout,
-           const float* lse, const float* delta, float* dq, float* dk,
-           float* dv, const long long* dims, float scale,
-           cudaStream_t stream) {
-  Params p;
+// The fields every walk reads from dims: b, h, h_kv, s_q, s_kv, then
+// (batch, seq, head) element strides of q, k, v, dout, dq (B9c: unused) and
+// dk (dv shares dk's); the layout of flash_bwd.cu's and sparse.cu's entry
+// points.
+Params base_params(const float* lse, const float* delta, float* dk, float* dv,
+                   const long long* dims, float scale) {
+  Params p = {};
   p.lse = lse;
   p.delta = delta;
   p.dk = dk;
@@ -561,13 +741,18 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
   p.dk_sb = dims[20];
   p.dk_ss = dims[21];
   p.dk_sh = dims[22];
-  p.q_start = (int)dims[23];
-  p.causal = (int)dims[24];
   p.scale = scale;
   p.sl2 = scale * kLog2e;
   p.nq = (p.s_q + BQ - 1) / BQ;
-  p.nk = (p.s_kv + BKV - 1) / BKV;
-  p.n_items = p.nk * p.h_kv * p.b;
+  return p;
+}
+
+// n_blocks: B9c's persistent blocks (its schedule's); dense kernels take
+// one per SM, at most one per item.
+template <bool FUSED, bool SPARSE>
+int launch(const void* q, const void* k, const void* v, const void* dout,
+           float* dq, const long long* dims, const Params& p, int n_blocks,
+           cudaStream_t stream) {
   if (p.h_kv <= 0 || p.h % p.h_kv) return (int)cudaErrorInvalidValue;
   if (FUSED && p.s_q != p.s_kv) return (int)cudaErrorInvalidValue;
   if (p.n_items == 0) return (int)cudaSuccess;
@@ -596,14 +781,29 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
     if (!ok) return (int)cudaErrorInvalidValue;
   }
 
-  auto kern = flash_bwd_sm90_kernel<FUSED>;
+  auto kern = flash_bwd_sm90_kernel<FUSED, SPARSE>;
   const int smem = Smem<FUSED>::BYTES;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
-  const int grid = p.n_items < num_sms() ? p.n_items : num_sms();
+  const int grid =
+      SPARSE ? n_blocks : (p.n_items < num_sms() ? p.n_items : num_sms());
   kern<<<grid, NT, smem, stream>>>(maps, p);
   return (int)cudaGetLastError();
+}
+
+// B2b and B5: dims as base_params's, then q_start, causal.
+template <bool FUSED>
+int launch_dense(const void* q, const void* k, const void* v,
+                 const void* dout, const float* lse, const float* delta,
+                 float* dq, float* dk, float* dv, const long long* dims,
+                 float scale, cudaStream_t stream) {
+  Params p = base_params(lse, delta, dk, dv, dims, scale);
+  p.q_start = (int)dims[23];
+  p.causal = (int)dims[24];
+  p.nk = (p.s_kv + BKV - 1) / BKV;
+  p.n_items = p.nk * p.h_kv * p.b;
+  return launch<FUSED, false>(q, k, v, dout, dq, dims, p, 0, stream);
 }
 
 }  // namespace
@@ -615,18 +815,53 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
 
 // Kernel B2b: dk, dv.
 extern "C" int lca_flash_bwd_dkv(LCA_BWD_ARGS) {
-  return launch<false>(q, k, v, dout, lse, delta, dq, dk, dv, dims, scale,
-                       static_cast<cudaStream_t>(stream));
+  return launch_dense<false>(q, k, v, dout, lse, delta, dq, dk, dv, dims,
+                             scale, static_cast<cudaStream_t>(stream));
 }
 
 // Kernel B5: self-attention (s_q == s_kv) dq (added into a zeroed buffer),
 // dk, dv.
 extern "C" int lca_flash_bwd_fused(LCA_BWD_ARGS) {
-  return launch<true>(q, k, v, dout, lse, delta, dq, dk, dv, dims, scale,
-                      static_cast<cudaStream_t>(stream));
+  return launch_dense<true>(q, k, v, dout, lse, delta, dq, dk, dv, dims,
+                            scale, static_cast<cudaStream_t>(stream));
 }
 
-// The dynamic shared memory a block of B5 (fused != 0) or B2b takes.
+// Kernel B9c: dk, dv (b, s_kv, h_kv, d) fp32 of a block-sparse mask, over
+// the column tables' CSR form (ptr, ent), with the host's items ((column,
+// first row in its kv tile, steps, 0), longest first) and each block's work
+// items (sched_ptr, sched). lse is the -inf-safe lse. dims: as
+// base_params's, then n_q, n_kv, block_q, block_kv, per_head (the layout of
+// sparse.cu's entry points), the number of items and of blocks.
+extern "C" int lca_sparse_bwd_dkv(const void* q, const void* k, const void* v,
+                                  const void* dout, const float* lse,
+                                  const float* delta, float* dk, float* dv,
+                                  const int* ptr, const int* ent,
+                                  const int* items, const int* sched_ptr,
+                                  const int* sched, const long long* dims,
+                                  float scale, void* stream) {
+  Params p = base_params(lse, delta, dk, dv, dims, scale);
+  p.ptr = ptr;
+  p.ent = reinterpret_cast<const int4*>(ent);
+  p.items = reinterpret_cast<const int4*>(items);
+  p.sched_ptr = sched_ptr;
+  p.sched = sched;
+  const int n_q = (int)dims[23];
+  p.n_kv = (int)dims[24];
+  p.bq = (int)dims[25];
+  p.bkv = (int)dims[26];
+  p.per_head = (int)dims[27];
+  if (p.bq <= 0 || p.bkv <= 0 || p.bq % BQ || p.bkv % 64 ||
+      p.s_q != n_q * p.bq || p.s_kv != p.n_kv * p.bkv || p.h_kv <= 0)
+    return (int)cudaErrorInvalidValue;
+  p.n_items = (int)dims[28] * (p.per_head ? p.b : p.b * p.h_kv);
+  const int n_blocks = (int)dims[29];
+  if (p.n_items > 0 && (n_blocks <= 0 || n_blocks > p.n_items))
+    return (int)cudaErrorInvalidValue;
+  return launch<false, true>(q, k, v, dout, nullptr, dims, p, n_blocks,
+                             static_cast<cudaStream_t>(stream));
+}
+
+// The dynamic shared memory a block of B5 (fused != 0) or B2b and B9c takes.
 extern "C" int lca_flash_bwd_smem(int fused) {
   return fused ? Smem<true>::BYTES : Smem<false>::BYTES;
 }

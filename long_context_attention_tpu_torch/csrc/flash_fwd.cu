@@ -1,63 +1,29 @@
-// Flash-attention forward for Hopper (sm_90a) on mma.sync: one flash entry
-// point and one sage entry point. The causal self-attention (B1) and
-// global-position (B3) forwards, and the causal and global-position sage
-// forwards (B8a, B8b), are wgmma/TMA kernels of their own, in
-// flash_fwd_sm90.cu and sage_fwd_sm90.cu.
+// Sage attention forward without a mask for Hopper (sm_90a) on mma.sync.
+// The flash forwards (B1, B3 and B4) are wgmma/TMA kernels in
+// flash_fwd_sm90.cu, and the causal and global-position sage forwards (B8a,
+// B8b) in sage_fwd_sm90.cu.
 //
-// Replaces the TPU kernel of long_context_attention_tpu/ops/flash.py:
-//   lca_flash_fwd_static      <- _fwd_kernel_static: self-attention with
-//                                positions from tile ids, causal or not,
-//                                sliding window (left, right), StreamingLLM
-//                                sinks and logit softcap.
-//
-// What bounds it on an H100: tensor-core operations. Each visible (row,
-// column) pair costs 4*d FLOPs (QK and PV), against 989 TFLOP/s bf16; the
-// bytes (q, k, v once) are a few percent of that time at the serving shapes.
-//
-// Design: one 128-thread block per (q tile of 64 rows, head, batch row);
-// each warp owns 16 q rows. Products run on mma.sync m16n8k16 (bf16 in,
-// fp32 accumulate) fed by ldmatrix from shared memory. Scores,
-// probabilities, the softmax statistics and the output accumulator stay in
-// registers: a score accumulator fragment is reused as the A operand of
-// the PV product, as in FlashAttention-2, and a row's statistics are
-// reduced across the four lanes that hold it. K/V tiles of 64 columns
-// arrive by cp.async into a double buffer, so the next tile loads while
-// this one computes. No TMA or wgmma yet.
-//
-// The kv walk visits only tiles a row of the q tile can see, each once:
-// the sink tiles that lie before the band, then the band from the window's
-// first tile to the causal (or right-window) last one (the TPU's banded
-// grid _banded_gt and its double-count guards). A windowed row's cost
-// follows the window, not the kv length, and a tile outside the walk is
-// never read. The TPU's triangular (iq, ik) tables and sqrt decode are grid
-// devices with no counterpart here.
-//
-// Numerics follow the TPU kernel exactly:
-//   fast form: scale*log2e is folded into q in bf16 (one rounding), then
-//     p = exp2(min(s, 90)), l += rowsum(p), acc += bf16(p) @ v; out = acc /
-//     l, lse = log(l); a row with l == 0 gives out 0, lse -inf.
-//   online form (safe softmax): exp2 units (s *= scale*log2e, lse = m*ln2
-//     + log l).
-//   softcap: natural units, s = cap * tanh(dot * scale / cap), then the
-//     online form.
-//   masks (flash-attn semantics, global positions): drop col > row + right
-//     (right = 0 when causal) and col < row - left unless col < sink.
-//
-// And the TPU kernel of long_context_attention_tpu/ops/sage.py (shared step
-// _sage_compute, emit _emit):
+// Replaces the TPU kernel of long_context_attention_tpu/ops/sage.py (shared
+// step _sage_compute, emit _emit):
 //   lca_sage_fwd_rect <- _sage_kernel_rect: no mask, any s_q and s_kv.
 // Inputs are int8 q, k, v with fp32 per-token scales (the quantization
 // pass, sage_quant.cu; q's scales carry scale*log2e). s = (q8 . k8)_s32 *
 // qs * ks in exp2 units, p = exp2(min(s, 90)) with no running max, l +=
 // rowsum(p) before p *= vs, acc += bf16(p) @ bf16(v8); out = acc / l, lse =
 // ln l.
-// What bounds it: tensor-core operations, 2*d int8 ops (QK, 1979 TOP/s)
-// and 2*d bf16 FLOPs (PV, 989 TFLOP/s) per visible pair. QK runs on
-// mma.sync m16n8k32 s8 (ldmatrix's b16 view loads both int8 operands from
-// row-major tiles), whose s32 accumulator has the fp32 fragment layout, so
-// B4's register path from scores to the PV A operand carries over. V is
-// int8 in memory (half the bf16 bytes) and widened to bf16 in shared
-// memory per tile.
+//
+// What bounds it on an H100: tensor-core operations, 2*d int8 ops (QK, 1979
+// TOP/s) and 2*d bf16 FLOPs (PV, 989 TFLOP/s) per visible pair.
+//
+// Design: one 128-thread block per (q tile of 64 rows, head, batch row);
+// each warp owns 16 q rows. QK runs on mma.sync m16n8k32 s8 (ldmatrix's b16
+// view loads both int8 operands from row-major tiles), whose s32
+// accumulator has the fp32 fragment layout of m16n8k16, so the scores stay
+// in registers and become the A operand of the bf16 PV product (mma.sync
+// m16n8k16), as in FlashAttention-2. K, V and their scales arrive by
+// cp.async into a double buffer, so the next tile loads while this one
+// computes. V is int8 in memory (half the bf16 bytes) and widened to bf16
+// in shared memory per tile. No TMA or wgmma.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -73,47 +39,12 @@ constexpr int LD = D + 8;  // bf16 pitch of q/k/v tiles: the 8 rows of an
                            // ldmatrix land in distinct banks
 constexpr float kClamp = 90.f;
 constexpr float kNegInf = -1e30f;
-constexpr float kLn2 = 0.6931471805599453f;
-
-// softmax forms (template parameter FORM)
-constexpr int kFast = 0;        // max-free clamped exp2, scale folded into q
-constexpr int kOnlineExp2 = 1;  // online softmax in exp2 units
-constexpr int kSoftcap = 3;     // capped scores, online, natural units
-
-constexpr int TILE_BYTES = BKV * LD * 2;  // one bf16 k or v tile
-constexpr int Q_BYTES = BQ * LD * 2;
-constexpr int OFF_K = Q_BYTES;                  // 2 stages of k
-constexpr int OFF_V = OFF_K + 2 * TILE_BYTES;   // 2 stages of v
-constexpr int SMEM_BYTES = OFF_V + 2 * TILE_BYTES;
-
-struct Params {
-  const void* q;
-  const void* k;
-  const void* v;
-  void* out;
-  float* lse;
-  int h, h_kv, s_q, s_kv;
-  long long q_sb, q_ss, q_sh;  // element strides (batch, seq, head)
-  long long k_sb, k_ss, k_sh;
-  long long v_sb, v_ss, v_sh;
-  long long o_sb, o_ss, o_sh;
-  int q_off;                   // global position of q row 0
-  int left, right;             // window; -1 = unbounded (right 0: causal)
-  int sink;                    // columns < sink stay visible (left >= 0)
-  float qfold;   // fast form: scale*log2e folded into q
-  float sscale;  // online forms: multiplier of the raw score
-  float cap;     // softcap form: the cap
-};
 
 union Pack16 {  // 16 bytes as 8 bf16 bit patterns or 16 int8 values
   uint4 u;
   unsigned short h[8];
   int8_t b[16];
 };
-
-__device__ __forceinline__ float bf16_bits_to_float(unsigned short x) {
-  return __uint_as_float(((unsigned)x) << 16);
-}
 
 __device__ __forceinline__ unsigned short float_to_bf16_bits(float x) {
   return __bfloat16_as_ushort(__float2bfloat16_rn(x));  // nearest even
@@ -167,337 +98,6 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4],
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// The kv tiles a q tile of rows at positions [q_first, q_last] sees, each
-// once: the sink tiles that lie before the band, then the band [lo, hi]
-// (_banded_gt). left / right -1: unbounded; right 0: causal.
-struct KvWalk {
-  int lo, hi, n_sink, n;
-  __device__ KvWalk(int q_first, int q_last, int s_kv, int left, int right,
-                    int sink) {
-    lo = 0;
-    hi = (s_kv + BKV - 1) / BKV - 1;
-    n_sink = 0;
-    if (right >= 0) {
-      const int last = q_last + right;
-      hi = last < 0 ? -1 : min(hi, last / BKV);
-    }
-    if (left >= 0) {
-      lo = max(q_first - left, 0) / BKV;
-      n_sink = min(min((sink + BKV - 1) / BKV, lo), hi + 1);
-    }
-    n = n_sink + max(hi - lo + 1, 0);
-  }
-  __device__ int tile(int jt) const {
-    return jt < n_sink ? jt : lo + (jt - n_sink);
-  }
-};
-
-// The masks of Params. FORM: the softmax form.
-template <int FORM>
-__global__ void __launch_bounds__(NTHREADS)
-    flash_fwd_kernel(const Params p) {
-  constexpr bool ONLINE = FORM != kFast;
-  constexpr bool EXP2 = FORM == kOnlineExp2;
-  extern __shared__ __align__(128) unsigned char smem[];
-  unsigned short* sQ = reinterpret_cast<unsigned short*>(smem);
-
-  const int nq = (p.s_q + BQ - 1) / BQ;
-  // the grid starts with the last q tiles, the longest rows under a causal
-  // or window mask (the diagonal's far end), so the short ones fill the
-  // tail
-  const int iq = nq - 1 - (int)blockIdx.x;
-  const int ih = blockIdx.y;
-  const int ib = blockIdx.z;
-  const int ihk = ih / (p.h / p.h_kv);
-  const int q0 = iq * BQ;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;  // fragment row (and row + 8)
-  const int t = lane & 3;   // fragment column pair
-
-  const int q_off = p.q_off;
-  const int left = p.left;
-  const int right = p.right;
-  const int sink = p.sink;
-
-  const int q_first = q_off + q0;
-  const int q_last = q_off + min(q0 + BQ, p.s_q) - 1;
-  const KvWalk walk(q_first, q_last, p.s_kv, left, right, sink);
-  const int nk = walk.n;
-  auto tile_of = [&](int jt) -> int { return walk.tile(jt); };
-
-  constexpr int EB = 2;                   // bytes per k/v element
-  constexpr int CPR = D * EB / 16;        // 16-byte chunks per kv row
-  constexpr int RAW_PITCH = LD * 2;
-  const char* kb =
-      static_cast<const char*>(p.k) + (ib * p.k_sb + ihk * p.k_sh) * EB;
-  const char* vb =
-      static_cast<const char*>(p.v) + (ib * p.v_sb + ihk * p.v_sh) * EB;
-  const long long kss = p.k_ss * EB;  // kv row strides in bytes
-  const long long vss = p.v_ss * EB;
-
-  // stage s of the tiles cp.async fills
-  unsigned char* const k_region = smem + OFF_K;
-  unsigned char* const v_region = smem + OFF_V;
-  auto raw_k = [&](int s) -> unsigned char* {
-    return k_region + s * TILE_BYTES;
-  };
-  auto raw_v = [&](int s) -> unsigned char* {
-    return v_region + s * TILE_BYTES;
-  };
-  auto issue = [&](int jt, int s) {
-    const int kv0 = tile_of(jt) * BKV;
-    unsigned char* dk = raw_k(s);
-    unsigned char* dv = raw_v(s);
-    for (int c = tid; c < BKV * CPR; c += NTHREADS) {
-      const int r = c / CPR, col = (c % CPR) * 16;
-      const bool ok = kv0 + r < p.s_kv;
-      const long long rr = ok ? kv0 + r : 0;
-      const int doff = r * RAW_PITCH + col;
-      cp_async16(smem_addr(dk + doff), kb + rr * kss + col, ok);
-      cp_async16(smem_addr(dv + doff), vb + rr * vss + col, ok);
-    }
-    cp_async_commit();
-  };
-  if (nk > 0) issue(0, 0);
-
-  const __nv_bfloat16* qb = static_cast<const __nv_bfloat16*>(p.q) +
-                            ib * p.q_sb + ih * p.q_sh;
-  for (int c = tid; c < BQ * (D / 8); c += NTHREADS) {
-    const int r = c / (D / 8);
-    const int col = (c % (D / 8)) * 8;
-    Pack16 val;
-    val.u = make_uint4(0, 0, 0, 0);
-    if (q0 + r < p.s_q)
-      val.u = *reinterpret_cast<const uint4*>(
-          qb + (long long)(q0 + r) * p.q_ss + col);
-    if (!ONLINE) {
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-        val.h[i] = float_to_bf16_bits(bf16_bits_to_float(val.h[i]) * p.qfold);
-    }
-    *reinterpret_cast<uint4*>(sQ + r * LD + col) = val.u;
-  }
-  __syncthreads();
-
-  // the warp's 16 q rows as A fragments, for the whole kv walk
-  unsigned qa[D / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk)
-    ldsm_x4(qa[kk], smem_addr(sQ + (warp * 16 + (lane & 15)) * LD + kk * 16 +
-                              (lane >> 4) * 8));
-
-  float o[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
-  float m_row[2] = {kNegInf, kNegInf};  // rows g and g + 8
-  float l_row[2] = {0.f, 0.f};
-  const int row_pos0 = q_off + q0 + warp * 16 + g;
-  const int mi = lane >> 3;  // which 8x8 matrix this lane addresses
-
-  for (int jt = 0; jt < nk; ++jt) {
-    const int kv0 = tile_of(jt) * BKV;
-    const int stage = jt & 1;
-    if (jt + 1 < nk) {
-      issue(jt + 1, stage ^ 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const unsigned short* sK =
-        reinterpret_cast<const unsigned short*>(raw_k(stage));
-    const unsigned short* sV =
-        reinterpret_cast<const unsigned short*>(raw_v(stage));
-
-    // S = Q K^T: 8 n-tiles of 8 kv columns; a lane holds rows g and g + 8
-    float s[BKV / 8][4];
-#pragma unroll
-    for (int n = 0; n < BKV / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-#pragma unroll
-      for (int np = 0; np < BKV / 16; ++np) {
-        unsigned b[4];  // b0, b1 of n-tile 2np, then of n-tile 2np + 1
-        ldsm_x4(b, smem_addr(sK + (np * 16 + (lane & 7) + (mi >> 1) * 8) * LD +
-                             kk * 16 + (mi & 1) * 8));
-        mma_bf16(s[2 * np], qa[kk], b[0], b[1]);
-        mma_bf16(s[2 * np + 1], qa[kk], b[2], b[3]);
-      }
-    }
-
-    // scale, cap, mask and the softmax, in registers; a tile that every
-    // row of the q tile sees whole skips the mask (_tile_interior). The
-    // interior test and the mask stay written out here (and in the sage
-    // kernel): moved into helper functions, they made this body ~35%
-    // slower on the H100 (ptxas schedules the loop differently).
-    const int kv_last = kv0 + BKV - 1;
-    const bool interior =
-        kv_last < p.s_kv && (right < 0 || kv_last <= q_first + right) &&
-        (left < 0 || kv0 >= q_last - left || kv_last < sink);
-    float mx[2] = {kNegInf, kNegInf};
-#pragma unroll
-    for (int n = 0; n < BKV / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int cl = n * 8 + 2 * t + (e & 1);
-        float v = s[n][e];
-        if (ONLINE) v *= p.sscale;
-        if (FORM == kSoftcap) v = tanhf(v / p.cap) * p.cap;
-        if (!interior) {
-          const int col = kv0 + cl;
-          const int row = row_pos0 + (e >> 1) * 8;
-          if (col >= p.s_kv || (right >= 0 && col > row + right) ||
-              (left >= 0 && col < row - left && col >= sink))
-            v = kNegInf;
-        }
-        s[n][e] = v;
-        if (ONLINE) mx[e >> 1] = fmaxf(mx[e >> 1], v);
-      }
-    }
-    float alpha[2] = {1.f, 1.f};
-    if (ONLINE) {
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 1));
-        mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 2));
-        const float m_new = fmaxf(m_row[hh], mx[hh]);
-        alpha[hh] = EXP2 ? exp2f(m_row[hh] - m_new) : expf(m_row[hh] - m_new);
-        m_row[hh] = m_new;
-      }
-    }
-    float rs[2] = {0.f, 0.f};
-#pragma unroll
-    for (int n = 0; n < BKV / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float v = s[n][e];
-        float pv;
-        if (ONLINE) {
-          const float m = m_row[e >> 1];
-          pv = EXP2 ? exp2f(v - m) : expf(v - m);
-          if (v == kNegInf) pv = 0.f;  // masked entry
-        } else {
-          pv = exp2f(fminf(v, kClamp));  // exp2(-1e30) == 0
-        }
-        rs[e >> 1] += pv;
-        s[n][e] = pv;
-      }
-    }
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      rs[hh] += __shfl_xor_sync(0xffffffffu, rs[hh], 1);
-      rs[hh] += __shfl_xor_sync(0xffffffffu, rs[hh], 2);
-      l_row[hh] = ONLINE ? l_row[hh] * alpha[hh] + rs[hh] : l_row[hh] + rs[hh];
-    }
-    if (ONLINE) {
-#pragma unroll
-      for (int n = 0; n < D / 8; ++n) {
-        o[n][0] *= alpha[0];
-        o[n][1] *= alpha[0];
-        o[n][2] *= alpha[1];
-        o[n][3] *= alpha[1];
-      }
-    }
-
-    // O += P V: the score fragments of kv columns 16kc..16kc+15 are the A
-    // operand; ldmatrix.trans hands over V as the B operand
-#pragma unroll
-    for (int kc = 0; kc < BKV / 16; ++kc) {
-      unsigned pa[4];
-      pa[0] = pack_bf16(s[2 * kc][0], s[2 * kc][1]);
-      pa[1] = pack_bf16(s[2 * kc][2], s[2 * kc][3]);
-      pa[2] = pack_bf16(s[2 * kc + 1][0], s[2 * kc + 1][1]);
-      pa[3] = pack_bf16(s[2 * kc + 1][2], s[2 * kc + 1][3]);
-#pragma unroll
-      for (int dp = 0; dp < D / 16; ++dp) {
-        unsigned b[4];  // b0, b1 of d-tile 2dp, then of d-tile 2dp + 1
-        ldsm_x4_t(b, smem_addr(sV + (kc * 16 + (lane & 7) + (mi & 1) * 8) * LD +
-                               dp * 16 + (mi >> 1) * 8));
-        mma_bf16(o[2 * dp], pa, b[0], b[1]);
-        mma_bf16(o[2 * dp + 1], pa, b[2], b[3]);
-      }
-    }
-    __syncthreads();  // the next tile overwrites this stage
-  }
-
-  // emit: out = acc / l (0 on a dead row), lse in natural log units
-#pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    const int qi = q0 + warp * 16 + g + hh * 8;
-    if (qi >= p.s_q) continue;
-    const float l = l_row[hh];
-    __nv_bfloat16* orow = static_cast<__nv_bfloat16*>(p.out) + ib * p.o_sb +
-                          (long long)qi * p.o_ss + ih * p.o_sh;
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      const float x0 = l == 0.f ? 0.f : o[n][2 * hh] / l;
-      const float x1 = l == 0.f ? 0.f : o[n][2 * hh + 1] / l;
-      *reinterpret_cast<unsigned*>(orow + n * 8 + 2 * t) = pack_bf16(x0, x1);
-    }
-    if (t == 0) {
-      float v = logf(l);
-      if (ONLINE) v = EXP2 ? m_row[hh] * kLn2 + v : m_row[hh] + v;
-      p.lse[((long long)ib * p.h + ih) * p.s_q + qi] =
-          l == 0.f ? __int_as_float(0xff800000) : v;  // -inf on a dead row
-    }
-  }
-}
-
-Params make_params(const void* q, const void* k, const void* v, void* out,
-                   float* lse, const long long* dims, float qfold,
-                   float sscale, float cap) {
-  // dims: b, h, h_kv, s_q, s_kv, q strides (b, s, h), k strides (b, s, h),
-  // v strides (b, s, h), out strides (b, s, h), scale strides (b, h, s;
-  // unused), q_off, left, right, sink
-  Params p;
-  p.q = q;
-  p.k = k;
-  p.v = v;
-  p.out = out;
-  p.lse = lse;
-  p.h = (int)dims[1];
-  p.h_kv = (int)dims[2];
-  p.s_q = (int)dims[3];
-  p.s_kv = (int)dims[4];
-  p.q_sb = dims[5];
-  p.q_ss = dims[6];
-  p.q_sh = dims[7];
-  p.k_sb = dims[8];
-  p.k_ss = dims[9];
-  p.k_sh = dims[10];
-  p.v_sb = dims[11];
-  p.v_ss = dims[12];
-  p.v_sh = dims[13];
-  p.o_sb = dims[14];
-  p.o_ss = dims[15];
-  p.o_sh = dims[16];
-  p.q_off = (int)dims[20];
-  p.left = (int)dims[21];
-  p.right = (int)dims[22];
-  p.sink = (int)dims[23];
-  p.qfold = qfold;
-  p.sscale = sscale;
-  p.cap = cap;
-  return p;
-}
-
-template <int FORM>
-int launch(const Params& p, int b, cudaStream_t stream) {
-  auto kern = flash_fwd_kernel<FORM>;
-  cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
-  if (e != cudaSuccess) return (int)e;
-  dim3 grid((p.s_q + BQ - 1) / BQ, p.h, b);
-  kern<<<grid, NTHREADS, SMEM_BYTES, stream>>>(p);
-  return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -703,7 +303,7 @@ __global__ void __launch_bounds__(NTHREADS)
       l_row[hh] += rs[hh];
     }
 
-    // O += bf16(P) V, the score fragments as the A operand (as in B4)
+    // O += bf16(P) V, the score fragments as the A operand
 #pragma unroll
     for (int kc = 0; kc < BKV / 16; ++kc) {
       unsigned pa[4];
@@ -786,25 +386,6 @@ int launch_sage(const void* q, const float* qs, const void* k,
 }
 
 }  // namespace
-
-// Kernel B4: self-attention (s_q == s_kv, q_off 0) with any window, sinks
-// and softcap. form: 0 fast, 1 online (exp2 units), 2 softcap.
-extern "C" int lca_flash_fwd_static(const void* q, const void* k,
-                                    const void* v, void* out, float* lse,
-                                    const long long* dims, float qfold,
-                                    float sscale, float cap, int form,
-                                    void* stream) {
-  const Params p = make_params(q, k, v, out, lse, dims, qfold, sscale, cap);
-  if (p.q_off != 0 || p.s_q != p.s_kv) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int b = (int)dims[0];
-  switch (form) {
-    case 0: return launch<kFast>(p, b, st);
-    case 1: return launch<kOnlineExp2>(p, b, st);
-    case 2: return launch<kSoftcap>(p, b, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
-}
 
 // Kernel B8c: sage attention over int8 q, k, v with fp32 per-token scales
 // (q's with scale*log2e folded in), no mask (every kv column of every row),

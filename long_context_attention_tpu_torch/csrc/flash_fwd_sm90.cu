@@ -5,6 +5,12 @@
 //   lca_flash_fwd_causal_self <- _fwd_kernel_tri / _fwd_kernel_tri_sqrt
 //                                (shared body _tri_body): causal
 //                                self-attention, s_q == s_kv, GQA;
+//   lca_flash_fwd_static      <- _fwd_kernel_static: self-attention with
+//                                positions from 0 (s_q == s_kv), causal or
+//                                not, sliding window (left, right),
+//                                StreamingLLM sinks and logit softcap; the
+//                                masks of lca_flash_fwd_pos at q_off 0, its
+//                                online form in exp2 units;
 //   lca_flash_fwd_pos         <- _fwd_kernel: q rows at global positions
 //                                q_off + i against kv columns at j, sliding
 //                                window (left, right), StreamingLLM sinks
@@ -20,9 +26,12 @@
 // K/V tile from L2, so the kernel keeps the tensor cores fed from a ring of
 // tiles that TMA fills while the products run.
 //
-// Design. One persistent block per SM walks (q tile, head, batch) items in
-// the order of the TPU grid's longest rows first, dealt to the blocks in a
-// snake order. A block has two consumer
+// Design. One persistent block per SM walks (q tile, head, batch) items,
+// the last q tile first, dealt to the blocks in a snake order. Under a
+// causal mask, with or without a window, a q tile's walk is never shorter
+// than an earlier tile's (its band ends at its own diagonal, and a window
+// keeps it at the window's width once it is full), so that order is the
+// longest walks first. A block has two consumer
 // warpgroups and one producer warpgroup (bf16 K/V) or two (int8 K/V):
 //   * the producer (setmaxnreg down to 24 registers) loads Q once per item
 //     and every K/V tile of the item's walk by TMA into a ring of operand
@@ -67,10 +76,10 @@
 //     shared memory once per item), p = exp2(min(s, 90)), l += rowsum(p),
 //     acc += bf16(p * v_scale) @ v; out = acc / l, lse = log(l); a row with
 //     l == 0 gives out 0, lse -inf.
-//   online forms (safe softmax): B1 in exp2 units (s *= scale*log2e, lse =
-//     m*ln2 + log l), B3 in natural units (s = dot * k_scale * scale, lse =
-//     m + log l).
-//   softcap (B3): natural units, s = cap * tanh(dot * k_scale * scale /
+//   online forms (safe softmax): B1 and B4 in exp2 units (s *=
+//     scale*log2e, lse = m*ln2 + log l), B3 in natural units (s = dot *
+//     k_scale * scale, lse = m + log l).
+//   softcap (B3, B4): natural units, s = cap * tanh(dot * k_scale * scale /
 //     cap), then the online form.
 //   int8 K/V: s = dot(q, k_int8 as bf16) * k_scale[col]; l sums p before
 //     V's scale; p *= v_scale[col] before the bf16 PV product.
@@ -228,7 +237,8 @@ __device__ __forceinline__ KvWalk<BKV> walk_of(const Params& p, int q0) {
 // ---------------------------------------------------------------------------
 
 // TRI: causal self-attention with compile-time masks (B1); else the masks
-// of Params (B3). FORM: the softmax form; QUANT: int8 K/V with fp32 scales.
+// of Params (B3, and B4 at q_off 0). FORM: the softmax form; QUANT: int8
+// K/V with fp32 scales.
 template <bool TRI, int FORM, bool QUANT>
 __global__ void __launch_bounds__(Roles<QUANT>::NT, 1)
     flash_fwd_sm90_kernel(const __grid_constant__ Maps maps, const Params p) {
@@ -246,8 +256,12 @@ __global__ void __launch_bounds__(Roles<QUANT>::NT, 1)
   using L = Smem<QUANT>;
   constexpr int STAGES = L::STAGES;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
-  unsigned char* smem = reinterpret_cast<unsigned char*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  // the 1024-byte aligned base as an offset into the shared array, so the
+  // compiler keeps the scale loads, the q fold and the widening in
+  // shared-memory instructions (an integer round trip of the address makes
+  // them generic)
+  unsigned char* smem =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   const uint32_t sbase = smem_u32(smem);
   const uint32_t bars = sbase + L::OFF_BAR;
   auto bar = [&](int i) -> uint32_t { return bars + 8 * i; };
@@ -769,6 +783,35 @@ extern "C" int lca_flash_fwd_pos(const void* q, const void* k, const void* v,
   switch (form) {
     case 0: return args(launch<false, kFast, false>);
     case 1: return args(launch<false, kOnlineNat, false>);
+    case 2: return args(launch<false, kSoftcap, false>);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// Kernel B4: self-attention (s_q == s_kv, q_off 0) with any window, sinks
+// and softcap. form: 0 fast, 1 online (exp2 units), 2 softcap. A causal
+// call whose left window drops no column (left >= s - 1, as a chunk
+// narrower than the window is) is causal self-attention, and runs B1's
+// instantiation with its compile-time masks.
+extern "C" int lca_flash_fwd_static(const void* q, const void* k,
+                                    const void* v, void* out, float* lse,
+                                    const long long* dims, float qfold,
+                                    float sscale, float cap, int form,
+                                    void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dims[3] != dims[4] || dims[20] != 0) return (int)cudaErrorInvalidValue;
+  const auto args = [&](auto launcher) {
+    return launcher(q, k, v, nullptr, nullptr, out, lse, dims, qfold, sscale,
+                    cap, st);
+  };
+  const bool plain_causal =
+      dims[22] == 0 && (dims[21] < 0 || dims[21] >= dims[4] - 1);
+  if (plain_causal && form == 0) return args(launch<true, kFast, false>);
+  if (plain_causal && form == 1)
+    return args(launch<true, kOnlineExp2, false>);
+  switch (form) {
+    case 0: return args(launch<false, kFast, false>);
+    case 1: return args(launch<false, kOnlineExp2, false>);
     case 2: return args(launch<false, kSoftcap, false>);
     default: return (int)cudaErrorInvalidValue;
   }

@@ -1,38 +1,31 @@
-// Block-sparse flash attention for Hopper (sm_90a): forward, dq and dk/dv
-// over the live tiles of a static block mask.
+// Block-sparse flash attention for Hopper (sm_90a): forward and dq over
+// the live tiles of a static block mask. (dk and dv, kernel B9c, run on the
+// wgmma/TMA backward pipeline: flash_bwd_sm90.cu lca_sparse_bwd_dkv.)
 //
 // Replaces the TPU kernels of long_context_attention_tpu/ops/sparse.py:
 //   lca_sparse_fwd     <- _sparse_fwd_kernel (B9a): out and lse of one q
 //                         sub-tile over its mask row's live kv tiles;
 //   lca_sparse_bwd_dq  <- _sparse_dq_kernel (B9b): dq of one q sub-tile over
-//                         the same row;
-//   lca_sparse_bwd_dkv <- _sparse_dkv_kernel (B9c): dk and dv of one kv
-//                         sub-tile over its mask column's live (GQA group
-//                         head, q tile) entries, the group folded into the
-//                         column as in the TPU's column tables.
+//                         the same row.
 //
 // The tables: the host enumerates the live tiles in the JAX package's order
-// (ops/sparse.py _row_tables, _col_tables) and hands each kernel a CSR
-// form. A row (head or 0, q tile) owns the range [ptr[r], ptr[r+1]) of int4
-// entries (kv tile, flags, q_first, kv_first); a column (kv head or 0, kv
-// tile) the range of (group index << 4 | flags, q tile, q_first, kv_first).
-// q_first and kv_first are the tiles' global first positions (for ring
-// shards they come from the layout), and the in-tile causal mask compares
-// them. A row or column with an empty range writes zeros (out 0, lse -inf;
-// dq, dk, dv 0): the TPU's DEAD zero-emit entries.
+// (ops/sparse.py _row_tables) and hands each kernel a CSR form. A row (head
+// or 0, q tile) owns the range [ptr[r], ptr[r+1]) of int4 entries (kv tile,
+// flags, q_first, kv_first). q_first and kv_first are the tiles' global
+// first positions (for ring shards they come from the layout), and the
+// in-tile causal mask compares them. A row with an empty range writes
+// zeros (out 0, lse -inf; dq 0): the TPU's DEAD zero-emit entries.
 //
 // What bounds it on an H100: tensor-core operations. Per visible (row,
-// column) pair B9a does 4*d FLOPs (QK, PV), B9b 6*d (S, dP, dQ), B9c 8*d
-// (S, dP, dV, dK), against 989 TFLOP/s bf16; the bytes are each tile's q,
-// k, v (and dout) once per live tile.
+// column) pair B9a does 4*d FLOPs (QK, PV), B9b 6*d (S, dP, dQ), against
+// 989 TFLOP/s bf16; the bytes are each tile's q, k, v (and dout) once per
+// live tile.
 //
 // Design: the TPU's (b, h, live step) grid with its sequential step axis
-// becomes one 128-thread block per 64-row sub-tile of the block's own side
-// (a mask tile of block_q or block_kv rows, multiples of 64, splits into
-// several blocks), which walks its range in 64-wide sub-tiles of the other
-// side inside the block. The bodies are those of csrc/flash_fwd.cu's fast
-// form (B1) and csrc/flash_bwd.cu's B2a and B2b: mma.sync m16n8k16 (bf16
-// in, fp32 accumulate) fed by ldmatrix, scores and probabilities in
+// becomes one 128-thread block per 64-row q sub-tile (a mask tile of
+// block_q rows, a multiple of 64, splits into several blocks), which walks
+// its range in 64-wide kv sub-tiles inside the block: mma.sync m16n8k16
+// (bf16 in, fp32 accumulate) fed by ldmatrix, scores and probabilities in
 // registers and reused as the A operand of the next product, and a
 // cp.async double buffer that loads the next sub-tile while this one
 // computes. On a tile flagged MASKED, a sub-tile that lies wholly above the
@@ -44,10 +37,9 @@
 //   B9a: scale*log2e is folded into q in bf16 (one rounding), s = q . k,
 //     masked -> -1e30, p = exp2(min(s, 90)), l += rowsum(p), acc +=
 //     bf16(p) @ v; out = acc / l, lse = ln l; l == 0 gives out 0, lse -inf.
-//   B9b, B9c: s = (q . k) * scale from the raw q, masked -> -1e30, p =
-//     exp(s - lse) with the -inf-safe lse (+1e30 on dead rows), ds = p *
-//     (dp - delta); dq = scale * sum bf16(ds) @ k, dv = sum bf16(p)^T @
-//     dout, dk = scale * sum bf16(ds)^T @ q.
+//   B9b: s = (q . k) * scale from the raw q, masked -> -1e30, p = exp(s -
+//     lse) with the -inf-safe lse (+1e30 on dead rows), ds = p * (dp -
+//     delta); dq = scale * sum bf16(ds) @ k.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -70,8 +62,6 @@ constexpr int kMasked = 4;  // the table's _F_MASKED flag
 constexpr int FWD_SMEM = 5 * TILE_BYTES;
 // B9b: q, dout, 2 stages each of k and v
 constexpr int DQ_SMEM = 6 * TILE_BYTES;
-// B9c: k, v, 2 stages each of q and dout, 2 stages of lse and delta
-constexpr int DKV_SMEM = 6 * TILE_BYTES + 4 * BT * 4;
 
 struct Params {
   const __nv_bfloat16* q;
@@ -82,8 +72,6 @@ struct Params {
   const float* delta;  // (b, h, s_q)
   void* out;           // B9a: bf16 out; B9b: fp32 dq
   float* out_lse;      // B9a: lse (b, h, s_q)
-  float* dk;
-  float* dv;
   const int* ptr;      // CSR ranges of the walk
   const int4* ent;     // CSR entries
   int h, h_kv, s_q, s_kv;
@@ -92,7 +80,6 @@ struct Params {
   long long v_sb, v_ss, v_sh;
   long long o_sb, o_ss, o_sh;     // dout
   long long r_sb, r_ss, r_sh;     // out (B9a) or dq (B9b)
-  long long dk_sb, dk_ss, dk_sh;  // dk and dv
   int n_q, n_kv, bq, bkv, per_head;
   float qfold;  // B9a: scale*log2e folded into q
   float scale;  // B9b, B9c
@@ -189,20 +176,17 @@ __device__ __forceinline__ unsigned bt_addr(const unsigned short* x, int k0,
                    (mi >> 1) * 8);
 }
 
-// One step of a walk: entry e of the CSR range and the sub-tile j of the
-// walked side, which runs over [j, hi) for this entry.
+// One step of a walk: entry e of the CSR range and the kv sub-tile j,
+// which runs over [j, hi) for this entry.
 struct Step {
   int e, j, hi;
   int4 en;
 };
 
-// The walk of a block over its CSR range [e, e_end): every entry's
-// sub-tiles of the walked side (bq or bkv / 64 of them) in order, less
-// those wholly above the causal diagonal on MASKED tiles. ROW: the block
-// owns q rows at offset `own` in the entry's q tile and walks kv sub-tiles
-// (fwd, dq); else it owns kv rows at offset `own` in the kv tile and walks
-// q sub-tiles (dk/dv).
-template <bool ROW>
+// The walk of a block over its row's CSR range [e, e_end): every entry's
+// kv sub-tiles (bkv / 64 of them) in order, less those wholly above the
+// causal diagonal on MASKED tiles; the block owns q rows at offset `own`
+// in the entry's q tile.
 struct Walk {
   const int4* ent;
   int e_end, own, nsub;
@@ -210,18 +194,12 @@ struct Walk {
   __device__ Step from(int e) const {
     for (; e < e_end; ++e) {
       const int4 en = ent[e];
-      const bool masked = (ROW ? en.y : en.x) & kMasked;
-      int lo = 0, hi = nsub;
-      if (masked) {
-        if (ROW) {  // kv sub-tile j is visible iff kf + 64j <= q_last
-          const int x = en.z + own + BT - 1 - en.w;
-          hi = x < 0 ? 0 : min(nsub, x / BT + 1);
-        } else {  // q sub-tile j is visible iff q_first + 64j + 63 >= kv0
-          const int x = en.w + own - en.z - (BT - 1);
-          lo = x <= 0 ? 0 : (x + BT - 1) / BT;
-        }
+      int hi = nsub;
+      if (en.y & kMasked) {  // kv sub-tile j is visible iff kf + 64j <= q_last
+        const int x = en.z + own + BT - 1 - en.w;
+        hi = x < 0 ? 0 : min(nsub, x / BT + 1);
       }
-      if (lo < hi) return Step{e, lo, hi, en};
+      if (0 < hi) return Step{e, 0, hi, en};
     }
     return Step{e_end, 0, 0, make_int4(0, 0, 0, 0)};
   }
@@ -248,7 +226,7 @@ __global__ void __launch_bounds__(NTHREADS) sparse_fwd_kernel(const Params p) {
   const int iq = q0 / p.bq;
   const int qsub = q0 - iq * p.bq;
   const int row = (p.per_head ? ih : 0) * p.n_q + iq;
-  const Walk<true> walk{p.ent, p.ptr[row + 1], qsub, p.bkv / BT};
+  const Walk walk{p.ent, p.ptr[row + 1], qsub, p.bkv / BT};
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
@@ -410,7 +388,7 @@ __global__ void __launch_bounds__(NTHREADS)
   const int iq = q0 / p.bq;
   const int qsub = q0 - iq * p.bq;
   const int row = (p.per_head ? ih : 0) * p.n_q + iq;
-  const Walk<true> walk{p.ent, p.ptr[row + 1], qsub, p.bkv / BT};
+  const Walk walk{p.ent, p.ptr[row + 1], qsub, p.bkv / BT};
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
@@ -536,173 +514,13 @@ __global__ void __launch_bounds__(NTHREADS)
   }
 }
 
-// ---------------------------------------------------------------------------
-// B9c: dk and dv, one block per (kv sub-tile, kv head, batch row)
-// ---------------------------------------------------------------------------
-
-__global__ void __launch_bounds__(NTHREADS)
-    sparse_bwd_dkv_kernel(const Params p) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  unsigned short* sK = reinterpret_cast<unsigned short*>(smem);
-  unsigned short* sV = sK + TILE;
-  unsigned short* sQ = sV + TILE;      // 2 stages
-  unsigned short* sO = sQ + 2 * TILE;  // 2 stages
-  float* sL = reinterpret_cast<float*>(sO + 2 * TILE);  // 2 stages of lse
-  float* sD = sL + 2 * BT;                               // 2 stages of delta
-
-  const int ihk = blockIdx.y;
-  const int ib = blockIdx.z;
-  const int grp = p.h / p.h_kv;
-  const int k0 = blockIdx.x * BT;
-  const int ik = k0 / p.bkv;
-  const int ksub = k0 - ik * p.bkv;
-  const int col = (p.per_head ? ihk : 0) * p.n_kv + ik;
-  const Walk<false> walk{p.ent, p.ptr[col + 1], ksub, p.bq / BT};
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-
-  float dk[D / 8][4], dv[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
-
-  auto issue = [&](const Step& st, int s) {
-    const int ih = ihk * grp + (st.en.x >> 4);
-    const int q0 = st.en.y * p.bq + st.j * BT;
-    load_tile(sQ + s * TILE, p.q + ib * p.q_sb + ih * p.q_sh, p.q_ss, q0, tid);
-    load_tile(sO + s * TILE, p.dout + ib * p.o_sb + ih * p.o_sh, p.o_ss, q0,
-              tid);
-    cp_async_commit();
-    if (tid < BT) {
-      const long long at = ((long long)ib * p.h + ih) * p.s_q + q0 + tid;
-      sL[s * BT + tid] = p.lse[at];
-      sD[s * BT + tid] = p.delta[at];
-    }
-  };
-  Step cur = walk.from(p.ptr[col]);
-  if (cur.e < walk.e_end) {
-    load_tile(sK, p.k + ib * p.k_sb + ihk * p.k_sh, p.k_ss, k0, tid);
-    load_tile(sV, p.v + ib * p.v_sb + ihk * p.v_sh, p.v_ss, k0, tid);
-    issue(cur, 0);  // one commit group with k and v
-  }
-  const int kv_row0 = warp * 16 + g;  // this lane's kv rows: +0, +8
-
-  for (int it = 0; cur.e < walk.e_end; ++it) {
-    const int stage = it & 1;
-    const Step nxt = walk.next(cur);
-    if (nxt.e < walk.e_end) {
-      issue(nxt, stage ^ 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const unsigned short* tQ = sQ + stage * TILE;
-    const unsigned short* tO = sO + stage * TILE;
-    const float* tL = sL + stage * BT;
-    const float* tD = sD + stage * BT;
-    const int q_pos0 = cur.en.z + cur.j * BT;  // global position of q row 0
-    const int kv_pos0 = cur.en.w + ksub;       // and of this block's kv row 0
-    const bool need_mask = (cur.en.x & kMasked) && kv_pos0 + BT - 1 > q_pos0;
-
-    // two halves of 32 q columns keep the register count down
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int c0 = half * 32;
-      // S^T = K Q^T and dP^T = V dO^T: the warp's 16 kv rows x 32 q cols
-      float s[4][4], dp[4][4];
-#pragma unroll
-      for (int n = 0; n < 4; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        unsigned ka[4], va[4];
-        ldsm_x4(ka, a_addr(sK, warp * 16, kk * 16, lane));
-        ldsm_x4(va, a_addr(sV, warp * 16, kk * 16, lane));
-#pragma unroll
-        for (int np = 0; np < 2; ++np) {
-          unsigned b[4];
-          ldsm_x4(b, bn_addr(tQ, c0 + np * 16, kk * 16, lane));
-          mma_bf16(s[2 * np], ka, b[0], b[1]);
-          mma_bf16(s[2 * np + 1], ka, b[2], b[3]);
-          ldsm_x4(b, bn_addr(tO, c0 + np * 16, kk * 16, lane));
-          mma_bf16(dp[2 * np], va, b[0], b[1]);
-          mma_bf16(dp[2 * np + 1], va, b[2], b[3]);
-        }
-      }
-
-      // p^T into s, ds^T (unscaled) into dp
-#pragma unroll
-      for (int n = 0; n < 4; ++n) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int ql = c0 + n * 8 + 2 * t + (e & 1);  // q row in the tile
-          float x = s[n][e] * p.scale;
-          if (need_mask && kv_pos0 + kv_row0 + (e >> 1) * 8 > q_pos0 + ql)
-            x = kNegInf;
-          const float pv = expf(x - tL[ql]);
-          s[n][e] = pv;
-          dp[n][e] = pv * (dp[n][e] - tD[ql]);
-        }
-      }
-
-      // dV += bf16(P^T) dO and dK += bf16(dS^T) Q over these 32 q rows
-#pragma unroll
-      for (int kc = 0; kc < 2; ++kc) {
-        unsigned pa[4], da[4];
-        pa[0] = pack_bf16(s[2 * kc][0], s[2 * kc][1]);
-        pa[1] = pack_bf16(s[2 * kc][2], s[2 * kc][3]);
-        pa[2] = pack_bf16(s[2 * kc + 1][0], s[2 * kc + 1][1]);
-        pa[3] = pack_bf16(s[2 * kc + 1][2], s[2 * kc + 1][3]);
-        da[0] = pack_bf16(dp[2 * kc][0], dp[2 * kc][1]);
-        da[1] = pack_bf16(dp[2 * kc][2], dp[2 * kc][3]);
-        da[2] = pack_bf16(dp[2 * kc + 1][0], dp[2 * kc + 1][1]);
-        da[3] = pack_bf16(dp[2 * kc + 1][2], dp[2 * kc + 1][3]);
-#pragma unroll
-        for (int dpi = 0; dpi < D / 16; ++dpi) {
-          unsigned b[4];
-          ldsm_x4_t(b, bt_addr(tO, c0 + kc * 16, dpi * 16, lane));
-          mma_bf16(dv[2 * dpi], pa, b[0], b[1]);
-          mma_bf16(dv[2 * dpi + 1], pa, b[2], b[3]);
-          ldsm_x4_t(b, bt_addr(tQ, c0 + kc * 16, dpi * 16, lane));
-          mma_bf16(dk[2 * dpi], da, b[0], b[1]);
-          mma_bf16(dk[2 * dpi + 1], da, b[2], b[3]);
-        }
-      }
-    }
-    __syncthreads();  // the next step overwrites this stage
-    cur = nxt;
-  }
-
-  // write dk = scale * sum and dv once (0 for a column no q row sees)
-#pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    const int kv = k0 + kv_row0 + hh * 8;
-    const long long at =
-        ib * p.dk_sb + (long long)kv * p.dk_ss + ihk * p.dk_sh;
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      *reinterpret_cast<float2*>(p.dk + at + n * 8 + 2 * t) = make_float2(
-          dk[n][2 * hh] * p.scale, dk[n][2 * hh + 1] * p.scale);
-      *reinterpret_cast<float2*>(p.dv + at + n * 8 + 2 * t) =
-          make_float2(dv[n][2 * hh], dv[n][2 * hh + 1]);
-    }
-  }
-}
-
 Params make_params(const void* q, const void* k, const void* v,
                    const void* dout, const float* lse, const float* delta,
-                   void* out, float* out_lse, float* dk, float* dv,
-                   const int* ptr, const int* ent, const long long* dims,
-                   float qfold, float scale) {
+                   void* out, float* out_lse, const int* ptr,
+                   const int* ent, const long long* dims, float qfold,
+                   float scale) {
   // dims: b, h, h_kv, s_q, s_kv, then (batch, seq, head) strides of q, k,
-  // v, dout, out (or dq) and dk (dv shares dk's), n_q, n_kv, bq, bkv,
-  // per_head
+  // v, dout, out (or dq) and dk (unused), n_q, n_kv, bq, bkv, per_head
   Params p;
   p.q = static_cast<const __nv_bfloat16*>(q);
   p.k = static_cast<const __nv_bfloat16*>(k);
@@ -712,19 +530,16 @@ Params make_params(const void* q, const void* k, const void* v,
   p.delta = delta;
   p.out = out;
   p.out_lse = out_lse;
-  p.dk = dk;
-  p.dv = dv;
   p.ptr = ptr;
   p.ent = reinterpret_cast<const int4*>(ent);
   p.h = (int)dims[1];
   p.h_kv = (int)dims[2];
   p.s_q = (int)dims[3];
   p.s_kv = (int)dims[4];
-  long long* st[18] = {&p.q_sb,  &p.q_ss,  &p.q_sh,  &p.k_sb,  &p.k_ss,
-                       &p.k_sh,  &p.v_sb,  &p.v_ss,  &p.v_sh,  &p.o_sb,
-                       &p.o_ss,  &p.o_sh,  &p.r_sb,  &p.r_ss,  &p.r_sh,
-                       &p.dk_sb, &p.dk_ss, &p.dk_sh};
-  for (int i = 0; i < 18; ++i) *st[i] = dims[5 + i];
+  long long* st[15] = {&p.q_sb, &p.q_ss, &p.q_sh, &p.k_sb, &p.k_ss,
+                       &p.k_sh, &p.v_sb, &p.v_ss, &p.v_sh, &p.o_sb,
+                       &p.o_ss, &p.o_sh, &p.r_sb, &p.r_ss, &p.r_sh};
+  for (int i = 0; i < 15; ++i) *st[i] = dims[5 + i];
   p.n_q = (int)dims[23];
   p.n_kv = (int)dims[24];
   p.bq = (int)dims[25];
@@ -760,9 +575,9 @@ int launch(K kern, dim3 grid, int smem, const Params& p, cudaStream_t stream) {
       const float *lse, const float *delta, void *out, float *out_lse,         \
       float *dk, float *dv, const int *ptr, const int *ent,                    \
       const long long *dims, float qfold, float scale, void *stream
-#define LCA_SPARSE_PARAMS                                                      \
-  make_params(q, k, v, dout, lse, delta, out, out_lse, dk, dv, ptr, ent, dims, \
-              qfold, scale)
+#define LCA_SPARSE_PARAMS \
+  make_params(q, k, v, dout, lse, delta, out, out_lse, ptr, ent, dims, qfold, \
+              scale)
 
 // B9a: out (b, s_q, h, d) bf16 and lse; walks the row ranges.
 extern "C" int lca_sparse_fwd(LCA_SPARSE_ARGS) {
@@ -777,14 +592,6 @@ extern "C" int lca_sparse_bwd_dq(LCA_SPARSE_ARGS) {
   const Params p = LCA_SPARSE_PARAMS;
   const dim3 grid(p.s_q / BT, p.h, (unsigned)dims[0]);
   return launch(sparse_bwd_dq_kernel, grid, DQ_SMEM, p,
-                static_cast<cudaStream_t>(stream));
-}
-
-// B9c: dk, dv (b, s_kv, h_kv, d) fp32; walks the column ranges.
-extern "C" int lca_sparse_bwd_dkv(LCA_SPARSE_ARGS) {
-  const Params p = LCA_SPARSE_PARAMS;
-  const dim3 grid(p.s_kv / BT, p.h_kv, (unsigned)dims[0]);
-  return launch(sparse_bwd_dkv_kernel, grid, DKV_SMEM, p,
                 static_cast<cudaStream_t>(stream));
 }
 

@@ -158,7 +158,7 @@ KERNELS: Dict[str, Kernel] = {
         [_VP, _VP, _VP, _VP, _VP, _VP, _F, _F, _I, _VP],
         "long_context_attention_tpu/ops/flash.py:338"),
     "flash_fwd_static": Kernel(
-        "flash_fwd_static", "flash_fwd.cu", "lca_flash_fwd_static",
+        "flash_fwd_static", "flash_fwd_sm90.cu", "lca_flash_fwd_static",
         [_VP] * 6 + [_F, _F, _F, _I, _VP],
         "long_context_attention_tpu/ops/flash.py:475"),
     "flash_fwd_pos": Kernel(
@@ -201,9 +201,9 @@ KERNELS: Dict[str, Kernel] = {
         "flash_bwd_fused", "flash_bwd_sm90.cu", "lca_flash_bwd_fused",
         [_VP] * 10 + [_F, _VP],
         "long_context_attention_tpu/ops/flash.py:1291"),
-    # the sparse entries share one C signature: q, k, v, dout, lse, delta,
-    # out (B9b: dq), out_lse, dk, dv (null where unused), the CSR walk
-    # (ptr, entries), dims, qfold, scale, stream
+    # the sparse entries B9a and B9b share one C signature: q, k, v, dout,
+    # lse, delta, out (B9b: dq), out_lse, dk, dv (null where unused), the
+    # CSR walk (ptr, entries), dims, qfold, scale, stream
     "sparse_fwd": Kernel(
         "sparse_fwd", "sparse.cu", "lca_sparse_fwd",
         [_VP] * 13 + [_F, _F, _VP],
@@ -212,9 +212,12 @@ KERNELS: Dict[str, Kernel] = {
         "sparse_bwd_dq", "sparse.cu", "lca_sparse_bwd_dq",
         [_VP] * 13 + [_F, _F, _VP],
         "long_context_attention_tpu/ops/sparse.py:469"),
+    # B9c runs on B2b's pipeline: q, k, v, dout, lse, delta, dk, dv, the
+    # CSR walk (ptr, entries), the items, the blocks' schedule (ptr, work),
+    # dims, scale, stream
     "sparse_bwd_dkv": Kernel(
-        "sparse_bwd_dkv", "sparse.cu", "lca_sparse_bwd_dkv",
-        [_VP] * 13 + [_F, _F, _VP],
+        "sparse_bwd_dkv", "flash_bwd_sm90.cu", "lca_sparse_bwd_dkv",
+        [_VP] * 14 + [_F, _VP],
         "long_context_attention_tpu/ops/sparse.py:516"),
     "cache_append": Kernel(
         "cache_append", "cache_append.cu", "lca_cache_append",

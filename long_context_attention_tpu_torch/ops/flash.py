@@ -9,10 +9,10 @@ PyTorch version of the same arithmetic in this module:
 * :func:`flash_fwd_causal_self` (kernel B1, ``csrc/flash_fwd_sm90.cu``:
   wgmma and TMA, sm_90a only): causal self-attention with s_q == s_kv, the
   TPU's ``_fwd_kernel_tri``.
-* :func:`flash_fwd_static` (kernel B4, ``csrc/flash_fwd.cu``): any other
-  self-attention with s_q == s_kv and positions from 0 -- non-causal,
-  sliding window, StreamingLLM sinks, softcap -- the TPU's
-  ``_fwd_kernel_static``.
+* :func:`flash_fwd_static` (kernel B4, ``csrc/flash_fwd_sm90.cu``, B3's
+  wgmma/TMA kernel at q position 0): any other self-attention with s_q ==
+  s_kv and positions from 0 -- non-causal, sliding window, StreamingLLM
+  sinks, softcap -- the TPU's ``_fwd_kernel_static``.
 * :func:`flash_fwd_pos` (kernel B3, ``csrc/flash_fwd_sm90.cu``): q rows
   at global positions ``q_start + i`` against a BHSD kv (a cache slice,
   taken by strides), with the same masks and softcap, bf16 or int8 K/V

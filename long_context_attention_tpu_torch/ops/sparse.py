@@ -15,9 +15,12 @@ arithmetic in this module:
   tile's global first positions on straddling tiles;
 * :func:`sparse_bwd_dq` (kernel B9b): dq over the row-major live set, the
   TPU's ``_sparse_dq_kernel``;
-* :func:`sparse_bwd_dkv` (kernel B9c): dk and dv over the column-major
-  live set with the GQA group folded into each kv column, the TPU's
-  ``_sparse_dkv_kernel``.
+* :func:`sparse_bwd_dkv` (kernel B9c, ``csrc/flash_bwd_sm90.cu``: the
+  wgmma/TMA pipeline of B2b with a walk over the column tables): dk and dv
+  over the column-major live set with the GQA group folded into each kv
+  column, the TPU's ``_sparse_dkv_kernel``. Its items (128 kv rows of a
+  column) are listed on the host, longest walk first, and dealt to the
+  persistent blocks (:meth:`SparsePlan.dkv_items`, ``dkv_schedule``).
 
 The tables are JAX's (``_row_tables``, ``_col_tables``), built here in the
 same order; the kernels read them in a CSR form, one ``[start, end)`` range
@@ -41,6 +44,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import heapq
 import math
 from typing import Dict, Optional, Tuple
 
@@ -84,6 +88,10 @@ _F_MASKED = 4  # tile straddles the causal diagonal: apply the in-tile mask
 _F_DEAD = 8    # FIRST|LAST|DEAD: a row or column with no live tile
 
 _KERNEL_BLOCK = 64  # the kernels' sub-tile: block sizes must be multiples
+_DKV_ROWS = 128     # kv rows of a B9c item (csrc/flash_bwd_sm90.cu BKV)
+# B9c's schedule: an item's cost in 64-row q steps, plus this much for its
+# K/V load and its write-out
+_DKV_ITEM_COST = 2
 # tiles of the walked side the plain versions take at once (their memory)
 _PLAIN_TILES = 16
 
@@ -344,6 +352,75 @@ class SparsePlan:
                 torch.from_numpy(a).to(device) for a in (*row, *col))
         return self._on_device[key]
 
+    def dkv_items(self, device=None):
+        """B9c's items, longest walk first: (n, 4) int32 rows of (column,
+        first row in its kv tile, steps, 0), one per column (kv head or 0,
+        kv tile) and 128-row offset, in a stable order of falling steps. An
+        item's steps are, for each live entry of its column, its block_q /
+        64 q sub-tiles less, on a straddling tile, those wholly above the
+        diagonal (their last q position before the item's first kv
+        position). The kernel repeats item i over the batch rows and, for a
+        mask shared by the heads, the kv heads: its work item t is item t //
+        r with r = b (per-head mask; the column's kv head) or b * h_kv (kv
+        head (t % r) // b), batch row t % r % b (:meth:`dkv_schedule` deals
+        them to the blocks). A numpy array, or a tensor on ``device``
+        (cached)."""
+        key = f"dkv_items {device}"
+        if device is not None and key in self._on_device:
+            return self._on_device[key]
+        ihk, _, _, ik, fl, qf, kf = self.col_tables()
+        heads = self.mh.shape[0] // self.g if self.per_head else 1
+        live = (fl & _F_DEAD) == 0
+        subs = np.arange(0, self.bkv, _DKV_ROWS)
+        # q sub-tiles j < lo end before the item's first kv position
+        gap = (kf[live, None].astype(np.int64) + subs[None, :]
+               - qf[live, None] - (_KERNEL_BLOCK - 1))
+        lo = np.where((fl[live, None] & _F_MASKED) != 0,
+                      np.clip(-(-gap // _KERNEL_BLOCK), 0, None), 0)
+        steps = np.zeros((heads * self.n_kv, subs.size), np.int64)
+        np.add.at(steps, (ihk * self.n_kv + ik)[live],
+                  np.clip(self.bq // _KERNEL_BLOCK - lo, 0, None))
+        flat = steps.reshape(-1)
+        order = np.argsort(-flat, kind="stable")
+        col, sub = np.divmod(order, subs.size)
+        items = np.stack([col, sub * _DKV_ROWS, flat[order],
+                          np.zeros_like(col)], axis=1).astype(np.int32)
+        if device is None:
+            return items
+        self._on_device[key] = torch.from_numpy(items).to(device)
+        return self._on_device[key]
+
+    def dkv_schedule(self, b: int, h_kv: int, n_blocks: int, device=None):
+        """B9c's work items (:meth:`dkv_items`, repeated over b batch rows
+        and, for a shared mask, h_kv kv heads) dealt to at most
+        ``n_blocks`` persistent blocks: (ptr (blocks + 1,), work (n,))
+        int32, block i running work[ptr[i]:ptr[i + 1]] in that order.
+        Longest first, each item goes to the block with the least work so
+        far, its steps plus _DKV_ITEM_COST (greedy list scheduling: no
+        block ends more than one item's work after the average). Numpy
+        arrays, or tensors on ``device`` (cached)."""
+        key = f"dkv_schedule {device} {b} {h_kv} {n_blocks}"
+        if device is not None and key in self._on_device:
+            return self._on_device[key]
+        reps = b if self.per_head else b * h_kv
+        cost = np.repeat(self.dkv_items()[:, 2].astype(np.int64),
+                         reps) + _DKV_ITEM_COST
+        blocks = max(min(n_blocks, cost.size), 1)
+        heap = [(0, i) for i in range(blocks)]
+        owner = np.empty(cost.size, np.int64)
+        for t, c in enumerate(cost.tolist()):
+            load, i = heapq.heappop(heap)
+            owner[t] = i
+            heapq.heappush(heap, (load + c, i))
+        ptr = np.zeros(blocks + 1, np.int32)
+        ptr[1:] = np.cumsum(np.bincount(owner, minlength=blocks))
+        work = np.argsort(owner, kind="stable").astype(np.int32)
+        if device is None:
+            return ptr, work
+        self._on_device[key] = tuple(torch.from_numpy(a).to(device)
+                                     for a in (ptr, work))
+        return self._on_device[key]
+
 
 @functools.lru_cache(maxsize=None)
 def _plan(mask_key: bytes, mask_shape, h: int, n_q: int, n_kv: int,
@@ -567,18 +644,28 @@ def _launch(kernel: str, q, k, v, plan: SparsePlan, *, scale: float,
         return t.stride()[:3] if t is not None else (0, 0, 0)
 
     row_ptr, row_ent, col_ptr, col_ent = plan.csr(q.device)
-    walk = (col_ptr, col_ent) if kernel == "sparse_bwd_dkv" else (
-        row_ptr, row_ent)
-    dims = _build.dims_array([
-        b, h, k.shape[2], s_q, k.shape[1], *strides(q), *strides(k),
-        *strides(v), *strides(dout), *strides(out), *strides(dk), plan.n_q,
-        plan.n_kv, plan.bq, plan.bkv, int(plan.per_head)])
+    dims = [b, h, k.shape[2], s_q, k.shape[1], *strides(q), *strides(k),
+            *strides(v), *strides(dout), *strides(out), *strides(dk),
+            plan.n_q, plan.n_kv, plan.bq, plan.bkv, int(plan.per_head)]
+    if kernel == "sparse_bwd_dkv":
+        items = plan.dkv_items(q.device)
+        sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+        sched_ptr, sched = plan.dkv_schedule(b, k.shape[2], sms, q.device)
+        _build.KERNELS[kernel](
+            _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(dout),
+            _build.ptr(lse), _build.ptr(delta), _build.ptr(dk),
+            _build.ptr(dv), _build.ptr(col_ptr), _build.ptr(col_ent),
+            _build.ptr(items), _build.ptr(sched_ptr), _build.ptr(sched),
+            _build.dims_array([*dims, items.shape[0],
+                               sched_ptr.shape[0] - 1]),
+            scale, _build.stream_ptr(q.device))
+        return
     _build.KERNELS[kernel](
         _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(dout),
         _build.ptr(lse), _build.ptr(delta), _build.ptr(out),
         _build.ptr(out_lse), _build.ptr(dk), _build.ptr(dv),
-        _build.ptr(walk[0]), _build.ptr(walk[1]), dims, scale * _LOG2E,
-        scale, _build.stream_ptr(q.device))
+        _build.ptr(row_ptr), _build.ptr(row_ent), _build.dims_array(dims),
+        scale * _LOG2E, scale, _build.stream_ptr(q.device))
 
 
 def sparse_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -615,9 +702,11 @@ def sparse_bwd_dq(q, k, v, dout, lse, delta, plan: SparsePlan, *,
 
 def sparse_bwd_dkv(q, k, v, dout, lse, delta, plan: SparsePlan, *,
                    scale: float):
-    """Kernel B9c wrapper: dk, dv (b, s_kv, h_kv, d) fp32. One block per
-    64-row kv sub-tile walks its column's live (group head, q tile) entries
-    and owns its rows (no atomics: deterministic). CPU tensors take
+    """Kernel B9c wrapper: dk, dv (b, s_kv, h_kv, d) fp32. One persistent
+    block per SM takes its share of the plan's items
+    (:meth:`SparsePlan.dkv_schedule`), 128 kv rows of a column each, and
+    walks the column's live (group head, q tile) entries in 64-row q steps;
+    each item owns its rows (no atomics: deterministic). CPU tensors take
     :func:`sparse_bwd_dkv_plain`."""
     _check_shapes(q, k, v, plan)
     if q.device.type == "cpu":

@@ -1,11 +1,11 @@
 """The port's kernel registry and the operand checks of its wrappers, on the
 CPU: every kernel binds a source under ``csrc/`` and names the Pallas kernel
-it replaces (sage's quantization pass, the JAX function it computes); B2b
-and B5 live in the wgmma/TMA source ``flash_bwd_sm90.cu``, B8a and B8b in
-``sage_fwd_sm90.cu``; a library is rebuilt when a shared header changes;
-and the strides a kernel cannot read (TMA's tensor maps, cp.async's 16-byte
-rows) raise, while the BSHD views the model and the cache hand the kernels
-pass."""
+it replaces (sage's quantization pass, the JAX function it computes); B2b,
+B5 and B9c live in the wgmma/TMA source ``flash_bwd_sm90.cu``, B1, B3 and
+B4 in ``flash_fwd_sm90.cu``, B8a and B8b in ``sage_fwd_sm90.cu``; a library
+is rebuilt when a shared header changes; and the strides a kernel cannot
+read (TMA's tensor maps, cp.async's 16-byte rows) raise, while the BSHD
+views the model and the cache hand the kernels pass."""
 
 import pathlib
 
@@ -84,6 +84,27 @@ def test_sage_kernel_sources(name, source, site):
     assert defined == [source]
 
 
+@pytest.mark.parametrize("name,source,site", [
+    ("flash_fwd_causal_self", "flash_fwd_sm90.cu", "flash.py:338"),
+    ("flash_fwd_static", "flash_fwd_sm90.cu", "flash.py:475"),
+    ("flash_fwd_pos", "flash_fwd_sm90.cu", "flash.py:696"),
+    ("sparse_fwd", "sparse.cu", "sparse.py:314"),
+    ("sparse_bwd_dq", "sparse.cu", "sparse.py:469"),
+    ("sparse_bwd_dkv", "flash_bwd_sm90.cu", "sparse.py:516"),
+])
+def test_forward_and_sparse_kernel_sources(name, source, site):
+    """B1, B3 and B4 run from the Hopper forward source (wgmma, TMA); B9c
+    runs on B2b's wgmma/TMA pipeline in the backward source, while B9a and
+    B9b stay on mma.sync in sparse.cu. Each C entry point is defined in its
+    source only."""
+    k = _build.KERNELS[name]
+    assert k.source == source
+    assert k.replaces == f"long_context_attention_tpu/ops/{site}"
+    defined = [p.name for p in sorted(_build.CSRC.glob("*.cu"))
+               if f'extern "C" int {k.symbol}(' in p.read_text()]
+    assert defined == [source]
+
+
 def test_sage_sm90_source_uses_the_s8_wgmma():
     """B8a and B8b's QK^T runs on wgmma's int8 path (both operands K-major
     from shared memory), built for sm_90a, on the shared Hopper header."""
@@ -96,13 +117,24 @@ def test_sage_sm90_source_uses_the_s8_wgmma():
 
 
 def test_sm90_sources_build_for_sm90a():
-    """wgmma and setmaxnreg exist only for sm_90a."""
+    """wgmma and setmaxnreg exist only for sm_90a. The backward source
+    (B5, B2b and B9c) and the forward source (B1, B3, B4) use them; B9c's
+    walk is a template parameter of B2b's kernel, not a second pipeline."""
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
-    src = (_build.CSRC / "flash_bwd_sm90.cu").read_text()
+    header = (_build.CSRC / "sm90.cuh").read_text()
+    bwd = (_build.CSRC / "flash_bwd_sm90.cu").read_text()
     for needle in ("wgmma.mma_async", "cp.reduce.async.bulk.tensor",
                    "setmaxnreg", "sm90.cuh"):
-        assert needle in src or needle in (
-            _build.CSRC / "sm90.cuh").read_text()
+        assert needle in bwd or needle in header
+    assert bwd.count("__global__") == 1
+    assert "launch<false, true>(" in bwd
+    fwd = (_build.CSRC / "flash_fwd_sm90.cu").read_text()
+    for needle in ("wgmma.mma_async", "tma_load_4d", "setmaxnreg_inc",
+                   '#include "sm90.cuh"'):
+        assert needle in fwd
+    # no source derives its aligned shared base through an integer cast
+    for src in sorted(_build.CSRC.glob("*.cu")):
+        assert "uintptr_t" not in src.read_text(), src.name
 
 
 def test_build_key_covers_shared_headers(tmp_path, monkeypatch):

@@ -4,7 +4,8 @@ the same numpy inputs: the tile-mask functions and the live-tile tables
 through ``block_sparse_attention`` against JAX's dense-bias oracle
 (``xla_attention`` with the tile mask as an additive bias, the pattern of
 ``tests/test_sparse.py``) and, for a causal GQA per-head mask and the
-ulysses head shard, against JAX's own kernels in interpret mode.
+ulysses head shard, against JAX's own kernels in interpret mode; and
+B9c's host item order and block schedule (exact).
 
 Tolerances (those of ``tests/test_sparse.py``):
 * fp32 out and lse 2e-5, gradients 2e-4: the same fp32 arithmetic on both
@@ -154,6 +155,94 @@ def test_tables_match_jax(case):
                                   (ihk * n_kv + ikc)[live])
 
 
+# B9c's item order: the usp_sparse path's masks (32768 tokens in tiles of
+# 512, 16/8 heads) and a plan in tiles of 192
+_USP_N, _USP_H = 64, 16
+ITEM_CASES = {
+    "streaming": (tsp.global_local_block_mask(_USP_N, _USP_N, 8, sink_tiles=1),
+                  _USP_H, _USP_N, 512),
+    "strided": (tsp.strided_block_mask(_USP_N, _USP_N, 8, local_tiles=4),
+                _USP_H, _USP_N, 512),
+    "per_head": (np.stack([tsp.global_local_block_mask(
+        _USP_N, _USP_N, 4 + 2 * (i % 5), sink_tiles=1) for i in range(_USP_H)]),
+        _USP_H, _USP_N, 512),
+    "block 192": (tsp.global_local_block_mask(12, 12, 3, sink_tiles=1), 4, 12,
+                  192),
+}
+
+
+@pytest.mark.parametrize("case", ITEM_CASES)
+def test_dkv_item_order(case):
+    """B9c's host item order (SparsePlan.dkv_items), causal: expanded as the
+    kernel expands it over 2 batch rows and the kv heads, every (128-row
+    sub-tile, column, batch row, kv head) appears exactly once; step counts
+    do not increase along the order; and each item's count equals its
+    column's live entries' 64-row q steps less those wholly above the
+    diagonal, counted here one step at a time."""
+    mask, h, n, blk = ITEM_CASES[case]
+    g, b = 2, 2
+    h_kv = h // g
+    m = np.ascontiguousarray(mask)
+    plan = tsp._plan(m.tobytes(), m.shape, h, n, n, True, blk, blk, g, 0, 1)
+    items = plan.dkv_items()
+    assert items.dtype == np.int32 and items.shape[1] == 4
+    assert (np.diff(items[:, 2]) <= 0).all()
+    n_cols = (h_kv if plan.per_head else 1) * n
+    subs = list(range(0, blk, 128))
+    assert sorted(map(tuple, items[:, :2].tolist())) == [
+        (c, sub) for c in range(n_cols) for sub in subs]
+    # the kernel's expansion of item t // reps (csrc/flash_bwd_sm90.cu
+    # item_of): batch row t % reps % b, kv head from a per-head column or
+    # (t % reps) // b
+    reps = b if plan.per_head else b * h_kv
+    seen = set()
+    for t in range(items.shape[0] * reps):
+        col, sub = items[t // reps, :2]
+        r = t % reps
+        ihk = col // n if plan.per_head else r // b
+        seen.add((int(sub), int(col % n), r % b, int(ihk)))
+    assert len(seen) == items.shape[0] * reps == len(subs) * n * b * h_kv
+    # step counts, one 64-row q step at a time
+    ihk, _, _, ik, fl, qf, kf = plan.col_tables()
+    want = {}
+    for e in np.flatnonzero((fl & tsp._F_DEAD) == 0):
+        col = int(ihk[e]) * n + int(ik[e])
+        for sub in subs:
+            for j in range(blk // 64):
+                above = qf[e] + 64 * j + 63 < kf[e] + sub
+                if not (fl[e] & tsp._F_MASKED and above):
+                    want[col, sub] = want.get((col, sub), 0) + 1
+    for col, sub, steps, _ in items.tolist():
+        assert steps == want.get((col, sub), 0), (col, sub)
+
+
+@pytest.mark.parametrize("case", ITEM_CASES)
+def test_dkv_schedule(case):
+    """B9c's blocks (SparsePlan.dkv_schedule) over 2 batch rows and 132
+    blocks (an H100's SMs): every work item runs exactly once; each block
+    takes its items longest first; and no block's work (steps + the
+    per-item cost) passes the average by more than the largest item's,
+    the bound of greedy list scheduling."""
+    mask, h, n, blk = ITEM_CASES[case]
+    g, b, blocks = 2, 2, 132
+    h_kv = h // g
+    m = np.ascontiguousarray(mask)
+    plan = tsp._plan(m.tobytes(), m.shape, h, n, n, True, blk, blk, g, 0, 1)
+    ptr, work = plan.dkv_schedule(b, h_kv, blocks)
+    reps = b if plan.per_head else b * h_kv
+    n_work = plan.dkv_items().shape[0] * reps
+    assert ptr.dtype == work.dtype == np.int32
+    assert ptr.size == min(blocks, n_work) + 1 and ptr[0] == 0
+    assert sorted(work.tolist()) == list(range(n_work))
+    cost = np.repeat(plan.dkv_items()[:, 2], reps) + tsp._DKV_ITEM_COST
+    loads = []
+    for i in range(ptr.size - 1):
+        mine = cost[work[ptr[i]:ptr[i + 1]]]
+        assert (np.diff(mine) <= 0).all()
+        loads.append(int(mine.sum()))
+    assert max(loads) <= cost.sum() / (ptr.size - 1) + cost.max()
+
+
 # ---------------------------------------------------------------------------
 # forward against the dense-bias oracle
 # ---------------------------------------------------------------------------
@@ -244,10 +333,10 @@ def test_bf16_within_reference_gate(rng):
 # ---------------------------------------------------------------------------
 
 
-def _port_grads(q, k, v, dout, mask, **kw):
+def _port_grads(q, k, v, dout, mask, block=BQ, **kw):
     tq, tk, tv = (_t(x).requires_grad_() for x in (q, k, v))
-    out = tsp.block_sparse_attention(tq, tk, tv, mask, block_q=BQ,
-                                     block_kv=BKV, **kw)
+    out = tsp.block_sparse_attention(tq, tk, tv, mask, block_q=block,
+                                     block_kv=block, **kw)
     out.backward(_t(dout))
     return out, (tq.grad, tk.grad, tv.grad)
 
@@ -289,6 +378,31 @@ def test_per_head_gqa_matches_jax_kernels(rng):
     def loss(q, k, v):
         return jnp.sum(jsp.block_sparse_attention(
             q, k, v, mask, causal=True, block_q=BQ, block_kv=BKV) * dout)
+
+    want = jax.grad(loss, argnums=(0, 1, 2))(jq, jk, jv)
+    for g, w in zip(grads, want):
+        np.testing.assert_allclose(_np(g), np.asarray(w), **GRAD_TOL)
+
+
+def test_block_192_grads_match_jax_kernels(rng):
+    """Tiles of 192 rows, an odd multiple of the kernels' 64 (B9c's last
+    128-row item of each kv tile is half the next tile's): out and all
+    three gradients of the port's plain versions against JAX's
+    block_sparse_attention (its Pallas kernels in interpret mode), causal
+    StreamingLLM mask, GQA."""
+    s, blk = 576, 192
+    q, k, v = make_qkv(rng, b=1, s=s)
+    dout = rng.standard_normal(q.shape).astype(np.float32)
+    mask = jsp.global_local_block_mask(s // blk, s // blk, 1, sink_tiles=1)
+    out, grads = _port_grads(q, k, v, dout, mask, block=blk, causal=True)
+    jq, jk, jv = map(jnp.asarray, (q, k, v))
+    ref_out = jsp.block_sparse_attention(jq, jk, jv, mask, causal=True,
+                                         block_q=blk, block_kv=blk)
+    np.testing.assert_allclose(_np(out), np.asarray(ref_out), **OUT_TOL)
+
+    def loss(q, k, v):
+        return jnp.sum(jsp.block_sparse_attention(
+            q, k, v, mask, causal=True, block_q=blk, block_kv=blk) * dout)
 
     want = jax.grad(loss, argnums=(0, 1, 2))(jq, jk, jv)
     for g, w in zip(grads, want):
