@@ -30,8 +30,9 @@ Phases, one JSON line each; any failure exits non-zero:
      block-sparse kernels B9a, B9b and B9c at b=1, s=32768 in tiles of 512
      on the StreamingLLM, strided and per-head masks, a mask whose last
      quarter of rows has no live tile, one with an empty kv column, and a
-     non-causal 8192 x 32768 random mask, and at s=6144 in tiles of 192),
-     each
+     non-causal 8192 x 32768 random mask, and at s=6144 in tiles of 192;
+     B9a on the wgmma/TMA forward pipeline, B9b on the dq pipeline, B9c on
+     B2b's backward pipeline), each
      output row held against its own size (ROW_REL_TOL), with its time,
      the plain version's, a PyTorch library call's (timed here only) and
      the least time the card could take;
@@ -80,6 +81,7 @@ import dataclasses
 import functools
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -177,6 +179,30 @@ SPARSE_KERNELS = ("sparse_fwd", "sparse_bwd_dq", "sparse_bwd_dkv")
 
 def emit(obj):
     print(json.dumps(obj), flush=True)
+
+
+def ptxas_entries(log):
+    """{kernel entry: registers, spill stores and loads (bytes)} from one
+    source's `ptxas -v` output."""
+    entries, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+            entries.setdefault(name, {})
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            name = m.group(1)
+            entries.setdefault(name, {})
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name in entries:
+            entries[name].update(spill_stores=int(m.group(1)),
+                                 spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name in entries:
+            entries[name]["registers"] = int(m.group(1))
+    return entries
 
 
 def smi_line():
@@ -2058,16 +2084,30 @@ def main():
     # memory)
     bwd_smem = {n: build.library("flash_bwd_sm90.cu").lca_flash_bwd_smem(f)
                 for n, f in (("B2b, B9c", 0), ("B5", 1))}
+    fwd_smem = {n: build.library("flash_fwd_sm90.cu").lca_flash_fwd_smem(f)
+                for n, f in (("B1, B3, B4, B9a", 0), ("B3 int8", 1))}
+    dq_smem = build.library("flash_dq_sm90.cu").lca_flash_dq_smem()
     sage_smem = build.library("sage_fwd_sm90.cu").lca_sage_fwd_smem()
+    # B9a's instantiation (SPARSE) of the forward kernel and B9b's kernel
+    new = {n: e for src in ("flash_fwd_sm90.cu", "flash_dq_sm90.cu")
+           for n, e in ptxas_entries(logs.get(src, "")).items()
+           if "kernelILb0ELi0ELb0ELb1E" in n or "flash_dq_sm90_kernel" in n}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "sources": sorted(logs),
+          "flash_fwd_sm90_dynamic_smem_bytes": fwd_smem,
+          "flash_dq_sm90_dynamic_smem_bytes": {"B9b": dq_smem},
           "flash_bwd_sm90_dynamic_smem_bytes": bwd_smem,
-          "sage_fwd_sm90_dynamic_smem_bytes": {"B8a, B8b": sage_smem}})
+          "sage_fwd_sm90_dynamic_smem_bytes": {"B8a, B8b": sage_smem},
+          "ptxas_b9a_b9b": new})
     for src, log in logs.items():
         for line in log.splitlines():
             if any(w in line for w in ("entry function", "registers",
                                        "spill")):
                 print(f"ptxas {src}: {line.strip()}", file=sys.stderr)
+    print(f"flash_fwd_sm90.cu: dynamic shared memory per block {fwd_smem}",
+          file=sys.stderr)
+    print(f"flash_dq_sm90.cu: dynamic shared memory per block {dq_smem}",
+          file=sys.stderr)
     print(f"flash_bwd_sm90.cu: dynamic shared memory per block {bwd_smem}",
           file=sys.stderr)
     print(f"sage_fwd_sm90.cu: dynamic shared memory per block {sage_smem}",

@@ -18,7 +18,8 @@
 //   lca_sparse_bwd_dkv  <- _sparse_dkv_kernel (B9c): dk and dv of a
 //                          block-sparse mask's kv tiles over each column's
 //                          live (GQA group head, q tile) entries.
-// (B2a, lca_flash_bwd_dq, is in flash_bwd.cu; B9a and B9b in sparse.cu.)
+// (B2a, lca_flash_bwd_dq, is in flash_bwd.cu; B9a in flash_fwd_sm90.cu and
+// B9b in flash_dq_sm90.cu.)
 //
 // B9c is B2b's pipeline with another walk, chosen by the kernel's template
 // parameter SPARSE: the producer, the consumers' products, softmax and
@@ -291,31 +292,12 @@ __device__ __forceinline__ Item item_of(const Params& p, int t) {
   return x;
 }
 
-// The items of this persistent block, the j-th of them for j in [j0,
-// end): dense, item_index's snake over the longest-first order; B9c, the
-// host's list for the block (ops/sparse.py SparsePlan.dkv_schedule: items
-// longest first, each to the block with the least work so far, since a
-// column seen by every q tile, such as StreamingLLM's sink, outweighs the
-// rest several times and a snake leaves the blocks uneven).
-template <bool SPARSE>
-struct BlockItems {
-  int j0, end;
-  __device__ explicit BlockItems(const Params& p) {
-    if constexpr (SPARSE) {
-      j0 = p.sched_ptr[blockIdx.x];
-      end = p.sched_ptr[blockIdx.x + 1];
-    } else {
-      j0 = 0;
-      end = (p.n_items + (int)gridDim.x - 1) / (int)gridDim.x;
-    }
-  }
-  // item t of the block's j-th turn, or -1 when the snake has none
-  __device__ int at(const Params& p, int j) const {
-    if constexpr (SPARSE) return p.sched[j];
-    const int t = item_index(j);
-    return t < p.n_items ? t : -1;
-  }
-};
+// The items of this persistent block (BlockItems, sm90.cuh): dense,
+// item_index's snake over the longest-first order; B9c, the host's list for
+// the block (ops/sparse.py SparsePlan.dkv_schedule: items longest first,
+// each to the block with the least work so far, since a column seen by every
+// q tile, such as StreamingLLM's sink, outweighs the rest several times and a
+// snake leaves the blocks uneven).
 
 // B9c: a step of a column's walk, q sub-tile j (of block_q / 64) of CSR
 // entry e; entries with no step are passed over
@@ -724,7 +706,7 @@ __global__ void __launch_bounds__(NT, 1)
 
 // The fields every walk reads from dims: b, h, h_kv, s_q, s_kv, then
 // (batch, seq, head) element strides of q, k, v, dout, dq (B9c: unused) and
-// dk (dv shares dk's); the layout of flash_bwd.cu's and sparse.cu's entry
+// dk (dv shares dk's); the layout of flash_bwd.cu's and the sparse entry
 // points.
 Params base_params(const float* lse, const float* delta, float* dk, float* dv,
                    const long long* dims, float scale) {
@@ -831,7 +813,7 @@ extern "C" int lca_flash_bwd_fused(LCA_BWD_ARGS) {
 // first row in its kv tile, steps, 0), longest first) and each block's work
 // items (sched_ptr, sched). lse is the -inf-safe lse. dims: as
 // base_params's, then n_q, n_kv, block_q, block_kv, per_head (the layout of
-// sparse.cu's entry points), the number of items and of blocks.
+// every sparse entry point), the number of items and of blocks.
 extern "C" int lca_sparse_bwd_dkv(const void* q, const void* k, const void* v,
                                   const void* dout, const float* lse,
                                   const float* delta, float* dk, float* dv,

@@ -18,6 +18,10 @@
 //                                fp32 per-token scales (chunked prefill
 //                                against the quantized cache, read in place
 //                                as a strided view).
+// and the TPU kernel of long_context_attention_tpu/ops/sparse.py:
+//   lca_sparse_fwd            <- _sparse_fwd_kernel (B9a): out and lse of a
+//                                block-sparse mask's rows over their live kv
+//                                tiles.
 //
 // What bounds it on an H100: tensor-core operations. Each visible (row,
 // column) pair costs 4*d FLOPs (QK and PV) against 989 TFLOP/s bf16; the
@@ -60,7 +64,8 @@
 //
 // Shared memory (bytes; the 227 KB a block may use):
 //   bf16 K/V: Q 32768 + 3 stages x (K 32768 + V 32768) = 229376, + 256 of
-//             barriers and 1024 of alignment slack;
+//             barriers, 3 x 8 of B9a's step meta and 1024 of alignment
+//             slack (230680);
 //   int8 K/V: Q 32768 + 2 stages x (K 32768 + V 32768 + scales 1024)
 //             = 133120 + 3 raw slots x (an int8 K or V tile 16384 + a K
 //             tile's scales 1024) = 218112, + barriers and slack.
@@ -70,12 +75,34 @@
 // read (TMA zero-fills rows past s_kv, which the mask also drops). Only
 // tiles that some row of a consumer's 64 does not see whole are masked.
 //
+// B9a's walk (template parameter SPARSE; the fast form, bf16 K/V): the
+// producer, the consumers' products, softmax and write-out are the body
+// above, and only the item, the steps and the mask's positions come from
+// the walk. The host lists the items once per mask plan, longest first
+// (ops/sparse.py SparsePlan.row_items), and deals them to the persistent
+// blocks (SparsePlan.row_schedule, shared with B9b): an item is BQ = 128 q
+// rows of a mask row (head or 0, q tile) for one head and batch row (block_q,
+// a multiple of 64, holds one or more; the last of an odd multiple of 64 is
+// 64 rows, and the consumer whose rows belong to the next q tile releases
+// Q and every stage unread and writes nothing). The steps are the row's CSR
+// range of (kv tile, flags, q_first, kv_first) entries, in the JAX tables'
+// order, each cut into block_kv / 128 steps of 128 columns (rounded up: the
+// last step of an odd multiple of 64 has 64 columns of its tile, and the
+// mask drops the next tile's 64 that its box also loads); on a MASKED entry
+// a step wholly above the diagonal for all of the item's rows is skipped,
+// which drops only zeros (sm90.cuh RowWalk). The producer hands the
+// consumers each step's first q position less its first kv position (the
+// layout's for ring shards) and its columns beside the stage; unmasked
+// steps run the softmax without the mask. A row item with no step writes out
+// 0 and lse -inf: the TPU's DEAD zero-emit entries.
+//
 // Numerics are those of the TPU kernels and of the mma.sync kernels before
 // this one; only the order of the sums differs:
-//   fast form: scale*log2e is folded into q in bf16 (one rounding, done in
-//     shared memory once per item), p = exp2(min(s, 90)), l += rowsum(p),
-//     acc += bf16(p * v_scale) @ v; out = acc / l, lse = log(l); a row with
-//     l == 0 gives out 0, lse -inf.
+//   fast form (B1 and B4 by default, B3 over a cache, B9a): scale*log2e is
+//     folded into q in bf16 (one rounding, done in shared memory once per
+//     item), p = exp2(min(s, 90)) with masked entries at -1e30, l +=
+//     rowsum(p), acc += bf16(p * v_scale) @ v; out = acc / l, lse = log(l);
+//     a row with l == 0 gives out 0, lse -inf.
 //   online forms (safe softmax): B1 and B4 in exp2 units (s *=
 //     scale*log2e, lse = m*ln2 + log l), B3 in natural units (s = dot *
 //     k_scale * scale, lse = m + log l).
@@ -137,7 +164,8 @@ struct Smem {
   static constexpr int OFF_RAW = OFF_W + STAGES * STAGE;
   static constexpr int OFF_BAR =
       OFF_RAW + (QUANT ? RAW_SLOTS * RAW_SLOT : 0);
-  static constexpr int BYTES = OFF_BAR + 256 + 1024;  // barriers, alignment
+  static constexpr int OFF_META = OFF_BAR + 256;  // B9a: each stage's int2
+  static constexpr int BYTES = OFF_META + STAGES * 8 + 1024;  // + alignment
 };
 static_assert(Smem<true>::BYTES <= 232448 && Smem<false>::BYTES <= 232448,
               "shared memory over the 227 KB a block may use");
@@ -169,6 +197,15 @@ struct Params {
   float sscale;  // online forms: multiplier of the raw score
   float cap;     // softcap form: the cap
   int nq, n_items;
+  // B9a: the row tables' CSR form, the host's items (row, first q row in its
+  // q tile, steps, 0) and each block's work items, block i's at
+  // sched[sched_ptr[i] .. sched_ptr[i + 1])
+  const int* ptr;
+  const int4* ent;
+  const int4* items;
+  const int* sched_ptr;
+  const int* sched;
+  int n_q, bq, bkv, per_head;
 };
 
 // K-major operand (Q, K): 8-row groups 1024 bytes apart; a k16 step moves
@@ -232,16 +269,37 @@ __device__ __forceinline__ KvWalk<BKV> walk_of(const Params& p, int q0) {
                      TRI ? -1 : p.left, TRI ? 0 : p.right, TRI ? 0 : p.sink);
 }
 
+// Work item t with its step count: dense, item_of's q tile and its kv walk;
+// B9a, the host's row item (sm90.cuh row_item)
+template <bool TRI, bool SPARSE>
+__device__ __forceinline__ RowItem item_at(const Params& p, int t) {
+  if constexpr (SPARSE)
+    return row_item(p.items, p.ptr, t, p.b, p.h, p.n_q, p.bq, p.per_head);
+  const Item d = item_of(p, t);
+  return RowItem{d.ih, d.ib, d.q0, 0, BQ, walk_of<TRI>(p, d.q0).n, 0, 0};
+}
+
+// Where a tile's scores sit for the masks: its first kv column, the
+// consumer's first q row and a lane's first row (positions), the end of
+// the columns, and the right window (-1: none; 0: causal). B9a's steps use
+// a frame of their own: columns from 0, rows from the step's relative
+// position.
+struct Frame {
+  int kv0, q_first, row0, col_end, right;
+};
+
 // ---------------------------------------------------------------------------
 // The kernel
 // ---------------------------------------------------------------------------
 
 // TRI: causal self-attention with compile-time masks (B1); else the masks
 // of Params (B3, and B4 at q_off 0). FORM: the softmax form; QUANT: int8
-// K/V with fp32 scales.
-template <bool TRI, int FORM, bool QUANT>
+// K/V with fp32 scales. SPARSE: B9a's walk over a block-sparse row.
+template <bool TRI, int FORM, bool QUANT, bool SPARSE = false>
 __global__ void __launch_bounds__(Roles<QUANT>::NT, 1)
     flash_fwd_sm90_kernel(const __grid_constant__ Maps maps, const Params p) {
+  static_assert(!SPARSE || (!TRI && FORM == kFast && !QUANT),
+                "B9a: bf16 K/V, the fast form, the masks of its steps");
   constexpr int PWG = Roles<QUANT>::PWG;
   constexpr int PRODUCER_REGS = Roles<QUANT>::PRODUCER_REGS;
   // registers a thread holds at launch; the consumers take what the
@@ -271,6 +329,10 @@ __global__ void __launch_bounds__(Roles<QUANT>::NT, 1)
     return sbase + L::OFF_W + (i % STAGES) * L::STAGE;
   };
   auto use = [&](int i) -> int { return (i / STAGES) & 1; };
+  // B9a: the i-th step's meta (RowWalk::meta), beside its stage
+  auto meta = [&](int i) -> int2* {
+    return reinterpret_cast<int2*>(smem + L::OFF_META + (i % STAGES) * 8);
+  };
 
   if (threadIdx.x == 0) {
     mbar_init(bar(B_QFULL), 1);
@@ -295,18 +357,23 @@ __global__ void __launch_bounds__(Roles<QUANT>::NT, 1)
       setmaxnreg_dec<PRODUCER_REGS>();
       if (wtid != 0) return;  // one thread issues every TMA
       int it = 0, qn = 0;
-      for (int j = 0; j * (int)gridDim.x < p.n_items; ++j) {
-        const int t = item_index(j);
-        if (t >= p.n_items) continue;
-        const Item x = item_of(p, t);
+      const BlockItems<SPARSE> items(p);
+      for (int j = items.j0; j < items.end; ++j) {
+        const int t = items.at(p, j);
+        if (t < 0) continue;
+        const RowItem x = item_at<TRI, SPARSE>(p, t);
         const KvWalk<BKV> w = walk_of<TRI>(p, x.q0);
+        const RowWalk rw(p.ent, x, p.bkv);
+        RowStep c{};
+        if constexpr (SPARSE) c = rw.from(x.e0);
         const int ihk = x.ih / (p.h / p.h_kv);
-        for (int jt = 0; jt < w.n; ++jt, ++it) {
+        for (int jt = 0; jt < x.n; ++jt, ++it) {
           const int s = it % STAGES;
-          const int kv0 = w.tile(jt) * BKV;
+          const int kv0 = SPARSE ? rw.kv0(c) : w.tile(jt) * BKV;
           const uint32_t st = stage(it);
           mbar_wait(bar(B_KEMPTY + s), use(it) ^ 1);
-          mbar_expect_tx(bar(B_KFULL + s), KV_BYTES);
+          if constexpr (SPARSE) *meta(it) = rw.meta(c);  // released by K's
+          mbar_expect_tx(bar(B_KFULL + s), KV_BYTES);    // full barrier
           tma_load_4d(st, &maps.k, bar(B_KFULL + s), 0, kv0, ihk, x.ib);
           tma_load_4d(st + BOX, &maps.k, bar(B_KFULL + s), 64, kv0, ihk,
                       x.ib);
@@ -324,6 +391,7 @@ __global__ void __launch_bounds__(Roles<QUANT>::NT, 1)
                       x.ib);
           tma_load_4d(st + KV_BYTES + BOX, &maps.v, bar(B_VFULL + s), 64, kv0,
                       ihk, x.ib);
+          if constexpr (SPARSE) c = rw.next(c);
         }
       }
     } else {
@@ -423,9 +491,9 @@ __global__ void __launch_bounds__(Roles<QUANT>::NT, 1)
     const int g = lane >> 2;        // accumulator row (and row + 8)
     const int cb = 2 * (lane & 3);  // accumulator column pair in each 8
     const int q_off = TRI ? 0 : p.q_off;
-    const int left = TRI ? -1 : p.left;
+    const int left = (TRI || SPARSE) ? -1 : p.left;
     const int right = TRI ? 0 : p.right;
-    const int sink = TRI ? 0 : p.sink;
+    const int sink = (TRI || SPARSE) ? 0 : p.sink;
     const uint32_t q_half = sbase + cw * 64 * 128;  // this warpgroup's rows
 
     // S = Q K^T of the i-th tile: 8 k16 steps, 4 in each d box
@@ -452,15 +520,30 @@ __global__ void __launch_bounds__(Roles<QUANT>::NT, 1)
     };
 
     int it = 0, qn = 0;
-    for (int j = 0; j * (int)gridDim.x < p.n_items; ++j) {
-      const int t = item_index(j);
-      if (t >= p.n_items) continue;
-      const Item x = item_of(p, t);
+    const BlockItems<SPARSE> items(p);
+    for (int j = items.j0; j < items.end; ++j) {
+      const int t = items.at(p, j);
+      if (t < 0) continue;
+      const RowItem x = item_at<TRI, SPARSE>(p, t);
       const KvWalk<BKV> w = walk_of<TRI>(p, x.q0);
       const int r0 = x.q0 + cw * 64;  // first q row of this warpgroup
       const int q_first = q_off + r0;
       const int q_last = q_off + min(r0 + 64, p.s_q) - 1;
-      const int row_pos0 = q_first + warp * 16 + g;
+      // B9a: rows of the next q tile (the second half of a 64-row item)
+      const bool idle = SPARSE && cw * 64 >= x.rows;
+
+      // the frame of the i-th tile, the jt-th of the item (B9a: from the
+      // step's meta, read once its K is full)
+      auto frame = [&](int i, int jt) -> Frame {
+        if constexpr (SPARSE) {
+          const int2 m = *meta(i);
+          const int qf = m.x + cw * 64;
+          return Frame{0, qf, qf + warp * 16 + g, m.y & 0xffff,
+                       (m.y >> 16) ? 0 : -1};
+        }
+        return Frame{w.tile(jt) * BKV, q_first, q_first + warp * 16 + g,
+                     p.s_kv, right};
+      };
 
       float o[64];
 #pragma unroll
@@ -470,7 +553,7 @@ __global__ void __launch_bounds__(Roles<QUANT>::NT, 1)
 
       float alpha[2];  // the online forms' rescale of O by the new max
       // tile i's scores in place: k scale, scale, cap and (`masked`) masks
-      auto scores = [&](float (&sacc)[64], const float* sks, int kv0,
+      auto scores = [&](float (&sacc)[64], const float* sks, const Frame& f,
                         float (&mx)[2], auto masked) {
 #pragma unroll
         for (int i8 = 0; i8 < 16; ++i8) {
@@ -483,9 +566,9 @@ __global__ void __launch_bounds__(Roles<QUANT>::NT, 1)
             if (ONLINE) v *= p.sscale;
             if (FORM == kSoftcap) v = tanhf(v / p.cap) * p.cap;
             if (decltype(masked)::value) {
-              const int col = kv0 + 8 * i8 + cb + (e & 1);
-              const int row = row_pos0 + (e >> 1) * 8;
-              if (col >= p.s_kv || (right >= 0 && col > row + right) ||
+              const int col = f.kv0 + 8 * i8 + cb + (e & 1);
+              const int row = f.row0 + (e >> 1) * 8;
+              if (col >= f.col_end || (f.right >= 0 && col > row + f.right) ||
                   (left >= 0 && col < row - left && col >= sink))
                 v = kNegInf;
             }
@@ -497,19 +580,20 @@ __global__ void __launch_bounds__(Roles<QUANT>::NT, 1)
       // scale, cap, mask and the softmax of tile i in registers, in place
       // (sacc becomes p * v_scale), updating m, l and alpha; a tile that
       // every row of this warpgroup sees whole skips the mask
-      auto softmax = [&](float (&sacc)[64], int i, int kv0) {
+      auto softmax = [&](float (&sacc)[64], int i, const Frame& f) {
         const float* sks = reinterpret_cast<const float*>(
             smem + L::OFF_W + (i % STAGES) * L::STAGE + 2 * KV_BYTES);
         const float* svs = sks + BKV;
-        const int kv_last = kv0 + BKV - 1;
+        const int kv_last = f.kv0 + BKV - 1;
         const bool interior =
-            kv_last < p.s_kv && (right < 0 || kv_last <= q_first + right) &&
-            (left < 0 || kv0 >= q_last - left || kv_last < sink);
+            kv_last < f.col_end &&
+            (f.right < 0 || kv_last <= f.q_first + f.right) &&
+            (left < 0 || f.kv0 >= q_last - left || kv_last < sink);
         float mx[2] = {kNegInf, kNegInf};
         if (interior)
-          scores(sacc, sks, kv0, mx, Flag<false>());
+          scores(sacc, sks, f, mx, Flag<false>());
         else
-          scores(sacc, sks, kv0, mx, Flag<true>());
+          scores(sacc, sks, f, mx, Flag<true>());
         alpha[0] = alpha[1] = 1.f;
         if (ONLINE) {
 #pragma unroll
@@ -572,7 +656,19 @@ __global__ void __launch_bounds__(Roles<QUANT>::NT, 1)
         }
       };
 
-      if (w.n > 0) {
+      if (x.n > 0 && idle) {
+        // B9a's 64-row item: this warpgroup's rows are the next q tile's;
+        // it releases Q and every stage unread and writes nothing
+        mbar_wait(bar(B_QFULL), qn & 1);
+        if (lane == 0) mbar_arrive(bar(B_QEMPTY));
+        for (int jt = 0; jt < x.n; ++jt, ++it) {
+          mbar_wait(bar(B_KFULL + it % STAGES), use(it));
+          release(B_KEMPTY, it);
+          mbar_wait(bar(B_VFULL + it % STAGES), use(it));
+          release(B_VEMPTY, it);
+        }
+        ++qn;
+      } else if (x.n > 0) {
         mbar_wait(bar(B_QFULL), qn & 1);
         if (!ONLINE) {  // fold scale*log2e into this warpgroup's q rows
 #pragma unroll
@@ -596,30 +692,32 @@ __global__ void __launch_bounds__(Roles<QUANT>::NT, 1)
         {
           float sacc[64];
           mbar_wait(bar(B_KFULL + it % STAGES), use(it));
+          const Frame f = frame(it, 0);
           wgmma_fence();
           issue_qk(sacc, it);
           wgmma_wait<0>();
           reg_fence(sacc);
-          if (w.n == 1 && lane == 0) mbar_arrive(bar(B_QEMPTY));
-          softmax(sacc, it, w.tile(0) * BKV);
-          release(B_KEMPTY, it);  // K and the scales
+          if (x.n == 1 && lane == 0) mbar_arrive(bar(B_QEMPTY));
+          softmax(sacc, it, f);
+          release(B_KEMPTY, it);  // K, the scales and the step's meta
           to_pa(sacc);
         }
         // then per tile: QK of this tile and PV of the one before issue
         // together; this tile's softmax runs while that PV is on the
         // tensor cores
-        for (int jt = 1; jt < w.n; ++jt) {
+        for (int jt = 1; jt < x.n; ++jt) {
           ++it;
           float sacc[64];
           mbar_wait(bar(B_KFULL + it % STAGES), use(it));
+          const Frame f = frame(it, jt);
           mbar_wait(bar(B_VFULL + (it - 1) % STAGES), use(it - 1));
           wgmma_fence();
           issue_qk(sacc, it);
           issue_pv(o, pa, it - 1);
           wgmma_wait<1>();
           reg_fence(sacc);
-          if (jt == w.n - 1 && lane == 0) mbar_arrive(bar(B_QEMPTY));
-          softmax(sacc, it, w.tile(jt) * BKV);
+          if (jt == x.n - 1 && lane == 0) mbar_arrive(bar(B_QEMPTY));
+          softmax(sacc, it, f);
           release(B_KEMPTY, it);
           wgmma_wait<0>();
           reg_fence(o);
@@ -638,6 +736,7 @@ __global__ void __launch_bounds__(Roles<QUANT>::NT, 1)
         ++it;
         ++qn;
       }
+      if (idle) continue;
 
       // emit: out = acc / l (0 on a dead row), lse in natural log units
 #pragma unroll
@@ -676,7 +775,7 @@ template <bool TRI, int FORM, bool QUANT>
 int launch(const void* q, const void* k, const void* v, const float* ks,
            const float* vs, void* out, float* lse, const long long* dims,
            float qfold, float sscale, float cap, cudaStream_t stream) {
-  Params p;
+  Params p = {};
   p.out = out;
   p.lse = lse;
   p.b = (int)dims[0];
@@ -740,6 +839,69 @@ int launch(const void* q, const void* k, const void* v, const float* ks,
   if (e != cudaSuccess) return (int)e;
   const int grid = p.n_items < num_sms() ? p.n_items : num_sms();
   kern<<<grid, Roles<QUANT>::NT, smem, stream>>>(maps, p);
+  return (int)cudaGetLastError();
+}
+
+// B9a. dims (the layout of every sparse entry point): b, h, h_kv, s_q,
+// s_kv, then (batch, seq, head) element strides of q, k, v, dout (unused),
+// out and dk (unused), then n_q, n_kv, block_q, block_kv, per_head, the
+// number of items and of blocks.
+int launch_sparse(const void* q, const void* k, const void* v, void* out,
+                  float* lse, const int* ptr, const int* ent,
+                  const int* items, const int* sched_ptr, const int* sched,
+                  const long long* dims, float qfold, cudaStream_t stream) {
+  Params p = {};
+  p.out = out;
+  p.lse = lse;
+  p.b = (int)dims[0];
+  p.h = (int)dims[1];
+  p.h_kv = (int)dims[2];
+  p.s_q = (int)dims[3];
+  p.s_kv = (int)dims[4];
+  p.o_sb = dims[17];
+  p.o_ss = dims[18];
+  p.o_sh = dims[19];
+  p.left = p.right = -1;  // the steps carry the causal mask
+  p.qfold = qfold;
+  p.ptr = ptr;
+  p.ent = reinterpret_cast<const int4*>(ent);
+  p.items = reinterpret_cast<const int4*>(items);
+  p.sched_ptr = sched_ptr;
+  p.sched = sched;
+  p.n_q = (int)dims[23];
+  const int n_kv = (int)dims[24];
+  p.bq = (int)dims[25];
+  p.bkv = (int)dims[26];
+  p.per_head = (int)dims[27];
+  if (p.h_kv <= 0 || p.h % p.h_kv || p.bq <= 0 || p.bkv <= 0 || p.bq % 64 ||
+      p.bkv % 64 || p.s_q != p.n_q * p.bq || p.s_kv != n_kv * p.bkv)
+    return (int)cudaErrorInvalidValue;
+  p.n_items = (int)dims[28] * (p.per_head ? p.b : p.b * p.h);
+  const int n_blocks = (int)dims[29];
+  if (p.n_items == 0) return (int)cudaSuccess;
+  if (n_blocks <= 0 || n_blocks > p.n_items) return (int)cudaErrorInvalidValue;
+
+  Maps maps;
+  const cuuint32_t box[4] = {64, 128, 1, 1};
+  const long long q_dims[4] = {D, p.s_q, p.h, p.b};
+  const long long kv_dims[4] = {D, p.s_kv, p.h_kv, p.b};
+  const long long q_str[3] = {dims[6], dims[7], dims[5]};
+  const long long k_str[3] = {dims[9], dims[10], dims[8]};
+  const long long v_str[3] = {dims[12], dims[13], dims[11]};
+  const CUtensorMapDataType bf16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  const CUtensorMapSwizzle sw = CU_TENSOR_MAP_SWIZZLE_128B;
+  if (!(encode(&maps.q, q, bf16, 2, 4, q_dims, q_str, box, sw) &&
+        encode(&maps.k, k, bf16, 2, 4, kv_dims, k_str, box, sw) &&
+        encode(&maps.v, v, bf16, 2, 4, kv_dims, v_str, box, sw)))
+    return (int)cudaErrorInvalidValue;
+  maps.ks = maps.vs = maps.q;  // unused without scales
+
+  auto kern = flash_fwd_sm90_kernel<false, kFast, false, true>;
+  const int smem = Smem<false>::BYTES;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  kern<<<n_blocks, Roles<false>::NT, smem, stream>>>(maps, p);
   return (int)cudaGetLastError();
 }
 
@@ -815,6 +977,29 @@ extern "C" int lca_flash_fwd_static(const void* q, const void* k,
     case 2: return args(launch<false, kSoftcap, false>);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// Kernel B9a: out (b, s_q, h, d) bf16 and lse (b, h, s_q) of a block-sparse
+// mask, over the row tables' CSR form (ptr, ent), with the host's items
+// ((row, first q row in its q tile, steps, 0), longest first) and each
+// block's work items (sched_ptr, sched); the fast form with scale*log2e
+// (qfold) folded into q. The arguments are those of every sparse entry
+// point (dout, delta, the -inf-safe lse and scale unused).
+extern "C" int lca_sparse_fwd(const void* q, const void* k, const void* v,
+                              const void* dout, const float* lse_in,
+                              const float* delta, void* out, float* lse,
+                              const int* ptr, const int* ent,
+                              const int* items, const int* sched_ptr,
+                              const int* sched, const long long* dims,
+                              float qfold, float scale, void* stream) {
+  return launch_sparse(q, k, v, out, lse, ptr, ent, items, sched_ptr, sched,
+                       dims, qfold, static_cast<cudaStream_t>(stream));
+}
+
+// The dynamic shared memory a block takes: bf16 K/V (B1, B3, B4, B9a), or
+// int8 K/V (quant != 0).
+extern "C" int lca_flash_fwd_smem(int quant) {
+  return quant ? Smem<true>::BYTES : Smem<false>::BYTES;
 }
 
 extern "C" const char* lca_error_string(int err) {

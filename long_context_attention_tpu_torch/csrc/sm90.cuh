@@ -1,9 +1,11 @@
 // Hopper (sm_90a) building blocks shared by the wgmma/TMA kernels
-// (flash_fwd_sm90.cu, flash_bwd_sm90.cu, sage_fwd_sm90.cu): PTX wrappers for
-// mbarriers, TMA, cp.async, wgmma and register allocation, the persistent
-// blocks' snake order, the forward kernels' kv walk and int8 widening, and
-// the host's tensor-map encoder. Each source that includes it builds into its
-// own library, so everything here lives in an anonymous namespace.
+// (flash_fwd_sm90.cu, flash_bwd_sm90.cu, flash_dq_sm90.cu,
+// sage_fwd_sm90.cu): PTX wrappers for mbarriers, TMA, cp.async, wgmma and
+// register allocation, the persistent blocks' snake order or host list, the
+// forward kernels' kv walk and int8 widening, the block-sparse row items and
+// walk, and the host's tensor-map encoder. Each source that includes it
+// builds into its own library, so everything here lives in an anonymous
+// namespace.
 
 #pragma once
 
@@ -353,6 +355,117 @@ __device__ __forceinline__ int item_index(int j) {
   return (j & 1) ? (j + 1) * g - 1 - (int)blockIdx.x
                  : j * g + (int)blockIdx.x;
 }
+
+// The items of this persistent block, its j-th turn for j in [j0, end), from
+// a kernel's Params (n_items, sched_ptr, sched): LISTED, the host's list for
+// the block (block i runs sched[sched_ptr[i] .. sched_ptr[i + 1]) in that
+// order: ops/sparse.py SparsePlan's schedules, items longest first, each to
+// the block with the least work so far); else item_index's snake over
+// n_items.
+template <bool LISTED>
+struct BlockItems {
+  int j0, end;
+  template <class P>
+  __device__ explicit BlockItems(const P& p) {
+    if constexpr (LISTED) {
+      j0 = p.sched_ptr[blockIdx.x];
+      end = p.sched_ptr[blockIdx.x + 1];
+    } else {
+      j0 = 0;
+      end = (p.n_items + (int)gridDim.x - 1) / (int)gridDim.x;
+    }
+  }
+  // item t of the block's j-th turn, or -1 when the snake has none
+  template <class P>
+  __device__ int at(const P& p, int j) const {
+    if constexpr (LISTED) return p.sched[j];
+    const int t = item_index(j);
+    return t < p.n_items ? t : -1;
+  }
+};
+
+// ---------------------------------------------------------------------------
+// Block-sparse row items (B9a, B9b)
+// ---------------------------------------------------------------------------
+
+constexpr int kRowStep = 128;   // kv columns per step of a row walk
+constexpr int kMaskedFlag = 4;  // a sparse table entry's _F_MASKED
+
+// Work item t of a row walk: 128 q rows (q0 on) of a mask row (head or 0,
+// q tile), for one head and batch row. The host lists the items as (row,
+// first q row in its q tile, steps, 0), longest first (ops/sparse.py
+// SparsePlan.row_items); work item t is item t / reps, repeated over the
+// batch rows and, for a mask shared by the heads, the heads (reps = b or b
+// * h). The last item of a q tile that is an odd multiple of 64 owns 64
+// rows.
+struct RowItem {
+  int ih, ib, q0, sub, rows, n, e0, e_end;
+};
+
+__device__ __forceinline__ RowItem row_item(const int4* items, const int* ptr,
+                                            int t, int b, int h, int n_q,
+                                            int bq, int per_head) {
+  const int reps = per_head ? b : b * h;
+  const int4 e = items[t / reps];
+  const int r = t % reps;
+  RowItem x;
+  x.ib = r % b;
+  x.ih = per_head ? e.x / n_q : r / b;
+  x.sub = e.y;
+  x.q0 = (e.x % n_q) * bq + e.y;
+  x.rows = min(128, bq - e.y);
+  x.n = e.z;
+  x.e0 = ptr[e.x];
+  x.e_end = ptr[e.x + 1];
+  return x;
+}
+
+// A step of a row item's walk: kRowStep kv columns of its row's CSR entry e
+// (kv tile, flags, q_first, kv_first), the j-th of the entry's block_kv /
+// kRowStep (rounded up); on a MASKED entry the steps that lie wholly above
+// the diagonal for the item's rows (a suffix) are passed over, which drops
+// only zeros.
+struct RowStep {
+  int e, j, hi;
+  int4 en;
+};
+
+struct RowWalk {
+  const int4* ent;
+  int e_end, sub, rows, bkv;
+  __device__ RowWalk(const int4* ent_, const RowItem& x, int bkv_)
+      : ent(ent_), e_end(x.e_end), sub(x.sub), rows(x.rows), bkv(bkv_) {}
+  __device__ RowStep from(int e) const {
+    const int nsub = (bkv + kRowStep - 1) / kRowStep;
+    for (; e < e_end; ++e) {
+      const int4 en = ent[e];
+      int hi = nsub;
+      if (en.y & kMaskedFlag) {  // the item's last q row less kv_first
+        const int last = en.z + sub + rows - 1 - en.w;
+        hi = last < 0 ? 0 : min(nsub, last / kRowStep + 1);
+      }
+      if (hi > 0) return RowStep{e, 0, hi, en};
+    }
+    return RowStep{e_end, 0, 0, make_int4(0, 0, 0, 0)};
+  }
+  __device__ RowStep next(const RowStep& s) const {
+    if (s.j + 1 < s.hi) return RowStep{s.e, s.j + 1, s.hi, s.en};
+    return from(s.e + 1);
+  }
+  __device__ int kv0(const RowStep& s) const {  // the step's first kv row
+    return s.en.x * bkv + kRowStep * s.j;
+  }
+  // what the consumers need of a step: its first q position less its first
+  // kv position (the layout's positions for ring shards), and its columns
+  // inside the kv tile (kRowStep, or 64 for the last step of an odd
+  // multiple of 64) | MASKED << 16
+  __device__ int2 meta(const RowStep& s) const {
+    return make_int2(
+        s.en.z + sub - (s.en.w + kRowStep * s.j),
+        min(kRowStep, bkv - kRowStep * s.j) |
+            ((s.en.y & kMaskedFlag) ? 0x10000 : 0));
+  }
+};
 
 // ---------------------------------------------------------------------------
 // Host side: tensor maps

@@ -201,20 +201,20 @@ KERNELS: Dict[str, Kernel] = {
         "flash_bwd_fused", "flash_bwd_sm90.cu", "lca_flash_bwd_fused",
         [_VP] * 10 + [_F, _VP],
         "long_context_attention_tpu/ops/flash.py:1291"),
-    # the sparse entries B9a and B9b share one C signature: q, k, v, dout,
-    # lse, delta, out (B9b: dq), out_lse, dk, dv (null where unused), the
-    # CSR walk (ptr, entries), dims, qfold, scale, stream
+    # the sparse entries share one C signature: q, k, v, dout, lse, delta,
+    # two outputs (B9a: out and lse; B9b: dq and null; B9c: dk and dv), the
+    # CSR walk (ptr, entries), the items, the blocks' schedule (ptr, work),
+    # dims, then the floats (B9a, B9b: qfold, scale; B9c: scale), stream.
+    # B9a runs on the forward pipeline of B1 and B3, B9b on the dq pipeline,
+    # B9c on B2b's pipeline.
     "sparse_fwd": Kernel(
-        "sparse_fwd", "sparse.cu", "lca_sparse_fwd",
-        [_VP] * 13 + [_F, _F, _VP],
+        "sparse_fwd", "flash_fwd_sm90.cu", "lca_sparse_fwd",
+        [_VP] * 14 + [_F, _F, _VP],
         "long_context_attention_tpu/ops/sparse.py:314"),
     "sparse_bwd_dq": Kernel(
-        "sparse_bwd_dq", "sparse.cu", "lca_sparse_bwd_dq",
-        [_VP] * 13 + [_F, _F, _VP],
+        "sparse_bwd_dq", "flash_dq_sm90.cu", "lca_sparse_bwd_dq",
+        [_VP] * 14 + [_F, _F, _VP],
         "long_context_attention_tpu/ops/sparse.py:469"),
-    # B9c runs on B2b's pipeline: q, k, v, dout, lse, delta, dk, dv, the
-    # CSR walk (ptr, entries), the items, the blocks' schedule (ptr, work),
-    # dims, scale, stream
     "sparse_bwd_dkv": Kernel(
         "sparse_bwd_dkv", "flash_bwd_sm90.cu", "lca_sparse_bwd_dkv",
         [_VP] * 14 + [_F, _VP],

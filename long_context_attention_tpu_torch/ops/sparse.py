@@ -9,18 +9,24 @@ tiles once per (mask, shapes) and the kernels walk only those. Three kernel
 wrappers sit under the API, each with a plain PyTorch version of the same
 arithmetic in this module:
 
-* :func:`sparse_fwd` (kernel B9a, ``csrc/sparse.cu``): the forward, the
-  TPU's ``_sparse_fwd_kernel``: max-free clamped exp2 softmax with
-  scale*log2e folded into q in q's dtype, the in-tile causal mask from each
-  tile's global first positions on straddling tiles;
-* :func:`sparse_bwd_dq` (kernel B9b): dq over the row-major live set, the
-  TPU's ``_sparse_dq_kernel``;
+* :func:`sparse_fwd` (kernel B9a, ``csrc/flash_fwd_sm90.cu``: the
+  wgmma/TMA forward pipeline of B1 and B3 with a walk over the row
+  tables): the forward, the TPU's ``_sparse_fwd_kernel``: max-free clamped
+  exp2 softmax with scale*log2e folded into q in q's dtype, the in-tile
+  causal mask from each tile's global first positions on straddling tiles;
+* :func:`sparse_bwd_dq` (kernel B9b, ``csrc/flash_dq_sm90.cu``: a
+  wgmma/TMA dq pipeline with the same walk): dq over the row-major live
+  set, the TPU's ``_sparse_dq_kernel``;
 * :func:`sparse_bwd_dkv` (kernel B9c, ``csrc/flash_bwd_sm90.cu``: the
   wgmma/TMA pipeline of B2b with a walk over the column tables): dk and dv
   over the column-major live set with the GQA group folded into each kv
-  column, the TPU's ``_sparse_dkv_kernel``. Its items (128 kv rows of a
-  column) are listed on the host, longest walk first, and dealt to the
-  persistent blocks (:meth:`SparsePlan.dkv_items`, ``dkv_schedule``).
+  column, the TPU's ``_sparse_dkv_kernel``.
+
+Every kernel runs one persistent block per SM over items listed on the
+host, longest walk first, and dealt to the blocks (greedy, to the least
+loaded): 128 q rows of a mask row for B9a and B9b, which share one list and
+one deal (:meth:`SparsePlan.row_items`, ``row_schedule``), and 128 kv rows
+of a mask column for B9c (``dkv_items``, ``dkv_schedule``).
 
 The tables are JAX's (``_row_tables``, ``_col_tables``), built here in the
 same order; the kernels read them in a CSR form, one ``[start, end)`` range
@@ -88,10 +94,14 @@ _F_MASKED = 4  # tile straddles the causal diagonal: apply the in-tile mask
 _F_DEAD = 8    # FIRST|LAST|DEAD: a row or column with no live tile
 
 _KERNEL_BLOCK = 64  # the kernels' sub-tile: block sizes must be multiples
-_DKV_ROWS = 128     # kv rows of a B9c item (csrc/flash_bwd_sm90.cu BKV)
-# B9c's schedule: an item's cost in 64-row q steps, plus this much for its
-# K/V load and its write-out
+# rows of an item (B9a, B9b: q rows; B9c: kv rows), and kv columns of a B9a
+# or B9b step (csrc/sm90.cuh kRowStep, flash_bwd_sm90.cu BKV)
+_ITEM_ROWS = 128
+# the schedules: an item's cost in its steps plus this much for its loads
+# once per item and its write-out (B9c: 64-row q steps; B9a, B9b:
+# 128-column kv steps)
 _DKV_ITEM_COST = 2
+_ROW_ITEM_COST = 2
 # tiles of the walked side the plain versions take at once (their memory)
 _PLAIN_TILES = 16
 
@@ -338,8 +348,7 @@ class SparsePlan:
         (head or 0, q tile) lists (kv tile, flags, q_first, kv_first); a
         column (kv head or 0, kv tile) lists (group index << 4 | flags, q
         tile, q_first, kv_first)."""
-        key = str(device)
-        if key not in self._on_device:
+        def make():
             ih, iq, ik, fl, qf, kf = self.row_tables()
             heads = self.mh.shape[0] if self.per_head else 1
             row = _csr(ih * self.n_q + iq, heads * self.n_q, fl,
@@ -348,9 +357,52 @@ class SparsePlan:
             col = _csr(ihk * self.n_kv + ikc, (heads // self.g if
                                                self.per_head else 1)
                        * self.n_kv, flc, ((ig << 4) | flc, iqc, qfc, kfc))
-            self._on_device[key] = tuple(
-                torch.from_numpy(a).to(device) for a in (*row, *col))
+            return (*row, *col)
+        return self._cached("csr", device, make)
+
+    def _cached(self, key: str, device, make):
+        """make()'s numpy arrays, or (device given) tensors on the device,
+        uploaded once."""
+        if device is None:
+            return make()
+        key = f"{key} {device}"
+        if key not in self._on_device:
+            arrays = make()
+            self._on_device[key] = (
+                torch.from_numpy(arrays).to(device)
+                if isinstance(arrays, np.ndarray)
+                else tuple(torch.from_numpy(a).to(device) for a in arrays))
         return self._on_device[key]
+
+    def row_items(self, device=None):
+        """B9a's and B9b's items, longest walk first: (n, 4) int32 rows of
+        (row, first q row in its q tile, steps, 0), one per row (head or 0,
+        q tile) and 128-row offset, in a stable order of falling steps; a
+        row with no live tile is listed with 0 steps (its rows write out 0,
+        lse -inf and dq 0). An item's steps are, for each live entry of its
+        row, its block_kv / 128 kv steps (rounded up) less, on a straddling
+        tile, those wholly above the diagonal for the item's rows (their
+        first kv position after the item's last q position). The kernels
+        repeat item i over the batch rows and, for a mask shared by the
+        heads, the heads: work item t is item t // r with r = b (per-head
+        mask; the row's head) or b * h (head (t % r) // b), batch row t % r
+        % b (:meth:`row_schedule` deals them to the blocks). A numpy array,
+        or a tensor on ``device`` (cached)."""
+        def make():
+            ih, iq, ik, fl, qf, kf = self.row_tables()
+            heads = self.mh.shape[0] if self.per_head else 1
+            live = (fl & _F_DEAD) == 0
+            subs = np.arange(0, self.bq, _ITEM_ROWS)
+            rows = np.minimum(_ITEM_ROWS, self.bq - subs)
+            n_steps = -(-self.bkv // _ITEM_ROWS)
+            last = (qf[live, None].astype(np.int64) + subs[None, :]
+                    + rows[None, :] - 1 - kf[live, None])
+            steps = np.where((fl[live, None] & _F_MASKED) != 0,
+                             np.clip(last // _ITEM_ROWS + 1, 0, n_steps),
+                             n_steps)
+            return _longest_first((ih * self.n_q + iq)[live], steps,
+                                  heads * self.n_q)
+        return self._cached("row_items", device, make)
 
     def dkv_items(self, device=None):
         """B9c's items, longest walk first: (n, 4) int32 rows of (column,
@@ -365,30 +417,31 @@ class SparsePlan:
         head (t % r) // b), batch row t % r % b (:meth:`dkv_schedule` deals
         them to the blocks). A numpy array, or a tensor on ``device``
         (cached)."""
-        key = f"dkv_items {device}"
-        if device is not None and key in self._on_device:
-            return self._on_device[key]
-        ihk, _, _, ik, fl, qf, kf = self.col_tables()
-        heads = self.mh.shape[0] // self.g if self.per_head else 1
-        live = (fl & _F_DEAD) == 0
-        subs = np.arange(0, self.bkv, _DKV_ROWS)
-        # q sub-tiles j < lo end before the item's first kv position
-        gap = (kf[live, None].astype(np.int64) + subs[None, :]
-               - qf[live, None] - (_KERNEL_BLOCK - 1))
-        lo = np.where((fl[live, None] & _F_MASKED) != 0,
-                      np.clip(-(-gap // _KERNEL_BLOCK), 0, None), 0)
-        steps = np.zeros((heads * self.n_kv, subs.size), np.int64)
-        np.add.at(steps, (ihk * self.n_kv + ik)[live],
-                  np.clip(self.bq // _KERNEL_BLOCK - lo, 0, None))
-        flat = steps.reshape(-1)
-        order = np.argsort(-flat, kind="stable")
-        col, sub = np.divmod(order, subs.size)
-        items = np.stack([col, sub * _DKV_ROWS, flat[order],
-                          np.zeros_like(col)], axis=1).astype(np.int32)
-        if device is None:
-            return items
-        self._on_device[key] = torch.from_numpy(items).to(device)
-        return self._on_device[key]
+        def make():
+            ihk, _, _, ik, fl, qf, kf = self.col_tables()
+            heads = self.mh.shape[0] // self.g if self.per_head else 1
+            live = (fl & _F_DEAD) == 0
+            subs = np.arange(0, self.bkv, _ITEM_ROWS)
+            # q sub-tiles j < lo end before the item's first kv position
+            gap = (kf[live, None].astype(np.int64) + subs[None, :]
+                   - qf[live, None] - (_KERNEL_BLOCK - 1))
+            lo = np.where((fl[live, None] & _F_MASKED) != 0,
+                          np.clip(-(-gap // _KERNEL_BLOCK), 0, None), 0)
+            steps = np.clip(self.bq // _KERNEL_BLOCK - lo, 0, None)
+            return _longest_first((ihk * self.n_kv + ik)[live], steps,
+                                  heads * self.n_kv)
+        return self._cached("dkv_items", device, make)
+
+    def row_schedule(self, b: int, h: int, n_blocks: int, device=None):
+        """B9a's and B9b's work items (:meth:`row_items`, repeated over b
+        batch rows and, for a shared mask, h heads) dealt to at most
+        ``n_blocks`` persistent blocks, as :meth:`dkv_schedule` deals
+        B9c's."""
+        reps = b if self.per_head else b * h
+        return self._cached(
+            f"row_schedule {b} {h} {n_blocks}", device,
+            lambda: _deal(self.row_items()[:, 2], reps, n_blocks,
+                          _ROW_ITEM_COST))
 
     def dkv_schedule(self, b: int, h_kv: int, n_blocks: int, device=None):
         """B9c's work items (:meth:`dkv_items`, repeated over b batch rows
@@ -396,30 +449,46 @@ class SparsePlan:
         ``n_blocks`` persistent blocks: (ptr (blocks + 1,), work (n,))
         int32, block i running work[ptr[i]:ptr[i + 1]] in that order.
         Longest first, each item goes to the block with the least work so
-        far, its steps plus _DKV_ITEM_COST (greedy list scheduling: no
-        block ends more than one item's work after the average). Numpy
-        arrays, or tensors on ``device`` (cached)."""
-        key = f"dkv_schedule {device} {b} {h_kv} {n_blocks}"
-        if device is not None and key in self._on_device:
-            return self._on_device[key]
+        far, its steps plus _DKV_ITEM_COST (greedy list scheduling: no block
+        ends more than one item's work after the average). Numpy arrays, or
+        tensors on ``device`` (cached)."""
         reps = b if self.per_head else b * h_kv
-        cost = np.repeat(self.dkv_items()[:, 2].astype(np.int64),
-                         reps) + _DKV_ITEM_COST
-        blocks = max(min(n_blocks, cost.size), 1)
-        heap = [(0, i) for i in range(blocks)]
-        owner = np.empty(cost.size, np.int64)
-        for t, c in enumerate(cost.tolist()):
-            load, i = heapq.heappop(heap)
-            owner[t] = i
-            heapq.heappush(heap, (load + c, i))
-        ptr = np.zeros(blocks + 1, np.int32)
-        ptr[1:] = np.cumsum(np.bincount(owner, minlength=blocks))
-        work = np.argsort(owner, kind="stable").astype(np.int32)
-        if device is None:
-            return ptr, work
-        self._on_device[key] = tuple(torch.from_numpy(a).to(device)
-                                     for a in (ptr, work))
-        return self._on_device[key]
+        return self._cached(
+            f"dkv_schedule {b} {h_kv} {n_blocks}", device,
+            lambda: _deal(self.dkv_items()[:, 2], reps, n_blocks,
+                          _DKV_ITEM_COST))
+
+
+def _longest_first(keys, steps, n_keys: int) -> np.ndarray:
+    """(n_keys * subs, 4) int32 items (key, sub-tile offset, steps, 0), in
+    a stable order of falling steps: ``steps`` (entries, subs) holds each
+    live table entry's steps per 128-row sub-tile of its key (row or
+    column), summed here per key."""
+    total = np.zeros((n_keys, steps.shape[1]), np.int64)
+    np.add.at(total, keys, steps)
+    flat = total.reshape(-1)
+    order = np.argsort(-flat, kind="stable")
+    key, sub = np.divmod(order, steps.shape[1])
+    return np.stack([key, sub * _ITEM_ROWS, flat[order],
+                     np.zeros_like(key)], axis=1).astype(np.int32)
+
+
+def _deal(steps, reps: int, n_blocks: int, item_cost: int):
+    """(ptr, work) int32: the work items (each item's ``steps``, in order,
+    repeated ``reps`` times) dealt to at most ``n_blocks`` blocks, longest
+    first, each to the block with the least work so far (its steps plus
+    ``item_cost``); block i runs work[ptr[i]:ptr[i + 1]] in that order."""
+    cost = np.repeat(np.asarray(steps, np.int64), reps) + item_cost
+    blocks = max(min(n_blocks, cost.size), 1)
+    heap = [(0, i) for i in range(blocks)]
+    owner = np.empty(cost.size, np.int64)
+    for t, c in enumerate(cost.tolist()):
+        load, i = heapq.heappop(heap)
+        owner[t] = i
+        heapq.heappush(heap, (load + c, i))
+    ptr = np.zeros(blocks + 1, np.int32)
+    ptr[1:] = np.cumsum(np.bincount(owner, minlength=blocks))
+    return ptr, np.argsort(owner, kind="stable").astype(np.int32)
 
 
 @functools.lru_cache(maxsize=None)
@@ -644,36 +713,35 @@ def _launch(kernel: str, q, k, v, plan: SparsePlan, *, scale: float,
         return t.stride()[:3] if t is not None else (0, 0, 0)
 
     row_ptr, row_ent, col_ptr, col_ent = plan.csr(q.device)
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    if kernel == "sparse_bwd_dkv":  # the column walk
+        items = plan.dkv_items(q.device)
+        sched = plan.dkv_schedule(b, k.shape[2], sms, q.device)
+        operands = (dk, dv, col_ptr, col_ent)
+        floats = (scale,)
+    else:  # B9a, B9b: the row walk
+        items = plan.row_items(q.device)
+        sched = plan.row_schedule(b, h, sms, q.device)
+        operands = (out, out_lse, row_ptr, row_ent)
+        floats = (scale * _LOG2E, scale)
     dims = [b, h, k.shape[2], s_q, k.shape[1], *strides(q), *strides(k),
             *strides(v), *strides(dout), *strides(out), *strides(dk),
-            plan.n_q, plan.n_kv, plan.bq, plan.bkv, int(plan.per_head)]
-    if kernel == "sparse_bwd_dkv":
-        items = plan.dkv_items(q.device)
-        sms = torch.cuda.get_device_properties(q.device).multi_processor_count
-        sched_ptr, sched = plan.dkv_schedule(b, k.shape[2], sms, q.device)
-        _build.KERNELS[kernel](
-            _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(dout),
-            _build.ptr(lse), _build.ptr(delta), _build.ptr(dk),
-            _build.ptr(dv), _build.ptr(col_ptr), _build.ptr(col_ent),
-            _build.ptr(items), _build.ptr(sched_ptr), _build.ptr(sched),
-            _build.dims_array([*dims, items.shape[0],
-                               sched_ptr.shape[0] - 1]),
-            scale, _build.stream_ptr(q.device))
-        return
+            plan.n_q, plan.n_kv, plan.bq, plan.bkv, int(plan.per_head),
+            items.shape[0], sched[0].shape[0] - 1]
     _build.KERNELS[kernel](
-        _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(dout),
-        _build.ptr(lse), _build.ptr(delta), _build.ptr(out),
-        _build.ptr(out_lse), _build.ptr(dk), _build.ptr(dv),
-        _build.ptr(row_ptr), _build.ptr(row_ent), _build.dims_array(dims),
-        scale * _LOG2E, scale, _build.stream_ptr(q.device))
+        *(_build.ptr(t) for t in (q, k, v, dout, lse, delta, *operands,
+                                  items, *sched)),
+        _build.dims_array(dims), *floats, _build.stream_ptr(q.device))
 
 
 def sparse_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                plan: SparsePlan, *, scale: float):
     """Kernel B9a wrapper: q (b, s_q, h, d) bf16, k, v (b, s_kv, h_kv, d)
     bf16 (read by strides) -> out (b, s_q, h, d) bf16, lse (b, h, s_q)
-    fp32. One block per 64-row q sub-tile walks its row's live kv tiles in
-    64-column sub-tiles. CPU tensors take :func:`sparse_fwd_plain`."""
+    fp32. One persistent block per SM takes its share of the plan's row
+    items (:meth:`SparsePlan.row_schedule`), 128 q rows of a mask row each,
+    and walks the row's live kv tiles in 128-column steps. CPU tensors take
+    :func:`sparse_fwd_plain`."""
     _check_shapes(q, k, v, plan)
     if q.device.type == "cpu":
         return sparse_fwd_plain(q, k, v, plan, scale=scale)
@@ -688,8 +756,10 @@ def sparse_bwd_dq(q, k, v, dout, lse, delta, plan: SparsePlan, *,
                   scale: float):
     """Kernel B9b wrapper: dq (b, s_q, h, d) fp32 of bf16 q, k, v, dout
     with the -inf-safe lse and delta ((b, h, s_q) fp32, contiguous). One
-    block per 64-row q sub-tile walks its row's live tiles and writes once
-    (no atomics). CPU tensors take :func:`sparse_bwd_dq_plain`."""
+    persistent block per SM takes its share of B9a's row items and walks
+    each row's live tiles as B9a does; each item owns its rows and writes
+    them once (no atomics: deterministic). CPU tensors take
+    :func:`sparse_bwd_dq_plain`."""
     _check_shapes(q, k, v, plan)
     if q.device.type == "cpu":
         return sparse_bwd_dq_plain(q, k, v, dout, lse, delta, plan,

@@ -19,11 +19,13 @@ heads, head_dim 128, bf16):
   4096 and 4 sinks, and over a bf16 kv at b=1, s=8192; B2b and B5 at b=1,
   s=8192, causal (B5's dq is added by TMA reduce-adds in an order that
   changes from run to run, so it is held to ROW_REL_TOL of each row);
-* B4 at b=4, s=2048 and s=8192 with window 4096 and 4 sinks, and B9c at
-  b=1, s=32768 in tiles of 512 on the StreamingLLM mask, where a tree may
-  have another kernel: each tree's output row by row against the plain
-  version (ROW_REL_TOL). B9c of a tree whose ``sparse_bwd_dkv`` is in
-  ``sparse.cu`` is called with that source's arguments.
+* B4 at b=4, s=2048 and s=8192 with window 4096 and 4 sinks, and B9a,
+  B9b and B9c at b=1, s=32768 in tiles of 512 on the StreamingLLM mask,
+  where a tree may have another kernel: each tree's output row by row
+  against the plain version (ROW_REL_TOL), and whether the two trees'
+  outputs are bit-equal (reported). A tree whose ``sparse_fwd``,
+  ``sparse_bwd_dq`` or ``sparse_bwd_dkv`` is in ``sparse.cu`` has it called
+  with that source's arguments.
 
 Then, in this tree alone, B9c on the StreamingLLM and per-head masks with
 two schedules of the same items: the persistent kernels' snake deal
@@ -53,10 +55,20 @@ from long_context_attention_tpu_torch.ops import _build, flash, sparse  # noqa: 
 H, HKV, D = 16, 8, 128
 WINDOW, SINKS = 4096, 4
 ROW_REL_TOL = 2.0 ** -5
+# chip_smoke.py's floor for a row whose exact value is 0 by cancellation
+# (under the causal mask q row 0 sees column 0 alone: p = 1, so its ds =
+# dp - delta is fp32 rounding noise on both sides)
+CANCEL_FLOOR = 2.0 ** -10
 SCALE = D ** -0.5
 # the kernels each case runs
 KERNELS = ("flash_fwd_causal_self", "flash_fwd_pos", "flash_fwd_static",
-           "flash_bwd_dkv", "flash_bwd_fused", "sparse_bwd_dkv")
+           "flash_bwd_dkv", "flash_bwd_fused", "sparse_fwd", "sparse_bwd_dq",
+           "sparse_bwd_dkv")
+SPARSE = ("sparse_fwd", "sparse_bwd_dq", "sparse_bwd_dkv")
+# the one argument list of sparse.cu's entry points: q, k, v, dout, lse,
+# delta, out, out_lse, dk, dv, the CSR walk, dims, qfold, scale, stream
+OLD_SPARSE_ARGS = [ctypes.c_void_p] * 13 + [ctypes.c_float] * 2 + [
+    ctypes.c_void_p]
 
 
 def kernel_sources(root: Path):
@@ -103,16 +115,17 @@ class Tree:
             fn = getattr(lib, _build.KERNELS[name].symbol)
             fn.restype = ctypes.c_int
             self.fns[name] = fn
-        # this tree's wrappers give B9c its own argument list; the old one
-        # in sparse.cu took the B9a/B9b list
-        self.fns["sparse_bwd_dkv"].argtypes = (
-            _build.KERNELS["sparse_bwd_dkv"].argtypes
-            if self.sources["sparse_bwd_dkv"] != "sparse.cu"
-            else [ctypes.c_void_p] * 13 + [ctypes.c_float] * 2
-            + [ctypes.c_void_p])
+        # a sparse kernel in sparse.cu takes that source's argument list
         for name in KERNELS:
-            if name != "sparse_bwd_dkv":
-                self.fns[name].argtypes = _build.KERNELS[name].argtypes
+            self.fns[name].argtypes = (
+                OLD_SPARSE_ARGS if self.old(name)
+                else _build.KERNELS[name].argtypes)
+
+    def old(self, name):
+        return self.sources[name] == "sparse.cu"
+
+    def active(self, name):
+        return _build.KERNELS[name]._fn is self.fns[name]
 
     def use(self):
         for name in KERNELS:
@@ -133,11 +146,16 @@ def time_ms(fn, iters=10, warmup=2):
     return t0.elapsed_time(t1) / iters
 
 
-def row_rel(got, want):
-    """Max over rows of max |got - want| / max |want| (0 / 0 = 0)."""
+def row_rel(got, want, cancel_rows=None):
+    """Max over rows of max |got - want| / max |want| (0 / 0 = 0); the rows
+    ``cancel_rows`` (an index into dim 1) against CANCEL_FLOOR of the
+    largest |want| at least."""
     got, want = got.float(), want.float()
     diff = (got - want).abs().amax(-1)
     size = want.abs().amax(-1)
+    if cancel_rows is not None:
+        floor = CANCEL_FLOOR * float(want.abs().max())
+        size[:, cancel_rows] = size[:, cancel_rows].clamp_min(floor)
     rel = torch.where(size > 0, diff / size.clamp_min(1e-30),
                       torch.where(diff > 0, float("inf"), 0.0))
     return float(rel.max())
@@ -157,24 +175,43 @@ def snake_schedule(n, blocks):
     return ptr, torch.tensor([t for x in per for t in x], dtype=torch.int32)
 
 
-def old_b9c(tree, q, k, v, dout, lse, delta, plan):
-    """B9c through sparse.cu's entry point (its argument list)."""
+def old_sparse(tree, name, q, k, v, plan, dout=None, lse=None,
+               delta=None):
+    """A sparse kernel through sparse.cu's entry point (its argument list):
+    B9a's (out, lse), B9b's (dq,) or B9c's (dk, dv)."""
     b, s_q, h, _ = q.shape
-    col_ptr, col_ent = plan.csr(q.device)[2:4]
-    dk = torch.empty(k.shape, dtype=torch.float32, device=q.device)
-    dv = torch.empty_like(dk)
+    dev = q.device
+    row_ptr, row_ent, col_ptr, col_ent = plan.csr(dev)
+    out = out_lse = dk = dv = None
+    if name == "sparse_fwd":
+        out = torch.empty(q.shape, dtype=torch.bfloat16, device=dev)
+        out_lse = torch.empty((b, h, s_q), dtype=torch.float32, device=dev)
+    elif name == "sparse_bwd_dq":
+        out = torch.empty(q.shape, dtype=torch.float32, device=dev)
+    else:
+        dk = torch.empty(k.shape, dtype=torch.float32, device=dev)
+        dv = torch.empty_like(dk)
+    walk = (col_ptr, col_ent) if name == "sparse_bwd_dkv" else (row_ptr,
+                                                                 row_ent)
+
+    def strides(t):
+        return t.stride()[:3] if t is not None else (0, 0, 0)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
     dims = _build.dims_array([
-        b, h, k.shape[2], s_q, k.shape[1], *q.stride()[:3], *k.stride()[:3],
-        *v.stride()[:3], *dout.stride()[:3], 0, 0, 0, *dk.stride()[:3],
+        b, h, k.shape[2], s_q, k.shape[1], *strides(q), *strides(k),
+        *strides(v), *strides(dout), *strides(out), *strides(dk),
         plan.n_q, plan.n_kv, plan.bq, plan.bkv, int(plan.per_head)])
-    err = tree.fns["sparse_bwd_dkv"](
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), None, None, dk.data_ptr(),
-        dv.data_ptr(), col_ptr.data_ptr(), col_ent.data_ptr(), dims,
-        SCALE * 1.4426950408889634, SCALE, _build.stream_ptr(q.device))
+    err = tree.fns[name](
+        *(ptr(t) for t in (q, k, v, dout, lse, delta, out, out_lse, dk, dv,
+                           *walk)),
+        dims, SCALE * 1.4426950408889634, SCALE, _build.stream_ptr(dev))
     if err:
-        raise RuntimeError(f"sparse.cu B9c: CUDA error {err}")
-    return dk, dv
+        raise RuntimeError(f"sparse.cu {name}: CUDA error {err}")
+    return {"sparse_fwd": (out, out_lse), "sparse_bwd_dq": (out,),
+            "sparse_bwd_dkv": (dk, dv)}[name]
 
 
 def main():
@@ -203,7 +240,7 @@ def main():
         lines.append(obj)
         print(json.dumps(obj), flush=True)
 
-    def compare(name, fn, same=True, plain=None, loose=()):
+    def compare(name, fn, same=True, plain=None, loose=(), cancel_rows=None):
         """Run fn under each tree; times in turns; outputs bit-equal
         (same) or each against the plain outputs (row tolerance)."""
         outs = {}
@@ -220,11 +257,10 @@ def main():
                "this_ms": times["this"],
                "other_sources": sorted({other.sources[k] for k in KERNELS}),
                "this_sources": sorted({this.sources[k] for k in KERNELS})}
+        res["bit_equal"] = all(
+            torch.equal(a, b) for i, (a, b) in
+            enumerate(zip(outs["other"], outs["this"])) if i not in loose)
         if same:
-            equal = [torch.equal(a, b) for i, (a, b) in
-                     enumerate(zip(outs["other"], outs["this"]))
-                     if i not in loose]
-            res["bit_equal"] = all(equal)
             res["loose_row_rel"] = [row_rel(outs["this"][i], outs["other"][i])
                                     for i in loose]
             ok = res["bit_equal"] and all(r <= ROW_REL_TOL
@@ -232,7 +268,7 @@ def main():
         else:
             want = plain()
             res["row_rel_vs_plain"] = {
-                tag: max(row_rel(a, w) for a, w in zip(o, want))
+                tag: max(row_rel(a, w, cancel_rows) for a, w in zip(o, want))
                 for tag, o in outs.items()}
             ok = all(r <= ROW_REL_TOL
                      for r in res["row_rel_vs_plain"].values())
@@ -297,7 +333,7 @@ def main():
                 same=False, plain=lambda: plain()[:1])
         del q, k, v
         torch.cuda.empty_cache()
-    # B9c
+    # B9a, B9b, B9c: the backward's operands from this tree's B9a
     s, blk = 32768, 512
     n = s // blk
     mask = sparse.global_local_block_mask(n, n, 8, sink_tiles=1)
@@ -305,19 +341,33 @@ def main():
                         H // HKV, 0, 1)
     q, k, v, dout = (randn(1, s, H, D), randn(1, s, HKV, D),
                      randn(1, s, HKV, D), randn(1, s, H, D))
+    this.use()
     o, l = sparse.sparse_fwd(q, k, v, plan, scale=SCALE)
     ops = sparse.sparse_bwd_operands(o, l, dout, q.dtype)
-    old = other.sources["sparse_bwd_dkv"] == "sparse.cu"
+    calls = {
+        "sparse_fwd": ("B9a", (), lambda: sparse.sparse_fwd(
+            q, k, v, plan, scale=SCALE), lambda: sparse.sparse_fwd_plain(
+            q, k, v, plan, scale=SCALE)),
+        "sparse_bwd_dq": ("B9b", ops, lambda: (sparse.sparse_bwd_dq(
+            q, k, v, *ops, plan, scale=SCALE),),
+            lambda: (sparse.sparse_bwd_dq_plain(q, k, v, *ops, plan,
+                                                scale=SCALE),)),
+        "sparse_bwd_dkv": ("B9c", ops, lambda: sparse.sparse_bwd_dkv(
+            q, k, v, *ops, plan, scale=SCALE),
+            lambda: sparse.sparse_bwd_dkv_plain(q, k, v, *ops, plan,
+                                                scale=SCALE)),
+    }
+    for name, (row_name, extra, new, plain) in calls.items():
+        def call(name=name, extra=extra, new=new):
+            for tree in (other, this):
+                if tree.old(name) and tree.active(name):
+                    return old_sparse(tree, name, q, k, v, plan, *extra)
+            return new()
 
-    def b9c():
-        if old and _build.KERNELS["sparse_bwd_dkv"]._fn is other.fns[
-                "sparse_bwd_dkv"]:
-            return old_b9c(other, q, k, v, *ops, plan)
-        return sparse.sparse_bwd_dkv(q, k, v, *ops, plan, scale=SCALE)
-
-    compare(f"B9c b=1 s={s} tiles {blk} streaming", b9c, same=False,
-            plain=lambda: sparse.sparse_bwd_dkv_plain(q, k, v, *ops, plan,
-                                                      scale=SCALE))
+        compare(f"{row_name} b=1 s={s} tiles {blk} streaming", call,
+                same=False, plain=plain,
+                cancel_rows=0 if name == "sparse_bwd_dq" else None)
+        torch.cuda.empty_cache()
 
     # B9c's schedule: the snake deal against dkv_schedule's, this tree
     this.use()
@@ -330,7 +380,7 @@ def main():
                             H // HKV, 0, 1)
         o, l = sparse.sparse_fwd(q, k, v, plan, scale=SCALE)
         ops = sparse.sparse_bwd_operands(o, l, dout, q.dtype)
-        key = f"dkv_schedule {q.device} 1 {HKV} {sms}"  # the wrapper's
+        key = f"dkv_schedule 1 {HKV} {sms} {q.device}"  # the wrapper's
         greedy = plan.dkv_schedule(1, HKV, sms, q.device)
         n_work = int(greedy[1].numel())
         snake = tuple(t.to(dev) for t in snake_schedule(n_work,

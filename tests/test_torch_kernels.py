@@ -1,8 +1,9 @@
 """The port's kernel registry and the operand checks of its wrappers, on the
 CPU: every kernel binds a source under ``csrc/`` and names the Pallas kernel
 it replaces (sage's quantization pass, the JAX function it computes); B2b,
-B5 and B9c live in the wgmma/TMA source ``flash_bwd_sm90.cu``, B1, B3 and
-B4 in ``flash_fwd_sm90.cu``, B8a and B8b in ``sage_fwd_sm90.cu``; a library
+B5 and B9c live in the wgmma/TMA source ``flash_bwd_sm90.cu``, B1, B3, B4
+and B9a in ``flash_fwd_sm90.cu``, B9b in ``flash_dq_sm90.cu``, B8a and B8b
+in ``sage_fwd_sm90.cu``; a library
 is rebuilt when a shared header changes; and the strides a kernel cannot
 read (TMA's tensor maps, cp.async's 16-byte rows) raise, while the BSHD
 views the model and the cache hand the kernels pass."""
@@ -88,15 +89,14 @@ def test_sage_kernel_sources(name, source, site):
     ("flash_fwd_causal_self", "flash_fwd_sm90.cu", "flash.py:338"),
     ("flash_fwd_static", "flash_fwd_sm90.cu", "flash.py:475"),
     ("flash_fwd_pos", "flash_fwd_sm90.cu", "flash.py:696"),
-    ("sparse_fwd", "sparse.cu", "sparse.py:314"),
-    ("sparse_bwd_dq", "sparse.cu", "sparse.py:469"),
+    ("sparse_fwd", "flash_fwd_sm90.cu", "sparse.py:314"),
+    ("sparse_bwd_dq", "flash_dq_sm90.cu", "sparse.py:469"),
     ("sparse_bwd_dkv", "flash_bwd_sm90.cu", "sparse.py:516"),
 ])
 def test_forward_and_sparse_kernel_sources(name, source, site):
-    """B1, B3 and B4 run from the Hopper forward source (wgmma, TMA); B9c
-    runs on B2b's wgmma/TMA pipeline in the backward source, while B9a and
-    B9b stay on mma.sync in sparse.cu. Each C entry point is defined in its
-    source only."""
+    """B1, B3, B4 and B9a run from the Hopper forward source (wgmma, TMA);
+    B9c runs on B2b's wgmma/TMA pipeline in the backward source and B9b on
+    the dq pipeline. Each C entry point is defined in its source only."""
     k = _build.KERNELS[name]
     assert k.source == source
     assert k.replaces == f"long_context_attention_tpu/ops/{site}"
@@ -118,8 +118,9 @@ def test_sage_sm90_source_uses_the_s8_wgmma():
 
 def test_sm90_sources_build_for_sm90a():
     """wgmma and setmaxnreg exist only for sm_90a. The backward source
-    (B5, B2b and B9c) and the forward source (B1, B3, B4) use them; B9c's
-    walk is a template parameter of B2b's kernel, not a second pipeline."""
+    (B5, B2b and B9c), the forward source (B1, B3, B4, B9a) and the dq
+    source (B9b) use them, with TMA; B9c's walk is a template parameter of
+    B2b's kernel and B9a's of the forward kernel, not second pipelines."""
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     header = (_build.CSRC / "sm90.cuh").read_text()
     bwd = (_build.CSRC / "flash_bwd_sm90.cu").read_text()
@@ -132,6 +133,13 @@ def test_sm90_sources_build_for_sm90a():
     for needle in ("wgmma.mma_async", "tma_load_4d", "setmaxnreg_inc",
                    '#include "sm90.cuh"'):
         assert needle in fwd
+    assert fwd.count("__global__") == 1
+    assert "flash_fwd_sm90_kernel<false, kFast, false, true>" in fwd
+    dq = (_build.CSRC / "flash_dq_sm90.cu").read_text()
+    for needle in ("wgmma.mma_async", "wgmma_rs", "tma_load_4d",
+                   "setmaxnreg_inc", "setmaxnreg_dec", '#include "sm90.cuh"'):
+        assert needle in dq
+    assert not (_build.CSRC / "sparse.cu").exists()
     # no source derives its aligned shared base through an integer cast
     for src in sorted(_build.CSRC.glob("*.cu")):
         assert "uintptr_t" not in src.read_text(), src.name

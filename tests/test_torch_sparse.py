@@ -5,7 +5,8 @@ through ``block_sparse_attention`` against JAX's dense-bias oracle
 (``xla_attention`` with the tile mask as an additive bias, the pattern of
 ``tests/test_sparse.py``) and, for a causal GQA per-head mask and the
 ulysses head shard, against JAX's own kernels in interpret mode; and
-B9c's host item order and block schedule (exact).
+the kernels' host item lists and block schedules, B9c's column items and
+B9a's and B9b's row items (exact).
 
 Tolerances (those of ``tests/test_sparse.py``):
 * fp32 out and lse 2e-5, gradients 2e-4: the same fp32 arithmetic on both
@@ -241,6 +242,123 @@ def test_dkv_schedule(case):
         assert (np.diff(mine) <= 0).all()
         loads.append(int(mine.sum()))
     assert max(loads) <= cost.sum() / (ptr.size - 1) + cost.max()
+
+
+# B9a's and B9b's row items: 16 tiles of 512 (the usp_sparse tile) and 4
+# heads, causal unless named, plus tiles of 192 and a non-causal
+# rectangular call (4 q tiles at the end of 16 kv tiles)
+_RN, _RH = 16, 4
+_uncovered = tsp.global_local_block_mask(_RN, _RN, 8, sink_tiles=1)
+_uncovered[3 * _RN // 4:] = False
+ROW_CASES = {
+    # name: (mask, h, n_q, n_kv, causal, block)
+    "causal": (tsp.causal_block_mask(_RN, _RN), _RH, _RN, _RN, True, 512),
+    "streaming": (tsp.global_local_block_mask(_RN, _RN, 8, sink_tiles=1),
+                  _RH, _RN, _RN, True, 512),
+    "strided": (tsp.strided_block_mask(_RN, _RN, 8, local_tiles=4), _RH, _RN,
+                _RN, True, 512),
+    "per_head": (np.stack([tsp.global_local_block_mask(
+        _RN, _RN, 4 + 2 * (i % 5), sink_tiles=1) for i in range(_RH)]), _RH,
+        _RN, _RN, True, 512),
+    "uncovered rows": (_uncovered, _RH, _RN, _RN, True, 512),
+    "block 192": (tsp.global_local_block_mask(12, 12, 3, sink_tiles=1), _RH,
+                  12, 12, True, 192),
+    "non-causal rectangular": (tsp.random_block_mask(4, _RN, 0.25, seed=2),
+                               _RH, 4, _RN, False, 512),
+}
+
+
+def _row_plan(case):
+    mask, h, n_q, n_kv, causal, blk = ROW_CASES[case]
+    m = np.ascontiguousarray(mask)
+    return tsp._plan(m.tobytes(), m.shape, h, n_q, n_kv, causal, blk, blk, 2,
+                     0, 1), h
+
+
+@pytest.mark.parametrize("case", ROW_CASES)
+def test_row_item_steps(case):
+    """B9a's and B9b's row items (SparsePlan.row_items): one per (row,
+    128-row offset in its q tile), steps not increasing along the order,
+    and each item's steps equal to a brute-force count over every (q row,
+    kv column) pair of the 128 x 128 steps it may walk: a step of a live
+    tile is walked when some pair of the item's rows and the step's columns
+    inside the tile is visible (on a straddling tile, column position <=
+    row position)."""
+    plan, h = _row_plan(case)
+    items = plan.row_items()
+    assert items.dtype == np.int32 and items.shape[1] == 4
+    assert (np.diff(items[:, 2]) <= 0).all()
+    heads = h if plan.per_head else 1
+    subs = list(range(0, plan.bq, 128))
+    assert sorted(map(tuple, items[:, :2].tolist())) == [
+        (r, sub) for r in range(heads * plan.n_q) for sub in subs]
+    want = {}
+    for ih in range(heads):
+        for iq in range(plan.n_q):
+            for sub in subs:
+                rows = plan.q_first[iq] + np.arange(sub,
+                                                    min(sub + 128, plan.bq))
+                n = 0
+                for ik in np.flatnonzero(plan.mh[ih, iq]):
+                    for c0 in range(0, plan.bkv, 128):
+                        cols = plan.kv_first[ik] + np.arange(
+                            c0, min(c0 + 128, plan.bkv))
+                        vis = np.ones((rows.size, cols.size), bool)
+                        if plan.straddle[iq, ik]:
+                            vis = cols[None, :] <= rows[:, None]
+                        n += int(vis.any())
+                want[ih * plan.n_q + iq, sub] = n
+    got = {(r, sub): steps for r, sub, steps, _ in items.tolist()}
+    assert got == want
+    if case == "uncovered rows":  # 0-step items for the rows with no tile
+        assert sum(v == 0 for v in got.values()) == len(subs) * _RN // 4
+
+
+@pytest.mark.parametrize("case", ROW_CASES)
+def test_row_items_cover_every_row(case):
+    """Expanded as the kernels expand them (csrc/sm90.cuh row_item) over 2
+    batch rows and the heads, the row items give every (q row, head, batch
+    row) exactly once, the rows of a q tile with no live tile included."""
+    plan, h = _row_plan(case)
+    b = 2
+    items = plan.row_items()
+    reps = b if plan.per_head else b * h
+    owned = np.zeros((b, h, plan.n_q * plan.bq), np.int64)
+    for t in range(items.shape[0] * reps):
+        row, sub, _, _ = items[t // reps]
+        r = t % reps
+        ih = row // plan.n_q if plan.per_head else r // b
+        q0 = (row % plan.n_q) * plan.bq + sub
+        owned[r % b, ih, q0:q0 + min(128, plan.bq - sub)] += 1
+    assert (owned == 1).all()
+
+
+@pytest.mark.parametrize("case", ROW_CASES)
+def test_row_schedule(case):
+    """B9a's and B9b's shared deal (SparsePlan.row_schedule) over 2 batch
+    rows and 132 blocks: every work item runs exactly once; each block takes
+    its items longest first; no block's work (steps + the per-item cost)
+    passes the average by more than the largest item's; and the tensors on
+    a device are the same arrays, cached."""
+    plan, h = _row_plan(case)
+    b, blocks = 2, 132
+    ptr, work = plan.row_schedule(b, h, blocks)
+    reps = b if plan.per_head else b * h
+    n_work = plan.row_items().shape[0] * reps
+    assert ptr.dtype == work.dtype == np.int32
+    assert ptr.size == min(blocks, n_work) + 1 and ptr[0] == 0
+    assert sorted(work.tolist()) == list(range(n_work))
+    cost = np.repeat(plan.row_items()[:, 2], reps) + tsp._ROW_ITEM_COST
+    loads = []
+    for i in range(ptr.size - 1):
+        mine = cost[work[ptr[i]:ptr[i + 1]]]
+        assert (np.diff(mine) <= 0).all()
+        loads.append(int(mine.sum()))
+    assert max(loads) <= cost.sum() / (ptr.size - 1) + cost.max()
+    on_dev = plan.row_schedule(b, h, blocks, "cpu")
+    assert on_dev is plan.row_schedule(b, h, blocks, "cpu")
+    assert all(np.array_equal(a.numpy(), w) for a, w in zip(on_dev,
+                                                            (ptr, work)))
 
 
 # ---------------------------------------------------------------------------
