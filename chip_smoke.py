@@ -20,7 +20,12 @@ Phases, one JSON line each; any failure exits non-zero:
      b=4, s=8192, each timed; the backward kernels B2a, B2b
      and B5 at the trainer's per-layer attention shape, causal, with
      offsets that leave rows dead, and ragged (B2b and B5 also timed at
-     s=32768); sage's quantization kernels bit for bit against their plain
+     s=32768), and with the masks (B5: window 4096 and 4 sinks, a
+     non-causal two-sided window, softcap 50; B2a and B2b: the windowed
+     offsets call, and window, sinks and softcap with dead rows), each
+     with band checks on both sides (kv tiles no row of a block sees,
+     and q tiles that see none of the last kv columns, poisoned with NaN)
+     and timed; sage's quantization kernels bit for bit against their plain
      versions (a 4 x 8192 prefill, ragged, the q-only step of the
      pre-quantized entry); the sage kernels B8a, B8c and B8b on the
      int8 operands of a 4 x 8192 prefill, with window and sinks, one-chunk
@@ -51,20 +56,22 @@ Phases, one JSON line each; any failure exits non-zero:
      dense (B8a) and windowed (B8b), timed in turns, with exact launch
      counts and the logit gap; then decode_scan of 32 steps from the sage
      prefill (B6, B7), teacher forcing, and a generate at b=2;
-  6. train, then train_sage: the same config trained by make_train_step
-     (AdamW lr 1e-4, weight decay 1e-4, as the JAX benchmark's
-     optax.adamw(1e-4)) at b=1, s=8192 under remat none, full and attn
-     (sage: none and attn), with exact launch counts per step (B1 or B8a,
-     and B5; B2a, B2b and B3 never) and a falling loss, and one profiled
-     step each;
+  6. train, train_sage, then train_windowed: the same config trained by
+     make_train_step (AdamW lr 1e-4, weight decay 1e-4, as the JAX
+     benchmark's optax.adamw(1e-4)) at b=1, s=8192 under remat none, full
+     and attn (sage: none and attn; windowed, the slice_windowed model:
+     none and attn), with exact launch counts per step (B1, B8a or B4, and
+     B5; B2a, B2b and B3 never) and a falling loss, and one profiled step
+     each;
   7. grad_check: the config at 2 layers, s=1024: loss and every parameter
      gradient on the card under remat none, attn and full (sage: none and
-     attn) against the same backward on CPU copies (plain versions), each
-     leaf within GRAD_TOL of its largest value;
+     attn; and the model with window 256, 4 sinks and softcap 50) against
+     the same backward on CPU copies (plain versions), each leaf within
+     GRAD_TOL of its largest value;
   8. offsets: the JAX trainer's per-layer call, flash_attention with
      q_offsets=[0], kv_offsets=[0] (B3 + B2a + B2b), against the
      no-offsets path (B1 + B5) on the same inputs, row by row; and the
-     windowed forward with offsets (B3) against none (B4);
+     same with window 4096 and 4 sinks (B3 + B2a + B2b against B4 + B5);
   9. sage_api: the public sage calls at b=1, s=8192: non-causal (B8c),
      one-chunk offsets (B8b) against none (B8a), and the pre-quantized
      entry (B8b);
@@ -150,6 +157,8 @@ CANCEL_FLOOR = 2.0 ** -10
 TRAIN_SEQ = 8192
 TRAIN_STEPS = (("none", 3), ("full", 2), ("attn", 2))
 SAGE_TRAIN_STEPS = (("none", 3), ("attn", 2))
+# the windowed model (WINDOWED): B4 forward, B5 over the band and the sinks
+WINDOWED_TRAIN_STEPS = (("none", 3), ("attn", 2))
 # the self-attention forward kernel of the model's layer, by attn_impl
 FORWARD_KERNEL = {"pallas": "flash_fwd_causal_self", "sage": "sage_fwd_tri"}
 # sage's quantization pass: one K/V and one q launch per sage call
@@ -166,6 +175,10 @@ LR, WEIGHT_DECAY = 1e-4, 1e-4
 GRAD_LAYERS, GRAD_SEQ = 2, 1024
 GRAD_TOL = 0.03
 LOSS_TOL = 1e-3
+# The windowed gradient check's model: a window of 256 (WINDOW would drop
+# nothing at GRAD_SEQ), 4 sinks and Gemma-2's softcap, so B4 and B5 drop
+# columns, keep the sinks and cap scores in every layer.
+GRAD_WINDOWED = dict(window_left=256, sink_tokens=SINKS, softcap=SOFTCAP)
 
 # Block-sparse USP: the model's attention width at s = 32768 in tiles of
 # 512 (the API's default block), the masks users run
@@ -349,6 +362,26 @@ def band_check(name, got, want, n_tiles):
     if not ok:
         raise AssertionError(f"{name}: kv tiles outside the walk changed "
                              f"the output")
+
+
+def rows_seeing_less(vis, tile, n=2048):
+    """The last n rows (else the first n) and the kv tiles of `tile`
+    columns that none of them sees: a kernel's dq of those rows must not
+    read those tiles."""
+    s_q = vis.shape[0]
+    for rows in (slice(s_q - n, s_q), slice(0, n)):
+        tiles = unseen_tiles(vis[rows], tile)
+        if tiles:
+            return rows, tiles
+    raise AssertionError("band check: every kv tile is seen by every block")
+
+
+def cols_seen_by_few(vis, tile, n=2048):
+    """The last n kv columns and the q tiles of `tile` rows that see none
+    of them: a kernel's dk and dv of those columns must not read those
+    tiles."""
+    cols = slice(vis.shape[1] - n, vis.shape[1])
+    return cols, unseen_tiles(vis[:, cols].T, tile)
 
 
 # ---------------------------------------------------------------------------
@@ -1177,6 +1210,8 @@ def kernel_bwd(K, flash, gen, dev):
     run_fused("ragged non-causal", (rq, rk, rv, rdo, lse, delta),
               causal=False)
 
+    masked = kernel_bwd_masked(flash, dev, q, k, v, dout, scale)
+
     # times at the causal shape
     kw = dict(scale=scale, causal=True)
     ms = {"B2a": time_ms(lambda: flash.flash_bwd_dq(*causal_args, **kw)),
@@ -1229,8 +1264,161 @@ def kernel_bwd(K, flash, gen, dev):
                    lib_ms),
              "library": "SDPA flash backward (dq, dk, dv), K/V repeated to "
                         "the query heads",
-             **({"at_usp_seq": at32[n]} if n in at32 else {})}
+             **({"at_usp_seq": at32[n]} if n in at32 else {}),
+             "masked_cases": masked[n]}
             for n in ("B2a", "B2b", "B5")]
+
+
+# The backward's masked cases at the trainer's per-layer shape: (tag,
+# q_start or None for B5, the flash_attention mask kwargs). B5: the windowed
+# model's training call (window 4096, 4 sinks), a non-causal two-sided
+# window and the softcap; B2a + B2b: the offsets call with the window and
+# sinks (the windowed offsets_phase call), and with the softcap too from kv
+# offset s/2, whose first half of rows see nothing (dq 0) and whose second
+# half of kv rows no row sees (dk, dv 0).
+BWD_WINDOW = dict(causal=True, window_size=(WINDOW, -1), sink_tokens=SINKS)
+BWD_MASKED = {
+    "B5": (("window sinks", None, BWD_WINDOW),
+           ("non-causal window (512, 256) sinks", None,
+            dict(causal=False, window_size=(512, 256), sink_tokens=SINKS)),
+           ("window sinks softcap", None, dict(BWD_WINDOW, softcap=SOFTCAP))),
+    "B2a": (("offsets window sinks", 0, BWD_WINDOW),
+            ("kv offset s/2 window sinks softcap", -TRAIN_SEQ // 2,
+             dict(BWD_WINDOW, softcap=SOFTCAP))),
+}
+
+
+def kernel_bwd_masked(flash, dev, q, k, v, dout, scale):
+    """B5, B2a and B2b with the sliding window, sinks and softcap (BWD_MASKED)
+    against their plain versions, each row within ROW_REL_TOL, on the
+    forward's own out and lse, with the band checks: kv tiles that no row
+    of a block of rows sees, poisoned with NaN, leave that block's dq
+    finite (B5: within the row limit, its dq being added in no fixed order;
+    B2a: bit-equal), and q tiles (64 rows: B5's and B2b's) that see none of
+    the last kv columns leave their dk and dv bit-equal. Each case timed,
+    with its bound from the visible pairs. Returns {kernel: [case rows]}."""
+    b, s, h, _ = q.shape
+    d = q.shape[-1]
+    out = {"B2a": [], "B2b": [], "B5": []}
+
+    def fwd(q_start, shape):
+        if q_start is None:
+            return flash.flash_fwd_static(q, k, v, scale=scale, **shape)
+        return flash.flash_fwd_pos(q, k.transpose(1, 2), v.transpose(1, 2),
+                                   q_start=q_start, scale=scale, **shape)
+
+    def vis_of(q_start, shape):
+        left, right = shape["window_size"]
+        return visible(s, s, q_start or 0, shape["causal"], left=left,
+                       right=right, sink=shape["sink_tokens"], dev=dev)
+
+    def case(n, tag, fns, plain, q_start, shape, args, vis, cancel=None):
+        kw = dict(scale=scale, **shape, **({} if q_start is None
+                                          else dict(q_start=q_start)))
+        got, want = fns(*args, **kw), plain(*args, **kw)
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        torch.cuda.synchronize()
+        names = {"B5": ("dq", "dk", "dv"), "B2a": ("dq",),
+                 "B2b": ("dk", "dv")}[n]
+        checks = [check_out(f"{n} {g} {tag}", a, w,
+                            cancel if g == "dq" else None)
+                  for g, a, w in zip(names, got, want)]
+        del got, want
+        ms = time_ms(lambda: fns(*args, **kw))
+        plain_ms = time_ms(lambda: plain(*args, **kw), iters=1, warmup=0)
+        torch.cuda.empty_cache()
+        # SDPA takes the band as a bool mask, but no softcap
+        lib_ms = (None if shape.get("softcap") else
+                  sdpa_masked_ms(q, k, v, dout, vis)[1])
+        torch.cuda.empty_cache()
+        live = b * h * int(vis.sum())
+        products = {"B2a": 3, "B2b": 4, "B5": 5}[n]
+        in_bytes = 2 * (2 * q.numel() + 2 * k.numel()) + 8 * b * h * s
+        grads = {"B2a": 4 * q.numel(), "B2b": 8 * k.numel(),
+                 "B5": 4 * q.numel() + 8 * k.numel()}[n]
+        return kw, {"case": tag, **case_row(checks, ms, plain_ms,
+                                             2 * products * d * live,
+                                             in_bytes + grads, lib_ms),
+                    "library": "SDPA memory-efficient backward (dq, dk, dv) "
+                               "with the bool band mask" if lib_ms else None,
+                    "visible_pairs_per_head": int(vis.sum())}
+
+    def poisoned(n, tag, fn, kw, args, vis):
+        q_, k_, v_, do_, lse, delta = args
+        clean = fn(*args, **kw)
+        clean = clean if isinstance(clean, tuple) else (clean,)
+        if n in ("B5", "B2a"):  # kv side: dq of a block of rows
+            rows, tiles = rows_seeing_less(vis, 128)
+            kp, vp = (poison(t, 1, tiles, 128) for t in (k_, v_))
+            dq = fn(q_, kp, vp, do_, lse, delta, **kw)
+            dq = (dq if n == "B2a" else dq[0])[:, rows]
+            torch.cuda.synchronize()
+            if n == "B2a":
+                band_check(f"B2a {tag}", dq, clean[0][:, rows], len(tiles))
+            else:
+                ok = bool(torch.isfinite(dq).all())
+                emit({"phase": "check", "case": f"B5 dq {tag} band check",
+                      "poisoned_tiles": len(tiles), "finite": ok})
+                if not ok:
+                    raise AssertionError(f"B5 {tag}: kv tiles outside the "
+                                         f"walk reached dq")
+                check_out(f"B5 dq {tag} (poisoned kv)", dq,
+                          clean[0][:, rows], 0 if rows.start == 0 else None)
+            del kp, vp, dq
+        if n in ("B5", "B2b"):  # q side: dk and dv of the last kv columns
+            cols, tiles = cols_seen_by_few(vis, 64)
+            qp, dop = (poison(t, 1, tiles, 64) for t in (q_, do_))
+            got = fn(qp, k_, v_, dop, lse, delta, **kw)
+            torch.cuda.synchronize()
+            band_check(f"{n} dk, dv {tag}",
+                       torch.stack([got[-2][:, cols], got[-1][:, cols]]),
+                       torch.stack([clean[-2][:, cols], clean[-1][:, cols]]),
+                       len(tiles))
+            del qp, dop, got
+        del clean
+        torch.cuda.empty_cache()
+
+    for n, cases in BWD_MASKED.items():
+        for tag, q_start, shape in cases:
+            o, lse = fwd(q_start, shape)
+            delta = (dout.float() * o.float()).sum(-1).transpose(1, 2)
+            args = (q, k, v, dout, lse, delta.contiguous())
+            del o
+            vis = vis_of(q_start, shape)
+            dead = (-q_start if q_start is not None and q_start < 0 else 0)
+            if n == "B5":
+                kw, r = case("B5", tag, flash.flash_bwd_fused,
+                             flash.flash_bwd_fused_plain, None, shape, args,
+                             vis, 0 if shape["causal"] else None)
+                out["B5"].append(r)
+                poisoned("B5", tag, flash.flash_bwd_fused, kw, args, vis)
+            else:
+                kw, r = case("B2a", tag, flash.flash_bwd_dq,
+                             flash.flash_bwd_dq_plain, q_start, shape, args,
+                             vis, dead)
+                out["B2a"].append(r)
+                dq = flash.flash_bwd_dq(*args, **kw)
+                torch.cuda.synchronize()
+                if dead and dq[:, :dead].any():
+                    raise AssertionError(f"B2a {tag}: dead rows have "
+                                         f"nonzero dq")
+                del dq
+                poisoned("B2a", tag, flash.flash_bwd_dq, kw, args, vis)
+                kw, r = case("B2b", tag, flash.flash_bwd_dkv,
+                             flash.flash_bwd_dkv_plain, q_start, shape, args,
+                             vis)
+                out["B2b"].append(r)
+                dk, dv = flash.flash_bwd_dkv(*args, **kw)
+                torch.cuda.synchronize()
+                if dead and (dk[:, s - dead:].any() or dv[:, s - dead:].any()):
+                    raise AssertionError(f"B2b {tag}: unseen kv rows have "
+                                         f"nonzero dk/dv")
+                del dk, dv
+                poisoned("B2b", tag, flash.flash_bwd_dkv, kw, args, vis)
+            del args, lse, delta, vis
+            torch.cuda.empty_cache()
+    return out
 
 
 def sparse_masks(sparse):
@@ -1579,10 +1767,12 @@ def train_batch(vocab, seq, dev):
         (1, seq), dtype=torch.float32, device=dev)
 
 
-def train_phase(pkg, build, dev, card, impl="pallas", plan=TRAIN_STEPS):
+def train_phase(pkg, build, dev, card, impl="pallas", plan=TRAIN_STEPS,
+                windowed=False):
     """make_train_step on the 0.88B config at b=1, s=8192 with attention
     ``impl`` (pallas: B1 forward; sage: B8a and its quantization kernels;
-    B5 backward for both): one
+    B5 backward for both; ``windowed``: pallas with WINDOWED, B4 forward
+    and B5 over the band and the sink tiles): one
     warm-up step, then timed steps on the same batch under each remat
     policy of ``plan``, each step's launch counts checked exactly. Returns
     the counts of the `none` run."""
@@ -1592,12 +1782,16 @@ def train_phase(pkg, build, dev, card, impl="pallas", plan=TRAIN_STEPS):
     L = MODEL["n_layers"]
     fwd, other = FORWARD_KERNEL[impl], FORWARD_KERNEL[
         "pallas" if impl == "sage" else "sage"]
+    shape, phase = {}, "train" if impl == "pallas" else "train_sage"
+    if windowed:
+        shape, phase = WINDOWED, "train_windowed"
+        fwd, other = "flash_fwd_static", "flash_fwd_causal_self"
     tokens, labels, mask = train_batch(MODEL["vocab"], TRAIN_SEQ, dev)
     opt = functools.partial(torch.optim.AdamW, lr=LR,
                             weight_decay=WEIGHT_DECAY)
     main_counts = None
     for remat, steps in plan:
-        cfg = pkg.ModelConfig(**MODEL, remat=remat, attn_impl=impl)
+        cfg = pkg.ModelConfig(**MODEL, **shape, remat=remat, attn_impl=impl)
         params = init_params(torch.Generator(device=dev).manual_seed(SEED),
                              cfg, device=dev)
         n_params = sum(t.numel() for t in param_leaves(params))
@@ -1627,8 +1821,8 @@ def train_phase(pkg, build, dev, card, impl="pallas", plan=TRAIN_STEPS):
         # the whole timed window over its steps; the spread beside it
         ms = 1e3 * sum(times) / steps
         flops = 6 * TRAIN_SEQ * n_params  # the 6ND convention
-        emit({"phase": "train" if impl == "pallas" else "train_sage",
-              "card": card, "attn_impl": impl, "remat": remat, "batch": 1,
+        emit({"phase": phase, "card": card, "attn_impl": impl,
+              **shape, "remat": remat, "batch": 1,
               "seq": TRAIN_SEQ, "params": n_params, "steps": steps,
               "ms_per_step": ms, "ms_min": 1e3 * min(times),
               "ms_max": 1e3 * max(times), "ms_all": [1e3 * t for t in times],
@@ -1642,7 +1836,7 @@ def train_phase(pkg, build, dev, card, impl="pallas", plan=TRAIN_STEPS):
         if remat == "none":
             _, prof = profiled(lambda: step(params, state, tokens, labels,
                                             mask)[2])
-            emit({"phase": "train_profile", "attn_impl": impl,
+            emit({"phase": "train_profile", "attn_impl": impl, **shape,
                   "remat": remat, **prof})
         del params, state, step, loss
         torch.cuda.empty_cache()
@@ -1658,18 +1852,19 @@ def named_leaves(tree, prefix=""):
 
 
 def grad_check_phase(pkg, build, dev, card, impl="pallas",
-                     remats=("none", "attn", "full")):
+                     remats=("none", "attn", "full"), shape=None):
     """The loss and every parameter gradient of loss_local with attention
     ``impl`` on the card (kernels) under each remat policy against the same
     backward on CPU copies without remat (plain versions), at 2 layers,
-    full width, b=1, s=1024, each card run's forward kernel (B1 or B8a)
-    and B5 launches checked."""
+    full width, b=1, s=1024, each card run's forward kernel (B1 or B8a; B4
+    with a ``shape``: GRAD_WINDOWED's window, sinks and softcap) and B5
+    launches checked."""
     from long_context_attention_tpu_torch.models.llama import (
         init_params, loss_local)
 
-    fwd = FORWARD_KERNEL[impl]
+    fwd = "flash_fwd_static" if shape else FORWARD_KERNEL[impl]
     cfg = pkg.ModelConfig(**{**MODEL, "n_layers": GRAD_LAYERS},
-                          attn_impl=impl)
+                          **(shape or {}), attn_impl=impl)
     params = init_params(torch.Generator(device=dev).manual_seed(SEED), cfg,
                          device=dev)
     tokens, labels, mask = train_batch(cfg.vocab, GRAD_SEQ, dev)
@@ -1704,26 +1899,29 @@ def grad_check_phase(pkg, build, dev, card, impl="pallas",
                          "mean_abs": float(want.abs().mean())}
         worst = max(x["rel_err"] for x in leaves.values())
         emit({"phase": "grad_check", "card": card, "attn_impl": impl,
-              "remat": remat, "layers": GRAD_LAYERS, "seq": GRAD_SEQ,
+              **(shape or {}), "remat": remat, "layers": GRAD_LAYERS,
+              "seq": GRAD_SEQ,
               "loss_card": loss_card,
               "loss_cpu": loss_cpu, "loss_tol": LOSS_TOL,
               "grad_tol": GRAD_TOL, "worst_rel_err": worst,
               "launches": {n: counts[n] for n in (fwd, "flash_bwd_fused",
                                                  *SAGE_QUANT)},
               "leaves": leaves})
-        check(f"grad_check {impl} remat={remat} loss",
+        tag = f"{impl}{' windowed' if shape else ''} remat={remat}"
+        check(f"grad_check {tag} loss",
               abs(loss_card - loss_cpu), LOSS_TOL)
         for n, x in leaves.items():
-            check(f"grad_check {impl} remat={remat} {n} (relative to its "
+            check(f"grad_check {tag} {n} (relative to its "
                   f"largest value)", x["rel_err"], GRAD_TOL)
 
 
 def offsets_phase(build, flash, dev, card):
     """flash_attention with one-chunk offsets (B3 + B2a + B2b, the JAX
     trainer's per-layer call) against the no-offsets path (B1 + B5) on the
-    same inputs, fwd and bwd through autograd; then the windowed forward
-    (window 4096, 4 sinks) with the same offsets (B3) against none (B4).
-    Returns the offsets run's launch counts."""
+    same inputs, fwd and bwd through autograd; then the same with the
+    window (4096) and sinks (4): with the offsets B3 + B2a + B2b against
+    none (B4 + B5). Returns the offsets runs' launch counts, dense and
+    windowed."""
     b, s, h, hk, d = 1, TRAIN_SEQ, MODEL["n_heads"], MODEL["n_kv_heads"], 128
     gen = torch.Generator(device=dev).manual_seed(SEED + 2)
     q, k, v, dout = (torch.randn(shape, generator=gen, device=dev).bfloat16()
@@ -1756,25 +1954,32 @@ def offsets_phase(build, flash, dev, card):
 
     win = dict(causal=True, window_size=(WINDOW, -1), sink_tokens=SINKS)
     wruns = {}
-    with torch.no_grad():
-        for name, kw, kernel in (
-                ("offsets", dict(q_offsets=[0], kv_offsets=[0]),
-                 "flash_fwd_pos"), ("static", {}, "flash_fwd_static")):
-            build.reset_launch_counts()
-            out, lse = flash.flash_attention(q, k, v, return_lse=True,
-                                             **win, **kw)
-            torch.cuda.synchronize()
-            wcounts = build.launch_counts()
-            if wcounts[kernel] != 1 or sum(wcounts.values()) != 1:
-                raise AssertionError(f"windowed {name} path counts {wcounts}")
-            wruns[name] = (out, lse)
-    (o, l), (wo, wl) = wruns["offsets"], wruns["static"]
-    errs["windowed out"] = check_out("windowed offsets (B3) vs static (B4) "
-                                     "out", o, wo)
-    check("windowed offsets vs static lse", max_err(l, wl), LSE_TOL)
+    for name, kw, kernels in (
+            ("offsets", dict(q_offsets=[0], kv_offsets=[0]),
+             ("flash_fwd_pos", "flash_bwd_dq", "flash_bwd_dkv")),
+            ("static", {}, ("flash_fwd_static", "flash_bwd_fused"))):
+        build.reset_launch_counts()
+        out, lse = flash.flash_attention(q, k, v, return_lse=True, **win,
+                                         **kw)
+        grads = torch.autograd.grad(out, (q, k, v), dout)
+        torch.cuda.synchronize()
+        wcounts = build.launch_counts()
+        if (any(wcounts[n] != 1 for n in kernels)
+                or sum(wcounts.values()) != len(kernels)):
+            raise AssertionError(f"windowed {name} path counts {wcounts}")
+        wruns[name] = (wcounts, (out.detach(), lse.detach(), *grads))
+    (wcounts, got), (_, want) = wruns["offsets"], wruns["static"]
+    for name, a, w in zip(("out", "lse", "dq", "dk", "dv"), got, want):
+        if name == "lse":
+            check("windowed offsets vs static lse", max_err(a, w), LSE_TOL)
+            continue
+        errs[f"windowed {name}"] = check_out(
+            f"windowed offsets (B3, B2a, B2b) vs static (B4, B5) {name}", a,
+            w, 0 if name == "dq" else None)
     emit({"phase": "offsets", "card": card, "seq": s, "launches": counts,
+          "windowed_launches": wcounts,
           "row_rel_err": {n: r for n, (_, r) in errs.items()}})
-    return counts
+    return counts, wcounts
 
 
 # every attention forward kernel a prefill could take
@@ -2088,17 +2293,20 @@ def main():
                 for n, f in (("B1, B3, B4, B9a", 0), ("B3 int8", 1))}
     dq_smem = build.library("flash_dq_sm90.cu").lca_flash_dq_smem()
     sage_smem = build.library("sage_fwd_sm90.cu").lca_sage_fwd_smem()
-    # B9a's instantiation (SPARSE) of the forward kernel and B9b's kernel
-    new = {n: e for src in ("flash_fwd_sm90.cu", "flash_dq_sm90.cu")
+    # the backward kernels' instantiations (B5, B2b and B9c: FUSED, SPARSE,
+    # MASK; B2a and B9b: the dq kernel's walk) and B9a's of the forward
+    new = {n: e for src in ("flash_fwd_sm90.cu", "flash_dq_sm90.cu",
+                            "flash_bwd_sm90.cu")
            for n, e in ptxas_entries(logs.get(src, "")).items()
-           if "kernelILb0ELi0ELb0ELb1E" in n or "flash_dq_sm90_kernel" in n}
+           if "kernelILb0ELi0ELb0ELb1E" in n or "flash_dq_sm90_kernel" in n
+           or "flash_bwd_sm90_kernel" in n}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "sources": sorted(logs),
           "flash_fwd_sm90_dynamic_smem_bytes": fwd_smem,
-          "flash_dq_sm90_dynamic_smem_bytes": {"B9b": dq_smem},
+          "flash_dq_sm90_dynamic_smem_bytes": {"B2a, B9b": dq_smem},
           "flash_bwd_sm90_dynamic_smem_bytes": bwd_smem,
           "sage_fwd_sm90_dynamic_smem_bytes": {"B8a, B8b": sage_smem},
-          "ptxas_b9a_b9b": new})
+          "ptxas_bwd_dq_b9a": new})
     for src, log in logs.items():
         for line in log.splitlines():
             if any(w in line for w in ("entry function", "registers",
@@ -2136,7 +2344,9 @@ def main():
 
     # each kernel's launches on its own path: serving (B1, B3, B6, B7),
     # windowed serving (B4; B3, B6, B7 in their "windowed" entries),
-    # training (B5), the offsets call (B2a, B2b), sage serving (B8a dense,
+    # training (B5; its windowed case in windowed training), the offsets
+    # call (B2a, B2b; their windowed case in the windowed offsets call),
+    # sage serving (B8a dense,
     # B8b windowed; the quantization kernels in the dense one), the
     # non-causal sage call (B8c), the block-sparse USP
     # layer (B9a, B9b, B9c)
@@ -2156,12 +2366,17 @@ def main():
     train_phase(pkg, build, dev, smi, impl="sage", plan=SAGE_TRAIN_STEPS)
     torch.cuda.empty_cache()
     lap("train")
+    wtrain_counts = train_phase(pkg, build, dev, smi,
+                                plan=WINDOWED_TRAIN_STEPS, windowed=True)
+    torch.cuda.empty_cache()
+    lap("train_windowed")
     grad_check_phase(pkg, build, dev, smi)
     grad_check_phase(pkg, build, dev, smi, impl="sage",
                      remats=("none", "attn"))
+    grad_check_phase(pkg, build, dev, smi, shape=GRAD_WINDOWED)
     torch.cuda.empty_cache()
     lap("grad_check")
-    offsets_counts = offsets_phase(build, flash, dev, smi)
+    offsets_counts, woffsets_counts = offsets_phase(build, flash, dev, smi)
     rect_counts = sage_api_phase(build, sage, dev, smi)
     lap("offsets")
     torch.cuda.empty_cache()
@@ -2185,6 +2400,14 @@ def main():
             r["train"]["launches"] = train_counts[r["name"]]
         if "bf16" in r:  # B3 in the offsets call
             r["bf16"]["launches"] = offsets_counts[r["name"]]
+        # the masked backward cases on a path: B5's windowed model's
+        # training call (3 timed `none` steps), B2a's and B2b's windowed
+        # offsets call
+        for case in r.get("masked_cases", []):
+            if case["case"] == "window sinks":
+                case["launches"] = wtrain_counts[r["name"]]
+            elif case["case"] == "offsets window sinks":
+                case["launches"] = woffsets_counts[r["name"]]
     emit({"kernels": rows})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -18,8 +18,8 @@
 //   lca_sparse_bwd_dkv  <- _sparse_dkv_kernel (B9c): dk and dv of a
 //                          block-sparse mask's kv tiles over each column's
 //                          live (GQA group head, q tile) entries.
-// (B2a, lca_flash_bwd_dq, is in flash_bwd.cu; B9a in flash_fwd_sm90.cu and
-// B9b in flash_dq_sm90.cu.)
+// (B2a, lca_flash_bwd_dq, and B9b are in flash_dq_sm90.cu; B9a in
+// flash_fwd_sm90.cu.)
 //
 // B9c is B2b's pipeline with another walk, chosen by the kernel's template
 // parameter SPARSE: the producer, the consumers' products, softmax and
@@ -29,9 +29,12 @@
 // All take bf16 q, dout (b, s_q, h, d) and k, v (b, s_kv, h_kv, d), read by
 // TMA through their strides (16-byte aligned, unit stride along d); fp32 lse
 // and delta = rowsum(dout * out), (b, h, s_q) contiguous; and write fp32
-// partials. q row i sits at position q_start + i and kv column j at j; with
-// the causal mask a column past its row's position is dropped. A row whose
-// lse is -inf (it saw no column in the forward) contributes nothing.
+// partials. q row i sits at position q_start + i and kv column j at j; the
+// masks are the forward's (flash-attn semantics): a column past its row's
+// position plus the right window (0: causal) is dropped, and so is one
+// before the row's position less the left window unless it is a sink
+// (column < sink). A row whose lse is -inf (it saw no column in the
+// forward) contributes nothing.
 //
 // What bounds it on an H100: tensor-core operations. Per live (row, column)
 // pair B2b does 4 products of depth d (S, dP, dV, dK), B5 5 (and dQ), at
@@ -44,9 +47,10 @@
 // (kv tile, kv head, batch) items, longest causal walk first, dealt to the
 // blocks in a snake order (B9c: its own items and schedule, below). An
 // item's kv tile is BKV = 128 rows; it walks its group's query heads and,
-// for each, the q tiles of BQ = 64 rows from the causal diagonal on (the
-// TPU's _q_band_static). A block has one producer warpgroup and two
-// consumer warpgroups:
+// for each, the q tiles of BQ = 64 rows from the causal (or right-window)
+// diagonal on, up to the last q tile its left window reaches, or to the
+// end for a kv tile that holds a sink column (the TPU's _q_band_static). A
+// block has one producer warpgroup and two consumer warpgroups:
 //   * producer warp 0 (setmaxnreg down to 24, 32 or 40 registers) loads K
 //     and V once per item, and per step Q and dout by TMA into a ring of
 //     stages, with lse (in exp2 units; +inf for a dead row or a row past
@@ -90,12 +94,23 @@
 // consumers beside lse as the step's first q position less the item's first
 // kv position. A column with no live entry writes zeros.
 //
+// Masks (template parameter MASK). kDense, causal or no mask, is the body
+// every training step of an unwindowed model runs; kBand adds the sliding
+// window (left, right) and the sinks: the band walk above, the masks at run
+// time, and the items in the order of their walks' length (band_tile);
+// kCap is kBand with the softcap, an instantiation of its own so that the
+// other two keep their registers.
+//
 // Numerics follow the TPU kernels (_recompute_p, _ds_to_dqk):
 //   s = (q . k) * scale in fp32 from the raw q (no log2e fold);
-//   p = exp(s - lse) (computed as exp2(s * scale * log2e - lse * log2e)),
-//     0 on masked entries and on rows with lse -inf (B9c: the -inf-safe lse,
-//     +1e30 on dead rows);
-//   dp = dout . v; ds = p * (dp - delta) * scale;
+//   softcap: t = tanh(s / cap), s = cap * t (the forward's natural-units
+//     form, flash_fwd_sm90.cu; tanh by the fast exp, sm90.cuh tanh_fast);
+//   p = exp(s - lse) (computed as exp2(s * scale * log2e - lse * log2e), or
+//     exp2(s * log2e - lse * log2e) capped), 0 on masked entries and on
+//     rows with lse -inf (B9c: the -inf-safe lse, +1e30 on dead rows);
+//   dp = dout . v; ds = p * (dp - delta) * scale, softcap: p * (1 - t^2) *
+//     (dp - delta) * scale (p * (1 - t^2) kept in place of p, and bf16(p)
+//     packed for dV while t is live: no second 64 x 64 array);
 //   dv += bf16(p) . dout; dk += bf16(ds) . q; dq += bf16(ds) . k.
 //   B9c (_sparse_dkv_kernel) scales after the cast: ds = p * (dp - delta),
 //   dk = scale * sum bf16(ds) . q.
@@ -125,6 +140,10 @@ struct Regs {
 };
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kMasked = 4;  // a sparse column entry's flag (_F_MASKED)
+// masks (template parameter MASK): causal or none; the window and sinks;
+// those and the softcap
+constexpr int kDense = 0, kBand = 1, kCap = 2;
+constexpr int kOpen = 1 << 20;  // an unbounded end of a row's columns
 
 // Shared memory. A bf16 tile is stored as 64-column boxes of 128-byte rows,
 // swizzled in 1024-byte atoms of 8 rows (CU_TENSOR_MAP_SWIZZLE_128B, read by
@@ -175,6 +194,10 @@ struct Params {
   long long dk_sb, dk_ss, dk_sh;  // dk and dv element strides
   int q_start;  // position of q row 0 (kv column j sits at j)
   int causal;
+  int left, right;  // kBand, kCap: window; -1 = unbounded (right 0: causal)
+  int sink;         // columns < sink stay visible (left >= 0)
+  float cap;        // kCap: the softcap
+  float sc;         // kCap: scale / cap
   float scale;
   float sl2;  // scale * log2e
   int nq, nk, n_items;
@@ -239,16 +262,24 @@ struct Item {
 
 // The steps of a dense item: the group's query heads, each with the q
 // tiles from the first that sees the kv tile (all under no mask) to the
-// last.
+// last; with the band masks, to the last that its left window reaches (all
+// for a kv tile that holds a sink column).
+template <bool BAND>
 struct QWalk {
   int iq_lo, nqi, n;
   __device__ QWalk(const Params& p, int ik) {
     iq_lo = 0;
-    if (p.causal) {
-      const int first_row = ik * BKV - p.q_start;  // first row that sees it
+    if (BAND ? p.right >= 0 : p.causal != 0) {
+      // the first row that sees it
+      const int first_row = ik * BKV - (BAND ? p.right : 0) - p.q_start;
       iq_lo = first_row <= 0 ? 0 : min(p.nq, first_row / BQ);
     }
-    nqi = p.nq - iq_lo;
+    int iq_hi = p.nq - 1;
+    if (BAND && p.left >= 0 && ik * BKV >= p.sink) {
+      const int last_row = ik * BKV + BKV - 1 + p.left - p.q_start;
+      iq_hi = last_row < 0 ? -1 : min(iq_hi, last_row / BQ);
+    }
+    nqi = max(iq_hi - iq_lo + 1, 0);
     n = (p.h / p.h_kv) * nqi;
   }
   __device__ int head(const Item& x, const Params& p, int js) const {
@@ -257,13 +288,45 @@ struct QWalk {
   __device__ int q0(int js) const { return (iq_lo + js % nqi) * BQ; }
 };
 
+// The kv tile of rank r in the band's longest-first order. Sink tiles walk
+// to the last q tile, so they come first, in order. After them the walks
+// rise while the first q tile is clamped at 0 (B, the tiles before P) and
+// fall from there on (A: the first and last q tiles both move by 2 per kv
+// tile until the last is clamped at the end), so the order merges A
+// ascending and B descending; the r-th of the merge by a binary search over
+// how many of the first r come from A (ties to A).
+__device__ __forceinline__ int band_tile(const Params& p, int r) {
+  const int ns = p.left >= 0 ? min((p.sink + BKV - 1) / BKV, p.nk) : 0;
+  if (r < ns) return r;
+  r -= ns;
+  int P = p.nk;
+  if (p.right >= 0) {
+    const int x = p.right + p.q_start;  // lo >= 0 from tile ceil(x / BKV)
+    P = x <= 0 ? ns : min(max((x + BKV - 1) / BKV, ns), p.nk);
+  }
+  const int na = p.nk - P, nb = P - ns;
+  auto len_a = [&](int i) { return QWalk<true>(p, P + i).nqi; };
+  auto len_b = [&](int j) { return QWalk<true>(p, P - 1 - j).nqi; };
+  int lo = max(0, r - nb), hi = min(r, na);
+  while (lo < hi) {  // the least i whose A[i] does not precede B[r - i - 1]
+    const int i = (lo + hi) >> 1;
+    if (len_a(i) >= len_b(r - i - 1))
+      lo = i + 1;
+    else
+      hi = i;
+  }
+  const int j = r - lo;
+  return lo < na && (j >= nb || len_a(lo) >= len_b(j)) ? P + lo : P - 1 - j;
+}
+
 // Item t. Dense: kv tiles outside, kv tile 0 (the longest causal walk)
-// first, kv heads and batch rows inside. The order with the kv heads
+// first, kv heads and batch rows inside; with the band masks the kv tiles
+// in band_tile's order, longest walk first. The order with the kv heads
 // outside, whose blocks running at once share fewer kv heads and dq rows,
 // balanced the blocks' work worse and ran 1.7x slower
 // (scripts/torch_bwd_order.py). B9c: the host's items in its order, each
 // repeated over the batch rows (and the kv heads of a shared mask) inside.
-template <bool SPARSE>
+template <bool SPARSE, bool BAND>
 __device__ __forceinline__ Item item_of(const Params& p, int t) {
   Item x;
   if constexpr (SPARSE) {
@@ -282,10 +345,11 @@ __device__ __forceinline__ Item item_of(const Params& p, int t) {
   } else {
     const int r = t % (p.b * p.h_kv);
     x.ik = t / (p.b * p.h_kv);
+    if constexpr (BAND) x.ik = band_tile(p, x.ik);
     x.ihk = r % p.h_kv;
     x.ib = r / p.h_kv;
     x.k0 = x.ik * BKV;
-    x.n = QWalk(p, x.ik).n;
+    x.n = QWalk<BAND>(p, x.ik).n;
     x.rows = BKV;
     x.sub = x.e0 = x.e_end = 0;
   }
@@ -297,7 +361,49 @@ __device__ __forceinline__ Item item_of(const Params& p, int t) {
 // the block (ops/sparse.py SparsePlan.dkv_schedule: items longest first,
 // each to the block with the least work so far, since a column seen by every
 // q tile, such as StreamingLLM's sink, outweighs the rest several times and a
-// snake leaves the blocks uneven).
+// snake leaves the blocks uneven). The band masks deal the snake with holes:
+// a sink item (the first m of band_tile's order, one per sink tile, kv head
+// and batch row, all in the snake's first row) walks every q tile, k times
+// the steps of the longest band item, so its block's next k - 1 turns are
+// holes, and the other blocks take those turns' items (at s = 8192, window
+// 4096: 256 against 132 steps, k = 2; the most steps on a block 508 -> 392,
+// the mean 391).
+template <bool SPARSE, bool BAND>
+struct Deal : BlockItems<SPARSE> {
+  int m = 0, k = 1, n_virtual = 0;
+  __device__ explicit Deal(const Params& p) : BlockItems<SPARSE>(p) {
+    if constexpr (BAND) {
+      const int g = gridDim.x;
+      const int ns = p.left >= 0 ? min((p.sink + BKV - 1) / BKV, p.nk) : 0;
+      m = ns * p.b * p.h_kv;
+      if (ns > 0 && ns < p.nk && m <= g) {
+        const int ls = QWalk<true>(p, 0).nqi;
+        const int lb = QWalk<true>(p, band_tile(p, ns)).nqi;
+        if (lb > 0) k = max(1, (ls + lb / 2) / lb);
+      }
+      n_virtual = p.n_items + m * (k - 1);
+      this->end = (n_virtual + g - 1) / g;
+    }
+  }
+  // item t of the block's j-th turn, or -1 (none, or a hole)
+  __device__ int at(const Params& p, int j) const {
+    if constexpr (!BAND) {
+      return BlockItems<SPARSE>::at(p, j);
+    } else {
+      const int g = gridDim.x;
+      const int v = item_index(j);  // the turn's place in the snake
+      if (v >= n_virtual) return -1;
+      const int row = v / g, o = v - row * g;
+      int holes = m * min(max(row - 1, 0), k - 1);  // in the rows before
+      if (row >= 1 && row <= k - 1) {  // the sink blocks' places: a hole
+        if (row & 1 ? o >= g - m : o < m) return -1;
+        if (!(row & 1)) holes += m;
+      }
+      const int t = v - holes;
+      return t < p.n_items ? t : -1;
+    }
+  }
+};
 
 // B9c: a step of a column's walk, q sub-tile j (of block_q / 64) of CSR
 // entry e; entries with no step are passed over
@@ -331,11 +437,15 @@ __device__ __forceinline__ ColStep col_next(const Params& p, const Item& x,
 // The kernel
 // ---------------------------------------------------------------------------
 
-// FUSED: B5 (dq too); SPARSE: B9c's walk; neither: B2b.
-template <bool FUSED, bool SPARSE>
+// FUSED: B5 (dq too); SPARSE: B9c's walk; neither: B2b. MASK: kDense,
+// kBand or kCap (B2b, B5).
+template <bool FUSED, bool SPARSE, int MASK = kDense>
 __global__ void __launch_bounds__(NT, 1)
     flash_bwd_sm90_kernel(const __grid_constant__ Maps maps, const Params p) {
   static_assert(!(FUSED && SPARSE), "B9c computes no dq");
+  static_assert(!SPARSE || MASK == kDense, "B9c: the masks of its entries");
+  constexpr bool BAND = MASK != kDense;
+  constexpr bool CAP = MASK == kCap;
   static_assert(Regs<FUSED, SPARSE>::CONSUMER == (FUSED ? 240 : 232),
                 "the consumers' register budget");
   using L = Smem<FUSED>;
@@ -387,11 +497,11 @@ __global__ void __launch_bounds__(NT, 1)
     setmaxnreg_dec<Regs<FUSED, SPARSE>::PRODUCER>();
     if (warp == 0) {  // loads
       int it = 0, kvn = 0;
-      const BlockItems<SPARSE> items(p);
+      const Deal<SPARSE, BAND> items(p);
       for (int j = items.j0; j < items.end; ++j) {
         const int t = items.at(p, j);
         if (t < 0) continue;
-        const Item x = item_of<SPARSE>(p, t);
+        const Item x = item_of<SPARSE, BAND>(p, t);
         if (x.n == 0) continue;
         if (lane == 0) {
           mbar_wait(bar(B_KVEMPTY), (kvn & 1) ^ 1);
@@ -404,7 +514,7 @@ __global__ void __launch_bounds__(NT, 1)
           }
         }
         ++kvn;
-        const QWalk w(p, x.ik);
+        const QWalk<BAND> w(p, x.ik);
         ColStep c{};
         if constexpr (SPARSE) c = col_from(p, x, x.e0);
         for (int js = 0; js < x.n; ++js, ++it) {
@@ -450,11 +560,12 @@ __global__ void __launch_bounds__(NT, 1)
       }
     } else if (FUSED && warp == 1 && lane == 0) {  // dq reduce-adds
       int dn = 0;
-      for (int j = 0; j * (int)gridDim.x < p.n_items; ++j) {
-        const int t = item_index(j);
-        if (t >= p.n_items) continue;
-        const Item x = item_of<false>(p, t);
-        const QWalk w(p, x.ik);
+      const Deal<false, BAND> items(p);
+      for (int j = items.j0; j < items.end; ++j) {
+        const int t = items.at(p, j);
+        if (t < 0) continue;
+        const Item x = item_of<false, BAND>(p, t);
+        const QWalk<BAND> w(p, x.ik);
         for (int js = 0; js < w.n; ++js, ++dn) {
           mbar_wait(bar(B_DQFULL), dn & 1);
           for (int bx = 0; bx < 4; ++bx)
@@ -482,12 +593,12 @@ __global__ void __launch_bounds__(NT, 1)
   const int r0 = cw * 64 + warp * 16 + g;
 
   int it = 0, kvn = 0, dn = 0;
-  const BlockItems<SPARSE> items(p);
+  const Deal<SPARSE, BAND> items(p);
   for (int j = items.j0; j < items.end; ++j) {
     const int t = items.at(p, j);
     if (t < 0) continue;
-    const Item x = item_of<SPARSE>(p, t);
-    const QWalk w(p, x.ik);
+    const Item x = item_of<SPARSE, BAND>(p, t);
+    const QWalk<BAND> w(p, x.ik);
     const int k0 = x.k0 + cw * 64;  // first kv row of this warpgroup
     const int kv_row0 = x.k0 + r0;
     // B9c: rows of the next mask column (the second half of a 64-row item)
@@ -500,21 +611,54 @@ __global__ void __launch_bounds__(NT, 1)
     // P^T of one step in place of S^T: p = exp2(s * scale * log2e - lse
     // * log2e), 0 where `masked` drops the (kv row, q row) pair: a row past
     // s_kv, or under the causal mask a kv row r of the item after q row c of
-    // the step (position r > rel + c)
-    auto probs = [&](float (&sacc)[32], const float* ld, int rel,
-                     bool causal, auto masked) {
+    // the step (position r > rel + c); with the band masks, r > rel + c +
+    // right, or r < rel + c - left for a kv row at or past the sinks, which
+    // leaves each kv row one interval of q columns, [lo, hi], set once per
+    // step (the sink tile's walk masks most of its steps). kCap: s = cap *
+    // tanh(s * scale / cap), P^T * (1 - t^2) in place and bf16(P^T) into pa
+    auto probs = [&](float (&sacc)[32], uint32_t (&pa)[16], const float* ld,
+                     int rel, bool causal, auto masked) {
+      int lo[2] = {0, 0}, hi[2] = {0, 0};  // less this lane's column cb
+      if (BAND && decltype(masked)::value) {
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int r = r0 + hh * 8;
+          lo[hh] = (p.right >= 0 ? r - rel - p.right : -kOpen) - cb;
+          hi[hh] = (p.left >= 0 && x.k0 + r >= p.sink ? r - rel + p.left
+                                                       : kOpen) - cb;
+          if (x.k0 + r >= p.s_kv) hi[hh] = -kOpen;
+        }
+      }
 #pragma unroll
       for (int i8 = 0; i8 < 8; ++i8) {
         const float2 l = *reinterpret_cast<const float2*>(ld + 8 * i8 + cb);
+        float pv[4];
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          float pe = exp2f(sacc[4 * i8 + e] * p.sl2 - ((e & 1) ? l.y : l.x));
-          if (decltype(masked)::value) {
-            const int r = r0 + (e >> 1) * 8;
-            const int c = 8 * i8 + cb + (e & 1);
-            if (x.k0 + r >= p.s_kv || (causal && r > rel + c)) pe = 0.f;
+          float pe, dt = 1.f;
+          if constexpr (CAP) {
+            const float tc = tanh_fast(sacc[4 * i8 + e] * p.sc);
+            pe = exp2f(tc * p.cap * kLog2e - ((e & 1) ? l.y : l.x));
+            dt = 1.f - tc * tc;
+          } else {
+            pe = exp2f(sacc[4 * i8 + e] * p.sl2 - ((e & 1) ? l.y : l.x));
           }
-          sacc[4 * i8 + e] = pe;
+          if (decltype(masked)::value) {
+            if constexpr (BAND) {
+              const int cc = 8 * i8 + (e & 1);
+              if (cc < lo[e >> 1] || cc > hi[e >> 1]) pe = 0.f;
+            } else {
+              const int r = r0 + (e >> 1) * 8;
+              const int c = 8 * i8 + cb + (e & 1);
+              if (x.k0 + r >= p.s_kv || (causal && r > rel + c)) pe = 0.f;
+            }
+          }
+          pv[e] = pe;
+          sacc[4 * i8 + e] = CAP ? pe * dt : pe;
+        }
+        if constexpr (CAP) {
+          pa[2 * i8] = pack_bf16(pv[0], pv[1]);
+          pa[2 * i8 + 1] = pack_bf16(pv[2], pv[3]);
         }
       }
     };
@@ -565,22 +709,29 @@ __global__ void __launch_bounds__(NT, 1)
         // P^T while dP^T is on the tensor cores; only a tile that some pair
         // of this warpgroup's leaves is masked
         const float* ld = lse_delta(it);
-        const bool masked =
-            (causal && cw * 64 + 63 > rel) || k0 + 63 >= p.s_kv;
+        uint32_t pa[16], da[16];
+        bool masked;
+        if constexpr (BAND)  // a wholly-sink warpgroup is interior on the left
+          masked = k0 + 63 >= p.s_kv ||
+                   (p.right >= 0 && cw * 64 + 63 > rel + p.right) ||
+                   (p.left >= 0 && cw * 64 < rel + 63 - p.left &&
+                    k0 + 63 >= p.sink);
+        else
+          masked = (causal && cw * 64 + 63 > rel) || k0 + 63 >= p.s_kv;
         wgmma_wait<1>();
         reg_fence(sacc);
         if (masked)
-          probs(sacc, ld, rel, causal, Flag<true>());
+          probs(sacc, pa, ld, rel, causal, Flag<true>());
         else
-          probs(sacc, ld, rel, causal, Flag<false>());
+          probs(sacc, pa, ld, rel, causal, Flag<false>());
         wgmma_wait<0>();
         reg_fence(dpacc);
 
-        // dS^T = P^T (dP^T - delta) * scale (B9c: the scale after the
-        // cast); P^T and dS^T to bf16 as the A operands: accumulator (row,
+        // dS^T = P^T (dP^T - delta) * scale (kCap: P^T (1 - t^2) in place of
+        // P^T; B9c: the scale after the cast); P^T (but for kCap, packed
+        // already) and dS^T to bf16 as the A operands: accumulator (row,
         // column pair) of 8-column group i8 -> the A fragment of k16 step
         // i8 / 2
-        uint32_t pa[16], da[16];
 #pragma unroll
         for (int i8 = 0; i8 < 8; ++i8) {
           const float2 dl =
@@ -591,8 +742,10 @@ __global__ void __launch_bounds__(NT, 1)
                                 (dpacc[4 * i8 + e] - ((e & 1) ? dl.y : dl.x));
             if constexpr (!SPARSE) dpacc[4 * i8 + e] *= p.scale;
           }
-          pa[2 * i8] = pack_bf16(sacc[4 * i8], sacc[4 * i8 + 1]);
-          pa[2 * i8 + 1] = pack_bf16(sacc[4 * i8 + 2], sacc[4 * i8 + 3]);
+          if constexpr (!CAP) {
+            pa[2 * i8] = pack_bf16(sacc[4 * i8], sacc[4 * i8 + 1]);
+            pa[2 * i8 + 1] = pack_bf16(sacc[4 * i8 + 2], sacc[4 * i8 + 3]);
+          }
           da[2 * i8] = pack_bf16(dpacc[4 * i8], dpacc[4 * i8 + 1]);
           da[2 * i8 + 1] = pack_bf16(dpacc[4 * i8 + 2], dpacc[4 * i8 + 3]);
         }
@@ -706,8 +859,8 @@ __global__ void __launch_bounds__(NT, 1)
 
 // The fields every walk reads from dims: b, h, h_kv, s_q, s_kv, then
 // (batch, seq, head) element strides of q, k, v, dout, dq (B9c: unused) and
-// dk (dv shares dk's); the layout of flash_bwd.cu's and the sparse entry
-// points.
+// dk (dv shares dk's); the layout of every backward and sparse entry
+// point.
 Params base_params(const float* lse, const float* delta, float* dk, float* dv,
                    const long long* dims, float scale) {
   Params p = {};
@@ -731,7 +884,7 @@ Params base_params(const float* lse, const float* delta, float* dk, float* dv,
 
 // n_blocks: B9c's persistent blocks (its schedule's); dense kernels take
 // one per SM, at most one per item.
-template <bool FUSED, bool SPARSE>
+template <bool FUSED, bool SPARSE, int MASK = kDense>
 int launch(const void* q, const void* k, const void* v, const void* dout,
            float* dq, const long long* dims, const Params& p, int n_blocks,
            cudaStream_t stream) {
@@ -763,7 +916,7 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
     if (!ok) return (int)cudaErrorInvalidValue;
   }
 
-  auto kern = flash_bwd_sm90_kernel<FUSED, SPARSE>;
+  auto kern = flash_bwd_sm90_kernel<FUSED, SPARSE, MASK>;
   const int smem = Smem<FUSED>::BYTES;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -774,38 +927,48 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
   return (int)cudaGetLastError();
 }
 
-// B2b and B5: dims as base_params's, then q_start, causal.
+// B2b and B5: dims as base_params's, then q_start, causal, left, right,
+// sink (the forward's masks: right 0 when causal, sink 0 without a left
+// window). The instantiation follows the masks: kDense for causal or none,
+// kBand for a window (or sinks), kCap with a softcap.
 template <bool FUSED>
 int launch_dense(const void* q, const void* k, const void* v,
                  const void* dout, const float* lse, const float* delta,
                  float* dq, float* dk, float* dv, const long long* dims,
-                 float scale, cudaStream_t stream) {
+                 float scale, float cap, cudaStream_t stream) {
   Params p = base_params(lse, delta, dk, dv, dims, scale);
   p.q_start = (int)dims[23];
   p.causal = (int)dims[24];
+  p.left = (int)dims[25];
+  p.right = p.causal ? 0 : (int)dims[26];
+  p.sink = p.left >= 0 ? (int)dims[27] : 0;
+  p.cap = cap;
+  p.sc = cap > 0.f ? scale / cap : 0.f;
   p.nk = (p.s_kv + BKV - 1) / BKV;
   p.n_items = p.nk * p.h_kv * p.b;
+  if (cap < 0.f) return (int)cudaErrorInvalidValue;
+  if (cap > 0.f)
+    return launch<FUSED, false, kCap>(q, k, v, dout, dq, dims, p, 0, stream);
+  if (p.left >= 0 || (!p.causal && p.right >= 0))
+    return launch<FUSED, false, kBand>(q, k, v, dout, dq, dims, p, 0, stream);
   return launch<FUSED, false>(q, k, v, dout, dq, dims, p, 0, stream);
 }
 
 }  // namespace
 
-#define LCA_BWD_ARGS                                                         \
-  const void *q, const void *k, const void *v, const void *dout,             \
-      const float *lse, const float *delta, float *dq, float *dk, float *dv, \
-      const long long *dims, float scale, void *stream
-
 // Kernel B2b: dk, dv.
 extern "C" int lca_flash_bwd_dkv(LCA_BWD_ARGS) {
   return launch_dense<false>(q, k, v, dout, lse, delta, dq, dk, dv, dims,
-                             scale, static_cast<cudaStream_t>(stream));
+                             scale, softcap,
+                             static_cast<cudaStream_t>(stream));
 }
 
 // Kernel B5: self-attention (s_q == s_kv) dq (added into a zeroed buffer),
 // dk, dv.
 extern "C" int lca_flash_bwd_fused(LCA_BWD_ARGS) {
   return launch_dense<true>(q, k, v, dout, lse, delta, dq, dk, dv, dims,
-                            scale, static_cast<cudaStream_t>(stream));
+                            scale, softcap,
+                            static_cast<cudaStream_t>(stream));
 }
 
 // Kernel B9c: dk, dv (b, s_kv, h_kv, d) fp32 of a block-sparse mask, over

@@ -2,30 +2,41 @@
 // warp-specialised pipeline, over a walk of q-row items given as a template
 // parameter.
 //
-// Replaces the TPU kernel of long_context_attention_tpu/ops/sparse.py:
+// Replaces the TPU kernels of long_context_attention_tpu/ops/flash.py:
+//   lca_flash_bwd_dq  <- _dq_kernel (B2a): dq of q rows at positions q_start
+//                        + i against kv columns at j, with the forward's
+//                        masks (causal, sliding window, StreamingLLM sinks)
+//                        and softcap, each row written once (no atomics:
+//                        deterministic, as JAX's);
+// and of long_context_attention_tpu/ops/sparse.py:
 //   lca_sparse_bwd_dq <- _sparse_dq_kernel (B9b): dq of a block-sparse
 //                        mask's rows over their live kv tiles, each row
-//                        written once (no atomics: deterministic, as JAX's).
+//                        written once.
+// (B2b and B5 are in flash_bwd_sm90.cu.)
 //
 // What bounds it on an H100: tensor-core operations. Per visible (row,
 // column) pair 6*d FLOPs (S = Q K^T, dP = dout V^T, dQ += dS K) against 989
 // TFLOP/s bf16; the bytes (q, dout, k, v, lse and delta once, fp32 dq once)
-// are a few percent of that time at s = 32768. Only wgmma reaches that rate,
-// so the kernel keeps the tensor cores fed from rings of K and V tiles that
-// TMA fills while the products run.
+// are a few percent of that time at s = 8192 and s = 32768. Only wgmma
+// reaches that rate, so the kernel keeps the tensor cores fed from rings of
+// K and V tiles that TMA fills while the products run.
 //
 // Design (FlashAttention-2/3's dq kernel on this card). One persistent block
-// per SM takes a host-dealt share of items (B9b: ops/sparse.py
-// SparsePlan.row_schedule, shared with B9a's forward); an item is BQ = 128 q
-// rows of one head and batch row (sm90.cuh RowItem). A block has one
-// producer warpgroup and two consumer warpgroups:
+// per SM takes a share of items: B2a the snake deal of the forward's items
+// (flash_fwd_sm90.cu: the last q tile first, heads and batch rows inside,
+// which under a causal mask, with or without a window, is the longest walk
+// first); B9b a host-dealt share (ops/sparse.py SparsePlan.row_schedule,
+// shared with B9a's forward). An item is BQ = 128 q rows of one head and
+// batch row (sm90.cuh RowItem). A block has one producer warpgroup and two
+// consumer warpgroups:
 //   * the producer (setmaxnreg down to 24 registers; one thread issues every
 //     TMA) loads Q and dout once per item, and each step's K and V tiles of
 //     128 rows into rings of 3 K and 2 V stages, with the step's positions
 //     beside K. V is freed once dP is done, K only once dQ is, hence the
 //     deeper K ring;
 //   * the consumers (setmaxnreg up to 240) own 64 q rows each, with their
-//     lse (in exp2 units: +inf on a dead row, so p = exp2(-inf) = 0) and
+//     lse (in exp2 units: +inf on a dead row or a row past s_q, so p =
+//     exp2(-inf) = 0) and
 //     delta in registers. S = Q K^T and dP = dout V^T are wgmma m64n128k16
 //     with both operands in shared memory (128-byte swizzle, K-major); p and
 //     ds = p (dp - delta) form in registers on the accumulator layout; dQ +=
@@ -36,6 +47,16 @@
 //     accumulator registers at most), and p is computed while dP is on the
 //     tensor cores. dQ stays in registers for the whole item and is written
 //     once as fp32.
+//
+// B2a's walk (DenseRows): the forward's kv walk (sm90.cuh KvWalk, the TPU's
+// _banded_gt) at BKV = 128: the sink tiles that lie before the band, then
+// the band from the left window's first tile to the causal (or right
+// window's) last; a tile outside the walk is never read. The consumers
+// place each step from the walk itself (its first kv column; the item's
+// first q position less it), and only tiles that some row of a consumer's
+// 64 does not see whole run the masks. The last q tile may be ragged: TMA
+// zero-fills its rows past s_q, whose lse is +inf and whose dq is not
+// written. A q tile whose walk is empty (its rows see nothing) writes 0.
 //
 // B9b's walk (SparseRows): the row items and steps of B9a's forward
 // (flash_fwd_sm90.cu; sm90.cuh row_item, RowWalk): a row's CSR entries (kv
@@ -55,11 +76,18 @@
 // 3 K stages x 32768 + 2 V stages x 32768 = 229376, + 64 of step meta, 256 of
 // barriers and 1024 of alignment slack (230720).
 //
-// Numerics follow the TPU kernel (_sparse_dq_kernel, _recompute_p):
-//   s = (q . k) * scale in fp32 from the raw q; p = exp(s - lse) with the
-//   -inf-safe lse (+1e30 on dead rows), computed as exp2(s * scale * log2e -
-//   lse * log2e), 0 on masked entries; dp = dout . v; ds = p * (dp - delta);
-//   dq = scale * sum bf16(ds) . k (the scale after the cast, as JAX).
+// Numerics follow the TPU kernels (_dq_kernel, _sparse_dq_kernel,
+// _recompute_p, _ds_to_dqk):
+//   s = (q . k) * scale in fp32 from the raw q; softcap (B2a): t = tanh(s /
+//   cap), s = cap * t (the forward's natural-units form; tanh by the fast
+//   exp, sm90.cuh tanh_fast); p = exp(s - lse)
+//   (B9b: with the -inf-safe lse, +1e30 on dead rows), computed as exp2(s *
+//   scale * log2e - lse * log2e), or exp2(s * log2e - lse * log2e) capped, 0
+//   on masked entries; dp = dout . v;
+//   B2a: ds = p * (dp - delta) * scale, softcap: p * (1 - t^2) * (dp - delta)
+//   * scale (p * (1 - t^2) kept in place of p), dq = sum bf16(ds) . k;
+//   B9b: ds = p * (dp - delta), dq = scale * sum bf16(ds) . k (the scale
+//   after the cast, as JAX). The order is a property of the walk.
 //
 // The tensor maps are encoded on the host per call (sm90.cuh) and passed as
 // __grid_constant__ kernel parameters.
@@ -106,7 +134,7 @@ struct Maps {  // TMA descriptors, in the kernel's parameter space
 };
 
 struct Params {
-  const float* lse;    // the -inf-safe lse, (b, h, s_q)
+  const float* lse;    // (b, h, s_q); B9b: the -inf-safe lse
   const float* delta;  // rowsum(dout * out), (b, h, s_q)
   float* dq;
   int b, h, h_kv, s_q, s_kv;
@@ -114,6 +142,12 @@ struct Params {
   float scale;
   float sl2;  // scale * log2e
   int n_items;
+  // B2a: the position of q row 0 (kv column j sits at j), the window (-1 =
+  // unbounded; right 0: causal), the sinks (columns < sink stay visible
+  // through the left window), the softcap and the number of q tiles
+  int q_start, left, right, sink;
+  float cap, sc;  // sc: scale / cap
+  int nq;
   // the row tables' CSR form, the host's items (row, first q row in its q
   // tile, steps, 0) and each block's work items, block i's at
   // sched[sched_ptr[i] .. sched_ptr[i + 1])
@@ -162,11 +196,22 @@ __device__ __forceinline__ void wgmma_ss_first(float (&d)[64], uint64_t da,
 // The walks
 // ---------------------------------------------------------------------------
 
+// A walk gives the kernel: kListed (the host's list of items per block, or
+// the snake over n_items), kBand (B2a's masks and the scale before the
+// cast), kCap (the softcap), an item, the producer's steps (each step's
+// first kv row, and the meta it hands the consumers beside K) and the
+// consumers' step descriptors: (the item's first q position less the
+// step's first kv position, the step's first kv position) for B2a, B9b's
+// meta (RowWalk::meta) for B9b.
+
 // B9b: the host's row items, listed per block, and each row's CSR steps
 struct SparseRows {
-  static constexpr bool kListed = true;
+  static constexpr bool kListed = true, kBand = false, kCap = false;
   __device__ static RowItem item(const Params& p, int t) {
     return row_item(p.items, p.ptr, t, p.b, p.h, p.n_q, p.bq, p.per_head);
+  }
+  __device__ static KvWalk<BKV> kv_walk(const Params&, const RowItem&) {
+    return KvWalk<BKV>(0, 0, 0, -1, -1, 0);  // unused
   }
   struct Steps {
     RowWalk w;
@@ -176,6 +221,41 @@ struct SparseRows {
     __device__ int kv0() const { return w.kv0(c); }
     __device__ int2 meta() const { return w.meta(c); }
     __device__ void next() { c = w.next(c); }
+  };
+};
+
+// B2a: the forward's items (q tiles from the last to the first, heads and
+// batch rows inside) and each q tile's kv walk
+template <bool CAP>
+struct DenseRows {
+  static constexpr bool kListed = false, kBand = true, kCap = CAP;
+  __device__ static KvWalk<BKV> walk(const Params& p, int q0) {
+    return KvWalk<BKV>(p.q_start + q0, p.q_start + min(q0 + BQ, p.s_q) - 1,
+                       p.s_kv, p.left, p.right, p.sink);
+  }
+  __device__ static KvWalk<BKV> kv_walk(const Params& p, const RowItem& x) {
+    return walk(p, x.q0);
+  }
+  __device__ static RowItem item(const Params& p, int t) {
+    const int bh = p.b * p.h;
+    const int r = t % bh;
+    RowItem x;
+    x.q0 = (p.nq - 1 - t / bh) * BQ;
+    x.ih = r % p.h;
+    x.ib = r / p.h;
+    x.sub = x.e0 = x.e_end = 0;
+    x.rows = min(BQ, p.s_q - x.q0);
+    x.n = walk(p, x.q0).n;
+    return x;
+  }
+  struct Steps {
+    KvWalk<BKV> w;
+    int js;
+    __device__ Steps(const Params& p, const RowItem& x)
+        : w(walk(p, x.q0)), js(0) {}
+    __device__ int kv0() const { return w.tile(js) * BKV; }
+    __device__ int2 meta() const { return make_int2(0, 0); }  // unused
+    __device__ void next() { ++js; }
   };
 };
 
@@ -243,7 +323,8 @@ __global__ void __launch_bounds__(NT, 1)
         const int ks = it % K_STAGES, vs = it % V_STAGES;
         const int kv0 = c.kv0();
         mbar_wait(bar(B_KEMPTY + ks), k_use(it) ^ 1);
-        *meta(it) = c.meta();  // released by K's full barrier
+        if constexpr (!Walk::kBand)
+          *meta(it) = c.meta();  // released by K's full barrier
         mbar_expect_tx(bar(B_KFULL + ks), TILE);
         for (int hb = 0; hb < 2; ++hb)
           tma_load_4d(k_stage(it) + hb * BOX, &maps.k, bar(B_KFULL + ks),
@@ -308,6 +389,7 @@ __global__ void __launch_bounds__(NT, 1)
     const int t = items.at(p, j);
     if (t < 0) continue;
     const RowItem x = Walk::item(p, t);
+    const KvWalk<BKV> kw = Walk::kv_walk(p, x);
     const int r0 = x.q0 + cw * 64;  // first q row of this warpgroup
     // rows of the next q tile (the second half of a 64-row item)
     const bool idle = cw * 64 >= x.rows;
@@ -328,58 +410,102 @@ __global__ void __launch_bounds__(NT, 1)
       ++qn;
     } else if (x.n > 0) {
       // this lane's rows g and g + 8: lse in exp2 units (+inf on a dead
-      // row, so p = 0) and delta
+      // row or a row past s_q, so p = 0) and delta
       float lse2[2], dl[2];
 #pragma unroll
       for (int hh = 0; hh < 2; ++hh) {
-        const long long at = ((long long)x.ib * p.h + x.ih) * p.s_q + r0 +
-                             warp * 16 + g + hh * 8;
-        const float raw = p.lse[at];
+        const int qi = r0 + warp * 16 + g + hh * 8;
+        const long long at = ((long long)x.ib * p.h + x.ih) * p.s_q + qi;
+        const float raw =
+            qi < p.s_q ? p.lse[at] : __int_as_float(0xff800000);
         lse2[hh] = raw == __int_as_float(0xff800000)
                        ? __int_as_float(0x7f800000)
                        : raw * kLog2e;
-        dl[hh] = p.delta[at];
+        dl[hh] = qi < p.s_q ? p.delta[at] : 0.f;
       }
 
+      // the i-th step's descriptor (js-th of the item): B9b's meta, read
+      // once its K is full; B2a's (item's first q position less the step's
+      // first kv position, that kv position) from the walk
+      auto step = [&](int i, int js) -> int2 {
+        if constexpr (Walk::kBand) {
+          const int kv0 = kw.tile(js) * BKV;
+          return make_int2(p.q_start + x.q0 - kv0, kv0);
+        } else {
+          return *meta(i);
+        }
+      };
       // P in place of S: p = exp2(s * scale * log2e - lse * log2e), 0
-      // where `masked` drops a pair: a column past the step's (m.y &
+      // where `masked` drops a pair. B9b: a column past the step's (m.y &
       // 0xffff), or under the causal mask (m.y >> 16) a column after the
-      // row (the step's q position less its kv position is m.x)
+      // row (the step's q position less its kv position is m.x). B2a: a
+      // column past s_kv, a column c after the row's position plus the
+      // right window (c > rel + right), or one before it less the left
+      // window (c < rel - left) unless a sink; kCap: s = cap * tanh(s *
+      // scale / cap), and p * (1 - t^2) in place
       auto probs = [&](float (&sacc)[64], int2 m, auto masked) {
         const int rel = m.x + cw * 64 + warp * 16 + g;
-        const int cols = m.y & 0xffff;
+        const int cols = Walk::kBand ? min(BKV, p.s_kv - m.y) : m.y & 0xffff;
         const bool causal = (m.y >> 16) != 0;
 #pragma unroll
         for (int i8 = 0; i8 < 16; ++i8) {
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
-            float pe = exp2f(sacc[4 * i8 + e] * p.sl2 - lse2[e >> 1]);
+            float pe, dt = 1.f;
+            if constexpr (Walk::kCap) {
+              const float tc = tanh_fast(sacc[4 * i8 + e] * p.sc);
+              pe = exp2f(tc * p.cap * kLog2e - lse2[e >> 1]);
+              dt = 1.f - tc * tc;
+            } else {
+              pe = exp2f(sacc[4 * i8 + e] * p.sl2 - lse2[e >> 1]);
+            }
             if (decltype(masked)::value) {
               const int c = 8 * i8 + cb + (e & 1);
-              if (c >= cols || (causal && c > rel + (e >> 1) * 8)) pe = 0.f;
+              const int row = rel + (e >> 1) * 8;
+              if constexpr (Walk::kBand) {
+                if (c >= cols || (p.right >= 0 && c > row + p.right) ||
+                    (p.left >= 0 && c < row - p.left && m.y + c >= p.sink))
+                  pe = 0.f;
+              } else {
+                if (c >= cols || (causal && c > row)) pe = 0.f;
+              }
             }
-            sacc[4 * i8 + e] = pe;
+            sacc[4 * i8 + e] = Walk::kCap ? pe * dt : pe;
           }
         }
       };
-      // only a step that some pair of this warpgroup's drops is masked
+      // only a step that some pair of this warpgroup's drops is masked (a
+      // wholly-sink step is interior on the left)
       auto probs_of = [&](float (&sacc)[64], int2 m) {
-        if ((m.y & 0xffff) < BKV ||
-            ((m.y >> 16) && m.x + cw * 64 < BKV - 1))
+        bool masked;
+        if constexpr (Walk::kBand) {
+          const int rel = m.x + cw * 64;
+          masked = m.y + BKV > p.s_kv ||
+                   (p.right >= 0 && BKV - 1 > rel + p.right) ||
+                   (p.left >= 0 && 0 < rel + 63 - p.left &&
+                    m.y + BKV - 1 >= p.sink);
+        } else {
+          masked = (m.y & 0xffff) < BKV ||
+                   ((m.y >> 16) && m.x + cw * 64 < BKV - 1);
+        }
+        if (masked)
           probs(sacc, m, Flag<true>());
         else
           probs(sacc, m, Flag<false>());
       };
-      // dS = P (dP - delta) to bf16 as the A operand: accumulator (row, col
-      // pair) of 8-column group i8 -> the A fragment of k16 step i8 / 2
+      // dS = P (dP - delta) to bf16 as the A operand (B2a: times the scale
+      // before the cast): accumulator (row, col pair) of 8-column group i8
+      // -> the A fragment of k16 step i8 / 2
       uint32_t da[32];
       auto to_ds = [&](const float (&sacc)[64], const float (&dpacc)[64]) {
 #pragma unroll
         for (int i8 = 0; i8 < 16; ++i8) {
           float d4[4];
 #pragma unroll
-          for (int e = 0; e < 4; ++e)
+          for (int e = 0; e < 4; ++e) {
             d4[e] = sacc[4 * i8 + e] * (dpacc[4 * i8 + e] - dl[e >> 1]);
+            if constexpr (Walk::kBand) d4[e] *= p.scale;
+          }
           da[2 * i8] = pack_bf16(d4[0], d4[1]);
           da[2 * i8 + 1] = pack_bf16(d4[2], d4[3]);
         }
@@ -390,7 +516,7 @@ __global__ void __launch_bounds__(NT, 1)
       {
         float sacc[64], dpacc[64];
         mbar_wait(bar(B_KFULL + it % K_STAGES), k_use(it));
-        const int2 m = *meta(it);
+        const int2 m = step(it, 0);
         wgmma_fence();
         issue_ss(sacc, q_rows, k_stage(it));
         mbar_wait(bar(B_VFULL + it % V_STAGES), v_use(it));
@@ -412,7 +538,7 @@ __global__ void __launch_bounds__(NT, 1)
         ++it;
         float sacc[64];
         mbar_wait(bar(B_KFULL + it % K_STAGES), k_use(it));
-        const int2 m = *meta(it);
+        const int2 m = step(it, js);
         wgmma_fence();
         issue_dq(dq, da, it - 1);
         issue_ss(sacc, q_rows, k_stage(it));
@@ -445,43 +571,35 @@ __global__ void __launch_bounds__(NT, 1)
     }
     if (idle) continue;
 
-    // write dq = scale * sum once (0 for rows that saw no tile)
+    // write dq once (B9b: scale * the sum; 0 for rows that saw no tile)
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
       const int qi = r0 + warp * 16 + g + hh * 8;
+      if (qi >= p.s_q) continue;
       float* row = p.dq + x.ib * p.dq_sb + (long long)qi * p.dq_ss +
                    x.ih * p.dq_sh;
 #pragma unroll
-      for (int i8 = 0; i8 < 16; ++i8)
-        *reinterpret_cast<float2*>(row + 8 * i8 + cb) =
-            make_float2(dq[4 * i8 + 2 * hh] * p.scale,
-                        dq[4 * i8 + 2 * hh + 1] * p.scale);
+      for (int i8 = 0; i8 < 16; ++i8) {
+        float2 v = make_float2(dq[4 * i8 + 2 * hh], dq[4 * i8 + 2 * hh + 1]);
+        if constexpr (!Walk::kBand) {
+          v.x *= p.scale;
+          v.y *= p.scale;
+        }
+        *reinterpret_cast<float2*>(row + 8 * i8 + cb) = v;
+      }
     }
   }
 }
 
-}  // namespace
-
-// Kernel B9b: dq (b, s_q, h, d) fp32 of a block-sparse mask into `out`, over
-// the row tables' CSR form (ptr, ent), with the host's items ((row, first q
-// row in its q tile, steps, 0), longest first) and each block's work items
-// (sched_ptr, sched), B9a's. lse is the -inf-safe lse. The arguments are
-// those of every sparse entry point (out_lse and qfold unused); dims: b, h,
-// h_kv, s_q, s_kv, then (batch, seq, head) element strides of q, k, v, dout,
-// out and dk (unused), then n_q, n_kv, block_q, block_kv, per_head, the
-// number of items and of blocks.
-extern "C" int lca_sparse_bwd_dq(const void* q, const void* k, const void* v,
-                                 const void* dout, const float* lse,
-                                 const float* delta, void* out,
-                                 float* out_lse, const int* ptr,
-                                 const int* ent, const int* items,
-                                 const int* sched_ptr, const int* sched,
-                                 const long long* dims, float qfold,
-                                 float scale, void* stream) {
+// The fields both entry points read from dims: b, h, h_kv, s_q, s_kv, then
+// (batch, seq, head) element strides of q, k, v, dout, dq (B9b: out) and dk
+// (unused).
+Params base_params(const float* lse, const float* delta, void* dq,
+                   const long long* dims, float scale) {
   Params p = {};
   p.lse = lse;
   p.delta = delta;
-  p.dq = static_cast<float*>(out);
+  p.dq = static_cast<float*>(dq);
   p.b = (int)dims[0];
   p.h = (int)dims[1];
   p.h_kv = (int)dims[2];
@@ -492,6 +610,83 @@ extern "C" int lca_sparse_bwd_dq(const void* q, const void* k, const void* v,
   p.dq_sh = dims[19];
   p.scale = scale;
   p.sl2 = scale * kLog2e;
+  return p;
+}
+
+// Encode the tensor maps and launch Walk's kernel on n_blocks blocks.
+template <class Walk>
+int launch(const void* q, const void* k, const void* v, const void* dout,
+           const long long* dims, const Params& p, int n_blocks,
+           cudaStream_t stream) {
+  Maps maps;
+  const cuuint32_t box[4] = {64, 128, 1, 1};
+  const long long q_dims[4] = {D, p.s_q, p.h, p.b};
+  const long long kv_dims[4] = {D, p.s_kv, p.h_kv, p.b};
+  const long long q_str[3] = {dims[6], dims[7], dims[5]};
+  const long long k_str[3] = {dims[9], dims[10], dims[8]};
+  const long long v_str[3] = {dims[12], dims[13], dims[11]};
+  const long long o_str[3] = {dims[15], dims[16], dims[14]};
+  const CUtensorMapDataType bf16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  const CUtensorMapSwizzle sw = CU_TENSOR_MAP_SWIZZLE_128B;
+  if (!(encode(&maps.q, q, bf16, 2, 4, q_dims, q_str, box, sw) &&
+        encode(&maps.dout, dout, bf16, 2, 4, q_dims, o_str, box, sw) &&
+        encode(&maps.k, k, bf16, 2, 4, kv_dims, k_str, box, sw) &&
+        encode(&maps.v, v, bf16, 2, 4, kv_dims, v_str, box, sw)))
+    return (int)cudaErrorInvalidValue;
+
+  auto kern = flash_dq_sm90_kernel<Walk>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+  if (e != cudaSuccess) return (int)e;
+  kern<<<n_blocks, NT, SMEM_BYTES, stream>>>(maps, p);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Kernel B2a: dq (b, s_q, h, d) fp32 of q rows at positions q_start + i
+// against kv columns at j, written once; dk and dv unused. dims: as
+// base_params's, then q_start, causal, left, right, sink (the forward's
+// masks: right 0 when causal, sink 0 without a left window).
+extern "C" int lca_flash_bwd_dq(LCA_BWD_ARGS) {
+  (void)dk;
+  (void)dv;
+  Params p = base_params(lse, delta, dq, dims, scale);
+  p.q_start = (int)dims[23];
+  const int causal = (int)dims[24];
+  p.left = (int)dims[25];
+  p.right = causal ? 0 : (int)dims[26];
+  p.sink = p.left >= 0 ? (int)dims[27] : 0;
+  p.cap = softcap;
+  p.sc = softcap > 0.f ? scale / softcap : 0.f;
+  p.nq = (p.s_q + BQ - 1) / BQ;
+  if (p.h_kv <= 0 || p.h % p.h_kv || softcap < 0.f)
+    return (int)cudaErrorInvalidValue;
+  p.n_items = p.nq * p.h * p.b;
+  if (p.n_items == 0) return (int)cudaSuccess;
+  const int n_blocks = p.n_items < num_sms() ? p.n_items : num_sms();
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (softcap > 0.f)
+    return launch<DenseRows<true>>(q, k, v, dout, dims, p, n_blocks, st);
+  return launch<DenseRows<false>>(q, k, v, dout, dims, p, n_blocks, st);
+}
+
+// Kernel B9b: dq (b, s_q, h, d) fp32 of a block-sparse mask into `out`, over
+// the row tables' CSR form (ptr, ent), with the host's items ((row, first q
+// row in its q tile, steps, 0), longest first) and each block's work items
+// (sched_ptr, sched), B9a's. lse is the -inf-safe lse. The arguments are
+// those of every sparse entry point (out_lse and qfold unused); dims: as
+// base_params's (out's strides in dq's place), then n_q, n_kv, block_q,
+// block_kv, per_head, the number of items and of blocks.
+extern "C" int lca_sparse_bwd_dq(const void* q, const void* k, const void* v,
+                                 const void* dout, const float* lse,
+                                 const float* delta, void* out,
+                                 float* out_lse, const int* ptr,
+                                 const int* ent, const int* items,
+                                 const int* sched_ptr, const int* sched,
+                                 const long long* dims, float qfold,
+                                 float scale, void* stream) {
+  Params p = base_params(lse, delta, out, dims, scale);
   p.ptr = ptr;
   p.ent = reinterpret_cast<const int4*>(ent);
   p.items = reinterpret_cast<const int4*>(items);
@@ -509,30 +704,8 @@ extern "C" int lca_sparse_bwd_dq(const void* q, const void* k, const void* v,
   const int n_blocks = (int)dims[29];
   if (p.n_items == 0) return (int)cudaSuccess;
   if (n_blocks <= 0 || n_blocks > p.n_items) return (int)cudaErrorInvalidValue;
-
-  Maps maps;
-  const cuuint32_t box[4] = {64, 128, 1, 1};
-  const long long q_dims[4] = {D, p.s_q, p.h, p.b};
-  const long long kv_dims[4] = {D, p.s_kv, p.h_kv, p.b};
-  const long long q_str[3] = {dims[6], dims[7], dims[5]};
-  const long long k_str[3] = {dims[9], dims[10], dims[8]};
-  const long long v_str[3] = {dims[12], dims[13], dims[11]};
-  const long long o_str[3] = {dims[15], dims[16], dims[14]};
-  const CUtensorMapDataType bf16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
-  const CUtensorMapSwizzle sw = CU_TENSOR_MAP_SWIZZLE_128B;
-  if (!(encode(&maps.q, q, bf16, 2, 4, q_dims, q_str, box, sw) &&
-        encode(&maps.dout, dout, bf16, 2, 4, q_dims, o_str, box, sw) &&
-        encode(&maps.k, k, bf16, 2, 4, kv_dims, k_str, box, sw) &&
-        encode(&maps.v, v, bf16, 2, 4, kv_dims, v_str, box, sw)))
-    return (int)cudaErrorInvalidValue;
-
-  auto kern = flash_dq_sm90_kernel<SparseRows>;
-  cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
-  if (e != cudaSuccess) return (int)e;
-  kern<<<n_blocks, NT, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(maps,
-                                                                         p);
-  return (int)cudaGetLastError();
+  return launch<SparseRows>(q, k, v, dout, dims, p, n_blocks,
+                            static_cast<cudaStream_t>(stream));
 }
 
 // The dynamic shared memory a block takes.

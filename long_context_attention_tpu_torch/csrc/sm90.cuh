@@ -244,6 +244,15 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], uint32_t a0,
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db));
 }
 
+// tanh(x) = 1 - 2 / (exp(2x) + 1) by the fast exp and reciprocal (|x|
+// clamped at 15, where tanh rounds to 1): within a few ulp of 1 of tanhf,
+// absolute, for the backward's softcap, whose capped score cap * t carries
+// that times the cap, far below the bf16 casts of p and ds
+__device__ __forceinline__ float tanh_fast(float x) {
+  x = fminf(fmaxf(x, -15.f), 15.f);
+  return 1.f - __fdividef(2.f, __expf(2.f * x) + 1.f);
+}
+
 __device__ __forceinline__ unsigned short float_to_bf16_bits(float x) {
   return __bfloat16_as_ushort(__float2bfloat16_rn(x));  // nearest even
 }
@@ -340,6 +349,16 @@ struct KvWalk {
     return jt < n_sink ? jt : lo + (jt - n_sink);
   }
 };
+
+// The C signature of every flash backward entry point (B2a in
+// flash_dq_sm90.cu; B2b and B5 in flash_bwd_sm90.cu): dq, dk and dv are
+// null where unused; dims: b, h, h_kv, s_q, s_kv, the (batch, seq, head)
+// element strides of q, k, v, dout, dq and dk (dv shares dk's), q_start,
+// causal, left, right, sink.
+#define LCA_BWD_ARGS                                                         \
+  const void *q, const void *k, const void *v, const void *dout,             \
+      const float *lse, const float *delta, float *dq, float *dk, float *dv, \
+      const long long *dims, float scale, float softcap, void *stream
 
 template <bool B>
 struct Flag {  // a compile-time bool for a generic lambda's argument

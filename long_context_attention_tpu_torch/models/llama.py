@@ -122,14 +122,6 @@ class ModelConfig:
             if getattr(self, name) != _PARITY_DEFAULTS[name]:
                 raise not_ported(f"{what} ({name}={getattr(self, name)!r})")
 
-    @property
-    def shaped_attention(self) -> bool:
-        """True for a sliding window, sinks or a softcap: such a model
-        serves, and its gradient is the windowed training slice, not ported
-        yet."""
-        return (self.window_left >= 0 or self.sink_tokens > 0
-                or self.softcap > 0)
-
     def attention_kwargs(self) -> Dict[str, Any]:
         """The attention-shape kwargs every attention call of the model
         passes, as the JAX model does."""
@@ -322,23 +314,12 @@ def loss_local(params: Params, tokens: torch.Tensor, labels: torch.Tensor,
                mask: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """Masked-mean next-token cross entropy on one device: tokens, labels,
     mask (b, s); labels[i] is the token after tokens[i]. -sum(log p(label) *
-    mask) / max(sum(mask), 1), over fp32 logits. Under autograd a config
-    with a window, sinks or softcap raises ``NotImplementedError``."""
-    if torch.is_grad_enabled():
-        _check_trainable(cfg)
+    mask) / max(sum(mask), 1), over fp32 logits."""
     logits = forward_local(params, tokens, cfg)
     logp = torch.log_softmax(logits, dim=-1)
     ll = torch.gather(logp, -1, labels[..., None].long())[..., 0]
     maskf = mask.float()
     return -(ll * maskf).sum() / torch.clamp(maskf.sum(), min=1.0)
-
-
-def _check_trainable(cfg: ModelConfig) -> None:
-    if cfg.shaped_attention:
-        raise not_ported(
-            f"training a model with window_left={cfg.window_left}, "
-            f"sink_tokens={cfg.sink_tokens}, softcap={cfg.softcap} (the "
-            f"windowed backward of kernels B2a, B2b and B5)")
 
 
 def param_leaves(params: Params) -> List[torch.Tensor]:
@@ -362,11 +343,11 @@ def make_train_step(cfg: ModelConfig, optimizer: Callable, mesh=None, *,
     build it. The step updates ``params`` IN PLACE and returns them with
     the optimizer and the detached loss. ``device``: where the step runs
     (None means the card; raises without one); params and batch elsewhere
-    raise. A ``mesh`` (the sharded train step) and a config with a window,
-    sinks or softcap are not ported yet."""
+    raise. A config with a window, sinks or softcap trains through the
+    same kernels' masks. A ``mesh`` (the sharded train step) is not ported
+    yet."""
     if mesh is not None:
         raise not_ported("the sharded train step (mesh)")
-    _check_trainable(cfg)
     dev = resolve_device(device)
 
     def step(params, opt_state, tokens, labels, mask):

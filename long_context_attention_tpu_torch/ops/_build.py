@@ -188,18 +188,19 @@ KERNELS: Dict[str, Kernel] = {
         [_VP] * 6 + [_F, _F, _VP],
         "long_context_attention_tpu/ops/sage.py:83"),
     # the backward entries share one C signature: q, k, v, dout, lse, delta,
-    # dq, dk, dv (null where unused), dims, scale, stream
+    # dq, dk, dv (null where unused), dims, scale, softcap, stream. B2a runs
+    # on the dq pipeline of B9b, B2b and B5 on one wgmma/TMA pipeline
     "flash_bwd_dq": Kernel(
-        "flash_bwd_dq", "flash_bwd.cu", "lca_flash_bwd_dq",
-        [_VP] * 10 + [_F, _VP],
+        "flash_bwd_dq", "flash_dq_sm90.cu", "lca_flash_bwd_dq",
+        [_VP] * 10 + [_F, _F, _VP],
         "long_context_attention_tpu/ops/flash.py:1089"),
     "flash_bwd_dkv": Kernel(
         "flash_bwd_dkv", "flash_bwd_sm90.cu", "lca_flash_bwd_dkv",
-        [_VP] * 10 + [_F, _VP],
+        [_VP] * 10 + [_F, _F, _VP],
         "long_context_attention_tpu/ops/flash.py:1174"),
     "flash_bwd_fused": Kernel(
         "flash_bwd_fused", "flash_bwd_sm90.cu", "lca_flash_bwd_fused",
-        [_VP] * 10 + [_F, _VP],
+        [_VP] * 10 + [_F, _F, _VP],
         "long_context_attention_tpu/ops/flash.py:1291"),
     # the sparse entries share one C signature: q, k, v, dout, lse, delta,
     # two outputs (B9a: out and lse; B9b: dq and null; B9c: dk and dv), the

@@ -17,19 +17,19 @@ PyTorch version of the same arithmetic in this module:
   at global positions ``q_start + i`` against a BHSD kv (a cache slice,
   taken by strides), with the same masks and softcap, bf16 or int8 K/V
   with per-token scales, the TPU's ``_fwd_kernel``.
-* :func:`flash_bwd_dq` (B2a, ``csrc/flash_bwd.cu``), :func:`flash_bwd_dkv`
-  (B2b) and :func:`flash_bwd_fused` (B5, both ``csrc/flash_bwd_sm90.cu``:
-  wgmma and TMA, sm_90a only): the TPU's ``_dq_kernel``, ``_dkv_kernel``
-  and ``_bwd_fused_kernel``, fp32 partials.
+* :func:`flash_bwd_dq` (B2a, ``csrc/flash_dq_sm90.cu``: the wgmma/TMA dq
+  pipeline), :func:`flash_bwd_dkv` (B2b) and :func:`flash_bwd_fused` (B5,
+  both ``csrc/flash_bwd_sm90.cu``: wgmma and TMA), all sm_90a only: the
+  TPU's ``_dq_kernel``, ``_dkv_kernel`` and ``_bwd_fused_kernel``, fp32
+  partials, with the forward's masks and softcap.
 
 :func:`flash_attention` routes its forward as the JAX package's
 ``_flash_fwd_bhsd`` does: B1 for plain causal self-attention, B4 for any
 other self-attention without offsets, B3 with one-chunk offsets or s_q !=
-s_kv (bottom-right aligned). It is differentiable: B5 is the backward of
-B1 and B4, B2a + B2b that of B3. The forward is one ``torch.library`` op,
-so a selective-checkpoint policy can save its (out, lse) and skip it in
-the recompute. The backward of windows, sinks and softcap is not ported
-yet: a gradient through them raises ``NotImplementedError``.
+s_kv (bottom-right aligned). It is differentiable, windows, sinks and
+softcap included: B5 is the backward of B1 and B4, B2a + B2b that of B3.
+The forward is one ``torch.library`` op, so a selective-checkpoint policy
+can save its (out, lse) and skip it in the recompute.
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches the kernel or raises. Features the kernels do not take (segments,
@@ -66,9 +66,6 @@ _FAST, _ONLINE, _SOFTCAP = 0, 1, 2
 _QUANT_FORWARD_ONLY = ("this attention path is forward-only, as in the JAX "
                        "package: the quantized-KV and cache paths have no "
                        "backward")
-_SHAPE_FORWARD_ONLY = str(not_ported(
-    "the gradient of sliding windows, attention sinks and softcap (their "
-    "masks in kernels B2a, B2b and B5, the windowed training slice)"))
 
 
 def _forward_only(why: str, *tensors) -> None:
@@ -449,28 +446,38 @@ def flash_fwd_pos(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def _p_ds(q, k, v, dout, lse, delta, *, q_start: int, causal: bool,
-          scale: float):
-    """p = exp(s - lse) and ds = p * (dp - delta) * scale, fp32 (b, h, s_q,
-    s_kv), with s = (q . k) * scale from the raw q; p is 0 on masked
-    entries and on rows whose lse is -inf (the TPU's _recompute_p and
-    _ds_to_dqk). Also returns k and v repeated to h heads, in fp32."""
+          scale: float, window_size=(-1, -1), sink_tokens: int = 0,
+          softcap: float = 0.0):
+    """p = exp(s - lse) and ds = p * (dp - delta) [* (1 - t^2)] * scale,
+    fp32 (b, h, s_q, s_kv), with s = (q . k) * scale from the raw q, capped
+    to s = cap * t, t = tanh(s / cap), under a softcap; p is 0 where the
+    masks (_mask at rows q_start + i) drop a pair and on rows whose lse is
+    -inf (the TPU's _recompute_p and _ds_to_dqk). Also returns k and v
+    repeated to h heads, in fp32."""
     s_q, h = q.shape[1], q.shape[2]
     s_kv = k.shape[1]
     g = h // k.shape[2]
+    left, right, sink = _masks(causal, window_size, sink_tokens, softcap)
     kf = k.float().repeat_interleave(g, dim=2)
     vf = v.float().repeat_interleave(g, dim=2)
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kf).mul_(scale)
+    t = None
+    if softcap > 0:
+        t = torch.tanh(s.div_(softcap))
+        s = t * softcap
     lse4 = lse.float()[..., None]
     bad = torch.isneginf(lse4)
     s.sub_(torch.where(bad, torch.zeros_like(lse4), lse4))
-    if causal:
-        rows = q_start + torch.arange(s_q, device=q.device)
-        cols = torch.arange(s_kv, device=q.device)
-        bad = bad | (cols[None, :] > rows[:, None])
+    mask = _mask(q_start + torch.arange(s_q, device=q.device), s_kv, left,
+                 right, sink)
+    if mask is not None:
+        bad = bad | mask
     p = s.exp_().masked_fill_(bad, 0.0)
     dp = torch.einsum("bqhd,bkhd->bhqk", dout.float(), vf)
-    ds = dp.sub_(delta.float()[..., None]).mul_(p).mul_(scale)
-    return p, ds, kf, vf
+    ds = dp.sub_(delta.float()[..., None]).mul_(p)
+    if t is not None:
+        ds.mul_(t.mul_(t).neg_().add_(1.0))
+    return p, ds.mul_(scale), kf, vf
 
 
 def _group_sum(x: torch.Tensor, h_kv: int) -> torch.Tensor:
@@ -481,24 +488,31 @@ def _group_sum(x: torch.Tensor, h_kv: int) -> torch.Tensor:
 
 
 def flash_bwd_dq_plain(q, k, v, dout, lse, delta, *, scale: float,
-                       q_start: int = 0, causal: bool = True):
+                       q_start: int = 0, causal: bool = True,
+                       window_size=(-1, -1), sink_tokens: int = 0,
+                       softcap: float = 0.0):
     """Plain version of kernel B2a (same arithmetic and casts, whole rows).
 
     q, dout (b, s_q, h, d); k, v (b, s_kv, h_kv, d); lse, delta (b, h, s_q)
-    fp32; q row i at position q_start + i, kv column j at j. Returns dq
-    (b, s_q, h, d) fp32 = bf16(ds) @ k (ds cast to k's dtype)."""
+    fp32; q row i at position q_start + i, kv column j at j; masks and
+    softcap as in :func:`flash_attention`. Returns dq (b, s_q, h, d) fp32 =
+    bf16(ds) @ k (ds cast to k's dtype)."""
     _, ds, kf, _ = _p_ds(q, k, v, dout, lse, delta, q_start=q_start,
-                         causal=causal, scale=scale)
+                         causal=causal, scale=scale, window_size=window_size,
+                         sink_tokens=sink_tokens, softcap=softcap)
     return torch.einsum("bhqk,bkhd->bqhd", ds.to(k.dtype).float(), kf)
 
 
 def flash_bwd_dkv_plain(q, k, v, dout, lse, delta, *, scale: float,
-                        q_start: int = 0, causal: bool = True):
+                        q_start: int = 0, causal: bool = True,
+                        window_size=(-1, -1), sink_tokens: int = 0,
+                        softcap: float = 0.0):
     """Plain version of kernel B2b: dk, dv (b, s_kv, h_kv, d) fp32, summed
     over each kv head's query heads; dv = bf16(p)^T @ dout (p cast to
     dout's dtype), dk = bf16(ds)^T @ q (ds cast to q's dtype)."""
     p, ds, _, _ = _p_ds(q, k, v, dout, lse, delta, q_start=q_start,
-                        causal=causal, scale=scale)
+                        causal=causal, scale=scale, window_size=window_size,
+                        sink_tokens=sink_tokens, softcap=softcap)
     h_kv = k.shape[2]
     dv = torch.einsum("bhqk,bqhd->bkhd", p.to(dout.dtype).float(),
                       dout.float())
@@ -508,11 +522,13 @@ def flash_bwd_dkv_plain(q, k, v, dout, lse, delta, *, scale: float,
 
 
 def flash_bwd_fused_plain(q, k, v, dout, lse, delta, *, scale: float,
-                          causal: bool = True):
+                          causal: bool = True, window_size=(-1, -1),
+                          sink_tokens: int = 0, softcap: float = 0.0):
     """Plain version of kernel B5: self-attention (s_q == s_kv, positions
     from 0 on both sides) -> dq, dk, dv fp32, with B2a's and B2b's casts."""
     p, ds, kf, _ = _p_ds(q, k, v, dout, lse, delta, q_start=0,
-                         causal=causal, scale=scale)
+                         causal=causal, scale=scale, window_size=window_size,
+                         sink_tokens=sink_tokens, softcap=softcap)
     h_kv = k.shape[2]
     dv = torch.einsum("bhqk,bqhd->bkhd", p.to(dout.dtype).float(),
                       dout.float())
@@ -525,9 +541,11 @@ def flash_bwd_fused_plain(q, k, v, dout, lse, delta, *, scale: float,
 
 
 def _bwd_launch(kernel: str, q, k, v, dout, lse, delta, *, scale: float,
-                q_start: int, causal: bool, dq=None, dk=None, dv=None):
+                q_start: int, causal: bool, window_size, sink_tokens: int,
+                softcap: float, dq=None, dk=None, dv=None):
     """Check the operands of a backward kernel and launch it on the
     current stream; the outputs are fp32 BSHD buffers made by the caller."""
+    left, right, sink = _masks(causal, window_size, sink_tokens, softcap)
     b, s_q, h, d = q.shape
     _, s_kv, h_kv, _ = k.shape
     if (dout.shape != q.shape or v.shape != k.shape or k.shape[0] != b
@@ -550,81 +568,92 @@ def _bwd_launch(kernel: str, q, k, v, dout, lse, delta, *, scale: float,
     dims = _build.dims_array([
         b, h, h_kv, s_q, s_kv, *q.stride()[:3], *k.stride()[:3],
         *v.stride()[:3], *dout.stride()[:3], *dq_st, *dk_st, int(q_start),
-        int(causal)])
+        int(causal), left, right, sink])
     _build.KERNELS[kernel](
         _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(dout),
         _build.ptr(lse), _build.ptr(delta), _build.ptr(dq), _build.ptr(dk),
-        _build.ptr(dv), dims, scale, _build.stream_ptr(q.device))
+        _build.ptr(dv), dims, scale, float(softcap),
+        _build.stream_ptr(q.device))
 
 
 def flash_bwd_dq(q, k, v, dout, lse, delta, *, scale: float,
-                 q_start: int = 0, causal: bool = True):
+                 q_start: int = 0, causal: bool = True, window_size=(-1, -1),
+                 sink_tokens: int = 0, softcap: float = 0.0):
     """Kernel B2a wrapper: dq (b, s_q, h, d) fp32 of bf16 BSHD q, k, v and
-    dout (read by strides) with fp32 (b, h, s_q) lse and delta. One block
-    per q tile walks the kv tiles up to the causal diagonal and writes once
-    (no atomics: deterministic). CPU tensors take
-    :func:`flash_bwd_dq_plain`."""
+    dout (read by strides) with fp32 (b, h, s_q) lse and delta; masks and
+    softcap as in :func:`flash_attention`. Persistent blocks take 128-row q
+    tiles in the forward's order, each walking the sink tiles and its band
+    (wgmma, TMA), and write dq once (no atomics: deterministic). CPU
+    tensors take :func:`flash_bwd_dq_plain`."""
+    shape = dict(scale=scale, q_start=q_start, causal=causal,
+                 window_size=window_size, sink_tokens=sink_tokens,
+                 softcap=softcap)
     if q.device.type == "cpu":
-        return flash_bwd_dq_plain(q, k, v, dout, lse, delta, scale=scale,
-                                  q_start=q_start, causal=causal)
+        return flash_bwd_dq_plain(q, k, v, dout, lse, delta, **shape)
     dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
-    _bwd_launch("flash_bwd_dq", q, k, v, dout, lse, delta, scale=scale,
-                q_start=q_start, causal=causal, dq=dq)
+    _bwd_launch("flash_bwd_dq", q, k, v, dout, lse, delta, dq=dq, **shape)
     return dq
 
 
 def flash_bwd_dkv(q, k, v, dout, lse, delta, *, scale: float,
-                  q_start: int = 0, causal: bool = True):
+                  q_start: int = 0, causal: bool = True, window_size=(-1, -1),
+                  sink_tokens: int = 0, softcap: float = 0.0):
     """Kernel B2b wrapper: dk, dv (b, s_kv, h_kv, d) fp32. Each 128-row kv
-    tile walks its group's query heads and their q tiles from the causal
-    diagonal on (persistent blocks, TMA, wgmma). CPU tensors take
-    :func:`flash_bwd_dkv_plain`."""
+    tile walks its group's query heads and their q tiles over its band:
+    from the causal or right-window diagonal to the last row its left
+    window reaches, every row for a tile that holds a sink (persistent
+    blocks, TMA, wgmma). CPU tensors take :func:`flash_bwd_dkv_plain`."""
+    shape = dict(scale=scale, q_start=q_start, causal=causal,
+                 window_size=window_size, sink_tokens=sink_tokens,
+                 softcap=softcap)
     if q.device.type == "cpu":
-        return flash_bwd_dkv_plain(q, k, v, dout, lse, delta, scale=scale,
-                                   q_start=q_start, causal=causal)
+        return flash_bwd_dkv_plain(q, k, v, dout, lse, delta, **shape)
     dk = torch.empty(k.shape, dtype=torch.float32, device=q.device)
     dv = torch.empty(k.shape, dtype=torch.float32, device=q.device)
-    _bwd_launch("flash_bwd_dkv", q, k, v, dout, lse, delta, scale=scale,
-                q_start=q_start, causal=causal, dk=dk, dv=dv)
+    _bwd_launch("flash_bwd_dkv", q, k, v, dout, lse, delta, dk=dk, dv=dv,
+                **shape)
     return dk, dv
 
 
 def flash_bwd_fused(q, k, v, dout, lse, delta, *, scale: float,
-                    causal: bool = True):
+                    causal: bool = True, window_size=(-1, -1),
+                    sink_tokens: int = 0, softcap: float = 0.0):
     """Kernel B5 wrapper: self-attention (s_q == s_kv) -> dq, dk, dv fp32
     in one pass, B2b's walk plus dq. Each (kv tile, q tile) pair's dq is
     added into a zeroed buffer by a TMA reduce-add, in no fixed order, so
     its last bits vary from run to run. CPU tensors take
     :func:`flash_bwd_fused_plain`."""
+    shape = dict(scale=scale, causal=causal, window_size=window_size,
+                 sink_tokens=sink_tokens, softcap=softcap)
     if q.device.type == "cpu":
-        return flash_bwd_fused_plain(q, k, v, dout, lse, delta, scale=scale,
-                                     causal=causal)
+        return flash_bwd_fused_plain(q, k, v, dout, lse, delta, **shape)
     if q.shape[1] != k.shape[1]:
         raise ValueError(f"B5 is self-attention: s_q {q.shape[1]} != s_kv "
                          f"{k.shape[1]}")
     dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
     dk = torch.empty(k.shape, dtype=torch.float32, device=q.device)
     dv = torch.empty(k.shape, dtype=torch.float32, device=q.device)
-    _bwd_launch("flash_bwd_fused", q, k, v, dout, lse, delta, scale=scale,
-                q_start=0, causal=causal, dq=dq, dk=dk, dv=dv)
+    _bwd_launch("flash_bwd_fused", q, k, v, dout, lse, delta, q_start=0,
+                dq=dq, dk=dk, dv=dv, **shape)
     return dq, dk, dv
 
 
 def _flash_bwd(q, k, v, out, lse, dout, *, q_start: Optional[int],
-               causal: bool, scale: float):
+               causal: bool, scale: float, window_size=(-1, -1),
+               sink_tokens: int = 0, softcap: float = 0.0):
     """fp32 (dq, dk, dv) by the JAX package's dispatch (_flash_bwd_bhsd):
     static self-attention (q_start None) runs B5, positions run B2a +
     B2b. delta = rowsum(dout * out) is an fp32 torch pass, as XLA's."""
     dout = dout.contiguous()
     delta = (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
     lse = lse.contiguous()
+    shape = dict(scale=scale, causal=causal, window_size=window_size,
+                 sink_tokens=sink_tokens, softcap=softcap)
     if q_start is None:
-        return flash_bwd_fused(q, k, v, dout, lse, delta, scale=scale,
-                               causal=causal)
-    dq = flash_bwd_dq(q, k, v, dout, lse, delta, scale=scale,
-                      q_start=q_start, causal=causal)
-    dk, dv = flash_bwd_dkv(q, k, v, dout, lse, delta, scale=scale,
-                           q_start=q_start, causal=causal)
+        return flash_bwd_fused(q, k, v, dout, lse, delta, **shape)
+    dq = flash_bwd_dq(q, k, v, dout, lse, delta, q_start=q_start, **shape)
+    dk, dv = flash_bwd_dkv(q, k, v, dout, lse, delta, q_start=q_start,
+                           **shape)
     return dq, dk, dv
 
 
@@ -657,22 +686,19 @@ def _flash_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, route: int,
 
 
 def _flash_op_setup(ctx, inputs, output) -> None:
-    (q, k, v, route, q_start, causal, left, right, _, softcap, scale,
+    (q, k, v, route, q_start, causal, left, right, sink, softcap, scale,
      _) = inputs
     ctx.save_for_backward(q, k, v, *output)
     ctx.q_start = q_start if route == _B3 else None
-    ctx.causal = causal
-    ctx.scale = scale
-    ctx.shaped = left >= 0 or (right >= 0 and not causal) or softcap > 0
+    ctx.shape = dict(causal=causal, scale=scale, window_size=(left, right),
+                     sink_tokens=sink, softcap=softcap)
 
 
 def _flash_op_backward(ctx, dout, dlse):
     del dlse  # the lse cotangent is not propagated (as in flash-attn)
-    if ctx.shaped:  # flash_attention refuses these before the forward
-        raise NotImplementedError(_SHAPE_FORWARD_ONLY)
     q, k, v, out, lse = ctx.saved_tensors
     dq, dk, dv = _flash_bwd(q, k, v, out, lse, dout, q_start=ctx.q_start,
-                            causal=ctx.causal, scale=ctx.scale)
+                            **ctx.shape)
     return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)) + (None,) * 9
 
 
@@ -689,12 +715,10 @@ FLASH_ATTENTION_OP = torch.ops.lca_torch.flash_attention.default
 
 
 # kwargs of the JAX API whose non-default values the port does not take yet
-# (the forward entries take window_size, softcap and sink_tokens)
 _FEATURE_DEFAULTS = dict(
-    window_size=(-1, -1), softcap=0.0, q_offsets=None, kv_offsets=None,
-    q_stride=1, kv_stride=1, q_segment_ids=None, kv_segment_ids=None,
-    dropout_p=0.0, dropout_key=None, dropout_seed=None, alibi_slopes=None,
-    sink_tokens=0, kv_lengths=None)
+    q_offsets=None, kv_offsets=None, q_stride=1, kv_stride=1,
+    q_segment_ids=None, kv_segment_ids=None, dropout_p=0.0, dropout_key=None,
+    dropout_seed=None, alibi_slopes=None, kv_lengths=None)
 
 
 def _reject_features(where: str, features) -> None:
@@ -724,17 +748,20 @@ def _one_chunk(offsets, name: str) -> int:
     return int(vals[0])
 
 
-def _q_start(s_q: int, s_kv: int, features) -> Optional[int]:
-    """Pop ``q_offsets`` / ``kv_offsets`` from ``features``. None means
-    static self-attention (no offsets and s_q == s_kv); otherwise the
-    position of q row 0 relative to kv column 0: the offsets' difference,
-    or s_kv - s_q (bottom-right alignment) when only the lengths differ."""
+def _positions(s_q: int, s_kv: int, sink_tokens: int, features):
+    """Pop ``q_offsets`` / ``kv_offsets`` from ``features``: (q_start,
+    sink). q_start None means static self-attention (no offsets and s_q ==
+    s_kv); otherwise the position of q row 0 relative to kv column 0: the
+    offsets' difference, or s_kv - s_q (bottom-right alignment) when only
+    the lengths differ. Sinks are global positions below ``sink_tokens``:
+    kv columns below sink_tokens less the kv offset."""
     q_off = features.pop("q_offsets", None)
     kv_off = features.pop("kv_offsets", None)
     if q_off is None and kv_off is None:
-        return None if s_q == s_kv else s_kv - s_q
-    return ((0 if q_off is None else _one_chunk(q_off, "q_offsets"))
-            - (0 if kv_off is None else _one_chunk(kv_off, "kv_offsets")))
+        return (None if s_q == s_kv else s_kv - s_q), sink_tokens
+    kv0 = 0 if kv_off is None else _one_chunk(kv_off, "kv_offsets")
+    q0 = 0 if q_off is None else _one_chunk(q_off, "q_offsets")
+    return q0 - kv0, max(int(sink_tokens) - kv0, 0)
 
 
 def flash_attention(q, k, v, *, causal: bool = False,
@@ -753,18 +780,17 @@ def flash_attention(q, k, v, *, causal: bool = False,
     offsets runs B1 (``tri_grid=False`` sends it to B4 as in JAX), any other
     self-attention without offsets B4, one-chunk ``q_offsets`` /
     ``kv_offsets`` (token i at offset + i, stride 1) or s_q != s_kv
-    (bottom-right aligned) B3. Differentiable without a window, sinks or
-    softcap: B5 backward after B1 and B4, B2a + B2b after B3; with them a
-    gradient raises ``NotImplementedError``. The other feature kwargs
+    (bottom-right aligned) B3. Differentiable with the same masks and
+    softcap: B5 backward after B1 and B4, B2a + B2b after B3. The other
+    feature kwargs
     (:data:`_FEATURE_DEFAULTS`) raise unless left at their defaults.
     ``block_sizes`` and ``interpret`` are accepted for API parity; the
     Hopper kernels pick their own tiles and walk only the live ones."""
     del block_sizes, interpret
-    q_start = _q_start(q.shape[1], k.shape[1], features)
+    q_start, sink_tokens = _positions(q.shape[1], k.shape[1], sink_tokens,
+                                      features)
     _reject_features("flash_attention (kernel B3 in full)", features)
     left, right, sink = _masks(causal, window_size, sink_tokens, softcap)
-    if left >= 0 or (right >= 0 and not causal) or softcap > 0:
-        _forward_only(_SHAPE_FORWARD_ONLY, q, k, v)
     if q_start is not None:
         route = _B3
     elif (causal and tuple(window_size) == (-1, -1) and not softcap
@@ -780,17 +806,23 @@ def flash_attention(q, k, v, *, causal: bool = False,
 
 def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = False,
                         softmax_scale: Optional[float] = None,
-                        block_sizes=None, interpret=None,
-                        safe_softmax: bool = False, **features):
+                        window_size=(-1, -1), softcap: float = 0.0,
+                        sink_tokens: int = 0, block_sizes=None,
+                        interpret=None, safe_softmax: bool = False,
+                        **features):
     """Backward-only entry (the ring backward's per-step call), BSHD in and
-    out: fp32 (dq, dk, dv) partials of this kv block. Static self-attention
-    runs B5, one-chunk offsets (or s_q != s_kv) B2a + B2b. The backward
-    recomputes in fp32 whatever the forward's softmax form was."""
+    out: fp32 (dq, dk, dv) partials of this kv block, with the forward's
+    window, sinks and softcap. Static self-attention runs B5, one-chunk
+    offsets (or s_q != s_kv) B2a + B2b. The backward recomputes in fp32
+    whatever the forward's softmax form was."""
     del block_sizes, interpret, safe_softmax
-    q_start = _q_start(q.shape[1], k.shape[1], features)
+    q_start, sink_tokens = _positions(q.shape[1], k.shape[1], sink_tokens,
+                                      features)
     _reject_features("flash_attention_bwd (kernels B2/B5 in full)", features)
     return _flash_bwd(q, k, v, out, lse, dout, q_start=q_start,
-                      causal=bool(causal), scale=_scale(q, softmax_scale))
+                      causal=bool(causal), scale=_scale(q, softmax_scale),
+                      window_size=window_size, sink_tokens=sink_tokens,
+                      softcap=float(softcap))
 
 
 def flash_attention_fwd(q, k, v, *, k_scale=None, v_scale=None,

@@ -51,7 +51,6 @@ from long_context_attention_tpu_torch.ops.flash import (
     _HEAD_DIM,
     _LOG2E,
     _QUANT_FORWARD_ONLY,
-    _SHAPE_FORWARD_ONLY,
     _check_cuda_operand,
     _finish,
     _flash_bwd,
@@ -353,11 +352,12 @@ _TRI, _RECT, _POS = 0, 1, 2
 
 @torch.library.custom_op("lca_torch::sage_attention", mutates_args=())
 def _sage_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, route: int,
-             q_start: int, causal: bool, window_left: int, window_right: int,
-             sink_tokens: int, scale: float
+             q_start: int, static: bool, causal: bool, window_left: int,
+             window_right: int, sink_tokens: int, scale: float
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(out, lse) of BSHD q, k, v: the quantization pass, kernel B8a, B8c
-    or B8b (``route``), and the K-centring correction of the lse."""
+    or B8b (``route``), and the K-centring correction of the lse.
+    ``static`` (self-attention without offsets) picks the backward only."""
     k_mean = sage_k_mean(k)
     k8, ks, v8, vs = sage_quant_kv(k, v, k_mean)
     q8, qs, shift = sage_quant_q(q, scale, k_mean)
@@ -374,26 +374,23 @@ def _sage_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, route: int,
 
 
 def _sage_op_setup(ctx, inputs, output) -> None:
-    q, k, v, route, q_start, causal, left, right, _, scale = inputs
+    q, k, v, _, q_start, static, causal, left, right, sink, scale = inputs
     ctx.save_for_backward(q, k, v, *output)
-    # static self-attention takes B5, positions B2a + B2b (_flash_bwd)
-    static = route != _POS and q.shape[1] == k.shape[1]
+    # JAX's flash_attention_bwd: static self-attention takes B5, positions
+    # B2a + B2b (_flash_bwd)
     ctx.q_start = None if static else q_start
-    ctx.causal = causal
-    ctx.scale = scale
-    ctx.shaped = left >= 0 or (right >= 0 and not causal)
+    ctx.shape = dict(causal=causal, scale=scale, window_size=(left, right),
+                     sink_tokens=sink)
 
 
 def _sage_op_backward(ctx, dout, dlse):
     """Straight-through: the bf16 flash backward on the unquantized inputs,
     anchored on the quantized forward's (out, lse) (registry _sage_bwd)."""
     del dlse  # the lse cotangent is not propagated (as in flash-attn)
-    if ctx.shaped:  # sage_attention refuses these before the forward
-        raise NotImplementedError(_SHAPE_FORWARD_ONLY)
     q, k, v, out, lse = ctx.saved_tensors
     dq, dk, dv = _flash_bwd(q, k, v, out, lse, dout, q_start=ctx.q_start,
-                            causal=ctx.causal, scale=ctx.scale)
-    return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)) + (None,) * 7
+                            **ctx.shape)
+    return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)) + (None,) * 8
 
 
 _sage_op.register_autograd(_sage_op_backward, setup_context=_sage_op_setup)
@@ -421,21 +418,23 @@ def _check_strides(q_stride: int, kv_stride: int) -> None:
 
 
 def _route(s_q: int, s_kv: int, causal: bool, window, q_offsets,
-           kv_offsets) -> Tuple[int, int]:
-    """(kernel, q_start) by the JAX package's routing: B8a for plain causal
-    self-attention, B8c for no mask without offsets, B8b for the rest --
-    one-chunk offsets (q row 0 at q_offsets - kv_offsets), a window, or
-    s_q != s_kv (bottom-right aligned). The TPU's cap on B8a's tile table
-    (_TRI_TABLE_MAX) is scalar memory the Hopper kernel does not use."""
+           kv_offsets, sink_tokens: int) -> Tuple[int, int, int]:
+    """(kernel, q_start, sink) by the JAX package's routing: B8a for plain
+    causal self-attention, B8c for no mask without offsets, B8b for the
+    rest -- one-chunk offsets (q row 0 at q_offsets - kv_offsets), a
+    window, or s_q != s_kv (bottom-right aligned). Sinks are global
+    positions: kv columns below sink_tokens less the kv offset. The TPU's
+    cap on B8a's tile table (_TRI_TABLE_MAX) is scalar memory the Hopper
+    kernel does not use."""
     no_window = tuple(int(w) for w in window) == (-1, -1)
     if q_offsets is None and kv_offsets is None:
         if causal and s_q == s_kv and no_window:
-            return _TRI, 0
-        return (_RECT if not causal and no_window else _POS), s_kv - s_q
-    return _POS, ((0 if q_offsets is None
-                   else _one_chunk(q_offsets, "q_offsets"))
-                  - (0 if kv_offsets is None
-                     else _one_chunk(kv_offsets, "kv_offsets")))
+            return _TRI, 0, sink_tokens
+        return ((_RECT if not causal and no_window else _POS), s_kv - s_q,
+                sink_tokens)
+    kv0 = 0 if kv_offsets is None else _one_chunk(kv_offsets, "kv_offsets")
+    q0 = 0 if q_offsets is None else _one_chunk(q_offsets, "q_offsets")
+    return _POS, q0 - kv0, max(int(sink_tokens) - kv0, 0)
 
 
 def sage_attention(q, k, v, *, causal: bool = False,
@@ -449,8 +448,10 @@ def sage_attention(q, k, v, *, causal: bool = False,
     self-attention, B8c without a mask, B8b for one-chunk offsets, a
     window (with sinks) or causal s_q != s_kv (bottom-right aligned).
     ``return_lse`` adds the (b, h, s_q) fp32 lse, K-centring shift
-    included. Differentiable without a window (the straight-through
-    backward); a gradient through a window raises. Position chunks and
+    included. Differentiable, the window and sinks included (the
+    straight-through backward, dispatched as JAX's flash_attention_bwd:
+    B5 for self-attention without offsets, else B2a + B2b). Position
+    chunks and
     strides (ring layouts) and ``pv_int8=True`` raise
     ``NotImplementedError``. ``block_sizes`` and ``interpret`` are accepted
     for API parity; the Hopper kernels pick their own tiles."""
@@ -460,13 +461,14 @@ def sage_attention(q, k, v, *, causal: bool = False,
     if q.shape[2] % k.shape[2]:
         raise ValueError(f"GQA requires h ({q.shape[2]}) % h_kv "
                          f"({k.shape[2]}) == 0")
-    route, q_start = _route(q.shape[1], k.shape[1], causal, window_size,
-                            q_offsets, kv_offsets)
+    route, q_start, sink_tokens = _route(q.shape[1], k.shape[1], causal,
+                                         window_size, q_offsets, kv_offsets,
+                                         sink_tokens)
     left, right, sink = _masks(causal, window_size, sink_tokens, 0.0)
-    if left >= 0 or (right >= 0 and not causal):
-        _forward_only(_SHAPE_FORWARD_ONLY, q, k, v)
-    out, lse = _sage_op(q, k, v, route, q_start, bool(causal), left, right,
-                        sink, float(_scale(q, softmax_scale)))
+    static = (q_offsets is None and kv_offsets is None
+              and q.shape[1] == k.shape[1])
+    out, lse = _sage_op(q, k, v, route, q_start, static, bool(causal), left,
+                        right, sink, float(_scale(q, softmax_scale)))
     return (out, lse) if return_lse else out
 
 
@@ -530,8 +532,9 @@ def sage_attention_fwd_prequant(q, k8, v8, k_scale, v_scale, *,
         raise ValueError(f"k8 and v8 must be int8, got {k8.dtype}, "
                          f"{v8.dtype}")
     _forward_only(_QUANT_FORWARD_ONLY, q)
-    _, q_start = _route(q.shape[1], k8.shape[1], causal, window_size,
-                        q_offsets, kv_offsets)
+    _, q_start, sink_tokens = _route(q.shape[1], k8.shape[1], causal,
+                                     window_size, q_offsets, kv_offsets,
+                                     sink_tokens)
     q8, qs, _ = sage_quant_q(q, _scale(q, softmax_scale))
     return sage_fwd_pos(q8, qs, k8, k_scale.float(), v8, v_scale.float(),
                         q_start=q_start, causal=causal,

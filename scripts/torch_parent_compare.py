@@ -18,19 +18,26 @@ heads, head_dim 128, bf16):
   prefix of 6144 with 2048 rows at q_start 6144, causal, and with window
   4096 and 4 sinks, and over a bf16 kv at b=1, s=8192; B2b and B5 at b=1,
   s=8192, causal (B5's dq is added by TMA reduce-adds in an order that
-  changes from run to run, so it is held to ROW_REL_TOL of each row);
-* B4 at b=4, s=2048 and s=8192 with window 4096 and 4 sinks, and B9a,
-  B9b and B9c at b=1, s=32768 in tiles of 512 on the StreamingLLM mask,
-  where a tree may have another kernel: each tree's output row by row
-  against the plain version (ROW_REL_TOL), and whether the two trees'
-  outputs are bit-equal (reported). A tree whose ``sparse_fwd``,
-  ``sparse_bwd_dq`` or ``sparse_bwd_dkv`` is in ``sparse.cu`` has it called
-  with that source's arguments.
+  changes from run to run, so it is held to ROW_REL_TOL of each row); the
+  sage kernels B8a and B8b on the int8 operands of a 4 x 8192 prefill
+  (B8b with window 4096 and 4 sinks);
+* B2a at b=1, s=8192, causal, B4 at b=4, s=2048 and s=8192 with window
+  4096 and 4 sinks, and B9a, B9b and B9c at b=1, s=32768 in tiles of 512
+  on the StreamingLLM mask, where a tree may have another kernel: each
+  tree's output row by row against the plain version (ROW_REL_TOL), and
+  whether the two trees' outputs are bit-equal (reported). A tree whose
+  ``sparse_fwd``, ``sparse_bwd_dq`` or ``sparse_bwd_dkv`` is in
+  ``sparse.cu`` has it called with that source's arguments; a tree whose
+  backward entry points take no softcap (and no window) is called without
+  it, on the dense cases only.
 
-Then, in this tree alone, B9c on the StreamingLLM and per-head masks with
-two schedules of the same items: the persistent kernels' snake deal
-(``csrc/sm90.cuh`` item_index) and ``SparsePlan.dkv_schedule``'s, timed in
-turns (snake, schedule, schedule, snake); their outputs must be bit-equal.
+Then, in this tree alone: B5, B2b and B2a with the sliding window, sinks
+and softcap at b=1, s=8192 (chip_smoke.py's masked backward cases),
+each against its plain version and timed; and B9c on the StreamingLLM and
+per-head masks with two schedules of the same items: the persistent
+kernels' snake deal (``csrc/sm90.cuh`` item_index) and
+``SparsePlan.dkv_schedule``'s, timed in turns (snake, schedule, schedule,
+snake); their outputs must be bit-equal.
 
 Prints one JSON line per case, then the card's name and power limit; with
 ``--json`` also writes every line to PATH. Exits non-zero when a check
@@ -50,7 +57,8 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
-from long_context_attention_tpu_torch.ops import _build, flash, sparse  # noqa: E402
+from long_context_attention_tpu_torch.ops import (  # noqa: E402
+    _build, flash, sage, sparse)
 
 H, HKV, D = 16, 8, 128
 WINDOW, SINKS = 4096, 4
@@ -60,15 +68,29 @@ ROW_REL_TOL = 2.0 ** -5
 # dp - delta is fp32 rounding noise on both sides)
 CANCEL_FLOOR = 2.0 ** -10
 SCALE = D ** -0.5
+# the masked backward cases (chip_smoke.py's BWD_MASKED): (tag, q_start or
+# None for B5, the mask kwargs)
+_WIN = dict(causal=True, window_size=(WINDOW, -1), sink_tokens=SINKS)
+MASKED = (
+    ("window sinks", None, _WIN),
+    ("non-causal window (512, 256) sinks", None,
+     dict(causal=False, window_size=(512, 256), sink_tokens=SINKS)),
+    ("window sinks softcap", None, dict(_WIN, softcap=50.0)),
+    ("offsets window sinks", 0, _WIN),
+    ("kv offset s/2 window sinks softcap", -4096, dict(_WIN, softcap=50.0)))
 # the kernels each case runs
 KERNELS = ("flash_fwd_causal_self", "flash_fwd_pos", "flash_fwd_static",
-           "flash_bwd_dkv", "flash_bwd_fused", "sparse_fwd", "sparse_bwd_dq",
-           "sparse_bwd_dkv")
+           "flash_bwd_dq", "flash_bwd_dkv", "flash_bwd_fused", "sage_fwd_tri",
+           "sage_fwd_pos", "sparse_fwd", "sparse_bwd_dq", "sparse_bwd_dkv")
+BACKWARD = ("flash_bwd_dq", "flash_bwd_dkv", "flash_bwd_fused")
 SPARSE = ("sparse_fwd", "sparse_bwd_dq", "sparse_bwd_dkv")
 # the one argument list of sparse.cu's entry points: q, k, v, dout, lse,
 # delta, out, out_lse, dk, dv, the CSR walk, dims, qfold, scale, stream
 OLD_SPARSE_ARGS = [ctypes.c_void_p] * 13 + [ctypes.c_float] * 2 + [
     ctypes.c_void_p]
+# the backward entry points' arguments before they took the softcap: q, k,
+# v, dout, lse, delta, dq, dk, dv, dims, scale, stream
+OLD_BWD_ARGS = [ctypes.c_void_p] * 10 + [ctypes.c_float, ctypes.c_void_p]
 
 
 def kernel_sources(root: Path):
@@ -91,6 +113,11 @@ class Tree:
         self.build = root / "build" / "kernels"
         self.sources = kernel_sources(root)
         self.fns = {}
+        # whether the backward entry points take the softcap (and the
+        # window and sinks in dims)
+        self.masked_bwd = "float softcap" in "".join(
+            (self.csrc / f).read_text() for f in ("sm90.cuh",
+                                                  "flash_bwd_sm90.cu"))
 
     def paths(self, source):
         saved = _build.CSRC, _build.BUILD_DIR
@@ -119,7 +146,12 @@ class Tree:
         for name in KERNELS:
             self.fns[name].argtypes = (
                 OLD_SPARSE_ARGS if self.old(name)
+                else OLD_BWD_ARGS if name in BACKWARD and not self.masked_bwd
                 else _build.KERNELS[name].argtypes)
+            if name in BACKWARD and not self.masked_bwd:
+                # drop the softcap (and read dims up to causal): dense only
+                self.fns[name] = (lambda fn: lambda *a: fn(*a[:11], a[12]))(
+                    self.fns[name])
 
     def old(self, name):
         return self.sources[name] == "sparse.cu"
@@ -315,7 +347,62 @@ def main():
         q, k, v, dout, lse, delta, scale=SCALE, causal=True))
     compare("B5 b=1 s=8192", lambda: flash.flash_bwd_fused(
         q, k, v, dout, lse, delta, scale=SCALE, causal=True), loose=(0,))
+    compare("B2a b=1 s=8192", lambda: (flash.flash_bwd_dq(
+        q, k, v, dout, lse, delta, scale=SCALE, causal=True),), same=False,
+        plain=lambda: (flash.flash_bwd_dq_plain(
+            q, k, v, dout, lse, delta, scale=SCALE, causal=True),),
+        cancel_rows=0)
+    # B5, B2b, B2a with the masks, this tree alone: against the plain
+    # versions, timed
+    this.use()
+    for tag, q_start, shape in MASKED:
+        o, l_ = (flash.flash_fwd_static(q, k, v, scale=SCALE, **shape)
+                 if q_start is None else flash.flash_fwd_pos(
+                     q, k.transpose(1, 2), v.transpose(1, 2), scale=SCALE,
+                     q_start=q_start, **shape))
+        dl = (o.float() * dout.float()).sum(-1).transpose(1, 2).contiguous()
+        a = (q, k, v, dout, l_, dl)
+        kw = dict(scale=SCALE, **shape)
+        fns = ((("B5", flash.flash_bwd_fused, flash.flash_bwd_fused_plain),)
+               if q_start is None else
+               (("B2a", flash.flash_bwd_dq, flash.flash_bwd_dq_plain),
+                ("B2b", flash.flash_bwd_dkv, flash.flash_bwd_dkv_plain)))
+        if q_start is not None:
+            kw["q_start"] = q_start
+        for name, fn, plain in fns:
+            got, want = fn(*a, **kw), plain(*a, **kw)
+            got = got if isinstance(got, tuple) else (got,)
+            want = want if isinstance(want, tuple) else (want,)
+            cancel = (max(-(q_start or 0), 0)
+                      if shape["causal"] and name != "B2b" else None)
+            rel = max(row_rel(g, w, cancel if i == 0 else None)
+                      for i, (g, w) in enumerate(zip(got, want)))
+            del got, want
+            ok = rel <= ROW_REL_TOL
+            if not ok:
+                failed.append(f"{name} {tag}")
+            emit({"case": f"{name} b=1 s={s} {tag}", "this_ms": [
+                time_ms(lambda: fn(*a, **kw)) for _ in range(2)],
+                "row_rel_vs_plain": rel, "ok": ok})
+            torch.cuda.empty_cache()
+        del o, l_, dl, a
     del q, k, v, dout, out, lse, delta
+    torch.cuda.empty_cache()
+    # B8a, B8b on the int8 operands of a 4 x 8192 prefill (this tree's
+    # quantization kernels)
+    b, s = 4, 8192
+    q, k, v = randn(b, s, H, D), randn(b, s, HKV, D), randn(b, s, HKV, D)
+    this.use()
+    k_mean = sage.sage_k_mean(k)
+    k8, ks, v8, vs = sage.sage_quant_kv(k, v, k_mean)
+    q8, qs, _ = sage.sage_quant_q(q, SCALE, k_mean)
+    ops = (q8, qs, k8, ks, v8, vs)
+    compare(f"B8a b={b} s={s}", lambda: sage.sage_fwd_tri(*ops))
+    compare(f"B8b b={b} s={s} window {WINDOW} sinks {SINKS}",
+            lambda: sage.sage_fwd_pos(*ops, q_start=0, causal=True,
+                                      window_size=(WINDOW, -1),
+                                      sink_tokens=SINKS))
+    del q, k, v, k_mean, ops, q8, qs, k8, ks, v8, vs
     torch.cuda.empty_cache()
     # B4
     win = dict(causal=True, window_size=(WINDOW, -1), sink_tokens=SINKS)

@@ -219,19 +219,37 @@ def test_xla_attention_bwd_matches_jax(rng):
     assert not got[0][:, :16].any()
 
 
-def test_backward_unported_features_raise():
-    """Offsets of more than one chunk (ring layouts) raise, and so does a
-    gradient through a window, sinks or softcap (their backward is the
-    next slice): no wrong gradient comes back."""
+def test_backward_unported_features_raise(rng):
+    """Offsets of more than one chunk (ring layouts), strides and segments
+    still raise: no wrong gradient comes back. A gradient through a window,
+    sinks or softcap now comes back (B5, or B2a + B2b with offsets) and
+    equals the fp32 oracle's, through flash_attention and
+    flash_attention_bwd alike."""
     q = torch.zeros(1, 8, 2, 16)
     with pytest.raises(NotImplementedError, match="position chunks"):
         tflash.flash_attention(q, q, q, causal=True, q_offsets=[0, 4],
                                kv_offsets=[0, 4])
-    qg = q.clone().requires_grad_()
-    for kw in (dict(window_size=(4, -1)), dict(softcap=5.0),
-               dict(causal=False, window_size=(2, 3))):
-        with pytest.raises(NotImplementedError, match="sliding windows"):
-            tflash.flash_attention(qg, q, q, **{"causal": True, **kw})
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="q_stride"):
         tflash.flash_attention_bwd(q, q, q, q, torch.zeros(1, 2, 8), q,
-                                   causal=True, window_size=(4, -1))
+                                   causal=True, q_offsets=[0], q_stride=2)
+    seg = torch.zeros(1, 8, dtype=torch.int32)
+    with pytest.raises(NotImplementedError, match="segment"):
+        tflash.flash_attention(q, q, q, causal=True, q_segment_ids=seg,
+                               kv_segment_ids=seg)
+    (_, tq), (_, tk), (_, tv), (_, tdo) = _inputs(rng, "float32")
+    for kw in (dict(window_size=(40, -1)), dict(softcap=5.0),
+               dict(causal=False, window_size=(20, 30)),
+               dict(window_size=(40, -1), sink_tokens=3, q_offsets=[0],
+                    kv_offsets=[0])):
+        kw = {"causal": True, **kw}
+        q, k, v = (t.clone().requires_grad_() for t in (tq, tk, tv))
+        out, lse = tflash.flash_attention(q, k, v, return_lse=True, **kw)
+        (out * tdo).sum().backward()
+        shape = {n: kw[n] for n in ("causal", "window_size", "sink_tokens",
+                                    "softcap") if n in kw}
+        oracle = tref.xla_attention_bwd(tq, tk, tv, out.detach(),
+                                        lse.detach(), tdo, **shape)
+        _assert_grads((q.grad, k.grad, v.grad), oracle, F32_TOL)
+        _assert_grads(tflash.flash_attention_bwd(
+            tq, tk, tv, out.detach(), lse.detach(), tdo, **kw), oracle,
+            F32_TOL)

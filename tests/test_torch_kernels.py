@@ -2,8 +2,8 @@
 CPU: every kernel binds a source under ``csrc/`` and names the Pallas kernel
 it replaces (sage's quantization pass, the JAX function it computes); B2b,
 B5 and B9c live in the wgmma/TMA source ``flash_bwd_sm90.cu``, B1, B3, B4
-and B9a in ``flash_fwd_sm90.cu``, B9b in ``flash_dq_sm90.cu``, B8a and B8b
-in ``sage_fwd_sm90.cu``; a library
+and B9a in ``flash_fwd_sm90.cu``, B2a and B9b in ``flash_dq_sm90.cu``, B8a
+and B8b in ``sage_fwd_sm90.cu``; a library
 is rebuilt when a shared header changes; and the strides a kernel cannot
 read (TMA's tensor maps, cp.async's 16-byte rows) raise, while the BSHD
 views the model and the cache hand the kernels pass."""
@@ -55,17 +55,20 @@ def test_quant_pass_source_and_replaced_function(name, function):
 @pytest.mark.parametrize("name,source,site", [
     ("flash_bwd_fused", "flash_bwd_sm90.cu", "flash.py:1291"),
     ("flash_bwd_dkv", "flash_bwd_sm90.cu", "flash.py:1174"),
-    ("flash_bwd_dq", "flash_bwd.cu", "flash.py:1089"),
+    ("flash_bwd_dq", "flash_dq_sm90.cu", "flash.py:1089"),
 ])
 def test_backward_kernel_sources(name, source, site):
-    """B5 and B2b run from the Hopper source (wgmma, TMA); B2a stays on
-    mma.sync. Each C entry point is defined in its source only."""
+    """B5 and B2b run from the Hopper backward source (wgmma, TMA), B2a
+    from the dq pipeline's source (wgmma, TMA) as B9b's second walk. Each C
+    entry point is defined in its source only, and the mma.sync source
+    ``flash_bwd.cu`` is gone."""
     k = _build.KERNELS[name]
     assert k.source == source
     assert k.replaces == f"long_context_attention_tpu/ops/{site}"
     defined = [p.name for p in sorted(_build.CSRC.glob("*.cu"))
                if f'extern "C" int {k.symbol}(' in p.read_text()]
     assert defined == [source]
+    assert not (_build.CSRC / "flash_bwd.cu").exists()
 
 
 @pytest.mark.parametrize("name,source,site", [
@@ -119,8 +122,10 @@ def test_sage_sm90_source_uses_the_s8_wgmma():
 def test_sm90_sources_build_for_sm90a():
     """wgmma and setmaxnreg exist only for sm_90a. The backward source
     (B5, B2b and B9c), the forward source (B1, B3, B4, B9a) and the dq
-    source (B9b) use them, with TMA; B9c's walk is a template parameter of
-    B2b's kernel and B9a's of the forward kernel, not second pipelines."""
+    source (B2a, B9b) use them, with TMA; B9c's walk is a template parameter
+    of B2b's kernel, B9a's of the forward kernel and B2a's and B9b's of the
+    dq kernel, not second pipelines. The backward entry points share one C
+    signature."""
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     header = (_build.CSRC / "sm90.cuh").read_text()
     bwd = (_build.CSRC / "flash_bwd_sm90.cu").read_text()
@@ -129,6 +134,8 @@ def test_sm90_sources_build_for_sm90a():
         assert needle in bwd or needle in header
     assert bwd.count("__global__") == 1
     assert "launch<false, true>(" in bwd
+    for mask in ("kBand", "kCap"):  # the windowed and softcapped bodies
+        assert f"launch<FUSED, false, {mask}>(" in bwd
     fwd = (_build.CSRC / "flash_fwd_sm90.cu").read_text()
     for needle in ("wgmma.mma_async", "tma_load_4d", "setmaxnreg_inc",
                    '#include "sm90.cuh"'):
@@ -139,6 +146,11 @@ def test_sm90_sources_build_for_sm90a():
     for needle in ("wgmma.mma_async", "wgmma_rs", "tma_load_4d",
                    "setmaxnreg_inc", "setmaxnreg_dec", '#include "sm90.cuh"'):
         assert needle in dq
+    assert dq.count("__global__") == 1
+    for walk in ("SparseRows", "DenseRows<true>", "DenseRows<false>"):
+        assert f"launch<{walk}>(" in dq
+    assert "#define LCA_BWD_ARGS" in header
+    assert 'extern "C" int lca_flash_bwd_dq(LCA_BWD_ARGS)' in dq
     assert not (_build.CSRC / "sparse.cu").exists()
     # no source derives its aligned shared base through an integer cast
     for src in sorted(_build.CSRC.glob("*.cu")):

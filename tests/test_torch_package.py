@@ -74,20 +74,28 @@ def test_build_dir_is_gitignored():
 def test_unported_features_raise():
     """Features outside the ported slices raise NotImplementedError, and so
     does a gradient through the int8-KV path, which is forward-only in the
-    JAX package too, one through a sliding window (its backward is the
-    next slice) and the dense USP layers."""
+    JAX package too, and the dense USP layers. A gradient through a
+    sliding window now comes back, equal to the fp32 oracle's."""
     from long_context_attention_tpu_torch.ops.decode import decode_attention
     from long_context_attention_tpu_torch.ops.flash import (
         flash_attention, flash_attention_fwd)
     from long_context_attention_tpu_torch.ops.kv_cache import KVCache
+    from long_context_attention_tpu_torch.ops.reference import (
+        xla_attention_bwd)
 
     q = torch.zeros(1, 8, 2, 128, dtype=torch.bfloat16)
     with pytest.raises(NotImplementedError):
         flash_attention(q, q, q, causal=False,
                         alibi_slopes=torch.ones(2))
-    with pytest.raises(NotImplementedError, match="sliding windows"):
-        flash_attention(q.clone().requires_grad_(), q, q, causal=True,
-                        window_size=(4, -1))
+    x = torch.randn(1, 8, 2, 128, generator=torch.Generator().manual_seed(0))
+    xg = x.clone().requires_grad_()
+    out, lse = flash_attention(xg, x, x, causal=True, window_size=(4, -1),
+                               return_lse=True)
+    out.sum().backward()
+    dq, _, _ = xla_attention_bwd(x, x, x, out.detach(), lse.detach(),
+                                 torch.ones_like(x), causal=True,
+                                 window_size=(4, -1))
+    torch.testing.assert_close(xg.grad, dq, atol=1e-5, rtol=1e-5)
     kv8 = torch.zeros(1, 8, 2, 128, dtype=torch.int8)
     scales = torch.ones(1, 2, 8)
     with pytest.raises(NotImplementedError, match="forward-only"):
@@ -141,9 +149,10 @@ def test_engine_rejects_params_off_its_device():
 def test_model_config_rejects_unported_fields(field, value):
     """ModelConfig keeps the JAX config's fields; a value that needs a
     slice not ported yet raises instead of being ignored. A window, sinks
-    or softcap serve, so the config takes them, and training such a model
-    (their backward) raises. attn_impl takes the registry's impls (xla,
-    sage) and raises ValueError on an unknown one."""
+    or softcap serve and train, so the config takes them, hands them to
+    every attention call and builds a train step. attn_impl takes the
+    registry's impls (xla, sage) and raises ValueError on an unknown
+    one."""
     from long_context_attention_tpu_torch.models.llama import (
         ModelConfig, make_train_step)
     from long_context_attention_tpu_torch.utils.config import BlockSizes
@@ -159,8 +168,10 @@ def test_model_config_rejects_unported_fields(field, value):
     if field in ("window_left", "softcap", "sink_tokens"):
         cfg = ModelConfig(**{field: value})
         assert getattr(cfg, field) == value
-        with pytest.raises(NotImplementedError, match=field):
-            make_train_step(cfg, torch.optim.SGD, device="cpu")
+        kw = cfg.attention_kwargs()
+        assert (kw["window_size"][0] if field == "window_left"
+                else kw[field]) == value
+        assert callable(make_train_step(cfg, torch.optim.SGD, device="cpu"))
         return
     with pytest.raises(NotImplementedError, match=field):
         ModelConfig(**{field: value})

@@ -418,9 +418,10 @@ def test_reference_full_drops_the_window(rng):
 def test_unsupported_raise(rng):
     """What sage does not implement raises rather than runs: softcap,
     dropout, segments (NotImplementedError, as in JAX), pv_int8=True (not
-    ported), position chunks and strides, a gradient through a window, a
-    gradient through the pre-quantized path, an unknown kwarg
-    (TypeError)."""
+    ported), position chunks and strides, a gradient through the
+    pre-quantized path, an unknown kwarg (TypeError). A gradient through a
+    sliding window with sinks now comes back: the straight-through flash
+    backward, equal to the fp32 oracle's on the op's own (out, lse)."""
     (_, tq), (_, tk), (_, tv) = _qkv(rng, "float32")
     for kw in (dict(softcap=30.0), dict(dropout_p=0.1),
                dict(q_segment_ids=torch.zeros(B, S, dtype=torch.int32),
@@ -438,9 +439,15 @@ def test_unsupported_raise(rng):
         tsage.sage_attention(tq, tk, tv, q_offsets=[0, 64])
     with pytest.raises(NotImplementedError, match="stride"):
         tsage.sage_attention(tq, tk, tv, q_offsets=[0], q_stride=2)
-    with pytest.raises(NotImplementedError, match="sliding windows"):
-        tsage.sage_attention_full(tq.clone().requires_grad_(), tk, tv,
-                                  causal=True, window_size=(16, -1))
+    win = dict(causal=True, window_size=(16, -1), sink_tokens=3)
+    leaves = [t.clone().requires_grad_() for t in (tq, tk, tv)]
+    out, lse = tsage.sage_attention(*leaves, return_lse=True, **win)
+    dout = torch.from_numpy(rng.standard_normal(tq.shape).astype(np.float32))
+    got = torch.autograd.grad((out * dout).sum(), leaves)
+    want = tref.xla_attention_bwd(tq, tk, tv, out.detach(), lse.detach(),
+                                  dout, **win)
+    for g, w in zip(got, want):
+        _leaf_close(g, w, 1e-5)
     with pytest.raises(NotImplementedError, match="forward-only"):
         tsage.sage_attention_fwd_prequant(
             tq.clone().requires_grad_(), k8, k8, ks.transpose(1, 2),
@@ -453,7 +460,8 @@ def test_model_config_sage_raises():
     """attn_impl takes the registry's names (an unknown one raises
     ValueError); with sage, safe_softmax raises ValueError (ring.py:117)
     and softcap NotImplementedError (sage's _vet_kwargs); a windowed sage
-    config serves but its training raises, as every windowed config's."""
+    config serves and now trains too: loss_local's gradient comes back
+    finite, and make_train_step's loss is loss_local's."""
     with pytest.raises(ValueError, match="available"):
         tllama.ModelConfig(attn_impl="flashinfer")
     with pytest.raises(ValueError, match="safe_softmax"):
@@ -461,16 +469,24 @@ def test_model_config_sage_raises():
     with pytest.raises(NotImplementedError, match="softcap"):
         tllama.ModelConfig(attn_impl="sage", softcap=30.0)
     cfg = tllama.ModelConfig(attn_impl="sage", window_left=8, sink_tokens=2)
-    with pytest.raises(NotImplementedError, match="window_left=8"):
-        tllama.make_train_step(cfg, torch.optim.SGD, device="cpu")
     params = tllama.init_params(torch.Generator().manual_seed(0), cfg,
                                 device="cpu")
-    tokens = torch.zeros((1, 16), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="window_left=8"):
-        tllama.loss_local(params, tokens, tokens, torch.ones(1, 16), cfg)
+    tokens = torch.randint(0, cfg.vocab, (1, 16),
+                           generator=torch.Generator().manual_seed(1))
+    leaves = tllama.param_leaves(params)
+    for t in leaves:
+        t.requires_grad_(True)
+    loss = tllama.loss_local(params, tokens, tokens, torch.ones(1, 16), cfg)
+    loss.backward()
+    assert torch.isfinite(loss)
+    assert all(t.grad is not None and bool(torch.isfinite(t.grad).all())
+               for t in leaves)
     with torch.no_grad():
-        assert torch.isfinite(tllama.loss_local(params, tokens, tokens,
-                                                torch.ones(1, 16), cfg))
+        want = float(tllama.loss_local(params, tokens, tokens,
+                                       torch.ones(1, 16), cfg))
+    step = tllama.make_train_step(cfg, torch.optim.SGD, device="cpu")
+    _, _, got = step(params, None, tokens, tokens, torch.ones(1, 16))
+    assert float(got) == want
 
 
 # ---------------------------------------------------------------------------

@@ -395,29 +395,52 @@ def test_forward_routing(monkeypatch, case, want):
 
 
 def test_gradient_boundary():
-    """A window, sinks with a window, or a softcap under autograd raise
-    NotImplementedError through flash_attention_fwd too (flash_attention:
-    test_torch_flash_bwd.py), and so do make_train_step and loss_local
-    under grad with such a config; the same calls run without autograd."""
+    """The gradient of a window, sinks with a window, or a softcap comes
+    back through flash_attention_fwd (flash_attention:
+    test_torch_flash_bwd.py) and equals the fp32 oracle's; make_train_step
+    and loss_local train such a config, its grads equal to those of the
+    same model on the xla oracle impl. The int8-KV path stays forward-only
+    and raises under autograd."""
     q = torch.randn(1, 16, 2, 8)
-    qg = q.clone().requires_grad_()
+    dout = torch.randn(1, 16, 2, 8)
     for kw in (dict(window_size=(4, -1)), dict(softcap=5.0),
                dict(window_size=(4, -1), sink_tokens=2)):
-        with pytest.raises(NotImplementedError, match="sliding windows"):
-            tflash.flash_attention_fwd(q, qg, q, causal=True, **kw)
-        with torch.no_grad():
-            tflash.flash_attention(qg, q, q, causal=True, **kw)
-    cfg = tllama.ModelConfig(**SHAPE, window_left=8, sink_tokens=2)
-    with pytest.raises(NotImplementedError, match="window_left=8"):
-        tllama.make_train_step(cfg, torch.optim.SGD, device="cpu")
+        qg, kg, vg = (t.clone().requires_grad_() for t in (q, q * 0.5, -q))
+        out, lse = tflash.flash_attention_fwd(qg, kg, vg, causal=True, **kw)
+        (out * dout).sum().backward()
+        oracle = tref.xla_attention_bwd(q, q * 0.5, -q, out.detach(),
+                                        lse.detach(), dout, causal=True,
+                                        **kw)
+        for g, w in zip((qg.grad, kg.grad, vg.grad), oracle):
+            np.testing.assert_allclose(_np(g), _np(w), **F32_TOL)
+    scale = torch.ones(1, 2, 16)
+    with pytest.raises(NotImplementedError, match="forward-only"):
+        tflash.flash_attention_fwd(q.clone().requires_grad_(),
+                                   q.to(torch.int8), q.to(torch.int8),
+                                   k_scale=scale, v_scale=scale, causal=True)
+    cfg = tllama.ModelConfig(**SHAPE, window_left=8, sink_tokens=2,
+                             softcap=4.0, dtype=torch.float32)
     params = tllama.init_params(torch.Generator().manual_seed(0), cfg,
                                 device="cpu")
-    tokens = torch.zeros((1, 8), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="window_left=8"):
-        tllama.loss_local(params, tokens, tokens, torch.ones(1, 8), cfg)
-    with torch.no_grad():
-        assert torch.isfinite(tllama.loss_local(params, tokens, tokens,
-                                                torch.ones(1, 8), cfg))
+    tokens = torch.randint(0, SHAPE["vocab"], (1, 24),
+                           generator=torch.Generator().manual_seed(1))
+    grads = {}
+    for impl in ("pallas", "xla"):
+        leaves = [t.detach().clone().requires_grad_()
+                  for t in tllama.param_leaves(params)]
+        it = iter(leaves)
+        p = {k: ({kk: next(it) for kk in v} if isinstance(v, dict)
+                 else next(it)) for k, v in params.items()}
+        loss = tllama.loss_local(p, tokens, tokens, torch.ones(1, 24),
+                                 dataclasses.replace(cfg, attn_impl=impl))
+        loss.backward()
+        grads[impl] = (float(loss.detach()), [t.grad for t in leaves])
+    assert abs(grads["pallas"][0] - grads["xla"][0]) < 1e-5
+    for g, w in zip(grads["pallas"][1], grads["xla"][1]):
+        assert float((g - w).abs().max()) <= 1e-5 * float(w.abs().max())
+    step = tllama.make_train_step(cfg, torch.optim.SGD, device="cpu")
+    _, _, loss = step(params, None, tokens, tokens, torch.ones(1, 24))
+    assert abs(float(loss) - grads["pallas"][0]) < 1e-5
 
 
 def test_model_config_threads_the_attention_shape():
@@ -428,6 +451,3 @@ def test_model_config_threads_the_attention_shape():
     assert cfg.attention_kwargs() == dict(
         window_size=(4096, -1), softcap=50.0, sink_tokens=4,
         safe_softmax=False)
-    assert cfg.shaped_attention
-    assert not dataclasses.replace(cfg, window_left=-1, sink_tokens=0,
-                                   softcap=0.0).shaped_attention
