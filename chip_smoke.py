@@ -37,7 +37,13 @@ Phases, one JSON line each; any failure exits non-zero:
      quarter of rows has no live tile, one with an empty kv column, and a
      non-causal 8192 x 32768 random mask, and at s=6144 in tiles of 192;
      B9a on the wgmma/TMA forward pipeline, B9b on the dq pipeline, B9c on
-     B2b's backward pipeline), each
+     B2b's backward pipeline; and B3, B2a, B2b and B8b at the dense ring's
+     multi-chunk and strided descriptors, those of a W=4 ring at a local
+     length of 8192 from the ring's own ring_step_kwargs: zigzag rank 1
+     step 2, stripe with src > rank (dead rows), the bidirectional basic
+     ring, zigzag with window 4096 and 4 sinks; at the first of them B3
+     over int8 K/V, with softcap and in the online form, B2a and B2b with
+     softcap), each
      output row held against its own size (ROW_REL_TOL), with its time,
      the plain version's, a PyTorch library call's (timed here only) and
      the least time the card could take;
@@ -79,7 +85,23 @@ Phases, one JSON line each; any failure exits non-zero:
      mesh from make_usp_mesh() at b=1, s=32768, forward and backward on
      each of the three causal masks (exactly one B9a, B9b and B9c per call,
      no other kernel), against a direct block_sparse_attention call, and
-     timed against the dense flash_attention(causal=True).
+     timed against the dense flash_attention(causal=True);
+ 11. ring_emulated: a W=4 ring on one card at s=32768 (NCCL puts no two
+     ranks on one card): every (rank, step) call of ring_attention_local
+     for the basic, zigzag, stripe and bidirectional rings (B3, B2a, B2b
+     at the ring's own descriptors), merged and summed onto their owners
+     as the ring does, against one-device flash_attention fwd+bwd; and
+     zigzag with impl sage and kv_quant="int8" (B8b over the rotated int8
+     K/V) against one-device sage_attention;
+ 12. usp_dense: the dense LongContextAttention(layout="zigzag") on a
+     one-rank NCCL mesh at s=32768 (the two-chunk descriptor (0, s/2)):
+     exactly one B3, B2a and B2b per forward and backward, against
+     flash_attention(causal=True), timed beside its kernels;
+ 13. train_usp: make_train_step(mesh=make_usp_mesh()) on the 0.88B config
+     (zigzag) at b=1, s=8192: one step against the single-device step from
+     the same params and batch (loss, every leaf), then remat none and attn
+     with exact launch counts (B3, B2a, B2b; B1 and B5 never) and a
+     falling loss, timed beside the single-device step.
 Then the kernel table, the card's name and power limit, and as the last line
 {"ok": true, "device": {...}}.
 """
@@ -1915,6 +1937,166 @@ def grad_check_phase(pkg, build, dev, card, impl="pallas",
                   f"largest value)", x["rel_err"], GRAD_TOL)
 
 
+# The dense ring's descriptors: a W=4 ring at the 0.88B attention width
+# (b=1, 16/8 heads, d=128), a local length of 8192 (s = 32768). Each case
+# is one (layout, rank, step) call that ring_attention_local makes, its
+# kwargs built by the ring's own parallel/ring.py ring_step_kwargs.
+RING_W, RING_LOCAL = 4, 8192
+RING_CASES = (
+    # two q chunks and two kv chunks; q chunk 0 sees none of them
+    ("zigzag rank 1 step 2", dict(layout="zigzag"), 1, 2),
+    # src 2 > rank 1: q row 0 sees no key (dead rows for the whole step)
+    ("stripe rank 1 src 2", dict(layout="stripe"), 1, 3),
+    # kv halves from ranks 0 and 2, one two-chunk descriptor
+    ("bidirectional basic rank 1 step 1",
+     dict(layout="basic", bidirectional=True), 1, 1),
+    # src 0 holds the sinks: q chunk 1 sees only them
+    ("zigzag rank 1 step 1 window sinks",
+     dict(layout="zigzag", window=(WINDOW, -1), sink=SINKS), 1, 1),
+)
+
+
+def ring_case_kwargs(ring, tag, fields, rank, step):
+    """(Positions, mask kwargs) of one RING_CASES entry, from the ring's
+    own descriptors (parallel/ring.py ring_step_kwargs)."""
+    from long_context_attention_tpu_torch.ops.flash import Positions
+
+    cfg = ring.RingConfig(ring_size=RING_W, causal=True, **fields)
+    kw = ring.ring_step_kwargs(cfg, rank, step, RING_LOCAL, RING_LOCAL)
+    pos = Positions(tuple(kw["q_offsets"]), tuple(kw["kv_offsets"]),
+                    kw["q_stride"], kw["kv_stride"])
+    return pos, dict(causal=True, window_size=kw["window_size"],
+                     sink_tokens=kw.get("sink_tokens", 0))
+
+
+def kernel_ring(K, flash, sage, ring, gen, dev):
+    """B3, B2a, B2b and B8b at the dense ring's multi-chunk and strided
+    descriptors (RING_CASES), each against its plain version row by row
+    (dead rows exactly 0, lse -inf), timed beside its bound from the
+    case's visible pairs and SDPA's memory-efficient kernel with the
+    equivalent boolean mask. Returns {kernel: [case rows]}."""
+    b, s, h, hk, d = 1, RING_LOCAL, MODEL["n_heads"], MODEL["n_kv_heads"], 128
+    scale = d ** -0.5
+    q, dout = (torch.randn((b, s, h, d), generator=gen, device=dev)
+               .bfloat16() for _ in range(2))
+    k, v = (torch.randn((b, s, hk, d), generator=gen, device=dev).bfloat16()
+            for _ in range(2))
+    kt, vt = k.transpose(1, 2), v.transpose(1, 2)
+    q8, qs, _ = sage.sage_quant_q(q, scale)
+    (k8, ks), (v8, vs) = (ring._quantize(t) for t in (k, v))
+    out_rows = {n: [] for n in ("B3", "B2a", "B2b", "B8b")}
+    for tag, fields, rank, step in RING_CASES:
+        pos, mk = ring_case_kwargs(ring, tag, fields, rank, step)
+        left, right, sink = flash._masks(mk["causal"], mk["window_size"],
+                                         mk["sink_tokens"], 0.0)
+        vis = ~flash._mask(pos.q_positions(s, dev), pos.kv_positions(s, dev),
+                           left, right, sink)
+        pairs = int(vis.sum()) * b * h
+        dead = int((vis.sum(1) == 0).sum())
+        one_col = (vis.sum(1) == 1).nonzero()[:, 0]
+        fw = dict(pos=pos, scale=scale, **mk)
+        out, lse = flash.flash_fwd_pos(q, kt, vt, **fw)
+        pout, plse = flash.flash_fwd_pos_plain(q, kt, vt, **fw)
+        torch.cuda.synchronize()
+        c3 = [check_out(f"B3 {tag} out", out, pout)]
+        check(f"B3 {tag} lse", max_err(lse, plse), LSE_TOL)
+        delta = (dout.float() * out.float()).sum(-1).transpose(1, 2)
+        args = (q, k, v, dout, lse, delta.contiguous())
+        bw = dict(pos=pos, scale=scale, **mk)
+        dq = flash.flash_bwd_dq(*args, **bw)
+        pdq = flash.flash_bwd_dq_plain(*args, **bw)
+        torch.cuda.synchronize()
+        c2a = [check_out(f"B2a {tag} dq", dq, pdq, one_col)]
+        del dq, pdq
+        dk, dv = flash.flash_bwd_dkv(*args, **bw)
+        pdk, pdv = flash.flash_bwd_dkv_plain(*args, **bw)
+        torch.cuda.synchronize()
+        c2b = [check_out(f"B2b {tag} dk", dk, pdk),
+               check_out(f"B2b {tag} dv", dv, pdv)]
+        del dk, dv, pdk, pdv
+        sargs = (q8, qs, k8, ks, v8, vs)
+        so, sl = sage.sage_fwd_pos(*sargs, pos=pos, **mk)
+        pso, psl = sage.sage_fwd_pos_plain(*sargs, pos=pos, **mk)
+        torch.cuda.synchronize()
+        c8 = [check_out(f"B8b {tag} out", so, pso)]
+        check(f"B8b {tag} lse", max_err(sl, psl), LSE_TOL)
+        del so, sl, pso, psl
+        torch.cuda.empty_cache()
+        sdpa_f, sdpa_b = sdpa_masked_ms(q, k, v, dout, vis)
+        in_b = 2 * (2 * q.numel() + 2 * k.numel())
+        kinds = (
+            ("B3", c3, lambda: flash.flash_fwd_pos(q, kt, vt, **fw),
+             lambda: flash.flash_fwd_pos_plain(q, kt, vt, **fw), 4,
+             in_b + 4 * b * h * s, PEAK_BF16_FLOPS, sdpa_f),
+            ("B2a", c2a, lambda: flash.flash_bwd_dq(*args, **bw),
+             lambda: flash.flash_bwd_dq_plain(*args, **bw), 6,
+             in_b + 8 * b * h * s + 4 * q.numel(), PEAK_BF16_FLOPS, sdpa_b),
+            ("B2b", c2b, lambda: flash.flash_bwd_dkv(*args, **bw),
+             lambda: flash.flash_bwd_dkv_plain(*args, **bw), 8,
+             in_b + 8 * b * h * s + 8 * k.numel(), PEAK_BF16_FLOPS, sdpa_b),
+            ("B8b", c8, lambda: sage.sage_fwd_pos(*sargs, pos=pos, **mk),
+             lambda: sage.sage_fwd_pos_plain(*sargs, pos=pos, **mk), 4,
+             q.numel() + 2 * k.numel() + 2 * q.numel() + 4 * b * (h + 2 * hk) * s,
+             PEAK_SAGE_OPS, sdpa_f))
+        for n, checks, fn, plain, per_pair, nbytes, peak, lib in kinds:
+            ms = time_ms(fn)
+            pms = time_ms(plain, iters=1, warmup=1)
+            torch.cuda.empty_cache()
+            out_rows[n].append({
+                "case": tag, "q_offsets": list(pos.q_offsets),
+                "kv_offsets": list(pos.kv_offsets), "stride": pos.q_stride,
+                **mk, "visible_pairs": pairs, "dead_rows": dead,
+                **case_row(checks, ms, pms, per_pair * d * pairs, nbytes,
+                           lib, peak)})
+        emit({"phase": "ring_kernels", "case": tag, "dead_rows": dead,
+              "ms": {n: out_rows[n][-1]["ms"] for n in out_rows}})
+        del out, lse, pout, plse, args, delta
+        torch.cuda.empty_cache()
+    ring_forms(flash, ring, q, k, v, dout, scale)
+    return out_rows
+
+
+def ring_forms(flash, ring, q, k, v, dout, scale):
+    """The other instantiations the ring's steps reach at a two-chunk
+    descriptor (zigzag rank 1 step 2), each against its plain version row
+    by row: B3 over int8 K/V (kv_quant="int8"), with softcap 50 and in the
+    online form (safe_softmax); B2a and B2b with softcap 50."""
+    pos, mk = ring_case_kwargs(ring, *RING_CASES[0])
+    kt, vt = k.transpose(1, 2), v.transpose(1, 2)
+    (k8, ks), (v8, vs) = (ring._quantize(t) for t in (k, v))
+    errs = {}
+    for tag, args, kw in (
+            ("int8 K/V", (q, k8.transpose(1, 2), v8.transpose(1, 2), ks, vs),
+             {}),
+            ("softcap", (q, kt, vt), dict(softcap=SOFTCAP)),
+            ("safe_softmax", (q, kt, vt), dict(safe_softmax=True))):
+        fw = dict(pos=pos, scale=scale, **mk, **kw)
+        got = flash.flash_fwd_pos(*args, **fw)
+        want = flash.flash_fwd_pos_plain(*args, **fw)
+        torch.cuda.synchronize()
+        errs[f"B3 {tag}"] = check_out(f"B3 ring {tag} out", got[0],
+                                      want[0])[1]
+        check(f"B3 ring {tag} lse", max_err(got[1], want[1]), LSE_TOL)
+    fw = dict(pos=pos, scale=scale, softcap=SOFTCAP, **mk)
+    out, lse = flash.flash_fwd_pos(q, kt, vt, **fw)
+    delta = (dout.float() * out.float()).sum(-1).transpose(1, 2)
+    args = (q, k, v, dout, lse, delta.contiguous())
+    for tag, fn, plain in (("B2a", flash.flash_bwd_dq, flash.flash_bwd_dq_plain),
+                           ("B2b", flash.flash_bwd_dkv,
+                            flash.flash_bwd_dkv_plain)):
+        got, want = fn(*args, **fw), plain(*args, **fw)
+        torch.cuda.synchronize()
+        if tag == "B2a":  # dq alone
+            got, want = (got,), (want,)
+        for i, (a, w) in enumerate(zip(got, want)):
+            errs[f"{tag} softcap {i}"] = check_out(
+                f"{tag} ring softcap grad {i}", a, w)[1]
+        del got, want
+        torch.cuda.empty_cache()
+    emit({"phase": "ring_forms", "case": RING_CASES[0][0],
+          "row_rel_err": errs})
+
+
 def offsets_phase(build, flash, dev, card):
     """flash_attention with one-chunk offsets (B3 + B2a + B2b, the JAX
     trainer's per-layer call) against the no-offsets path (B1 + B5) on the
@@ -2267,6 +2449,353 @@ def usp_sparse_phase(build, sparse, flash, dev, card):
     return total
 
 
+# ---------------------------------------------------------------------------
+# phases 11-13: the dense ring, the dense USP layer, training over a mesh
+# ---------------------------------------------------------------------------
+
+# ring_emulated: every (rank, step) call of a W=4 ring on one card, per
+# layout (the bidirectional ring in the basic layout), s = 32768
+RING_LAYOUTS = (("basic", {}), ("zigzag", {}), ("stripe", {}),
+                ("bidirectional basic", dict(layout="basic",
+                                             bidirectional=True)))
+# ring x sage direct-int8 against one-device sage_attention: the bound of
+# the JAX package's own check of the two (tests/test_sage.py:345)
+RING_SAGE_TOL = 5e-2
+# end to end in bf16 (tests/test_ring.py's gate)
+BF16_ATOL = 1e-1
+
+
+def ring_emulated_phase(build, flash, ring, dev, card):
+    """A W=4 ring on one card: for each layout (RING_LAYOUTS) every (rank,
+    step) call that ring_attention_local makes, at the kwargs of the ring's
+    own ring_step_kwargs, through the registry's pallas impl (B3 forward,
+    B2a + B2b backward); each rank's per-step (out, lse) merged in fp32
+    (ops/merge.py), and the backward fed the merged out and lse, each
+    rank's dq summed and each dk/dv partial summed onto its K/V's owner, as
+    the two-ring backward does. Held against one-device
+    flash_attention(causal=True) fwd+bwd (B1 + B5) on the unpermuted
+    sequence: out within ROW_REL_TOL of each row, out and grads within
+    BF16_ATOL. Then zigzag with impl sage and kv_quant="int8": the rotated
+    int8 K/V through B8b, against one-device sage_attention. Returns the
+    launch counts of one layout's ring (W * W calls of each kernel)."""
+    from long_context_attention_tpu_torch.ops.merge import merge_attn_blocks
+    from long_context_attention_tpu_torch.ops.registry import get_attn_impl
+    from long_context_attention_tpu_torch.ops.sage import sage_attention
+    from long_context_attention_tpu_torch.parallel.layouts import (
+        permute_for_layout, unpermute_from_layout)
+
+    W, L = RING_W, RING_LOCAL
+    b, s, h, hk, d = 1, W * L, MODEL["n_heads"], MODEL["n_kv_heads"], 128
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    q, k, v = (torch.randn(shape, generator=gen, device=dev).bfloat16()
+               .requires_grad_()
+               for shape in ((b, s, h, d), (b, s, hk, d), (b, s, hk, d)))
+    dout = torch.randn((b, s, h, d), generator=gen, device=dev).bfloat16()
+    ref = flash.flash_attention(q, k, v, causal=True)
+    want = (ref.detach(), *torch.autograd.grad(ref, (q, k, v), dout))
+    del ref
+    impl = get_attn_impl("pallas")
+    ring_kernels = ("flash_fwd_pos", "flash_bwd_dq", "flash_bwd_dkv")
+    results, counts = {}, None
+    for tag, fields in RING_LAYOUTS:
+        cfg = ring.RingConfig(ring_size=W, causal=True,
+                              **(fields or dict(layout=tag)))
+        shards = [permute_for_layout(t.detach(), cfg.layout, W).chunk(W, 1)
+                  for t in (q, k, v, dout)]
+
+        def kv_at(rank, step):  # the K/V rank holds at step (ring order)
+            if cfg.bidirectional:
+                a, c = (rank - step) % W, (rank + step) % W
+                return [torch.cat([x[a][:, :L // 2], x[c][:, L // 2:]], 1)
+                        for x in shards[1:3]]
+            return [x[(rank - step) % W] for x in shards[1:3]]
+
+        build.reset_launch_counts()
+        t0 = time.perf_counter()
+        outs, lses = [], []
+        for r in range(W):
+            acc = None
+            for t in range(W):
+                kw = ring.ring_step_kwargs(cfg, r, t, L, L)
+                o, l = impl.fwd(shards[0][r], *kv_at(r, t), **kw)
+                acc = ((o.float(), l) if acc is None else
+                       merge_attn_blocks(acc[0], acc[1], o, l))
+            outs.append(acc[0].to(q.dtype))
+            lses.append(acc[1])
+        dq = [torch.zeros_like(x, dtype=torch.float32) for x in shards[0]]
+        dk = [torch.zeros_like(x, dtype=torch.float32) for x in shards[1]]
+        dv = [torch.zeros_like(x, dtype=torch.float32) for x in shards[2]]
+        for r in range(W):
+            for t in range(W):
+                kw = ring.ring_step_kwargs(cfg, r, t, L, L)
+                gq, gk, gv = impl.bwd(shards[0][r], *kv_at(r, t), outs[r],
+                                      lses[r], shards[3][r], **kw)
+                dq[r] += gq
+                if cfg.bidirectional:  # each half home to its owner
+                    a, c = (r - t) % W, (r + t) % W
+                    dk[a][:, :L // 2] += gk[:, :L // 2]
+                    dv[a][:, :L // 2] += gv[:, :L // 2]
+                    dk[c][:, L // 2:] += gk[:, L // 2:]
+                    dv[c][:, L // 2:] += gv[:, L // 2:]
+                else:
+                    dk[(r - t) % W] += gk
+                    dv[(r - t) % W] += gv
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+        counts = expect_counts(build, {
+            n: W * W if n in ring_kernels else 0 for n in build.KERNELS})
+        got = [unpermute_from_layout(torch.cat(x, 1), cfg.layout, W)
+               for x in (outs, dq, dk, dv)]
+        errs = {}
+        for name, a, w in zip(("out", "dq", "dk", "dv"), got, want):
+            e = max_err(a, w)
+            check(f"ring_emulated {tag} {name}", e, BF16_ATOL)
+            errs[name] = e
+        errs["out_row_rel"] = check_out(f"ring_emulated {tag} out vs "
+                                        f"flash_attention", got[0],
+                                        want[0])[1]
+        results[tag] = {"max_abs_err": errs, "launches": counts,
+                        "wall_ms": wall_ms}
+        del shards, outs, lses, dq, dk, dv, got
+        torch.cuda.empty_cache()
+
+    # ring x sage direct-int8, zigzag: the rotated int8 K/V into B8b
+    cfg = ring.RingConfig(ring_size=W, causal=True, layout="zigzag",
+                          impl="sage", kv_quant="int8")
+    qs, ks, vs = (permute_for_layout(t.detach(), "zigzag", W).chunk(W, 1)
+                  for t in (q, k, v))
+    parts = [ring._kv_parts(cfg, ks[r], vs[r]) for r in range(W)]
+    build.reset_launch_counts()
+    outs = []
+    for r in range(W):
+        acc = None
+        for t in range(W):
+            kw = ring.ring_step_kwargs(cfg, r, t, L, L)
+            o, l = ring._block(cfg, None, qs[r], parts[(r - t) % W], kw)
+            acc = ((o.float(), l) if acc is None else
+                   merge_attn_blocks(acc[0], acc[1], o, l))
+        outs.append(acc[0].to(q.dtype))
+    torch.cuda.synchronize()
+    sage_counts = expect_counts(build, {
+        n: W * W if n == "sage_fwd_pos" else int(n == "sage_quant_q") * W * W
+        for n in build.KERNELS})
+    got = unpermute_from_layout(torch.cat(outs, 1), "zigzag", W)
+    one = sage_attention(q.detach(), k.detach(), v.detach(), causal=True)
+    sage_err = max_err(got, one)
+    check("ring_emulated zigzag sage int8 vs sage_attention", sage_err,
+          RING_SAGE_TOL)
+    emit({"phase": "ring_emulated", "card": card, "ring": W, "seq": s,
+          "local": L, "heads": h, "kv_heads": hk, "layouts": results,
+          "sage_int8": {"max_abs_err_vs_sage_attention": sage_err,
+                        "tol": RING_SAGE_TOL, "launches": sage_counts}})
+    del q, k, v, dout, want
+    torch.cuda.empty_cache()
+    return counts, sage_counts
+
+
+def usp_dense_phase(build, flash, dev, card):
+    """LongContextAttention(layout="zigzag") with no mask on a one-rank
+    NCCL mesh (make_usp_mesh()) at b=1, s=32768, 16/8 heads: the zigzag
+    order of one rank is the natural one, and its descriptor is the two
+    chunks (0, s/2), so the public entry runs the multi-chunk B3, B2a and
+    B2b, exactly once each per forward and backward and nothing else.
+    Against direct flash_attention(causal=True) (B1 + B5): out within
+    ROW_REL_TOL of each row, grads within BF16_ATOL; the layer's fwd+bwd
+    time beside its three kernels' own. Returns the layer's launch counts."""
+    import torch.distributed as dist
+
+    from long_context_attention_tpu_torch.parallel import (
+        LongContextAttention, make_usp_mesh)
+
+    b, s, h, hk, d = 1, SPARSE_SEQ, MODEL["n_heads"], MODEL["n_kv_heads"], 128
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    q, k, v = (torch.randn(shape, generator=gen, device=dev).bfloat16()
+               .requires_grad_()
+               for shape in ((b, s, h, d), (b, s, hk, d), (b, s, hk, d)))
+    dout = torch.randn((b, s, h, d), generator=gen, device=dev).bfloat16()
+    mesh = make_usp_mesh()
+    try:
+        layer = LongContextAttention(mesh, layout="zigzag")
+        build.reset_launch_counts()
+        out = layer(q, k, v, causal=True)
+        grads = torch.autograd.grad(out, (q, k, v), dout)
+        torch.cuda.synchronize()
+        counts = expect_counts(build, {
+            n: int(n in ("flash_fwd_pos", "flash_bwd_dq", "flash_bwd_dkv"))
+            for n in build.KERNELS})
+        ref = flash.flash_attention(q, k, v, causal=True)
+        want = (ref.detach(), *torch.autograd.grad(ref, (q, k, v), dout))
+        errs = {"out_row_rel": check_out("usp_dense out vs flash_attention",
+                                         out.detach(), want[0])[1]}
+        for name, a, w in zip(("dq", "dk", "dv"), grads, want[1:]):
+            errs[name] = max_err(a, w)
+            check(f"usp_dense {name} vs flash_attention", errs[name],
+                  BF16_ATOL)
+        del out, grads, ref, want
+        torch.cuda.empty_cache()
+        layer_ms = time_ms(lambda: torch.autograd.grad(
+            layer(q, k, v, causal=True), (q, k, v), dout), iters=5,
+            warmup=1)
+        dense_ms = time_ms(lambda: torch.autograd.grad(
+            flash.flash_attention(q, k, v, causal=True), (q, k, v), dout),
+            iters=5, warmup=1)
+        # the three kernels alone, at the layer's descriptor
+        pos = flash.Positions((0, s // 2), (0, s // 2))
+        scale = d ** -0.5
+        kt, vt = k.detach().transpose(1, 2), v.detach().transpose(1, 2)
+        qd = q.detach()
+        o, l = flash.flash_fwd_pos(qd, kt, vt, pos=pos, causal=True,
+                                   scale=scale)
+        delta = (dout.float() * o.float()).sum(-1).transpose(1, 2)
+        args = (qd, k.detach(), v.detach(), dout, l, delta.contiguous())
+        kern_ms = {
+            "B3": time_ms(lambda: flash.flash_fwd_pos(
+                qd, kt, vt, pos=pos, causal=True, scale=scale), iters=5),
+            "B2a": time_ms(lambda: flash.flash_bwd_dq(
+                *args, pos=pos, causal=True, scale=scale), iters=5),
+            "B2b": time_ms(lambda: flash.flash_bwd_dkv(
+                *args, pos=pos, causal=True, scale=scale), iters=5)}
+        # B3 at the trainer's shape (train_usp's per-layer call, s=8192)
+        # beside B1 on the same inputs
+        n = TRAIN_SEQ
+        q8k, k8k, v8k = (t[:, :n].contiguous() for t in (qd, kt.transpose(
+            1, 2), vt.transpose(1, 2)))
+        pos8k = flash.Positions((0, n // 2), (0, n // 2))
+        at_train = {
+            "seq": n,
+            "B3_ms": time_ms(lambda: flash.flash_fwd_pos(
+                q8k, k8k.transpose(1, 2), v8k.transpose(1, 2), pos=pos8k,
+                causal=True, scale=scale)),
+            "B1_ms": time_ms(lambda: flash.flash_fwd_causal_self(
+                q8k, k8k, v8k, scale=scale))}
+    finally:
+        dist.destroy_process_group()
+    emit({"phase": "usp_dense", "card": card, "layer":
+          "LongContextAttention(layout='zigzag'), ring 1 x ulysses 1 (NCCL)",
+          "batch": b, "seq": s, "heads": h, "kv_heads": hk, "head_dim": d,
+          "launches": counts, "errors": errs, "layer_fwd_bwd_ms": layer_ms,
+          "kernels_ms": kern_ms, "kernels_sum_ms": sum(kern_ms.values()),
+          "zigzag_w1_at_train_seq": at_train,
+          "flash_attention_fwd_bwd_ms": dense_ms})
+    del q, k, v, dout
+    torch.cuda.empty_cache()
+    return counts
+
+
+# train_usp: remat policies and steps over the one-rank mesh
+USP_TRAIN_STEPS = (("none", 3), ("attn", 2))
+# the mesh step's loss against the single-device step's on one batch
+USP_LOSS_TOL = 1e-2
+# a leaf after one step against the single-device step's, of its largest
+# value: two bf16 ulps (AdamW's first update is about lr in size, below one
+# ulp of most weights, so the leaves differ where a gradient's sign does)
+USP_LEAF_TOL = 2.0 ** -7
+
+
+def train_usp_phase(pkg, build, dev, card):
+    """make_train_step(mesh=make_usp_mesh()) on the full-width 0.88B config
+    (layout zigzag: the ring of one's two-chunk descriptor) at b=1,
+    s=8192, AdamW as in train: every layer's attention through
+    usp_attention_local (B3 forward, B2a + B2b backward; B1 and B5 never).
+    From the same initial params and batch, one single-device step (B1 +
+    B5) and one mesh step: their losses within USP_LOSS_TOL, each leaf
+    within USP_LEAF_TOL of its largest value. Then timed steps under remat
+    none and attn with exact launch counts and a falling loss, beside the
+    single-device steps' time."""
+    import torch.distributed as dist
+
+    from long_context_attention_tpu_torch.models.llama import (
+        init_params, make_train_step, param_leaves)
+    from long_context_attention_tpu_torch.parallel import make_usp_mesh
+
+    L = MODEL["n_layers"]
+    usp_model = dict(MODEL, layout="zigzag")
+    tokens, labels, mask = train_batch(MODEL["vocab"], TRAIN_SEQ, dev)
+    opt = functools.partial(torch.optim.AdamW, lr=LR,
+                            weight_decay=WEIGHT_DECAY)
+
+    def fresh(cfg):
+        return init_params(torch.Generator(device=dev).manual_seed(SEED),
+                           cfg, device=dev)
+
+    mesh = make_usp_mesh()
+    report = {}
+    try:
+        cfg = pkg.ModelConfig(**usp_model)
+        single = make_train_step(cfg, opt, device=dev)
+        sharded = make_train_step(cfg, opt, mesh=mesh)
+        p1, s1, loss1 = single(fresh(cfg), None, tokens, labels, mask)
+        p2, s2, loss2 = sharded(fresh(cfg), None, tokens, labels, mask)
+        dloss = abs(float(loss1) - float(loss2))
+        check("train_usp loss vs single device", dloss, USP_LOSS_TOL)
+        worst = 0.0
+        for a, w in zip(param_leaves(p2), param_leaves(p1)):
+            a, w = a.detach().float(), w.detach().float()
+            rel = float((a - w).abs().max() / w.abs().max().clamp_min(1e-30))
+            worst = max(worst, rel)
+        check("train_usp leaves vs single device", worst, USP_LEAF_TOL)
+        report["one_step"] = {"loss_single": float(loss1),
+                              "loss_mesh": float(loss2), "loss_diff": dloss,
+                              "worst_leaf_rel": worst}
+        # the single-device steps' time on this batch (B1 + B5)
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            p1, s1, loss1 = single(p1, s1, tokens, labels, mask)
+            float(loss1)
+            times.append(time.perf_counter() - t0)
+        report["single_ms_per_step"] = 1e3 * sum(times) / len(times)
+        del p1, s1, p2, s2, single, sharded
+        torch.cuda.empty_cache()
+        for remat, steps in USP_TRAIN_STEPS:
+            cfg = pkg.ModelConfig(**usp_model, remat=remat)
+            params = fresh(cfg)
+            step = make_train_step(cfg, opt, mesh=mesh)
+            params, state, loss = step(params, None, tokens, labels, mask)
+            losses = [float(loss)]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            build.reset_launch_counts()
+            times = []
+            for _ in range(steps):
+                t0 = time.perf_counter()
+                params, state, loss = step(params, state, tokens, labels,
+                                           mask)
+                losses.append(float(loss))
+                times.append(time.perf_counter() - t0)
+            counts = expect_counts(build, {
+                n: steps * L if n in ("flash_fwd_pos", "flash_bwd_dq",
+                                      "flash_bwd_dkv") else 0
+                for n in build.KERNELS})
+            if not all(math.isfinite(x) for x in losses):
+                raise AssertionError(f"train_usp {remat}: loss {losses}")
+            if not losses[-1] < losses[0]:
+                raise AssertionError(f"train_usp {remat}: the loss did not "
+                                     f"fall: {losses}")
+            ms = 1e3 * sum(times) / steps
+            n_params = sum(t.numel() for t in param_leaves(params))
+            flops = 6 * TRAIN_SEQ * n_params
+            report[remat] = {
+                "steps": steps, "ms_per_step": ms,
+                "ms_all": [1e3 * t for t in times],
+                "tok_per_s": TRAIN_SEQ / (ms / 1e3),
+                "mfu": flops / (ms / 1e3) / PEAK_BF16_FLOPS,
+                "max_memory_allocated_gb":
+                    torch.cuda.max_memory_allocated() / 2 ** 30,
+                "losses": losses, "launches_per_step":
+                    {n: c // steps for n, c in counts.items() if c}}
+            del params, state, step, loss
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    report["single_tok_per_s"] = TRAIN_SEQ / (report["single_ms_per_step"]
+                                              / 1e3)
+    emit({"phase": "train_usp", "card": card, "mesh": "dp 1 x ring 1 x "
+          "ulysses 1 (NCCL)", "layout": "zigzag", "batch": 1,
+          "seq": TRAIN_SEQ, **report})
+    return counts
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
@@ -2275,6 +2804,7 @@ def main():
     import long_context_attention_tpu_torch as pkg
     from long_context_attention_tpu_torch.ops import _build as build
     from long_context_attention_tpu_torch.ops import decode, flash, sage, sparse
+    from long_context_attention_tpu_torch.parallel import ring
 
     dev = torch.device("cuda")
     smi = smi_line()
@@ -2340,6 +2870,10 @@ def main():
         for r in res if isinstance(res, list) else [res]:
             emit({"phase": "kernel", **r})
             rows.append(r)
+    # the four kernels at the dense ring's multi-chunk descriptors
+    ring_rows = kernel_ring(K, flash, sage, ring, gen, dev)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
     lap("kernels")
 
     # each kernel's launches on its own path: serving (B1, B3, B6, B7),
@@ -2382,6 +2916,14 @@ def main():
     torch.cuda.empty_cache()
     usp_counts = usp_sparse_phase(build, sparse, flash, dev, smi)
     lap("usp_sparse")
+    ring_counts, ring_sage_counts = ring_emulated_phase(build, flash, ring,
+                                                        dev, smi)
+    lap("ring_emulated")
+    usp_dense_phase(build, flash, dev, smi)
+    lap("usp_dense")
+    train_usp_phase(pkg, build, dev, smi)
+    torch.cuda.empty_cache()
+    lap("train_usp")
     emit({"phase": "timing", "seconds": seconds})
     path = {"flash_fwd_static": wcounts, "flash_bwd_fused": train_counts,
             "flash_bwd_dq": offsets_counts, "flash_bwd_dkv": offsets_counts,
@@ -2408,6 +2950,15 @@ def main():
                 case["launches"] = wtrain_counts[r["name"]]
             elif case["case"] == "offsets window sinks":
                 case["launches"] = woffsets_counts[r["name"]]
+        # the ring's descriptor cases: launches in one layout's emulated
+        # ring (ring x sage direct-int8 for B8b)
+        tag = {"flash_fwd_pos": "B3", "flash_bwd_dq": "B2a",
+               "flash_bwd_dkv": "B2b", "sage_fwd_pos": "B8b"}.get(r["name"])
+        if tag:
+            launches = (ring_sage_counts if tag == "B8b"
+                        else ring_counts)[r["name"]]
+            r["ring_cases"] = [dict(c, launches=launches)
+                               for c in ring_rows[tag]]
     emit({"kernels": rows})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

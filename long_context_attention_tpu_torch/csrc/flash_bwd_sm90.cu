@@ -192,10 +192,11 @@ struct Params {
   float* dv;
   int b, h, h_kv, s_q, s_kv;
   long long dk_sb, dk_ss, dk_sh;  // dk and dv element strides
-  int q_start;  // position of q row 0 (kv column j sits at j)
-  int causal;
-  int left, right;  // kBand, kCap: window; -1 = unbounded (right 0: causal)
-  int sink;         // columns < sink stay visible (left >= 0)
+  Desc dsc;    // the positions and masks in chunk-local units (sm90.cuh)
+  int causal;  // kDense: the causal mask (hi), else none
+  // a multi-chunk descriptor's kv tiles in the order of their walks,
+  // longest first (the host's: ops/flash.py), else null
+  const int* order;
   float cap;        // kCap: the softcap
   float sc;         // kCap: scale / cap
   float scale;
@@ -260,32 +261,53 @@ struct Item {
   int sub, e0, e_end;  // B9c: k0 in its kv tile; its column's CSR range
 };
 
-// The steps of a dense item: the group's query heads, each with the q
-// tiles from the first that sees the kv tile (all under no mask) to the
-// last; with the band masks, to the last that its left window reaches (all
-// for a kv tile that holds a sink column).
-template <bool BAND>
+// The steps of a dense item: the group's query heads, each with, q chunk
+// by q chunk, the q tiles from the first that sees the kv tile (all under
+// no mask) to the last; with the band masks, to the last that its left
+// window reaches (all for a kv tile that holds a sink column). kc and k0l:
+// the kv tile's chunk and its first row in it. MULTI: a descriptor of two
+// chunks on a side (B2b on the ring's steps).
+template <bool BAND, bool MULTI = false>
 struct QWalk {
-  int iq_lo, nqi, n;
+  int kc, k0l, nqi, n;
+  int lo[2], nq[2];
   __device__ QWalk(const Params& p, int ik) {
-    iq_lo = 0;
-    if (BAND ? p.right >= 0 : p.causal != 0) {
-      // the first row that sees it
-      const int first_row = ik * BKV - (BAND ? p.right : 0) - p.q_start;
-      iq_lo = first_row <= 0 ? 0 : min(p.nq, first_row / BQ);
+    kc = MULTI ? ik * BKV / p.dsc.ckv : 0;
+    k0l = ik * BKV - kc * p.dsc.ckv;
+    const int tiles = (p.dsc.cq + BQ - 1) / BQ;  // per q chunk
+    nqi = 0;
+#pragma unroll
+    for (int qc = 0; qc < 2; ++qc) {
+      lo[qc] = nq[qc] = 0;
+      if (qc >= (MULTI ? p.dsc.nqc : 1)) continue;
+      const int pr = qc * 2 + kc;
+      int iq_lo = 0;
+      if (BAND || p.causal != 0) {
+        // the first row that sees it
+        const int first_row = k0l - p.dsc.hi[pr];
+        iq_lo = first_row <= 0 ? 0 : min(tiles, first_row / BQ);
+      }
+      int iq_hi = tiles - 1;
+      if (BAND && k0l >= p.dsc.sk[pr]) {
+        const int last_row = k0l + BKV - 1 - p.dsc.lo[pr];
+        iq_hi = last_row < 0 ? -1 : min(iq_hi, last_row / BQ);
+      }
+      lo[qc] = iq_lo;
+      nq[qc] = max(iq_hi - iq_lo + 1, 0);
+      nqi += nq[qc];
     }
-    int iq_hi = p.nq - 1;
-    if (BAND && p.left >= 0 && ik * BKV >= p.sink) {
-      const int last_row = ik * BKV + BKV - 1 + p.left - p.q_start;
-      iq_hi = last_row < 0 ? -1 : min(iq_hi, last_row / BQ);
-    }
-    nqi = max(iq_hi - iq_lo + 1, 0);
     n = (p.h / p.h_kv) * nqi;
   }
   __device__ int head(const Item& x, const Params& p, int js) const {
     return x.ihk * (p.h / p.h_kv) + js / nqi;
   }
-  __device__ int q0(int js) const { return (iq_lo + js % nqi) * BQ; }
+  // the q chunk of step js, and its first q row (global)
+  __device__ int qchunk(int js) const { return MULTI && js % nqi >= nq[0]; }
+  __device__ int q0(const Params& p, int js) const {
+    const int r = js % nqi;
+    const int qc = MULTI && r >= nq[0];
+    return qc * p.dsc.cq + (lo[qc] + r - (qc ? nq[0] : 0)) * BQ;
+  }
 };
 
 // The kv tile of rank r in the band's longest-first order. Sink tiles walk
@@ -295,13 +317,14 @@ struct QWalk {
 // tile until the last is clamped at the end), so the order merges A
 // ascending and B descending; the r-th of the merge by a binary search over
 // how many of the first r come from A (ties to A).
+// One chunk a side (a multi-chunk descriptor takes the host's order).
 __device__ __forceinline__ int band_tile(const Params& p, int r) {
-  const int ns = p.left >= 0 ? min((p.sink + BKV - 1) / BKV, p.nk) : 0;
+  const int ns = min((p.dsc.sk[0] + BKV - 1) / BKV, p.nk);
   if (r < ns) return r;
   r -= ns;
   int P = p.nk;
-  if (p.right >= 0) {
-    const int x = p.right + p.q_start;  // lo >= 0 from tile ceil(x / BKV)
+  if (p.dsc.hi[0] < kOpenRel) {
+    const int x = p.dsc.hi[0];  // lo >= 0 from tile ceil(x / BKV)
     P = x <= 0 ? ns : min(max((x + BKV - 1) / BKV, ns), p.nk);
   }
   const int na = p.nk - P, nb = P - ns;
@@ -326,7 +349,7 @@ __device__ __forceinline__ int band_tile(const Params& p, int r) {
 // balanced the blocks' work worse and ran 1.7x slower
 // (scripts/torch_bwd_order.py). B9c: the host's items in its order, each
 // repeated over the batch rows (and the kv heads of a shared mask) inside.
-template <bool SPARSE, bool BAND>
+template <bool SPARSE, bool BAND, bool MULTI>
 __device__ __forceinline__ Item item_of(const Params& p, int t) {
   Item x;
   if constexpr (SPARSE) {
@@ -345,11 +368,14 @@ __device__ __forceinline__ Item item_of(const Params& p, int t) {
   } else {
     const int r = t % (p.b * p.h_kv);
     x.ik = t / (p.b * p.h_kv);
-    if constexpr (BAND) x.ik = band_tile(p, x.ik);
+    if constexpr (MULTI)
+      x.ik = p.order[x.ik];
+    else if constexpr (BAND)
+      x.ik = band_tile(p, x.ik);
     x.ihk = r % p.h_kv;
     x.ib = r / p.h_kv;
     x.k0 = x.ik * BKV;
-    x.n = QWalk<BAND>(p, x.ik).n;
+    x.n = QWalk<BAND, MULTI>(p, x.ik).n;
     x.rows = BKV;
     x.sub = x.e0 = x.e_end = 0;
   }
@@ -368,13 +394,14 @@ __device__ __forceinline__ Item item_of(const Params& p, int t) {
 // holes, and the other blocks take those turns' items (at s = 8192, window
 // 4096: 256 against 132 steps, k = 2; the most steps on a block 508 -> 392,
 // the mean 391).
-template <bool SPARSE, bool BAND>
+template <bool SPARSE, bool BAND, bool MULTI>
 struct Deal : BlockItems<SPARSE> {
   int m = 0, k = 1, n_virtual = 0;
   __device__ explicit Deal(const Params& p) : BlockItems<SPARSE>(p) {
     if constexpr (BAND) {
       const int g = gridDim.x;
-      const int ns = p.left >= 0 ? min((p.sink + BKV - 1) / BKV, p.nk) : 0;
+      // the host's order (a multi-chunk descriptor) deals no holes
+      const int ns = MULTI ? 0 : min((p.dsc.sk[0] + BKV - 1) / BKV, p.nk);
       m = ns * p.b * p.h_kv;
       if (ns > 0 && ns < p.nk && m <= g) {
         const int ls = QWalk<true>(p, 0).nqi;
@@ -438,8 +465,8 @@ __device__ __forceinline__ ColStep col_next(const Params& p, const Item& x,
 // ---------------------------------------------------------------------------
 
 // FUSED: B5 (dq too); SPARSE: B9c's walk; neither: B2b. MASK: kDense,
-// kBand or kCap (B2b, B5).
-template <bool FUSED, bool SPARSE, int MASK = kDense>
+// kBand or kCap (B2b, B5). MULTI: B2b at a multi-chunk descriptor.
+template <bool FUSED, bool SPARSE, int MASK = kDense, bool MULTI = false>
 __global__ void __launch_bounds__(NT, 1)
     flash_bwd_sm90_kernel(const __grid_constant__ Maps maps, const Params p) {
   static_assert(!(FUSED && SPARSE), "B9c computes no dq");
@@ -467,8 +494,10 @@ __global__ void __launch_bounds__(NT, 1)
     return reinterpret_cast<float*>(smem + L::OFF_LD +
                                     (i % STAGES) * LD_BYTES);
   };
-  // B9c: the step's first q position less the item's first kv position, and
-  // its entry's MASKED flag
+  // the step's first q position less the item's first kv position, and B9c:
+  // its entry's MASKED flag; dense: chunk-local rows (kDense adds the pair's
+  // hi), and the item's first row in its kv chunk times 4 plus the chunk
+  // pair
   auto meta = [&](int i) -> int2* {
     return reinterpret_cast<int2*>(smem + L::OFF_META +
                                    (i % STAGES) * META_BYTES);
@@ -497,11 +526,11 @@ __global__ void __launch_bounds__(NT, 1)
     setmaxnreg_dec<Regs<FUSED, SPARSE>::PRODUCER>();
     if (warp == 0) {  // loads
       int it = 0, kvn = 0;
-      const Deal<SPARSE, BAND> items(p);
+      const Deal<SPARSE, BAND, MULTI> items(p);
       for (int j = items.j0; j < items.end; ++j) {
         const int t = items.at(p, j);
         if (t < 0) continue;
-        const Item x = item_of<SPARSE, BAND>(p, t);
+        const Item x = item_of<SPARSE, BAND, MULTI>(p, t);
         if (x.n == 0) continue;
         if (lane == 0) {
           mbar_wait(bar(B_KVEMPTY), (kvn & 1) ^ 1);
@@ -514,7 +543,7 @@ __global__ void __launch_bounds__(NT, 1)
           }
         }
         ++kvn;
-        const QWalk<BAND> w(p, x.ik);
+        const QWalk<BAND, MULTI> w(p, x.ik);
         ColStep c{};
         if constexpr (SPARSE) c = col_from(p, x, x.e0);
         for (int js = 0; js < x.n; ++js, ++it) {
@@ -525,7 +554,7 @@ __global__ void __launch_bounds__(NT, 1)
             q0 = c.en.y * p.bq + c.j * BQ;
           } else {
             ih = w.head(x, p, js);
-            q0 = w.q0(js);
+            q0 = w.q0(p, js);
           }
           mbar_wait(bar(B_EMPTY + s), use(it) ^ 1);
           if (lane == 0) {
@@ -537,9 +566,17 @@ __global__ void __launch_bounds__(NT, 1)
               tma_load_4d(st + QT_BYTES + hb * QBOX, &maps.dout,
                           bar(B_FULL + s), 64 * hb, q0, ih, x.ib);
             }
-            if constexpr (SPARSE)
+            if constexpr (SPARSE) {
               *meta(it) = make_int2(c.en.z + c.j * BQ - (c.en.w + x.sub),
                                     c.en.x & kMasked);
+            } else if constexpr (MULTI) {
+              // the step's place, so the consumers keep no walk
+              const int qc = w.qchunk(js);
+              const int pr = qc * 2 + w.kc;
+              *meta(it) = make_int2(
+                  q0 - qc * p.dsc.cq - w.k0l + (BAND ? 0 : p.dsc.hi[pr]),
+                  w.k0l * 4 + pr);
+            }
           }
           float* ld = lse_delta(it);
           for (int r = lane; r < BQ; r += 32) {
@@ -560,17 +597,17 @@ __global__ void __launch_bounds__(NT, 1)
       }
     } else if (FUSED && warp == 1 && lane == 0) {  // dq reduce-adds
       int dn = 0;
-      const Deal<false, BAND> items(p);
+      const Deal<false, BAND, MULTI> items(p);
       for (int j = items.j0; j < items.end; ++j) {
         const int t = items.at(p, j);
         if (t < 0) continue;
-        const Item x = item_of<false, BAND>(p, t);
-        const QWalk<BAND> w(p, x.ik);
+        const Item x = item_of<false, BAND, MULTI>(p, t);
+        const QWalk<BAND, MULTI> w(p, x.ik);
         for (int js = 0; js < w.n; ++js, ++dn) {
           mbar_wait(bar(B_DQFULL), dn & 1);
           for (int bx = 0; bx < 4; ++bx)
             tma_reduce_add_4d(&maps.dq, sbase + L::OFF_DQ + bx * DQBOX,
-                              32 * bx, w.q0(js), w.head(x, p, js), x.ib);
+                              32 * bx, w.q0(p, js), w.head(x, p, js), x.ib);
           bulk_commit();
           bulk_wait_read();
           mbar_arrive(bar(B_DQEMPTY));
@@ -593,12 +630,13 @@ __global__ void __launch_bounds__(NT, 1)
   const int r0 = cw * 64 + warp * 16 + g;
 
   int it = 0, kvn = 0, dn = 0;
-  const Deal<SPARSE, BAND> items(p);
+  const Deal<SPARSE, BAND, MULTI> items(p);
   for (int j = items.j0; j < items.end; ++j) {
     const int t = items.at(p, j);
     if (t < 0) continue;
-    const Item x = item_of<SPARSE, BAND>(p, t);
-    const QWalk<BAND> w(p, x.ik);
+    const Item x = item_of<SPARSE, BAND, MULTI>(p, t);
+    // one chunk a side: the consumers place each step from the walk
+    const QWalk<BAND, MULTI> w(p, x.ik);
     const int k0 = x.k0 + cw * 64;  // first kv row of this warpgroup
     const int kv_row0 = x.k0 + r0;
     // B9c: rows of the next mask column (the second half of a 64-row item)
@@ -617,15 +655,15 @@ __global__ void __launch_bounds__(NT, 1)
     // step (the sink tile's walk masks most of its steps). kCap: s = cap *
     // tanh(s * scale / cap), P^T * (1 - t^2) in place and bf16(P^T) into pa
     auto probs = [&](float (&sacc)[32], uint32_t (&pa)[16], const float* ld,
-                     int rel, bool causal, auto masked) {
+                     int rel, bool causal, int pr, int k0l, auto masked) {
       int lo[2] = {0, 0}, hi[2] = {0, 0};  // less this lane's column cb
       if (BAND && decltype(masked)::value) {
 #pragma unroll
         for (int hh = 0; hh < 2; ++hh) {
           const int r = r0 + hh * 8;
-          lo[hh] = (p.right >= 0 ? r - rel - p.right : -kOpen) - cb;
-          hi[hh] = (p.left >= 0 && x.k0 + r >= p.sink ? r - rel + p.left
-                                                       : kOpen) - cb;
+          lo[hh] = r - rel - p.dsc.hi[pr] - cb;
+          hi[hh] = (k0l + r >= p.dsc.sk[pr] ? r - rel - p.dsc.lo[pr]
+                                            : kOpen) - cb;
           if (x.k0 + r >= p.s_kv) hi[hh] = -kOpen;
         }
       }
@@ -675,15 +713,22 @@ __global__ void __launch_bounds__(NT, 1)
           continue;
         }
         // the step's first q position less the item's first kv position
-        int rel;
+        // (dense: chunk-local rows, and kDense adds the pair's hi, so that
+        // the causal mask drops r > rel + c), and the chunk pair
+        int rel, pr = 0, k0l = 0;
         bool causal;
-        if constexpr (SPARSE) {
+        if constexpr (SPARSE || MULTI) {
           const int2 m = *meta(it);
           rel = m.x;
-          causal = m.y != 0;
+          if constexpr (MULTI) {
+            pr = m.y & 3;
+            k0l = m.y >> 2;
+          }
+          causal = SPARSE ? m.y != 0 : p.causal != 0;
         } else {
-          rel = p.q_start + w.q0(js) - x.k0;
-          causal = p.causal;
+          k0l = w.k0l;
+          rel = w.q0(p, js) - k0l + (BAND ? 0 : p.dsc.hi[0]);
+          causal = p.causal != 0;
         }
 
         // S^T = K Q^T, then dP^T = V dout^T: 8 k16 steps, 4 in each d box
@@ -713,17 +758,17 @@ __global__ void __launch_bounds__(NT, 1)
         bool masked;
         if constexpr (BAND)  // a wholly-sink warpgroup is interior on the left
           masked = k0 + 63 >= p.s_kv ||
-                   (p.right >= 0 && cw * 64 + 63 > rel + p.right) ||
-                   (p.left >= 0 && cw * 64 < rel + 63 - p.left &&
-                    k0 + 63 >= p.sink);
+                   cw * 64 + 63 - rel > p.dsc.hi[pr] ||
+                   (cw * 64 - rel - 63 < p.dsc.lo[pr] &&
+                    k0l + cw * 64 + 63 >= p.dsc.sk[pr]);
         else
           masked = (causal && cw * 64 + 63 > rel) || k0 + 63 >= p.s_kv;
         wgmma_wait<1>();
         reg_fence(sacc);
         if (masked)
-          probs(sacc, pa, ld, rel, causal, Flag<true>());
+          probs(sacc, pa, ld, rel, causal, pr, k0l, Flag<true>());
         else
-          probs(sacc, pa, ld, rel, causal, Flag<false>());
+          probs(sacc, pa, ld, rel, causal, pr, k0l, Flag<false>());
         wgmma_wait<0>();
         reg_fence(dpacc);
 
@@ -879,12 +924,14 @@ Params base_params(const float* lse, const float* delta, float* dk, float* dv,
   p.scale = scale;
   p.sl2 = scale * kLog2e;
   p.nq = (p.s_q + BQ - 1) / BQ;
+  p.dsc.cq = p.s_q;  // B9c: no chunks (its walk reads no descriptor)
+  p.dsc.ckv = p.s_kv > 0 ? p.s_kv : 1;
   return p;
 }
 
 // n_blocks: B9c's persistent blocks (its schedule's); dense kernels take
 // one per SM, at most one per item.
-template <bool FUSED, bool SPARSE, int MASK = kDense>
+template <bool FUSED, bool SPARSE, int MASK = kDense, bool MULTI = false>
 int launch(const void* q, const void* k, const void* v, const void* dout,
            float* dq, const long long* dims, const Params& p, int n_blocks,
            cudaStream_t stream) {
@@ -916,7 +963,7 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
     if (!ok) return (int)cudaErrorInvalidValue;
   }
 
-  auto kern = flash_bwd_sm90_kernel<FUSED, SPARSE, MASK>;
+  auto kern = flash_bwd_sm90_kernel<FUSED, SPARSE, MASK, MULTI>;
   const int smem = Smem<FUSED>::BYTES;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -929,37 +976,57 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
 
 // B2b and B5: dims as base_params's, then q_start, causal, left, right,
 // sink (the forward's masks: right 0 when causal, sink 0 without a left
-// window). The instantiation follows the masks: kDense for causal or none,
-// kBand for a window (or sinks), kCap with a softcap.
+// window), then the descriptor (sm90.cuh Desc) from index 28, which holds
+// the masks in local units. The instantiation follows the masks: kDense for
+// causal or none, kBand for a window (or sinks), kCap with a softcap.
+// `order`: a multi-chunk descriptor's kv tiles, longest walk first.
 template <bool FUSED>
 int launch_dense(const void* q, const void* k, const void* v,
                  const void* dout, const float* lse, const float* delta,
                  float* dq, float* dk, float* dv, const long long* dims,
-                 float scale, float cap, cudaStream_t stream) {
+                 float scale, float cap, const int* order,
+                 cudaStream_t stream) {
   Params p = base_params(lse, delta, dk, dv, dims, scale);
-  p.q_start = (int)dims[23];
   p.causal = (int)dims[24];
-  p.left = (int)dims[25];
-  p.right = p.causal ? 0 : (int)dims[26];
-  p.sink = p.left >= 0 ? (int)dims[27] : 0;
+  const int left = (int)dims[25];
+  const int right = p.causal ? 0 : (int)dims[26];
+  p.dsc = desc_from(dims, 28);
+  p.order = order;
   p.cap = cap;
   p.sc = cap > 0.f ? scale / cap : 0.f;
   p.nk = (p.s_kv + BKV - 1) / BKV;
   p.n_items = p.nk * p.h_kv * p.b;
-  if (cap < 0.f) return (int)cudaErrorInvalidValue;
+  if (cap < 0.f || !desc_ok(p.dsc, p.s_q, p.s_kv, BKV) ||
+      (p.dsc.nqc * p.dsc.nkc > 1) != (order != nullptr) ||
+      (FUSED && order != nullptr))
+    return (int)cudaErrorInvalidValue;
+  const bool band = left >= 0 || (!p.causal && right >= 0);
+  if constexpr (!FUSED) {
+    if (order != nullptr) {  // the ring's multi-chunk steps
+      if (cap > 0.f)
+        return launch<false, false, kCap, true>(q, k, v, dout, dq, dims, p,
+                                                0, stream);
+      if (band)
+        return launch<false, false, kBand, true>(q, k, v, dout, dq, dims,
+                                                 p, 0, stream);
+      return launch<false, false, kDense, true>(q, k, v, dout, dq, dims, p,
+                                                0, stream);
+    }
+  }
   if (cap > 0.f)
     return launch<FUSED, false, kCap>(q, k, v, dout, dq, dims, p, 0, stream);
-  if (p.left >= 0 || (!p.causal && p.right >= 0))
+  if (band)
     return launch<FUSED, false, kBand>(q, k, v, dout, dq, dims, p, 0, stream);
   return launch<FUSED, false>(q, k, v, dout, dq, dims, p, 0, stream);
 }
 
 }  // namespace
 
-// Kernel B2b: dk, dv.
-extern "C" int lca_flash_bwd_dkv(LCA_BWD_ARGS) {
+// Kernel B2b: dk, dv; `order`: the kv tiles of a multi-chunk descriptor,
+// longest walk first (null for one chunk a side).
+extern "C" int lca_flash_bwd_dkv(LCA_BWD_ARGS, const int* order) {
   return launch_dense<false>(q, k, v, dout, lse, delta, dq, dk, dv, dims,
-                             scale, softcap,
+                             scale, softcap, order,
                              static_cast<cudaStream_t>(stream));
 }
 
@@ -967,7 +1034,7 @@ extern "C" int lca_flash_bwd_dkv(LCA_BWD_ARGS) {
 // dk, dv.
 extern "C" int lca_flash_bwd_fused(LCA_BWD_ARGS) {
   return launch_dense<true>(q, k, v, dout, lse, delta, dq, dk, dv, dims,
-                            scale, softcap,
+                            scale, softcap, nullptr,
                             static_cast<cudaStream_t>(stream));
 }
 

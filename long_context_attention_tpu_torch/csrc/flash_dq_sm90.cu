@@ -142,10 +142,9 @@ struct Params {
   float scale;
   float sl2;  // scale * log2e
   int n_items;
-  // B2a: the position of q row 0 (kv column j sits at j), the window (-1 =
-  // unbounded; right 0: causal), the sinks (columns < sink stay visible
-  // through the left window), the softcap and the number of q tiles
-  int q_start, left, right, sink;
+  // B2a: the positions and masks in chunk-local units (sm90.cuh Desc), the
+  // softcap and the number of q tiles
+  Desc dsc;
   float cap, sc;  // sc: scale / cap
   int nq;
   // the row tables' CSR form, the host's items (row, first q row in its q
@@ -198,20 +197,22 @@ __device__ __forceinline__ void wgmma_ss_first(float (&d)[64], uint64_t da,
 
 // A walk gives the kernel: kListed (the host's list of items per block, or
 // the snake over n_items), kBand (B2a's masks and the scale before the
-// cast), kCap (the softcap), an item, the producer's steps (each step's
-// first kv row, and the meta it hands the consumers beside K) and the
-// consumers' step descriptors: (the item's first q position less the
-// step's first kv position, the step's first kv position) for B2a, B9b's
-// meta (RowWalk::meta) for B9b.
+// cast), kCap (the softcap), an item, and the producer's steps: each step's
+// first kv row, and the meta it hands the consumers beside K (B9b's
+// RowWalk::meta; B2a's the item's first q row less the step's first kv
+// column, both chunk-local, and that column times 4 plus the chunk pair),
+// so the consumers keep no walk.
 
 // B9b: the host's row items, listed per block, and each row's CSR steps
 struct SparseRows {
   static constexpr bool kListed = true, kBand = false, kCap = false;
+  static constexpr bool kMulti = false;
+  struct NoWalk {};
+  __device__ static NoWalk consumer_walk(const Params&, const RowItem&) {
+    return {};
+  }
   __device__ static RowItem item(const Params& p, int t) {
     return row_item(p.items, p.ptr, t, p.b, p.h, p.n_q, p.bq, p.per_head);
-  }
-  __device__ static KvWalk<BKV> kv_walk(const Params&, const RowItem&) {
-    return KvWalk<BKV>(0, 0, 0, -1, -1, 0);  // unused
   }
   struct Steps {
     RowWalk w;
@@ -219,22 +220,30 @@ struct SparseRows {
     __device__ Steps(const Params& p, const RowItem& x)
         : w(p.ent, x, p.bkv), c(w.from(x.e0)) {}
     __device__ int kv0() const { return w.kv0(c); }
-    __device__ int2 meta() const { return w.meta(c); }
+    __device__ int2 meta(const Params&, const RowItem&) const {
+      return w.meta(c);
+    }
     __device__ void next() { c = w.next(c); }
   };
 };
 
 // B2a: the forward's items (q tiles from the last to the first, heads and
-// batch rows inside) and each q tile's kv walk
-template <bool CAP>
+// batch rows inside) and each q tile's kv walk; MULTI: a descriptor of two
+// chunks on a side (the ring's steps)
+template <bool CAP, bool MULTI>
 struct DenseRows {
   static constexpr bool kListed = false, kBand = true, kCap = CAP;
-  __device__ static KvWalk<BKV> walk(const Params& p, int q0) {
-    return KvWalk<BKV>(p.q_start + q0, p.q_start + min(q0 + BQ, p.s_q) - 1,
-                       p.s_kv, p.left, p.right, p.sink);
-  }
-  __device__ static KvWalk<BKV> kv_walk(const Params& p, const RowItem& x) {
+  static constexpr bool kMulti = MULTI;
+  // the walk the consumers keep: one chunk a side (else the steps' meta)
+  __device__ static KvWalk<BKV, MULTI> consumer_walk(const Params& p,
+                                                     const RowItem& x) {
     return walk(p, x.q0);
+  }
+  __device__ static KvWalk<BKV, MULTI> walk(const Params& p, int q0) {
+    const int qc = MULTI ? q0 / p.dsc.cq : 0;  // a tile never crosses one
+    const int c0 = qc * p.dsc.cq;
+    return KvWalk<BKV, MULTI>(p.dsc, qc, q0 - c0,
+                              min(q0 + BQ, p.s_q) - 1 - c0);
   }
   __device__ static RowItem item(const Params& p, int t) {
     const int bh = p.b * p.h;
@@ -249,12 +258,16 @@ struct DenseRows {
     return x;
   }
   struct Steps {
-    KvWalk<BKV> w;
+    KvWalk<BKV, MULTI> w;
     int js;
     __device__ Steps(const Params& p, const RowItem& x)
         : w(walk(p, x.q0)), js(0) {}
     __device__ int kv0() const { return w.tile(js) * BKV; }
-    __device__ int2 meta() const { return make_int2(0, 0); }  // unused
+    __device__ int2 meta(const Params& p, const RowItem& x) const {
+      const int qc = x.q0 / p.dsc.cq, kc = w.chunk(js);
+      const int kv0l = kv0() - kc * p.dsc.ckv;
+      return make_int2(x.q0 - qc * p.dsc.cq - kv0l, kv0l * 4 + qc * 2 + kc);
+    }
     __device__ void next() { ++js; }
   };
 };
@@ -323,8 +336,8 @@ __global__ void __launch_bounds__(NT, 1)
         const int ks = it % K_STAGES, vs = it % V_STAGES;
         const int kv0 = c.kv0();
         mbar_wait(bar(B_KEMPTY + ks), k_use(it) ^ 1);
-        if constexpr (!Walk::kBand)
-          *meta(it) = c.meta();  // released by K's full barrier
+        if constexpr (!Walk::kBand || Walk::kMulti)
+          *meta(it) = c.meta(p, x);  // released by K's full barrier
         mbar_expect_tx(bar(B_KFULL + ks), TILE);
         for (int hb = 0; hb < 2; ++hb)
           tma_load_4d(k_stage(it) + hb * BOX, &maps.k, bar(B_KFULL + ks),
@@ -389,7 +402,8 @@ __global__ void __launch_bounds__(NT, 1)
     const int t = items.at(p, j);
     if (t < 0) continue;
     const RowItem x = Walk::item(p, t);
-    const KvWalk<BKV> kw = Walk::kv_walk(p, x);
+    // B2a with one chunk a side places each step from the walk
+    const auto kw = Walk::consumer_walk(p, x);
     const int r0 = x.q0 + cw * 64;  // first q row of this warpgroup
     // rows of the next q tile (the second half of a 64-row item)
     const bool idle = cw * 64 >= x.rows;
@@ -424,29 +438,35 @@ __global__ void __launch_bounds__(NT, 1)
         dl[hh] = qi < p.s_q ? p.delta[at] : 0.f;
       }
 
-      // the i-th step's descriptor (js-th of the item): B9b's meta, read
-      // once its K is full; B2a's (item's first q position less the step's
-      // first kv position, that kv position) from the walk
-      auto step = [&](int i, int js) -> int2 {
-        if constexpr (Walk::kBand) {
+      // the i-th step's descriptor from its meta, read
+      // once its K is full: B9b's; B2a's (item's first q row less the
+      // step's first kv column, that kv column, both chunk-local, and the
+      // chunk pair)
+      auto step = [&](int i, int js) -> int4 {
+        if constexpr (Walk::kBand && !Walk::kMulti) {
           const int kv0 = kw.tile(js) * BKV;
-          return make_int2(p.q_start + x.q0 - kv0, kv0);
-        } else {
-          return *meta(i);
+          return make_int4(x.q0 - kv0, kv0, 0, 0);
         }
+        const int2 m = *meta(i);
+        if constexpr (Walk::kBand)
+          return make_int4(m.x, m.y >> 2, m.y & 3, 0);
+        else
+          return make_int4(m.x, m.y, 0, 0);
       };
       // P in place of S: p = exp2(s * scale * log2e - lse * log2e), 0
       // where `masked` drops a pair. B9b: a column past the step's (m.y &
       // 0xffff), or under the causal mask (m.y >> 16) a column after the
       // row (the step's q position less its kv position is m.x). B2a: a
-      // column past s_kv, a column c after the row's position plus the
-      // right window (c > rel + right), or one before it less the left
-      // window (c < rel - left) unless a sink; kCap: s = cap * tanh(s *
-      // scale / cap), and p * (1 - t^2) in place
-      auto probs = [&](float (&sacc)[64], int2 m, auto masked) {
+      // column past its chunk, or, with the row's place less the step's
+      // first column `row`, a column c with c - row > hi (the causal or
+      // right window), or c - row < lo (the left window) unless a sink
+      // (Desc); kCap: s = cap * tanh(s * scale / cap), and p * (1 - t^2)
+      // in place
+      auto probs = [&](float (&sacc)[64], int4 m, auto masked) {
         const int rel = m.x + cw * 64 + warp * 16 + g;
-        const int cols = Walk::kBand ? min(BKV, p.s_kv - m.y) : m.y & 0xffff;
+        const int cols = Walk::kBand ? min(BKV, p.dsc.ckv - m.y) : m.y & 0xffff;
         const bool causal = (m.y >> 16) != 0;
+        const int hi = p.dsc.hi[m.z], lo = p.dsc.lo[m.z], sk = p.dsc.sk[m.z];
 #pragma unroll
         for (int i8 = 0; i8 < 16; ++i8) {
 #pragma unroll
@@ -463,8 +483,8 @@ __global__ void __launch_bounds__(NT, 1)
               const int c = 8 * i8 + cb + (e & 1);
               const int row = rel + (e >> 1) * 8;
               if constexpr (Walk::kBand) {
-                if (c >= cols || (p.right >= 0 && c > row + p.right) ||
-                    (p.left >= 0 && c < row - p.left && m.y + c >= p.sink))
+                if (c >= cols || c - row > hi ||
+                    (c - row < lo && m.y + c >= sk))
                   pe = 0.f;
               } else {
                 if (c >= cols || (causal && c > row)) pe = 0.f;
@@ -476,14 +496,13 @@ __global__ void __launch_bounds__(NT, 1)
       };
       // only a step that some pair of this warpgroup's drops is masked (a
       // wholly-sink step is interior on the left)
-      auto probs_of = [&](float (&sacc)[64], int2 m) {
+      auto probs_of = [&](float (&sacc)[64], int4 m) {
         bool masked;
         if constexpr (Walk::kBand) {
           const int rel = m.x + cw * 64;
-          masked = m.y + BKV > p.s_kv ||
-                   (p.right >= 0 && BKV - 1 > rel + p.right) ||
-                   (p.left >= 0 && 0 < rel + 63 - p.left &&
-                    m.y + BKV - 1 >= p.sink);
+          masked = m.y + BKV > p.dsc.ckv || BKV - 1 - rel > p.dsc.hi[m.z] ||
+                   (-(rel + 63) < p.dsc.lo[m.z] &&
+                    m.y + BKV - 1 >= p.dsc.sk[m.z]);
         } else {
           masked = (m.y & 0xffff) < BKV ||
                    ((m.y >> 16) && m.x + cw * 64 < BKV - 1);
@@ -516,7 +535,7 @@ __global__ void __launch_bounds__(NT, 1)
       {
         float sacc[64], dpacc[64];
         mbar_wait(bar(B_KFULL + it % K_STAGES), k_use(it));
-        const int2 m = step(it, 0);
+        const int4 m = step(it, 0);
         wgmma_fence();
         issue_ss(sacc, q_rows, k_stage(it));
         mbar_wait(bar(B_VFULL + it % V_STAGES), v_use(it));
@@ -538,7 +557,7 @@ __global__ void __launch_bounds__(NT, 1)
         ++it;
         float sacc[64];
         mbar_wait(bar(B_KFULL + it % K_STAGES), k_use(it));
-        const int2 m = step(it, js);
+        const int4 m = step(it, js);
         wgmma_fence();
         issue_dq(dq, da, it - 1);
         issue_ss(sacc, q_rows, k_stage(it));
@@ -644,31 +663,38 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
 
 }  // namespace
 
-// Kernel B2a: dq (b, s_q, h, d) fp32 of q rows at positions q_start + i
-// against kv columns at j, written once; dk and dv unused. dims: as
+// Kernel B2a: dq (b, s_q, h, d) fp32 of q rows against kv columns at the
+// positions of a descriptor, written once; dk and dv unused. dims: as
 // base_params's, then q_start, causal, left, right, sink (the forward's
-// masks: right 0 when causal, sink 0 without a left window).
+// masks, which the descriptor holds in local units), then the descriptor
+// (sm90.cuh Desc) from index 28.
 extern "C" int lca_flash_bwd_dq(LCA_BWD_ARGS) {
   (void)dk;
   (void)dv;
   Params p = base_params(lse, delta, dq, dims, scale);
-  p.q_start = (int)dims[23];
-  const int causal = (int)dims[24];
-  p.left = (int)dims[25];
-  p.right = causal ? 0 : (int)dims[26];
-  p.sink = p.left >= 0 ? (int)dims[27] : 0;
+  p.dsc = desc_from(dims, 28);
   p.cap = softcap;
   p.sc = softcap > 0.f ? scale / softcap : 0.f;
   p.nq = (p.s_q + BQ - 1) / BQ;
-  if (p.h_kv <= 0 || p.h % p.h_kv || softcap < 0.f)
+  if (p.h_kv <= 0 || p.h % p.h_kv || softcap < 0.f ||
+      !desc_ok(p.dsc, p.s_q, p.s_kv, BKV))
     return (int)cudaErrorInvalidValue;
   p.n_items = p.nq * p.h * p.b;
   if (p.n_items == 0) return (int)cudaSuccess;
   const int n_blocks = p.n_items < num_sms() ? p.n_items : num_sms();
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (p.dsc.nqc * p.dsc.nkc > 1) {  // the ring's multi-chunk steps
+    if (softcap > 0.f)
+      return launch<DenseRows<true, true>>(q, k, v, dout, dims, p, n_blocks,
+                                           st);
+    return launch<DenseRows<false, true>>(q, k, v, dout, dims, p, n_blocks,
+                                          st);
+  }
   if (softcap > 0.f)
-    return launch<DenseRows<true>>(q, k, v, dout, dims, p, n_blocks, st);
-  return launch<DenseRows<false>>(q, k, v, dout, dims, p, n_blocks, st);
+    return launch<DenseRows<true, false>>(q, k, v, dout, dims, p, n_blocks,
+                                          st);
+  return launch<DenseRows<false, false>>(q, k, v, dout, dims, p, n_blocks,
+                                         st);
 }
 
 // Kernel B9b: dq (b, s_q, h, d) fp32 of a block-sparse mask into `out`, over

@@ -190,9 +190,7 @@ struct Params {
   float* lse;
   int b, h, h_kv, s_q, s_kv;
   long long o_sb, o_ss, o_sh;  // out element strides (batch, seq, head)
-  int q_off;                   // global position of q row 0
-  int left, right;             // window; -1 = unbounded (right 0: causal)
-  int sink;                    // columns < sink stay visible (left >= 0)
+  Desc dsc;  // the positions and masks in chunk-local units (sm90.cuh)
   float qfold;   // fast form: scale*log2e folded into q
   float sscale;  // online forms: multiplier of the raw score
   float cap;     // softcap form: the cap
@@ -262,30 +260,51 @@ __device__ __forceinline__ Item item_of(const Params& p, int t) {
   return x;
 }
 
-template <bool TRI>
-__device__ __forceinline__ KvWalk<BKV> walk_of(const Params& p, int q0) {
-  const int q_off = TRI ? 0 : p.q_off;
-  return KvWalk<BKV>(q_off + q0, q_off + min(q0 + BQ, p.s_q) - 1, p.s_kv,
-                     TRI ? -1 : p.left, TRI ? 0 : p.right, TRI ? 0 : p.sink);
+// the q chunk of a q tile (a tile never crosses a chunk)
+__device__ __forceinline__ int q_chunk(const Params& p, int q0) {
+  return q0 / p.dsc.cq;
+}
+
+template <bool TRI, bool MULTI>
+__device__ __forceinline__ KvWalk<BKV, MULTI> walk_of(const Params& p,
+                                                      int q0) {
+  const int qc = MULTI ? q_chunk(p, q0) : 0;
+  const int c0 = qc * p.dsc.cq;
+  return KvWalk<BKV, MULTI>(p.dsc, qc, q0 - c0,
+                            min(q0 + BQ, p.s_q) - 1 - c0);
 }
 
 // Work item t with its step count: dense, item_of's q tile and its kv walk;
 // B9a, the host's row item (sm90.cuh row_item)
-template <bool TRI, bool SPARSE>
+template <bool TRI, bool SPARSE, bool MULTI>
 __device__ __forceinline__ RowItem item_at(const Params& p, int t) {
   if constexpr (SPARSE)
     return row_item(p.items, p.ptr, t, p.b, p.h, p.n_q, p.bq, p.per_head);
   const Item d = item_of(p, t);
-  return RowItem{d.ih, d.ib, d.q0, 0, BQ, walk_of<TRI>(p, d.q0).n, 0, 0};
+  return RowItem{d.ih, d.ib, d.q0, 0, BQ, walk_of<TRI, MULTI>(p, d.q0).n, 0,
+                 0};
+}
+
+// A multi-chunk step's meta, which the producer hands the consumers beside
+// K so that they keep no walk of two chunks: its first kv column in its
+// chunk, and the chunk pair (Desc)
+template <bool MULTI>
+__device__ __forceinline__ int2 dense_meta(const Params& p, int q0,
+                                           const KvWalk<BKV, MULTI>& w,
+                                           int jt) {
+  const int kc = w.chunk(jt);
+  return make_int2(w.tile(jt) * BKV - kc * p.dsc.ckv,
+                   MULTI ? q_chunk(p, q0) * 2 + kc : 0);
 }
 
 // Where a tile's scores sit for the masks: its first kv column, the
-// consumer's first q row and a lane's first row (positions), the end of
-// the columns, and the right window (-1: none; 0: causal). B9a's steps use
-// a frame of their own: columns from 0, rows from the step's relative
-// position.
+// consumer's first and last q row and a lane's first row (chunk-local), the
+// end of the columns, and the pair's masks (Desc: a column j of row i is
+// seen when j - i <= hi, and j - i >= lo or j < sk). B9a's steps use a frame
+// of their own: columns from 0, rows from the step's relative position, hi
+// 0 (causal) or open.
 struct Frame {
-  int kv0, q_first, row0, col_end, right;
+  int kv0, q_first, q_last, row0, col_end, hi, lo, sk;
 };
 
 // ---------------------------------------------------------------------------
@@ -294,8 +313,10 @@ struct Frame {
 
 // TRI: causal self-attention with compile-time masks (B1); else the masks
 // of Params (B3, and B4 at q_off 0). FORM: the softmax form; QUANT: int8
-// K/V with fp32 scales. SPARSE: B9a's walk over a block-sparse row.
-template <bool TRI, int FORM, bool QUANT, bool SPARSE = false>
+// K/V with fp32 scales. SPARSE: B9a's walk over a block-sparse row. MULTI:
+// a descriptor of two chunks on a side (B3 on the ring's steps).
+template <bool TRI, int FORM, bool QUANT, bool SPARSE = false,
+          bool MULTI = false>
 __global__ void __launch_bounds__(Roles<QUANT>::NT, 1)
     flash_fwd_sm90_kernel(const __grid_constant__ Maps maps, const Params p) {
   static_assert(!SPARSE || (!TRI && FORM == kFast && !QUANT),
@@ -361,8 +382,8 @@ __global__ void __launch_bounds__(Roles<QUANT>::NT, 1)
       for (int j = items.j0; j < items.end; ++j) {
         const int t = items.at(p, j);
         if (t < 0) continue;
-        const RowItem x = item_at<TRI, SPARSE>(p, t);
-        const KvWalk<BKV> w = walk_of<TRI>(p, x.q0);
+        const RowItem x = item_at<TRI, SPARSE, MULTI>(p, t);
+        const KvWalk<BKV, MULTI> w = walk_of<TRI, MULTI>(p, x.q0);
         const RowWalk rw(p.ent, x, p.bkv);
         RowStep c{};
         if constexpr (SPARSE) c = rw.from(x.e0);
@@ -372,8 +393,12 @@ __global__ void __launch_bounds__(Roles<QUANT>::NT, 1)
           const int kv0 = SPARSE ? rw.kv0(c) : w.tile(jt) * BKV;
           const uint32_t st = stage(it);
           mbar_wait(bar(B_KEMPTY + s), use(it) ^ 1);
-          if constexpr (SPARSE) *meta(it) = rw.meta(c);  // released by K's
-          mbar_expect_tx(bar(B_KFULL + s), KV_BYTES);    // full barrier
+          // the step's meta, released by K's full barrier
+          if constexpr (SPARSE)
+            *meta(it) = rw.meta(c);
+          else if constexpr (MULTI)
+            *meta(it) = dense_meta(p, x.q0, w, jt);
+          mbar_expect_tx(bar(B_KFULL + s), KV_BYTES);
           tma_load_4d(st, &maps.k, bar(B_KFULL + s), 0, kv0, ihk, x.ib);
           tma_load_4d(st + BOX, &maps.k, bar(B_KFULL + s), 64, kv0, ihk,
                       x.ib);
@@ -413,7 +438,7 @@ __global__ void __launch_bounds__(Roles<QUANT>::NT, 1)
       auto seek = [&](int j, int jt) -> Cursor {
         for (; j * (int)gridDim.x < p.n_items; ++j, jt = 0) {
           const int t = item_index(j);
-          if (t < p.n_items && jt < walk_of<TRI>(p, item_of(p, t).q0).n)
+          if (t < p.n_items && jt < walk_of<TRI, MULTI>(p, item_of(p, t).q0).n)
             return {j, jt};
         }
         return {j, 0};
@@ -425,7 +450,7 @@ __global__ void __launch_bounds__(Roles<QUANT>::NT, 1)
       auto tma = [&](uint32_t dst, const CUtensorMap* map, uint32_t b,
                      const Cursor& c, int d0) {
         const Item x = item_of(p, item_index(c.j));
-        const int kv0 = walk_of<TRI>(p, x.q0).tile(c.jt) * BKV;
+        const int kv0 = walk_of<TRI, MULTI>(p, x.q0).tile(c.jt) * BKV;
         const int ihk = x.ih / (p.h / p.h_kv);
         if (d0 < 0)  // a scale map: (s_kv, h_kv, b)
           tma_load_3d(dst, map, b, kv0, ihk, x.ib);
@@ -463,6 +488,10 @@ __global__ void __launch_bounds__(Roles<QUANT>::NT, 1)
         if (!is_v && wtid < SC_BYTES / 16)  // the scales, beside K
           reinterpret_cast<float4*>(st + 2 * KV_BYTES)[wtid] =
               reinterpret_cast<const float4*>(slot + RAW_BYTES)[wtid];
+        if (!is_v && wtid == 0 && MULTI) {  // the step's meta, beside K
+          const int q0 = item_of(p, item_index(cur.j)).q0;
+          *meta(it) = dense_meta(p, q0, walk_of<TRI, MULTI>(p, q0), cur.jt);
+        }
         fence_proxy_async();
         mbar_arrive(bar((is_v ? B_VFULL : B_KFULL) + s));
         named_sync(NB_PRODUCER + wg, 128);  // all are done with the slot
@@ -490,10 +519,10 @@ __global__ void __launch_bounds__(Roles<QUANT>::NT, 1)
     const int lane = wtid & 31;
     const int g = lane >> 2;        // accumulator row (and row + 8)
     const int cb = 2 * (lane & 3);  // accumulator column pair in each 8
-    const int q_off = TRI ? 0 : p.q_off;
-    const int left = (TRI || SPARSE) ? -1 : p.left;
-    const int right = TRI ? 0 : p.right;
-    const int sink = (TRI || SPARSE) ? 0 : p.sink;
+    // the left window and the sinks: B3, B4 (B1 and B9a have none); one
+    // chunk a side, only when the call has a left window
+    constexpr bool LEFT_MASK = !(TRI || SPARSE);
+    const bool has_left = LEFT_MASK && (MULTI || p.dsc.lo[0] > -kOpenRel);
     const uint32_t q_half = sbase + cw * 64 * 128;  // this warpgroup's rows
 
     // S = Q K^T of the i-th tile: 8 k16 steps, 4 in each d box
@@ -524,25 +553,34 @@ __global__ void __launch_bounds__(Roles<QUANT>::NT, 1)
     for (int j = items.j0; j < items.end; ++j) {
       const int t = items.at(p, j);
       if (t < 0) continue;
-      const RowItem x = item_at<TRI, SPARSE>(p, t);
-      const KvWalk<BKV> w = walk_of<TRI>(p, x.q0);
+      const RowItem x = item_at<TRI, SPARSE, MULTI>(p, t);
+      // one chunk a side: the consumers place each tile from the walk
+      const KvWalk<BKV, MULTI> w = walk_of<TRI, MULTI>(p, x.q0);
       const int r0 = x.q0 + cw * 64;  // first q row of this warpgroup
-      const int q_first = q_off + r0;
-      const int q_last = q_off + min(r0 + 64, p.s_q) - 1;
+      const int qc = MULTI ? q_chunk(p, x.q0) : 0;
+      const int q_first = r0 - qc * p.dsc.cq;  // chunk-local
+      const int q_last = min(r0 + 64, p.s_q) - 1 - qc * p.dsc.cq;
       // B9a: rows of the next q tile (the second half of a 64-row item)
       const bool idle = SPARSE && cw * 64 >= x.rows;
 
-      // the frame of the i-th tile, the jt-th of the item (B9a: from the
-      // step's meta, read once its K is full)
+      // the frame of the i-th tile, the jt-th of the item: one chunk a
+      // side, from the walk; else from the step's meta, read once its K is
+      // full (dense_meta; B9a: RowWalk::meta)
       auto frame = [&](int i, int jt) -> Frame {
+        const int row0 = q_first + warp * 16 + g;
         if constexpr (SPARSE) {
           const int2 m = *meta(i);
           const int qf = m.x + cw * 64;
-          return Frame{0, qf, qf + warp * 16 + g, m.y & 0xffff,
-                       (m.y >> 16) ? 0 : -1};
+          return Frame{0, qf, qf + 63, qf + warp * 16 + g, m.y & 0xffff,
+                       (m.y >> 16) ? 0 : kOpenRel, -kOpenRel, 0};
+        } else if constexpr (MULTI) {
+          const int2 m = *meta(i);
+          return Frame{m.x, q_first, q_last, row0, p.dsc.ckv, p.dsc.hi[m.y],
+                       p.dsc.lo[m.y], p.dsc.sk[m.y]};
+        } else {
+          return Frame{w.tile(jt) * BKV, q_first, q_last, row0, p.dsc.ckv,
+                       TRI ? 0 : p.dsc.hi[0], p.dsc.lo[0], p.dsc.sk[0]};
         }
-        return Frame{w.tile(jt) * BKV, q_first, q_first + warp * 16 + g,
-                     p.s_kv, right};
       };
 
       float o[64];
@@ -568,8 +606,8 @@ __global__ void __launch_bounds__(Roles<QUANT>::NT, 1)
             if (decltype(masked)::value) {
               const int col = f.kv0 + 8 * i8 + cb + (e & 1);
               const int row = f.row0 + (e >> 1) * 8;
-              if (col >= f.col_end || (f.right >= 0 && col > row + f.right) ||
-                  (left >= 0 && col < row - left && col >= sink))
+              if (col >= f.col_end || col - row > f.hi ||
+                  (has_left && col - row < f.lo && col >= f.sk))
                 v = kNegInf;
             }
             sacc[4 * i8 + e] = v;
@@ -586,9 +624,8 @@ __global__ void __launch_bounds__(Roles<QUANT>::NT, 1)
         const float* svs = sks + BKV;
         const int kv_last = f.kv0 + BKV - 1;
         const bool interior =
-            kv_last < f.col_end &&
-            (f.right < 0 || kv_last <= f.q_first + f.right) &&
-            (left < 0 || f.kv0 >= q_last - left || kv_last < sink);
+            kv_last < f.col_end && kv_last - f.q_first <= f.hi &&
+            (!has_left || f.kv0 - f.q_last >= f.lo || kv_last < f.sk);
         float mx[2] = {kNegInf, kNegInf};
         if (interior)
           scores(sacc, sks, f, mx, Flag<false>());
@@ -770,8 +807,9 @@ __global__ void __launch_bounds__(Roles<QUANT>::NT, 1)
 
 // dims: b, h, h_kv, s_q, s_kv, q strides (b, s, h), k strides (b, s, h),
 // v strides (b, s, h), out strides (b, s, h), scale strides (b, h, s),
-// q_off, left, right, sink (the layout of the mma.sync entry points)
-template <bool TRI, int FORM, bool QUANT>
+// q_off, left, right, sink (the layout of the mma.sync entry points; B4's
+// entry reads them), then the descriptor (sm90.cuh Desc) from index 24
+template <bool TRI, int FORM, bool QUANT, bool MULTI = false>
 int launch(const void* q, const void* k, const void* v, const float* ks,
            const float* vs, void* out, float* lse, const long long* dims,
            float qfold, float sscale, float cap, cudaStream_t stream) {
@@ -786,16 +824,15 @@ int launch(const void* q, const void* k, const void* v, const float* ks,
   p.o_sb = dims[14];
   p.o_ss = dims[15];
   p.o_sh = dims[16];
-  p.q_off = (int)dims[20];
-  p.left = (int)dims[21];
-  p.right = (int)dims[22];
-  p.sink = (int)dims[23];
+  p.dsc = desc_from(dims, 24);
   p.qfold = qfold;
   p.sscale = sscale;
   p.cap = cap;
   p.nq = (p.s_q + BQ - 1) / BQ;
   p.n_items = p.nq * p.h * p.b;
-  if (p.h_kv <= 0 || p.h % p.h_kv) return (int)cudaErrorInvalidValue;
+  if (p.h_kv <= 0 || p.h % p.h_kv || !desc_ok(p.dsc, p.s_q, p.s_kv, BQ))
+    return (int)cudaErrorInvalidValue;
+  if ((p.dsc.nqc * p.dsc.nkc > 1) != MULTI) return (int)cudaErrorInvalidValue;
   if (QUANT && dims[19] != 1) return (int)cudaErrorInvalidValue;
   if (p.n_items == 0) return (int)cudaSuccess;
 
@@ -832,7 +869,7 @@ int launch(const void* q, const void* k, const void* v, const float* ks,
   }
   if (!ok) return (int)cudaErrorInvalidValue;
 
-  auto kern = flash_fwd_sm90_kernel<TRI, FORM, QUANT>;
+  auto kern = flash_fwd_sm90_kernel<TRI, FORM, QUANT, false, MULTI>;
   const int smem = Smem<QUANT>::BYTES;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -861,7 +898,7 @@ int launch_sparse(const void* q, const void* k, const void* v, void* out,
   p.o_sb = dims[17];
   p.o_ss = dims[18];
   p.o_sh = dims[19];
-  p.left = p.right = -1;  // the steps carry the causal mask
+  p.dsc.cq = p.s_q;  // rows are not chunked: the steps carry the mask
   p.qfold = qfold;
   p.ptr = ptr;
   p.ent = reinterpret_cast<const int4*>(ent);
@@ -934,6 +971,23 @@ extern "C" int lca_flash_fwd_pos(const void* q, const void* k, const void* v,
   const auto args = [&](auto launcher) {
     return launcher(q, k, v, ks, vs, out, lse, dims, qfold, sscale, cap, st);
   };
+  // a multi-chunk descriptor (the ring's steps) takes its own instantiation
+  if (dims[24] * dims[25] > 1) {
+    if (ks != nullptr) {
+      switch (form) {
+        case 0: return args(launch<false, kFast, true, true>);
+        case 1: return args(launch<false, kOnlineNat, true, true>);
+        case 2: return args(launch<false, kSoftcap, true, true>);
+        default: return (int)cudaErrorInvalidValue;
+      }
+    }
+    switch (form) {
+      case 0: return args(launch<false, kFast, false, true>);
+      case 1: return args(launch<false, kOnlineNat, false, true>);
+      case 2: return args(launch<false, kSoftcap, false, true>);
+      default: return (int)cudaErrorInvalidValue;
+    }
+  }
   if (ks != nullptr) {
     switch (form) {
       case 0: return args(launch<false, kFast, true>);

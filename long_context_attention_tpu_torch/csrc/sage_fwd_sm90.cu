@@ -148,9 +148,7 @@ struct Params {
   long long qs_sb, qs_sh, qs_ss;  // scale strides (batch, head, seq)
   long long ks_sb, ks_sh, ks_ss;
   long long vs_sb, vs_sh, vs_ss;
-  int q_off;       // global position of q row 0
-  int left, right;  // window; -1 = unbounded (right 0: causal)
-  int sink;        // columns < sink stay visible (left >= 0)
+  Desc dsc;  // the positions and masks in chunk-local units (sm90.cuh)
   int nq, n_items;
 };
 
@@ -216,11 +214,18 @@ __device__ __forceinline__ Item item_of(const Params& p, int t) {
   return x;
 }
 
-template <bool TRI>
-__device__ __forceinline__ KvWalk<BKV> walk_of(const Params& p, int q0) {
-  const int q_off = TRI ? 0 : p.q_off;
-  return KvWalk<BKV>(q_off + q0, q_off + min(q0 + BQ, p.s_q) - 1, p.s_kv,
-                     TRI ? -1 : p.left, TRI ? 0 : p.right, TRI ? 0 : p.sink);
+// the q chunk of a q tile (a tile never crosses a chunk)
+__device__ __forceinline__ int q_chunk(const Params& p, int q0) {
+  return q0 / p.dsc.cq;
+}
+
+template <bool MULTI>
+__device__ __forceinline__ KvWalk<BKV, MULTI> walk_of(const Params& p,
+                                                      int q0) {
+  const int qc = MULTI ? q_chunk(p, q0) : 0;
+  const int c0 = qc * p.dsc.cq;
+  return KvWalk<BKV, MULTI>(p.dsc, qc, q0 - c0,
+                            min(q0 + BQ, p.s_q) - 1 - c0);
 }
 
 // ---------------------------------------------------------------------------
@@ -228,8 +233,9 @@ __device__ __forceinline__ KvWalk<BKV> walk_of(const Params& p, int q0) {
 // ---------------------------------------------------------------------------
 
 // TRI: causal self-attention with compile-time masks (B8a); else the masks
-// of Params (B8b).
-template <bool TRI>
+// of Params (B8b). MULTI: a descriptor of two chunks on a side (B8b on the
+// ring's steps).
+template <bool TRI, bool MULTI = false>
 __global__ void __launch_bounds__(NT, 1)
     sage_fwd_sm90_kernel(const __grid_constant__ Maps maps, const Params p) {
   extern __shared__ __align__(1024) unsigned char smem_raw[];
@@ -271,17 +277,17 @@ __global__ void __launch_bounds__(NT, 1)
     struct Cursor {
       int j, jt, ihk;
       Item x;
-      KvWalk<BKV> w;
+      KvWalk<BKV, MULTI> w;
     };
     auto enter = [&](int j) -> Cursor {  // the first tile of item j or later
       for (; j * (int)gridDim.x < p.n_items; ++j) {
         const int t = item_index(j);
         if (t >= p.n_items) continue;
         const Item x = item_of(p, t);
-        const KvWalk<BKV> w = walk_of<TRI>(p, x.q0);
+        const KvWalk<BKV, MULTI> w = walk_of<MULTI>(p, x.q0);
         if (w.n > 0) return {j, 0, x.ih / (p.h / p.h_kv), x, w};
       }
-      return {j, 0, 0, Item{0, 0, 0}, walk_of<TRI>(p, 0)};
+      return {j, 0, 0, Item{0, 0, 0}, walk_of<MULTI>(p, 0)};
     };
     auto valid = [&](const Cursor& c) -> bool {
       return c.j * (int)gridDim.x < p.n_items;
@@ -361,10 +367,6 @@ __global__ void __launch_bounds__(NT, 1)
     const int lane = wtid & 31;
     const int g = lane >> 2;        // accumulator row (and row + 8)
     const int cb = 2 * (lane & 3);  // accumulator column pair in each 8
-    const int q_off = TRI ? 0 : p.q_off;
-    const int left = TRI ? -1 : p.left;
-    const int right = TRI ? 0 : p.right;
-    const int sink = TRI ? 0 : p.sink;
     const uint32_t q_half = sbase + cw * 64 * D;  // this warpgroup's rows
 
     // S = Q8 K8^T of the i-th tile: 4 k32 steps
@@ -396,10 +398,11 @@ __global__ void __launch_bounds__(NT, 1)
       const int t = item_index(j);
       if (t >= p.n_items) continue;
       const Item x = item_of(p, t);
-      const KvWalk<BKV> w = walk_of<TRI>(p, x.q0);
+      const KvWalk<BKV, MULTI> w = walk_of<MULTI>(p, x.q0);
       const int r0 = x.q0 + cw * 64;  // first q row of this warpgroup
-      const int q_first = q_off + r0;
-      const int q_last = q_off + min(r0 + 64, p.s_q) - 1;
+      const int qc = MULTI ? q_chunk(p, x.q0) : 0;
+      const int q_first = r0 - qc * p.dsc.cq;  // chunk-local
+      const int q_last = min(r0 + 64, p.s_q) - 1 - qc * p.dsc.cq;
       const int row_pos0 = q_first + warp * 16 + g;
 
       float qsr[2];  // the q scales of rows g and g + 8
@@ -419,11 +422,13 @@ __global__ void __launch_bounds__(NT, 1)
       // rows g and g + 8
       uint32_t pa[32];
 
-      // tile i's P from its s32 scores: scales, (`masked`) masks, p =
-      // exp2(min(s, 90)) summed into l, then p * v_scale packed into pa
-      // group by group, so the scores' registers free as it goes
+      // tile i's P from its s32 scores: scales, (`masked`) masks (over
+      // chunk-local rows and columns, kv0 the tile's first column in its
+      // chunk and pr the chunk pair: Desc), p = exp2(min(s, 90)) summed
+      // into l, then p * v_scale packed into pa group by group, so the
+      // scores' registers free as it goes
       auto scores = [&](const uint32_t (&sacc)[64], const float* sks,
-                        int kv0, auto masked) {
+                        int kv0, int pr, auto masked) {
         const float* svs = sks + BKV;
         float rs[2] = {0.f, 0.f};
 #pragma unroll
@@ -440,8 +445,8 @@ __global__ void __launch_bounds__(NT, 1)
             if (decltype(masked)::value) {
               const int col = kv0 + 8 * i8 + cb + (e & 1);
               const int row = row_pos0 + (e >> 1) * 8;
-              if (col >= p.s_kv || (right >= 0 && col > row + right) ||
-                  (left >= 0 && col < row - left && col >= sink))
+              if (col >= p.dsc.ckv || col - row > (TRI ? 0 : p.dsc.hi[pr]) ||
+                  (!TRI && col - row < p.dsc.lo[pr] && col >= p.dsc.sk[pr]))
                 v = kNegInf;
             }
             const float pe = exp2_ftz(fminf(v, kClamp));  // exp2(-1e30) == 0
@@ -458,18 +463,23 @@ __global__ void __launch_bounds__(NT, 1)
           l_row[hh] += rs[hh];
         }
       };
-      // a tile that every row of this warpgroup sees whole skips the mask
-      auto softmax = [&](const uint32_t (&sacc)[64], int i, int kv0) {
+      // a tile that every row of this warpgroup sees whole skips the mask;
+      // jt: the tile's place in the item's walk
+      auto softmax = [&](const uint32_t (&sacc)[64], int i, int jt) {
         const float* sks =
             reinterpret_cast<const float*>(smem + stage(i) + T8 + VW);
+        const int kc = w.chunk(jt);
+        const int pr = qc * 2 + kc;
+        const int kv0 = w.tile(jt) * BKV - kc * p.dsc.ckv;
         const int kv_last = kv0 + BKV - 1;
         const bool interior =
-            kv_last < p.s_kv && (right < 0 || kv_last <= q_first + right) &&
-            (left < 0 || kv0 >= q_last - left || kv_last < sink);
+            kv_last < p.dsc.ckv &&
+            kv_last - q_first <= (TRI ? 0 : p.dsc.hi[pr]) &&
+            (TRI || kv0 - q_last >= p.dsc.lo[pr] || kv_last < p.dsc.sk[pr]);
         if (interior)
-          scores(sacc, sks, kv0, Flag<false>());
+          scores(sacc, sks, kv0, pr, Flag<false>());
         else
-          scores(sacc, sks, kv0, Flag<true>());
+          scores(sacc, sks, kv0, pr, Flag<true>());
       };
       if (w.n > 0) {
         mbar_wait(bar(B_QFULL), qn & 1);
@@ -484,7 +494,7 @@ __global__ void __launch_bounds__(NT, 1)
             reg_fence(sacc);
           }
           if (w.n == 1 && lane == 0) mbar_arrive(bar(B_QEMPTY));
-          if (kMath) softmax(sacc, it, w.tile(0) * BKV);
+          if (kMath) softmax(sacc, it, 0);
           release(B_KEMPTY, it);  // K and the scales
         }
         // then per tile: QK of this tile and PV of the one before issue
@@ -507,7 +517,7 @@ __global__ void __launch_bounds__(NT, 1)
           }
           release(B_VEMPTY, it - 1);
           if (jt == w.n - 1 && lane == 0) mbar_arrive(bar(B_QEMPTY));
-          if (kMath) softmax(sacc, it, w.tile(jt) * BKV);
+          if (kMath) softmax(sacc, it, jt);
           release(B_KEMPTY, it);
         }
         // PV of the last tile
@@ -553,8 +563,10 @@ __global__ void __launch_bounds__(NT, 1)
 
 // dims: b, h, h_kv, s_q, s_kv, q strides (b, s, h), k strides (b, s, h), v
 // strides (b, s, h), out strides (b, s, h), q, k and v scale strides (b, h,
-// s), q_off, left, right, sink (the layout of the mma.sync entry points)
-template <bool TRI>
+// s), q_off, left, right, sink (the layout of the mma.sync entry points),
+// then the descriptor (sm90.cuh Desc), which holds the masks in local
+// units, from index 30
+template <bool TRI, bool MULTI = false>
 int launch(const void* q, const float* qs, const void* k, const float* ks,
            const void* v, const float* vs, void* out, float* lse,
            const long long* dims, cudaStream_t stream) {
@@ -575,14 +587,13 @@ int launch(const void* q, const float* qs, const void* k, const float* ks,
   long long* sc[] = {&p.qs_sb, &p.qs_sh, &p.qs_ss, &p.ks_sb, &p.ks_sh,
                      &p.ks_ss, &p.vs_sb, &p.vs_sh, &p.vs_ss};
   for (int i = 0; i < 9; ++i) *sc[i] = dims[17 + i];
-  p.q_off = (int)dims[26];
-  p.left = (int)dims[27];
-  p.right = (int)dims[28];
-  p.sink = (int)dims[29];
+  p.dsc = desc_from(dims, 30);
   p.nq = (p.s_q + BQ - 1) / BQ;
   p.n_items = p.nq * p.h * p.b;
-  if (p.h_kv <= 0 || p.h % p.h_kv) return (int)cudaErrorInvalidValue;
-  if (TRI && (p.s_q != p.s_kv || p.q_off != 0))
+  if (p.h_kv <= 0 || p.h % p.h_kv || !desc_ok(p.dsc, p.s_q, p.s_kv, BQ))
+    return (int)cudaErrorInvalidValue;
+  if ((TRI && (p.s_q != p.s_kv || dims[26] != 0)) ||
+      (p.dsc.nqc * p.dsc.nkc > 1) != MULTI)
     return (int)cudaErrorInvalidValue;
   if (p.n_items == 0) return (int)cudaSuccess;
 
@@ -603,7 +614,7 @@ int launch(const void* q, const float* qs, const void* k, const float* ks,
              CU_TENSOR_MAP_SWIZZLE_NONE);
   if (!ok) return (int)cudaErrorInvalidValue;
 
-  auto kern = sage_fwd_sm90_kernel<TRI>;
+  auto kern = sage_fwd_sm90_kernel<TRI, MULTI>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
   if (e != cudaSuccess) return (int)e;
@@ -634,8 +645,10 @@ extern "C" int lca_sage_fwd_pos(const void* q, const float* qs,
                                 const void* k, const float* ks, const void* v,
                                 const float* vs, void* out, float* lse,
                                 const long long* dims, void* stream) {
-  return launch<false>(q, qs, k, ks, v, vs, out, lse, dims,
-                       static_cast<cudaStream_t>(stream));
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dims[30] * dims[31] > 1)  // the ring's multi-chunk steps
+    return launch<false, true>(q, qs, k, ks, v, vs, out, lse, dims, st);
+  return launch<false>(q, qs, k, ks, v, vs, out, lse, dims, st);
 }
 
 // Dynamic shared memory per block (ptxas reports static memory only).

@@ -323,30 +323,80 @@ __device__ __forceinline__ void widen_rows(const unsigned char* raw,
   }
 }
 
-// The kv tiles of BKV columns that a q tile of rows at positions [q_first,
-// q_last] sees, each once: the sink tiles that lie before the band, then
-// the band [lo, hi] (_banded_gt). left / right -1: unbounded; right 0:
-// causal.
-template <int BKV>
-struct KvWalk {
-  int lo, hi, n_sink, n;
-  __device__ KvWalk(int q_first, int q_last, int s_kv, int left, int right,
-                    int sink) {
-    lo = 0;
-    hi = (s_kv + BKV - 1) / BKV - 1;
-    n_sink = 0;
-    if (right >= 0) {
-      const int last = q_last + right;
-      hi = last < 0 ? -1 : min(hi, last / BKV);
-    }
-    if (left >= 0) {
-      lo = max(q_first - left, 0) / BKV;
-      n_sink = min(min((sink + BKV - 1) / BKV, lo), hi + 1);
-    }
-    n = n_sink + max(hi - lo + 1, 0);
+// A call's position descriptor in the kernels' local units. The host
+// (ops/flash.py pair_masks) reduces the JAX kernels' (q_offsets,
+// kv_offsets, stride) contract, position = offsets[l / chunk] + (l % chunk)
+// * stride with one stride on both sides, to nqc q chunks of cq rows and nkc
+// kv chunks of ckv columns (1 or 2 each; one chunk: the whole s_q or s_kv)
+// and, per (q chunk, kv chunk) pair qc * 2 + kc, three integers over
+// chunk-local rows i and columns j: the pair is seen when j - i <= hi (the
+// causal or right window: floor((qo - ko + right) / stride)), and j - i >=
+// lo (the left window: ceil((qo - ko - left) / stride)) or j < sk (the
+// sinks: the columns at positions below sink_tokens); kOpenRel for an
+// unbounded side. The layout on dims, from index `at`: nqc, nkc, cq, ckv,
+// then hi, lo, sk of each of the 4 pairs.
+constexpr int kOpenRel = 1 << 29;
+struct Desc {
+  int nqc, nkc, cq, ckv;
+  int hi[4], lo[4], sk[4];
+};
+
+inline Desc desc_from(const long long* dims, int at) {
+  Desc d;
+  d.nqc = (int)dims[at];
+  d.nkc = (int)dims[at + 1];
+  d.cq = (int)dims[at + 2];
+  d.ckv = (int)dims[at + 3];
+  for (int pr = 0; pr < 4; ++pr) {
+    d.hi[pr] = (int)dims[at + 4 + 3 * pr];
+    d.lo[pr] = (int)dims[at + 5 + 3 * pr];
+    d.sk[pr] = (int)dims[at + 6 + 3 * pr];
   }
+  return d;
+}
+
+// Whether a descriptor is one the kernels take: 1 or 2 chunks a side that
+// tile the lengths, a multi-chunk side cut on `tile` boundaries (a tile
+// never crosses a chunk: the JAX kernels' rule)
+inline bool desc_ok(const Desc& d, int s_q, int s_kv, int tile) {
+  if (d.nqc < 1 || d.nqc > 2 || d.nkc < 1 || d.nkc > 2) return false;
+  if (d.nqc * d.cq != s_q || d.nkc * d.ckv != s_kv) return false;
+  return (d.nqc == 1 || d.cq % tile == 0) && (d.nkc == 1 || d.ckv % tile == 0);
+}
+
+// The kv tiles of BKV columns that the chunk-local rows [i0, i1] of q chunk
+// qc see, each once: kv chunk by kv chunk, the sink tiles that lie before
+// the band, then the band [lo, hi] (the TPU kernels' _banded_gt). tile(jt)
+// is the global kv tile of the jt-th, chunk(jt) its kv chunk. MULTI: up
+// to two kv chunks (a kernel's instantiation for multi-chunk descriptors);
+// else the one chunk, whose walk holds no second one's state.
+template <int BKV, bool MULTI>
+struct KvWalk {
+  int n0, n;
+  int lo[2], n_sink[2], base[2];
+  __device__ KvWalk(const Desc& d, int qc, int i0, int i1) {
+    n = 0;
+    n0 = 0;
+#pragma unroll
+    for (int kc = 0; kc < (MULTI ? 2 : 1); ++kc) {
+      lo[kc] = n_sink[kc] = 0;
+      base[kc] = kc * (d.ckv / BKV);
+      if (kc >= d.nkc) continue;
+      const int pr = qc * 2 + kc;
+      int hi = (d.ckv + BKV - 1) / BKV - 1;
+      const int last = i1 + d.hi[pr];
+      hi = last < 0 ? -1 : min(hi, last / BKV);
+      lo[kc] = max(i0 + d.lo[pr], 0) / BKV;
+      n_sink[kc] = min(min((d.sk[pr] + BKV - 1) / BKV, lo[kc]), hi + 1);
+      n += n_sink[kc] + max(hi - lo[kc] + 1, 0);
+      if (kc == 0) n0 = n;
+    }
+  }
+  __device__ int chunk(int jt) const { return MULTI && jt >= n0; }
   __device__ int tile(int jt) const {
-    return jt < n_sink ? jt : lo + (jt - n_sink);
+    const int c = chunk(jt);
+    const int r = jt - (c ? n0 : 0);
+    return base[c] + (r < n_sink[c] ? r : lo[c] + (r - n_sink[c]));
   }
 };
 

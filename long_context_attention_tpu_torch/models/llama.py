@@ -1,19 +1,24 @@
-"""Llama-style GQA decoder in PyTorch: serving and single-device training.
+"""Llama-style GQA decoder in PyTorch: serving, and training on one device
+or over a USP mesh.
 
 Counterpart of ``long_context_attention_tpu/models/llama.py``: the same
 config, parameter dict (layers stacked on a leading axis, bf16 weights, fp32
 norms), RMSNorm, RoPE over global positions and dense SwiGLU FFN, with
 
-* :func:`forward_local`: the single-device full-sequence forward,
-  differentiable, attention through ``ModelConfig.attn_impl``: "pallas"
-  the autograd ``flash_attention`` (kernels B1 forward, B5 backward; B4
-  forward for a sliding window, sinks or softcap, which serve but do not
-  train yet), "sage" ``sage_attention_full`` (kernel B8a forward, B8b
-  with a window; the straight-through B5 backward), "xla" the fp32
-  oracle under torch autograd; each layer rematerialized per
-  ``ModelConfig.remat``;
+* :func:`forward_local`: the full-sequence forward, differentiable. On one
+  device (no ``mesh``) attention goes through ``ModelConfig.attn_impl``:
+  "pallas" the autograd ``flash_attention`` (kernels B1 forward, B5
+  backward; B4 for a sliding window, sinks or softcap), "sage"
+  ``sage_attention_full`` (kernel B8a forward, B8b with a window; the
+  straight-through B5 backward), "xla" the fp32 oracle under torch
+  autograd. Over a USP ``mesh`` (``parallel/mesh.py``) every layer runs
+  ``usp_attention_local`` on this rank's tokens at their global positions
+  (``local_positions``), as the JAX model does: the Ulysses all-to-all and
+  the ring (kernel B3 per step, B2a + B2b in its backward). Each layer is
+  rematerialized per ``ModelConfig.remat``;
 * :func:`loss_local` and :func:`make_train_step`: next-token cross entropy
-  and one optimizer step on one device;
+  and one optimizer step, on one device or over a mesh (the loss's
+  denominator and the gradients summed over dp x ring x ulysses);
 * :func:`prefill_chunk_step`: one prompt chunk against the cache so far
   (chunk self-attention, attention over the cache prefix, LSE merge);
 * :func:`decode_step`: one token per row against the cache (append, then
@@ -23,8 +28,8 @@ The two cache steps run the flash and decode kernels whatever
 ``attn_impl`` is, as the JAX package's do.
 
 Both cache steps update the cache IN PLACE, and so does a train step its
-params. USP/ring sharding, MoE, tensor and pipeline parallelism come in
-later slices.
+params. MoE, tensor and pipeline parallelism, and serving over a mesh,
+come in later slices.
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ import functools
 from typing import Any, Callable, Dict, List, Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch.utils.checkpoint import (
     CheckpointPolicy,
@@ -56,6 +62,12 @@ from long_context_attention_tpu_torch.ops.merge import merge_attn_blocks
 from long_context_attention_tpu_torch.ops.registry import get_attn_impl
 from long_context_attention_tpu_torch.ops.sage import SAGE_ATTENTION_OP
 from long_context_attention_tpu_torch.ops.wquant import qdot
+from long_context_attention_tpu_torch.parallel.layouts import (
+    position_descriptor,
+    positions_from_descriptor,
+)
+from long_context_attention_tpu_torch.parallel.ring import RING_ATTENTION_OP
+from long_context_attention_tpu_torch.parallel.usp import usp_attention_local
 from long_context_attention_tpu_torch.utils.config import (
     BlockSizes,
     not_ported,
@@ -63,7 +75,8 @@ from long_context_attention_tpu_torch.utils.config import (
 )
 
 __all__ = ["ModelConfig", "init_params", "rmsnorm", "rope", "forward_local",
-           "loss_local", "make_train_step", "param_leaves",
+           "local_positions", "loss_local", "make_forward",
+           "make_train_step", "param_leaves",
            "prefill_chunk_step", "decode_step", "layer_params"]
 
 Params = Dict[str, Any]
@@ -114,8 +127,7 @@ class ModelConfig:
                 "attn_impl='pallas'")
         # Fields kept for parity with the JAX config whose other values
         # need a slice not ported yet. ``layout`` orders the sequence across
-        # a mesh's ring; on one device (the only mode here) every layout is
-        # the same model.
+        # a mesh's ring; on one device every layout is the same model.
         for name, what in (("block_sizes", "per-model kernel tile sizes"),
                            ("n_experts", "MoE layers"),
                            ("moe_capacity_factor", "MoE layers")):
@@ -225,13 +237,32 @@ def _qkv(cfg: ModelConfig, lp: Params, h: torch.Tensor, positions):
             rope(k, positions, cfg.rope_theta), v)
 
 
+def local_positions(cfg: ModelConfig, s_local: int, mesh) -> torch.Tensor:
+    """Global positions (s_local,) of this rank's tokens: its ring rank's
+    layout descriptor expanded, then cut to its ulysses sub-chunk (the
+    sequence is sharded (ring, ulysses), ring-major: ``parallel/mesh.py``)."""
+    s_ring = s_local * mesh.ulysses
+    off, stride = position_descriptor(cfg.layout, mesh.ring_idx, mesh.ring,
+                                      s_ring)
+    pos = positions_from_descriptor(off, stride, s_ring)
+    u = mesh.ulysses_idx
+    return pos[u * s_local:(u + 1) * s_local].to(mesh.device)
+
+
 def _layer(cfg: ModelConfig, positions: torch.Tensor, x: torch.Tensor,
-           lp: Params):
+           lp: Params, mesh=None):
     """One decoder layer of the full-sequence forward: (x, k, v)."""
     b, s, _ = x.shape
     h = rmsnorm(x, lp["attn_norm"], cfg.norm_eps)
     q, k, v = _qkv(cfg, lp, h, positions)
-    if cfg.attn_impl == "pallas":
+    if mesh is not None:
+        attn = usp_attention_local(
+            q, k, v, ulysses_group=mesh.ulysses_group,
+            ring_group=mesh.ring_group, layout=cfg.layout, causal=True,
+            window_size=(cfg.window_left, -1), softcap=cfg.softcap,
+            sink_tokens=cfg.sink_tokens, safe_softmax=cfg.safe_softmax,
+            impl=cfg.attn_impl)
+    elif cfg.attn_impl == "pallas":
         attn = flash_attention(q, k, v, causal=True, **cfg.attention_kwargs())
     else:  # the fwd-bwd stage of another registry impl
         attn = get_attn_impl(cfg.attn_impl).full(
@@ -247,12 +278,14 @@ _MATMULS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
             torch.ops.aten.addmm.default)
 
 
+_ATTENTION_OPS = (FLASH_ATTENTION_OP, SAGE_ATTENTION_OP, RING_ATTENTION_OP)
+
+
 def _save_attention(ctx, op, *args, **kwargs):
-    """remat="attn": keep the attention op's (out, lse), flash or sage,
-    recompute the rest (the JAX policy saves the ring attention's out and
-    lse by name)."""
-    return (CheckpointPolicy.MUST_SAVE
-            if op is FLASH_ATTENTION_OP or op is SAGE_ATTENTION_OP
+    """remat="attn": keep the attention op's (out, lse) -- flash, sage or,
+    over a mesh, the whole ring's -- and recompute the rest (the JAX policy
+    saves the ring attention's out and lse by name)."""
+    return (CheckpointPolicy.MUST_SAVE if op in _ATTENTION_OPS
             else CheckpointPolicy.PREFER_RECOMPUTE)
 
 
@@ -284,17 +317,26 @@ def _maybe_remat(body: Callable, cfg: ModelConfig) -> Callable:
 
 
 def forward_local(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
-                  return_kv: bool = False, last_index: Optional[int] = None):
-    """Single-device forward: tokens (b, s) int -> logits fp32 (b, s, vocab).
+                  mesh=None, return_kv: bool = False,
+                  last_index: Optional[int] = None):
+    """Forward: tokens (b, s) int -> logits fp32 (b, s, vocab).
 
-    Differentiable; serving callers run it under ``torch.no_grad()``.
-    ``return_kv=True`` also returns the per-layer post-RoPE (k, v), each
-    (n_layers, b, s, h_kv, d). ``last_index`` projects only that position
-    through lm_head (logits (b, 1, vocab))."""
+    Without ``mesh`` the tokens are one device's whole sequence. With a USP
+    ``mesh`` they are this rank's shard (b/dp, s/(R*U)) of the sequence in
+    ``cfg.layout`` order, at their global positions (:func:`local_positions`),
+    and attention runs over the mesh. Differentiable; serving callers run
+    it under ``torch.no_grad()``. ``return_kv=True`` also returns the
+    per-layer post-RoPE (k, v), each (n_layers, b, s, h_kv, d).
+    ``last_index`` projects only that position through lm_head (logits
+    (b, 1, vocab))."""
     b, s = tokens.shape
-    positions = torch.arange(s, dtype=torch.int32, device=tokens.device)
+    if mesh is None:
+        positions = torch.arange(s, dtype=torch.int32, device=tokens.device)
+    else:
+        positions = local_positions(cfg, s, mesh)
     x = params["embed"][tokens]
-    body = _maybe_remat(functools.partial(_layer, cfg, positions), cfg)
+    body = _maybe_remat(functools.partial(_layer, cfg, positions, mesh=mesh),
+                        cfg)
     ks, vs = [], []
     for lp in layer_params(params):
         x, k, v = body(x, lp)
@@ -311,15 +353,41 @@ def forward_local(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
 
 
 def loss_local(params: Params, tokens: torch.Tensor, labels: torch.Tensor,
-               mask: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """Masked-mean next-token cross entropy on one device: tokens, labels,
-    mask (b, s); labels[i] is the token after tokens[i]. -sum(log p(label) *
-    mask) / max(sum(mask), 1), over fp32 logits."""
-    logits = forward_local(params, tokens, cfg)
+               mask: torch.Tensor, cfg: ModelConfig, *, mesh=None
+               ) -> torch.Tensor:
+    """Masked-mean next-token cross entropy: tokens, labels, mask (b, s);
+    labels[i] is the token after tokens[i] in the original order. -sum(log
+    p(label) * mask) / max(sum(mask), 1), over fp32 logits.
+
+    With a USP ``mesh`` the arguments are this rank's shards and the result
+    is its contribution: the denominator sums over every rank of the mesh
+    (dp x ring x ulysses), the numerator stays local, so the contributions
+    (and their gradients) sum to the global loss (and its gradient), as
+    JAX's ``loss_local``."""
+    logits = forward_local(params, tokens, cfg, mesh=mesh)
     logp = torch.log_softmax(logits, dim=-1)
     ll = torch.gather(logp, -1, labels[..., None].long())[..., 0]
     maskf = mask.float()
-    return -(ll * maskf).sum() / torch.clamp(maskf.sum(), min=1.0)
+    den = maskf.sum()
+    if mesh is not None and _world(mesh) > 1:
+        den = den.detach().clone()
+        dist.all_reduce(den)
+    return -(ll * maskf).sum() / torch.clamp(den, min=1.0)
+
+
+def _world(mesh) -> int:
+    return mesh.dp * mesh.ring * mesh.ulysses
+
+
+def make_forward(cfg: ModelConfig, mesh):
+    """The forward over a USP mesh: ``fwd(params, tokens) -> logits`` of
+    this rank's token shard (the JAX package's ``make_forward``; torch has
+    no globally sharded array)."""
+    return functools.partial(_mesh_forward, cfg=cfg, mesh=mesh)
+
+
+def _mesh_forward(params, tokens, *, cfg, mesh):
+    return forward_local(params, tokens, cfg, mesh=mesh)
 
 
 def param_leaves(params: Params) -> List[torch.Tensor]:
@@ -332,8 +400,8 @@ def param_leaves(params: Params) -> List[torch.Tensor]:
 
 def make_train_step(cfg: ModelConfig, optimizer: Callable, mesh=None, *,
                     device=None):
-    """One-device train step, ``step(params, opt_state, tokens, labels,
-    mask) -> (params, opt_state, loss)``, the JAX package's call shape.
+    """The train step, ``step(params, opt_state, tokens, labels, mask) ->
+    (params, opt_state, loss)``, the JAX package's call shape.
 
     ``optimizer`` is a factory that builds a PyTorch optimizer over a list
     of tensors, e.g. ``functools.partial(torch.optim.AdamW, lr=1e-4,
@@ -344,11 +412,22 @@ def make_train_step(cfg: ModelConfig, optimizer: Callable, mesh=None, *,
     the optimizer and the detached loss. ``device``: where the step runs
     (None means the card; raises without one); params and batch elsewhere
     raise. A config with a window, sinks or softcap trains through the
-    same kernels' masks. A ``mesh`` (the sharded train step) is not ported
-    yet."""
+    same kernels' masks.
+
+    With a USP ``mesh`` (``make_usp_mesh``: dp x ring x ulysses; every rank
+    calls the step) the batch is this rank's shard, ``seq_shard`` of the
+    sequence in ``cfg.layout`` order, labels and mask built in the original
+    order before the permutation; the step runs on the mesh's device, each
+    rank computes its loss contribution's gradients, which are summed over
+    the whole mesh (the data-parallel and sequence-parallel reduction), and
+    every rank applies the same update to its replica. The loss returned is
+    the global loss."""
     if mesh is not None:
-        raise not_ported("the sharded train step (mesh)")
-    dev = resolve_device(device)
+        dev = mesh.device
+        if device is not None and resolve_device(device) != dev:
+            raise ValueError(f"device {device} is not the mesh's {dev}")
+    else:
+        dev = resolve_device(device)
 
     def step(params, opt_state, tokens, labels, mask):
         leaves = param_leaves(params)
@@ -367,11 +446,16 @@ def make_train_step(cfg: ModelConfig, optimizer: Callable, mesh=None, *,
                              "with optimizer(param_leaves(params))")
         for p in leaves:
             p.requires_grad_(True)
-        loss = loss_local(params, tokens, labels, mask, cfg)
+        loss = loss_local(params, tokens, labels, mask, cfg, mesh=mesh)
         loss.backward()
+        loss = loss.detach()
+        if mesh is not None and _world(mesh) > 1:
+            for p in leaves:
+                dist.all_reduce(p.grad)
+            dist.all_reduce(loss)
         opt_state.step()
         opt_state.zero_grad(set_to_none=True)
-        return params, opt_state, loss.detach()
+        return params, opt_state, loss
 
     return step
 

@@ -194,9 +194,11 @@ KERNELS: Dict[str, Kernel] = {
         "flash_bwd_dq", "flash_dq_sm90.cu", "lca_flash_bwd_dq",
         [_VP] * 10 + [_F, _F, _VP],
         "long_context_attention_tpu/ops/flash.py:1089"),
+    # (B2b also takes a multi-chunk descriptor's kv tile order, after the
+    # stream)
     "flash_bwd_dkv": Kernel(
         "flash_bwd_dkv", "flash_bwd_sm90.cu", "lca_flash_bwd_dkv",
-        [_VP] * 10 + [_F, _F, _VP],
+        [_VP] * 10 + [_F, _F, _VP, _VP],
         "long_context_attention_tpu/ops/flash.py:1174"),
     "flash_bwd_fused": Kernel(
         "flash_bwd_fused", "flash_bwd_sm90.cu", "lca_flash_bwd_fused",

@@ -14,9 +14,11 @@ PyTorch version of the same arithmetic in this module:
   s_kv and positions from 0 -- non-causal, sliding window, StreamingLLM
   sinks, softcap -- the TPU's ``_fwd_kernel_static``.
 * :func:`flash_fwd_pos` (kernel B3, ``csrc/flash_fwd_sm90.cu``): q rows
-  at global positions ``q_start + i`` against a BHSD kv (a cache slice,
-  taken by strides), with the same masks and softcap, bf16 or int8 K/V
-  with per-token scales, the TPU's ``_fwd_kernel``.
+  and kv columns at the global positions of a :class:`Positions`
+  descriptor (one chunk each, q at ``q_start + i``, for a cache slice
+  taken by strides; up to two chunks a side and a stride for the ring
+  layouts), with the same masks and softcap, bf16 or int8 K/V with
+  per-token scales, the TPU's ``_fwd_kernel``.
 * :func:`flash_bwd_dq` (B2a, ``csrc/flash_dq_sm90.cu``: the wgmma/TMA dq
   pipeline), :func:`flash_bwd_dkv` (B2b) and :func:`flash_bwd_fused` (B5,
   both ``csrc/flash_bwd_sm90.cu``: wgmma and TMA), all sm_90a only: the
@@ -25,29 +27,37 @@ PyTorch version of the same arithmetic in this module:
 
 :func:`flash_attention` routes its forward as the JAX package's
 ``_flash_fwd_bhsd`` does: B1 for plain causal self-attention, B4 for any
-other self-attention without offsets, B3 with one-chunk offsets or s_q !=
-s_kv (bottom-right aligned). It is differentiable, windows, sinks and
-softcap included: B5 is the backward of B1 and B4, B2a + B2b that of B3.
+other self-attention without offsets, B3 with offsets (``q_offsets`` /
+``kv_offsets`` and the strides: global position ``offsets[l // chunk] + (l
+% chunk) * stride``) or s_q != s_kv (bottom-right aligned). It is
+differentiable, windows, sinks and softcap included: B5 is the backward of
+B1 and B4, B2a + B2b that of B3.
 The forward is one ``torch.library`` op, so a selective-checkpoint policy
 can save its (out, lse) and skip it in the recompute.
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
-launches the kernel or raises. Features the kernels do not take (segments,
-ALiBi, dropout, position chunks and strides) raise
-``NotImplementedError``; they come in later slices.
+launches the kernel or raises. The kernels take the position descriptor in
+local units (:func:`pair_masks`): up to two chunks a side, each a multiple
+of 128 tokens when there are two, and one stride on both sides; the plain
+versions take any descriptor the JAX package takes. Features the kernels
+do not take (segments, ALiBi, dropout) raise ``NotImplementedError``; they
+come in later slices.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+import functools
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from long_context_attention_tpu_torch.ops import _build
 from long_context_attention_tpu_torch.utils.config import NEG_INF, not_ported
 
-__all__ = ["flash_attention", "flash_attention_bwd", "flash_attention_fwd",
+__all__ = ["Positions", "expand_positions", "pair_masks", "flash_attention",
+           "flash_attention_bwd", "flash_attention_fwd",
            "flash_attention_fwd_cache", "flash_bwd_dkv", "flash_bwd_dkv_plain",
            "flash_bwd_dq", "flash_bwd_dq_plain", "flash_bwd_fused",
            "flash_bwd_fused_plain", "flash_fwd_causal_self",
@@ -149,15 +159,126 @@ def _masks(causal: bool, window_size, sink_tokens: int, softcap: float
     return left, right, (int(sink_tokens) if left >= 0 else 0)
 
 
-def _mask(q_pos: torch.Tensor, s_kv: int, left: int, right: int, sink: int
-          ) -> Optional[torch.Tensor]:
+class Positions(NamedTuple):
+    """The global positions of a call's q rows and kv columns, the JAX
+    kernels' (q_offsets, kv_offsets, q_stride, kv_stride) descriptor: the
+    token at local index l of a side with offsets o (n chunks of length /
+    n) and stride st sits at ``o[l // chunk] + (l % chunk) * st``."""
+
+    q_offsets: Tuple[int, ...]
+    kv_offsets: Tuple[int, ...]
+    q_stride: int = 1
+    kv_stride: int = 1
+
+    @classmethod
+    def at(cls, q_start: int) -> "Positions":
+        """q row i at ``q_start + i``, kv column j at j."""
+        return cls((int(q_start),), (0,))
+
+    def q_positions(self, s_q: int, device=None) -> torch.Tensor:
+        return expand_positions(self.q_offsets, self.q_stride, s_q, device)
+
+    def kv_positions(self, s_kv: int, device=None) -> torch.Tensor:
+        return expand_positions(self.kv_offsets, self.kv_stride, s_kv,
+                                device)
+
+
+def expand_positions(offsets: Sequence[int], stride: int, n: int,
+                     device=None) -> torch.Tensor:
+    """The global position of each of n tokens of a side with these chunk
+    offsets and stride."""
+    chunk = n // len(offsets)
+    within = torch.arange(n, device=device) % chunk * stride
+    return torch.tensor(offsets, device=device).repeat_interleave(chunk) + within
+
+
+def _offsets(offsets, name: str) -> Tuple[int, ...]:
+    """A host tuple of ints of ``q_offsets`` / ``kv_offsets`` (a sequence,
+    numpy array or tensor; the ring passes them from its rank and step)."""
+    if isinstance(offsets, torch.Tensor):
+        offsets = offsets.tolist()
+    vals = tuple(int(v) for v in np.asarray(offsets).reshape(-1))
+    if not vals:
+        raise ValueError(f"{name} is empty")
+    return vals
+
+
+# the local-units mask of an unbounded side (csrc/sm90.cuh kOpenRel)
+_OPEN = 1 << 29
+
+
+def _clamp_open(x: int) -> int:
+    return max(-_OPEN, min(_OPEN, x))
+
+
+def pair_masks(pos: Positions, s_q: int, s_kv: int, left: int, right: int,
+               sink: int) -> List[int]:
+    """The kernels' descriptor (``csrc/sm90.cuh`` ``Desc``): the masks of
+    global positions (``_masks``' left, right, sink) in chunk-local units.
+
+    With one stride s on both sides, a q chunk at qo and a kv chunk at ko,
+    chunk-local row i and column j see each other when j - i <= hi =
+    floor((qo - ko + right) / s), and j - i >= lo = ceil((qo - ko - left) /
+    s) or j < sk = ceil((sink - ko) / s) (the sinks), clamped to the chunk.
+    Returns nqc, nkc, the chunk lengths, then (hi, lo, sk) of each (q chunk,
+    kv chunk) pair qc * 2 + kc of four. Raises for what the kernels do not
+    take: more than two chunks a side, a multi-chunk side not cut in
+    multiples of 128 tokens, or two strides."""
+    nqc, nkc = len(pos.q_offsets), len(pos.kv_offsets)
+    if nqc > 2 or nkc > 2:
+        raise not_ported(f"{nqc} q and {nkc} kv position chunks in the "
+                         f"kernels (the ring layouts use at most two)")
+    if pos.q_stride != pos.kv_stride:
+        raise not_ported(f"q_stride {pos.q_stride} != kv_stride "
+                         f"{pos.kv_stride} in the kernels")
+    if s_q % nqc or s_kv % nkc:
+        raise ValueError(f"s_q {s_q} and s_kv {s_kv} must divide into "
+                         f"{nqc} and {nkc} chunks")
+    cq, ckv = s_q // nqc, s_kv // nkc
+    if (nqc > 1 and cq % 128) or (nkc > 1 and ckv % 128):
+        raise ValueError(
+            f"the kernels' tiles of 128 must not cross a position chunk: "
+            f"s_q {s_q} in {nqc} chunks of {cq}, s_kv {s_kv} in {nkc} "
+            f"chunks of {ckv}")
+    st = pos.q_stride
+    tail = [nqc, nkc, cq, ckv]
+    for pr in range(4):
+        qc, kc = divmod(pr, 2)
+        if qc >= nqc or kc >= nkc:
+            tail += [0, 0, 0]
+            continue
+        d = pos.q_offsets[qc] - pos.kv_offsets[kc]
+        ko = pos.kv_offsets[kc]
+        hi = _clamp_open((d + right) // st) if right >= 0 else _OPEN
+        lo = _clamp_open(-((left - d) // st)) if left >= 0 else -_OPEN
+        sk = min(max(-((ko - sink) // st), 0), ckv) if left >= 0 else 0
+        tail += [hi, lo, sk]
+    return tail
+
+
+def legacy_dims(pos: Positions, sink: int) -> Tuple[int, int]:
+    """The one-chunk fields that the kernels' dims keep before the
+    descriptor (the layout of the earlier entry points): the position of q
+    row 0 less that of kv column 0, and the sinks less the kv offset; 0, 0
+    for a multi-chunk or strided call, whose kernels read the descriptor
+    alone."""
+    if (len(pos.q_offsets), len(pos.kv_offsets), pos.q_stride,
+            pos.kv_stride) != (1, 1, 1, 1):
+        return 0, 0
+    ko = pos.kv_offsets[0]
+    return pos.q_offsets[0] - ko, max(sink - ko, 0)
+
+
+def _mask(q_pos: torch.Tensor, kv_pos: torch.Tensor, left: int, right: int,
+          sink: int) -> Optional[torch.Tensor]:
     """Boolean (s_q, s_kv) mask over q rows at ``q_pos`` and kv columns at
-    0..s_kv-1, True where the score is dropped (_tile_mask)."""
+    ``kv_pos`` (global positions), True where the score is dropped
+    (_tile_mask)."""
     if left < 0 and right < 0:
         return None
     rows = q_pos[:, None]
-    cols = torch.arange(s_kv, device=q_pos.device)[None, :]
-    mask = torch.zeros((rows.shape[0], s_kv), dtype=torch.bool,
+    cols = kv_pos[None, :]
+    mask = torch.zeros((rows.shape[0], cols.shape[1]), dtype=torch.bool,
                        device=q_pos.device)
     if right >= 0:
         mask |= cols > rows + right
@@ -230,7 +351,8 @@ def _self_dims(q, k, v, out, left: int, right: int, sink: int):
     b, s, h, _ = q.shape
     return _build.dims_array([
         b, h, k.shape[2], s, s, *q.stride()[:3], *k.stride()[:3],
-        *v.stride()[:3], *out.stride()[:3], 0, 0, 0, 0, left, right, sink])
+        *v.stride()[:3], *out.stride()[:3], 0, 0, 0, 0, left, right, sink,
+        *pair_masks(Positions.at(0), s, s, left, right, sink)])
 
 
 def _check_self(name: str, q, k, v) -> None:
@@ -303,7 +425,8 @@ def flash_fwd_static_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     s, h = q.shape[1], q.shape[2]
     g = h // k.shape[2]
     left, right, sink = _masks(causal, window_size, sink_tokens, softcap)
-    mask = _mask(torch.arange(s, device=q.device), s, left, right, sink)
+    ar = torch.arange(s, device=q.device)
+    mask = _mask(ar, ar, left, right, sink)
     kf, vf = (t.transpose(1, 2).float().repeat_interleave(g, dim=1)
               for t in (k, v))
     return _attend_plain(q, kf, vf, mask, scale=scale,
@@ -346,17 +469,25 @@ def flash_fwd_static(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 # ---------------------------------------------------------------------------
 
 
+def _pos(pos: Optional[Positions], q_start: int) -> Positions:
+    """A call's descriptor: ``pos``, or one chunk a side with q row i at
+    ``q_start + i`` and kv column j at j."""
+    return Positions.at(q_start) if pos is None else pos
+
+
 def flash_fwd_pos_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         k_scale: Optional[torch.Tensor] = None,
                         v_scale: Optional[torch.Tensor] = None, *,
-                        q_start: int = 0, causal: bool = False,
-                        window_size=(-1, -1), sink_tokens: int = 0,
-                        softcap: float = 0.0, scale: float,
-                        safe_softmax: bool = False):
+                        q_start: int = 0, pos: Optional[Positions] = None,
+                        causal: bool = False, window_size=(-1, -1),
+                        sink_tokens: int = 0, softcap: float = 0.0,
+                        scale: float, safe_softmax: bool = False):
     """Plain version of kernel B3 (same arithmetic, whole rows at once).
 
-    q (b, s_q, h, d) at positions q_start + i; k, v (b, h_kv, s_kv, d) at
-    positions j, bf16 or int8 with fp32 scales (b, h_kv, s_kv). Fast form:
+    q (b, s_q, h, d); k, v (b, h_kv, s_kv, d), bf16 or int8 with fp32
+    scales (b, h_kv, s_kv); the masks compare the global positions of
+    ``pos`` (any descriptor), or q row i at q_start + i and kv column j at
+    j, with sinks at positions below ``sink_tokens``. Fast form:
     s = (q folded) . k * k_scale, p = exp2(min(s, 90)), l = rowsum(p) before
     V's scale, acc = bf16(p * v_scale) @ v. Online form: s = q . k * k_scale
     * scale and the exact softmax in natural units; softcap caps s first."""
@@ -366,8 +497,9 @@ def flash_fwd_pos_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     quant = k_scale is not None
     vdt = torch.bfloat16 if quant else v.dtype
     left, right, sink = _masks(causal, window_size, sink_tokens, softcap)
-    mask = _mask(q_start + torch.arange(s_q, device=q.device), s_kv, left,
-                 right, sink)
+    pos = _pos(pos, q_start)
+    mask = _mask(pos.q_positions(s_q, q.device),
+                 pos.kv_positions(s_kv, q.device), left, right, sink)
     kf, vf = (t.to(vdt).float().repeat_interleave(g, dim=1) for t in (k, v))
     ks = vs = None
     if quant:
@@ -381,23 +513,25 @@ def flash_fwd_pos_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def flash_fwd_pos(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   k_scale: Optional[torch.Tensor] = None,
                   v_scale: Optional[torch.Tensor] = None, *,
-                  q_start: int = 0, causal: bool = False,
-                  window_size=(-1, -1), sink_tokens: int = 0,
-                  softcap: float = 0.0, scale: float,
+                  q_start: int = 0, pos: Optional[Positions] = None,
+                  causal: bool = False, window_size=(-1, -1),
+                  sink_tokens: int = 0, softcap: float = 0.0, scale: float,
                   safe_softmax: bool = False):
     """Kernel B3 wrapper: q (b, s_q, h, d) bf16 against k, v (b, h_kv, s_kv,
     d), bf16 or int8 with fp32 scales (b, h_kv, s_kv). k, v and the scales
     may be strided views (a cache slice); they are read in place. Masks and
-    softcap as in :func:`flash_attention`, over q rows at ``q_start + i``;
-    the kernel walks the sink tiles and each q tile's band only. Returns
-    out (b, s_q, h, d) bf16 and lse (b, h, s_q) fp32. CPU tensors take
+    softcap as in :func:`flash_attention`, over the positions of ``pos``
+    (or q rows at ``q_start + i``, kv columns at j); each q tile walks, kv
+    chunk by kv chunk, the sink tiles and its band only. Returns out (b,
+    s_q, h, d) bf16 and lse (b, h, s_q) fp32. CPU tensors take
     :func:`flash_fwd_pos_plain`."""
     if q.device.type == "cpu":
         return flash_fwd_pos_plain(
-            q, k, v, k_scale, v_scale, q_start=q_start, causal=causal,
-            window_size=window_size, sink_tokens=sink_tokens,
+            q, k, v, k_scale, v_scale, q_start=q_start, pos=pos,
+            causal=causal, window_size=window_size, sink_tokens=sink_tokens,
             softcap=softcap, scale=scale, safe_softmax=safe_softmax)
     left, right, sink = _masks(causal, window_size, sink_tokens, softcap)
+    pos = _pos(pos, q_start)
     b, s_q, h, d = q.shape
     _, h_kv, s_kv, _ = k.shape
     if k.shape != (b, h_kv, s_kv, d) or v.shape != k.shape or h % h_kv:
@@ -429,9 +563,11 @@ def flash_fwd_pos(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty((b, s_q, h, d), dtype=torch.bfloat16, device=q.device)
     lse = torch.empty((b, h, s_q), dtype=torch.float32, device=q.device)
     kst = (k.stride(0), k.stride(2), k.stride(1))  # (batch, seq, head)
+    desc = pair_masks(pos, s_q, s_kv, left, right, sink)
+    q0, sink0 = legacy_dims(pos, sink)
     dims = _build.dims_array([
         b, h, h_kv, s_q, s_kv, *q.stride()[:3], *kst, *kst,
-        *out.stride()[:3], *sc_strides, int(q_start), left, right, sink])
+        *out.stride()[:3], *sc_strides, q0, left, right, sink0, *desc])
     _build.KERNELS["flash_fwd_pos"](
         _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(k_scale),
         _build.ptr(v_scale), _build.ptr(out), _build.ptr(lse), dims,
@@ -445,15 +581,15 @@ def flash_fwd_pos(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def _p_ds(q, k, v, dout, lse, delta, *, q_start: int, causal: bool,
+def _p_ds(q, k, v, dout, lse, delta, *, pos: Positions, causal: bool,
           scale: float, window_size=(-1, -1), sink_tokens: int = 0,
           softcap: float = 0.0):
     """p = exp(s - lse) and ds = p * (dp - delta) [* (1 - t^2)] * scale,
     fp32 (b, h, s_q, s_kv), with s = (q . k) * scale from the raw q, capped
     to s = cap * t, t = tanh(s / cap), under a softcap; p is 0 where the
-    masks (_mask at rows q_start + i) drop a pair and on rows whose lse is
-    -inf (the TPU's _recompute_p and _ds_to_dqk). Also returns k and v
-    repeated to h heads, in fp32."""
+    masks (_mask at the positions of ``pos``) drop a pair and on rows whose
+    lse is -inf (the TPU's _recompute_p and _ds_to_dqk). Also returns k and
+    v repeated to h heads, in fp32."""
     s_q, h = q.shape[1], q.shape[2]
     s_kv = k.shape[1]
     g = h // k.shape[2]
@@ -468,8 +604,8 @@ def _p_ds(q, k, v, dout, lse, delta, *, q_start: int, causal: bool,
     lse4 = lse.float()[..., None]
     bad = torch.isneginf(lse4)
     s.sub_(torch.where(bad, torch.zeros_like(lse4), lse4))
-    mask = _mask(q_start + torch.arange(s_q, device=q.device), s_kv, left,
-                 right, sink)
+    mask = _mask(pos.q_positions(s_q, q.device),
+                 pos.kv_positions(s_kv, q.device), left, right, sink)
     if mask is not None:
         bad = bad | mask
     p = s.exp_().masked_fill_(bad, 0.0)
@@ -488,29 +624,31 @@ def _group_sum(x: torch.Tensor, h_kv: int) -> torch.Tensor:
 
 
 def flash_bwd_dq_plain(q, k, v, dout, lse, delta, *, scale: float,
-                       q_start: int = 0, causal: bool = True,
-                       window_size=(-1, -1), sink_tokens: int = 0,
-                       softcap: float = 0.0):
+                       q_start: int = 0, pos: Optional[Positions] = None,
+                       causal: bool = True, window_size=(-1, -1),
+                       sink_tokens: int = 0, softcap: float = 0.0):
     """Plain version of kernel B2a (same arithmetic and casts, whole rows).
 
     q, dout (b, s_q, h, d); k, v (b, s_kv, h_kv, d); lse, delta (b, h, s_q)
-    fp32; q row i at position q_start + i, kv column j at j; masks and
-    softcap as in :func:`flash_attention`. Returns dq (b, s_q, h, d) fp32 =
-    bf16(ds) @ k (ds cast to k's dtype)."""
-    _, ds, kf, _ = _p_ds(q, k, v, dout, lse, delta, q_start=q_start,
+    fp32; the positions of ``pos`` (any descriptor), or q row i at q_start
+    + i and kv column j at j; masks and softcap as in
+    :func:`flash_attention`. Returns dq (b, s_q, h, d) fp32 = bf16(ds) @ k
+    (ds cast to k's dtype)."""
+    _, ds, kf, _ = _p_ds(q, k, v, dout, lse, delta, pos=_pos(pos, q_start),
                          causal=causal, scale=scale, window_size=window_size,
                          sink_tokens=sink_tokens, softcap=softcap)
     return torch.einsum("bhqk,bkhd->bqhd", ds.to(k.dtype).float(), kf)
 
 
 def flash_bwd_dkv_plain(q, k, v, dout, lse, delta, *, scale: float,
-                        q_start: int = 0, causal: bool = True,
-                        window_size=(-1, -1), sink_tokens: int = 0,
-                        softcap: float = 0.0):
+                        q_start: int = 0, pos: Optional[Positions] = None,
+                        causal: bool = True, window_size=(-1, -1),
+                        sink_tokens: int = 0, softcap: float = 0.0):
     """Plain version of kernel B2b: dk, dv (b, s_kv, h_kv, d) fp32, summed
     over each kv head's query heads; dv = bf16(p)^T @ dout (p cast to
-    dout's dtype), dk = bf16(ds)^T @ q (ds cast to q's dtype)."""
-    p, ds, _, _ = _p_ds(q, k, v, dout, lse, delta, q_start=q_start,
+    dout's dtype), dk = bf16(ds)^T @ q (ds cast to q's dtype); positions
+    as in :func:`flash_bwd_dq_plain`."""
+    p, ds, _, _ = _p_ds(q, k, v, dout, lse, delta, pos=_pos(pos, q_start),
                         causal=causal, scale=scale, window_size=window_size,
                         sink_tokens=sink_tokens, softcap=softcap)
     h_kv = k.shape[2]
@@ -526,7 +664,7 @@ def flash_bwd_fused_plain(q, k, v, dout, lse, delta, *, scale: float,
                           sink_tokens: int = 0, softcap: float = 0.0):
     """Plain version of kernel B5: self-attention (s_q == s_kv, positions
     from 0 on both sides) -> dq, dk, dv fp32, with B2a's and B2b's casts."""
-    p, ds, kf, _ = _p_ds(q, k, v, dout, lse, delta, q_start=0,
+    p, ds, kf, _ = _p_ds(q, k, v, dout, lse, delta, pos=Positions.at(0),
                          causal=causal, scale=scale, window_size=window_size,
                          sink_tokens=sink_tokens, softcap=softcap)
     h_kv = k.shape[2]
@@ -540,8 +678,51 @@ def flash_bwd_fused_plain(q, k, v, dout, lse, delta, *, scale: float,
     return dq, _group_sum(dk, h_kv), _group_sum(dv, h_kv)
 
 
+@functools.lru_cache(maxsize=256)
+def _dkv_order(desc: Tuple[int, ...], causal: bool, band: bool
+               ) -> Tuple[int, ...]:
+    """B2b's kv tiles under a multi-chunk descriptor, longest walk first
+    (ties in tile order): each kv tile of 128 rows walks, q chunk by q
+    chunk, the q tiles of 64 rows from the first that sees it to the last
+    (band masks: the last its left window reaches, or every one for a tile
+    that holds a sink), as csrc/flash_bwd_sm90.cu QWalk counts them."""
+    nqc, nkc, cq, ckv = desc[:4]
+    tiles = -(-cq // 64)
+    lengths = []
+    for ik in range(nkc * ckv // 128):
+        kc, k0l = divmod(ik * 128, ckv)
+        n = 0
+        for qc in range(nqc):
+            hi, lo, sk = desc[4 + 3 * (qc * 2 + kc):7 + 3 * (qc * 2 + kc)]
+            first = 0
+            if band or causal:
+                fr = k0l - hi
+                first = 0 if fr <= 0 else min(tiles, fr // 64)
+            last = tiles - 1
+            if band and k0l >= sk:
+                lr = k0l + 127 - lo
+                last = -1 if lr < 0 else min(last, lr // 64)
+            n += max(last - first + 1, 0)
+        lengths.append(n)
+    return tuple(int(i) for i in np.argsort(-np.asarray(lengths),
+                                            kind="stable"))
+
+
+_ORDERS = {}
+
+
+def _order_tensor(order: Tuple[int, ...], device) -> torch.Tensor:
+    """The int32 device copy of an order, made once per order and card."""
+    key = (order, str(device))
+    t = _ORDERS.get(key)
+    if t is None:
+        t = _ORDERS[key] = torch.tensor(order, dtype=torch.int32,
+                                        device=device)
+    return t
+
+
 def _bwd_launch(kernel: str, q, k, v, dout, lse, delta, *, scale: float,
-                q_start: int, causal: bool, window_size, sink_tokens: int,
+                pos: Positions, causal: bool, window_size, sink_tokens: int,
                 softcap: float, dq=None, dk=None, dv=None):
     """Check the operands of a backward kernel and launch it on the
     current stream; the outputs are fp32 BSHD buffers made by the caller."""
@@ -563,29 +744,39 @@ def _bwd_launch(kernel: str, q, k, v, dout, lse, delta, *, scale: float,
                 or t.device != q.device or not t.is_contiguous()):
             raise ValueError(f"{name} must be contiguous fp32 (b, h, s_q) on "
                              f"{q.device}")
+    desc = pair_masks(pos, s_q, s_kv, left, right, sink)
+    q0, sink0 = legacy_dims(pos, sink)
     dq_st = dq.stride()[:3] if dq is not None else (0, 0, 0)
     dk_st = dk.stride()[:3] if dk is not None else (0, 0, 0)
     dims = _build.dims_array([
         b, h, h_kv, s_q, s_kv, *q.stride()[:3], *k.stride()[:3],
-        *v.stride()[:3], *dout.stride()[:3], *dq_st, *dk_st, int(q_start),
-        int(causal), left, right, sink])
-    _build.KERNELS[kernel](
-        _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(dout),
-        _build.ptr(lse), _build.ptr(delta), _build.ptr(dq), _build.ptr(dk),
-        _build.ptr(dv), dims, scale, float(softcap),
-        _build.stream_ptr(q.device))
+        *v.stride()[:3], *dout.stride()[:3], *dq_st, *dk_st, q0,
+        int(causal), left, right, sink0, *desc])
+    args = [_build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(dout),
+            _build.ptr(lse), _build.ptr(delta), _build.ptr(dq),
+            _build.ptr(dk), _build.ptr(dv), dims, scale, float(softcap),
+            _build.stream_ptr(q.device)]
+    if kernel == "flash_bwd_dkv":  # a multi-chunk walk takes the host's order
+        order = None
+        if desc[0] * desc[1] > 1:
+            band = softcap > 0 or left >= 0 or (not causal and right >= 0)
+            order = _order_tensor(_dkv_order(tuple(desc), bool(causal), band),
+                                  q.device)
+        args.append(_build.ptr(order))
+    _build.KERNELS[kernel](*args)
 
 
 def flash_bwd_dq(q, k, v, dout, lse, delta, *, scale: float,
-                 q_start: int = 0, causal: bool = True, window_size=(-1, -1),
+                 q_start: int = 0, pos: Optional[Positions] = None,
+                 causal: bool = True, window_size=(-1, -1),
                  sink_tokens: int = 0, softcap: float = 0.0):
     """Kernel B2a wrapper: dq (b, s_q, h, d) fp32 of bf16 BSHD q, k, v and
-    dout (read by strides) with fp32 (b, h, s_q) lse and delta; masks and
-    softcap as in :func:`flash_attention`. Persistent blocks take 128-row q
-    tiles in the forward's order, each walking the sink tiles and its band
-    (wgmma, TMA), and write dq once (no atomics: deterministic). CPU
-    tensors take :func:`flash_bwd_dq_plain`."""
-    shape = dict(scale=scale, q_start=q_start, causal=causal,
+    dout (read by strides) with fp32 (b, h, s_q) lse and delta; positions,
+    masks and softcap as in :func:`flash_fwd_pos`. Persistent blocks take
+    128-row q tiles in the forward's order, each walking, kv chunk by kv
+    chunk, the sink tiles and its band (wgmma, TMA), and write dq once (no
+    atomics: deterministic). CPU tensors take :func:`flash_bwd_dq_plain`."""
+    shape = dict(scale=scale, pos=_pos(pos, q_start), causal=causal,
                  window_size=window_size, sink_tokens=sink_tokens,
                  softcap=softcap)
     if q.device.type == "cpu":
@@ -596,14 +787,17 @@ def flash_bwd_dq(q, k, v, dout, lse, delta, *, scale: float,
 
 
 def flash_bwd_dkv(q, k, v, dout, lse, delta, *, scale: float,
-                  q_start: int = 0, causal: bool = True, window_size=(-1, -1),
+                  q_start: int = 0, pos: Optional[Positions] = None,
+                  causal: bool = True, window_size=(-1, -1),
                   sink_tokens: int = 0, softcap: float = 0.0):
     """Kernel B2b wrapper: dk, dv (b, s_kv, h_kv, d) fp32. Each 128-row kv
-    tile walks its group's query heads and their q tiles over its band:
-    from the causal or right-window diagonal to the last row its left
-    window reaches, every row for a tile that holds a sink (persistent
-    blocks, TMA, wgmma). CPU tensors take :func:`flash_bwd_dkv_plain`."""
-    shape = dict(scale=scale, q_start=q_start, causal=causal,
+    tile walks its group's query heads and, q chunk by q chunk, their q
+    tiles over its band: from the causal or right-window diagonal to the
+    last row its left window reaches, every row for a tile that holds a
+    sink (persistent blocks, TMA, wgmma; a multi-chunk descriptor's kv
+    tiles in the host's longest-first order). CPU tensors take
+    :func:`flash_bwd_dkv_plain`."""
+    shape = dict(scale=scale, pos=_pos(pos, q_start), causal=causal,
                  window_size=window_size, sink_tokens=sink_tokens,
                  softcap=softcap)
     if q.device.type == "cpu":
@@ -633,27 +827,26 @@ def flash_bwd_fused(q, k, v, dout, lse, delta, *, scale: float,
     dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
     dk = torch.empty(k.shape, dtype=torch.float32, device=q.device)
     dv = torch.empty(k.shape, dtype=torch.float32, device=q.device)
-    _bwd_launch("flash_bwd_fused", q, k, v, dout, lse, delta, q_start=0,
-                dq=dq, dk=dk, dv=dv, **shape)
+    _bwd_launch("flash_bwd_fused", q, k, v, dout, lse, delta,
+                pos=Positions.at(0), dq=dq, dk=dk, dv=dv, **shape)
     return dq, dk, dv
 
 
-def _flash_bwd(q, k, v, out, lse, dout, *, q_start: Optional[int],
+def _flash_bwd(q, k, v, out, lse, dout, *, pos: Optional[Positions],
                causal: bool, scale: float, window_size=(-1, -1),
                sink_tokens: int = 0, softcap: float = 0.0):
     """fp32 (dq, dk, dv) by the JAX package's dispatch (_flash_bwd_bhsd):
-    static self-attention (q_start None) runs B5, positions run B2a +
-    B2b. delta = rowsum(dout * out) is an fp32 torch pass, as XLA's."""
+    static self-attention (pos None) runs B5, positions run B2a + B2b.
+    delta = rowsum(dout * out) is an fp32 torch pass, as XLA's."""
     dout = dout.contiguous()
     delta = (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
     lse = lse.contiguous()
     shape = dict(scale=scale, causal=causal, window_size=window_size,
                  sink_tokens=sink_tokens, softcap=softcap)
-    if q_start is None:
+    if pos is None:
         return flash_bwd_fused(q, k, v, dout, lse, delta, **shape)
-    dq = flash_bwd_dq(q, k, v, dout, lse, delta, q_start=q_start, **shape)
-    dk, dv = flash_bwd_dkv(q, k, v, dout, lse, delta, q_start=q_start,
-                           **shape)
+    dq = flash_bwd_dq(q, k, v, dout, lse, delta, pos=pos, **shape)
+    dk, dv = flash_bwd_dkv(q, k, v, dout, lse, delta, pos=pos, **shape)
     return dq, dk, dv
 
 
@@ -667,12 +860,13 @@ _B1, _B4, _B3 = 0, 1, 2
 
 @torch.library.custom_op("lca_torch::flash_attention", mutates_args=())
 def _flash_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, route: int,
-              q_start: int, causal: bool, window_left: int,
-              window_right: int, sink_tokens: int, softcap: float,
-              scale: float, safe_softmax: bool
-              ) -> Tuple[torch.Tensor, torch.Tensor]:
+              q_offsets: List[int], kv_offsets: List[int], q_stride: int,
+              kv_stride: int, causal: bool, window_left: int, window_right: int,
+              sink_tokens: int, softcap: float, scale: float,
+              safe_softmax: bool) -> Tuple[torch.Tensor, torch.Tensor]:
     """(out, lse) of BSHD q, k, v through kernel B1, B4 or B3 (``route``);
-    B3 puts q rows at positions q_start + i."""
+    B3 puts q rows and kv columns at the positions of (q_offsets,
+    kv_offsets, q_stride, kv_stride)."""
     if route == _B1:
         return flash_fwd_causal_self(q, k, v, scale=scale,
                                      safe_softmax=safe_softmax)
@@ -682,14 +876,16 @@ def _flash_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, route: int,
     if route == _B4:
         return flash_fwd_static(q, k, v, **masks)
     return flash_fwd_pos(q, k.transpose(1, 2), v.transpose(1, 2),
-                         q_start=q_start, **masks)
+                         pos=Positions(tuple(q_offsets), tuple(kv_offsets),
+                                       q_stride, kv_stride), **masks)
 
 
 def _flash_op_setup(ctx, inputs, output) -> None:
-    (q, k, v, route, q_start, causal, left, right, sink, softcap, scale,
-     _) = inputs
+    (q, k, v, route, q_off, kv_off, q_stride, kv_stride, causal, left, right,
+     sink, softcap, scale, _) = inputs
     ctx.save_for_backward(q, k, v, *output)
-    ctx.q_start = q_start if route == _B3 else None
+    ctx.pos = (Positions(tuple(q_off), tuple(kv_off), q_stride, kv_stride)
+               if route == _B3 else None)
     ctx.shape = dict(causal=causal, scale=scale, window_size=(left, right),
                      sink_tokens=sink, softcap=softcap)
 
@@ -697,9 +893,9 @@ def _flash_op_setup(ctx, inputs, output) -> None:
 def _flash_op_backward(ctx, dout, dlse):
     del dlse  # the lse cotangent is not propagated (as in flash-attn)
     q, k, v, out, lse = ctx.saved_tensors
-    dq, dk, dv = _flash_bwd(q, k, v, out, lse, dout, q_start=ctx.q_start,
+    dq, dk, dv = _flash_bwd(q, k, v, out, lse, dout, pos=ctx.pos,
                             **ctx.shape)
-    return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)) + (None,) * 9
+    return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)) + (None,) * 12
 
 
 _flash_op.register_autograd(_flash_op_backward, setup_context=_flash_op_setup)
@@ -716,7 +912,6 @@ FLASH_ATTENTION_OP = torch.ops.lca_torch.flash_attention.default
 
 # kwargs of the JAX API whose non-default values the port does not take yet
 _FEATURE_DEFAULTS = dict(
-    q_offsets=None, kv_offsets=None, q_stride=1, kv_stride=1,
     q_segment_ids=None, kv_segment_ids=None, dropout_p=0.0, dropout_key=None,
     dropout_seed=None, alibi_slopes=None, kv_lengths=None)
 
@@ -739,67 +934,75 @@ def _scale(q, softmax_scale) -> float:
             else 1.0 / math.sqrt(q.shape[-1]))
 
 
-def _one_chunk(offsets, name: str) -> int:
-    """The start position of a one-chunk ``q_offsets`` / ``kv_offsets``."""
-    vals = torch.as_tensor(offsets).reshape(-1).tolist()
-    if len(vals) != 1:
-        raise not_ported(f"{name} with {len(vals)} position chunks (ring "
-                         f"layouts)")
-    return int(vals[0])
+def call_positions(s_q: int, s_kv: int, q_offsets=None, kv_offsets=None,
+                   q_stride: int = 1, kv_stride: int = 1
+                   ) -> Optional[Positions]:
+    """The positions of a JAX-API call: None for static self-attention (no
+    offsets, unit strides and s_q == s_kv); else the descriptor, an absent
+    side at offset 0 and, without offsets, q bottom-right aligned (offset
+    s_kv - s_q), as the JAX package's ``flash_attention`` sets them."""
+    if q_offsets is None and kv_offsets is None:
+        if s_q == s_kv and q_stride == 1 and kv_stride == 1:
+            return None
+        q_offsets = (s_kv - s_q,)
+    q_off = (0,) if q_offsets is None else _offsets(q_offsets, "q_offsets")
+    kv_off = (0,) if kv_offsets is None else _offsets(kv_offsets,
+                                                      "kv_offsets")
+    if s_q % len(q_off) or s_kv % len(kv_off):
+        raise ValueError(f"s_q {s_q} and s_kv {s_kv} must divide into "
+                         f"{len(q_off)} and {len(kv_off)} position chunks")
+    return Positions(q_off, kv_off, int(q_stride), int(kv_stride))
 
 
-def _positions(s_q: int, s_kv: int, sink_tokens: int, features):
-    """Pop ``q_offsets`` / ``kv_offsets`` from ``features``: (q_start,
-    sink). q_start None means static self-attention (no offsets and s_q ==
-    s_kv); otherwise the position of q row 0 relative to kv column 0: the
-    offsets' difference, or s_kv - s_q (bottom-right alignment) when only
-    the lengths differ. Sinks are global positions below ``sink_tokens``:
-    kv columns below sink_tokens less the kv offset."""
-    q_off = features.pop("q_offsets", None)
-    kv_off = features.pop("kv_offsets", None)
-    if q_off is None and kv_off is None:
-        return (None if s_q == s_kv else s_kv - s_q), sink_tokens
-    kv0 = 0 if kv_off is None else _one_chunk(kv_off, "kv_offsets")
-    q0 = 0 if q_off is None else _one_chunk(q_off, "q_offsets")
-    return q0 - kv0, max(int(sink_tokens) - kv0, 0)
+def _pop_positions(s_q: int, s_kv: int, features) -> Optional[Positions]:
+    return call_positions(
+        s_q, s_kv, features.pop("q_offsets", None),
+        features.pop("kv_offsets", None), features.pop("q_stride", 1),
+        features.pop("kv_stride", 1))
 
 
 def flash_attention(q, k, v, *, causal: bool = False,
                     softmax_scale: Optional[float] = None,
                     window_size=(-1, -1), softcap: float = 0.0,
-                    sink_tokens: int = 0, block_sizes=None, interpret=None,
-                    return_lse: bool = False, tri_grid=None,
+                    sink_tokens: int = 0, q_offsets=None, kv_offsets=None,
+                    q_stride: int = 1, kv_stride: int = 1, block_sizes=None,
+                    interpret=None, return_lse: bool = False, tri_grid=None,
                     safe_softmax: bool = False, **features):
     """Flash attention, BSHD: q (b, s_q, h, d); k, v (b, s_kv, h_kv, d).
 
     ``window_size`` (left, right) is a sliding window over global
     positions (-1: unbounded; causal sets right to 0), ``sink_tokens``
     keeps positions below it visible through the left window, ``softcap``
-    caps the scores (cap * tanh(s / cap), online softmax). Forward by the
-    JAX package's routing: causal self-attention with no window, softcap or
-    offsets runs B1 (``tri_grid=False`` sends it to B4 as in JAX), any other
-    self-attention without offsets B4, one-chunk ``q_offsets`` /
-    ``kv_offsets`` (token i at offset + i, stride 1) or s_q != s_kv
-    (bottom-right aligned) B3. Differentiable with the same masks and
-    softcap: B5 backward after B1 and B4, B2a + B2b after B3. The other
-    feature kwargs
-    (:data:`_FEATURE_DEFAULTS`) raise unless left at their defaults.
-    ``block_sizes`` and ``interpret`` are accepted for API parity; the
-    Hopper kernels pick their own tiles and walk only the live ones."""
+    caps the scores (cap * tanh(s / cap), online softmax). ``q_offsets`` /
+    ``kv_offsets`` (the start positions of equal chunks) and ``q_stride`` /
+    ``kv_stride`` place the tokens: local index l of a side sits at
+    ``offsets[l // chunk] + (l % chunk) * stride`` (the ring layouts).
+    Forward by the JAX package's routing: causal self-attention with no
+    window, softcap or offsets runs B1 (``tri_grid=False`` sends it to B4
+    as in JAX), any other self-attention without offsets B4, offsets,
+    strides or s_q != s_kv (bottom-right aligned) B3. Differentiable with
+    the same masks and softcap: B5 backward after B1 and B4, B2a + B2b
+    after B3. The other feature kwargs (:data:`_FEATURE_DEFAULTS`) raise
+    unless left at their defaults. ``block_sizes`` and ``interpret`` are
+    accepted for API parity; the Hopper kernels pick their own tiles and
+    walk only the live ones."""
     del block_sizes, interpret
-    q_start, sink_tokens = _positions(q.shape[1], k.shape[1], sink_tokens,
-                                      features)
+    pos = call_positions(q.shape[1], k.shape[1], q_offsets, kv_offsets,
+                         q_stride, kv_stride)
     _reject_features("flash_attention (kernel B3 in full)", features)
     left, right, sink = _masks(causal, window_size, sink_tokens, softcap)
-    if q_start is not None:
+    if pos is not None:
         route = _B3
     elif (causal and tuple(window_size) == (-1, -1) and not softcap
           and tri_grid is not False):
         route = _B1
     else:
         route = _B4
-    out, lse = _flash_op(q, k, v, route, q_start or 0, bool(causal), left,
-                         right, sink, float(softcap),
+    pos = pos or Positions.at(0)
+    out, lse = _flash_op(q, k, v, route, list(pos.q_offsets),
+                         list(pos.kv_offsets), pos.q_stride, pos.kv_stride,
+                         bool(causal),
+                         left, right, sink, float(softcap),
                          float(_scale(q, softmax_scale)), bool(safe_softmax))
     return (out, lse) if return_lse else out
 
@@ -812,14 +1015,14 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = False,
                         **features):
     """Backward-only entry (the ring backward's per-step call), BSHD in and
     out: fp32 (dq, dk, dv) partials of this kv block, with the forward's
-    window, sinks and softcap. Static self-attention runs B5, one-chunk
-    offsets (or s_q != s_kv) B2a + B2b. The backward recomputes in fp32
-    whatever the forward's softmax form was."""
+    positions (``q_offsets``, ``kv_offsets``, the strides), window, sinks
+    and softcap. Static self-attention runs B5, positions (or s_q != s_kv)
+    B2a + B2b. The backward recomputes in fp32 whatever the forward's
+    softmax form was."""
     del block_sizes, interpret, safe_softmax
-    q_start, sink_tokens = _positions(q.shape[1], k.shape[1], sink_tokens,
-                                      features)
+    pos = _pop_positions(q.shape[1], k.shape[1], features)
     _reject_features("flash_attention_bwd (kernels B2/B5 in full)", features)
-    return _flash_bwd(q, k, v, out, lse, dout, q_start=q_start,
+    return _flash_bwd(q, k, v, out, lse, dout, pos=pos,
                       causal=bool(causal), scale=_scale(q, softmax_scale),
                       window_size=window_size, sink_tokens=sink_tokens,
                       softcap=float(softcap))
@@ -836,8 +1039,9 @@ def flash_attention_fwd(q, k, v, *, k_scale=None, v_scale=None,
     :func:`flash_attention` is.
 
     ``k_scale`` / ``v_scale`` ((b, h_kv, s_kv) fp32) switch on the int8-KV
-    path (kernel B3, bottom-right aligned when s_q != s_kv, with the same
-    window, sinks and softcap), which is forward-only."""
+    path (kernel B3 at the call's positions, bottom-right aligned without
+    offsets, with the same window, sinks and softcap; the ring's
+    ``kv_quant``), which is forward-only."""
     del return_lse
     shape = dict(causal=causal, window_size=window_size, softcap=softcap,
                  sink_tokens=sink_tokens, safe_softmax=safe_softmax)
@@ -847,9 +1051,10 @@ def flash_attention_fwd(q, k, v, *, k_scale=None, v_scale=None,
                                return_lse=True, tri_grid=tri_grid, **shape,
                                **features)
     _forward_only(_QUANT_FORWARD_ONLY, q, k, v)
+    pos = _pop_positions(q.shape[1], k.shape[1], features)
     _reject_features("the int8-KV path (kernel B3 in full)", features)
     return flash_fwd_pos(q, k.transpose(1, 2), v.transpose(1, 2),
-                         k_scale, v_scale, q_start=k.shape[1] - q.shape[1],
+                         k_scale, v_scale, pos=pos or Positions.at(0),
                          scale=_scale(q, softmax_scale), **shape)
 
 

@@ -29,9 +29,6 @@ from typing import Callable, Dict
 from long_context_attention_tpu_torch.ops import flash as _flash
 from long_context_attention_tpu_torch.ops import reference as _ref
 from long_context_attention_tpu_torch.ops import sage as _sage
-from long_context_attention_tpu_torch.parallel.layouts import (
-    positions_from_descriptor,
-)
 
 __all__ = ["AttnImpl", "get_attn_impl", "register_attn_impl", "ATTN_IMPLS"]
 
@@ -54,13 +51,12 @@ def _xla_kw(q_len: int, kv_len: int, kw) -> dict:
         softcap=kw.get("softcap", 0.0),
         sink_tokens=kw.get("sink_tokens", 0),
     )
-    q_off, kv_off = kw.get("q_offsets"), kw.get("kv_offsets")
-    if q_off is not None:
-        out["q_positions"] = positions_from_descriptor(
-            q_off, kw.get("q_stride", 1), q_len)
-    if kv_off is not None:
-        out["kv_positions"] = positions_from_descriptor(
-            kv_off, kw.get("kv_stride", 1), kv_len)
+    for side, n in (("q", q_len), ("kv", kv_len)):
+        off = kw.get(f"{side}_offsets")
+        if off is not None:
+            out[f"{side}_positions"] = _flash.expand_positions(
+                _flash._offsets(off, f"{side}_offsets"),
+                int(kw.get(f"{side}_stride", 1)), n)
     for key in ("q_segment_ids", "kv_segment_ids"):
         if kw.get(key) is not None:
             out[key] = kw[key]

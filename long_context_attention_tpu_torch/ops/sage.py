@@ -18,9 +18,11 @@ version of the same arithmetic:
   self-attention, the TPU's ``_sage_kernel_tri``;
 * :func:`sage_fwd_rect` (kernel B8c, ``csrc/flash_fwd.cu``): no mask, the
   TPU's ``_sage_kernel_rect``;
-* :func:`sage_fwd_pos` (kernel B8b, ``csrc/sage_fwd_sm90.cu``): q rows at
-  global positions ``q_start + i``, causal, sliding window and sinks, the
-  TPU's ``_sage_kernel_pos``.
+* :func:`sage_fwd_pos` (kernel B8b, ``csrc/sage_fwd_sm90.cu``): q rows and
+  kv columns at the global positions of a descriptor (``ops.flash``
+  ``Positions``: q at ``q_start + i``, or the ring layouts' chunks and
+  stride), causal, sliding window and sinks, the TPU's
+  ``_sage_kernel_pos``.
 
 All three compute s = (q8 . k8)_int32 * qs * ks in exp2 units (the softmax
 scale and log2 e folded into q's scales), p = exp2(min(s, 90)) with no
@@ -41,7 +43,7 @@ its kernel or raises.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -57,8 +59,12 @@ from long_context_attention_tpu_torch.ops.flash import (
     _forward_only,
     _mask,
     _masks,
-    _one_chunk,
+    _pos,
     _scale,
+    Positions,
+    call_positions,
+    legacy_dims,
+    pair_masks,
 )
 from long_context_attention_tpu_torch.utils.config import NEG_INF, not_ported
 
@@ -237,7 +243,8 @@ def sage_fwd_tri_plain(q8, qs, k8, ks, v8, vs, *, out_dtype=torch.bfloat16):
     k8, v8 (b, s, h_kv, d) int8 with ks, vs (b, h_kv, s) fp32 -> out (b, s,
     h, d) in ``out_dtype``, lse (b, h, s) fp32 (uncorrected for K's mean)."""
     s = q8.shape[1]
-    mask = _mask(torch.arange(s, device=q8.device), s, -1, 0, 0)
+    ar = torch.arange(s, device=q8.device)
+    mask = _mask(ar, ar, -1, 0, 0)
     return _sage_plain(q8, qs, k8, ks, v8, vs, mask, out_dtype)
 
 
@@ -248,15 +255,18 @@ def sage_fwd_rect_plain(q8, qs, k8, ks, v8, vs, *, out_dtype=torch.bfloat16):
 
 
 def sage_fwd_pos_plain(q8, qs, k8, ks, v8, vs, *, q_start: int = 0,
-                       causal: bool = False, window_size=(-1, -1),
-                       sink_tokens: int = 0, out_dtype=torch.bfloat16):
-    """Plain version of kernel B8b: q row i at position ``q_start + i``,
-    kv column j at j, with the causal mask, the window (left, right) and
-    the sinks of ``flash_attention`` (_sage_kernel_pos); operands as in
-    :func:`sage_fwd_tri_plain`."""
+                       pos: Optional[Positions] = None, causal: bool = False,
+                       window_size=(-1, -1), sink_tokens: int = 0,
+                       out_dtype=torch.bfloat16):
+    """Plain version of kernel B8b: q rows and kv columns at the global
+    positions of ``pos`` (any descriptor), or q row i at ``q_start + i``
+    and kv column j at j, with the causal mask, the window (left, right)
+    and the sinks (positions below ``sink_tokens``) of ``flash_attention``
+    (_sage_kernel_pos); operands as in :func:`sage_fwd_tri_plain`."""
     left, right, sink = _masks(causal, window_size, sink_tokens, 0.0)
-    mask = _mask(q_start + torch.arange(q8.shape[1], device=q8.device),
-                 k8.shape[1], left, right, sink)
+    pos = _pos(pos, q_start)
+    mask = _mask(pos.q_positions(q8.shape[1], q8.device),
+                 pos.kv_positions(k8.shape[1], q8.device), left, right, sink)
     return _sage_plain(q8, qs, k8, ks, v8, vs, mask, out_dtype)
 
 
@@ -266,8 +276,8 @@ def sage_fwd_pos_plain(q8, qs, k8, ks, v8, vs, *, q_start: int = 0,
 
 
 def _sage_launch(kernel: str, q8, qs, k8, ks, v8, vs, out_dtype, *,
-                 q_start: int = 0, left: int = -1, right: int = -1,
-                 sink: int = 0):
+                 pos: Optional[Positions] = None, left: int = -1,
+                 right: int = -1, sink: int = 0):
     """Check the operands of a sage kernel and launch it on the current
     stream; int8 values and fp32 scales are read by strides."""
     b, s_q, h, d = q8.shape
@@ -292,10 +302,13 @@ def _sage_launch(kernel: str, q8, qs, k8, ks, v8, vs, out_dtype, *,
                          f"{out_dtype}")
     out = torch.empty((b, s_q, h, d), dtype=out_dtype, device=q8.device)
     lse = torch.empty((b, h, s_q), dtype=torch.float32, device=q8.device)
+    pos = pos or Positions.at(0)
+    q0, sink0 = legacy_dims(pos, sink)
     dims = _build.dims_array([
         b, h, h_kv, s_q, s_kv, *q8.stride()[:3], *k8.stride()[:3],
         *v8.stride()[:3], *out.stride()[:3], *qs.stride(), *ks.stride(),
-        *vs.stride(), int(q_start), left, right, sink])
+        *vs.stride(), q0, left, right, sink0,
+        *pair_masks(pos, s_q, s_kv, left, right, sink)])
     _build.KERNELS[kernel](
         _build.ptr(q8), _build.ptr(qs), _build.ptr(k8), _build.ptr(ks),
         _build.ptr(v8), _build.ptr(vs), _build.ptr(out), _build.ptr(lse),
@@ -313,7 +326,8 @@ def sage_fwd_tri(q8, qs, k8, ks, v8, vs, *, out_dtype=torch.bfloat16):
     if q8.shape[1] != k8.shape[1]:
         raise ValueError(f"B8a is self-attention: s_q {q8.shape[1]} != s_kv "
                          f"{k8.shape[1]}")
-    return _sage_launch("sage_fwd_tri", q8, qs, k8, ks, v8, vs, out_dtype)
+    return _sage_launch("sage_fwd_tri", q8, qs, k8, ks, v8, vs, out_dtype,
+                        right=0)
 
 
 def sage_fwd_rect(q8, qs, k8, ks, v8, vs, *, out_dtype=torch.bfloat16):
@@ -326,20 +340,23 @@ def sage_fwd_rect(q8, qs, k8, ks, v8, vs, *, out_dtype=torch.bfloat16):
 
 
 def sage_fwd_pos(q8, qs, k8, ks, v8, vs, *, q_start: int = 0,
-                 causal: bool = False, window_size=(-1, -1),
-                 sink_tokens: int = 0, out_dtype=torch.bfloat16):
-    """Kernel B8b wrapper: q rows at ``q_start + i``, masks as in
-    :func:`sage_fwd_pos_plain`; each q tile walks the sink tiles and its
-    window band only (the walk of kernels B3 and B4). CPU tensors take
-    :func:`sage_fwd_pos_plain`."""
+                 pos: Optional[Positions] = None, causal: bool = False,
+                 window_size=(-1, -1), sink_tokens: int = 0,
+                 out_dtype=torch.bfloat16):
+    """Kernel B8b wrapper: positions and masks as in
+    :func:`sage_fwd_pos_plain`; each q tile walks, kv chunk by kv chunk,
+    the sink tiles and its window band only (the walk of kernels B3 and
+    B4). CPU tensors take :func:`sage_fwd_pos_plain`."""
     if q8.device.type == "cpu":
         return sage_fwd_pos_plain(q8, qs, k8, ks, v8, vs, q_start=q_start,
-                                  causal=causal, window_size=window_size,
+                                  pos=pos, causal=causal,
+                                  window_size=window_size,
                                   sink_tokens=sink_tokens,
                                   out_dtype=out_dtype)
     left, right, sink = _masks(causal, window_size, sink_tokens, 0.0)
     return _sage_launch("sage_fwd_pos", q8, qs, k8, ks, v8, vs, out_dtype,
-                        q_start=q_start, left=left, right=right, sink=sink)
+                        pos=_pos(pos, q_start), left=left, right=right,
+                        sink=sink)
 
 
 # ---------------------------------------------------------------------------
@@ -352,12 +369,14 @@ _TRI, _RECT, _POS = 0, 1, 2
 
 @torch.library.custom_op("lca_torch::sage_attention", mutates_args=())
 def _sage_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, route: int,
-             q_start: int, static: bool, causal: bool, window_left: int,
+             q_offsets: List[int], kv_offsets: List[int], q_stride: int,
+             kv_stride: int, static: bool, causal: bool, window_left: int,
              window_right: int, sink_tokens: int, scale: float
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(out, lse) of BSHD q, k, v: the quantization pass, kernel B8a, B8c
-    or B8b (``route``), and the K-centring correction of the lse.
-    ``static`` (self-attention without offsets) picks the backward only."""
+    or B8b (``route``, B8b at the positions of the descriptor), and the
+    K-centring correction of the lse. ``static`` (self-attention without
+    offsets) picks the backward only."""
     k_mean = sage_k_mean(k)
     k8, ks, v8, vs = sage_quant_kv(k, v, k_mean)
     q8, qs, shift = sage_quant_q(q, scale, k_mean)
@@ -367,18 +386,22 @@ def _sage_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, route: int,
     elif route == _RECT:
         out, lse = sage_fwd_rect(*args, out_dtype=q.dtype)
     else:
-        out, lse = sage_fwd_pos(*args, q_start=q_start, causal=causal,
+        pos = Positions(tuple(q_offsets), tuple(kv_offsets), q_stride,
+                        kv_stride)
+        out, lse = sage_fwd_pos(*args, pos=pos, causal=causal,
                                 window_size=(window_left, window_right),
                                 sink_tokens=sink_tokens, out_dtype=q.dtype)
     return out, lse + shift
 
 
 def _sage_op_setup(ctx, inputs, output) -> None:
-    q, k, v, _, q_start, static, causal, left, right, sink, scale = inputs
+    (q, k, v, _, q_off, kv_off, q_stride, kv_stride, static, causal, left,
+     right, sink, scale) = inputs
     ctx.save_for_backward(q, k, v, *output)
     # JAX's flash_attention_bwd: static self-attention takes B5, positions
     # B2a + B2b (_flash_bwd)
-    ctx.q_start = None if static else q_start
+    ctx.pos = (None if static else
+               Positions(tuple(q_off), tuple(kv_off), q_stride, kv_stride))
     ctx.shape = dict(causal=causal, scale=scale, window_size=(left, right),
                      sink_tokens=sink)
 
@@ -388,9 +411,9 @@ def _sage_op_backward(ctx, dout, dlse):
     anchored on the quantized forward's (out, lse) (registry _sage_bwd)."""
     del dlse  # the lse cotangent is not propagated (as in flash-attn)
     q, k, v, out, lse = ctx.saved_tensors
-    dq, dk, dv = _flash_bwd(q, k, v, out, lse, dout, q_start=ctx.q_start,
+    dq, dk, dv = _flash_bwd(q, k, v, out, lse, dout, pos=ctx.pos,
                             **ctx.shape)
-    return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)) + (None,) * 8
+    return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)) + (None,) * 11
 
 
 _sage_op.register_autograd(_sage_op_backward, setup_context=_sage_op_setup)
@@ -411,30 +434,23 @@ def _check_pv_int8(pv_int8: bool) -> None:
                          "requantized per row and per JAX kv tile)")
 
 
-def _check_strides(q_stride: int, kv_stride: int) -> None:
-    if q_stride != 1 or kv_stride != 1:
-        raise not_ported(f"q_stride={q_stride}, kv_stride={kv_stride} (ring "
-                         f"layouts)")
-
-
 def _route(s_q: int, s_kv: int, causal: bool, window, q_offsets,
-           kv_offsets, sink_tokens: int) -> Tuple[int, int, int]:
-    """(kernel, q_start, sink) by the JAX package's routing: B8a for plain
-    causal self-attention, B8c for no mask without offsets, B8b for the
-    rest -- one-chunk offsets (q row 0 at q_offsets - kv_offsets), a
-    window, or s_q != s_kv (bottom-right aligned). Sinks are global
-    positions: kv columns below sink_tokens less the kv offset. The TPU's
-    cap on B8a's tile table (_TRI_TABLE_MAX) is scalar memory the Hopper
-    kernel does not use."""
+           kv_offsets, q_stride: int, kv_stride: int
+           ) -> Tuple[int, Positions]:
+    """(kernel, positions) by the JAX package's routing: without offsets
+    or strides, B8a for plain causal self-attention and B8c for no mask;
+    B8b for the rest -- offsets and strides (the ring layouts'
+    descriptor), a window, or causal s_q != s_kv (bottom-right aligned).
+    The TPU's cap on B8a's tile table (_TRI_TABLE_MAX) is scalar memory the
+    Hopper kernel does not use."""
     no_window = tuple(int(w) for w in window) == (-1, -1)
-    if q_offsets is None and kv_offsets is None:
-        if causal and s_q == s_kv and no_window:
-            return _TRI, 0, sink_tokens
-        return ((_RECT if not causal and no_window else _POS), s_kv - s_q,
-                sink_tokens)
-    kv0 = 0 if kv_offsets is None else _one_chunk(kv_offsets, "kv_offsets")
-    q0 = 0 if q_offsets is None else _one_chunk(q_offsets, "q_offsets")
-    return _POS, q0 - kv0, max(int(sink_tokens) - kv0, 0)
+    trivial = (q_offsets is None and kv_offsets is None and q_stride == 1
+               and kv_stride == 1)
+    pos = call_positions(s_q, s_kv, q_offsets, kv_offsets, q_stride,
+                         kv_stride) or Positions.at(0)
+    if trivial and no_window and (causal and s_q == s_kv or not causal):
+        return (_TRI if causal else _RECT), pos
+    return _POS, pos
 
 
 def sage_attention(q, k, v, *, causal: bool = False,
@@ -445,30 +461,29 @@ def sage_attention(q, k, v, *, causal: bool = False,
                    interpret=None, return_lse: bool = False):
     """INT8-QK attention, BSHD: q (b, s_q, h, d); k, v (b, s_kv, h_kv, d),
     h % h_kv == 0. Routing as the JAX package's: B8a for causal
-    self-attention, B8c without a mask, B8b for one-chunk offsets, a
-    window (with sinks) or causal s_q != s_kv (bottom-right aligned).
-    ``return_lse`` adds the (b, h, s_q) fp32 lse, K-centring shift
-    included. Differentiable, the window and sinks included (the
-    straight-through backward, dispatched as JAX's flash_attention_bwd:
-    B5 for self-attention without offsets, else B2a + B2b). Position
-    chunks and
-    strides (ring layouts) and ``pv_int8=True`` raise
-    ``NotImplementedError``. ``block_sizes`` and ``interpret`` are accepted
-    for API parity; the Hopper kernels pick their own tiles."""
+    self-attention, B8c without a mask, B8b for offsets and strides (the
+    ring layouts' position chunks), a window (with sinks) or causal s_q !=
+    s_kv (bottom-right aligned). ``return_lse`` adds the (b, h, s_q) fp32
+    lse, K-centring shift included. Differentiable, the window, sinks and
+    positions included (the straight-through backward, dispatched as
+    JAX's flash_attention_bwd: B5 for self-attention without offsets, else
+    B2a + B2b). ``pv_int8=True`` raises ``NotImplementedError``.
+    ``block_sizes`` and ``interpret`` are accepted for API parity; the
+    Hopper kernels pick their own tiles."""
     del block_sizes, interpret
     _check_pv_int8(pv_int8)
-    _check_strides(q_stride, kv_stride)
     if q.shape[2] % k.shape[2]:
         raise ValueError(f"GQA requires h ({q.shape[2]}) % h_kv "
                          f"({k.shape[2]}) == 0")
-    route, q_start, sink_tokens = _route(q.shape[1], k.shape[1], causal,
-                                         window_size, q_offsets, kv_offsets,
-                                         sink_tokens)
+    route, pos = _route(q.shape[1], k.shape[1], causal, window_size,
+                        q_offsets, kv_offsets, q_stride, kv_stride)
     left, right, sink = _masks(causal, window_size, sink_tokens, 0.0)
-    static = (q_offsets is None and kv_offsets is None
-              and q.shape[1] == k.shape[1])
-    out, lse = _sage_op(q, k, v, route, q_start, static, bool(causal), left,
-                        right, sink, float(_scale(q, softmax_scale)))
+    static = call_positions(q.shape[1], k.shape[1], q_offsets, kv_offsets,
+                            q_stride, kv_stride) is None
+    out, lse = _sage_op(q, k, v, route, list(pos.q_offsets),
+                        list(pos.kv_offsets), pos.q_stride, pos.kv_stride,
+                        static, bool(causal), left, right, sink,
+                        float(_scale(q, softmax_scale)))
     return (out, lse) if return_lse else out
 
 
@@ -523,20 +538,18 @@ def sage_attention_fwd_prequant(q, k8, v8, k_scale, v_scale, *,
     ``ops.kv_cache.quantize_kv``: k8, v8 (b, s_kv, h_kv, d) int8 with
     (b, h_kv, s_kv) fp32 scales, not centred, so the lse needs no shift.
     q (b, s_q, h, d) is quantized here (:func:`sage_quant_q` without K's
-    mean). Forward-only. Returns (out (b, s_q, h, d), lse (b, h, s_q)
-    fp32)."""
+    mean). The positions (offsets and strides: ring x sage direct-int8)
+    as in :func:`sage_attention`. Forward-only. Returns (out (b, s_q, h,
+    d), lse (b, h, s_q) fp32)."""
     del block_sizes, interpret
     _check_pv_int8(pv_int8)
-    _check_strides(q_stride, kv_stride)
     if k8.dtype != torch.int8 or v8.dtype != torch.int8:
         raise ValueError(f"k8 and v8 must be int8, got {k8.dtype}, "
                          f"{v8.dtype}")
     _forward_only(_QUANT_FORWARD_ONLY, q)
-    _, q_start, sink_tokens = _route(q.shape[1], k8.shape[1], causal,
-                                     window_size, q_offsets, kv_offsets,
-                                     sink_tokens)
+    _, pos = _route(q.shape[1], k8.shape[1], causal, window_size, q_offsets,
+                    kv_offsets, q_stride, kv_stride)
     q8, qs, _ = sage_quant_q(q, _scale(q, softmax_scale))
     return sage_fwd_pos(q8, qs, k8, k_scale.float(), v8, v_scale.float(),
-                        q_start=q_start, causal=causal,
-                        window_size=window_size, sink_tokens=sink_tokens,
-                        out_dtype=q.dtype)
+                        pos=pos, causal=causal, window_size=window_size,
+                        sink_tokens=sink_tokens, out_dtype=q.dtype)

@@ -12,8 +12,9 @@ the JAX package's (W = ring size, S = global seq, c = S / W per rank):
 * ``stripe`` -- rank r owns tokens ``r, r+W, r+2W, ...``; offset ``r``,
   stride ``W``.
 
-``bidir_position_descriptor`` and ``segment_ids_from_cu_seqlens`` come with
-the dense ring.
+``bidir_position_descriptor`` describes the bidirectional ring's two K/V
+halves, ``segment_ids_from_cu_seqlens`` turns a varlen ``cu_seqlens`` into
+segment ids.
 """
 
 from __future__ import annotations
@@ -30,7 +31,9 @@ __all__ = [
     "unpermute_from_layout",
     "extract_local",
     "position_descriptor",
+    "bidir_position_descriptor",
     "positions_from_descriptor",
+    "segment_ids_from_cu_seqlens",
 ]
 
 LAYOUTS = ("basic", "zigzag", "stripe")
@@ -128,3 +131,38 @@ def positions_from_descriptor(offsets, stride: int,
     within = (torch.arange(local_len, dtype=torch.int32,
                            device=offsets.device) % chunk) * stride
     return torch.repeat_interleave(offsets, chunk) + within
+
+
+def bidir_position_descriptor(layout: str, src_a: int, src_b: int,
+                              ring_size: int, local_len: int
+                              ) -> Tuple[torch.Tensor, int]:
+    """Positions of a rank's K/V when it is split in two halves that travel
+    opposite ring directions: half A (local [0, local_len / 2)) is ring rank
+    ``src_a``'s, half B rank ``src_b``'s. Returns a two-chunk ``(offsets
+    int32, stride)`` in the kernels' contract."""
+    if layout not in LAYOUTS:
+        raise ValueError(f"unknown layout {layout!r}")
+    src_a, src_b = int(src_a), int(src_b)
+    half = local_len // 2
+    if layout == "basic":
+        offs = [src_a * local_len, src_b * local_len + half]
+        stride = 1
+    elif layout == "zigzag":
+        offs = [src_a * half, (2 * ring_size - 1 - src_b) * half]
+        stride = 1
+    else:
+        offs = [src_a, src_b + half * ring_size]
+        stride = ring_size
+    return torch.tensor(offs, dtype=torch.int32), stride
+
+
+def segment_ids_from_cu_seqlens(cu_seqlens, seq_len: int) -> torch.Tensor:
+    """The varlen ``cu_seqlens`` (cumulative boundaries of a packed
+    batch-of-one stream) as per-token segment ids (1, seq_len) int32:
+    sequence i (``cu_seqlens[i] <= t < cu_seqlens[i+1]``) gets id i + 1;
+    tokens at or past ``cu_seqlens[-1]`` are padding with id 0."""
+    cu = torch.as_tensor(cu_seqlens, dtype=torch.int32).reshape(-1)
+    t = torch.arange(seq_len, dtype=torch.int32)
+    ids = torch.searchsorted(cu, t, right=True).to(torch.int32)
+    ids = torch.where((t >= cu[-1]) | (ids == 0), torch.zeros_like(ids), ids)
+    return ids[None]

@@ -14,8 +14,9 @@ Forward: one B9a per step, merged with ``ops/merge.py``; K and V rotate
 W - 1 hops to the next rank (``batch_isend_irecv``). Backward: one B9b and
 one B9c per step on the merged out and lse; dq accumulates locally, the
 dk/dv partial sums ride the ring for W hops (landing back on their K/V's
-owner) and K/V for W - 1. With W = 1 every rotation is the identity and
-nothing is sent. The whole op is one ``torch.autograd.Function``.
+owner) and K/V for W - 1, through the dense ring's ``RingComm``. With W =
+1 every rotation is the identity and nothing is sent. The whole op is one
+``torch.autograd.Function``.
 
 Layouts ``basic`` and ``zigzag`` (chunk-aligned: each local tile is one
 global tile); ``stripe`` raises ``NotImplementedError``.
@@ -39,10 +40,7 @@ from long_context_attention_tpu_torch.ops.sparse import (
     sparse_bwd_operands,
     sparse_fwd,
 )
-from long_context_attention_tpu_torch.parallel.ulysses import (
-    group_rank,
-    group_size,
-)
+from long_context_attention_tpu_torch.parallel.ring import RingComm
 
 __all__ = ["ring_sparse_attention_local"]
 
@@ -101,34 +99,7 @@ def _ring_step_plans(mask_key: bytes, mask_shape, causal: bool, W: int,
     return tuple(plans)
 
 
-class _Ring:
-    """The ring process group and this rank's neighbours (global ranks)."""
-
-    def __init__(self, group: Optional[dist.ProcessGroup]):
-        self.group = group
-        self.size = group_size(group)
-        self.rank = group_rank(group)
-        if self.size > 1:
-            self.next = dist.get_global_rank(group, (self.rank + 1) % self.size)
-            self.prev = dist.get_global_rank(group, (self.rank - 1) % self.size)
-
-    def rotate(self, *tensors):
-        """Send each tensor to the next rank, receive the previous rank's
-        (the identity on a ring of one)."""
-        if self.size == 1:
-            return tensors
-        outs = [torch.empty_like(t) for t in tensors]
-        ops = []
-        for tag, (t, o) in enumerate(zip(tensors, outs)):
-            ops.append(dist.P2POp(dist.isend, t.contiguous(), self.next,
-                                  self.group, tag))
-            ops.append(dist.P2POp(dist.irecv, o, self.prev, self.group, tag))
-        for req in dist.batch_isend_irecv(ops):
-            req.wait()
-        return tuple(outs)
-
-
-def _ring_fwd(q, k, v, plans, scale, ring: _Ring):
+def _ring_fwd(q, k, v, plans, scale, ring: RingComm):
     k_cur, v_cur = k, v
     for t, plan in enumerate(plans):
         out_t, lse_t = sparse_fwd(q, k_cur, v_cur, plan, scale=scale)
@@ -209,7 +180,7 @@ def ring_sparse_attention_local(
     rank's contiguous head block. Differentiable (sparse ring backward).
     ``interpret`` is accepted for API parity."""
     del interpret
-    ring = _Ring(group)
+    ring = RingComm(group)
     W = ring.size
     b, s_q, h, d = q.shape
     s_kv, h_kv = k.shape[1], k.shape[2]

@@ -220,18 +220,33 @@ def test_xla_attention_bwd_matches_jax(rng):
 
 
 def test_backward_unported_features_raise(rng):
-    """Offsets of more than one chunk (ring layouts), strides and segments
-    still raise: no wrong gradient comes back. A gradient through a window,
-    sinks or softcap now comes back (B5, or B2a + B2b with offsets) and
+    """Segments still raise: no wrong gradient comes back. Two position
+    chunks and strides (the ring layouts) now give the fp32 oracle's
+    gradients at those positions, and what the kernels' descriptor refuses
+    raises there (more than two chunks, two strides). A gradient through a
+    window, sinks or softcap comes back (B5, or B2a + B2b with offsets) and
     equals the fp32 oracle's, through flash_attention and
     flash_attention_bwd alike."""
     q = torch.zeros(1, 8, 2, 16)
+    (_, tq), (_, tk), (_, tv), (_, tdo) = _inputs(rng, "float32")
+    s = tq.shape[1]
+    for pos in (dict(q_offsets=[0, s], kv_offsets=[s // 2, 3 * s // 2]),
+                dict(q_offsets=[3], kv_offsets=[1], q_stride=4,
+                     kv_stride=4)):
+        leaves = [t.clone().requires_grad_() for t in (tq, tk, tv)]
+        out, lse = tflash.flash_attention(*leaves, causal=True,
+                                          return_lse=True, **pos)
+        (out * tdo).sum().backward()
+        places = tflash.call_positions(s, s, **pos)
+        oracle = tref.xla_attention_bwd(
+            tq, tk, tv, out.detach(), lse.detach(), tdo, causal=True,
+            q_positions=places.q_positions(s),
+            kv_positions=places.kv_positions(s))
+        _assert_grads([t.grad for t in leaves], oracle, F32_TOL)
     with pytest.raises(NotImplementedError, match="position chunks"):
-        tflash.flash_attention(q, q, q, causal=True, q_offsets=[0, 4],
-                               kv_offsets=[0, 4])
+        tflash.pair_masks(tflash.Positions((0, 4, 8), (0,)), 12, 8, -1, 0, 0)
     with pytest.raises(NotImplementedError, match="q_stride"):
-        tflash.flash_attention_bwd(q, q, q, q, torch.zeros(1, 2, 8), q,
-                                   causal=True, q_offsets=[0], q_stride=2)
+        tflash.pair_masks(tflash.Positions((0,), (0,), 2, 1), 8, 8, -1, 0, 0)
     seg = torch.zeros(1, 8, dtype=torch.int32)
     with pytest.raises(NotImplementedError, match="segment"):
         tflash.flash_attention(q, q, q, causal=True, q_segment_ids=seg,

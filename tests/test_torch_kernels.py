@@ -124,8 +124,9 @@ def test_sm90_sources_build_for_sm90a():
     (B5, B2b and B9c), the forward source (B1, B3, B4, B9a) and the dq
     source (B2a, B9b) use them, with TMA; B9c's walk is a template parameter
     of B2b's kernel, B9a's of the forward kernel and B2a's and B9b's of the
-    dq kernel, not second pipelines. The backward entry points share one C
-    signature."""
+    dq kernel, not second pipelines; so is the multi-chunk descriptor of
+    B3, B2a, B2b and B8b (MULTI). The backward entry points share one C
+    signature (B2b's takes its kv tile order after it)."""
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     header = (_build.CSRC / "sm90.cuh").read_text()
     bwd = (_build.CSRC / "flash_bwd_sm90.cu").read_text()
@@ -136,21 +137,30 @@ def test_sm90_sources_build_for_sm90a():
     assert "launch<false, true>(" in bwd
     for mask in ("kBand", "kCap"):  # the windowed and softcapped bodies
         assert f"launch<FUSED, false, {mask}>(" in bwd
+    for mask in ("kDense", "kBand", "kCap"):  # B2b at multi-chunk positions
+        assert f"launch<false, false, {mask}, true>(" in bwd
     fwd = (_build.CSRC / "flash_fwd_sm90.cu").read_text()
     for needle in ("wgmma.mma_async", "tma_load_4d", "setmaxnreg_inc",
                    '#include "sm90.cuh"'):
         assert needle in fwd
     assert fwd.count("__global__") == 1
     assert "flash_fwd_sm90_kernel<false, kFast, false, true>" in fwd
+    for quant in ("true", "false"):  # B3 at multi-chunk positions
+        assert f"launch<false, kFast, {quant}, true>" in fwd
     dq = (_build.CSRC / "flash_dq_sm90.cu").read_text()
     for needle in ("wgmma.mma_async", "wgmma_rs", "tma_load_4d",
                    "setmaxnreg_inc", "setmaxnreg_dec", '#include "sm90.cuh"'):
         assert needle in dq
     assert dq.count("__global__") == 1
-    for walk in ("SparseRows", "DenseRows<true>", "DenseRows<false>"):
+    for walk in ("SparseRows", "DenseRows<true, false>",
+                 "DenseRows<false, false>", "DenseRows<true, true>",
+                 "DenseRows<false, true>"):
         assert f"launch<{walk}>(" in dq
     assert "#define LCA_BWD_ARGS" in header
     assert 'extern "C" int lca_flash_bwd_dq(LCA_BWD_ARGS)' in dq
+    assert 'extern "C" int lca_flash_bwd_dkv(LCA_BWD_ARGS, const int* order)' \
+        in bwd
+    assert "struct Desc" in header and "desc_ok" in header
     assert not (_build.CSRC / "sparse.cu").exists()
     # no source derives its aligned shared base through an integer cast
     for src in sorted(_build.CSRC.glob("*.cu")):

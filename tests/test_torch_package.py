@@ -74,8 +74,9 @@ def test_build_dir_is_gitignored():
 def test_unported_features_raise():
     """Features outside the ported slices raise NotImplementedError, and so
     does a gradient through the int8-KV path, which is forward-only in the
-    JAX package too, and the dense USP layers. A gradient through a
-    sliding window now comes back, equal to the fp32 oracle's."""
+    JAX package too, and what the dense USP layers do not take yet
+    (segments, fp8 K/V). A gradient through a sliding window now comes
+    back, equal to the fp32 oracle's, and the dense layers compute."""
     from long_context_attention_tpu_torch.ops.decode import decode_attention
     from long_context_attention_tpu_torch.ops.flash import (
         flash_attention, flash_attention_fwd)
@@ -107,15 +108,24 @@ def test_unported_features_raise():
     with pytest.raises(NotImplementedError):
         decode_attention(q[:, 0], cache, cache, torch.ones(1, dtype=torch.int32),
                          alibi_slopes=torch.ones(2))
-    # the dense USP layers (block_mask=None) come with the dense ring
+    # the dense USP layers (block_mask=None) compute since the dense ring;
+    # segments and fp8 K/V through them still raise
     from long_context_attention_tpu_torch.parallel import (
         LongContextAttention, UlyssesAttention, make_usp_mesh)
 
     mesh = make_usp_mesh(device="cpu")
     try:
+        want = flash_attention(x, x, x, causal=True)
         for layer in (LongContextAttention, UlyssesAttention):
-            with pytest.raises(NotImplementedError, match="dense USP"):
-                layer(mesh)(q, q, q, causal=True)
+            torch.testing.assert_close(layer(mesh)(x, x, x, causal=True),
+                                       want, atol=1e-6, rtol=0)
+        seg = torch.zeros(1, 8, dtype=torch.int32)
+        with pytest.raises(NotImplementedError, match="segment_ids"):
+            LongContextAttention(mesh)(q, q, q, causal=True,
+                                       segment_ids=seg)
+        with pytest.raises(NotImplementedError, match="fp8"):
+            LongContextAttention(mesh, kv_quant="float8_e4m3fn")(
+                q, q, q, causal=True)
     finally:
         torch.distributed.destroy_process_group()
 

@@ -418,10 +418,10 @@ def test_reference_full_drops_the_window(rng):
 def test_unsupported_raise(rng):
     """What sage does not implement raises rather than runs: softcap,
     dropout, segments (NotImplementedError, as in JAX), pv_int8=True (not
-    ported), position chunks and strides, a gradient through the
-    pre-quantized path, an unknown kwarg (TypeError). A gradient through a
-    sliding window with sinks now comes back: the straight-through flash
-    backward, equal to the fp32 oracle's on the op's own (out, lse)."""
+    ported), a gradient through the pre-quantized path, an unknown kwarg
+    (TypeError). Position chunks and strides now compute. A gradient
+    through a sliding window with sinks now comes back: the straight-through
+    flash backward, equal to the fp32 oracle's on the op's own (out, lse)."""
     (_, tq), (_, tk), (_, tv) = _qkv(rng, "float32")
     for kw in (dict(softcap=30.0), dict(dropout_p=0.1),
                dict(q_segment_ids=torch.zeros(B, S, dtype=torch.int32),
@@ -435,10 +435,15 @@ def test_unsupported_raise(rng):
                       (k8, k8, ks.transpose(1, 2), ks.transpose(1, 2)))):
         with pytest.raises(NotImplementedError, match="pv_int8"):
             fn(tq, *(args or (tk, tv)), causal=True, pv_int8=True)
-    with pytest.raises(NotImplementedError, match="position chunks"):
-        tsage.sage_attention(tq, tk, tv, q_offsets=[0, 64])
-    with pytest.raises(NotImplementedError, match="stride"):
-        tsage.sage_attention(tq, tk, tv, q_offsets=[0], q_stride=2)
+    # position chunks and strides (the ring layouts) now compute: the
+    # identity descriptor in two chunks, or at a common stride, is causal
+    # self-attention (B8b's masks against B8a's)
+    want = tsage.sage_attention(tq, tk, tv, causal=True)
+    for pos in (dict(q_offsets=[0, S // 2], kv_offsets=[0, S // 2]),
+                dict(q_offsets=[0], kv_offsets=[0], q_stride=2,
+                     kv_stride=2)):
+        got = tsage.sage_attention(tq, tk, tv, causal=True, **pos)
+        torch.testing.assert_close(got, want, atol=1e-6, rtol=0)
     win = dict(causal=True, window_size=(16, -1), sink_tokens=3)
     leaves = [t.clone().requires_grad_() for t in (tq, tk, tv)]
     out, lse = tsage.sage_attention(*leaves, return_lse=True, **win)

@@ -233,12 +233,30 @@ def test_bogus_remat_raises():
 
 def test_train_step_device_rule(monkeypatch):
     """make_train_step runs on the card unless given device="cpu" (without
-    CUDA it raises), refuses a mesh, params or batch on another device, and
-    an optimizer built over other tensors."""
+    CUDA it raises), over a mesh on the mesh's device (and no other),
+    refuses params or batch on another device, and an optimizer built over
+    other tensors."""
+    from long_context_attention_tpu_torch.parallel import make_usp_mesh
+
     _, tcfg = _cfgs("float32")
     opt = functools.partial(torch.optim.SGD, lr=0.1)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        tllama.make_train_step(tcfg, opt, mesh=object(), device="cpu")
+    mesh = make_usp_mesh(device="cpu")
+    try:
+        with pytest.raises(ValueError, match="the mesh's"):
+            tllama.make_train_step(tcfg, opt, mesh=mesh, device="meta")
+        p_mesh = tllama.init_params(torch.Generator().manual_seed(0), tcfg,
+                                    device="cpu")
+        p_one = tllama.init_params(torch.Generator().manual_seed(0), tcfg,
+                                   device="cpu")
+        batch = (torch.zeros((1, 8), dtype=torch.int64),) * 2 + (
+            torch.ones(1, 8),)
+        _, _, l_mesh = tllama.make_train_step(tcfg, opt, mesh=mesh)(
+            p_mesh, None, *batch)
+        _, _, l_one = tllama.make_train_step(tcfg, opt, device="cpu")(
+            p_one, None, *batch)
+        assert float(l_mesh) == float(l_one)
+    finally:
+        torch.distributed.destroy_process_group()
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         tllama.make_train_step(tcfg, opt)

@@ -1,9 +1,12 @@
-"""Block-sparse USP of the PyTorch port against the JAX package: the mesh's
-rank grid and the layouts (exact, in this process), and, in 4 gloo
-processes on the CPU, the Ulysses all-to-all against JAX's tiled
-``lax.all_to_all`` (exact) and the sparse layers against JAX's layers on
-the 4-device virtual mesh of ``tests/conftest.py``, on the same global
-inputs (the pattern of ``tests/test_ring_sparse.py:178-200``).
+"""USP of the PyTorch port against the JAX package: the mesh's rank grid
+and the layouts (exact, in this process), and, in 4 gloo processes on the
+CPU, the Ulysses all-to-all against JAX's tiled ``lax.all_to_all`` (exact),
+the sparse layers and the dense layers (LongContextAttention, its
+``.packed``, UlyssesAttention; the cases of ``tests/test_usp.py``) against
+JAX's layers on the 4-device virtual mesh of ``tests/conftest.py``, on the
+same global inputs (the pattern of ``tests/test_ring_sparse.py:178-200``).
+JAX's dense layers run the fp32 oracle per ring step (impl ``xla``), the
+port's the kernels' plain versions (impl ``pallas``).
 
 The JAX side runs first, in the test process; one spawn of 4 workers then
 runs every port case and writes its errors, and each case is its own test.
@@ -34,8 +37,18 @@ BQ = BKV = 64
 OUT_TOL = 2e-5
 GRAD_TOL = 2e-4
 
-# name: (layer, (dp, ulysses, ring), layout, seq, mask kind)
+# name: (layer, (dp, ulysses, ring), layout, seq, mask kind; None: dense,
+# with gradients but for "packed")
 CASES = {
+    "dense 2x2 zigzag": ("usp", (1, 2, 2), "zigzag", 256, None),
+    "dense 2x2 basic": ("usp", (1, 2, 2), "basic", 256, None),
+    "dense 2x2 stripe": ("usp", (1, 2, 2), "stripe", 256, None),
+    "dense 4x1 zigzag": ("usp", (1, 4, 1), "zigzag", 256, None),
+    "dense dp2 ring2": ("usp", (2, 1, 2), "zigzag", 256, None),
+    "dense non-causal basic": ("usp noncausal", (1, 2, 2), "basic", 256,
+                               None),
+    "dense packed": ("packed", (1, 2, 2), "zigzag", 256, None),
+    "dense ulysses 4": ("ulysses", (1, 4, 1), "basic", 256, None),
     "usp 2x2 basic": ("usp", (1, 2, 2), "basic", 256, "global_local"),
     "usp 2x2 zigzag": ("usp", (1, 2, 2), "zigzag", 256, "global_local"),
     "usp 2x2 per-head": ("usp", (1, 2, 2), "zigzag", 256, "per_head"),
@@ -55,11 +68,20 @@ def _mask(kind, s):
     return m | np.eye(n, dtype=bool)[None]
 
 
-def _inputs(s):
+def _inputs(s, batch=B):
     rng = np.random.default_rng(0)
     return tuple(rng.standard_normal(shape).astype(np.float32)
-                 for shape in ((B, s, H, D), (B, s, HKV, D), (B, s, HKV, D),
-                               (B, s, H, D)))
+                 for shape in ((batch, s, H, D), (batch, s, HKV, D),
+                               (batch, s, HKV, D), (batch, s, H, D)))
+
+
+def _dense_inputs(name, s):
+    """A dense case's global q, k, v, dout: batch 2 under dp 2, and for the
+    packed layer k and v with every query head (qkv stacked on one axis)."""
+    q, k, v, dout = _inputs(s, 2 if "dp2" in name else B)
+    if name == "dense packed":
+        k, v = (np.repeat(x, H // HKV, axis=2) for x in (k, v))
+    return q, k, v, dout
 
 
 # ---------------------------------------------------------------------------
@@ -116,8 +138,11 @@ def test_layouts_match_jax(layout, ring):
 def test_mesh_raises(monkeypatch):
     """make_usp_mesh() is the card (NCCL): RuntimeError without CUDA; a
     mesh of several ranks needs an initialised world; tp/pp/ep raise
-    NotImplementedError. On a one-rank gloo world the layers raise for
-    the dense path, for stripe, and for a window beside a block mask."""
+    NotImplementedError. On a one-rank gloo world the dense layers equal
+    flash_attention (a zigzag ring of one: the two-chunk descriptor (0,
+    s/2)), and they raise for what is not ported (segments, fp8 K/V); the
+    sparse layers raise for stripe and for a window beside a block mask."""
+    from long_context_attention_tpu_torch.ops.flash import flash_attention
     from long_context_attention_tpu_torch.parallel.usp import (
         LongContextAttention, UlyssesAttention)
 
@@ -134,10 +159,21 @@ def test_mesh_raises(monkeypatch):
         assert (mesh.rank, mesh.seq_idx, mesh.ring_next) == (0, 0, 0)
         q = torch.zeros(1, 128, 2, 64)
         mask = np.ones((2, 2), bool)
-        with pytest.raises(NotImplementedError, match="dense USP"):
-            LongContextAttention(mesh)(q, q, q, causal=True)
-        with pytest.raises(NotImplementedError, match="dense USP"):
-            UlyssesAttention(mesh)(q, q, q)
+        x = torch.randn(1, 128, 2, 64, generator=torch.Generator()
+                        .manual_seed(0))
+        want = flash_attention(x, x, x, causal=True)
+        got = LongContextAttention(mesh)(x, x, x, causal=True)
+        torch.testing.assert_close(got, want, atol=1e-6, rtol=0)
+        torch.testing.assert_close(UlyssesAttention(mesh)(x, x, x),
+                                   flash_attention(x, x, x), atol=1e-6,
+                                   rtol=0)
+        with pytest.raises(NotImplementedError, match="segment_ids"):
+            LongContextAttention(mesh)(
+                q, q, q, causal=True,
+                segment_ids=torch.zeros(1, 128, dtype=torch.int32))
+        with pytest.raises(NotImplementedError, match="fp8"):
+            LongContextAttention(mesh, kv_quant="float8_e4m3fn")(
+                q, q, q, causal=True)
         with pytest.raises(NotImplementedError, match="stripe"):
             LongContextAttention(mesh, layout="stripe")(
                 q, q, q, block_mask=mask, sparse_block_q=64,
@@ -178,11 +214,40 @@ def _jax_references(path: pathlib.Path) -> None:
     devs = jax.devices()[:WORLD]
     saved = {}
     for name, (layer, (dp, uly, ring), layout, s, kind) in CASES.items():
+        jm = jmesh.make_usp_mesh(dp=dp, ulysses=uly, ring=ring, devices=devs)
+        perm = functools.partial(permute_for_layout, layout=layout,
+                                 ring_size=ring)
+        unperm = functools.partial(unpermute_from_layout, layout=layout,
+                                   ring_size=ring)
+        if kind is None:  # the dense layers, the fp32 oracle per ring step
+            q, k, v, dout = (jnp.asarray(x) for x in _dense_inputs(name, s))
+            if layer == "ulysses":
+                fn = functools.partial(
+                    jusp.UlyssesAttention(mesh=jm, impl="xla"), causal=True)
+            else:
+                lca = jusp.LongContextAttention(mesh=jm, layout=layout,
+                                                impl="xla")
+                fn = functools.partial(lca, causal=layer != "usp noncausal")
+            if layer == "packed":
+                qkv = jnp.stack([q, k, v], axis=2)
+                saved[f"{name}/out"] = np.asarray(unperm(jax.jit(
+                    functools.partial(lca.packed, causal=True))(perm(qkv))))
+                continue
+            def dloss(q, k, v):
+                out = fn(q, k, v)
+                return jnp.sum(out * perm(dout)), out
+
+            (_, out), grads = jax.jit(jax.value_and_grad(
+                dloss, argnums=(0, 1, 2), has_aux=True))(perm(q), perm(k),
+                                                         perm(v))
+            saved[f"{name}/out"] = np.asarray(unperm(out))
+            for gname, g in zip(("dq", "dk", "dv"), grads):
+                saved[f"{name}/{gname}"] = np.asarray(unperm(g))
+            continue
         q, k, v, dout = (jnp.asarray(x) for x in _inputs(s))
         mask = _mask(kind, s)
         kw = dict(causal=True, block_mask=mask, sparse_block_q=BQ,
                   sparse_block_kv=BKV)
-        jm = jmesh.make_usp_mesh(dp=dp, ulysses=uly, ring=ring, devices=devs)
         if layer == "usp":
             fn = functools.partial(jusp.LongContextAttention(
                 mesh=jm, layout=layout), **kw)
@@ -197,10 +262,6 @@ def _jax_references(path: pathlib.Path) -> None:
                                   causal=True, block_q=BQ, block_kv=BKV),
                 mesh=rmesh, in_specs=(spec,) * 3, out_specs=spec,
                 check_vma=False)
-        perm = functools.partial(permute_for_layout, layout=layout,
-                                 ring_size=ring)
-        unperm = functools.partial(unpermute_from_layout, layout=layout,
-                                   ring_size=ring)
         out = unperm(jax.jit(fn)(perm(q), perm(k), perm(v)))
         saved[f"{name}/out"] = np.asarray(out)
 
@@ -251,27 +312,41 @@ def _worker(rank: int, tmp: str) -> None:
     for name, (layer, (dp, uly, ring), layout, s, kind) in CASES.items():
         mesh = tmesh.make_usp_mesh(dp=dp, ulysses=uly, ring=ring,
                                    device="cpu")
-        mask = _mask(kind, s)
-        q, k, v, dout = (torch.from_numpy(x) for x in _inputs(s))
+        inputs = _inputs(s) if kind else _dense_inputs(name, s)
+        q, k, v, dout = (torch.from_numpy(x) for x in inputs)
         shard = [tmesh.seq_shard(mesh, tlay.permute_for_layout(t, layout, ring))
                  for t in (q, k, v, dout)]
         q_l, k_l, v_l = (t.clone().requires_grad_() for t in shard[:3])
-        if layer == "ring":
+
+        def unshard(t):
+            return tlay.unpermute_from_layout(
+                tmesh.seq_unshard(mesh, t.detach()), layout, ring)
+
+        if layer == "packed":
+            out = tusp.LongContextAttention(mesh, layout=layout).packed(
+                torch.stack(shard[:3], dim=2), causal=True)
+            errs[f"{name}/out"] = _err(unshard(out).numpy(),
+                                       ref[f"{name}/out"])
+            continue
+        if kind is None and layer == "ulysses":
+            out = tusp.UlyssesAttention(mesh)(q_l, k_l, v_l, causal=True)
+        elif kind is None:
+            out = tusp.LongContextAttention(mesh, layout=layout)(
+                q_l, k_l, v_l, causal=layer != "usp noncausal")
+        elif layer == "ring":
             out = ring_sparse_attention_local(
-                q_l, k_l, v_l, mask, group=mesh.ring_group, layout=layout,
-                causal=True, block_q=BQ, block_kv=BKV)
+                q_l, k_l, v_l, _mask(kind, s), group=mesh.ring_group,
+                layout=layout, causal=True, block_q=BQ, block_kv=BKV)
         else:
             cls = (tusp.LongContextAttention if layer == "usp"
                    else tusp.UlyssesAttention)
             out = cls(mesh, layout=layout)(
-                q_l, k_l, v_l, causal=True, block_mask=mask,
+                q_l, k_l, v_l, causal=True, block_mask=_mask(kind, s),
                 sparse_block_q=BQ, sparse_block_kv=BKV)
         out.backward(shard[3])
         for gname, t in (("out", out), ("dq", q_l.grad), ("dk", k_l.grad),
                          ("dv", v_l.grad)):
-            full = tlay.unpermute_from_layout(
-                tmesh.seq_unshard(mesh, t.detach()), layout, ring)
-            errs[f"{name}/{gname}"] = _err(full.numpy(),
+            errs[f"{name}/{gname}"] = _err(unshard(t).numpy(),
                                            ref[f"{name}/{gname}"])
 
     x = torch.from_numpy(ref["a2a/x"])
@@ -308,7 +383,11 @@ def port_errors(tmp_path_factory):
     return json.loads((path / "errs.json").read_text())
 
 
-@pytest.mark.parametrize("case", CASES)
+SPARSE_CASES = [n for n, c in CASES.items() if c[4] is not None]
+DENSE_CASES = [n for n, c in CASES.items() if c[4] is None]
+
+
+@pytest.mark.parametrize("case", SPARSE_CASES)
 def test_sparse_layers_match_jax(port_errors, case):
     """Out of the port's layer (LongContextAttention at ring 2 x ulysses 2,
     basic, zigzag and per-head; ring_sparse_attention_local at ring 4;
@@ -317,6 +396,19 @@ def test_sparse_layers_match_jax(port_errors, case):
     assert port_errors[f"{case}/out"] <= OUT_TOL, port_errors
     for g in ("dq", "dk", "dv"):
         assert port_errors[f"{case}/{g}"] <= GRAD_TOL, (g, port_errors)
+
+
+@pytest.mark.parametrize("case", DENSE_CASES)
+def test_dense_layers_match_jax(port_errors, case):
+    """Out of the port's dense layers (LongContextAttention at ulysses 2 x
+    ring 2 in each layout, causal and not, at ulysses 4 x ring 1 and at dp
+    2 x ring 2; its .packed; UlyssesAttention at ulysses 4) and, but for
+    the packed entry, the three gradients against JAX's layers on the same
+    global inputs (tests/test_usp.py's cases)."""
+    assert port_errors[f"{case}/out"] <= OUT_TOL, port_errors
+    if case != "dense packed":
+        for g in ("dq", "dk", "dv"):
+            assert port_errors[f"{case}/{g}"] <= GRAD_TOL, (g, port_errors)
 
 
 @pytest.mark.parametrize("u", [2, 4])
