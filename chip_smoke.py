@@ -101,7 +101,30 @@ Phases, one JSON line each; any failure exits non-zero:
      (zigzag) at b=1, s=8192: one step against the single-device step from
      the same params and batch (loss, every leaf), then remat none and attn
      with exact launch counts (B3, B2a, B2b; B1 and B5 never) and a
-     falling loss, timed beside the single-device step.
+     falling loss, timed beside the single-device step;
+ 14. serve_continuous and serve_paged: benchmarks/bench_paged.py's 48
+     requests (prompts of 1024 or 2048 tokens, 64 new each) through
+     ContinuousEngine at 8 rows and PagedContinuousEngine at 32 rows over
+     a pool of 65 pages of 2048, int8 cache and weights, step_block 8,
+     host_overlap: exact launch counts (16 B6 and 16 B7 per decode step,
+     over the page table on the paged engine; 16 B1 per admission), tok/s
+     of an unprofiled run, and one decode block each profiled in an
+     untimed warm-up with every row busy; the paged engine at 8 rows on the
+     first 16 requests gives the dense engine's tokens, and its logprobs
+     pass teacher forcing;
+ 15. serve_prefix: benchmarks/bench_prefix.py's 8 requests (a shared
+     16384-token system prompt + 64 tokens, 16 new) at 4 rows, plain
+     against prefix_cache=True: 7 x 16384 prefix-hit tokens, the suffix
+     chunks' multi-token B7 launches as the tile rule splits them, first-
+     token logits against the plain engine's;
+ 16. serve_stall: a 32768-token prompt admitted while a row decodes
+     (bench_paged.py's stall at ctx 32768), batch admission against
+     interleave_admission: the running row's largest inter-token gap,
+     exact launch counts, and each run teacher-forced on its own tokens
+     (every step's logits within 0.5 of a bf16 prefill).
+The kernel phase also holds B6 and B7 through the page table (B7 also over
+runs of 64 and 256 tokens, split as the JAX rule splits them) against
+their plain versions, and paged against dense bit for bit.
 Then the kernel table, the card's name and power limit, and as the last line
 {"ok": true, "device": {...}}.
 """
@@ -413,8 +436,8 @@ def cols_seen_by_few(vis, tile, n=2048):
 
 def kernel_b1(K, flash, gen, dev):
     """B1 against its plain version: the chunk's shape (b=4, s=2048) in the
-    fast and online forms, ragged lengths that cut a 128-row tile (1000 and
-    4096 + 37), and the trainer's shape (b=1, s=8192); times at the chunk's
+    fast and online forms, ragged lengths that cut a 128-row tile (64, an
+    admission's smallest bucket, 1000 and 4096 + 37), and the trainer's shape (b=1, s=8192); times at the chunk's
     shape and, in "train", at the trainer's."""
     b, s, h, hk, d = BATCH, CHUNK, MODEL["n_heads"], MODEL["n_kv_heads"], 128
     scale = d ** -0.5
@@ -451,8 +474,9 @@ def kernel_b1(K, flash, gen, dev):
     q, k, v = qkv(b, s)
     for safe in (False, True):
         case(f"b={b} s={s}", q, k, v, safe)
-    # ragged lengths: partial q and kv tiles at the end
-    for sr in (1000, 4096 + 37):
+    # ragged lengths: partial q and kv tiles at the end (64: an admission
+    # prefill's smallest bucket, less than one tile)
+    for sr in (64, 1000, 4096 + 37):
         qr, kr_, vr_ = qkv(1, sr)
         for safe in (False, True):
             case(f"ragged s={sr}", qr, kr_, vr_, safe)
@@ -1132,6 +1156,297 @@ def kernel_b7_windowed(decode, q, kc, vc, ks, vs, lens, layer, checks):
                     f"{SINKS} sinks", **res}
 
 
+# ---------------------------------------------------------------------------
+# B6 and B7 over the paged pool, and B7 over multi-token runs
+# ---------------------------------------------------------------------------
+
+# The paged engine's pool (benchmarks/bench_paged.py:180-186): pages of
+# 2048, a row of 16384 = 8 pages, 65 pages (8 rows + the scratch page 0).
+PAGE, PAGED_S_MAX, POOL = 2048, 16384, 65
+PAGED_LENS = (16384, 9000, 2049, 1)   # rows' lengths (a full row, ragged)
+# Multi-token runs: the prefix cache's suffix chunk (64 tokens) and a
+# 256-token chunk of interleaved admission, which the tile rule splits,
+# over serve_prefix's rows (s_max 20480: 10 pages).
+RUN_LENS, RUN_PAGES = (16448, 5000), 10
+
+
+def paged_pool(gen, dev, dtype, L=2, lens=None, n_pages=None):
+    """A pool (L, POOL, h_kv, PAGE, d) of random values (int8 with scales
+    in (0, 1/64]) and a page table: each row's live pages on random pool
+    pages (never the scratch page 0), -1 past its prefix."""
+    hk, d = MODEL["n_kv_heads"], 128
+    lens = PAGED_LENS if lens is None else lens
+    n_pages = n_pages or PAGED_S_MAX // PAGE
+    shape = (L, POOL, hk, PAGE, d)
+    if dtype == "int8":
+        kc = torch.randint(-127, 128, shape, generator=gen, device=dev,
+                           dtype=torch.int8)
+        vc = torch.randint(-127, 128, shape, generator=gen, device=dev,
+                           dtype=torch.int8)
+        ks = torch.rand((L, POOL, hk, 1, PAGE), generator=gen,
+                        device=dev) / 64
+        vs = torch.rand(ks.shape, generator=gen, device=dev) / 64
+    else:
+        kc = torch.randn(shape, generator=gen, device=dev).bfloat16()
+        vc = torch.randn(shape, generator=gen, device=dev).bfloat16()
+        ks = vs = None
+    pt = torch.full((len(lens), n_pages), -1, dtype=torch.int32)
+    free = (torch.randperm(POOL - 1, generator=torch.Generator()
+                           .manual_seed(SEED)) + 1).tolist()
+    for r, n in enumerate(lens):
+        for i in range(-(-n // PAGE)):
+            pt[r, i] = free.pop()
+    return kc, vc, ks, vs, pt.to(dev)
+
+
+def gather_dense(pool, pt, scales=False):
+    """The dense layered cache (L, b, h_kv, n_pages * page, ...) that holds
+    the pool's pages in each row's logical order (zeros where -1)."""
+    L, P = pool.shape[:2]
+    b, n_pages = pt.shape
+    page = pool.shape[-1] if scales else pool.shape[3]
+    idx = pt.long().clamp(min=0)
+    g = pool[:, idx]  # (L, b, n_pages, h_kv, page or 1, ...)
+    g = torch.where((pt >= 0).view(1, b, n_pages, *[1] * (g.dim() - 3)), g,
+                    torch.zeros_like(g))
+    if scales:  # (L, b, n, h, 1, page) -> (L, b, h, 1, n * page)
+        return g.permute(0, 1, 3, 4, 2, 5).reshape(L, b, g.shape[3], 1,
+                                                   n_pages * page)
+    return g.permute(0, 1, 3, 2, 4, 5).reshape(L, b, g.shape[3],
+                                               n_pages * page, g.shape[-1])
+
+
+def kernel_b6_paged(decode, gen, dev):
+    """B6 through the page table: a one-token run per row (the decode step)
+    and a 256-token run (an interleaved-admission chunk) that straddles a
+    page, against the plain version; a skipped row; and paging as pure
+    indexing: the pool after the paged append, gathered through the table,
+    equals a dense cache of the same content after the dense append."""
+    hk, d, layer = MODEL["n_kv_heads"], 128, 1
+    kc, vc, ks, vs, pt = paged_pool(gen, dev, "int8")
+    cases = []
+    for n, pos in ((1, [PAGED_S_MAX - 1, *PAGED_LENS[1:]]),
+                   (256, [3 * PAGE - 100, -256, PAGED_LENS[2] - 256, 0])):
+        b = len(pos)
+        # the rows' pages cover the run: grow the table to its last slot
+        # (entries past it stay -1)
+        ptn = pt.clone()
+        used = set(ptn[ptn >= 0].tolist())
+        spare = [p for p in range(1, POOL) if p not in used]
+        for r, p0 in enumerate(pos):
+            for i in range(max(p0 + n, 1) // PAGE + 1):
+                if i < ptn.shape[1] and p0 + n > i * PAGE and ptn[r, i] < 0:
+                    ptn[r, i] = spare.pop()
+        kn = torch.randint(-127, 128, (b, hk, n, d), generator=gen,
+                           device=dev, dtype=torch.int8)
+        vn = torch.randint(-127, 128, kn.shape, generator=gen, device=dev,
+                           dtype=torch.int8)
+        ksn = torch.rand((b, hk, n), generator=gen, device=dev)
+        vsn = torch.rand(ksn.shape, generator=gen, device=dev)
+        pos_t = torch.tensor(pos, dtype=torch.int32, device=dev)
+        cache = [kc.clone(), vc.clone(), ks.clone(), vs.clone()]
+        ref = [t.clone() for t in cache]
+        dense = [gather_dense(cache[0], ptn), gather_dense(cache[1], ptn),
+                 gather_dense(cache[2], ptn, True),
+                 gather_dense(cache[3], ptn, True)]
+        decode.cache_append(*cache[:2], kn, vn, pos_t, *cache[2:], ksn, vsn,
+                            layer=layer, page_table=ptn)
+        decode.cache_append_plain(*ref[:2], kn, vn, pos_t, *ref[2:], ksn,
+                                  vsn, layer=layer, page_table=ptn)
+        decode.cache_append(*dense[:2], kn, vn, pos_t, *dense[2:], ksn, vsn,
+                            layer=layer)
+        torch.cuda.synchronize()
+        for a, r in zip(cache, ref):
+            if not torch.equal(a, r):
+                raise AssertionError(f"B6 paged n={n}: kernel and plain "
+                                     f"pools differ")
+        for i, (a, r) in enumerate(zip(cache, dense)):
+            got = gather_dense(a, ptn, scales=i >= 2)
+            if not torch.equal(got, r):
+                raise AssertionError(f"B6 paged n={n}: the gathered pool "
+                                     f"differs from the dense append")
+        skip = [r for r, p0 in enumerate(pos) if p0 + n <= 0]
+        for r in skip:
+            for p in ptn[r][ptn[r] >= 0].tolist():
+                if not torch.equal(cache[0][layer, p], kc[layer, p]):
+                    raise AssertionError("B6 paged: a skipped row wrote")
+        emit({"phase": "check", "case": f"B6 paged n={n}", "bit_equal": True,
+              "dense_after_gather_equal": True})
+        ms = time_ms(lambda: decode.cache_append(
+            *cache[:2], kn, vn, pos_t, *cache[2:], ksn, vsn, layer=layer,
+            page_table=ptn), iters=50)
+        plain_ms = time_ms(lambda: decode.cache_append_plain(
+            *ref[:2], kn, vn, pos_t, *ref[2:], ksn, vsn, layer=layer,
+            page_table=ptn), iters=10)
+        slots = pos_t.long()[:, None] + torch.arange(n, device=dev)[None]
+        bi, ti = ((slots >= 0) & (slots < PAGED_S_MAX)).nonzero(
+            as_tuple=True)
+        si = slots[bi, ti]
+        pg, off = ptn.long()[bi, si // PAGE], si % PAGE
+
+        def indexed_copy():
+            kc[layer, pg, :, off] = kn[bi, :, ti]
+            vc[layer, pg, :, off] = vn[bi, :, ti]
+            ks[layer, pg, :, 0, off] = ksn[bi, :, ti]
+            vs[layer, pg, :, 0, off] = vsn[bi, :, ti]
+
+        lib_ms = time_ms(indexed_copy, iters=10)
+        n_live = int(bi.numel())
+        nbytes = 2 * n_live * 2 * hk * (d + 4)
+        cases.append({"case": f"paged, run of {n}, rows at {pos}",
+                      **case_row([(0.0, 0.0)], ms, plain_ms, 0, nbytes,
+                                 lib_ms)})
+        del cache, ref, dense
+    return cases
+
+
+def b7_bound(lens, n_tok, h, hk, d, elt, window=-1, sinks=0):
+    """Bytes and operations B7 needs for runs of n_tok tokens at these
+    lengths over a cache of ``elt``-byte values (scales with int8 only):
+    each visible cache column once (K and V, their scales), q and out;
+    q.k and p.v per (head, query token, visible column)."""
+    nbytes = ops = 0
+    for n in lens:
+        def seen(q):  # columns the query at q sees, from lo
+            lo = 0 if window < 0 else max(q - window, 0)
+            return q + 1 - lo + (min(sinks, lo) if window >= 0 else 0)
+        q0 = n - n_tok
+        ops += sum(4 * h * d * seen(q0 + i) for i in range(n_tok))
+        # the run's columns: its first token's window to its last token
+        cols = seen(q0) + n_tok - 1
+        col_bytes = 2 * hk * d * elt + (8 * hk if elt == 1 else 0)
+        nbytes += col_bytes * cols + 2 * 2 * h * n_tok * d
+    return nbytes, ops
+
+
+def b7_case(decode, tag, q, kc, vc, ks, vs, lens, pt, layer, **kw):
+    """decode_attention through the page table against the same call on
+    CPU copies of the layer (the plain version), row by row; then the
+    kernel alone and its plain version timed over the run's sub-runs
+    (decode_run_plan), and SDPA over the gathered, dequantized cache."""
+    quant = ks is not None
+    win = kw.get("window_size", (-1, -1))[0]
+    sinks = kw.get("sink_tokens", 0) if win >= 0 else 0
+    o, l = decode.decode_attention(q, kc, vc, lens, ks, vs, layer=layer,
+                                   page_table=pt, return_lse=True, **kw)
+    cpu = [None if t is None else t[layer:layer + 1].cpu()
+           for t in (kc, vc, ks, vs)]
+    po, pl_ = decode.decode_attention(q.cpu(), cpu[0], cpu[1], lens.cpu(),
+                                      cpu[2], cpu[3], layer=0,
+                                      page_table=pt.cpu(), return_lse=True,
+                                      **kw)
+    torch.cuda.synchronize()
+    checks = [check_out(f"B7 paged out {tag}", o.cpu(), po)]
+    check(f"B7 paged lse {tag}", max_err(l.cpu(), pl_), LSE_TOL)
+    multi = q.dim() == 4
+    qr = q if multi else q[:, None]
+    b, n_tok, h, d = qr.shape
+    hk = kc.shape[2]
+    scale = d ** -0.5
+    plan = decode.decode_run_plan(n_tok, hk, h // hk, d, PAGE,
+                                  kc.element_size(), paged=True)
+    subs = []
+    for i, e, bkv in plan:
+        q_in, q_rs, _ = decode.decode_query_operands(
+            qr[:, i:e], kc, quant, scale=scale, block_kv=4096, paged=True)
+        subs.append(((q_in, q_rs, kc, vc, ks, vs, lens - (n_tok - e)),
+                     dict(layer=layer, block_kv=bkv, scale=scale,
+                          window_left=win, sink_tokens=sinks, n_tok=e - i,
+                          page_table=pt)))
+    ms = time_ms(lambda: [decode.decode_attention_core(*a, **k)
+                          for a, k in subs], iters=20)
+    plain_ms = time_ms(lambda: [decode.decode_attention_core_plain(*a, **k)
+                                for a, k in subs], iters=2, warmup=1)
+    # the library's attention over the gathered, dequantized rows
+    kd, vd = gather_dense(kc[layer:layer + 1], pt)[0], gather_dense(
+        vc[layer:layer + 1], pt)[0]
+    if quant:
+        kd = kd.float() * gather_dense(ks[layer:layer + 1], pt, True)[0][
+            :, :, 0, :, None]
+        vd = vd.float() * gather_dense(vs[layer:layer + 1], pt, True)[0][
+            :, :, 0, :, None]
+    n = int(lens.max())
+    kd, vd = kd[:, :, :n].bfloat16(), vd[:, :, :n].bfloat16()
+    qpos = (lens.long()[:, None] - n_tok
+            + torch.arange(n_tok, device=q.device)[None])[:, :, None]
+    cols = torch.arange(n, device=q.device)[None, None]
+    vis = cols <= qpos
+    if win >= 0:
+        vis &= (cols >= qpos - win) | (cols < sinks)
+    qh = qr.transpose(1, 2)
+    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        qh, kd, vd, attn_mask=vis[:, None], enable_gqa=True), iters=10)
+    nbytes, ops = b7_bound(lens.tolist(), n_tok, h, hk, d,
+                            kc.element_size(), win, sinks)
+    return {"case": f"paged {tag}, lengths {lens.tolist()}, sub-runs "
+                    f"{[(e - i, bkv) for i, e, bkv in plan]}",
+            **case_row(checks, ms, plain_ms, ops, nbytes, lib_ms,
+                       PEAK_INT8_OPS if quant else PEAK_BF16_FLOPS)}
+
+
+def kernel_b7_paged(decode, gen, dev):
+    """B7 through the page table: one token per row, int8 and bf16, and
+    window 4096 with 4 sinks over pages; runs of 64 and 256 tokens (two
+    sub-runs, tiles 256 and 512) over an int8 pool. Paging is only
+    indexing: over the same logical cache at the same tile, the paged
+    kernel equals the dense kernel bit for bit."""
+    h, hk, d, layer = MODEL["n_heads"], MODEL["n_kv_heads"], 128, 1
+    lens = torch.tensor(PAGED_LENS, dtype=torch.int32, device=dev)
+    win = dict(window_size=(WINDOW, -1), sink_tokens=SINKS)
+    cases = []
+    for dtype in ("int8", "bfloat16"):
+        kc, vc, ks, vs, pt = paged_pool(gen, dev, dtype)
+        q = torch.randn((len(PAGED_LENS), h, d), generator=gen,
+                        device=dev).bfloat16()
+        cases.append(b7_case(decode, f"{dtype} n=1", q, kc, vc, ks, vs,
+                             lens, pt, layer))
+        if dtype == "int8":
+            cases.append(b7_case(decode, "int8 n=1 window sinks", q, kc, vc,
+                                 ks, vs, lens, pt, layer, **win))
+            dense = [gather_dense(kc, pt), gather_dense(vc, pt),
+                     gather_dense(ks, pt, True), gather_dense(vs, pt, True)]
+            bit_equal(decode, "n=1", q, (kc, vc, ks, vs), dense, lens, pt,
+                      layer)
+            bit_equal(decode, "n=1 window sinks", q, (kc, vc, ks, vs),
+                      dense, lens, pt, layer, **win)
+            del dense
+        del kc, vc, ks, vs
+        torch.cuda.empty_cache()
+    # multi-token runs over the int8 pool (the suffix chunk and an
+    # interleaved-admission chunk)
+    kc, vc, ks, vs, pt = paged_pool(gen, dev, "int8", lens=RUN_LENS,
+                                    n_pages=RUN_PAGES)
+    rl = torch.tensor(RUN_LENS, dtype=torch.int32, device=dev)
+    dense = [gather_dense(kc, pt), gather_dense(vc, pt),
+             gather_dense(ks, pt, True), gather_dense(vs, pt, True)]
+    for n_tok in (256, 64):
+        q = torch.randn((len(RUN_LENS), n_tok, h, d), generator=gen,
+                        device=dev).bfloat16()
+        cases.append(b7_case(decode, f"int8 n={n_tok}", q, kc, vc, ks, vs,
+                             rl, pt, layer))
+        bit_equal(decode, f"n={n_tok}", q, (kc, vc, ks, vs), dense, rl, pt,
+                  layer)
+    return cases
+
+
+def bit_equal(decode, tag, q, pool, dense, lens, pt, layer, **kw):
+    """Paged and dense B7 over the same logical cache at the same tiles
+    (the dense call starts its tile rule from the page, and both rules
+    pick the same tile at these shapes): equal bits."""
+    po, pl_ = decode.decode_attention(q, *pool[:2], lens, *pool[2:],
+                                      layer=layer, page_table=pt,
+                                      return_lse=True, **kw)
+    do, dl = decode.decode_attention(q, *dense[:2], lens, *dense[2:],
+                                     layer=layer, block_kv=PAGE,
+                                     return_lse=True, **kw)
+    torch.cuda.synchronize()
+    if not (torch.equal(po, do) and torch.equal(pl_, dl)):
+        raise AssertionError(f"B7 {tag}: paged and dense kernels differ "
+                             f"(max {max_err(po, do)})")
+    emit({"phase": "check", "case": f"B7 paged = dense {tag}",
+          "bit_equal": True})
+
+
 def sdpa_backward_ms(q, k, v, dout):
     """SDPA's flash backward (fwd+bwd minus fwd), causal, K/V repeated to
     the query heads (its flash backend takes no GQA)."""
@@ -1776,6 +2091,420 @@ def serve_phase(pkg, build, dev, card, windowed):
           "seconds": gen_s, "launches": gcounts})
     return counts, numbers
 
+
+# ---------------------------------------------------------------------------
+# continuous and paged serving
+# ---------------------------------------------------------------------------
+
+# benchmarks/bench_paged.py:160-189: 48 requests, prompts of 1024 or 2048
+# tokens from numpy.random.default_rng(0), 64 new tokens each; rows of
+# 16384 (the long-tail reservation of a dense engine), step_block 8 and
+# host_overlap; the dense engine at 8 rows, the paged one at 32 over a pool
+# of the same bytes (8 rows of 16384 in pages of 2048, plus scratch).
+CONT_REQUESTS, CONT_PROMPTS, CONT_NEW, CONT_S_MAX = 48, (1024, 2048), 64, 16384
+CONT_GATE = 16          # requests the paged engine serves at 8 rows too
+CONT_TF_SAMPLE = 4      # requests held to teacher forcing
+STEP_BLOCK = 8
+# benchmarks/bench_prefix.py:40-75: 8 requests of a shared 16384-token
+# system prompt and a 64-token tail, 16 new tokens, 4 rows, pool 50
+PREFIX_SYS, PREFIX_TAIL, PREFIX_REQS, PREFIX_NEW = 16384, 64, 8, 16
+PREFIX_CHUNK = 256
+# benchmarks/bench_paged.py:130-158 at ctx 32768: a 32768-token prompt
+# admitted while a 2048-token request decodes (a 1024-token one finishes
+# first), batch admission against interleaved
+STALL_CTX, STALL_RUNNING, STALL_CHUNK = 32768, (2048, 1024), 256
+PROBE = {}
+
+
+def probe_engine(base):
+    """A subclass of an engine class that counts its decode blocks, notes
+    whether each ran over a page table, time-stamps each block after a
+    sync when PROBE["stamps"] is a list, profiles the block numbered
+    PROBE["profile_at"], and keeps each admission's first-token logits;
+    when PROBE["logits"] is a dict, it also keeps every decode step's
+    logits by request id (the row's request at the block's dispatch)."""
+
+    @dataclasses.dataclass(frozen=True)
+    class Probe(base):
+        def _decode_block(self, dparams, cache, *a, **kw):
+            PROBE["blocks"] += 1
+            PROBE["paged"].add(getattr(cache, "page_table", None)
+                               is not None)
+
+            def run():
+                return base._decode_block(self, dparams, cache, *a, **kw)
+
+            if PROBE.get("profile_at") == PROBE["blocks"]:
+                out, PROBE["profile"] = profiled(run)
+                return out
+            out = run()
+            if PROBE.get("stamps") is not None:
+                torch.cuda.synchronize()
+                PROBE["stamps"].append(time.perf_counter())
+            return out
+
+        def _sample_first(self, logits, *a, **kw):
+            PROBE["first_logits"].append(logits.float().cpu())
+            return base._sample_first(self, logits, *a, **kw)
+
+        def _sample_rows(self, logits, *a, **kw):
+            if PROBE.get("logits") is not None:
+                PROBE["steps"].append(logits.float().clone())
+            return base._sample_rows(self, logits, *a, **kw)
+
+        def _consume(self, nxt, lp, slot, *a, ids=None, **kw):
+            # the non-overlapped loops consume each block right after it
+            # ran: its steps are the last nxt.shape[1] of PROBE["steps"]
+            if PROBE.get("logits") is not None:
+                rows = ids if ids is not None else [
+                    None if r is None else r.id for r in slot]
+                steps = PROBE["steps"][-nxt.shape[1]:]
+                for bi, rid in enumerate(rows):
+                    if rid is not None:
+                        PROBE["logits"].setdefault(rid, []).extend(
+                            st[bi] for st in steps)
+                PROBE["steps"].clear()
+            return base._consume(self, nxt, lp, slot, *a, ids=ids, **kw)
+
+    return Probe
+
+
+def probe_reset(**kw):
+    PROBE.clear()
+    PROBE.update(blocks=0, paged=set(), first_logits=[], steps=[], **kw)
+
+
+def serve_timed(build, eng, params, reqs, **kw):
+    """Serve with zeroed launch counts and a fresh probe: (results, wall
+    s, tokens, decode steps, launch counts)."""
+    probe_reset(**kw)
+    build.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = eng.serve(params, reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    toks = sum(len(r.tokens) for r in res.values())
+    return res, wall, toks, PROBE["blocks"] * eng.step_block, \
+        build.launch_counts()
+
+
+def expect_serving_counts(tag, counts, L, steps, admissions, b6_runs=0,
+                          b7_runs=0):
+    """Every decode step launches L B6 and L B7, every bucket admission L
+    B1; multi-token chunks add ``b6_runs`` B6 and ``b7_runs`` B7."""
+    want = {"cache_append": L * steps + b6_runs,
+            "decode_attention": L * steps + b7_runs,
+            "flash_fwd_causal_self": L * admissions}
+    for name, n in want.items():
+        if counts[name] != n:
+            raise AssertionError(f"{tag}: {name} launched {counts[name]} "
+                                 f"times, expected {n}")
+    return want
+
+
+def teacher_forced_logprobs(params, cfg, prompt, tokens, dev):
+    """log softmax of the bf16 prefill of prompt + tokens[:-1] at each
+    generated token (the teacher-forcing reference)."""
+    from long_context_attention_tpu_torch.models.llama import forward_local
+
+    seq = torch.tensor([list(prompt) + list(tokens[:-1])], device=dev)
+    with torch.no_grad():
+        logits = forward_local(params, seq, cfg)[0, len(prompt) - 1:]
+    lsm = torch.log_softmax(logits.float(), -1)
+    return lsm[torch.arange(len(tokens)), torch.tensor(tokens)].cpu()
+
+
+def serve_paged_phase(pkg, build, dev, card):
+    """serve_continuous and serve_paged: the 0.88B config through
+    ContinuousEngine (8 rows) and PagedContinuousEngine (32 rows over the
+    same bytes), int8 cache and weights, step_block 8, host_overlap, on
+    bench_paged's 48 requests; exact launch counts (every decode step 16
+    B6 and 16 B7, paged on the paged engine; 16 B1 per admission); the
+    paged engine at 8 rows on the first 16 requests gives the dense
+    engine's tokens; a sample of requests passes teacher forcing on its
+    logprobs; one decode block each profiled in the untimed warm-up."""
+    from long_context_attention_tpu_torch.models.llama import init_params
+    from long_context_attention_tpu_torch.serving import (
+        ContinuousEngine, PagedContinuousEngine, Request)
+
+    cfg = pkg.ModelConfig(**MODEL)
+    L = cfg.n_layers
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params = init_params(gen, cfg, device=dev)
+    rng = np.random.default_rng(0)
+    ctxs = [int(c) for c in rng.choice(list(CONT_PROMPTS), CONT_REQUESTS)]
+    reqs = [Request(id=i, tokens=[int(t) for t in
+                                  rng.integers(0, cfg.vocab, c)],
+                    max_new=CONT_NEW) for i, c in enumerate(ctxs)]
+    common = dict(s_max=CONT_S_MAX, cache_dtype="int8", weight_dtype="int8",
+                  step_block=STEP_BLOCK, host_overlap=True, device=dev)
+    pool = (8 * CONT_S_MAX) // PAGE + 1
+    dense = probe_engine(ContinuousEngine)(cfg, max_batch=8, **common)
+    paged = probe_engine(PagedContinuousEngine)(
+        cfg, max_batch=32, page_size=PAGE, pool_pages=pool, **common)
+    out, results = {}, {}
+    for tag, eng in (("serve_continuous", dense), ("serve_paged", paged)):
+        # warm-up, untimed: its first max_batch requests fill every row,
+        # and its decode block 3 runs under the profiler
+        probe_reset(profile_at=3)
+        eng.serve(params, reqs[:eng.max_batch])
+        prof = PROBE["profile"]
+        res, wall, toks, steps, counts = serve_timed(build, eng, params,
+                                                     reqs)
+        results[tag] = res
+        if sorted(res) != list(range(CONT_REQUESTS)) or any(
+                len(r.tokens) != CONT_NEW for r in res.values()):
+            raise AssertionError(f"{tag}: not every request completed")
+        if PROBE["paged"] != {tag == "serve_paged"}:
+            raise AssertionError(f"{tag}: decode blocks over a page table: "
+                                 f"{PROBE['paged']}")
+        launches = expect_serving_counts(tag, counts, L, steps,
+                                         CONT_REQUESTS)
+        out[tag] = {"wall_s": wall, "tok_per_s": toks / wall,
+                    "tokens": toks, "decode_steps": steps,
+                    "launches": launches,
+                    "block_profile": {k: prof[k] for k in (
+                        "wall_ms", "device_ms", "device_busy_share",
+                        "kernel_launches")},
+                    "block_top": prof["top"][:6]}
+        emit({"phase": tag, "card": card, "model": "llama-0.88B",
+              "requests": CONT_REQUESTS, "max_new": CONT_NEW,
+              "max_batch": eng.max_batch, "s_max": CONT_S_MAX,
+              "cache_dtype": "int8", "weight_dtype": "int8",
+              "step_block": STEP_BLOCK, "host_overlap": True,
+              **({"page_size": PAGE, "pool_pages": pool}
+                 if tag == "serve_paged" else {}), **out[tag]})
+        torch.cuda.empty_cache()
+    # the paged engine at the dense engine's 8 rows: the same tile, the
+    # same splits, so the same tokens; its logprobs against teacher forcing
+    gate = probe_engine(PagedContinuousEngine)(
+        cfg, max_batch=8, page_size=PAGE, pool_pages=pool,
+        return_logprobs=True, **common)
+    res, _, _, steps, counts = serve_timed(build, gate, params,
+                                           reqs[:CONT_GATE])
+    expect_serving_counts("serve_paged at 8 rows", counts, L, steps,
+                          CONT_GATE)
+    for i in range(CONT_GATE):
+        if res[i].tokens != results["serve_continuous"][i].tokens:
+            raise AssertionError(f"request {i}: paged tokens "
+                                 f"{res[i].tokens} != dense "
+                                 f"{results['serve_continuous'][i].tokens}")
+    tf = []
+    for i in range(CONT_TF_SAMPLE):
+        want = teacher_forced_logprobs(params, cfg, reqs[i].tokens,
+                                       res[i].tokens, dev)
+        tf.append(float((torch.tensor(res[i].logprobs) - want).abs().max()))
+    check("serve_paged teacher forcing (logprobs)", max(tf), TEACHER_TOL)
+    emit({"phase": "serve_paged_gate", "card": card,
+          "requests": CONT_GATE, "max_batch": 8,
+          "tokens_equal_dense": True, "teacher_forcing_max_abs_err": tf,
+          "teacher_tol": TEACHER_TOL})
+    return out
+
+
+def serve_prefix_phase(pkg, build, decode, dev, card):
+    """serve_prefix: bench_prefix's 8 requests (a shared 16384-token system
+    prompt + a 64-token tail, 16 new tokens) through PagedContinuousEngine
+    at 4 rows, plain against prefix_cache=True: the prefix hit count, the
+    suffix chunk's B7 sub-runs (the tile rule's count), exact launch
+    counts, and each request's first-token logits within the teacher-
+    forcing gate of the plain engine's."""
+    from long_context_attention_tpu_torch.models.llama import init_params
+    from long_context_attention_tpu_torch.serving import (
+        PagedContinuousEngine, Request)
+
+    cfg = pkg.ModelConfig(**MODEL)
+    L = cfg.n_layers
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params = init_params(gen, cfg, device=dev)
+    rng = np.random.default_rng(0)
+    system = [int(t) for t in rng.integers(0, cfg.vocab, PREFIX_SYS)]
+    reqs = [Request(id=i, tokens=system + [int(t) for t in rng.integers(
+        0, cfg.vocab, PREFIX_TAIL)], max_new=PREFIX_NEW)
+        for i in range(PREFIX_REQS)]
+    prompt = PREFIX_SYS + PREFIX_TAIL
+    s_max = ((prompt + PREFIX_NEW + 4095) // 4096) * 4096
+    pool = 4 * (s_max // PAGE) + PREFIX_SYS // PAGE + 2
+    common = dict(s_max=s_max, max_batch=4, cache_dtype="int8",
+                  weight_dtype="int8", step_block=STEP_BLOCK,
+                  host_overlap=True, page_size=PAGE, pool_pages=pool,
+                  device=dev)
+    engines = {"plain": probe_engine(PagedContinuousEngine)(cfg, **common),
+               "prefix": probe_engine(PagedContinuousEngine)(
+                   cfg, prefix_cache=True, prefill_chunk=PREFIX_CHUNK,
+                   **common)}
+    # the suffix chunk: min(prefill_chunk, bucket(64)) = 64 tokens, one
+    # chunk, split by the tile rule into these sub-runs
+    hk, h = cfg.n_kv_heads, cfg.n_heads
+    cs = min(PREFIX_CHUNK, 64)
+    subruns = len(decode.decode_run_plan(cs, hk, h // hk, cfg.head_dim,
+                                         PAGE, 1, paged=True))
+    hits_want = (PREFIX_REQS - 1) * PREFIX_SYS
+    out, firsts = {}, {}
+    for tag, eng in engines.items():
+        probe_reset()
+        eng.serve(params, reqs[:1])  # warm-up, then the suffix path too
+        eng.serve(params, reqs[:2])
+        res, wall, toks, steps, counts = serve_timed(build, eng, params,
+                                                     reqs)
+        firsts[tag] = PROBE["first_logits"]
+        if tag == "prefix":
+            hits = eng.stats["prefix_hit_tokens"]
+            if hits != hits_want:
+                raise AssertionError(f"prefix hits {hits}, expected "
+                                     f"{hits_want}")
+            cold, chunks = 1, PREFIX_REQS - 1
+        else:
+            cold, chunks = PREFIX_REQS, 0
+        launches = expect_serving_counts(f"serve_prefix {tag}", counts, L,
+                                         steps, cold, L * chunks,
+                                         L * chunks * subruns)
+        out[tag] = {"wall_s": wall, "tok_per_s": toks / wall,
+                    "tokens": toks, "decode_steps": steps,
+                    "launches": launches,
+                    "multi_token_launches": {
+                        "cache_append": L * chunks,
+                        "decode_attention": L * chunks * subruns},
+                    "stats": dict(eng.stats)}
+        torch.cuda.empty_cache()
+    tf = [float((a - b).abs().max())
+          for a, b in zip(firsts["prefix"], firsts["plain"])]
+    if len(tf) != PREFIX_REQS:
+        raise AssertionError(f"{len(tf)} admissions, expected {PREFIX_REQS}")
+    check("serve_prefix first-token logits", max(tf), TEACHER_TOL)
+    emit({"phase": "serve_prefix", "card": card, "model": "llama-0.88B",
+          "requests": PREFIX_REQS, "system": PREFIX_SYS,
+          "tail": PREFIX_TAIL, "max_new": PREFIX_NEW, "max_batch": 4,
+          "s_max": s_max, "pool_pages": pool, "prefill_chunk": PREFIX_CHUNK,
+          "suffix_subruns": subruns, "prefix_hit_tokens_expected": hits_want,
+          "first_logits_max_abs_err": tf, "teacher_tol": TEACHER_TOL,
+          **out})
+    return out
+
+
+def serve_stall_phase(pkg, build, decode, dev, card):
+    """serve_stall: a 2048-token request decoding while a 32768-token
+    prompt is admitted, the running row's largest inter-token gap with
+    batch admission and with interleave_admission (chunks of 256), with
+    exact launch counts (each interleaved chunk 16 B6 and 16 x its sub-
+    runs B7, no B1). The two admissions differ in arithmetic (B1 over bf16
+    K/V against the multi-token B7 over the int8 cache), so each run is
+    teacher-forced on its own tokens: every step's logits, the first
+    token's included, within TEACHER_TOL of a bf16 prefill of the prompt
+    and the run's tokens before that step. Where the runs' tokens part,
+    the position and both runs' logits of the two tokens are reported."""
+    from long_context_attention_tpu_torch.models.llama import (
+        forward_local, init_params)
+    from long_context_attention_tpu_torch.serving import (
+        PagedContinuousEngine, Request)
+
+    cfg = pkg.ModelConfig(**MODEL)
+    L = cfg.n_layers
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params = init_params(gen, cfg, device=dev)
+    rng = np.random.default_rng(0)
+    long_prompt = [int(t) for t in rng.integers(0, cfg.vocab, STALL_CTX)]
+    reqs = [Request(id=0, tokens=[int(t) for t in rng.integers(
+                0, cfg.vocab, STALL_RUNNING[0])],
+                    max_new=24 + STALL_CTX // STALL_CHUNK),
+            Request(id=1, tokens=[int(t) for t in rng.integers(
+                0, cfg.vocab, STALL_RUNNING[1])],
+                    max_new=4),
+            Request(id=2, tokens=long_prompt, max_new=4)]
+    s_cap = ((STALL_CTX + 8191) // 4096) * 4096
+    pool = (3 * s_cap) // PAGE + 1
+    hk = cfg.n_kv_heads
+    subruns = len(decode.decode_run_plan(STALL_CHUNK, hk, cfg.n_heads // hk,
+                                         cfg.head_dim, PAGE, 1, paged=True))
+    chunks = sum(-(-len(r.tokens) // STALL_CHUNK) for r in reqs)
+    out, runs = {}, {}
+    for tag, inter in (("batch", False), ("interleaved", True)):
+        eng = probe_engine(PagedContinuousEngine)(
+            cfg, s_max=s_cap, max_batch=2, cache_dtype="int8",
+            weight_dtype="int8", page_size=PAGE, pool_pages=pool,
+            interleave_admission=inter, prefill_chunk=STALL_CHUNK,
+            device=dev)
+        probe_reset()
+        eng.serve(params, reqs[:2])  # warm-up
+        res, wall, _, steps, counts = serve_timed(build, eng, params, reqs,
+                                                  stamps=[], logits={})
+        if sorted(res) != [r.id for r in reqs] or any(
+                len(res[r.id].tokens) != r.max_new for r in reqs):
+            raise AssertionError(f"serve_stall {tag}: not every request "
+                                 f"completed")
+        gaps = np.diff(np.asarray(PROBE["stamps"])) * 1e3
+        multi = ({"cache_append": L * chunks,
+                  "decode_attention": L * chunks * subruns} if inter
+                 else {"cache_append": 0, "decode_attention": 0})
+        launches = expect_serving_counts(
+            f"serve_stall {tag}", counts, L, steps,
+            0 if inter else len(reqs), multi["cache_append"],
+            multi["decode_attention"])
+        if len(PROBE["first_logits"]) != len(reqs):
+            raise AssertionError(f"serve_stall {tag}: "
+                                 f"{len(PROBE['first_logits'])} admissions")
+        # admissions run in request order: the first token's logits, then
+        # one decode step's per later token
+        runs[tag] = {}
+        for r in reqs:
+            toks, step_logits = res[r.id].tokens, PROBE["logits"][r.id]
+            if len(step_logits) != len(toks) - 1:
+                raise AssertionError(f"serve_stall {tag} request {r.id}: "
+                                     f"{len(step_logits)} decode steps for "
+                                     f"{len(toks)} tokens")
+            runs[tag][r.id] = (toks, torch.stack(
+                [PROBE["first_logits"][r.id][0].to(dev), *step_logits]))
+        out[tag] = {"max_gap_ms": float(gaps.max()),
+                    "median_gap_ms": float(np.median(gaps)),
+                    "wall_s": wall, "decode_steps": steps,
+                    "admissions": len(reqs), "chunks": chunks if inter else 0,
+                    "subruns_per_chunk": subruns if inter else 0,
+                    "launches": launches, "multi_token_launches": multi}
+        del PROBE["logits"]
+        torch.cuda.empty_cache()
+    # each run against the bf16 prefill of its own prompt + tokens
+    tf, parted = {}, {}
+    for r in reqs:
+        want = {}
+        for tag, run in runs.items():
+            toks, got = run[r.id]
+            seq = torch.tensor([list(r.tokens) + toks[:-1]], device=dev)
+            with torch.no_grad():
+                want[tag] = forward_local(params, seq, cfg)[
+                    0, len(r.tokens) - 1:].float()
+            err = (got - want[tag]).abs().amax(-1)
+            top2 = want[tag].topk(2, dim=-1).values
+            tf[f"{r.id} {tag}"] = {
+                "max_abs_err": float(err.max()), "at": int(err.argmax()),
+                "first_token": float(err[0]),
+                # how near the teacher's greedy choices are to ties
+                "teacher_top2_margin_median": float(
+                    (top2[:, 0] - top2[:, 1]).median())}
+            check(f"serve_stall request {r.id} teacher forcing ({tag})",
+                  float(err.max()), TEACHER_TOL)
+        (a, la), (b, lb) = runs["batch"][r.id], runs["interleaved"][r.id]
+        j = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if j is not None:
+            # both runs' prefixes agree up to j, and so do their teachers
+            tj = want["batch"][j]
+            top2 = tj.topk(2).values
+            parted[r.id] = {
+                "position": j, "tokens": [a[j], b[j]],
+                "teacher_logits": [float(tj[a[j]]), float(tj[b[j]])],
+                "teacher_top2_margin": float(top2[0] - top2[1]),
+                "batch_logits": [float(la[j, a[j]]), float(la[j, b[j]])],
+                "interleaved_logits": [float(lb[j, a[j]]),
+                                       float(lb[j, b[j]])],
+                "runs_max_abs_diff_to_j": [
+                    float((la[i] - lb[i]).abs().max()) for i in range(j + 1)]}
+    emit({"phase": "serve_stall", "card": card, "model": "llama-0.88B",
+          "ctx": STALL_CTX, "pool_pages": pool, "page_size": PAGE,
+          "prefill_chunk": STALL_CHUNK, "cache_dtype": "int8",
+          "weight_dtype": "int8", "teacher_forcing": tf,
+          "teacher_tol": TEACHER_TOL, "tokens_equal": not parted,
+          "parted": parted, **out})
+    return out
 
 # ---------------------------------------------------------------------------
 # phase 5: the training slice
@@ -2870,6 +3599,16 @@ def main():
         for r in res if isinstance(res, list) else [res]:
             emit({"phase": "kernel", **r})
             rows.append(r)
+    # B6 and B7 through the page table, B7 over multi-token runs
+    by_name = {r["name"]: r for r in rows}
+    by_name["cache_append"]["paged_cases"] = kernel_b6_paged(decode, gen,
+                                                             dev)
+    by_name["decode_attention"]["paged_cases"] = kernel_b7_paged(decode,
+                                                                 gen, dev)
+    for name in ("cache_append", "decode_attention"):
+        for case in by_name[name]["paged_cases"]:
+            emit({"phase": "kernel_paged", "name": name, **case})
+    torch.cuda.empty_cache()
     # the four kernels at the dense ring's multi-chunk descriptors
     ring_rows = kernel_ring(K, flash, sage, ring, gen, dev)
     torch.cuda.synchronize()
@@ -2924,6 +3663,12 @@ def main():
     train_usp_phase(pkg, build, dev, smi)
     torch.cuda.empty_cache()
     lap("train_usp")
+    paged = serve_paged_phase(pkg, build, dev, smi)
+    lap("serve_continuous_paged")
+    prefix = serve_prefix_phase(pkg, build, decode, dev, smi)
+    lap("serve_prefix")
+    stall = serve_stall_phase(pkg, build, decode, dev, smi)
+    lap("serve_stall")
     emit({"phase": "timing", "seconds": seconds})
     path = {"flash_fwd_static": wcounts, "flash_bwd_fused": train_counts,
             "flash_bwd_dq": offsets_counts, "flash_bwd_dkv": offsets_counts,
@@ -2959,6 +3704,17 @@ def main():
                         else ring_counts)[r["name"]]
             r["ring_cases"] = [dict(c, launches=launches)
                                for c in ring_rows[tag]]
+        # the paged cases: one-token launches on the paged engine's 32-row
+        # run; multi-token ones in the prefix engine's run (the 64-token
+        # suffix chunks) and the interleaved stall run (256-token chunks)
+        for case in r.get("paged_cases", []):
+            if "n=64" in case["case"]:
+                src = prefix["prefix"]["multi_token_launches"]
+            elif "n=256" in case["case"] or "run of 256" in case["case"]:
+                src = stall["interleaved"]["multi_token_launches"]
+            else:
+                src = paged["serve_paged"]["launches"]
+            case["launches"] = src[r["name"]]
     emit({"kernels": rows})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

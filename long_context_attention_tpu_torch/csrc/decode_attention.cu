@@ -1,15 +1,29 @@
-// Decode attention for Hopper (sm_90a): one query token per row against the
-// layered KV cache, up to per-row lengths.
+// Decode attention for Hopper (sm_90a): a run of n_tok query tokens per row
+// (1 in the decode step, more in a teacher-forced run) against the layered
+// KV cache, dense or paged, up to per-row lengths.
 //
 // Replaces the TPU kernel long_context_attention_tpu/ops/decode.py
-// _decode_kernel (wrapper decode_attention), for the dense layered cache with
-// a bf16 cache or an int8 cache on the s8 x s8 path (mxu_int8), with an
-// optional sliding window, StreamingLLM sinks and logit softcap.
+// _decode_kernel (wrapper decode_attention), for a bf16 cache or an int8
+// cache on the s8 x s8 path (mxu_int8), with an optional sliding window,
+// StreamingLLM sinks and logit softcap. `lengths` counts every visible slot
+// including the run: token i of a run sits at position len - n_tok + i and
+// sees the columns up to it (and its own window), so each query row has its
+// own causal and window bounds, in logical positions.
 //
-// What bounds it on an H100: memory. Every visible cache byte is read
-// once: 2*b*h_kv*n*d values plus 8*b*h_kv*n scale bytes for int8, where n
-// is a row's visible columns (its length, or its sinks plus its window
-// band), against 3.35 TB/s; the arithmetic is a few operations per byte.
+// Paged cache: the cache arrays are a pool (L, P, h_kv, page, D) and row b's
+// logical column c lives in pool page page_table[b, c / page] at offset
+// c % page. The tile divides the page, so a tile never crosses a page: only
+// the tile's base address changes, and the walk (logical tiles) and the
+// masks are those of the dense cache. Entries past a row's live prefix are
+// never read (the walk stops at its last live tile).
+//
+// What bounds it on an H100: for one token, memory. Every visible cache
+// byte is read once: 2*b*h_kv*n*d values plus 8*b*h_kv*n scale bytes for
+// int8, where n is a row's visible columns (its length, or its sinks plus
+// its window band), against 3.35 TB/s; the arithmetic is a few operations
+// per byte. A run of many tokens is bound by its operations (q.k and p.v
+// per query row and visible column); this design reads the cache once per
+// group of MAXG rows, so it stays far from either bound there.
 //
 // The kv walk takes a row's live tiles only, each once: the sink tiles
 // that lie before the window's band, then the band from the tile of column
@@ -18,8 +32,11 @@
 // nor are a sink tile's columns past the sinks or the band's first tile's
 // columns left of the window.
 //
-// Design: one 256-thread block per (kv split, kv head, batch row). All g
-// query heads of the group share the kv head's stream. The kv range is cut
+// Design: one 256-thread block per (kv split, kv head and group of at most
+// MAXG query rows, batch row). The query rows of a kv head (its g heads
+// times the run's n_tok tokens, ordered (head, token)) fall into groups of
+// MAXG; each group streams the kv head's tiles on its own (a first design:
+// a long run reads the cache once per group). The kv range is cut
 // into `bkv`-column tiles, and a split owns a contiguous run of them, so
 // b*h_kv*splits blocks fill the 132 SMs where b*h_kv alone would not; the
 // wrapper merges the splits' (out, lse) partials. Inside a tile:
@@ -41,6 +58,7 @@
 // same entry point. Because the int8 P quantization is per tile, `bkv` is part of the
 // semantics and the plain version takes the same value.
 
+#include <climits>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -58,16 +76,20 @@ constexpr float kNegInf = -1e30f;
 struct Params {
   const void* q;       // (b, h_kv, G, D) int8 or bf16
   const float* qs;     // (b, h_kv, G) int8 row scales (scale folded in)
-  const void* k;       // (L, b, h_kv, s_max, D) int8 or bf16
-  const void* v;
-  const float* ks;     // (L, b, h_kv, 1, s_max) fp32, int8 only
+  const void* k;       // (L, P, h_kv, page, D) int8 or bf16 (dense: P = b,
+  const void* v;       //   page = s_max)
+  const float* ks;     // (L, P, h_kv, 1, page) fp32, int8 only
   const float* vs;
   const int* lengths;  // (b,)
+  const int* pt;       // (b, n_pages) page table, or null (dense)
   float* out;          // (b, splits, h_kv, G, D) fp32 partials
   float* lse;          // (b, splits, h_kv, G)
   int b, h_kv, G, s_max, layer, bkv, splits, tiles_per_split;
-  int left;            // window: columns >= len - 1 - left (-1: all)
+  int left;            // window: a row at q sees columns >= q - left (-1: all)
   int sink;            // columns < sink stay visible (left >= 0)
+  int n_tok;           // tokens of the run; row r is token r % n_tok
+  int n_groups;        // groups of MAXG query rows per kv head
+  int pool, page, n_pages;
   float sscale;        // safe bf16 form: score scale
   float cap;           // softcap (0: none)
 };
@@ -121,7 +143,10 @@ __global__ void __launch_bounds__(NT) decode_kernel(const Params p) {
   constexpr int CH = D * EB / 16;        // lanes per cache row (scores)
   constexpr int RPI = NT / CH;           // cache rows per block pass
   extern __shared__ __align__(16) float smem[];
-  const int G = p.G;
+  const int sp = blockIdx.x, ib = blockIdx.z;
+  const int hk = blockIdx.y / p.n_groups;
+  const int r0 = (blockIdx.y % p.n_groups) * MAXG;  // the group's first row
+  const int G = min(MAXG, p.G - r0);                // its rows
   float* sP = smem;                      // [G][bkv] scores, then p
   float* sPart = sP + G * p.bkv;         // [NW][G][D] PV partials
   float* sAcc = sPart + NW * G * D;      // [G][D] fp32 accumulator
@@ -132,17 +157,16 @@ __global__ void __launch_bounds__(NT) decode_kernel(const Params p) {
   float* sPs = sAl + MAXG;               // this tile's P scale (int8)
   float* sT = sPs + MAXG;                // tile reduction results
 
-  const int sp = blockIdx.x, hk = blockIdx.y, ib = blockIdx.z;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int len = p.lengths[ib];
-  const long long slab = ((long long)p.layer * p.b + ib) * p.h_kv + hk;
-  const char* kbase =
-      static_cast<const char*>(p.k) + slab * (long long)p.s_max * D * EB;
-  const char* vbase =
-      static_cast<const char*>(p.v) + slab * (long long)p.s_max * D * EB;
-  const float* ksb = INT8 ? p.ks + slab * p.s_max : nullptr;
-  const float* vsb = INT8 ? p.vs + slab * p.s_max : nullptr;
-  const long long qrow0 = ((long long)ib * p.h_kv + hk) * G;
+  const long long qrow0 = ((long long)ib * p.h_kv + hk) * p.G + r0;
+  // each row's bounds: columns <= qlim[r], and >= wlo[r] unless a sink
+  int qlim[MAXG], wlo[MAXG];
+#pragma unroll
+  for (int r = 0; r < MAXG; ++r) {
+    qlim[r] = len - p.n_tok + (r0 + r) % p.n_tok;
+    wlo[r] = p.left >= 0 ? qlim[r] - p.left : INT_MIN;
+  }
 
   for (int i = tid; i < G * D; i += NT) sAcc[i] = 0.f;
   if (tid < MAXG) {
@@ -168,10 +192,11 @@ __global__ void __launch_bounds__(NT) decode_kernel(const Params p) {
   __syncthreads();
 
   // the row's live tiles, each once: the sink tiles before the window's
-  // band, then the band [start_t, last_t]; a split takes a run of them
+  // band, then the band [start_t, last_t] from the run's first token's
+  // window to its last token; a split takes a run of them
   const int nk = (p.s_max + p.bkv - 1) / p.bkv;
   const int last_t = len > 0 ? min((len - 1) / p.bkv, nk - 1) : -1;
-  const int first_col = p.left >= 0 ? max(len - 1 - p.left, 0) : 0;
+  const int first_col = p.left >= 0 ? max(len - p.n_tok - p.left, 0) : 0;
   const int start_t = first_col / p.bkv;
   const int n_sink =
       p.left >= 0 ? min(min((p.sink + p.bkv - 1) / p.bkv, start_t), last_t + 1)
@@ -187,9 +212,20 @@ __global__ void __launch_bounds__(NT) decode_kernel(const Params p) {
     // window's first column (or at 0 where it holds sinks)
     const int hi = min(p.bkv, (sink_tile ? min(p.sink, len) : len) - c0);
     const int lo = c0 < p.sink ? 0 : max(first_col - c0, 0);
-    // only a tile that holds both sinks and the window's start has columns
-    // to mask: those between the last sink and the window
-    const bool gap = max(p.sink, c0 + lo) < min(first_col, c0 + hi);
+    // the tile's storage: its pool page (paged) or the row's slab (dense)
+    int pg = ib, off = c0;
+    if (p.pt != nullptr) {
+      pg = min(max(p.pt[(long long)ib * p.n_pages + c0 / p.page], 0),
+               p.pool - 1);
+      off = c0 % p.page;
+    }
+    const long long slab =
+        ((long long)p.layer * p.pool + pg) * p.h_kv + hk;
+    const long long base = slab * p.page + off;  // the tile's first slot
+    const char* kt = static_cast<const char*>(p.k) + base * D * EB;
+    const char* vt = static_cast<const char*>(p.v) + base * D * EB;
+    const float* kst = INT8 ? p.ks + base : nullptr;
+    const float* vst = INT8 ? p.vs + base : nullptr;
 
     // 1. scores
     for (int j0 = lo; j0 < hi; j0 += RPI * UNROLL) {
@@ -200,7 +236,7 @@ __global__ void __launch_bounds__(NT) decode_kernel(const Params p) {
         kr[u].u = make_uint4(0, 0, 0, 0);
         if (j < hi)
           kr[u].u = *reinterpret_cast<const uint4*>(
-              kbase + (long long)(c0 + j) * D * EB + ch * 16);
+              kt + (long long)j * D * EB + ch * 16);
       }
 #pragma unroll
       for (int u = 0; u < UNROLL; ++u) {
@@ -218,7 +254,7 @@ __global__ void __launch_bounds__(NT) decode_kernel(const Params p) {
             for (int off = CH / 2; off > 0; off >>= 1)
               acc += __shfl_xor_sync(0xffffffffu, acc, off);
             s = (float)acc * qscale[r];
-            if (j < hi) s *= ksb[c0 + j];
+            if (j < hi) s *= kst[j];
           } else {
             float acc = 0.f;
 #pragma unroll
@@ -234,8 +270,11 @@ __global__ void __launch_bounds__(NT) decode_kernel(const Params p) {
             s = SAFE ? acc * p.sscale : acc;
           }
           if (p.cap > 0.f) s = p.cap * tanhf(s / p.cap);
+          // per-row bounds: the run's causal limit and the row's window
+          // (for one token, the masked columns are the gap between the
+          // last sink and the window in the band's first tile)
           const int col = c0 + j;
-          if (gap && col < first_col && col >= p.sink) s = kNegInf;
+          if (col > qlim[r] || (col < wlo[r] && col >= p.sink)) s = kNegInf;
           if (ch == 0 && j < hi) sP[r * p.bkv + j] = s;
         }
       }
@@ -272,7 +311,7 @@ __global__ void __launch_bounds__(NT) decode_kernel(const Params p) {
           if (SAFE && s == kNegInf) pv = 0.f;  // masked column
           a[r] += pv;
           if (INT8) {
-            pv *= vsb[c0 + j];
+            pv *= vst[j];
             bmax[r] = fmaxf(bmax[r], pv);
           } else {
             pv = __bfloat162float(__float2bfloat16_rn(pv));
@@ -313,7 +352,7 @@ __global__ void __launch_bounds__(NT) decode_kernel(const Params p) {
         const int j = j0 + u * NW;
         vw[u] = make_uint2(0, 0);
         if (j < hi) {
-          const char* row = vbase + (long long)(c0 + j) * D * EB;
+          const char* row = vt + (long long)j * D * EB;
           if (INT8)
             vw[u].x = *reinterpret_cast<const unsigned*>(row + lane * 4);
           else
@@ -377,7 +416,8 @@ __global__ void __launch_bounds__(NT) decode_kernel(const Params p) {
   }
 
   // emit this split's partial: out = acc / l (0 on a dead row), lse
-  const long long obase = (((long long)ib * p.splits + sp) * p.h_kv + hk) * G;
+  const long long obase =
+      (((long long)ib * p.splits + sp) * p.h_kv + hk) * p.G + r0;
   for (int i = tid; i < G * D; i += NT) {
     const float l = sL[i / D];
     p.out[obase * D + i] = l == 0.f ? 0.f : sAcc[i] / l;
@@ -423,7 +463,7 @@ int launch(const Params& p, size_t smem, cudaStream_t stream) {
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  dim3 grid(p.splits, p.h_kv, p.b);
+  dim3 grid(p.splits, p.h_kv * p.n_groups, p.b);
   kern<<<grid, NT, smem, stream>>>(p);
   return (int)cudaGetLastError();
 }
@@ -440,14 +480,18 @@ size_t smem_bytes(int G, int bkv) {
 
 }  // namespace
 
-// dims: b, h_kv, G, s_max, layer, bkv, splits, tiles_per_split, left, sink.
-// A split takes tiles_per_split of a row's live tiles.
+// dims: b, h_kv, G, s_max, layer, bkv, splits, tiles_per_split, left, sink,
+// n_tok, pool, page, n_pages. s_max is a row's logical capacity (n_pages *
+// page when paged); dense: pt null, pool = b, page = s_max, n_pages = 1.
+// G = g * n_tok query rows per kv head, ordered (head, token). A split
+// takes tiles_per_split of a row's live tiles.
 // out (b, h_kv, G, D) and lse (b, h_kv, G) fp32; with splits > 1 the
 // partials go to part_out (b, splits, h_kv, G, D) / part_lse first.
 extern "C" int lca_decode_attention(const void* q, const float* qs,
                                     const void* k, const void* v,
                                     const float* ks, const float* vs,
-                                    const int* lengths, float* part_out,
+                                    const int* lengths, const int* pt,
+                                    float* part_out,
                                     float* part_lse, float* out, float* lse,
                                     const long long* dims, float sscale,
                                     float cap, int safe, void* stream) {
@@ -469,15 +513,24 @@ extern "C" int lca_decode_attention(const void* q, const float* qs,
   p.tiles_per_split = (int)dims[7];
   p.left = (int)dims[8];
   p.sink = (int)dims[9];
+  p.n_tok = (int)dims[10];
+  p.pool = (int)dims[11];
+  p.page = (int)dims[12];
+  p.n_pages = (int)dims[13];
+  p.pt = pt;
   p.sscale = sscale;
   p.cap = cap;
-  if (p.G < 1 || p.G > MAXG) return (int)cudaErrorInvalidValue;
+  if (p.G < 1 || p.n_tok < 1 || p.G % p.n_tok || p.bkv < 1 ||
+      (pt != nullptr && p.page % p.bkv))
+    return (int)cudaErrorInvalidValue;
+  p.n_groups = (p.G + MAXG - 1) / MAXG;
+  if ((long long)p.h_kv * p.n_groups > 65535) return (int)cudaErrorInvalidValue;
   const bool merge = p.splits > 1;
   if (merge && (part_out == nullptr || part_lse == nullptr))
     return (int)cudaErrorInvalidValue;
   p.out = merge ? part_out : out;
   p.lse = merge ? part_lse : lse;
-  const size_t smem = smem_bytes(p.G, p.bkv);
+  const size_t smem = smem_bytes(min(p.G, MAXG), p.bkv);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool int8 = ks != nullptr;
   int err;

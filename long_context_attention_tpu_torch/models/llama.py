@@ -22,7 +22,10 @@ norms), RMSNorm, RoPE over global positions and dense SwiGLU FFN, with
 * :func:`prefill_chunk_step`: one prompt chunk against the cache so far
   (chunk self-attention, attention over the cache prefix, LSE merge);
 * :func:`decode_step`: one token per row against the cache (append, then
-  attend).
+  attend), dense or paged;
+* :func:`decode_multi_step`: a teacher-forced run of n tokens per row
+  against the cache in one multi-token append and attention per layer (the
+  prefix cache's suffix prefill and interleaved admission).
 
 The two cache steps run the flash and decode kernels whatever
 ``attn_impl`` is, as the JAX package's do.
@@ -77,7 +80,8 @@ from long_context_attention_tpu_torch.utils.config import (
 __all__ = ["ModelConfig", "init_params", "rmsnorm", "rope", "forward_local",
            "local_positions", "loss_local", "make_forward",
            "make_train_step", "param_leaves",
-           "prefill_chunk_step", "decode_step", "layer_params"]
+           "prefill_chunk_step", "decode_step", "decode_multi_step",
+           "layer_params"]
 
 Params = Dict[str, Any]
 LAYOUTS = ("basic", "zigzag", "stripe")
@@ -516,35 +520,66 @@ def prefill_chunk_step(params: Params, cache, tokens: torch.Tensor,
 @torch.no_grad()
 def decode_step(params: Params, cache, tokens: torch.Tensor,
                 cfg: ModelConfig, *, active: Optional[torch.Tensor] = None):
-    """One single-token decode step against a KVCache (the serving hot
-    path): tokens (b,) -> (logits (b, vocab) fp32, cache). Each layer
-    appends the new token's K/V (kernel B6) and then attends over the cache
-    including it (kernel B7); ``cache.length`` advances once at the end.
-    The cache is updated IN PLACE. ``active`` (b,) bool marks live rows;
-    inactive rows write nothing and do not advance."""
-    b = tokens.shape[0]
-    x = params["embed"][tokens][:, None]
-    pos = cache.length
-    live = (torch.ones_like(pos) if active is None
-            else active.to(device=pos.device, dtype=pos.dtype))
-    append_pos = torch.where(live > 0, pos, torch.full_like(pos, -1))
-    att_len = pos + live
+    """One single-token decode step against a KVCache or a PagedKVCache (the
+    serving hot path): tokens (b,) -> (logits (b, vocab) fp32, cache). Each
+    layer appends the new token's K/V (kernel B6) and then attends over the
+    cache including it (kernel B7); a paged cache's page table rides both
+    kernels. ``cache.length`` advances once at the end. The cache is
+    updated IN PLACE. ``active`` (b,) bool marks live rows; inactive rows
+    write nothing and do not advance."""
+    logits, cache = decode_multi_step(params, cache, tokens[:, None], cfg,
+                                      active=active)
+    return logits[:, 0], cache
+
+
+@torch.no_grad()
+def decode_multi_step(params: Params, cache, tokens: torch.Tensor,
+                      cfg: ModelConfig, *,
+                      active: Optional[torch.Tensor] = None,
+                      last_index: Optional[int] = None):
+    """Teacher-forced multi-token decode: tokens (b, n) at per-row
+    positions cache.length + [0, n) -> (logits (b, n, vocab) fp32, position
+    i's logits following token i, and the cache with the n K/V appended and
+    ``length`` advanced by n), IN PLACE. Per layer one multi-token append
+    (kernel B6) and one multi-token ``decode_attention`` (kernel B7, token
+    i seeing slots up to its own position), so position i's math is that of
+    :func:`decode_step` for that token. A PagedKVCache works through its
+    page table; a one-row view of the engine's pool (the same tensors with
+    another table and length) appends into the pool in place.
+
+    ``active``: (b,) bool; inactive rows write nothing and do not advance.
+    ``last_index``: project only that run position through lm_head
+    (logits (b, 1, vocab))."""
+    b, n = tokens.shape
+    x = params["embed"][tokens]
+    pos0 = cache.length
+    live = (torch.ones_like(pos0) if active is None
+            else active.to(device=pos0.device, dtype=pos0.dtype))
+    append_pos = torch.where(live > 0, pos0, torch.full_like(pos0, -n))
+    att_len = pos0 + n * live
+    positions = pos0[:, None] + torch.arange(n, dtype=pos0.dtype,
+                                             device=pos0.device)[None]
     scale = cfg.head_dim ** -0.5
     dt = cache.dtype
+    pt = getattr(cache, "page_table", None)
     for i, lp in enumerate(layer_params(params)):
         h = rmsnorm(x, lp["attn_norm"], cfg.norm_eps)
-        q, k, v = _qkv(cfg, lp, h, pos[:, None])
-        kq, ks1 = quantize_kv(k.transpose(1, 2), dt)  # (b, h_kv, 1, d)
+        q, k, v = _qkv(cfg, lp, h, positions)
+        kq, ks1 = quantize_kv(k.transpose(1, 2), dt)  # (b, h_kv, n, d)
         vq, vs1 = quantize_kv(v.transpose(1, 2), dt)
         cache_append(cache.k, cache.v, kq, vq, append_pos, cache.k_scale,
-                     cache.v_scale, ks1, vs1, layer=i)
-        attn = decode_attention(q[:, 0], cache.k, cache.v, att_len,
+                     cache.v_scale, ks1, vs1, layer=i, page_table=pt)
+        attn = decode_attention(q, cache.k, cache.v, att_len,
                                 cache.k_scale, cache.v_scale,
-                                softmax_scale=scale, layer=i,
+                                softmax_scale=scale, layer=i, page_table=pt,
                                 **cfg.attention_kwargs())
-        x = x + qdot(attn.reshape(b, 1, cfg.q_dim), lp["wo"]).to(x.dtype)
+        # the kernel's bf16 out meets the model's dtype, as JAX promotes it
+        x = x + qdot(attn.reshape(b, n, cfg.q_dim).to(x.dtype),
+                     lp["wo"]).to(x.dtype)
         hh = rmsnorm(x, lp["mlp_norm"], cfg.norm_eps)
         x = x + _ffn(cfg, lp, hh).to(x.dtype)
-    cache.length += live
+    cache.length += n * live
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    return qdot(x[:, 0], params["lm_head"]).float(), cache
+    if last_index is not None:
+        x = x[:, last_index:last_index + 1]
+    return qdot(x, params["lm_head"]).float(), cache

@@ -222,13 +222,17 @@ KERNELS: Dict[str, Kernel] = {
         "sparse_bwd_dkv", "flash_bwd_sm90.cu", "lca_sparse_bwd_dkv",
         [_VP] * 14 + [_F, _VP],
         "long_context_attention_tpu/ops/sparse.py:516"),
+    # k, v, k_new, v_new, scales (4), append_pos, page table (or null),
+    # dims, stream
     "cache_append": Kernel(
         "cache_append", "cache_append.cu", "lca_cache_append",
-        [_VP] * 11,
+        [_VP] * 12,
         "long_context_attention_tpu/ops/decode.py:40"),
+    # q, q scales, k, v, scales (2), lengths, page table (or null), the
+    # split partials (2), out, lse, dims, then scale, softcap, safe, stream
     "decode_attention": Kernel(
         "decode_attention", "decode_attention.cu", "lca_decode_attention",
-        [_VP] * 12 + [_F, _F, _I, _VP],
+        [_VP] * 13 + [_F, _F, _I, _VP],
         "long_context_attention_tpu/ops/decode.py:296"),
 }
 

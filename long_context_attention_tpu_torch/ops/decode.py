@@ -1,28 +1,34 @@
-"""Decode on Hopper: in-place cache append and single-token attention.
+"""Decode on Hopper: in-place cache append and decode attention.
 
 Counterpart of ``long_context_attention_tpu/ops/decode.py``, for the dense
-KV cache (layer-stacked or not), bf16 or int8:
+KV cache (layer-stacked or not) and the paged pool, bf16 or int8:
 
 * :func:`cache_append` is the wrapper of kernel B6 (``csrc/cache_append.cu``):
   it writes one run of new tokens per row into the cache IN PLACE.
 * :func:`decode_attention` quantizes / folds the query as the JAX wrapper
   does and calls :func:`decode_attention_core`, the wrapper of kernel B7
   (``csrc/decode_attention.cu``), which attends the query rows of every kv
-  head to the cache up to per-row lengths.
+  head to the cache up to per-row lengths: one token per row, or a run of
+  n tokens per row (a teacher-forced run), each at its own position.
+
+Paged mode (``page_table``): the cache arrays are a pool of pages
+(L, P, h_kv, page, d) and logical slot s of row b lives in pool page
+``page_table[b, s // page]`` at offset ``s % page``; only the addressing
+changes, the masks stay in logical positions.
 
 Each wrapper runs its plain version (``*_plain``, same arithmetic) for CPU
 tensors and launches its kernel, or raises, for CUDA tensors. Decode takes
 a sliding window with StreamingLLM sinks and a logit softcap; the kernel
 walks a row's sink tiles and window band only. Not ported yet, and raising
-``NotImplementedError``: paged caches, ALiBi, sharded-cache columns
-(``first_cols``, ``sink_cols``, ``sink_band``), multi-token verify runs,
-``kv_splits``, fp8/int4 caches and the int8 dequant-cast path
-(``mxu_int8=False``).
+``NotImplementedError``: ALiBi, sharded-cache columns (``first_cols``,
+``sink_cols``, ``sink_band``), ``kv_splits``, fp8/int4 caches and the int8
+dequant-cast path (``mxu_int8=False``).
 """
 
 from __future__ import annotations
 
 import math
+from typing import List, Tuple
 
 import torch
 
@@ -32,10 +38,10 @@ from long_context_attention_tpu_torch.utils.config import NEG_INF, not_ported
 
 __all__ = ["cache_append", "cache_append_plain", "decode_attention",
            "decode_attention_core", "decode_attention_core_plain",
-           "decode_query_operands", "reference_block_kv"]
+           "decode_query_operands", "decode_run_plan", "reference_block_kv"]
 
 _HEAD_DIM = 128
-_MAX_ROWS = 8          # query rows per kv head the B7 kernel takes
+_GROUP_ROWS = 8        # query rows per block of the B7 kernel (MAXG)
 _TARGET_BLOCKS = 264   # two resident blocks on each of the H100's 132 SMs
 
 
@@ -46,26 +52,37 @@ _TARGET_BLOCKS = 264   # two resident blocks on each of the H100's 132 SMs
 
 def cache_append_plain(k_cache, v_cache, k_new, v_new, append_pos,
                        k_scale=None, v_scale=None, ks_new=None, vs_new=None,
-                       *, layer: int = 0):
+                       *, layer: int = 0, page_table=None):
     """Plain version of kernel B6, IN PLACE on the layered cache.
 
-    k_cache, v_cache (L, b, h_kv, s_max, d); k_new, v_new (b, h_kv, n, d);
-    scales (L, b, h_kv, 1, s_max) with new scales (b, h_kv, n). Token t of
-    row b lands at slot append_pos[b] + t when that slot is in [0, s_max);
-    other tokens write nothing."""
+    k_cache, v_cache (L, b, h_kv, s_max, d), or the pool (L, P, h_kv, page,
+    d) with ``page_table`` (b, n_pages); k_new, v_new (b, h_kv, n, d);
+    scales (L, b or P, h_kv, 1, s_max or page) with new scales (b, h_kv,
+    n). Token t of row b lands at logical slot append_pos[b] + t when that
+    slot is in [0, capacity) (s_max, or n_pages * page); other tokens write
+    nothing. A paged slot s lands in pool page page_table[b, s // page]
+    (clamped into the pool) at offset s % page."""
     b, h_kv, n, d = k_new.shape
-    s_max = k_cache.shape[3]
+    slot_dim = k_cache.shape[3]
+    cap = (page_table.shape[1] * slot_dim if page_table is not None
+           else slot_dim)
     slots = (append_pos.to(torch.long)[:, None]
              + torch.arange(n, device=append_pos.device)[None])
-    bi, ti = ((slots >= 0) & (slots < s_max)).nonzero(as_tuple=True)
+    bi, ti = ((slots >= 0) & (slots < cap)).nonzero(as_tuple=True)
     si = slots[bi, ti]
-    k_cache[layer, bi, :, si] = k_new[bi, :, ti]
-    v_cache[layer, bi, :, si] = v_new[bi, :, ti]
+    if page_table is not None:
+        pg = page_table.to(device=si.device, dtype=torch.long)[
+            bi, si // slot_dim].clamp(0, k_cache.shape[1] - 1)
+        si = si % slot_dim
+    else:
+        pg = bi
+    k_cache[layer, pg, :, si] = k_new[bi, :, ti]
+    v_cache[layer, pg, :, si] = v_new[bi, :, ti]
     if k_scale is not None:
         ksn = ks_new.reshape(b, h_kv, n).float()
         vsn = vs_new.reshape(b, h_kv, n).float()
-        k_scale[layer, bi, :, 0, si] = ksn[bi, :, ti]
-        v_scale[layer, bi, :, 0, si] = vsn[bi, :, ti]
+        k_scale[layer, pg, :, 0, si] = ksn[bi, :, ti]
+        v_scale[layer, pg, :, 0, si] = vsn[bi, :, ti]
 
 
 def cache_append(k_cache, v_cache, k_new, v_new, append_pos,
@@ -80,11 +97,14 @@ def cache_append(k_cache, v_cache, k_new, v_new, append_pos,
     ``append_pos``: (b,) int32 first slot per row; slots outside
     [0, s_max) are skipped, so ``append_pos = -n`` skips a row.
     int8 caches pass scales (.., b, h_kv, 1, s_max) and new scales
-    (b, h_kv, n). ``interpret`` is accepted for API parity. Returns the same
-    tensors it was given: ``(k_cache, v_cache)`` or with the scales."""
+    (b, h_kv, n). ``page_table``: (b, n_pages) int32, the paged pool
+    (P, h_kv, page, d) (stacked (L, P, ...) with ``layer``; scales
+    (.., P, h_kv, 1, page)): logical slot s of row b lives in pool page
+    ``page_table[b, s // page]`` at offset ``s % page``, the capacity is
+    n_pages * page, and a run may straddle a page. ``interpret`` is
+    accepted for API parity. Returns the same tensors it was given:
+    ``(k_cache, v_cache)`` or with the scales."""
     del interpret
-    if page_table is not None:
-        raise not_ported("the paged cache")
     layered = layer is not None
     li = int(layer) if layered else 0
     kc = k_cache if layered else k_cache[None]
@@ -94,19 +114,28 @@ def cache_append(k_cache, v_cache, k_new, v_new, append_pos,
     vs = None if not quant else (v_scale if layered else v_scale[None])
     if k_cache.device.type == "cpu":
         cache_append_plain(kc, vc, k_new, v_new, append_pos, ks, vs,
-                           ks_new, vs_new, layer=li)
+                           ks_new, vs_new, layer=li, page_table=page_table)
     else:
         _cache_append_cuda(kc, vc, k_new, v_new, append_pos, ks, vs,
-                           ks_new, vs_new, li)
+                           ks_new, vs_new, li, page_table)
     if quant:
         return k_cache, v_cache, k_scale, v_scale
     return k_cache, v_cache
 
 
+def _page_table_operand(page_table, b: int, dev):
+    """The (b, n_pages) int32 page table as the kernels take it."""
+    pt = page_table.to(device=dev, dtype=torch.int32).contiguous()
+    if pt.dim() != 2 or pt.shape[0] != b:
+        raise ValueError(f"page_table must be (b={b}, n_pages), got "
+                         f"{tuple(pt.shape)}")
+    return pt
+
+
 def _cache_append_cuda(kc, vc, k_new, v_new, append_pos, ks, vs, ks_new,
-                       vs_new, layer: int) -> None:
-    L, b, h_kv, s_max, d = kc.shape
-    n = k_new.shape[2]
+                       vs_new, layer: int, page_table=None) -> None:
+    L, pool, h_kv, slot_dim, d = kc.shape
+    b, n = k_new.shape[0], k_new.shape[2]
     dev = kc.device
     if kc.dtype not in (torch.bfloat16, torch.int8):
         raise not_ported(f"a {kc.dtype} cache")
@@ -125,47 +154,120 @@ def _cache_append_cuda(kc, vc, k_new, v_new, append_pos, ks, vs, ks_new,
     if k_new.shape != (b, h_kv, n, d) or v_new.shape != k_new.shape:
         raise ValueError(f"new tokens must be (b, h_kv, n, d), got "
                          f"{tuple(k_new.shape)}")
+    pt = None
+    if page_table is not None:
+        pt = _page_table_operand(page_table, b, dev)
+        n_pages, cap = pt.shape[1], pt.shape[1] * slot_dim
+    else:
+        if pool != b:
+            raise ValueError(f"a dense cache holds {pool} rows, the new "
+                             f"tokens {b}")
+        n_pages, cap = 1, slot_dim
     quant = ks is not None
     if quant:
         for name, t in (("k_scale", ks), ("v_scale", vs)):
-            if t.shape != (L, b, h_kv, 1, s_max) or t.dtype != torch.float32 \
-                    or not t.is_contiguous():
+            if t.shape != (L, pool, h_kv, 1, slot_dim) \
+                    or t.dtype != torch.float32 or not t.is_contiguous():
                 raise ValueError(f"{name} must be contiguous fp32 "
-                                 f"(L, b, h_kv, 1, s_max)")
+                                 f"{(L, pool, h_kv, 1, slot_dim)}")
         ks_new = ks_new.reshape(b, h_kv, n).float().contiguous()
         vs_new = vs_new.reshape(b, h_kv, n).float().contiguous()
     pos = append_pos.to(device=dev, dtype=torch.int32).contiguous()
     if pos.shape != (b,):
         raise ValueError("append_pos must be (b,)")
-    dims = _build.dims_array([b, h_kv, n, s_max, layer, row_bytes])
+    dims = _build.dims_array([b, h_kv, n, cap, layer, row_bytes, pool,
+                              slot_dim, n_pages])
     p = _build.ptr
     _build.KERNELS["cache_append"](
         p(kc), p(vc), p(k_new), p(v_new), p(ks), p(vs),
         p(ks_new if quant else None), p(vs_new if quant else None), p(pos),
-        dims, _build.stream_ptr(dev))
+        p(pt), dims, _build.stream_ptr(dev))
 
 
 # ---------------------------------------------------------------------------
 # B7: decode attention
 # ---------------------------------------------------------------------------
 
+# The JAX kernel's scoped-VMEM working set (decode.py _vmem_est and its
+# budget): the int8 path requantizes P per kv tile, so the tile -- and the
+# split of a long run into sub-runs -- is part of the result, and the port
+# picks both by the same rule to give the same numbers.
+_VMEM_BUDGET = 12 * 2 ** 20
+
+
+def _vmem_est(h_kv: int, G: int, d: int, bkv: int, itemsize: int) -> int:
+    return (4 * h_kv * bkv * d * itemsize + 8 * h_kv * G * bkv
+            + 8 * h_kv * G * d + 8 * h_kv * G * 128)
+
+
+def _fit_run_tokens(h_kv: int, g: int, d: int, bkv: int,
+                    itemsize: int) -> int:
+    """Longest multi-token run whose working set fits the budget at kv tile
+    ``bkv`` (the JAX package's rule)."""
+    kv = 4 * h_kv * bkv * d * itemsize
+    per_g = 8 * h_kv * (bkv + d + 128)
+    return max(1, (_VMEM_BUDGET - kv) // per_g // g)
+
 
 def reference_block_kv(block_kv: int, s_max: int, h_kv: int, rows: int,
-                       d: int, itemsize: int) -> int:
+                       d: int, itemsize: int, *, paged: bool = False) -> int:
     """The kv tile the JAX package's decode kernel picks at these shapes
-    (its VMEM-fitting rule, decode.py:752-765). The int8 path requantizes P
-    per tile, so the tile is part of the result; the port uses the same
-    tile to give the same numbers."""
-    def est(bkv):
-        return (4 * h_kv * bkv * d * itemsize + 8 * h_kv * rows * bkv
-                + 8 * h_kv * rows * d + 8 * h_kv * rows * 128)
-
+    (its VMEM-fitting rule, decode.py:731-765) for ``rows`` = g * n query
+    rows per kv head. Dense: from min(block_kv, s_max), halve while the
+    working set is too large, then until the tile divides s_max. Paged
+    (``s_max`` is then the page): from the page, step down through the
+    page's 128-multiple divisors. The int8 path requantizes P per tile, so
+    the tile is part of the result; the port uses the same tile to give the
+    same numbers."""
+    if paged:
+        bkv = s_max
+        while bkv > 128 and _vmem_est(h_kv, rows, d, bkv,
+                                      itemsize) > _VMEM_BUDGET:
+            bkv = next((c for c in range(bkv - 128, 127, -128)
+                        if s_max % c == 0), 128)
+        return bkv
     bkv = min(block_kv, s_max)
-    while bkv > 128 and est(bkv) > 12 * 2 ** 20:
+    while bkv > 128 and _vmem_est(h_kv, rows, d, bkv,
+                                  itemsize) > _VMEM_BUDGET:
         bkv //= 2
     while s_max % bkv:
         bkv //= 2
     return bkv
+
+
+def decode_run_plan(n_tok: int, h_kv: int, g: int, d: int, slot_dim: int,
+                    itemsize: int, *, block_kv: int = 4096,
+                    paged: bool = False) -> List[Tuple[int, int, int]]:
+    """How :func:`decode_attention` runs a run of ``n_tok`` tokens: its
+    sub-runs [start, end) and each one's kv tile, as the JAX wrapper splits
+    a run too long for its working set (decode.py:696-728) and fits each
+    sub-run's tile from its own g * n_sub rows. ``slot_dim`` is the cache's
+    slot axis (s_max, or the page when ``paged``)."""
+    bounds = [(0, n_tok)]
+    if n_tok > 1:
+        fit = _fit_run_tokens(h_kv, g, d, min(256, slot_dim), itemsize)
+        if fit < n_tok:
+            bounds = [(i, min(i + fit, n_tok))
+                      for i in range(0, n_tok, fit)]
+    return [(i, e, reference_block_kv(block_kv, slot_dim, h_kv, g * (e - i),
+                                      d, itemsize, paged=paged))
+            for i, e in bounds]
+
+
+def _tile_of(cache, layer: int, c0: int, n: int, page_table, page: int,
+             scales: bool = False):
+    """Columns [c0, c0 + n) of every row of one layer: values (b, h_kv, n,
+    d) from the dense cache (L, b, h_kv, s, d) or through the page table
+    from the pool (L, P, h_kv, page, d); ``scales``: (b, h_kv, 1, n) from
+    (L, b or P, h_kv, 1, s or page)."""
+    if page_table is None:
+        pg, off = slice(None), c0
+    else:
+        pg = page_table[:, c0 // page].long().clamp(0, cache.shape[1] - 1)
+        off = c0 % page
+    if scales:
+        return cache[layer][pg, :, :, off:off + n]
+    return cache[layer][pg, :, off:off + n]
 
 
 def decode_attention_core_plain(q_in, q_rs, k_cache, v_cache, k_scale,
@@ -173,46 +275,63 @@ def decode_attention_core_plain(q_in, q_rs, k_cache, v_cache, k_scale,
                                 block_kv: int, scale: float,
                                 safe_softmax: bool = False,
                                 window_left: int = -1, sink_tokens: int = 0,
-                                softcap: float = 0.0):
+                                softcap: float = 0.0, n_tok: int = 1,
+                                page_table=None):
     """Plain version of kernel B7, tile by tile on the kernel's tile grid.
 
-    q_in (b, h_kv, G, d): int8 with fp32 row scales q_rs (b, h_kv, G) that
-    already carry the softmax scale (and log2e in the fast form), or bf16
-    (folded in the fast form) with q_rs None. Cache (L, b, h_kv, s_max, d),
-    scales (L, b, h_kv, 1, s_max). A row at length n sees columns [n - 1 -
-    window_left, n - 1] (all up to n - 1 when window_left < 0) and those
-    below ``sink_tokens``; ``softcap`` caps the scores before the mask and
-    needs the online form (``safe_softmax``). Every tile is visited here;
-    the kernel skips those with no visible column, which add nothing.
-    Returns fp32 out (b, h_kv, G, d) and lse (b, h_kv, G)."""
-    kc, vc = k_cache[layer], v_cache[layer]
+    q_in (b, h_kv, G, d): G = g * n_tok query rows per kv head, ordered
+    (head, token); int8 with fp32 row scales q_rs (b, h_kv, G) that already
+    carry the softmax scale (and log2e in the fast form), or bf16 (folded
+    in the fast form) with q_rs None. Cache (L, b, h_kv, s_max, d) and
+    scales (L, b, h_kv, 1, s_max), or with ``page_table`` (b, n_pages) the
+    pool (L, P, h_kv, page, d) and its scales (L, P, h_kv, 1, page), whose
+    page ``block_kv`` divides. ``lengths`` counts every visible slot
+    including the run: token i sits at q = length - n_tok + i and sees the
+    columns [q - window_left, q] (all up to q when window_left < 0) and
+    those below ``sink_tokens``; ``softcap`` caps the scores before the mask
+    and needs the online form (``safe_softmax``). Every tile is visited
+    here; the kernel skips those with no visible column, which add nothing
+    (columns at or past a row's length are zeroed before use, so a page
+    past the live prefix is never used). Returns fp32 out (b, h_kv, G, d)
+    and lse (b, h_kv, G)."""
     b, h_kv, G, d = q_in.shape
-    s_max = kc.shape[2]
+    slot_dim = k_cache.shape[3]
+    cap = (page_table.shape[1] * slot_dim if page_table is not None
+           else slot_dim)
     quant = q_rs is not None
     dev = q_in.device
+    if page_table is not None:
+        page_table = page_table.to(dev)
     m = torch.full((b, h_kv, G), NEG_INF, dtype=torch.float32, device=dev)
     l = torch.zeros((b, h_kv, G), dtype=torch.float32, device=dev)
     acc = torch.zeros((b, h_kv, G, d), dtype=torch.float32, device=dev)
-    qpos = lengths.to(device=dev, dtype=torch.long) - 1
+    lens = lengths.to(device=dev, dtype=torch.long)
+    tok = torch.arange(G, device=dev) % n_tok
+    qpos = (lens[:, None] - n_tok + tok[None])[:, None, :, None]
     first = (qpos - window_left if window_left >= 0
              else torch.zeros_like(qpos))
     qf = q_in.float()
-    for c0 in range(0, s_max, block_kv):
-        kt = kc[:, :, c0:c0 + block_kv].float()
-        vt = vc[:, :, c0:c0 + block_kv]
-        n = kt.shape[2]
+    for c0 in range(0, cap, block_kv):
+        n = min(block_kv, cap - c0)
+        cols = torch.arange(c0, c0 + n, device=dev)
+        live = (cols[None, :] < lens[:, None])[:, None, :]  # (b, 1, n)
+        kt = _tile_of(k_cache, layer, c0, n, page_table, slot_dim)
+        vt = _tile_of(v_cache, layer, c0, n, page_table, slot_dim)
+        kt = torch.where(live[..., None], kt, torch.zeros_like(kt)).float()
+        vt = torch.where(live[..., None], vt, torch.zeros_like(vt))
         s = torch.einsum("bhgd,bhnd->bhgn", qf, kt)
         if quant:
+            kst = _tile_of(k_scale, layer, c0, n, page_table, slot_dim, True)
+            vst = _tile_of(v_scale, layer, c0, n, page_table, slot_dim, True)
+            kst = torch.where(live[:, :, None], kst, torch.zeros_like(kst))
+            vst = torch.where(live[:, :, None], vst, torch.zeros_like(vst))
             s = s * q_rs[..., None]
-            s = s * k_scale[layer][:, :, :, c0:c0 + n]
+            s = s * kst
         elif safe_softmax:
             s = s * scale
         if softcap:
             s = softcap * torch.tanh(s / softcap)
-        cols = torch.arange(c0, c0 + n, device=dev)[None, :]
-        invisible = (cols > qpos[:, None]) | (
-            (cols < first[:, None]) & (cols >= sink_tokens))
-        invisible = invisible[:, None, None, :]
+        invisible = (cols > qpos) | ((cols < first) & (cols >= sink_tokens))
         s = s.masked_fill(invisible, NEG_INF)
         if safe_softmax:
             m_new = torch.maximum(m, s.amax(dim=-1))
@@ -224,7 +343,7 @@ def decode_attention_core_plain(q_in, q_rs, k_cache, v_cache, k_scale,
             p = torch.exp2(torch.clamp(s, max=_CLAMP))
             l = l + p.sum(dim=-1)
         if quant:
-            p = p * v_scale[layer][:, :, :, c0:c0 + n]
+            p = p * vst
             ps = torch.clamp(p.amax(dim=-1, keepdim=True), min=1e-20) * (
                 1.0 / 127.0)
             p8 = torch.round(p / ps)
@@ -247,11 +366,13 @@ def decode_attention_core_plain(q_in, q_rs, k_cache, v_cache, k_scale,
 def decode_attention_core(q_in, q_rs, k_cache, v_cache, k_scale, v_scale,
                           lengths, *, layer: int, block_kv: int, scale: float,
                           safe_softmax: bool = False, window_left: int = -1,
-                          sink_tokens: int = 0, softcap: float = 0.0):
+                          sink_tokens: int = 0, softcap: float = 0.0,
+                          n_tok: int = 1, page_table=None):
     """Kernel B7 wrapper (arguments as :func:`decode_attention_core_plain`).
 
     A row's live ``block_kv`` tiles (its sink tiles, then its window band,
-    or all up to its length) split into runs, one block per (run, kv head,
+    or all up to its length) split into runs, and the query rows of a kv
+    head into groups of eight; one block per (run, kv head and row group,
     row), so small batches still fill the card; a second kernel in the
     same entry point merges the runs' partials with the arithmetic of
     :func:`merge_partials`. CPU tensors take the plain version."""
@@ -262,42 +383,59 @@ def decode_attention_core(q_in, q_rs, k_cache, v_cache, k_scale, v_scale,
             q_in, q_rs, k_cache, v_cache, k_scale, v_scale, lengths,
             layer=layer, block_kv=block_kv, scale=scale,
             safe_softmax=safe_softmax, window_left=window_left,
-            sink_tokens=sink_tokens, softcap=softcap)
+            sink_tokens=sink_tokens, softcap=softcap, n_tok=n_tok,
+            page_table=page_table)
     b, h_kv, G, d = q_in.shape
-    L, _, _, s_max, _ = k_cache.shape
+    L, pool, _, slot_dim, _ = k_cache.shape
     dev = q_in.device
     quant = q_rs is not None
     kv_dtype = torch.int8 if quant else torch.bfloat16
-    if d != _HEAD_DIM or G > _MAX_ROWS:
+    if d != _HEAD_DIM:
         raise NotImplementedError(
-            f"the B7 kernel takes head_dim {_HEAD_DIM} and at most "
-            f"{_MAX_ROWS} query rows per kv head, got d={d}, rows={G}")
+            f"the B7 kernel takes head_dim {_HEAD_DIM}, got d={d}")
+    if n_tok < 1 or G % n_tok:
+        raise ValueError(f"{G} query rows do not hold runs of {n_tok}")
     if q_in.dtype != kv_dtype or not q_in.is_contiguous():
         raise ValueError(f"q must be contiguous {kv_dtype}")
     for name, t in (("k_cache", k_cache), ("v_cache", v_cache)):
-        if t.shape != (L, b, h_kv, s_max, d) or t.dtype != kv_dtype \
+        if t.shape != k_cache.shape or t.dtype != kv_dtype \
                 or t.device != dev or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous {kv_dtype} "
-                             f"(L, b, h_kv, s_max, d) tensor on {dev}")
+                             f"(L, b or P, h_kv, slots, d) tensor on {dev}")
+    if k_cache.shape[2] != h_kv or k_cache.shape[4] != d:
+        raise ValueError(f"cache {tuple(k_cache.shape)} does not match q "
+                         f"{tuple(q_in.shape)}")
+    pt = None
+    if page_table is not None:
+        pt = _page_table_operand(page_table, b, dev)
+        n_pages, cap = pt.shape[1], pt.shape[1] * slot_dim
+        if slot_dim % block_kv:
+            raise ValueError(f"the kv tile {block_kv} must divide the page "
+                             f"{slot_dim}")
+    else:
+        if pool != b:
+            raise ValueError(f"a dense cache holds {pool} rows, q {b}")
+        n_pages, cap = 1, slot_dim
     if quant:
         if q_rs.shape != (b, h_kv, G) or q_rs.dtype != torch.float32:
             raise ValueError("q row scales must be fp32 (b, h_kv, rows)")
         q_rs = q_rs.contiguous()
         for name, t in (("k_scale", k_scale), ("v_scale", v_scale)):
-            if t.shape != (L, b, h_kv, 1, s_max) or t.dtype != torch.float32 \
-                    or not t.is_contiguous():
+            if t.shape != (L, pool, h_kv, 1, slot_dim) \
+                    or t.dtype != torch.float32 or not t.is_contiguous():
                 raise ValueError(f"{name} must be contiguous fp32 "
-                                 f"(L, b, h_kv, 1, s_max)")
+                                 f"{(L, pool, h_kv, 1, slot_dim)}")
     if not 0 <= layer < L:
         raise ValueError(f"layer {layer} out of range for {L} layers")
     # a tile too large for shared memory fails in the launch (the C entry
     # point returns cudaErrorInvalidValue) and raises there
     lens = lengths.to(device=dev, dtype=torch.int32).contiguous()
-    nk = -(-s_max // block_kv)
+    nk = -(-cap // block_kv)
     if window_left >= 0:  # the most live tiles a row can have
         nk = min(nk, -(-sink_tokens // block_kv)
-                 + (window_left + block_kv) // block_kv + 1)
-    splits = max(1, min(nk, -(-_TARGET_BLOCKS // (b * h_kv))))
+                 + (window_left + n_tok - 1 + block_kv) // block_kv + 1)
+    cells = b * h_kv * -(-G // _GROUP_ROWS)
+    splits = max(1, min(nk, -(-_TARGET_BLOCKS // cells)))
     per_split = -(-nk // splits)
     splits = -(-nk // per_split)
     out = torch.empty((b, h_kv, G, d), dtype=torch.float32, device=dev)
@@ -308,31 +446,39 @@ def decode_attention_core(q_in, q_rs, k_cache, v_cache, k_scale, v_scale,
                                device=dev)
         part_lse = torch.empty((b, splits, h_kv, G), dtype=torch.float32,
                                device=dev)
-    dims = _build.dims_array([b, h_kv, G, s_max, layer, block_kv, splits,
+    dims = _build.dims_array([b, h_kv, G, cap, layer, block_kv, splits,
                               per_split, window_left,
-                              sink_tokens if window_left >= 0 else 0])
+                              sink_tokens if window_left >= 0 else 0,
+                              n_tok, pool, slot_dim, n_pages])
     p = _build.ptr
     _build.KERNELS["decode_attention"](
         p(q_in), p(q_rs), p(k_cache), p(v_cache), p(k_scale), p(v_scale),
-        p(lens), p(part_out), p(part_lse), p(out), p(lse), dims, scale,
-        float(softcap), int(safe_softmax), _build.stream_ptr(dev))
+        p(lens), p(pt), p(part_out), p(part_lse), p(out), p(lse), dims,
+        scale, float(softcap), int(safe_softmax), _build.stream_ptr(dev))
     return out, lse
 
 
 def decode_query_operands(q, k_cache, quant: bool, *, scale: float,
-                          block_kv: int, safe_softmax: bool = False):
+                          block_kv: int, safe_softmax: bool = False,
+                          paged: bool = False):
     """The query operands of kernel B7, as :func:`decode_attention` makes
-    them: q (b, h, d) bf16 and the layered cache (L, b, h_kv, s_max, d) ->
-    (q_in (b, h_kv, g, d), q_rs (b, h_kv, g) or None, the kv tile). int8:
-    q row-quantized (absmax/127, floor 1e-6, half to even) with the softmax
-    scale (and log2e in the fast form) folded into the row scale; bf16: q
-    folded by scale*log2e in its dtype (fast form) or as it is (safe)."""
-    b, h, d = q.shape
-    h_kv, s_max = k_cache.shape[2], k_cache.shape[3]
+    them: q (b, h, d), or a run (b, n, h, d), bf16 and the layered cache
+    (L, b or P, h_kv, slots, d) -> (q_in (b, h_kv, g * n, d) with rows
+    ordered (head, token), q_rs (b, h_kv, g * n) or None, the kv tile).
+    int8: q row-quantized (absmax/127, floor 1e-6, half to even) with the
+    softmax scale (and log2e in the fast form) folded into the row scale;
+    bf16: q folded by scale*log2e in its dtype (fast form) or as it is
+    (safe). ``paged``: the cache's slot axis is a page (the paged tile
+    rule)."""
+    if q.dim() == 3:
+        q = q[:, None]
+    b, n, h, d = q.shape
+    h_kv, slot_dim = k_cache.shape[2], k_cache.shape[3]
     g = h // h_kv
-    bkv = reference_block_kv(block_kv, s_max, h_kv, g, d,
-                             k_cache.element_size())
-    qg = q.reshape(b, h_kv, g, d)
+    bkv = reference_block_kv(block_kv, slot_dim, h_kv, g * n, d,
+                             k_cache.element_size(), paged=paged)
+    qg = q.reshape(b, n, h_kv, g, d).permute(0, 2, 3, 1, 4).reshape(
+        b, h_kv, g * n, d)
     if not quant:
         q_in = _fold(qg, scale) if not safe_softmax else qg
         return q_in.contiguous(), None, bkv
@@ -349,28 +495,29 @@ def decode_attention(q, k_cache, v_cache, lengths, k_scale=None,
                      alibi_slopes=None, sink_tokens=0, first_cols=None,
                      sink_cols=None, sink_band=0, page_table=None,
                      mxu_int8=True, safe_softmax=False):
-    """Single-step decode attention over a bf16 or int8 cache.
+    """Decode attention over a bf16 or int8 cache, dense or paged.
 
-    q (b, h, d) (or (b, 1, h, d)); cache (b, h_kv, s_max, d) or the stacked
-    (L, b, h_kv, s_max, d) with ``layer`` (an int); int8 caches pass scales
-    in the cache's (.., h_kv, 1, s_max) layout; ``lengths`` (b,) int32 is
-    the visible prefix per row including the newest token. A left
-    ``window_size`` keeps the last window + 1 columns of each row, and
-    ``sink_tokens`` the first ones beside them (sinks act only with a
-    window); ``softcap`` caps the scores and takes the online form. The
-    int8 path row-quantizes q (absmax/127, scale and log2e folded into the
-    row scale) and runs s8 x s8 products, requantizing P per ``block_kv``
-    tile; the tile follows the JAX package's rule
-    (:func:`reference_block_kv`). Returns out (b, h, d) bf16 (+ lse (b, h)
-    fp32 with ``return_lse``)."""
+    q (b, h, d), or a run (b, n, h, d); cache (b, h_kv, s_max, d) or the
+    stacked (L, b, h_kv, s_max, d) with ``layer`` (an int); int8 caches
+    pass scales in the cache's (.., h_kv, 1, s_max) layout; ``lengths`` (b,)
+    int32 is the visible prefix per row including the run's tokens, whose
+    K/V already sit in the cache: token i of a run is at position
+    ``lengths - n + i`` and sees the columns up to it. ``page_table`` (b,
+    n_pages) int32: the cache arrays are the pool (P, h_kv, page, d)
+    (stacked (L, P, ...)), row b's logical column c in pool page
+    ``page_table[b, c // page]``; entries past a row's live prefix may be
+    -1 and are never read. A left ``window_size`` keeps the last window + 1
+    columns of each query row, and ``sink_tokens`` the first ones beside
+    them (sinks act only with a window); ``softcap`` caps the scores and
+    takes the online form. The int8 path row-quantizes q (absmax/127,
+    scale and log2e folded into the row scale) and runs s8 x s8 products,
+    requantizing P per kv tile; the tile and the split of a long run into
+    sub-runs follow the JAX package's rule (:func:`decode_run_plan`), each
+    sub-run one kernel launch. Returns out (b, h, d) bf16 (+ lse (b, h)
+    fp32 with ``return_lse``); for a run out (b, n, h, d) and lse (b, h,
+    n)."""
     del interpret
     multi = q.dim() == 4
-    if multi:
-        if q.shape[1] != 1:
-            raise not_ported("multi-token decode (verify runs)")
-        q = q[:, 0]
-    if page_table is not None:
-        raise not_ported("the paged cache")
     if kv_splits not in (None, 1):
         raise not_ported("kv_splits")
     if alibi_slopes is not None:
@@ -380,9 +527,6 @@ def decode_attention(q, k_cache, v_cache, lengths, k_scale=None,
                          "sink_band)")
     if softcap < 0:
         raise ValueError(f"softcap must be >= 0, got {softcap}")
-    w_left = int(tuple(window_size)[0])
-    sink = int(sink_tokens) if w_left >= 0 else 0
-    online = bool(safe_softmax) or softcap > 0
     layered = layer is not None
     li = int(layer) if layered else 0
     kc = k_cache if layered else k_cache[None]
@@ -392,17 +536,34 @@ def decode_attention(q, k_cache, v_cache, lengths, k_scale=None,
     vs = None if not quant else (v_scale if layered else v_scale[None])
     if quant and (kc.dtype != torch.int8 or not mxu_int8):
         raise not_ported("fp8/int4 caches and the int8 dequant-cast path")
-    b, h, d = q.shape
+    qr = q if multi else q[:, None]
+    b, n_tok, h, d = qr.shape
+    h_kv = kc.shape[2]
+    g = h // h_kv
+    paged = page_table is not None
     scale = softmax_scale if softmax_scale is not None else d ** -0.5
-    q_in, q_rs, bkv = decode_query_operands(q, kc, quant, scale=scale,
-                                            block_kv=block_kv,
-                                            safe_softmax=online)
-    out, lse = decode_attention_core(q_in, q_rs, kc, vc, ks, vs, lengths,
-                                     layer=li, block_kv=bkv, scale=scale,
-                                     safe_softmax=online, window_left=w_left,
-                                     sink_tokens=sink, softcap=float(softcap))
-    out = out.to(torch.bfloat16).reshape(b, h, d)
-    lse = lse.reshape(b, h)
-    if multi:
-        out, lse = out[:, None], lse[..., None]
+    w_left = int(tuple(window_size)[0])
+    sink = int(sink_tokens) if w_left >= 0 else 0
+    online = bool(safe_softmax) or softcap > 0
+    outs, lses = [], []
+    for i, e, _ in decode_run_plan(n_tok, h_kv, g, d, kc.shape[3],
+                                   kc.element_size(), block_kv=block_kv,
+                                   paged=paged):
+        n = e - i
+        q_in, q_rs, bkv = decode_query_operands(
+            qr[:, i:e], kc, quant, scale=scale, block_kv=block_kv,
+            safe_softmax=online, paged=paged)
+        out, lse = decode_attention_core(
+            q_in, q_rs, kc, vc, ks, vs, lengths - (n_tok - e), layer=li,
+            block_kv=bkv, scale=scale, safe_softmax=online,
+            window_left=w_left, sink_tokens=sink, softcap=float(softcap),
+            n_tok=n, page_table=page_table)
+        # rows (head, token) -> (token, head)
+        outs.append(out.to(torch.bfloat16).reshape(b, h_kv, g, n, d)
+                    .permute(0, 3, 1, 2, 4).reshape(b, n, h, d))
+        lses.append(lse.reshape(b, h, n))
+    out = torch.cat(outs, dim=1) if len(outs) > 1 else outs[0]
+    lse = torch.cat(lses, dim=2) if len(lses) > 1 else lses[0]
+    if not multi:
+        out, lse = out[:, 0], lse[..., 0]
     return (out, lse) if return_lse else out

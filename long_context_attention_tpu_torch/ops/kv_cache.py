@@ -7,8 +7,11 @@ same unit-dim layout as the JAX package. The JAX cache is an immutable
 pytree; this one is a mutable object whose ``write_prompt`` and ``advance``
 update its tensors IN PLACE and return ``self``.
 
-Supported cache dtypes: "bfloat16" and "int8". "float8_e4m3fn", "int4" and
-the paged cache are not ported yet and raise ``NotImplementedError``.
+:class:`PagedKVCache` is the paged form: one pool of pages shared by the
+rows, (n_layers, pool_pages, h_kv, page_size, d), and a page table per row.
+
+Supported cache dtypes: "bfloat16" and "int8". "float8_e4m3fn" and "int4"
+are not ported yet and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -126,12 +129,63 @@ class KVCache:
         return self.k[layer], self.v[layer], sl(self.k_scale), sl(self.v_scale)
 
 
+@dataclasses.dataclass
 class PagedKVCache:
-    """The paged cache is not ported yet (it comes with paged serving)."""
+    """Paged KV cache: one physical POOL of pages shared by the rows, and
+    a page table per row (the JAX package's ``PagedKVCache``).
 
-    def __init__(self, *args, **kwargs):
-        raise not_ported("PagedKVCache")
+    Values ``(n_layers, pool_pages, h_kv, page_size, d)``; scales
+    ``(n_layers, pool_pages, h_kv, 1, page_size)`` fp32 for int8;
+    ``page_table`` (b, n_pages) int32 maps row b's logical page i to a pool
+    page (-1: unallocated, never read live); ``length`` (b,) int32 is the
+    logical filled prefix. Pool page 0 is the scratch page that allocators
+    never hand out: a live append through a -1 entry lands there. Mutable,
+    like :class:`KVCache`: the kernels update the pool IN PLACE, and a view
+    with another page table and length (a one-row admission view) shares
+    the pool's storage."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    k_scale: Optional[torch.Tensor]
+    v_scale: Optional[torch.Tensor]
+    page_table: torch.Tensor
+    length: torch.Tensor
 
     @staticmethod
-    def init(*args, **kwargs):
-        raise not_ported("PagedKVCache")
+    def init(n_layers: int, b: int, pool_pages: int, page_size: int,
+             n_pages: int, h_kv: int, d: int, dtype: str = "bfloat16",
+             device=None) -> "PagedKVCache":
+        _check_dtype(dtype)
+        if page_size % 128:
+            raise ValueError(f"page_size {page_size} must be a multiple of "
+                             f"128")
+        if pool_pages < 2:
+            raise ValueError("the pool needs the scratch page + 1")
+        dev = resolve_device(device)
+        vdt = torch.bfloat16 if dtype == "bfloat16" else torch.int8
+        shape = (n_layers, pool_pages, h_kv, page_size, d)
+        scales = (None if dtype == "bfloat16" else
+                  torch.zeros((n_layers, pool_pages, h_kv, 1, page_size),
+                              dtype=torch.float32, device=dev))
+        return PagedKVCache(
+            k=torch.zeros(shape, dtype=vdt, device=dev),
+            v=torch.zeros(shape, dtype=vdt, device=dev),
+            k_scale=scales,
+            v_scale=None if scales is None else torch.zeros_like(scales),
+            page_table=torch.full((b, n_pages), -1, dtype=torch.int32,
+                                  device=dev),
+            length=torch.zeros((b,), dtype=torch.int32, device=dev),
+        )
+
+    @property
+    def dtype(self) -> str:
+        return "bfloat16" if self.k_scale is None else "int8"
+
+    @property
+    def page_size(self) -> int:
+        return self.k.shape[3]
+
+    @property
+    def s_max(self) -> int:
+        """A row's logical capacity, n_pages * page_size."""
+        return self.page_table.shape[1] * self.page_size

@@ -1,5 +1,12 @@
-"""The single-device generation engine."""
+"""Serving: the single-device generation engine and continuous batching
+over a dense or paged cache."""
 
+from long_context_attention_tpu_torch.serving.continuous import (  # noqa: F401
+    ContinuousEngine,
+    PagedContinuousEngine,
+    Request,
+    RequestResult,
+)
 from long_context_attention_tpu_torch.serving.engine import (  # noqa: F401
     Engine,
     GenerationResult,

@@ -1,0 +1,861 @@
+"""Continuous batching: request-level scheduling over a shared decode batch.
+
+Counterpart of ``long_context_attention_tpu/serving/continuous.py`` on one
+device. The engine keeps a fixed decode batch of ``max_batch`` rows; every
+model step decodes all rows in one :func:`decode_step` (kernels B6 and B7
+per layer); a row whose request finished is freed at once and the next
+queued request is admitted into it while the other rows keep decoding
+(iteration-level scheduling):
+
+* scheduling state lives in per-row ``length`` and ``active`` tensors, not
+  in shapes: attention is gated by the per-row lengths, and the append
+  skips inactive rows (``append_pos = -1``);
+* admission is one bucketed single-row prefill (``forward_local`` with
+  ``last_index``, kernel B1) and one in-place row insert.
+
+The decode loop brings one (max_batch,) token vector to the host per block
+of ``step_block`` device steps (EOS and budget are tracked on the device
+inside a block). ``host_overlap=True`` runs the host scheduler one block
+behind the device: block i+1 is queued before block i's tokens reach the
+host, through a non-blocking copy into pinned memory and a CUDA event, so
+the host's bookkeeping runs under device work. Greedy results equal the
+sequential loop's.
+
+:class:`PagedContinuousEngine` serves from a :class:`PagedKVCache`: rows
+reserve only the pages their prompt and budget need from one shared pool,
+with admission backpressure, automatic prefix caching (``prefix_cache``,
+``serving/prefix_cache.py``) and decode-interleaved chunked admission
+(``interleave_admission``).
+
+Sampling: JAX's PRNG keys become ``torch.Generator``s. Request r samples
+from its own generator, seeded from ``(seed, r.id)`` (JAX folds the request
+id into its key), so a request's draws do not depend on the scheduler: a
+sampled run of ``host_overlap`` or ``step_block`` equals the sequential
+loop's. Sampled tokens cannot equal the JAX engine's, whose keys differ.
+"""
+
+from __future__ import annotations
+
+import collections
+import dataclasses
+from collections import deque
+from typing import Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from long_context_attention_tpu_torch.models.llama import (
+    ModelConfig,
+    decode_multi_step,
+    decode_step,
+    forward_local,
+)
+from long_context_attention_tpu_torch.ops.kv_cache import (
+    KVCache,
+    PagedKVCache,
+    quantize_kv,
+)
+from long_context_attention_tpu_torch.ops.wquant import quantize_decode_params
+from long_context_attention_tpu_torch.serving.engine import (
+    SamplingParams,
+    sample_token,
+    sampling_probs,
+    token_logprob,
+)
+from long_context_attention_tpu_torch.serving.prefix_cache import (
+    PrefixPageAllocator,
+    chain_hashes,
+)
+from long_context_attention_tpu_torch.utils.config import (
+    not_ported,
+    resolve_device,
+)
+
+__all__ = ["Request", "RequestResult", "ContinuousEngine",
+           "PagedContinuousEngine"]
+
+
+@dataclasses.dataclass(frozen=True)
+class Request:
+    """One generation request. ``tokens``: 1-d int prompt."""
+
+    id: int
+    tokens: Sequence[int]
+    max_new: int
+
+
+@dataclasses.dataclass
+class RequestResult:
+    id: int
+    tokens: List[int]          # generated ids (stops at eos, inclusive)
+    prompt_len: int
+    # log P(token) under softmax(raw logits) per generated token, aligned
+    # with ``tokens``; populated when the engine has return_logprobs=True
+    logprobs: Optional[List[float]] = None
+
+
+def _bucket(n: int, quantum: int = 64, cap: int = 2048) -> int:
+    """Prompt padding buckets: powers of two from ``quantum`` up to ``cap``,
+    then multiples of ``cap`` (the JAX package's rule; a 16.4K prompt pads
+    to 18432)."""
+    b = quantum
+    while b < min(n, cap):
+        b *= 2
+    if n <= b:
+        return b
+    return -(-n // cap) * cap
+
+
+def _to_host(t: Optional[torch.Tensor]):
+    """Start copying ``t`` to the host without waiting: (host tensor, CUDA
+    event to wait on, or None when the copy is done)."""
+    if t is None or t.device.type == "cpu":
+        return t, None
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    ev = torch.cuda.Event()
+    ev.record(torch.cuda.current_stream(t.device))
+    return host, ev
+
+
+def _numpy(pending) -> Optional[np.ndarray]:
+    host, ev = pending
+    if ev is not None:
+        ev.synchronize()
+    return None if host is None else host.numpy()
+
+
+@dataclasses.dataclass(frozen=True)
+class ContinuousEngine:
+    """Iteration-level scheduler over a fixed ``max_batch`` decode batch.
+
+    ``cache_dtype``: "bfloat16" | "int8". ``weight_dtype``: "bfloat16" |
+    "int8" (w8a8 decode weights; admission prefill keeps the bf16 params).
+    ``step_block``: decode steps per host sync. ``host_overlap``: pipeline
+    the host scheduler one block behind the device. ``return_logprobs``:
+    report log P(token) per generated token. ``device``: where the engine
+    runs (None means the card, "cpu" runs every kernel's plain version);
+    params elsewhere raise."""
+
+    cfg: ModelConfig
+    s_max: int
+    max_batch: int = 8
+    cache_dtype: str = "bfloat16"
+    step_block: int = 1
+    host_overlap: bool = False
+    weight_dtype: str = "bfloat16"
+    return_logprobs: bool = False
+    device: Optional[object] = None
+
+    def __post_init__(self):
+        if self.weight_dtype not in ("bfloat16", "int8"):
+            raise ValueError(f"weight_dtype {self.weight_dtype!r}")
+        object.__setattr__(self, "device", resolve_device(self.device))
+
+    def decode_params(self, params):
+        """The params of the decode steps (int8 QTensor weights when
+        ``weight_dtype="int8"``; admission prefill keeps ``params``)."""
+        if self.weight_dtype == "bfloat16":
+            return params
+        return quantize_decode_params(params)
+
+    def init_cache(self):
+        return KVCache.init(self.cfg.n_layers, self.max_batch, self.s_max,
+                            self.cfg.n_kv_heads, self.cfg.head_dim,
+                            self.cache_dtype, device=self.device)
+
+    # --- device pieces -----------------------------------------------------
+
+    def _prefill_one(self, params, tokens: np.ndarray, last_index: int):
+        """(1, bucket) padded prompt -> (next-token logits (1, vocab) fp32,
+        (kv_k, kv_v) (L, 1, bucket, h_kv, d)). Only the true last token
+        projects through lm_head."""
+        toks = torch.as_tensor(tokens, device=self.device)
+        with torch.no_grad():
+            logits, kv = forward_local(params, toks, self.cfg,
+                                       return_kv=True, last_index=last_index)
+        return logits[:, 0], kv
+
+    def _insert_row(self, cache, kv_k, kv_v, row: int, true_len: int):
+        """Quantize a prefilled row's K/V and write it into the cache at
+        batch row ``row``, slots [0, bucket), IN PLACE."""
+        kq, ks = quantize_kv(kv_k[:, 0].transpose(1, 2), self.cache_dtype)
+        vq, vs = quantize_kv(kv_v[:, 0].transpose(1, 2), self.cache_dtype)
+        s = min(kq.shape[2], cache.s_max)
+        cache.k[:, row, :, :s] = kq[:, :, :s]
+        cache.v[:, row, :, :s] = vq[:, :, :s]
+        if ks is not None:
+            cache.k_scale[:, row, :, 0, :s] = ks[:, :, :s]
+            cache.v_scale[:, row, :, 0, :s] = vs[:, :, :s]
+        cache.length[row] = true_len
+        return cache
+
+    def _sample_rows(self, logits, sampling: SamplingParams, gens):
+        """(B, vocab) logits -> (B,) int32: row i drawn from ``gens[i]``
+        (rows without a request take the argmax, which nobody reads)."""
+        out = torch.argmax(logits, dim=-1).to(torch.int32)
+        if sampling.temperature <= 0.0:
+            return out
+        probs = sampling_probs(logits, sampling)
+        for i, gen in enumerate(gens):
+            if gen is not None:
+                out[i] = torch.multinomial(probs[i:i + 1], 1,
+                                           generator=gen)[0, 0]
+        return out
+
+    @torch.no_grad()
+    def _decode_block(self, dparams, cache, tok, act, left, eos: int,
+                      sampling: SamplingParams, gens):
+        """``step_block`` decode steps with per-row EOS and budget tracking
+        on the device (no host sync): a row that finishes mid-block
+        deactivates in place; the host replays the same rule on the
+        emitted (B, K) tokens. Returns (tokens (B, K), logprobs (B, K) or
+        None, the carried tokens, active mask and budget)."""
+        toks, lps = [], []
+        for _ in range(max(1, self.step_block)):
+            logits, cache = decode_step(dparams, cache, tok, self.cfg,
+                                        active=act)
+            nxt = self._sample_rows(logits, sampling, gens)
+            if self.return_logprobs:
+                lps.append(token_logprob(logits, nxt))
+            nxt = torch.where(act, nxt, tok)
+            left = left - act.to(torch.int32)
+            done = left <= 0
+            if eos >= 0:
+                done = done | (nxt == eos)
+            act = act & ~done
+            tok = nxt
+            toks.append(nxt)
+        lp = torch.stack(lps, dim=1) if self.return_logprobs else None
+        return torch.stack(toks, dim=1), lp, tok, act, left
+
+    def _can_admit(self, req: Request, bi: int) -> bool:
+        """Backpressure hook: may ``req`` enter row ``bi`` now? (The paged
+        engine refuses while its pool cannot cover the request.)"""
+        return True
+
+    def _sample_first(self, logits, sampling: SamplingParams, gen):
+        """Admission epilogue: the first token from the prefill logits, and
+        its logprob when asked for."""
+        first = sample_token(logits, sampling, gen)
+        lp = (float(token_logprob(logits, first)[0])
+              if self.return_logprobs else None)
+        return int(first[0]), lp
+
+    def _admit_row(self, params, cache, req: Request, bi: int,
+                   sampling: SamplingParams, gen):
+        """Prefill one request and insert it at batch row ``bi``. Returns
+        (cache, first token, its logprob or None)."""
+        n = len(req.tokens)
+        toks = np.zeros((1, _bucket(n)), np.int64)
+        toks[0, :n] = np.asarray(req.tokens, np.int64)
+        logits, (kv_k, kv_v) = self._prefill_one(params, toks, n - 1)
+        cache = self._insert_row(cache, kv_k, kv_v, bi, n)
+        first, lp = self._sample_first(logits, sampling, gen)
+        return cache, first, lp
+
+    # --- host-side scheduler ----------------------------------------------
+
+    def _check_requests(self, params, requests: Sequence[Request]) -> None:
+        if params["embed"].device != self.device:
+            raise ValueError(f"params['embed'] is on "
+                             f"{params['embed'].device}, but the engine "
+                             f"runs on {self.device}")
+        for r in requests:
+            if len(r.tokens) + r.max_new > self.s_max:
+                raise ValueError(
+                    f"request {r.id}: prompt ({len(r.tokens)}) + max_new "
+                    f"({r.max_new}) exceeds cache capacity s_max={self.s_max}")
+
+    def _generator(self, seed: int, req: Request) -> torch.Generator:
+        return torch.Generator(device=self.device).manual_seed(
+            seed * 1_000_003 + int(req.id))
+
+    def _vec(self, values, dtype) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(values), dtype=dtype,
+                               device=self.device)
+
+    def serve(self, params, requests: Sequence[Request], *,
+              sampling: SamplingParams = SamplingParams(),
+              eos_id: Optional[int] = None,
+              seed: int = 0) -> Dict[int, RequestResult]:
+        """Run all requests to completion; returns {request.id: result}.
+        A request enters a row the moment one is free; decode keeps
+        stepping for the rows still running."""
+        self._check_requests(params, requests)
+        if self.host_overlap:
+            return self._serve_overlapped(params, requests,
+                                          sampling=sampling, eos_id=eos_id,
+                                          seed=seed)
+        B = self.max_batch
+        queue = deque(requests)
+        cache = self.init_cache()
+        dparams = self.decode_params(params)
+        slot: List[Optional[Request]] = [None] * B
+        gens: List[Optional[torch.Generator]] = [None] * B
+        emitted: List[List[int]] = [[] for _ in range(B)]
+        lps = [[] for _ in range(B)] if self.return_logprobs else None
+        cur = np.zeros((B,), np.int32)
+        results: Dict[int, RequestResult] = {}
+        eos = -1 if eos_id is None else int(eos_id)
+
+        def admit():
+            nonlocal cache
+            for bi in range(B):
+                if slot[bi] is not None or not queue:
+                    continue
+                if not self._can_admit(queue[0], bi):
+                    continue
+                req = queue.popleft()
+                gens[bi] = self._generator(seed, req)
+                cache, first, flp = self._admit_row(params, cache, req, bi,
+                                                    sampling, gens[bi])
+                slot[bi] = req
+                emitted[bi] = [first]
+                if lps is not None:
+                    lps[bi] = [flp]
+                cur[bi] = first
+                self._maybe_finish(bi, slot, emitted, results, eos_id, lps)
+
+        while queue or any(s is not None for s in slot):
+            admit()
+            if not any(s is not None for s in slot):
+                continue  # everything admitted finished at its first token
+            budget = [slot[bi].max_new - len(emitted[bi])
+                      if slot[bi] is not None else 0 for bi in range(B)]
+            toks, lp, _, _, _ = self._decode_block(
+                dparams, cache, self._vec(cur, torch.int32),
+                self._vec([s is not None for s in slot], torch.bool),
+                self._vec(budget, torch.int32), eos, sampling, gens)
+            nxt = toks.cpu().numpy()
+            lp = lp.cpu().numpy() if lps is not None else None
+            self._consume(nxt, lp, slot, emitted, results, eos_id, lps,
+                          cur=cur)
+        return results
+
+    def _consume(self, nxt, lp, slot, emitted, results, eos_id, lps,
+                 ids=None, cur=None):
+        """Replay a block's (B, K) tokens on the host: append each live
+        row's tokens until its request finishes. ``ids``: the row's request
+        id at the block's dispatch (a row re-admitted since then skips the
+        old request's tokens)."""
+        for j in range(nxt.shape[1]):
+            for bi in range(len(slot)):
+                if slot[bi] is None or (ids is not None
+                                        and slot[bi].id != ids[bi]):
+                    continue
+                emitted[bi].append(int(nxt[bi, j]))
+                if lps is not None:
+                    lps[bi].append(float(lp[bi, j]))
+                if cur is not None:
+                    cur[bi] = int(nxt[bi, j])
+                self._maybe_finish(bi, slot, emitted, results, eos_id, lps)
+
+    def _serve_overlapped(self, params, requests: Sequence[Request], *,
+                          sampling: SamplingParams = SamplingParams(),
+                          eos_id: Optional[int] = None,
+                          seed: int = 0) -> Dict[int, RequestResult]:
+        """One-block-deep software pipeline of :meth:`serve`: the scheduler
+        state (tokens, active mask, budget) lives on the device, block i+1
+        is queued before block i's tokens are fetched, and the host
+        consumes block i's tokens while the device runs block i+1. A row
+        that finishes mid-pipeline was already deactivated by the device's
+        own done rule, so the block in flight writes nothing to it, and its
+        re-admission is queued after that block."""
+        B = self.max_batch
+        queue = deque(requests)
+        cache = self.init_cache()
+        dparams = self.decode_params(params)
+        slot: List[Optional[Request]] = [None] * B
+        gens: List[Optional[torch.Generator]] = [None] * B
+        emitted: List[List[int]] = [[] for _ in range(B)]
+        lps = [[] for _ in range(B)] if self.return_logprobs else None
+        results: Dict[int, RequestResult] = {}
+        dev = self.device
+        tok_d = torch.zeros((B,), dtype=torch.int32, device=dev)
+        act_d = torch.zeros((B,), dtype=torch.bool, device=dev)
+        left_d = torch.zeros((B,), dtype=torch.int32, device=dev)
+        eos = -1 if eos_id is None else int(eos_id)
+
+        def admit():
+            nonlocal cache
+            for bi in range(B):
+                if slot[bi] is not None or not queue:
+                    continue
+                if not self._can_admit(queue[0], bi):
+                    continue
+                req = queue.popleft()
+                gens[bi] = self._generator(seed, req)
+                cache, first, flp = self._admit_row(params, cache, req, bi,
+                                                    sampling, gens[bi])
+                slot[bi] = req
+                emitted[bi] = [first]
+                if lps is not None:
+                    lps[bi] = [flp]
+                self._maybe_finish(bi, slot, emitted, results, eos_id, lps)
+                if slot[bi] is not None:
+                    tok_d[bi] = first
+                    act_d[bi] = True
+                    left_d[bi] = req.max_new - 1
+
+        admit()
+        # pending: block i-1's tokens on their way to the host, with the
+        # row -> request id snapshot taken at its dispatch
+        pending = None
+        while queue or any(s is not None for s in slot) or pending:
+            nxt_block = None
+            if any(s is not None for s in slot):
+                toks, lpb, tok_d, act_d, left_d = self._decode_block(
+                    dparams, cache, tok_d, act_d, left_d, eos, sampling,
+                    list(gens))
+                nxt_block = (_to_host(toks), _to_host(lpb),
+                             [s.id if s is not None else None for s in slot])
+            if pending is not None:
+                toks_h, lps_h, ids = pending
+                self._consume(_numpy(toks_h), _numpy(lps_h), slot, emitted,
+                              results, eos_id, lps, ids=ids)
+            admit()  # after the tokens: the freshest finish knowledge
+            pending = nxt_block
+        return results
+
+    @staticmethod
+    def _maybe_finish(bi, slot, emitted, results, eos_id, lps=None):
+        req = slot[bi]
+        if req is None:
+            return
+        done = (len(emitted[bi]) >= req.max_new
+                or (eos_id is not None and emitted[bi][-1] == eos_id))
+        if done:
+            results[req.id] = RequestResult(
+                id=req.id, tokens=list(emitted[bi]),
+                prompt_len=len(req.tokens),
+                logprobs=(list(lps[bi]) if lps is not None else None))
+            slot[bi] = None
+
+
+@dataclasses.dataclass
+class _Admission:
+    """Host state of one in-flight chunked admission (paged engine,
+    ``interleave_admission=True``): the prompt's unprefilled tokens staged
+    as ``n_chunks`` chunks of ``cs``, the row's reserved page table, and
+    the prefix-cache bookkeeping deferred to completion."""
+
+    req: Request
+    bi: int
+    gen: Optional[torch.Generator]
+    toks: np.ndarray          # (1, n_chunks*cs) zero-padded suffix tokens
+    cs: int
+    n_chunks: int
+    ci: int
+    last: int                 # final true token's offset in the last chunk
+    row_pt: np.ndarray        # (n_pages,) the row's new page table
+    pages: List[int]
+    all_hashes: List[bytes]
+    cached: int               # prefix-hit tokens already in shared pages
+
+
+def _validate_release(owned, pages, bi: int) -> None:
+    """Whole-list ownership check before any mutation (the allocator fails
+    loudly and atomically on a double release)."""
+    have = collections.Counter(owned)
+    for p, c in collections.Counter(pages).items():
+        if have[p] < c:
+            raise ValueError(
+                f"release_pages: row {bi} does not own page {p} "
+                f"(double release?)")
+
+
+class _PageAllocator:
+    """Host-side free list over the physical page pool. Page 0 is the
+    reserved scratch page. A row's pages free when a new request is
+    admitted into that row (exactly when they become garbage)."""
+
+    def __init__(self, pool_pages: int):
+        self.free: List[int] = list(range(1, pool_pages))
+        self.rows: Dict[int, List[int]] = {}
+
+    def available(self, bi: int) -> int:
+        return len(self.free) + len(self.rows.get(bi, []))
+
+    def take(self, bi: int, need: int) -> List[int]:
+        self.free.extend(self.rows.pop(bi, []))
+        assert len(self.free) >= need, (need, len(self.free))
+        pages = [self.free.pop() for _ in range(need)]
+        self.rows[bi] = pages
+        return list(pages)
+
+    def take_extra(self, bi: int, need: int) -> List[int]:
+        """Grow a running row by ``need`` fresh pages; raises (before
+        mutating anything) when the free list cannot."""
+        if len(self.free) < need:
+            raise RuntimeError(
+                f"page pool exhausted: row {bi} needs {need} growth pages, "
+                f"{len(self.free)} free")
+        pages = [self.free.pop() for _ in range(need)]
+        self.rows.setdefault(bi, []).extend(pages)
+        return pages
+
+    def release_pages(self, bi: int, pages: List[int]) -> None:
+        """Free given pages of a running row, in the given order; raises
+        ValueError, before mutating, when any page is not the row's."""
+        if not pages:
+            return
+        row = self.rows.get(bi)
+        if not row:
+            raise ValueError(
+                f"release_pages: row {bi} owns no pages (double release?)")
+        _validate_release(row, pages, bi)
+        for p in pages:
+            row.remove(p)
+            self.free.append(p)
+
+
+@dataclasses.dataclass(frozen=True)
+class PagedContinuousEngine(ContinuousEngine):
+    """Continuous batching over a paged cache (:class:`PagedKVCache`): rows
+    reserve only the pages their prompt and decode budget need from one
+    shared pool, so the pool holds ~pool / mean request length rows instead
+    of ~pool / s_max. A request whose pages exceed the free pool waits at
+    block boundaries (:meth:`_can_admit`) while the other rows decode.
+
+    ``prefix_cache=True``: full prompt pages are registered by a chain
+    hash; a new prompt sharing a page-aligned prefix with an earlier one
+    reuses those pool pages (refcounted, evicted LRU only when the free
+    list runs dry), and its prefill computes only the suffix, in chunks of
+    ``prefill_chunk`` tokens through :func:`decode_multi_step` against the
+    shared prefix. ``interleave_admission=True``: a prompt prefills one
+    chunk at a time with one decode block of the running rows between
+    chunks, so their stall is bounded by one chunk. Greedy results equal
+    the batch-admission scheduler's.
+
+    ``native_runtime``: the JAX package's C++ allocators are not ported;
+    None and False use the Python allocators (the JAX package holds the
+    two to bit-identical decisions), True raises. A sliding-window config
+    whose rows would page by the window (no prefix cache, no host overlap)
+    raises: windowed paging is not ported."""
+
+    page_size: int = 2048
+    pool_pages: int = 0      # physical pages INCLUDING the scratch page 0
+    prefix_cache: bool = False
+    prefill_chunk: int = 256
+    interleave_admission: bool = False
+    native_runtime: Optional[bool] = None
+
+    def __post_init__(self):
+        super().__post_init__()
+        if self.pool_pages < 2:
+            raise ValueError("the pool needs the scratch page + 1")
+        if self.s_max % self.page_size:
+            raise ValueError(f"s_max {self.s_max} is not a multiple of the "
+                             f"page size {self.page_size}")
+        if self.prefill_chunk < 64 or self.prefill_chunk % 64:
+            raise ValueError("prefill_chunk must be a multiple of the "
+                             "bucket quantum (64)")
+        if self.interleave_admission and self.host_overlap:
+            raise ValueError(
+                "interleave_admission does not compose with host_overlap "
+                "yet -- pick one (both remove host/admission stalls)")
+        if self.native_runtime:
+            raise not_ported("the native host runtime (native_runtime=True)")
+        if (self.cfg.window_left >= 0 and not self.prefix_cache
+                and not self.host_overlap):
+            raise not_ported("sliding-window paging (rolling window pages)")
+
+    @property
+    def n_pages(self) -> int:
+        return self.s_max // self.page_size
+
+    @property
+    def stats(self) -> Dict[str, int]:
+        """Prefix-cache counters of the last `serve` call:
+        ``prefix_hit_tokens`` (prompt tokens served from shared pages),
+        ``admitted_tokens``, ``evictions``."""
+        return getattr(self, "_stats", {})
+
+    def _pages_needed(self, req: Request) -> int:
+        pad = _bucket(len(req.tokens))
+        span = max(pad, len(req.tokens) + req.max_new)
+        if self.prefix_cache or self.interleave_admission:
+            # worst-case suffix-chunk padding (cached + ceil(suffix/cs)*cs
+            # <= n + cs)
+            span = max(span, len(req.tokens)
+                       + min(self.prefill_chunk, pad))
+        return -(-span // self.page_size)
+
+    def init_cache(self) -> PagedKVCache:
+        return PagedKVCache.init(self.cfg.n_layers, self.max_batch,
+                                 self.pool_pages, self.page_size,
+                                 self.n_pages, self.cfg.n_kv_heads,
+                                 self.cfg.head_dim, self.cache_dtype,
+                                 device=self.device)
+
+    # --- allocator lifecycle (per serve call) ------------------------------
+
+    def serve(self, params, requests, **kw):
+        for r in requests:
+            if self._pages_needed(r) > self.pool_pages - 1:
+                raise ValueError(
+                    f"request {r.id} needs {self._pages_needed(r)} pages; "
+                    f"pool has {self.pool_pages - 1} allocatable")
+        alloc = (PrefixPageAllocator(self.pool_pages) if self.prefix_cache
+                 else _PageAllocator(self.pool_pages))
+        object.__setattr__(self, "_alloc", alloc)
+        object.__setattr__(self, "_stats",
+                           {"prefix_hit_tokens": 0, "admitted_tokens": 0,
+                            "evictions": 0})
+        try:
+            if self.interleave_admission:
+                return self._serve_interleaved(params, requests, **kw)
+            return super().serve(params, requests, **kw)
+        finally:
+            if self.prefix_cache:
+                self._stats["evictions"] = alloc.evictions
+            object.__setattr__(self, "_alloc", None)
+
+    def _can_admit(self, req: Request, bi: int) -> bool:
+        if not self.prefix_cache:
+            return self._alloc.available(bi) >= self._pages_needed(req)
+        _, lookup_hashes, _, _, span_pages = self._prefix_plan(req)
+        return self._alloc.can_take(bi, lookup_hashes, span_pages)
+
+    def _prefix_plan(self, req: Request):
+        """(all full-page hashes, lookup hashes, hits, chunk size, table
+        span in pages) for admitting ``req`` under the current allocator
+        state. Hits are capped so at least one suffix token remains (the
+        next-token logits come from a computed query), and dropped to 0
+        when the chunk-padded span would overflow the row's table."""
+        ps = self.page_size
+        n = len(req.tokens)
+        all_hashes = chain_hashes(req.tokens, ps)
+        lookup_hashes = all_hashes[:(n - 1) // ps]
+        hits = self._alloc.lookup(lookup_hashes)
+        cs = None
+        if hits > 0:
+            cached = hits * ps
+            suffix = n - cached
+            cs = min(self.prefill_chunk, _bucket(suffix))
+            span = max(n + req.max_new, cached + (-(-suffix // cs)) * cs)
+            if span > self.s_max:
+                hits, cs = 0, None
+        if hits == 0:
+            lookup_hashes = []
+            if self.interleave_admission:
+                # cold interleaved admissions chunk the whole prompt
+                cs = min(self.prefill_chunk, _bucket(n))
+                span = max(n + req.max_new, (-(-n // cs)) * cs)
+            else:
+                span = max(_bucket(n), n + req.max_new)
+        return all_hashes, lookup_hashes, hits, cs, -(-span // ps)
+
+    # --- paged admission ----------------------------------------------------
+
+    def _insert_row_paged(self, cache, kv_k, kv_v, row: int, true_len: int,
+                          n_chunks: int, pages: np.ndarray):
+        """Quantize a prefilled row's K/V and write it page by page into the
+        pool, IN PLACE: chunk i of the padded prompt lands in pool page
+        ``pages[i]``. Installs the row's table and length."""
+        ps = self.page_size
+        kq, ks = quantize_kv(kv_k[:, 0].transpose(1, 2), self.cache_dtype)
+        vq, vs = quantize_kv(kv_v[:, 0].transpose(1, 2), self.cache_dtype)
+        for pi in range(n_chunks):
+            lo = pi * ps
+            w = min(ps, kq.shape[2] - lo)
+            pg = int(pages[pi])
+            cache.k[:, pg, :, :w] = kq[:, :, lo:lo + w]
+            cache.v[:, pg, :, :w] = vq[:, :, lo:lo + w]
+            if ks is not None:
+                cache.k_scale[:, pg, :, 0, :w] = ks[:, :, lo:lo + w]
+                cache.v_scale[:, pg, :, 0, :w] = vs[:, :, lo:lo + w]
+        cache.page_table[row] = self._vec(pages, torch.int32)
+        cache.length[row] = true_len
+        return cache
+
+    def _row_view(self, cache, row_pt: np.ndarray, length: int):
+        """A one-row view of the pool: the same tensors with one page table
+        row and a length, so appends through it land in the pool."""
+        return PagedKVCache(
+            k=cache.k, v=cache.v, k_scale=cache.k_scale,
+            v_scale=cache.v_scale,
+            page_table=self._vec(row_pt[None], torch.int32),
+            length=self._vec([length], torch.int32))
+
+    def _suffix_chunk(self, params, view, toks: np.ndarray, last_index: int):
+        """One suffix-prefill chunk: teacher-force ``toks`` (1, cs) through
+        :func:`decode_multi_step` against the one-row pool view; appends
+        land in the row's fresh pages, attention reads the shared prefix,
+        and only ``last_index`` projects through lm_head."""
+        logits, view = decode_multi_step(
+            params, view, torch.as_tensor(toks, device=self.device),
+            self.cfg, last_index=last_index)
+        return logits[:, 0], view
+
+    def _bucket_prefill(self, params, cache, req: Request, bi: int,
+                        row_pt: np.ndarray):
+        """Cold admission (no prefix hit): bucket-padded prefill and the
+        page-wise pool insert. Returns (cache, next-token logits)."""
+        n = len(req.tokens)
+        pad = _bucket(n)
+        toks = np.zeros((1, pad), np.int64)
+        toks[0, :n] = np.asarray(req.tokens, np.int64)
+        logits, (kv_k, kv_v) = self._prefill_one(params, toks, n - 1)
+        cache = self._insert_row_paged(cache, kv_k, kv_v, bi, n,
+                                       -(-pad // self.page_size), row_pt)
+        return cache, logits
+
+    def _admit_row(self, params, cache, req: Request, bi: int,
+                   sampling: SamplingParams, gen):
+        n = len(req.tokens)
+        if not self.prefix_cache:
+            need = self._pages_needed(req)
+            pages = self._alloc.take(bi, need)
+            row_pt = np.full((self.n_pages,), -1, np.int32)
+            row_pt[:need] = pages
+            cache, logits = self._bucket_prefill(params, cache, req, bi,
+                                                 row_pt)
+            first, lp = self._sample_first(logits, sampling, gen)
+            return cache, first, lp
+
+        all_hashes, lookup_hashes, hits, cs, span_pages = \
+            self._prefix_plan(req)
+        pages, got = self._alloc.take(bi, lookup_hashes, span_pages)
+        assert got == hits, (got, hits)
+        row_pt = np.full((self.n_pages,), -1, np.int32)
+        row_pt[:span_pages] = pages
+        if hits == 0:
+            cache, logits = self._bucket_prefill(params, cache, req, bi,
+                                                 row_pt)
+        else:
+            cached = hits * self.page_size
+            suffix = np.asarray(req.tokens[cached:], np.int64)
+            n_chunks = -(-len(suffix) // cs)
+            toks = np.zeros((1, n_chunks * cs), np.int64)
+            toks[0, :len(suffix)] = suffix
+            view = self._row_view(cache, row_pt, cached)
+            last = (len(suffix) - 1) % cs
+            for ci in range(n_chunks):
+                logits, view = self._suffix_chunk(
+                    params, view, toks[:, ci * cs:(ci + 1) * cs], last)
+            # pad appends past the prompt are dead: the length caps at n
+            # and later decode appends overwrite those slots
+            cache.page_table[bi] = self._vec(row_pt, torch.int32)
+            cache.length[bi] = n
+            self._stats["prefix_hit_tokens"] += cached
+        self._alloc.register(all_hashes, pages[:len(all_hashes)])
+        self._stats["admitted_tokens"] += n
+        first, lp = self._sample_first(logits, sampling, gen)
+        return cache, first, lp
+
+    # --- decode-interleaved chunked admission -------------------------------
+
+    def _admission_start(self, req: Request, bi: int,
+                         gen) -> "_Admission":
+        """Reserve pages and stage ``req``'s prompt as suffix chunks; no
+        device work happens here."""
+        n = len(req.tokens)
+        if self.prefix_cache:
+            all_hashes, lookup_hashes, hits, cs, span_pages = \
+                self._prefix_plan(req)
+            pages, got = self._alloc.take(bi, lookup_hashes, span_pages)
+            assert got == hits, (got, hits)
+        else:
+            all_hashes, hits = [], 0
+            cs = min(self.prefill_chunk, _bucket(n))
+            span = max(n + req.max_new, (-(-n // cs)) * cs)
+            span_pages = -(-span // self.page_size)
+            pages = self._alloc.take(bi, span_pages)
+        cached = hits * self.page_size
+        suffix = np.asarray(req.tokens[cached:], np.int64)
+        n_chunks = -(-len(suffix) // cs)
+        toks = np.zeros((1, n_chunks * cs), np.int64)
+        toks[0, :len(suffix)] = suffix
+        row_pt = np.full((self.n_pages,), -1, np.int32)
+        row_pt[:span_pages] = pages
+        return _Admission(req=req, bi=bi, gen=gen, toks=toks, cs=cs,
+                          n_chunks=n_chunks, ci=0,
+                          last=(len(suffix) - 1) % cs, row_pt=row_pt,
+                          pages=list(pages), all_hashes=all_hashes,
+                          cached=cached)
+
+    def _admission_advance(self, params, cache, st: "_Admission"):
+        """Run one prefill chunk of the pending admission against the pool
+        (in place, through a one-row view). Returns (cache, next-token
+        logits); the logits are not None exactly when the admission
+        finished, when the row's table and length are installed and (with
+        the prefix cache) its full pages registered."""
+        lo = st.ci * st.cs
+        view = self._row_view(cache, st.row_pt, st.cached + lo)
+        logits, view = self._suffix_chunk(
+            params, view, st.toks[:, lo:lo + st.cs], st.last)
+        st.ci += 1
+        if st.ci < st.n_chunks:
+            return cache, None
+        n = len(st.req.tokens)
+        cache.page_table[st.bi] = self._vec(st.row_pt, torch.int32)
+        cache.length[st.bi] = n
+        if self.prefix_cache:
+            self._alloc.register(st.all_hashes,
+                                 st.pages[:len(st.all_hashes)])
+            self._stats["prefix_hit_tokens"] += st.cached
+            self._stats["admitted_tokens"] += n
+        return cache, logits
+
+    def _serve_interleaved(self, params, requests: Sequence[Request], *,
+                           sampling: SamplingParams = SamplingParams(),
+                           eos_id: Optional[int] = None,
+                           seed: int = 0) -> Dict[int, RequestResult]:
+        """`serve` with chunked-prefill admission: at most one admission in
+        flight, advanced one ``prefill_chunk`` per scheduler iteration,
+        with one decode block of the running rows between chunks, so a
+        running row's stall is bounded by one chunk. Greedy results equal
+        the batch-admission loop's."""
+        self._check_requests(params, requests)
+        B = self.max_batch
+        queue = deque(requests)
+        cache = self.init_cache()
+        dparams = self.decode_params(params)
+        slot: List[Optional[Request]] = [None] * B
+        gens: List[Optional[torch.Generator]] = [None] * B
+        emitted: List[List[int]] = [[] for _ in range(B)]
+        lps = [[] for _ in range(B)] if self.return_logprobs else None
+        cur = np.zeros((B,), np.int32)
+        results: Dict[int, RequestResult] = {}
+        eos = -1 if eos_id is None else int(eos_id)
+        pending: Optional[_Admission] = None
+
+        while queue or any(s is not None for s in slot) or pending:
+            if pending is None and queue:
+                for bi in range(B):
+                    if slot[bi] is None and self._can_admit(queue[0], bi):
+                        req = queue.popleft()
+                        pending = self._admission_start(
+                            req, bi, self._generator(seed, req))
+                        break
+            if pending is not None:
+                # admission prefill keeps the bf16 params, as batch
+                # admission does
+                cache, logits = self._admission_advance(params, cache,
+                                                        pending)
+                if logits is not None:
+                    st, pending = pending, None
+                    first, flp = self._sample_first(logits, sampling, st.gen)
+                    slot[st.bi] = st.req
+                    gens[st.bi] = st.gen
+                    emitted[st.bi] = [first]
+                    if lps is not None:
+                        lps[st.bi] = [flp]
+                    cur[st.bi] = first
+                    self._maybe_finish(st.bi, slot, emitted, results,
+                                       eos_id, lps)
+            if not any(s is not None for s in slot):
+                continue
+            budget = [slot[bi].max_new - len(emitted[bi])
+                      if slot[bi] is not None else 0 for bi in range(B)]
+            toks, lp, _, _, _ = self._decode_block(
+                dparams, cache, self._vec(cur, torch.int32),
+                self._vec([s is not None for s in slot], torch.bool),
+                self._vec(budget, torch.int32), eos, sampling, gens)
+            nxt = toks.cpu().numpy()
+            lp = lp.cpu().numpy() if lps is not None else None
+            self._consume(nxt, lp, slot, emitted, results, eos_id, lps,
+                          cur=cur)
+        return results
