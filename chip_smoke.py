@@ -92,11 +92,19 @@ Phases, one JSON line each; any failure exits non-zero:
      at the ring's own descriptors), merged and summed onto their owners
      as the ring does, against one-device flash_attention fwd+bwd; and
      zigzag with impl sage and kv_quant="int8" (B8b over the rotated int8
-     K/V) against one-device sage_attention;
+     K/V) against one-device sage_attention; and zigzag and stripe rings
+     over packed documents with ALiBi and dropout against one-device
+     flash_attention with the global ids, slopes and seed;
  12. usp_dense: the dense LongContextAttention(layout="zigzag") on a
      one-rank NCCL mesh at s=32768 (the two-chunk descriptor (0, s/2)):
      exactly one B3, B2a and B2b per forward and backward, against
-     flash_attention(causal=True), timed beside its kernels;
+     flash_attention(causal=True), timed beside its kernels; then
+     usp_varlen: the same layer on packed documents with ALiBi and
+     dropout 0.1 (exactly one featured B3, B2a and B2b), against a direct
+     flash_attention with the same ids, slopes and dropout key, and q-row
+     and kv-column slices of its out, lse and grads against the plain
+     versions at the layer's own descriptor, timed beside the layer
+     without the features and beside its kernels;
  13. train_usp: make_train_step(mesh=make_usp_mesh()) on the 0.88B config
      (zigzag) at b=1, s=8192: one step against the single-device step from
      the same params and batch (loss, every leaf), then remat none and attn
@@ -124,7 +132,13 @@ Phases, one JSON line each; any failure exits non-zero:
      (every step's logits within 0.5 of a bf16 prefill).
 The kernel phase also holds B6 and B7 through the page table (B7 also over
 runs of 64 and 256 tokens, split as the JAX rule splits them) against
-their plain versions, and paged against dense bit for bit.
+their plain versions, and paged against dense bit for bit; and B3, B2a
+and B2b with packed segments, ALiBi, dropout 0.1 and all three at the
+trainer's per-layer shape, at one chunk and at the ring's zigzag and
+stripe steps (LSE_FLOOR says which rows a per-step check holds), B3 over
+int8 K/V with segments and dropout and with kv_lengths on the
+chunked-prefill cache call, each timed with its bound and SDPA's
+yardstick, and exact probes of the dropout keep mask in all three.
 Then the kernel table, the card's name and power limit, and as the last line
 {"ok": true, "device": {...}}.
 """
@@ -1803,10 +1817,11 @@ def dense_mask(plan, dev):
     return live & ~(strad & (cols[None, :] > rows[:, None]))
 
 
-def sdpa_masked_ms(q, k, v, dout, mask):
-    """SDPA's memory-efficient kernel (it takes a boolean mask; flash does
-    not) on the same function: (forward ms, backward ms), K/V repeated to
-    the query heads."""
+def sdpa_masked_ms(q, k, v, dout, mask, dropout_p=0.0):
+    """SDPA's memory-efficient kernel (it takes a boolean or an additive
+    float mask, and dropout; flash takes no mask) on the same function:
+    (forward ms, backward ms), K/V repeated to the query heads. With
+    dropout it draws its own mask: a cost yardstick, not the function."""
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
     g = q.shape[2] // k.shape[2]
@@ -1817,7 +1832,8 @@ def sdpa_masked_ms(q, k, v, dout, mask):
 
     def fwd():
         with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
-            return F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask)
+            return F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask,
+                                                  dropout_p=dropout_p)
 
     def fwd_bwd():
         torch.autograd.grad(fwd(), (qh, kh, vh), doh)
@@ -2826,6 +2842,434 @@ def ring_forms(flash, ring, q, k, v, dout, scale):
           "row_rel_err": errs})
 
 
+# ---------------------------------------------------------------------------
+# packed varlen, ALiBi and dropout (segment ids, kv_lengths, the hash
+# dropout) in B3, B2a and B2b
+# ---------------------------------------------------------------------------
+
+# attention dropout at the rate a training run of the reference layer takes
+# (its dropout_p, hybrid/attn_layer.py:62)
+DROPOUT_P = 0.1
+# packed documents: lengths uniform on DOC_LENS from a seeded numpy
+# generator, the last cut to fill the sequence, so that document
+# boundaries cut the kernels' 128-wide tiles
+DOC_LENS = (512, 8192)
+# The max-free forward sums p = exp2(s) unnormalised. ALiBi at a far ring
+# step (the zigzag and stripe descriptors) can push every visible score of
+# a row to the bottom of fp32's range, exp2 between -149 and -126: the
+# plain version keeps those subnormal p, while the card's exp2 and its
+# bf16 tensor-core operands may flush them, so that one side's row is dead
+# (out 0, lse -inf) and the other's full-sized (acc / l of two tiny
+# numbers is not tiny). The merged result is the same, since such a step's
+# weight beside the row's own diagonal step is about exp(-80). So a
+# per-step forward row is held against its plain version where the plain
+# lse is above LSE_FLOOR (below it the kernel's lse must be below
+# LSE_FLOOR + 10 or -inf), and merged outputs (ring_emulated, usp_varlen)
+# everywhere; a row that sees no column at all must be out 0, lse -inf.
+LSE_FLOOR = -80.0
+
+
+def alibi_slopes(h, dev):
+    """The geometric ALiBi slopes 2^(-8 (i + 1) / h) of Press et al.
+    (arXiv:2108.12409), the slopes BLOOM and MPT use."""
+    return torch.tensor([2.0 ** (-8.0 * (i + 1) / h) for i in range(h)],
+                        dtype=torch.float32, device=dev)
+
+
+def packed_ids(s, dev, seed=SEED):
+    """(1, s) int32 segment ids of documents packed into one sequence
+    (DOC_LENS), built by the layouts' segment_ids_from_cu_seqlens."""
+    from long_context_attention_tpu_torch.parallel.layouts import (
+        segment_ids_from_cu_seqlens)
+
+    rng = np.random.RandomState(seed)
+    cu = [0]
+    while cu[-1] < s:
+        cu.append(min(s, cu[-1] + int(rng.randint(DOC_LENS[0],
+                                                  DOC_LENS[1] + 1))))
+    return segment_ids_from_cu_seqlens(cu, s).to(dev)
+
+
+def feature_descs(flash, ring, dev):
+    """(tag, Positions, mask kwargs, q ids, kv ids) of the descriptors the
+    feature cases run at: one chunk (a static self-attention call with a
+    feature, b=1, s=8192), and RING_CASES' zigzag (rank 1, step 2) and
+    stripe (src > rank) steps of a W=4 ring over packed documents of
+    W * 8192 tokens, with the rank's and the source's shards of the ids."""
+    from long_context_attention_tpu_torch.parallel.layouts import (
+        permute_for_layout)
+
+    ids = packed_ids(TRAIN_SEQ, dev)
+    out = [("one chunk", flash.Positions.at(0),
+            dict(causal=True, window_size=(-1, -1), sink_tokens=0), ids,
+            ids)]
+    glob = packed_ids(RING_W * RING_LOCAL, dev, SEED + 1)
+    for tag, fields, rank, step in RING_CASES[:2]:
+        pos, mk = ring_case_kwargs(ring, tag, fields, rank, step)
+        shards = permute_for_layout(glob, fields["layout"],
+                                    RING_W).chunk(RING_W, 1)
+        src = (rank - step) % RING_W
+        out.append((tag, pos, mk, shards[rank].contiguous(),
+                    shards[src].contiguous()))
+    return out
+
+
+def feature_sets(flash, q_ids, kv_ids, slopes, seed):
+    """The feature cases: (a) packed segments, (b) ALiBi, (c) dropout 0.1,
+    (d) all three."""
+    return (("segments", flash.Features(q_ids, kv_ids)),
+            ("alibi", flash.Features(slopes=slopes)),
+            ("dropout", flash.Features(dropout_p=DROPOUT_P, seed=seed)),
+            ("segments alibi dropout",
+             flash.Features(q_ids, kv_ids, slopes, DROPOUT_P, seed)))
+
+
+def feature_vis(flash, pos, mk, feat, s_q, s_kv, dev):
+    """(b or 1, s_q, s_kv) bool: the pairs the masks and the segments
+    keep."""
+    left, right, sink = flash._masks(mk["causal"], mk["window_size"],
+                                     mk["sink_tokens"], 0.0)
+    vis = ~flash._mask(pos.q_positions(s_q, dev), pos.kv_positions(s_kv, dev),
+                       left, right, sink)[None]
+    if feat.q_seg is not None:
+        vis = vis & (feat.q_seg[:, :, None] == feat.kv_seg[:, None, :])
+    return vis
+
+
+def check_fwd_rows(name, out, lse, pout, plse, seen):
+    """A featured forward's rows against the plain version's: rows that see
+    no column (``seen`` (b, s_q) False) out 0 and lse -inf exactly; rows
+    whose plain lse is at or below LSE_FLOOR held only to a kernel lse
+    below LSE_FLOOR + 10 (or -inf: see LSE_FLOOR); every other row within
+    ROW_REL_TOL of its size and its lse within LSE_TOL. Returns
+    check_out's (max abs error, worst row) and the count of floor rows."""
+    dead = ~seen[:, None, :].expand_as(plse)
+    if out.transpose(1, 2)[dead].any() or not torch.isneginf(lse[dead]).all():
+        raise AssertionError(f"{name}: rows that see no column are not out "
+                             f"0, lse -inf")
+    low = (plse <= LSE_FLOOR) & ~dead
+    klow = lse[low]
+    if not bool(((klow <= LSE_FLOOR + 10) | torch.isneginf(klow)).all()):
+        raise AssertionError(f"{name}: a row whose plain lse is below "
+                             f"{LSE_FLOOR} is full-sized on the card")
+    held = (~low).transpose(1, 2)[..., None]
+    res = check_out(name, torch.where(held, out, torch.zeros_like(out)),
+                    torch.where(held, pout, torch.zeros_like(pout)))
+    keep = ~low & ~dead
+    if keep.any():
+        check(f"{name} lse", max_err(lse[keep], plse[keep]), LSE_TOL)
+    return res, int(low.sum())
+
+
+def feature_mask(vis, feat, pos, s_q, s_kv, dev, dtype):
+    """SDPA's additive float mask of the same function (segments and
+    masks -inf, plus the ALiBi bias), (b, h or 1, s_q, s_kv)."""
+    mask = torch.zeros(vis.shape, dtype=dtype, device=dev).masked_fill(
+        ~vis, -math.inf)[:, None]
+    if feat.slopes is not None:
+        dist = (pos.q_positions(s_q, dev)[:, None]
+                - pos.kv_positions(s_kv, dev)[None, :]).abs().float()
+        mask = mask + (-feat.slopes[:, None, None] * dist).to(dtype)[None]
+    return mask
+
+
+def kernel_features(K, flash, ring, gen, dev):
+    """B3, B2a and B2b with the features (packed segments, ALiBi with the
+    geometric slopes, dropout 0.1, all three) at the trainer's per-layer
+    shape (b=1, s=8192, 16/8 heads, causal), at one chunk and at the ring's
+    zigzag and stripe steps (feature_descs), each against its plain version
+    (check_fwd_rows; the backward on the kernel forward's out and lse, rows
+    within ROW_REL_TOL), timed with its bound (the visible pairs: causal and
+    same segment) and SDPA's memory-efficient kernel: with the equivalent
+    additive float mask for segments and ALiBi (the same function), with
+    dropout 0.1 (its own mask: a cost yardstick). Then B3 over int8 K/V
+    with segments and dropout at the zigzag step and with all three at one
+    chunk, and with kv_lengths. Returns {kernel: [case rows]}."""
+    b, s, h, hk, d = 1, TRAIN_SEQ, MODEL["n_heads"], MODEL["n_kv_heads"], 128
+    scale = d ** -0.5
+    slopes = alibi_slopes(h, dev)
+    seed = (SEED + 0x5EED, 0)
+    q, dout = (torch.randn((b, s, h, d), generator=gen, device=dev)
+               .bfloat16() for _ in range(2))
+    k, v = (torch.randn((b, s, hk, d), generator=gen, device=dev).bfloat16()
+            for _ in range(2))
+    kt, vt = k.transpose(1, 2), v.transpose(1, 2)
+    rows = {n: [] for n in ("B3", "B2a", "B2b")}
+    descs = feature_descs(flash, ring, dev)
+    for dtag, pos, mk, q_ids, kv_ids in descs:
+        for ftag, feat in feature_sets(flash, q_ids, kv_ids, slopes, seed):
+            tag = f"{dtag}, {ftag}"
+            vis = feature_vis(flash, pos, mk, feat, s, s, dev)
+            pairs = int(vis.sum()) * h * (b if vis.shape[0] == 1 else 1)
+            fw = dict(pos=pos, scale=scale, features=feat, **mk)
+            out, lse = flash.flash_fwd_pos(q, kt, vt, **fw)
+            pout, plse = flash.flash_fwd_pos_plain(q, kt, vt, **fw)
+            torch.cuda.synchronize()
+            c3, floor_rows = check_fwd_rows(
+                f"B3 {tag} out", out, lse, pout, plse,
+                vis.any(-1).expand(b, s))
+            del pout, plse
+            delta = (dout.float() * out.float()).sum(-1).transpose(1, 2)
+            args = (q, k, v, dout, lse, delta.contiguous())
+            dq = flash.flash_bwd_dq(*args, **fw)
+            pdq = flash.flash_bwd_dq_plain(*args, **fw)
+            torch.cuda.synchronize()
+            # a row that sees one column: ds = dp - delta cancels to noise
+            one_col = (vis[0].sum(-1) == 1).nonzero()[:, 0]
+            c2a = [check_out(f"B2a {tag} dq", dq, pdq, one_col)]
+            del dq, pdq
+            dk, dv = flash.flash_bwd_dkv(*args, **fw)
+            pdk, pdv = flash.flash_bwd_dkv_plain(*args, **fw)
+            torch.cuda.synchronize()
+            c2b = [check_out(f"B2b {tag} dk", dk, pdk),
+                   check_out(f"B2b {tag} dv", dv, pdv)]
+            del dk, dv, pdk, pdv
+            torch.cuda.empty_cache()
+            dropout = feat.dropout_p > 0.0
+            if dropout and feat.q_seg is None and feat.slopes is None:
+                lib_mask = vis
+            else:
+                lib_mask = feature_mask(vis, feat, pos, s, s, dev, q.dtype)
+            sdpa_f, sdpa_b = sdpa_masked_ms(q, k, v, dout, lib_mask,
+                                            DROPOUT_P if dropout else 0.0)
+            del lib_mask
+            library = ("SDPA memory-efficient with dropout 0.1 (its own "
+                       "mask: a cost yardstick, not the same function)"
+                       if dropout else
+                       "SDPA memory-efficient, the equivalent additive "
+                       "float mask (the same function)")
+            in_b = 2 * (2 * q.numel() + 2 * k.numel()) + 8 * b * s
+            kinds = (
+                ("B3", [c3], lambda: flash.flash_fwd_pos(q, kt, vt, **fw),
+                 lambda: flash.flash_fwd_pos_plain(q, kt, vt, **fw), 4,
+                 in_b + 4 * b * h * s, sdpa_f),
+                ("B2a", c2a, lambda: flash.flash_bwd_dq(*args, **fw),
+                 lambda: flash.flash_bwd_dq_plain(*args, **fw), 6,
+                 in_b + 8 * b * h * s + 4 * q.numel(), sdpa_b),
+                ("B2b", c2b, lambda: flash.flash_bwd_dkv(*args, **fw),
+                 lambda: flash.flash_bwd_dkv_plain(*args, **fw), 8,
+                 in_b + 8 * b * h * s + 8 * k.numel(), sdpa_b))
+            for n, checks, fn, plain, per_pair, nbytes, lib in kinds:
+                ms = time_ms(fn)
+                pms = time_ms(plain, iters=1, warmup=0)
+                torch.cuda.empty_cache()
+                rows[n].append({
+                    "case": tag, "q_offsets": list(pos.q_offsets),
+                    "kv_offsets": list(pos.kv_offsets),
+                    "stride": pos.q_stride, "visible_pairs": pairs,
+                    "floor_rows": floor_rows, "library": library,
+                    **case_row(checks, ms, pms, per_pair * d * pairs,
+                               nbytes, lib)})
+            emit({"phase": "feature_kernels", "case": tag,
+                  "visible_pairs": pairs, "floor_rows": floor_rows,
+                  "ms": {n: rows[n][-1]["ms"] for n in rows},
+                  "bound_ms": {n: rows[n][-1]["bound_ms"] for n in rows}})
+            del out, lse, args, delta
+            torch.cuda.empty_cache()
+    # B3 over int8 K/V (kv_quant="int8"): segments and dropout at the
+    # zigzag step, and all three features at one chunk (live pairs there:
+    # the zigzag step's documents may not reach across its gap)
+    (k8, ks), (v8, vs) = (ring._quantize(t) for t in (k, v))
+    i8 = (q, k8.transpose(1, 2), v8.transpose(1, 2), ks, vs)
+    for (dtag, pos, mk, _, _), ftag, feat in (
+            (descs[1], "segments dropout",
+             flash.Features(descs[1][3], descs[1][4], dropout_p=DROPOUT_P,
+                            seed=seed)),
+            (descs[0], "segments alibi dropout",
+             flash.Features(descs[0][3], descs[0][4], slopes, DROPOUT_P,
+                            seed))):
+        fw = dict(pos=pos, scale=scale, features=feat, **mk)
+        out, lse = flash.flash_fwd_pos(*i8, **fw)
+        pout, plse = flash.flash_fwd_pos_plain(*i8, **fw)
+        torch.cuda.synchronize()
+        vis = feature_vis(flash, pos, mk, feat, s, s, dev)
+        c8, floor_rows = check_fwd_rows(f"B3 {dtag}, int8 K/V {ftag}", out,
+                                        lse, pout, plse,
+                                        vis.any(-1).expand(b, s))
+        del pout, plse
+        pairs = int(vis.sum()) * h
+        ms = time_ms(lambda: flash.flash_fwd_pos(*i8, **fw))
+        pms = time_ms(lambda: flash.flash_fwd_pos_plain(*i8, **fw), iters=1,
+                      warmup=0)
+        nbytes = (2 * 2 * q.numel() + 2 * k8.numel() + 8 * b * hk * s
+                  + 8 * b * s + 4 * b * h * s)
+        rows["B3"].append({"case": f"{dtag}, int8 K/V, {ftag}",
+                           "visible_pairs": pairs, "floor_rows": floor_rows,
+                           "library": None,
+                           **case_row([c8], ms, pms, 4 * d * pairs, nbytes,
+                                      None)})
+        torch.cuda.empty_cache()
+    del q, k, v, dout, kt, vt, out, lse
+    torch.cuda.empty_cache()
+    rows["B3"].append(kernel_b3_kv_lengths(flash, gen, dev))
+    return rows
+
+
+# kv_lengths on the chunked-prefill cache call: each batch row's filled
+# prefix (ragged, one row empty: out 0, lse -inf)
+KV_LENGTHS = (6144, 5000, 0, 3001)
+
+
+def kernel_b3_kv_lengths(flash, gen, dev):
+    """B3 with kv_lengths (segment ids: q 1, kv j < kv_lengths[b], the JAX
+    construction) on the chunked-prefill cache call: b=4, 2048 rows at
+    q_start 6144 over an int8 cache of 6144 slots, lengths KV_LENGTHS,
+    against its plain version; timed with its bound (the slots each row
+    sees) and SDPA's memory-efficient kernel over the dequantized cache
+    with the equivalent float mask (the same function)."""
+    b, h, hk, d = BATCH, MODEL["n_heads"], MODEL["n_kv_heads"], 128
+    s_q, start = CHUNK, PROMPT - CHUNK
+    q = torch.randn((b, s_q, h, d), generator=gen, device=dev).bfloat16()
+    kc, vc = (torch.randint(-127, 128, (b, hk, start, d), generator=gen,
+                            device=dev, dtype=torch.int8) for _ in range(2))
+    ks, vs = (torch.rand((b, hk, start), generator=gen, device=dev) / 64
+              for _ in range(2))
+    lens = torch.tensor(KV_LENGTHS, device=dev)
+    kw = dict(k_scale=ks, v_scale=vs, q_start=start, causal=True,
+              kv_lengths=lens)
+    out, lse = flash.flash_attention_fwd_cache(q, kc, vc, **kw)
+    feat = flash.Features(torch.ones((b, s_q), dtype=torch.int32, device=dev),
+                          (torch.arange(start, device=dev)[None]
+                           < lens[:, None]).int())
+    pout, plse = flash.flash_fwd_pos_plain(q, kc, vc, ks, vs, q_start=start,
+                                           causal=True, scale=d ** -0.5,
+                                           features=feat)
+    torch.cuda.synchronize()
+    seen = (lens > 0)[:, None].expand(b, s_q)
+    res, _ = check_fwd_rows("B3 kv_lengths out", out, lse, pout, plse, seen)
+    ms = time_ms(lambda: flash.flash_attention_fwd_cache(q, kc, vc, **kw))
+    pms = time_ms(lambda: flash.flash_fwd_pos_plain(
+        q, kc, vc, ks, vs, q_start=start, causal=True, scale=d ** -0.5,
+        features=feat), iters=1, warmup=0)
+    kd, vd = ((t.float() * sc[..., None]).bfloat16()
+              .repeat_interleave(h // hk, 1) for t, sc in ((kc, ks), (vc, vs)))
+    mask = torch.zeros((b, 1, s_q, start), dtype=torch.bfloat16,
+                       device=dev).masked_fill(
+        ~feat.kv_seg.bool()[:, None, None, :], -math.inf)
+    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        q.transpose(1, 2), kd, vd, attn_mask=mask))
+    pairs = s_q * h * sum(KV_LENGTHS)
+    nbytes = (2 * 2 * q.numel() + 4 * b * h * s_q
+              + 2 * hk * sum(KV_LENGTHS) * (d + 4))
+    return {"case": f"kv_lengths {list(KV_LENGTHS)}, int8 cache {start}, "
+                    f"{s_q} rows at q_start {start}",
+            "visible_pairs": pairs,
+            "library": "SDPA memory-efficient over the dequantized cache, "
+                       "the equivalent float mask (the same function)",
+            **case_row([res], ms, pms, 4 * d * pairs, nbytes, lib_ms)}
+
+
+# the keep-mask probes' global offsets: above 2^20 on both sides, several
+# kv offsets, a head base that is not 0
+PROBE_Q_OFFSET = (1 << 20) + 4133
+PROBE_KV_OFFSETS = ((1 << 20) + 96, (1 << 20) + 77777, (1 << 21) + 5)
+PROBE_SEED = (0x2545F491, 5)
+
+
+def feature_probes(flash, gen, dev):
+    """Exact probes of the dropout keep mask, which a row check cannot see
+    (one flipped bit in 8192 columns): b=2, 16 heads (h == h_kv),
+    non-causal, q and kv at global offsets above 2^20, head base 5.
+      B3: one kv tile of 128 columns, V the identity per kv head: out[i, j]
+        != 0 exactly where pair (i, j) is kept; at several kv offsets.
+      B2b: dout the identity over 128 q rows: dv[j, i] != 0 exactly where
+        (i, j) is kept.
+      B2a: K the identity, V and dout rows all one vector u (dp = |u|^2)
+        and delta 0: dq[i, j] = bf16(ds) != 0 exactly where kept; each
+        element against the plain version, whose error must stay below the
+        smallest change one flipped bit makes (the smallest kept |dq|).
+    Each pattern against flash.dropout_keep bit for bit; the kept share
+    against 1 - p within 4 sigma of the binomial."""
+    b, h, d = 2, MODEL["n_heads"], 128
+    s_q, s_kv = 2048, 128
+    scale = d ** -0.5
+    eye = torch.eye(d, device=dev).bfloat16()
+    P = flash.Positions
+    kept, total, res = 0, 0, {}
+
+    def keep_of(pos, sq, skv):
+        return flash.dropout_keep(PROBE_SEED, pos.q_positions(sq, dev),
+                                  pos.kv_positions(skv, dev), b, h,
+                                  DROPOUT_P)
+
+    feat = flash.Features(dropout_p=DROPOUT_P, seed=PROBE_SEED)
+    q = torch.randn((b, s_q, h, d), generator=gen, device=dev).bfloat16()
+    k = torch.randn((b, s_kv, h, d), generator=gen, device=dev).bfloat16()
+    v_eye = eye[None, :, None, :].expand(b, s_kv, h, d).contiguous()
+    for kvo in PROBE_KV_OFFSETS:
+        pos = P((PROBE_Q_OFFSET,), (kvo,))
+        out, _ = flash.flash_fwd_pos(q, k.transpose(1, 2),
+                                     v_eye.transpose(1, 2), pos=pos,
+                                     scale=scale, features=feat)
+        torch.cuda.synchronize()
+        want = keep_of(pos, s_q, s_kv).permute(0, 2, 1, 3)  # (b, s_q, h, j)
+        got = out != 0
+        flips = int((got != want).sum())
+        res[f"B3 kv offset {kvo}"] = flips
+        kept += int(want.sum())
+        total += want.numel()
+        if flips:
+            raise AssertionError(f"B3 keep probe at kv offset {kvo}: {flips} "
+                                 f"pairs differ from dropout_keep")
+    # B2b: dv with dout the identity over 128 q rows
+    sq2, skv2 = 128, 2048
+    q2 = torch.randn((b, sq2, h, d), generator=gen, device=dev).bfloat16()
+    k2, v2 = (torch.randn((b, skv2, h, d), generator=gen, device=dev)
+              .bfloat16() for _ in range(2))
+    pos = P((PROBE_Q_OFFSET,), (PROBE_KV_OFFSETS[1],))
+    out, lse = flash.flash_fwd_pos(q2, k2.transpose(1, 2), v2.transpose(1, 2),
+                                   pos=pos, scale=scale, features=feat)
+    do_eye = eye[None, :, None, :].expand(b, sq2, h, d).contiguous()
+    delta = (do_eye.float() * out.float()).sum(-1).transpose(1, 2)
+    _, dv = flash.flash_bwd_dkv(q2, k2, v2, do_eye, lse, delta.contiguous(),
+                                pos=pos, causal=False, scale=scale,
+                                features=feat)
+    torch.cuda.synchronize()
+    want = keep_of(pos, sq2, skv2).permute(0, 3, 1, 2)  # (b, j, h, i)
+    flips = int(((dv != 0) != want).sum())
+    res["B2b dv"] = flips
+    kept += int(want.sum())
+    total += want.numel()
+    if flips:
+        raise AssertionError(f"B2b keep probe: {flips} pairs differ from "
+                             f"dropout_keep")
+    # B2a: dq with K the identity
+    u = torch.full((d,), 0.1, device=dev)
+    k_eye = eye[None, :, None, :].expand(b, s_kv, h, d).contiguous()
+    v_u = u.bfloat16().expand(b, s_kv, h, d).contiguous()
+    do_u = u.bfloat16().expand(b, s_q, h, d).contiguous()
+    pos = P((PROBE_Q_OFFSET,), (PROBE_KV_OFFSETS[2],))
+    out, lse = flash.flash_fwd_pos(q, k_eye.transpose(1, 2),
+                                   v_u.transpose(1, 2), pos=pos, scale=scale,
+                                   features=feat)
+    zero = torch.zeros((b, h, s_q), device=dev)
+    bw = dict(pos=pos, causal=False, scale=scale, features=feat)
+    dq = flash.flash_bwd_dq(q, k_eye, v_u, do_u, lse, zero, **bw)
+    pdq = flash.flash_bwd_dq_plain(q, k_eye, v_u, do_u, lse, zero, **bw)
+    torch.cuda.synchronize()
+    want = keep_of(pos, s_q, s_kv).permute(0, 2, 1, 3)  # (b, s_q, h, j)
+    flips = int(((dq != 0) != want).sum())
+    err = float((dq - pdq).abs().max())
+    min_flip = float(pdq.abs()[want].min())
+    res["B2a dq"] = {"pattern_flips": flips, "max_abs_err": err,
+                     "smallest_flip_change": min_flip}
+    kept += int(want.sum())
+    total += want.numel()
+    if flips or not err < min_flip:
+        raise AssertionError(f"B2a keep probe: {flips} pairs differ; max "
+                             f"error {err} against the smallest flip "
+                             f"{min_flip}")
+    share = kept / total
+    sigma = math.sqrt(DROPOUT_P * (1 - DROPOUT_P) / total)
+    res.update(kept_share=share, expected=1 - DROPOUT_P, sigma=sigma,
+               pairs=total)
+    emit({"phase": "keep_probes", **res})
+    if abs(share - (1 - DROPOUT_P)) > 4 * sigma:
+        raise AssertionError(f"kept share {share} is more than 4 sigma from "
+                             f"{1 - DROPOUT_P}")
+    return res
+
+
 def offsets_phase(build, flash, dev, card):
     """flash_attention with one-chunk offsets (B3 + B2a + B2b, the JAX
     trainer's per-layer call) against the no-offsets path (B1 + B5) on the
@@ -3322,6 +3766,105 @@ def ring_emulated_phase(build, flash, ring, dev, card):
     return counts, sage_counts
 
 
+def ring_features_phase(build, flash, ring, dev, card):
+    """W=4 zigzag and stripe rings over packed documents with ALiBi (the
+    geometric slopes) and dropout 0.1: every (rank, step) call that
+    ring_attention_local makes, at the ring's own ring_step_kwargs with the
+    rank's q ids, the held K/V's ids, the slopes and the seed (B3, B2a, B2b
+    with the features), merged and summed onto owners as in
+    ring_emulated_phase, against one-device flash_attention with the global
+    ids, slopes and seed, fwd+bwd (B3 + B2a + B2b at one chunk): out within
+    ROW_REL_TOL of each row, out and grads within BF16_ATOL. The check that
+    the distributed dropout pattern equals the single-device one. Returns
+    one ring's launch counts."""
+    from long_context_attention_tpu_torch.ops.merge import merge_attn_blocks
+    from long_context_attention_tpu_torch.ops.registry import get_attn_impl
+    from long_context_attention_tpu_torch.parallel.layouts import (
+        permute_for_layout, unpermute_from_layout)
+
+    W, L = RING_W, RING_LOCAL
+    b, s, h, hk, d = 1, W * L, MODEL["n_heads"], MODEL["n_kv_heads"], 128
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    q, k, v = (torch.randn(shape, generator=gen, device=dev).bfloat16()
+               .requires_grad_()
+               for shape in ((b, s, h, d), (b, s, hk, d), (b, s, hk, d)))
+    dout = torch.randn((b, s, h, d), generator=gen, device=dev).bfloat16()
+    ids = packed_ids(s, dev, SEED + 2)
+    slopes = alibi_slopes(h, dev)
+    seed = (SEED + 0xD509, 0)
+    ref = flash.flash_attention(q, k, v, causal=True, q_segment_ids=ids,
+                                kv_segment_ids=ids, alibi_slopes=slopes,
+                                dropout_p=DROPOUT_P, dropout_seed=seed)
+    want = (ref.detach(), *torch.autograd.grad(ref, (q, k, v), dout))
+    del ref
+    impl = get_attn_impl("pallas")
+    ring_kernels = ("flash_fwd_pos", "flash_bwd_dq", "flash_bwd_dkv")
+    results, counts = {}, None
+    for layout in ("zigzag", "stripe"):
+        cfg = ring.RingConfig(ring_size=W, causal=True, layout=layout,
+                              dropout_p=DROPOUT_P)
+        shards = [permute_for_layout(t.detach(), layout, W).chunk(W, 1)
+                  for t in (q, k, v, dout, ids)]
+
+        def step_kw(r, t):  # the kwargs of rank r's step t (ring order)
+            src = (r - t) % W
+            return src, ring.ring_step_kwargs(
+                cfg, r, t, L, L, q_seg=shards[4][r], kv_seg=shards[4][src],
+                alibi_sl=slopes, seed=seed)
+
+        build.reset_launch_counts()
+        t0 = time.perf_counter()
+        outs, lses = [], []
+        for r in range(W):
+            acc = None
+            for t in range(W):
+                src, kw = step_kw(r, t)
+                o, l = impl.fwd(shards[0][r], shards[1][src], shards[2][src],
+                                **kw)
+                acc = ((o.float(), l) if acc is None else
+                       merge_attn_blocks(acc[0], acc[1], o, l))
+            outs.append(acc[0].to(q.dtype))
+            lses.append(acc[1])
+        dq = [torch.zeros_like(x, dtype=torch.float32) for x in shards[0]]
+        dk = [torch.zeros_like(x, dtype=torch.float32) for x in shards[1]]
+        dv = [torch.zeros_like(x, dtype=torch.float32) for x in shards[2]]
+        for r in range(W):
+            for t in range(W):
+                src, kw = step_kw(r, t)
+                gq, gk, gv = impl.bwd(shards[0][r], shards[1][src],
+                                      shards[2][src], outs[r], lses[r],
+                                      shards[3][r], **kw)
+                dq[r] += gq
+                dk[src] += gk
+                dv[src] += gv
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+        counts = expect_counts(build, {
+            n: W * W if n in ring_kernels else 0 for n in build.KERNELS})
+        got = [unpermute_from_layout(torch.cat(x, 1), layout, W)
+               for x in (outs, dq, dk, dv)]
+        errs = {}
+        for name, a, w in zip(("out", "dq", "dk", "dv"), got, want):
+            e = max_err(a, w)
+            check(f"ring_features {layout} {name}", e, BF16_ATOL)
+            errs[name] = e
+        errs["out_row_rel"] = check_out(
+            f"ring_features {layout} out vs one-device flash_attention",
+            got[0], want[0])[1]
+        results[layout] = {"max_abs_err": errs, "launches": counts,
+                           "wall_ms": wall_ms}
+        del shards, outs, lses, dq, dk, dv, got
+        torch.cuda.empty_cache()
+    emit({"phase": "ring_emulated_features", "card": card, "ring": W,
+          "seq": s, "local": L, "heads": h, "kv_heads": hk,
+          "features": f"packed documents (lengths {DOC_LENS}), ALiBi "
+                      f"geometric slopes, dropout {DROPOUT_P}",
+          "layouts": results})
+    del q, k, v, dout, want
+    torch.cuda.empty_cache()
+    return counts
+
+
 def usp_dense_phase(build, flash, dev, card):
     """LongContextAttention(layout="zigzag") with no mask on a one-rank
     NCCL mesh (make_usp_mesh()) at b=1, s=32768, 16/8 heads: the zigzag
@@ -3406,6 +3949,187 @@ def usp_dense_phase(build, flash, dev, card):
           "kernels_ms": kern_ms, "kernels_sum_ms": sum(kern_ms.values()),
           "zigzag_w1_at_train_seq": at_train,
           "flash_attention_fwd_bwd_ms": dense_ms})
+    del q, k, v, dout
+    torch.cuda.empty_cache()
+    return counts
+
+
+# usp_varlen's outputs held against the plain versions at the layer's own
+# descriptor (q and kv chunks at 0 and s/2): out, lse and dq on the q rows
+# of VARLEN_ROWS, dk and dv on the kv columns of VARLEN_COLS, each a slice
+# of VARLEN_SLICE from its first index; the blocks at s/2 - 256 straddle
+# the chunk boundary. A plain slice holds a few (16, 512, s) fp32 tensors,
+# 1 GiB each.
+VARLEN_SLICE = 512
+VARLEN_ROWS = (SPARSE_SEQ // 2 - VARLEN_SLICE // 2, SPARSE_SEQ - VARLEN_SLICE)
+VARLEN_COLS = (0, SPARSE_SEQ // 2 - VARLEN_SLICE // 2)
+
+
+def half_offsets(a, n, s):
+    """The chunk offsets of local tokens [a, a + n) of a side cut in two
+    chunks at 0 and s/2 (unit stride): one chunk, or two of n/2 when the
+    slice straddles s/2."""
+    half = s // 2
+    if a < half < a + n:
+        if half - a != n // 2:
+            raise ValueError(f"slice [{a}, {a + n}) straddles {half} "
+                             f"unevenly")
+        return (a, half)
+    return (a,)
+
+
+def varlen_plain_checks(flash, out, grads, lse, q, k, v, dout, ids, slopes,
+                        word):
+    """usp_varlen's out and grads (the layer's, bf16) and the lse of B3 at
+    the layer's descriptor and features, held slice by slice against
+    flash_fwd_pos_plain, flash_bwd_dq_plain and flash_bwd_dkv_plain at that
+    descriptor (VARLEN_ROWS, VARLEN_COLS): each row within ROW_REL_TOL, the
+    forward by check_fwd_rows (every row sees its own column), dq with the
+    documents' first rows (one visible column) as cancel rows. The plain
+    side's delta is the layer backward's, from the bf16 out. Returns
+    {slice: worst row}."""
+    b, s, h, d = q.shape
+    n = VARLEN_SLICE
+    mk = dict(causal=True, scale=d ** -0.5)
+    delta = (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    whole = half_offsets(0, s, s)
+    kt, vt = k.transpose(1, 2), v.transpose(1, 2)
+    res = {}
+    for a in VARLEN_ROWS:
+        r = slice(a, a + n)
+        pos = flash.Positions(half_offsets(a, n, s), whole)
+        feat = flash.Features(ids[:, r].contiguous(), ids, slopes, DROPOUT_P,
+                              (word, 0))
+        pout, plse = flash.flash_fwd_pos_plain(q[:, r], kt, vt, pos=pos,
+                                               features=feat, **mk)
+        torch.cuda.synchronize()
+        (_, worst), _ = check_fwd_rows(
+            f"usp_varlen rows {a}+{n} out, lse vs plain", out[:, r],
+            lse[:, :, r], pout, plse, torch.ones((b, n), dtype=torch.bool,
+                                                 device=q.device))
+        res[f"rows {a}+{n} out"] = worst
+        del pout, plse
+        pdq = flash.flash_bwd_dq_plain(
+            q[:, r], k, v, dout[:, r], lse[:, :, r].contiguous(),
+            delta[:, :, r].contiguous(), pos=pos, features=feat, **mk)
+        first = (ids[0, r] != ids[0, a - 1:a + n - 1]).nonzero()[:, 0]
+        res[f"rows {a}+{n} dq"] = check_out(
+            f"usp_varlen rows {a}+{n} dq vs plain", grads[0][:, r], pdq,
+            first)[1]
+        del pdq
+        torch.cuda.empty_cache()
+    for c in VARLEN_COLS:
+        cs = slice(c, c + n)
+        pos = flash.Positions(whole, half_offsets(c, n, s))
+        feat = flash.Features(ids, ids[:, cs].contiguous(), slopes,
+                              DROPOUT_P, (word, 0))
+        pdk, pdv = flash.flash_bwd_dkv_plain(
+            q, k[:, cs], v[:, cs], dout, lse, delta, pos=pos, features=feat,
+            **mk)
+        for name, got, want in (("dk", grads[1], pdk), ("dv", grads[2], pdv)):
+            res[f"cols {c}+{n} {name}"] = check_out(
+                f"usp_varlen cols {c}+{n} {name} vs plain", got[:, cs],
+                want)[1]
+        del pdk, pdv
+        torch.cuda.empty_cache()
+    return res
+
+
+def usp_varlen_phase(build, flash, dev, card):
+    """The slice's path: LongContextAttention(layout="zigzag") on a one-rank
+    NCCL mesh (make_usp_mesh()) at the 0.88B model's attention width (b=1,
+    s=32768, 16/8 heads, d=128), causal, on packed documents (DOC_LENS)
+    with the geometric ALiBi slopes and dropout 0.1 keyed by a seeded
+    torch.Generator: exactly one B3, one B2a and one B2b per forward and
+    backward, nothing else; against a direct flash_attention with the same
+    ids, slopes and key (B3 at one chunk, B2a + B2b): out within
+    ROW_REL_TOL of each row, grads within BF16_ATOL; and slices of its out,
+    lse and grads against the plain versions at the layer's own two-chunk
+    descriptor (varlen_plain_checks). The key is a CPU generator: its word
+    reaches the kernels with no device sync (ops/flash.py dropout_word).
+    The layer's fwd+bwd time beside the same layer without the features and
+    beside its three kernels' own. Returns the layer's launch counts."""
+    import torch.distributed as dist
+
+    from long_context_attention_tpu_torch.parallel import (
+        LongContextAttention, make_usp_mesh)
+
+    b, s, h, hk, d = 1, SPARSE_SEQ, MODEL["n_heads"], MODEL["n_kv_heads"], 128
+    gen = torch.Generator(device=dev).manual_seed(SEED + 10)
+    q, k, v = (torch.randn(shape, generator=gen, device=dev).bfloat16()
+               .requires_grad_()
+               for shape in ((b, s, h, d), (b, s, hk, d), (b, s, hk, d)))
+    dout = torch.randn((b, s, h, d), generator=gen, device=dev).bfloat16()
+    ids = packed_ids(s, dev, SEED + 3)
+    slopes = alibi_slopes(h, dev)
+
+    def key():  # the training step's dropout key, seeded alike each time
+        return torch.Generator().manual_seed(SEED + 11)
+
+    feats = dict(segment_ids=ids, alibi_slopes=slopes, dropout_p=DROPOUT_P)
+    mesh = make_usp_mesh()
+    try:
+        layer = LongContextAttention(mesh, layout="zigzag")
+        build.reset_launch_counts()
+        out = layer(q, k, v, causal=True, dropout_key=key(), **feats)
+        grads = torch.autograd.grad(out, (q, k, v), dout)
+        torch.cuda.synchronize()
+        counts = expect_counts(build, {
+            n: int(n in ("flash_fwd_pos", "flash_bwd_dq", "flash_bwd_dkv"))
+            for n in build.KERNELS})
+        ref = flash.flash_attention(q, k, v, causal=True, q_segment_ids=ids,
+                                    kv_segment_ids=ids, alibi_slopes=slopes,
+                                    dropout_p=DROPOUT_P, dropout_key=key())
+        want = (ref.detach(), *torch.autograd.grad(ref, (q, k, v), dout))
+        errs = {"out_row_rel": check_out("usp_varlen out vs flash_attention",
+                                         out.detach(), want[0])[1]}
+        for name, a, w in zip(("dq", "dk", "dv"), grads, want[1:]):
+            errs[name] = max_err(a, w)
+            check(f"usp_varlen {name} vs flash_attention", errs[name],
+                  BF16_ATOL)
+        del ref, want
+        torch.cuda.empty_cache()
+        # B3 at the layer's descriptor and features gives the lse the layer
+        # keeps; its out and grads against the plain versions
+        word = flash.dropout_word(key())
+        pos = flash.Positions((0, s // 2), (0, s // 2))
+        scale = d ** -0.5
+        kt, vt = k.detach().transpose(1, 2), v.detach().transpose(1, 2)
+        qd = q.detach()
+        feat = flash.Features(ids, ids, slopes, DROPOUT_P, (word, 0))
+        fw = dict(pos=pos, causal=True, scale=scale, features=feat)
+        o, l = flash.flash_fwd_pos(qd, kt, vt, **fw)
+        errs["plain_slices_row_rel"] = varlen_plain_checks(
+            flash, out.detach(), grads, l, qd, k.detach(), v.detach(), dout,
+            ids, slopes, word)
+        del out, grads
+        torch.cuda.empty_cache()
+        layer_ms = time_ms(lambda: torch.autograd.grad(
+            layer(q, k, v, causal=True, dropout_key=key(), **feats),
+            (q, k, v), dout), iters=5, warmup=1)
+        dense_layer_ms = time_ms(lambda: torch.autograd.grad(
+            layer(q, k, v, causal=True), (q, k, v), dout), iters=5,
+            warmup=1)
+        # the three kernels alone, at the layer's descriptor and features
+        delta = (dout.float() * o.float()).sum(-1).transpose(1, 2)
+        args = (qd, k.detach(), v.detach(), dout, l, delta.contiguous())
+        kern_ms = {
+            "B3": time_ms(lambda: flash.flash_fwd_pos(qd, kt, vt, **fw),
+                          iters=5),
+            "B2a": time_ms(lambda: flash.flash_bwd_dq(*args, **fw), iters=5),
+            "B2b": time_ms(lambda: flash.flash_bwd_dkv(*args, **fw),
+                           iters=5)}
+    finally:
+        dist.destroy_process_group()
+    emit({"phase": "usp_varlen", "card": card, "layer":
+          "LongContextAttention(layout='zigzag'), ring 1 x ulysses 1 (NCCL)",
+          "batch": b, "seq": s, "heads": h, "kv_heads": hk, "head_dim": d,
+          "documents": int(ids.max()), "features":
+          f"packed documents (lengths {DOC_LENS}), ALiBi geometric slopes, "
+          f"dropout {DROPOUT_P}", "launches": counts, "errors": errs,
+          "layer_fwd_bwd_ms": layer_ms,
+          "layer_without_features_fwd_bwd_ms": dense_layer_ms,
+          "kernels_ms": kern_ms, "kernels_sum_ms": sum(kern_ms.values())})
     del q, k, v, dout
     torch.cuda.empty_cache()
     return counts
@@ -3546,26 +4270,39 @@ def main():
     logs = build.build_all()
     # the sm90 kernels' dynamic shared memory (ptxas sees only static
     # memory)
-    bwd_smem = {n: build.library("flash_bwd_sm90.cu").lca_flash_bwd_smem(f)
-                for n, f in (("B2b, B9c", 0), ("B5", 1))}
-    fwd_smem = {n: build.library("flash_fwd_sm90.cu").lca_flash_fwd_smem(f)
-                for n, f in (("B1, B3, B4, B9a", 0), ("B3 int8", 1))}
-    dq_smem = build.library("flash_dq_sm90.cu").lca_flash_dq_smem()
+    bwd_lib = build.library("flash_bwd_sm90.cu")
+    bwd_smem = {n: bwd_lib.lca_flash_bwd_smem(f, ft) for n, f, ft in (
+        ("B2b, B9c", 0, 0), ("B5", 1, 0), ("B2b features", 0, 1))}
+    fwd_lib = build.library("flash_fwd_sm90.cu")
+    fwd_smem = {n: fwd_lib.lca_flash_fwd_smem(qt, ft) for n, qt, ft in (
+        ("B1, B3, B4, B9a", 0, 0), ("B3 int8", 1, 0),
+        ("B3 features", 0, 1), ("B3 int8 features", 1, 1))}
+    dq_lib = build.library("flash_dq_sm90.cu")
+    dq_smem = {n: dq_lib.lca_flash_dq_smem(ft)
+               for n, ft in (("B2a, B9b", 0), ("B2a features", 1))}
     sage_smem = build.library("sage_fwd_sm90.cu").lca_sage_fwd_smem()
     # the backward kernels' instantiations (B5, B2b and B9c: FUSED, SPARSE,
-    # MASK; B2a and B9b: the dq kernel's walk) and B9a's of the forward
-    new = {n: e for src in ("flash_fwd_sm90.cu", "flash_dq_sm90.cu",
-                            "flash_bwd_sm90.cu")
-           for n, e in ptxas_entries(logs.get(src, "")).items()
-           if "kernelILb0ELi0ELb0ELb1E" in n or "flash_dq_sm90_kernel" in n
-           or "flash_bwd_sm90_kernel" in n}
+    # MASK, MULTI, FEAT; B2a and B9b: the dq kernel's walk) and B9a's of
+    # the forward; and, apart, the featured instantiations of B3
+    # (TRI, FORM, QUANT, SPARSE, MULTI, FEAT = true), B2a (DenseRows<CAP,
+    # MULTI, FEAT = true>) and B2b
+    entries = {n: e for src in ("flash_fwd_sm90.cu", "flash_dq_sm90.cu",
+                                "flash_bwd_sm90.cu")
+               for n, e in ptxas_entries(logs.get(src, "")).items()}
+    featured = re.compile(r"flash_fwd_sm90_kernelILb0ELi\dELb[01]ELb0ELb[01]"
+                          r"ELb1E|DenseRowsILb[01]ELb[01]ELb1E|"
+                          r"flash_bwd_sm90_kernelILb0ELb0ELi\dELb[01]ELb1E")
+    new = {n: e for n, e in entries.items()
+           if ("kernelILb0ELi0ELb0ELb1E" in n or "flash_dq_sm90_kernel" in n
+               or "flash_bwd_sm90_kernel" in n) and not featured.search(n)}
+    feat_entries = {n: e for n, e in entries.items() if featured.search(n)}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "sources": sorted(logs),
           "flash_fwd_sm90_dynamic_smem_bytes": fwd_smem,
-          "flash_dq_sm90_dynamic_smem_bytes": {"B2a, B9b": dq_smem},
+          "flash_dq_sm90_dynamic_smem_bytes": dq_smem,
           "flash_bwd_sm90_dynamic_smem_bytes": bwd_smem,
           "sage_fwd_sm90_dynamic_smem_bytes": {"B8a, B8b": sage_smem},
-          "ptxas_bwd_dq_b9a": new})
+          "ptxas_bwd_dq_b9a": new, "ptxas_features": feat_entries})
     for src, log in logs.items():
         for line in log.splitlines():
             if any(w in line for w in ("entry function", "registers",
@@ -3614,6 +4351,13 @@ def main():
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     lap("kernels")
+    # B3, B2a and B2b with the features, and the exact keep-mask probes
+    feat_rows = kernel_features(K, flash, ring, gen, dev)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    probes = feature_probes(flash, gen, dev)
+    torch.cuda.empty_cache()
+    lap("feature_kernels")
 
     # each kernel's launches on its own path: serving (B1, B3, B6, B7),
     # windowed serving (B4; B3, B6, B7 in their "windowed" entries),
@@ -3657,9 +4401,12 @@ def main():
     lap("usp_sparse")
     ring_counts, ring_sage_counts = ring_emulated_phase(build, flash, ring,
                                                         dev, smi)
+    ring_features_phase(build, flash, ring, dev, smi)
     lap("ring_emulated")
     usp_dense_phase(build, flash, dev, smi)
     lap("usp_dense")
+    varlen_counts = usp_varlen_phase(build, flash, dev, smi)
+    lap("usp_varlen")
     train_usp_phase(pkg, build, dev, smi)
     torch.cuda.empty_cache()
     lap("train_usp")
@@ -3704,6 +4451,13 @@ def main():
                         else ring_counts)[r["name"]]
             r["ring_cases"] = [dict(c, launches=launches)
                                for c in ring_rows[tag]]
+        # the feature cases: launches on the slice's path (usp_varlen's
+        # forward and backward)
+        if tag in feat_rows:
+            r["feature_cases"] = [dict(c, launches=varlen_counts[r["name"]])
+                                  for c in feat_rows[tag]]
+        if tag == "B3":
+            r["keep_probes"] = probes
         # the paged cases: one-token launches on the paged engine's 32-row
         # run; multi-token ones in the prefix engine's run (the 64-token
         # suffix chunks) and the interleaved stall run (256-token chunks)

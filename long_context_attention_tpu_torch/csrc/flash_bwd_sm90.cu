@@ -6,7 +6,8 @@
 //                          GQA group's query heads and their q tiles walked
 //                          inside the block (the TPU grid (b, h_kv, nk, g,
 //                          nq) with the group folded in, so dk and dv need
-//                          no atomics);
+//                          no atomics), with the forward's features
+//                          (segment ids, ALiBi, the counter-hash dropout);
 //   lca_flash_bwd_fused <- _bwd_fused_kernel (B5): B2b's walk, plus dq. Per
 //                          tile p and dp are computed once and feed all
 //                          three gradients; dq is added into a zeroed fp32
@@ -76,7 +77,8 @@
 // stages x (Q 16384 + dout 16384) + stages x 520 (lse, delta, B9c's step
 // positions), and for B5 2 dS^T tiles (16384 each) + the dq tile 32768; 3
 // stages for B5 (230936), 4 for B2b and B9c (198688), + 256 of barriers and
-// 1024 of alignment slack.
+// 1024 of alignment slack; B2b with the features 512 more per stage (a
+// step's q segment ids and hash parts beside lse and delta).
 //
 // B9c's walk. The host lists the items once per mask plan, longest walk
 // first (ops/sparse.py SparsePlan.dkv_items), and deals them to the
@@ -114,6 +116,17 @@
 //   dv += bf16(p) . dout; dk += bf16(ds) . q; dq += bf16(ds) . k.
 //   B9c (_sparse_dkv_kernel) scales after the cast: ds = p * (dp - delta),
 //   dk = scale * sum bf16(ds) . q.
+//   Features (B2b, template parameter FEAT; each a uniform run-time flag,
+//   sm90.cuh Feat): ALiBi adds -slope[q head] * |q pos - kv pos| to s
+//   before exp(s - lse) (bias * log2e in exp2 units); segments drop a pair
+//   of unequal ids (every step masked); dropout (JAX's _dkv_kernel): dv
+//   takes bf16(p / (1 - p)) where the forward kept the pair and 0 where it
+//   dropped it, dp becomes dp / (1 - p) or 0 before ds = p (dp - delta).
+//   The accumulators are transposed (rows kv, columns q), but the hash
+//   keeps JAX's roles: its row is the q position, its column the kv
+//   position. The producer's lanes write each step's q ids and the hash's
+//   q-row parts beside lse and delta; each consumer thread holds its two
+//   kv rows' ids and positions, and a step's keep bits in one register.
 //
 // The tensor maps are encoded on the host per call (sm90.cuh) and passed as
 // __grid_constant__ kernel parameters.
@@ -158,20 +171,24 @@ constexpr int DQ_BYTES = 4 * DQBOX;  // the 64 x 128 fp32 dq tile
 constexpr int LD_BYTES = 2 * BQ * 4;  // a step's lse and delta
 constexpr int META_BYTES = 8;         // B9c: a step's positions (int2)
 
-template <bool FUSED>
+// FEAT: a step's q segment ids and the dropout hash's q-row parts follow
+// its lse and delta
+template <bool FUSED, bool FEAT = false>
 struct Smem {
   static constexpr int STAGES = FUSED ? 3 : 4;
+  static constexpr int LD = FEAT ? 2 * LD_BYTES : LD_BYTES;
   static constexpr int OFF_K = 0;
   static constexpr int OFF_V = KV_BYTES;
   static constexpr int OFF_ST = 2 * KV_BYTES;  // stages: Q, then dout
   static constexpr int OFF_DS = OFF_ST + STAGES * 2 * QT_BYTES;
   static constexpr int OFF_DQ = OFF_DS + (FUSED ? 2 * DS_BYTES : 0);
   static constexpr int OFF_LD = OFF_DQ + (FUSED ? DQ_BYTES : 0);
-  static constexpr int OFF_META = OFF_LD + STAGES * LD_BYTES;
+  static constexpr int OFF_META = OFF_LD + STAGES * LD;
   static constexpr int OFF_BAR = OFF_META + STAGES * META_BYTES;
   static constexpr int BYTES = OFF_BAR + 256 + 1024;  // barriers, alignment
 };
-static_assert(Smem<true>::BYTES <= 232448 && Smem<false>::BYTES <= 232448,
+static_assert(Smem<true>::BYTES <= 232448 && Smem<false>::BYTES <= 232448 &&
+                  Smem<false, true>::BYTES <= 232448,
               "shared memory over the 227 KB a block may use");
 
 // mbarrier slots: K/V full and empty; each stage's full and empty; the dq
@@ -211,6 +228,7 @@ struct Params {
   const int* sched_ptr;
   const int* sched;
   int n_kv, bq, bkv, per_head;
+  Feat ft;  // B2b: segments, ALiBi, dropout (sm90.cuh)
 };
 
 // K-major operand (K, V rows; Q, dout rows): 8-row groups 1024 bytes apart;
@@ -465,17 +483,20 @@ __device__ __forceinline__ ColStep col_next(const Params& p, const Item& x,
 // ---------------------------------------------------------------------------
 
 // FUSED: B5 (dq too); SPARSE: B9c's walk; neither: B2b. MASK: kDense,
-// kBand or kCap (B2b, B5). MULTI: B2b at a multi-chunk descriptor.
-template <bool FUSED, bool SPARSE, int MASK = kDense, bool MULTI = false>
+// kBand or kCap (B2b, B5). MULTI: B2b at a multi-chunk descriptor. FEAT:
+// B2b with the features of Params.
+template <bool FUSED, bool SPARSE, int MASK = kDense, bool MULTI = false,
+          bool FEAT = false>
 __global__ void __launch_bounds__(NT, 1)
     flash_bwd_sm90_kernel(const __grid_constant__ Maps maps, const Params p) {
   static_assert(!(FUSED && SPARSE), "B9c computes no dq");
   static_assert(!SPARSE || MASK == kDense, "B9c: the masks of its entries");
+  static_assert(!FEAT || !(FUSED || SPARSE), "the features are B2b's");
   constexpr bool BAND = MASK != kDense;
   constexpr bool CAP = MASK == kCap;
   static_assert(Regs<FUSED, SPARSE>::CONSUMER == (FUSED ? 240 : 232),
                 "the consumers' register budget");
-  using L = Smem<FUSED>;
+  using L = Smem<FUSED, FEAT>;
   constexpr int STAGES = L::STAGES;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   // the 1024-byte aligned base as an offset into the shared array (an
@@ -490,10 +511,12 @@ __global__ void __launch_bounds__(NT, 1)
     return sbase + L::OFF_ST + (i % STAGES) * 2 * QT_BYTES;
   };
   auto use = [&](int i) -> int { return (i / STAGES) & 1; };
-  auto lse_delta = [&](int i) -> float* {  // lse[BQ] in exp2 units, delta[BQ]
-    return reinterpret_cast<float*>(smem + L::OFF_LD +
-                                    (i % STAGES) * LD_BYTES);
+  // lse[BQ] in exp2 units, delta[BQ]; FEAT: then the q ids[BQ] and the
+  // dropout hash's q-row parts[BQ]
+  auto lse_delta = [&](int i) -> float* {
+    return reinterpret_cast<float*>(smem + L::OFF_LD + (i % STAGES) * L::LD);
   };
+  const bool segs = FEAT && p.ft.seg;
   // the step's first q position less the item's first kv position, and B9c:
   // its entry's MASKED flag; dense: chunk-local rows (kDense adds the pair's
   // hi), and the item's first row in its kv chunk times 4 plus the chunk
@@ -579,6 +602,13 @@ __global__ void __launch_bounds__(NT, 1)
             }
           }
           float* ld = lse_delta(it);
+          uint32_t salt = 0u;  // FEAT: the step's q positions and salt
+          int qpos0 = 0;
+          if constexpr (FEAT) {
+            const int qc = w.qchunk(js);
+            qpos0 = p.dsc.qo[qc] + (q0 - qc * p.dsc.cq) * p.dsc.st;
+            if (p.ft.drop) salt = drop_salt(p.ft, x.ib, ih);
+          }
           for (int r = lane; r < BQ; r += 32) {
             const int qi = q0 + r;
             float l = __int_as_float(0x7f800000), dl = 0.f;  // +inf: p = 0
@@ -590,6 +620,14 @@ __global__ void __launch_bounds__(NT, 1)
             }
             ld[r] = l;
             ld[BQ + r] = dl;
+            if constexpr (FEAT) {
+              reinterpret_cast<int*>(ld)[2 * BQ + r] =
+                  segs && qi < p.s_q
+                      ? p.ft.qseg[(long long)x.ib * p.s_q + qi]
+                      : 0;
+              reinterpret_cast<uint32_t*>(ld)[3 * BQ + r] =
+                  p.ft.drop ? drop_row(salt, qpos0 + r * p.dsc.st) : 0u;
+            }
           }
           mbar_arrive(bar(B_FULL + s));
           if constexpr (SPARSE) c = col_next(p, x, c);
@@ -646,6 +684,23 @@ __global__ void __launch_bounds__(NT, 1)
 #pragma unroll
     for (int i = 0; i < 64; ++i) dk[i] = dv[i] = 0.f;
 
+    // FEAT: this lane's kv rows r0 and r0 + 8 of the item (global
+    // positions, kv segment ids); per step the q head's -slope, the global
+    // position of the step's first q row and the keep bits
+    int kpos[2] = {0, 0}, ksg[2] = {0, 0};
+    float nslope = 0.f;
+    int qpos0 = 0;
+    uint32_t kbits = 0u;
+    if constexpr (FEAT) {
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int r = r0 + hh * 8;
+        kpos[hh] = p.dsc.ko[w.kc] + (w.k0l + r) * p.dsc.st;
+        if (segs && x.k0 + r < p.s_kv)
+          ksg[hh] = p.ft.kvseg[x.ib * p.ft.kv_ld + x.k0 + r];
+      }
+    }
+
     // P^T of one step in place of S^T: p = exp2(s * scale * log2e - lse
     // * log2e), 0 where `masked` drops the (kv row, q row) pair: a row past
     // s_kv, or under the causal mask a kv row r of the item after q row c of
@@ -654,8 +709,13 @@ __global__ void __launch_bounds__(NT, 1)
     // leaves each kv row one interval of q columns, [lo, hi], set once per
     // step (the sink tile's walk masks most of its steps). kCap: s = cap *
     // tanh(s * scale / cap), P^T * (1 - t^2) in place and bf16(P^T) into pa
+    // (dropped under dropout). FEAT: ALiBi joins s, segments the masks, and
+    // the keep bits of the step go to kbits
     auto probs = [&](float (&sacc)[32], uint32_t (&pa)[16], const float* ld,
                      int rel, bool causal, int pr, int k0l, auto masked) {
+      const int* lsg = reinterpret_cast<const int*>(ld + 2 * BQ);
+      const uint32_t* lrh = reinterpret_cast<const uint32_t*>(ld + 3 * BQ);
+      kbits = 0u;
       int lo[2] = {0, 0}, hi[2] = {0, 0};  // less this lane's column cb
       if (BAND && decltype(masked)::value) {
 #pragma unroll
@@ -670,28 +730,56 @@ __global__ void __launch_bounds__(NT, 1)
 #pragma unroll
       for (int i8 = 0; i8 < 8; ++i8) {
         const float2 l = *reinterpret_cast<const float2*>(ld + 8 * i8 + cb);
+        int2 qsg = make_int2(0, 0);
+        if (decltype(masked)::value && segs)
+          qsg = *reinterpret_cast<const int2*>(lsg + 8 * i8 + cb);
+        uint2 rh = make_uint2(0u, 0u);
+        if (FEAT && p.ft.drop)
+          rh = *reinterpret_cast<const uint2*>(lrh + 8 * i8 + cb);
         float pv[4];
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
+          // ALiBi in exp2 units (features): q column c, kv row e >> 1
+          const float ab =
+              FEAT && p.ft.alibi
+                  ? alibi_bias(nslope, qpos0 + (8 * i8 + cb + (e & 1)) * p.dsc.st,
+                               kpos[e >> 1]) *
+                        kLog2e
+                  : 0.f;
           float pe, dt = 1.f;
           if constexpr (CAP) {
             const float tc = tanh_fast(sacc[4 * i8 + e] * p.sc);
-            pe = exp2f(tc * p.cap * kLog2e - ((e & 1) ? l.y : l.x));
+            if constexpr (FEAT)
+              pe = exp2f(tc * p.cap * kLog2e + ab - ((e & 1) ? l.y : l.x));
+            else
+              pe = exp2f(tc * p.cap * kLog2e - ((e & 1) ? l.y : l.x));
             dt = 1.f - tc * tc;
           } else {
-            pe = exp2f(sacc[4 * i8 + e] * p.sl2 - ((e & 1) ? l.y : l.x));
+            if constexpr (FEAT)
+              pe = exp2f(sacc[4 * i8 + e] * p.sl2 + ab -
+                         ((e & 1) ? l.y : l.x));
+            else
+              pe = exp2f(sacc[4 * i8 + e] * p.sl2 - ((e & 1) ? l.y : l.x));
           }
           if (decltype(masked)::value) {
+            const bool other =
+                segs && ((e & 1) ? qsg.y : qsg.x) != ksg[e >> 1];
             if constexpr (BAND) {
               const int cc = 8 * i8 + (e & 1);
-              if (cc < lo[e >> 1] || cc > hi[e >> 1]) pe = 0.f;
+              if (cc < lo[e >> 1] || cc > hi[e >> 1] || other) pe = 0.f;
             } else {
               const int r = r0 + (e >> 1) * 8;
               const int c = 8 * i8 + cb + (e & 1);
-              if (x.k0 + r >= p.s_kv || (causal && r > rel + c)) pe = 0.f;
+              if (x.k0 + r >= p.s_kv || (causal && r > rel + c) || other)
+                pe = 0.f;
             }
           }
-          pv[e] = pe;
+          // the hash's row is the q position, its column the kv position
+          const bool keep = !(FEAT && p.ft.drop) ||
+                            drop_keep(p.ft, (e & 1) ? rh.y : rh.x,
+                                      kpos[e >> 1]);
+          if (FEAT && keep) kbits |= 1u << (4 * i8 + e);
+          pv[e] = !(FEAT && p.ft.drop) ? pe : keep ? pe * p.ft.inv : 0.f;
           sacc[4 * i8 + e] = CAP ? pe * dt : pe;
         }
         if constexpr (CAP) {
@@ -717,6 +805,11 @@ __global__ void __launch_bounds__(NT, 1)
         // the causal mask drops r > rel + c), and the chunk pair
         int rel, pr = 0, k0l = 0;
         bool causal;
+        if constexpr (FEAT) {  // the step's q positions and head
+          const int qc = w.qchunk(js);
+          qpos0 = p.dsc.qo[qc] + (w.q0(p, js) - qc * p.dsc.cq) * p.dsc.st;
+          if (p.ft.alibi) nslope = -p.ft.slopes[w.head(x, p, js)];
+        }
         if constexpr (SPARSE || MULTI) {
           const int2 m = *meta(it);
           rel = m.x;
@@ -760,9 +853,10 @@ __global__ void __launch_bounds__(NT, 1)
           masked = k0 + 63 >= p.s_kv ||
                    cw * 64 + 63 - rel > p.dsc.hi[pr] ||
                    (cw * 64 - rel - 63 < p.dsc.lo[pr] &&
-                    k0l + cw * 64 + 63 >= p.dsc.sk[pr]);
+                    k0l + cw * 64 + 63 >= p.dsc.sk[pr]) ||
+                   segs;
         else
-          masked = (causal && cw * 64 + 63 > rel) || k0 + 63 >= p.s_kv;
+          masked = (causal && cw * 64 + 63 > rel) || k0 + 63 >= p.s_kv || segs;
         wgmma_wait<1>();
         reg_fence(sacc);
         if (masked)
@@ -783,13 +877,27 @@ __global__ void __launch_bounds__(NT, 1)
               *reinterpret_cast<const float2*>(ld + BQ + 8 * i8 + cb);
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
-            dpacc[4 * i8 + e] = sacc[4 * i8 + e] *
-                                (dpacc[4 * i8 + e] - ((e & 1) ? dl.y : dl.x));
+            float dp = dpacc[4 * i8 + e];
+            if (FEAT && p.ft.drop)  // the forward's dropout of p
+              dp = (kbits >> (4 * i8 + e)) & 1u ? dp * p.ft.inv : 0.f;
+            dpacc[4 * i8 + e] =
+                sacc[4 * i8 + e] * (dp - ((e & 1) ? dl.y : dl.x));
             if constexpr (!SPARSE) dpacc[4 * i8 + e] *= p.scale;
           }
           if constexpr (!CAP) {
-            pa[2 * i8] = pack_bf16(sacc[4 * i8], sacc[4 * i8 + 1]);
-            pa[2 * i8 + 1] = pack_bf16(sacc[4 * i8 + 2], sacc[4 * i8 + 3]);
+            if (FEAT && p.ft.drop) {  // dV takes the dropped p
+              float pd[4];
+#pragma unroll
+              for (int e = 0; e < 4; ++e)
+                pd[e] = (kbits >> (4 * i8 + e)) & 1u
+                            ? sacc[4 * i8 + e] * p.ft.inv
+                            : 0.f;
+              pa[2 * i8] = pack_bf16(pd[0], pd[1]);
+              pa[2 * i8 + 1] = pack_bf16(pd[2], pd[3]);
+            } else {
+              pa[2 * i8] = pack_bf16(sacc[4 * i8], sacc[4 * i8 + 1]);
+              pa[2 * i8 + 1] = pack_bf16(sacc[4 * i8 + 2], sacc[4 * i8 + 3]);
+            }
           }
           da[2 * i8] = pack_bf16(dpacc[4 * i8], dpacc[4 * i8 + 1]);
           da[2 * i8 + 1] = pack_bf16(dpacc[4 * i8 + 2], dpacc[4 * i8 + 3]);
@@ -931,7 +1039,8 @@ Params base_params(const float* lse, const float* delta, float* dk, float* dv,
 
 // n_blocks: B9c's persistent blocks (its schedule's); dense kernels take
 // one per SM, at most one per item.
-template <bool FUSED, bool SPARSE, int MASK = kDense, bool MULTI = false>
+template <bool FUSED, bool SPARSE, int MASK = kDense, bool MULTI = false,
+          bool FEAT = false>
 int launch(const void* q, const void* k, const void* v, const void* dout,
            float* dq, const long long* dims, const Params& p, int n_blocks,
            cudaStream_t stream) {
@@ -963,8 +1072,8 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
     if (!ok) return (int)cudaErrorInvalidValue;
   }
 
-  auto kern = flash_bwd_sm90_kernel<FUSED, SPARSE, MASK, MULTI>;
-  const int smem = Smem<FUSED>::BYTES;
+  auto kern = flash_bwd_sm90_kernel<FUSED, SPARSE, MASK, MULTI, FEAT>;
+  const int smem = Smem<FUSED, FEAT>::BYTES;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
@@ -974,44 +1083,61 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
   return (int)cudaGetLastError();
 }
 
+// B2b's instantiation for the masks (kDense for causal or none, kBand for a
+// window or sinks, kCap with a softcap), at a one- or multi-chunk
+// descriptor, with or without the features
+template <bool MULTI, bool FEAT>
+int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
+               const long long* dims, const Params& p, bool band,
+               cudaStream_t stream) {
+  if (p.cap > 0.f)
+    return launch<false, false, kCap, MULTI, FEAT>(q, k, v, dout, nullptr,
+                                                   dims, p, 0, stream);
+  if (band)
+    return launch<false, false, kBand, MULTI, FEAT>(q, k, v, dout, nullptr,
+                                                    dims, p, 0, stream);
+  return launch<false, false, kDense, MULTI, FEAT>(q, k, v, dout, nullptr,
+                                                   dims, p, 0, stream);
+}
+
 // B2b and B5: dims as base_params's, then q_start, causal, left, right,
 // sink (the forward's masks: right 0 when causal, sink 0 without a left
 // window), then the descriptor (sm90.cuh Desc) from index 28, which holds
-// the masks in local units. The instantiation follows the masks: kDense for
-// causal or none, kBand for a window (or sinks), kCap with a softcap.
-// `order`: a multi-chunk descriptor's kv tiles, longest walk first.
+// the masks in local units, and B2b's features (sm90.cuh Feat) after it.
+// The instantiation follows the masks: kDense for causal or none, kBand for
+// a window (or sinks), kCap with a softcap. `order`: a multi-chunk
+// descriptor's kv tiles, longest walk first.
 template <bool FUSED>
 int launch_dense(const void* q, const void* k, const void* v,
                  const void* dout, const float* lse, const float* delta,
                  float* dq, float* dk, float* dv, const long long* dims,
-                 float scale, float cap, const int* order,
+                 float scale, float cap, const int* order, const Feat& ft,
                  cudaStream_t stream) {
   Params p = base_params(lse, delta, dk, dv, dims, scale);
   p.causal = (int)dims[24];
   const int left = (int)dims[25];
   const int right = p.causal ? 0 : (int)dims[26];
   p.dsc = desc_from(dims, 28);
+  p.ft = ft;
   p.order = order;
   p.cap = cap;
   p.sc = cap > 0.f ? scale / cap : 0.f;
   p.nk = (p.s_kv + BKV - 1) / BKV;
   p.n_items = p.nk * p.h_kv * p.b;
+  const bool feat = ft.seg || ft.alibi || ft.drop;
   if (cap < 0.f || !desc_ok(p.dsc, p.s_q, p.s_kv, BKV) ||
       (p.dsc.nqc * p.dsc.nkc > 1) != (order != nullptr) ||
-      (FUSED && order != nullptr))
+      (FUSED && (order != nullptr || feat)) || !feat_ok(ft))
     return (int)cudaErrorInvalidValue;
   const bool band = left >= 0 || (!p.causal && right >= 0);
   if constexpr (!FUSED) {
-    if (order != nullptr) {  // the ring's multi-chunk steps
-      if (cap > 0.f)
-        return launch<false, false, kCap, true>(q, k, v, dout, dq, dims, p,
-                                                0, stream);
-      if (band)
-        return launch<false, false, kBand, true>(q, k, v, dout, dq, dims,
-                                                 p, 0, stream);
-      return launch<false, false, kDense, true>(q, k, v, dout, dq, dims, p,
-                                                0, stream);
-    }
+    if (order != nullptr)  // the ring's multi-chunk steps
+      return feat ? launch_dkv<true, true>(q, k, v, dout, dims, p, band,
+                                           stream)
+                  : launch_dkv<true, false>(q, k, v, dout, dims, p, band,
+                                            stream);
+    if (feat)
+      return launch_dkv<false, true>(q, k, v, dout, dims, p, band, stream);
   }
   if (cap > 0.f)
     return launch<FUSED, false, kCap>(q, k, v, dout, dq, dims, p, 0, stream);
@@ -1023,18 +1149,21 @@ int launch_dense(const void* q, const void* k, const void* v,
 }  // namespace
 
 // Kernel B2b: dk, dv; `order`: the kv tiles of a multi-chunk descriptor,
-// longest walk first (null for one chunk a side).
-extern "C" int lca_flash_bwd_dkv(LCA_BWD_ARGS, const int* order) {
-  return launch_dense<false>(q, k, v, dout, lse, delta, dq, dk, dv, dims,
-                             scale, softcap, order,
-                             static_cast<cudaStream_t>(stream));
+// longest walk first (null for one chunk a side); the features' operands
+// last.
+extern "C" int lca_flash_bwd_dkv(LCA_BWD_ARGS, const int* order,
+                                 LCA_FEAT_ARGS) {
+  return launch_dense<false>(
+      q, k, v, dout, lse, delta, dq, dk, dv, dims, scale, softcap, order,
+      feat_from(dims, 28 + kDescLen, qseg, kvseg, slopes, drop_inv),
+      static_cast<cudaStream_t>(stream));
 }
 
 // Kernel B5: self-attention (s_q == s_kv) dq (added into a zeroed buffer),
 // dk, dv.
 extern "C" int lca_flash_bwd_fused(LCA_BWD_ARGS) {
   return launch_dense<true>(q, k, v, dout, lse, delta, dq, dk, dv, dims,
-                            scale, softcap, nullptr,
+                            scale, softcap, nullptr, Feat{},
                             static_cast<cudaStream_t>(stream));
 }
 
@@ -1073,9 +1202,11 @@ extern "C" int lca_sparse_bwd_dkv(const void* q, const void* k, const void* v,
                              static_cast<cudaStream_t>(stream));
 }
 
-// The dynamic shared memory a block of B5 (fused != 0) or B2b and B9c takes.
-extern "C" int lca_flash_bwd_smem(int fused) {
-  return fused ? Smem<true>::BYTES : Smem<false>::BYTES;
+// The dynamic shared memory a block of B5 (fused != 0) or B2b and B9c
+// takes; feat != 0: B2b's features.
+extern "C" int lca_flash_bwd_smem(int fused, int feat) {
+  if (fused) return Smem<true>::BYTES;
+  return feat ? Smem<false, true>::BYTES : Smem<false>::BYTES;
 }
 
 extern "C" const char* lca_error_string(int err) {

@@ -5,9 +5,10 @@
 // Replaces the TPU kernels of long_context_attention_tpu/ops/flash.py:
 //   lca_flash_bwd_dq  <- _dq_kernel (B2a): dq of q rows at positions q_start
 //                        + i against kv columns at j, with the forward's
-//                        masks (causal, sliding window, StreamingLLM sinks)
-//                        and softcap, each row written once (no atomics:
-//                        deterministic, as JAX's);
+//                        masks (causal, sliding window, StreamingLLM sinks),
+//                        softcap and features (segment ids, ALiBi, the
+//                        counter-hash dropout), each row written once (no
+//                        atomics: deterministic, as JAX's);
 // and of long_context_attention_tpu/ops/sparse.py:
 //   lca_sparse_bwd_dq <- _sparse_dq_kernel (B9b): dq of a block-sparse
 //                        mask's rows over their live kv tiles, each row
@@ -74,7 +75,9 @@
 //
 // Shared memory (bytes; the 227 KB a block may use): Q 32768 + dout 32768 +
 // 3 K stages x 32768 + 2 V stages x 32768 = 229376, + 64 of step meta, 256 of
-// barriers and 1024 of alignment slack (230720).
+// barriers and 1024 of alignment slack (230720); with the features each K
+// stage's 128 kv segment ids (512) after the barriers, 128-byte aligned
+// (232320).
 //
 // Numerics follow the TPU kernels (_dq_kernel, _sparse_dq_kernel,
 // _recompute_p, _ds_to_dqk):
@@ -88,6 +91,15 @@
 //   * scale (p * (1 - t^2) kept in place of p), dq = sum bf16(ds) . k;
 //   B9b: ds = p * (dp - delta), dq = scale * sum bf16(ds) . k (the scale
 //   after the cast, as JAX). The order is a property of the walk.
+//   Features (B2a, the walk's kFeat; each a uniform run-time flag, sm90.cuh
+//   Feat): ALiBi adds -slope[head] * |row - col| (global positions) to s
+//   before exp(s - lse), as bias * log2e in this kernel's exp2 units;
+//   segments drop a pair of unequal ids (every step masked); dropout
+//   replaces dp by dp / (1 - p) where the forward kept the pair and by 0
+//   where it dropped it, before ds = p (dp - delta) (JAX's _dq_kernel). The
+//   keep bits of a step are hashed beside p (the row part once per item)
+//   and held in two registers until ds. The kv ids of a step come by TMA
+//   beside its K, on K's full barrier.
 //
 // The tensor maps are encoded on the host per call (sm90.cuh) and passed as
 // __grid_constant__ kernel parameters.
@@ -121,7 +133,15 @@ constexpr int OFF_V = OFF_K + K_STAGES * TILE;
 constexpr int OFF_META = OFF_V + V_STAGES * TILE;  // an int2 per K stage
 constexpr int OFF_BAR = OFF_META + 64;
 constexpr int SMEM_BYTES = OFF_BAR + 256 + 1024;  // barriers, alignment
-static_assert(SMEM_BYTES <= 232448,
+// the features: each K stage's kv segment ids after the barriers (a TMA
+// destination: 128-byte aligned)
+constexpr int SEG_BYTES = BKV * 4;
+constexpr int OFF_SEG = (OFF_BAR + 256 + 127) / 128 * 128;
+template <bool FEAT>
+constexpr int smem_bytes() {
+  return FEAT ? OFF_SEG + K_STAGES * SEG_BYTES + 1024 : SMEM_BYTES;
+}
+static_assert(smem_bytes<true>() <= 232448,
               "shared memory over the 227 KB a block may use");
 
 // mbarrier slots: Q and dout full and empty; each K and V stage's full and
@@ -131,6 +151,7 @@ constexpr int B_QFULL = 0, B_QEMPTY = 1, B_KFULL = 2, B_KEMPTY = 5,
 
 struct Maps {  // TMA descriptors, in the kernel's parameter space
   CUtensorMap q, dout, k, v;
+  CUtensorMap kseg;  // the features' kv segment ids (b, kv_ld)
 };
 
 struct Params {
@@ -156,6 +177,7 @@ struct Params {
   const int* sched_ptr;
   const int* sched;
   int n_q, bq, bkv, per_head;
+  Feat ft;  // B2a: segments, ALiBi, dropout (sm90.cuh)
 };
 
 // K-major operand (Q, dout; K, V as the B of S and dP): 8-row groups 1024
@@ -197,7 +219,8 @@ __device__ __forceinline__ void wgmma_ss_first(float (&d)[64], uint64_t da,
 
 // A walk gives the kernel: kListed (the host's list of items per block, or
 // the snake over n_items), kBand (B2a's masks and the scale before the
-// cast), kCap (the softcap), an item, and the producer's steps: each step's
+// cast), kCap (the softcap), kFeat (B2a's features), an item, and the
+// producer's steps: each step's
 // first kv row, and the meta it hands the consumers beside K (B9b's
 // RowWalk::meta; B2a's the item's first q row less the step's first kv
 // column, both chunk-local, and that column times 4 plus the chunk pair),
@@ -206,7 +229,7 @@ __device__ __forceinline__ void wgmma_ss_first(float (&d)[64], uint64_t da,
 // B9b: the host's row items, listed per block, and each row's CSR steps
 struct SparseRows {
   static constexpr bool kListed = true, kBand = false, kCap = false;
-  static constexpr bool kMulti = false;
+  static constexpr bool kMulti = false, kFeat = false;
   struct NoWalk {};
   __device__ static NoWalk consumer_walk(const Params&, const RowItem&) {
     return {};
@@ -229,11 +252,11 @@ struct SparseRows {
 
 // B2a: the forward's items (q tiles from the last to the first, heads and
 // batch rows inside) and each q tile's kv walk; MULTI: a descriptor of two
-// chunks on a side (the ring's steps)
-template <bool CAP, bool MULTI>
+// chunks on a side (the ring's steps); FEAT: the features of Params
+template <bool CAP, bool MULTI, bool FEAT = false>
 struct DenseRows {
   static constexpr bool kListed = false, kBand = true, kCap = CAP;
-  static constexpr bool kMulti = MULTI;
+  static constexpr bool kMulti = MULTI, kFeat = FEAT;
   // the walk the consumers keep: one chunk a side (else the steps' meta)
   __device__ static KvWalk<BKV, MULTI> consumer_walk(const Params& p,
                                                      const RowItem& x) {
@@ -301,6 +324,11 @@ __global__ void __launch_bounds__(NT, 1)
   auto meta = [&](int i) -> int2* {
     return reinterpret_cast<int2*>(smem + OFF_META + (i % K_STAGES) * 8);
   };
+  // the features: the kv segment ids of the i-th step, beside its K
+  auto seg_slot = [&](int i) -> int* {
+    return reinterpret_cast<int*>(smem + OFF_SEG + (i % K_STAGES) * SEG_BYTES);
+  };
+  const bool segs = Walk::kFeat && p.ft.seg;
 
   if (threadIdx.x == 0) {
     mbar_init(bar(B_QFULL), 1);
@@ -338,10 +366,13 @@ __global__ void __launch_bounds__(NT, 1)
         mbar_wait(bar(B_KEMPTY + ks), k_use(it) ^ 1);
         if constexpr (!Walk::kBand || Walk::kMulti)
           *meta(it) = c.meta(p, x);  // released by K's full barrier
-        mbar_expect_tx(bar(B_KFULL + ks), TILE);
+        mbar_expect_tx(bar(B_KFULL + ks), TILE + (segs ? SEG_BYTES : 0));
         for (int hb = 0; hb < 2; ++hb)
           tma_load_4d(k_stage(it) + hb * BOX, &maps.k, bar(B_KFULL + ks),
                       64 * hb, kv0, ihk, x.ib);
+        if (segs)  // the step's kv ids, on K's barrier
+          tma_load_2d(smem_u32(seg_slot(it)), &maps.kseg, bar(B_KFULL + ks),
+                      kv0, x.ib);
         if (js == 0) {  // the item's Q and dout, once its first K is in flight
           mbar_wait(bar(B_QEMPTY), (qn & 1) ^ 1);
           mbar_expect_tx(bar(B_QFULL), 2 * TILE);
@@ -437,6 +468,24 @@ __global__ void __launch_bounds__(NT, 1)
                        : raw * kLog2e;
         dl[hh] = qi < p.s_q ? p.delta[at] : 0.f;
       }
+      // the features: the rows' global positions, q segment ids and the
+      // dropout hash's row part; the head's -slope; a step's keep bits
+      int rpos[2] = {0, 0}, qsg[2] = {0, 0};
+      uint32_t rh[2] = {0u, 0u}, kb[2] = {0u, 0u};
+      float nslope = 0.f;
+      if constexpr (Walk::kFeat) {
+        const int qc = Walk::kMulti ? x.q0 / p.dsc.cq : 0;
+        const uint32_t salt = p.ft.drop ? drop_salt(p.ft, x.ib, x.ih) : 0u;
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int qi = r0 + warp * 16 + g + hh * 8;
+          rpos[hh] = p.dsc.qo[qc] + (qi - qc * p.dsc.cq) * p.dsc.st;
+          if (p.ft.seg && qi < p.s_q)
+            qsg[hh] = p.ft.qseg[(long long)x.ib * p.s_q + qi];
+          if (p.ft.drop) rh[hh] = drop_row(salt, rpos[hh]);
+        }
+        if (p.ft.alibi) nslope = -p.ft.slopes[x.ih];
+      }
 
       // the i-th step's descriptor from its meta, read
       // once its K is full: B9b's; B2a's (item's first q row less the
@@ -461,56 +510,81 @@ __global__ void __launch_bounds__(NT, 1)
       // first column `row`, a column c with c - row > hi (the causal or
       // right window), or c - row < lo (the left window) unless a sink
       // (Desc); kCap: s = cap * tanh(s * scale / cap), and p * (1 - t^2)
-      // in place
-      auto probs = [&](float (&sacc)[64], int4 m, auto masked) {
+      // in place. The features (kFeat): ALiBi joins s, segments the masks,
+      // and the dropout's keep bits of the step go to kb
+      auto probs = [&](float (&sacc)[64], int4 m, const int* sseg,
+                       auto masked) {
         const int rel = m.x + cw * 64 + warp * 16 + g;
         const int cols = Walk::kBand ? min(BKV, p.dsc.ckv - m.y) : m.y & 0xffff;
         const bool causal = (m.y >> 16) != 0;
         const int hi = p.dsc.hi[m.z], lo = p.dsc.lo[m.z], sk = p.dsc.sk[m.z];
+        // the global position of the step's first column (features)
+        const int kpos = Walk::kFeat ? p.dsc.ko[m.z & 1] + m.y * p.dsc.st : 0;
+        kb[0] = kb[1] = 0u;
 #pragma unroll
         for (int i8 = 0; i8 < 16; ++i8) {
+          int2 ksg = make_int2(0, 0);
+          if (decltype(masked)::value && segs)
+            ksg = *reinterpret_cast<const int2*>(sseg + 8 * i8 + cb);
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
+            const int col = kpos + (8 * i8 + cb + (e & 1)) * p.dsc.st;
+            // ALiBi in exp2 units (features)
+            const float ab =
+                Walk::kFeat && p.ft.alibi
+                    ? alibi_bias(nslope, rpos[e >> 1], col) * kLog2e
+                    : 0.f;
             float pe, dt = 1.f;
             if constexpr (Walk::kCap) {
               const float tc = tanh_fast(sacc[4 * i8 + e] * p.sc);
-              pe = exp2f(tc * p.cap * kLog2e - lse2[e >> 1]);
+              if constexpr (Walk::kFeat)
+                pe = exp2f(tc * p.cap * kLog2e + ab - lse2[e >> 1]);
+              else
+                pe = exp2f(tc * p.cap * kLog2e - lse2[e >> 1]);
               dt = 1.f - tc * tc;
             } else {
-              pe = exp2f(sacc[4 * i8 + e] * p.sl2 - lse2[e >> 1]);
+              if constexpr (Walk::kFeat)
+                pe = exp2f(sacc[4 * i8 + e] * p.sl2 + ab - lse2[e >> 1]);
+              else
+                pe = exp2f(sacc[4 * i8 + e] * p.sl2 - lse2[e >> 1]);
             }
             if (decltype(masked)::value) {
               const int c = 8 * i8 + cb + (e & 1);
               const int row = rel + (e >> 1) * 8;
               if constexpr (Walk::kBand) {
                 if (c >= cols || c - row > hi ||
-                    (c - row < lo && m.y + c >= sk))
+                    (c - row < lo && m.y + c >= sk) ||
+                    (segs && ((e & 1) ? ksg.y : ksg.x) != qsg[e >> 1]))
                   pe = 0.f;
               } else {
                 if (c >= cols || (causal && c > row)) pe = 0.f;
               }
             }
+            if (Walk::kFeat && p.ft.drop && drop_keep(p.ft, rh[e >> 1], col))
+              kb[i8 >> 3] |= 1u << ((4 * i8 + e) & 31);
             sacc[4 * i8 + e] = Walk::kCap ? pe * dt : pe;
           }
         }
       };
       // only a step that some pair of this warpgroup's drops is masked (a
-      // wholly-sink step is interior on the left)
-      auto probs_of = [&](float (&sacc)[64], int4 m) {
+      // wholly-sink step is interior on the left; with segments, all are)
+      auto probs_of = [&](float (&sacc)[64], int4 m, int i) {
         bool masked;
         if constexpr (Walk::kBand) {
           const int rel = m.x + cw * 64;
           masked = m.y + BKV > p.dsc.ckv || BKV - 1 - rel > p.dsc.hi[m.z] ||
                    (-(rel + 63) < p.dsc.lo[m.z] &&
-                    m.y + BKV - 1 >= p.dsc.sk[m.z]);
+                    m.y + BKV - 1 >= p.dsc.sk[m.z]) ||
+                   segs;
         } else {
           masked = (m.y & 0xffff) < BKV ||
                    ((m.y >> 16) && m.x + cw * 64 < BKV - 1);
         }
+        const int* sseg = Walk::kFeat ? seg_slot(i) : nullptr;
         if (masked)
-          probs(sacc, m, Flag<true>());
+          probs(sacc, m, sseg, Flag<true>());
         else
-          probs(sacc, m, Flag<false>());
+          probs(sacc, m, sseg, Flag<false>());
       };
       // dS = P (dP - delta) to bf16 as the A operand (B2a: times the scale
       // before the cast): accumulator (row, col pair) of 8-column group i8
@@ -522,7 +596,11 @@ __global__ void __launch_bounds__(NT, 1)
           float d4[4];
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
-            d4[e] = sacc[4 * i8 + e] * (dpacc[4 * i8 + e] - dl[e >> 1]);
+            float dp = dpacc[4 * i8 + e];
+            if (Walk::kFeat && p.ft.drop)  // the forward's dropout of p
+              dp = (kb[i8 >> 3] >> ((4 * i8 + e) & 31)) & 1u ? dp * p.ft.inv
+                                                            : 0.f;
+            d4[e] = sacc[4 * i8 + e] * (dp - dl[e >> 1]);
             if constexpr (Walk::kBand) d4[e] *= p.scale;
           }
           da[2 * i8] = pack_bf16(d4[0], d4[1]);
@@ -543,7 +621,7 @@ __global__ void __launch_bounds__(NT, 1)
         issue_ss(dpacc, do_rows, v_stage(it));
         wgmma_wait<1>();
         reg_fence(sacc);
-        probs_of(sacc, m);
+        probs_of(sacc, m, it);
         wgmma_wait<0>();
         reg_fence(dpacc);
         release(B_VEMPTY + it % V_STAGES);
@@ -571,7 +649,7 @@ __global__ void __launch_bounds__(NT, 1)
         issue_ss(dpacc, do_rows, v_stage(it));
         wgmma_wait<1>();
         reg_fence(sacc);
-        probs_of(sacc, m);
+        probs_of(sacc, m, it);
         wgmma_wait<0>();
         reg_fence(dpacc);
         release(B_VEMPTY + it % V_STAGES);
@@ -652,13 +730,36 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
         encode(&maps.k, k, bf16, 2, 4, kv_dims, k_str, box, sw) &&
         encode(&maps.v, v, bf16, 2, 4, kv_dims, v_str, box, sw)))
     return (int)cudaErrorInvalidValue;
+  maps.kseg = maps.q;  // unused without segments
+  if (Walk::kFeat && p.ft.seg) {
+    const long long sg_dims[2] = {p.s_kv, p.b};
+    const long long sg_str[1] = {p.ft.kv_ld};
+    const cuuint32_t sg_box[2] = {BKV, 1};
+    if (!encode(&maps.kseg, p.ft.kvseg, CU_TENSOR_MAP_DATA_TYPE_INT32, 4, 2,
+                sg_dims, sg_str, sg_box, CU_TENSOR_MAP_SWIZZLE_NONE))
+      return (int)cudaErrorInvalidValue;
+  }
 
   auto kern = flash_dq_sm90_kernel<Walk>;
+  const int smem = smem_bytes<Walk::kFeat>();
   cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
-  kern<<<n_blocks, NT, SMEM_BYTES, stream>>>(maps, p);
+  kern<<<n_blocks, NT, smem, stream>>>(maps, p);
   return (int)cudaGetLastError();
+}
+
+// B2a's walk for the descriptor (MULTI: two chunks on a side), the softcap
+// and the features
+template <bool MULTI, bool FEAT>
+int launch_dense(const void* q, const void* k, const void* v,
+                 const void* dout, const long long* dims, const Params& p,
+                 int n_blocks, cudaStream_t st) {
+  if (p.cap > 0.f)
+    return launch<DenseRows<true, MULTI, FEAT>>(q, k, v, dout, dims, p,
+                                                n_blocks, st);
+  return launch<DenseRows<false, MULTI, FEAT>>(q, k, v, dout, dims, p,
+                                               n_blocks, st);
 }
 
 }  // namespace
@@ -667,34 +768,34 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
 // positions of a descriptor, written once; dk and dv unused. dims: as
 // base_params's, then q_start, causal, left, right, sink (the forward's
 // masks, which the descriptor holds in local units), then the descriptor
-// (sm90.cuh Desc) from index 28.
-extern "C" int lca_flash_bwd_dq(LCA_BWD_ARGS) {
+// (sm90.cuh Desc) from index 28 and the features (sm90.cuh Feat) after it,
+// whose operands follow the stream.
+extern "C" int lca_flash_bwd_dq(LCA_BWD_ARGS, LCA_FEAT_ARGS) {
   (void)dk;
   (void)dv;
   Params p = base_params(lse, delta, dq, dims, scale);
   p.dsc = desc_from(dims, 28);
+  p.ft = feat_from(dims, 28 + kDescLen, qseg, kvseg, slopes, drop_inv);
   p.cap = softcap;
   p.sc = softcap > 0.f ? scale / softcap : 0.f;
   p.nq = (p.s_q + BQ - 1) / BQ;
   if (p.h_kv <= 0 || p.h % p.h_kv || softcap < 0.f ||
-      !desc_ok(p.dsc, p.s_q, p.s_kv, BKV))
+      !desc_ok(p.dsc, p.s_q, p.s_kv, BKV) || !feat_ok(p.ft))
     return (int)cudaErrorInvalidValue;
   p.n_items = p.nq * p.h * p.b;
   if (p.n_items == 0) return (int)cudaSuccess;
   const int n_blocks = p.n_items < num_sms() ? p.n_items : num_sms();
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (p.dsc.nqc * p.dsc.nkc > 1) {  // the ring's multi-chunk steps
-    if (softcap > 0.f)
-      return launch<DenseRows<true, true>>(q, k, v, dout, dims, p, n_blocks,
-                                           st);
-    return launch<DenseRows<false, true>>(q, k, v, dout, dims, p, n_blocks,
-                                          st);
-  }
-  if (softcap > 0.f)
-    return launch<DenseRows<true, false>>(q, k, v, dout, dims, p, n_blocks,
-                                          st);
-  return launch<DenseRows<false, false>>(q, k, v, dout, dims, p, n_blocks,
-                                         st);
+  const bool multi = p.dsc.nqc * p.dsc.nkc > 1;  // the ring's steps
+  if (p.ft.seg || p.ft.alibi || p.ft.drop)
+    return multi ? launch_dense<true, true>(q, k, v, dout, dims, p, n_blocks,
+                                            st)
+                 : launch_dense<false, true>(q, k, v, dout, dims, p,
+                                             n_blocks, st);
+  return multi ? launch_dense<true, false>(q, k, v, dout, dims, p, n_blocks,
+                                           st)
+               : launch_dense<false, false>(q, k, v, dout, dims, p, n_blocks,
+                                            st);
 }
 
 // Kernel B9b: dq (b, s_q, h, d) fp32 of a block-sparse mask into `out`, over
@@ -734,8 +835,10 @@ extern "C" int lca_sparse_bwd_dq(const void* q, const void* k, const void* v,
                             static_cast<cudaStream_t>(stream));
 }
 
-// The dynamic shared memory a block takes.
-extern "C" int lca_flash_dq_smem() { return SMEM_BYTES; }
+// The dynamic shared memory a block takes (feat != 0: B2a's features).
+extern "C" int lca_flash_dq_smem(int feat) {
+  return feat ? smem_bytes<true>() : smem_bytes<false>();
+}
 
 extern "C" const char* lca_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

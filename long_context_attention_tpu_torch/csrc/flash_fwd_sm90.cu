@@ -17,7 +17,10 @@
 //                                and logit softcap, bf16 or int8 K/V with
 //                                fp32 per-token scales (chunked prefill
 //                                against the quantized cache, read in place
-//                                as a strided view).
+//                                as a strided view), and the features
+//                                (_seg_mask, _alibi_bias, _dropout_keep):
+//                                segment ids, ALiBi and the counter-hash
+//                                dropout.
 // and the TPU kernel of long_context_attention_tpu/ops/sparse.py:
 //   lca_sparse_fwd            <- _sparse_fwd_kernel (B9a): out and lse of a
 //                                block-sparse mask's rows over their live kv
@@ -68,7 +71,9 @@
 //             slack (230680);
 //   int8 K/V: Q 32768 + 2 stages x (K 32768 + V 32768 + scales 1024)
 //             = 133120 + 3 raw slots x (an int8 K or V tile 16384 + a K
-//             tile's scales 1024) = 218112, + barriers and slack.
+//             tile's scales 1024) = 218112, + barriers and slack;
+//   FEAT:     each stage's 128 kv segment ids (512) after the meta,
+//             128-byte aligned (a TMA destination): 232320 with bf16 K/V.
 //
 // The kv walk is the TPU kernels' (_banded_gt) at BKV = 128: the sink tiles
 // that lie before the band, then the band; a tile outside the walk is never
@@ -112,6 +117,18 @@
 //     V's scale; p *= v_scale[col] before the bf16 PV product.
 //   masks (flash-attn semantics, global positions): drop col > row + right
 //     (right = 0 when causal) and col < row - left unless col < sink.
+//   features (B3, template parameter FEAT, each a uniform run-time flag;
+//     sm90.cuh Feat): ALiBi adds -slope[head] * |row - col| at the global
+//     positions of the descriptor after the softcap (times log2e in the
+//     fast form, whose q carries scale*log2e); segments drop a pair of
+//     unequal ids with the masks; dropout scales a kept p by 1 / (1 - p)
+//     and zeroes the others after l has summed them and before V's scale
+//     (the row part of the hash once per item, the column part per entry).
+//     With segments every tile runs the masked body (JAX skips no tile by
+//     segment). The kv ids of a tile reach shared memory beside its K:
+//     with bf16 K/V a TMA box of 128 ids on K's full barrier, with int8
+//     K/V a plain load by the K-widening warpgroup; each thread holds its
+//     two rows' q ids, positions and hash parts in registers.
 //
 // The tensor maps are encoded on the host per call (sm90.cuh) and passed
 // as __grid_constant__ kernel parameters.
@@ -134,6 +151,7 @@ struct Roles {
 constexpr float kClamp = 90.f;
 constexpr float kNegInf = -1e30f;
 constexpr float kLn2 = 0.6931471805599453f;
+constexpr float kLog2e = 1.4426950408889634f;
 
 // softmax forms (template parameter FORM)
 constexpr int kFast = 0;        // max-free clamped exp2, scale folded into q
@@ -154,9 +172,11 @@ constexpr int RAW_SLOT = RAW_BYTES + SC_BYTES;  // ... and a K tile's scales
 constexpr int RAW_K_SLOTS = 2;             // rings of raw int8 K and V
 constexpr int RAW_V_SLOTS = 1;
 constexpr int RAW_SLOTS = RAW_K_SLOTS + RAW_V_SLOTS;
+constexpr int SEG_BYTES = BKV * 4;  // a tile's kv segment ids
 // bf16 K/V: 3 operand stages that TMA fills; int8: 2 operand stages (with
-// the tile's scales) that the producers widen into, fed by the raw rings
-template <bool QUANT>
+// the tile's scales) that the producers widen into, fed by the raw rings.
+// FEAT: each stage's kv segment ids after the meta
+template <bool QUANT, bool FEAT = false>
 struct Smem {
   static constexpr int STAGES = QUANT ? 2 : 3;
   static constexpr int STAGE = 2 * KV_BYTES + (QUANT ? 1024 : 0);
@@ -165,9 +185,15 @@ struct Smem {
   static constexpr int OFF_BAR =
       OFF_RAW + (QUANT ? RAW_SLOTS * RAW_SLOT : 0);
   static constexpr int OFF_META = OFF_BAR + 256;  // B9a: each stage's int2
-  static constexpr int BYTES = OFF_META + STAGES * 8 + 1024;  // + alignment
+  // a TMA destination: 128-byte aligned
+  static constexpr int OFF_SEG = (OFF_META + 32 + 127) / 128 * 128;
+  static constexpr int BYTES =
+      (FEAT ? OFF_SEG + STAGES * SEG_BYTES : OFF_META + STAGES * 8) +
+      1024;  // + alignment
 };
-static_assert(Smem<true>::BYTES <= 232448 && Smem<false>::BYTES <= 232448,
+static_assert(Smem<true>::BYTES <= 232448 && Smem<false>::BYTES <= 232448 &&
+                  Smem<true, true>::BYTES <= 232448 &&
+                  Smem<false, true>::BYTES <= 232448,
               "shared memory over the 227 KB a block may use");
 
 // mbarrier slots: Q; the K and V halves of the operand stages, full and
@@ -183,6 +209,7 @@ constexpr int NB_PRODUCER = 1, NB_FOLD = 3;
 
 struct Maps {  // TMA descriptors, in the kernel's parameter space
   CUtensorMap q, k, v, ks, vs;
+  CUtensorMap kseg;  // FEAT with bf16 K/V: the kv segment ids (b, kv_ld)
 };
 
 struct Params {
@@ -204,6 +231,7 @@ struct Params {
   const int* sched_ptr;
   const int* sched;
   int n_q, bq, bkv, per_head;
+  Feat ft;  // FEAT: segments, ALiBi, dropout (sm90.cuh)
 };
 
 // K-major operand (Q, K): 8-row groups 1024 bytes apart; a k16 step moves
@@ -300,11 +328,12 @@ __device__ __forceinline__ int2 dense_meta(const Params& p, int q0,
 // Where a tile's scores sit for the masks: its first kv column, the
 // consumer's first and last q row and a lane's first row (chunk-local), the
 // end of the columns, and the pair's masks (Desc: a column j of row i is
-// seen when j - i <= hi, and j - i >= lo or j < sk). B9a's steps use a frame
-// of their own: columns from 0, rows from the step's relative position, hi
-// 0 (causal) or open.
+// seen when j - i <= hi, and j - i >= lo or j < sk); FEAT: the global
+// position of the first kv column. B9a's steps use a frame of their own:
+// columns from 0, rows from the step's relative position, hi 0 (causal) or
+// open.
 struct Frame {
-  int kv0, q_first, q_last, row0, col_end, hi, lo, sk;
+  int kv0, q_first, q_last, row0, col_end, hi, lo, sk, kpos;
 };
 
 // ---------------------------------------------------------------------------
@@ -314,13 +343,15 @@ struct Frame {
 // TRI: causal self-attention with compile-time masks (B1); else the masks
 // of Params (B3, and B4 at q_off 0). FORM: the softmax form; QUANT: int8
 // K/V with fp32 scales. SPARSE: B9a's walk over a block-sparse row. MULTI:
-// a descriptor of two chunks on a side (B3 on the ring's steps).
+// a descriptor of two chunks on a side (B3 on the ring's steps). FEAT: B3
+// with the features of Params (segments, ALiBi, dropout).
 template <bool TRI, int FORM, bool QUANT, bool SPARSE = false,
-          bool MULTI = false>
+          bool MULTI = false, bool FEAT = false>
 __global__ void __launch_bounds__(Roles<QUANT>::NT, 1)
     flash_fwd_sm90_kernel(const __grid_constant__ Maps maps, const Params p) {
   static_assert(!SPARSE || (!TRI && FORM == kFast && !QUANT),
                 "B9a: bf16 K/V, the fast form, the masks of its steps");
+  static_assert(!FEAT || !(TRI || SPARSE), "the features are B3's");
   constexpr int PWG = Roles<QUANT>::PWG;
   constexpr int PRODUCER_REGS = Roles<QUANT>::PRODUCER_REGS;
   // registers a thread holds at launch; the consumers take what the
@@ -332,7 +363,7 @@ __global__ void __launch_bounds__(Roles<QUANT>::NT, 1)
       8 * 8;
   constexpr bool ONLINE = FORM != kFast;
   constexpr bool EXP2 = FORM == kOnlineExp2;
-  using L = Smem<QUANT>;
+  using L = Smem<QUANT, FEAT>;
   constexpr int STAGES = L::STAGES;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   // the 1024-byte aligned base as an offset into the shared array, so the
@@ -354,6 +385,11 @@ __global__ void __launch_bounds__(Roles<QUANT>::NT, 1)
   auto meta = [&](int i) -> int2* {
     return reinterpret_cast<int2*>(smem + L::OFF_META + (i % STAGES) * 8);
   };
+  // FEAT: the kv segment ids of the i-th tile
+  auto seg_slot = [&](int i) -> int* {
+    return reinterpret_cast<int*>(smem + L::OFF_SEG + (i % STAGES) * SEG_BYTES);
+  };
+  const bool segs = FEAT && p.ft.seg;
 
   if (threadIdx.x == 0) {
     mbar_init(bar(B_QFULL), 1);
@@ -398,10 +434,13 @@ __global__ void __launch_bounds__(Roles<QUANT>::NT, 1)
             *meta(it) = rw.meta(c);
           else if constexpr (MULTI)
             *meta(it) = dense_meta(p, x.q0, w, jt);
-          mbar_expect_tx(bar(B_KFULL + s), KV_BYTES);
+          mbar_expect_tx(bar(B_KFULL + s), KV_BYTES + (segs ? SEG_BYTES : 0));
           tma_load_4d(st, &maps.k, bar(B_KFULL + s), 0, kv0, ihk, x.ib);
           tma_load_4d(st + BOX, &maps.k, bar(B_KFULL + s), 64, kv0, ihk,
                       x.ib);
+          if (segs)  // the tile's kv ids, on K's barrier
+            tma_load_2d(smem_u32(seg_slot(it)), &maps.kseg, bar(B_KFULL + s),
+                        kv0, x.ib);
           if (jt == 0) {  // the item's Q, once its first K is in flight
             mbar_wait(bar(B_QEMPTY), (qn & 1) ^ 1);
             mbar_expect_tx(bar(B_QFULL), Q_BYTES);
@@ -492,6 +531,16 @@ __global__ void __launch_bounds__(Roles<QUANT>::NT, 1)
           const int q0 = item_of(p, item_index(cur.j)).q0;
           *meta(it) = dense_meta(p, q0, walk_of<TRI, MULTI>(p, q0), cur.jt);
         }
+        if (segs && !is_v && wtid < BKV / 4) {  // the tile's kv ids
+          const Item x = item_of(p, item_index(cur.j));
+          const int c =
+              walk_of<TRI, MULTI>(p, x.q0).tile(cur.jt) * BKV + 4 * wtid;
+          int4 ids = make_int4(0, 0, 0, 0);  // past s_kv: masked anyway
+          if (c < p.s_kv)
+            ids = *reinterpret_cast<const int4*>(p.ft.kvseg +
+                                                 x.ib * p.ft.kv_ld + c);
+          reinterpret_cast<int4*>(seg_slot(it))[wtid] = ids;
+        }
         fence_proxy_async();
         mbar_arrive(bar((is_v ? B_VFULL : B_KFULL) + s));
         named_sync(NB_PRODUCER + wg, 128);  // all are done with the slot
@@ -562,6 +611,24 @@ __global__ void __launch_bounds__(Roles<QUANT>::NT, 1)
       const int q_last = min(r0 + 64, p.s_q) - 1 - qc * p.dsc.cq;
       // B9a: rows of the next q tile (the second half of a 64-row item)
       const bool idle = SPARSE && cw * 64 >= x.rows;
+      // FEAT: the lane's rows g and g + 8: global positions, q segment ids
+      // and the dropout hash's row part; the head's -slope
+      int rpos[2] = {0, 0}, qsg[2] = {0, 0};
+      uint32_t rh[2] = {0u, 0u};
+      float nslope = 0.f;
+      if constexpr (FEAT) {
+        const uint32_t salt = p.ft.drop ? drop_salt(p.ft, x.ib, x.ih) : 0u;
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          rpos[hh] =
+              p.dsc.qo[qc] + (q_first + warp * 16 + g + hh * 8) * p.dsc.st;
+          const int qi = r0 + warp * 16 + g + hh * 8;
+          if (p.ft.seg && qi < p.s_q)
+            qsg[hh] = p.ft.qseg[(long long)x.ib * p.s_q + qi];
+          if (p.ft.drop) rh[hh] = drop_row(salt, rpos[hh]);
+        }
+        if (p.ft.alibi) nslope = -p.ft.slopes[x.ih];
+      }
 
       // the frame of the i-th tile, the jt-th of the item: one chunk a
       // side, from the walk; else from the step's meta, read once its K is
@@ -572,14 +639,17 @@ __global__ void __launch_bounds__(Roles<QUANT>::NT, 1)
           const int2 m = *meta(i);
           const int qf = m.x + cw * 64;
           return Frame{0, qf, qf + 63, qf + warp * 16 + g, m.y & 0xffff,
-                       (m.y >> 16) ? 0 : kOpenRel, -kOpenRel, 0};
+                       (m.y >> 16) ? 0 : kOpenRel, -kOpenRel, 0, 0};
         } else if constexpr (MULTI) {
           const int2 m = *meta(i);
           return Frame{m.x, q_first, q_last, row0, p.dsc.ckv, p.dsc.hi[m.y],
-                       p.dsc.lo[m.y], p.dsc.sk[m.y]};
+                       p.dsc.lo[m.y], p.dsc.sk[m.y],
+                       FEAT ? p.dsc.ko[m.y & 1] + m.x * p.dsc.st : 0};
         } else {
-          return Frame{w.tile(jt) * BKV, q_first, q_last, row0, p.dsc.ckv,
-                       TRI ? 0 : p.dsc.hi[0], p.dsc.lo[0], p.dsc.sk[0]};
+          const int kv0 = w.tile(jt) * BKV;
+          return Frame{kv0, q_first, q_last, row0, p.dsc.ckv,
+                       TRI ? 0 : p.dsc.hi[0], p.dsc.lo[0], p.dsc.sk[0],
+                       FEAT ? p.dsc.ko[0] + kv0 * p.dsc.st : 0};
         }
       };
 
@@ -590,24 +660,35 @@ __global__ void __launch_bounds__(Roles<QUANT>::NT, 1)
       float l_row[2] = {0.f, 0.f};
 
       float alpha[2];  // the online forms' rescale of O by the new max
-      // tile i's scores in place: k scale, scale, cap and (`masked`) masks
-      auto scores = [&](float (&sacc)[64], const float* sks, const Frame& f,
-                        float (&mx)[2], auto masked) {
+      // tile i's scores in place: k scale, scale, cap, ALiBi and
+      // (`masked`) the masks and segments
+      auto scores = [&](float (&sacc)[64], const float* sks, const int* sseg,
+                        const Frame& f, float (&mx)[2], auto masked) {
 #pragma unroll
         for (int i8 = 0; i8 < 16; ++i8) {
           float2 ksc = make_float2(1.f, 1.f);
           if (QUANT) ksc = *reinterpret_cast<const float2*>(sks + 8 * i8 + cb);
+          int2 ksg = make_int2(0, 0);
+          if (decltype(masked)::value && segs)
+            ksg = *reinterpret_cast<const int2*>(sseg + 8 * i8 + cb);
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             float v = sacc[4 * i8 + e];
             if (QUANT) v *= (e & 1) ? ksc.y : ksc.x;
             if (ONLINE) v *= p.sscale;
             if (FORM == kSoftcap) v = tanhf(v / p.cap) * p.cap;
+            if (FEAT && p.ft.alibi) {
+              const float bias = alibi_bias(
+                  nslope, rpos[e >> 1],
+                  f.kpos + (8 * i8 + cb + (e & 1)) * p.dsc.st);
+              v += ONLINE ? bias : bias * kLog2e;
+            }
             if (decltype(masked)::value) {
               const int col = f.kv0 + 8 * i8 + cb + (e & 1);
               const int row = f.row0 + (e >> 1) * 8;
               if (col >= f.col_end || col - row > f.hi ||
-                  (has_left && col - row < f.lo && col >= f.sk))
+                  (has_left && col - row < f.lo && col >= f.sk) ||
+                  (segs && ((e & 1) ? ksg.y : ksg.x) != qsg[e >> 1]))
                 v = kNegInf;
             }
             sacc[4 * i8 + e] = v;
@@ -622,15 +703,17 @@ __global__ void __launch_bounds__(Roles<QUANT>::NT, 1)
         const float* sks = reinterpret_cast<const float*>(
             smem + L::OFF_W + (i % STAGES) * L::STAGE + 2 * KV_BYTES);
         const float* svs = sks + BKV;
+        const int* sseg = FEAT ? seg_slot(i) : nullptr;
         const int kv_last = f.kv0 + BKV - 1;
         const bool interior =
             kv_last < f.col_end && kv_last - f.q_first <= f.hi &&
-            (!has_left || f.kv0 - f.q_last >= f.lo || kv_last < f.sk);
+            (!has_left || f.kv0 - f.q_last >= f.lo || kv_last < f.sk) &&
+            !segs;
         float mx[2] = {kNegInf, kNegInf};
         if (interior)
-          scores(sacc, sks, f, mx, Flag<false>());
+          scores(sacc, sks, sseg, f, mx, Flag<false>());
         else
-          scores(sacc, sks, f, mx, Flag<true>());
+          scores(sacc, sks, sseg, f, mx, Flag<true>());
         alpha[0] = alpha[1] = 1.f;
         if (ONLINE) {
 #pragma unroll
@@ -660,6 +743,11 @@ __global__ void __launch_bounds__(Roles<QUANT>::NT, 1)
               pe = exp2f(fminf(v, kClamp));  // exp2(-1e30) == 0
             }
             rs[e >> 1] += pe;
+            if (FEAT && p.ft.drop)  // after l, before V's scale
+              pe = drop_keep(p.ft, rh[e >> 1],
+                             f.kpos + (8 * i8 + cb + (e & 1)) * p.dsc.st)
+                       ? pe * p.ft.inv
+                       : 0.f;
             if (QUANT) pe *= (e & 1) ? vsc.y : vsc.x;
             sacc[4 * i8 + e] = pe;
           }
@@ -808,11 +896,16 @@ __global__ void __launch_bounds__(Roles<QUANT>::NT, 1)
 // dims: b, h, h_kv, s_q, s_kv, q strides (b, s, h), k strides (b, s, h),
 // v strides (b, s, h), out strides (b, s, h), scale strides (b, h, s),
 // q_off, left, right, sink (the layout of the mma.sync entry points; B4's
-// entry reads them), then the descriptor (sm90.cuh Desc) from index 24
-template <bool TRI, int FORM, bool QUANT, bool MULTI = false>
+// entry reads them), then the descriptor (sm90.cuh Desc) from index 24 and
+// B3's features (sm90.cuh Feat) after it
+constexpr int kDimsDesc = 24;
+constexpr int kDimsFeat = kDimsDesc + kDescLen;
+
+template <bool TRI, int FORM, bool QUANT, bool MULTI = false, bool FEAT = false>
 int launch(const void* q, const void* k, const void* v, const float* ks,
            const float* vs, void* out, float* lse, const long long* dims,
-           float qfold, float sscale, float cap, cudaStream_t stream) {
+           float qfold, float sscale, float cap, const Feat& ft,
+           cudaStream_t stream) {
   Params p = {};
   p.out = out;
   p.lse = lse;
@@ -824,10 +917,12 @@ int launch(const void* q, const void* k, const void* v, const float* ks,
   p.o_sb = dims[14];
   p.o_ss = dims[15];
   p.o_sh = dims[16];
-  p.dsc = desc_from(dims, 24);
+  p.dsc = desc_from(dims, kDimsDesc);
   p.qfold = qfold;
   p.sscale = sscale;
   p.cap = cap;
+  p.ft = ft;
+  if (FEAT && !feat_ok(ft)) return (int)cudaErrorInvalidValue;
   p.nq = (p.s_q + BQ - 1) / BQ;
   p.n_items = p.nq * p.h * p.b;
   if (p.h_kv <= 0 || p.h % p.h_kv || !desc_ok(p.dsc, p.s_q, p.s_kv, BQ))
@@ -858,6 +953,14 @@ int launch(const void* q, const void* k, const void* v, const float* ks,
                    kv_swizzle);
   maps.ks = maps.q;  // unused without scales
   maps.vs = maps.q;
+  maps.kseg = maps.q;  // unused without segments (or with int8 K/V)
+  if (FEAT && !QUANT && ft.seg) {
+    const long long sg_dims[2] = {p.s_kv, p.b};
+    const long long sg_str[1] = {ft.kv_ld};
+    const cuuint32_t sg_box[2] = {BKV, 1};
+    ok = ok && encode(&maps.kseg, ft.kvseg, CU_TENSOR_MAP_DATA_TYPE_INT32, 4,
+                      2, sg_dims, sg_str, sg_box, CU_TENSOR_MAP_SWIZZLE_NONE);
+  }
   if (QUANT) {
     const long long sc_dims[3] = {p.s_kv, p.h_kv, p.b};
     const long long sc_str[2] = {dims[18], dims[17]};
@@ -869,8 +972,8 @@ int launch(const void* q, const void* k, const void* v, const float* ks,
   }
   if (!ok) return (int)cudaErrorInvalidValue;
 
-  auto kern = flash_fwd_sm90_kernel<TRI, FORM, QUANT, false, MULTI>;
-  const int smem = Smem<QUANT>::BYTES;
+  auto kern = flash_fwd_sm90_kernel<TRI, FORM, QUANT, false, MULTI, FEAT>;
+  const int smem = Smem<QUANT, FEAT>::BYTES;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
@@ -931,7 +1034,7 @@ int launch_sparse(const void* q, const void* k, const void* v, void* out,
         encode(&maps.k, k, bf16, 2, 4, kv_dims, k_str, box, sw) &&
         encode(&maps.v, v, bf16, 2, 4, kv_dims, v_str, box, sw)))
     return (int)cudaErrorInvalidValue;
-  maps.ks = maps.vs = maps.q;  // unused without scales
+  maps.ks = maps.vs = maps.kseg = maps.q;  // unused without scales
 
   auto kern = flash_fwd_sm90_kernel<false, kFast, false, true>;
   const int smem = Smem<false>::BYTES;
@@ -954,54 +1057,57 @@ extern "C" int lca_flash_fwd_causal_self(const void* q, const void* k,
   if (dims[3] != dims[4]) return (int)cudaErrorInvalidValue;
   return safe ? launch<true, kOnlineExp2, false>(q, k, v, nullptr, nullptr,
                                                  out, lse, dims, qfold, sscale,
-                                                 0.f, st)
+                                                 0.f, Feat{}, st)
               : launch<true, kFast, false>(q, k, v, nullptr, nullptr, out, lse,
-                                           dims, qfold, sscale, 0.f, st);
+                                           dims, qfold, sscale, 0.f, Feat{},
+                                           st);
 }
 
+namespace {
+
+// B3's instantiation for a softmax form (0 fast, 1 online in natural
+// units, 2 softcap)
+template <bool QUANT, bool MULTI, bool FEAT, class Args>
+int pos_form(int form, const Args& args) {
+  switch (form) {
+    case 0: return args(launch<false, kFast, QUANT, MULTI, FEAT>);
+    case 1: return args(launch<false, kOnlineNat, QUANT, MULTI, FEAT>);
+    case 2: return args(launch<false, kSoftcap, QUANT, MULTI, FEAT>);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+template <bool QUANT, bool MULTI, class Args>
+int pos_feat(bool feat, int form, const Args& args) {
+  return feat ? pos_form<QUANT, MULTI, true>(form, args)
+              : pos_form<QUANT, MULTI, false>(form, args);
+}
+
+}  // namespace
+
 // Kernel B3: q rows at q_off + i, bf16 or int8 K/V (ks != null), any
-// window, sinks and softcap. form: 0 fast, 1 online (natural units), 2
-// softcap.
+// window, sinks and softcap; form: 0 fast, 1 online (natural units), 2
+// softcap. A multi-chunk descriptor (the ring's steps) and the features
+// (segments, ALiBi, dropout: their operands after the stream) each take
+// instantiations of their own.
 extern "C" int lca_flash_fwd_pos(const void* q, const void* k, const void* v,
                                  const float* ks, const float* vs, void* out,
                                  float* lse, const long long* dims,
                                  float qfold, float sscale, float cap,
-                                 int form, void* stream) {
+                                 int form, void* stream, LCA_FEAT_ARGS) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Feat ft = feat_from(dims, kDimsFeat, qseg, kvseg, slopes, drop_inv);
   const auto args = [&](auto launcher) {
-    return launcher(q, k, v, ks, vs, out, lse, dims, qfold, sscale, cap, st);
+    return launcher(q, k, v, ks, vs, out, lse, dims, qfold, sscale, cap, ft,
+                    st);
   };
-  // a multi-chunk descriptor (the ring's steps) takes its own instantiation
-  if (dims[24] * dims[25] > 1) {
-    if (ks != nullptr) {
-      switch (form) {
-        case 0: return args(launch<false, kFast, true, true>);
-        case 1: return args(launch<false, kOnlineNat, true, true>);
-        case 2: return args(launch<false, kSoftcap, true, true>);
-        default: return (int)cudaErrorInvalidValue;
-      }
-    }
-    switch (form) {
-      case 0: return args(launch<false, kFast, false, true>);
-      case 1: return args(launch<false, kOnlineNat, false, true>);
-      case 2: return args(launch<false, kSoftcap, false, true>);
-      default: return (int)cudaErrorInvalidValue;
-    }
-  }
-  if (ks != nullptr) {
-    switch (form) {
-      case 0: return args(launch<false, kFast, true>);
-      case 1: return args(launch<false, kOnlineNat, true>);
-      case 2: return args(launch<false, kSoftcap, true>);
-      default: return (int)cudaErrorInvalidValue;
-    }
-  }
-  switch (form) {
-    case 0: return args(launch<false, kFast, false>);
-    case 1: return args(launch<false, kOnlineNat, false>);
-    case 2: return args(launch<false, kSoftcap, false>);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  const bool feat = ft.seg || ft.alibi || ft.drop;
+  const bool quant = ks != nullptr;
+  if (dims[kDimsDesc] * dims[kDimsDesc + 1] > 1)
+    return quant ? pos_feat<true, true>(feat, form, args)
+                 : pos_feat<false, true>(feat, form, args);
+  return quant ? pos_feat<true, false>(feat, form, args)
+               : pos_feat<false, false>(feat, form, args);
 }
 
 // Kernel B4: self-attention (s_q == s_kv, q_off 0) with any window, sinks
@@ -1018,7 +1124,7 @@ extern "C" int lca_flash_fwd_static(const void* q, const void* k,
   if (dims[3] != dims[4] || dims[20] != 0) return (int)cudaErrorInvalidValue;
   const auto args = [&](auto launcher) {
     return launcher(q, k, v, nullptr, nullptr, out, lse, dims, qfold, sscale,
-                    cap, st);
+                    cap, Feat{}, st);
   };
   const bool plain_causal =
       dims[22] == 0 && (dims[21] < 0 || dims[21] >= dims[4] - 1);
@@ -1051,8 +1157,9 @@ extern "C" int lca_sparse_fwd(const void* q, const void* k, const void* v,
 }
 
 // The dynamic shared memory a block takes: bf16 K/V (B1, B3, B4, B9a), or
-// int8 K/V (quant != 0).
-extern "C" int lca_flash_fwd_smem(int quant) {
+// int8 K/V (quant != 0); with B3's features (feat != 0).
+extern "C" int lca_flash_fwd_smem(int quant, int feat) {
+  if (feat) return quant ? Smem<true, true>::BYTES : Smem<false, true>::BYTES;
   return quant ? Smem<true>::BYTES : Smem<false>::BYTES;
 }
 

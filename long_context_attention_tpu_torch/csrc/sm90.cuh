@@ -65,6 +65,15 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
+      "l"((uint64_t)map), "r"(c0), "r"(c1), "r"(bar)
+      : "memory");
+}
+
 __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map,
                                             uint32_t bar, int c0, int c1,
                                             int c2) {
@@ -333,12 +342,18 @@ __device__ __forceinline__ void widen_rows(const unsigned char* raw,
 // causal or right window: floor((qo - ko + right) / stride)), and j - i >=
 // lo (the left window: ceil((qo - ko - left) / stride)) or j < sk (the
 // sinks: the columns at positions below sink_tokens); kOpenRel for an
-// unbounded side. The layout on dims, from index `at`: nqc, nkc, cq, ckv,
-// then hi, lo, sk of each of the 4 pairs.
+// unbounded side. Then the global positions the features read (ALiBi, the
+// dropout hash): each chunk's offset, qo[qc] and ko[kc] (a one-chunk side's
+// in both), and the stride st, so that chunk-local row i of q chunk qc sits
+// at qo[qc] + i * st. The layout on dims, from index `at`: nqc, nkc, cq,
+// ckv, then hi, lo, sk of each of the 4 pairs, then qo[0], qo[1], ko[0],
+// ko[1], st (kDescLen entries).
 constexpr int kOpenRel = 1 << 29;
+constexpr int kDescLen = 21;
 struct Desc {
   int nqc, nkc, cq, ckv;
   int hi[4], lo[4], sk[4];
+  int qo[2], ko[2], st;
 };
 
 inline Desc desc_from(const long long* dims, int at) {
@@ -352,7 +367,97 @@ inline Desc desc_from(const long long* dims, int at) {
     d.lo[pr] = (int)dims[at + 5 + 3 * pr];
     d.sk[pr] = (int)dims[at + 6 + 3 * pr];
   }
+  for (int c = 0; c < 2; ++c) {
+    d.qo[c] = (int)dims[at + 16 + c];
+    d.ko[c] = (int)dims[at + 18 + c];
+  }
+  d.st = (int)dims[at + 20];
   return d;
+}
+
+// ---------------------------------------------------------------------------
+// The features of B3, B2a and B2b (JAX's _seg_mask, _alibi_bias,
+// _dropout_keep), at the global positions of the descriptor
+// ---------------------------------------------------------------------------
+
+// A call's features. Segment ids: q (b, s_q) and kv (b, kv_ld) int32,
+// a pair of unequal ids dropped (kv_ld: the kv rows' stride, a multiple of
+// 4 for TMA). ALiBi: per q head -slope * |row - col| added to the score
+// (natural units). Dropout: a pair is kept when the lowbias32 hash of
+// (seed, batch, q head, global row, global column) is >= thresh, and a kept
+// p is scaled by inv = 1 / (1 - p). The layout on dims after the
+// descriptor: seg, alibi, drop (flags), seed0, seed1 (the seed and its
+// head base), thresh, kv_ld.
+struct Feat {
+  const int* qseg;
+  const int* kvseg;
+  const float* slopes;
+  long long kv_ld;
+  uint32_t seed0, seed1, thresh;
+  float inv;
+  int seg, alibi, drop;
+};
+
+#define LCA_FEAT_ARGS \
+  const int *qseg, const int *kvseg, const float *slopes, float drop_inv
+
+inline Feat feat_from(const long long* dims, int at, const int* qseg,
+                      const int* kvseg, const float* slopes, float inv) {
+  Feat f;
+  f.seg = (int)dims[at];
+  f.alibi = (int)dims[at + 1];
+  f.drop = (int)dims[at + 2];
+  f.seed0 = (uint32_t)dims[at + 3];
+  f.seed1 = (uint32_t)dims[at + 4];
+  f.thresh = (uint32_t)dims[at + 5];
+  f.kv_ld = dims[at + 6];
+  f.qseg = qseg;
+  f.kvseg = kvseg;
+  f.slopes = slopes;
+  f.inv = inv;
+  return f;
+}
+
+// Whether a feature's operands are there (a flag without its pointer, or a
+// segment call without its kv rows' stride, is refused)
+inline bool feat_ok(const Feat& f) {
+  return (!f.seg || (f.qseg && f.kvseg && f.kv_ld > 0 && f.kv_ld % 4 == 0)) &&
+         (!f.alibi || f.slopes);
+}
+
+constexpr uint32_t kGold = 0x9E3779B9u;
+
+// lowbias32 (Chris Wellons; the JAX kernels' _hash_u32)
+__device__ __forceinline__ uint32_t hash32(uint32_t x) {
+  x ^= x >> 16;
+  x *= 0x7FEB352Du;
+  x ^= x >> 15;
+  x *= 0x846CA68Bu;
+  x ^= x >> 16;
+  return x;
+}
+
+// The dropout hash's part of a (batch row, q head): h32 of the salt
+__device__ __forceinline__ uint32_t drop_salt(const Feat& f, int ib, int ih) {
+  return hash32(f.seed0 + (uint32_t)ib * 2654435761u +
+                (f.seed1 + (uint32_t)ih) * kGold);
+}
+
+// ... and of a row at global position `row` (hoisted out of the columns)
+__device__ __forceinline__ uint32_t drop_row(uint32_t salt_h, int row) {
+  return kGold * hash32((uint32_t)row + salt_h);
+}
+
+// whether the pair of this row (drop_row) and the column at global position
+// `col` is kept
+__device__ __forceinline__ bool drop_keep(const Feat& f, uint32_t row_h,
+                                          int col) {
+  return hash32((uint32_t)col + row_h) >= f.thresh;
+}
+
+// The ALiBi bias of a pair: nslope (the head's -slope) * |row - col|
+__device__ __forceinline__ float alibi_bias(float nslope, int row, int col) {
+  return nslope * (float)abs(row - col);
 }
 
 // Whether a descriptor is one the kernels take: 1 or 2 chunks a side that
@@ -404,7 +509,8 @@ struct KvWalk {
 // flash_dq_sm90.cu; B2b and B5 in flash_bwd_sm90.cu): dq, dk and dv are
 // null where unused; dims: b, h, h_kv, s_q, s_kv, the (batch, seq, head)
 // element strides of q, k, v, dout, dq and dk (dv shares dk's), q_start,
-// causal, left, right, sink.
+// causal, left, right, sink, the descriptor (Desc) and the features (Feat;
+// B2a and B2b take their operands as LCA_FEAT_ARGS after the others).
 #define LCA_BWD_ARGS                                                         \
   const void *q, const void *k, const void *v, const void *dout,             \
       const float *lse, const float *delta, float *dq, float *dk, float *dv, \

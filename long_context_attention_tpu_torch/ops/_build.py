@@ -34,6 +34,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _VP = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_FEAT = [_VP, _VP, _VP, _F]  # csrc/sm90.cuh LCA_FEAT_ARGS
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -161,9 +162,11 @@ KERNELS: Dict[str, Kernel] = {
         "flash_fwd_static", "flash_fwd_sm90.cu", "lca_flash_fwd_static",
         [_VP] * 6 + [_F, _F, _F, _I, _VP],
         "long_context_attention_tpu/ops/flash.py:475"),
+    # B3, B2a and B2b take the features' operands last: q segment ids, kv
+    # segment ids, ALiBi slopes (null when off) and the dropout's 1 / (1 - p)
     "flash_fwd_pos": Kernel(
         "flash_fwd_pos", "flash_fwd_sm90.cu", "lca_flash_fwd_pos",
-        [_VP] * 8 + [_F, _F, _F, _I, _VP],
+        [_VP] * 8 + [_F, _F, _F, _I, _VP] + _FEAT,
         "long_context_attention_tpu/ops/flash.py:696"),
     # the sage entries share one C signature: q8, qs, k8, ks, v8, vs, out,
     # lse, dims, stream
@@ -192,13 +195,13 @@ KERNELS: Dict[str, Kernel] = {
     # on the dq pipeline of B9b, B2b and B5 on one wgmma/TMA pipeline
     "flash_bwd_dq": Kernel(
         "flash_bwd_dq", "flash_dq_sm90.cu", "lca_flash_bwd_dq",
-        [_VP] * 10 + [_F, _F, _VP],
+        [_VP] * 10 + [_F, _F, _VP] + _FEAT,
         "long_context_attention_tpu/ops/flash.py:1089"),
     # (B2b also takes a multi-chunk descriptor's kv tile order, after the
     # stream)
     "flash_bwd_dkv": Kernel(
         "flash_bwd_dkv", "flash_bwd_sm90.cu", "lca_flash_bwd_dkv",
-        [_VP] * 10 + [_F, _F, _VP, _VP],
+        [_VP] * 10 + [_F, _F, _VP, _VP] + _FEAT,
         "long_context_attention_tpu/ops/flash.py:1174"),
     "flash_bwd_fused": Kernel(
         "flash_bwd_fused", "flash_bwd_sm90.cu", "lca_flash_bwd_fused",

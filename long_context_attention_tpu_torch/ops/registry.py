@@ -9,8 +9,10 @@ of implementations sharing one contract,
 * ``bwd(q, k, v, out, lse, dout, **kw) -> (dq, dk, dv)``: fp32 partial
   gradients of this kv block given the final merged out and lse.
 
-Common ``**kw``: causal, softmax_scale, window_size, softcap, sink_tokens and
-the global position descriptor (q_offsets, kv_offsets, q_stride, kv_stride).
+Common ``**kw``: causal, softmax_scale, window_size, softcap, sink_tokens,
+the global position descriptor (q_offsets, kv_offsets, q_stride, kv_stride)
+and the segment ids; ``pallas`` also takes ALiBi and dropout, which
+``xla`` refuses.
 Impls:
 
 * ``pallas``: the flash kernels (``ops/flash.py``: B1, B3, B4 forward, B5 or
@@ -43,7 +45,18 @@ class AttnImpl:
 
 def _xla_kw(q_len: int, kv_len: int, kw) -> dict:
     """The oracle's kwargs: the kernel-form position descriptor becomes
-    per-token positions; kwargs the oracle has no use for are dropped."""
+    per-token positions; the pallas impl's tiling kwargs are dropped.
+    ALiBi and dropout raise ``ValueError``: the oracle computes neither,
+    and the JAX registry's ``_xla_kw`` drops them silently (its ``xla``
+    ring then attends without the bias), which the port does not copy."""
+    for name in ("alibi_slopes", "dropout_key", "dropout_seed"):
+        if kw.get(name) is not None:
+            raise ValueError(
+                f"the xla impl does not implement {name} -- failing loudly "
+                f"instead of silently dropping it")
+    if kw.get("dropout_p", 0.0) > 0.0:
+        raise ValueError("the xla impl does not implement dropout_p -- "
+                         "failing loudly instead of silently dropping it")
     out = dict(
         causal=kw.get("causal", False),
         softmax_scale=kw.get("softmax_scale"),

@@ -32,6 +32,7 @@ from long_context_attention_tpu_torch.parallel.ring_sparse import (  # noqa: F40
 )
 from long_context_attention_tpu_torch.parallel.ulysses import (  # noqa: F401
     gather_heads,
+    gather_seq,
     scatter_heads,
     ulysses_attention_local,
 )

@@ -20,6 +20,11 @@ position kernels take, so zigzag and stripe need no shape tricks.
   as int8 with fp32 scales (B3's int8 path; B8b for sage); the backward's
   K/V are the dequantized values the forward attended to, the gradient
   straight-through.
+* Segment ids (packed varlen batches) rotate with K/V (halves of them in
+  the bidirectional ring); ALiBi and dropout read global positions, so
+  every step computes its part of the single-device function (the dropout
+  pattern included: the kernels' counter hash of the seed and the
+  positions). Both need the pallas impl.
 
 Point-to-point transfers go through :class:`RingComm`
 (``batch_isend_irecv``); with W = 1 nothing is sent. The whole ring is one
@@ -37,6 +42,10 @@ from typing import Dict, List, Optional, Tuple
 import torch
 import torch.distributed as dist
 
+from long_context_attention_tpu_torch.ops.flash import (
+    Features,
+    call_features,
+)
 from long_context_attention_tpu_torch.ops.kv_cache import (
     dequantize_kv,
     quantize_kv,
@@ -107,15 +116,24 @@ class RingConfig:
         if self.kv_quant not in (None, "int8"):
             raise not_ported(f"kv_quant={self.kv_quant!r} (fp8 K/V in "
                              f"kernel B3)")
-        if self.dropout_p > 0.0:
-            raise not_ported("dropout through the ring")
 
-    def attn_kwargs(self, q_off, kv_off, q_stride, kv_stride):
-        """The registry kwargs of one ring step at these descriptors."""
+    def attn_kwargs(self, q_off, kv_off, q_stride, kv_stride, q_seg=None,
+                    kv_seg=None, alibi_sl=None, seed=None):
+        """The registry kwargs of one ring step at these descriptors, with
+        this rank's q segment ids, those of the K/V held now, the slopes of
+        the local heads and the dropout seed (seed, head base)."""
         kw = dict(causal=self.causal, softmax_scale=self.softmax_scale,
                   window_size=self.window, softcap=self.softcap,
                   q_offsets=q_off, kv_offsets=kv_off, q_stride=q_stride,
                   kv_stride=kv_stride)
+        if q_seg is not None:
+            kw["q_segment_ids"] = q_seg
+            kw["kv_segment_ids"] = kv_seg
+        if alibi_sl is not None:
+            kw["alibi_slopes"] = alibi_sl
+        if self.dropout_p > 0.0:
+            kw["dropout_p"] = self.dropout_p
+            kw["dropout_seed"] = seed
         if self.sink > 0:
             kw["sink_tokens"] = self.sink
         if self.safe_softmax and self.impl == "pallas":
@@ -127,11 +145,13 @@ class RingConfig:
 
 
 def ring_step_kwargs(cfg: RingConfig, rank: int, step: int, s_q: int,
-                     s_kv: int) -> dict:
+                     s_kv: int, **features) -> dict:
     """The registry kwargs of ring rank ``rank``'s step ``step``: its q
     descriptor, and that of the K/V it holds then -- rank ``(rank - step) %
     W``'s, or for the bidirectional ring the halves of ranks ``(rank -
-    step) % W`` and ``(rank + step) % W`` as one two-chunk descriptor."""
+    step) % W`` and ``(rank + step) % W`` as one two-chunk descriptor;
+    ``features``: :meth:`RingConfig.attn_kwargs`' q_seg, kv_seg (the held
+    K/V's), alibi_sl and seed."""
     n = cfg.ring_size
     q_off, q_stride = position_descriptor(cfg.layout, rank, n, s_q)
     if cfg.bidirectional and n > 1:
@@ -141,7 +161,7 @@ def ring_step_kwargs(cfg: RingConfig, rank: int, step: int, s_q: int,
         kv_off, kv_stride = position_descriptor(cfg.layout, (rank - step) % n,
                                                 n, s_kv)
     return cfg.attn_kwargs(q_off.tolist(), kv_off.tolist(), q_stride,
-                           kv_stride)
+                           kv_stride, **features)
 
 
 class RingComm:
@@ -208,42 +228,66 @@ def _block(cfg: RingConfig, impl, q, cur, kw):
         from long_context_attention_tpu_torch.ops.sage import (
             sage_attention_fwd_prequant)
 
+        if any(key in kw for key in ("q_segment_ids", "alibi_slopes",
+                                     "dropout_p")):
+            raise NotImplementedError(
+                "ring x sage direct-int8 does not implement segment_ids / "
+                "alibi / dropout -- failing loudly instead of silently "
+                "dropping them")
         kw = {key: val for key, val in kw.items() if key != "softcap"}
         return sage_attention_fwd_prequant(q, *cur, **kw)
     return impl.fwd(q, cur[0], cur[1], k_scale=cur[2], v_scale=cur[3], **kw)
 
 
-def _kv_parts(cfg: RingConfig, k, v):
-    """The K/V a rank sends round the ring: (k, v), or quantized."""
+def _kv_parts(cfg: RingConfig, k, v, seg=None):
+    """The K/V a rank sends round the ring: (k, v), or quantized, then the
+    kv segment ids when the call has them."""
     if cfg.kv_quant is None:
-        return [k, v]
-    (kq, ks), (vq, vs) = _quantize(k), _quantize(v)
-    return [kq, vq, ks, vs]
+        parts = [k, v]
+    else:
+        (kq, ks), (vq, vs) = _quantize(k), _quantize(v)
+        parts = [kq, vq, ks, vs]
+    return parts if seg is None else parts + [seg]
 
 
 def _cat(a, b):
-    """Two halves' K/V parts joined along the sequence (scales' is dim 2)."""
-    return [torch.cat([x, y], dim=1 if x.dim() == 4 else 2)
+    """Two halves' parts joined along the sequence (dim 1; the scales'
+    (b, h_kv, s) dim 2)."""
+    return [torch.cat([x, y], dim=2 if x.dim() == 3 else 1)
             for x, y in zip(a, b)]
 
 
-def _ring_fwd(cfg: RingConfig, comm: RingComm, q, k, v):
+def _split(parts, seg):
+    """The held K/V parts and the step's feature kwargs: the kv segment
+    ids ride last in ``parts``."""
+    if seg is None:
+        return parts, {}
+    return parts[:-1], dict(q_seg=seg, kv_seg=parts[-1])
+
+
+def _ring_fwd(cfg: RingConfig, comm: RingComm, q, k, v, seg=None,
+              slopes=None, seed=None):
     """(out in q's dtype, lse fp32) of this rank's q over every rank's K/V;
-    the bidirectional ring rotates K/V halves both ways."""
+    the bidirectional ring rotates K/V halves (and their segment ids) both
+    ways."""
     n, rank = comm.size, comm.rank
     s_q, s_kv = q.shape[1], k.shape[1]
     impl = get_attn_impl(cfg.impl)
     bidir = cfg.bidirectional and n > 1
     if bidir:
         half = s_kv // 2
-        part_a = _kv_parts(cfg, k[:, :half], v[:, :half])
-        part_b = _kv_parts(cfg, k[:, half:], v[:, half:])
+        part_a = _kv_parts(cfg, k[:, :half], v[:, :half],
+                           None if seg is None else seg[:, :half])
+        part_b = _kv_parts(cfg, k[:, half:], v[:, half:],
+                           None if seg is None else seg[:, half:])
     else:
-        cur = _kv_parts(cfg, k, v)
+        cur = _kv_parts(cfg, k, v, seg)
     acc = None
     for step in range(n):
-        kw = ring_step_kwargs(cfg, rank, step, s_q, s_kv)
-        blk = _block(cfg, impl, q, _cat(part_a, part_b) if bidir else cur, kw)
+        held, feats = _split(_cat(part_a, part_b) if bidir else cur, seg)
+        kw = ring_step_kwargs(cfg, rank, step, s_q, s_kv, alibi_sl=slopes,
+                              seed=seed, **feats)
+        blk = _block(cfg, impl, q, held, kw)
         acc = _merge(acc, blk, step == 0)
         if step < n - 1:
             if bidir:
@@ -253,22 +297,28 @@ def _ring_fwd(cfg: RingConfig, comm: RingComm, q, k, v):
     return acc[0].to(q.dtype), acc[1]
 
 
-def _ring_bwd(cfg: RingConfig, comm: RingComm, q, k, v, out, lse, dout):
+def _ring_bwd(cfg: RingConfig, comm: RingComm, q, k, v, out, lse, dout,
+              seg=None, slopes=None, seed=None):
     """fp32 (dq, dk, dv) of the two-ring backward: per step the impl's
     ``bwd`` on the merged out and lse; dk/dv partial sums ride all W hops
-    (home to their K/V's owner), K/V W - 1 (bidirectional: each half its
-    own way)."""
+    (home to their K/V's owner), K/V (with their segment ids) W - 1
+    (bidirectional: each half its own way)."""
     n, rank = comm.size, comm.rank
     s_q, s_kv = q.shape[1], k.shape[1]
     impl = get_attn_impl(cfg.impl)
     bidir = cfg.bidirectional and n > 1
     half = s_kv // 2
-    kv_a, kv_b = [k[:, :half], v[:, :half]], [k[:, half:], v[:, half:]]
-    kv = [k, v]
+
+    def held(lo, hi):  # K/V rows [lo, hi), then their segment ids
+        ids = [] if seg is None else [seg[:, lo:hi]]
+        return [k[:, lo:hi], v[:, lo:hi]] + ids
+
+    kv_a, kv_b, kv = held(0, half), held(half, s_kv), held(0, s_kv)
     dq = dkv = dkv_a = dkv_b = None
     for step in range(n):
-        kw = ring_step_kwargs(cfg, rank, step, s_q, s_kv)
-        kc, vc = _cat(kv_a, kv_b) if bidir else kv
+        (kc, vc), feats = _split(_cat(kv_a, kv_b) if bidir else kv, seg)
+        kw = ring_step_kwargs(cfg, rank, step, s_q, s_kv, alibi_sl=slopes,
+                              seed=seed, **feats)
         dq_p, dk_p, dv_p = impl.bwd(q, kc, vc, out, lse, dout, **kw)
         dq = dq_p.float() if dq is None else dq + dq_p
         if bidir:
@@ -306,15 +356,20 @@ def _handle(cfg: RingConfig, group) -> int:
 
 
 @torch.library.custom_op("lca_torch::ring_attention", mutates_args=())
-def _ring_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, handle: int
+def _ring_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, handle: int,
+             segment_ids: Optional[torch.Tensor],
+             alibi_slopes: Optional[torch.Tensor], seed: int, head_base: int
              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(out, lse) of the ring named by ``handle`` over this rank's shards."""
+    """(out, lse) of the ring named by ``handle`` over this rank's shards,
+    with this rank's segment ids, its heads' ALiBi slopes and the dropout
+    seed (seed, head base)."""
     cfg, comm = _RINGS[handle]
-    return _ring_fwd(cfg, comm, q, k, v)
+    return _ring_fwd(cfg, comm, q, k, v, seg=segment_ids, slopes=alibi_slopes,
+                     seed=(seed, head_base))
 
 
 def _ring_op_setup(ctx, inputs, output) -> None:
-    q, k, v, handle = inputs
+    q, k, v, handle, seg, slopes, seed, head_base = inputs
     cfg, _ = _RINGS[handle]
     if cfg.kv_quant is not None:
         # the backward recomputes p = exp(s - lse) from the forward's lse,
@@ -324,14 +379,16 @@ def _ring_op_setup(ctx, inputs, output) -> None:
         v = dequantize_kv(*quantize_kv(v, "int8"), v.dtype)
     ctx.save_for_backward(q, k, v, *output)
     ctx.handle = handle
+    ctx.features = dict(seg=seg, slopes=slopes, seed=(seed, head_base))
 
 
 def _ring_op_backward(ctx, dout, dlse):
     del dlse  # the lse cotangent is not propagated (as in flash-attn)
     q, k, v, out, lse = ctx.saved_tensors
     cfg, comm = _RINGS[ctx.handle]
-    dq, dk, dv = _ring_bwd(cfg, comm, q, k, v, out, lse, dout.contiguous())
-    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None
+    dq, dk, dv = _ring_bwd(cfg, comm, q, k, v, out, lse, dout.contiguous(),
+                           **ctx.features)
+    return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)) + (None,) * 5
 
 
 _ring_op.register_autograd(_ring_op_backward, setup_context=_ring_op_setup)
@@ -371,18 +428,21 @@ def ring_attention_local(
     q (b, s/W, h, d); k, v (b, s/W, h_kv, d) in ``layout`` order
     (``permute_for_layout`` of the global sequence, then contiguous
     shards); ``group`` is the ring's process group (None: a ring of one).
-    Differentiable (the two-ring backward). Returns out (and the fp32 lse
-    (b, h, s/W) with ``return_lse``). Segments, dropout and ALiBi raise
-    ``NotImplementedError``, as does ``kv_quant="fp8"``."""
+    ``segment_ids`` ((b, s/W) ints, this rank's tokens), ``alibi_slopes``
+    ((h_local,) fp32) and ``dropout_p`` with ``dropout_seed`` ((2,) [seed,
+    head base]) reach the kernels at global positions (pallas impl), so the
+    ring computes the single-device function. Differentiable (the two-ring
+    backward). Returns out (and the fp32 lse (b, h, s/W) with
+    ``return_lse``). ``kv_quant="fp8"`` raises ``NotImplementedError``."""
     n = group_size(group)
     if ring_size is not None and ring_size != n:
         raise ValueError(f"ring_size {ring_size} != the group's size {n}")
-    if segment_ids is not None:
-        raise not_ported("segment_ids through the ring")
-    if alibi_slopes is not None:
-        raise not_ported("ALiBi through the ring")
     if dropout_p > 0.0 and dropout_seed is None:
         raise ValueError("dropout_p > 0 requires dropout_seed ((2,) int32)")
+    if alibi_slopes is not None and impl != "pallas":
+        raise ValueError(
+            "ALiBi requires the pallas impl (the xla oracle and sage do not "
+            "implement it) -- failing loudly instead of silently dropping it")
     cfg = RingConfig(
         ring_size=n, layout=layout, causal=bool(causal),
         softmax_scale=softmax_scale,
@@ -395,5 +455,10 @@ def ring_attention_local(
     if cfg.bidirectional and n > 1 and k.shape[1] % 2:
         raise ValueError(f"the bidirectional ring splits K/V in halves: "
                          f"s/W {k.shape[1]} is odd")
-    out, lse = _ring_op(q, k, v, _handle(cfg, group))
+    feat = call_features(q, q_segment_ids=segment_ids,
+                         kv_segment_ids=segment_ids, dropout_p=dropout_p,
+                         dropout_seed=dropout_seed,
+                         alibi_slopes=alibi_slopes) or Features()
+    out, lse = _ring_op(q, k, v, _handle(cfg, group), feat.q_seg,
+                        feat.slopes, *feat.seed)
     return (out, lse) if return_lse else out

@@ -17,8 +17,8 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
-__all__ = ["scatter_heads", "gather_heads", "ulysses_attention_local",
-           "group_size", "group_rank"]
+__all__ = ["scatter_heads", "gather_heads", "gather_seq",
+           "ulysses_attention_local", "group_size", "group_rank"]
 
 
 def group_size(group: Optional[dist.ProcessGroup]) -> int:
@@ -97,6 +97,21 @@ def gather_heads(x: torch.Tensor,
     if group_size(group) == 1:
         return x
     return _GatherHeads.apply(x, group)
+
+
+def gather_seq(ids: torch.Tensor,
+               group: Optional[dist.ProcessGroup]) -> torch.Tensor:
+    """(b, s/U) per rank -> (b, s): the ulysses group's chunks along the
+    sequence in rank order, the order :func:`scatter_heads` concatenates
+    them in (JAX's tiled ``lax.all_gather`` of the segment ids, which have
+    no head dim to scatter). No gradient: the ids are integers."""
+    u = group_size(group)
+    if u == 1:
+        return ids
+    ids = ids.contiguous()
+    parts = [torch.empty_like(ids) for _ in range(u)]
+    dist.all_gather(parts, ids, group=group)
+    return torch.cat(parts, dim=1)
 
 
 def ulysses_attention_local(q, k, v, attn_fn, *,

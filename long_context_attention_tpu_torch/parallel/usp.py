@@ -12,8 +12,9 @@ torch has no globally sharded array: the layers take this rank's shards,
 q (b/dp, s/(R*U), h, d) and k, v (b/dp, s/(R*U), h_kv, d), the sequence in
 layout order (``permute_for_layout``) and cut by ``seq_shard`` (chunk
 ``ring_idx * U + ulysses_idx``), the convention of the reference's layers.
-Segments, dropout and ALiBi through the dense layers, and the async
-(head-group pipelined) layer, raise ``NotImplementedError``.
+The dense layer takes segment ids (packed varlen batches), ALiBi slopes and
+dropout, the reference layer's training knobs; the async (head-group
+pipelined) layer is not ported.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from long_context_attention_tpu_torch.ops.flash import dropout_word
 from long_context_attention_tpu_torch.ops.sparse import (
     _host_mask,
     block_sparse_attention,
@@ -37,11 +39,11 @@ from long_context_attention_tpu_torch.parallel.ring_sparse import (
 )
 from long_context_attention_tpu_torch.parallel.ulysses import (
     gather_heads,
+    gather_seq,
     group_rank,
     group_size,
     scatter_heads,
 )
-from long_context_attention_tpu_torch.utils.config import not_ported
 
 __all__ = ["usp_attention_local", "ulysses_sparse_attention_local",
            "usp_ring_sparse_attention_local", "LongContextAttention",
@@ -77,21 +79,39 @@ def usp_attention_local(
     group, ring attention over the ring group, the inverse all-to-all
     (the reference's ``LongContextAttention.forward``,
     ``hybrid/attn_layer.py:57-161``). h and h_kv must divide by the
-    ulysses degree. A group of None is a degree of 1. Differentiable."""
-    if segment_ids is not None:
-        raise not_ported("segment_ids through the dense USP layer")
-    if dropout_p > 0.0 or dropout_key is not None:
-        raise not_ported("dropout through the dense USP layer")
-    if alibi_slopes is not None:
-        raise not_ported("ALiBi through the dense USP layer")
+    ulysses degree. A group of None is a degree of 1. Differentiable.
+
+    ``segment_ids`` ((b, s/(U*R)) ints, this rank's tokens) are gathered
+    over the ulysses group to the ring-local sequence; ``alibi_slopes`` are
+    the GLOBAL (h,) slopes, of which each ulysses rank takes its contiguous
+    head block; ``dropout_key`` (a ``torch.Generator`` seeded alike on
+    every rank, or its 32-bit word) gives one word, and the seed's head
+    base is the rank's first global head, so every global head draws the
+    bits it would on one device."""
     q, k, v = (scatter_heads(t, ulysses_group) for t in (q, k, v))
+    if segment_ids is not None:
+        segment_ids = gather_seq(torch.as_tensor(segment_ids,
+                                                 device=q.device),
+                                 ulysses_group)
+    h_local = q.shape[2]
+    u_rank = group_rank(ulysses_group)
+    if alibi_slopes is not None:
+        alibi_slopes = torch.as_tensor(alibi_slopes, dtype=torch.float32,
+                                       device=q.device).reshape(-1)
+        alibi_slopes = alibi_slopes[u_rank * h_local:(u_rank + 1) * h_local]
+    seed = None
+    if dropout_p > 0.0:
+        if dropout_key is None:
+            raise ValueError("dropout_p > 0 requires dropout_key")
+        seed = (dropout_word(dropout_key), u_rank * h_local)
     out = ring_attention_local(
         q, k, v, group=ring_group, layout=layout, causal=causal,
         softmax_scale=softmax_scale, window_size=window_size,
-        softcap=softcap, impl=impl, kv_quant=kv_quant,
-        bidirectional=bidirectional, sink_tokens=sink_tokens,
-        block_sizes=block_sizes, interpret=interpret,
-        safe_softmax=safe_softmax)
+        softcap=softcap, impl=impl, segment_ids=segment_ids,
+        kv_quant=kv_quant, bidirectional=bidirectional, dropout_p=dropout_p,
+        dropout_seed=seed, alibi_slopes=alibi_slopes,
+        sink_tokens=sink_tokens, block_sizes=block_sizes,
+        interpret=interpret, safe_softmax=safe_softmax)
     return gather_heads(out, ulysses_group)
 
 
@@ -203,7 +223,10 @@ class LongContextAttention(_LayerBase):
                 sparse_block_q: int = 512,
                 sparse_block_kv: int = 512) -> torch.Tensor:
         """Dense USP attention of this rank's shards with the sliding
-        window, sinks and softcap. ``block_mask``: a static
+        window, sinks, softcap, and the reference layer's training knobs:
+        ``segment_ids`` (packed documents), ``alibi_slopes`` ((h,) global)
+        and ``dropout_p`` with ``dropout_key`` (:func:`usp_attention_local`).
+        ``block_mask``: a static
         (S/sparse_block_q, S/sparse_block_kv) global tile mask (or per
         head) routes the call through the sparse USP composition
         (basic/zigzag layouts, differentiable); it composes with ``causal``

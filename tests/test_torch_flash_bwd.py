@@ -220,13 +220,13 @@ def test_xla_attention_bwd_matches_jax(rng):
 
 
 def test_backward_unported_features_raise(rng):
-    """Segments still raise: no wrong gradient comes back. Two position
-    chunks and strides (the ring layouts) now give the fp32 oracle's
-    gradients at those positions, and what the kernels' descriptor refuses
-    raises there (more than two chunks, two strides). A gradient through a
-    window, sinks or softcap comes back (B5, or B2a + B2b with offsets) and
-    equals the fp32 oracle's, through flash_attention and
-    flash_attention_bwd alike."""
+    """Segments now give the fp32 oracle's gradients (B2a + B2b with the
+    segment ids). Two position chunks and strides (the ring layouts) give
+    the fp32 oracle's gradients at those positions, and what the kernels'
+    descriptor refuses raises there (more than two chunks, two strides). A
+    gradient through a window, sinks or softcap comes back (B5, or B2a +
+    B2b with offsets) and equals the fp32 oracle's, through flash_attention
+    and flash_attention_bwd alike."""
     q = torch.zeros(1, 8, 2, 16)
     (_, tq), (_, tk), (_, tv), (_, tdo) = _inputs(rng, "float32")
     s = tq.shape[1]
@@ -247,10 +247,16 @@ def test_backward_unported_features_raise(rng):
         tflash.pair_masks(tflash.Positions((0, 4, 8), (0,)), 12, 8, -1, 0, 0)
     with pytest.raises(NotImplementedError, match="q_stride"):
         tflash.pair_masks(tflash.Positions((0,), (0,), 2, 1), 8, 8, -1, 0, 0)
-    seg = torch.zeros(1, 8, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="segment"):
-        tflash.flash_attention(q, q, q, causal=True, q_segment_ids=seg,
-                               kv_segment_ids=seg)
+    seg = torch.tensor([[0] * 40 + [1] * 50 + [2] * (s - 90)] * B,
+                       dtype=torch.int32)
+    leaves = [t.clone().requires_grad_() for t in (tq, tk, tv)]
+    out, lse = tflash.flash_attention(*leaves, causal=True, return_lse=True,
+                                      q_segment_ids=seg, kv_segment_ids=seg)
+    (out * tdo).sum().backward()
+    oracle = tref.xla_attention_bwd(tq, tk, tv, out.detach(), lse.detach(),
+                                    tdo, causal=True, q_segment_ids=seg,
+                                    kv_segment_ids=seg)
+    _assert_grads([t.grad for t in leaves], oracle, F32_TOL)
     (_, tq), (_, tk), (_, tv), (_, tdo) = _inputs(rng, "float32")
     for kw in (dict(window_size=(40, -1)), dict(softcap=5.0),
                dict(causal=False, window_size=(20, 30)),

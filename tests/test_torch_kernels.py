@@ -124,9 +124,11 @@ def test_sm90_sources_build_for_sm90a():
     (B5, B2b and B9c), the forward source (B1, B3, B4, B9a) and the dq
     source (B2a, B9b) use them, with TMA; B9c's walk is a template parameter
     of B2b's kernel, B9a's of the forward kernel and B2a's and B9b's of the
-    dq kernel, not second pipelines; so is the multi-chunk descriptor of
-    B3, B2a, B2b and B8b (MULTI). The backward entry points share one C
-    signature (B2b's takes its kv tile order after it)."""
+    dq kernel, not second pipelines; so are the multi-chunk descriptor of
+    B3, B2a, B2b and B8b (MULTI) and the features of B3, B2a and B2b
+    (FEAT: segments, ALiBi, dropout). The backward entry points share one C
+    signature (B2b's takes its kv tile order after it, and B2a's and B2b's
+    the features' operands last)."""
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     header = (_build.CSRC / "sm90.cuh").read_text()
     bwd = (_build.CSRC / "flash_bwd_sm90.cu").read_text()
@@ -137,29 +139,39 @@ def test_sm90_sources_build_for_sm90a():
     assert "launch<false, true>(" in bwd
     for mask in ("kBand", "kCap"):  # the windowed and softcapped bodies
         assert f"launch<FUSED, false, {mask}>(" in bwd
-    for mask in ("kDense", "kBand", "kCap"):  # B2b at multi-chunk positions
-        assert f"launch<false, false, {mask}, true>(" in bwd
+    # B2b at multi-chunk positions and with the features, every mask
+    for mask in ("kDense", "kBand", "kCap"):
+        assert f"launch<false, false, {mask}, MULTI, FEAT>(" in bwd
+    for multi in ("true", "false"):
+        assert f"launch_dkv<{multi}, true>(" in bwd
     fwd = (_build.CSRC / "flash_fwd_sm90.cu").read_text()
     for needle in ("wgmma.mma_async", "tma_load_4d", "setmaxnreg_inc",
                    '#include "sm90.cuh"'):
         assert needle in fwd
     assert fwd.count("__global__") == 1
     assert "flash_fwd_sm90_kernel<false, kFast, false, true>" in fwd
-    for quant in ("true", "false"):  # B3 at multi-chunk positions
-        assert f"launch<false, kFast, {quant}, true>" in fwd
+    # B3 at multi-chunk positions and with the features, int8 or bf16
+    assert "launch<false, kFast, QUANT, MULTI, FEAT>" in fwd
+    for quant in ("true", "false"):
+        for multi in ("true", "false"):
+            assert f"pos_feat<{quant}, {multi}>(" in fwd
     dq = (_build.CSRC / "flash_dq_sm90.cu").read_text()
     for needle in ("wgmma.mma_async", "wgmma_rs", "tma_load_4d",
                    "setmaxnreg_inc", "setmaxnreg_dec", '#include "sm90.cuh"'):
         assert needle in dq
     assert dq.count("__global__") == 1
-    for walk in ("SparseRows", "DenseRows<true, false>",
-                 "DenseRows<false, false>", "DenseRows<true, true>",
-                 "DenseRows<false, true>"):
+    for walk in ("SparseRows", "DenseRows<true, MULTI, FEAT>",
+                 "DenseRows<false, MULTI, FEAT>"):
         assert f"launch<{walk}>(" in dq
+    for multi in ("true", "false"):
+        for feat in ("true", "false"):
+            assert f"launch_dense<{multi}, {feat}>(" in dq
     assert "#define LCA_BWD_ARGS" in header
-    assert 'extern "C" int lca_flash_bwd_dq(LCA_BWD_ARGS)' in dq
-    assert 'extern "C" int lca_flash_bwd_dkv(LCA_BWD_ARGS, const int* order)' \
-        in bwd
+    assert "#define LCA_FEAT_ARGS" in header
+    assert ('extern "C" int lca_flash_bwd_dq(LCA_BWD_ARGS, LCA_FEAT_ARGS)'
+            in dq)
+    assert ('extern "C" int lca_flash_bwd_dkv(LCA_BWD_ARGS, const int* order,'
+            '\n                                 LCA_FEAT_ARGS)') in bwd
     assert "struct Desc" in header and "desc_ok" in header
     assert not (_build.CSRC / "sparse.cu").exists()
     # no source derives its aligned shared base through an integer cast

@@ -74,9 +74,12 @@ def test_build_dir_is_gitignored():
 def test_unported_features_raise():
     """Features outside the ported slices raise NotImplementedError, and so
     does a gradient through the int8-KV path, which is forward-only in the
-    JAX package too, and what the dense USP layers do not take yet
-    (segments, fp8 K/V). A gradient through a sliding window now comes
-    back, equal to the fp32 oracle's, and the dense layers compute."""
+    JAX package too, and what the dense USP layers do not take yet (fp8
+    K/V). ALiBi through flash_attention and segments through the dense
+    layer now compute (the oracle's biased output; the layer equals
+    flash_attention with the same ids). A gradient through a sliding window
+    comes back, equal to the fp32 oracle's, and the dense layers
+    compute."""
     from long_context_attention_tpu_torch.ops.decode import decode_attention
     from long_context_attention_tpu_torch.ops.flash import (
         flash_attention, flash_attention_fwd)
@@ -84,11 +87,16 @@ def test_unported_features_raise():
     from long_context_attention_tpu_torch.ops.reference import (
         xla_attention_bwd)
 
+    from long_context_attention_tpu_torch.ops.reference import (
+        xla_attention)
+
     q = torch.zeros(1, 8, 2, 128, dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError):
-        flash_attention(q, q, q, causal=False,
-                        alibi_slopes=torch.ones(2))
     x = torch.randn(1, 8, 2, 128, generator=torch.Generator().manual_seed(0))
+    dist = (torch.arange(8)[:, None] - torch.arange(8)[None, :]).abs()
+    bias = -torch.ones(2)[:, None, None] * dist.float()
+    torch.testing.assert_close(
+        flash_attention(x, x, x, causal=False, alibi_slopes=torch.ones(2)),
+        xla_attention(x, x, x, bias=bias[None])[0], atol=1e-5, rtol=1e-5)
     xg = x.clone().requires_grad_()
     out, lse = flash_attention(xg, x, x, causal=True, window_size=(4, -1),
                                return_lse=True)
@@ -108,8 +116,8 @@ def test_unported_features_raise():
     with pytest.raises(NotImplementedError):
         decode_attention(q[:, 0], cache, cache, torch.ones(1, dtype=torch.int32),
                          alibi_slopes=torch.ones(2))
-    # the dense USP layers (block_mask=None) compute since the dense ring;
-    # segments and fp8 K/V through them still raise
+    # the dense USP layers (block_mask=None) compute since the dense ring,
+    # segments included; fp8 K/V through them still raises
     from long_context_attention_tpu_torch.parallel import (
         LongContextAttention, UlyssesAttention, make_usp_mesh)
 
@@ -119,10 +127,12 @@ def test_unported_features_raise():
         for layer in (LongContextAttention, UlyssesAttention):
             torch.testing.assert_close(layer(mesh)(x, x, x, causal=True),
                                        want, atol=1e-6, rtol=0)
-        seg = torch.zeros(1, 8, dtype=torch.int32)
-        with pytest.raises(NotImplementedError, match="segment_ids"):
-            LongContextAttention(mesh)(q, q, q, causal=True,
-                                       segment_ids=seg)
+        seg = torch.tensor([[1, 1, 1, 2, 2, 2, 2, 2]], dtype=torch.int32)
+        torch.testing.assert_close(
+            LongContextAttention(mesh)(x, x, x, causal=True,
+                                       segment_ids=seg),
+            flash_attention(x, x, x, causal=True, q_segment_ids=seg,
+                            kv_segment_ids=seg), atol=1e-6, rtol=0)
         with pytest.raises(NotImplementedError, match="fp8"):
             LongContextAttention(mesh, kv_quant="float8_e4m3fn")(
                 q, q, q, causal=True)

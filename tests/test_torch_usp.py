@@ -140,8 +140,9 @@ def test_mesh_raises(monkeypatch):
     mesh of several ranks needs an initialised world; tp/pp/ep raise
     NotImplementedError. On a one-rank gloo world the dense layers equal
     flash_attention (a zigzag ring of one: the two-chunk descriptor (0,
-    s/2)), and they raise for what is not ported (segments, fp8 K/V); the
-    sparse layers raise for stripe and for a window beside a block mask."""
+    s/2)), segment ids included, and they raise for what is not ported
+    (fp8 K/V); the sparse layers raise for stripe and for a window beside a
+    block mask."""
     from long_context_attention_tpu_torch.ops.flash import flash_attention
     from long_context_attention_tpu_torch.parallel.usp import (
         LongContextAttention, UlyssesAttention)
@@ -167,10 +168,13 @@ def test_mesh_raises(monkeypatch):
         torch.testing.assert_close(UlyssesAttention(mesh)(x, x, x),
                                    flash_attention(x, x, x), atol=1e-6,
                                    rtol=0)
-        with pytest.raises(NotImplementedError, match="segment_ids"):
-            LongContextAttention(mesh)(
-                q, q, q, causal=True,
-                segment_ids=torch.zeros(1, 128, dtype=torch.int32))
+        seg = torch.repeat_interleave(torch.tensor([1, 2, 3]),
+                                      torch.tensor([40, 60, 28]))[None]
+        torch.testing.assert_close(
+            LongContextAttention(mesh)(x, x, x, causal=True,
+                                       segment_ids=seg),
+            flash_attention(x, x, x, causal=True, q_segment_ids=seg,
+                            kv_segment_ids=seg), atol=1e-6, rtol=0)
         with pytest.raises(NotImplementedError, match="fp8"):
             LongContextAttention(mesh, kv_quant="float8_e4m3fn")(
                 q, q, q, causal=True)
