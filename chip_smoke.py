@@ -57,6 +57,12 @@ Phases, one JSON line each; any failure exits non-zero:
      counters and checks that every kernel of its path launched as often
      as the path implies; logits must be finite and the first decode step
      must agree with a prefill of prompt + that token (teacher forcing);
+     then slice_fp8 and slice_int4: the dense slice over an fp8 and an int4
+     cache (B3 over the quantized prefix, B6 writing fp8 or packed int4
+     rows, B7 on fp8's cast path and int4's s8 path), exact launch counts,
+     finite logits, teacher forcing (fp8 held to the int8 gate, int4's
+     error reported), prefill s, decode ms/step and the cache's bytes
+     against the int8 slice's;
   5. slice_sage: the same model with attn_impl="sage", Engine.prefill of
      4 x 8192 in one shot against attn_impl="pallas" on the same weights,
      dense (B8a) and windowed (B8b), timed in turns, with exact launch
@@ -92,9 +98,11 @@ Phases, one JSON line each; any failure exits non-zero:
      at the ring's own descriptors), merged and summed onto their owners
      as the ring does, against one-device flash_attention fwd+bwd; and
      zigzag with impl sage and kv_quant="int8" (B8b over the rotated int8
-     K/V) against one-device sage_attention; and zigzag and stripe rings
-     over packed documents with ALiBi and dropout against one-device
-     flash_attention with the global ids, slopes and seed;
+     K/V) against one-device sage_attention; zigzag with kv_quant fp8 and
+     int4 (B3 over the held quantized bytes at every (rank, step)) against
+     one-device flash_attention over the dequantized K/V; and zigzag and
+     stripe rings over packed documents with ALiBi and dropout against
+     one-device flash_attention with the global ids, slopes and seed;
  12. usp_dense: the dense LongContextAttention(layout="zigzag") on a
      one-rank NCCL mesh at s=32768 (the two-chunk descriptor (0, s/2)):
      exactly one B3, B2a and B2b per forward and backward, against
@@ -119,7 +127,11 @@ Phases, one JSON line each; any failure exits non-zero:
      of an unprofiled run, and one decode block each profiled in an
      untimed warm-up with every row busy; the paged engine at 8 rows on the
      first 16 requests gives the dense engine's tokens, and its logprobs
-     pass teacher forcing;
+     pass teacher forcing; then serve_paged_fp8: the paged run over an fp8
+     pool beside the int8 one, and the paged engine at 8 rows on the first
+     8 requests with interleaved admission in chunks of 256 (the
+     multi-token cast path of B7 through the page table), exact launch
+     counts and teacher forcing on its logprobs;
  15. serve_prefix: benchmarks/bench_prefix.py's 8 requests (a shared
      16384-token system prompt + 64 tokens, 16 new) at 4 rows, plain
      against prefix_cache=True: 7 x 16384 prefix-hit tokens, the suffix
@@ -138,7 +150,15 @@ trainer's per-layer shape, at one chunk and at the ring's zigzag and
 stripe steps (LSE_FLOOR says which rows a per-step check holds), B3 over
 int8 K/V with segments and dropout and with kv_lengths on the
 chunked-prefill cache call, each timed with its bound and SDPA's
-yardstick, and exact probes of the dropout keep mask in all three.
+yardstick, and exact probes of the dropout keep mask in all three; and the
+fp8 and int4 caches (kernel_quant_cache): B6 appending fp8 and packed
+int4 rows, dense and paged, bit for bit; B7 at the slice's decode shape on
+fp8's cast path, int8's and int4's cast path (mxu_int8=False), int4's s8
+path, int8 with ALiBi and with kv_splits=4, and paged fp8 over one token
+and a 256-token run; B3 over fp8 and int4 K/V at the chunk shape, dense
+and with window 4096 and 4 sinks (with its band check), and in the
+online and softcap forms; each against its plain version with its bound
+and SDPA over the dequantized cache.
 Then the kernel table, the card's name and power limit, and as the last line
 {"ok": true, "device": {...}}.
 """
@@ -1357,12 +1377,14 @@ def b7_case(decode, tag, q, kc, vc, ks, vs, lens, pt, layer, **kw):
     b, n_tok, h, d = qr.shape
     hk = kc.shape[2]
     scale = d ** -0.5
+    # the s8 path over int8 (and int4); fp8 takes the cast path
+    s8 = quant and kc.dtype in (torch.int8, torch.uint8)
     plan = decode.decode_run_plan(n_tok, hk, h // hk, d, PAGE,
                                   kc.element_size(), paged=True)
     subs = []
     for i, e, bkv in plan:
         q_in, q_rs, _ = decode.decode_query_operands(
-            qr[:, i:e], kc, quant, scale=scale, block_kv=4096, paged=True)
+            qr[:, i:e], kc, s8, scale=scale, block_kv=4096, paged=True)
         subs.append(((q_in, q_rs, kc, vc, ks, vs, lens - (n_tok - e)),
                      dict(layer=layer, block_kv=bkv, scale=scale,
                           window_left=win, sink_tokens=sinks, n_tok=e - i,
@@ -1371,9 +1393,12 @@ def b7_case(decode, tag, q, kc, vc, ks, vs, lens, pt, layer, **kw):
                           for a, k in subs], iters=20)
     plain_ms = time_ms(lambda: [decode.decode_attention_core_plain(*a, **k)
                                 for a, k in subs], iters=2, warmup=1)
-    # the library's attention over the gathered, dequantized rows
-    kd, vd = gather_dense(kc[layer:layer + 1], pt)[0], gather_dense(
-        vc[layer:layer + 1], pt)[0]
+    # the library's attention over the gathered, dequantized rows (the
+    # stored values widened first: bf16 holds them exactly)
+    from long_context_attention_tpu_torch.ops.kv_cache import _widen
+
+    kd, vd = (gather_dense(_widen(t[layer:layer + 1]), pt)[0]
+              for t in (kc, vc))
     if quant:
         kd = kd.float() * gather_dense(ks[layer:layer + 1], pt, True)[0][
             :, :, 0, :, None]
@@ -1395,7 +1420,7 @@ def b7_case(decode, tag, q, kc, vc, ks, vs, lens, pt, layer, **kw):
     return {"case": f"paged {tag}, lengths {lens.tolist()}, sub-runs "
                     f"{[(e - i, bkv) for i, e, bkv in plan]}",
             **case_row(checks, ms, plain_ms, ops, nbytes, lib_ms,
-                       PEAK_INT8_OPS if quant else PEAK_BF16_FLOPS)}
+                       PEAK_INT8_OPS if s8 else PEAK_BF16_FLOPS)}
 
 
 def kernel_b7_paged(decode, gen, dev):
@@ -1459,6 +1484,328 @@ def bit_equal(decode, tag, q, pool, dense, lens, pt, layer, **kw):
                              f"(max {max_err(po, do)})")
     emit({"phase": "check", "case": f"B7 paged = dense {tag}",
           "bit_equal": True})
+
+
+# ---------------------------------------------------------------------------
+# the fp8 and int4 caches: B6, B7 and B3 over fp8 and packed int4 values
+# ---------------------------------------------------------------------------
+
+QUANT_DTYPES = ("float8_e4m3fn", "int4")
+# the phases whose counters give the fp8 and int4 kernel cases their
+# launches (a case's "path"; a form that no phase takes has None and no
+# count): the slices over each cache, and serve_paged_fp8's one-token
+# run and its interleaved run of 256-token chunks
+QUANT_SLICE = {"float8_e4m3fn": "slice_fp8", "int4": "slice_int4"}
+FP8_RUNS = {1: "serve_paged_fp8", 256: "serve_paged_fp8 interleaved"}
+# bytes a cache element takes, by cache dtype
+CACHE_ELT = {"bfloat16": 2, "int8": 1, "float8_e4m3fn": 1, "int4": 0.5}
+
+
+def quant_values(kv_cache, shape, dtype, gen, dev):
+    """Cache values of ``shape`` (..., d) quantized to ``dtype`` from random
+    normal K/V, as a cache stores them: (storage, fp32 scales (...))."""
+    return kv_cache.quantize_kv(torch.randn(shape, generator=gen,
+                                            device=dev), dtype)
+
+
+def b6_quant_case(decode, kv_cache, tag, dtype, gen, dev, paged, path):
+    """B6 over an fp8 or int4 cache, dense (one token per row of the
+    slice's layered cache: rows at the prompt's end, -1, the last slot and
+    100) or through the page table (a 256-token run straddling a page):
+    the kernel's cache bit-equal to the plain version's, the skipped row
+    untouched, with times. `path`: the phase whose counters give the
+    case its launches (QUANT_SLICE, FP8_RUNS), or None."""
+    L, hk, d = MODEL["n_layers"], MODEL["n_kv_heads"], 128
+    layer = L - 1 if not paged else 1
+    if paged:
+        L = 2
+        n, pos = 256, [3 * PAGE - 100, -256, PAGED_LENS[2] - 256, 0]
+        kc, ks = quant_values(kv_cache, (L, POOL, hk, PAGE, d), dtype, gen,
+                              dev)
+        vc, vs = quant_values(kv_cache, (L, POOL, hk, PAGE, d), dtype, gen,
+                              dev)
+        ks, vs = ks[..., None, :], vs[..., None, :]
+        pt = torch.full((len(pos), PAGED_S_MAX // PAGE), -1,
+                        dtype=torch.int32)
+        free = list(range(1, POOL))
+        for r, p0 in enumerate(pos):
+            for i in range(max(p0 + n, 1) // PAGE + 1):
+                pt[r, i] = free.pop()
+        pt, cap, slot_dim = pt.to(dev), PAGED_S_MAX, PAGE
+    else:
+        n, pos = 1, [PROMPT, -1, S_MAX - 1, 100]
+        kc, ks = quant_values(kv_cache, (L, BATCH, hk, S_MAX, d), dtype, gen,
+                              dev)
+        vc, vs = quant_values(kv_cache, (L, BATCH, hk, S_MAX, d), dtype, gen,
+                              dev)
+        ks, vs = ks[..., None, :], vs[..., None, :]
+        pt, cap, slot_dim = None, S_MAX, S_MAX
+    b = len(pos)
+    kn, ksn = quant_values(kv_cache, (b, hk, n, d), dtype, gen, dev)
+    vn, vsn = quant_values(kv_cache, (b, hk, n, d), dtype, gen, dev)
+    pos_t = torch.tensor(pos, dtype=torch.int32, device=dev)
+    cache = [kc, vc, ks, vs]
+    ref = [t.clone() for t in cache]
+    before = [t.clone() for t in cache]
+    decode.cache_append(*cache[:2], kn, vn, pos_t, *cache[2:], ksn, vsn,
+                        layer=layer, page_table=pt)
+    decode.cache_append_plain(*ref[:2], kn, vn, pos_t, *ref[2:], ksn, vsn,
+                              layer=layer, page_table=pt)
+    torch.cuda.synchronize()
+
+    def same(a, r):
+        if a.dtype == torch.float8_e4m3fn:
+            a, r = a.view(torch.uint8), r.view(torch.uint8)
+        return torch.equal(a, r)
+
+    if not all(same(a, r) for a, r in zip(cache, ref)):
+        raise AssertionError(f"B6 {tag}: kernel and plain caches differ")
+    if not paged and not same(kc[layer, 1], before[0][layer, 1]):
+        raise AssertionError(f"B6 {tag}: the row at position -1 was written")
+    if sum(not same(a, r) for a, r in zip(cache, before)) != 4:
+        raise AssertionError(f"B6 {tag}: a live token was not written")
+    emit({"phase": "check", "case": f"B6 {tag}", "bit_equal": True})
+    ms = time_ms(lambda: decode.cache_append(
+        *cache[:2], kn, vn, pos_t, *cache[2:], ksn, vsn, layer=layer,
+        page_table=pt), iters=50)
+    plain_ms = time_ms(lambda: decode.cache_append_plain(
+        *ref[:2], kn, vn, pos_t, *ref[2:], ksn, vsn, layer=layer,
+        page_table=pt), iters=10)
+    slots = pos_t.long()[:, None] + torch.arange(n, device=dev)[None]
+    bi, ti = ((slots >= 0) & (slots < cap)).nonzero(as_tuple=True)
+    si = slots[bi, ti]
+    pg, off = ((pt.long()[bi, si // slot_dim], si % slot_dim) if paged
+               else (bi, si))
+    # the library's indexed copy of the same rows (as bytes: torch's
+    # index_put takes no fp8)
+    kb, vb, knb, vnb = (t.view(torch.uint8) for t in (kc, vc, kn, vn))
+
+    def indexed_copy():
+        kb[layer, pg, :, off] = knb[bi, :, ti]
+        vb[layer, pg, :, off] = vnb[bi, :, ti]
+        ks[layer, pg, :, 0, off] = ksn[bi, :, ti]
+        vs[layer, pg, :, 0, off] = vsn[bi, :, ti]
+
+    lib_ms = time_ms(indexed_copy, iters=10)
+    n_live = int(bi.numel())
+    nbytes = 2 * n_live * 2 * hk * (d * CACHE_ELT[dtype] + 4)
+    return {"case": f"{tag}: {'paged, run of 256' if paged else 'dense, '
+                    'one token'} per row at {pos}", "path": path,
+            **case_row([(0.0, 0.0)], ms, plain_ms, 0, nbytes, lib_ms)}
+
+
+def b7_dense_case(decode, kv_cache, tag, q, kc, vc, ks, vs, lens, layer,
+                  **kw):
+    """decode_attention on the card against the same call on CPU copies of
+    the layer (the plain version), row by row; the kernel alone (the core
+    wrapper on the operands decode_attention makes) and its plain version
+    timed; SDPA over the dequantized cache (with ALiBi's bias) as the
+    library's yardstick."""
+    o, l = decode.decode_attention(q, kc, vc, lens, ks, vs, layer=layer,
+                                   return_lse=True, **kw)
+    cpu = [t[layer:layer + 1].cpu() for t in (kc, vc, ks, vs)]
+    po, pl_ = decode.decode_attention(q.cpu(), cpu[0], cpu[1], lens.cpu(),
+                                      cpu[2], cpu[3], layer=0,
+                                      return_lse=True, **kw)
+    torch.cuda.synchronize()
+    checks = [check_out(f"B7 out {tag}", o.cpu(), po)]
+    check(f"B7 lse {tag}", max_err(l.cpu(), pl_), LSE_TOL)
+    b, h, d = q.shape
+    hk = kc.shape[2]
+    g = h // hk
+    scale = d ** -0.5
+    s8 = kw.get("mxu_int8", True) and kc.dtype in (torch.int8, torch.uint8)
+    q_in, q_rs, bkv = decode.decode_query_operands(q, kc, s8, scale=scale,
+                                                   block_kv=4096)
+    slopes = kw.get("alibi_slopes")
+    # the row slopes decode_attention hands the kernel (times log2e in the
+    # fast form)
+    rows = (None if slopes is None else
+            (slopes * math.log2(math.e)).reshape(hk, g))
+    ckw = dict(layer=layer, block_kv=bkv, scale=scale, alibi=rows,
+               kv_splits=kw.get("kv_splits"))
+    args = (q_in, q_rs, kc, vc, ks, vs, lens)
+    ms = time_ms(lambda: decode.decode_attention_core(*args, **ckw),
+                 iters=20)
+    plain_ms = time_ms(lambda: decode.decode_attention_core_plain(
+        *args, **ckw), iters=3, warmup=1)
+    n = int(lens.max())
+    kd, vd = (kv_cache.dequantize_kv(t[layer, :, :, :n], sc[layer, :, :, 0,
+                                                            :n])
+              .repeat_interleave(g, 1) for t, sc in ((kc, ks), (vc, vs)))
+    cols = torch.arange(n, device=q.device)
+    last = lens.long()[:, None] - 1
+    mask = torch.where(cols[None] <= last, 0.0, -math.inf)[:, None, None]
+    if slopes is not None:
+        mask = mask - (slopes[None, :, None, None]
+                       * (last[:, None, None] - cols).float())
+    mask = mask.expand(b, h, 1, n).to(torch.bfloat16)
+    qh = q[:, :, None, :]
+    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        qh, kd, vd, attn_mask=mask), iters=20)
+    live = int(lens.sum())
+    elt = 0.5 if kc.dtype == torch.uint8 else kc.element_size()
+    nbytes = int(2 * hk * live * d * elt + 8 * hk * live + b * h * d * 2 * 2)
+    del kd, vd, mask
+    return {"case": f"{tag}, lengths {lens.tolist()}",
+            **case_row(checks, ms, plain_ms, 4 * h * live * d, nbytes,
+                       lib_ms, PEAK_INT8_OPS if s8 else PEAK_BF16_FLOPS)}
+
+
+
+def kernel_b7_quant(decode, kv_cache, gen, dev):
+    """B7 at the slice's decode shape (b=4, a cache of S_MAX slots, ~8.2K
+    live): fp8 on the cast path, int8 on the cast path (mxu_int8=False),
+    int4 on the s8 path and on the cast path, int8 with ALiBi (the
+    geometric slopes of BLOOM and MPT) and int8 with kv_splits=4; then
+    paged fp8 through the page table, one token per row and a run of 256
+    (split as the tile rule splits it)."""
+    L, b, hk, d = MODEL["n_layers"], BATCH, MODEL["n_kv_heads"], 128
+    h = MODEL["n_heads"]
+    lens = torch.tensor([PROMPT + 1, PROMPT - 42, PROMPT + NEW, PROMPT - 193],
+                        dtype=torch.int32, device=dev)
+    layer = L // 3
+    cases = []
+    # (tag, kwargs, the phase whose counters give its launches or None)
+    for dtype, tag_kw in (
+            ("float8_e4m3fn", (("fp8 cast", {}, "slice_fp8"),)),
+            ("int8", (("int8 cast", dict(mxu_int8=False), None),
+                      ("int8 ALiBi", dict(alibi_slopes=alibi_slopes(h, dev)),
+                       None),
+                      ("int8 kv_splits=4", dict(kv_splits=4), None))),
+            ("int4", (("int4 s8", {}, "slice_int4"),
+                      ("int4 cast", dict(mxu_int8=False), None)))):
+        kc, ks = quant_values(kv_cache, (L, b, hk, S_MAX, d), dtype, gen, dev)
+        vc, vs = quant_values(kv_cache, (L, b, hk, S_MAX, d), dtype, gen, dev)
+        ks, vs = ks[..., None, :], vs[..., None, :]
+        q = torch.randn((b, h, d), generator=gen, device=dev).bfloat16()
+        for tag, kw, path in tag_kw:
+            cases.append({**b7_dense_case(decode, kv_cache, tag, q, kc, vc,
+                                          ks, vs, lens, layer, **kw),
+                          "path": path})
+        del kc, vc, ks, vs
+        torch.cuda.empty_cache()
+    # paged fp8: one token per row over PAGED_LENS, and a 256-token run
+    for lens_p, n_pages, n_tok in ((PAGED_LENS, None, 1),
+                                   (RUN_LENS, RUN_PAGES, 256)):
+        kc, vc, ks, vs, pt = paged_pool(gen, dev, "bfloat16", lens=lens_p,
+                                        n_pages=n_pages)
+        (kc, ks), (vc, vs) = (kv_cache.quantize_kv(t, "float8_e4m3fn")
+                              for t in (kc, vc))
+        ks, vs = ks[..., None, :], vs[..., None, :]
+        lt = torch.tensor(lens_p, dtype=torch.int32, device=dev)
+        shape = (len(lens_p), h, d) if n_tok == 1 else (len(lens_p), n_tok,
+                                                        h, d)
+        q = torch.randn(shape, generator=gen, device=dev).bfloat16()
+        cases.append({**b7_case(decode, f"fp8 n={n_tok}", q, kc, vc, ks, vs,
+                                lt, pt, 1), "path": FP8_RUNS[n_tok]})
+        del kc, vc, ks, vs
+        torch.cuda.empty_cache()
+    return cases
+
+
+def kernel_b3_quant(flash, kv_cache, gen, dev):
+    """B3 over fp8 and packed int4 K/V as the chunked prefill runs it on
+    such a cache (2048 rows at q_start 6144 over the layer's prefix, read
+    in place as a strided slice), dense and with window 4096 and 4 sinks;
+    the online and softcap forms where lengths and the window cut tiles;
+    the band check over the windowed call; each against the plain version
+    on the card (the values widened exactly), with times and SDPA over the
+    dequantized prefix."""
+    b, h, hk, d = BATCH, MODEL["n_heads"], MODEL["n_kv_heads"], 128
+    s_q, start = CHUNK, PROMPT - CHUNK
+    scale = d ** -0.5
+    q = torch.randn((b, s_q, h, d), generator=gen, device=dev).bfloat16()
+    win = dict(window_size=(WINDOW, -1), sink_tokens=SINKS)
+    cases = []
+    for dtype in QUANT_DTYPES:
+        kc, kst = quant_values(kv_cache, (2, b, hk, S_MAX, d), dtype, gen,
+                               dev)
+        vc, vst = quant_values(kv_cache, (2, b, hk, S_MAX, d), dtype, gen,
+                               dev)
+        kst, vst = kst[..., None, :], vst[..., None, :]
+        args = (kc[1, :, :, :start], vc[1, :, :, :start],
+                kst[1, :, :, 0, :start], vst[1, :, :, 0, :start])
+        kd, vd = (kv_cache.dequantize_kv(t, sc) for t, sc in
+                  ((args[0], args[2]), (args[1], args[3])))
+        qh = q.transpose(1, 2)
+        for wtag, wkw in (("dense", {}), ("window sinks", win)):
+            checks = []
+            o, l = flash.flash_fwd_pos(q, *args, q_start=start, causal=True,
+                                       scale=scale, **wkw)
+            po, pl_ = flash.flash_fwd_pos_plain(q, *args, q_start=start,
+                                                causal=True, scale=scale,
+                                                **wkw)
+            torch.cuda.synchronize()
+            checks.append(check_out(f"B3 out {dtype} {wtag}", o, po))
+            check(f"B3 lse {dtype} {wtag}", max_err(l, pl_), LSE_TOL)
+            del po, pl_
+            vis = visible(s_q, start, start, True,
+                          **({} if not wkw else dict(left=WINDOW,
+                                                     sink=SINKS)), dev=dev)
+            if wkw:  # the band check: NaN scales outside the walk
+                tiles = unseen_tiles(vis, B3_KV_TILE)
+                ksp, vsp = (poison(t, 2, tiles, B3_KV_TILE)
+                            for t in args[2:])
+                got, _ = flash.flash_fwd_pos(q, *args[:2], ksp, vsp,
+                                             q_start=start, causal=True,
+                                             scale=scale, **wkw)
+                torch.cuda.synchronize()
+                band_check(f"B3 {dtype}", got, o, len(tiles))
+                del ksp, vsp, got
+            ms = time_ms(lambda: flash.flash_fwd_pos(
+                q, *args, q_start=start, causal=True, scale=scale, **wkw))
+            plain_ms = time_ms(lambda: flash.flash_fwd_pos_plain(
+                q, *args, q_start=start, causal=True, scale=scale, **wkw),
+                iters=2, warmup=1)
+            lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+                qh, kd, vd, attn_mask=None if not wkw else vis,
+                enable_gqa=True))
+            cols = int(vis.any(0).sum())
+            nbytes = int(2 * 2 * q.numel() + 4 * b * h * s_q
+                         + 2 * b * hk * cols * (d * CACHE_ELT[dtype] + 4))
+            cases.append({"case": f"{dtype} prefix {start}, {s_q} rows, "
+                                  f"{wtag}",
+                          "path": None if wkw else QUANT_SLICE[dtype],
+                          **case_row(checks, ms, plain_ms,
+                                     4 * b * h * d * int(vis.sum()), nbytes,
+                                     lib_ms)})
+        # the online and softcap forms where the edges cut 128-wide tiles
+        sr, qs0, kvr = 300, 1037, 1337
+        small = tuple(t[..., :kvr, :] if t.dim() == 4 else t[..., :kvr]
+                      for t in args)
+        for ftag, fkw in (("safe", dict(safe_softmax=True)),
+                          ("softcap", dict(softcap=SOFTCAP))):
+            kw = dict(fkw, q_start=qs0, causal=True, scale=scale,
+                      window_size=(500, -1), sink_tokens=70)
+            o, l = flash.flash_fwd_pos(q[:, :sr].contiguous(), *small, **kw)
+            po, pl_ = flash.flash_fwd_pos_plain(q[:, :sr].contiguous(),
+                                                *small, **kw)
+            torch.cuda.synchronize()
+            cases[-1].setdefault("form_row_rel_err", {})[ftag] = check_out(
+                f"B3 out {dtype} {ftag} window 500 sinks 70", o, po)[1]
+            check(f"B3 lse {dtype} {ftag}", max_err(l, pl_), LSE_TOL)
+        del kc, vc, kst, vst, args, kd, vd
+        torch.cuda.empty_cache()
+    return cases
+
+
+def kernel_quant_cache(K, flash, decode, kv_cache, gen, dev):
+    """The kernel cases of the fp8 and int4 caches: B6 (dense one token,
+    paged run of 256), B7 (kernel_b7_quant) and B3 (kernel_b3_quant), by
+    kernel name."""
+    b6 = [b6_quant_case(decode, kv_cache, f"{dt} {'paged' if p else 'dense'}",
+                        dt, gen, dev, p, path)
+          for dt in QUANT_DTYPES
+          for p, path in ((False, QUANT_SLICE[dt]),
+                          (True, FP8_RUNS[256] if dt == "float8_e4m3fn"
+                           else None))]
+    torch.cuda.empty_cache()
+    b7 = kernel_b7_quant(decode, kv_cache, gen, dev)
+    torch.cuda.empty_cache()
+    b3 = kernel_b3_quant(flash, kv_cache, gen, dev)
+    torch.cuda.empty_cache()
+    return {"cache_append": b6, "decode_attention": b7, "flash_fwd_pos": b3}
 
 
 def sdpa_backward_ms(q, k, v, dout):
@@ -1994,17 +2341,30 @@ def expect_counts(build, want):
     return got
 
 
-def serve_phase(pkg, build, dev, card, windowed):
-    """Serve the 0.88B config (dense, or with the sliding window and sinks):
-    prefill_chunked + decode_scan with exact launch counts, teacher
-    forcing, profiles of one decode step and a two-chunk prefill, and a
-    generate at b=2. Returns the prefill_chunked + decode_scan run's launch
-    counts and its serving numbers."""
+def cache_bytes(cache):
+    """Bytes the cache's values and scales take on the card."""
+    return sum(t.numel() * t.element_size() for t in (
+        cache.k, cache.v, cache.k_scale, cache.v_scale) if t is not None)
+
+
+def serve_phase(pkg, build, dev, card, windowed, cache_dtype="int8"):
+    """Serve the 0.88B config (dense, or with the sliding window and sinks)
+    over a cache of ``cache_dtype``: prefill_chunked + decode_scan with
+    exact launch counts, teacher forcing (its decode step profiled), and
+    the cache's bytes. The int8 runs add a profile of a two-chunk prefill,
+    and a generate at b=2. The fp8 and int4 runs (slice_fp8, slice_int4)
+    hold fp8 to the int8 gate (TEACHER_TOL) and report int4's error, gated
+    on finite logits as the JAX suite gates an int4 cache. Returns the
+    prefill_chunked + decode_scan run's launch counts and its serving
+    numbers."""
     from long_context_attention_tpu_torch.models.llama import (
         decode_step, init_params)
     from long_context_attention_tpu_torch.serving.engine import Engine
 
     tag = "slice_windowed" if windowed else "slice"
+    quant = cache_dtype != "int8"  # the fp8 and int4 slices
+    if quant:
+        tag = f"slice_{QUANT_TAG[cache_dtype]}"
     cfg = pkg.ModelConfig(**MODEL, **(WINDOWED if windowed else {}))
     L = cfg.n_layers
     # a chunk's self-attention: B4 under the window, B1 without it
@@ -2014,7 +2374,7 @@ def serve_phase(pkg, build, dev, card, windowed):
     params = init_params(gen, cfg, device=dev)
     prompt = torch.randint(0, cfg.vocab, (BATCH, PROMPT), generator=gen,
                            device=dev)
-    eng = Engine(cfg=cfg, s_max=S_MAX, cache_dtype="int8",
+    eng = Engine(cfg=cfg, s_max=S_MAX, cache_dtype=cache_dtype,
                  weight_dtype="int8", device=dev)
     dparams = eng.decode_params(params)
 
@@ -2053,8 +2413,10 @@ def serve_phase(pkg, build, dev, card, windowed):
     # self-attention kernel at s=8193); that step runs under the profiler
     # for the decode-step breakdown
     for f, t in fork.items():
-        getattr(cache, f).copy_(t)
+        if t is not None:
+            getattr(cache, f).copy_(t)
     torch.cuda.synchronize()
+    n_bytes = cache_bytes(cache)
     step1, profile = profiled(lambda: decode_step(dparams, cache, first,
                                                   cfg)[0])
     emit({"phase": "decode_profile", "serving": tag, **profile})
@@ -2063,27 +2425,35 @@ def serve_phase(pkg, build, dev, card, windowed):
                                                  dim=1))
     if not (torch.isfinite(step1).all() and torch.isfinite(tf_logits).all()):
         raise AssertionError("teacher-forcing logits are not finite")
-    # breakdown of a two-chunk prefill (the self-attention kernel on both
-    # chunks, B3 on the second)
-    _, prefill_profile = profiled(lambda: eng.prefill_chunked(
-        params, prompt[:, :2 * CHUNK], CHUNK)[0])
-    emit({"phase": "prefill_profile", "serving": tag,
-          "tokens": BATCH * 2 * CHUNK, **prefill_profile})
+    if not quant:
+        # breakdown of a two-chunk prefill (the self-attention kernel on
+        # both chunks, B3 on the second)
+        _, prefill_profile = profiled(lambda: eng.prefill_chunked(
+            params, prompt[:, :2 * CHUNK], CHUNK)[0])
+        emit({"phase": "prefill_profile", "serving": tag,
+              "tokens": BATCH * 2 * CHUNK, **prefill_profile})
     tf_err = float((step1 - tf_logits).abs().max())
     tf_argmax = float((step1.argmax(-1) == tf_logits.argmax(-1)).float()
                       .mean())
-    check(f"{tag} teacher forcing", tf_err, TEACHER_TOL)
+    gated = cache_dtype != "int4"  # int4: finite logits (checked above)
+    if gated:
+        check(f"{tag} teacher forcing", tf_err, TEACHER_TOL)
     numbers = {"prefill_s": prefill_s,
                "prefill_tok_per_s": BATCH * PROMPT / prefill_s,
                "decode_ms_per_step": 1e3 * decode_s / NEW,
-               "decode_tok_per_s": BATCH * NEW / decode_s}
+               "decode_tok_per_s": BATCH * NEW / decode_s,
+               "decode_step_device_ms": profile["device_ms"],
+               "cache_bytes": n_bytes}
     emit({"phase": tag, "card": card, "model": "llama-0.88B",
           "window_left": cfg.window_left, "sink_tokens": cfg.sink_tokens,
           "batch": BATCH, "prompt": PROMPT, "chunk": CHUNK,
-          "new_tokens": NEW, "cache_dtype": "int8", "weight_dtype": "int8",
-          **numbers, "teacher_forcing_max_abs_err": tf_err,
-          "teacher_tol": TEACHER_TOL, "teacher_argmax_agree": tf_argmax,
-          "launches": counts})
+          "new_tokens": NEW, "cache_dtype": cache_dtype,
+          "weight_dtype": "int8", **numbers,
+          "teacher_forcing_max_abs_err": tf_err,
+          "teacher_tol": TEACHER_TOL if gated else None,
+          "teacher_argmax_agree": tf_argmax, "launches": counts})
+    if quant:
+        return counts, numbers
 
     # generate over a prompt shorter than the window: with sinks, the band
     # and the sink tile overlap
@@ -2112,6 +2482,8 @@ def serve_phase(pkg, build, dev, card, windowed):
 # continuous and paged serving
 # ---------------------------------------------------------------------------
 
+QUANT_TAG = {"float8_e4m3fn": "fp8", "int4": "int4"}
+
 # benchmarks/bench_paged.py:160-189: 48 requests, prompts of 1024 or 2048
 # tokens from numpy.random.default_rng(0), 64 new tokens each; rows of
 # 16384 (the long-tail reservation of a dense engine), step_block 8 and
@@ -2119,6 +2491,7 @@ def serve_phase(pkg, build, dev, card, windowed):
 # of the same bytes (8 rows of 16384 in pages of 2048, plus scratch).
 CONT_REQUESTS, CONT_PROMPTS, CONT_NEW, CONT_S_MAX = 48, (1024, 2048), 64, 16384
 CONT_GATE = 16          # requests the paged engine serves at 8 rows too
+FP8_INTERLEAVED = 8     # requests of serve_paged_fp8's interleaved run
 CONT_TF_SAMPLE = 4      # requests held to teacher forcing
 STEP_BLOCK = 8
 # benchmarks/bench_prefix.py:40-75: 8 requests of a shared 16384-token
@@ -2316,6 +2689,84 @@ def serve_paged_phase(pkg, build, dev, card):
           "requests": CONT_GATE, "max_batch": 8,
           "tokens_equal_dense": True, "teacher_forcing_max_abs_err": tf,
           "teacher_tol": TEACHER_TOL})
+    torch.cuda.empty_cache()
+    out.update(serve_paged_fp8(build, cfg, params, reqs, common, pool, card,
+                               out["serve_paged"]))
+    return out
+
+
+def serve_paged_fp8(build, cfg, params, reqs, common, pool, card, int8):
+    """serve_paged_fp8: serve_paged's workload and engine (32 rows, pages
+    of 2048, step_block 8, host_overlap) over an fp8 pool, beside the int8
+    run's numbers: B6 writing fp8 rows and B7 on the cast path through the
+    page table, exact launch counts. Then the interleaved fp8 run: the
+    paged engine at 8 rows on the first FP8_INTERLEAVED requests with
+    interleave_admission in chunks of STALL_CHUNK (no host overlap, which
+    interleaving does not take), so every admission runs
+    the multi-token cast path of B7 (each chunk split by the tile rule)
+    over the fp8 pool; exact launch counts, and its logprobs of a sample
+    of requests against teacher forcing (TEACHER_TOL)."""
+    from long_context_attention_tpu_torch.ops import decode
+    from long_context_attention_tpu_torch.serving import PagedContinuousEngine
+
+    L, hk = cfg.n_layers, cfg.n_kv_heads
+    fp8 = dict(common, cache_dtype="float8_e4m3fn")
+    eng = probe_engine(PagedContinuousEngine)(
+        cfg, max_batch=32, page_size=PAGE, pool_pages=pool, **fp8)
+    probe_reset()
+    eng.serve(params, reqs[:eng.max_batch])  # warm-up, untimed
+    res, wall, toks, steps, counts = serve_timed(build, eng, params, reqs)
+    if sorted(res) != list(range(CONT_REQUESTS)) or any(
+            len(r.tokens) != CONT_NEW for r in res.values()):
+        raise AssertionError("serve_paged_fp8: not every request completed")
+    if PROBE["paged"] != {True}:
+        raise AssertionError("serve_paged_fp8: a decode block without the "
+                             "page table")
+    launches = expect_serving_counts("serve_paged_fp8", counts, L, steps,
+                                     CONT_REQUESTS)
+    out = {"serve_paged_fp8": {"wall_s": wall, "tok_per_s": toks / wall,
+                               "tokens": toks, "decode_steps": steps,
+                               "launches": launches}}
+    emit({"phase": "serve_paged_fp8", "card": card, "model": "llama-0.88B",
+          "requests": CONT_REQUESTS, "max_new": CONT_NEW, "max_batch": 32,
+          "s_max": CONT_S_MAX, "cache_dtype": "float8_e4m3fn",
+          "weight_dtype": "int8", "step_block": STEP_BLOCK,
+          "host_overlap": True, "page_size": PAGE, "pool_pages": pool,
+          **out["serve_paged_fp8"],
+          "int8_serve_paged": {k: int8[k] for k in ("wall_s", "tok_per_s",
+                                                    "tokens")}})
+    del eng
+    torch.cuda.empty_cache()
+    # (interleaved admission does not compose with host_overlap)
+    gate = probe_engine(PagedContinuousEngine)(
+        cfg, max_batch=8, page_size=PAGE, pool_pages=pool,
+        return_logprobs=True, interleave_admission=True,
+        prefill_chunk=STALL_CHUNK, **dict(fp8, host_overlap=False))
+    subruns = len(decode.decode_run_plan(STALL_CHUNK, hk, cfg.n_heads // hk,
+                                         cfg.head_dim, PAGE, 1, paged=True))
+    sub = reqs[:FP8_INTERLEAVED]
+    chunks = sum(-(-len(r.tokens) // STALL_CHUNK) for r in sub)
+    res, wall, toks, steps, counts = serve_timed(build, gate, params, sub)
+    multi = {"cache_append": L * chunks,
+             "decode_attention": L * chunks * subruns}
+    launches = expect_serving_counts(
+        "serve_paged_fp8 interleaved", counts, L, steps, 0,
+        multi["cache_append"], multi["decode_attention"])
+    tf = []
+    for i in range(CONT_TF_SAMPLE):
+        want = teacher_forced_logprobs(params, cfg, sub[i].tokens,
+                                       res[i].tokens, gate.device)
+        tf.append(float((torch.tensor(res[i].logprobs) - want).abs().max()))
+    check("serve_paged_fp8 interleaved teacher forcing (logprobs)", max(tf),
+          TEACHER_TOL)
+    out["fp8_interleaved"] = {"wall_s": wall, "tok_per_s": toks / wall,
+                              "chunks": chunks, "subruns_per_chunk": subruns,
+                              "launches": launches,
+                              "multi_token_launches": multi}
+    emit({"phase": "serve_paged_fp8_interleaved", "card": card,
+          "requests": FP8_INTERLEAVED, "max_batch": 8,
+          "prefill_chunk": STALL_CHUNK, **out["fp8_interleaved"],
+          "teacher_forcing_max_abs_err": tf, "teacher_tol": TEACHER_TOL})
     return out
 
 
@@ -2728,7 +3179,7 @@ def kernel_ring(K, flash, sage, ring, gen, dev):
             for _ in range(2))
     kt, vt = k.transpose(1, 2), v.transpose(1, 2)
     q8, qs, _ = sage.sage_quant_q(q, scale)
-    (k8, ks), (v8, vs) = (ring._quantize(t) for t in (k, v))
+    (k8, ks), (v8, vs) = (ring._quantize(t, "int8") for t in (k, v))
     out_rows = {n: [] for n in ("B3", "B2a", "B2b", "B8b")}
     for tag, fields, rank, step in RING_CASES:
         pos, mk = ring_case_kwargs(ring, tag, fields, rank, step)
@@ -2808,7 +3259,7 @@ def ring_forms(flash, ring, q, k, v, dout, scale):
     online form (safe_softmax); B2a and B2b with softcap 50."""
     pos, mk = ring_case_kwargs(ring, *RING_CASES[0])
     kt, vt = k.transpose(1, 2), v.transpose(1, 2)
-    (k8, ks), (v8, vs) = (ring._quantize(t) for t in (k, v))
+    (k8, ks), (v8, vs) = (ring._quantize(t, "int8") for t in (k, v))
     errs = {}
     for tag, args, kw in (
             ("int8 K/V", (q, k8.transpose(1, 2), v8.transpose(1, 2), ks, vs),
@@ -3069,7 +3520,7 @@ def kernel_features(K, flash, ring, gen, dev):
     # B3 over int8 K/V (kv_quant="int8"): segments and dropout at the
     # zigzag step, and all three features at one chunk (live pairs there:
     # the zigzag step's documents may not reach across its gap)
-    (k8, ks), (v8, vs) = (ring._quantize(t) for t in (k, v))
+    (k8, ks), (v8, vs) = (ring._quantize(t, "int8") for t in (k, v))
     i8 = (q, k8.transpose(1, 2), v8.transpose(1, 2), ks, vs)
     for (dtag, pos, mk, _, _), ftag, feat in (
             (descs[1], "segments dropout",
@@ -3757,13 +4208,55 @@ def ring_emulated_phase(build, flash, ring, dev, card):
     sage_err = max_err(got, one)
     check("ring_emulated zigzag sage int8 vs sage_attention", sage_err,
           RING_SAGE_TOL)
+    # kv_quant fp8 and int4, zigzag: each rank's K/V quantized once, the
+    # held quantized bytes into B3 at every (rank, step), against one-device
+    # attention over the dequantized K/V
+    from long_context_attention_tpu_torch.ops.kv_cache import (
+        dequantize_kv, quantize_kv)
+
+    quant, quant_counts = {}, {}
+    for kq in QUANT_DTYPES:
+        cfg = ring.RingConfig(ring_size=W, causal=True, layout="zigzag",
+                              kv_quant=kq)
+        parts = [ring._kv_parts(cfg, ks[r], vs[r]) for r in range(W)]
+        build.reset_launch_counts()
+        t0 = time.perf_counter()
+        outs = []
+        for r in range(W):
+            acc = None
+            for t in range(W):
+                kw = ring.ring_step_kwargs(cfg, r, t, L, L)
+                o, l = ring._block(cfg, impl, qs[r], parts[(r - t) % W], kw)
+                acc = ((o.float(), l) if acc is None else
+                       merge_attn_blocks(acc[0], acc[1], o, l))
+            outs.append(acc[0].to(q.dtype))
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+        quant_counts[kq] = expect_counts(build, {
+            n: W * W if n == "flash_fwd_pos" else 0 for n in build.KERNELS})
+        got = unpermute_from_layout(torch.cat(outs, 1), "zigzag", W)
+        kd, vd = (dequantize_kv(*quantize_kv(t.detach(), kq), t.dtype)
+                  for t in (k, v))
+        one = flash.flash_attention(q.detach(), kd, vd, causal=True)
+        err = max_err(got, one)
+        check(f"ring_emulated zigzag kv_quant={kq} vs flash_attention over "
+              f"the dequantized K/V", err, BF16_ATOL)
+        row_err = check_out(f"ring_emulated zigzag kv_quant={kq} out", got,
+                            one)[1]
+        rotated = sum(t.numel() * t.element_size() for t in parts[0])
+        quant[kq] = {"max_abs_err": err, "out_row_rel": row_err,
+                     "rotated_bytes_per_hop": rotated,
+                     "launches": quant_counts[kq], "wall_ms": wall_ms}
+        del parts, outs, got, kd, vd, one
+        torch.cuda.empty_cache()
     emit({"phase": "ring_emulated", "card": card, "ring": W, "seq": s,
           "local": L, "heads": h, "kv_heads": hk, "layouts": results,
           "sage_int8": {"max_abs_err_vs_sage_attention": sage_err,
-                        "tol": RING_SAGE_TOL, "launches": sage_counts}})
+                        "tol": RING_SAGE_TOL, "launches": sage_counts},
+          "kv_quant": quant, "tol": BF16_ATOL})
     del q, k, v, dout, want
     torch.cuda.empty_cache()
-    return counts, sage_counts
+    return counts, sage_counts, quant_counts
 
 
 def ring_features_phase(build, flash, ring, dev, card):
@@ -4256,7 +4749,8 @@ def main():
         return 1
     import long_context_attention_tpu_torch as pkg
     from long_context_attention_tpu_torch.ops import _build as build
-    from long_context_attention_tpu_torch.ops import decode, flash, sage, sparse
+    from long_context_attention_tpu_torch.ops import (
+        decode, flash, kv_cache, sage, sparse)
     from long_context_attention_tpu_torch.parallel import ring
 
     dev = torch.device("cuda")
@@ -4289,20 +4783,29 @@ def main():
     entries = {n: e for src in ("flash_fwd_sm90.cu", "flash_dq_sm90.cu",
                                 "flash_bwd_sm90.cu")
                for n, e in ptxas_entries(logs.get(src, "")).items()}
-    featured = re.compile(r"flash_fwd_sm90_kernelILb0ELi\dELb[01]ELb0ELb[01]"
+    featured = re.compile(r"flash_fwd_sm90_kernelILb0ELi\dELi[01]ELb0ELb[01]"
                           r"ELb1E|DenseRowsILb[01]ELb[01]ELb1E|"
                           r"flash_bwd_sm90_kernelILb0ELb0ELi\dELb[01]ELb1E")
     new = {n: e for n, e in entries.items()
-           if ("kernelILb0ELi0ELb0ELb1E" in n or "flash_dq_sm90_kernel" in n
+           if ("kernelILb0ELi0ELi0ELb1E" in n or "flash_dq_sm90_kernel" in n
                or "flash_bwd_sm90_kernel" in n) and not featured.search(n)}
     feat_entries = {n: e for n, e in entries.items() if featured.search(n)}
+    # the fp8 and int4 K/V instantiations of B3 (KV = 2, 3) and B7's kinds
+    quant_kernels = re.compile(r"flash_fwd_sm90_kernelILb0ELi\dELi[23]E|"
+                               r"decode_kernelILi\dELb[01]E")
+    quant_entries = {n: e for src in ("flash_fwd_sm90.cu",
+                                      "decode_attention.cu")
+                     for n, e in ptxas_entries(logs.get(src, "")).items()
+                     if quant_kernels.search(n)}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "sources": sorted(logs),
           "flash_fwd_sm90_dynamic_smem_bytes": fwd_smem,
           "flash_dq_sm90_dynamic_smem_bytes": dq_smem,
           "flash_bwd_sm90_dynamic_smem_bytes": bwd_smem,
           "sage_fwd_sm90_dynamic_smem_bytes": {"B8a, B8b": sage_smem},
-          "ptxas_bwd_dq_b9a": new, "ptxas_features": feat_entries})
+          "source_seconds": build.build_seconds(),
+          "ptxas_bwd_dq_b9a": new, "ptxas_features": feat_entries,
+          "ptxas_quant_cache": quant_entries})
     for src, log in logs.items():
         for line in log.splitlines():
             if any(w in line for w in ("entry function", "registers",
@@ -4346,6 +4849,13 @@ def main():
         for case in by_name[name]["paged_cases"]:
             emit({"phase": "kernel_paged", "name": name, **case})
     torch.cuda.empty_cache()
+    # B6, B7 and B3 over the fp8 and int4 caches
+    for name, cases in kernel_quant_cache(K, flash, decode, kv_cache, gen,
+                                          dev).items():
+        by_name[name]["quant_cases"] = cases
+        for case in cases:
+            emit({"phase": "kernel_quant_cache", "name": name, **case})
+    torch.cuda.empty_cache()
     # the four kernels at the dense ring's multi-chunk descriptors
     ring_rows = kernel_ring(K, flash, sage, ring, gen, dev)
     torch.cuda.synchronize()
@@ -4375,6 +4885,23 @@ def main():
                        "sink_tokens": SINKS}})
     torch.cuda.empty_cache()
     lap("slice")
+    # the same slice over fp8 and int4 caches
+    compared = ("prefill_s", "decode_ms_per_step", "decode_step_device_ms",
+                "cache_bytes")
+    qcounts, qnumbers = {}, {}
+    for dt in QUANT_DTYPES:
+        qcounts[dt], qnumbers[dt] = serve_phase(pkg, build, dev, smi,
+                                                windowed=False,
+                                                cache_dtype=dt)
+        torch.cuda.empty_cache()
+    emit({"phase": "slice_quant_compare", "card": smi,
+          "int8": {k: dense[k] for k in compared},
+          **{QUANT_TAG[dt]: {k: qnumbers[dt][k] for k in compared}
+             for dt in QUANT_DTYPES},
+          "cache_bytes_vs_int8": {QUANT_TAG[dt]: qnumbers[dt]["cache_bytes"]
+                                  / dense["cache_bytes"]
+                                  for dt in QUANT_DTYPES}})
+    lap("slice_fp8_int4")
     sage_counts = sage_serve_phase(pkg, build, dev, smi)
     torch.cuda.empty_cache()
     lap("slice_sage")
@@ -4399,8 +4926,8 @@ def main():
     torch.cuda.empty_cache()
     usp_counts = usp_sparse_phase(build, sparse, flash, dev, smi)
     lap("usp_sparse")
-    ring_counts, ring_sage_counts = ring_emulated_phase(build, flash, ring,
-                                                        dev, smi)
+    ring_counts, ring_sage_counts, ring_quant_counts = ring_emulated_phase(
+        build, flash, ring, dev, smi)
     ring_features_phase(build, flash, ring, dev, smi)
     lap("ring_emulated")
     usp_dense_phase(build, flash, dev, smi)
@@ -4424,6 +4951,10 @@ def main():
             "sage_fwd_rect": rect_counts,
             **{n: sage_counts["sage_fwd_tri"] for n in SAGE_QUANT},
             **{n: usp_counts for n in SPARSE_KERNELS}}
+    quant_paths = {
+        **{QUANT_SLICE[dt]: qcounts[dt] for dt in QUANT_DTYPES},
+        FP8_RUNS[1]: paged["serve_paged_fp8"]["launches"],
+        FP8_RUNS[256]: paged["fp8_interleaved"]["multi_token_launches"]}
     for r in rows:
         r["launches"] = path.get(r["name"], counts)[r["name"]]
         if "windowed" in r:
@@ -4469,6 +5000,15 @@ def main():
             else:
                 src = paged["serve_paged"]["launches"]
             case["launches"] = src[r["name"]]
+        # the fp8 and int4 cases: launches on the phase each names; none
+        # for the forms that no phase of this run takes
+        for case in r.get("quant_cases", []):
+            if case["path"] is not None:
+                case["launches"] = quant_paths[case["path"]][r["name"]]
+        if tag == "B3":  # B3 over fp8 and int4 K/V in the emulated rings
+            r["quant_ring_cases"] = {
+                QUANT_TAG[dt]: {"launches": ring_quant_counts[dt][r["name"]]}
+                for dt in QUANT_DTYPES}
     emit({"kernels": rows})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

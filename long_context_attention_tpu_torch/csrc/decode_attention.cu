@@ -3,9 +3,11 @@
 // KV cache, dense or paged, up to per-row lengths.
 //
 // Replaces the TPU kernel long_context_attention_tpu/ops/decode.py
-// _decode_kernel (wrapper decode_attention), for a bf16 cache or an int8
-// cache on the s8 x s8 path (mxu_int8), with an optional sliding window,
-// StreamingLLM sinks and logit softcap. `lengths` counts every visible slot
+// _decode_kernel (wrapper decode_attention), on its three paths: a bf16
+// cache; the s8 x s8 path (mxu_int8) over an int8 or int4 cache; and the
+// dequant-cast path over an int8, fp8 (e4m3) or int4 cache (template
+// parameter KIND); with an optional sliding window, StreamingLLM sinks,
+// logit softcap and ALiBi. `lengths` counts every visible slot
 // including the run: token i of a run sits at position len - n_tok + i and
 // sees the columns up to it (and its own window), so each query row has its
 // own causal and window bounds, in logical positions.
@@ -18,8 +20,9 @@
 // never read (the walk stops at its last live tile).
 //
 // What bounds it on an H100: for one token, memory. Every visible cache
-// byte is read once: 2*b*h_kv*n*d values plus 8*b*h_kv*n scale bytes for
-// int8, where n is a row's visible columns (its length, or its sinks plus
+// byte is read once: 2*b*h_kv*n*d values (2, 1 or 1/2 bytes each: bf16,
+// int8 or fp8, int4) plus 8*b*h_kv*n scale bytes when quantized, where n
+// is a row's visible columns (its length, or its sinks plus
 // its window band), against 3.35 TB/s; the arithmetic is a few operations
 // per byte. A run of many tokens is bound by its operations (q.k and p.v
 // per query row and visible column); this design reads the cache once per
@@ -40,28 +43,38 @@
 // into `bkv`-column tiles, and a split owns a contiguous run of them, so
 // b*h_kv*splits blocks fill the 132 SMs where b*h_kv alone would not; the
 // wrapper merges the splits' (out, lse) partials. Inside a tile:
-//   1. scores: 8 (int8) or 16 (bf16) lanes share one cache row with 16-byte
-//      loads (a warp reads 4 or 2 whole rows), dp4a or fp32 FMA, and a
-//      shuffle reduction; the tile's scores land in shared memory;
+//   1. scores: 16 lanes (bf16) or 8 (the other kinds) share one cache row,
+//      each with 16 bytes of it (8 of an int4 row), so a lane always holds
+//      8 or 16 of the row's d values; dp4a (s8: int4 nibbles sign-extended
+//      to s8 words first) or fp32 FMA (bf16, and the cast path's values
+//      widened exactly against bf16 q), and a shuffle reduction; then the
+//      scales (s8: q's row scale, cast and safe bf16: the softmax scale;
+//      quantized: k_scale[col]), the softcap, ALiBi's -slope * (q - col)
+//      and the masks; the tile's scores land in shared memory;
 //   2. softmax over the tile: p = exp2(min(s, 90)) (fast) or the online
-//      exp form (safe), l += rowsum(p); int8: p *= v_scale, then the tile's
-//      per-row requantization ps = max(rowmax, 1e-20)/127, p8 = rint(p/ps);
+//      exp form (safe), l += rowsum(p); quantized: p *= v_scale; s8: the
+//      tile's per-row requantization ps = max(rowmax, 1e-20)/127, p8 =
+//      rint(p/ps); bf16 and cast: p rounded to bf16;
 //   3. PV: warp w takes columns w, w+8, ...; lane owns 4 output features
-//      (a warp reads one 128-byte int8 row or 256-byte bf16 row); int32
-//      (int8) or fp32 (bf16) partials are reduced across warps in shared
-//      memory and added to the fp32 accumulator, int8 as int32 * ps.
+//      (a warp reads one whole V row); int32 (s8) or fp32 partials are
+//      reduced across warps in shared memory and added to the fp32
+//      accumulator, s8 as int32 * ps.
 // Columns left of the window and not sinks score -inf (p = 0) inside a live
 // tile; softcap (s = cap * tanh(s / cap)) runs before the mask, and the
 // wrapper then takes the online form.
 // With more than one split, a second small kernel merges the splits'
 // partials (the -inf-safe LSE merge of ops/merge.py merge_partials), in the
-// same entry point. Because the int8 P quantization is per tile, `bkv` is part of the
-// semantics and the plain version takes the same value.
+// same entry point. Because the s8 path's P quantization is per tile, `bkv`
+// is part of the semantics and the plain version takes the same value. The
+// wrapper picks the split count, or takes the caller's (kv_splits, JAX's
+// flash-decoding splits).
 
 #include <climits>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "kv_quant.cuh"
 
 namespace {
 
@@ -73,13 +86,34 @@ constexpr int UNROLL = 4;
 constexpr float kClamp = 90.f;
 constexpr float kNegInf = -1e30f;
 
+// kinds of K/V (ops/decode.py _KIND_*): the bf16 path; the s8 path over
+// int8 or int4; the dequant-cast path over int8, fp8 e4m3 or int4
+constexpr int kBF16 = 0, kS8I8 = 1, kS8I4 = 2, kCastI8 = 3, kCastF8 = 4,
+              kCastI4 = 5;
+
+template <int KIND>
+struct Kind {
+  static constexpr bool S8 = KIND == kS8I8 || KIND == kS8I4;
+  static constexpr bool CAST = KIND >= kCastI8;
+  static constexpr bool QUANT = S8 || CAST;
+  static constexpr bool I4 = KIND == kS8I4 || KIND == kCastI4;
+  // bytes of a cache row, lanes sharing a row in the scores, bytes a lane
+  // loads of it, q bytes per element and 16-byte q words a lane holds
+  static constexpr int ROW = KIND == kBF16 ? 2 * D : (I4 ? D / 2 : D);
+  static constexpr int CH = KIND == kBF16 ? 16 : 8;
+  static constexpr int LB = ROW / CH;
+  static constexpr int QEB = S8 ? 1 : 2;
+  static constexpr int QP = CAST ? 2 : 1;
+};
+
 struct Params {
-  const void* q;       // (b, h_kv, G, D) int8 or bf16
-  const float* qs;     // (b, h_kv, G) int8 row scales (scale folded in)
-  const void* k;       // (L, P, h_kv, page, D) int8 or bf16 (dense: P = b,
-  const void* v;       //   page = s_max)
-  const float* ks;     // (L, P, h_kv, 1, page) fp32, int8 only
+  const void* q;       // (b, h_kv, G, D) int8 (s8) or bf16
+  const float* qs;     // (b, h_kv, G) s8 row scales (scale folded in)
+  const void* k;       // (L, P, h_kv, page, row) (dense: P = b, page =
+  const void* v;       //   s_max); row: D values of KIND
+  const float* ks;     // (L, P, h_kv, 1, page) fp32, quantized kinds only
   const float* vs;
+  const float* slopes; // (h_kv, G) ALiBi row slopes, or null
   const int* lengths;  // (b,)
   const int* pt;       // (b, n_pages) page table, or null (dense)
   float* out;          // (b, splits, h_kv, G, D) fp32 partials
@@ -106,6 +140,24 @@ __device__ __forceinline__ float bf16_lo(unsigned w) {
 
 __device__ __forceinline__ float bf16_hi(unsigned w) {
   return __uint_as_float(w & 0xffff0000u);
+}
+
+// the cast path's 4 values in w (4 bytes of int8 or fp8, or the low 16
+// bits of int4 nibbles), widened exactly to float
+template <int KIND>
+__device__ __forceinline__ void widen4(unsigned w, float (&x)[4]) {
+  if constexpr (KIND == kCastF8) {
+    const float2 a = e4m3x2_to_float2(w & 0xffffu);
+    const float2 b = e4m3x2_to_float2(w >> 16);
+    x[0] = a.x;
+    x[1] = a.y;
+    x[2] = b.x;
+    x[3] = b.y;
+  } else {
+    if constexpr (KIND == kCastI4) w = s4x4_to_s8(w);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) x[e] = (float)(int8_t)((w >> (8 * e)) & 0xff);
+  }
 }
 
 // Reduce vals[0..G) over the block; results land in out[0..G) (shared).
@@ -137,11 +189,15 @@ __device__ void block_reduce(float (&vals)[MAXG], int G, float* red,
   __syncthreads();
 }
 
-template <bool INT8, bool SAFE>
+// ALIBI: p.slopes is set (an instantiation of its own, so the kinds
+// without it keep their score loop)
+template <int KIND, bool SAFE, bool ALIBI>
 __global__ void __launch_bounds__(NT) decode_kernel(const Params p) {
-  constexpr int EB = INT8 ? 1 : 2;       // bytes per cache element
-  constexpr int CH = D * EB / 16;        // lanes per cache row (scores)
+  using K = Kind<KIND>;
+  constexpr bool S8 = K::S8, QUANT = K::QUANT;
+  constexpr int CH = K::CH;              // lanes per cache row (scores)
   constexpr int RPI = NT / CH;           // cache rows per block pass
+  constexpr int QP = K::QP;
   extern __shared__ __align__(16) float smem[];
   const int sp = blockIdx.x, ib = blockIdx.z;
   const int hk = blockIdx.y / p.n_groups;
@@ -154,7 +210,7 @@ __global__ void __launch_bounds__(NT) decode_kernel(const Params p) {
   float* sM = sRed + NW * MAXG;          // running max (safe)
   float* sL = sM + MAXG;                 // running sum
   float* sAl = sL + MAXG;                // this tile's rescale (safe)
-  float* sPs = sAl + MAXG;               // this tile's P scale (int8)
+  float* sPs = sAl + MAXG;               // this tile's P scale (s8)
   float* sT = sPs + MAXG;                // tile reduction results
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -174,21 +230,29 @@ __global__ void __launch_bounds__(NT) decode_kernel(const Params p) {
     sL[tid] = 0.f;
   }
 
-  // this thread's 16-byte slice of every query row
+  // this thread's slice of every query row: the d values its lane's cache
+  // bytes hold (16 bytes of q; 32 of bf16 q on the cast path)
   const int ch = tid % CH;
   const int rsub = tid / CH;
-  Pack16 qreg[MAXG];
-#pragma unroll
-  for (int r = 0; r < MAXG; ++r) {
-    qreg[r].u = make_uint4(0, 0, 0, 0);
-    if (r < G)
-      qreg[r].u = *reinterpret_cast<const uint4*>(
-          static_cast<const char*>(p.q) + ((qrow0 + r) * D) * EB + ch * 16);
-  }
-  float qscale[MAXG];
+  Pack16 qreg[MAXG][QP];
 #pragma unroll
   for (int r = 0; r < MAXG; ++r)
-    qscale[r] = (INT8 && r < G) ? p.qs[qrow0 + r] : 0.f;
+#pragma unroll
+    for (int c = 0; c < QP; ++c) {
+      qreg[r][c].u = make_uint4(0, 0, 0, 0);
+      if (r < G)
+        qreg[r][c].u = *reinterpret_cast<const uint4*>(
+            static_cast<const char*>(p.q) + ((qrow0 + r) * D) * K::QEB +
+            (ch * QP + c) * 16);
+    }
+  float qscale[MAXG], slope[MAXG];
+#pragma unroll
+  for (int r = 0; r < MAXG; ++r) {
+    qscale[r] = (S8 && r < G) ? p.qs[qrow0 + r] : 0.f;
+    slope[r] = (ALIBI && r < G)
+                   ? p.slopes[(long long)hk * p.G + r0 + r]
+                   : 0.f;
+  }
   __syncthreads();
 
   // the row's live tiles, each once: the sink tiles before the window's
@@ -222,10 +286,10 @@ __global__ void __launch_bounds__(NT) decode_kernel(const Params p) {
     const long long slab =
         ((long long)p.layer * p.pool + pg) * p.h_kv + hk;
     const long long base = slab * p.page + off;  // the tile's first slot
-    const char* kt = static_cast<const char*>(p.k) + base * D * EB;
-    const char* vt = static_cast<const char*>(p.v) + base * D * EB;
-    const float* kst = INT8 ? p.ks + base : nullptr;
-    const float* vst = INT8 ? p.vs + base : nullptr;
+    const char* kt = static_cast<const char*>(p.k) + base * K::ROW;
+    const char* vt = static_cast<const char*>(p.v) + base * K::ROW;
+    const float* kst = QUANT ? p.ks + base : nullptr;
+    const float* vst = QUANT ? p.vs + base : nullptr;
 
     // 1. scores
     for (int j0 = lo; j0 < hi; j0 += RPI * UNROLL) {
@@ -234,33 +298,73 @@ __global__ void __launch_bounds__(NT) decode_kernel(const Params p) {
       for (int u = 0; u < UNROLL; ++u) {
         const int j = j0 + u * RPI + rsub;
         kr[u].u = make_uint4(0, 0, 0, 0);
-        if (j < hi)
-          kr[u].u = *reinterpret_cast<const uint4*>(
-              kt + (long long)j * D * EB + ch * 16);
+        if (j < hi) {
+          const char* src = kt + (long long)j * K::ROW + ch * K::LB;
+          if constexpr (K::LB == 16) {
+            kr[u].u = *reinterpret_cast<const uint4*>(src);
+          } else {
+            const uint2 w = *reinterpret_cast<const uint2*>(src);
+            kr[u].u.x = w.x;
+            kr[u].u.y = w.y;
+          }
+        }
       }
 #pragma unroll
       for (int u = 0; u < UNROLL; ++u) {
         const int j = j0 + u * RPI + rsub;
+        // int4 on the s8 path: the lane's 16 nibbles as 4 s8 words
+        Pack16 k8 = kr[u];
+        if constexpr (KIND == kS8I4) {
+          s4x8_to_s8(kr[u].u.x, k8.u.x, k8.u.y);
+          s4x8_to_s8(kr[u].u.y, k8.u.z, k8.u.w);
+        }
+        // the cast path: the lane's 16 values widened
+        float kf[K::CAST ? 16 : 1];
+        if constexpr (K::CAST) {
+#pragma unroll
+          for (int w = 0; w < 4; ++w) {
+            float x[4];
+            if constexpr (KIND == kCastI4)
+              widen4<KIND>(kr[u].i[w / 2] >> (16 * (w & 1)), x);
+            else
+              widen4<KIND>((unsigned)kr[u].i[w], x);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) kf[4 * w + e] = x[e];
+          }
+        }
 #pragma unroll
         for (int r = 0; r < MAXG; ++r) {
           if (r >= G) break;
           float s;
-          if (INT8) {
+          if constexpr (S8) {
             int acc = 0;
 #pragma unroll
             for (int w = 0; w < 4; ++w)
-              acc = __dp4a(kr[u].i[w], qreg[r].i[w], acc);
+              acc = __dp4a(k8.i[w], qreg[r][0].i[w], acc);
 #pragma unroll
             for (int off = CH / 2; off > 0; off >>= 1)
               acc += __shfl_xor_sync(0xffffffffu, acc, off);
             s = (float)acc * qscale[r];
+            if (j < hi) s *= kst[j];
+          } else if constexpr (K::CAST) {
+            float acc = 0.f;
+#pragma unroll
+            for (int e = 0; e < 16; e += 2) {
+              const unsigned qw = (unsigned)qreg[r][e / 8].i[(e % 8) / 2];
+              acc = fmaf(bf16_lo(qw), kf[e], acc);
+              acc = fmaf(bf16_hi(qw), kf[e + 1], acc);
+            }
+#pragma unroll
+            for (int off = CH / 2; off > 0; off >>= 1)
+              acc += __shfl_xor_sync(0xffffffffu, acc, off);
+            s = SAFE ? acc * p.sscale : acc;
             if (j < hi) s *= kst[j];
           } else {
             float acc = 0.f;
 #pragma unroll
             for (int w = 0; w < 4; ++w) {
               const unsigned kw = (unsigned)kr[u].i[w];
-              const unsigned qw = (unsigned)qreg[r].i[w];
+              const unsigned qw = (unsigned)qreg[r][0].i[w];
               acc = fmaf(bf16_lo(qw), bf16_lo(kw), acc);
               acc = fmaf(bf16_hi(qw), bf16_hi(kw), acc);
             }
@@ -270,10 +374,14 @@ __global__ void __launch_bounds__(NT) decode_kernel(const Params p) {
             s = SAFE ? acc * p.sscale : acc;
           }
           if (p.cap > 0.f) s = p.cap * tanhf(s / p.cap);
+          const int col = c0 + j;
+          // ALiBi, after the softcap: -slope * (q - col), the product
+          // rounded on its own as in the plain version
+          if constexpr (ALIBI)
+            s = s - __fmul_rn(slope[r], (float)(qlim[r] - col));
           // per-row bounds: the run's causal limit and the row's window
           // (for one token, the masked columns are the gap between the
           // last sink and the window in the band's first tile)
-          const int col = c0 + j;
           if (col > qlim[r] || (col < wlo[r] && col >= p.sink)) s = kNegInf;
           if (ch == 0 && j < hi) sP[r * p.bkv + j] = s;
         }
@@ -310,10 +418,11 @@ __global__ void __launch_bounds__(NT) decode_kernel(const Params p) {
           float pv = SAFE ? expf(s - m) : exp2f(fminf(s, kClamp));
           if (SAFE && s == kNegInf) pv = 0.f;  // masked column
           a[r] += pv;
-          if (INT8) {
+          if (S8) {
             pv *= vst[j];
             bmax[r] = fmaxf(bmax[r], pv);
           } else {
+            if (K::CAST) pv *= vst[j];
             pv = __bfloat162float(__float2bfloat16_rn(pv));
           }
           sP[r * p.bkv + j] = pv;
@@ -322,7 +431,7 @@ __global__ void __launch_bounds__(NT) decode_kernel(const Params p) {
     }
     block_reduce<false>(a, G, sRed, sT);
     if (tid < G) sL[tid] = SAFE ? sL[tid] * sAl[tid] + sT[tid] : sL[tid] + sT[tid];
-    if (INT8) {
+    if (S8) {
       __syncthreads();
       block_reduce<true>(bmax, G, sRed, sT);
       if (tid < G) sPs[tid] = fmaxf(sT[tid], 1e-20f) * (1.0f / 127.0f);
@@ -352,11 +461,14 @@ __global__ void __launch_bounds__(NT) decode_kernel(const Params p) {
         const int j = j0 + u * NW;
         vw[u] = make_uint2(0, 0);
         if (j < hi) {
-          const char* row = vt + (long long)j * D * EB;
-          if (INT8)
-            vw[u].x = *reinterpret_cast<const unsigned*>(row + lane * 4);
+          // the lane's 4 features: 8 bytes (bf16), 4 (int8, fp8), 2 (int4)
+          const char* row = vt + (long long)j * K::ROW + lane * (K::ROW / 32);
+          if constexpr (KIND == kBF16)
+            vw[u] = *reinterpret_cast<const uint2*>(row);
+          else if constexpr (K::I4)
+            vw[u].x = *reinterpret_cast<const unsigned short*>(row);
           else
-            vw[u] = *reinterpret_cast<const uint2*>(row + lane * 8);
+            vw[u].x = *reinterpret_cast<const unsigned*>(row);
         }
       }
 #pragma unroll
@@ -365,10 +477,13 @@ __global__ void __launch_bounds__(NT) decode_kernel(const Params p) {
         if (j >= hi) break;
         float ve[4];
         int vi[4];
-        if (INT8) {
+        if constexpr (S8) {
+          const unsigned w8 = KIND == kS8I4 ? s4x4_to_s8(vw[u].x) : vw[u].x;
 #pragma unroll
           for (int e = 0; e < 4; ++e)
-            vi[e] = (int)(int8_t)((vw[u].x >> (8 * e)) & 0xff);
+            vi[e] = (int)(int8_t)((w8 >> (8 * e)) & 0xff);
+        } else if constexpr (K::CAST) {
+          widen4<KIND>(vw[u].x, ve);
         } else {
           ve[0] = bf16_lo(vw[u].x);
           ve[1] = bf16_hi(vw[u].x);
@@ -379,7 +494,7 @@ __global__ void __launch_bounds__(NT) decode_kernel(const Params p) {
         for (int r = 0; r < MAXG; ++r) {
           if (r >= G) break;
           const float pv = sP[r * p.bkv + j];
-          if (INT8) {
+          if (S8) {
             const int p8 = (int)pv;
 #pragma unroll
             for (int e = 0; e < 4; ++e) iacc[r][e] += p8 * vi[e];
@@ -396,13 +511,13 @@ __global__ void __launch_bounds__(NT) decode_kernel(const Params p) {
 #pragma unroll
       for (int e = 0; e < 4; ++e)
         sPart[(warp * G + r) * D + lane * 4 + e] =
-            INT8 ? __int_as_float(iacc[r][e]) : facc[r][e];
+            S8 ? __int_as_float(iacc[r][e]) : facc[r][e];
     }
     __syncthreads();
     for (int i = tid; i < G * D; i += NT) {
       const int r = i / D;
       float pv;
-      if (INT8) {
+      if (S8) {
         int s = 0;
         for (int w = 0; w < NW; ++w) s += __float_as_int(sPart[w * G * D + i]);
         pv = (float)s * sPs[r];
@@ -457,9 +572,9 @@ __global__ void __launch_bounds__(D)
   }
 }
 
-template <bool INT8, bool SAFE>
+template <int KIND, bool SAFE, bool ALIBI>
 int launch(const Params& p, size_t smem, cudaStream_t stream) {
-  auto kern = decode_kernel<INT8, SAFE>;
+  auto kern = decode_kernel<KIND, SAFE, ALIBI>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
@@ -481,12 +596,16 @@ size_t smem_bytes(int G, int bkv) {
 }  // namespace
 
 // dims: b, h_kv, G, s_max, layer, bkv, splits, tiles_per_split, left, sink,
-// n_tok, pool, page, n_pages. s_max is a row's logical capacity (n_pages *
-// page when paged); dense: pt null, pool = b, page = s_max, n_pages = 1.
+// n_tok, pool, page, n_pages, kind (KIND: 0 bf16, 1 s8 int8, 2 s8 int4, 3
+// cast int8, 4 cast fp8, 5 cast int4). s_max is a row's logical capacity
+// (n_pages * page when paged); dense: pt null, pool = b, page = s_max,
+// n_pages = 1.
 // G = g * n_tok query rows per kv head, ordered (head, token). A split
 // takes tiles_per_split of a row's live tiles.
 // out (b, h_kv, G, D) and lse (b, h_kv, G) fp32; with splits > 1 the
 // partials go to part_out (b, splits, h_kv, G, D) / part_lse first.
+// slopes: ALiBi's (h_kv, G) row slopes (times log2e in the fast form), or
+// null.
 extern "C" int lca_decode_attention(const void* q, const float* qs,
                                     const void* k, const void* v,
                                     const float* ks, const float* vs,
@@ -494,7 +613,8 @@ extern "C" int lca_decode_attention(const void* q, const float* qs,
                                     float* part_out,
                                     float* part_lse, float* out, float* lse,
                                     const long long* dims, float sscale,
-                                    float cap, int safe, void* stream) {
+                                    float cap, int safe, void* stream,
+                                    const float* slopes) {
   Params p;
   p.q = q;
   p.qs = qs;
@@ -502,6 +622,7 @@ extern "C" int lca_decode_attention(const void* q, const float* qs,
   p.v = v;
   p.ks = ks;
   p.vs = vs;
+  p.slopes = slopes;
   p.lengths = lengths;
   p.b = (int)dims[0];
   p.h_kv = (int)dims[1];
@@ -532,14 +653,31 @@ extern "C" int lca_decode_attention(const void* q, const float* qs,
   p.lse = merge ? part_lse : lse;
   const size_t smem = smem_bytes(min(p.G, MAXG), p.bkv);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool int8 = ks != nullptr;
+  const int kind = (int)dims[14];
+  // scales exactly when quantized, q row scales exactly on the s8 path
+  const bool s8 = kind == kS8I8 || kind == kS8I4;
+  if ((kind == kBF16) != (ks == nullptr) || s8 != (qs != nullptr))
+    return (int)cudaErrorInvalidValue;
+  const bool alibi = slopes != nullptr;
   int err;
-  if (int8)
-    err = safe ? launch<true, true>(p, smem, st)
-               : launch<true, false>(p, smem, st);
-  else
-    err = safe ? launch<false, true>(p, smem, st)
-               : launch<false, false>(p, smem, st);
+  switch (kind) {
+#define LCA_KIND(K)                                                   \
+  case K:                                                             \
+    err = safe ? (alibi ? launch<K, true, true>(p, smem, st)          \
+                        : launch<K, true, false>(p, smem, st))        \
+               : (alibi ? launch<K, false, true>(p, smem, st)         \
+                        : launch<K, false, false>(p, smem, st));      \
+    break;
+    LCA_KIND(kBF16)
+    LCA_KIND(kS8I8)
+    LCA_KIND(kS8I4)
+    LCA_KIND(kCastI8)
+    LCA_KIND(kCastF8)
+    LCA_KIND(kCastI4)
+#undef LCA_KIND
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
   if (err != 0 || !merge) return err;
   merge_kernel<<<dim3(p.h_kv, p.b), D, 0, st>>>(part_out, part_lse, out, lse,
                                                 p.h_kv, p.G, p.splits);

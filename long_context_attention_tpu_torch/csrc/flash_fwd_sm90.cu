@@ -341,14 +341,16 @@ struct Frame {
 // ---------------------------------------------------------------------------
 
 // TRI: causal self-attention with compile-time masks (B1); else the masks
-// of Params (B3, and B4 at q_off 0). FORM: the softmax form; QUANT: int8
-// K/V with fp32 scales. SPARSE: B9a's walk over a block-sparse row. MULTI:
-// a descriptor of two chunks on a side (B3 on the ring's steps). FEAT: B3
-// with the features of Params (segments, ALiBi, dropout).
-template <bool TRI, int FORM, bool QUANT, bool SPARSE = false,
+// of Params (B3, and B4 at q_off 0). FORM: the softmax form; KV: bf16 K/V,
+// or int8, fp8 or packed int4 K/V with fp32 scales (kKv*). SPARSE: B9a's
+// walk over a block-sparse row. MULTI: a descriptor of two chunks on a
+// side (B3 on the ring's steps). FEAT: B3 with the features of Params
+// (segments, ALiBi, dropout).
+template <bool TRI, int FORM, int KV, bool SPARSE = false,
           bool MULTI = false, bool FEAT = false>
-__global__ void __launch_bounds__(Roles<QUANT>::NT, 1)
+__global__ void __launch_bounds__(Roles<KV != kKvBF16>::NT, 1)
     flash_fwd_sm90_kernel(const __grid_constant__ Maps maps, const Params p) {
+  constexpr bool QUANT = KV != kKvBF16;
   static_assert(!SPARSE || (!TRI && FORM == kFast && !QUANT),
                 "B9a: bf16 K/V, the fast form, the masks of its steps");
   static_assert(!FEAT || !(TRI || SPARSE), "the features are B3's");
@@ -497,15 +499,16 @@ __global__ void __launch_bounds__(Roles<QUANT>::NT, 1)
           tma_load_4d(dst, map, b, d0, kv0, ihk, x.ib);
       };
       // the i-th raw tile of this warpgroup's stream (K with its scales,
-      // or V) into slot i % nslots
+      // or V) into slot i % nslots; an int4 tile fills half its slot
+      constexpr int raw_bytes = KV == kKvInt4 ? RAW_BYTES / 2 : RAW_BYTES;
       auto load_raw = [&](const Cursor& c, int i) {
         const uint32_t b = bar(b_raw + i % nslots);
         const uint32_t dst = smem_u32(raw + (i % nslots) * RAW_SLOT);
         if (is_v) {
-          mbar_expect_tx(b, RAW_BYTES);
+          mbar_expect_tx(b, raw_bytes);
           tma(dst, &maps.v, b, c, 0);
         } else {
-          mbar_expect_tx(b, RAW_SLOT);
+          mbar_expect_tx(b, raw_bytes + SC_BYTES);
           tma(dst, &maps.k, b, c, 0);
           tma(dst + RAW_BYTES, &maps.ks, b, c, -1);
           tma(dst + RAW_BYTES + BKV * 4, &maps.vs, b, c, -1);
@@ -523,7 +526,7 @@ __global__ void __launch_bounds__(Roles<QUANT>::NT, 1)
         const unsigned char* slot = raw + (it % nslots) * RAW_SLOT;
         mbar_wait(bar((is_v ? B_VEMPTY : B_KEMPTY) + s), use(it) ^ 1);
         mbar_wait(bar(b_raw + it % nslots), (it / nslots) & 1);
-        widen_rows<BKV>(slot, st + (is_v ? KV_BYTES : 0), 0, wtid);
+        widen_rows<BKV, KV>(slot, st + (is_v ? KV_BYTES : 0), 0, wtid);
         if (!is_v && wtid < SC_BYTES / 16)  // the scales, beside K
           reinterpret_cast<float4*>(st + 2 * KV_BYTES)[wtid] =
               reinterpret_cast<const float4*>(slot + RAW_BYTES)[wtid];
@@ -900,8 +903,9 @@ __global__ void __launch_bounds__(Roles<QUANT>::NT, 1)
 // B3's features (sm90.cuh Feat) after it
 constexpr int kDimsDesc = 24;
 constexpr int kDimsFeat = kDimsDesc + kDescLen;
+constexpr int kDimsKind = kDimsFeat + kFeatLen;  // B3's kind of K/V
 
-template <bool TRI, int FORM, bool QUANT, bool MULTI = false, bool FEAT = false>
+template <bool TRI, int FORM, int KV, bool MULTI = false, bool FEAT = false>
 int launch(const void* q, const void* k, const void* v, const float* ks,
            const float* vs, void* out, float* lse, const long long* dims,
            float qfold, float sscale, float cap, const Feat& ft,
@@ -928,6 +932,7 @@ int launch(const void* q, const void* k, const void* v, const float* ks,
   if (p.h_kv <= 0 || p.h % p.h_kv || !desc_ok(p.dsc, p.s_q, p.s_kv, BQ))
     return (int)cudaErrorInvalidValue;
   if ((p.dsc.nqc * p.dsc.nkc > 1) != MULTI) return (int)cudaErrorInvalidValue;
+  constexpr bool QUANT = KV != kKvBF16;
   if (QUANT && dims[19] != 1) return (int)cudaErrorInvalidValue;
   if (p.n_items == 0) return (int)cudaSuccess;
 
@@ -935,14 +940,16 @@ int launch(const void* q, const void* k, const void* v, const float* ks,
   const CUtensorMapDataType kv_type = QUANT ? CU_TENSOR_MAP_DATA_TYPE_UINT8
                                             : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   const int kv_esize = QUANT ? 1 : 2;
+  // a quantized K/V row is one box: d bytes (int8, fp8) or d / 2 (int4)
+  const int kv_row = KV == kKvInt4 ? D / 2 : D;
   const cuuint32_t q_box[4] = {64, BQ, 1, 1};
-  const cuuint32_t kv_box[4] = {(cuuint32_t)(QUANT ? D : 64), BKV, 1, 1};
+  const cuuint32_t kv_box[4] = {(cuuint32_t)(QUANT ? kv_row : 64), BKV, 1, 1};
   const cuuint32_t sc_box[3] = {BKV, 1, 1};
   const CUtensorMapSwizzle kv_swizzle =
       QUANT ? CU_TENSOR_MAP_SWIZZLE_NONE : CU_TENSOR_MAP_SWIZZLE_128B;
   const long long q_dims[4] = {D, p.s_q, p.h, p.b};
   const long long q_str[3] = {dims[6], dims[7], dims[5]};
-  const long long kv_dims[4] = {D, p.s_kv, p.h_kv, p.b};
+  const long long kv_dims[4] = {kv_row, p.s_kv, p.h_kv, p.b};
   const long long k_str[3] = {dims[9], dims[10], dims[8]};
   const long long v_str[3] = {dims[12], dims[13], dims[11]};
   bool ok = encode(&maps.q, q, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, 4, q_dims,
@@ -972,7 +979,7 @@ int launch(const void* q, const void* k, const void* v, const float* ks,
   }
   if (!ok) return (int)cudaErrorInvalidValue;
 
-  auto kern = flash_fwd_sm90_kernel<TRI, FORM, QUANT, false, MULTI, FEAT>;
+  auto kern = flash_fwd_sm90_kernel<TRI, FORM, KV, false, MULTI, FEAT>;
   const int smem = Smem<QUANT, FEAT>::BYTES;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -1036,7 +1043,7 @@ int launch_sparse(const void* q, const void* k, const void* v, void* out,
     return (int)cudaErrorInvalidValue;
   maps.ks = maps.vs = maps.kseg = maps.q;  // unused without scales
 
-  auto kern = flash_fwd_sm90_kernel<false, kFast, false, true>;
+  auto kern = flash_fwd_sm90_kernel<false, kFast, kKvBF16, true>;
   const int smem = Smem<false>::BYTES;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -1055,40 +1062,53 @@ extern "C" int lca_flash_fwd_causal_self(const void* q, const void* k,
                                          void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dims[3] != dims[4]) return (int)cudaErrorInvalidValue;
-  return safe ? launch<true, kOnlineExp2, false>(q, k, v, nullptr, nullptr,
-                                                 out, lse, dims, qfold, sscale,
-                                                 0.f, Feat{}, st)
-              : launch<true, kFast, false>(q, k, v, nullptr, nullptr, out, lse,
-                                           dims, qfold, sscale, 0.f, Feat{},
-                                           st);
+  return safe ? launch<true, kOnlineExp2, kKvBF16>(
+                    q, k, v, nullptr, nullptr, out, lse, dims, qfold, sscale,
+                    0.f, Feat{}, st)
+              : launch<true, kFast, kKvBF16>(q, k, v, nullptr, nullptr, out,
+                                             lse, dims, qfold, sscale, 0.f,
+                                             Feat{}, st);
 }
 
 namespace {
 
 // B3's instantiation for a softmax form (0 fast, 1 online in natural
 // units, 2 softcap)
-template <bool QUANT, bool MULTI, bool FEAT, class Args>
+template <int KV, bool MULTI, bool FEAT, class Args>
 int pos_form(int form, const Args& args) {
   switch (form) {
-    case 0: return args(launch<false, kFast, QUANT, MULTI, FEAT>);
-    case 1: return args(launch<false, kOnlineNat, QUANT, MULTI, FEAT>);
-    case 2: return args(launch<false, kSoftcap, QUANT, MULTI, FEAT>);
+    case 0: return args(launch<false, kFast, KV, MULTI, FEAT>);
+    case 1: return args(launch<false, kOnlineNat, KV, MULTI, FEAT>);
+    case 2: return args(launch<false, kSoftcap, KV, MULTI, FEAT>);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
-template <bool QUANT, bool MULTI, class Args>
+template <int KV, bool MULTI, class Args>
 int pos_feat(bool feat, int form, const Args& args) {
-  return feat ? pos_form<QUANT, MULTI, true>(form, args)
-              : pos_form<QUANT, MULTI, false>(form, args);
+  return feat ? pos_form<KV, MULTI, true>(form, args)
+              : pos_form<KV, MULTI, false>(form, args);
+}
+
+template <bool MULTI, class Args>
+int pos_kind(int kv, bool feat, int form, const Args& args) {
+  switch (kv) {
+    case kKvBF16: return pos_feat<kKvBF16, MULTI>(feat, form, args);
+    case kKvInt8: return pos_feat<kKvInt8, MULTI>(feat, form, args);
+    case kKvFp8: return pos_feat<kKvFp8, MULTI>(feat, form, args);
+    case kKvInt4: return pos_feat<kKvInt4, MULTI>(feat, form, args);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
-// Kernel B3: q rows at q_off + i, bf16 or int8 K/V (ks != null), any
-// window, sinks and softcap; form: 0 fast, 1 online (natural units), 2
-// softcap. A multi-chunk descriptor (the ring's steps) and the features
-// (segments, ALiBi, dropout: their operands after the stream) each take
+// Kernel B3: q rows at q_off + i, bf16 K/V or int8, fp8 or packed int4 K/V
+// with fp32 scales (the kind after the features on dims: 0 bf16, 1 int8, 2
+// fp8, 3 int4; ks != null exactly when quantized), any window, sinks and
+// softcap; form: 0 fast, 1 online (natural units), 2 softcap. A
+// multi-chunk descriptor (the ring's steps) and the features (segments,
+// ALiBi, dropout: their operands after the stream) each take
 // instantiations of their own.
 extern "C" int lca_flash_fwd_pos(const void* q, const void* k, const void* v,
                                  const float* ks, const float* vs, void* out,
@@ -1102,12 +1122,11 @@ extern "C" int lca_flash_fwd_pos(const void* q, const void* k, const void* v,
                     st);
   };
   const bool feat = ft.seg || ft.alibi || ft.drop;
-  const bool quant = ks != nullptr;
+  const int kv = (int)dims[kDimsKind];
+  if ((kv != kKvBF16) != (ks != nullptr)) return (int)cudaErrorInvalidValue;
   if (dims[kDimsDesc] * dims[kDimsDesc + 1] > 1)
-    return quant ? pos_feat<true, true>(feat, form, args)
-                 : pos_feat<false, true>(feat, form, args);
-  return quant ? pos_feat<true, false>(feat, form, args)
-               : pos_feat<false, false>(feat, form, args);
+    return pos_kind<true>(kv, feat, form, args);
+  return pos_kind<false>(kv, feat, form, args);
 }
 
 // Kernel B4: self-attention (s_q == s_kv, q_off 0) with any window, sinks
@@ -1128,13 +1147,13 @@ extern "C" int lca_flash_fwd_static(const void* q, const void* k,
   };
   const bool plain_causal =
       dims[22] == 0 && (dims[21] < 0 || dims[21] >= dims[4] - 1);
-  if (plain_causal && form == 0) return args(launch<true, kFast, false>);
+  if (plain_causal && form == 0) return args(launch<true, kFast, kKvBF16>);
   if (plain_causal && form == 1)
-    return args(launch<true, kOnlineExp2, false>);
+    return args(launch<true, kOnlineExp2, kKvBF16>);
   switch (form) {
-    case 0: return args(launch<false, kFast, false>);
-    case 1: return args(launch<false, kOnlineExp2, false>);
-    case 2: return args(launch<false, kSoftcap, false>);
+    case 0: return args(launch<false, kFast, kKvBF16>);
+    case 1: return args(launch<false, kOnlineExp2, kKvBF16>);
+    case 2: return args(launch<false, kSoftcap, kKvBF16>);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -1157,7 +1176,7 @@ extern "C" int lca_sparse_fwd(const void* q, const void* k, const void* v,
 }
 
 // The dynamic shared memory a block takes: bf16 K/V (B1, B3, B4, B9a), or
-// int8 K/V (quant != 0); with B3's features (feat != 0).
+// quantized K/V (quant != 0); with B3's features (feat != 0).
 extern "C" int lca_flash_fwd_smem(int quant, int feat) {
   if (feat) return quant ? Smem<true, true>::BYTES : Smem<false, true>::BYTES;
   return quant ? Smem<true>::BYTES : Smem<false>::BYTES;

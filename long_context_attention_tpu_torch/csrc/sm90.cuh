@@ -14,6 +14,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "kv_quant.cuh"
+
 namespace {
 
 // ---------------------------------------------------------------------------
@@ -286,15 +288,27 @@ __device__ __forceinline__ uint32_t widen2(uint32_t w, uint32_t sel) {
   return *reinterpret_cast<const uint32_t*>(&r);
 }
 
-// Widen rows [r0, r0 + ROWS) of an int8 tile [128 rows][128 bytes] into the
-// two swizzled bf16 boxes at dst (d 0-63, then 64-127; 128 rows of 128
-// bytes each, 128-byte swizzle), by the 128 threads of a warpgroup, two
-// 16-byte chunks at a time (their loads first, for the warp of each SM
-// sub-partition to overlap). Within each 8-thread phase of a 16-byte
-// access, four threads read row r and four row r + 1 (opposite halves of
-// the rows: conflict-free), and their bf16 chunks land on distinct banks of
-// the swizzled boxes. r0 is a multiple of 8.
-template <int ROWS>
+// B3's kinds of K/V (template parameter KV of the forward kernel): bf16,
+// or the quantized cache's int8, fp8 e4m3 or packed int4, widened to bf16
+// by its producers
+constexpr int kKvBF16 = 0, kKvInt8 = 1, kKvFp8 = 2, kKvInt4 = 3;
+
+// two e4m3 values (the low 16 bits of x) -> two bf16, exactly
+__device__ __forceinline__ uint32_t e4m3x2_to_bf16x2(uint32_t x) {
+  const float2 f = e4m3x2_to_float2(x);
+  return pack_bf16(f.x, f.y);
+}
+
+// Widen rows [r0, r0 + ROWS) of a raw tile of 128 rows (int8 or fp8: 128
+// bytes a row; int4: 64) into the two swizzled bf16 boxes at dst (d 0-63,
+// then 64-127; 128 rows of 128 bytes each, 128-byte swizzle), by the 128
+// threads of a warpgroup, two chunks of 16 values at a time (their loads
+// first, for the warp of each SM sub-partition to overlap). Within each
+// 8-thread phase of a 16-byte access, four threads read row r and four row
+// r + 1 (opposite halves of the rows: conflict-free), and their bf16
+// chunks land on distinct banks of the swizzled boxes. int4 chunks are 8
+// bytes, sign-extended to the int8 chunk first. r0 is a multiple of 8.
+template <int ROWS, int KV = kKvInt8>
 __device__ __forceinline__ void widen_rows(const unsigned char* raw,
                                            unsigned char* dst, int r0,
                                            int ptid) {
@@ -309,20 +323,38 @@ __device__ __forceinline__ void widen_rows(const unsigned char* raw,
       const int idx = (it + u) * 128 + ptid;
       const int j = idx & 15;
       row[u] = r0 + 2 * (idx >> 4) + (((j >> 2) & 1) ^ (j >> 3));
-      c[u] = j & 7;  // 16-byte chunk of the int8 row
-      w[u] = *reinterpret_cast<const uint4*>(raw + row[u] * 128 + c[u] * 16);
+      c[u] = j & 7;  // chunk of 16 values of the row
+      if constexpr (KV == kKvInt4) {
+        const uint2 n =
+            *reinterpret_cast<const uint2*>(raw + row[u] * 64 + c[u] * 8);
+        s4x8_to_s8(n.x, w[u].x, w[u].y);
+        s4x8_to_s8(n.y, w[u].z, w[u].w);
+      } else {
+        w[u] = *reinterpret_cast<const uint4*>(raw + row[u] * 128 + c[u] * 16);
+      }
     }
 #pragma unroll
     for (int u = 0; u < BATCH; ++u) {
       uint4 lo, hi;
-      lo.x = widen2(w[u].x, 0x4140);
-      lo.y = widen2(w[u].x, 0x4342);
-      lo.z = widen2(w[u].y, 0x4140);
-      lo.w = widen2(w[u].y, 0x4342);
-      hi.x = widen2(w[u].z, 0x4140);
-      hi.y = widen2(w[u].z, 0x4342);
-      hi.z = widen2(w[u].w, 0x4140);
-      hi.w = widen2(w[u].w, 0x4342);
+      if constexpr (KV == kKvFp8) {
+        lo.x = e4m3x2_to_bf16x2(w[u].x & 0xffffu);
+        lo.y = e4m3x2_to_bf16x2(w[u].x >> 16);
+        lo.z = e4m3x2_to_bf16x2(w[u].y & 0xffffu);
+        lo.w = e4m3x2_to_bf16x2(w[u].y >> 16);
+        hi.x = e4m3x2_to_bf16x2(w[u].z & 0xffffu);
+        hi.y = e4m3x2_to_bf16x2(w[u].z >> 16);
+        hi.z = e4m3x2_to_bf16x2(w[u].w & 0xffffu);
+        hi.w = e4m3x2_to_bf16x2(w[u].w >> 16);
+      } else {
+        lo.x = widen2(w[u].x, 0x4140);
+        lo.y = widen2(w[u].x, 0x4342);
+        lo.z = widen2(w[u].y, 0x4140);
+        lo.w = widen2(w[u].y, 0x4342);
+        hi.x = widen2(w[u].z, 0x4140);
+        hi.y = widen2(w[u].z, 0x4342);
+        hi.z = widen2(w[u].w, 0x4140);
+        hi.w = widen2(w[u].w, 0x4342);
+      }
       unsigned char* drow = dst + (c[u] >> 2) * (128 * 128) + row[u] * 128;
       const int bc = (c[u] & 3) * 2;  // its first bf16 chunk in the box
       const int sw = row[u] & 7;
@@ -400,6 +432,8 @@ struct Feat {
 
 #define LCA_FEAT_ARGS \
   const int *qseg, const int *kvseg, const float *slopes, float drop_inv
+
+constexpr int kFeatLen = 7;  // the entries feat_from reads
 
 inline Feat feat_from(const long long* dims, int at, const int* qseg,
                       const int* kvseg, const float* slopes, float inv) {

@@ -472,8 +472,9 @@ def prefill_chunk_step(params: Params, cache, tokens: torch.Tensor,
 
     tokens (b, s_c) at global positions [start, start + s_c). The chunk's
     causal self-attention (kernel B1, or B4 under a window or softcap) and
-    its attention over the cache prefix (kernel B3, int8 or bf16, over the
-    sink tiles and the window band only) merge by LSE. The chunk's
+    its attention over the cache prefix (kernel B3 over the cache's bf16,
+    int8, fp8 or packed int4 values, the sink tiles and the window band
+    only) merge by LSE. The chunk's
     self-attention takes the sinks that lie inside it (global positions
     below ``sink_tokens``), the prefix call the rest. The chunk's K/V are
     written into the cache at [start, ...) and ``cache.length`` is set to

@@ -19,11 +19,13 @@ import os
 import shutil
 import subprocess
 import threading
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict, List, Optional, Sequence
 
 __all__ = ["Kernel", "KERNELS", "QUANT_PASSES", "BUILD_DIR", "build_all",
-           "launch_counts", "library", "reset_launch_counts", "ptr",
+           "build_seconds", "launch_counts", "library", "reset_launch_counts", "ptr",
            "stream_ptr", "dims_array"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -39,6 +41,7 @@ _FEAT = [_VP, _VP, _VP, _F]  # csrc/sm90.cuh LCA_FEAT_ARGS
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 _build_logs: Dict[str, str] = {}
+_build_seconds: Dict[str, float] = {}
 
 
 def _nvcc() -> str:
@@ -71,14 +74,15 @@ def _start_build(source: str):
     cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / source)]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
-    return proc, tmp, out
+    return proc, tmp, out, time.perf_counter()
 
 
 def _finish_build(source: str, job) -> None:
     if job is None:
         return
-    proc, tmp, out = job
+    proc, tmp, out, t0 = job
     log, _ = proc.communicate()
+    _build_seconds[source] = time.perf_counter() - t0
     _build_logs[source] = log
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {source}:\n{log}")
@@ -92,9 +96,18 @@ def build_all(sources: Optional[Sequence[str]] = None) -> Dict[str, str]:
     sources = list(sources or sorted({k.source for k in KERNELS.values()}))
     with _lock:
         jobs = [(s, _start_build(s)) for s in sources]
-        for s, job in jobs:
-            _finish_build(s, job)
+        # each compiler's output drained in its own thread, so a build's
+        # seconds end when its nvcc does
+        with ThreadPoolExecutor(max(len(jobs), 1)) as pool:
+            done = [pool.submit(_finish_build, s, job) for s, job in jobs]
+        for f in done:
+            f.result()  # a failed build raises here
     return {s: _build_logs.get(s, "") for s in sources}
+
+
+def build_seconds() -> Dict[str, float]:
+    """Wall seconds of each source's nvcc run in this process."""
+    return dict(_build_seconds)
 
 
 def library(source: str) -> ctypes.CDLL:
@@ -233,9 +246,10 @@ KERNELS: Dict[str, Kernel] = {
         "long_context_attention_tpu/ops/decode.py:40"),
     # q, q scales, k, v, scales (2), lengths, page table (or null), the
     # split partials (2), out, lse, dims, then scale, softcap, safe, stream
+    # and the ALiBi row slopes (or null)
     "decode_attention": Kernel(
         "decode_attention", "decode_attention.cu", "lca_decode_attention",
-        [_VP] * 13 + [_F, _F, _I, _VP],
+        [_VP] * 13 + [_F, _F, _I, _VP, _VP],
         "long_context_attention_tpu/ops/decode.py:296"),
 }
 

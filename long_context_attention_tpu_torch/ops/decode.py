@@ -1,15 +1,23 @@
 """Decode on Hopper: in-place cache append and decode attention.
 
 Counterpart of ``long_context_attention_tpu/ops/decode.py``, for the dense
-KV cache (layer-stacked or not) and the paged pool, bf16 or int8:
+KV cache (layer-stacked or not) and the paged pool, in the four cache
+dtypes (bf16, int8, fp8 e4m3 and int4 packed two per byte along d):
 
 * :func:`cache_append` is the wrapper of kernel B6 (``csrc/cache_append.cu``):
-  it writes one run of new tokens per row into the cache IN PLACE.
+  it writes one run of new tokens per row into the cache IN PLACE (rows of
+  opaque bytes: d, 2d or d / 2 of them).
 * :func:`decode_attention` quantizes / folds the query as the JAX wrapper
   does and calls :func:`decode_attention_core`, the wrapper of kernel B7
   (``csrc/decode_attention.cu``), which attends the query rows of every kv
   head to the cache up to per-row lengths: one token per row, or a run of
   n tokens per row (a teacher-forced run), each at its own position.
+
+B7 has the JAX kernel's three paths: bf16 (a bf16 cache); the s8 path
+(``mxu_int8``, an int8 or int4 cache: s8 x s8 products, q row-quantized,
+P requantized per kv tile); and the dequant-cast path (fp8 always, int8 and
+int4 under ``mxu_int8=False``: bf16 q against K and V widened exactly to
+bf16, scales applied in fp32, P rounded to bf16 after V's scale).
 
 Paged mode (``page_table``): the cache arrays are a pool of pages
 (L, P, h_kv, page, d) and logical slot s of row b lives in pool page
@@ -18,11 +26,11 @@ changes, the masks stay in logical positions.
 
 Each wrapper runs its plain version (``*_plain``, same arithmetic) for CPU
 tensors and launches its kernel, or raises, for CUDA tensors. Decode takes
-a sliding window with StreamingLLM sinks and a logit softcap; the kernel
-walks a row's sink tiles and window band only. Not ported yet, and raising
-``NotImplementedError``: ALiBi, sharded-cache columns (``first_cols``,
-``sink_cols``, ``sink_band``), ``kv_splits``, fp8/int4 caches and the int8
-dequant-cast path (``mxu_int8=False``).
+a sliding window with StreamingLLM sinks, a logit softcap, ALiBi slopes and
+an explicit kv split count (``kv_splits``, dense caches); the kernel walks
+a row's sink tiles and window band only. Not ported yet, and raising
+``NotImplementedError``: the sequence-sharded cache's columns
+(``first_cols``, ``sink_cols``, ``sink_band``).
 """
 
 from __future__ import annotations
@@ -34,6 +42,8 @@ import torch
 
 from long_context_attention_tpu_torch.ops import _build
 from long_context_attention_tpu_torch.ops.flash import _CLAMP, _LOG2E, _fold
+from long_context_attention_tpu_torch.ops.kv_cache import _STORAGE, _widen
+from long_context_attention_tpu_torch.ops.merge import merge_partials
 from long_context_attention_tpu_torch.utils.config import NEG_INF, not_ported
 
 __all__ = ["cache_append", "cache_append_plain", "decode_attention",
@@ -66,6 +76,10 @@ def cache_append_plain(k_cache, v_cache, k_new, v_new, append_pos,
     slot_dim = k_cache.shape[3]
     cap = (page_table.shape[1] * slot_dim if page_table is not None
            else slot_dim)
+    # rows are copied as bytes: an fp8 cache through its uint8 view
+    k_cache, v_cache, k_new, v_new = (
+        t.view(torch.uint8) if t.dtype == torch.float8_e4m3fn else t
+        for t in (k_cache, v_cache, k_new, v_new))
     slots = (append_pos.to(torch.long)[:, None]
              + torch.arange(n, device=append_pos.device)[None])
     bi, ti = ((slots >= 0) & (slots < cap)).nonzero(as_tuple=True)
@@ -92,11 +106,12 @@ def cache_append(k_cache, v_cache, k_new, v_new, append_pos,
     (kernel B6).
 
     ``k_cache``/``v_cache``: (b, h_kv, s_max, d), or the stacked
-    (L, b, h_kv, s_max, d) with ``layer`` (an int); bf16 or int8.
-    ``k_new``/``v_new``: (b, h_kv, n, d) in the cache dtype.
+    (L, b, h_kv, s_max, d) with ``layer`` (an int); bf16, int8, fp8 or
+    packed int4 (uint8, d // 2 bytes a row).
+    ``k_new``/``v_new``: (b, h_kv, n, d) in the cache's storage dtype.
     ``append_pos``: (b,) int32 first slot per row; slots outside
     [0, s_max) are skipped, so ``append_pos = -n`` skips a row.
-    int8 caches pass scales (.., b, h_kv, 1, s_max) and new scales
+    Quantized caches pass scales (.., b, h_kv, 1, s_max) and new scales
     (b, h_kv, n). ``page_table``: (b, n_pages) int32, the paged pool
     (P, h_kv, page, d) (stacked (L, P, ...) with ``layer``; scales
     (.., P, h_kv, 1, page)): logical slot s of row b lives in pool page
@@ -137,8 +152,8 @@ def _cache_append_cuda(kc, vc, k_new, v_new, append_pos, ks, vs, ks_new,
     L, pool, h_kv, slot_dim, d = kc.shape
     b, n = k_new.shape[0], k_new.shape[2]
     dev = kc.device
-    if kc.dtype not in (torch.bfloat16, torch.int8):
-        raise not_ported(f"a {kc.dtype} cache")
+    if kc.dtype not in _STORAGE.values():
+        raise ValueError(f"a {kc.dtype} cache is no cache storage dtype")
     for name, t in (("k_cache", kc), ("v_cache", vc)):
         if t.shape != kc.shape or t.dtype != kc.dtype or t.device != dev \
                 or not t.is_contiguous():
@@ -276,29 +291,63 @@ def decode_attention_core_plain(q_in, q_rs, k_cache, v_cache, k_scale,
                                 safe_softmax: bool = False,
                                 window_left: int = -1, sink_tokens: int = 0,
                                 softcap: float = 0.0, n_tok: int = 1,
-                                page_table=None):
+                                page_table=None, alibi=None, kv_splits=None):
     """Plain version of kernel B7, tile by tile on the kernel's tile grid.
 
     q_in (b, h_kv, G, d): G = g * n_tok query rows per kv head, ordered
-    (head, token); int8 with fp32 row scales q_rs (b, h_kv, G) that already
-    carry the softmax scale (and log2e in the fast form), or bf16 (folded
-    in the fast form) with q_rs None. Cache (L, b, h_kv, s_max, d) and
+    (head, token); the s8 path: int8 with fp32 row scales q_rs (b, h_kv, G)
+    that already carry the softmax scale (and log2e in the fast form), over
+    an int8 or packed int4 cache; else bf16 (folded in the fast form) with
+    q_rs None: the bf16 path, or with scales the dequant-cast path (fp8,
+    int8 or int4 values widened to bf16). Cache (L, b, h_kv, s_max, d) and
     scales (L, b, h_kv, 1, s_max), or with ``page_table`` (b, n_pages) the
     pool (L, P, h_kv, page, d) and its scales (L, P, h_kv, 1, page), whose
     page ``block_kv`` divides. ``lengths`` counts every visible slot
     including the run: token i sits at q = length - n_tok + i and sees the
     columns [q - window_left, q] (all up to q when window_left < 0) and
     those below ``sink_tokens``; ``softcap`` caps the scores before the mask
-    and needs the online form (``safe_softmax``). Every tile is visited
+    and needs the online form (``safe_softmax``). ``alibi`` (h_kv, G) fp32:
+    each row's slope (times log2e in the fast form); s -= slope * (q -
+    column) after the softcap, before the masks. In JAX's order of
+    operations: s = q . k (fp32), times q's row scale (s8) or the softmax
+    scale (online bf16 or cast), times k_scale[col]; p = exp...; l +=
+    rowsum(p); p *= v_scale[col]; s8: P requantized per tile, int32 PV;
+    else acc += bf16(p) . v. ``kv_splits``: JAX's split count (None: one),
+    the tiles cut in that many runs of ceil(tiles / splits), each run's
+    (out, lse) merged by :func:`merge_partials`. Every tile is visited
     here; the kernel skips those with no visible column, which add nothing
     (columns at or past a row's length are zeroed before use, so a page
     past the live prefix is never used). Returns fp32 out (b, h_kv, G, d)
     and lse (b, h_kv, G)."""
+    slot_dim = k_cache.shape[3]
+    cap = (page_table.shape[1] * slot_dim if page_table is not None
+           else slot_dim)
+    nk = -(-cap // block_kv)
+    per = -(-nk // max(1, min(int(kv_splits or 1), nk)))
+    parts = [_plain_tiles(q_in, q_rs, k_cache, v_cache, k_scale, v_scale,
+                          lengths, layer, block_kv, scale, safe_softmax,
+                          window_left, sink_tokens, softcap, n_tok,
+                          page_table, alibi, range(t0 * block_kv,
+                                                   min(t0 + per, nk)
+                                                   * block_kv, block_kv))
+             for t0 in range(0, nk, per)]
+    if len(parts) == 1:
+        return parts[0]
+    return merge_partials(torch.stack([o for o, _ in parts]),
+                          torch.stack([l for _, l in parts]))
+
+
+def _plain_tiles(q_in, q_rs, k_cache, v_cache, k_scale, v_scale, lengths,
+                 layer, block_kv, scale, safe_softmax, window_left,
+                 sink_tokens, softcap, n_tok, page_table, alibi, tiles):
+    """(out, lse) of :func:`decode_attention_core_plain` over the tiles
+    starting at the columns ``tiles``."""
     b, h_kv, G, d = q_in.shape
     slot_dim = k_cache.shape[3]
     cap = (page_table.shape[1] * slot_dim if page_table is not None
            else slot_dim)
-    quant = q_rs is not None
+    s8 = q_rs is not None
+    quant = k_scale is not None
     dev = q_in.device
     if page_table is not None:
         page_table = page_table.to(dev)
@@ -311,26 +360,32 @@ def decode_attention_core_plain(q_in, q_rs, k_cache, v_cache, k_scale,
     first = (qpos - window_left if window_left >= 0
              else torch.zeros_like(qpos))
     qf = q_in.float()
-    for c0 in range(0, cap, block_kv):
+    for c0 in tiles:
         n = min(block_kv, cap - c0)
         cols = torch.arange(c0, c0 + n, device=dev)
         live = (cols[None, :] < lens[:, None])[:, None, :]  # (b, 1, n)
-        kt = _tile_of(k_cache, layer, c0, n, page_table, slot_dim)
-        vt = _tile_of(v_cache, layer, c0, n, page_table, slot_dim)
-        kt = torch.where(live[..., None], kt, torch.zeros_like(kt)).float()
+        # the stored values widened exactly (fp32 holds every bf16 value)
+        kt = _widen(_tile_of(k_cache, layer, c0, n, page_table, slot_dim),
+                    torch.float32)
+        vt = _widen(_tile_of(v_cache, layer, c0, n, page_table, slot_dim),
+                    torch.float32)
+        kt = torch.where(live[..., None], kt, torch.zeros_like(kt))
         vt = torch.where(live[..., None], vt, torch.zeros_like(vt))
         s = torch.einsum("bhgd,bhnd->bhgn", qf, kt)
+        if s8:
+            s = s * q_rs[..., None]
+        elif safe_softmax:
+            s = s * scale
         if quant:
             kst = _tile_of(k_scale, layer, c0, n, page_table, slot_dim, True)
             vst = _tile_of(v_scale, layer, c0, n, page_table, slot_dim, True)
             kst = torch.where(live[:, :, None], kst, torch.zeros_like(kst))
             vst = torch.where(live[:, :, None], vst, torch.zeros_like(vst))
-            s = s * q_rs[..., None]
             s = s * kst
-        elif safe_softmax:
-            s = s * scale
         if softcap:
             s = softcap * torch.tanh(s / softcap)
+        if alibi is not None:
+            s = s - alibi[None, :, :, None] * (qpos - cols).float()
         invisible = (cols > qpos) | ((cols < first) & (cols >= sink_tokens))
         s = s.masked_fill(invisible, NEG_INF)
         if safe_softmax:
@@ -344,6 +399,7 @@ def decode_attention_core_plain(q_in, q_rs, k_cache, v_cache, k_scale,
             l = l + p.sum(dim=-1)
         if quant:
             p = p * vst
+        if s8:
             ps = torch.clamp(p.amax(dim=-1, keepdim=True), min=1e-20) * (
                 1.0 / 127.0)
             p8 = torch.round(p / ps)
@@ -352,7 +408,7 @@ def decode_attention_core_plain(q_in, q_rs, k_cache, v_cache, k_scale,
                               vt.double()).float() * ps
         else:
             pv = torch.einsum("bhgn,bhnd->bhgd", p.to(torch.bfloat16).float(),
-                              vt.float())
+                              vt)
         acc = acc * alpha[..., None] + pv if safe_softmax else acc + pv
     dead = l == 0.0
     safe_l = torch.where(dead, torch.ones_like(l), l)
@@ -363,46 +419,78 @@ def decode_attention_core_plain(q_in, q_rs, k_cache, v_cache, k_scale,
     return out, lse
 
 
+# B7's kinds of K/V (csrc/decode_attention.cu Kind): the bf16 path, the s8
+# path over int8 or packed int4, the dequant-cast path over int8, fp8 or
+# packed int4
+_KIND_BF16, _KIND_S8_I8, _KIND_S8_I4 = 0, 1, 2
+_KIND_CAST_I8, _KIND_CAST_F8, _KIND_CAST_I4 = 3, 4, 5
+_S8_KINDS = {torch.int8: _KIND_S8_I8, torch.uint8: _KIND_S8_I4}
+_CAST_KINDS = {torch.int8: _KIND_CAST_I8, torch.float8_e4m3fn: _KIND_CAST_F8,
+               torch.uint8: _KIND_CAST_I4}
+
+
+def _kv_kind(q_in, q_rs, k_cache, k_scale) -> int:
+    """B7's kind of K/V for these operands (raises on a combination that
+    has no path)."""
+    quant = k_scale is not None
+    table = (_S8_KINDS if q_rs is not None else _CAST_KINDS) if quant else {
+        torch.bfloat16: _KIND_BF16}
+    qdt = torch.int8 if q_rs is not None else torch.bfloat16
+    if q_in.dtype != qdt or k_cache.dtype not in table:
+        raise ValueError(
+            f"q {q_in.dtype} with {'' if q_rs is not None else 'no '}row "
+            f"scales over a {k_cache.dtype} cache "
+            f"{'with' if quant else 'without'} scales has no B7 path")
+    return table[k_cache.dtype]
+
+
 def decode_attention_core(q_in, q_rs, k_cache, v_cache, k_scale, v_scale,
                           lengths, *, layer: int, block_kv: int, scale: float,
                           safe_softmax: bool = False, window_left: int = -1,
                           sink_tokens: int = 0, softcap: float = 0.0,
-                          n_tok: int = 1, page_table=None):
-    """Kernel B7 wrapper (arguments as :func:`decode_attention_core_plain`).
+                          n_tok: int = 1, page_table=None, alibi=None,
+                          kv_splits=None):
+    """Kernel B7 wrapper (arguments as :func:`decode_attention_core_plain`,
+    but ``kv_splits`` None lets the wrapper choose the kernel's split).
 
     A row's live ``block_kv`` tiles (its sink tiles, then its window band,
     or all up to its length) split into runs, and the query rows of a kv
     head into groups of eight; one block per (run, kv head and row group,
     row), so small batches still fill the card; a second kernel in the
     same entry point merges the runs' partials with the arithmetic of
-    :func:`merge_partials`. CPU tensors take the plain version."""
+    :func:`merge_partials`. ``kv_splits`` (dense caches) fixes the runs as
+    JAX's splits: max(1, min(kv_splits, tiles)) of ceil(tiles / splits)
+    tiles each. CPU tensors take the plain version."""
     if softcap and not safe_softmax:
         raise ValueError("softcap needs the online form (safe_softmax)")
+    if kv_splits is not None and kv_splits > 1 and page_table is not None:
+        raise ValueError("paged + kv_splits is unsupported (as in JAX)")
     if q_in.device.type == "cpu":
         return decode_attention_core_plain(
             q_in, q_rs, k_cache, v_cache, k_scale, v_scale, lengths,
             layer=layer, block_kv=block_kv, scale=scale,
             safe_softmax=safe_softmax, window_left=window_left,
             sink_tokens=sink_tokens, softcap=softcap, n_tok=n_tok,
-            page_table=page_table)
+            page_table=page_table, alibi=alibi, kv_splits=kv_splits)
     b, h_kv, G, d = q_in.shape
-    L, pool, _, slot_dim, _ = k_cache.shape
+    L, pool, _, slot_dim, dv = k_cache.shape
     dev = q_in.device
-    quant = q_rs is not None
-    kv_dtype = torch.int8 if quant else torch.bfloat16
+    quant = k_scale is not None
+    kind = _kv_kind(q_in, q_rs, k_cache, k_scale)
     if d != _HEAD_DIM:
         raise NotImplementedError(
             f"the B7 kernel takes head_dim {_HEAD_DIM}, got d={d}")
     if n_tok < 1 or G % n_tok:
         raise ValueError(f"{G} query rows do not hold runs of {n_tok}")
-    if q_in.dtype != kv_dtype or not q_in.is_contiguous():
-        raise ValueError(f"q must be contiguous {kv_dtype}")
+    if not q_in.is_contiguous():
+        raise ValueError("q must be contiguous")
     for name, t in (("k_cache", k_cache), ("v_cache", v_cache)):
-        if t.shape != k_cache.shape or t.dtype != kv_dtype \
+        if t.shape != k_cache.shape or t.dtype != k_cache.dtype \
                 or t.device != dev or not t.is_contiguous():
-            raise ValueError(f"{name} must be a contiguous {kv_dtype} "
+            raise ValueError(f"{name} must be a contiguous {k_cache.dtype} "
                              f"(L, b or P, h_kv, slots, d) tensor on {dev}")
-    if k_cache.shape[2] != h_kv or k_cache.shape[4] != d:
+    want_dv = d // 2 if k_cache.dtype == torch.uint8 else d
+    if k_cache.shape[2] != h_kv or dv != want_dv:
         raise ValueError(f"cache {tuple(k_cache.shape)} does not match q "
                          f"{tuple(q_in.shape)}")
     pt = None
@@ -416,28 +504,38 @@ def decode_attention_core(q_in, q_rs, k_cache, v_cache, k_scale, v_scale,
         if pool != b:
             raise ValueError(f"a dense cache holds {pool} rows, q {b}")
         n_pages, cap = 1, slot_dim
-    if quant:
+    if q_rs is not None:
         if q_rs.shape != (b, h_kv, G) or q_rs.dtype != torch.float32:
             raise ValueError("q row scales must be fp32 (b, h_kv, rows)")
         q_rs = q_rs.contiguous()
+    if quant:
         for name, t in (("k_scale", k_scale), ("v_scale", v_scale)):
             if t.shape != (L, pool, h_kv, 1, slot_dim) \
                     or t.dtype != torch.float32 or not t.is_contiguous():
                 raise ValueError(f"{name} must be contiguous fp32 "
                                  f"{(L, pool, h_kv, 1, slot_dim)}")
+    if alibi is not None:
+        alibi = alibi.to(device=dev, dtype=torch.float32).contiguous()
+        if alibi.shape != (h_kv, G):
+            raise ValueError(f"ALiBi row slopes must be (h_kv, rows) = "
+                             f"{(h_kv, G)}, got {tuple(alibi.shape)}")
     if not 0 <= layer < L:
         raise ValueError(f"layer {layer} out of range for {L} layers")
     # a tile too large for shared memory fails in the launch (the C entry
     # point returns cudaErrorInvalidValue) and raises there
     lens = lengths.to(device=dev, dtype=torch.int32).contiguous()
     nk = -(-cap // block_kv)
-    if window_left >= 0:  # the most live tiles a row can have
-        nk = min(nk, -(-sink_tokens // block_kv)
-                 + (window_left + n_tok - 1 + block_kv) // block_kv + 1)
-    cells = b * h_kv * -(-G // _GROUP_ROWS)
-    splits = max(1, min(nk, -(-_TARGET_BLOCKS // cells)))
-    per_split = -(-nk // splits)
-    splits = -(-nk // per_split)
+    if kv_splits is not None:  # JAX's splits of the whole tile range
+        splits = max(1, min(int(kv_splits), nk))
+        per_split = -(-nk // splits)
+    else:
+        if window_left >= 0:  # the most live tiles a row can have
+            nk = min(nk, -(-sink_tokens // block_kv)
+                     + (window_left + n_tok - 1 + block_kv) // block_kv + 1)
+        cells = b * h_kv * -(-G // _GROUP_ROWS)
+        splits = max(1, min(nk, -(-_TARGET_BLOCKS // cells)))
+        per_split = -(-nk // splits)
+        splits = -(-nk // per_split)
     out = torch.empty((b, h_kv, G, d), dtype=torch.float32, device=dev)
     lse = torch.empty((b, h_kv, G), dtype=torch.float32, device=dev)
     part_out = part_lse = None
@@ -449,12 +547,13 @@ def decode_attention_core(q_in, q_rs, k_cache, v_cache, k_scale, v_scale,
     dims = _build.dims_array([b, h_kv, G, cap, layer, block_kv, splits,
                               per_split, window_left,
                               sink_tokens if window_left >= 0 else 0,
-                              n_tok, pool, slot_dim, n_pages])
+                              n_tok, pool, slot_dim, n_pages, kind])
     p = _build.ptr
     _build.KERNELS["decode_attention"](
         p(q_in), p(q_rs), p(k_cache), p(v_cache), p(k_scale), p(v_scale),
         p(lens), p(pt), p(part_out), p(part_lse), p(out), p(lse), dims,
-        scale, float(softcap), int(safe_softmax), _build.stream_ptr(dev))
+        scale, float(softcap), int(safe_softmax), _build.stream_ptr(dev),
+        p(alibi))
     return out, lse
 
 
@@ -468,8 +567,9 @@ def decode_query_operands(q, k_cache, quant: bool, *, scale: float,
     int8: q row-quantized (absmax/127, floor 1e-6, half to even) with the
     softmax scale (and log2e in the fast form) folded into the row scale;
     bf16: q folded by scale*log2e in its dtype (fast form) or as it is
-    (safe). ``paged``: the cache's slot axis is a page (the paged tile
-    rule)."""
+    (safe); ``quant`` False is also the dequant-cast path's q. ``paged``:
+    the cache's slot axis is a page (the paged tile rule). The tile rule
+    reads the cache's element size, 1 for packed int4 as for JAX's s4."""
     if q.dim() == 3:
         q = q[:, None]
     b, n, h, d = q.shape
@@ -495,11 +595,13 @@ def decode_attention(q, k_cache, v_cache, lengths, k_scale=None,
                      alibi_slopes=None, sink_tokens=0, first_cols=None,
                      sink_cols=None, sink_band=0, page_table=None,
                      mxu_int8=True, safe_softmax=False):
-    """Decode attention over a bf16 or int8 cache, dense or paged.
+    """Decode attention over a bf16, int8, fp8 or packed int4 cache, dense
+    or paged.
 
     q (b, h, d), or a run (b, n, h, d); cache (b, h_kv, s_max, d) or the
-    stacked (L, b, h_kv, s_max, d) with ``layer`` (an int); int8 caches
-    pass scales in the cache's (.., h_kv, 1, s_max) layout; ``lengths`` (b,)
+    stacked (L, b, h_kv, s_max, d) with ``layer`` (an int), d // 2 packed
+    bytes for int4; quantized caches pass scales in the cache's (.., h_kv,
+    1, s_max) layout; ``lengths`` (b,)
     int32 is the visible prefix per row including the run's tokens, whose
     K/V already sit in the cache: token i of a run is at position
     ``lengths - n + i`` and sees the columns up to it. ``page_table`` (b,
@@ -509,24 +611,28 @@ def decode_attention(q, k_cache, v_cache, lengths, k_scale=None,
     -1 and are never read. A left ``window_size`` keeps the last window + 1
     columns of each query row, and ``sink_tokens`` the first ones beside
     them (sinks act only with a window); ``softcap`` caps the scores and
-    takes the online form. The int8 path row-quantizes q (absmax/127,
-    scale and log2e folded into the row scale) and runs s8 x s8 products,
-    requantizing P per kv tile; the tile and the split of a long run into
-    sub-runs follow the JAX package's rule (:func:`decode_run_plan`), each
-    sub-run one kernel launch. Returns out (b, h, d) bf16 (+ lse (b, h)
-    fp32 with ``return_lse``); for a run out (b, n, h, d) and lse (b, h,
-    n)."""
+    takes the online form; ``alibi_slopes`` (h,) adds -slope * (q_pos -
+    kv_pos) after the softcap. The s8 path (int8 or int4 cache under
+    ``mxu_int8``, the default) row-quantizes q (absmax/127, scale and log2e
+    folded into the row scale) and runs s8 x s8 products, requantizing P
+    per kv tile; fp8, and int8 / int4 with ``mxu_int8=False``, take the
+    dequant-cast path (bf16 q against the widened cache). The tile and the
+    split of a long run into sub-runs follow the JAX package's rule
+    (:func:`decode_run_plan`), each sub-run one kernel launch.
+    ``kv_splits``: JAX's flash-decoding split count (dense caches; paged +
+    kv_splits > 1 raises ValueError, as JAX refuses it). Returns out (b, h,
+    d) bf16 (+ lse (b, h) fp32 with ``return_lse``); for a run out (b, n,
+    h, d) and lse (b, h, n)."""
     del interpret
     multi = q.dim() == 4
-    if kv_splits not in (None, 1):
-        raise not_ported("kv_splits")
-    if alibi_slopes is not None:
-        raise not_ported("ALiBi decode")
     if first_cols is not None or sink_cols is not None or sink_band:
         raise not_ported("sequence-sharded decode (first_cols/sink_cols/"
                          "sink_band)")
     if softcap < 0:
         raise ValueError(f"softcap must be >= 0, got {softcap}")
+    paged = page_table is not None
+    if paged and kv_splits not in (None, 1):
+        raise ValueError("paged + kv_splits unsupported")
     layered = layer is not None
     li = int(layer) if layered else 0
     kc = k_cache if layered else k_cache[None]
@@ -534,30 +640,38 @@ def decode_attention(q, k_cache, v_cache, lengths, k_scale=None,
     quant = k_scale is not None
     ks = None if not quant else (k_scale if layered else k_scale[None])
     vs = None if not quant else (v_scale if layered else v_scale[None])
-    if quant and (kc.dtype != torch.int8 or not mxu_int8):
-        raise not_ported("fp8/int4 caches and the int8 dequant-cast path")
+    s8 = quant and bool(mxu_int8) and kc.dtype in (torch.int8, torch.uint8)
     qr = q if multi else q[:, None]
     b, n_tok, h, d = qr.shape
     h_kv = kc.shape[2]
     g = h // h_kv
-    paged = page_table is not None
     scale = softmax_scale if softmax_scale is not None else d ** -0.5
     w_left = int(tuple(window_size)[0])
     sink = int(sink_tokens) if w_left >= 0 else 0
     online = bool(safe_softmax) or softcap > 0
+    slopes = None
+    if alibi_slopes is not None:
+        slopes = torch.as_tensor(alibi_slopes, dtype=torch.float32,
+                                 device=q.device).reshape(h_kv, g, 1)
+        if not online:
+            slopes = slopes * _LOG2E  # the bias adds to exp2-unit scores
     outs, lses = [], []
     for i, e, _ in decode_run_plan(n_tok, h_kv, g, d, kc.shape[3],
                                    kc.element_size(), block_kv=block_kv,
                                    paged=paged):
         n = e - i
         q_in, q_rs, bkv = decode_query_operands(
-            qr[:, i:e], kc, quant, scale=scale, block_kv=block_kv,
+            qr[:, i:e], kc, s8, scale=scale, block_kv=block_kv,
             safe_softmax=online, paged=paged)
+        # (h,) -> each (head, token) row's slope
+        row_sl = (None if slopes is None
+                  else slopes.expand(h_kv, g, n).reshape(h_kv, g * n))
         out, lse = decode_attention_core(
             q_in, q_rs, kc, vc, ks, vs, lengths - (n_tok - e), layer=li,
             block_kv=bkv, scale=scale, safe_softmax=online,
             window_left=w_left, sink_tokens=sink, softcap=float(softcap),
-            n_tok=n, page_table=page_table)
+            n_tok=n, page_table=page_table, alibi=row_sl,
+            kv_splits=kv_splits)
         # rows (head, token) -> (token, head)
         outs.append(out.to(torch.bfloat16).reshape(b, h_kv, g, n, d)
                     .permute(0, 3, 1, 2, 4).reshape(b, n, h, d))

@@ -17,8 +17,9 @@ PyTorch version of the same arithmetic in this module:
   and kv columns at the global positions of a :class:`Positions`
   descriptor (one chunk each, q at ``q_start + i``, for a cache slice
   taken by strides; up to two chunks a side and a stride for the ring
-  layouts), with the same masks and softcap, bf16 or int8 K/V with
-  per-token scales, the TPU's ``_fwd_kernel``.
+  layouts), with the same masks and softcap, bf16 K/V or int8, fp8 or
+  packed int4 K/V (the cache dtypes, widened exactly to bf16 in the
+  kernel) with per-token scales, the TPU's ``_fwd_kernel``.
 * :func:`flash_bwd_dq` (B2a, ``csrc/flash_dq_sm90.cu``: the wgmma/TMA dq
   pipeline), :func:`flash_bwd_dkv` (B2b) and :func:`flash_bwd_fused` (B5,
   both ``csrc/flash_bwd_sm90.cu``: wgmma and TMA), all sm_90a only: the
@@ -60,6 +61,7 @@ import numpy as np
 import torch
 
 from long_context_attention_tpu_torch.ops import _build
+from long_context_attention_tpu_torch.ops.kv_cache import _widen
 from long_context_attention_tpu_torch.utils.config import NEG_INF, not_ported
 
 __all__ = ["Features", "Positions", "dropout_keep", "dropout_word",
@@ -79,6 +81,10 @@ _CLAMP = 90.0
 _HEAD_DIM = 128  # the head dim the Hopper kernels are built for
 # softmax forms of the forward kernels' C entry points
 _FAST, _ONLINE, _SOFTCAP = 0, 1, 2
+# B3's kinds of K/V (csrc/sm90.cuh kKv*): bf16, then the quantized cache
+# dtypes' storage (int4 packed two per byte along d, as uint8)
+_KV_KINDS = {torch.bfloat16: 0, torch.int8: 1, torch.float8_e4m3fn: 2,
+             torch.uint8: 3}
 
 _QUANT_FORWARD_ONLY = ("this attention path is forward-only, as in the JAX "
                        "package: the quantized-KV and cache paths have no "
@@ -609,8 +615,9 @@ def flash_fwd_pos_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         features: Optional[Features] = None):
     """Plain version of kernel B3 (same arithmetic, whole rows at once).
 
-    q (b, s_q, h, d); k, v (b, h_kv, s_kv, d), bf16 or int8 with fp32
-    scales (b, h_kv, s_kv); the masks compare the global positions of
+    q (b, s_q, h, d); k, v (b, h_kv, s_kv, d), bf16, or int8, fp8 or
+    packed int4 (uint8, (b, h_kv, s_kv, d // 2)) with fp32 scales (b, h_kv,
+    s_kv), widened exactly to bf16; the masks compare the global positions of
     ``pos`` (any descriptor), or q row i at q_start + i and kv column j at
     j, with sinks at positions below ``sink_tokens``. Fast form:
     s = (q folded) . k * k_scale, p = exp2(min(s, 90)), l = rowsum(p) before
@@ -629,7 +636,8 @@ def flash_fwd_pos_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kv_pos = pos.kv_positions(s_kv, q.device)
     seg, bias, keep = _feature_terms(features, q_pos, kv_pos, b, h)
     mask = _join_masks(_mask(q_pos, kv_pos, left, right, sink), seg)
-    kf, vf = (t.to(vdt).float().repeat_interleave(g, dim=1) for t in (k, v))
+    kf, vf = (_widen(t, vdt).float().repeat_interleave(g, dim=1)
+              for t in (k, v))
     ks = vs = None
     if quant:
         ks, vs = (t.float().repeat_interleave(g, dim=1)
@@ -704,7 +712,8 @@ def flash_fwd_pos(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   safe_softmax: bool = False,
                   features: Optional[Features] = None):
     """Kernel B3 wrapper: q (b, s_q, h, d) bf16 against k, v (b, h_kv, s_kv,
-    d), bf16 or int8 with fp32 scales (b, h_kv, s_kv). k, v and the scales
+    d), bf16, or int8, fp8 or packed int4 (uint8, d // 2 bytes a row) with
+    fp32 scales (b, h_kv, s_kv). k, v and the scales
     may be strided views (a cache slice); they are read in place. Masks and
     softcap as in :func:`flash_attention`, over the positions of ``pos``
     (or q rows at ``q_start + i``, kv columns at j); each q tile walks, kv
@@ -723,19 +732,24 @@ def flash_fwd_pos(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     pos = _pos(pos, q_start)
     b, s_q, h, d = q.shape
     _, h_kv, s_kv, _ = k.shape
-    if k.shape != (b, h_kv, s_kv, d) or v.shape != k.shape or h % h_kv:
+    quant = k_scale is not None
+    if quant != (v_scale is not None):
+        raise ValueError("k_scale and v_scale must be passed together")
+    kind = _KV_KINDS.get(k.dtype)
+    if kind is None or (kind != 0) != quant:
+        raise ValueError(f"{k.dtype} K/V {'with' if quant else 'without'} "
+                         f"scales: B3 takes bf16 K/V, or int8, fp8 or "
+                         f"packed int4 (uint8) K/V with scales")
+    dk = d // 2 if k.dtype == torch.uint8 else d
+    if k.shape != (b, h_kv, s_kv, dk) or v.shape != k.shape or h % h_kv:
         raise ValueError(f"shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)} do not match")
     if d != _HEAD_DIM:
         raise NotImplementedError(f"the B3 kernel is built for head_dim "
                                   f"{_HEAD_DIM}, got {d}")
-    quant = k_scale is not None
-    if quant != (v_scale is not None):
-        raise ValueError("k_scale and v_scale must be passed together")
-    kv_dtype = torch.int8 if quant else torch.bfloat16
     _check_cuda_operand("q", q, torch.bfloat16, q.device)
-    _check_cuda_operand("k", k, kv_dtype, q.device)
-    _check_cuda_operand("v", v, kv_dtype, q.device)
+    _check_cuda_operand("k", k, k.dtype, q.device)
+    _check_cuda_operand("v", v, k.dtype, q.device)
     if v.stride() != k.stride():
         raise ValueError("k and v must share strides")
     sc_strides = (0, 0, 0)
@@ -758,7 +772,7 @@ def flash_fwd_pos(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dims = _build.dims_array([
         b, h, h_kv, s_q, s_kv, *q.stride()[:3], *kst, *kst,
         *out.stride()[:3], *sc_strides, q0, left, right, sink0, *desc,
-        *fdims])
+        *fdims, kind])
     _build.KERNELS["flash_fwd_pos"](
         _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(k_scale),
         _build.ptr(v_scale), _build.ptr(out), _build.ptr(lse), dims,
@@ -1342,8 +1356,9 @@ def flash_attention_fwd(q, k, v, *, k_scale=None, v_scale=None,
     """Forward entry: returns (out, lse), differentiable as
     :func:`flash_attention` is.
 
-    ``k_scale`` / ``v_scale`` ((b, h_kv, s_kv) fp32) switch on the int8-KV
-    path (kernel B3 at the call's positions, bottom-right aligned without
+    ``k_scale`` / ``v_scale`` ((b, h_kv, s_kv) fp32) switch on the
+    quantized-KV path (int8, fp8 or packed int4 k and v, (b, s_kv, h_kv, d
+    or d // 2); kernel B3 at the call's positions, bottom-right aligned without
     offsets, with the same window, sinks, softcap and features; the ring's
     ``kv_quant``), which is forward-only."""
     del return_lse
@@ -1374,7 +1389,8 @@ def flash_attention_fwd_cache(q, k_cache, v_cache, *, k_scale=None,
                               block_sizes=None, interpret=None,
                               safe_softmax=False, causal=False):
     """Forward-only attention of q (b, s_q, h, d) against a BHSD cache slice
-    (b, h_kv, s_kv, d), bf16 or int8 with (b, h_kv, s_kv) fp32 scales: the
+    (b, h_kv, s_kv, d), bf16, or int8, fp8 or packed int4 (d // 2 bytes a
+    row) with (b, h_kv, s_kv) fp32 scales: the
     chunked-prefill building block (kernel B3). q rows sit at global
     positions ``q_start + i`` and cache slots at ``j``; ``causal=True``
     masks slots past each row, and ``window_size``, ``sink_tokens`` and

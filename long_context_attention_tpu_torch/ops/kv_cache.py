@@ -1,17 +1,23 @@
-"""Quantized KV-cache storage: int8 per-token-per-head absmax scaling.
+"""Quantized KV-cache storage: per-token-per-head absmax scaling.
 
 Counterpart of ``long_context_attention_tpu/ops/kv_cache.py``. Values are
 stored BHSD, (n_layers, b, h_kv, s_max, d), the layout the decode kernel
-streams; int8 caches keep fp32 scales (n_layers, b, h_kv, 1, s_max) in the
-same unit-dim layout as the JAX package. The JAX cache is an immutable
+streams; quantized caches keep fp32 scales (n_layers, b, h_kv, 1, s_max) in
+the same unit-dim layout as the JAX package. The JAX cache is an immutable
 pytree; this one is a mutable object whose ``write_prompt`` and ``advance``
 update its tensors IN PLACE and return ``self``.
 
 :class:`PagedKVCache` is the paged form: one pool of pages shared by the
 rows, (n_layers, pool_pages, h_kv, page_size, d), and a page table per row.
 
-Supported cache dtypes: "bfloat16" and "int8". "float8_e4m3fn" and "int4"
-are not ported yet and raise ``NotImplementedError``.
+Cache dtypes, the JAX package's four, each with its storage dtype:
+"bfloat16" (``torch.bfloat16``), "int8" (``torch.int8``, qmax 127),
+"float8_e4m3fn" (``torch.float8_e4m3fn``, qmax 448, clipped and cast with
+no rounding step) and "int4" (qmax 7). torch has no usable int4 dtype, so
+int4 values are PACKED two per byte along d (:func:`pack_int4`): element
+2i in the low nibble, 2i + 1 in the high one, two's complement, stored as
+``torch.uint8`` with a last dim of d // 2. A uint8 cache is an int4 cache
+everywhere in the port.
 """
 
 from __future__ import annotations
@@ -21,55 +27,102 @@ from typing import Optional, Tuple
 
 import torch
 
-from long_context_attention_tpu_torch.utils.config import (
-    not_ported,
-    resolve_device,
-)
+from long_context_attention_tpu_torch.utils.config import resolve_device
 
 __all__ = ["KVCache", "PagedKVCache", "quantize_kv", "dequantize_kv",
-           "CACHE_DTYPES"]
+           "pack_int4", "unpack_int4", "CACHE_DTYPES"]
 
-CACHE_DTYPES = ("bfloat16", "int8")
-_LATER_DTYPES = ("int4", "float8_e4m3fn")
+CACHE_DTYPES = ("bfloat16", "int8", "int4", "float8_e4m3fn")
+
+# each cache dtype's storage dtype and the qmax of its absmax scale
+_STORAGE = {"bfloat16": torch.bfloat16, "int8": torch.int8,
+            "int4": torch.uint8, "float8_e4m3fn": torch.float8_e4m3fn}
+_QMAX = {"int8": 127.0, "int4": 7.0, "float8_e4m3fn": 448.0}
 
 
 def _check_dtype(dtype: str) -> None:
-    if dtype in _LATER_DTYPES:
-        raise not_ported(f"cache dtype {dtype!r}")
     if dtype not in CACHE_DTYPES:
         raise ValueError(f"cache dtype {dtype!r} not in {CACHE_DTYPES}")
 
 
+def _dtype_name(values: torch.Tensor) -> str:
+    """The cache dtype whose storage ``values`` are (uint8: packed int4)."""
+    for name, st in _STORAGE.items():
+        if values.dtype == st:
+            return name
+    raise ValueError(f"{values.dtype} is no cache storage dtype")
+
+
+def pack_int4(q: torch.Tensor) -> torch.Tensor:
+    """int values in [-8, 7], (..., d) with d even -> (..., d // 2) uint8:
+    element 2i in the low nibble, 2i + 1 in the high one (two's
+    complement)."""
+    n = q.to(torch.int16) & 0xF
+    return (n[..., 0::2] | (n[..., 1::2] << 4)).to(torch.uint8)
+
+
+def unpack_int4(p: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`pack_int4`: (..., d // 2) uint8 -> (..., d) int8."""
+    w = p.to(torch.int16)
+    n = torch.stack((w & 0xF, w >> 4), dim=-1).flatten(-2)
+    return (n - ((n & 8) << 1)).to(torch.int8)
+
+
+def _widen(values: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:
+    """Stored cache values as ``dtype`` (exact for bf16 and wider): packed
+    int4 unpacked, the other storage dtypes cast."""
+    if values.dtype == torch.uint8:
+        values = unpack_int4(values)
+    return values.to(dtype)
+
+
 def quantize_kv(x: torch.Tensor, dtype: str
                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """(..., d) float -> (values in ``dtype``, absmax scales (...,) fp32).
+    """(..., d) float -> (values in ``dtype``'s storage, absmax scales
+    (...,) fp32), as the JAX package's ``_qparams``: scale = max(absmax,
+    1e-6) / qmax; int8 and int4 round half to even, fp8 is clipped and cast
+    with no rounding step; int4 comes packed (:func:`pack_int4`).
 
     bfloat16 passes through with scales None."""
     _check_dtype(dtype)
     if dtype == "bfloat16":
         return x.to(torch.bfloat16), None
+    qmax = _QMAX[dtype]
     xf = x.float()
-    scale = torch.clamp(xf.abs().amax(dim=-1), min=1e-6) / 127.0
-    q = torch.clamp(torch.round(xf / scale[..., None]), -127.0, 127.0)
-    return q.to(torch.int8), scale
+    scale = torch.clamp(xf.abs().amax(dim=-1), min=1e-6) / qmax
+    q = xf / scale[..., None]
+    if dtype != "float8_e4m3fn":
+        q = torch.round(q)
+    q = torch.clamp(q, -qmax, qmax)
+    if dtype == "int4":
+        return pack_int4(q), scale
+    return q.to(_STORAGE[dtype]), scale
 
 
 def dequantize_kv(q: torch.Tensor, scale: Optional[torch.Tensor],
                   dtype=torch.bfloat16) -> torch.Tensor:
-    """Inverse of :func:`quantize_kv`. Scales may be flat (..., s) or in the
-    cache's (..., 1, s) layout."""
+    """Inverse of :func:`quantize_kv` (packed int4 included). Scales may be
+    flat (..., s) or in the cache's (..., 1, s) layout."""
     if scale is None:
         return q.to(dtype)
     if scale.dim() == q.dim():
         scale = scale[..., 0, :]
-    return (q.float() * scale[..., None]).to(dtype)
+    return (_widen(q, torch.float32) * scale[..., None]).to(dtype)
+
+
+def _storage(dtype: str, d: int):
+    """(storage dtype, stored last dim) of a cache of head dim ``d``."""
+    if dtype == "int4" and d % 2:
+        raise ValueError(f"an int4 cache packs pairs along d: d={d} is odd")
+    return _STORAGE[dtype], d // 2 if dtype == "int4" else d
 
 
 @dataclasses.dataclass
 class KVCache:
-    """Per-layer KV cache in BHSD: values (n_layers, b, h_kv, s_max, d),
-    scales (n_layers, b, h_kv, 1, s_max) fp32 for int8; ``length`` (b,)
-    int32 is the filled prefix per batch row."""
+    """Per-layer KV cache in BHSD: values (n_layers, b, h_kv, s_max, d)
+    (d // 2 packed bytes for int4), scales (n_layers, b, h_kv, 1, s_max)
+    fp32 for the quantized dtypes; ``length`` (b,) int32 is the filled
+    prefix per batch row."""
 
     k: torch.Tensor
     v: torch.Tensor
@@ -82,8 +135,8 @@ class KVCache:
              dtype: str = "bfloat16", device=None) -> "KVCache":
         _check_dtype(dtype)
         dev = resolve_device(device)
-        vdt = torch.bfloat16 if dtype == "bfloat16" else torch.int8
-        shape = (n_layers, b, h_kv, s_max, d)
+        vdt, dv = _storage(dtype, d)
+        shape = (n_layers, b, h_kv, s_max, dv)
         scales = (None if dtype == "bfloat16" else
                   torch.zeros((n_layers, b, h_kv, 1, s_max),
                               dtype=torch.float32, device=dev))
@@ -97,7 +150,8 @@ class KVCache:
 
     @property
     def dtype(self) -> str:
-        return "bfloat16" if self.k_scale is None else "int8"
+        """The cache dtype's name, from the stored values' dtype."""
+        return _dtype_name(self.k)
 
     @property
     def s_max(self) -> int:
@@ -134,8 +188,9 @@ class PagedKVCache:
     """Paged KV cache: one physical POOL of pages shared by the rows, and
     a page table per row (the JAX package's ``PagedKVCache``).
 
-    Values ``(n_layers, pool_pages, h_kv, page_size, d)``; scales
-    ``(n_layers, pool_pages, h_kv, 1, page_size)`` fp32 for int8;
+    Values ``(n_layers, pool_pages, h_kv, page_size, d)`` (d // 2 packed
+    bytes for int4); scales ``(n_layers, pool_pages, h_kv, 1, page_size)``
+    fp32 for the quantized dtypes;
     ``page_table`` (b, n_pages) int32 maps row b's logical page i to a pool
     page (-1: unallocated, never read live); ``length`` (b,) int32 is the
     logical filled prefix. Pool page 0 is the scratch page that allocators
@@ -162,8 +217,8 @@ class PagedKVCache:
         if pool_pages < 2:
             raise ValueError("the pool needs the scratch page + 1")
         dev = resolve_device(device)
-        vdt = torch.bfloat16 if dtype == "bfloat16" else torch.int8
-        shape = (n_layers, pool_pages, h_kv, page_size, d)
+        vdt, dv = _storage(dtype, d)
+        shape = (n_layers, pool_pages, h_kv, page_size, dv)
         scales = (None if dtype == "bfloat16" else
                   torch.zeros((n_layers, pool_pages, h_kv, 1, page_size),
                               dtype=torch.float32, device=dev))
@@ -179,7 +234,8 @@ class PagedKVCache:
 
     @property
     def dtype(self) -> str:
-        return "bfloat16" if self.k_scale is None else "int8"
+        """The cache dtype's name, from the stored values' dtype."""
+        return _dtype_name(self.k)
 
     @property
     def page_size(self) -> int:

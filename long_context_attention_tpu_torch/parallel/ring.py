@@ -16,10 +16,11 @@ position kernels take, so zigzag and stripe need no shape tricks.
   owner, and K/V ride W - 1.
 * ``bidirectional``: each rank's K/V split in halves that travel opposite
   ways, one two-chunk kv descriptor per step (TokenRing, arXiv:2412.20501).
-* ``kv_quant="int8"``: K/V quantized once per token at entry and rotated
-  as int8 with fp32 scales (B3's int8 path; B8b for sage); the backward's
-  K/V are the dequantized values the forward attended to, the gradient
-  straight-through.
+* ``kv_quant`` ("int8", "float8_e4m3fn" or "int4"): K/V quantized once
+  per token at entry and rotated as the quantized bytes with fp32 scales
+  (B3's quantized path, int4 packed two per byte: half of int8's bytes;
+  B8b for sage, int8 only); the backward's K/V are the dequantized values
+  the forward attended to, the gradient straight-through.
 * Segment ids (packed varlen batches) rotate with K/V (halves of them in
   the bidirectional ring); ALiBi and dropout read global positions, so
   every step computes its part of the single-device function (the dropout
@@ -61,7 +62,6 @@ from long_context_attention_tpu_torch.parallel.ulysses import (
     group_rank,
     group_size,
 )
-from long_context_attention_tpu_torch.utils.config import not_ported
 
 __all__ = ["RingConfig", "RingComm", "ring_attention_local",
            "ring_step_kwargs", "RING_ATTENTION_OP"]
@@ -113,9 +113,9 @@ class RingConfig:
                 "safe_softmax is a pallas-kernel knob (the sage kernels "
                 "are max-free by construction; the xla oracle computes "
                 "the exact softmax either way)")
-        if self.kv_quant not in (None, "int8"):
-            raise not_ported(f"kv_quant={self.kv_quant!r} (fp8 K/V in "
-                             f"kernel B3)")
+        if self.kv_quant not in (None, "int8", "int4", "float8_e4m3fn"):
+            raise ValueError(f"not a quantized cache dtype: "
+                             f"{self.kv_quant!r}")
 
     def attn_kwargs(self, q_off, kv_off, q_stride, kv_stride, q_seg=None,
                     kv_seg=None, alibi_sl=None, seed=None):
@@ -184,30 +184,36 @@ class RingComm:
         forward, back = list(forward), list(back)
         if self.size == 1:
             return forward, back
-        got_f = [torch.empty_like(t) for t in forward]
-        got_b = [torch.empty_like(t) for t in back]
+        # fp8 travels as its bytes (a backend need not know the dtype)
+        wire = [_wire(t) for t in forward + back]
+        got = [torch.empty_like(t) for t in wire]
+        nf = len(forward)
         ops = []
-        for tag, (t, o) in enumerate(zip(forward, got_f)):
-            ops.append(dist.P2POp(dist.isend, t.contiguous(), self.next,
-                                  self.group, tag))
-            ops.append(dist.P2POp(dist.irecv, o, self.prev, self.group, tag))
-        for tag, (t, o) in enumerate(zip(back, got_b), start=len(forward)):
-            ops.append(dist.P2POp(dist.isend, t.contiguous(), self.prev,
-                                  self.group, tag))
-            ops.append(dist.P2POp(dist.irecv, o, self.next, self.group, tag))
+        for tag, (t, o) in enumerate(zip(wire, got)):
+            to, frm = (self.next, self.prev) if tag < nf else (self.prev,
+                                                              self.next)
+            ops.append(dist.P2POp(dist.isend, t, to, self.group, tag))
+            ops.append(dist.P2POp(dist.irecv, o, frm, self.group, tag))
         for req in dist.batch_isend_irecv(ops):
             req.wait()
-        return got_f, got_b
+        got = [g.view(t.dtype) for g, t in zip(got, forward + back)]
+        return got[:nf], got[nf:]
 
     def rotate(self, *tensors):
         """Send each tensor to the next rank, receive the previous rank's."""
         return tuple(self.exchange(forward=tensors)[0])
 
 
-def _quantize(x: torch.Tensor):
-    """int8 values (b, s, h_kv, d) and their scales in the kernels' layout
-    (b, h_kv, s)."""
-    xq, xs = quantize_kv(x, "int8")
+def _wire(t: torch.Tensor) -> torch.Tensor:
+    """A tensor as it is sent: contiguous, fp8 as its uint8 bytes."""
+    t = t.contiguous()
+    return t.view(torch.uint8) if t.dtype == torch.float8_e4m3fn else t
+
+
+def _quantize(x: torch.Tensor, dtype: str):
+    """Quantized values (b, s, h_kv, d; int4 packed to d // 2) and their
+    scales in the kernels' layout (b, h_kv, s)."""
+    xq, xs = quantize_kv(x, dtype)
     return xq, xs.transpose(1, 2).contiguous()
 
 
@@ -221,7 +227,7 @@ def _merge(acc, blk, first: bool):
 
 def _block(cfg: RingConfig, impl, q, cur, kw):
     """One ring step's (out, lse) over the K/V held now: ``cur`` is (k, v)
-    or, under ``kv_quant``, (k int8, v int8, k scales, v scales)."""
+    or, under ``kv_quant``, (k, v quantized, k scales, v scales)."""
     if len(cur) == 2:
         return impl.fwd(q, cur[0], cur[1], **kw)
     if cfg.impl == "sage":  # ring x sage direct-int8: B8b on the rotated K/V
@@ -245,7 +251,8 @@ def _kv_parts(cfg: RingConfig, k, v, seg=None):
     if cfg.kv_quant is None:
         parts = [k, v]
     else:
-        (kq, ks), (vq, vs) = _quantize(k), _quantize(v)
+        (kq, ks), (vq, vs) = (_quantize(k, cfg.kv_quant),
+                              _quantize(v, cfg.kv_quant))
         parts = [kq, vq, ks, vs]
     return parts if seg is None else parts + [seg]
 
@@ -375,8 +382,8 @@ def _ring_op_setup(ctx, inputs, output) -> None:
         # the backward recomputes p = exp(s - lse) from the forward's lse,
         # so it must see the K/V the forward attended to: the dequantized
         # values (the gradient w.r.t. k, v is straight-through)
-        k = dequantize_kv(*quantize_kv(k, "int8"), k.dtype)
-        v = dequantize_kv(*quantize_kv(v, "int8"), v.dtype)
+        k = dequantize_kv(*quantize_kv(k, cfg.kv_quant), k.dtype)
+        v = dequantize_kv(*quantize_kv(v, cfg.kv_quant), v.dtype)
     ctx.save_for_backward(q, k, v, *output)
     ctx.handle = handle
     ctx.features = dict(seg=seg, slopes=slopes, seed=(seed, head_base))
@@ -433,7 +440,8 @@ def ring_attention_local(
     head base]) reach the kernels at global positions (pallas impl), so the
     ring computes the single-device function. Differentiable (the two-ring
     backward). Returns out (and the fp32 lse (b, h, s/W) with
-    ``return_lse``). ``kv_quant="fp8"`` raises ``NotImplementedError``."""
+    ``return_lse``). ``kv_quant`` ("int8", "float8_e4m3fn", "int4")
+    rotates quantized K/V (pallas; sage: int8)."""
     n = group_size(group)
     if ring_size is not None and ring_size != n:
         raise ValueError(f"ring_size {ring_size} != the group's size {n}")

@@ -129,7 +129,8 @@ def _numpy(pending) -> Optional[np.ndarray]:
 class ContinuousEngine:
     """Iteration-level scheduler over a fixed ``max_batch`` decode batch.
 
-    ``cache_dtype``: "bfloat16" | "int8". ``weight_dtype``: "bfloat16" |
+    ``cache_dtype``: "bfloat16" | "int8" | "float8_e4m3fn" | "int4"
+    (int4 packed two per byte along d). ``weight_dtype``: "bfloat16" |
     "int8" (w8a8 decode weights; admission prefill keeps the bf16 params).
     ``step_block``: decode steps per host sync. ``host_overlap``: pipeline
     the host scheduler one block behind the device. ``return_logprobs``:

@@ -2,8 +2,8 @@
 
 Counterpart of ``long_context_attention_tpu/serving/engine.py`` on one
 device: the prompt prefills through the model forward (whole, or in chunks
-against the growing cache), its post-RoPE K/V land in a bf16 or int8
-:class:`KVCache`, and generation is a Python loop of single-token
+against the growing cache), its post-RoPE K/V land in a bf16, int8, fp8
+or int4 :class:`KVCache`, and generation is a Python loop of single-token
 :func:`decode_step` calls that update the cache in place. JAX PRNG keys
 become ``torch.Generator``s.
 """
@@ -96,7 +96,8 @@ def token_logprob(logits: torch.Tensor, tok: torch.Tensor) -> torch.Tensor:
 class Engine:
     """Single-device generation engine for the llama model.
 
-    ``cache_dtype``: "bfloat16" | "int8". ``weight_dtype``: "bfloat16" |
+    ``cache_dtype``: "bfloat16" | "int8" | "float8_e4m3fn" | "int4"
+    (int4 packed two per byte along d). ``weight_dtype``: "bfloat16" |
     "int8"; int8 quantizes the decode weights per output channel
     (:meth:`decode_params`), prefill keeps the bf16 ``params``.
     ``device``: where the engine runs and its caches are made; None means

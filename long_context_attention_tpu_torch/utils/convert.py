@@ -2,7 +2,9 @@
 
 JAX keeps bf16 leaves as ``ml_dtypes.bfloat16`` numpy arrays, which
 ``torch.from_numpy`` rejects; they go through float32, a round trip that is
-exact. Every other dtype keeps its type.
+exact. Every other dtype keeps its type. :func:`cache_values_from_jax`
+carries a quantized cache's values into the port's storage (fp8 by bytes,
+int4 packed two per byte).
 """
 
 from __future__ import annotations
@@ -12,9 +14,10 @@ from typing import Any
 import numpy as np
 import torch
 
+from long_context_attention_tpu_torch.ops.kv_cache import pack_int4
 from long_context_attention_tpu_torch.utils.config import resolve_device
 
-__all__ = ["params_from_jax"]
+__all__ = ["params_from_jax", "cache_values_from_jax"]
 
 
 def _leaf(x, device) -> torch.Tensor:
@@ -38,3 +41,18 @@ def params_from_jax(tree: Any, device=None) -> Any:
         return _leaf(node, dev)
 
     return walk(tree)
+
+
+def cache_values_from_jax(x, device=None) -> torch.Tensor:
+    """A JAX cache array (values or scales, as numpy) in the port's storage
+    form on ``device`` (default: the card): ``float8_e4m3fn`` by its bytes,
+    ``int4`` widened to int8 and packed along the last dim (the port's
+    ``pack_int4``), every other dtype as :func:`params_from_jax` leaves."""
+    dev = resolve_device(device)
+    arr = np.asarray(x)
+    if arr.dtype.name == "float8_e4m3fn":
+        raw = torch.from_numpy(np.array(arr.view(np.uint8), copy=True))
+        return raw.view(torch.float8_e4m3fn).to(dev)
+    if arr.dtype.name == "int4":
+        return pack_int4(torch.from_numpy(arr.astype(np.int8))).to(dev)
+    return _leaf(arr, dev)

@@ -20,7 +20,12 @@ heads, head_dim 128, bf16):
   s=8192, causal (B5's dq is added by TMA reduce-adds in an order that
   changes from run to run, so it is held to ROW_REL_TOL of each row); the
   sage kernels B8a and B8b on the int8 operands of a 4 x 8192 prefill
-  (B8b with window 4096 and 4 sinks);
+  (B8b with window 4096 and 4 sinks); B6 and B7 over int8 and bf16
+  caches, dense (the slice's b=4 cache of 12288 slots, ~8.2K live) and
+  paged (pages of 2048 from a pool of 65), one token per row and a run of
+  256 (B6: the cache after the append; B7: out and lse through
+  decode_attention). A tree whose B7 entry takes no ALiBi slopes is called
+  without them;
 * B2a at b=1, s=8192, causal, B4 at b=4, s=2048 and s=8192 with window
   4096 and 4 sinks, and B9a, B9b and B9c at b=1, s=32768 in tiles of 512
   on the StreamingLLM mask, where a tree may have another kernel: each
@@ -81,7 +86,8 @@ MASKED = (
 # the kernels each case runs
 KERNELS = ("flash_fwd_causal_self", "flash_fwd_pos", "flash_fwd_static",
            "flash_bwd_dq", "flash_bwd_dkv", "flash_bwd_fused", "sage_fwd_tri",
-           "sage_fwd_pos", "sparse_fwd", "sparse_bwd_dq", "sparse_bwd_dkv")
+           "sage_fwd_pos", "sparse_fwd", "sparse_bwd_dq", "sparse_bwd_dkv",
+           "cache_append", "decode_attention")
 BACKWARD = ("flash_bwd_dq", "flash_bwd_dkv", "flash_bwd_fused")
 SPARSE = ("sparse_fwd", "sparse_bwd_dq", "sparse_bwd_dkv")
 # the one argument list of sparse.cu's entry points: q, k, v, dout, lse,
@@ -118,6 +124,9 @@ class Tree:
         self.masked_bwd = "float softcap" in "".join(
             (self.csrc / f).read_text() for f in ("sm90.cuh",
                                                   "flash_bwd_sm90.cu"))
+        # whether B7's entry point takes the ALiBi slopes (its last argument)
+        self.b7_slopes = "const float* slopes)" in (
+            self.csrc / "decode_attention.cu").read_text()
 
     def paths(self, source):
         saved = _build.CSRC, _build.BUILD_DIR
@@ -151,6 +160,12 @@ class Tree:
             if name in BACKWARD and not self.masked_bwd:
                 # drop the softcap (and read dims up to causal): dense only
                 self.fns[name] = (lambda fn: lambda *a: fn(*a[:11], a[12]))(
+                    self.fns[name])
+            if name == "decode_attention" and not self.b7_slopes:
+                # no ALiBi slopes (and dims read up to n_pages): the
+                # argument is dropped; the cases pass none
+                self.fns[name].argtypes = self.fns[name].argtypes[:-1]
+                self.fns[name] = (lambda fn: lambda *a: fn(*a[:-1]))(
                     self.fns[name])
 
     def old(self, name):
@@ -246,6 +261,83 @@ def old_sparse(tree, name, q, k, v, plan, dout=None, lse=None,
             "sparse_bwd_dkv": (dk, dv)}[name]
 
 
+# B6 and B7: the slice's dense cache and serve_paged's pool (chip_smoke.py)
+PAGE, POOL, S_MAX = 2048, 65, 12288
+DENSE_LENS, PAGED_LENS = (8193, 8150, 8224, 7999), (16384, 9000, 2049, 1)
+
+
+def decode_cases(compare, gen, dev):
+    """B6 and B7 over int8 and bf16 caches, dense and paged, one token per
+    row and a run of 256, bit for bit between the trees."""
+    from long_context_attention_tpu_torch.ops import decode
+
+    L = 2
+    for dtype in ("int8", "bfloat16"):
+        for paged in (False, True):
+            slots = PAGE if paged else S_MAX
+            rows = POOL if paged else len(DENSE_LENS)
+            shape = (L, rows, HKV, slots, D)
+            if dtype == "int8":
+                kc, vc = (torch.randint(-127, 128, shape, generator=gen,
+                                        device=dev, dtype=torch.int8)
+                          for _ in range(2))
+                ks, vs = (torch.rand((L, rows, HKV, 1, slots), generator=gen,
+                                     device=dev) / 64 for _ in range(2))
+            else:
+                kc, vc = (torch.randn(shape, generator=gen,
+                                      device=dev).bfloat16()
+                          for _ in range(2))
+                ks = vs = None
+            lens = PAGED_LENS if paged else DENSE_LENS
+            pt = None
+            if paged:
+                pt = torch.full((len(lens), 8), -1, dtype=torch.int32)
+                free = (torch.randperm(POOL - 1, generator=torch.Generator()
+                                       .manual_seed(0)) + 1).tolist()
+                for r, n in enumerate(lens):
+                    for i in range(-(-n // PAGE)):
+                        pt[r, i] = free.pop()
+                pt = pt.to(dev)
+            lt = torch.tensor(lens, dtype=torch.int32, device=dev)
+            b = len(lens)
+            where = "paged" if paged else "dense"
+            cache = [t for t in (kc, vc, ks, vs) if t is not None]
+            saved = [t.clone() for t in cache]
+
+            def reset(cache=cache, saved=saved):
+                for t, c in zip(cache, saved):
+                    t.copy_(c)
+
+            for n in (1, 256):
+                pos = lt - n
+                kn, vn = ((torch.randint(-127, 128, (b, HKV, n, D),
+                                         generator=gen, device=dev,
+                                         dtype=torch.int8)
+                           if dtype == "int8" else
+                           torch.randn((b, HKV, n, D), generator=gen,
+                                       device=dev).bfloat16())
+                          for _ in range(2))
+                ksn, vsn = ((torch.rand((b, HKV, n), generator=gen,
+                                        device=dev) for _ in range(2))
+                            if dtype == "int8" else (None, None))
+
+                def append(kn=kn, vn=vn, ksn=ksn, vsn=vsn, pos=pos):
+                    decode.cache_append(kc, vc, kn, vn, pos, ks, vs, ksn,
+                                        vsn, layer=1, page_table=pt)
+                    return cache
+
+                compare(f"B6 {dtype} {where} n={n}", append, reset=reset)
+                reset()
+                q = torch.randn((b, n, H, D) if n > 1 else (b, H, D),
+                                generator=gen, device=dev).bfloat16()
+                compare(f"B7 {dtype} {where} n={n}",
+                        lambda q=q: decode.decode_attention(
+                            q, kc, vc, lt, ks, vs, layer=1, page_table=pt,
+                            return_lse=True))
+            del kc, vc, ks, vs, cache, saved
+            torch.cuda.empty_cache()
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--other", required=True, type=Path,
@@ -272,12 +364,16 @@ def main():
         lines.append(obj)
         print(json.dumps(obj), flush=True)
 
-    def compare(name, fn, same=True, plain=None, loose=(), cancel_rows=None):
+    def compare(name, fn, same=True, plain=None, loose=(), cancel_rows=None,
+                reset=None):
         """Run fn under each tree; times in turns; outputs bit-equal
-        (same) or each against the plain outputs (row tolerance)."""
+        (same) or each against the plain outputs (row tolerance). ``reset``
+        restores what fn updates in place before each tree's run."""
         outs = {}
         for tag, tree in (("other", other), ("this", this)):
             tree.use()
+            if reset is not None:
+                reset()
             outs[tag] = [t.clone() for t in fn()]
             torch.cuda.synchronize()
         times = {"other": [], "this": []}
@@ -336,6 +432,8 @@ def main():
     compare("B3 bf16 b=1 s=8192", lambda: flash.flash_fwd_pos(
         q1, kb, vb, q_start=0, causal=True, scale=SCALE))
     del q, k8, v8, ks, vs, q1, kb, vb
+    torch.cuda.empty_cache()
+    decode_cases(compare, gen, dev)
     # B2b, B5
     s = 8192
     q, k, v, dout = (randn(1, s, H, D), randn(1, s, HKV, D),

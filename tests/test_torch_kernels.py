@@ -149,12 +149,19 @@ def test_sm90_sources_build_for_sm90a():
                    '#include "sm90.cuh"'):
         assert needle in fwd
     assert fwd.count("__global__") == 1
-    assert "flash_fwd_sm90_kernel<false, kFast, false, true>" in fwd
-    # B3 at multi-chunk positions and with the features, int8 or bf16
-    assert "launch<false, kFast, QUANT, MULTI, FEAT>" in fwd
-    for quant in ("true", "false"):
-        for multi in ("true", "false"):
-            assert f"pos_feat<{quant}, {multi}>(" in fwd
+    assert "flash_fwd_sm90_kernel<false, kFast, kKvBF16, true>" in fwd
+    # B3 at multi-chunk positions and with the features, over bf16 K/V or
+    # the quantized cache's int8, fp8 and packed int4 (the KV kind)
+    assert "launch<false, kFast, KV, MULTI, FEAT>" in fwd
+    for kind in ("kKvBF16", "kKvInt8", "kKvFp8", "kKvInt4"):
+        assert f"pos_feat<{kind}, MULTI>(" in fwd
+    for multi in ("true", "false"):
+        assert f"pos_kind<{multi}>(" in fwd
+    # B7's kinds: bf16, the s8 path over int8 and int4, the cast path over
+    # int8, fp8 and int4
+    b7 = (_build.CSRC / "decode_attention.cu").read_text()
+    for kind in ("kBF16", "kS8I8", "kS8I4", "kCastI8", "kCastF8", "kCastI4"):
+        assert f"LCA_KIND({kind})" in b7
     dq = (_build.CSRC / "flash_dq_sm90.cu").read_text()
     for needle in ("wgmma.mma_async", "wgmma_rs", "tma_load_4d",
                    "setmaxnreg_inc", "setmaxnreg_dec", '#include "sm90.cuh"'):

@@ -72,14 +72,15 @@ def test_build_dir_is_gitignored():
 
 
 def test_unported_features_raise():
-    """Features outside the ported slices raise NotImplementedError, and so
-    does a gradient through the int8-KV path, which is forward-only in the
-    JAX package too, and what the dense USP layers do not take yet (fp8
-    K/V). ALiBi through flash_attention and segments through the dense
-    layer now compute (the oracle's biased output; the layer equals
-    flash_attention with the same ids). A gradient through a sliding window
-    comes back, equal to the fp32 oracle's, and the dense layers
-    compute."""
+    """Features outside the ported slices raise NotImplementedError (the
+    sequence-sharded decode's columns), and so does a gradient through the
+    int8-KV path, which is forward-only in the JAX package too. ALiBi
+    through flash_attention and decode_attention, segments through the
+    dense layer, int4 caches and fp8 K/V through the dense USP layers now
+    compute (the oracle's biased output; the layer equals flash_attention
+    with the same ids, or over the dequantized K/V). A gradient through a
+    sliding window comes back, equal to the fp32 oracle's, and the dense
+    layers compute."""
     from long_context_attention_tpu_torch.ops.decode import decode_attention
     from long_context_attention_tpu_torch.ops.flash import (
         flash_attention, flash_attention_fwd)
@@ -110,14 +111,16 @@ def test_unported_features_raise():
     with pytest.raises(NotImplementedError, match="forward-only"):
         flash_attention_fwd(q.requires_grad_(), kv8, kv8, k_scale=scales,
                             v_scale=scales, causal=True)
-    with pytest.raises(NotImplementedError):
-        KVCache.init(1, 1, 8, 1, 8, dtype="int4", device="cpu")
+    assert KVCache.init(1, 1, 8, 1, 8, dtype="int4",
+                        device="cpu").k.shape == (1, 1, 1, 8, 4)
     cache = torch.zeros(1, 2, 8, 128, dtype=torch.bfloat16)
+    one = torch.ones(1, dtype=torch.int32)
+    assert torch.isfinite(decode_attention(
+        q[:, 0], cache, cache, one, alibi_slopes=torch.ones(2))).all()
     with pytest.raises(NotImplementedError):
-        decode_attention(q[:, 0], cache, cache, torch.ones(1, dtype=torch.int32),
-                         alibi_slopes=torch.ones(2))
+        decode_attention(q[:, 0], cache, cache, one, first_cols=one)
     # the dense USP layers (block_mask=None) compute since the dense ring,
-    # segments included; fp8 K/V through them still raises
+    # segments and fp8 K/V included
     from long_context_attention_tpu_torch.parallel import (
         LongContextAttention, UlyssesAttention, make_usp_mesh)
 
@@ -133,9 +136,15 @@ def test_unported_features_raise():
                                        segment_ids=seg),
             flash_attention(x, x, x, causal=True, q_segment_ids=seg,
                             kv_segment_ids=seg), atol=1e-6, rtol=0)
-        with pytest.raises(NotImplementedError, match="fp8"):
+        from long_context_attention_tpu_torch.ops.kv_cache import (
+            dequantize_kv, quantize_kv)
+        xb = x.bfloat16()
+        xd = dequantize_kv(*quantize_kv(xb, "float8_e4m3fn"), xb.dtype)
+        torch.testing.assert_close(
             LongContextAttention(mesh, kv_quant="float8_e4m3fn")(
-                q, q, q, causal=True)
+                xb, xb, xb, causal=True),
+            flash_attention(xb, xd, xd, causal=True), atol=1e-1,
+            rtol=0)  # the bf16 gate of tests/test_ring.py
     finally:
         torch.distributed.destroy_process_group()
 

@@ -108,7 +108,9 @@ def _dense(pool, pt, scales=False):
 @pytest.mark.parametrize("dtype", ["bfloat16", "int8"])
 def test_paged_kv_cache_matches_jax(dtype):
     """PagedKVCache.init: the same pools, page table and length as JAX's,
-    and the same dtype, page size and logical capacity."""
+    and the same dtype, page size and logical capacity; an int4 pool packs
+    two values a byte (tests/test_torch_quant_cache.py holds it to
+    JAX's)."""
     j = jkv.PagedKVCache.init(L, 3, POOL, PAGE, N_PAGES, HKV, D, dtype)
     t = tkv.PagedKVCache.init(L, 3, POOL, PAGE, N_PAGES, HKV, D, dtype,
                               device="cpu")
@@ -122,9 +124,10 @@ def test_paged_kv_cache_matches_jax(dtype):
     assert (t.dtype, t.page_size, t.s_max) == (j.dtype, j.page_size,
                                                j.s_max)
     assert t.k.dtype == (torch.int8 if dtype == "int8" else torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="int4"):
-        tkv.PagedKVCache.init(L, 3, POOL, PAGE, N_PAGES, HKV, D, "int4",
-                              device="cpu")
+    p4 = tkv.PagedKVCache.init(L, 3, POOL, PAGE, N_PAGES, HKV, D, "int4",
+                               device="cpu")
+    assert p4.dtype == "int4" and p4.k.dtype == torch.uint8
+    assert p4.k.shape == (L, POOL, HKV, PAGE, D // 2)
 
 
 @pytest.mark.parametrize("dtype", ["bfloat16", "int8"])

@@ -140,9 +140,9 @@ def test_mesh_raises(monkeypatch):
     mesh of several ranks needs an initialised world; tp/pp/ep raise
     NotImplementedError. On a one-rank gloo world the dense layers equal
     flash_attention (a zigzag ring of one: the two-chunk descriptor (0,
-    s/2)), segment ids included, and they raise for what is not ported
-    (fp8 K/V); the sparse layers raise for stripe and for a window beside a
-    block mask."""
+    s/2)), segment ids included, and with fp8 K/V flash_attention over the
+    dequantized K/V; the sparse layers raise for stripe and for a window
+    beside a block mask."""
     from long_context_attention_tpu_torch.ops.flash import flash_attention
     from long_context_attention_tpu_torch.parallel.usp import (
         LongContextAttention, UlyssesAttention)
@@ -175,9 +175,15 @@ def test_mesh_raises(monkeypatch):
                                        segment_ids=seg),
             flash_attention(x, x, x, causal=True, q_segment_ids=seg,
                             kv_segment_ids=seg), atol=1e-6, rtol=0)
-        with pytest.raises(NotImplementedError, match="fp8"):
+        from long_context_attention_tpu_torch.ops.kv_cache import (
+            dequantize_kv, quantize_kv)
+        xb = x.bfloat16()
+        xd = dequantize_kv(*quantize_kv(xb, "float8_e4m3fn"), xb.dtype)
+        torch.testing.assert_close(
             LongContextAttention(mesh, kv_quant="float8_e4m3fn")(
-                q, q, q, causal=True)
+                xb, xb, xb, causal=True),
+            flash_attention(xb, xd, xd, causal=True), atol=1e-1,
+            rtol=0)  # the bf16 gate of tests/test_ring.py
         with pytest.raises(NotImplementedError, match="stripe"):
             LongContextAttention(mesh, layout="stripe")(
                 q, q, q, block_mask=mask, sparse_block_q=64,
