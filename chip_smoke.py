@@ -31,7 +31,12 @@ Phases, one JSON line each; any failure exits non-zero:
      int8 operands of a 4 x 8192 prefill, with window and sinks, one-chunk
      offsets, s_q != s_kv, dead rows, ragged, and B8b's band check, timed
      beside B1 and B4 at the same shape and the whole sage_attention call
-     split into its quantization and its kernel; the
+     split into its quantization and its kernel; their pv_int8 forms (the
+     int8 PV product over groups of T kv columns) at that shape (T =
+     1024), B8a also at bench_sage.py's 32/8 heads, ragged (T = 1000), at
+     T = 64 and at T = 768 (BlockSizes(768, 768), through B8c), B8b with
+     window and sinks, offsets, s_q != s_kv, dead rows and its band check,
+     and the pre-quantized entry; the
      block-sparse kernels B9a, B9b and B9c at b=1, s=32768 in tiles of 512
      on the StreamingLLM, strided and per-head masks, a mask whose last
      quarter of rows has no live tile, one with an empty kv column, and a
@@ -86,7 +91,12 @@ Phases, one JSON line each; any failure exits non-zero:
      same with window 4096 and 4 sinks (B3 + B2a + B2b against B4 + B5);
   9. sage_api: the public sage calls at b=1, s=8192: non-causal (B8c),
      one-chunk offsets (B8b) against none (B8a), and the pre-quantized
-     entry (B8b);
+     entry (B8b); then sage_api_pv_int8: sage_attention at b=4, s=8192
+     with pv_int8=False and True, causal (B8a), non-causal (B8c) and
+     windowed (B8b), each with exact launch counts and its gap to
+     flash_attention's output, timed in turns with it; and the registry's
+     full with pv_int8=True through one backward (B8a's pv_int8 entry,
+     B5);
  10. usp_sparse: LongContextAttention(block_mask=...) on a one-rank NCCL
      mesh from make_usp_mesh() at b=1, s=32768, forward and backward on
      each of the three causal masks (exactly one B9a, B9b and B9c per call,
@@ -991,6 +1001,171 @@ def kernel_b8(K, sage, gen, dev):
              **({"pallas_same_shape": {"kernel": pallas[n][0],
                                        "ms": pallas[n][1]}}
                 if n in pallas else {})}
+            for n in ("B8a", "B8b", "B8c")]
+
+
+def kernel_b8_pv8(K, sage, gen, dev):
+    """B8a, B8b and B8c's pv_int8 forms (the int8 PV product, P requantized
+    per row over groups of T kv columns, ops/sage.py pv_tile) against their
+    plain versions on the int8 operands of the 0.88B model's one-shot
+    prefill (b=4, s=8192, 16/8 heads, T = 1024): B8a causal, also at
+    benchmarks/bench_sage.py's heads (32/8, b=1), ragged (s=1000, T =
+    1000), at s=1088 (T = 64, a divisor of 128) and at s=1536 under
+    BlockSizes(768, 768) (T = 768, no power of two, through B8c); B8c, and
+    ragged with s_q != s_kv (T = 777); B8b with window 4096 and 4 sinks,
+    one-chunk offsets, s_q != s_kv (bottom-right) and dead rows, and its
+    band check; the pre-quantized entry. Each case row by row within
+    ROW_REL_TOL, with its time, its plain version's, its bound (both
+    products s8: 4 * d int8 ops per visible pair at PEAK_INT8_OPS) and SDPA
+    flash on the bf16 inputs (not the same function)."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from long_context_attention_tpu_torch.ops.kv_cache import quantize_kv
+    from long_context_attention_tpu_torch.utils.config import BlockSizes
+
+    b, s, h, hk, d = BATCH, PROMPT, MODEL["n_heads"], MODEL["n_kv_heads"], 128
+    scale = d ** -0.5
+
+    def inputs(bb, s_q, s_kv, hh=h, hkk=hk):
+        return [torch.randn(shape, generator=gen, device=dev).bfloat16()
+                for shape in ((bb, s_q, hh, d), (bb, s_kv, hkk, d),
+                              (bb, s_kv, hkk, d))]
+
+    kern = {"B8a": "sage_fwd_tri_pv8", "B8b": "sage_fwd_pos_pv8",
+            "B8c": "sage_fwd_rect_pv8"}
+    fns = {"B8a": (sage.sage_fwd_tri, sage.sage_fwd_tri_plain),
+           "B8c": (sage.sage_fwd_rect, sage.sage_fwd_rect_plain),
+           "B8b": (sage.sage_fwd_pos, sage.sage_fwd_pos_plain)}
+    checks = {n: [] for n in kern}
+    cases = {n: [] for n in kern}
+    main = {}
+
+    def sdpa_ms(qkv, causal):
+        q, k, v = qkv
+        qh = q.transpose(1, 2)
+        kr, vr = (t.transpose(1, 2).repeat_interleave(q.shape[2] // k.shape[2],
+                                                      1) for t in (k, v))
+        with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+            ms = time_ms(lambda: F.scaled_dot_product_attention(
+                qh, kr, vr, is_causal=causal))
+        del kr, vr
+        return ms
+
+    def case(name, tag, qkv, args, tile, vis, run=None, plain_run=None,
+             **kw):
+        """Kernel against plain at one shape; vis: the visible-pair
+        kwargs (q_start, causal, left, sink) of live_pairs."""
+        fn, plain = fns[name]
+        run = run or (lambda: fn(*args, pv_tile=tile, **kw))
+        plain_run = plain_run or (lambda: plain(*args, pv_tile=tile, **kw))
+        o, l = run()
+        po, pl_ = plain_run()
+        torch.cuda.synchronize()
+        checks[name].append(check_out(f"{name} pv_int8 out {tag}", o, po))
+        check(f"{name} pv_int8 lse {tag}", max_err(l, pl_), LSE_TOL)
+        del po, pl_
+        torch.cuda.empty_cache()
+        q8 = args[0]
+        bb, s_q, hh, _ = q8.shape
+        s_kv, hkk = args[2].shape[1], args[2].shape[2]
+        pairs = bb * hh * live_pairs(s_q, s_kv, **vis)
+        nbytes = (q8.numel() + 2 * args[2].numel() + 2 * q8.numel()
+                  + 4 * (2 * bb * hh * s_q + 2 * bb * hkk * s_kv))
+        ms = time_ms(run)
+        plain_ms = time_ms(plain_run, iters=1, warmup=0)
+        torch.cuda.empty_cache()
+        lib = sdpa_ms(qkv, vis["causal"] and s_q == s_kv)
+        res = case_row(checks[name][-1:], ms, plain_ms, 4 * d * pairs, nbytes,
+                       lib, PEAK_INT8_OPS)
+        cases[name].append({"case": tag, "pv_tile": tile, **res})
+        if name not in main:
+            main[name] = (ms, plain_ms, 4 * d * pairs, nbytes, lib)
+        return o, l
+
+    full = dict(q_start=0, causal=False)
+    tri = dict(q_start=0, causal=True)
+    win = dict(causal=True, window_size=(WINDOW, -1), sink_tokens=SINKS)
+    win_vis = dict(q_start=0, causal=True, left=WINDOW, sink=SINKS)
+    T = sage.pv_tile
+    qkv = inputs(b, s, s)
+    ops = sage_operands(sage, *qkv, scale)
+    case("B8a", f"b={b} s={s}", qkv, ops, T(sage._TRI, s, s), tri)
+    case("B8c", f"b={b} s={s}", qkv, ops, T(sage._RECT, s, s), full)
+    clean, _ = case("B8b", f"window sinks b={b} s={s}", qkv, ops,
+                    T(sage._POS, s, s), win_vis, **win)
+    case("B8b", "causal q_start 0 (one-chunk offsets)", qkv, ops,
+         T(sage._POS, s, s), tri, q_start=0, causal=True)
+    tail = (ops[0][:, -CHUNK:], ops[1][:, :, -CHUNK:], *ops[2:])
+    case("B8b", f"s_q={CHUNK} s_kv={s} bottom-right",
+         (qkv[0][:, -CHUNK:], *qkv[1:]), tail, T(sage._POS, CHUNK, s),
+         dict(q_start=s - CHUNK, causal=True), q_start=s - CHUNK,
+         causal=True)
+    # band check: rows 6144.. never see kv tiles 1..15, whose scales get NaN
+    rows = slice(s - CHUNK, s)
+    vis = visible(s, s, 0, True, left=WINDOW, sink=SINKS, dev=dev)
+    tiles = unseen_tiles(vis[rows], B8_KV_TILE)
+    ksp, vsp = (poison(t, 2, tiles, B8_KV_TILE) for t in (ops[3], ops[5]))
+    got, _ = sage.sage_fwd_pos(ops[0], ops[1], ops[2], ksp, ops[4], vsp,
+                               pv_tile=T(sage._POS, s, s), **win)
+    torch.cuda.synchronize()
+    band_check("B8b pv_int8", got[:, rows], clean[:, rows], len(tiles))
+    del ksp, vsp, got, clean, vis, ops
+    torch.cuda.empty_cache()
+    # the pre-quantized entry (sage_quant_q and B8b) over the cache's int8
+    # K/V, at b=1
+    q1, k1, v1 = (t[:1] for t in qkv)
+    k8, ks = quantize_kv(k1, "int8")
+    v8, vs = quantize_kv(v1, "int8")
+    pre = (k8, v8, ks.transpose(1, 2), vs.transpose(1, 2))
+    q8, qs, _ = sage.sage_quant_q_plain(q1, scale)
+    pre_ops = (q8, qs, k8, pre[2].float(), v8, pre[3].float())
+    case("B8b", f"pre-quantized entry b=1 s={s}", (q1, k1, v1), pre_ops,
+         T(sage._POS, s, s), tri,
+         run=lambda: sage.sage_attention_fwd_prequant(
+             q1, *pre, causal=True, pv_int8=True),
+         plain_run=lambda: sage.sage_fwd_pos_plain(
+             *pre_ops, causal=True, pv_tile=T(sage._POS, s, s)))
+    del qkv, q1, k1, v1, pre, pre_ops, k8, v8, q8
+    torch.cuda.empty_cache()
+    # B8a at bench_sage.py's heads (benchmarks/bench_sage.py: 32 q heads,
+    # 8 kv heads)
+    qkv = inputs(1, s, s, 32, 8)
+    case("B8a", f"bench_sage heads 32/8 b=1 s={s}", qkv,
+         sage_operands(sage, *qkv, scale), T(sage._TRI, s, s), tri)
+    # ragged: T = 1000 (one group a row), s_q != s_kv (T = 777), dead rows
+    qkv = inputs(1, 1000, 1000)
+    ragged = sage_operands(sage, *qkv, scale)
+    case("B8a", "ragged s=1000", qkv, ragged, T(sage._TRI, 1000, 1000), tri)
+    cut = (*ragged[:2], ragged[2][:, :777], ragged[3][:, :, :777],
+           ragged[4][:, :777], ragged[5][:, :, :777])
+    case("B8c", "ragged s_q=1000 s_kv=777",
+         (qkv[0], qkv[1][:, :777], qkv[2][:, :777]), cut,
+         T(sage._RECT, 1000, 777), dict(q_start=0, causal=False))
+    o, l = case("B8b", "ragged q_start=-8 (dead rows)", qkv, ragged,
+                T(sage._POS, 1000, 1000), dict(q_start=-8, causal=True),
+                q_start=-8, causal=True)
+    if o[:, :8].any() or not torch.isneginf(l[:, :, :8]).all():
+        raise AssertionError("B8b pv_int8: dead rows are not out 0, lse -inf")
+    # T = 64 divides a tile (s = 1088 under the default tiles), and T =
+    # 768 under BlockSizes(768, 768) at s = 1536
+    qkv = inputs(1, 1088, 1088)
+    case("B8a", "s=1088 (T=64)", qkv, sage_operands(sage, *qkv, scale),
+         T(sage._TRI, 1088, 1088), tri)
+    qkv = inputs(1, 1536, 1536)
+    case("B8c", "s=1536 BlockSizes(768, 768) (T=768)", qkv,
+         sage_operands(sage, *qkv, scale),
+         T(sage._RECT, 1536, 1536, 1, BlockSizes(768, 768)), full)
+    del qkv, ragged, cut, o, l
+    torch.cuda.empty_cache()
+    for name, tile in (("B8a", 64), ("B8c", 768)):
+        got = [c["pv_tile"] for c in cases[name]]
+        if tile not in got:
+            raise AssertionError(f"{name} pv_int8: no case at T={tile}")
+    return [{**row(K[kern[n]], checks[n], *main[n], PEAK_INT8_OPS),
+             "pv_tile": cases[n][0]["pv_tile"],
+             "library": "SDPA flash on the bf16 q, k, v (not the same "
+                        "function: no int8 quantization)",
+             "cases": cases[n]}
             for n in ("B8a", "B8b", "B8c")]
 
 
@@ -3934,8 +4109,9 @@ def sage_api_phase(build, sage, dev, card):
     call without (B8a), row by row; and sage_attention_fwd_prequant over
     an int8 K/V of ops.kv_cache (B8b). Each call from zeroed counts: its
     kernel once, the K/V and the q quantization kernels once each (the
-    pre-quantized entry the q one only), nothing else. Returns the
-    non-causal call's launch counts."""
+    pre-quantized entry the q one only), nothing else. Then
+    sage_api_pv_int8. Returns the launch counts of the non-causal call
+    (B8c) and of each pv_int8 kernel's call."""
     from long_context_attention_tpu_torch.ops.kv_cache import quantize_kv
 
     b, s, h, hk, d = 1, TRAIN_SEQ, MODEL["n_heads"], MODEL["n_kv_heads"], 128
@@ -3968,13 +4144,102 @@ def sage_api_phase(build, sage, dev, card):
         if not (torch.isfinite(out).all() and torch.isfinite(lse).all()):
             raise AssertionError(f"sage {name} call: non-finite output")
         runs[name] = (counts, out, lse)
+    counts_rect = runs["noncausal"][0]
     (_, o, l), (_, wo, wl) = runs["offsets"], runs["causal"]
     err = check_out("sage offsets (B8b) vs none (B8a) out", o, wo)
     check("sage offsets vs none lse", max_err(l, wl), LSE_TOL)
     emit({"phase": "sage_api", "card": card, "seq": s,
           "launches": {n: c for n, (c, _, _) in runs.items()},
           "offsets_row_rel_err": err[1]})
-    return runs["noncausal"][0]
+    del runs, o, l, wo, wl, q, k, v, k8, v8
+    torch.cuda.empty_cache()
+    return {"sage_fwd_rect": counts_rect, **sage_api_pv_int8(build, sage,
+                                                            dev, card)}
+
+
+def sage_api_pv_int8(build, sage, dev, card):
+    """The public sage_attention at the 0.88B model's attention width (b=4,
+    s=8192, 16/8 heads) with pv_int8=False and True against
+    flash_attention on the same bf16 inputs: causal (B8a), non-causal (B8c)
+    and windowed (4096 + 4 sinks, B8b). Each sage call from zeroed counts
+    launches exactly one sage_quant_kv, one sage_quant_q and its B8 kernel
+    (the _pv8 entry with pv_int8), nothing else; each output's gap to the
+    bf16 flash output is recorded (row by row against its size, and the
+    lse); the three calls of a mode are timed in turns (flash, bf16 PV,
+    int8 PV, int8 PV, bf16 PV, flash). Then the registry's full with
+    pv_int8=True through one backward: exactly B8a's pv_int8 entry, the
+    quantization kernels and B5, finite grads. Returns each pv_int8
+    kernel's launches in its call."""
+    from long_context_attention_tpu_torch.ops import flash, registry
+
+    b, s, h, hk, d = BATCH, PROMPT, MODEL["n_heads"], MODEL["n_kv_heads"], 128
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    q, k, v = (torch.randn(shape, generator=gen, device=dev).bfloat16()
+               for shape in ((b, s, h, d), (b, s, hk, d), (b, s, hk, d)))
+    modes = {"causal": ("sage_fwd_tri", dict(causal=True)),
+             "noncausal": ("sage_fwd_rect", dict(causal=False)),
+             "windowed": ("sage_fwd_pos", dict(
+                 causal=True, window_size=(WINDOW, -1), sink_tokens=SINKS))}
+    found, pv_counts = {}, {}
+    for mode, (kernel, kw) in modes.items():
+        fo, fl = flash.flash_attention(q, k, v, return_lse=True, **kw)
+        calls = {"flash": lambda: flash.flash_attention(q, k, v, **kw)}
+        res = {}
+        for pv in (False, True):
+            name = kernel + ("_pv8" if pv else "")
+            build.reset_launch_counts()
+            out, lse = sage.sage_attention(q, k, v, pv_int8=pv,
+                                           return_lse=True, **kw)
+            torch.cuda.synchronize()
+            counts = build.launch_counts()
+            want = {n: 0 for n in counts}
+            want.update({name: 1, "sage_quant_kv": 1, "sage_quant_q": 1})
+            if counts != want:
+                raise AssertionError(f"sage {mode} pv_int8={pv} call counts "
+                                     f"{counts}")
+            if not (torch.isfinite(out).all() and torch.isfinite(lse).all()):
+                raise AssertionError(f"sage {mode} pv_int8={pv}: non-finite "
+                                     f"output")
+            if pv:
+                pv_counts[name] = counts
+            diff = (out.float() - fo.float()).abs().amax(-1)
+            size = fo.float().abs().amax(-1).clamp_min(1e-30)
+            res[f"pv_int8={pv}"] = {
+                "kernel": name, "max_abs_gap_to_flash": max_err(out, fo),
+                "row_rel_gap_to_flash": float((diff / size).max()),
+                "lse_gap_to_flash": max_err(lse, fl)}
+            calls[f"pv_int8={pv}"] = (lambda pv=pv: sage.sage_attention(
+                q, k, v, pv_int8=pv, **kw))
+            del out, lse, diff, size
+        ms = {n: [] for n in calls}
+        for n in ["flash", "pv_int8=False", "pv_int8=True", "pv_int8=True",
+                  "pv_int8=False", "flash"]:
+            ms[n].append(time_ms(calls[n]))
+        found[mode] = {**res, "ms": ms}
+        del fo, fl, calls
+        torch.cuda.empty_cache()
+    # the registry's full with pv_int8, through one backward
+    impl = registry.get_attn_impl("sage")
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    dout = torch.randn(q.shape, generator=gen, device=dev).bfloat16()
+    build.reset_launch_counts()
+    out = impl.full(*leaves, causal=True, pv_int8=True)
+    grads = torch.autograd.grad(out, leaves, dout)
+    torch.cuda.synchronize()
+    counts = build.launch_counts()
+    want = {n: 0 for n in counts}
+    want.update({"sage_fwd_tri_pv8": 1, "sage_quant_kv": 1, "sage_quant_q": 1,
+                 "flash_bwd_fused": 1})
+    if counts != want:
+        raise AssertionError(f"registry full pv_int8 counts {counts}")
+    if not all(bool(torch.isfinite(g).all()) for g in grads):
+        raise AssertionError("registry full pv_int8: non-finite gradient")
+    emit({"phase": "sage_api_pv_int8", "card": card, "batch": b, "seq": s,
+          "modes": found, "registry_full_backward_launches": {
+              n: c for n, c in counts.items() if c}})
+    del leaves, grads, out, dout, q, k, v
+    torch.cuda.empty_cache()
+    return {n: c for n, c in pv_counts.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -4774,7 +5039,9 @@ def main():
     dq_lib = build.library("flash_dq_sm90.cu")
     dq_smem = {n: dq_lib.lca_flash_dq_smem(ft)
                for n, ft in (("B2a, B9b", 0), ("B2a features", 1))}
-    sage_smem = build.library("sage_fwd_sm90.cu").lca_sage_fwd_smem()
+    sage_lib = build.library("sage_fwd_sm90.cu")
+    sage_smem = {"B8a, B8b, B8c": sage_lib.lca_sage_fwd_smem(0),
+                 "pv_int8": sage_lib.lca_sage_fwd_smem(1)}
     # the backward kernels' instantiations (B5, B2b and B9c: FUSED, SPARSE,
     # MASK, MULTI, FEAT; B2a and B9b: the dq kernel's walk) and B9a's of
     # the forward; and, apart, the featured instantiations of B3
@@ -4802,7 +5069,8 @@ def main():
           "flash_fwd_sm90_dynamic_smem_bytes": fwd_smem,
           "flash_dq_sm90_dynamic_smem_bytes": dq_smem,
           "flash_bwd_sm90_dynamic_smem_bytes": bwd_smem,
-          "sage_fwd_sm90_dynamic_smem_bytes": {"B8a, B8b": sage_smem},
+          "sage_fwd_sm90_dynamic_smem_bytes": sage_smem,
+          "ptxas_sage": ptxas_entries(logs.get("sage_fwd_sm90.cu", "")),
           "source_seconds": build.build_seconds(),
           "ptxas_bwd_dq_b9a": new, "ptxas_features": feat_entries,
           "ptxas_quant_cache": quant_entries})
@@ -4830,7 +5098,8 @@ def main():
     rows = []
     for fn, mod in ((kernel_b1, flash), (kernel_b4, flash),
                     (kernel_b3, flash), (kernel_quant, sage),
-                    (kernel_b8, sage), (kernel_b6, decode),
+                    (kernel_b8, sage), (kernel_b8_pv8, sage),
+                    (kernel_b6, decode),
                     (kernel_b7, decode), (kernel_bwd, flash),
                     (kernel_b9, sparse)):
         res = fn(K, mod, gen, dev)
@@ -4921,7 +5190,7 @@ def main():
     torch.cuda.empty_cache()
     lap("grad_check")
     offsets_counts, woffsets_counts = offsets_phase(build, flash, dev, smi)
-    rect_counts = sage_api_phase(build, sage, dev, smi)
+    api_counts = sage_api_phase(build, sage, dev, smi)
     lap("offsets")
     torch.cuda.empty_cache()
     usp_counts = usp_sparse_phase(build, sparse, flash, dev, smi)
@@ -4948,7 +5217,7 @@ def main():
             "flash_bwd_dq": offsets_counts, "flash_bwd_dkv": offsets_counts,
             "sage_fwd_tri": sage_counts["sage_fwd_tri"],
             "sage_fwd_pos": sage_counts["sage_fwd_pos"],
-            "sage_fwd_rect": rect_counts,
+            **api_counts,
             **{n: sage_counts["sage_fwd_tri"] for n in SAGE_QUANT},
             **{n: usp_counts for n in SPARSE_KERNELS}}
     quant_paths = {

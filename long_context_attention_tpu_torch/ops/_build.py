@@ -182,15 +182,29 @@ KERNELS: Dict[str, Kernel] = {
         [_VP] * 8 + [_F, _F, _F, _I, _VP] + _FEAT,
         "long_context_attention_tpu/ops/flash.py:696"),
     # the sage entries share one C signature: q8, qs, k8, ks, v8, vs, out,
-    # lse, dims, stream
+    # lse, the pv_int8 table (null for the bf16 PV), dims, stream; each
+    # kernel's _pv8 entry is its pv_int8 form (the int8 PV product). B8c is
+    # B8b's kernel over a maskless descriptor.
     "sage_fwd_tri": Kernel(
-        "sage_fwd_tri", "sage_fwd_sm90.cu", "lca_sage_fwd_tri", [_VP] * 10,
+        "sage_fwd_tri", "sage_fwd_sm90.cu", "lca_sage_fwd_tri", [_VP] * 11,
+        "long_context_attention_tpu/ops/sage.py:186"),
+    "sage_fwd_tri_pv8": Kernel(
+        "sage_fwd_tri_pv8", "sage_fwd_sm90.cu", "lca_sage_fwd_tri_pv8",
+        [_VP] * 11,
         "long_context_attention_tpu/ops/sage.py:186"),
     "sage_fwd_pos": Kernel(
-        "sage_fwd_pos", "sage_fwd_sm90.cu", "lca_sage_fwd_pos", [_VP] * 10,
+        "sage_fwd_pos", "sage_fwd_sm90.cu", "lca_sage_fwd_pos", [_VP] * 11,
+        "long_context_attention_tpu/ops/sage.py:246"),
+    "sage_fwd_pos_pv8": Kernel(
+        "sage_fwd_pos_pv8", "sage_fwd_sm90.cu", "lca_sage_fwd_pos_pv8",
+        [_VP] * 11,
         "long_context_attention_tpu/ops/sage.py:246"),
     "sage_fwd_rect": Kernel(
-        "sage_fwd_rect", "flash_fwd.cu", "lca_sage_fwd_rect", [_VP] * 10,
+        "sage_fwd_rect", "sage_fwd_sm90.cu", "lca_sage_fwd_rect", [_VP] * 11,
+        "long_context_attention_tpu/ops/sage.py:223"),
+    "sage_fwd_rect_pv8": Kernel(
+        "sage_fwd_rect_pv8", "sage_fwd_sm90.cu", "lca_sage_fwd_rect_pv8",
+        [_VP] * 11,
         "long_context_attention_tpu/ops/sage.py:223"),
     # sage's quantization pass, the port's counterpart of an XLA fusion (no
     # Pallas kernel): ``replaces`` names the JAX quantizer it computes.

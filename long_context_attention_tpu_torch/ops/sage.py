@@ -12,31 +12,35 @@ kernels of ``csrc/sage_quant.cu``, one sweep over the inputs:
 with scale * log2 e folded in, and each row's lse shift), each with a plain
 version whose int8 values and scales are the kernel's bit for bit. Three
 attention kernel wrappers sit under the API, each with a plain PyTorch
-version of the same arithmetic:
+version of the same arithmetic, all in ``csrc/sage_fwd_sm90.cu``:
 
-* :func:`sage_fwd_tri` (kernel B8a, ``csrc/sage_fwd_sm90.cu``): causal
-  self-attention, the TPU's ``_sage_kernel_tri``;
-* :func:`sage_fwd_rect` (kernel B8c, ``csrc/flash_fwd.cu``): no mask, the
-  TPU's ``_sage_kernel_rect``;
-* :func:`sage_fwd_pos` (kernel B8b, ``csrc/sage_fwd_sm90.cu``): q rows and
-  kv columns at the global positions of a descriptor (``ops.flash``
-  ``Positions``: q at ``q_start + i``, or the ring layouts' chunks and
-  stride), causal, sliding window and sinks, the TPU's
-  ``_sage_kernel_pos``.
+* :func:`sage_fwd_tri` (kernel B8a): causal self-attention, the TPU's
+  ``_sage_kernel_tri``;
+* :func:`sage_fwd_rect` (kernel B8c): no mask, the TPU's
+  ``_sage_kernel_rect`` (B8b's walk over every kv tile);
+* :func:`sage_fwd_pos` (kernel B8b): q rows and kv columns at the global
+  positions of a descriptor (``ops.flash`` ``Positions``: q at ``q_start +
+  i``, or the ring layouts' chunks and stride), causal, sliding window and
+  sinks, the TPU's ``_sage_kernel_pos``.
 
 All three compute s = (q8 . k8)_int32 * qs * ks in exp2 units (the softmax
 scale and log2 e folded into q's scales), p = exp2(min(s, 90)) with no
 running max, l = rowsum(p) before V's scale multiplies p, and out =
 (bf16(p * vs) @ v8) / l, lse = ln l; a row that sees nothing gives out 0
-and lse -inf. :func:`sage_attention` adds the K-centring shift back to the
-lse, so it merges with any other block.
+and lse -inf. With ``pv_int8=True`` (SageAttention2's int8 PV product) P
+is requantized instead, per row and per group of T kv columns, T being the
+JAX kernel's kv tile on the call's route (:func:`pv_tile`): ps =
+max(amax(p * vs), 1e-30) / 127, p8 = round(p * vs / ps), and acc +=
+(p8 . v8)_int32 * ps; so ``block_sizes`` changes the result there, as in
+JAX. Each kernel has a ``_pv8`` entry for that form (its PV on wgmma's s8
+path). :func:`sage_attention` adds the K-centring shift back to the lse,
+so it merges with any other block.
 
 :func:`sage_attention_full` is differentiable: one ``torch.library`` op
 whose backward is the bf16 flash backward (kernel B5, or B2a + B2b with
 offsets) on the unquantized inputs, anchored on the op's own (out, lse):
-the straight-through recipe of the JAX registry. ``pv_int8=True`` (the int8
-PV product) is not ported and raises ``NotImplementedError``, as do
-softcap, segments, dropout and ALiBi (which raise in JAX too). A wrapper
+the straight-through recipe of the JAX registry. Softcap, segments,
+dropout and ALiBi raise ``NotImplementedError`` (as in JAX). A wrapper
 given CPU tensors runs its plain version; given CUDA tensors it launches
 its kernel or raises.
 """
@@ -66,14 +70,14 @@ from long_context_attention_tpu_torch.ops.flash import (
     legacy_dims,
     pair_masks,
 )
-from long_context_attention_tpu_torch.utils.config import NEG_INF, not_ported
+from long_context_attention_tpu_torch.utils.config import NEG_INF, BlockSizes
 
 __all__ = ["sage_attention", "sage_attention_fwd", "sage_attention_full",
            "sage_attention_fwd_prequant", "sage_quantize_kv", "sage_k_mean",
            "sage_quant_kv", "sage_quant_kv_plain", "sage_quant_q",
            "sage_quant_q_plain", "sage_fwd_tri", "sage_fwd_tri_plain",
            "sage_fwd_rect", "sage_fwd_rect_plain", "sage_fwd_pos",
-           "sage_fwd_pos_plain", "SAGE_ATTENTION_OP"]
+           "sage_fwd_pos_plain", "pv_tile", "SAGE_ATTENTION_OP"]
 
 
 # ---------------------------------------------------------------------------
@@ -204,16 +208,80 @@ def sage_quantize_kv(k_bhsd: torch.Tensor, v_bhsd: torch.Tensor):
 
 
 # ---------------------------------------------------------------------------
+# pv_int8's groups: the JAX kernels' kv tile on each route
+# ---------------------------------------------------------------------------
+
+# kernels of the op's forward (argument ``route``)
+_TRI, _RECT, _POS = 0, 1, 2
+# q rows of a sage kernel's item (csrc/sage_fwd_sm90.cu BQ)
+_SAGE_BQ = 128
+
+# The JAX package's cap on its causal kernel's tile table
+# (ops/flash.py _TRI_TABLE_MAX): past it, JAX runs causal self-attention
+# on its position path, whose kv tile can differ.
+_TRI_TABLE_MAX = 65536
+
+
+def _fit(block: int, seq: int) -> int:
+    """The JAX package's tile rule (ops/sage.py ``_fit``): from min(block,
+    seq), halve until the tile divides seq."""
+    block = min(block, seq)
+    while seq % block:
+        block //= 2
+    return max(block, 1)
+
+
+def pv_tile(route: int, s_q: int, s_kv: int, n_kv_chunks: int = 1,
+            block_sizes=None) -> int:
+    """T, the kv columns over which ``pv_int8`` requantizes a row of P: the
+    kv tile of the JAX kernel that the JAX package's ``sage_attention``
+    runs for the call (``block_sizes``: BlockSizes, default 1024 x 1024).
+    Causal self-attention (``_TRI``): min(block_q, block_kv) fitted to s_q,
+    while JAX's tile table fits (else its position path's tile); no mask
+    (``_RECT``): block_kv fitted to s_kv; positions (``_POS``): block_kv
+    fitted to one kv chunk. Groups are the local kv columns [g T, (g + 1)
+    T); T divides every chunk, so no group straddles one."""
+    bs = block_sizes or BlockSizes()
+    if route == _TRI:
+        t = _fit(min(bs.block_q, bs.block_kv), s_q)
+        if (s_q // t) * (s_q // t + 1) // 2 <= _TRI_TABLE_MAX:
+            return t
+        return _fit(bs.block_kv, s_kv)
+    if route == _RECT:
+        return _fit(bs.block_kv, s_kv)
+    return _fit(bs.block_kv, s_kv // n_kv_chunks)
+
+
+# ---------------------------------------------------------------------------
 # Plain versions of B8a, B8c, B8b (one arithmetic, three masks)
 # ---------------------------------------------------------------------------
 
 
-def _sage_plain(q8, qs, k8, ks, v8, vs, mask, out_dtype):
+def _pv_int8(p, vf, tile: int):
+    """pv_int8's PV of one batch row, JAX's order (``_sage_compute``): p
+    (h, s_q, s_kv) fp32 already times V's scale, vf (h, s_kv, d) the int8
+    values; per row and group of ``tile`` columns, ps = max(amax, 1e-30) /
+    127, p8 = round(p / ps) (half to even), and the group's (p8 . v8)
+    scaled by ps, summed over the groups in fp32. The int8 sums are exact
+    in float64 (127^2 * T passes 2^24 for T > 1040), rounded to fp32 as
+    JAX's int32 -> fp32 cast rounds them."""
+    h, s_q, s_kv = p.shape
+    pg = p.view(h, s_q, s_kv // tile, tile)
+    ps = pg.amax(dim=-1, keepdim=True).clamp_(min=1e-30).mul_(1.0 / 127.0)
+    p8 = torch.round(pg / ps).double()
+    prod = torch.einsum("hqgt,hgtd->hqgd", p8,
+                        vf.double().view(h, s_kv // tile, tile, -1))
+    del p8
+    return (prod.float() * ps).sum(dim=2)
+
+
+def _sage_plain(q8, qs, k8, ks, v8, vs, mask, out_dtype, pv_tile=None):
     """The kernels' arithmetic, whole rows at once, one batch row at a time
     (bounds the (h, s_q, s_kv) score tensor). q8 (b, s_q, h, d), qs (b, h,
     s_q); k8, v8 (b, s_kv, h_kv, d), ks, vs (b, h_kv, s_kv); mask (s_q,
-    s_kv) True = drop, or None. The int32 product q8 . k8 is exact in fp32
-    (127^2 * 128 < 2^24)."""
+    s_kv) True = drop, or None; ``pv_tile`` T for pv_int8's PV (else the
+    bf16 one). The int32 product q8 . k8 is exact in fp32 (127^2 * 128 <
+    2^24)."""
     g = q8.shape[2] // k8.shape[2]
     outs, lses = [], []
     for i in range(q8.shape[0]):
@@ -228,7 +296,10 @@ def _sage_plain(q8, qs, k8, ks, v8, vs, mask, out_dtype):
         p = s.clamp_(max=_CLAMP).exp2_()
         l = p.sum(dim=-1)
         p.mul_(vs[i].repeat_interleave(g, dim=0)[:, None, :])
-        acc = torch.matmul(p.to(torch.bfloat16).float(), vf)
+        if pv_tile:
+            acc = _pv_int8(p, vf, pv_tile)
+        else:
+            acc = torch.matmul(p.to(torch.bfloat16).float(), vf)
         del p, s
         out, lse = _finish(acc, l, None, False, False, out_dtype)
         outs.append(out.transpose(0, 1))
@@ -236,28 +307,33 @@ def _sage_plain(q8, qs, k8, ks, v8, vs, mask, out_dtype):
     return torch.stack(outs), torch.stack(lses)
 
 
-def sage_fwd_tri_plain(q8, qs, k8, ks, v8, vs, *, out_dtype=torch.bfloat16):
+def sage_fwd_tri_plain(q8, qs, k8, ks, v8, vs, *, out_dtype=torch.bfloat16,
+                       pv_tile: Optional[int] = None):
     """Plain version of kernel B8a: causal self-attention (s_q == s_kv).
 
     q8 (b, s, h, d) int8 with qs (b, h, s) fp32 (scale * log2 e folded);
     k8, v8 (b, s, h_kv, d) int8 with ks, vs (b, h_kv, s) fp32 -> out (b, s,
-    h, d) in ``out_dtype``, lse (b, h, s) fp32 (uncorrected for K's mean)."""
+    h, d) in ``out_dtype``, lse (b, h, s) fp32 (uncorrected for K's mean).
+    ``pv_tile``: pv_int8's group width T (:func:`pv_tile`), None for the
+    bf16 PV."""
     s = q8.shape[1]
     ar = torch.arange(s, device=q8.device)
     mask = _mask(ar, ar, -1, 0, 0)
-    return _sage_plain(q8, qs, k8, ks, v8, vs, mask, out_dtype)
+    return _sage_plain(q8, qs, k8, ks, v8, vs, mask, out_dtype, pv_tile)
 
 
-def sage_fwd_rect_plain(q8, qs, k8, ks, v8, vs, *, out_dtype=torch.bfloat16):
+def sage_fwd_rect_plain(q8, qs, k8, ks, v8, vs, *, out_dtype=torch.bfloat16,
+                        pv_tile: Optional[int] = None):
     """Plain version of kernel B8c: every row sees every kv column (any
     s_q, s_kv); operands as in :func:`sage_fwd_tri_plain`."""
-    return _sage_plain(q8, qs, k8, ks, v8, vs, None, out_dtype)
+    return _sage_plain(q8, qs, k8, ks, v8, vs, None, out_dtype, pv_tile)
 
 
 def sage_fwd_pos_plain(q8, qs, k8, ks, v8, vs, *, q_start: int = 0,
                        pos: Optional[Positions] = None, causal: bool = False,
                        window_size=(-1, -1), sink_tokens: int = 0,
-                       out_dtype=torch.bfloat16):
+                       out_dtype=torch.bfloat16,
+                       pv_tile: Optional[int] = None):
     """Plain version of kernel B8b: q rows and kv columns at the global
     positions of ``pos`` (any descriptor), or q row i at ``q_start + i``
     and kv column j at j, with the causal mask, the window (left, right)
@@ -267,7 +343,7 @@ def sage_fwd_pos_plain(q8, qs, k8, ks, v8, vs, *, q_start: int = 0,
     pos = _pos(pos, q_start)
     mask = _mask(pos.q_positions(q8.shape[1], q8.device),
                  pos.kv_positions(k8.shape[1], q8.device), left, right, sink)
-    return _sage_plain(q8, qs, k8, ks, v8, vs, mask, out_dtype)
+    return _sage_plain(q8, qs, k8, ks, v8, vs, mask, out_dtype, pv_tile)
 
 
 # ---------------------------------------------------------------------------
@@ -275,11 +351,21 @@ def sage_fwd_pos_plain(q8, qs, k8, ks, v8, vs, *, q_start: int = 0,
 # ---------------------------------------------------------------------------
 
 
+def _check_pv_tile(pv_tile, chunk: int) -> None:
+    if pv_tile is not None and (pv_tile < 1 or chunk % pv_tile):
+        raise ValueError(f"pv_tile {pv_tile} must divide the kv chunk of "
+                         f"{chunk} columns")
+
+
 def _sage_launch(kernel: str, q8, qs, k8, ks, v8, vs, out_dtype, *,
                  pos: Optional[Positions] = None, left: int = -1,
-                 right: int = -1, sink: int = 0):
+                 right: int = -1, sink: int = 0,
+                 pv_tile: Optional[int] = None):
     """Check the operands of a sage kernel and launch it on the current
-    stream; int8 values and fp32 scales are read by strides."""
+    stream; int8 values and fp32 scales are read by strides. With
+    ``pv_tile`` the kernel's ``_pv8`` entry runs, with a scratch of the
+    group maxima (128 rows of s_kv / T floats for each block of the
+    persistent grid)."""
     b, s_q, h, d = q8.shape
     _, s_kv, h_kv, _ = k8.shape
     if (k8.shape != (b, s_kv, h_kv, d) or v8.shape != k8.shape
@@ -303,46 +389,60 @@ def _sage_launch(kernel: str, q8, qs, k8, ks, v8, vs, out_dtype, *,
     out = torch.empty((b, s_q, h, d), dtype=out_dtype, device=q8.device)
     lse = torch.empty((b, h, s_q), dtype=torch.float32, device=q8.device)
     pos = pos or Positions.at(0)
+    _check_pv_tile(pv_tile, s_kv // len(pos.kv_offsets))
     q0, sink0 = legacy_dims(pos, sink)
+    table, pv = None, [0, 0, 0]
+    if pv_tile:
+        kernel += "_pv8"
+        n_items = -(-s_q // _SAGE_BQ) * h * b
+        slots = min(n_items, torch.cuda.get_device_properties(
+            q8.device).multi_processor_count)
+        table = torch.empty(slots * _SAGE_BQ * (s_kv // pv_tile),
+                            dtype=torch.float32, device=q8.device)
+        pv = [pv_tile, s_kv // pv_tile, slots]
     dims = _build.dims_array([
         b, h, h_kv, s_q, s_kv, *q8.stride()[:3], *k8.stride()[:3],
         *v8.stride()[:3], *out.stride()[:3], *qs.stride(), *ks.stride(),
         *vs.stride(), q0, left, right, sink0,
-        *pair_masks(pos, s_q, s_kv, left, right, sink)])
+        *pair_masks(pos, s_q, s_kv, left, right, sink), *pv])
     _build.KERNELS[kernel](
         _build.ptr(q8), _build.ptr(qs), _build.ptr(k8), _build.ptr(ks),
         _build.ptr(v8), _build.ptr(vs), _build.ptr(out), _build.ptr(lse),
-        dims, _build.stream_ptr(q8.device))
+        _build.ptr(table), dims, _build.stream_ptr(q8.device))
     return out, lse
 
 
-def sage_fwd_tri(q8, qs, k8, ks, v8, vs, *, out_dtype=torch.bfloat16):
+def sage_fwd_tri(q8, qs, k8, ks, v8, vs, *, out_dtype=torch.bfloat16,
+                 pv_tile: Optional[int] = None):
     """Kernel B8a wrapper: causal self-attention over int8 operands. Each q
     tile walks its kv tiles up to the diagonal, the last one masked.
     Operands and results as in :func:`sage_fwd_tri_plain`, which CPU
-    tensors take."""
+    tensors take; ``pv_tile`` launches the ``sage_fwd_tri_pv8`` entry."""
     if q8.device.type == "cpu":
-        return sage_fwd_tri_plain(q8, qs, k8, ks, v8, vs, out_dtype=out_dtype)
+        return sage_fwd_tri_plain(q8, qs, k8, ks, v8, vs, out_dtype=out_dtype,
+                                  pv_tile=pv_tile)
     if q8.shape[1] != k8.shape[1]:
         raise ValueError(f"B8a is self-attention: s_q {q8.shape[1]} != s_kv "
                          f"{k8.shape[1]}")
     return _sage_launch("sage_fwd_tri", q8, qs, k8, ks, v8, vs, out_dtype,
-                        right=0)
+                        right=0, pv_tile=pv_tile)
 
 
-def sage_fwd_rect(q8, qs, k8, ks, v8, vs, *, out_dtype=torch.bfloat16):
-    """Kernel B8c wrapper: no mask, every kv tile for every q tile. CPU
-    tensors take :func:`sage_fwd_rect_plain`."""
+def sage_fwd_rect(q8, qs, k8, ks, v8, vs, *, out_dtype=torch.bfloat16,
+                  pv_tile: Optional[int] = None):
+    """Kernel B8c wrapper: no mask, every kv tile for every q tile (B8b's
+    walk without a mask). CPU tensors take :func:`sage_fwd_rect_plain`."""
     if q8.device.type == "cpu":
         return sage_fwd_rect_plain(q8, qs, k8, ks, v8, vs,
-                                   out_dtype=out_dtype)
-    return _sage_launch("sage_fwd_rect", q8, qs, k8, ks, v8, vs, out_dtype)
+                                   out_dtype=out_dtype, pv_tile=pv_tile)
+    return _sage_launch("sage_fwd_rect", q8, qs, k8, ks, v8, vs, out_dtype,
+                        pv_tile=pv_tile)
 
 
 def sage_fwd_pos(q8, qs, k8, ks, v8, vs, *, q_start: int = 0,
                  pos: Optional[Positions] = None, causal: bool = False,
                  window_size=(-1, -1), sink_tokens: int = 0,
-                 out_dtype=torch.bfloat16):
+                 out_dtype=torch.bfloat16, pv_tile: Optional[int] = None):
     """Kernel B8b wrapper: positions and masks as in
     :func:`sage_fwd_pos_plain`; each q tile walks, kv chunk by kv chunk,
     the sink tiles and its window band only (the walk of kernels B3 and
@@ -352,51 +452,49 @@ def sage_fwd_pos(q8, qs, k8, ks, v8, vs, *, q_start: int = 0,
                                   pos=pos, causal=causal,
                                   window_size=window_size,
                                   sink_tokens=sink_tokens,
-                                  out_dtype=out_dtype)
+                                  out_dtype=out_dtype, pv_tile=pv_tile)
     left, right, sink = _masks(causal, window_size, sink_tokens, 0.0)
     return _sage_launch("sage_fwd_pos", q8, qs, k8, ks, v8, vs, out_dtype,
                         pos=_pos(pos, q_start), left=left, right=right,
-                        sink=sink)
+                        sink=sink, pv_tile=pv_tile)
 
 
 # ---------------------------------------------------------------------------
 # The differentiable forward: one torch.library op with its backward
 # ---------------------------------------------------------------------------
 
-# kernels of the op's forward (argument ``route``)
-_TRI, _RECT, _POS = 0, 1, 2
-
-
 @torch.library.custom_op("lca_torch::sage_attention", mutates_args=())
 def _sage_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, route: int,
              q_offsets: List[int], kv_offsets: List[int], q_stride: int,
              kv_stride: int, static: bool, causal: bool, window_left: int,
-             window_right: int, sink_tokens: int, scale: float
-             ) -> Tuple[torch.Tensor, torch.Tensor]:
+             window_right: int, sink_tokens: int, scale: float,
+             pv_tile: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """(out, lse) of BSHD q, k, v: the quantization pass, kernel B8a, B8c
     or B8b (``route``, B8b at the positions of the descriptor), and the
     K-centring correction of the lse. ``static`` (self-attention without
-    offsets) picks the backward only."""
+    offsets) picks the backward only; ``pv_tile`` > 0 is pv_int8's group
+    width T (0: the bf16 PV)."""
     k_mean = sage_k_mean(k)
     k8, ks, v8, vs = sage_quant_kv(k, v, k_mean)
     q8, qs, shift = sage_quant_q(q, scale, k_mean)
     args = (q8, qs, k8, ks, v8, vs)
+    kw = dict(out_dtype=q.dtype, pv_tile=pv_tile or None)
     if route == _TRI:
-        out, lse = sage_fwd_tri(*args, out_dtype=q.dtype)
+        out, lse = sage_fwd_tri(*args, **kw)
     elif route == _RECT:
-        out, lse = sage_fwd_rect(*args, out_dtype=q.dtype)
+        out, lse = sage_fwd_rect(*args, **kw)
     else:
         pos = Positions(tuple(q_offsets), tuple(kv_offsets), q_stride,
                         kv_stride)
         out, lse = sage_fwd_pos(*args, pos=pos, causal=causal,
                                 window_size=(window_left, window_right),
-                                sink_tokens=sink_tokens, out_dtype=q.dtype)
+                                sink_tokens=sink_tokens, **kw)
     return out, lse + shift
 
 
 def _sage_op_setup(ctx, inputs, output) -> None:
     (q, k, v, _, q_off, kv_off, q_stride, kv_stride, static, causal, left,
-     right, sink, scale) = inputs
+     right, sink, scale, _) = inputs
     ctx.save_for_backward(q, k, v, *output)
     # JAX's flash_attention_bwd: static self-attention takes B5, positions
     # B2a + B2b (_flash_bwd)
@@ -413,7 +511,7 @@ def _sage_op_backward(ctx, dout, dlse):
     q, k, v, out, lse = ctx.saved_tensors
     dq, dk, dv = _flash_bwd(q, k, v, out, lse, dout, pos=ctx.pos,
                             **ctx.shape)
-    return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)) + (None,) * 11
+    return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)) + (None,) * 12
 
 
 _sage_op.register_autograd(_sage_op_backward, setup_context=_sage_op_setup)
@@ -426,12 +524,6 @@ SAGE_ATTENTION_OP = torch.ops.lca_torch.sage_attention.default
 # ---------------------------------------------------------------------------
 # Public API (the JAX package's names and kwargs)
 # ---------------------------------------------------------------------------
-
-
-def _check_pv_int8(pv_int8: bool) -> None:
-    if pv_int8:
-        raise not_ported("pv_int8=True (sage's int8 PV product, whose P is "
-                         "requantized per row and per JAX kv tile)")
 
 
 def _route(s_q: int, s_kv: int, causal: bool, window, q_offsets,
@@ -467,11 +559,12 @@ def sage_attention(q, k, v, *, causal: bool = False,
     lse, K-centring shift included. Differentiable, the window, sinks and
     positions included (the straight-through backward, dispatched as
     JAX's flash_attention_bwd: B5 for self-attention without offsets, else
-    B2a + B2b). ``pv_int8=True`` raises ``NotImplementedError``.
-    ``block_sizes`` and ``interpret`` are accepted for API parity; the
-    Hopper kernels pick their own tiles."""
-    del block_sizes, interpret
-    _check_pv_int8(pv_int8)
+    B2a + B2b). ``pv_int8=True`` runs the int8 PV product, P requantized
+    per row over groups of the JAX kernel's kv tile on the route
+    (:func:`pv_tile`, from ``block_sizes``); with ``pv_int8=False``,
+    ``block_sizes`` and ``interpret`` are accepted for API parity, the
+    Hopper kernels picking their own tiles."""
+    del interpret
     if q.shape[2] % k.shape[2]:
         raise ValueError(f"GQA requires h ({q.shape[2]}) % h_kv "
                          f"({k.shape[2]}) == 0")
@@ -480,10 +573,12 @@ def sage_attention(q, k, v, *, causal: bool = False,
     left, right, sink = _masks(causal, window_size, sink_tokens, 0.0)
     static = call_positions(q.shape[1], k.shape[1], q_offsets, kv_offsets,
                             q_stride, kv_stride) is None
+    tile = (pv_tile(route, q.shape[1], k.shape[1], len(pos.kv_offsets),
+                    block_sizes) if pv_int8 else 0)
     out, lse = _sage_op(q, k, v, route, list(pos.q_offsets),
                         list(pos.kv_offsets), pos.q_stride, pos.kv_stride,
                         static, bool(causal), left, right, sink,
-                        float(_scale(q, softmax_scale)))
+                        float(_scale(q, softmax_scale)), tile)
     return (out, lse) if return_lse else out
 
 
@@ -539,17 +634,20 @@ def sage_attention_fwd_prequant(q, k8, v8, k_scale, v_scale, *,
     (b, h_kv, s_kv) fp32 scales, not centred, so the lse needs no shift.
     q (b, s_q, h, d) is quantized here (:func:`sage_quant_q` without K's
     mean). The positions (offsets and strides: ring x sage direct-int8)
-    as in :func:`sage_attention`. Forward-only. Returns (out (b, s_q, h,
+    as in :func:`sage_attention`; ``pv_int8`` requantizes P over groups of
+    JAX's position-path kv tile. Forward-only. Returns (out (b, s_q, h,
     d), lse (b, h, s_q) fp32)."""
-    del block_sizes, interpret
-    _check_pv_int8(pv_int8)
+    del interpret
     if k8.dtype != torch.int8 or v8.dtype != torch.int8:
         raise ValueError(f"k8 and v8 must be int8, got {k8.dtype}, "
                          f"{v8.dtype}")
     _forward_only(_QUANT_FORWARD_ONLY, q)
     _, pos = _route(q.shape[1], k8.shape[1], causal, window_size, q_offsets,
                     kv_offsets, q_stride, kv_stride)
+    tile = (pv_tile(_POS, q.shape[1], k8.shape[1], len(pos.kv_offsets),
+                    block_sizes) if pv_int8 else None)
     q8, qs, _ = sage_quant_q(q, _scale(q, softmax_scale))
     return sage_fwd_pos(q8, qs, k8, k_scale.float(), v8, v_scale.float(),
                         pos=pos, causal=causal, window_size=window_size,
-                        sink_tokens=sink_tokens, out_dtype=q.dtype)
+                        sink_tokens=sink_tokens, out_dtype=q.dtype,
+                        pv_tile=tile)

@@ -25,7 +25,8 @@ heads, head_dim 128, bf16):
   paged (pages of 2048 from a pool of 65), one token per row and a run of
   256 (B6: the cache after the append; B7: out and lse through
   decode_attention). A tree whose B7 entry takes no ALiBi slopes is called
-  without them;
+  without them, and one whose sage entries take no pv_int8 table without
+  it;
 * B2a at b=1, s=8192, causal, B4 at b=4, s=2048 and s=8192 with window
   4096 and 4 sinks, and B9a, B9b and B9c at b=1, s=32768 in tiles of 512
   on the StreamingLLM mask, where a tree may have another kernel: each
@@ -89,6 +90,7 @@ KERNELS = ("flash_fwd_causal_self", "flash_fwd_pos", "flash_fwd_static",
            "sage_fwd_pos", "sparse_fwd", "sparse_bwd_dq", "sparse_bwd_dkv",
            "cache_append", "decode_attention")
 BACKWARD = ("flash_bwd_dq", "flash_bwd_dkv", "flash_bwd_fused")
+SAGE = ("sage_fwd_tri", "sage_fwd_pos")
 SPARSE = ("sparse_fwd", "sparse_bwd_dq", "sparse_bwd_dkv")
 # the one argument list of sparse.cu's entry points: q, k, v, dout, lse,
 # delta, out, out_lse, dk, dv, the CSR walk, dims, qfold, scale, stream
@@ -127,6 +129,9 @@ class Tree:
         # whether B7's entry point takes the ALiBi slopes (its last argument)
         self.b7_slopes = "const float* slopes)" in (
             self.csrc / "decode_attention.cu").read_text()
+        # whether the sage entries take pv_int8's table (after lse)
+        self.sage_table = "float *tbl" in (
+            self.csrc / "sage_fwd_sm90.cu").read_text()
 
     def paths(self, source):
         saved = _build.CSRC, _build.BUILD_DIR
@@ -160,6 +165,12 @@ class Tree:
             if name in BACKWARD and not self.masked_bwd:
                 # drop the softcap (and read dims up to causal): dense only
                 self.fns[name] = (lambda fn: lambda *a: fn(*a[:11], a[12]))(
+                    self.fns[name])
+            if name in SAGE and not self.sage_table:
+                # no table (the bf16 PV's is null): the argument is dropped
+                args = self.fns[name].argtypes
+                self.fns[name].argtypes = args[:8] + args[9:]
+                self.fns[name] = (lambda fn: lambda *a: fn(*a[:8], *a[9:]))(
                     self.fns[name])
             if name == "decode_attention" and not self.b7_slopes:
                 # no ALiBi slopes (and dims read up to n_pages): the

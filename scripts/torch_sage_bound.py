@@ -4,17 +4,18 @@
     python3 scripts/torch_sage_bound.py
 
 ``csrc/sage_fwd_sm90.cu`` runs a pipeline of two producer warpgroups (TMA,
-the k/v scales, and the widening of each int8 V tile to bf16) and two
-consumer warpgroups (the int8 QK^T and bf16 PV products on wgmma, the
-softmax). This script builds the source twice more with ``LCA_SAGE_PART``
-set: 1 skips the consumers' products and softmax (the producers alone, with
-the same barriers), 2 skips the producers' widening (the consumers alone).
-Both variants give wrong outputs; only their times count. It times the
-kernel and both variants on the int8 operands of the 0.88B model's one-shot
-prefill (b=4, s=8192, 16/8 heads, d=128), B8a causal and B8b with window
-4096 and 4 sinks, in turns (kernel, variants, variants, kernel), beside
-kernel B1 on the bf16 inputs of the same shape. It prints one JSON line and
-the card's name and power limit.
+the k/v scales, and the widening of each int8 V tile to bf16, or with
+pv_int8 its transposing) and two consumer warpgroups (the int8 QK^T and
+the PV products on wgmma, the softmax). This script builds the source
+twice more with ``LCA_SAGE_PART`` set: 1 skips the consumers' products and
+softmax (the producers alone, with the same barriers), 2 skips the
+producers' widening or transposing (the consumers alone). Both variants
+give wrong outputs; only their times count. It times the kernel and both
+variants on the int8 operands of the 0.88B model's one-shot prefill (b=4,
+s=8192, 16/8 heads, d=128), B8a causal, B8b with window 4096 and 4 sinks,
+and B8a's pv_int8 entry (T = 1024), in turns (kernel, variants, variants,
+kernel), beside kernel B1 on the bf16 inputs of the same shape. It prints
+one JSON line and the card's name and power limit.
 """
 
 import ctypes
@@ -32,7 +33,10 @@ from long_context_attention_tpu_torch.ops import _build, flash, sage  # noqa: E4
 B, S, H, HKV, D = 4, 8192, 16, 8, 128
 WINDOW, SINKS = 4096, 4
 PARTS = {"producers_only": 1, "consumers_only": 2}
-ENTRIES = {"B8a": "lca_sage_fwd_tri", "B8b": "lca_sage_fwd_pos"}
+ENTRIES = {"B8a": "lca_sage_fwd_tri", "B8b": "lca_sage_fwd_pos",
+           "B8a pv_int8": "lca_sage_fwd_tri_pv8"}
+# pv_int8's group width at this shape (ops/sage.py pv_tile, default tiles)
+PV_TILE = 1024
 
 
 def build_part(part: int) -> ctypes.CDLL:
@@ -49,17 +53,28 @@ def launcher(lib, entry, args, **kw):
     """A call of one entry of `lib` with the operands and dims that the
     ``sage_fwd_*`` wrapper would pass (its launch goes uncounted)."""
     fn = getattr(lib, entry)
-    fn.argtypes = [ctypes.c_void_p] * 10
+    fn.argtypes = [ctypes.c_void_p] * 11
     fn.restype = ctypes.c_int
     q8, qs, k8, ks, v8, vs = args
     out = torch.empty((B, S, H, D), dtype=torch.bfloat16, device=q8.device)
     lse = torch.empty((B, H, S), dtype=torch.float32, device=q8.device)
     left, right, sink = kw.get("left", -1), kw.get("right", 0), kw.get("sink", 0)
+    # pv_int8's entries take T, the groups, and a table of 128 rows of
+    # group maxima for each block of the persistent grid; the bf16 PV's
+    # none
+    table, pv = None, [0, 0, 0]
+    if entry.endswith("_pv8"):
+        slots = torch.cuda.get_device_properties(
+            q8.device).multi_processor_count
+        table = torch.empty(slots * 128 * (S // PV_TILE), device=q8.device)
+        pv = [PV_TILE, S // PV_TILE, slots]
     dims = _build.dims_array([
         B, H, HKV, S, S, *q8.stride()[:3], *k8.stride()[:3], *v8.stride()[:3],
         *out.stride()[:3], *qs.stride(), *ks.stride(), *vs.stride(), 0, left,
-        right, sink])
-    ptrs = [t.data_ptr() for t in (q8, qs, k8, ks, v8, vs, out, lse)]
+        right, sink, *flash.pair_masks(flash.Positions.at(0), S, S, left,
+                                       right, sink), *pv])
+    ptrs = [t.data_ptr() for t in (q8, qs, k8, ks, v8, vs, out, lse)] + [
+        None if table is None else table.data_ptr()]
     stream = _build.stream_ptr(q8.device)
 
     def call():

@@ -2,8 +2,8 @@
 CPU: every kernel binds a source under ``csrc/`` and names the Pallas kernel
 it replaces (sage's quantization pass, the JAX function it computes); B2b,
 B5 and B9c live in the wgmma/TMA source ``flash_bwd_sm90.cu``, B1, B3, B4
-and B9a in ``flash_fwd_sm90.cu``, B2a and B9b in ``flash_dq_sm90.cu``, B8a
-and B8b in ``sage_fwd_sm90.cu``; a library
+and B9a in ``flash_fwd_sm90.cu``, B2a and B9b in ``flash_dq_sm90.cu``, B8a,
+B8b and B8c (and their pv_int8 forms) in ``sage_fwd_sm90.cu``; a library
 is rebuilt when a shared header changes; and the strides a kernel cannot
 read (TMA's tensor maps, cp.async's 16-byte rows) raise, while the BSHD
 views the model and the cache hand the kernels pass."""
@@ -74,18 +74,22 @@ def test_backward_kernel_sources(name, source, site):
 @pytest.mark.parametrize("name,source,site", [
     ("sage_fwd_tri", "sage_fwd_sm90.cu", "sage.py:186"),
     ("sage_fwd_pos", "sage_fwd_sm90.cu", "sage.py:246"),
-    ("sage_fwd_rect", "flash_fwd.cu", "sage.py:223"),
+    ("sage_fwd_rect", "sage_fwd_sm90.cu", "sage.py:223"),
+    ("sage_fwd_tri_pv8", "sage_fwd_sm90.cu", "sage.py:186"),
+    ("sage_fwd_pos_pv8", "sage_fwd_sm90.cu", "sage.py:246"),
+    ("sage_fwd_rect_pv8", "sage_fwd_sm90.cu", "sage.py:223"),
 ])
 def test_sage_kernel_sources(name, source, site):
-    """B8a and B8b run from the Hopper source (wgmma, TMA); B8c stays on
-    the mma.sync template of flash_fwd.cu. Each C entry point is defined in
-    its source only."""
+    """B8a, B8b and B8c run from the Hopper source (wgmma, TMA), each with
+    a pv_int8 entry; the mma.sync source ``flash_fwd.cu`` is gone. Each C
+    entry point is defined in its source only."""
     k = _build.KERNELS[name]
     assert k.source == source
     assert k.replaces == f"long_context_attention_tpu/ops/{site}"
     defined = [p.name for p in sorted(_build.CSRC.glob("*.cu"))
                if f'extern "C" int {k.symbol}(' in p.read_text()]
     assert defined == [source]
+    assert not (_build.CSRC / "flash_fwd.cu").exists()
 
 
 @pytest.mark.parametrize("name,source,site", [
@@ -109,14 +113,26 @@ def test_forward_and_sparse_kernel_sources(name, source, site):
 
 
 def test_sage_sm90_source_uses_the_s8_wgmma():
-    """B8a and B8b's QK^T runs on wgmma's int8 path (both operands K-major
-    from shared memory), built for sm_90a, on the shared Hopper header."""
+    """B8a, B8b and B8c's QK^T runs on wgmma's int8 path (both operands
+    K-major from shared memory), built for sm_90a, on the shared Hopper
+    header; so does pv_int8's PV (the template parameter PV8 of the one
+    kernel, over a transposed V), and no source uses mma.sync."""
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     src = (_build.CSRC / "sage_fwd_sm90.cu").read_text()
     for needle in ("wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8",
                    '#include "sm90.cuh"', "setmaxnreg_inc", "tma_load_4d",
-                   "cp_async_mbar_arrive"):
+                   "cp_async_mbar_arrive", "transpose_v(",
+                   "wgmma_s8_tile(acc, p8s"):
         assert needle in src
+    assert src.count("__global__") == 1
+    for pv8 in ("false", "true"):
+        assert f"launch<true, false, {pv8}>(" in src
+    for pv8 in ("false, PV8", "true, PV8"):
+        assert f"launch<false, {pv8}>(" in src
+    for pv8 in ("false", "true"):
+        assert f"pos<{pv8}>(" in src and f"rect<{pv8}>(" in src
+    for path in sorted(_build.CSRC.glob("*.cu")):
+        assert "mma.sync.aligned" not in path.read_text(), path.name
 
 
 def test_sm90_sources_build_for_sm90a():

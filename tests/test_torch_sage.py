@@ -417,9 +417,11 @@ def test_reference_full_drops_the_window(rng):
 
 def test_unsupported_raise(rng):
     """What sage does not implement raises rather than runs: softcap,
-    dropout, segments (NotImplementedError, as in JAX), pv_int8=True (not
-    ported), a gradient through the pre-quantized path, an unknown kwarg
-    (TypeError). Position chunks and strides now compute. A gradient
+    dropout, segments (NotImplementedError, as in JAX), a gradient through
+    the pre-quantized path, an unknown kwarg (TypeError). pv_int8=True now
+    computes in all four entries (finite, and not the bf16 PV's output;
+    tests/test_torch_sage_pv.py holds it against JAX). Position chunks and
+    strides now compute. A gradient
     through a sliding window with sinks now comes back: the straight-through
     flash backward, equal to the fp32 oracle's on the op's own (out, lse)."""
     (_, tq), (_, tk), (_, tv) = _qkv(rng, "float32")
@@ -433,8 +435,11 @@ def test_unsupported_raise(rng):
                      (tsage.sage_attention_full, ()),
                      (tsage.sage_attention_fwd_prequant,
                       (k8, k8, ks.transpose(1, 2), ks.transpose(1, 2)))):
-        with pytest.raises(NotImplementedError, match="pv_int8"):
-            fn(tq, *(args or (tk, tv)), causal=True, pv_int8=True)
+        got = fn(tq, *(args or (tk, tv)), causal=True, pv_int8=True)
+        bf16 = fn(tq, *(args or (tk, tv)), causal=True)
+        got, bf16 = (x[0] if isinstance(x, tuple) else x for x in (got, bf16))
+        assert got.shape == tq.shape and torch.isfinite(got).all()
+        assert not torch.equal(got, bf16)
     # position chunks and strides (the ring layouts) now compute: the
     # identity descriptor in two chunks, or at a common stride, is causal
     # self-attention (B8b's masks against B8a's)
