@@ -140,21 +140,32 @@ Phases, one JSON line each; any failure exits non-zero:
      pass teacher forcing; then serve_paged_fp8: the paged run over an fp8
      pool beside the int8 one, and the paged engine at 8 rows on the first
      8 requests with interleaved admission in chunks of 256 (the
-     multi-token cast path of B7 through the page table), exact launch
-     counts and teacher forcing on its logprobs;
+     multi-token cast path of B7, decode_run, through the page table),
+     exact launch counts (every chunk's sub-runs on decode_run, every
+     decode step on decode_attention) and teacher forcing on its logprobs;
  15. serve_prefix: benchmarks/bench_prefix.py's 8 requests (a shared
      16384-token system prompt + 64 tokens, 16 new) at 4 rows, plain
      against prefix_cache=True: 7 x 16384 prefix-hit tokens, the suffix
-     chunks' multi-token B7 launches as the tile rule splits them, first-
-     token logits against the plain engine's;
+     chunks' multi-token B7 launches (decode_run) as the tile rule splits
+     them, first-token logits against the plain engine's;
  16. serve_stall: a 32768-token prompt admitted while a row decodes
      (bench_paged.py's stall at ctx 32768), batch admission against
      interleave_admission: the running row's largest inter-token gap,
-     exact launch counts, and each run teacher-forced on its own tokens
-     (every step's logits within 0.5 of a bf16 prefill).
-The kernel phase also holds B6 and B7 through the page table (B7 also over
-runs of 64 and 256 tokens, split as the JAX rule splits them) against
-their plain versions, and paged against dense bit for bit; and B3, B2a
+     exact launch counts (the interleaved chunks' sub-runs on decode_run),
+     and each run teacher-forced on its own tokens (every step's logits
+     within 0.5 of a bf16 prefill).
+The kernel phase also holds B6 and B7's first design through the page
+table against their plain versions, and paged against dense bit for bit;
+B7's runs on decode_run (kernel_b7_runs: csrc/decode_run_sm90.cu, every
+sub-run of the JAX rule's split on it by its launch counter) over a paged
+pool at RUN_LENS: int8 runs of 256 and 64, timed, paged against dense bit
+for bit and a poison check (the pages no table names and the columns past
+each row's length set to 127 with NaN scales leave the bits unchanged);
+the run of 256 in the online form, with window 4096 and 4 sinks, with
+softcap 50, with ALiBi and on the cast path; the route's edges (G = 10,
+64, 66, 130 rows per kv head); a row whose length is its run; kv_splits=4
+on the dense cache; runs of 256 over bf16, fp8, int4 (s8 and cast) pools,
+timed, bf16 and fp8 poison-checked; and B3, B2a
 and B2b with packed segments, ALiBi, dropout 0.1 and all three at the
 trainer's per-layer shape, at one chunk and at the ring's zigzag and
 stripe steps (LSE_FLOOR says which rows a per-step check holds), B3 over
@@ -164,8 +175,8 @@ yardstick, and exact probes of the dropout keep mask in all three; and the
 fp8 and int4 caches (kernel_quant_cache): B6 appending fp8 and packed
 int4 rows, dense and paged, bit for bit; B7 at the slice's decode shape on
 fp8's cast path, int8's and int4's cast path (mxu_int8=False), int4's s8
-path, int8 with ALiBi and with kv_splits=4, and paged fp8 over one token
-and a 256-token run; B3 over fp8 and int4 K/V at the chunk shape, dense
+path, int8 with ALiBi and with kv_splits=4, and paged fp8 over one token;
+B3 over fp8 and int4 K/V at the chunk shape, dense
 and with window 4096 and 4 sinks (with its band check), and in the
 online and softcap forms; each against its plain version with its bound
 and SDPA over the dequantized cache.
@@ -1509,9 +1520,10 @@ def kernel_b6_paged(decode, gen, dev):
     return cases
 
 
-def b7_bound(lens, n_tok, h, hk, d, elt, window=-1, sinks=0):
+def b7_bound(lens, n_tok, h, hk, d, elt, window=-1, sinks=0, scales=None):
     """Bytes and operations B7 needs for runs of n_tok tokens at these
-    lengths over a cache of ``elt``-byte values (scales with int8 only):
+    lengths over a cache of ``elt``-byte values (with scales: ``scales``,
+    by default for 1-byte values):
     each visible cache column once (K and V, their scales), q and out;
     q.k and p.v per (head, query token, visible column)."""
     nbytes = ops = 0
@@ -1523,7 +1535,8 @@ def b7_bound(lens, n_tok, h, hk, d, elt, window=-1, sinks=0):
         ops += sum(4 * h * d * seen(q0 + i) for i in range(n_tok))
         # the run's columns: its first token's window to its last token
         cols = seen(q0) + n_tok - 1
-        col_bytes = 2 * hk * d * elt + (8 * hk if elt == 1 else 0)
+        quant = elt == 1 if scales is None else scales
+        col_bytes = 2 * hk * d * elt + (8 * hk if quant else 0)
         nbytes += col_bytes * cols + 2 * 2 * h * n_tok * d
     return nbytes, ops
 
@@ -1599,11 +1612,11 @@ def b7_case(decode, tag, q, kc, vc, ks, vs, lens, pt, layer, **kw):
 
 
 def kernel_b7_paged(decode, gen, dev):
-    """B7 through the page table: one token per row, int8 and bf16, and
-    window 4096 with 4 sinks over pages; runs of 64 and 256 tokens (two
-    sub-runs, tiles 256 and 512) over an int8 pool. Paging is only
-    indexing: over the same logical cache at the same tile, the paged
-    kernel equals the dense kernel bit for bit."""
+    """B7's first design (decode_attention.cu) through the page table: one
+    token per row, int8 and bf16, and window 4096 with 4 sinks over pages.
+    Paging is only indexing: over the same logical cache at the same tile,
+    the paged kernel equals the dense kernel bit for bit. (The runs are
+    kernel_b7_runs'.)"""
     h, hk, d, layer = MODEL["n_heads"], MODEL["n_kv_heads"], 128, 1
     lens = torch.tensor(PAGED_LENS, dtype=torch.int32, device=dev)
     win = dict(window_size=(WINDOW, -1), sink_tokens=SINKS)
@@ -1626,20 +1639,6 @@ def kernel_b7_paged(decode, gen, dev):
             del dense
         del kc, vc, ks, vs
         torch.cuda.empty_cache()
-    # multi-token runs over the int8 pool (the suffix chunk and an
-    # interleaved-admission chunk)
-    kc, vc, ks, vs, pt = paged_pool(gen, dev, "int8", lens=RUN_LENS,
-                                    n_pages=RUN_PAGES)
-    rl = torch.tensor(RUN_LENS, dtype=torch.int32, device=dev)
-    dense = [gather_dense(kc, pt), gather_dense(vc, pt),
-             gather_dense(ks, pt, True), gather_dense(vs, pt, True)]
-    for n_tok in (256, 64):
-        q = torch.randn((len(RUN_LENS), n_tok, h, d), generator=gen,
-                        device=dev).bfloat16()
-        cases.append(b7_case(decode, f"int8 n={n_tok}", q, kc, vc, ks, vs,
-                             rl, pt, layer))
-        bit_equal(decode, f"n={n_tok}", q, (kc, vc, ks, vs), dense, rl, pt,
-                  layer)
     return cases
 
 
@@ -1659,6 +1658,240 @@ def bit_equal(decode, tag, q, pool, dense, lens, pt, layer, **kw):
                              f"(max {max_err(po, do)})")
     emit({"phase": "check", "case": f"B7 paged = dense {tag}",
           "bit_equal": True})
+
+
+# B7's runs (decode_run, csrc/decode_run_sm90.cu): the phase whose
+# multi-token launches give a case its count (a case that no phase takes
+# has none): serve_stall's interleaved chunks of 256, serve_prefix's suffix
+# chunks of 64, serve_paged_fp8's interleaved chunks of 256
+RUN_PATHS = {"int8 n=256": "serve_stall interleaved",
+             "int8 n=64": "serve_prefix",
+             "fp8 cast n=256": "serve_paged_fp8 interleaved"}
+
+
+def b7_run_case(decode, tag, q, cache, lens, pt, layer, timed=True, **kw):
+    """decode_attention over a run of tokens, dense or through the page
+    table: every sub-run of the tile rule's plan on decode_run (by shape,
+    decode_route, and by the launch counters), out row by row (ROW_REL_TOL)
+    and lse (LSE_TOL) against the same call on CPU copies of the layer
+    (the plain version, decode_attention_core_plain). ``timed``: the
+    kernel alone over the sub-runs, its plain version on the card and SDPA
+    over the gathered, dequantized cache, with the bound. Returns (the
+    case's numbers, (out, lse) on the card)."""
+    kc, vc, ks, vs = cache
+    b, n_tok, h, d = q.shape
+    hk, slot = kc.shape[2], kc.shape[3]
+    g = h // hk
+    paged = pt is not None
+    quant = ks is not None
+    s8 = quant and kw.get("mxu_int8", True) and kc.dtype in (torch.int8,
+                                                            torch.uint8)
+    plan = decode.decode_run_plan(n_tok, hk, g, d, slot, kc.element_size(),
+                                  block_kv=kw.get("block_kv", 4096),
+                                  paged=paged)
+    routes = {decode.decode_route(g * (e - i), bkv, slot)
+              for i, e, bkv in plan}
+    if routes != {"decode_run"}:
+        raise AssertionError(f"B7 run {tag}: sub-runs routed to {routes}")
+    build = decode._build
+    build.reset_launch_counts()
+    o, l = decode.decode_attention(q, kc, vc, lens, ks, vs, layer=layer,
+                                   page_table=pt, return_lse=True, **kw)
+    torch.cuda.synchronize()
+    got = build.launch_counts()
+    if got["decode_run"] != len(plan) or got["decode_attention"] != 0:
+        raise AssertionError(f"B7 run {tag}: decode_run launched "
+                             f"{got['decode_run']} times, decode_attention "
+                             f"{got['decode_attention']}, for {len(plan)} "
+                             f"sub-runs")
+    cpu = [None if t is None else t[layer:layer + 1].cpu() for t in cache]
+    po, pl_ = decode.decode_attention(
+        q.cpu(), cpu[0], cpu[1], lens.cpu(), cpu[2], cpu[3], layer=0,
+        page_table=None if pt is None else pt.cpu(), return_lse=True, **kw)
+    checks = [check_out(f"B7 run out {tag}", o.cpu(), po)]
+    check(f"B7 run lse {tag}", max_err(l.cpu(), pl_), LSE_TOL)
+    res = {"case": f"{'paged' if paged else 'dense'} {tag}, lengths "
+                   f"{lens.tolist()}, sub-runs "
+                   f"{[(e - i, bkv) for i, e, bkv in plan]}",
+           "path": RUN_PATHS.get(tag), "launches": None,
+           "max_abs_err": checks[0][0], "row_rel_err": checks[0][1]}
+    if not timed:
+        return res, (o, l)
+    win = kw.get("window_size", (-1, -1))[0]
+    sinks = kw.get("sink_tokens", 0) if win >= 0 else 0
+    online = kw.get("safe_softmax", False) or kw.get("softcap", 0.0) > 0
+    scale = d ** -0.5
+    subs = []
+    for i, e, bkv in plan:
+        q_in, q_rs, _ = decode.decode_query_operands(
+            q[:, i:e], kc, s8, scale=scale, block_kv=4096, paged=paged,
+            safe_softmax=online)
+        subs.append(((q_in, q_rs, kc, vc, ks, vs, lens - (n_tok - e)),
+                     dict(layer=layer, block_kv=bkv, scale=scale,
+                          safe_softmax=online, window_left=win,
+                          sink_tokens=sinks,
+                          softcap=float(kw.get("softcap", 0.0)),
+                          n_tok=e - i, page_table=pt)))
+    ms = time_ms(lambda: [decode.decode_attention_core(*a, **k)
+                          for a, k in subs], iters=20)
+    plain_ms = time_ms(lambda: [decode.decode_attention_core_plain(*a, **k)
+                                for a, k in subs], iters=2, warmup=1)
+    # the library's attention over the gathered, dequantized rows (the
+    # stored values widened first: bf16 holds them exactly)
+    from long_context_attention_tpu_torch.ops.kv_cache import _widen
+
+    n = int(lens.max())
+    if paged:
+        kd, vd = (gather_dense(_widen(t[layer:layer + 1]), pt)[0]
+                  for t in (kc, vc))
+    else:
+        kd, vd = (_widen(t[layer]) for t in (kc, vc))
+    if quant:
+        for t, sc in ((kd, ks), (vd, vs)):
+            scd = (gather_dense(sc[layer:layer + 1], pt, True)[0] if paged
+                   else sc[layer])
+            t.copy_((t.float() * scd[:, :, 0, :, None]).bfloat16())
+    kd, vd = kd[:, :, :n], vd[:, :, :n]
+    qpos = (lens.long()[:, None] - n_tok
+            + torch.arange(n_tok, device=q.device)[None])[:, :, None]
+    cols = torch.arange(n, device=q.device)[None, None]
+    vis = cols <= qpos
+    if win >= 0:
+        vis &= (cols >= qpos - win) | (cols < sinks)
+    qh = q.transpose(1, 2)
+    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        qh, kd, vd, attn_mask=vis[:, None], enable_gqa=True), iters=10)
+    del kd, vd
+    elt = 0.5 if kc.dtype == torch.uint8 else kc.element_size()
+    nbytes, ops = b7_bound(lens.tolist(), n_tok, h, hk, d, elt, win, sinks,
+                           scales=quant)
+    res.update(case_row(checks, ms, plain_ms, ops, nbytes, lib_ms,
+                        PEAK_INT8_OPS if s8 else PEAK_BF16_FLOPS))
+    res["path"] = RUN_PATHS.get(tag)
+    return res, (o, l)
+
+
+def poison_check(decode, tag, q, cache, lens, pt, layer, clean, **kw):
+    """The poison check of B7's runs: the pool pages that no row's table
+    names (the scratch page 0 among them) and each row's columns past its
+    length set to 127 (NaN for fp8) with NaN scales; decode_attention's
+    out and lse must keep their bits (the walk never reads those pages, and
+    a chunk's columns past a row's length reach neither the scores nor the
+    PV product)."""
+    kc, vc, ks, vs = (None if t is None else t.clone() for t in cache)
+    vals = [t.view(torch.uint8) if t.dtype == torch.float8_e4m3fn else t
+            for t in (kc, vc)]
+    scales = [t for t in (ks, vs) if t is not None]
+    named = set(pt[pt >= 0].tolist())
+    unnamed = torch.tensor([p for p in range(kc.shape[1]) if p not in named],
+                           device=kc.device)
+    for t in vals:
+        t[layer, unnamed] = 127
+    for t in scales:
+        t[layer, unnamed] = math.nan
+    n_cols = 0
+    for r, n in enumerate(lens.tolist()):
+        off = n % PAGE
+        if n > 0 and off:
+            p = int(pt[r, (n - 1) // PAGE])
+            for t in vals:
+                t[layer, p, :, off:] = 127
+            for t in scales:
+                t[layer, p, :, :, off:] = math.nan
+            n_cols += PAGE - off
+    o, l = decode.decode_attention(q, kc, vc, lens, ks, vs, layer=layer,
+                                   page_table=pt, return_lse=True, **kw)
+    torch.cuda.synchronize()
+    same = torch.equal(o, clean[0]) and torch.equal(l, clean[1])
+    emit({"phase": "check", "case": f"B7 run poison {tag}",
+          "poisoned_pages": len(unnamed), "poisoned_columns": n_cols,
+          "bit_equal": same})
+    if not same:
+        raise AssertionError(f"B7 run {tag}: poisoned pages or columns past "
+                             f"the lengths changed the output")
+
+
+def kernel_b7_runs(K, decode, kv_cache, gen, dev):
+    """B7's runs on decode_run (csrc/decode_run_sm90.cu), through the page
+    table over RUN_LENS's pool: int8 runs of 256 (two sub-runs, an
+    interleaved-admission chunk) and 64 (the prefix cache's suffix chunk),
+    timed, paged against dense bit for bit and with the poison check; the
+    run of 256 in the online form, with window 4096 and 4 sinks, with the
+    softcap 50 (online), with ALiBi and on the cast path; the route's
+    edges, G = 10, 64, 66 and 130 rows per kv head (runs of 5, 32, 33 and
+    65); a row whose length is its run; kv_splits=4 on the dense cache;
+    then runs of 256 over bf16, fp8 (cast), int4 (s8 and cast) pools,
+    timed, bf16 and fp8 with the poison check. Each against the plain
+    version; the kernel's row takes the int8 run of 256's numbers."""
+    h, hk, d, layer = MODEL["n_heads"], MODEL["n_kv_heads"], 128, 1
+    g = h // hk
+    win = dict(window_size=(WINDOW, -1), sink_tokens=SINKS)
+    rl = torch.tensor(RUN_LENS, dtype=torch.int32, device=dev)
+
+    def randq(n):
+        return torch.randn((len(RUN_LENS), n, h, d), generator=gen,
+                           device=dev).bfloat16()
+
+    cases = []
+    kc, vc, ks, vs, pt = paged_pool(gen, dev, "int8", lens=RUN_LENS,
+                                    n_pages=RUN_PAGES)
+    pool = (kc, vc, ks, vs)
+    dense = [gather_dense(kc, pt), gather_dense(vc, pt),
+             gather_dense(ks, pt, True), gather_dense(vs, pt, True)]
+    q256 = randq(256)
+    for n in (256, 64):
+        q = q256 if n == 256 else randq(n)
+        res, out = b7_run_case(decode, f"int8 n={n}", q, pool, rl, pt, layer)
+        cases.append(res)
+        bit_equal(decode, f"n={n}", q, pool, dense, rl, pt, layer)
+        poison_check(decode, f"int8 n={n}", q, pool, rl, pt, layer, out)
+    for tag, kw in (("safe", dict(safe_softmax=True)),
+                    ("window sinks", win),
+                    ("window sinks softcap", dict(win, softcap=SOFTCAP)),
+                    ("ALiBi", dict(alibi_slopes=alibi_slopes(h, dev))),
+                    ("cast", dict(mxu_int8=False))):
+        cases.append(b7_run_case(decode, f"int8 n=256 {tag}", q256, pool,
+                                 rl, pt, layer, timed=False, **kw)[0])
+    for n in (5, 32, 33, 65):  # G = g * n rows per kv head
+        cases.append(b7_run_case(decode, f"int8 n={n} G={g * n}", randq(n),
+                                 pool, rl, pt, layer, timed=False)[0])
+    whole = torch.tensor((RUN_LENS[0], 64), dtype=torch.int32, device=dev)
+    cases.append(b7_run_case(decode, "int8 n=64, a row of 64", randq(64),
+                             pool, whole, pt, layer, timed=False)[0])
+    cases.append(b7_run_case(decode, "int8 n=256 kv_splits=4", q256, dense,
+                             rl, None, layer, timed=False, block_kv=PAGE,
+                             kv_splits=4)[0])
+    del kc, vc, ks, vs, pool, dense
+    torch.cuda.empty_cache()
+    for dtype, tags in (("bfloat16", (("bf16", {}),)),
+                        ("float8_e4m3fn", (("fp8 cast", {}),)),
+                        ("int4", (("int4 s8", {}),
+                                  ("int4 cast", dict(mxu_int8=False))))):
+        kc, vc, ks, vs, pt = paged_pool(gen, dev, "bfloat16", lens=RUN_LENS,
+                                        n_pages=RUN_PAGES)
+        if dtype != "bfloat16":
+            (kc, ks), (vc, vs) = (kv_cache.quantize_kv(t, dtype)
+                                  for t in (kc, vc))
+            ks, vs = ks[..., None, :], vs[..., None, :]
+        pool = (kc, vc, ks, vs)
+        for tag, kw in tags:
+            res, out = b7_run_case(decode, f"{tag} n=256", q256, pool, rl,
+                                   pt, layer, **kw)
+            cases.append(res)
+            if dtype != "int4":
+                poison_check(decode, tag, q256, pool, rl, pt, layer, out, **kw)
+        del kc, vc, ks, vs, pool
+        torch.cuda.empty_cache()
+    main = cases[0]  # int8, run of 256
+    return {"name": "decode_run", "route": "cuda",
+            "source": ("long_context_attention_tpu_torch/csrc/"
+                       f"{K['decode_run'].source}"),
+            "replaces": K["decode_run"].replaces, "launches": None,
+            "max_abs_err": max(c["max_abs_err"] for c in cases),
+            "row_rel_err": max(c["row_rel_err"] for c in cases),
+            **{k: main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                    "library_ms")},
+            "case": main["case"], "run_cases": cases}
 
 
 # ---------------------------------------------------------------------------
@@ -1833,8 +2066,8 @@ def kernel_b7_quant(decode, kv_cache, gen, dev):
     live): fp8 on the cast path, int8 on the cast path (mxu_int8=False),
     int4 on the s8 path and on the cast path, int8 with ALiBi (the
     geometric slopes of BLOOM and MPT) and int8 with kv_splits=4; then
-    paged fp8 through the page table, one token per row and a run of 256
-    (split as the tile rule splits it)."""
+    paged fp8 through the page table, one token per row (the fp8 runs are
+    kernel_b7_runs')."""
     L, b, hk, d = MODEL["n_layers"], BATCH, MODEL["n_kv_heads"], 128
     h = MODEL["n_heads"]
     lens = torch.tensor([PROMPT + 1, PROMPT - 42, PROMPT + NEW, PROMPT - 193],
@@ -1860,22 +2093,19 @@ def kernel_b7_quant(decode, kv_cache, gen, dev):
                           "path": path})
         del kc, vc, ks, vs
         torch.cuda.empty_cache()
-    # paged fp8: one token per row over PAGED_LENS, and a 256-token run
-    for lens_p, n_pages, n_tok in ((PAGED_LENS, None, 1),
-                                   (RUN_LENS, RUN_PAGES, 256)):
-        kc, vc, ks, vs, pt = paged_pool(gen, dev, "bfloat16", lens=lens_p,
-                                        n_pages=n_pages)
-        (kc, ks), (vc, vs) = (kv_cache.quantize_kv(t, "float8_e4m3fn")
-                              for t in (kc, vc))
-        ks, vs = ks[..., None, :], vs[..., None, :]
-        lt = torch.tensor(lens_p, dtype=torch.int32, device=dev)
-        shape = (len(lens_p), h, d) if n_tok == 1 else (len(lens_p), n_tok,
-                                                        h, d)
-        q = torch.randn(shape, generator=gen, device=dev).bfloat16()
-        cases.append({**b7_case(decode, f"fp8 n={n_tok}", q, kc, vc, ks, vs,
-                                lt, pt, 1), "path": FP8_RUNS[n_tok]})
-        del kc, vc, ks, vs
-        torch.cuda.empty_cache()
+    # paged fp8, one token per row over PAGED_LENS (its runs are
+    # kernel_b7_runs')
+    kc, vc, ks, vs, pt = paged_pool(gen, dev, "bfloat16")
+    (kc, ks), (vc, vs) = (kv_cache.quantize_kv(t, "float8_e4m3fn")
+                          for t in (kc, vc))
+    ks, vs = ks[..., None, :], vs[..., None, :]
+    lt = torch.tensor(PAGED_LENS, dtype=torch.int32, device=dev)
+    q = torch.randn((len(PAGED_LENS), h, d), generator=gen,
+                    device=dev).bfloat16()
+    cases.append({**b7_case(decode, "fp8 n=1", q, kc, vc, ks, vs, lt, pt, 1),
+                  "path": FP8_RUNS[1]})
+    del kc, vc, ks, vs
+    torch.cuda.empty_cache()
     return cases
 
 
@@ -2576,7 +2806,8 @@ def serve_phase(pkg, build, dev, card, windowed, cache_dtype="int8"):
     counts = expect_counts(build, {
         own: L * (PROMPT // CHUNK), other: 0,
         "flash_fwd_pos": L * (PROMPT // CHUNK - 1),
-        "cache_append": L * NEW, "decode_attention": L * NEW})
+        "cache_append": L * NEW, "decode_attention": L * NEW,
+        "decode_run": 0})
     if not torch.isfinite(logits).all():
         raise AssertionError("prefill logits are not finite")
     if toks.shape != (BATCH, NEW) or cache.length.tolist() != [
@@ -2642,7 +2873,8 @@ def serve_phase(pkg, build, dev, card, windowed, cache_dtype="int8"):
     gen_s = time.perf_counter() - t0
     gcounts = expect_counts(build, {
         own: L, other: 0, "flash_fwd_pos": 0,
-        "cache_append": L * GEN_NEW, "decode_attention": L * GEN_NEW})
+        "cache_append": L * GEN_NEW, "decode_attention": L * GEN_NEW,
+        "decode_run": 0})
     if not torch.isfinite(res.prefill_logits).all() or res.tokens.shape != (
             GEN_BATCH, GEN_NEW):
         raise AssertionError("generate gave non-finite logits or bad shapes")
@@ -2755,16 +2987,33 @@ def serve_timed(build, eng, params, reqs, **kw):
 
 def expect_serving_counts(tag, counts, L, steps, admissions, b6_runs=0,
                           b7_runs=0):
-    """Every decode step launches L B6 and L B7, every bucket admission L
-    B1; multi-token chunks add ``b6_runs`` B6 and ``b7_runs`` B7."""
+    """Every decode step launches L B6 and L B7 (decode_attention, one
+    token), every bucket admission L B1; multi-token chunks add ``b6_runs``
+    B6 and ``b7_runs`` B7 runs (decode_run)."""
     want = {"cache_append": L * steps + b6_runs,
-            "decode_attention": L * steps + b7_runs,
+            "decode_attention": L * steps, "decode_run": b7_runs,
             "flash_fwd_causal_self": L * admissions}
     for name, n in want.items():
         if counts[name] != n:
             raise AssertionError(f"{tag}: {name} launched {counts[name]} "
                                  f"times, expected {n}")
     return want
+
+
+def run_subruns(decode, n_tok, cfg):
+    """The sub-runs of a paged int8 or fp8 chunk of n_tok tokens at the
+    model's heads (the tile rule's plan), each of which must take B7's run
+    kernel, decode_run (decode_route)."""
+    hk = cfg.n_kv_heads
+    g = cfg.n_heads // hk
+    plan = decode.decode_run_plan(n_tok, hk, g, cfg.head_dim, PAGE, 1,
+                                  paged=True)
+    routes = {decode.decode_route(g * (e - i), bkv, PAGE)
+              for i, e, bkv in plan}
+    if routes != {"decode_run"}:
+        raise AssertionError(f"a chunk of {n_tok}: sub-runs routed to "
+                             f"{routes}")
+    return len(plan)
 
 
 def teacher_forced_logprobs(params, cfg, prompt, tokens, dev):
@@ -2884,7 +3133,7 @@ def serve_paged_fp8(build, cfg, params, reqs, common, pool, card, int8):
     from long_context_attention_tpu_torch.ops import decode
     from long_context_attention_tpu_torch.serving import PagedContinuousEngine
 
-    L, hk = cfg.n_layers, cfg.n_kv_heads
+    L = cfg.n_layers
     fp8 = dict(common, cache_dtype="float8_e4m3fn")
     eng = probe_engine(PagedContinuousEngine)(
         cfg, max_batch=32, page_size=PAGE, pool_pages=pool, **fp8)
@@ -2917,16 +3166,14 @@ def serve_paged_fp8(build, cfg, params, reqs, common, pool, card, int8):
         cfg, max_batch=8, page_size=PAGE, pool_pages=pool,
         return_logprobs=True, interleave_admission=True,
         prefill_chunk=STALL_CHUNK, **dict(fp8, host_overlap=False))
-    subruns = len(decode.decode_run_plan(STALL_CHUNK, hk, cfg.n_heads // hk,
-                                         cfg.head_dim, PAGE, 1, paged=True))
+    subruns = run_subruns(decode, STALL_CHUNK, cfg)
     sub = reqs[:FP8_INTERLEAVED]
     chunks = sum(-(-len(r.tokens) // STALL_CHUNK) for r in sub)
     res, wall, toks, steps, counts = serve_timed(build, gate, params, sub)
-    multi = {"cache_append": L * chunks,
-             "decode_attention": L * chunks * subruns}
+    multi = {"cache_append": L * chunks, "decode_run": L * chunks * subruns}
     launches = expect_serving_counts(
         "serve_paged_fp8 interleaved", counts, L, steps, 0,
-        multi["cache_append"], multi["decode_attention"])
+        multi["cache_append"], multi["decode_run"])
     tf = []
     for i in range(CONT_TF_SAMPLE):
         want = teacher_forced_logprobs(params, cfg, sub[i].tokens,
@@ -2978,10 +3225,7 @@ def serve_prefix_phase(pkg, build, decode, dev, card):
                    **common)}
     # the suffix chunk: min(prefill_chunk, bucket(64)) = 64 tokens, one
     # chunk, split by the tile rule into these sub-runs
-    hk, h = cfg.n_kv_heads, cfg.n_heads
-    cs = min(PREFIX_CHUNK, 64)
-    subruns = len(decode.decode_run_plan(cs, hk, h // hk, cfg.head_dim,
-                                         PAGE, 1, paged=True))
+    subruns = run_subruns(decode, min(PREFIX_CHUNK, 64), cfg)
     hits_want = (PREFIX_REQS - 1) * PREFIX_SYS
     out, firsts = {}, {}
     for tag, eng in engines.items():
@@ -3007,7 +3251,7 @@ def serve_prefix_phase(pkg, build, decode, dev, card):
                     "launches": launches,
                     "multi_token_launches": {
                         "cache_append": L * chunks,
-                        "decode_attention": L * chunks * subruns},
+                        "decode_run": L * chunks * subruns},
                     "stats": dict(eng.stats)}
         torch.cuda.empty_cache()
     tf = [float((a - b).abs().max())
@@ -3056,9 +3300,7 @@ def serve_stall_phase(pkg, build, decode, dev, card):
             Request(id=2, tokens=long_prompt, max_new=4)]
     s_cap = ((STALL_CTX + 8191) // 4096) * 4096
     pool = (3 * s_cap) // PAGE + 1
-    hk = cfg.n_kv_heads
-    subruns = len(decode.decode_run_plan(STALL_CHUNK, hk, cfg.n_heads // hk,
-                                         cfg.head_dim, PAGE, 1, paged=True))
+    subruns = run_subruns(decode, STALL_CHUNK, cfg)
     chunks = sum(-(-len(r.tokens) // STALL_CHUNK) for r in reqs)
     out, runs = {}, {}
     for tag, inter in (("batch", False), ("interleaved", True)):
@@ -3077,12 +3319,12 @@ def serve_stall_phase(pkg, build, decode, dev, card):
                                  f"completed")
         gaps = np.diff(np.asarray(PROBE["stamps"])) * 1e3
         multi = ({"cache_append": L * chunks,
-                  "decode_attention": L * chunks * subruns} if inter
-                 else {"cache_append": 0, "decode_attention": 0})
+                  "decode_run": L * chunks * subruns} if inter
+                 else {"cache_append": 0, "decode_run": 0})
         launches = expect_serving_counts(
             f"serve_stall {tag}", counts, L, steps,
             0 if inter else len(reqs), multi["cache_append"],
-            multi["decode_attention"])
+            multi["decode_run"])
         if len(PROBE["first_logits"]) != len(reqs):
             raise AssertionError(f"serve_stall {tag}: "
                                  f"{len(PROBE['first_logits'])} admissions")
@@ -4056,7 +4298,8 @@ def sage_serve_phase(pkg, build, dev, card):
         decode_s = time.perf_counter() - t0
         dcounts = expect_counts(build, {
             **{k: 0 for k in PREFILL_KERNELS}, **quant_counts(0),
-            "cache_append": L * NEW, "decode_attention": L * NEW})
+            "cache_append": L * NEW, "decode_attention": L * NEW,
+            "decode_run": 0})
         if toks.shape != (BATCH, NEW):
             raise AssertionError(f"decode_scan shape {tuple(toks.shape)}")
         for f, t in fork.items():
@@ -4082,7 +4325,7 @@ def sage_serve_phase(pkg, build, dev, card):
         gcounts = expect_counts(build, {
             **{k: (L if k == "sage_fwd_tri" else 0) for k in PREFILL_KERNELS},
             **quant_counts(L), "cache_append": L * GEN_NEW,
-            "decode_attention": L * GEN_NEW})
+            "decode_attention": L * GEN_NEW, "decode_run": 0})
         if not torch.isfinite(res.prefill_logits).all() or res.tokens.shape != (
                 GEN_BATCH, GEN_NEW):
             raise AssertionError("sage generate: non-finite logits or shapes")
@@ -5042,6 +5285,13 @@ def main():
     sage_lib = build.library("sage_fwd_sm90.cu")
     sage_smem = {"B8a, B8b, B8c": sage_lib.lca_sage_fwd_smem(0),
                  "pv_int8": sage_lib.lca_sage_fwd_smem(1)}
+    run_lib = build.library("decode_run_sm90.cu")
+    run_smem = {"bf16 and cast": run_lib.lca_decode_run_smem(0),
+                "s8": run_lib.lca_decode_run_smem(1)}
+    if run_smem != {"bf16 and cast": decode.decode_run_smem(False),
+                    "s8": decode.decode_run_smem(True)}:
+        raise AssertionError(f"decode_run's shared memory {run_smem} is not "
+                             f"the wrapper's (ops/decode.py decode_run_smem)")
     # the backward kernels' instantiations (B5, B2b and B9c: FUSED, SPARSE,
     # MASK, MULTI, FEAT; B2a and B9b: the dq kernel's walk) and B9a's of
     # the forward; and, apart, the featured instantiations of B3
@@ -5071,6 +5321,9 @@ def main():
           "flash_bwd_sm90_dynamic_smem_bytes": bwd_smem,
           "sage_fwd_sm90_dynamic_smem_bytes": sage_smem,
           "ptxas_sage": ptxas_entries(logs.get("sage_fwd_sm90.cu", "")),
+          "decode_run_dynamic_smem_bytes": run_smem,
+          "ptxas_decode_run": ptxas_entries(logs.get("decode_run_sm90.cu",
+                                                     "")),
           "source_seconds": build.build_seconds(),
           "ptxas_bwd_dq_b9a": new, "ptxas_features": feat_entries,
           "ptxas_quant_cache": quant_entries})
@@ -5086,6 +5339,8 @@ def main():
     print(f"flash_bwd_sm90.cu: dynamic shared memory per block {bwd_smem}",
           file=sys.stderr)
     print(f"sage_fwd_sm90.cu: dynamic shared memory per block {sage_smem}",
+          file=sys.stderr)
+    print(f"decode_run_sm90.cu: dynamic shared memory per block {run_smem}",
           file=sys.stderr)
 
     K = build.KERNELS
@@ -5124,6 +5379,11 @@ def main():
         by_name[name]["quant_cases"] = cases
         for case in cases:
             emit({"phase": "kernel_quant_cache", "name": name, **case})
+    torch.cuda.empty_cache()
+    # B7's runs on decode_run
+    run_row = kernel_b7_runs(K, decode, kv_cache, gen, dev)
+    emit({"phase": "kernel", **run_row})
+    rows.append(run_row)
     torch.cuda.empty_cache()
     # the four kernels at the dense ring's multi-chunk descriptors
     ring_rows = kernel_ring(K, flash, sage, ring, gen, dev)
@@ -5219,11 +5479,19 @@ def main():
             "sage_fwd_pos": sage_counts["sage_fwd_pos"],
             **api_counts,
             **{n: sage_counts["sage_fwd_tri"] for n in SAGE_QUANT},
-            **{n: usp_counts for n in SPARSE_KERNELS}}
+            **{n: usp_counts for n in SPARSE_KERNELS},
+            "decode_run": stall["interleaved"]["multi_token_launches"]}
     quant_paths = {
         **{QUANT_SLICE[dt]: qcounts[dt] for dt in QUANT_DTYPES},
         FP8_RUNS[1]: paged["serve_paged_fp8"]["launches"],
         FP8_RUNS[256]: paged["fp8_interleaved"]["multi_token_launches"]}
+    # the phases of B7's runs (RUN_PATHS)
+    run_paths = {
+        "serve_stall interleaved": stall["interleaved"][
+            "multi_token_launches"],
+        "serve_prefix": prefix["prefix"]["multi_token_launches"],
+        "serve_paged_fp8 interleaved": paged["fp8_interleaved"][
+            "multi_token_launches"]}
     for r in rows:
         r["launches"] = path.get(r["name"], counts)[r["name"]]
         if "windowed" in r:
@@ -5259,21 +5527,22 @@ def main():
         if tag == "B3":
             r["keep_probes"] = probes
         # the paged cases: one-token launches on the paged engine's 32-row
-        # run; multi-token ones in the prefix engine's run (the 64-token
-        # suffix chunks) and the interleaved stall run (256-token chunks)
+        # run; B6's run of 256 in the interleaved stall run's chunks (B7's
+        # runs are decode_run's run_cases)
         for case in r.get("paged_cases", []):
-            if "n=64" in case["case"]:
-                src = prefix["prefix"]["multi_token_launches"]
-            elif "n=256" in case["case"] or "run of 256" in case["case"]:
-                src = stall["interleaved"]["multi_token_launches"]
-            else:
-                src = paged["serve_paged"]["launches"]
+            src = (stall["interleaved"]["multi_token_launches"]
+                   if "run of 256" in case["case"]
+                   else paged["serve_paged"]["launches"])
             case["launches"] = src[r["name"]]
         # the fp8 and int4 cases: launches on the phase each names; none
         # for the forms that no phase of this run takes
         for case in r.get("quant_cases", []):
             if case["path"] is not None:
                 case["launches"] = quant_paths[case["path"]][r["name"]]
+        # B7's runs: launches on the phase each names (RUN_PATHS)
+        for case in r.get("run_cases", []):
+            if case["path"] is not None:
+                case["launches"] = run_paths[case["path"]][r["name"]]
         if tag == "B3":  # B3 over fp8 and int4 K/V in the emulated rings
             r["quant_ring_cases"] = {
                 QUANT_TAG[dt]: {"launches": ring_quant_counts[dt][r["name"]]}

@@ -24,9 +24,11 @@
 // int8 or fp8, int4) plus 8*b*h_kv*n scale bytes when quantized, where n
 // is a row's visible columns (its length, or its sinks plus
 // its window band), against 3.35 TB/s; the arithmetic is a few operations
-// per byte. A run of many tokens is bound by its operations (q.k and p.v
-// per query row and visible column); this design reads the cache once per
-// group of MAXG rows, so it stays far from either bound there.
+// per byte. The wrapper (ops/decode.py decode_route) sends this kernel the
+// calls whose query rows per kv head fit one group of MAXG (one token at
+// the model's g = 2, runs of up to 4 tokens) and those whose tile is not a
+// multiple of 128 dividing the slot axis; the runs of more rows take
+// decode_run_sm90.cu, on the tensor cores.
 //
 // The kv walk takes a row's live tiles only, each once: the sink tiles
 // that lie before the window's band, then the band from the tile of column
@@ -38,8 +40,8 @@
 // Design: one 256-thread block per (kv split, kv head and group of at most
 // MAXG query rows, batch row). The query rows of a kv head (its g heads
 // times the run's n_tok tokens, ordered (head, token)) fall into groups of
-// MAXG; each group streams the kv head's tiles on its own (a first design:
-// a long run reads the cache once per group). The kv range is cut
+// MAXG; each group streams the kv head's tiles on its own (for the calls
+// routed here, one group or a few). The kv range is cut
 // into `bkv`-column tiles, and a split owns a contiguous run of them, so
 // b*h_kv*splits blocks fill the 132 SMs where b*h_kv alone would not; the
 // wrapper merges the splits' (out, lse) partials. Inside a tile:

@@ -265,6 +265,13 @@ KERNELS: Dict[str, Kernel] = {
         "decode_attention", "decode_attention.cu", "lca_decode_attention",
         [_VP] * 13 + [_F, _F, _I, _VP, _VP],
         "long_context_attention_tpu/ops/decode.py:296"),
+    # B7's multi-token form (decode_attention_core routes a call by shape,
+    # decode_route): the runs of more than 8 query rows per kv head on
+    # wgmma, with decode_attention's C signature
+    "decode_run": Kernel(
+        "decode_run", "decode_run_sm90.cu", "lca_decode_run",
+        [_VP] * 13 + [_F, _F, _I, _VP, _VP],
+        "long_context_attention_tpu/ops/decode.py:296"),
 }
 
 

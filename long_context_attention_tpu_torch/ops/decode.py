@@ -8,10 +8,15 @@ dtypes (bf16, int8, fp8 e4m3 and int4 packed two per byte along d):
   it writes one run of new tokens per row into the cache IN PLACE (rows of
   opaque bytes: d, 2d or d / 2 of them).
 * :func:`decode_attention` quantizes / folds the query as the JAX wrapper
-  does and calls :func:`decode_attention_core`, the wrapper of kernel B7
-  (``csrc/decode_attention.cu``), which attends the query rows of every kv
-  head to the cache up to per-row lengths: one token per row, or a run of
-  n tokens per row (a teacher-forced run), each at its own position.
+  does and calls :func:`decode_attention_core`, the wrapper of kernel B7,
+  which attends the query rows of every kv head to the cache up to per-row
+  lengths: one token per row, or a run of n tokens per row (a
+  teacher-forced run), each at its own position. B7 has two kernels,
+  chosen by shape (:func:`decode_route`): ``csrc/decode_attention.cu``
+  (one token, short runs and odd tiles: groups of 8 query rows on the
+  CUDA cores) and ``csrc/decode_run_sm90.cu`` (the runs whose G = g * n
+  rows per kv head exceed 8: 64-row wgmma blocks over one pass of the
+  cache).
 
 B7 has the JAX kernel's three paths: bf16 (a bf16 cache); the s8 path
 (``mxu_int8``, an int8 or int4 cache: s8 x s8 products, q row-quantized,
@@ -48,11 +53,17 @@ from long_context_attention_tpu_torch.utils.config import NEG_INF, not_ported
 
 __all__ = ["cache_append", "cache_append_plain", "decode_attention",
            "decode_attention_core", "decode_attention_core_plain",
-           "decode_query_operands", "decode_run_plan", "reference_block_kv"]
+           "decode_launch", "decode_query_operands", "decode_route",
+           "decode_run_plan", "decode_run_smem", "reference_block_kv"]
 
 _HEAD_DIM = 128
-_GROUP_ROWS = 8        # query rows per block of the B7 kernel (MAXG)
-_TARGET_BLOCKS = 264   # two resident blocks on each of the H100's 132 SMs
+_GROUP_ROWS = 8        # query rows per block of decode_attention.cu (MAXG)
+_RUN_ROWS = 128        # query rows per block of decode_run_sm90.cu (BR)
+_RUN_CHUNK = 128       # kv columns per chunk of decode_run_sm90.cu (CH)
+_TARGET_BLOCKS = 264   # blocks a B7 launch aims at: two per H100 SM
+# ... decode_run's: one block fills an SM, and several short waves let the
+# block scheduler even out rows of other lengths
+_RUN_TARGET_BLOCKS = 528
 
 
 # ---------------------------------------------------------------------------
@@ -444,6 +455,68 @@ def _kv_kind(q_in, q_rs, k_cache, k_scale) -> int:
     return table[k_cache.dtype]
 
 
+def decode_route(rows: int, block_kv: int, slot_dim: int) -> str:
+    """The B7 kernel a CUDA call of :func:`decode_attention_core` launches,
+    by shape alone: ``"decode_run"`` (``csrc/decode_run_sm90.cu``) when the
+    call's ``rows`` = g * n_tok query rows per kv head exceed the first
+    design's group of 8 and its kv tile is a multiple of that kernel's
+    128-column chunk and divides the cache's slot axis (s_max, or the page);
+    else ``"decode_attention"`` (``csrc/decode_attention.cu``: one token,
+    short runs and odd tiles). The tile rule's tiles divide the slot axis,
+    so every sub-run of a long run takes the first at the serving shapes."""
+    if (rows > _GROUP_ROWS and block_kv % _RUN_CHUNK == 0
+            and slot_dim % block_kv == 0):
+        return "decode_run"
+    return "decode_attention"
+
+
+def decode_run_smem(s8: bool) -> int:
+    """Dynamic shared memory of a ``decode_run`` block (its C layout,
+    ``csrc/decode_run_sm90.cu`` Smem): Q, the K slots with their scales, the
+    V (s8: V^T) slots, three raw chunks, eight items' staged scales and, on
+    the s8 path, the two warpgroups' P8, then 256 bytes of barriers and
+    1024 of alignment."""
+    op = 16384 if s8 else 32768      # Q, a K or a V chunk operand
+    ks = 6 if s8 else 2              # K slots
+    return (op + ks * op + ks * 1024 + 2 * op + 3 * 16384 + 8 * 1024
+            + (2 * 64 * _RUN_CHUNK if s8 else 0) + 256 + 1024)
+
+
+def decode_launch(kernel: str, b: int, h_kv: int, rows: int, cap: int,
+                  block_kv: int, n_tok: int = 1, window_left: int = -1,
+                  sink_tokens: int = 0, kv_splits=None):
+    """The host side of a B7 launch: (splits, tiles per split, grid). A
+    row's live tiles (its sink tiles, then its window band, or all up to
+    its length) split into runs of ``tiles per split``, each run one block
+    per (row block, kv head, batch row): row blocks of 8 query rows
+    (``decode_attention``, grid (splits, h_kv * groups, b)) or of 128
+    (``decode_run``, grid (row blocks * splits, h_kv, b)). Without
+    ``kv_splits`` the split count fills the card (``_TARGET_BLOCKS``, or
+    ``_RUN_TARGET_BLOCKS``: decode_run's block fills an SM) and is bounded
+    by the most live tiles a row can have; ``kv_splits`` (dense
+    caches) fixes it as JAX's: max(1, min(kv_splits, tiles)) runs of
+    ceil(tiles / splits) tiles."""
+    per_block = _RUN_ROWS if kernel == "decode_run" else _GROUP_ROWS
+    groups = -(-rows // per_block)
+    nk = -(-cap // block_kv)
+    if kv_splits is not None:  # JAX's splits of the whole tile range
+        splits = max(1, min(int(kv_splits), nk))
+        per_split = -(-nk // splits)
+    else:
+        if window_left >= 0:  # the most live tiles a row can have
+            nk = min(nk, -(-sink_tokens // block_kv)
+                     + (window_left + n_tok - 1 + block_kv) // block_kv + 1)
+        cells = b * h_kv * groups
+        target = (_RUN_TARGET_BLOCKS if kernel == "decode_run"
+                  else _TARGET_BLOCKS)
+        splits = max(1, min(nk, -(-target // cells)))
+        per_split = -(-nk // splits)
+        splits = -(-nk // per_split)
+    grid = ((groups * splits, h_kv, b) if kernel == "decode_run"
+            else (splits, h_kv * groups, b))
+    return splits, per_split, grid
+
+
 def decode_attention_core(q_in, q_rs, k_cache, v_cache, k_scale, v_scale,
                           lengths, *, layer: int, block_kv: int, scale: float,
                           safe_softmax: bool = False, window_left: int = -1,
@@ -453,11 +526,15 @@ def decode_attention_core(q_in, q_rs, k_cache, v_cache, k_scale, v_scale,
     """Kernel B7 wrapper (arguments as :func:`decode_attention_core_plain`,
     but ``kv_splits`` None lets the wrapper choose the kernel's split).
 
-    A row's live ``block_kv`` tiles (its sink tiles, then its window band,
-    or all up to its length) split into runs, and the query rows of a kv
-    head into groups of eight; one block per (run, kv head and row group,
-    row), so small batches still fill the card; a second kernel in the
-    same entry point merges the runs' partials with the arithmetic of
+    A CUDA call launches one of B7's two kernels by shape
+    (:func:`decode_route`): ``decode_run`` (``csrc/decode_run_sm90.cu``)
+    when G > 8 query rows per kv head and the tile is a multiple of 128
+    that divides the slot axis, else ``decode_attention``
+    (``csrc/decode_attention.cu``). Both walk a row's live ``block_kv``
+    tiles (its sink tiles, then its window band, or all up to its length)
+    in runs (:func:`decode_launch`), one block per (run, kv head and row
+    block, row), so small batches still fill the card; a second kernel in
+    the same entry point merges the runs' partials with the arithmetic of
     :func:`merge_partials`. ``kv_splits`` (dense caches) fixes the runs as
     JAX's splits: max(1, min(kv_splits, tiles)) of ceil(tiles / splits)
     tiles each. CPU tensors take the plain version."""
@@ -524,18 +601,10 @@ def decode_attention_core(q_in, q_rs, k_cache, v_cache, k_scale, v_scale,
     # a tile too large for shared memory fails in the launch (the C entry
     # point returns cudaErrorInvalidValue) and raises there
     lens = lengths.to(device=dev, dtype=torch.int32).contiguous()
-    nk = -(-cap // block_kv)
-    if kv_splits is not None:  # JAX's splits of the whole tile range
-        splits = max(1, min(int(kv_splits), nk))
-        per_split = -(-nk // splits)
-    else:
-        if window_left >= 0:  # the most live tiles a row can have
-            nk = min(nk, -(-sink_tokens // block_kv)
-                     + (window_left + n_tok - 1 + block_kv) // block_kv + 1)
-        cells = b * h_kv * -(-G // _GROUP_ROWS)
-        splits = max(1, min(nk, -(-_TARGET_BLOCKS // cells)))
-        per_split = -(-nk // splits)
-        splits = -(-nk // per_split)
+    kernel = decode_route(G, block_kv, slot_dim)
+    splits, per_split, _ = decode_launch(
+        kernel, b, h_kv, G, cap, block_kv, n_tok, window_left, sink_tokens,
+        kv_splits)
     out = torch.empty((b, h_kv, G, d), dtype=torch.float32, device=dev)
     lse = torch.empty((b, h_kv, G), dtype=torch.float32, device=dev)
     part_out = part_lse = None
@@ -549,7 +618,7 @@ def decode_attention_core(q_in, q_rs, k_cache, v_cache, k_scale, v_scale,
                               sink_tokens if window_left >= 0 else 0,
                               n_tok, pool, slot_dim, n_pages, kind])
     p = _build.ptr
-    _build.KERNELS["decode_attention"](
+    _build.KERNELS[kernel](
         p(q_in), p(q_rs), p(k_cache), p(v_cache), p(k_scale), p(v_scale),
         p(lens), p(pt), p(part_out), p(part_lse), p(out), p(lse), dims,
         scale, float(softcap), int(safe_softmax), _build.stream_ptr(dev),

@@ -22,11 +22,16 @@ heads, head_dim 128, bf16):
   sage kernels B8a and B8b on the int8 operands of a 4 x 8192 prefill
   (B8b with window 4096 and 4 sinks); B6 and B7 over int8 and bf16
   caches, dense (the slice's b=4 cache of 12288 slots, ~8.2K live) and
-  paged (pages of 2048 from a pool of 65), one token per row and a run of
-  256 (B6: the cache after the append; B7: out and lse through
-  decode_attention). A tree whose B7 entry takes no ALiBi slopes is called
-  without them, and one whose sage entries take no pv_int8 table without
-  it;
+  paged (pages of 2048 from a pool of 65), one token per row (B7's first
+  design, decode_attention.cu) and, for B6, a run of 256 (B6: the cache
+  after the append; B7: out and lse through decode_attention). A tree
+  whose B7 entry takes no ALiBi slopes is called without them, and one
+  whose sage entries take no pv_int8 table without it;
+* B7 over a run of 256 (the same caches; two sub-runs, on ``decode_run``,
+  decode_run_sm90.cu, in a tree that has it): each tree's out and lse row
+  by row against the plain version (ROW_REL_TOL), timed in turns. A tree
+  without ``decode_run`` runs its runs through its ``decode_attention``
+  entry (the same C signature) at its own split rule (8 rows a block);
 * B2a at b=1, s=8192, causal, B4 at b=4, s=2048 and s=8192 with window
   4096 and 4 sinks, and B9a, B9b and B9c at b=1, s=32768 in tiles of 512
   on the StreamingLLM mask, where a tree may have another kernel: each
@@ -88,7 +93,7 @@ MASKED = (
 KERNELS = ("flash_fwd_causal_self", "flash_fwd_pos", "flash_fwd_static",
            "flash_bwd_dq", "flash_bwd_dkv", "flash_bwd_fused", "sage_fwd_tri",
            "sage_fwd_pos", "sparse_fwd", "sparse_bwd_dq", "sparse_bwd_dkv",
-           "cache_append", "decode_attention")
+           "cache_append", "decode_attention", "decode_run")
 BACKWARD = ("flash_bwd_dq", "flash_bwd_dkv", "flash_bwd_fused")
 SAGE = ("sage_fwd_tri", "sage_fwd_pos")
 SPARSE = ("sparse_fwd", "sparse_bwd_dq", "sparse_bwd_dkv")
@@ -107,9 +112,38 @@ def kernel_sources(root: Path):
             / "_build.py").read_text()
     found = {}
     for name in KERNELS:
-        at = text.index(f'Kernel(\n        "{name}", ')
-        found[name] = text[at:].split('"')[3]
+        key = f'Kernel(\n        "{name}", '
+        if key in text:  # a tree may lack a kernel (decode_run)
+            found[name] = text[text.index(key):].split('"')[3]
     return found
+
+
+def runs_on_first_design(fn):
+    """B7's runs in a tree with no decode_run: its decode_attention entry
+    (the same C signature), with the splits (and their partial buffers)
+    of that tree's rule, 8 query rows a block (the cases pass no
+    kv_splits)."""
+    from long_context_attention_tpu_torch.ops import decode
+
+    keep = {}
+
+    def call(*a):
+        dims = [int(x) for x in a[12]]
+        b, h_kv, G, cap, _, bkv, _, _, left, sink, n_tok = dims[:11]
+        splits, per, _ = decode.decode_launch(
+            "decode_attention", b, h_kv, G, cap, bkv, n_tok, left, sink)
+        dims[6], dims[7] = splits, per
+        args = list(a)
+        if splits > 1:
+            key = (b, splits, h_kv, G)
+            if key not in keep:
+                keep[key] = [torch.empty(shape, device="cuda") for shape in
+                             ((b, splits, h_kv, G, D), (b, splits, h_kv, G))]
+            args[8], args[9] = (t.data_ptr() for t in keep[key])
+        args[12] = _build.dims_array(dims)
+        return fn(*args)
+
+    return call
 
 
 class Tree:
@@ -157,7 +191,7 @@ class Tree:
             fn.restype = ctypes.c_int
             self.fns[name] = fn
         # a sparse kernel in sparse.cu takes that source's argument list
-        for name in KERNELS:
+        for name in self.sources:
             self.fns[name].argtypes = (
                 OLD_SPARSE_ARGS if self.old(name)
                 else OLD_BWD_ARGS if name in BACKWARD and not self.masked_bwd
@@ -178,6 +212,9 @@ class Tree:
                 self.fns[name].argtypes = self.fns[name].argtypes[:-1]
                 self.fns[name] = (lambda fn: lambda *a: fn(*a[:-1]))(
                     self.fns[name])
+        if "decode_run" not in self.sources:
+            self.fns["decode_run"] = runs_on_first_design(
+                self.fns["decode_attention"])
 
     def old(self, name):
         return self.sources[name] == "sparse.cu"
@@ -279,7 +316,8 @@ DENSE_LENS, PAGED_LENS = (8193, 8150, 8224, 7999), (16384, 9000, 2049, 1)
 
 def decode_cases(compare, gen, dev):
     """B6 and B7 over int8 and bf16 caches, dense and paged, one token per
-    row and a run of 256, bit for bit between the trees."""
+    row and a run of 256: B6 and one-token B7 bit for bit between the
+    trees, B7's run each tree against the plain version."""
     from long_context_attention_tpu_torch.ops import decode
 
     L = 2
@@ -341,10 +379,22 @@ def decode_cases(compare, gen, dev):
                 reset()
                 q = torch.randn((b, n, H, D) if n > 1 else (b, H, D),
                                 generator=gen, device=dev).bfloat16()
+
+                def plain(q=q):  # on CPU copies of the layer
+                    cpu = [None if t is None else t[1:2].cpu()
+                           for t in (kc, vc, ks, vs)]
+                    return decode.decode_attention(
+                        q.cpu(), cpu[0], cpu[1], lt.cpu(), cpu[2], cpu[3],
+                        layer=0, page_table=None if pt is None else pt.cpu(),
+                        return_lse=True)
+
+                # one token: the first design in both trees, bit for bit;
+                # a run: decode_run here, against the plain version
                 compare(f"B7 {dtype} {where} n={n}",
                         lambda q=q: decode.decode_attention(
                             q, kc, vc, lt, ks, vs, layer=1, page_table=pt,
-                            return_lse=True))
+                            return_lse=True), same=n == 1,
+                        plain=lambda q=q: [t.to(dev) for t in plain(q)])
             del kc, vc, ks, vs, cache, saved
             torch.cuda.empty_cache()
 
@@ -394,8 +444,8 @@ def main():
             times[tag].append(time_ms(fn))
         res = {"case": name, "other_ms": times["other"],
                "this_ms": times["this"],
-               "other_sources": sorted({other.sources[k] for k in KERNELS}),
-               "this_sources": sorted({this.sources[k] for k in KERNELS})}
+               "other_sources": sorted(set(other.sources.values())),
+               "this_sources": sorted(set(this.sources.values()))}
         res["bit_equal"] = all(
             torch.equal(a, b) for i, (a, b) in
             enumerate(zip(outs["other"], outs["this"])) if i not in loose)

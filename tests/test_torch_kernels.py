@@ -3,7 +3,8 @@ CPU: every kernel binds a source under ``csrc/`` and names the Pallas kernel
 it replaces (sage's quantization pass, the JAX function it computes); B2b,
 B5 and B9c live in the wgmma/TMA source ``flash_bwd_sm90.cu``, B1, B3, B4
 and B9a in ``flash_fwd_sm90.cu``, B2a and B9b in ``flash_dq_sm90.cu``, B8a,
-B8b and B8c (and their pv_int8 forms) in ``sage_fwd_sm90.cu``; a library
+B8b and B8c (and their pv_int8 forms) in ``sage_fwd_sm90.cu``, B7's runs
+(decode_run) in ``decode_run_sm90.cu``; a library
 is rebuilt when a shared header changes; and the strides a kernel cannot
 read (TMA's tensor maps, cp.async's 16-byte rows) raise, while the BSHD
 views the model and the cache hand the kernels pass."""
@@ -200,6 +201,35 @@ def test_sm90_sources_build_for_sm90a():
     # no source derives its aligned shared base through an integer cast
     for src in sorted(_build.CSRC.glob("*.cu")):
         assert "uintptr_t" not in src.read_text(), src.name
+
+
+def test_decode_run_sm90_source():
+    """B7's multi-token kernel, decode_run, is its own sm_90a source on the
+    shared header: QK^T and PV on wgmma (s8: m64n128k32 s32.s8.s8, V
+    transposed; bf16 and the cast kinds: m64n128k16 with P in registers),
+    TMA and setmaxnreg; the consumers are templated on the s8 path and the
+    online form alone (the cache kind is the producer's run-time value),
+    and its C entry takes decode_attention's arguments."""
+    src = (_build.CSRC / "decode_run_sm90.cu").read_text()
+    for needle in ("wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8",
+                   "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16",
+                   "wgmma_rs(", '#include "sm90.cuh"', "setmaxnreg_inc",
+                   "setmaxnreg_dec", "tma_load_3d", "transpose_chunk(",
+                   "widen_chunk<kKvFp8>", "widen_chunk<kKvInt4>",
+                   "widen_chunk<kKvInt8>"):
+        assert needle in src, needle
+    assert src.count("__global__") == 2  # the kernel and the split merge
+    for s8 in ("true", "false"):
+        for safe in ("true", "false"):
+            assert f"launch<{s8}, {safe}>(maps, p, st)" in src
+    assert "template <bool S8, bool SAFE>\n__global__" in src
+    first = (_build.CSRC / "decode_attention.cu").read_text()
+    args = first[first.index('extern "C" int lca_decode_attention('):]
+    args = args[args.index("(") + 1:args.index(")")]
+    run = src[src.index('extern "C" int lca_decode_run('):]
+    run = run[run.index("(") + 1:run.index(")")]
+    assert run.split() == args.split()
+    assert "uintptr_t" not in src
 
 
 def test_build_key_covers_shared_headers(tmp_path, monkeypatch):

@@ -437,10 +437,11 @@ def _entry_arity(source: str, symbol: str) -> int:
     return n
 
 
-@pytest.mark.parametrize("name", ["cache_append", "decode_attention"])
+@pytest.mark.parametrize("name", ["cache_append", "decode_attention",
+                                  "decode_run"])
 def test_entry_point_takes_the_bound_arguments(name):
-    """B6 and B7 bind as many ctypes arguments as their C entry points take
-    (the page table added one to each)."""
+    """B6 and B7 (both its kernels) bind as many ctypes arguments as their
+    C entry points take (the page table added one to each)."""
     from long_context_attention_tpu_torch.ops import _build
 
     k = _build.KERNELS[name]
