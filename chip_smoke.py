@@ -154,8 +154,13 @@ Phases, one JSON line each; any failure exits non-zero:
      exact launch counts (the interleaved chunks' sub-runs on decode_run),
      and each run teacher-forced on its own tokens (every step's logits
      within 0.5 of a bf16 prefill).
-The kernel phase also holds B6 and B7's first design through the page
-table against their plain versions, and paged against dense bit for bit;
+The kernel phase also holds B6 and one-token B7 (decode_attention.cu's
+span kernel) through the page table against their plain versions, and
+paged against dense bit for bit; one-token B7 is held to B7_ROW_TOL and
+B7_LSE_TOL and timed as device ms per launch under torch.profiler over its
+cache's layers in turn (kernel_timing), beside the call's CUDA-event ms
+and the wrapper's host ms, at the slice's shape, with window and sinks, a
+run of 4 tokens (G = 8) and a 192-column tile (kernel_b7_shapes);
 B7's runs on decode_run (kernel_b7_runs: csrc/decode_run_sm90.cu, every
 sub-run of the JAX rule's split on it by its launch counter) over a paged
 pool at RUN_LENS: int8 runs of 256 and 64, timed, paged against dense bit
@@ -240,6 +245,19 @@ B8_KV_TILE = 128   # csrc/sage_fwd_sm90.cu BKV (B8a, B8b)
 ROW_REL_TOL = 2.0 ** -5
 # lse is fp32 from fp32 sums on both sides
 LSE_TOL = 1e-3
+# One-token B7 (decode_attention.cu) is held tighter: each output row within
+# 2^-7 of its size (one bf16 ulp of the row's largest value: both sides
+# round the same fp32 values, summed in another order, to bf16) and lse
+# within 1e-4 (fp32 sums of ~8K columns)
+B7_ROW_TOL = 2.0 ** -7
+B7_LSE_TOL = 1e-4
+# One-token B7 is timed over every layer of its cache in turn, as a decode
+# step calls it, so that no call finds its bytes in the 50 MB L2 (the
+# windowed and paged-window cases read 22-35 MB a layer), B7_ROUNDS times
+B7_ROUNDS = 4
+# ... and its paged cases over a pool of this many layers (the paged
+# window case reads ~22 MB a layer)
+B7_PAGED_LAYERS = 4
 # Teacher forcing, int8 weights and int8 cache in decode against the bf16
 # prefill of prompt + token: the JAX suite's int8-cache gate
 # (tests/test_serving.py:47).
@@ -359,9 +377,10 @@ def check(name, err, tol):
         raise AssertionError(f"{name}: max abs error {err} > {tol}")
 
 
-def check_out(name, got, want, cancel_rows=None):
-    """Hold an output (..., d) row by row against its size (ROW_REL_TOL);
-    print the case's numbers and return (max abs error, worst row).
+def check_out(name, got, want, cancel_rows=None, tol=ROW_REL_TOL):
+    """Hold an output (..., d) row by row against its size (``tol``,
+    ROW_REL_TOL by default); print the case's numbers and return (max abs
+    error, worst row).
 
     ``cancel_rows`` (an index into dim 1) names rows whose exact value is 0
     by cancellation: a query row that sees a single column has p = 1, so
@@ -380,10 +399,10 @@ def check_out(name, got, want, cancel_rows=None):
     err = max_err(got, want)
     emit({"phase": "check", "case": name, "max_abs_err": err,
           "out_mean_abs": float(want.abs().mean()), "row_rel_err": worst,
-          "row_rel_tol": ROW_REL_TOL})
-    if not worst <= ROW_REL_TOL:
+          "row_rel_tol": tol})
+    if not worst <= tol:
         raise AssertionError(f"{name}: a row differs from the plain version "
-                             f"by {worst} of its size, limit {ROW_REL_TOL}")
+                             f"by {worst} of its size, limit {tol}")
     return err, worst
 
 
@@ -1213,8 +1232,9 @@ def kernel_b6(K, decode, gen, dev):
     if not (torch.equal(kc[layer, 0, :, PROMPT], kn[0, :, 0])
             and torch.equal(vs[layer, 2, :, 0, S_MAX - 1], vsn[2, :, 0])):
         raise AssertionError("B6: a live token was not written")
-    ms = time_ms(lambda: decode.cache_append(
-        *cache[:2], kn, vn, pos, *cache[2:], ksn, vsn, layer=layer), iters=50)
+    times = kernel_timing([lambda: decode.cache_append(
+        *cache[:2], kn, vn, pos, *cache[2:], ksn, vsn, layer=layer)],
+        rounds=50)
     plain_ms = time_ms(lambda: decode.cache_append_plain(
         *ref[:2], kn, vn, pos, *ref[2:], ksn, vsn, layer=layer), iters=20)
     live = (pos >= 0) & (pos < S_MAX)
@@ -1230,14 +1250,62 @@ def kernel_b6(K, decode, gen, dev):
     lib_ms = time_ms(indexed_copy, iters=20)
     n_live = int(live.sum())
     nbytes = 2 * n_live * 2 * hk * (d + 4)  # read new + write cache, k and v
-    return row(K["cache_append"], [(0.0, 0.0)], ms,
-               plain_ms, 0, nbytes, lib_ms)
+    return b7_row_times(row(K["cache_append"], [(0.0, 0.0)], times["ms"],
+                            plain_ms, 0, nbytes, lib_ms), times)
+
+
+def kernel_timing(calls, rounds=B7_ROUNDS):
+    """Times of a decode kernel's wrapper over ``calls`` (B7: one
+    zero-argument call per layer of its cache), run in turn ``rounds``
+    times, so no B7 call finds its bytes in L2: the kernels' device ms per
+    call under torch.profiler (``ms``; B7: the span kernel and the spans'
+    merge, each launched once a call, by kernel in
+    ``device_ms_by_kernel``), the call's ms by CUDA events (``call_ms``)
+    and the wrapper's host ms per call (``host_ms``: the enqueue, no
+    synchronisation inside)."""
+    n = len(calls) * rounds
+
+    def sweep():
+        for _ in range(rounds):
+            for c in calls:
+                c()
+
+    call_ms = time_ms(sweep, iters=2, warmup=1) / n
+    _, prof = profiled(sweep)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sweep()
+    host_ms = (time.perf_counter() - t0) * 1e3 / n
+    torch.cuda.synchronize()
+    # each kernel launches once a call: its mean duration, summed over the
+    # kernels (a trace that misses some events still gives the means)
+    by_kernel = {name: t / cnt for name, cnt, t in prof["top"]}
+    return {"ms": sum(by_kernel.values()), "call_ms": call_ms,
+            "host_ms": host_ms, "device_ms_by_kernel": by_kernel,
+            "kernels_per_call": prof["kernel_launches"] / n}
+
+
+def b7_layer_calls(decode, args, layers, **kw):
+    """One decode_attention_core call per layer on the same operands."""
+    return [functools.partial(decode.decode_attention_core, *args, layer=li,
+                              **kw) for li in range(layers)]
+
+
+def b7_row_times(res, times):
+    """A B6 or one-token B7 row or case with its timing's other
+    numbers."""
+    for key in ("call_ms", "host_ms", "device_ms_by_kernel",
+                "kernels_per_call"):
+        res[key] = times[key]
+    return res
 
 
 def kernel_b7(K, decode, gen, dev):
     """decode_attention, the wrapper the decode step calls (its q
     quantization or fold included), on the card against the same call on
-    CPU copies of the layer, which runs the plain version."""
+    CPU copies of the layer, which runs the plain version; the kernel timed
+    over the cache's layers in turn (b7_timing); then window and sinks, a
+    run of 4 tokens (G = 8 query rows per kv head) and a 192-column tile."""
     L, b, hk, d = MODEL["n_layers"], BATCH, MODEL["n_kv_heads"], 128
     h = MODEL["n_heads"]
     g = h // hk
@@ -1273,9 +1341,9 @@ def kernel_b7(K, decode, gen, dev):
                                               safe_softmax=safe)
             torch.cuda.synchronize()
             checks.append(check_out(f"B7 out {cache_dtype} safe={safe}",
-                                    o.cpu(), po))
+                                    o.cpu(), po, tol=B7_ROW_TOL))
             check(f"B7 lse {cache_dtype} safe={safe}", max_err(l.cpu(), pl_),
-                  LSE_TOL)
+                  B7_LSE_TOL)
         for tag, kw in (("window sinks", win),
                         ("window sinks safe", dict(win, safe_softmax=True)),
                         ("window sinks softcap", dict(win, softcap=SOFTCAP))):
@@ -1287,20 +1355,20 @@ def kernel_b7(K, decode, gen, dev):
                                               return_lse=True, **kw)
             torch.cuda.synchronize()
             wchecks.append(check_out(f"B7 out {cache_dtype} {tag}", o.cpu(),
-                                     po))
+                                     po, tol=B7_ROW_TOL))
             check(f"B7 lse {cache_dtype} {tag}", max_err(l.cpu(), pl_),
-                  LSE_TOL)
+                  B7_LSE_TOL)
         if cache_dtype == "int8":
-            # the kernel alone, on the operands the wrapper makes
+            # the kernel alone, on the operands the wrapper makes, over
+            # every layer in turn
             q_in, q_rs, bkv = decode.decode_query_operands(
                 q, kc, True, scale=scale, block_kv=4096)
             args = (q_in, q_rs, kc, vc, ks, vs, lens)
-            kw = dict(layer=layer, block_kv=bkv, scale=scale)
-            times["ms"] = time_ms(lambda: decode.decode_attention_core(
-                *args, **kw), iters=20)
+            kw = dict(block_kv=bkv, scale=scale)
+            times = kernel_timing(b7_layer_calls(decode, args, L, **kw))
             times["plain_ms"] = time_ms(
-                lambda: decode.decode_attention_core_plain(*args, **kw),
-                iters=3, warmup=1)
+                lambda: decode.decode_attention_core_plain(
+                    *args, layer=layer, **kw), iters=3, warmup=1)
             n = int(lens.max())
             kd = (kc[layer, :, :, :n].float() * ks[layer, :, :, 0, :n, None]
                   ).bfloat16().repeat_interleave(g, 1)
@@ -1317,20 +1385,24 @@ def kernel_b7(K, decode, gen, dev):
             del kd, vd
             int8_case = (q, kc, vc, ks, vs)
     windowed = kernel_b7_windowed(decode, *int8_case, lens, layer, wchecks)
+    shapes = kernel_b7_shapes(decode, *int8_case[1:], lens, gen)
     # int8 ops: q.k and p.v, 2 each per (head, column, feature)
     res = row(K["decode_attention"], checks,
               times["ms"], times["plain_ms"], 4 * h * int(lens.sum()) * d,
               nbytes_int8, times["lib"], PEAK_INT8_OPS)
+    res = b7_row_times(res, times)
     res["windowed"] = windowed
+    res["shape_cases"] = shapes
     return res
 
 
 def kernel_b7_windowed(decode, q, kc, vc, ks, vs, lens, layer, checks):
     """B7 with the window and sinks over the int8 cache: the band check
     (each row's kv tiles outside its sink tile and window band get NaN
-    scales) and the times, with the bound of the sink and band tokens."""
+    scales) and the times over the layers in turn, with the bound of the
+    sink and band tokens."""
     b, h, d = q.shape
-    hk, s_max = kc.shape[2], kc.shape[3]
+    L, hk, s_max = kc.shape[0], kc.shape[2], kc.shape[3]
     scale = d ** -0.5
     win = dict(window_size=(WINDOW, -1), sink_tokens=SINKS)
     q_in, q_rs, bkv = decode.decode_query_operands(q, kc, True, scale=scale,
@@ -1353,11 +1425,11 @@ def kernel_b7_windowed(decode, q, kc, vc, ks, vs, lens, layer, checks):
     del ksp, vsp
 
     args = (q_in, q_rs, kc, vc, ks, vs, lens)
-    kw = dict(layer=layer, block_kv=bkv, scale=scale, window_left=WINDOW,
+    kw = dict(block_kv=bkv, scale=scale, window_left=WINDOW,
               sink_tokens=SINKS)
-    ms = time_ms(lambda: decode.decode_attention_core(*args, **kw), iters=20)
+    times = kernel_timing(b7_layer_calls(decode, args, L, **kw))
     plain_ms = time_ms(lambda: decode.decode_attention_core_plain(
-        *args, **kw), iters=3, warmup=1)
+        *args, layer=layer, **kw), iters=3, warmup=1)
     n = int(lens.max())
     cols = torch.arange(n, device=q.device)[None, :]
     last = lens.long()[:, None] - 1
@@ -1370,10 +1442,79 @@ def kernel_b7_windowed(decode, q, kc, vc, ks, vs, lens, layer, checks):
         iters=20)
     seen = int(vis.sum())  # sink and band tokens over the rows
     nbytes = 2 * hk * seen * d + 8 * hk * seen + b * h * d * 2 * 2
-    res = case_row(checks, ms, plain_ms, 4 * h * seen * d, nbytes, lib_ms,
-                   PEAK_INT8_OPS)
-    return {"case": f"int8 cache, lengths {lens.tolist()}, window {WINDOW}, "
-                    f"{SINKS} sinks", **res}
+    res = case_row(checks, times["ms"], plain_ms, 4 * h * seen * d, nbytes,
+                   lib_ms, PEAK_INT8_OPS)
+    return b7_row_times({"case": f"int8 cache, lengths {lens.tolist()}, "
+                                 f"window {WINDOW}, {SINKS} sinks", **res},
+                        times)
+
+
+def sdpa_b7_ms(qr, kd, vd, lens, win=-1, sinks=0, iters=10):
+    """SDPA's time over a dequantized cache (b, h_kv, n, d) bf16 for runs
+    qr (b, n_tok, h, d), each query row masked to its causal columns (and
+    window and sinks), as B7's library yardstick."""
+    n_tok, n = qr.shape[1], kd.shape[2]
+    qpos = (lens.long()[:, None] - n_tok
+            + torch.arange(n_tok, device=qr.device)[None])[:, :, None]
+    cols = torch.arange(n, device=qr.device)[None, None]
+    vis = cols <= qpos
+    if win >= 0:
+        vis &= (cols >= qpos - win) | (cols < sinks)
+    qh = qr.transpose(1, 2)
+    return time_ms(lambda: F.scaled_dot_product_attention(
+        qh, kd, vd, attn_mask=vis[:, None], enable_gqa=True), iters=iters)
+
+
+def kernel_b7_shapes(decode, kc, vc, ks, vs, lens, gen):
+    """One-token B7's kernel at two other shapes over the int8 cache: a run
+    of 4 tokens per row (G = g * 4 = 8 query rows per kv head, one group)
+    and a 192-column tile (no 128-multiple: a cluster of one span), each
+    on decode_attention by its counter, against the plain version and
+    timed over the layers in turn."""
+    L, b, hk, _, d = kc.shape
+    h = MODEL["n_heads"]
+    layer, scale = L // 3, d ** -0.5
+    cpu = [t[layer:layer + 1].cpu() for t in (kc, vc, ks, vs)]
+    cases = []
+    for tag, n_tok, block_kv in (("int8 run of 4 (G=8)", 4, 4096),
+                                 ("int8 tile 192", 1, 192)):
+        qr = torch.randn((b, n_tok, h, d), generator=gen,
+                         device=kc.device).bfloat16()
+        q = qr if n_tok > 1 else qr[:, 0]
+        decode._build.reset_launch_counts()
+        o, l = decode.decode_attention(q, kc, vc, lens, ks, vs, layer=layer,
+                                       block_kv=block_kv, return_lse=True)
+        torch.cuda.synchronize()
+        got = decode._build.launch_counts()
+        if got["decode_attention"] != 1 or got["decode_run"] != 0:
+            raise AssertionError(f"B7 {tag}: launched {got}")
+        po, pl_ = decode.decode_attention(q.cpu(), cpu[0], cpu[1], lens.cpu(),
+                                          cpu[2], cpu[3], layer=0,
+                                          block_kv=block_kv, return_lse=True)
+        checks = [check_out(f"B7 out {tag}", o.cpu(), po, tol=B7_ROW_TOL)]
+        check(f"B7 lse {tag}", max_err(l.cpu(), pl_), B7_LSE_TOL)
+        q_in, q_rs, bkv = decode.decode_query_operands(
+            qr, kc, True, scale=scale, block_kv=block_kv)
+        args = (q_in, q_rs, kc, vc, ks, vs, lens)
+        kw = dict(block_kv=bkv, scale=scale, n_tok=n_tok)
+        times = kernel_timing(b7_layer_calls(decode, args, L, **kw))
+        plain_ms = time_ms(lambda: decode.decode_attention_core_plain(
+            *args, layer=layer, **kw), iters=2, warmup=1)
+        n = int(lens.max())
+        kd, vd = ((t[layer, :, :, :n].float() * sc[layer, :, :, 0, :n, None])
+                  .bfloat16() for t, sc in ((kc, ks), (vc, vs)))
+        lib_ms = sdpa_b7_ms(qr, kd, vd, lens)
+        del kd, vd
+        nbytes, ops = b7_bound(lens.tolist(), n_tok, h, hk, d, 1)
+        launch = decode.decode_launch("decode_attention", b, hk,
+                                      q_in.shape[2], kc.shape[3], bkv, n_tok,
+                                      row_bytes=d)
+        cases.append(b7_row_times(
+            {"case": f"{tag}, lengths {lens.tolist()}, tile {bkv}, "
+                     f"cluster {launch.cluster} x span {launch.span}",
+             **case_row(checks, times["ms"], plain_ms, ops, nbytes, lib_ms,
+                        PEAK_INT8_OPS)}, times))
+    return cases
 
 
 # ---------------------------------------------------------------------------
@@ -1492,9 +1633,9 @@ def kernel_b6_paged(decode, gen, dev):
                     raise AssertionError("B6 paged: a skipped row wrote")
         emit({"phase": "check", "case": f"B6 paged n={n}", "bit_equal": True,
               "dense_after_gather_equal": True})
-        ms = time_ms(lambda: decode.cache_append(
+        times = kernel_timing([lambda: decode.cache_append(
             *cache[:2], kn, vn, pos_t, *cache[2:], ksn, vsn, layer=layer,
-            page_table=ptn), iters=50)
+            page_table=ptn)], rounds=50)
         plain_ms = time_ms(lambda: decode.cache_append_plain(
             *ref[:2], kn, vn, pos_t, *ref[2:], ksn, vsn, layer=layer,
             page_table=ptn), iters=10)
@@ -1513,9 +1654,10 @@ def kernel_b6_paged(decode, gen, dev):
         lib_ms = time_ms(indexed_copy, iters=10)
         n_live = int(bi.numel())
         nbytes = 2 * n_live * 2 * hk * (d + 4)
-        cases.append({"case": f"paged, run of {n}, rows at {pos}",
-                      **case_row([(0.0, 0.0)], ms, plain_ms, 0, nbytes,
-                                 lib_ms)})
+        cases.append(b7_row_times(
+            {"case": f"paged, run of {n}, rows at {pos}",
+             **case_row([(0.0, 0.0)], times["ms"], plain_ms, 0, nbytes,
+                        lib_ms)}, times))
         del cache, ref, dense
     return cases
 
@@ -1558,8 +1700,8 @@ def b7_case(decode, tag, q, kc, vc, ks, vs, lens, pt, layer, **kw):
                                       page_table=pt.cpu(), return_lse=True,
                                       **kw)
     torch.cuda.synchronize()
-    checks = [check_out(f"B7 paged out {tag}", o.cpu(), po)]
-    check(f"B7 paged lse {tag}", max_err(l.cpu(), pl_), LSE_TOL)
+    checks = [check_out(f"B7 paged out {tag}", o.cpu(), po, tol=B7_ROW_TOL)]
+    check(f"B7 paged lse {tag}", max_err(l.cpu(), pl_), B7_LSE_TOL)
     multi = q.dim() == 4
     qr = q if multi else q[:, None]
     b, n_tok, h, d = qr.shape
@@ -1574,13 +1716,14 @@ def b7_case(decode, tag, q, kc, vc, ks, vs, lens, pt, layer, **kw):
         q_in, q_rs, _ = decode.decode_query_operands(
             qr[:, i:e], kc, s8, scale=scale, block_kv=4096, paged=True)
         subs.append(((q_in, q_rs, kc, vc, ks, vs, lens - (n_tok - e)),
-                     dict(layer=layer, block_kv=bkv, scale=scale,
-                          window_left=win, sink_tokens=sinks, n_tok=e - i,
-                          page_table=pt)))
-    ms = time_ms(lambda: [decode.decode_attention_core(*a, **k)
-                          for a, k in subs], iters=20)
-    plain_ms = time_ms(lambda: [decode.decode_attention_core_plain(*a, **k)
-                                for a, k in subs], iters=2, warmup=1)
+                     dict(block_kv=bkv, scale=scale, window_left=win,
+                          sink_tokens=sinks, n_tok=e - i, page_table=pt)))
+    # the pool's layers in turn
+    times = kernel_timing([functools.partial(
+        lambda li: [decode.decode_attention_core(*a, layer=li, **k)
+                    for a, k in subs], li) for li in range(kc.shape[0])])
+    plain_ms = time_ms(lambda: [decode.decode_attention_core_plain(
+        *a, layer=layer, **k) for a, k in subs], iters=2, warmup=1)
     # the library's attention over the gathered, dequantized rows (the
     # stored values widened first: bf16 holds them exactly)
     from long_context_attention_tpu_torch.ops.kv_cache import _widen
@@ -1593,26 +1736,19 @@ def b7_case(decode, tag, q, kc, vc, ks, vs, lens, pt, layer, **kw):
         vd = vd.float() * gather_dense(vs[layer:layer + 1], pt, True)[0][
             :, :, 0, :, None]
     n = int(lens.max())
-    kd, vd = kd[:, :, :n].bfloat16(), vd[:, :, :n].bfloat16()
-    qpos = (lens.long()[:, None] - n_tok
-            + torch.arange(n_tok, device=q.device)[None])[:, :, None]
-    cols = torch.arange(n, device=q.device)[None, None]
-    vis = cols <= qpos
-    if win >= 0:
-        vis &= (cols >= qpos - win) | (cols < sinks)
-    qh = qr.transpose(1, 2)
-    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
-        qh, kd, vd, attn_mask=vis[:, None], enable_gqa=True), iters=10)
+    lib_ms = sdpa_b7_ms(qr, kd[:, :, :n].bfloat16(), vd[:, :, :n].bfloat16(),
+                        lens, win, sinks)
     nbytes, ops = b7_bound(lens.tolist(), n_tok, h, hk, d,
                             kc.element_size(), win, sinks)
-    return {"case": f"paged {tag}, lengths {lens.tolist()}, sub-runs "
-                    f"{[(e - i, bkv) for i, e, bkv in plan]}",
-            **case_row(checks, ms, plain_ms, ops, nbytes, lib_ms,
-                       PEAK_INT8_OPS if s8 else PEAK_BF16_FLOPS)}
+    return b7_row_times(
+        {"case": f"paged {tag}, lengths {lens.tolist()}, sub-runs "
+                 f"{[(e - i, bkv) for i, e, bkv in plan]}",
+         **case_row(checks, times["ms"], plain_ms, ops, nbytes, lib_ms,
+                    PEAK_INT8_OPS if s8 else PEAK_BF16_FLOPS)}, times)
 
 
 def kernel_b7_paged(decode, gen, dev):
-    """B7's first design (decode_attention.cu) through the page table: one
+    """One-token B7 (decode_attention.cu) through the page table: one
     token per row, int8 and bf16, and window 4096 with 4 sinks over pages.
     Paging is only indexing: over the same logical cache at the same tile,
     the paged kernel equals the dense kernel bit for bit. (The runs are
@@ -1622,7 +1758,7 @@ def kernel_b7_paged(decode, gen, dev):
     win = dict(window_size=(WINDOW, -1), sink_tokens=SINKS)
     cases = []
     for dtype in ("int8", "bfloat16"):
-        kc, vc, ks, vs, pt = paged_pool(gen, dev, dtype)
+        kc, vc, ks, vs, pt = paged_pool(gen, dev, dtype, L=B7_PAGED_LAYERS)
         q = torch.randn((len(PAGED_LENS), h, d), generator=gen,
                         device=dev).bfloat16()
         cases.append(b7_case(decode, f"{dtype} n=1", q, kc, vc, ks, vs,
@@ -2016,8 +2152,8 @@ def b7_dense_case(decode, kv_cache, tag, q, kc, vc, ks, vs, lens, layer,
                                       cpu[2], cpu[3], layer=0,
                                       return_lse=True, **kw)
     torch.cuda.synchronize()
-    checks = [check_out(f"B7 out {tag}", o.cpu(), po)]
-    check(f"B7 lse {tag}", max_err(l.cpu(), pl_), LSE_TOL)
+    checks = [check_out(f"B7 out {tag}", o.cpu(), po, tol=B7_ROW_TOL)]
+    check(f"B7 lse {tag}", max_err(l.cpu(), pl_), B7_LSE_TOL)
     b, h, d = q.shape
     hk = kc.shape[2]
     g = h // hk
@@ -2030,13 +2166,12 @@ def b7_dense_case(decode, kv_cache, tag, q, kc, vc, ks, vs, lens, layer,
     # fast form)
     rows = (None if slopes is None else
             (slopes * math.log2(math.e)).reshape(hk, g))
-    ckw = dict(layer=layer, block_kv=bkv, scale=scale, alibi=rows,
+    ckw = dict(block_kv=bkv, scale=scale, alibi=rows,
                kv_splits=kw.get("kv_splits"))
     args = (q_in, q_rs, kc, vc, ks, vs, lens)
-    ms = time_ms(lambda: decode.decode_attention_core(*args, **ckw),
-                 iters=20)
+    times = kernel_timing(b7_layer_calls(decode, args, kc.shape[0], **ckw))
     plain_ms = time_ms(lambda: decode.decode_attention_core_plain(
-        *args, **ckw), iters=3, warmup=1)
+        *args, layer=layer, **ckw), iters=3, warmup=1)
     n = int(lens.max())
     kd, vd = (kv_cache.dequantize_kv(t[layer, :, :, :n], sc[layer, :, :, 0,
                                                             :n])
@@ -2055,9 +2190,11 @@ def b7_dense_case(decode, kv_cache, tag, q, kc, vc, ks, vs, lens, layer,
     elt = 0.5 if kc.dtype == torch.uint8 else kc.element_size()
     nbytes = int(2 * hk * live * d * elt + 8 * hk * live + b * h * d * 2 * 2)
     del kd, vd, mask
-    return {"case": f"{tag}, lengths {lens.tolist()}",
-            **case_row(checks, ms, plain_ms, 4 * h * live * d, nbytes,
-                       lib_ms, PEAK_INT8_OPS if s8 else PEAK_BF16_FLOPS)}
+    return b7_row_times(
+        {"case": f"{tag}, lengths {lens.tolist()}",
+         **case_row(checks, times["ms"], plain_ms, 4 * h * live * d, nbytes,
+                    lib_ms, PEAK_INT8_OPS if s8 else PEAK_BF16_FLOPS)},
+        times)
 
 
 
@@ -2095,7 +2232,7 @@ def kernel_b7_quant(decode, kv_cache, gen, dev):
         torch.cuda.empty_cache()
     # paged fp8, one token per row over PAGED_LENS (its runs are
     # kernel_b7_runs')
-    kc, vc, ks, vs, pt = paged_pool(gen, dev, "bfloat16")
+    kc, vc, ks, vs, pt = paged_pool(gen, dev, "bfloat16", L=B7_PAGED_LAYERS)
     (kc, ks), (vc, vs) = (kv_cache.quantize_kv(t, "float8_e4m3fn")
                           for t in (kc, vc))
     ks, vs = ks[..., None, :], vs[..., None, :]
@@ -5292,6 +5429,12 @@ def main():
                     "s8": decode.decode_run_smem(True)}:
         raise AssertionError(f"decode_run's shared memory {run_smem} is not "
                              f"the wrapper's (ops/decode.py decode_run_smem)")
+    # one-token B7's block at the serving spans (int8 and fp8 256 columns,
+    # bf16 128, int4 512), one token (G = 2) and a run of 4 (G = 8)
+    tok_lib = build.library("decode_attention.cu")
+    tok_smem = {f"G={g} span={sp} s8={s8}":
+                tok_lib.lca_decode_attention_smem(g, sp, s8)
+                for g in (2, 8) for sp, s8 in ((256, 1), (128, 0), (512, 1))}
     # the backward kernels' instantiations (B5, B2b and B9c: FUSED, SPARSE,
     # MASK, MULTI, FEAT; B2a and B9b: the dq kernel's walk) and B9a's of
     # the forward; and, apart, the featured instantiations of B3
@@ -5309,7 +5452,7 @@ def main():
     feat_entries = {n: e for n, e in entries.items() if featured.search(n)}
     # the fp8 and int4 K/V instantiations of B3 (KV = 2, 3) and B7's kinds
     quant_kernels = re.compile(r"flash_fwd_sm90_kernelILb0ELi\dELi[23]E|"
-                               r"decode_kernelILi\dELb[01]E")
+                               r"decode_span_kernelILi\dELb[01]E")
     quant_entries = {n: e for src in ("flash_fwd_sm90.cu",
                                       "decode_attention.cu")
                      for n, e in ptxas_entries(logs.get(src, "")).items()
@@ -5324,6 +5467,9 @@ def main():
           "decode_run_dynamic_smem_bytes": run_smem,
           "ptxas_decode_run": ptxas_entries(logs.get("decode_run_sm90.cu",
                                                      "")),
+          "decode_attention_dynamic_smem_bytes": tok_smem,
+          "ptxas_decode_attention": ptxas_entries(
+              logs.get("decode_attention.cu", "")),
           "source_seconds": build.build_seconds(),
           "ptxas_bwd_dq_b9a": new, "ptxas_features": feat_entries,
           "ptxas_quant_cache": quant_entries})

@@ -37,9 +37,9 @@
 // What bounds it on an H100: the operations, 2 * d per (query row, visible
 // column) for q.k and for p.v (int8 on the s8 path at 1979 TOP/s, bf16
 // otherwise at 989 TFLOP/s); the cache bytes of a kv head are read once per
-// block of 128 rows, which at the serving shapes is far below that. The
-// first design (decode_attention.cu) read the cache once per 8 rows and
-// multiplied on the CUDA cores. In practice the score arithmetic on the
+// block of 128 rows, which at the serving shapes is far below that
+// (decode_attention.cu reads it once per 8 rows and multiplies on the CUDA
+// cores, which suits one token). In practice the score arithmetic on the
 // accumulator (a dozen to twenty instructions a score and sweep, the
 // consumers' issue slots) and the producer's per-chunk handshakes bound it
 // (PERF.md).

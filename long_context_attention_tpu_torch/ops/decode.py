@@ -14,9 +14,10 @@ dtypes (bf16, int8, fp8 e4m3 and int4 packed two per byte along d):
   teacher-forced run), each at its own position. B7 has two kernels,
   chosen by shape (:func:`decode_route`): ``csrc/decode_attention.cu``
   (one token, short runs and odd tiles: groups of 8 query rows on the
-  CUDA cores) and ``csrc/decode_run_sm90.cu`` (the runs whose G = g * n
-  rows per kv head exceed 8: 64-row wgmma blocks over one pass of the
-  cache).
+  CUDA cores, each JAX kv tile cut into spans of one block each, a thread
+  block cluster per tile, K and V by bulk async copies) and
+  ``csrc/decode_run_sm90.cu`` (the runs whose G = g * n rows per kv head
+  exceed 8: 64-row wgmma blocks over one pass of the cache).
 
 B7 has the JAX kernel's three paths: bf16 (a bf16 cache); the s8 path
 (``mxu_int8``, an int8 or int4 cache: s8 x s8 products, q row-quantized,
@@ -41,7 +42,7 @@ a row's sink tiles and window band only. Not ported yet, and raising
 from __future__ import annotations
 
 import math
-from typing import List, Tuple
+from typing import List, NamedTuple, Tuple
 
 import torch
 
@@ -54,16 +55,21 @@ from long_context_attention_tpu_torch.utils.config import NEG_INF, not_ported
 __all__ = ["cache_append", "cache_append_plain", "decode_attention",
            "decode_attention_core", "decode_attention_core_plain",
            "decode_launch", "decode_query_operands", "decode_route",
-           "decode_run_plan", "decode_run_smem", "reference_block_kv"]
+           "decode_run_plan", "decode_run_smem", "decode_token_reads",
+           "decode_token_span", "reference_block_kv", "DecodeLaunch"]
 
 _HEAD_DIM = 128
 _GROUP_ROWS = 8        # query rows per block of decode_attention.cu (MAXG)
 _RUN_ROWS = 128        # query rows per block of decode_run_sm90.cu (BR)
 _RUN_CHUNK = 128       # kv columns per chunk of decode_run_sm90.cu (CH)
-_TARGET_BLOCKS = 264   # blocks a B7 launch aims at: two per H100 SM
-# ... decode_run's: one block fills an SM, and several short waves let the
-# block scheduler even out rows of other lengths
+# decode_run's blocks a launch aims at: one block fills an SM, and several
+# short waves let the block scheduler even out rows of other lengths
 _RUN_TARGET_BLOCKS = 528
+# decode_attention.cu: K bytes a span aims at (its ring's RING chunk slots
+# of CHB bytes: the whole K span in flight at once) and the most spans a
+# tile's cluster takes (the portable cluster size)
+_SPAN_BYTES = 32768
+_MAX_CLUSTER = 8
 
 
 # ---------------------------------------------------------------------------
@@ -302,7 +308,8 @@ def decode_attention_core_plain(q_in, q_rs, k_cache, v_cache, k_scale,
                                 safe_softmax: bool = False,
                                 window_left: int = -1, sink_tokens: int = 0,
                                 softcap: float = 0.0, n_tok: int = 1,
-                                page_table=None, alibi=None, kv_splits=None):
+                                page_table=None, alibi=None, kv_splits=None,
+                                p8_log=None):
     """Plain version of kernel B7, tile by tile on the kernel's tile grid.
 
     q_in (b, h_kv, G, d): G = g * n_tok query rows per kv head, ordered
@@ -328,8 +335,9 @@ def decode_attention_core_plain(q_in, q_rs, k_cache, v_cache, k_scale,
     (out, lse) merged by :func:`merge_partials`. Every tile is visited
     here; the kernel skips those with no visible column, which add nothing
     (columns at or past a row's length are zeroed before use, so a page
-    past the live prefix is never used). Returns fp32 out (b, h_kv, G, d)
-    and lse (b, h_kv, G)."""
+    past the live prefix is never used). ``p8_log``: a list to which the s8
+    path appends each tile's (first column, requantized P) for tests.
+    Returns fp32 out (b, h_kv, G, d) and lse (b, h_kv, G)."""
     slot_dim = k_cache.shape[3]
     cap = (page_table.shape[1] * slot_dim if page_table is not None
            else slot_dim)
@@ -340,7 +348,8 @@ def decode_attention_core_plain(q_in, q_rs, k_cache, v_cache, k_scale,
                           window_left, sink_tokens, softcap, n_tok,
                           page_table, alibi, range(t0 * block_kv,
                                                    min(t0 + per, nk)
-                                                   * block_kv, block_kv))
+                                                   * block_kv, block_kv),
+                          p8_log)
              for t0 in range(0, nk, per)]
     if len(parts) == 1:
         return parts[0]
@@ -350,7 +359,8 @@ def decode_attention_core_plain(q_in, q_rs, k_cache, v_cache, k_scale,
 
 def _plain_tiles(q_in, q_rs, k_cache, v_cache, k_scale, v_scale, lengths,
                  layer, block_kv, scale, safe_softmax, window_left,
-                 sink_tokens, softcap, n_tok, page_table, alibi, tiles):
+                 sink_tokens, softcap, n_tok, page_table, alibi, tiles,
+                 p8_log=None):
     """(out, lse) of :func:`decode_attention_core_plain` over the tiles
     starting at the columns ``tiles``."""
     b, h_kv, G, d = q_in.shape
@@ -414,6 +424,8 @@ def _plain_tiles(q_in, q_rs, k_cache, v_cache, k_scale, v_scale, lengths,
             ps = torch.clamp(p.amax(dim=-1, keepdim=True), min=1e-20) * (
                 1.0 / 127.0)
             p8 = torch.round(p / ps)
+            if p8_log is not None:
+                p8_log.append((c0, p8))
             # int8 x int8 sums are exact in float64, as in the int32 kernel
             pv = torch.einsum("bhgn,bhnd->bhgd", p8.double(),
                               vt.double()).float() * ps
@@ -458,12 +470,12 @@ def _kv_kind(q_in, q_rs, k_cache, k_scale) -> int:
 def decode_route(rows: int, block_kv: int, slot_dim: int) -> str:
     """The B7 kernel a CUDA call of :func:`decode_attention_core` launches,
     by shape alone: ``"decode_run"`` (``csrc/decode_run_sm90.cu``) when the
-    call's ``rows`` = g * n_tok query rows per kv head exceed the first
-    design's group of 8 and its kv tile is a multiple of that kernel's
-    128-column chunk and divides the cache's slot axis (s_max, or the page);
-    else ``"decode_attention"`` (``csrc/decode_attention.cu``: one token,
-    short runs and odd tiles). The tile rule's tiles divide the slot axis,
-    so every sub-run of a long run takes the first at the serving shapes."""
+    call's ``rows`` = g * n_tok query rows per kv head exceed one group of
+    8 and its kv tile is a multiple of that kernel's 128-column chunk and
+    divides the cache's slot axis (s_max, or the page); else
+    ``"decode_attention"`` (``csrc/decode_attention.cu``: one token, short
+    runs and odd tiles). The tile rule's tiles divide the slot axis, so
+    every sub-run of a long run takes the first at the serving shapes."""
     if (rows > _GROUP_ROWS and block_kv % _RUN_CHUNK == 0
             and slot_dim % block_kv == 0):
         return "decode_run"
@@ -482,39 +494,124 @@ def decode_run_smem(s8: bool) -> int:
             + (2 * 64 * _RUN_CHUNK if s8 else 0) + 256 + 1024)
 
 
+def decode_token_span(block_kv: int, row_bytes: int) -> Tuple[int, int]:
+    """How ``decode_attention.cu`` cuts a JAX kv tile: (cluster, span), the
+    tile's ``cluster`` spans of ``span`` columns, one block each, the
+    cluster's blocks exchanging the tile's statistics. A span aims at
+    ``_SPAN_BYTES`` of K (every byte of it in flight at once: 256 columns of
+    an int8 or fp8 cache, 128 of bf16, 512 of packed int4); the cluster is
+    at most 8 and divides the tile (a tile that does not divide into
+    spans, such as 192 columns of int8, is a cluster of one)."""
+    target = max(1, _SPAN_BYTES // row_bytes)
+    cluster = min(_MAX_CLUSTER, max(1, block_kv // target))
+    while block_kv % cluster:
+        cluster -= 1
+    return cluster, block_kv // cluster
+
+
+class DecodeLaunch(NamedTuple):
+    """The host side of a B7 launch (:func:`decode_launch`). ``splits``:
+    the partials per query row, which a second kernel merges
+    (``decode_run``: runs of ``per_split`` live tiles; ``decode_attention``:
+    one per span block, ``cluster`` of them a tile slot, ``per_split`` 1);
+    ``grid``; ``cluster`` and ``span`` (``decode_attention``: the blocks of
+    a tile and their columns; ``decode_run``: 1 and the tile)."""
+    splits: int
+    per_split: int
+    grid: Tuple[int, int, int]
+    cluster: int
+    span: int
+
+
 def decode_launch(kernel: str, b: int, h_kv: int, rows: int, cap: int,
                   block_kv: int, n_tok: int = 1, window_left: int = -1,
-                  sink_tokens: int = 0, kv_splits=None):
-    """The host side of a B7 launch: (splits, tiles per split, grid). A
-    row's live tiles (its sink tiles, then its window band, or all up to
-    its length) split into runs of ``tiles per split``, each run one block
-    per (row block, kv head, batch row): row blocks of 8 query rows
-    (``decode_attention``, grid (splits, h_kv * groups, b)) or of 128
-    (``decode_run``, grid (row blocks * splits, h_kv, b)). Without
-    ``kv_splits`` the split count fills the card (``_TARGET_BLOCKS``, or
-    ``_RUN_TARGET_BLOCKS``: decode_run's block fills an SM) and is bounded
-    by the most live tiles a row can have; ``kv_splits`` (dense
-    caches) fixes it as JAX's: max(1, min(kv_splits, tiles)) runs of
+                  sink_tokens: int = 0, kv_splits=None,
+                  row_bytes: int = _HEAD_DIM) -> DecodeLaunch:
+    """The host side of a B7 launch. A row's live tiles are its sink
+    tiles, then its window band, or all up to its length; at most
+    ``nk`` = ceil(cap / block_kv) of them, or with a window the most its
+    band and sinks can hold.
+
+    ``decode_attention``: every tile slot (the i-th live tile of a row) is
+    cut into :func:`decode_token_span`'s spans (``row_bytes``: a cache
+    row's bytes), one block each over each group of 8 query rows (on the
+    s8 path a thread block cluster, whose spans exchange the tile's
+    statistics): grid (nk * cluster, h_kv * groups, b), one partial per
+    span; ``kv_splits`` does not shape it (JAX's splits merge the same
+    per-tile values in another fp32 order).
+
+    ``decode_run``: row blocks of 128 rows, grid (row blocks * splits, h_kv,
+    b), each block a run of ``per_split`` live tiles. Without ``kv_splits``
+    the split count fills the card (``_RUN_TARGET_BLOCKS``: decode_run's
+    block fills an SM) and is bounded by nk; ``kv_splits`` (dense caches)
+    fixes it as JAX's: max(1, min(kv_splits, tiles)) runs of
     ceil(tiles / splits) tiles."""
     per_block = _RUN_ROWS if kernel == "decode_run" else _GROUP_ROWS
     groups = -(-rows // per_block)
     nk = -(-cap // block_kv)
+    live = nk
+    if window_left >= 0:  # the most live tiles a row can have
+        # decode_attention's tile slots take the exact bound, a band of
+        # w = window_left + n_tok columns touching at most (w - 2) // bkv
+        # + 2 tiles; decode_run's split rule keeps the one its splits
+        # were made with, one more where w - 1 fills whole tiles
+        band = ((window_left + n_tok - 2) // block_kv + 2
+                if kernel == "decode_attention"
+                else (window_left + n_tok - 1 + block_kv) // block_kv + 1)
+        live = min(nk, -(-sink_tokens // block_kv) + band)
+    if kernel == "decode_attention":
+        cluster, span = decode_token_span(block_kv, row_bytes)
+        return DecodeLaunch(live * cluster, 1,
+                            (live * cluster, h_kv * groups, b), cluster, span)
     if kv_splits is not None:  # JAX's splits of the whole tile range
         splits = max(1, min(int(kv_splits), nk))
         per_split = -(-nk // splits)
     else:
-        if window_left >= 0:  # the most live tiles a row can have
-            nk = min(nk, -(-sink_tokens // block_kv)
-                     + (window_left + n_tok - 1 + block_kv) // block_kv + 1)
-        cells = b * h_kv * groups
-        target = (_RUN_TARGET_BLOCKS if kernel == "decode_run"
-                  else _TARGET_BLOCKS)
-        splits = max(1, min(nk, -(-target // cells)))
-        per_split = -(-nk // splits)
-        splits = -(-nk // per_split)
-    grid = ((groups * splits, h_kv, b) if kernel == "decode_run"
-            else (splits, h_kv * groups, b))
-    return splits, per_split, grid
+        splits = max(1, min(live, -(-_RUN_TARGET_BLOCKS
+                                    // (b * h_kv * groups))))
+        per_split = -(-live // splits)
+        splits = -(-live // per_split)
+    return DecodeLaunch(splits, per_split, (groups * splits, h_kv, b), 1,
+                        block_kv)
+
+
+def decode_token_reads(launch: DecodeLaunch, length: int, n_tok: int,
+                       cap: int, block_kv: int, window_left: int = -1,
+                       sink_tokens: int = 0) -> List[Tuple[int, int, int, int]]:
+    """The cache columns each block of a ``decode_attention`` launch reads
+    for one row of ``length``, as ``csrc/decode_attention.cu`` computes
+    them: (tile slot, rank in the cluster, first column, end column) of
+    every block with a non-empty span. A tile slot past the row's live
+    tiles reads nothing; a live tile's columns [c0 + lo, c0 + hi) go to
+    rank 0 when they fit one span, else evenly to the cluster's blocks
+    (ceil((hi - lo) / cluster) each, the last ones fewer)."""
+    sink = sink_tokens if window_left >= 0 else 0
+    nk = -(-cap // block_kv)
+    last_t = min((length - 1) // block_kv, nk - 1) if length > 0 else -1
+    first_col = (max(length - n_tok - window_left, 0) if window_left >= 0
+                 else 0)
+    start_t = first_col // block_kv
+    n_sink = (min(-(-sink // block_kv), start_t, last_t + 1)
+              if window_left >= 0 else 0)
+    n_live = n_sink + max(last_t - start_t + 1, 0)
+    reads = []
+    for slot in range(min(n_live, launch.splits // launch.cluster)):
+        sink_tile = slot < n_sink
+        c0 = (slot if sink_tile else start_t + slot - n_sink) * block_kv
+        hi = min(block_kv, (min(sink, length) if sink_tile else length) - c0)
+        lo = 0 if c0 < sink else max(first_col - c0, 0)
+        n_vis = max(hi - lo, 0)
+        if n_vis <= launch.span:
+            if n_vis:
+                reads.append((slot, 0, c0 + lo, c0 + hi))
+            continue
+        per = -(-n_vis // launch.cluster)
+        for rank in range(launch.cluster):
+            n = min(per, n_vis - rank * per)
+            if n > 0:
+                s0 = c0 + lo + rank * per
+                reads.append((slot, rank, s0, s0 + n))
+    return reads
 
 
 def decode_attention_core(q_in, q_rs, k_cache, v_cache, k_scale, v_scale,
@@ -524,7 +621,7 @@ def decode_attention_core(q_in, q_rs, k_cache, v_cache, k_scale, v_scale,
                           n_tok: int = 1, page_table=None, alibi=None,
                           kv_splits=None):
     """Kernel B7 wrapper (arguments as :func:`decode_attention_core_plain`,
-    but ``kv_splits`` None lets the wrapper choose the kernel's split).
+    but ``kv_splits`` None lets the wrapper choose the split of a run).
 
     A CUDA call launches one of B7's two kernels by shape
     (:func:`decode_route`): ``decode_run`` (``csrc/decode_run_sm90.cu``)
@@ -532,12 +629,14 @@ def decode_attention_core(q_in, q_rs, k_cache, v_cache, k_scale, v_scale,
     that divides the slot axis, else ``decode_attention``
     (``csrc/decode_attention.cu``). Both walk a row's live ``block_kv``
     tiles (its sink tiles, then its window band, or all up to its length)
-    in runs (:func:`decode_launch`), one block per (run, kv head and row
-    block, row), so small batches still fill the card; a second kernel in
-    the same entry point merges the runs' partials with the arithmetic of
-    :func:`merge_partials`. ``kv_splits`` (dense caches) fixes the runs as
-    JAX's splits: max(1, min(kv_splits, tiles)) of ceil(tiles / splits)
-    tiles each. CPU tensors take the plain version."""
+    (:func:`decode_launch`): ``decode_attention`` one cluster of span
+    blocks per tile, ``decode_run`` one block per run of tiles, so small
+    batches still fill the card; a second kernel in the same entry point
+    merges the partials with the arithmetic of :func:`merge_partials`.
+    ``kv_splits`` (dense caches) fixes ``decode_run``'s runs as JAX's
+    splits: max(1, min(kv_splits, tiles)) of ceil(tiles / splits) tiles
+    each; ``decode_attention``'s per-tile partials are the same values
+    merged in another fp32 order. CPU tensors take the plain version."""
     if softcap and not safe_softmax:
         raise ValueError("softcap needs the online form (safe_softmax)")
     if kv_splits is not None and kv_splits > 1 and page_table is not None:
@@ -602,9 +701,10 @@ def decode_attention_core(q_in, q_rs, k_cache, v_cache, k_scale, v_scale,
     # point returns cudaErrorInvalidValue) and raises there
     lens = lengths.to(device=dev, dtype=torch.int32).contiguous()
     kernel = decode_route(G, block_kv, slot_dim)
-    splits, per_split, _ = decode_launch(
-        kernel, b, h_kv, G, cap, block_kv, n_tok, window_left, sink_tokens,
-        kv_splits)
+    launch = decode_launch(kernel, b, h_kv, G, cap, block_kv, n_tok,
+                           window_left, sink_tokens, kv_splits,
+                           row_bytes=dv * k_cache.element_size())
+    splits = launch.splits
     out = torch.empty((b, h_kv, G, d), dtype=torch.float32, device=dev)
     lse = torch.empty((b, h_kv, G), dtype=torch.float32, device=dev)
     part_out = part_lse = None
@@ -613,8 +713,13 @@ def decode_attention_core(q_in, q_rs, k_cache, v_cache, k_scale, v_scale,
                                device=dev)
         part_lse = torch.empty((b, splits, h_kv, G), dtype=torch.float32,
                                device=dev)
-    dims = _build.dims_array([b, h_kv, G, cap, layer, block_kv, splits,
-                              per_split, window_left,
+    # decode_attention.cu reads (tile slots, span) where decode_run reads
+    # (splits, tiles per split)
+    run = kernel == "decode_run"
+    dims = _build.dims_array([b, h_kv, G, cap, layer, block_kv,
+                              splits if run else splits // launch.cluster,
+                              launch.per_split if run else launch.span,
+                              window_left,
                               sink_tokens if window_left >= 0 else 0,
                               n_tok, pool, slot_dim, n_pages, kind])
     p = _build.ptr

@@ -20,18 +20,21 @@ heads, head_dim 128, bf16):
   s=8192, causal (B5's dq is added by TMA reduce-adds in an order that
   changes from run to run, so it is held to ROW_REL_TOL of each row); the
   sage kernels B8a and B8b on the int8 operands of a 4 x 8192 prefill
-  (B8b with window 4096 and 4 sinks); B6 and B7 over int8 and bf16
-  caches, dense (the slice's b=4 cache of 12288 slots, ~8.2K live) and
-  paged (pages of 2048 from a pool of 65), one token per row (B7's first
-  design, decode_attention.cu) and, for B6, a run of 256 (B6: the cache
-  after the append; B7: out and lse through decode_attention). A tree
-  whose B7 entry takes no ALiBi slopes is called without them, and one
-  whose sage entries take no pv_int8 table without it;
-* B7 over a run of 256 (the same caches; two sub-runs, on ``decode_run``,
+  (B8b with window 4096 and 4 sinks); B6 over int8 and bf16 caches,
+  dense (the slice's b=4 cache of 12288 slots, ~8.2K live) and paged
+  (pages of 2048 from a pool of 65), one token per row and a run of 256
+  (the cache after the append). A tree whose B7 entry takes no ALiBi
+  slopes is called without them, and one whose sage entries take no
+  pv_int8 table without it;
+* B7 over the same caches, one token per row (``decode_attention``,
+  decode_attention.cu) and a run of 256 (two sub-runs, on ``decode_run``,
   decode_run_sm90.cu, in a tree that has it): each tree's out and lse row
   by row against the plain version (ROW_REL_TOL), timed in turns. A tree
-  without ``decode_run`` runs its runs through its ``decode_attention``
-  entry (the same C signature) at its own split rule (8 rows a block);
+  whose one-token kernel is the first design (no cluster launch) is called
+  with that design's dims (splits and tiles per split by its rule) and
+  partial buffers; a tree without ``decode_run`` runs its runs through its
+  ``decode_attention`` entry (the same C signature) at its own split rule
+  (8 rows a block);
 * B2a at b=1, s=8192, causal, B4 at b=4, s=2048 and s=8192 with window
   4096 and 4 sinks, and B9a, B9b and B9c at b=1, s=32768 in tiles of 512
   on the StreamingLLM mask, where a tree may have another kernel: each
@@ -118,20 +121,31 @@ def kernel_sources(root: Path):
     return found
 
 
-def runs_on_first_design(fn):
-    """B7's runs in a tree with no decode_run: its decode_attention entry
-    (the same C signature), with the splits (and their partial buffers)
-    of that tree's rule, 8 query rows a block (the cases pass no
-    kv_splits)."""
-    from long_context_attention_tpu_torch.ops import decode
+def first_design_splits(b, h_kv, G, cap, bkv, n_tok, left, sink):
+    """The first design's split of a row's live tiles (decode_attention.cu
+    before the span kernel): (splits, tiles per split), 264 blocks of 8
+    query rows aimed at, bounded by the most live tiles a row can have
+    (the cases pass no kv_splits)."""
+    nk = -(-cap // bkv)
+    if left >= 0:
+        nk = min(nk, -(-sink // bkv) + (left + n_tok - 1 + bkv) // bkv + 1)
+    splits = max(1, min(nk, -(-264 // (b * h_kv * -(-G // 8)))))
+    per = -(-nk // splits)
+    return -(-nk // per), per
 
+
+def runs_on_first_design(fn):
+    """B7 on the first design's decode_attention entry (the same C
+    signature): a tree's one-token kernel, or its runs in a tree with no
+    decode_run, with the splits (and their partial buffers) of that
+    design's rule, 8 query rows a block."""
     keep = {}
 
     def call(*a):
         dims = [int(x) for x in a[12]]
         b, h_kv, G, cap, _, bkv, _, _, left, sink, n_tok = dims[:11]
-        splits, per, _ = decode.decode_launch(
-            "decode_attention", b, h_kv, G, cap, bkv, n_tok, left, sink)
+        splits, per = first_design_splits(b, h_kv, G, cap, bkv, n_tok, left,
+                                          sink)
         dims[6], dims[7] = splits, per
         args = list(a)
         if splits > 1:
@@ -160,9 +174,11 @@ class Tree:
         self.masked_bwd = "float softcap" in "".join(
             (self.csrc / f).read_text() for f in ("sm90.cuh",
                                                   "flash_bwd_sm90.cu"))
-        # whether B7's entry point takes the ALiBi slopes (its last argument)
-        self.b7_slopes = "const float* slopes)" in (
-            self.csrc / "decode_attention.cu").read_text()
+        # whether B7's entry point takes the ALiBi slopes (its last
+        # argument), and whether its one-token kernel is the span kernel
+        b7 = (self.csrc / "decode_attention.cu").read_text()
+        self.b7_slopes = "const float* slopes)" in b7
+        self.b7_spans = "cudaLaunchKernelEx" in b7
         # whether the sage entries take pv_int8's table (after lse)
         self.sage_table = "float *tbl" in (
             self.csrc / "sage_fwd_sm90.cu").read_text()
@@ -212,9 +228,11 @@ class Tree:
                 self.fns[name].argtypes = self.fns[name].argtypes[:-1]
                 self.fns[name] = (lambda fn: lambda *a: fn(*a[:-1]))(
                     self.fns[name])
+        first = self.fns["decode_attention"]
+        if not self.b7_spans:  # the first design's dims and partials
+            self.fns["decode_attention"] = runs_on_first_design(first)
         if "decode_run" not in self.sources:
-            self.fns["decode_run"] = runs_on_first_design(
-                self.fns["decode_attention"])
+            self.fns["decode_run"] = runs_on_first_design(first)
 
     def old(self, name):
         return self.sources[name] == "sparse.cu"
@@ -316,8 +334,8 @@ DENSE_LENS, PAGED_LENS = (8193, 8150, 8224, 7999), (16384, 9000, 2049, 1)
 
 def decode_cases(compare, gen, dev):
     """B6 and B7 over int8 and bf16 caches, dense and paged, one token per
-    row and a run of 256: B6 and one-token B7 bit for bit between the
-    trees, B7's run each tree against the plain version."""
+    row and a run of 256: B6 bit for bit between the trees, B7 each tree
+    against the plain version."""
     from long_context_attention_tpu_torch.ops import decode
 
     L = 2
@@ -388,12 +406,12 @@ def decode_cases(compare, gen, dev):
                         layer=0, page_table=None if pt is None else pt.cpu(),
                         return_lse=True)
 
-                # one token: the first design in both trees, bit for bit;
-                # a run: decode_run here, against the plain version
+                # one token on decode_attention, a run on decode_run: each
+                # tree against the plain version
                 compare(f"B7 {dtype} {where} n={n}",
                         lambda q=q: decode.decode_attention(
                             q, kc, vc, lt, ks, vs, layer=1, page_table=pt,
-                            return_lse=True), same=n == 1,
+                            return_lse=True), same=False,
                         plain=lambda q=q: [t.to(dev) for t in plain(q)])
             del kc, vc, ks, vs, cache, saved
             torch.cuda.empty_cache()

@@ -105,8 +105,9 @@ def test_launch_splits_cover_each_live_tile_once(kernel):
     tiles [sp * per, (sp + 1) * per), so the splits cover every live tile
     of every length once; the walk's tiles are exactly those holding a
     visible column. decode_run: row blocks of 128 rows, (row blocks x
-    splits, h_kv, b); decode_attention: groups of 8, (splits, h_kv x
-    groups, b)."""
+    splits, h_kv, b); decode_attention: groups of 8, one partial per tile
+    slot and span (per = 1: the cluster's spans of a tile slot take the
+    same live tile), (splits, h_kv x groups, b)."""
     b = 2
     for rows, n_tok, bkv, cap, left, sink, kv_splits in (
             (352, 176, 256, 20480, -1, 0, None),
@@ -116,12 +117,19 @@ def test_launch_splits_cover_each_live_tile_once(kernel):
             (66, 33, 256, 2048, 300, 4, None),
             (10, 5, 2048, 16384, -1, 0, 4),
             (2, 1, 2048, 12288, -1, 0, None)):
-        splits, per, grid = tdec.decode_launch(
-            kernel, b, H_KV, rows, cap, bkv, n_tok, left, sink, kv_splits)
+        launch = tdec.decode_launch(kernel, b, H_KV, rows, cap, bkv, n_tok,
+                                    left, sink, kv_splits)
+        splits, per, grid = launch.splits, launch.per_split, launch.grid
         per_block = 128 if kernel == "decode_run" else 8
         groups = -(-rows // per_block)
-        assert grid == ((groups * splits, H_KV, b) if kernel == "decode_run"
-                        else (splits, H_KV * groups, b))
+        if kernel == "decode_run":
+            assert grid == (groups * splits, H_KV, b)
+            assert (launch.cluster, launch.span) == (1, bkv)
+        else:
+            assert per == 1
+            assert grid == (splits, H_KV * groups, b)
+            assert launch.cluster * launch.span == bkv
+            splits //= launch.cluster  # tile slots
         lengths = sorted({n_tok, n_tok + 1, cap // 3, cap - 1, cap}
                          | set(range(n_tok, cap + 1, max(cap // 7, 1))))
         for length in lengths:
@@ -134,9 +142,11 @@ def test_launch_splits_cover_each_live_tile_once(kernel):
 
 
 def test_one_token_splits_are_the_first_designs():
-    """decode_attention's split rule is PR 16's at the serving shapes (the
-    one-token bits stay): groups of 8 rows, _TARGET_BLOCKS blocks, the
-    window's bound on a row's live tiles."""
+    """decode_attention's partials cover the live tiles the first design's
+    split rule bounded, one partial per span of a tile slot now, whatever
+    the card or kv_splits: a tile slot for each of the most live tiles a
+    row can have (with a window, the band's exact bound, one fewer than
+    the first design's where the band's columns fill whole tiles)."""
     def old(b, G, cap, bkv, n_tok, left, sink):
         nk = -(-cap // bkv)
         if left >= 0:
@@ -145,14 +155,21 @@ def test_one_token_splits_are_the_first_designs():
         cells = b * H_KV * -(-G // 8)
         splits = max(1, min(nk, -(-264 // cells)))
         per = -(-nk // splits)
-        return -(-nk // per), per
+        return -(-nk // per), per, nk
 
     for args in ((4, 2, 12288, 2048, 1, -1, 0), (4, 2, 12288, 2048, 1, 4096,
                                                   4),
                  (32, 2, 16384, 1024, 1, -1, 0), (1, 8, 2048, 128, 4, -1, 0)):
-        splits, per, _ = tdec.decode_launch("decode_attention", args[0], H_KV,
-                                            *args[1:])
-        assert (splits, per) == old(*args)
+        splits, per, nk = old(*args)
+        b, G, cap, bkv, n_tok, left, sink = args
+        want = nk if left < 0 else min(
+            nk, -(-sink // bkv) + (left + n_tok - 2) // bkv + 2)
+        for kv_splits in (None, 4):
+            launch = tdec.decode_launch("decode_attention", args[0], H_KV,
+                                        *args[1:], kv_splits=kv_splits)
+            assert (launch.splits // launch.cluster,
+                    launch.per_split) == (want, 1)
+            assert want <= nk <= splits * per
 
 
 def test_decode_run_shared_memory_fits_every_tile():

@@ -179,6 +179,19 @@ def test_sm90_sources_build_for_sm90a():
     b7 = (_build.CSRC / "decode_attention.cu").read_text()
     for kind in ("kBF16", "kS8I8", "kS8I4", "kCastI8", "kCastF8", "kCastI4"):
         assert f"LCA_KIND({kind})" in b7
+    # one-token B7: a thread block cluster of span blocks per JAX tile, K/V
+    # by 1-D bulk async copies on mbarriers, the tile's statistics pushed
+    # over distributed shared memory; the span kernel and the spans' merge
+    for needle in ("cudaLaunchKernelEx", "cudaLaunchAttributeClusterDimension",
+                   "cp.async.bulk.shared::cluster.global.mbarrier::"
+                   "complete_tx::bytes", "mbar_wait(", "mbar_expect_tx(",
+                   "barrier.cluster.arrive.release", "mapa.shared::cluster",
+                   "st.shared::cluster", '#include "sm90.cuh"', "__dp4a("):
+        assert needle in b7, needle
+    assert b7.count("__global__") == 2
+    for gp in (2, 4, 8):
+        assert f"launch<KIND, true, {gp}>(p, st)" in b7
+        assert f"launch<KIND, false, {gp}>(p, st)" in b7
     dq = (_build.CSRC / "flash_dq_sm90.cu").read_text()
     for needle in ("wgmma.mma_async", "wgmma_rs", "tma_load_4d",
                    "setmaxnreg_inc", "setmaxnreg_dec", '#include "sm90.cuh"'):
