@@ -133,7 +133,8 @@ Phases, one JSON line each; any failure exits non-zero:
      ContinuousEngine at 8 rows and PagedContinuousEngine at 32 rows over
      a pool of 65 pages of 2048, int8 cache and weights, step_block 8,
      host_overlap: exact launch counts (16 B6 and 16 B7 per decode step,
-     over the page table on the paged engine; 16 B1 per admission), tok/s
+     over the page table on the paged engine; 16 B1 and one B6, the
+     row's insert of every layer, per admission), tok/s
      of an unprofiled run, and one decode block each profiled in an
      untimed warm-up with every row busy; the paged engine at 8 rows on the
      first 16 requests gives the dense engine's tokens, and its logprobs
@@ -154,41 +155,50 @@ Phases, one JSON line each; any failure exits non-zero:
      exact launch counts (the interleaved chunks' sub-runs on decode_run),
      and each run teacher-forced on its own tokens (every step's logits
      within 0.5 of a bf16 prefill).
-The kernel phase also holds B6 and one-token B7 (decode_attention.cu's
-span kernel) through the page table against their plain versions, and
-paged against dense bit for bit; one-token B7 is held to B7_ROW_TOL and
-B7_LSE_TOL and timed as device ms per launch under torch.profiler over its
-cache's layers in turn (kernel_timing), beside the call's CUDA-event ms
-and the wrapper's host ms, at the slice's shape, with window and sinks, a
-run of 4 tokens (G = 8) and a 192-column tile (kernel_b7_shapes);
-B7's runs on decode_run (kernel_b7_runs: csrc/decode_run_sm90.cu, every
-sub-run of the JAX rule's split on it by its launch counter) over a paged
-pool at RUN_LENS: int8 runs of 256 and 64, timed, paged against dense bit
-for bit and a poison check (the pages no table names and the columns past
-each row's length set to 127 with NaN scales leave the bits unchanged);
-the run of 256 in the online form, with window 4096 and 4 sinks, with
-softcap 50, with ALiBi and on the cast path; the route's edges (G = 10,
-64, 66, 130 rows per kv head); a row whose length is its run; kv_splits=4
-on the dense cache; runs of 256 over bf16, fp8, int4 (s8 and cast) pools,
-timed, bf16 and fp8 poison-checked; and B3, B2a
-and B2b with packed segments, ALiBi, dropout 0.1 and all three at the
-trainer's per-layer shape, at one chunk and at the ring's zigzag and
-stripe steps (LSE_FLOOR says which rows a per-step check holds), B3 over
-int8 K/V with segments and dropout and with kv_lengths on the
-chunked-prefill cache call, each timed with its bound and SDPA's
-yardstick, and exact probes of the dropout keep mask in all three; and the
-fp8 and int4 caches (kernel_quant_cache): B6 appending fp8 and packed
-int4 rows, dense and paged, bit for bit; B7 at the slice's decode shape on
-fp8's cast path, int8's and int4's cast path (mxu_int8=False), int4's s8
-path, int8 with ALiBi and with kv_splits=4, and paged fp8 over one token;
-B3 over fp8 and int4 K/V at the chunk shape, dense
-and with window 4096 and 4 sinks (with its band check), and in the
-online and softcap forms; each against its plain version with its bound
-and SDPA over the dequantized cache.
+The kernel phase holds B6's quantizing entry (cache_append_rows: bf16
+rows quantized and written in one launch, b6_rows_case) for every cache
+kind, dense and paged, at runs of 1, 256 and 2048 tokens, bit for bit
+against its plain version on CPU copies, with the card-side torch
+quantizer's misses (a Python divisor's against quantize_kv's, which must
+be 0), device ms under torch.profiler, the call's and the wrapper's host
+ms, and an empty kernel's device ms as the launch floor; the public
+cache_append's byte-copy kind as before. It also holds B6's byte copy
+and one-token B7 (decode_attention.cu's span kernel) through the page
+table against their plain versions, and paged against dense bit for bit;
+one-token B7 is held to B7_ROW_TOL and B7_LSE_TOL and timed as device ms
+per launch under torch.profiler over its cache's layers in turn
+(kernel_timing), beside the call's CUDA-event ms and the wrapper's host
+ms, at the slice's shape, with window and sinks, a run of 4 tokens (G =
+8) and a 192-column tile (kernel_b7_shapes); B7's runs on decode_run
+(kernel_b7_runs: csrc/decode_run_sm90.cu, every sub-run of the JAX
+rule's split on it by its launch counter) over a paged pool at RUN_LENS:
+int8 runs of 256 and 64, timed, paged against dense bit for bit and a
+poison check (the pages no table names and the columns past each row's
+length set to 127 with NaN scales leave the bits unchanged); the run of
+256 in the online form, with window 4096 and 4 sinks, with softcap 50,
+with ALiBi and on the cast path; the route's edges (G = 10, 64, 66, 130
+rows per kv head); a row whose length is its run; kv_splits=4 on the
+dense cache; runs of 256 over bf16, fp8, int4 (s8 and cast) pools,
+timed, bf16 and fp8 poison-checked; and B3, B2a and B2b with packed
+segments, ALiBi, dropout 0.1 and all three at the trainer's per-layer
+shape, at one chunk and at the ring's zigzag and stripe steps (LSE_FLOOR
+says which rows a per-step check holds), B3 over int8 K/V with segments
+and dropout and with kv_lengths on the chunked-prefill cache call, each
+timed with its bound and SDPA's yardstick, and exact probes of the
+dropout keep mask in all three; and the fp8 and int4 caches
+(kernel_quant_cache): B6's byte copy appending fp8 and packed int4 rows,
+dense and paged, bit for bit; B7 at the slice's decode shape on fp8's
+cast path, int8's and int4's cast path (mxu_int8=False), int4's s8 path,
+int8 with ALiBi and with kv_splits=4, and paged fp8 over one token; B3
+over fp8 and int4 K/V at the chunk shape, dense and with window 4096 and
+4 sinks (with its band check), and in the online and softcap forms; each
+against its plain version with its bound and SDPA over the dequantized
+cache.
 Then the kernel table, the card's name and power limit, and as the last line
 {"ok": true, "device": {...}}.
 """
 
+import ctypes
 import dataclasses
 import functools
 import json
@@ -1199,7 +1209,202 @@ def kernel_b8_pv8(K, sage, gen, dev):
             for n in ("B8a", "B8b", "B8c")]
 
 
+# B6's quantizing entry (cache_append_rows) at the decode step's one token,
+# an interleaved admission's chunk of 256 and a prefill chunk of 2048, for
+# every cache kind, dense and paged, with the phase whose counters give
+# each case its launches (None: no phase of the run takes that form)
+B6_RUNS = (1, 256, 2048)
+B6_PATHS = {("int8", False, 1): "slice", ("int8", False, 2048): "slice",
+            ("int8", True, 1): "serve_paged",
+            ("int8", True, 256): "serve_stall interleaved",
+            ("float8_e4m3fn", False, 1): "slice_fp8",
+            ("float8_e4m3fn", False, 2048): "slice_fp8",
+            ("int4", False, 1): "slice_int4",
+            ("int4", False, 2048): "slice_int4",
+            ("float8_e4m3fn", True, 1): "serve_paged_fp8",
+            ("float8_e4m3fn", True, 256): "serve_paged_fp8 interleaved"}
+# bytes a stored row of head_dim 128 takes, by cache dtype
+B6_ROW_BYTES = {"bfloat16": 256, "int8": 128, "float8_e4m3fn": 128,
+                "int4": 64}
+
+
+def scalar_divisor_quantize(kv_cache, x, dtype):
+    """quantize_kv's arithmetic with qmax as a Python divisor, which CUDA
+    turns into a multiply by its reciprocal: the torch chain that wrote the
+    cache on the card before B6 quantized (kept here to count what it gets
+    wrong against the IEEE quotients)."""
+    qmax = kv_cache._QMAX[dtype]
+    xf = x.float()
+    scale = torch.clamp(xf.abs().amax(dim=-1), min=1e-6) / qmax
+    q = xf / scale[..., None]
+    if dtype != "float8_e4m3fn":
+        q = torch.round(q)
+    q = torch.clamp(q, -qmax, qmax)
+    if dtype == "int4":
+        return kv_cache.pack_int4(q), scale
+    return q.to(kv_cache._STORAGE[dtype]), scale
+
+
+def as_bytes(t):
+    """A stored tensor as comparable integers (bf16 and fp8 by their
+    bytes)."""
+    if t.dtype in (torch.bfloat16, torch.float8_e4m3fn):
+        return t.view(torch.uint8)
+    return t
+
+
+def quantize_mismatch(kv_cache, x, dtype, quantizer):
+    """Scales and stored values of ``quantizer`` run on the card that differ
+    from quantize_kv on CPU copies of the same rows (the plain version's
+    quotients)."""
+    qc, sc = quantizer(x, dtype)
+    qr, sr = kv_cache.quantize_kv(x.cpu(), dtype)
+    return {"scales": int((sc.cpu() != sr).sum()),
+            "values": int((as_bytes(qc.cpu()) != as_bytes(qr)).sum()),
+            "of": [sr.numel(), qr.numel()]}
+
+
+def b6_cache(kv_cache, dtype, paged, gen, dev):
+    """A two-layer cache of ``dtype`` on the card with random contents:
+    dense (BATCH rows of S_MAX) or the paged engine's pool (POOL pages of
+    PAGE, rows of PAGED_S_MAX on distinct random pages)."""
+    hk, d = MODEL["n_kv_heads"], 128
+    if paged:
+        c = kv_cache.PagedKVCache.init(2, BATCH, POOL, PAGE,
+                                       PAGED_S_MAX // PAGE, hk, d, dtype,
+                                       device=dev)
+        pages = torch.randperm(POOL - 1, generator=torch.Generator()
+                               .manual_seed(SEED)) + 1
+        c.page_table.copy_(pages[:c.page_table.numel()].view(
+            c.page_table.shape))
+    else:
+        c = kv_cache.KVCache.init(2, BATCH, S_MAX, hk, d, dtype, device=dev)
+    for t in (c.k, c.v):
+        t.view(torch.uint8).copy_(torch.randint(
+            0, 256, t.view(torch.uint8).shape, generator=gen, device=dev,
+            dtype=torch.uint8))
+    for t in (c.k_scale, c.v_scale):
+        if t is not None:
+            t.copy_(torch.rand(t.shape, generator=gen, device=dev))
+    return c
+
+
+def cpu_cache(c):
+    """The same cache object with CPU copies of its tensors."""
+    return dataclasses.replace(c, **{
+        f.name: getattr(c, f.name).cpu() for f in dataclasses.fields(c)
+        if f.init and getattr(c, f.name) is not None})
+
+
+def b6_rows_case(decode, kv_cache, dtype, paged, n, gen, dev):
+    """B6's quantizing entry at one kind, layout and run: bf16 rows (b, n,
+    h_kv, d) of the projection's layout written into layer 1 at slots that
+    skip a row (append_pos = -n), run past the capacity and straddle a
+    page; the whole cache bit for bit against cache_append_rows_plain on CPU
+    copies; the card-side torch chains' scales and values that differ from
+    the CPU's quotients (quantize_kv must match: 0); device ms per launch
+    under torch.profiler, the call's ms and the wrapper's host ms; the plain
+    version on the card; the chain it replaces (quantize_kv of K and V on
+    the card, then the byte-copy append) as its library time."""
+    hk, d = MODEL["n_kv_heads"], 128
+    c = b6_cache(kv_cache, dtype, paged, gen, dev)
+    cap = PAGED_S_MAX if paged else S_MAX
+    pos = torch.tensor([{1: PROMPT, 256: 3 * PAGE - 100,
+                         2048: PAGE - 1000}[n], -n, cap - (n + 1) // 2, 0],
+                       dtype=torch.int32)
+    k = (torch.randn((BATCH, n, hk, d), generator=gen, device=dev)
+         * 2).bfloat16()
+    v = torch.randn((BATCH, n, hk, d), generator=gen, device=dev).bfloat16()
+    ref = cpu_cache(c)
+    pos_d = pos.to(dev)
+    decode.cache_append_rows(c, 1, k, v, pos_d)
+    decode.cache_append_rows_plain(ref, 1, k.cpu(), v.cpu(), pos)
+    torch.cuda.synchronize()
+    tag = f"{dtype} {'paged' if paged else 'dense'} n={n}"
+    for f in ("k", "v", "k_scale", "v_scale"):
+        if getattr(c, f) is not None and not torch.equal(
+                as_bytes(getattr(c, f).cpu()), as_bytes(getattr(ref, f))):
+            raise AssertionError(f"B6 {tag}: the kernel's cache.{f} differs "
+                                 f"from the plain version's")
+    mismatch = None
+    if dtype != "bfloat16":
+        kt = k.transpose(1, 2)
+        mismatch = {
+            "scalar_divisor_chain": quantize_mismatch(
+                kv_cache, kt, dtype,
+                functools.partial(scalar_divisor_quantize, kv_cache)),
+            "quantize_kv": quantize_mismatch(kv_cache, kt, dtype,
+                                             kv_cache.quantize_kv)}
+        if mismatch["quantize_kv"]["scales"] or \
+                mismatch["quantize_kv"]["values"]:
+            raise AssertionError(f"B6 {tag}: quantize_kv on the card "
+                                 f"misses the CPU's quotients: {mismatch}")
+    emit({"phase": "check", "case": f"B6 {tag}", "bit_equal": True,
+          "torch_chain_mismatch": mismatch})
+    times = kernel_timing([lambda: decode.cache_append_rows(c, 1, k, v,
+                                                            pos_d)],
+                          rounds=50 if n < 2048 else 20)
+    plain_ms = time_ms(lambda: decode.cache_append_rows_plain(
+        c, 1, k, v, pos_d), iters=5)
+
+    def replaced_chain():
+        kq, ks = kv_cache.quantize_kv(k.transpose(1, 2), dtype)
+        vq, vs = kv_cache.quantize_kv(v.transpose(1, 2), dtype)
+        decode.cache_append(c.k, c.v, kq, vq, pos_d, c.k_scale, c.v_scale,
+                            ks, vs, layer=1,
+                            page_table=getattr(c, "page_table", None))
+
+    lib_ms = time_ms(replaced_chain, iters=10)
+    slots = pos[:, None] + torch.arange(n)[None]
+    live = int(((slots >= 0) & (slots < cap)).sum())
+    # each live token: K and V rows read in bf16, written quantized with
+    # their fp32 scales
+    nbytes = 2 * live * hk * (2 * d + B6_ROW_BYTES[dtype]
+                              + 4 * (dtype != "bfloat16"))
+    res = b7_row_times({"case": tag, "dtype": dtype, "paged": paged, "n": n,
+                        "rows_at": pos.tolist(),
+                        "path": B6_PATHS.get((dtype, paged, n)),
+                        "torch_chain_mismatch": mismatch,
+                        **case_row([(0.0, 0.0)], times["ms"], plain_ms, 0,
+                                   nbytes, lib_ms),
+                        "library": "quantize_kv of K and V on the card, "
+                                   "then cache_append's byte copy (the "
+                                   "chain B6's quantizing kinds replace)"},
+                       times)
+    del c, ref, k, v
+    torch.cuda.empty_cache()
+    return res
+
+
+def b6_launch_floor(build, blocks):
+    """Device ms of an empty kernel of ``blocks`` blocks of 256 threads
+    (cache_append.cu's lca_empty_launch), the launch floor a B6 launch is
+    held against, under torch.profiler as kernel_timing times B6."""
+    lib = build.library("cache_append.cu")
+    fn = lib.lca_empty_launch
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def launch():
+        if fn(blocks, build.stream_ptr(torch.device("cuda"))) != 0:
+            raise AssertionError("the empty launch failed")
+
+    return {"blocks": blocks, **kernel_timing([launch], rounds=50)}
+
+
 def kernel_b6(K, decode, gen, dev):
+    """B6: the quantizing entry at the slice's shapes, dense int8 and bf16
+    (b6_rows_case, the decode step's int8 token the row's main case), the
+    launch floor beside it, then the public cache_append's byte-copy kind
+    against cache_append_plain."""
+    from long_context_attention_tpu_torch.ops import _build as build
+    from long_context_attention_tpu_torch.ops import kv_cache
+
+    cases = [b6_rows_case(decode, kv_cache, dt, False, n, gen, dev)
+             for dt in ("int8", "bfloat16") for n in B6_RUNS]
+    main = cases[0]
+    floor = b6_launch_floor(build, -(-2 * BATCH * MODEL["n_kv_heads"]
+                                     // 8))
     L, b, hk, d = MODEL["n_layers"], BATCH, MODEL["n_kv_heads"], 128
     kc = torch.randint(-127, 128, (L, b, hk, S_MAX, d), generator=gen,
                        device=dev, dtype=torch.int8)
@@ -1250,8 +1455,19 @@ def kernel_b6(K, decode, gen, dev):
     lib_ms = time_ms(indexed_copy, iters=20)
     n_live = int(live.sum())
     nbytes = 2 * n_live * 2 * hk * (d + 4)  # read new + write cache, k and v
-    return b7_row_times(row(K["cache_append"], [(0.0, 0.0)], times["ms"],
-                            plain_ms, 0, nbytes, lib_ms), times)
+    copy = b7_row_times({"case": "byte copy (cache_append), int8 dense n=1",
+                         **case_row([(0.0, 0.0)], times["ms"], plain_ms, 0,
+                                    nbytes, lib_ms)}, times)
+    res = {**row(K["cache_append"], [(0.0, 0.0)], main["ms"],
+                 main["plain_ms"], 0, 0, main["library_ms"]),
+           **{k: main[k] for k in ("bound_ms", "bound_by", "call_ms",
+                                   "host_ms", "device_ms_by_kernel",
+                                   "kernels_per_call")},
+           "case": main["case"], "library": main["library"],
+           "launch_floor": floor, "rows_cases": cases, "copy_case": copy}
+    return res
+
+
 
 
 def kernel_timing(calls, rounds=B7_ROUNDS):
@@ -1578,11 +1794,18 @@ def gather_dense(pool, pt, scales=False):
 
 
 def kernel_b6_paged(decode, gen, dev):
-    """B6 through the page table: a one-token run per row (the decode step)
+    """B6 through the page table: the quantizing entry over the paged
+    engine's pool, int8 and bf16 (b6_rows_case); then the public
+    cache_append's byte-copy kind: a one-token run per row (the decode step)
     and a 256-token run (an interleaved-admission chunk) that straddles a
     page, against the plain version; a skipped row; and paging as pure
     indexing: the pool after the paged append, gathered through the table,
-    equals a dense cache of the same content after the dense append."""
+    equals a dense cache of the same content after the dense append.
+    Returns (the byte-copy cases, the quantizing cases)."""
+    from long_context_attention_tpu_torch.ops import kv_cache
+
+    rows = [b6_rows_case(decode, kv_cache, dt, True, n, gen, dev)
+            for dt in ("int8", "bfloat16") for n in B6_RUNS]
     hk, d, layer = MODEL["n_kv_heads"], 128, 1
     kc, vc, ks, vs, pt = paged_pool(gen, dev, "int8")
     cases = []
@@ -1659,7 +1882,7 @@ def kernel_b6_paged(decode, gen, dev):
              **case_row([(0.0, 0.0)], times["ms"], plain_ms, 0, nbytes,
                         lib_ms)}, times))
         del cache, ref, dense
-    return cases
+    return cases, rows
 
 
 def b7_bound(lens, n_tok, h, hk, d, elt, window=-1, sinks=0, scales=None):
@@ -2333,21 +2556,25 @@ def kernel_b3_quant(flash, kv_cache, gen, dev):
 
 
 def kernel_quant_cache(K, flash, decode, kv_cache, gen, dev):
-    """The kernel cases of the fp8 and int4 caches: B6 (dense one token,
-    paged run of 256), B7 (kernel_b7_quant) and B3 (kernel_b3_quant), by
-    kernel name."""
+    """The kernel cases of the fp8 and int4 caches: B6's byte copy (dense
+    one token, paged run of 256), B7 (kernel_b7_quant) and B3
+    (kernel_b3_quant), by kernel name; and B6's quantizing entry over fp8
+    and int4 caches, dense and paged (b6_rows_case)."""
     b6 = [b6_quant_case(decode, kv_cache, f"{dt} {'paged' if p else 'dense'}",
                         dt, gen, dev, p, path)
           for dt in QUANT_DTYPES
           for p, path in ((False, QUANT_SLICE[dt]),
                           (True, FP8_RUNS[256] if dt == "float8_e4m3fn"
                            else None))]
+    b6_rows = [b6_rows_case(decode, kv_cache, dt, p, n, gen, dev)
+               for dt in QUANT_DTYPES for p in (False, True) for n in B6_RUNS]
     torch.cuda.empty_cache()
     b7 = kernel_b7_quant(decode, kv_cache, gen, dev)
     torch.cuda.empty_cache()
     b3 = kernel_b3_quant(flash, kv_cache, gen, dev)
     torch.cuda.empty_cache()
-    return {"cache_append": b6, "decode_attention": b7, "flash_fwd_pos": b3}
+    return {"cache_append": b6, "decode_attention": b7,
+            "flash_fwd_pos": b3}, b6_rows
 
 
 def sdpa_backward_ms(q, k, v, dout):
@@ -2943,8 +3170,9 @@ def serve_phase(pkg, build, dev, card, windowed, cache_dtype="int8"):
     counts = expect_counts(build, {
         own: L * (PROMPT // CHUNK), other: 0,
         "flash_fwd_pos": L * (PROMPT // CHUNK - 1),
-        "cache_append": L * NEW, "decode_attention": L * NEW,
-        "decode_run": 0})
+        # B6: each chunk's write_prompt per layer, then each decode step's
+        "cache_append": L * (PROMPT // CHUNK) + L * NEW,
+        "decode_attention": L * NEW, "decode_run": 0})
     if not torch.isfinite(logits).all():
         raise AssertionError("prefill logits are not finite")
     if toks.shape != (BATCH, NEW) or cache.length.tolist() != [
@@ -3010,7 +3238,7 @@ def serve_phase(pkg, build, dev, card, windowed, cache_dtype="int8"):
     gen_s = time.perf_counter() - t0
     gcounts = expect_counts(build, {
         own: L, other: 0, "flash_fwd_pos": 0,
-        "cache_append": L * GEN_NEW, "decode_attention": L * GEN_NEW,
+        "cache_append": L + L * GEN_NEW, "decode_attention": L * GEN_NEW,
         "decode_run": 0})
     if not torch.isfinite(res.prefill_logits).all() or res.tokens.shape != (
             GEN_BATCH, GEN_NEW):
@@ -3125,9 +3353,10 @@ def serve_timed(build, eng, params, reqs, **kw):
 def expect_serving_counts(tag, counts, L, steps, admissions, b6_runs=0,
                           b7_runs=0):
     """Every decode step launches L B6 and L B7 (decode_attention, one
-    token), every bucket admission L B1; multi-token chunks add ``b6_runs``
-    B6 and ``b7_runs`` B7 runs (decode_run)."""
-    want = {"cache_append": L * steps + b6_runs,
+    token), every bucket admission L B1 and one B6 (the row's insert, every
+    layer at once); multi-token chunks add ``b6_runs`` B6 and ``b7_runs``
+    B7 runs (decode_run)."""
+    want = {"cache_append": L * steps + admissions + b6_runs,
             "decode_attention": L * steps, "decode_run": b7_runs,
             "flash_fwd_causal_self": L * admissions}
     for name, n in want.items():
@@ -4461,7 +4690,7 @@ def sage_serve_phase(pkg, build, dev, card):
         gen_s = time.perf_counter() - t0
         gcounts = expect_counts(build, {
             **{k: (L if k == "sage_fwd_tri" else 0) for k in PREFILL_KERNELS},
-            **quant_counts(L), "cache_append": L * GEN_NEW,
+            **quant_counts(L), "cache_append": L + L * GEN_NEW,
             "decode_attention": L * GEN_NEW, "decode_run": 0})
         if not torch.isfinite(res.prefill_logits).all() or res.tokens.shape != (
                 GEN_BATCH, GEN_NEW):
@@ -5511,8 +5740,11 @@ def main():
             rows.append(r)
     # B6 and B7 through the page table, B7 over multi-token runs
     by_name = {r["name"]: r for r in rows}
-    by_name["cache_append"]["paged_cases"] = kernel_b6_paged(decode, gen,
-                                                             dev)
+    by_name["cache_append"]["paged_cases"], paged_rows = kernel_b6_paged(
+        decode, gen, dev)
+    by_name["cache_append"]["rows_cases"] += paged_rows
+    for case in paged_rows:
+        emit({"phase": "kernel_paged", "name": "cache_append", **case})
     by_name["decode_attention"]["paged_cases"] = kernel_b7_paged(decode,
                                                                  gen, dev)
     for name in ("cache_append", "decode_attention"):
@@ -5520,11 +5752,21 @@ def main():
             emit({"phase": "kernel_paged", "name": name, **case})
     torch.cuda.empty_cache()
     # B6, B7 and B3 over the fp8 and int4 caches
-    for name, cases in kernel_quant_cache(K, flash, decode, kv_cache, gen,
-                                          dev).items():
+    quant_cases, quant_rows = kernel_quant_cache(K, flash, decode, kv_cache,
+                                                 gen, dev)
+    for name, cases in quant_cases.items():
         by_name[name]["quant_cases"] = cases
         for case in cases:
             emit({"phase": "kernel_quant_cache", "name": name, **case})
+    by_name["cache_append"]["rows_cases"] += quant_rows
+    for case in quant_rows:
+        emit({"phase": "kernel_quant_cache", "name": "cache_append", **case})
+    emit({"phase": "b6_summary", "card": smi, "cases": [
+        {k: c[k] for k in ("case", "ms", "call_ms", "host_ms", "plain_ms",
+                           "library_ms", "bound_ms", "torch_chain_mismatch",
+                           "path")}
+        for c in by_name["cache_append"]["rows_cases"]],
+        "launch_floor_ms": by_name["cache_append"]["launch_floor"]["ms"]})
     torch.cuda.empty_cache()
     # B7's runs on decode_run
     run_row = kernel_b7_runs(K, decode, kv_cache, gen, dev)
@@ -5631,6 +5873,16 @@ def main():
         **{QUANT_SLICE[dt]: qcounts[dt] for dt in QUANT_DTYPES},
         FP8_RUNS[1]: paged["serve_paged_fp8"]["launches"],
         FP8_RUNS[256]: paged["fp8_interleaved"]["multi_token_launches"]}
+    # the phases of B6's quantizing cases (B6_PATHS)
+    b6_paths = {
+        "slice": counts,
+        **{QUANT_SLICE[dt]: qcounts[dt] for dt in QUANT_DTYPES},
+        "serve_paged": paged["serve_paged"]["launches"],
+        "serve_stall interleaved": stall["interleaved"][
+            "multi_token_launches"],
+        "serve_paged_fp8": paged["serve_paged_fp8"]["launches"],
+        "serve_paged_fp8 interleaved": paged["fp8_interleaved"][
+            "multi_token_launches"]}
     # the phases of B7's runs (RUN_PATHS)
     run_paths = {
         "serve_stall interleaved": stall["interleaved"][
@@ -5685,6 +5937,11 @@ def main():
         for case in r.get("quant_cases", []):
             if case["path"] is not None:
                 case["launches"] = quant_paths[case["path"]][r["name"]]
+        # B6's quantizing cases: launches on the phase each names
+        # (B6_PATHS)
+        for case in r.get("rows_cases", []):
+            case["launches"] = (None if case["path"] is None else
+                                b6_paths[case["path"]][r["name"]])
         # B7's runs: launches on the phase each names (RUN_PATHS)
         for case in r.get("run_cases", []):
             if case["path"] is not None:

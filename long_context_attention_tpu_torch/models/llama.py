@@ -51,7 +51,7 @@ from torch.utils.checkpoint import (
 )
 
 from long_context_attention_tpu_torch.ops.decode import (
-    cache_append,
+    cache_append_rows,
     decode_attention,
 )
 from long_context_attention_tpu_torch.ops.flash import (
@@ -60,7 +60,6 @@ from long_context_attention_tpu_torch.ops.flash import (
     flash_attention_fwd,
     flash_attention_fwd_cache,
 )
-from long_context_attention_tpu_torch.ops.kv_cache import quantize_kv
 from long_context_attention_tpu_torch.ops.merge import merge_attn_blocks
 from long_context_attention_tpu_torch.ops.registry import get_attn_impl
 from long_context_attention_tpu_torch.ops.sage import SAGE_ATTENTION_OP
@@ -561,15 +560,11 @@ def decode_multi_step(params: Params, cache, tokens: torch.Tensor,
     positions = pos0[:, None] + torch.arange(n, dtype=pos0.dtype,
                                              device=pos0.device)[None]
     scale = cfg.head_dim ** -0.5
-    dt = cache.dtype
     pt = getattr(cache, "page_table", None)
     for i, lp in enumerate(layer_params(params)):
         h = rmsnorm(x, lp["attn_norm"], cfg.norm_eps)
         q, k, v = _qkv(cfg, lp, h, positions)
-        kq, ks1 = quantize_kv(k.transpose(1, 2), dt)  # (b, h_kv, n, d)
-        vq, vs1 = quantize_kv(v.transpose(1, 2), dt)
-        cache_append(cache.k, cache.v, kq, vq, append_pos, cache.k_scale,
-                     cache.v_scale, ks1, vs1, layer=i, page_table=pt)
+        cache_append_rows(cache, i, k, v, append_pos)
         attn = decode_attention(q, cache.k, cache.v, att_len,
                                 cache.k_scale, cache.v_scale,
                                 softmax_scale=scale, layer=i, page_table=pt,

@@ -2,6 +2,7 @@
 
 from long_context_attention_tpu_torch.ops.decode import (  # noqa: F401
     cache_append,
+    cache_append_rows,
     decode_attention,
 )
 from long_context_attention_tpu_torch.ops.flash import (  # noqa: F401

@@ -252,11 +252,12 @@ KERNELS: Dict[str, Kernel] = {
         "sparse_bwd_dkv", "flash_bwd_sm90.cu", "lca_sparse_bwd_dkv",
         [_VP] * 14 + [_F, _VP],
         "long_context_attention_tpu/ops/sparse.py:516"),
-    # k, v, k_new, v_new, scales (4), append_pos, page table (or null),
-    # dims, stream
+    # B6 takes one int64 argument array (csrc/cache_append.cu Arg: the
+    # kind, the cache's and the new rows' pointers, strides and shapes;
+    # ops/decode.py fills it) and the stream
     "cache_append": Kernel(
         "cache_append", "cache_append.cu", "lca_cache_append",
-        [_VP] * 12,
+        [_VP, _VP],
         "long_context_attention_tpu/ops/decode.py:40"),
     # q, q scales, k, v, scales (2), lengths, page table (or null), the
     # split partials (2), out, lse, dims, then scale, softcap, safe, stream

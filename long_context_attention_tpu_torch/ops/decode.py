@@ -4,9 +4,14 @@ Counterpart of ``long_context_attention_tpu/ops/decode.py``, for the dense
 KV cache (layer-stacked or not) and the paged pool, in the four cache
 dtypes (bf16, int8, fp8 e4m3 and int4 packed two per byte along d):
 
-* :func:`cache_append` is the wrapper of kernel B6 (``csrc/cache_append.cu``):
-  it writes one run of new tokens per row into the cache IN PLACE (rows of
-  opaque bytes: d, 2d or d / 2 of them).
+* :func:`cache_append_rows` is the wrapper of kernel B6
+  (``csrc/cache_append.cu``): it quantizes one run of new bf16 K/V rows per
+  batch row to the cache's dtype and writes them, with their scales, into
+  a :class:`KVCache` or :class:`PagedKVCache` IN PLACE, K and V (and every
+  layer, for a row's insert) in one launch; the cache's checks and the
+  kernel's constant arguments are made once per cache object.
+  :func:`cache_append` (JAX's API) writes rows already quantized, through
+  the same kernel's byte copy (rows of opaque bytes: d, 2d or d / 2).
 * :func:`decode_attention` quantizes / folds the query as the JAX wrapper
   does and calls :func:`decode_attention_core`, the wrapper of kernel B7,
   which attends the query rows of every kv head to the cache up to per-row
@@ -41,6 +46,7 @@ a row's sink tiles and window band only. Not ported yet, and raising
 
 from __future__ import annotations
 
+import ctypes
 import math
 from typing import List, NamedTuple, Tuple
 
@@ -48,11 +54,13 @@ import torch
 
 from long_context_attention_tpu_torch.ops import _build
 from long_context_attention_tpu_torch.ops.flash import _CLAMP, _LOG2E, _fold
-from long_context_attention_tpu_torch.ops.kv_cache import _STORAGE, _widen
+from long_context_attention_tpu_torch.ops.kv_cache import (
+    _STORAGE, _dtype_name, _widen, quantize_kv)
 from long_context_attention_tpu_torch.ops.merge import merge_partials
 from long_context_attention_tpu_torch.utils.config import NEG_INF, not_ported
 
-__all__ = ["cache_append", "cache_append_plain", "decode_attention",
+__all__ = ["cache_append", "cache_append_plain", "cache_append_rows",
+           "cache_append_rows_plain", "decode_attention",
            "decode_attention_core", "decode_attention_core_plain",
            "decode_launch", "decode_query_operands", "decode_route",
            "decode_run_plan", "decode_run_smem", "decode_token_reads",
@@ -155,6 +163,30 @@ def cache_append(k_cache, v_cache, k_new, v_new, append_pos,
     return k_cache, v_cache
 
 
+# B6's argument array (csrc/cache_append.cu Arg): its int64 slots
+_A_KIND, _A_DST, _A_DSC, _A_SRC, _A_SSC, _A_POS, _A_PT, _A_ST = (
+    0, 1, 3, 5, 7, 9, 10, 11)
+(_A_NL, _A_LAYER0, _A_B, _A_N, _A_HKV, _A_POS0, _A_CAP, _A_POOL, _A_PAGE,
+ _A_NPAGES, _A_ROW_BYTES, _A_COUNT) = range(19, 31)
+# B6's kinds (csrc/cache_append.cu Kind): the byte copy of stored rows, and
+# one per cache dtype from bf16 rows
+_B6_COPY = 0
+_B6_KIND = {"bfloat16": 1, "int8": 2, "float8_e4m3fn": 3, "int4": 4}
+
+
+def _b6_args(kind: int, kc, vc, ks, vs, h_kv: int, pool: int, page: int,
+             row_bytes: int):
+    """B6's argument array with the cache's slots filled."""
+    a = (ctypes.c_longlong * _A_COUNT)()
+    a[_A_KIND] = kind
+    for t, (x, s) in enumerate(((kc, ks), (vc, vs))):
+        a[_A_DST + t] = x.data_ptr()
+        a[_A_DSC + t] = 0 if s is None else s.data_ptr()
+    a[_A_HKV], a[_A_POOL], a[_A_PAGE] = h_kv, pool, page
+    a[_A_ROW_BYTES] = row_bytes
+    return a
+
+
 def _page_table_operand(page_table, b: int, dev):
     """The (b, n_pages) int32 page table as the kernels take it."""
     pt = page_table.to(device=dev, dtype=torch.int32).contiguous()
@@ -207,13 +239,197 @@ def _cache_append_cuda(kc, vc, k_new, v_new, append_pos, ks, vs, ks_new,
     pos = append_pos.to(device=dev, dtype=torch.int32).contiguous()
     if pos.shape != (b,):
         raise ValueError("append_pos must be (b,)")
-    dims = _build.dims_array([b, h_kv, n, cap, layer, row_bytes, pool,
-                              slot_dim, n_pages])
-    p = _build.ptr
-    _build.KERNELS["cache_append"](
-        p(kc), p(vc), p(k_new), p(v_new), p(ks), p(vs),
-        p(ks_new if quant else None), p(vs_new if quant else None), p(pos),
-        p(pt), dims, _build.stream_ptr(dev))
+    a = _b6_args(_B6_COPY, kc, vc, ks, vs, h_kv, pool, slot_dim,
+                 row_bytes)
+    # the new rows as bytes: (b, h_kv, n, row_bytes), one layer
+    strides = (0, h_kv * n * row_bytes, row_bytes, n * row_bytes)
+    a[_A_SRC:_A_ROW_BYTES] = (
+        k_new.data_ptr(), v_new.data_ptr(),
+        ks_new.data_ptr() if quant else 0, vs_new.data_ptr() if quant else 0,
+        pos.data_ptr(), 0 if pt is None else pt.data_ptr(), *strides,
+        *strides, 1, layer, b, n, h_kv, 0, cap, pool, slot_dim, n_pages)
+    _build.KERNELS["cache_append"](ctypes.addressof(a),
+                                   _build.stream_ptr(dev))
+
+
+def _run_shape(k, v, layer, L: int, h_kv: int):
+    """(b, n) of new rows (b, n, h_kv, d), or (L, b, n, h_kv, d) for every
+    layer (``layer`` None)."""
+    rank = 5 if layer is None else 4
+    shape = k.shape
+    if (v.shape != shape or len(shape) != rank or shape[-2] != h_kv
+            or (rank == 5 and shape[0] != L)):
+        lead = f"{L}, " if layer is None else ""
+        raise ValueError(f"new K/V rows must be ({lead}b, n, h_kv={h_kv}, "
+                         f"d), got {tuple(shape)} and {tuple(v.shape)}")
+    return shape[-4], shape[-3]
+
+
+class _RowsPlan:
+    """B6's launch on one cache object: the cache's arrays checked, and the
+    argument array's constant slots filled, once (the cache's tensors by
+    identity: a cache whose arrays were replaced gets a new plan)."""
+
+    def __init__(self, cache):
+        kc, vc, ks, vs = cache.k, cache.v, cache.k_scale, cache.v_scale
+        pt = getattr(cache, "page_table", None)
+        L, pool, h_kv, page, dv = kc.shape
+        dev = kc.device
+        name = _dtype_name(kc)
+        d = 2 * dv if name == "int4" else dv
+        if d != _HEAD_DIM:
+            raise NotImplementedError(f"the B6 kernel takes head_dim "
+                                      f"{_HEAD_DIM}, got d={d}")
+        for label, t in (("k", kc), ("v", vc)):
+            if t.shape != kc.shape or t.dtype != kc.dtype \
+                    or t.device != dev or not t.is_contiguous():
+                raise ValueError(f"cache.{label} must be a contiguous "
+                                 f"{kc.dtype} {tuple(kc.shape)} tensor on "
+                                 f"{dev}")
+        quant = name != "bfloat16"
+        for label, t in (("k_scale", ks), ("v_scale", vs)):
+            if not quant:
+                if t is not None:
+                    raise ValueError(f"a bf16 cache has no {label}")
+            elif (t is None or t.shape != (L, pool, h_kv, 1, page)
+                  or t.dtype != torch.float32 or t.device != dev
+                  or not t.is_contiguous()):
+                raise ValueError(f"cache.{label} must be contiguous fp32 "
+                                 f"{(L, pool, h_kv, 1, page)} on {dev}")
+        self.tensors = (kc, vc, ks, vs, pt)
+        self.L, self.pool, self.h_kv, self.page = L, pool, h_kv, page
+        self.device, self.index = dev, kc.get_device()
+        self.pt = None if pt is None else _table(pt, dev)
+        self.args = _b6_args(_B6_KIND[name], kc, vc, ks, vs, h_kv, pool,
+                             page, dv * kc.element_size())
+        self.addr = ctypes.addressof(self.args)
+        self.stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+    def holds(self, cache) -> bool:
+        t = self.tensors
+        return (cache.k is t[0] and cache.v is t[1]
+                and cache.k_scale is t[2] and cache.v_scale is t[3]
+                and (t[4] is None or cache.page_table is t[4]))
+
+    def launch(self, layer, k, v, append_pos, page_table) -> None:
+        shape, st, sv = k.shape, k.stride(), v.stride()
+        if layer is None:
+            nl, layer0, lk, lv = self.L, 0, st[0], sv[0]
+        else:
+            nl, layer0, lk, lv = 1, int(layer), 0, 0
+            if not 0 <= layer0 < self.L:
+                raise ValueError(f"layer {layer} out of range for {self.L} "
+                                 f"layers")
+        kp, vp = k.data_ptr(), v.data_ptr()
+        if (k.dtype is not torch.bfloat16 or v.dtype is not torch.bfloat16
+                or v.shape != shape or len(shape) != 4 + (layer is None)
+                or (layer is None and shape[0] != self.L)
+                or shape[-2] != self.h_kv or shape[-1] != _HEAD_DIM
+                or st[-1] != 1 or sv[-1] != 1
+                or (st[-2] | st[-3] | st[-4] | sv[-2] | sv[-3] | sv[-4]
+                    | lk | lv) % 4 or (kp | vp) % 8
+                or k.get_device() != self.index
+                or v.get_device() != self.index):
+            raise ValueError(
+                f"new K/V rows must be bf16 ({'L, ' * (layer is None)}b, n, "
+                f"h_kv={self.h_kv}, d={_HEAD_DIM}) on {self.device}, d "
+                f"contiguous, rows 8-byte aligned; got {k.dtype} "
+                f"{tuple(shape)} strides {st} and {v.dtype} "
+                f"{tuple(v.shape)} strides {sv} on {k.device}")
+        b, n = shape[-4], shape[-3]
+        if isinstance(append_pos, int):
+            pos_ptr, pos0 = 0, append_pos
+        else:
+            if (append_pos.dtype is not torch.int32
+                    or append_pos.get_device() != self.index
+                    or not append_pos.is_contiguous()):
+                append_pos = append_pos.to(self.device,
+                                           torch.int32).contiguous()
+            if append_pos.shape != (b,):
+                raise ValueError(f"append_pos must be (b={b},), got "
+                                 f"{tuple(append_pos.shape)}")
+            pos_ptr, pos0 = append_pos.data_ptr(), 0
+        pt = self.pt if page_table is None else _table(page_table,
+                                                       self.device)
+        if pt is None:
+            if b != self.pool:
+                raise ValueError(f"a dense cache holds {self.pool} rows, "
+                                 f"the new rows {b}")
+            pt_ptr, n_pages = 0, 1
+        else:
+            if pt.shape[0] != b:
+                raise ValueError(f"the page table has {pt.shape[0]} rows, "
+                                 f"the new rows {b}")
+            pt_ptr, n_pages = pt.data_ptr(), pt.shape[1]
+        # slots _A_SRC .. _A_NPAGES in one store
+        self.args[_A_SRC:_A_ROW_BYTES] = (
+            kp, vp, 0, 0, pos_ptr, pt_ptr, lk, st[-4], st[-3], st[-2], lv,
+            sv[-4], sv[-3], sv[-2], nl, layer0, b, n, self.h_kv, pos0,
+            n_pages * self.page, self.pool, self.page, n_pages)
+        stream = (self.stream(self.index) if self.stream is not None
+                  else _build.stream_ptr(self.device))
+        _build.KERNELS["cache_append"](self.addr, stream)
+
+
+def _table(page_table, dev):
+    """A page table as B6 reads it: (b, n_pages) contiguous int32 on the
+    cache's device (anything else raises: no copy on the call's path)."""
+    if (page_table.dim() != 2 or page_table.dtype != torch.int32
+            or page_table.device != dev or not page_table.is_contiguous()):
+        raise ValueError(f"page_table must be a contiguous (b, n_pages) "
+                         f"int32 tensor on {dev}, got {page_table.dtype} "
+                         f"{tuple(page_table.shape)} on {page_table.device}")
+    return page_table
+
+
+def cache_append_rows_plain(cache, layer, k, v, append_pos, *,
+                            page_table=None) -> None:
+    """Plain version of :func:`cache_append_rows`: each layer's rows through
+    :func:`quantize_kv`, then :func:`cache_append_plain`, IN PLACE."""
+    L = cache.k.shape[0]
+    b, _ = _run_shape(k, v, layer, L, cache.k.shape[2])
+    dt = cache.dtype
+    pt = page_table if page_table is not None else getattr(
+        cache, "page_table", None)
+    if isinstance(append_pos, int):
+        append_pos = torch.full((b,), append_pos, dtype=torch.int32,
+                                device=cache.k.device)
+    layers = range(L) if layer is None else (int(layer),)
+    for i, li in enumerate(layers):
+        kl, vl = (k[i], v[i]) if layer is None else (k, v)
+        kq, ks = quantize_kv(kl.transpose(1, 2), dt)  # (b, h_kv, n, d)
+        vq, vs = quantize_kv(vl.transpose(1, 2), dt)
+        cache_append_plain(cache.k, cache.v, kq, vq, append_pos,
+                           cache.k_scale, cache.v_scale, ks, vs, layer=li,
+                           page_table=pt)
+
+
+def cache_append_rows(cache, layer, k, v, append_pos, *, page_table=None):
+    """Quantize new K/V rows to the cache's dtype and write them into a
+    :class:`KVCache` or :class:`PagedKVCache` IN PLACE: kernel B6, one
+    launch for K and V (and for every layer with ``layer=None``).
+
+    ``k``, ``v``: (b, n, h_kv, d) rows of ``layer`` as the projection gives
+    them (any strides with d contiguous), or (L, b, n, h_kv, d) for every
+    layer with ``layer=None``; bf16 on the card. Token t of row b lands at
+    logical slot append_pos[b] + t when that slot is in [0, capacity), as
+    in :func:`cache_append` (``append_pos = -n`` skips a row); an int
+    ``append_pos`` starts every row there. ``page_table``: (b, n_pages)
+    int32, the table to write through in place of the cache's own (a
+    dense cache is then a pool of its rows, one page of s_max slots each:
+    ``[[r]]`` writes one row into cache row r). What lands in the cache is
+    :func:`quantize_kv`'s values and scales, bit for bit. On the card the
+    cache's checks and the kernel's constant arguments are made once per
+    cache object; the call passes the rows in place. Returns the cache."""
+    if not cache.k.is_cuda:
+        cache_append_rows_plain(cache, layer, k, v, append_pos,
+                                page_table=page_table)
+        return cache
+    plan = cache._rows_plan
+    if plan is None or not plan.holds(cache):
+        plan = cache._rows_plan = _RowsPlan(cache)
+    plan.launch(layer, k, v, append_pos, page_table)
+    return cache
 
 
 # ---------------------------------------------------------------------------

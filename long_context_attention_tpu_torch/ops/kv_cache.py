@@ -80,8 +80,10 @@ def quantize_kv(x: torch.Tensor, dtype: str
                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """(..., d) float -> (values in ``dtype``'s storage, absmax scales
     (...,) fp32), as the JAX package's ``_qparams``: scale = max(absmax,
-    1e-6) / qmax; int8 and int4 round half to even, fp8 is clipped and cast
-    with no rounding step; int4 comes packed (:func:`pack_int4`).
+    1e-6) / qmax and x / scale, both IEEE divisions on every device (kernel
+    B6 computes the same on the card); int8 and int4 round half to even,
+    fp8 is clipped and cast with no rounding step; int4 comes packed
+    (:func:`pack_int4`).
 
     bfloat16 passes through with scales None."""
     _check_dtype(dtype)
@@ -89,7 +91,10 @@ def quantize_kv(x: torch.Tensor, dtype: str
         return x.to(torch.bfloat16), None
     qmax = _QMAX[dtype]
     xf = x.float()
-    scale = torch.clamp(xf.abs().amax(dim=-1), min=1e-6) / qmax
+    # qmax as a tensor on x's device: CUDA turns a Python divisor into a
+    # multiply by its reciprocal, which can miss the IEEE quotient by an ulp
+    scale = torch.clamp(xf.abs().amax(dim=-1), min=1e-6) / xf.new_full(
+        (), qmax)
     q = xf / scale[..., None]
     if dtype != "float8_e4m3fn":
         q = torch.round(q)
@@ -129,6 +134,10 @@ class KVCache:
     k_scale: Optional[torch.Tensor]
     v_scale: Optional[torch.Tensor]
     length: torch.Tensor
+    # B6's launch plan for this cache object (ops/decode.py _RowsPlan),
+    # made by its first append on the card
+    _rows_plan: Optional[object] = dataclasses.field(
+        default=None, init=False, repr=False, compare=False)
 
     @staticmethod
     def init(n_layers: int, b: int, s_max: int, h_kv: int, d: int,
@@ -160,17 +169,12 @@ class KVCache:
     def write_prompt(self, layer: int, k: torch.Tensor, v: torch.Tensor,
                      start: int = 0) -> "KVCache":
         """Write a (b, s, h_kv, d) segment at positions [start, start+s) of
-        ``layer``, IN PLACE. Returns self."""
-        s = k.shape[1]
-        dt = self.dtype
-        kq, ks = quantize_kv(k.transpose(1, 2), dt)  # (b, h, s, d)
-        vq, vs = quantize_kv(v.transpose(1, 2), dt)
-        self.k[layer, :, :, start:start + s] = kq
-        self.v[layer, :, :, start:start + s] = vq
-        if ks is not None:
-            self.k_scale[layer, :, :, 0, start:start + s] = ks
-            self.v_scale[layer, :, :, 0, start:start + s] = vs
-        return self
+        ``layer``, quantized to the cache's dtype, IN PLACE (kernel B6,
+        ``ops/decode.py`` :func:`cache_append_rows`). Returns self."""
+        from long_context_attention_tpu_torch.ops.decode import (
+            cache_append_rows)
+
+        return cache_append_rows(self, layer, k, v, int(start))
 
     def advance(self, n: int = 1) -> "KVCache":
         """Advance every row's length by ``n``, IN PLACE. Returns self."""
@@ -205,6 +209,10 @@ class PagedKVCache:
     v_scale: Optional[torch.Tensor]
     page_table: torch.Tensor
     length: torch.Tensor
+    # B6's launch plan for this cache object (ops/decode.py _RowsPlan),
+    # made by its first append on the card
+    _rows_plan: Optional[object] = dataclasses.field(
+        default=None, init=False, repr=False, compare=False)
 
     @staticmethod
     def init(n_layers: int, b: int, pool_pages: int, page_size: int,

@@ -50,10 +50,10 @@ from long_context_attention_tpu_torch.models.llama import (
     decode_step,
     forward_local,
 )
+from long_context_attention_tpu_torch.ops.decode import cache_append_rows
 from long_context_attention_tpu_torch.ops.kv_cache import (
     KVCache,
     PagedKVCache,
-    quantize_kv,
 )
 from long_context_attention_tpu_torch.ops.wquant import quantize_decode_params
 from long_context_attention_tpu_torch.serving.engine import (
@@ -178,16 +178,12 @@ class ContinuousEngine:
         return logits[:, 0], kv
 
     def _insert_row(self, cache, kv_k, kv_v, row: int, true_len: int):
-        """Quantize a prefilled row's K/V and write it into the cache at
-        batch row ``row``, slots [0, bucket), IN PLACE."""
-        kq, ks = quantize_kv(kv_k[:, 0].transpose(1, 2), self.cache_dtype)
-        vq, vs = quantize_kv(kv_v[:, 0].transpose(1, 2), self.cache_dtype)
-        s = min(kq.shape[2], cache.s_max)
-        cache.k[:, row, :, :s] = kq[:, :, :s]
-        cache.v[:, row, :, :s] = vq[:, :, :s]
-        if ks is not None:
-            cache.k_scale[:, row, :, 0, :s] = ks[:, :, :s]
-            cache.v_scale[:, row, :, 0, :s] = vs[:, :, :s]
+        """Quantize a prefilled row's K/V (L, 1, bucket, h_kv, d) and write
+        it into the cache at batch row ``row``, slots [0, bucket), IN
+        PLACE: one B6 launch for every layer, through the one-entry table
+        [[row]] (a dense cache is a pool of its rows)."""
+        table = torch.tensor([[row]], dtype=torch.int32, device=cache.k.device)
+        cache_append_rows(cache, None, kv_k, kv_v, 0, page_table=table)
         cache.length[row] = true_len
         return cache
 
@@ -654,20 +650,12 @@ class PagedContinuousEngine(ContinuousEngine):
                           n_chunks: int, pages: np.ndarray):
         """Quantize a prefilled row's K/V and write it page by page into the
         pool, IN PLACE: chunk i of the padded prompt lands in pool page
-        ``pages[i]``. Installs the row's table and length."""
-        ps = self.page_size
-        kq, ks = quantize_kv(kv_k[:, 0].transpose(1, 2), self.cache_dtype)
-        vq, vs = quantize_kv(kv_v[:, 0].transpose(1, 2), self.cache_dtype)
-        for pi in range(n_chunks):
-            lo = pi * ps
-            w = min(ps, kq.shape[2] - lo)
-            pg = int(pages[pi])
-            cache.k[:, pg, :, :w] = kq[:, :, lo:lo + w]
-            cache.v[:, pg, :, :w] = vq[:, :, lo:lo + w]
-            if ks is not None:
-                cache.k_scale[:, pg, :, 0, :w] = ks[:, :, lo:lo + w]
-                cache.v_scale[:, pg, :, 0, :w] = vs[:, :, lo:lo + w]
+        ``pages[i]``, i < ``n_chunks``: one B6 launch for every layer
+        through the first ``n_chunks`` entries of the row's table, which
+        is installed first. Installs the row's length."""
         cache.page_table[row] = self._vec(pages, torch.int32)
+        cache_append_rows(cache, None, kv_k, kv_v, 0,
+                          page_table=cache.page_table[row:row + 1, :n_chunks])
         cache.length[row] = true_len
         return cache
 

@@ -23,9 +23,11 @@ heads, head_dim 128, bf16):
   (B8b with window 4096 and 4 sinks); B6 over int8 and bf16 caches,
   dense (the slice's b=4 cache of 12288 slots, ~8.2K live) and paged
   (pages of 2048 from a pool of 65), one token per row and a run of 256
-  (the cache after the append). A tree whose B7 entry takes no ALiBi
-  slopes is called without them, and one whose sage entries take no
-  pv_int8 table without it;
+  (the cache after the append), through the public cache_append (the
+  byte copy; a tree whose B6 takes pointers and a dims array is called
+  through its first entry point from this tree's argument array). A tree
+  whose B7 entry takes no ALiBi slopes is called without them, and one
+  whose sage entries take no pv_int8 table without it;
 * B7 over the same caches, one token per row (``decode_attention``,
   decode_attention.cu) and a run of 256 (two sub-runs, on ``decode_run``,
   decode_run_sm90.cu, in a tree that has it): each tree's out and lse row
@@ -160,6 +162,36 @@ def runs_on_first_design(fn):
     return call
 
 
+# B6's first entry point: k, v, the new rows (2), scales (4), append_pos,
+# page table, dims, stream
+OLD_B6_ARGS = [ctypes.c_void_p] * 12
+
+
+def b6_from_args(fn):
+    """B6 on the first entry point (pointers and a dims array) from this
+    tree's int64 argument array: the byte-copy kind only (the public
+    cache_append, contiguous (b, h_kv, n, row) rows), whose arithmetic both
+    entry points share."""
+    from long_context_attention_tpu_torch.ops import decode
+
+    def call(addr, stream):
+        a = (ctypes.c_longlong * decode._A_COUNT).from_address(addr)
+        if a[decode._A_KIND] != decode._B6_COPY or a[decode._A_NL] != 1:
+            raise ValueError("the first B6 entry takes only the byte copy "
+                             "of one layer")
+        dims = _build.dims_array([a[i] for i in (
+            decode._A_B, decode._A_HKV, decode._A_N, decode._A_CAP,
+            decode._A_LAYER0, decode._A_ROW_BYTES, decode._A_POOL,
+            decode._A_PAGE, decode._A_NPAGES)])
+        ptrs = [a[decode._A_DST], a[decode._A_DST + 1], a[decode._A_SRC],
+                a[decode._A_SRC + 1], a[decode._A_DSC], a[decode._A_DSC + 1],
+                a[decode._A_SSC], a[decode._A_SSC + 1], a[decode._A_POS],
+                a[decode._A_PT]]
+        return fn(*[p or None for p in ptrs], dims, stream)
+
+    return call
+
+
 class Tree:
     """One checkout's kernel libraries, built from its csrc/."""
 
@@ -182,6 +214,10 @@ class Tree:
         # whether the sage entries take pv_int8's table (after lse)
         self.sage_table = "float *tbl" in (
             self.csrc / "sage_fwd_sm90.cu").read_text()
+        # whether B6 takes one int64 argument array (else its first entry:
+        # pointers and dims)
+        self.b6_args = "const long long* a, void* stream" in (
+            self.csrc / "cache_append.cu").read_text()
 
     def paths(self, source):
         saved = _build.CSRC, _build.BUILD_DIR
@@ -228,6 +264,9 @@ class Tree:
                 self.fns[name].argtypes = self.fns[name].argtypes[:-1]
                 self.fns[name] = (lambda fn: lambda *a: fn(*a[:-1]))(
                     self.fns[name])
+        if not self.b6_args:
+            self.fns["cache_append"].argtypes = OLD_B6_ARGS
+            self.fns["cache_append"] = b6_from_args(self.fns["cache_append"])
         first = self.fns["decode_attention"]
         if not self.b7_spans:  # the first design's dims and partials
             self.fns["decode_attention"] = runs_on_first_design(first)
