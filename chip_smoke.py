@@ -154,7 +154,26 @@ Phases, one JSON line each; any failure exits non-zero:
      interleave_admission: the running row's largest inter-token gap,
      exact launch counts (the interleaved chunks' sub-runs on decode_run),
      and each run teacher-forced on its own tokens (every step's logits
-     within 0.5 of a bf16 prefill).
+     within 0.5 of a bf16 prefill);
+ 17. serve_mesh: Engine(mesh=make_usp_mesh(), cache_dtype="int8",
+     weight_dtype="int8") on a one-rank NCCL mesh, the 0.88B config in the
+     zigzag layout: a one-shot 4 x 8192 prefill (the ring's B3, one a
+     layer; B6 writing the gathered K/V) and 32 greedy decode steps,
+     against Engine() without a mesh (B1): logits and the cache's prompt
+     rows within TEACHER_TOL, the greedy tokens' first divergence, exact
+     launch counts, both prefills timed;
+ 18. usp_async: AsyncLongContextAttention (default groups and n_groups=2)
+     against LongContextAttention at s=32768, forward and backward, out
+     and grads bit for bit, the ring's lse per group, exact counts (one
+     B3, B2a, B2b a group), both timed in turns;
+ 19. dit_forward: the DiT at Wan2.1-T2V-1.3B's widths, 30 layers, 32760
+     tokens (an 81-frame 480p clip), random non-zero weights: under
+     "pallas" (30 non-causal B3) and "sage" (30 B8b), timed, sage's gap to
+     pallas; its 2-layer cut at 7800 tokens against the CPU path;
+ 20. dit_train: make_dit_train_step at those widths over 7800 tokens (17
+     frames), AdamW, a warm-up and 3 timed steps with exact counts (B3,
+     B2a, B2b) and a falling loss, peak memory; a 2-layer gradient check
+     with non-zero mod and out against the CPU.
 The kernel phase holds B6's quantizing entry (cache_append_rows: bf16
 rows quantized and written in one launch, b6_rows_case) for every cache
 kind, dense and paged, at runs of 1, 256 and 2048 tokens, bit for bit
@@ -193,7 +212,11 @@ int8 with ALiBi and with kv_splits=4, and paged fp8 over one token; B3
 over fp8 and int4 K/V at the chunk shape, dense and with window 4096 and
 4 sinks (with its band check), and in the online and softcap forms; each
 against its plain version with its bound and SDPA over the dequantized
-cache.
+cache; and kernel_dit: B3 and B8b non-causal at the DiT forward's s_q =
+s_kv = 32760 (12 heads of 128; row blocks, the ragged last tile included,
+the storage past s_kv poisoned, B3's scores all negative so that an
+unmasked zero-filled column would show) and at 130 (126 of the last tile's
+columns past s_kv), B2a and B2b non-causal at training's 7800.
 Then the kernel table, the card's name and power limit, and as the last line
 {"ok": true, "device": {...}}.
 """
@@ -2577,9 +2600,9 @@ def kernel_quant_cache(K, flash, decode, kv_cache, gen, dev):
             "flash_fwd_pos": b3}, b6_rows
 
 
-def sdpa_backward_ms(q, k, v, dout):
-    """SDPA's flash backward (fwd+bwd minus fwd), causal, K/V repeated to
-    the query heads (its flash backend takes no GQA)."""
+def sdpa_backward_ms(q, k, v, dout, causal=True):
+    """SDPA's flash backward (fwd+bwd minus fwd), causal unless told, K/V
+    repeated to the query heads (its flash backend takes no GQA)."""
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
     g = q.shape[2] // k.shape[2]
@@ -2590,7 +2613,8 @@ def sdpa_backward_ms(q, k, v, dout):
 
     def fwd():
         with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
-            return F.scaled_dot_product_attention(qh, kh, vh, is_causal=True)
+            return F.scaled_dot_product_attention(qh, kh, vh,
+                                                  is_causal=causal)
 
     def fwd_bwd():
         torch.autograd.grad(fwd(), (qh, kh, vh), doh)
@@ -5616,6 +5640,610 @@ def train_usp_phase(pkg, build, dev, card):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# the sequence-sharded prefill, the async USP layer and the DiT family
+# ---------------------------------------------------------------------------
+
+# Wan2.1-T2V-1.3B's widths (Wan-AI/Wan2.1-T2V-1.3B config.json: dim 1536,
+# 12 heads of 128, ffn_dim 8960, 30 layers, 16 latent channels patchified
+# by (1, 2, 2): in_dim 64) on the repo's DiT block (adaLN-zero, unit-weight
+# RMSNorm, tanh GELU, self-attention only: no text cross-attention, no
+# RoPE); random weights from the seed, nothing downloaded
+WAN_DIT = dict(in_dim=64, dim=1536, n_layers=30, n_heads=12, head_dim=128,
+               ffn_hidden=8960)
+# a 480p (832 x 480) clip through Wan's VAE (8x spatial, 4x temporal
+# strides: 1 + (frames - 1) / 4 latent frames) and the (1, 2, 2) patch:
+# 52 x 30 patches a latent frame; 81 frames give 21 latent frames, the
+# forward's 32760 tokens, and 17 frames 5, training's 7800. Neither is a
+# multiple of 128: the last kv tile of every non-causal call is ragged.
+DIT_FWD_TOKENS = 21 * 30 * 52
+DIT_TRAIN_TOKENS = 5 * 30 * 52
+DIT_TRAIN_STEPS = 3
+# the DiT's 2-layer checks against the CPU plain path: the forward at the
+# training token count, the gradient check at grad_check's sequence
+DIT_CHECK_LAYERS = 2
+
+
+def dit_params(cfg, dev, seed=SEED):
+    """init_dit_params with ``mod`` and ``out`` drawn too (adaLN-zero's
+    zero init makes every block the identity, whose checks prove nothing
+    about attention), normal / sqrt(dim), from the seed on the card."""
+    from long_context_attention_tpu_torch.models.dit import init_dit_params
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = init_dit_params(gen, cfg, device=dev)
+    for node, key in ((params["layers"], "mod"), (params, "out")):
+        node[key] = (torch.randn(node[key].shape, generator=gen, device=dev)
+                     / math.sqrt(cfg.dim)).to(cfg.dtype)
+    return params
+
+
+def dit_data(n, dev, seed=SEED + 11):
+    """Latents, noise (1, n, in_dim) fp32 and a timestep (1,) from the
+    seed on the card."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x, noise = (torch.randn((1, n, WAN_DIT["in_dim"]), generator=gen,
+                            device=dev) for _ in range(2))
+    t = torch.randint(0, 1000, (1,), generator=gen, device=dev)
+    return x, noise, t
+
+
+def cpu_tree(tree):
+    return {k: cpu_tree(v) if isinstance(v, dict) else v.detach().cpu()
+            for k, v in tree.items()}
+
+
+def dit_kernel_case(name, fn, plain, rows, tag, checks, lse=True):
+    """One kernel call held row block by row block against its plain
+    version (the plain version at a row block's q rows and every kv
+    column); returns the plain version's ms over the blocks."""
+    o, l = fn()
+    plain_ms = 0.0
+    for r in rows:
+        t0 = time.perf_counter()
+        po, pl_ = plain(r)
+        torch.cuda.synchronize()
+        plain_ms += 1e3 * (time.perf_counter() - t0)
+        checks.append(check_out(f"{name} out {tag} rows {r.start}:{r.stop}",
+                                o[:, r], po))
+        if lse:
+            check(f"{name} lse {tag} rows {r.start}:{r.stop}",
+                  max_err(l[:, :, r], pl_), LSE_TOL)
+        del po, pl_
+    return plain_ms
+
+
+def kernel_dit(K, flash, sage, gen, dev):
+    """The DiT path's kernel calls at Wan2.1-1.3B's attention width (b=1,
+    12 heads of 128, h_kv = h), non-causal over a ragged last tile: B3 and
+    B8b at s_q = s_kv = 32760 (the 480p, 81-frame forward), B2a and B2b at
+    7800 (training's 17 frames), each against its plain version.
+
+    B3's q is drawn about -1 and K about +1, so every real score is about
+    -11 in natural units: a kv column past s_kv that TMA fills with zeros
+    scores 0 and, left unmasked, would outweigh its whole row. K/V (and
+    B8b's int8 K/V) live in storage padded to the next 128 rows, whose rows
+    past s_kv hold 10^4 (127 with NaN scales for B8b): the kernels get the
+    views of the first s_kv rows, so a read past them shows too. Sage's K
+    is centred, so its scores cannot be made all negative; B3 and B8b are
+    held at s_q = s_kv = 130 as well, 126 of the 128 columns of the last
+    tile past s_kv, where an unmasked column moves every row by tens of
+    percent. Out and lse row by row (ROW_REL_TOL, LSE_TOL) over the first,
+    a middle and the last 512 rows (the ragged last q tile), each block
+    against every kv column; B2a and B2b in full. Times with the bound
+    and SDPA (flash, non-causal) beside them. Returns {kernel tag: case
+    row}."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    b, s, h, d = 1, DIT_FWD_TOKENS, WAN_DIT["n_heads"], 128
+    scale = d ** -0.5
+    pad = -(-s // 128) * 128
+    blocks = (slice(0, 512), slice(s // 2 - 256, s // 2 + 256),
+              slice(s - 512, s))
+    q = (torch.randn((b, s, h, d), generator=gen, device=dev) - 1).bfloat16()
+    kst, vst = (torch.randn((b, h, pad, d), generator=gen, device=dev)
+                for _ in range(2))
+    kst += 1
+    kst, vst = kst.bfloat16(), vst.bfloat16()
+    for t in (kst, vst):
+        t[:, :, s:] = 1e4
+    k, v = kst[:, :, :s], vst[:, :, :s]
+    checks = {"B3": [], "B8b": [], "B2a": [], "B2b": []}
+    fw = dict(causal=False, scale=scale)
+    b3_plain = dit_kernel_case(
+        "B3", lambda: flash.flash_fwd_pos(q, k, v, **fw),
+        lambda r: flash.flash_fwd_pos_plain(q[:, r], k, v, **fw), blocks,
+        f"non-causal s={s}", checks["B3"])
+    ms = {"B3": time_ms(lambda: flash.flash_fwd_pos(q, k, v, **fw),
+                        iters=5, warmup=1)}
+    qh = q.transpose(1, 2)
+    with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+        lib = time_ms(lambda: F.scaled_dot_product_attention(qh, k, v),
+                      iters=5, warmup=1)
+    # B8b on the sage operands of the same q, k, v, past s_kv poisoned
+    k8st = torch.full((b, pad, h, d), 127, dtype=torch.int8, device=dev)
+    v8st = torch.full((b, pad, h, d), 127, dtype=torch.int8, device=dev)
+    ksst, vsst = (torch.full((b, h, pad), math.nan, device=dev)
+                  for _ in range(2))
+    q8, qs, k8, ks, v8, vs = sage_operands(
+        sage, q, k.transpose(1, 2).contiguous(),
+        v.transpose(1, 2).contiguous(), scale)
+    k8st[:, :s], v8st[:, :s], ksst[:, :, :s], vsst[:, :, :s] = k8, v8, ks, vs
+    ops = (q8, qs, k8st[:, :s], ksst[:, :, :s], v8st[:, :s], vsst[:, :, :s])
+    del k8, ks, v8, vs
+    b8_plain = dit_kernel_case(
+        "B8b", lambda: sage.sage_fwd_pos(*ops, causal=False),
+        lambda r: sage.sage_fwd_pos_plain(ops[0][:, r], ops[1][:, :, r],
+                                          *ops[2:], causal=False),
+        blocks, f"non-causal s={s}", checks["B8b"])
+    ms["B8b"] = time_ms(lambda: sage.sage_fwd_pos(*ops, causal=False),
+                        iters=5, warmup=1)
+    del ops, k8st, v8st, ksst, vsst, q8, qs
+    # s = 130: 126 of the last tile's 128 columns past s_kv
+    sm = 130
+    qs_, ks_, vs_ = (torch.randn((b, sm, h, d), generator=gen, device=dev)
+                     .bfloat16() for _ in range(3))
+    small = sage_operands(sage, qs_, ks_, vs_, scale)
+    for name, fn, plain, args, kw in (
+            ("B3", flash.flash_fwd_pos, flash.flash_fwd_pos_plain,
+             (qs_, ks_.transpose(1, 2), vs_.transpose(1, 2)), fw),
+            ("B8b", sage.sage_fwd_pos, sage.sage_fwd_pos_plain, small,
+             dict(causal=False))):
+        dit_kernel_case(name, lambda: fn(*args, **kw),
+                        lambda r: plain(*args, **kw), (slice(0, sm),),
+                        f"non-causal s={sm}", checks[name])
+    del q, kst, vst, k, v, qh
+    torch.cuda.empty_cache()
+    # B2a and B2b at training's 7800 tokens, non-causal, on B3's out, lse
+    n = DIT_TRAIN_TOKENS
+    q, k, v, dout = (torch.randn((b, n, h, d), generator=gen, device=dev)
+                     .bfloat16() for _ in range(4))
+    out, lse = flash.flash_fwd_pos(q, k.transpose(1, 2), v.transpose(1, 2),
+                                   **fw)
+    delta = (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    args = (q, k, v, dout, lse, delta)
+    dq = flash.flash_bwd_dq(*args, **fw)
+    t0 = time.perf_counter()
+    pdq = flash.flash_bwd_dq_plain(*args, **fw)
+    torch.cuda.synchronize()
+    bwd_plain = {"B2a": 1e3 * (time.perf_counter() - t0)}
+    checks["B2a"].append(check_out(f"B2a dq non-causal s={n}", dq, pdq))
+    del dq, pdq
+    dk, dv = flash.flash_bwd_dkv(*args, **fw)
+    t0 = time.perf_counter()
+    pdk, pdv = flash.flash_bwd_dkv_plain(*args, **fw)
+    torch.cuda.synchronize()
+    bwd_plain["B2b"] = 1e3 * (time.perf_counter() - t0)
+    checks["B2b"].append(check_out(f"B2b dk non-causal s={n}", dk, pdk))
+    checks["B2b"].append(check_out(f"B2b dv non-causal s={n}", dv, pdv))
+    del dk, dv, pdk, pdv
+    torch.cuda.empty_cache()
+    ms["B2a"] = time_ms(lambda: flash.flash_bwd_dq(*args, **fw), iters=5)
+    ms["B2b"] = time_ms(lambda: flash.flash_bwd_dkv(*args, **fw), iters=5)
+    lib_bwd = sdpa_backward_ms(q, k, v, dout, causal=False)
+    in_bytes = 2 * 4 * q.numel() + 8 * b * h * n
+    res = {
+        "B3": (b3_plain, 4 * d * b * h * s * s,
+               2 * 4 * b * s * h * d + 4 * b * h * s, lib, PEAK_BF16_FLOPS),
+        "B8b": (b8_plain, 4 * d * b * h * s * s,
+                5 * b * s * h * d + 4 * b * h * s * 4, lib, PEAK_SAGE_OPS),
+        "B2a": (bwd_plain["B2a"], 2 * 3 * d * b * h * n * n,
+                in_bytes + 4 * q.numel(), lib_bwd, PEAK_BF16_FLOPS),
+        "B2b": (bwd_plain["B2b"], 2 * 4 * d * b * h * n * n,
+                in_bytes + 8 * k.numel(), lib_bwd, PEAK_BF16_FLOPS)}
+    del q, k, v, dout, out, lse, delta, args
+    torch.cuda.empty_cache()
+    seq = {"B3": s, "B8b": s, "B2a": n, "B2b": n}
+    return {name: {"case": f"Wan2.1-1.3B width, b=1, {h} heads, non-causal, "
+                           f"s_q = s_kv = {seq[name]} (ragged last tile)",
+                   "plain_rows": ("3 blocks of 512 rows" if name in
+                                  ("B3", "B8b") else "all"),
+                   **case_row(checks[name], ms[name], plain_ms, flops,
+                              nbytes, lib_ms, peak),
+                   "library": ("SDPA flash, non-causal, bf16" if name in
+                               ("B3", "B8b") else
+                               "SDPA flash backward, non-causal (dq, dk, "
+                               "dv)")}
+            for name, (plain_ms, flops, nbytes, lib_ms, peak) in res.items()}
+
+
+def serve_mesh_phase(pkg, build, dev, card):
+    """Engine(mesh=make_usp_mesh(), cache_dtype="int8", weight_dtype="int8")
+    on a one-rank NCCL mesh, the 0.88B config in the zigzag layout: a
+    one-shot 4 x 8192 prefill (every layer's attention through the ring's
+    B3 at the two-chunk descriptor; B6 writing the gathered K/V) and 32
+    greedy decode steps (B6, B7). Against Engine() without a mesh on the
+    same weights and prompt (B1): the last token's logits and the cache's
+    dequantized prompt rows within TEACHER_TOL, the greedy tokens' first
+    divergence printed. Returns the mesh engine's launch counts."""
+    import torch.distributed as dist
+
+    from long_context_attention_tpu_torch.models.llama import init_params
+    from long_context_attention_tpu_torch.parallel import make_usp_mesh
+    from long_context_attention_tpu_torch.serving.engine import Engine
+
+    cfg = pkg.ModelConfig(**dict(MODEL, layout="zigzag"))
+    L = cfg.n_layers
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params = init_params(gen, cfg, device=dev)
+    prompt = torch.randint(0, cfg.vocab, (BATCH, PROMPT), generator=gen,
+                           device=dev)
+    kw = dict(cfg=cfg, s_max=S_MAX, cache_dtype="int8", weight_dtype="int8")
+    single = Engine(**kw, device=dev)
+    mesh = make_usp_mesh()
+    try:
+        eng = Engine(**kw, mesh=mesh)
+        for e in (single, eng):  # warm-up: cuBLAS, the allocator's pools
+            e.prefill(params, prompt[:, :CHUNK])
+        dparams = eng.decode_params(params)
+        torch.cuda.synchronize()
+        seconds = {}
+
+        def timed(tag, fn):
+            t0 = time.perf_counter()
+            res = fn()
+            torch.cuda.synchronize()
+            seconds[tag] = time.perf_counter() - t0
+            return res
+
+        build.reset_launch_counts()
+        ref_logits, ref_cache = timed("single_prefill", lambda:
+                                      single.prefill(params, prompt))
+        single_counts = expect_counts(build, {
+            "flash_fwd_causal_self": L, "flash_fwd_pos": 0,
+            "cache_append": L})
+        build.reset_launch_counts()
+        logits, cache = timed("mesh_prefill", lambda:
+                              eng.prefill(params, prompt))
+        first = torch.argmax(logits, -1).to(torch.int32)
+        cache_err = 0.0
+        for layer in range(L):
+            for name in ("k", "v"):
+                a, w = (dequantized_rows(c, name, layer, PROMPT)
+                        for c in (cache, ref_cache))
+                cache_err = max(cache_err, max_err(a, w))
+        toks, cache = timed("mesh_decode", lambda: eng.decode_scan(
+            dparams, cache, NEW, first))
+        counts = expect_counts(build, {
+            "flash_fwd_pos": L, "flash_fwd_causal_self": 0,
+            "flash_fwd_static": 0, "cache_append": L + L * NEW,
+            "decode_attention": L * NEW, "decode_run": 0})
+        ref_toks, _ = single.decode_scan(
+            dparams, ref_cache, NEW,
+            torch.argmax(ref_logits, -1).to(torch.int32))
+    finally:
+        dist.destroy_process_group()
+    if not torch.isfinite(logits).all():
+        raise AssertionError("serve_mesh: prefill logits are not finite")
+    if toks.shape != (BATCH, NEW) or cache.length.tolist() != [
+            PROMPT + NEW] * BATCH:
+        raise AssertionError(f"serve_mesh: decode_scan shapes "
+                             f"{tuple(toks.shape)}, lengths "
+                             f"{cache.length.tolist()}")
+    logit_err = max_err(logits, ref_logits)
+    check("serve_mesh logits vs Engine()", logit_err, TEACHER_TOL)
+    check("serve_mesh prompt cache rows vs Engine()", cache_err, TEACHER_TOL)
+    differ = (toks != ref_toks).any(0).nonzero()
+    emit({"phase": "serve_mesh", "card": card, "model": "llama-0.88B",
+          "layout": "zigzag", "mesh": "dp 1 x ring 1 x ulysses 1 (NCCL)",
+          "batch": BATCH, "prompt": PROMPT, "new_tokens": NEW,
+          "cache_dtype": "int8", "weight_dtype": "int8", **seconds,
+          "mesh_decode_ms_per_step": 1e3 * seconds["mesh_decode"] / NEW,
+          "logits_max_abs_err": logit_err,
+          "prompt_cache_max_abs_err": cache_err,
+          "teacher_tol": TEACHER_TOL,
+          "greedy_first_divergence": (int(differ[0]) if len(differ)
+                                      else None),
+          "greedy_agree": float((toks == ref_toks).float().mean()),
+          "launches": counts, "single_prefill_launches": {
+              n: single_counts[n] for n in ("flash_fwd_causal_self",
+                                            "cache_append")}})
+    del params, cache, ref_cache
+    torch.cuda.empty_cache()
+    return counts
+
+
+def dequantized_rows(cache, name, layer, n):
+    """A layer's first n rows of the cache's K or V, dequantized, fp32."""
+    vals = getattr(cache, name)[layer, :, :, :n].float()
+    scale = getattr(cache, f"{name}_scale")
+    if scale is None:
+        return vals
+    return vals * scale[layer, :, :, 0, :n, None]
+
+
+def usp_async_phase(build, ring, dev, card):
+    """AsyncLongContextAttention(layout="zigzag") with the default groups
+    (one kv head a group: 8) and n_groups=2 against LongContextAttention on
+    a one-rank NCCL mesh at usp_dense's shape (b=1, s=32768, 16/8 heads),
+    causal, forward and backward: each group's ring runs B3 (and B2a +
+    B2b) on its heads alone, the same arithmetic per head, so out and
+    grads are expected bit-equal (each differing tensor is reported with
+    its error and held to ROW_REL_TOL row by row, grads to BF16_ATOL); the
+    ring's lse per group against the whole call's, bit for bit. Exactly one
+    B3, B2a and B2b per group. ms of the forward and of forward +
+    backward, in turns; on one card no collective runs, so no overlap can
+    show. Returns the default layer's launch counts."""
+    import torch.distributed as dist
+
+    from long_context_attention_tpu_torch.parallel import (
+        AsyncLongContextAttention, LongContextAttention, make_usp_mesh)
+
+    b, s, h, hk, d = 1, SPARSE_SEQ, MODEL["n_heads"], MODEL["n_kv_heads"], 128
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    q, k, v = (torch.randn(shape, generator=gen, device=dev).bfloat16()
+               .requires_grad_()
+               for shape in ((b, s, h, d), (b, s, hk, d), (b, s, hk, d)))
+    dout = torch.randn((b, s, h, d), generator=gen, device=dev).bfloat16()
+    mesh = make_usp_mesh()
+    report = {}
+    try:
+        layers = {"dense": LongContextAttention(mesh, layout="zigzag"),
+                  "async default": AsyncLongContextAttention(
+                      mesh, layout="zigzag"),
+                  "async n_groups=2": AsyncLongContextAttention(
+                      mesh, layout="zigzag", n_groups=2)}
+        groups = {"dense": 1, "async default": hk, "async n_groups=2": 2}
+
+        def run(layer):
+            out = layer(q, k, v, causal=True)
+            return (out.detach(), *torch.autograd.grad(out, (q, k, v),
+                                                       dout))
+
+        build.reset_launch_counts()
+        want = run(layers["dense"])
+        torch.cuda.synchronize()
+        main_counts = None
+        for tag in ("async default", "async n_groups=2"):
+            build.reset_launch_counts()
+            got = run(layers[tag])
+            torch.cuda.synchronize()
+            counts = expect_counts(build, {
+                n: groups[tag] if n in ("flash_fwd_pos", "flash_bwd_dq",
+                                        "flash_bwd_dkv") else 0
+                for n in build.KERNELS})
+            main_counts = main_counts or counts
+            equal = {}
+            for name, a, w in zip(("out", "dq", "dk", "dv"), got, want):
+                equal[name] = torch.equal(a, w)
+                if equal[name]:
+                    continue
+                if name == "out":
+                    check_out(f"usp_async {tag} out vs dense", a, w)
+                else:
+                    check(f"usp_async {tag} {name} vs dense", max_err(a, w),
+                          BF16_ATOL)
+                equal[f"{name}_max_abs_err"] = max_err(a, w)
+            report[tag] = {"n_groups": groups[tag], "bit_equal": equal,
+                           "launches": {n: c for n, c in counts.items()
+                                        if c}}
+            del got
+        # the ring's lse per group of the default layer against the whole
+        # heads' (zigzag ring of one: B3 at the two-chunk descriptor)
+        with torch.no_grad():
+            _, lse = ring.ring_attention_local(q, k, v, causal=True,
+                                               return_lse=True)
+            g = h // hk
+            lse_equal = all(torch.equal(ring.ring_attention_local(
+                q[:, :, i * g:(i + 1) * g], k[:, :, i:i + 1],
+                v[:, :, i:i + 1], causal=True, return_lse=True)[1],
+                lse[:, i * g:(i + 1) * g]) for i in range(hk))
+        report["lse_bit_equal_per_group"] = lse_equal
+        if not lse_equal:
+            raise AssertionError("usp_async: a group's ring lse differs "
+                                 "from the whole call's")
+        del want, lse
+        torch.cuda.empty_cache()
+        ms = {}
+        for turn in range(2):  # in turns: dense, async, async, dense, ...
+            order = list(layers) if turn == 0 else list(layers)[::-1]
+            for tag in order:
+                layer = layers[tag]
+                with torch.no_grad():
+                    f = time_ms(lambda: layer(q, k, v, causal=True),
+                                iters=5, warmup=1)
+                fb = time_ms(lambda: torch.autograd.grad(
+                    layer(q, k, v, causal=True), (q, k, v), dout), iters=5,
+                    warmup=1)
+                ms.setdefault(tag, {"fwd_ms": [], "fwd_bwd_ms": []})
+                ms[tag]["fwd_ms"].append(f)
+                ms[tag]["fwd_bwd_ms"].append(fb)
+        report["ms"] = ms
+    finally:
+        dist.destroy_process_group()
+    emit({"phase": "usp_async", "card": card, "layout": "zigzag",
+          "mesh": "dp 1 x ring 1 x ulysses 1 (NCCL): no collective runs",
+          "batch": b, "seq": s, "heads": h, "kv_heads": hk, "head_dim": d,
+          **report})
+    del q, k, v, dout
+    torch.cuda.empty_cache()
+    return main_counts
+
+
+def dit_forward_phase(build, dev, card):
+    """The DiT forward at Wan2.1-1.3B's widths, 30 layers, b=1, 32760
+    tokens, random non-zero weights (mod and out included): make_dit_forward
+    under attn_impl "pallas" (B3 non-causal, one launch a layer) and
+    "sage" (B8b and its two quantization kernels, one each a layer) on the
+    same weights and latents, each timed over two forwards after a
+    warm-up, finite outputs of the right shape, sage's gap to pallas. Then
+    the model at 2 layers against the port's CPU path (plain versions) at
+    7800 tokens within BF16_ATOL. Returns the launch counts by impl."""
+    from long_context_attention_tpu_torch.models.dit import (
+        DiTConfig, make_dit_forward)
+    from long_context_attention_tpu_torch.models.llama import param_leaves
+
+    L, n = WAN_DIT["n_layers"], DIT_FWD_TOKENS
+    x, _, t = dit_data(n, dev)
+    cfg = DiTConfig(**WAN_DIT)
+    params = dit_params(cfg, dev)
+    n_params = sum(p.numel() for p in param_leaves(params))
+    report, outs, counts = {}, {}, {}
+    fwd_kernels = {"pallas": "flash_fwd_pos", "sage": "sage_fwd_pos"}
+    for impl in ("pallas", "sage"):
+        fwd = make_dit_forward(dataclasses.replace(cfg, attn_impl=impl),
+                               device=dev)
+        fwd(params, x[:, :2048], t)  # warm-up
+        torch.cuda.synchronize()
+        build.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = fwd(params, x, t)
+        torch.cuda.synchronize()
+        first = time.perf_counter() - t0
+        counts[impl] = expect_counts(build, {
+            **{k: L if k == fwd_kernels[impl] else 0 for k in (
+                "flash_fwd_pos", "sage_fwd_pos", "flash_fwd_causal_self",
+                "flash_fwd_static", "sage_fwd_tri", "sage_fwd_rect")},
+            **quant_counts(L if impl == "sage" else 0)})
+        t0 = time.perf_counter()
+        fwd(params, x, t)
+        torch.cuda.synchronize()
+        second = time.perf_counter() - t0
+        if out.shape != x.shape or out.dtype != torch.float32 or not bool(
+                torch.isfinite(out).all()):
+            raise AssertionError(f"dit_forward {impl}: output "
+                                 f"{tuple(out.shape)} {out.dtype}, finite "
+                                 f"{bool(torch.isfinite(out).all())}")
+        outs[impl] = out
+        report[impl] = {"s_per_forward": [first, second],
+                        "tok_per_s": n / min(first, second),
+                        "out_mean_abs": float(out.abs().mean()),
+                        "launches": {k: c for k, c in counts[impl].items()
+                                     if c}}
+    gap = max_err(outs["sage"], outs["pallas"])
+    report["sage_vs_pallas"] = {
+        "max_abs_err": gap,
+        "rel_to_max": gap / float(outs["pallas"].abs().max()),
+        "mean_abs_err": float((outs["sage"] - outs["pallas"]).abs().mean())}
+    del params, outs, out
+    torch.cuda.empty_cache()
+    # 2 layers at full width, 7800 tokens: the card against the CPU path
+    cfg2 = dataclasses.replace(cfg, n_layers=DIT_CHECK_LAYERS)
+    p2 = dit_params(cfg2, dev, seed=SEED + 1)
+    x2 = x[:, :DIT_TRAIN_TOKENS].contiguous()
+    card_out = make_dit_forward(cfg2, device=dev)(p2, x2, t)
+    t0 = time.perf_counter()
+    cpu_out = make_dit_forward(cfg2, device="cpu")(cpu_tree(p2), x2.cpu(),
+                                                   t.cpu())
+    cpu_s = time.perf_counter() - t0
+    err = max_err(card_out.cpu(), cpu_out)
+    report["cpu_check"] = {"layers": DIT_CHECK_LAYERS,
+                           "tokens": DIT_TRAIN_TOKENS, "max_abs_err": err,
+                           "out_max_abs": float(cpu_out.abs().max()),
+                           "tol": BF16_ATOL, "cpu_seconds": cpu_s}
+    check("dit_forward 2 layers card vs CPU", err, BF16_ATOL)
+    emit({"phase": "dit_forward", "card": card,
+          "model": "Wan2.1-T2V-1.3B widths (repo DiT block)", **WAN_DIT,
+          "params": n_params, "batch": 1, "tokens": n,
+          "frames": "81 at 480p (21 x 30 x 52 latent patches)", **report})
+    del p2, card_out, cpu_out
+    torch.cuda.empty_cache()
+    return counts
+
+
+def dit_train_phase(build, dev, card):
+    """make_dit_train_step at Wan2.1-1.3B's widths, 30 layers, b=1, 7800
+    tokens, from init_dit_params (adaLN-zero), AdamW as in train: one
+    warm-up step, then DIT_TRAIN_STEPS timed steps with exact launch counts
+    (B3, B2a, B2b one each a layer a step; B1, B4, B5 never), a finite,
+    falling loss, ms/step, tok/s and peak memory. Then a gradient check at
+    2 layers, full width, GRAD_SEQ tokens with non-zero mod and out: the
+    loss and every parameter gradient on the card against the same
+    backward on CPU copies (plain versions), gated as grad_check. Returns
+    the timed steps' launch counts."""
+    from long_context_attention_tpu_torch.models.dit import (
+        DiTConfig, dit_forward_local, init_dit_params, make_dit_train_step)
+    from long_context_attention_tpu_torch.models.llama import param_leaves
+
+    L, n = WAN_DIT["n_layers"], DIT_TRAIN_TOKENS
+    cfg = DiTConfig(**WAN_DIT)
+    params = init_dit_params(torch.Generator(device=dev).manual_seed(SEED),
+                             cfg, device=dev)
+    n_params = sum(p.numel() for p in param_leaves(params))
+    x, noise, t = dit_data(n, dev)
+    step = make_dit_train_step(cfg, functools.partial(
+        torch.optim.AdamW, lr=LR, weight_decay=WEIGHT_DECAY), device=dev)
+    params, state, loss = step(params, None, x, noise, t)
+    losses = [float(loss)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launch_counts()
+    times = []
+    for _ in range(DIT_TRAIN_STEPS):
+        t0 = time.perf_counter()
+        params, state, loss = step(params, state, x, noise, t)
+        losses.append(float(loss))
+        times.append(time.perf_counter() - t0)
+    steps = DIT_TRAIN_STEPS
+    counts = expect_counts(build, {
+        "flash_fwd_pos": steps * L, "flash_bwd_dq": steps * L,
+        "flash_bwd_dkv": steps * L, "flash_fwd_causal_self": 0,
+        "flash_fwd_static": 0, "flash_bwd_fused": 0, "sage_fwd_pos": 0})
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"dit_train: loss not finite: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"dit_train: the loss did not fall: {losses}")
+    ms = 1e3 * sum(times) / steps
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    flops = 6 * n * n_params  # the 6ND convention, attention not counted
+    report = {"params": n_params, "steps": steps, "ms_per_step": ms,
+              "ms_all": [1e3 * t for t in times], "tok_per_s": n / (ms / 1e3),
+              "mfu_6nd": flops / (ms / 1e3) / PEAK_BF16_FLOPS,
+              "max_memory_allocated_gb": peak_gb, "losses": losses,
+              "launches_per_step": {k: c // steps for k, c in counts.items()
+                                    if c}}
+    del params, state, step, loss
+    torch.cuda.empty_cache()
+
+    # the gradient check: 2 layers with non-zero mod and out
+    cfg2 = dataclasses.replace(cfg, n_layers=DIT_CHECK_LAYERS)
+    p2 = dit_params(cfg2, dev, seed=SEED + 2)
+    x2, noise2, t2 = dit_data(GRAD_SEQ, dev, seed=SEED + 12)
+
+    def loss_and_grads(where):
+        p = {k: ({kk: vv.detach().to(where, copy=True).requires_grad_()
+                  for kk, vv in v.items()} if isinstance(v, dict) else
+                 v.detach().to(where, copy=True).requires_grad_())
+             for k, v in p2.items()}
+        pred = dit_forward_local(p, x2.to(where), t2.to(where), cfg2)
+        lval = ((pred - noise2.to(where)) ** 2).sum() / noise2.numel()
+        lval.backward()
+        return float(lval.detach()), {k: g.grad.float().cpu()
+                                      for k, g in named_leaves(p)}
+
+    loss_cpu, g_cpu = loss_and_grads(torch.device("cpu"))
+    build.reset_launch_counts()
+    loss_card, g_card = loss_and_grads(dev)
+    gcounts = expect_counts(build, {
+        "flash_fwd_pos": DIT_CHECK_LAYERS, "flash_bwd_dq": DIT_CHECK_LAYERS,
+        "flash_bwd_dkv": DIT_CHECK_LAYERS, "flash_bwd_fused": 0})
+    leaves = {}
+    for name, want in g_cpu.items():
+        size = float(want.abs().max())
+        leaves[name] = {"rel_err": float((g_card[name] - want).abs().max())
+                        / size, "max_abs": size}
+    report["grad_check"] = {
+        "layers": DIT_CHECK_LAYERS, "tokens": GRAD_SEQ,
+        "loss_card": loss_card, "loss_cpu": loss_cpu, "loss_tol": LOSS_TOL,
+        "grad_tol": GRAD_TOL,
+        "worst_rel_err": max(x["rel_err"] for x in leaves.values()),
+        "launches": {k: c for k, c in gcounts.items() if c},
+        "leaves": leaves}
+    emit({"phase": "dit_train", "card": card,
+          "model": "Wan2.1-T2V-1.3B widths (repo DiT block)", **WAN_DIT,
+          "batch": 1, "tokens": n,
+          "frames": "17 at 480p (5 x 30 x 52 latent patches)",
+          "optimizer": f"AdamW lr {LR} weight decay {WEIGHT_DECAY}",
+          **report})
+    check("dit_train grad_check loss", abs(loss_card - loss_cpu), LOSS_TOL)
+    for name, x in leaves.items():
+        check(f"dit_train grad_check {name} (relative to its largest value)",
+              x["rel_err"], GRAD_TOL)
+    del p2
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
@@ -5785,6 +6413,13 @@ def main():
     probes = feature_probes(flash, gen, dev)
     torch.cuda.empty_cache()
     lap("feature_kernels")
+    # B3, B8b, B2a and B2b at the DiT's non-causal ragged shapes
+    dit_rows = kernel_dit(K, flash, sage, gen, dev)
+    for tag, case in dit_rows.items():
+        emit({"phase": "kernel_dit", "kernel": tag, **case})
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    lap("kernel_dit")
 
     # each kernel's launches on its own path: serving (B1, B3, B6, B7),
     # windowed serving (B4; B3, B6, B7 in their "windowed" entries),
@@ -5854,6 +6489,17 @@ def main():
     train_usp_phase(pkg, build, dev, smi)
     torch.cuda.empty_cache()
     lap("train_usp")
+    # the sequence-sharded prefill, the async USP layer, the DiT family
+    new_paths = {"serve_mesh": serve_mesh_phase(pkg, build, dev, smi)}
+    lap("serve_mesh")
+    new_paths["usp_async"] = usp_async_phase(build, ring, dev, smi)
+    lap("usp_async")
+    dit_counts = dit_forward_phase(build, dev, smi)
+    new_paths.update({f"dit_forward {impl}": c
+                      for impl, c in dit_counts.items()})
+    lap("dit_forward")
+    new_paths["dit_train"] = dit_train_phase(build, dev, smi)
+    lap("dit_train")
     paged = serve_paged_phase(pkg, build, dev, smi)
     lap("serve_continuous_paged")
     prefix = serve_prefix_phase(pkg, build, decode, dev, smi)
@@ -5950,6 +6596,17 @@ def main():
             r["quant_ring_cases"] = {
                 QUANT_TAG[dt]: {"launches": ring_quant_counts[dt][r["name"]]}
                 for dt in QUANT_DTYPES}
+        # the DiT's cases: launches in the 30-layer forward (B3 under
+        # pallas, B8b under sage) and in dit_train's timed steps (B2a, B2b)
+        if tag in dit_rows:
+            src = {"B3": new_paths["dit_forward pallas"],
+                   "B8b": new_paths["dit_forward sage"]}.get(
+                       tag, new_paths["dit_train"])
+            r["dit_cases"] = [dict(dit_rows[tag], launches=src[r["name"]])]
+        # launches on the mesh engine's prefill and decode, the async
+        # layer's forward and backward, the DiT forward and training
+        r["new_path_launches"] = {p: c[r["name"]] for p, c in
+                                  new_paths.items() if c[r["name"]]}
     emit({"kernels": rows})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -8,7 +8,12 @@ that runs for CPU tensors. Entry points run on the card unless given
 ``device="cpu"``. The package imports neither JAX nor the JAX package.
 """
 
-from long_context_attention_tpu_torch.models import ModelConfig, init_params  # noqa: F401
+from long_context_attention_tpu_torch.models import (  # noqa: F401
+    DiTConfig,
+    ModelConfig,
+    init_dit_params,
+    init_params,
+)
 from long_context_attention_tpu_torch.ops import (  # noqa: F401
     KVCache,
     block_sparse_attention,
@@ -20,6 +25,7 @@ from long_context_attention_tpu_torch.ops import (  # noqa: F401
     xla_attention,
 )
 from long_context_attention_tpu_torch.parallel import (  # noqa: F401
+    AsyncLongContextAttention,
     LongContextAttention,
     UlyssesAttention,
     make_usp_mesh,

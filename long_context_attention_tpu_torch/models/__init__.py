@@ -1,4 +1,5 @@
-"""The llama model: serving and single-device training."""
+"""The llama model (serving, training on one device or a mesh) and the DiT
+family."""
 
 from long_context_attention_tpu_torch.models.llama import (  # noqa: F401
     ModelConfig,
@@ -9,4 +10,12 @@ from long_context_attention_tpu_torch.models.llama import (  # noqa: F401
     make_train_step,
     param_leaves,
     prefill_chunk_step,
+)
+from long_context_attention_tpu_torch.models.dit import (  # noqa: F401
+    DiTConfig,
+    dit_forward_local,
+    init_dit_params,
+    make_dit_forward,
+    make_dit_train_step,
+    timestep_embedding,
 )

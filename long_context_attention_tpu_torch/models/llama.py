@@ -78,7 +78,8 @@ from long_context_attention_tpu_torch.utils.config import (
 
 __all__ = ["ModelConfig", "init_params", "rmsnorm", "rope", "forward_local",
            "local_positions", "loss_local", "make_forward",
-           "make_train_step", "param_leaves",
+           "make_train_step", "optimizer_step", "param_leaves",
+           "check_devices", "step_device", "world_size",
            "prefill_chunk_step", "decode_step", "decode_multi_step",
            "layer_params"]
 
@@ -372,13 +373,14 @@ def loss_local(params: Params, tokens: torch.Tensor, labels: torch.Tensor,
     ll = torch.gather(logp, -1, labels[..., None].long())[..., 0]
     maskf = mask.float()
     den = maskf.sum()
-    if mesh is not None and _world(mesh) > 1:
+    if mesh is not None and world_size(mesh) > 1:
         den = den.detach().clone()
         dist.all_reduce(den)
     return -(ll * maskf).sum() / torch.clamp(den, min=1.0)
 
 
-def _world(mesh) -> int:
+def world_size(mesh) -> int:
+    """The number of ranks of a USP mesh (dp x ring x ulysses)."""
     return mesh.dp * mesh.ring * mesh.ulysses
 
 
@@ -399,6 +401,53 @@ def param_leaves(params: Params) -> List[torch.Tensor]:
     if isinstance(params, dict):
         return [t for v in params.values() for t in param_leaves(v)]
     return [params]
+
+
+def check_devices(dev: torch.device, what: str, **tensors) -> None:
+    """Raise unless every tensor lives on ``dev``, where ``what`` runs."""
+    for name, t in tensors.items():
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, but the {what} runs "
+                             f"on {dev}")
+
+
+def step_device(mesh, device) -> torch.device:
+    """Where a step over ``mesh`` runs: the mesh's device (``device``, when
+    given, must be it); without a mesh ``device`` (None: the card, raising
+    without one)."""
+    if mesh is None:
+        return resolve_device(device)
+    if device is not None and resolve_device(device) != mesh.device:
+        raise ValueError(f"device {device} is not the mesh's {mesh.device}")
+    return mesh.device
+
+
+def optimizer_step(params: Params, opt_state, optimizer: Callable,
+                   loss_fn: Callable, mesh=None):
+    """One step of a train step: ``loss_fn(params)`` and its backward, the
+    gradients and the loss summed over the whole mesh when it has more than
+    one rank, then ``opt_state`` (built by ``optimizer`` over
+    :func:`param_leaves` when None) updates ``params`` IN PLACE. Returns
+    (params, opt_state, the detached loss)."""
+    leaves = param_leaves(params)
+    if opt_state is None:
+        opt_state = optimizer(leaves)
+    owned = {id(p) for grp in opt_state.param_groups for p in grp["params"]}
+    if owned != {id(p) for p in leaves}:
+        raise ValueError("opt_state does not hold these params: build it "
+                         "with optimizer(param_leaves(params))")
+    for p in leaves:
+        p.requires_grad_(True)
+    loss = loss_fn(params)
+    loss.backward()
+    loss = loss.detach()
+    if mesh is not None and world_size(mesh) > 1:
+        for p in leaves:
+            dist.all_reduce(p.grad)
+        dist.all_reduce(loss)
+    opt_state.step()
+    opt_state.zero_grad(set_to_none=True)
+    return params, opt_state, loss
 
 
 def make_train_step(cfg: ModelConfig, optimizer: Callable, mesh=None, *,
@@ -425,40 +474,15 @@ def make_train_step(cfg: ModelConfig, optimizer: Callable, mesh=None, *,
     the whole mesh (the data-parallel and sequence-parallel reduction), and
     every rank applies the same update to its replica. The loss returned is
     the global loss."""
-    if mesh is not None:
-        dev = mesh.device
-        if device is not None and resolve_device(device) != dev:
-            raise ValueError(f"device {device} is not the mesh's {dev}")
-    else:
-        dev = resolve_device(device)
+    dev = step_device(mesh, device)
 
     def step(params, opt_state, tokens, labels, mask):
-        leaves = param_leaves(params)
-        for name, t in (("params['embed']", params["embed"]),
-                        ("tokens", tokens), ("labels", labels),
-                        ("mask", mask)):
-            if t.device != dev:
-                raise ValueError(f"{name} is on {t.device}, but the step "
-                                 f"runs on {dev}")
-        if opt_state is None:
-            opt_state = optimizer(leaves)
-        owned = {id(p) for grp in opt_state.param_groups
-                 for p in grp["params"]}
-        if owned != {id(p) for p in leaves}:
-            raise ValueError("opt_state does not hold these params: build it "
-                             "with optimizer(param_leaves(params))")
-        for p in leaves:
-            p.requires_grad_(True)
-        loss = loss_local(params, tokens, labels, mask, cfg, mesh=mesh)
-        loss.backward()
-        loss = loss.detach()
-        if mesh is not None and _world(mesh) > 1:
-            for p in leaves:
-                dist.all_reduce(p.grad)
-            dist.all_reduce(loss)
-        opt_state.step()
-        opt_state.zero_grad(set_to_none=True)
-        return params, opt_state, loss
+        check_devices(dev, "step", **{"params['embed']": params["embed"]},
+                      tokens=tokens, labels=labels, mask=mask)
+        return optimizer_step(
+            params, opt_state, optimizer,
+            lambda p: loss_local(p, tokens, labels, mask, cfg, mesh=mesh),
+            mesh)
 
     return step
 

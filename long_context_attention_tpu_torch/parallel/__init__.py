@@ -1,6 +1,6 @@
 """Sequence parallelism of the port: layouts, the USP process-group mesh,
 the Ulysses all-to-all, the dense and the block-sparse rings, and the USP
-layers over them."""
+layers over them (the async, head-group pipelined one too)."""
 
 from long_context_attention_tpu_torch.parallel.layouts import (  # noqa: F401
     LAYOUTS,
@@ -31,14 +31,17 @@ from long_context_attention_tpu_torch.parallel.ring_sparse import (  # noqa: F40
     ring_sparse_attention_local,
 )
 from long_context_attention_tpu_torch.parallel.ulysses import (  # noqa: F401
+    PendingScatter,
     gather_heads,
     gather_seq,
     scatter_heads,
     ulysses_attention_local,
 )
 from long_context_attention_tpu_torch.parallel.usp import (  # noqa: F401
+    AsyncLongContextAttention,
     LongContextAttention,
     UlyssesAttention,
+    async_usp_attention_local,
     ulysses_sparse_attention_local,
     usp_attention_local,
     usp_ring_sparse_attention_local,

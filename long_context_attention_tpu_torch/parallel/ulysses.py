@@ -17,7 +17,7 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
-__all__ = ["scatter_heads", "gather_heads", "gather_seq",
+__all__ = ["scatter_heads", "PendingScatter", "gather_heads", "gather_seq",
            "ulysses_attention_local", "group_size", "group_rank"]
 
 
@@ -39,14 +39,23 @@ def _a2a(x: torch.Tensor, group) -> torch.Tensor:
     return out
 
 
-def _scatter(x: torch.Tensor, group) -> torch.Tensor:
-    u = group_size(group)
+def _scatter_blocks(x: torch.Tensor, u: int) -> torch.Tensor:
+    """(b, s, h, d) -> (u, b, s, h/u, d): the head blocks rank j gets."""
     b, s, h, d = x.shape
     if h % u:
         raise ValueError(f"{h} heads do not divide by the ulysses degree {u}")
-    blocks = x.reshape(b, s, u, h // u, d).permute(2, 0, 1, 3, 4)
-    got = _a2a(blocks, group)  # (u source ranks, b, s, h/u, d)
+    return x.reshape(b, s, u, h // u, d).permute(2, 0, 1, 3, 4)
+
+
+def _scatter_join(got: torch.Tensor, shape, u: int) -> torch.Tensor:
+    """The (u source ranks, b, s, h/u, d) received -> (b, u*s, h/u, d)."""
+    b, s, h, d = shape
     return got.permute(1, 0, 2, 3, 4).reshape(b, u * s, h // u, d)
+
+
+def _scatter(x: torch.Tensor, group) -> torch.Tensor:
+    u = group_size(group)
+    return _scatter_join(_a2a(_scatter_blocks(x, u), group), x.shape, u)
 
 
 def _gather(x: torch.Tensor, group) -> torch.Tensor:
@@ -99,19 +108,62 @@ def gather_heads(x: torch.Tensor,
     return _GatherHeads.apply(x, group)
 
 
-def gather_seq(ids: torch.Tensor,
-               group: Optional[dist.ProcessGroup]) -> torch.Tensor:
-    """(b, s/U) per rank -> (b, s): the ulysses group's chunks along the
-    sequence in rank order, the order :func:`scatter_heads` concatenates
-    them in (JAX's tiled ``lax.all_gather`` of the segment ids, which have
-    no head dim to scatter). No gradient: the ids are integers."""
+class _AllToAllStart(torch.autograd.Function):
+    """all_to_all over dim 0 issued with ``async_op=True``: the forward
+    returns the receive buffer at once and appends the work to ``works``;
+    the backward is the synchronous all-to-all (its own transpose)."""
+
+    @staticmethod
+    def forward(ctx, x, group, works):
+        ctx.group = group
+        out = torch.empty_like(x)
+        works.append(dist.all_to_all_single(out, x, group=group,
+                                            async_op=True))
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _a2a(grad, ctx.group), None, None
+
+
+class PendingScatter:
+    """:func:`scatter_heads` issued asynchronously (``async_op=True``):
+    work queued before :meth:`wait` overlaps the all-to-all, and
+    :meth:`wait` returns the result; differentiable like
+    :func:`scatter_heads` (U = 1: no collective). Holds the send buffer
+    until then."""
+
+    def __init__(self, x: torch.Tensor, group: Optional[dist.ProcessGroup]):
+        self.group, self.shape, self.u = group, x.shape, group_size(group)
+        self.works = []
+        if self.u == 1:
+            self.got = x
+            return
+        self.blocks = _scatter_blocks(x, self.u).contiguous()
+        self.got = _AllToAllStart.apply(self.blocks, group, self.works)
+
+    def wait(self) -> torch.Tensor:
+        if self.u == 1:
+            return self.got
+        for work in self.works:
+            work.wait()
+        self.blocks = None
+        return _scatter_join(self.got, self.shape, self.u)
+
+
+def gather_seq(x: torch.Tensor, group: Optional[dist.ProcessGroup],
+               dim: int = 1) -> torch.Tensor:
+    """The group's chunks of a sequence joined along ``dim`` in rank order,
+    the order :func:`scatter_heads` concatenates them in: (b, s/U) segment
+    ids -> (b, s) (JAX's tiled ``lax.all_gather`` of the ids, which have no
+    head dim to scatter), or any tensor's sequence dim. No gradient."""
     u = group_size(group)
     if u == 1:
-        return ids
-    ids = ids.contiguous()
-    parts = [torch.empty_like(ids) for _ in range(u)]
-    dist.all_gather(parts, ids, group=group)
-    return torch.cat(parts, dim=1)
+        return x
+    x = x.contiguous()
+    parts = [torch.empty_like(x) for _ in range(u)]
+    dist.all_gather(parts, x, group=group)
+    return torch.cat(parts, dim=dim)
 
 
 def ulysses_attention_local(q, k, v, attn_fn, *,

@@ -13,8 +13,7 @@ q (b/dp, s/(R*U), h, d) and k, v (b/dp, s/(R*U), h_kv, d), the sequence in
 layout order (``permute_for_layout``) and cut by ``seq_shard`` (chunk
 ``ring_idx * U + ulysses_idx``), the convention of the reference's layers.
 The dense layer takes segment ids (packed varlen batches), ALiBi slopes and
-dropout, the reference layer's training knobs; the async (head-group
-pipelined) layer is not ported.
+dropout, the reference layer's training knobs.
 """
 
 from __future__ import annotations
@@ -38,6 +37,7 @@ from long_context_attention_tpu_torch.parallel.ring_sparse import (
     ring_sparse_attention_local,
 )
 from long_context_attention_tpu_torch.parallel.ulysses import (
+    PendingScatter,
     gather_heads,
     gather_seq,
     group_rank,
@@ -45,9 +45,10 @@ from long_context_attention_tpu_torch.parallel.ulysses import (
     scatter_heads,
 )
 
-__all__ = ["usp_attention_local", "ulysses_sparse_attention_local",
+__all__ = ["usp_attention_local", "async_usp_attention_local",
+           "ulysses_sparse_attention_local",
            "usp_ring_sparse_attention_local", "LongContextAttention",
-           "UlyssesAttention"]
+           "UlyssesAttention", "AsyncLongContextAttention"]
 
 
 def usp_attention_local(
@@ -113,6 +114,63 @@ def usp_attention_local(
         sink_tokens=sink_tokens, block_sizes=block_sizes,
         interpret=interpret, safe_softmax=safe_softmax)
     return gather_heads(out, ulysses_group)
+
+
+def async_usp_attention_local(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    ulysses_group: Optional[dist.ProcessGroup],
+    ring_group: Optional[dist.ProcessGroup],
+    n_groups: Optional[int] = None,
+    layout: str = "zigzag",
+    causal: bool = False,
+    softmax_scale: Optional[float] = None,
+    window_size: Tuple[int, int] = (-1, -1),
+    softcap: float = 0.0,
+    impl: str = "pallas",
+    block_sizes=None,
+    interpret: Optional[bool] = None,
+) -> torch.Tensor:
+    """Head-group pipelined USP on this rank's shards (the reference's
+    ``AsyncLongContextAttention.forward``,
+    ``hybrid/async_attn_layer.py:44-197``).
+
+    The heads split into ``n_groups`` groups (default ``max(h_kv / U, 1)``,
+    one kv head per ulysses rank a group): group i holds q heads ``[i*gh,
+    (i+1)*gh)`` and kv heads ``[i*gkv, (i+1)*gkv)``, so GQA's map from q
+    head to kv head is kept. Each group runs the a2a . ring . a2a^-1 chain
+    of :func:`usp_attention_local`, and the outputs join on heads. The next
+    group's head-scatter all-to-alls are issued (``async_op=True``) before
+    this group's ring runs, so they overlap it; with U = 1 no collective
+    runs. Differentiable (the reference's backward raises)."""
+    u = group_size(ulysses_group)
+    h, h_kv = q.shape[2], k.shape[2]
+    if n_groups is None:
+        n_groups = max(h_kv // u, 1)
+    if h % n_groups or h_kv % n_groups:
+        raise ValueError(f"heads ({h}, kv {h_kv}) must divide into "
+                         f"{n_groups} groups")
+    gh, gkv = h // n_groups, h_kv // n_groups
+
+    def start(i):
+        return [PendingScatter(t[:, :, i * w:(i + 1) * w], ulysses_group)
+                for t, w in ((q, gh), (k, gkv), (v, gkv))]
+
+    outs = []
+    pending = start(0)
+    for i in range(n_groups):
+        qi, ki, vi = (p.wait() for p in pending)
+        if i + 1 < n_groups:
+            pending = start(i + 1)
+        out = ring_attention_local(
+            qi, ki, vi, group=ring_group, layout=layout, causal=causal,
+            softmax_scale=softmax_scale, window_size=window_size,
+            softcap=softcap, impl=impl, block_sizes=block_sizes,
+            interpret=interpret)
+        outs.append(gather_heads(out, ulysses_group))
+    return torch.cat(outs, dim=2)
 
 
 def _head_shard(block_mask, group):
@@ -291,3 +349,30 @@ class UlyssesAttention(_LayerBase):
             causal=causal, softmax_scale=softmax_scale,
             block_q=sparse_block_q, block_kv=sparse_block_kv,
             interpret=self.interpret)
+
+
+class AsyncLongContextAttention(_LayerBase):
+    """The head-group pipelined USP layer (``hybrid/async_attn_layer.py:13``
+    of the reference) on this rank's shards: :func:`async_usp_attention_local`
+    with the layer's layout, impl and ``n_groups`` (None: one kv head per
+    ulysses rank a group, the reference's ``un = hc / ud``)."""
+
+    def __init__(self, mesh: UspMesh, axes: MeshAxes = MeshAxes(),
+                 layout: str = "zigzag", impl: str = "pallas",
+                 kv_quant: Optional[str] = None, bidirectional: bool = False,
+                 block_sizes=None, interpret: Optional[bool] = None,
+                 n_groups: Optional[int] = None):
+        super().__init__(mesh, axes, layout, impl, kv_quant, bidirectional,
+                         block_sizes, interpret)
+        self.n_groups = n_groups
+
+    def forward(self, q, k, v, *, causal: bool = False,
+                softmax_scale: Optional[float] = None,
+                window_size: Tuple[int, int] = (-1, -1),
+                softcap: float = 0.0) -> torch.Tensor:
+        return async_usp_attention_local(
+            q, k, v, ulysses_group=self.mesh.ulysses_group,
+            ring_group=self.mesh.ring_group, n_groups=self.n_groups,
+            layout=self.layout, causal=causal, softmax_scale=softmax_scale,
+            window_size=window_size, softcap=softcap, impl=self.impl,
+            block_sizes=self.block_sizes, interpret=self.interpret)

@@ -1,9 +1,10 @@
 """Generation engine: prefill, chunked prefill and the decode loop.
 
-Counterpart of ``long_context_attention_tpu/serving/engine.py`` on one
-device: the prompt prefills through the model forward (whole, or in chunks
-against the growing cache), its post-RoPE K/V land in a bf16, int8, fp8
-or int4 :class:`KVCache`, and generation is a Python loop of single-token
+Counterpart of ``long_context_attention_tpu/serving/engine.py``: the
+prompt prefills through the model forward (whole, or in chunks against the
+growing cache; the whole prompt optionally sequence-sharded over a USP
+mesh), its post-RoPE K/V land in a bf16, int8, fp8 or int4
+:class:`KVCache`, and generation is a Python loop of single-token
 :func:`decode_step` calls that update the cache in place. JAX PRNG keys
 become ``torch.Generator``s.
 """
@@ -14,19 +15,25 @@ import dataclasses
 from typing import Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from long_context_attention_tpu_torch.models.llama import (
     ModelConfig,
+    check_devices,
     decode_step,
     forward_local,
     prefill_chunk_step,
+    step_device,
 )
 from long_context_attention_tpu_torch.ops.kv_cache import KVCache
 from long_context_attention_tpu_torch.ops.wquant import quantize_decode_params
-from long_context_attention_tpu_torch.utils.config import (
-    not_ported,
-    resolve_device,
+from long_context_attention_tpu_torch.parallel.layouts import (
+    layout_permutation,
+    permute_for_layout,
+    unpermute_from_layout,
 )
+from long_context_attention_tpu_torch.parallel.mesh import MeshAxes
+from long_context_attention_tpu_torch.parallel.ulysses import gather_seq
 
 __all__ = ["Engine", "GenerationResult", "SamplingParams", "sample_token",
            "sampling_probs", "token_logprob", "transform_logits"]
@@ -94,7 +101,7 @@ def token_logprob(logits: torch.Tensor, tok: torch.Tensor) -> torch.Tensor:
 
 @dataclasses.dataclass(frozen=True)
 class Engine:
-    """Single-device generation engine for the llama model.
+    """Generation engine for the llama model.
 
     ``cache_dtype``: "bfloat16" | "int8" | "float8_e4m3fn" | "int4"
     (int4 packed two per byte along d). ``weight_dtype``: "bfloat16" |
@@ -102,8 +109,16 @@ class Engine:
     (:meth:`decode_params`), prefill keeps the bf16 ``params``.
     ``device``: where the engine runs and its caches are made; None means
     the card (raises without one), "cpu" runs every kernel's plain version.
-    Params, tokens and caches on another device raise. The JAX engine's
-    ``mesh`` (sequence-sharded prefill) is not ported: passing one raises.
+    Params, tokens and caches on another device raise.
+
+    ``mesh`` (a ``make_usp_mesh`` mesh; every rank builds the engine and
+    calls it alike): :meth:`prefill` runs the prompt's forward sequence-
+    sharded over the mesh's (ring, ulysses) ranks in ``cfg.layout``, the
+    batch replicated over dp; every rank then holds the last token's
+    logits and the whole prompt's cache in natural order, so
+    :meth:`generate` and :meth:`decode_scan` run unchanged on each rank.
+    The engine runs on the mesh's device. :meth:`prefill_chunked` stays on
+    one device, as in JAX. ``axes`` names the mesh axes (API parity).
     """
 
     cfg: ModelConfig
@@ -112,13 +127,13 @@ class Engine:
     weight_dtype: str = "bfloat16"
     mesh: Optional[object] = None
     device: Optional[object] = None
+    axes: MeshAxes = MeshAxes()
 
     def __post_init__(self):
-        if self.mesh is not None:
-            raise not_ported("sequence-sharded prefill (mesh)")
         if self.weight_dtype not in ("bfloat16", "int8"):
             raise ValueError(f"weight_dtype {self.weight_dtype!r}")
-        object.__setattr__(self, "device", resolve_device(self.device))
+        object.__setattr__(self, "device",
+                           step_device(self.mesh, self.device))
 
     def decode_params(self, params):
         """The params the decode loop runs with: int8 QTensor weights when
@@ -134,10 +149,13 @@ class Engine:
 
     def prefill(self, params, tokens: torch.Tensor
                 ) -> Tuple[torch.Tensor, KVCache]:
-        """tokens (b, s_prompt) -> (last-token logits (b, vocab), cache)."""
+        """tokens (b, s_prompt) -> (last-token logits (b, vocab), cache);
+        with ``mesh``, on every rank (:meth:`_prefill_mesh`)."""
         b, s = tokens.shape
         self._check_fits(s)
         self._check_device(params, tokens=tokens)
+        if self.mesh is not None:
+            return self._prefill_mesh(params, tokens)
         with torch.no_grad():
             logits, (kv_k, kv_v) = forward_local(
                 params, tokens, self.cfg, return_kv=True, last_index=s - 1)
@@ -146,6 +164,50 @@ class Engine:
             cache.write_prompt(layer, kv_k[layer], kv_v[layer])
         cache.advance(s)
         return logits[:, 0], cache
+
+    def _prefill_mesh(self, params, tokens: torch.Tensor
+                      ) -> Tuple[torch.Tensor, KVCache]:
+        """The sequence-sharded prefill (JAX ``serving/engine.py:96-197``):
+        the prompt is permuted into ``cfg.layout`` over the ring and each
+        rank runs ``forward_local`` on its chunk (``ring_idx * U +
+        ulysses_idx``) with only the last natural token's local row through
+        lm_head; the rank that owns that token keeps its row, the others
+        zeros, summed over the ring and ulysses groups (JAX's masked
+        ``psum``). K and V are gathered over the sequence ranks, put back
+        in natural order and written into every rank's cache."""
+        mesh, cfg = self.mesh, self.cfg
+        b, s = tokens.shape
+        n_seq = mesh.ring * mesh.ulysses
+        if s % n_seq:
+            raise ValueError(f"prompt length {s} does not divide over the "
+                             f"{n_seq} sequence ranks")
+        last = s - 1
+        if cfg.layout != "basic":
+            perm = layout_permutation(cfg.layout, mesh.ring, s)
+            last = int((perm == s - 1).argmax())
+        s_local = s // n_seq
+        owner, loc = divmod(last, s_local)
+        local = permute_for_layout(tokens, cfg.layout, mesh.ring,
+                                   axis=1).chunk(n_seq, dim=1)[mesh.seq_idx]
+        with torch.no_grad():
+            logits, kv = forward_local(params, local, cfg, mesh=mesh,
+                                       return_kv=True, last_index=loc)
+        logits = logits[:, 0]
+        if mesh.seq_idx != owner:
+            logits = torch.zeros_like(logits)
+        for group in (mesh.ring_group, mesh.ulysses_group):
+            if group is not None:
+                dist.all_reduce(logits, group=group)
+        # the ulysses group's chunks are consecutive in the sequence, then
+        # the ring's
+        kv_k, kv_v = (unpermute_from_layout(gather_seq(gather_seq(
+            t, mesh.ulysses_group, dim=2), mesh.ring_group, dim=2),
+            cfg.layout, mesh.ring, axis=2) for t in kv)
+        cache = self.init_cache(b)
+        for layer in range(cfg.n_layers):
+            cache.write_prompt(layer, kv_k[layer], kv_v[layer])
+        cache.advance(s)
+        return logits, cache
 
     def prefill_chunked(self, params, tokens: torch.Tensor, chunk_size: int
                         ) -> Tuple[torch.Tensor, KVCache]:
@@ -203,13 +265,11 @@ class Engine:
     def _check_device(self, params, **tensors) -> None:
         """Raise unless the weights and ``tensors`` live on the engine's
         device: a card engine never computes on CPU tensors."""
-        tensors = {"params['embed']": params["embed"], **tensors}
-        for name, t in tensors.items():
-            if t.device != self.device:
-                raise ValueError(f"{name} is on {t.device}, but the engine "
-                                 f"runs on {self.device}")
+        check_devices(self.device, "engine",
+                      **{"params['embed']": params["embed"]}, **tensors)
 
     def _check_fits(self, s: int) -> None:
         if s > self.s_max:
             raise ValueError(f"prompt length {s} exceeds cache capacity "
                              f"s_max={self.s_max}")
+

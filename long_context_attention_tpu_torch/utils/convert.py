@@ -29,8 +29,9 @@ def _leaf(x, device) -> torch.Tensor:
 
 
 def params_from_jax(tree: Any, device=None) -> Any:
-    """Map a JAX ``init_params`` pytree (nested dicts of numpy arrays, e.g.
-    ``jax.tree.map(np.asarray, params)``) to the port's parameter dict:
+    """Map a JAX params pytree -- the llama ``init_params``'s or the DiT
+    ``init_dit_params``'s, nested dicts of numpy arrays (e.g.
+    ``jax.tree.map(np.asarray, params)``) -- to the port's parameter dict:
     the same keys, stacked ``(L, ...)`` layer leaves included, as tensors
     on ``device`` (default: the card; raises without one)."""
     dev = resolve_device(device)

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""The dense USP layer over several ranks: one per card with NCCL, or gloo
-processes on the CPU.
+"""The dense USP layer, the async USP layer, the sequence-sharded serving
+prefill and the DiT forward over several ranks: one per card with NCCL, or
+gloo processes on the CPU.
 
     python3 scripts/torch_usp_multi.py            # 4 cards (NCCL)
     python3 scripts/torch_usp_multi.py --cpu      # 4 gloo processes, small
@@ -14,8 +15,23 @@ within 2^-5 of each row's size, out and gradients within 0.1, the bf16
 gate), each rank's kernel launches against the ring's (one B3, B2a and
 B2b per ring step). On the cards it then times the layer's forward and
 backward (CUDA events, a barrier before each window) beside the
-one-device call. Prints one JSON line per mesh, the card and its power
-limit, and exits non-zero when a check fails.
+one-device call. Then, on the same ranks:
+
+* ``AsyncLongContextAttention`` (default head groups) against
+  ``LongContextAttention`` on the same mesh, at ulysses 2 x ring 2 and
+  ulysses 4: out and gradients bit for bit (each differing tensor held to
+  the row and bf16 gates instead, and reported), both timed;
+* ``Engine(mesh=..., cache_dtype="int8")`` (the 0.88B config, zigzag) at
+  ulysses 2 x ring 2 and ring 4 against one device's ``Engine.prefill``
+  of the same prompt (1 x 32768 on the cards): the last token's logits
+  and the cache's dequantized prompt rows within 0.5 (the teacher-forcing
+  gate), both timed;
+* the DiT forward at Wan2.1-1.3B's widths (30 layers, 32760 tokens on the
+  cards) at ulysses 4 (3 heads a rank) and ring 4, timed beside one
+  device's, and its 2-layer model against one device's within 0.1.
+
+Prints one JSON line per case, the card and its power limit, and exits
+non-zero when a check fails.
 """
 
 import argparse
@@ -45,6 +61,24 @@ MESHES = (("ring 4 zigzag", 1, 4, "zigzag", False),
           ("ulysses 2 x ring 2 zigzag", 2, 2, "zigzag", False),
           ("ulysses 4", 4, 1, "basic", False))
 RING_KERNELS = ("flash_fwd_pos", "flash_bwd_dq", "flash_bwd_dkv")
+TEACHER_TOL = 0.5
+# (name, ulysses, ring) of the async layer, the mesh engine and the DiT
+ASYNC_MESHES = (("ulysses 2 x ring 2", 2, 2), ("ulysses 4", 4, 1))
+ENGINE_MESHES = (("ulysses 2 x ring 2", 2, 2), ("ring 4", 1, 4))
+DIT_MESHES = (("ulysses 4", 4, 1), ("ring 4", 1, 4))
+# the models: the 0.88B llama of bench.py and Wan2.1-T2V-1.3B's DiT widths
+# on the cards (chip_smoke.py MODEL, WAN_DIT), tiny ones on the CPU
+LLAMA = {False: dict(vocab=32000, dim=2048, n_layers=16, n_heads=16,
+                     n_kv_heads=8, head_dim=128, ffn_hidden=int(2048 * 2.7),
+                     layout="zigzag"),
+         True: dict(vocab=64, dim=64, n_layers=2, n_heads=4, n_kv_heads=2,
+                    head_dim=32, ffn_hidden=128, layout="zigzag")}
+PROMPT = {False: (1, 32768), True: (2, 64)}
+DIT = {False: dict(in_dim=64, dim=1536, n_layers=30, n_heads=12,
+                   head_dim=128, ffn_hidden=8960),
+       True: dict(in_dim=8, dim=64, n_layers=2, n_heads=4, head_dim=16,
+                  ffn_hidden=128)}
+DIT_TOKENS = {False: 21 * 30 * 52, True: 256}
 
 
 def _row_rel(got, want):
@@ -67,6 +101,168 @@ def _time_ms(fn, iters):
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / iters
+
+
+def _wall(fn, cpu, barrier=True):
+    """(result, seconds) of fn, the card synchronized before and after;
+    with ``barrier`` every rank starts it together (all ranks must call)."""
+    if not cpu:
+        torch.cuda.synchronize()
+    if barrier:
+        dist.barrier()
+    t0 = time.perf_counter()
+    res = fn()
+    if not cpu:
+        torch.cuda.synchronize()
+    return res, time.perf_counter() - t0
+
+
+def _async_cases(device, cpu, q, k, v, dout):
+    """The async layer against the dense one on each of ASYNC_MESHES."""
+    from long_context_attention_tpu_torch.parallel import (
+        AsyncLongContextAttention, LongContextAttention, make_usp_mesh,
+        seq_shard)
+
+    rows, ok = [], True
+    for name, uly, ring in ASYNC_MESHES:
+        mesh = make_usp_mesh(ulysses=uly, ring=ring, device=device)
+        shards = [seq_shard(mesh, t) for t in (q, k, v, dout)]
+        leaves = [t.clone().requires_grad_() for t in shards[:3]]
+        layers = {"dense": LongContextAttention(mesh),
+                  "async": AsyncLongContextAttention(mesh)}
+
+        def run(layer):
+            out = layer(*leaves, causal=True)
+            return (out.detach(), *torch.autograd.grad(out, leaves,
+                                                       shards[3]))
+
+        want, got = run(layers["dense"]), run(layers["async"])
+        row = {"case": "async vs dense layer", "mesh": name,
+               "n_groups": k.shape[2] // uly, "bit_equal": {}}
+        for g, a, w in zip(("out", "dq", "dk", "dv"), got, want):
+            row["bit_equal"][g] = bool(torch.equal(a, w))
+            if not row["bit_equal"][g]:
+                err = float((a.float() - w.float()).abs().max())
+                row["bit_equal"][f"{g}_max_abs_err"] = err
+                ok = ok and err <= ATOL and (
+                    g != "out" or _row_rel(a, w) <= ROW_REL_TOL)
+        if not cpu:
+            for tag, layer in list(layers.items()) * 2:  # in turns
+                row.setdefault(f"{tag}_fwd_bwd_ms", []).append(_time_ms(
+                    lambda: torch.autograd.grad(layer(*leaves, causal=True),
+                                                leaves, shards[3]), 5))
+        rows.append(row)
+        del want, got, leaves, shards
+    return rows, ok
+
+
+def _dequantized(cache, name, n):
+    vals = getattr(cache, name)[:, :, :, :n].float()
+    scale = getattr(cache, f"{name}_scale")
+    return vals if scale is None else vals * scale[:, :, :, 0, :n, None]
+
+
+def _engine_cases(rank, device, cpu):
+    """Engine(mesh=...) on each of ENGINE_MESHES against one device's
+    Engine.prefill (rank 0) of the same weights and prompt."""
+    from long_context_attention_tpu_torch.models.llama import (
+        ModelConfig, init_params)
+    from long_context_attention_tpu_torch.parallel import make_usp_mesh
+    from long_context_attention_tpu_torch.serving.engine import Engine
+
+    cfg = ModelConfig(**LLAMA[cpu])
+    b, s = PROMPT[cpu]
+    gen = torch.Generator(device=device).manual_seed(SEED + 3)
+    params = init_params(gen, cfg, device=device)
+    prompt = torch.randint(0, cfg.vocab, (b, s), generator=gen,
+                           device=device)
+    kw = dict(cfg=cfg, s_max=s + 64, cache_dtype="int8")
+    want = one_s = None
+    if rank == 0:
+        one = Engine(**kw, device=device)
+        one.prefill(params, prompt[:, :s // 8])  # warm-up
+        (logits, cache), one_s = _wall(lambda: one.prefill(params, prompt),
+                                       cpu, barrier=False)
+        want = (logits, _dequantized(cache, "k", s),
+                _dequantized(cache, "v", s))
+        del cache
+    rows, ok = [], True
+    for name, uly, ring in ENGINE_MESHES:
+        mesh = make_usp_mesh(ulysses=uly, ring=ring, device=device)
+        eng = Engine(**kw, mesh=mesh)
+        eng.prefill(params, prompt[:, :s // 8])  # warm-up
+        (logits, cache), mesh_s = _wall(lambda: eng.prefill(params, prompt),
+                                        cpu)
+        row = {"case": "Engine(mesh=...).prefill vs one device",
+               "mesh": name, "batch": b, "prompt": s,
+               "cache_dtype": "int8", "mesh_prefill_s": mesh_s,
+               "one_device_prefill_s": one_s}
+        if rank == 0:
+            got = (logits, _dequantized(cache, "k", s),
+                   _dequantized(cache, "v", s))
+            row["max_abs_err"] = {
+                g: float((a - w).abs().max())
+                for g, a, w in zip(("logits", "k", "v"), got, want)}
+            ok = ok and bool(torch.isfinite(logits).all()) and all(
+                e <= TEACHER_TOL for e in row["max_abs_err"].values())
+            del got
+        rows.append(row)
+        del cache, logits
+    return rows, ok
+
+
+def _dit_cases(rank, device, cpu):
+    """The DiT forward on each of DIT_MESHES against one device's (rank 0):
+    the whole model timed, its 2-layer cut held within ATOL."""
+    import dataclasses
+
+    from long_context_attention_tpu_torch.models.dit import (
+        DiTConfig, init_dit_params, make_dit_forward)
+    from long_context_attention_tpu_torch.parallel import (
+        make_usp_mesh, seq_shard, seq_unshard)
+
+    cfg = DiTConfig(**DIT[cpu])
+    n = DIT_TOKENS[cpu]
+    gen = torch.Generator(device=device).manual_seed(SEED + 4)
+    models = {}
+    for tag, c in (("full", cfg), ("2 layers",
+                                   dataclasses.replace(cfg, n_layers=2))):
+        p = init_dit_params(gen, c, device=device)
+        for node, key in ((p["layers"], "mod"), (p, "out")):
+            node[key] = (torch.randn(node[key].shape, generator=gen,
+                                     device=device)
+                         / c.dim ** 0.5).to(c.dtype)
+        models[tag] = (c, p)
+    x = torch.randn((1, n, cfg.in_dim), generator=gen, device=device)
+    t = torch.randint(0, 1000, (1,), generator=gen, device=device)
+    want = one_s = None
+    if rank == 0:
+        fwd = make_dit_forward(cfg, device=device)
+        fwd(models["full"][1], x[:, :n // 8], t)  # warm-up
+        _, one_s = _wall(lambda: fwd(models["full"][1], x, t), cpu,
+                         barrier=False)
+        c2, p2 = models["2 layers"]
+        want = make_dit_forward(c2, device=device)(p2, x, t)
+    rows, ok = [], True
+    for name, uly, ring in DIT_MESHES:
+        mesh = make_usp_mesh(ulysses=uly, ring=ring, device=device)
+        xs = seq_shard(mesh, x)
+        fwd = make_dit_forward(cfg, mesh)
+        fwd(models["full"][1], xs[:, :xs.shape[1] // 8], t)  # warm-up
+        out, mesh_s = _wall(lambda: fwd(models["full"][1], xs, t), cpu)
+        c2, p2 = models["2 layers"]
+        got = seq_unshard(mesh, make_dit_forward(c2, mesh)(p2, xs, t))
+        row = {"case": "DiT forward vs one device", "mesh": name,
+               "tokens": n, "layers": cfg.n_layers, "heads": cfg.n_heads,
+               "mesh_forward_s": mesh_s, "one_device_forward_s": one_s,
+               "finite": bool(torch.isfinite(out).all())}
+        ok = ok and row["finite"]
+        if rank == 0:
+            row["two_layer_max_abs_err"] = float((got - want).abs().max())
+            ok = ok and row["two_layer_max_abs_err"] <= ATOL
+        rows.append(row)
+        del out, got
+    return rows, ok
 
 
 def _worker(rank, port, cpu, shape, out_path):
@@ -141,6 +337,14 @@ def _worker(rank, port, cpu, shape, out_path):
             row["one_device_fwd_bwd_ms"] = one_ms
         results.append(row)
         del out, grads, got, leaves, shards
+    for cases in (lambda: _async_cases(device, cpu, q, k, v, dout),
+                  lambda: _engine_cases(rank, device, cpu),
+                  lambda: _dit_cases(rank, device, cpu)):
+        rows, case_ok = cases()
+        results += rows
+        ok = ok and case_ok
+        if not cpu:
+            torch.cuda.empty_cache()
     flag = torch.tensor([int(ok)], device=device)
     dist.all_reduce(flag, op=dist.ReduceOp.MIN)
     if rank == 0:
@@ -165,8 +369,9 @@ def main():
         print(f"needs {WORLD} cards, found {torch.cuda.device_count()}",
               file=sys.stderr)
         return 1
-    # b, s, h, h_kv, d: the 0.88B attention width at s = 32768 on cards
-    shape = (1, 512, 4, 4, 32) if args.cpu else (1, 32768, 16, 8, 128)
+    # b, s, h, h_kv, d: the 0.88B attention width at s = 32768 on cards;
+    # on the CPU h_kv 4 for the async layer's groups at ulysses 4
+    shape = (1, 512, 8, 4, 32) if args.cpu else (1, 32768, 16, 8, 128)
     out_path = ROOT / "build" / f"usp_multi_{os.getpid()}.json"
     out_path.parent.mkdir(exist_ok=True)
     t0 = time.perf_counter()
