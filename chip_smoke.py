@@ -173,7 +173,32 @@ Phases, one JSON line each; any failure exits non-zero:
  20. dit_train: make_dit_train_step at those widths over 7800 tokens (17
      frames), AdamW, a warm-up and 3 timed steps with exact counts (B3,
      B2a, B2b) and a falling loss, peak memory; a 2-layer gradient check
-     with non-zero mod and out against the CPU.
+     with non-zero mod and out against the CPU;
+ 21. serve_windowed_paged: the slice_windowed model through
+     PagedContinuousEngine with rolling window pages (int8 cache and
+     weights, pages of 2048, 8 rows, step_block 8) on 12 requests of 64
+     new tokens, prompts of 10225-10231 and 8186-8191 tokens, over a pool
+     of 8 rows' rolling pages + 1: tokens equal to the same engine's with
+     whole-span reservations, at most _rolling_pages() pages a row, the
+     same tokens when every page is poisoned (127, scales 1e4) the moment
+     it is released, a page reclaimed by every row and grown by every 10K
+     row, exact launch counts (B4 and B6 per admission, B6 and one-token
+     B7 per step over page tables that change mid-serve), the native
+     allocator; then the same requests admitted interleaved in chunks of
+     2048 (B7's windowed runs on decode_run), teacher-forced on their own
+     tokens, their first parting from the batch run reported;
+ 22. serve_speculative: the 0.88B target (int8 cache and weights, gamma 4)
+     with a draft at a quarter of its width and depth (dim 1024, 4 layers,
+     8/4 heads of 128): PagedSpeculativeContinuousEngine on bench_paged's
+     first 16 requests (32 new tokens), SpeculativeContinuousEngine on 8 of
+     them (the same tokens), a self-draft on 8 (acceptance at least 0.75),
+     SpeculativeEngine.generate at b=2 and a sampled paged run on 4; every
+     greedy token target-greedy under a bf16 teacher within TEACHER_TOL,
+     exact launch counts per round (gamma + 1 draft steps of B6 and
+     one-token B7, the verify's B6 and B7 run on decode_run), rounds,
+     drafted and accepted tokens, tok/s and acceptance per run.
+Every paged phase asserts that the engine took the native allocator
+(csrc/lca_host.cc, built with g++ into build/host/).
 The kernel phase holds B6's quantizing entry (cache_append_rows: bf16
 rows quantized and written in one launch, b6_rows_case) for every cache
 kind, dense and paged, at runs of 1, 256 and 2048 tokens, bit for bit
@@ -3134,6 +3159,13 @@ def expect_counts(build, want):
     return got
 
 
+def expect_native(tag, eng):
+    """A paged engine's page bookkeeping ran in the C++ host core
+    (serving/native.py over csrc/lca_host.cc)."""
+    if eng.last_alloc_kind != "native":
+        raise AssertionError(f"{tag}: allocator {eng.last_alloc_kind}")
+
+
 def cache_bytes(cache):
     """Bytes the cache's values and scales take on the card."""
     return sum(t.numel() * t.element_size() for t in (
@@ -3456,6 +3488,8 @@ def serve_paged_phase(pkg, build, dev, card):
         res, wall, toks, steps, counts = serve_timed(build, eng, params,
                                                      reqs)
         results[tag] = res
+        if tag == "serve_paged":
+            expect_native(tag, eng)
         if sorted(res) != list(range(CONT_REQUESTS)) or any(
                 len(r.tokens) != CONT_NEW for r in res.values()):
             raise AssertionError(f"{tag}: not every request completed")
@@ -3488,6 +3522,7 @@ def serve_paged_phase(pkg, build, dev, card):
                                            reqs[:CONT_GATE])
     expect_serving_counts("serve_paged at 8 rows", counts, L, steps,
                           CONT_GATE)
+    expect_native("serve_paged at 8 rows", gate)
     for i in range(CONT_GATE):
         if res[i].tokens != results["serve_continuous"][i].tokens:
             raise AssertionError(f"request {i}: paged tokens "
@@ -3533,6 +3568,7 @@ def serve_paged_fp8(build, cfg, params, reqs, common, pool, card, int8):
     if sorted(res) != list(range(CONT_REQUESTS)) or any(
             len(r.tokens) != CONT_NEW for r in res.values()):
         raise AssertionError("serve_paged_fp8: not every request completed")
+    expect_native("serve_paged_fp8", eng)
     if PROBE["paged"] != {True}:
         raise AssertionError("serve_paged_fp8: a decode block without the "
                              "page table")
@@ -3560,6 +3596,7 @@ def serve_paged_fp8(build, cfg, params, reqs, common, pool, card, int8):
     sub = reqs[:FP8_INTERLEAVED]
     chunks = sum(-(-len(r.tokens) // STALL_CHUNK) for r in sub)
     res, wall, toks, steps, counts = serve_timed(build, gate, params, sub)
+    expect_native("serve_paged_fp8 interleaved", gate)
     multi = {"cache_append": L * chunks, "decode_run": L * chunks * subruns}
     launches = expect_serving_counts(
         "serve_paged_fp8 interleaved", counts, L, steps, 0,
@@ -3624,6 +3661,7 @@ def serve_prefix_phase(pkg, build, decode, dev, card):
         eng.serve(params, reqs[:2])
         res, wall, toks, steps, counts = serve_timed(build, eng, params,
                                                      reqs)
+        expect_native(f"serve_prefix {tag}", eng)
         firsts[tag] = PROBE["first_logits"]
         if tag == "prefix":
             hits = eng.stats["prefix_hit_tokens"]
@@ -3703,6 +3741,7 @@ def serve_stall_phase(pkg, build, decode, dev, card):
         eng.serve(params, reqs[:2])  # warm-up
         res, wall, _, steps, counts = serve_timed(build, eng, params, reqs,
                                                   stamps=[], logits={})
+        expect_native(f"serve_stall {tag}", eng)
         if sorted(res) != [r.id for r in reqs] or any(
                 len(res[r.id].tokens) != r.max_new for r in reqs):
             raise AssertionError(f"serve_stall {tag}: not every request "
@@ -3779,6 +3818,476 @@ def serve_stall_phase(pkg, build, decode, dev, card):
           "teacher_tol": TEACHER_TOL, "tokens_equal": not parted,
           "parted": parted, **out})
     return out
+
+# ---------------------------------------------------------------------------
+# phase 4c: rolling window pages and speculative serving
+# ---------------------------------------------------------------------------
+
+# serve_windowed_paged: the slice_windowed model (WINDOWED) through
+# PagedContinuousEngine, int8 cache and weights, pages of 2048, 8 rows,
+# step_block 8, no host overlap. 12 requests of 64 new tokens, half with
+# prompts of 10225-10231 tokens, half of 8186-8191 (numpy seed 0). A 10K
+# row is admitted with 5 pages (= _rolling_pages(); a prompt of 10232 or
+# more would take 6 and grow only past 12288), frees logical pages 1 and 2
+# behind its window and grows into page 5 within its 64 tokens; an 8K row
+# frees page 1. The pool is 8 rows' rolling pages + the scratch page, the
+# admission gate's minimum, so freed pages go to other rows' growth and
+# admissions.
+WPAGED_REQS, WPAGED_NEW, WPAGED_S_MAX = 12, 64, 12288
+WPAGED_PROMPTS = ((10225, 10232), (8186, 8192))
+WPAGED_CHUNK = 2048
+WATCH = {}
+
+
+class PageWatch:
+    """Wraps a page allocator: each admission (take) opens a record of its
+    row's pages, updated by the row's growth (take_extra) and releases
+    (release_pages), so a row's holding is read off the allocator's own
+    answers. With ``poison``, every released page is overwritten at once,
+    in every layer of the pool, with large finite values (127 with scales
+    of 1e4): a kernel that visited such a page inside a row's walk would
+    change the tokens (NaN would be wrong: a reused page's unwritten tail
+    sits masked inside its new owner's last tile, and a NaN there is not
+    masked out of PV)."""
+
+    def __init__(self, alloc, poison):
+        self._alloc, self._poison = alloc, poison
+        self._rows = {}
+
+    def __getattr__(self, name):
+        return getattr(self._alloc, name)
+
+    def take(self, bi, need):
+        pages = self._alloc.take(bi, need)
+        rec = {"row": bi, "held": need, "max_held": need, "released": 0,
+               "grown": 0}
+        self._rows[bi] = rec
+        WATCH["records"].append(rec)
+        return pages
+
+    def take_extra(self, bi, need):
+        pages = self._alloc.take_extra(bi, need)
+        rec = self._rows[bi]
+        rec["held"] += need
+        rec["grown"] += need
+        rec["max_held"] = max(rec["max_held"], rec["held"])
+        return pages
+
+    def release_pages(self, bi, pages):
+        self._alloc.release_pages(bi, pages)
+        rec = self._rows[bi]
+        rec["held"] -= len(pages)
+        rec["released"] += len(pages)
+        if self._poison:
+            cache = WATCH["cache"]
+            idx = torch.tensor(pages, device=cache.k.device)
+            for t in (cache.k, cache.v):
+                t[:, idx] = 127
+            for t in (cache.k_scale, cache.v_scale):
+                t[:, idx] = 1e4
+            WATCH["poisoned"] += len(pages)
+
+
+def watched_engine(base, poison=False, whole_span=False):
+    """probe_engine(base) whose allocator is a PageWatch; ``whole_span``
+    turns the rolling window pages off (whole-span reservations, as JAX's
+    tests/test_paged.py:455 reference does)."""
+    probe = probe_engine(base)
+
+    @dataclasses.dataclass(frozen=True)
+    class Watched(probe):
+        @property
+        def _windowed_paging(self):
+            return not whole_span and base._windowed_paging.fget(self)
+
+        def init_cache(self):
+            WATCH["cache"] = probe.init_cache(self)
+            return WATCH["cache"]
+
+        def _make_alloc(self):
+            return PageWatch(probe._make_alloc(self), poison)
+
+    return Watched
+
+
+def watch_reset():
+    WATCH.clear()
+    WATCH.update(records=[], poisoned=0)
+
+
+def serve_windowed_paged_phase(pkg, build, decode, dev, card):
+    """serve_windowed_paged: rolling window pages at the 0.88B widths with
+    window 4096 and 4 sinks (WPAGED_*). Gates: the tokens equal, request
+    for request, the same engine's with whole-span reservations over 49
+    pages (the same kernels, tiles and splits; only the physical pages
+    differ); no row holds more than _rolling_pages() pages at once; a run
+    that poisons every page at its release gives the same tokens; every
+    row reclaims a page and every 10K row grows one; exact launch counts
+    (every admission 16 B4 and one B6, every decode step 16 B6 and 16
+    one-token B7 over page tables that change mid-serve); the native
+    allocator. Then the same requests admitted interleaved in chunks of
+    2048 (each chunk 16 B6 and 16 x its sub-runs on decode_run with the
+    window and sinks), teacher-forced on their own tokens as serve_stall's
+    interleaved run is, with the first place they part from the batch
+    run's tokens reported."""
+    from long_context_attention_tpu_torch.models.llama import (
+        forward_local, init_params)
+    from long_context_attention_tpu_torch.serving import (
+        PagedContinuousEngine, Request)
+
+    cfg = pkg.ModelConfig(**MODEL, **WINDOWED)
+    L = cfg.n_layers
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params = init_params(gen, cfg, device=dev)
+    rng = np.random.default_rng(0)
+    lens = [int(rng.integers(*WPAGED_PROMPTS[i % 2]))
+            for i in range(WPAGED_REQS)]
+    reqs = [Request(id=i, tokens=[int(t) for t in rng.integers(
+        0, cfg.vocab, n)], max_new=WPAGED_NEW) for i, n in enumerate(lens)]
+    common = dict(s_max=WPAGED_S_MAX, max_batch=8, cache_dtype="int8",
+                  weight_dtype="int8", step_block=STEP_BLOCK,
+                  page_size=PAGE, device=dev)
+    rolling = PagedContinuousEngine(cfg, pool_pages=2,
+                                    **common)._rolling_pages()
+    pool = 8 * rolling + 1
+    whole_pool = 8 * (WPAGED_S_MAX // PAGE) + 1
+    runs, out, paths = {}, {}, {}
+    # warm-up, untimed: the windowed engine on two requests
+    watch_reset()
+    probe_reset()
+    watched_engine(PagedContinuousEngine)(cfg, pool_pages=pool,
+                                          **common).serve(params, reqs[:2])
+    for tag, kw in (
+            ("windowed", dict(pool_pages=pool)),
+            ("whole_span", dict(pool_pages=whole_pool, whole_span=True)),
+            ("poisoned", dict(pool_pages=pool, poison=True)),
+            ("interleaved", dict(pool_pages=pool, interleave_admission=True,
+                                 prefill_chunk=WPAGED_CHUNK))):
+        flags = {k: kw.pop(k) for k in ("whole_span", "poison") if k in kw}
+        eng = watched_engine(PagedContinuousEngine, **flags)(cfg, **common,
+                                                             **kw)
+        watch_reset()
+        inter = tag == "interleaved"
+        res, wall, toks, steps, counts = serve_timed(
+            build, eng, params, reqs, **({"logits": {}} if inter else {}))
+        if sorted(res) != list(range(WPAGED_REQS)) or any(
+                len(r.tokens) != WPAGED_NEW for r in res.values()):
+            raise AssertionError(f"serve_windowed_paged {tag}: not every "
+                                 f"request completed")
+        expect_native(f"serve_windowed_paged {tag}", eng)
+        if eng._windowed_paging == (tag == "whole_span"):
+            raise AssertionError(f"serve_windowed_paged {tag}: rolling "
+                                 f"pages {eng._windowed_paging}")
+        recs = WATCH["records"]
+        if len(recs) != WPAGED_REQS:
+            raise AssertionError(f"serve_windowed_paged {tag}: "
+                                 f"{len(recs)} admissions")
+        held = max(r["max_held"] for r in recs)
+        limit = WPAGED_S_MAX // PAGE if tag == "whole_span" else rolling
+        if held > limit:
+            raise AssertionError(f"serve_windowed_paged {tag}: a row held "
+                                 f"{held} pages, more than {limit}")
+        if tag != "whole_span":
+            for r, rec in zip(reqs, recs):
+                long_row = len(r.tokens) >= WPAGED_PROMPTS[0][0]
+                if rec["released"] < 1 or (long_row and rec["grown"] < 1):
+                    raise AssertionError(
+                        f"serve_windowed_paged {tag}: request {r.id} "
+                        f"({len(r.tokens)} tokens) released "
+                        f"{rec['released']} and grew {rec['grown']} pages")
+        if inter:
+            chunks = sum(-(-len(r.tokens) // WPAGED_CHUNK) for r in reqs)
+            subruns = run_subruns(decode, WPAGED_CHUNK, cfg)
+            multi = {"cache_append": L * chunks,
+                     "decode_run": L * chunks * subruns}
+            admissions = 0
+        else:
+            chunks, subruns = 0, 0
+            multi = {"cache_append": 0, "decode_run": 0}
+            admissions = WPAGED_REQS
+        want = {"cache_append": L * steps + admissions
+                + multi["cache_append"],
+                "decode_attention": L * steps,
+                "decode_run": multi["decode_run"],
+                "flash_fwd_static": L * admissions,
+                "flash_fwd_causal_self": 0}
+        launches = expect_counts(build, want)
+        runs[tag] = res
+        paths[f"serve_windowed_paged {tag}"] = launches
+        out[tag] = {"wall_s": wall, "tok_per_s": toks / wall,
+                    "decode_steps": steps, "pool_pages": eng.pool_pages,
+                    "max_pages_held": held,
+                    "pages_released": sum(r["released"] for r in recs),
+                    "pages_grown": sum(r["grown"] for r in recs),
+                    "pages_poisoned": WATCH["poisoned"],
+                    "chunks": chunks, "subruns_per_chunk": subruns,
+                    "launches": {k: launches[k] for k in want},
+                    "multi_token_launches": multi}
+        if inter:
+            step_logits = {rid: torch.stack(v) for rid, v in
+                           PROBE["logits"].items()}
+            del PROBE["logits"]
+        torch.cuda.empty_cache()
+    base = runs["windowed"]
+    for tag in ("whole_span", "poisoned"):
+        for r in reqs:
+            if runs[tag][r.id].tokens != base[r.id].tokens:
+                raise AssertionError(
+                    f"serve_windowed_paged: request {r.id}'s tokens "
+                    f"{base[r.id].tokens} != the {tag} run's "
+                    f"{runs[tag][r.id].tokens}")
+    # the interleaved run against the bf16 prefill of its own tokens, and
+    # where it parts from the batch run
+    tf, parted = [], {}
+    for r in reqs:
+        toks = runs["interleaved"][r.id].tokens
+        seq = torch.tensor([list(r.tokens) + toks[:-1]], device=dev)
+        with torch.no_grad():
+            teacher = forward_local(params, seq, cfg)[
+                0, len(r.tokens) - 1:].float()
+        # a block runs on past a row's last token: its later steps' logits
+        # are not the request's
+        got = torch.cat([PROBE["first_logits"][r.id].to(dev),
+                         step_logits[r.id][:len(toks) - 1]])
+        tf.append(float((got - teacher).abs().max()))
+        a = base[r.id].tokens
+        j = next((j for j, (x, y) in enumerate(zip(a, toks)) if x != y),
+                 None)
+        if j is not None:
+            parted[r.id] = {"position": j, "tokens": [a[j], toks[j]],
+                            "teacher_logits": [float(teacher[j, a[j]]),
+                                               float(teacher[j, toks[j]])]}
+    check("serve_windowed_paged interleaved teacher forcing", max(tf),
+          TEACHER_TOL)
+    emit({"phase": "serve_windowed_paged", "card": card,
+          "model": "llama-0.88B", "window_left": WINDOW,
+          "sink_tokens": SINKS, "requests": WPAGED_REQS,
+          "prompt_lens": lens, "max_new": WPAGED_NEW,
+          "s_max": WPAGED_S_MAX, "page_size": PAGE, "max_batch": 8,
+          "step_block": STEP_BLOCK, "rolling_pages": rolling,
+          "cache_dtype": "int8", "weight_dtype": "int8",
+          "allocator": "native", "tokens_equal_whole_span": True,
+          "tokens_equal_poisoned": True,
+          "interleaved_teacher_forcing_max_abs_err": tf,
+          "teacher_tol": TEACHER_TOL,
+          "interleaved_tokens_equal_batch": not parted,
+          "interleaved_parted": parted, **out})
+    return paths
+
+
+# serve_speculative: the 0.88B target (int8 cache and weights, gamma 4)
+# with a draft of the same family at a quarter of its width and depth (the
+# card's kernels take head_dim 128 only, so the draft keeps it: dim 1024, 4
+# layers, 8/4 heads), random weights from seed 1; bench_paged.py's first
+# 16 requests (prompts of 1024 or 2048 tokens) with 32 new tokens each
+SPEC_DRAFT = dict(vocab=32000, dim=1024, n_layers=4, n_heads=8,
+                  n_kv_heads=4, head_dim=128, ffn_hidden=int(1024 * 2.7),
+                  layout="basic")
+SPEC_GAMMA, SPEC_REQS, SPEC_NEW, SPEC_S_MAX = 4, 16, 32, 4096
+SPEC_DENSE, SPEC_SELF, SPEC_SAMPLED = 8, 8, 4
+SPEC_GEN_BATCH, SPEC_GEN_NEW = 2, 16
+# a broken verify accepts about nothing; a self-draft on the card accepts
+# all but the near-ties of its one-token and run kernels
+SELF_DRAFT_MIN = 0.75
+
+
+def spec_subruns(decode, cfg, n_tok, slot_dim, paged):
+    """The sub-runs of a verify run of n_tok tokens (the tile rule's plan),
+    each of which must take B7's run kernel, decode_run."""
+    hk, g = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
+    plan = decode.decode_run_plan(n_tok, hk, g, cfg.head_dim, slot_dim, 1,
+                                  paged=paged)
+    routes = {decode.decode_route(g * (e - i), bkv, slot_dim)
+              for i, e, bkv in plan}
+    if routes != {"decode_run"}:
+        raise AssertionError(f"a verify run of {n_tok}: sub-runs routed to "
+                             f"{routes}")
+    return len(plan)
+
+
+def spec_counts(tag, counts, rounds, admissions, Lt, Ld, subruns,
+                prefill_b6):
+    """Every round: gamma + 1 draft steps of one B6 and one one-token B7 a
+    draft layer, and the verify's B6 and B7 sub-runs (decode_run) a target
+    layer; every admission the target's and the draft's prefill (B1 a
+    layer) and their B6 inserts (``prefill_b6`` of them)."""
+    steps = SPEC_GAMMA + 1
+    want = {"cache_append": rounds * (steps * Ld + Lt)
+            + admissions * prefill_b6,
+            "decode_attention": rounds * steps * Ld,
+            "decode_run": rounds * Lt * subruns,
+            "flash_fwd_causal_self": admissions * (Lt + Ld),
+            "flash_fwd_static": 0, "flash_fwd_pos": 0}
+    for name, n in want.items():
+        if counts[name] != n:
+            raise AssertionError(f"serve_speculative {tag}: {name} launched "
+                                 f"{counts[name]} times, expected {n} "
+                                 f"({rounds} rounds, {admissions} "
+                                 f"admissions)")
+    return want
+
+
+def target_greedy_gaps(params, cfg, prompt, tokens, dev):
+    """max over the emitted tokens of (the bf16 teacher's largest logit -
+    its logit of the emitted token), the teacher a prefill of prompt + the
+    tokens before each one; and the position of the largest gap."""
+    from long_context_attention_tpu_torch.models.llama import forward_local
+
+    seq = torch.tensor([list(prompt) + list(tokens[:-1])], device=dev)
+    with torch.no_grad():
+        logits = forward_local(params, seq, cfg)[0, len(prompt) - 1:].float()
+    gap = logits.max(-1).values - logits[torch.arange(len(tokens)),
+                                         torch.tensor(tokens)]
+    return float(gap.max()), int(gap.argmax())
+
+
+def serve_speculative_phase(pkg, build, decode, dev, card):
+    """serve_speculative: (a) PagedSpeculativeContinuousEngine (pages of
+    2048, 8 rows) on SPEC_REQS requests, (b) SpeculativeContinuousEngine on
+    the first SPEC_DENSE of them, (c) a self-draft (the target drafts for
+    itself) on SPEC_SELF, (d) SpeculativeEngine.generate at b=2, (e) a
+    sampled paged run (temperature 1.0) on SPEC_SAMPLED. Gates: every
+    greedy token is target-greedy (its bf16 teacher's logit within
+    TEACHER_TOL of the row's largest); (a) and (b) give the same tokens;
+    the self-draft accepts at least SELF_DRAFT_MIN of its drafts; the
+    sampled run completes within the vocabulary; exact launch counts per
+    round and admission; the native allocator on the paged runs. Rounds,
+    drafted and accepted tokens, tok/s and acceptance per run."""
+    from long_context_attention_tpu_torch.models.llama import init_params
+    from long_context_attention_tpu_torch.serving import (
+        PagedSpeculativeContinuousEngine, Request, SamplingParams,
+        SpeculativeContinuousEngine, SpeculativeEngine)
+
+    cfg = pkg.ModelConfig(**MODEL)
+    dcfg = pkg.ModelConfig(**SPEC_DRAFT)
+    Lt, Ld = cfg.n_layers, dcfg.n_layers
+    params = init_params(torch.Generator(device=dev).manual_seed(SEED), cfg,
+                         device=dev)
+    dparams = init_params(torch.Generator(device=dev).manual_seed(SEED + 1),
+                          dcfg, device=dev)
+    rng = np.random.default_rng(0)
+    ctxs = [int(c) for c in rng.choice(list(CONT_PROMPTS), CONT_REQUESTS)]
+    reqs = [Request(id=i, tokens=[int(t) for t in
+                                  rng.integers(0, cfg.vocab, c)],
+                    max_new=SPEC_NEW)
+            for i, c in enumerate(ctxs)][:SPEC_REQS]
+    common = dict(s_max=SPEC_S_MAX, max_batch=8, cache_dtype="int8",
+                  weight_dtype="int8", gamma=SPEC_GAMMA, device=dev)
+    paged_kw = dict(page_size=PAGE, pool_pages=8 * (SPEC_S_MAX // PAGE) + 1)
+    n_run = SPEC_GAMMA + 1
+    sub_paged = spec_subruns(decode, cfg, n_run, PAGE, True)
+    sub_dense = spec_subruns(decode, cfg, n_run, SPEC_S_MAX, False)
+    runs, out, paths = {}, {}, {}
+    greedy = SamplingParams()
+    for tag, eng, dp, sub, sub_reqs, sampling in (
+            ("paged", PagedSpeculativeContinuousEngine(
+                cfg, draft_cfg=dcfg, **paged_kw, **common), dparams,
+             sub_paged, reqs, greedy),
+            ("dense", SpeculativeContinuousEngine(
+                cfg, draft_cfg=dcfg, **common), dparams, sub_dense,
+             reqs[:SPEC_DENSE], greedy),
+            ("self_draft", PagedSpeculativeContinuousEngine(
+                cfg, draft_cfg=cfg, **paged_kw, **common), params,
+             sub_paged, reqs[:SPEC_SELF], greedy),
+            ("sampled", PagedSpeculativeContinuousEngine(
+                cfg, draft_cfg=dcfg, **paged_kw, **common), dparams,
+             sub_paged, reqs[:SPEC_SAMPLED],
+             SamplingParams(temperature=1.0))):
+        build.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = eng.serve(params, dp, sub_reqs, sampling=sampling, seed=SEED)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = build.launch_counts()
+        if sorted(res) != [r.id for r in sub_reqs] or any(
+                len(res[r.id].tokens) != r.max_new for r in sub_reqs):
+            raise AssertionError(f"serve_speculative {tag}: not every "
+                                 f"request completed")
+        if tag != "dense":
+            expect_native(f"serve_speculative {tag}", eng)
+        st = dict(eng.round_stats)
+        ld = cfg.n_layers if tag == "self_draft" else Ld
+        launches = spec_counts(tag, counts, st["rounds"], len(sub_reqs), Lt,
+                               ld, sub, 2)
+        toks = sum(len(r.tokens) for r in res.values())
+        runs[tag] = res
+        paths[f"serve_speculative {tag}"] = counts
+        out[tag] = {"requests": len(sub_reqs), **st,
+                    "acceptance": st["accepted"] / st["drafted"],
+                    "wall_s": wall, "tok_per_s": toks / wall,
+                    "tokens": toks, "verify_subruns": sub,
+                    "launches": launches}
+        del eng
+        torch.cuda.empty_cache()
+    if any(t < 0 or t >= cfg.vocab for r in runs["sampled"].values()
+           for t in r.tokens):
+        raise AssertionError("serve_speculative sampled: a token outside "
+                             "the vocabulary")
+    if out["self_draft"]["acceptance"] < SELF_DRAFT_MIN:
+        raise AssertionError(f"serve_speculative: self-draft acceptance "
+                             f"{out['self_draft']['acceptance']} < "
+                             f"{SELF_DRAFT_MIN}")
+    # (d) SpeculativeEngine.generate at b=2 (Engine.prefill: B1 and one B6
+    # a layer of each model)
+    spec = SpeculativeEngine(cfg, dcfg, s_max=SPEC_S_MAX, gamma=SPEC_GAMMA,
+                             cache_dtype="int8", weight_dtype="int8",
+                             device=dev)
+    short = min(len(r.tokens) for r in reqs)
+    prompt = torch.tensor([r.tokens[:short] for r in
+                           reqs[:SPEC_GEN_BATCH]], device=dev)
+    build.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gres = spec.generate(params, dparams, prompt, SPEC_GEN_NEW)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = build.launch_counts()
+    launches = spec_counts("generate", counts, gres.rounds, 1, Lt, Ld,
+                           sub_dense, Lt + Ld)
+    paths["serve_speculative generate"] = counts
+    out["generate"] = {"batch": SPEC_GEN_BATCH, "prompt": short,
+                       "max_new": SPEC_GEN_NEW, "rounds": gres.rounds,
+                       "drafted": gres.drafted, "accepted": gres.accepted,
+                       "acceptance": gres.accepted / gres.drafted,
+                       "wall_s": wall,
+                       "tok_per_s": SPEC_GEN_BATCH * SPEC_GEN_NEW / wall,
+                       "launches": launches}
+    # every greedy token target-greedy under the bf16 teacher
+    gaps = {}
+    for tag in ("paged", "dense", "self_draft"):
+        for r in reqs:
+            if r.id in runs[tag]:
+                gaps[f"{tag} {r.id}"] = target_greedy_gaps(
+                    params, cfg, r.tokens, runs[tag][r.id].tokens, dev)
+    for i in range(SPEC_GEN_BATCH):
+        gaps[f"generate {i}"] = target_greedy_gaps(
+            params, cfg, prompt[i].tolist(), gres.tokens[i].tolist(), dev)
+    worst = max(gaps, key=lambda k: gaps[k][0])
+    check(f"serve_speculative target-greedy ({worst} at "
+          f"{gaps[worst][1]})", gaps[worst][0], TEACHER_TOL)
+    # the paged and the dense engine on their shared requests
+    for r in reqs[:SPEC_DENSE]:
+        a, b = runs["paged"][r.id].tokens, runs["dense"][r.id].tokens
+        j = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if j is not None:
+            seq = torch.tensor([list(r.tokens) + a[:j]], device=dev)
+            from long_context_attention_tpu_torch.models.llama import (
+                forward_local)
+            with torch.no_grad():
+                t = forward_local(params, seq, cfg)[0, -1].float()
+            raise AssertionError(
+                f"serve_speculative: request {r.id}'s paged and dense tokens "
+                f"part at {j}: {a[j]} (teacher logit {float(t[a[j]])}) "
+                f"against {b[j]} ({float(t[b[j]])})")
+    emit({"phase": "serve_speculative", "card": card,
+          "model": "llama-0.88B", "draft": SPEC_DRAFT, "gamma": SPEC_GAMMA,
+          "max_new": SPEC_NEW, "s_max": SPEC_S_MAX, "page_size": PAGE,
+          "max_batch": 8, "cache_dtype": "int8", "weight_dtype": "int8",
+          "target_greedy_max_gap": gaps[worst][0], "worst": worst,
+          "teacher_tol": TEACHER_TOL, "paged_tokens_equal_dense": True,
+          "self_draft_min": SELF_DRAFT_MIN, **out})
+    return paths
 
 # ---------------------------------------------------------------------------
 # phase 5: the training slice
@@ -6506,6 +7015,14 @@ def main():
     lap("serve_prefix")
     stall = serve_stall_phase(pkg, build, decode, dev, smi)
     lap("serve_stall")
+    # rolling window pages and speculative serving: their runs' launches
+    new_paths.update(serve_windowed_paged_phase(pkg, build, decode, dev,
+                                                smi))
+    torch.cuda.empty_cache()
+    lap("serve_windowed_paged")
+    new_paths.update(serve_speculative_phase(pkg, build, decode, dev, smi))
+    torch.cuda.empty_cache()
+    lap("serve_speculative")
     emit({"phase": "timing", "seconds": seconds})
     path = {"flash_fwd_static": wcounts, "flash_bwd_fused": train_counts,
             "flash_bwd_dq": offsets_counts, "flash_bwd_dkv": offsets_counts,
@@ -6604,7 +7121,8 @@ def main():
                        tag, new_paths["dit_train"])
             r["dit_cases"] = [dict(dit_rows[tag], launches=src[r["name"]])]
         # launches on the mesh engine's prefill and decode, the async
-        # layer's forward and backward, the DiT forward and training
+        # layer's forward and backward, the DiT forward and training, the
+        # rolling window pages' and the speculative engines' runs
         r["new_path_launches"] = {p: c[r["name"]] for p, c in
                                   new_paths.items() if c[r["name"]]}
     emit({"kernels": rows})

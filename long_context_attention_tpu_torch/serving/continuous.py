@@ -24,8 +24,12 @@ sequential loop's.
 :class:`PagedContinuousEngine` serves from a :class:`PagedKVCache`: rows
 reserve only the pages their prompt and budget need from one shared pool,
 with admission backpressure, automatic prefix caching (``prefix_cache``,
-``serving/prefix_cache.py``) and decode-interleaved chunked admission
-(``interleave_admission``).
+``serving/prefix_cache.py``), decode-interleaved chunked admission
+(``interleave_admission``) and, for a sliding-window model, rolling window
+pages; its bookkeeping runs in the C++ host core (``serving/native.py``)
+when that builds. :class:`SpeculativeContinuousEngine` and
+:class:`PagedSpeculativeContinuousEngine` run draft-and-verify rounds
+(``serving/speculative.py``) in place of single decode steps.
 
 Sampling: JAX's PRNG keys become ``torch.Generator``s. Request r samples
 from its own generator, seeded from ``(seed, r.id)`` (JAX folds the request
@@ -66,13 +70,15 @@ from long_context_attention_tpu_torch.serving.prefix_cache import (
     PrefixPageAllocator,
     chain_hashes,
 )
-from long_context_attention_tpu_torch.utils.config import (
-    not_ported,
-    resolve_device,
+from long_context_attention_tpu_torch.serving.speculative import (
+    SpeculativeEngine,
+    draw_rows,
 )
+from long_context_attention_tpu_torch.utils.config import resolve_device
 
 __all__ = ["Request", "RequestResult", "ContinuousEngine",
-           "PagedContinuousEngine"]
+           "PagedContinuousEngine", "SpeculativeContinuousEngine",
+           "PagedSpeculativeContinuousEngine"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -190,15 +196,9 @@ class ContinuousEngine:
     def _sample_rows(self, logits, sampling: SamplingParams, gens):
         """(B, vocab) logits -> (B,) int32: row i drawn from ``gens[i]``
         (rows without a request take the argmax, which nobody reads)."""
-        out = torch.argmax(logits, dim=-1).to(torch.int32)
         if sampling.temperature <= 0.0:
-            return out
-        probs = sampling_probs(logits, sampling)
-        for i, gen in enumerate(gens):
-            if gen is not None:
-                out[i] = torch.multinomial(probs[i:i + 1], 1,
-                                           generator=gen)[0, 0]
-        return out
+            return torch.argmax(logits, dim=-1).to(torch.int32)
+        return draw_rows(sampling_probs(logits, sampling), gens)
 
     @torch.no_grad()
     def _decode_block(self, dparams, cache, tok, act, left, eos: int,
@@ -328,7 +328,17 @@ class ContinuousEngine:
             lp = lp.cpu().numpy() if lps is not None else None
             self._consume(nxt, lp, slot, emitted, results, eos_id, lps,
                           cur=cur)
+            # the paged engine's rolling window pages (a no-op here)
+            cache = self._post_block(cache, slot, emitted)
         return results
+
+    def _post_block(self, cache, slot, emitted):
+        """Hook after each decode block, with the host's lengths current:
+        the paged engine frees the pages that slid behind a row's window
+        and assigns the pages the next block writes; dense engines do
+        nothing. Not called on the ``host_overlap`` path, whose host
+        lengths lag the device by a block."""
+        return cache
 
     def _consume(self, nxt, lp, slot, emitted, results, eos_id, lps,
                  ids=None, cur=None):
@@ -525,11 +535,17 @@ class PagedContinuousEngine(ContinuousEngine):
     chunks, so their stall is bounded by one chunk. Greedy results equal
     the batch-admission scheduler's.
 
-    ``native_runtime``: the JAX package's C++ allocators are not ported;
-    None and False use the Python allocators (the JAX package holds the
-    two to bit-identical decisions), True raises. A sliding-window config
-    whose rows would page by the window (no prefix cache, no host overlap)
-    raises: windowed paging is not ported."""
+    A sliding-window config without the prefix cache or host overlap
+    pages by the window (:attr:`_windowed_paging`): a row holds only its
+    sink pages and its window's, the pages behind the window free while it
+    runs and fresh pages are assigned as decode crosses page boundaries.
+
+    ``native_runtime``: the page and prefix bookkeeping runs in the C++
+    host core (``csrc/lca_host.cc`` through ``serving/native.py``) when
+    None and it builds, or the Python allocators; True requires the host
+    core (RuntimeError when it does not build), False forces Python. The
+    decisions are the same bit for bit either way
+    (:attr:`last_alloc_kind` says which ran)."""
 
     page_size: int = 2048
     pool_pages: int = 0      # physical pages INCLUDING the scratch page 0
@@ -552,11 +568,6 @@ class PagedContinuousEngine(ContinuousEngine):
             raise ValueError(
                 "interleave_admission does not compose with host_overlap "
                 "yet -- pick one (both remove host/admission stalls)")
-        if self.native_runtime:
-            raise not_ported("the native host runtime (native_runtime=True)")
-        if (self.cfg.window_left >= 0 and not self.prefix_cache
-                and not self.host_overlap):
-            raise not_ported("sliding-window paging (rolling window pages)")
 
     @property
     def n_pages(self) -> int:
@@ -569,7 +580,91 @@ class PagedContinuousEngine(ContinuousEngine):
         ``admitted_tokens``, ``evictions``."""
         return getattr(self, "_stats", {})
 
+    @property
+    def _windowed_paging(self) -> bool:
+        """Rolling window pages: rows hold only their sink and window pages;
+        pages wholly behind the window free while the row runs and fresh
+        pages are assigned on demand, so ``max_new`` does not enter the
+        reservation. The kernels never read a tile behind the window (B7
+        walks a row's sink tiles and its band), so freeing such a page, and
+        another row's reuse of it, cannot change a result. Batch and
+        interleaved admission only (host_overlap's host lengths lag the
+        device); the prefix cache keeps whole-span reservations."""
+        return (self.cfg.window_left >= 0 and not self.prefix_cache
+                and not self.host_overlap)
+
+    def _sink_pages(self) -> int:
+        sink = self.cfg.sink_tokens
+        return -(-sink // self.page_size) if sink else 0
+
+    def _rolling_pages(self) -> int:
+        """Pages a windowed row holds at steady state: the sink prefix, the
+        window and the query's own column, a block of growth margin and
+        one page of rounding slack."""
+        band = self.cfg.window_left + 1 + self.step_block + 1
+        return self._sink_pages() + -(-band // self.page_size) + 1
+
+    def _note_windowed_row(self, bi: int, row_pt: np.ndarray,
+                           assigned: int, n: int) -> None:
+        """Record an admitted row's page state for the rolling window (a
+        no-op unless the engine pages by the window)."""
+        if self._windowed_paging:
+            self._rowwin[bi] = {"pt": row_pt, "assigned": int(assigned),
+                                "next_free": self._sink_pages(),
+                                "prompt": int(n)}
+
+    def _post_block(self, cache, slot, emitted):
+        """The rolling window after each decode block:
+
+        * reclaim first: free each row's pages wholly behind its window
+          (the sink pages stay); no kernel reads them again, and the row's
+          stale table entries are never followed, so they need no write;
+        * then growth: assign the pages the next block writes, and write
+          only those entries of the card's page table, in one indexed write.
+
+        Reclaim comes before growth so that a row never holds more pages
+        than its admission reserved; growth first overflows a pool that
+        :meth:`_can_admit` accepted by one page in hundreds of (window,
+        step_block, page_size) combinations."""
+        if not self._windowed_paging or not self._rowwin:
+            return cache
+        psz, w = self.page_size, self.cfg.window_left
+        sink_pages = self._sink_pages()
+        upd = []
+        for bi, req in enumerate(slot):
+            st = self._rowwin.get(bi)
+            if req is None or st is None:
+                continue
+            # the admission's first token is appended by the first decode
+            # step: the row's length is prompt + emitted - 1
+            length = st["prompt"] + len(emitted[bi]) - 1
+            first_needed = max(length - 1 - w, 0) // psz
+            lo = max(st["next_free"], sink_pages)
+            if first_needed > lo:
+                self._alloc.release_pages(
+                    bi, [int(st["pt"][j]) for j in range(lo, first_needed)])
+                st["next_free"] = first_needed
+            # the next block appends up to step_block tokens
+            need_upto = min(-(-(length + self.step_block + 1) // psz),
+                            self.n_pages)
+            if need_upto > st["assigned"]:
+                pages = self._take_growth(bi, st["assigned"], need_upto)
+                for j, pg in zip(range(st["assigned"], need_upto), pages):
+                    st["pt"][j] = pg
+                    upd.append((bi, j, pg))
+                st["assigned"] = need_upto
+        if upd:
+            b, j, pg = self._vec(np.asarray(upd).T, torch.long)
+            cache.page_table[b, j] = pg.to(torch.int32)
+        return cache
+
+    def _take_growth(self, bi: int, lo: int, hi: int) -> List[int]:
+        """Physical pages for row ``bi``'s logical pages [lo, hi)."""
+        return self._alloc.take_extra(bi, hi - lo)
+
     def _pages_needed(self, req: Request) -> int:
+        if self._windowed_paging:
+            return self._windowed_admit_pages(len(req.tokens))
         pad = _bucket(len(req.tokens))
         span = max(pad, len(req.tokens) + req.max_new)
         if self.prefix_cache or self.interleave_admission:
@@ -578,6 +673,19 @@ class PagedContinuousEngine(ContinuousEngine):
             span = max(span, len(req.tokens)
                        + min(self.prefill_chunk, pad))
         return -(-span // self.page_size)
+
+    def _windowed_admit_pages(self, n: int, cs: Optional[int] = None) -> int:
+        """A windowed row's admission reservation: the prefill's span (the
+        bucket-padded prompt, or the chunk-rounded one when interleaved)
+        and the first decode block, at least the rolling working set. One
+        formula for :meth:`_pages_needed` and the interleaved
+        :meth:`_admission_start`, so the gate and the take agree."""
+        pad = _bucket(n)
+        span = max(pad, n + self.step_block + 1)
+        if self.interleave_admission:
+            c = cs if cs is not None else min(self.prefill_chunk, pad)
+            span = max(span, -(-n // c) * c)
+        return max(-(-span // self.page_size), self._rolling_pages())
 
     def init_cache(self) -> PagedKVCache:
         return PagedKVCache.init(self.cfg.n_layers, self.max_batch,
@@ -588,26 +696,67 @@ class PagedContinuousEngine(ContinuousEngine):
 
     # --- allocator lifecycle (per serve call) ------------------------------
 
-    def serve(self, params, requests, **kw):
+    def _check_request_fits(self, r: Request) -> None:
+        """Raise when ``r`` can never be admitted (the pool is too small)."""
+        if self._pages_needed(r) > self.pool_pages - 1:
+            raise ValueError(
+                f"request {r.id} needs {self._pages_needed(r)} pages; "
+                f"pool has {self.pool_pages - 1} allocatable")
+
+    def _with_allocator(self, requests, run):
+        """Run ``run()`` with a fresh allocator and row state: the
+        allocator lifecycle of one serve call."""
         for r in requests:
-            if self._pages_needed(r) > self.pool_pages - 1:
-                raise ValueError(
-                    f"request {r.id} needs {self._pages_needed(r)} pages; "
-                    f"pool has {self.pool_pages - 1} allocatable")
-        alloc = (PrefixPageAllocator(self.pool_pages) if self.prefix_cache
-                 else _PageAllocator(self.pool_pages))
+            self._check_request_fits(r)
+        alloc = self._make_alloc()
         object.__setattr__(self, "_alloc", alloc)
+        object.__setattr__(self, "_rowwin", {})
         object.__setattr__(self, "_stats",
                            {"prefix_hit_tokens": 0, "admitted_tokens": 0,
                             "evictions": 0})
         try:
-            if self.interleave_admission:
-                return self._serve_interleaved(params, requests, **kw)
-            return super().serve(params, requests, **kw)
+            return run()
         finally:
             if self.prefix_cache:
                 self._stats["evictions"] = alloc.evictions
             object.__setattr__(self, "_alloc", None)
+
+    def serve(self, params, requests, **kw):
+        if self.interleave_admission:
+            return self._with_allocator(
+                requests, lambda: self._serve_interleaved(params, requests,
+                                                          **kw))
+        return self._with_allocator(
+            requests, lambda: super(PagedContinuousEngine, self).serve(
+                params, requests, **kw))
+
+    def _make_alloc(self):
+        """The page allocator of one serve call: the C++ host core when it
+        builds and ``native_runtime`` allows it, else the Python one. The
+        two decide the same bit for bit, so the choice changes only the
+        host's speed."""
+        if self.native_runtime is None or self.native_runtime:
+            from long_context_attention_tpu_torch.serving import native
+
+            if native.native_available():
+                object.__setattr__(self, "_alloc_kind", "native")
+                if self.prefix_cache:
+                    return native.NativePrefixPageAllocator(self.pool_pages)
+                return native.NativePageAllocator(self.pool_pages)
+            if self.native_runtime:
+                raise RuntimeError(
+                    "native_runtime=True but csrc/lca_host.cc failed to "
+                    "build (g++ missing?)")
+        object.__setattr__(self, "_alloc_kind", "python")
+        if self.prefix_cache:
+            return PrefixPageAllocator(self.pool_pages)
+        return _PageAllocator(self.pool_pages)
+
+    @property
+    def last_alloc_kind(self) -> str:
+        """"native" or "python": the allocator of the last serve call
+        ("unused" before the first)."""
+        return getattr(self, "_alloc_kind", "unused")
 
     def _can_admit(self, req: Request, bi: int) -> bool:
         if not self.prefix_cache:
@@ -699,6 +848,7 @@ class PagedContinuousEngine(ContinuousEngine):
             pages = self._alloc.take(bi, need)
             row_pt = np.full((self.n_pages,), -1, np.int32)
             row_pt[:need] = pages
+            self._note_windowed_row(bi, row_pt, need, n)
             cache, logits = self._bucket_prefill(params, cache, req, bi,
                                                  row_pt)
             first, lp = self._sample_first(logits, sampling, gen)
@@ -751,6 +901,9 @@ class PagedContinuousEngine(ContinuousEngine):
             cs = min(self.prefill_chunk, _bucket(n))
             span = max(n + req.max_new, (-(-n // cs)) * cs)
             span_pages = -(-span // self.page_size)
+            if self._windowed_paging:
+                # growth pages come on demand: the prefill and one block
+                span_pages = self._windowed_admit_pages(n, cs)
             pages = self._alloc.take(bi, span_pages)
         cached = hits * self.page_size
         suffix = np.asarray(req.tokens[cached:], np.int64)
@@ -781,6 +934,8 @@ class PagedContinuousEngine(ContinuousEngine):
         n = len(st.req.tokens)
         cache.page_table[st.bi] = self._vec(st.row_pt, torch.int32)
         cache.length[st.bi] = n
+        self._note_windowed_row(st.bi, st.row_pt,
+                                int((st.row_pt >= 0).sum()), n)
         if self.prefix_cache:
             self._alloc.register(st.all_hashes,
                                  st.pages[:len(st.all_hashes)])
@@ -847,4 +1002,231 @@ class PagedContinuousEngine(ContinuousEngine):
             lp = lp.cpu().numpy() if lps is not None else None
             self._consume(nxt, lp, slot, emitted, results, eos_id, lps,
                           cur=cur)
+            cache = self._post_block(cache, slot, emitted)
         return results
+
+
+@dataclasses.dataclass(frozen=True)
+class SpeculativeContinuousEngine(ContinuousEngine):
+    """Continuous batching with speculative rounds: the scheduler's model
+    step is a draft-propose and verify round instead of one decode step.
+
+    Every round all ``max_batch`` rows run gamma + 1 draft steps and one
+    target :func:`decode_multi_step` verify (both gated by the live-row
+    mask); each row keeps its own accepted prefix, and a row whose request
+    finishes (EOS or budget) frees its slot for the next queued request
+    before the next round, so each live row emits up to ``gamma + 1``
+    tokens a target forward. Greedy emits exactly the target-greedy chain;
+    ``sampling.temperature > 0`` runs the Leviathan rule (exact target
+    distribution, as :class:`SpeculativeEngine`), each request drawing with
+    its own generator. The draft keeps a dense cache. Rollback is a reset
+    of each cache's per-row length, each cache in its own tensor.
+
+    ``step_block`` is not used: a round already spreads the host sync over
+    up to ``gamma + 1`` tokens a row. :attr:`round_stats` counts the last
+    serve call's rounds and drafted and accepted tokens."""
+
+    draft_cfg: Optional[ModelConfig] = None
+    gamma: int = 4
+
+    def __post_init__(self):
+        super().__post_init__()
+        if self.draft_cfg is None:
+            raise ValueError("draft_cfg is required")
+        if self.cfg.vocab != self.draft_cfg.vocab:
+            raise ValueError("the target's and the draft's vocabularies "
+                             "differ")
+        if self.gamma < 1:
+            raise ValueError(f"gamma {self.gamma} < 1")
+        if self.return_logprobs:
+            raise ValueError(
+                "speculative decoding does not report logprobs (accepted "
+                "tokens come from the draft/verify rule, not one softmax) "
+                "-- use a non-speculative engine for logprobs")
+
+    @property
+    def _draft_eng(self) -> ContinuousEngine:
+        return ContinuousEngine(self.draft_cfg, self.s_max, self.max_batch,
+                                self.cache_dtype, device=self.device)
+
+    @property
+    def _spec(self) -> SpeculativeEngine:
+        return SpeculativeEngine(self.cfg, self.draft_cfg, self.s_max,
+                                 self.gamma, self.cache_dtype,
+                                 device=self.device)
+
+    @property
+    def round_stats(self) -> Dict[str, int]:
+        """The last serve call's ``rounds``, ``drafted`` and ``accepted``
+        draft tokens."""
+        return getattr(self, "_round_stats", {})
+
+    # --- round pieces ------------------------------------------------------
+
+    def _draft_round(self, draft_params, dcache, t, active):
+        return self._spec._draft_run(draft_params, dcache, t, active)
+
+    def _verify_round(self, params, tcache, run, active):
+        return self._spec._verify(params, tcache, run, active)
+
+    def _draft_round_sampled(self, draft_params, dcache, t, sampling, gens,
+                             active):
+        return self._spec._draft_run_sampled(draft_params, dcache, t,
+                                             sampling, gens, active)
+
+    def _verify_round_sampled(self, params, tcache, run, drafts, qdist,
+                              sampling, gens, active):
+        return self._spec._verify_sampled(params, tcache, run, drafts,
+                                          qdist, sampling, gens, active)
+
+    def serve(self, params, draft_params, requests: Sequence[Request], *,
+              sampling: SamplingParams = SamplingParams(),
+              eos_id: Optional[int] = None,
+              seed: int = 0) -> Dict[int, RequestResult]:
+        """Run all requests to completion; returns {request.id: result}."""
+        self._check_requests(params, [])
+        if draft_params["embed"].device != self.device:
+            raise ValueError(f"draft_params['embed'] is on "
+                             f"{draft_params['embed'].device}, but the "
+                             f"engine runs on {self.device}")
+        for r in requests:
+            if len(r.tokens) + r.max_new + self.gamma > self.s_max:
+                raise ValueError(
+                    f"request {r.id}: prompt ({len(r.tokens)}) + max_new "
+                    f"({r.max_new}) + gamma ({self.gamma}) exceeds cache "
+                    f"capacity s_max={self.s_max}")
+        B, gamma = self.max_batch, self.gamma
+        sampled = sampling.temperature > 0.0
+        deng = self._draft_eng
+        queue = deque(requests)
+        tcache = self.init_cache()
+        dcache = deng.init_cache()
+        # the rounds run on the (optionally int8) decode weights; admission
+        # prefill keeps the bf16 params
+        tparams = self.decode_params(params)
+        dparams = self.decode_params(draft_params)
+        slot: List[Optional[Request]] = [None] * B
+        gens: List[Optional[torch.Generator]] = [None] * B
+        emitted: List[List[int]] = [[] for _ in range(B)]
+        cur = np.zeros((B,), np.int32)
+        results: Dict[int, RequestResult] = {}
+        stats = {"rounds": 0, "drafted": 0, "accepted": 0}
+        object.__setattr__(self, "_round_stats", stats)
+
+        def admit():
+            nonlocal tcache, dcache
+            for bi in range(B):
+                if slot[bi] is not None or not queue:
+                    continue
+                if not self._can_admit(queue[0], bi):
+                    continue
+                req = queue.popleft()
+                gens[bi] = self._generator(seed, req)
+                tcache, first, _ = self._admit_row(params, tcache, req, bi,
+                                                   sampling, gens[bi])
+                # the draft's own first token is not used: greedy, so it
+                # draws nothing from the request's generator
+                dcache, _, _ = deng._admit_row(draft_params, dcache, req, bi,
+                                               SamplingParams(), None)
+                slot[bi] = req
+                emitted[bi] = [first]
+                cur[bi] = first
+                self._maybe_finish(bi, slot, emitted, results, eos_id)
+                if slot[bi] is None:
+                    # finished at its first token: the free row keeps no
+                    # cache state
+                    tcache.length[bi] = 0
+                    dcache.length[bi] = 0
+
+        while queue or any(s is not None for s in slot):
+            admit()
+            if not any(s is not None for s in slot):
+                continue  # everything admitted finished at its first token
+            live = [s is not None for s in slot]
+            active = self._vec(live, torch.bool)
+            t = self._vec(cur, torch.int32)
+            base_len = tcache.length.cpu().numpy().copy()
+            if sampled:
+                row_gens = [g if on else None for g, on in zip(gens, live)]
+                drafts, qdist, dcache = self._draft_round_sampled(
+                    dparams, dcache, t, sampling, row_gens, active)
+                run = torch.cat([t[:, None], drafts], dim=1)
+                accept_m, fallback, tcache = self._verify_round_sampled(
+                    tparams, tcache, run, drafts, qdist, sampling, row_gens,
+                    active)
+                acc_np = accept_m.cpu().numpy()
+                c_np = fallback.cpu().numpy()
+            else:
+                drafts, dcache = self._draft_round(dparams, dcache, t,
+                                                   active)
+                run = torch.cat([t[:, None], drafts], dim=1)
+                choices, tcache = self._verify_round(tparams, tcache, run,
+                                                     active)
+                c_np = choices.cpu().numpy()
+                acc_np = drafts.cpu().numpy() == c_np[:, :gamma]
+            d_np = drafts.cpu().numpy()
+            stats["rounds"] += 1
+            keep = base_len.copy()
+            for bi in range(B):
+                if slot[bi] is None:
+                    continue
+                a = 0
+                while a < gamma and acc_np[bi, a]:
+                    a += 1
+                stats["drafted"] += gamma
+                stats["accepted"] += a
+                # emitted up to EOS or the budget; the slot frees either
+                # way, and admission resets the row's lengths
+                for tok in [int(x) for x in d_np[bi, :a]] + [int(c_np[bi, a])]:
+                    emitted[bi].append(tok)
+                    cur[bi] = tok
+                    self._maybe_finish(bi, slot, emitted, results, eos_id)
+                    if slot[bi] is None:
+                        break
+                if slot[bi] is not None:
+                    keep[bi] = base_len[bi] + a + 1
+            tcache.length.copy_(self._vec(keep, torch.int32))
+            dcache.length.copy_(self._vec(keep, torch.int32))
+        return results
+
+
+@dataclasses.dataclass(frozen=True)
+class PagedSpeculativeContinuousEngine(SpeculativeContinuousEngine,
+                                       PagedContinuousEngine):
+    """Speculative continuous batching over a paged target cache: the
+    target's rows take pages from the pool through the allocator (the C++
+    host core when it builds) and may share prefix pages
+    (``prefix_cache``); the draft keeps a dense cache (it is small, and its
+    appends and rollbacks stay on the dense path). Verify rounds run
+    :func:`decode_multi_step` against the pool through the rows' page
+    tables; rollback resets a row's length, and its reserved pages absorb
+    the next round's run. Greedy tokens equal the dense speculative
+    engine's. Rows keep whole-span reservations, with the verify's
+    ``gamma + 1`` overhang (no rolling window pages here)."""
+
+    def __post_init__(self):
+        super().__post_init__()
+        if self.interleave_admission or self.host_overlap:
+            raise ValueError(
+                "speculative rounds already spread the host sync; "
+                "interleave_admission/host_overlap do not compose here")
+
+    @property
+    def _windowed_paging(self) -> bool:
+        return False
+
+    def _pages_needed(self, req: Request) -> int:
+        # a verify may append gamma + 1 tokens past the kept prefix before
+        # the rollback trims the length
+        pad = _bucket(len(req.tokens))
+        span = max(pad, len(req.tokens) + req.max_new + self.gamma + 1)
+        if self.prefix_cache:
+            span = max(span, len(req.tokens)
+                       + min(self.prefill_chunk, pad))
+        return -(-span // self.page_size)
+
+    def serve(self, params, draft_params, requests: Sequence[Request],
+              **kw) -> Dict[int, RequestResult]:
+        return self._with_allocator(
+            requests, lambda: SpeculativeContinuousEngine.serve(
+                self, params, draft_params, requests, **kw))

@@ -219,9 +219,10 @@ def test_interleaved_admission_decodes_between_chunks(setup):
 
 
 def test_engine_guards(monkeypatch):
-    """Requests past capacity, interleaving with host_overlap, and what
-    this slice does not port (the native runtime, sliding-window paging)
-    raise; without a card the engines raise unless given the CPU."""
+    """Requests past capacity and interleaving with host_overlap raise;
+    native_runtime=True and a sliding-window model construct (the window
+    pages by its rolling pages without the prefix cache); without a card
+    the engines raise unless given the CPU."""
     eng = tserving.ContinuousEngine(TCFG, s_max=64, device="cpu")
     with pytest.raises(ValueError, match="capacity"):
         eng.serve({"embed": torch.zeros(1)},
@@ -230,13 +231,13 @@ def test_engine_guards(monkeypatch):
     with pytest.raises(ValueError, match="host_overlap"):
         tserving.PagedContinuousEngine(TCFG, interleave_admission=True,
                                        host_overlap=True, **kw)
-    with pytest.raises(NotImplementedError, match="native"):
-        tserving.PagedContinuousEngine(TCFG, native_runtime=True, **kw)
+    eng = tserving.PagedContinuousEngine(TCFG, native_runtime=True, **kw)
+    assert eng.native_runtime and eng.last_alloc_kind == "unused"
     wcfg = dataclasses.replace(TCFG, window_left=64)
-    with pytest.raises(NotImplementedError, match="window"):
-        tserving.PagedContinuousEngine(wcfg, **kw)
+    assert tserving.PagedContinuousEngine(wcfg, **kw)._windowed_paging
     # a windowed model pages by whole spans with the prefix cache
-    tserving.PagedContinuousEngine(wcfg, prefix_cache=True, **kw)
+    assert not tserving.PagedContinuousEngine(
+        wcfg, prefix_cache=True, **kw)._windowed_paging
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         tserving.ContinuousEngine(TCFG, s_max=S_MAX)
