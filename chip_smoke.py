@@ -246,6 +246,7 @@ Then the kernel table, the card's name and power limit, and as the last line
 {"ok": true, "device": {...}}.
 """
 
+import contextlib
 import ctypes
 import dataclasses
 import functools
@@ -6753,6 +6754,413 @@ def dit_train_phase(build, dev, card):
     return counts
 
 
+# sharded_emulated: B7 over a sequence-sharded cache of SHARD_N blocks of
+# SHARD_SLOTS slots on one card (the 0.88B config's attention widths, b = 4,
+# one layer): every rank's call (serving/sharded.py's per-rank partial)
+# against the plain version, and the merged result against the unsharded
+# call over the whole cache, for every cache kind, dense and paged
+SHARD_N, SHARD_SLOTS, SHARD_B = 4, 32768, 4
+SHARD_CASES = (
+    ("one token in block 1", 1, (41769, 36001, 50000, 32769), {}),
+    ("one token on block boundaries", 1, (32768, 65536, 98304, 131072), {}),
+    ("one token in block 0", 1, (20000, 9000, 32768, 1), {}),
+    ("window over blocks 1 and 2", 1, (66000, 67000, 68000, 69000),
+     WINDOWED),
+    ("run of 5 over a boundary", 5, (65538, 65540, 98306, 32770), WINDOWED),
+    ("run of 256 over a boundary", 256, (65600, 65791, 98404, 32968),
+     WINDOWED),
+)
+SHARD_DTYPES = ("bfloat16", "int8", "float8_e4m3fn", "int4")
+
+
+def b7_device_ms(fn, calls=20):
+    """Device ms per call of B7's kernels (its span or run kernel and its
+    merge) in ``calls`` calls of fn, under torch.profiler."""
+    def run():
+        for _ in range(calls):
+            fn()
+
+    _, prof = profiled(run)
+    return sum(t for name, _, t in prof["top"] if any(
+        k in name for k in ("decode_span_kernel", "merge_spans",
+                            "decode_run_kernel", "merge_rows"))) / calls
+
+
+def b7_column_times(decode, q, part, lens, n_tok, win, sinks):
+    """Rank 1's B7 call with its sharded columns (lengths, first columns
+    and sink slice as serving/sharded.py makes them, computed once) and
+    the same call without them (the block's local lengths, the window
+    derived by the kernel): device ms per call of the kernels (no L2
+    flush: the window's ~34 MB of int8 K/V fit the 50 MB L2) and the
+    calls' CUDA-event ms."""
+    local = lens - SHARD_SLOTS
+    if n_tok == 1:
+        local = local.clamp(0, SHARD_SLOTS)
+    fc = lens - n_tok - win - SHARD_SLOTS
+    sc = torch.full_like(lens, sinks).sub_(SHARD_SLOTS).clamp_(
+        0, SHARD_SLOTS)
+    kw = dict(layer=0, window_size=(win, -1))
+
+    def with_cols():
+        return decode.decode_attention(q, *part[:2], local, *part[2:],
+                                       first_cols=fc, sink_cols=sc,
+                                       sink_band=sinks, **kw)
+
+    def without():
+        return decode.decode_attention(q, *part[:2], local, *part[2:],
+                                       sink_tokens=sinks, **kw)
+
+    out = {}
+    for tag, fn in (("", with_cols), ("_without_columns", without),
+                    ("_without_columns", without), ("", with_cols)):
+        out.setdefault(f"ms{tag}", []).append(b7_device_ms(fn))
+        out.setdefault(f"call_ms{tag}", []).append(time_ms(fn, iters=20))
+    return out
+
+
+@contextlib.contextmanager
+def plain_b7(decode):
+    """decode_attention's calls (and the sharded partials through it) take
+    B7's plain version on the card's tensors, in place of the kernels."""
+    saved = decode.decode_attention_core
+    decode.decode_attention_core = decode.decode_attention_core_plain
+    try:
+        yield
+    finally:
+        decode.decode_attention_core = saved
+
+
+def sharded_cache(kv_cache, dtype, paged, gen, dev):
+    """A one-layer cache of SHARD_N * SHARD_SLOTS slots of random K/V
+    quantized to ``dtype``, and each rank's part: dense, the (1, b, h_kv,
+    slots, d) blocks (copies); paged, the pool (1, SHARD_N * p_local,
+    h_kv, PAGE, d) whose partition r is pages [r * p_local, (r + 1) *
+    p_local) (local page 0 its scratch), with the global page table (a
+    row's logical page j on partition j // ppr, shuffled among its pages
+    there)."""
+    hk, d = MODEL["n_kv_heads"], MODEL["head_dim"]
+    s = SHARD_N * SHARD_SLOTS
+    ppr = SHARD_SLOTS // PAGE
+    p_local = SHARD_B * ppr + 1
+    if paged:
+        shape = (1, SHARD_N * p_local, hk, PAGE, d)
+    else:
+        shape = (1, SHARD_B, hk, s, d)
+    vals = []
+    for _ in range(2):  # K, V: values and scales in the cache's layout
+        q, sc = quant_values(kv_cache, shape, dtype, gen, dev)
+        vals.append((q, None if sc is None else sc[..., None, :]))
+    kc, vc, ks, vs = vals[0][0], vals[1][0], vals[0][1], vals[1][1]
+    if paged:
+        pt = torch.full((SHARD_B, SHARD_N * ppr), -1, dtype=torch.int32)
+        for i in range(SHARD_B):
+            for j in range(SHARD_N * ppr):
+                r = j // ppr
+                pt[i, j] = r * p_local + 1 + i * ppr + (j * 7) % ppr
+        whole = (kc, vc, ks, vs)
+        parts = [tuple(None if t is None else
+                       t[:, r * p_local:(r + 1) * p_local] for t in whole)
+                 for r in range(SHARD_N)]
+        return whole, parts, pt.to(dev)
+    whole = (kc, vc, ks, vs)
+    parts = []
+    for r in range(SHARD_N):
+        sl = slice(r * SHARD_SLOTS, (r + 1) * SHARD_SLOTS)
+        parts.append((kc[:, :, :, sl].contiguous(),
+                      vc[:, :, :, sl].contiguous(),
+                      None if ks is None else ks[..., sl].contiguous(),
+                      None if vs is None else vs[..., sl].contiguous()))
+    return whole, parts, None
+
+
+def sharded_emulated_phase(build, decode, kv_cache, sharded, gen, dev,
+                           card):
+    """sharded_emulated: for every cache kind, dense and paged, and every
+    SHARD_CASES case: each rank's B7 call (decode_attention.cu for one
+    token, decode_run for the runs, by decode_route) against its plain
+    version on the same tensors, row by row with B7's gates; the n-way
+    merge of the ranks' partials against the unsharded call over the whole
+    cache (ROW_REL_TOL: the partials are bf16); a run of 5 bf16 rows
+    appended across the block boundary at 65536 rank by rank, bit for bit
+    the unsharded append. The window case and the run of 256 are timed on
+    rank 1 with its sharded columns and without them (the same block and
+    query at its local lengths, the window derived by the kernel). Returns
+    the cases by kernel and the phase's launch counts (the kernels' and the
+    plain versions' calls alike are comparisons)."""
+    from long_context_attention_tpu_torch.ops.kv_cache import (
+        KVCache, PagedKVCache)
+
+    h, hk, d = MODEL["n_heads"], MODEL["n_kv_heads"], MODEL["head_dim"]
+    out = {"decode_attention": [], "decode_run": []}
+    timed = {}
+    t_phase = time.perf_counter()
+    build.reset_launch_counts()
+    for dtype in SHARD_DTYPES:
+        for paged in (False, True):
+            whole, parts, pt = sharded_cache(kv_cache, dtype, paged, gen,
+                                             dev)
+            store = "paged" if paged else "dense"
+            for tag, n_tok, lengths, shape in SHARD_CASES:
+                win = shape.get("window_left", -1)
+                sinks = shape.get("sink_tokens", 0)
+                lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+                qshape = ((SHARD_B, h, d) if n_tok == 1
+                          else (SHARD_B, n_tok, h, d))
+                q = torch.randn(qshape, generator=gen, device=dev).bfloat16()
+                kw = dict(layer=0, window_left=win, sink_tokens=sinks,
+                          page_table=pt)
+                kernel = ("decode_attention" if n_tok == 1
+                          else "decode_run")
+                row_tol, lse_tol = ((B7_ROW_TOL, B7_LSE_TOL)
+                                    if kernel == "decode_attention"
+                                    else (ROW_REL_TOL, LSE_TOL))
+                outs, lses, errs = [], [], []
+                for r in range(SHARD_N):
+                    o, lse = sharded.sharded_decode_attention(
+                        q, *parts[r][:2], lens, *parts[r][2:],
+                        axis_name=(r, SHARD_N), **kw)
+                    with plain_b7(decode):
+                        po, pl_ = sharded.sharded_decode_attention(
+                            q, *parts[r][:2], lens, *parts[r][2:],
+                            axis_name=(r, SHARD_N), **kw)
+                    name = f"sharded {dtype} {store} {tag} rank {r}"
+                    e, _ = check_out(name, o, po, tol=row_tol)
+                    check(f"{name} lse", max_err(lse, pl_), lse_tol)
+                    errs.append(e)
+                    outs.append(o.float())
+                    lses.append(lse.transpose(1, 2) if n_tok > 1 else lse)
+                merged = sharded.merge_sharded_partials(torch.stack(outs),
+                                                        torch.stack(lses))
+                ref = decode.decode_attention(
+                    q, *whole[:2], lens, *whole[2:], layer=0,
+                    window_size=(win, -1), sink_tokens=sinks,
+                    page_table=pt)
+                m_err, _ = check_out(
+                    f"sharded {dtype} {store} {tag} merged vs unsharded",
+                    merged, ref)
+                dead = [r for r in range(SHARD_N)
+                        if bool(torch.isneginf(lses[r]).all())]
+                case = {"case": f"{dtype} {store}: {tag}",
+                        "lengths": list(lengths), "n_tok": n_tok,
+                        "window_left": win, "sink_tokens": sinks,
+                        "max_abs_err": max(errs),
+                        "merged_vs_unsharded_max_abs_err": m_err,
+                        "dead_ranks": dead}
+                key = (dtype, store, tag)
+                if dtype == "int8" and store == "dense" and tag in (
+                        "window over blocks 1 and 2",
+                        "run of 256 over a boundary"):
+                    case.update(b7_column_times(decode, q, parts[1], lens,
+                                                n_tok, win, sinks))
+                    timed[kernel] = case
+                out[kernel].append(case)
+                emit({"phase": "sharded_emulated", "card": card, **case})
+            # a run of 5 appended across the boundary at 65536
+            pos = torch.full((SHARD_B,), 2 * SHARD_SLOTS - 2,
+                             dtype=torch.int32, device=dev)
+            pos[1] = -5  # a skipped row
+            k5, v5 = (torch.randn((SHARD_B, 5, hk, d), generator=gen,
+                                  device=dev).bfloat16() for _ in range(2))
+            length = torch.zeros(SHARD_B, dtype=torch.int32, device=dev)
+            if paged:
+                ref = PagedKVCache(*(None if t is None else t.clone()
+                                     for t in whole), pt, length)
+                blocks = [PagedKVCache(*p, pt, length) for p in parts]
+            else:
+                ref = KVCache(*whole, length)
+                blocks = [KVCache(*p, length) for p in parts]
+            decode.cache_append_rows(ref, 0, k5, v5, pos)
+            for r, blk in enumerate(blocks):
+                sharded.sharded_cache_append_rows(blk, 0, k5, v5, pos,
+                                                  axis_name=(r, SHARD_N))
+            torch.cuda.synchronize()
+            for i, name in enumerate(("k", "v", "k_scale", "v_scale")):
+                if whole[i] is None:
+                    continue
+                got = whole[i] if paged else torch.cat(
+                    [getattr(b, name) for b in blocks],
+                    dim=-1 if i >= 2 else -2)
+                if not torch.equal(as_bytes(got),
+                                   as_bytes(getattr(ref, name))):
+                    raise AssertionError(
+                        f"sharded_emulated {dtype} {store}: the straddling "
+                        f"append's {name} differs from the unsharded one")
+            emit({"phase": "sharded_emulated", "card": card,
+                  "case": f"{dtype} {store}: append of 5 across 65536",
+                  "bit_equal": True})
+            del whole, parts, ref, blocks
+            torch.cuda.empty_cache()
+    counts = build.launch_counts()
+    emit({"phase": "sharded_emulated_summary", "card": card,
+          "seconds": time.perf_counter() - t_phase,
+          "timed_rank1": timed, "launches": counts})
+    return out, counts
+
+
+# serve_sharded: the 0.88B config with window 4096 and 4 sinks, int8 cache,
+# on a one-rank NCCL mesh: ShardedEngine.generate on a 16384-token prompt,
+# the sharded continuous engines on SHARDED_REQS requests, the speculative
+# ones (a self-draft) on the first SHARDED_SPEC of them
+SHARDED_PROMPT, SHARDED_NEW = 16384, 64
+SHARDED_REQS, SHARDED_SPEC, SHARDED_REQ_NEW = 8, 4, 16
+SHARDED_PROMPTS = (4500, 6200)
+SHARDED_S_MAX = 16384
+
+
+def sharded_tokens_gate(tag, params, cfg, reqs, got, want, dev):
+    """Each request's tokens equal the meshless engine's; where a near tie
+    parts them, the sharded run's tokens are held to its bf16 teacher
+    (their largest gap within TEACHER_TOL). Returns the parted requests."""
+    parted = {}
+    for r in reqs:
+        a, b = got[r.id].tokens, want[r.id].tokens
+        if len(a) != r.max_new:
+            raise AssertionError(f"serve_sharded {tag}: request {r.id} "
+                                 f"emitted {len(a)} tokens")
+        if a != b:
+            gap, at = target_greedy_gaps(params, cfg, r.tokens, a, dev)
+            check(f"serve_sharded {tag} request {r.id} teacher gap", gap,
+                  TEACHER_TOL)
+            parted[r.id] = {"gap": gap, "at": at}
+    return parted
+
+
+def serve_sharded_phase(pkg, build, decode, dev, card):
+    """serve_sharded: the sharded serving path on a one-rank NCCL mesh, each
+    engine against its meshless counterpart on the same weights and
+    requests: ShardedEngine.generate (b = 1, 16384 prompt tokens, 64 new,
+    window 4096 + 4 sinks: B7 takes the sharded columns) against
+    Engine.generate; ShardedContinuousEngine and
+    ShardedPagedContinuousEngine (pages of 2048) against ContinuousEngine
+    and PagedContinuousEngine on SHARDED_REQS requests; the two sharded
+    speculative engines (self-draft, gamma 4) against the meshless ones.
+    Gates: tokens equal, or at a near tie within TEACHER_TOL of the bf16
+    teacher; exact B6 / B7 / decode_run counts on every sharded run.
+    Returns the launch counts of each sharded run."""
+    import torch.distributed as dist
+
+    from long_context_attention_tpu_torch import serving
+    from long_context_attention_tpu_torch.models.llama import init_params
+    from long_context_attention_tpu_torch.parallel import make_usp_mesh
+
+    cfg = pkg.ModelConfig(**MODEL, **WINDOWED)
+    L = cfg.n_layers
+    gen = torch.Generator(device=dev).manual_seed(SEED + 22)
+    params = init_params(gen, cfg, device=dev)
+    rng = np.random.default_rng(22)
+    reqs = [serving.Request(id=i, tokens=[int(t) for t in rng.integers(
+        0, cfg.vocab, int(rng.integers(*SHARDED_PROMPTS)))],
+        max_new=SHARDED_REQ_NEW) for i in range(SHARDED_REQS)]
+    prompt = torch.randint(0, cfg.vocab, (1, SHARDED_PROMPT), generator=gen,
+                           device=dev)
+    counts, numbers, parted = {}, {}, {}
+    t_phase = time.perf_counter()
+    mesh = make_usp_mesh()
+    try:
+        s_max = SHARDED_PROMPT + 4096
+        eng = serving.ShardedEngine(cfg, mesh, s_max, "int8")
+        one = serving.Engine(cfg, s_max, "int8", device=dev)
+        eng.prefill(params, prompt[:, :CHUNK])  # warm-up
+        build.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        toks, cache, logits = eng.generate(params, prompt, SHARDED_NEW)
+        torch.cuda.synchronize()
+        numbers["generate_s"] = time.perf_counter() - t0
+        counts["serve_sharded generate"] = expect_counts(build, {
+            "cache_append": 1 + L * SHARDED_NEW,
+            "decode_attention": L * SHARDED_NEW, "decode_run": 0})
+        ref = one.generate(params, prompt, SHARDED_NEW)
+        numbers["cache_bytes"] = cache_bytes(cache)
+        if cache.k.shape[3] != s_max or cache.length.tolist() != [
+                SHARDED_PROMPT + SHARDED_NEW]:
+            raise AssertionError(f"serve_sharded generate: cache "
+                                 f"{tuple(cache.k.shape)}, length "
+                                 f"{cache.length.tolist()}")
+        a, b = toks[0].tolist(), ref.tokens[0].tolist()
+        numbers["generate_prefill_logits_max_abs_err"] = max_err(
+            logits, ref.prefill_logits)
+        check("serve_sharded generate prefill logits",
+              numbers["generate_prefill_logits_max_abs_err"], TEACHER_TOL)
+        if a != b:
+            gap, at = target_greedy_gaps(params, cfg, prompt[0].tolist(), a,
+                                         dev)
+            check("serve_sharded generate teacher gap", gap, TEACHER_TOL)
+            parted["generate"] = {"gap": gap, "at": at}
+        del cache, ref
+        torch.cuda.empty_cache()
+        common = dict(s_max=SHARDED_S_MAX, max_batch=8, cache_dtype="int8",
+                      weight_dtype="int8", step_block=STEP_BLOCK)
+        page = dict(page_size=PAGE, pool_pages=8 * (SHARDED_S_MAX // PAGE)
+                    + 1)
+        for tag, sh, base, extra in (
+                ("continuous", serving.ShardedContinuousEngine,
+                 serving.ContinuousEngine, {}),
+                ("paged", serving.ShardedPagedContinuousEngine,
+                 serving.PagedContinuousEngine, page)):
+            want = base(cfg, **common, **extra, device=dev).serve(params,
+                                                                  reqs)
+            sheng = probe_engine(sh)(cfg, **common, **extra, mesh=mesh)
+            res, wall, ntok, steps, got = serve_timed(build, sheng, params,
+                                                      reqs)
+            counts[f"serve_sharded {tag}"] = expect_counts(build, {
+                "cache_append": L * steps + SHARDED_REQS,
+                "decode_attention": L * steps, "decode_run": 0})
+            if tag == "paged":
+                expect_native("serve_sharded paged", sheng)
+            parted[tag] = sharded_tokens_gate(tag, params, cfg, reqs, res,
+                                              want, dev)
+            numbers[tag] = {"wall_s": wall, "tok_per_s": ntok / wall,
+                            "decode_steps": steps}
+            torch.cuda.empty_cache()
+        spec_reqs = reqs[:SHARDED_SPEC]
+        sub = spec_subruns(decode, cfg, SPEC_GAMMA + 1, SHARDED_S_MAX,
+                           False)
+        psub = spec_subruns(decode, cfg, SPEC_GAMMA + 1, PAGE, True)
+        for tag, sh, base, extra, n_sub in (
+                ("speculative", serving.ShardedSpeculativeContinuousEngine,
+                 serving.SpeculativeContinuousEngine, {}, sub),
+                ("speculative paged",
+                 serving.ShardedPagedSpeculativeContinuousEngine,
+                 serving.PagedSpeculativeContinuousEngine, page, psub)):
+            kw = dict(common, step_block=1, draft_cfg=cfg, gamma=SPEC_GAMMA,
+                      **extra)
+            want = base(cfg, **kw, device=dev).serve(params, params,
+                                                     spec_reqs)
+            sheng = sh(cfg, **kw, mesh=mesh)
+            build.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = sheng.serve(params, params, spec_reqs)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            rounds = sheng.round_stats["rounds"]
+            steps = SPEC_GAMMA + 1
+            counts[f"serve_sharded {tag}"] = expect_counts(build, {
+                "cache_append": rounds * (steps + 1) * L
+                + 2 * SHARDED_SPEC,
+                "decode_attention": rounds * steps * L,
+                "decode_run": rounds * L * n_sub})
+            parted[tag] = sharded_tokens_gate(tag, params, cfg, spec_reqs,
+                                              res, want, dev)
+            stats = sheng.round_stats
+            numbers[tag] = {"wall_s": wall, "rounds": rounds,
+                            "acceptance": stats["accepted"]
+                            / max(stats["drafted"], 1)}
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    emit({"phase": "serve_sharded", "card": card, "model": "llama-0.88B",
+          "mesh": "dp 1 x ring 1 x ulysses 1 (NCCL)", "window_left": WINDOW,
+          "sink_tokens": SINKS, "cache_dtype": "int8",
+          "generate_prompt": SHARDED_PROMPT, "generate_new": SHARDED_NEW,
+          "requests": SHARDED_REQS, "speculative_requests": SHARDED_SPEC,
+          "max_new": SHARDED_REQ_NEW, "teacher_tol": TEACHER_TOL,
+          "parted_at_near_ties": parted, **numbers,
+          "launches": counts, "seconds": time.perf_counter() - t_phase})
+    return counts
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
@@ -6763,6 +7171,7 @@ def main():
     from long_context_attention_tpu_torch.ops import (
         decode, flash, kv_cache, sage, sparse)
     from long_context_attention_tpu_torch.parallel import ring
+    from long_context_attention_tpu_torch.serving import sharded
 
     dev = torch.device("cuda")
     smi = smi_line()
@@ -7023,6 +7432,14 @@ def main():
     new_paths.update(serve_speculative_phase(pkg, build, decode, dev, smi))
     torch.cuda.empty_cache()
     lap("serve_speculative")
+    # sequence-sharded serving: B7 with each rank's columns, emulated on
+    # one card, then the sharded engines on a one-rank NCCL mesh
+    sharded_cases, new_paths["sharded_emulated"] = sharded_emulated_phase(
+        build, decode, kv_cache, sharded, gen, dev, smi)
+    lap("sharded_emulated")
+    new_paths.update(serve_sharded_phase(pkg, build, decode, dev, smi))
+    torch.cuda.empty_cache()
+    lap("serve_sharded")
     emit({"phase": "timing", "seconds": seconds})
     path = {"flash_fwd_static": wcounts, "flash_bwd_fused": train_counts,
             "flash_bwd_dq": offsets_counts, "flash_bwd_dkv": offsets_counts,
@@ -7120,6 +7537,14 @@ def main():
                    "B8b": new_paths["dit_forward sage"]}.get(
                        tag, new_paths["dit_train"])
             r["dit_cases"] = [dict(dit_rows[tag], launches=src[r["name"]])]
+        # the sequence-sharded cases: launches on serve_sharded's generate
+        # (one token) and its speculative engine's verify runs
+        if r["name"] in sharded_cases:
+            src = new_paths["serve_sharded generate"
+                            if r["name"] == "decode_attention"
+                            else "serve_sharded speculative"]
+            r["sharded_cases"] = [dict(c, launches=src[r["name"]])
+                                  for c in sharded_cases[r["name"]]]
         # launches on the mesh engine's prefill and decode, the async
         # layer's forward and backward, the DiT forward and training, the
         # rolling window pages' and the speculative engines' runs

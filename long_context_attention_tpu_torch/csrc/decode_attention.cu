@@ -37,6 +37,16 @@
 // nor are a sink tile's columns past the sinks or the band's first tile's
 // columns left of the window.
 //
+// A sequence-sharded cache (serving/sharded.py) gives each row its slice
+// of the global window instead (first_cols, sink_cols, decode.py
+// :361-398): the row's first column fc, unclipped (token i's bound is
+// fc + i), and the end of its sink slice. The walk then bands from
+// max(fc, 0); the grid's tile slots stay sized on the host from the
+// window, n_tok and the sink bound, which cover any rank's slice. A row
+// whose length is 0 or less has no live tile (an empty partial), and a
+// run's length past the slots keeps every column visible (the walk stops
+// at the last tile).
+//
 // Design: the grid does not follow JAX's tile count. A JAX tile of `bkv`
 // columns is cut into `cluster` spans (ops/decode.py decode_token_span:
 // about 32 KB of K a span, at most 8 spans), each one 256-thread block; a
@@ -153,6 +163,8 @@ struct Params {
   const float* slopes; // (h_kv, G) ALiBi row slopes, or null
   const int* lengths;  // (b,)
   const int* pt;       // (b, n_pages) page table, or null (dense)
+  const int* fc;       // (b,) sharded first columns, or null
+  const int* scol;     // (b,) sharded sink ends, or null
   float* out;          // (b, tiles, h_kv, G, D) fp32 partials (tiles = 1:
   float* lse;          //   the output); (b, tiles, h_kv, G)
   int b, h_kv, G, s_max, layer, bkv, tiles, span, cluster;
@@ -368,14 +380,21 @@ __global__ void __launch_bounds__(NT, GP == 2 ? MINB : 2)
 
   // the row's live tiles, each once: the sink tiles before the window's
   // band, then the band [start_t, last_t] from the run's first token's
-  // window to its last token; this cluster takes the tslot-th
+  // window (or its sharded first column) to its last token; this cluster
+  // takes the tslot-th
+  const bool sharded = p.fc != nullptr;
+  const int fc = sharded ? p.fc[ib] : 0;
+  const int sink = sharded ? (p.scol != nullptr ? p.scol[ib] : 0) : p.sink;
   const int nk = (p.s_max + p.bkv - 1) / p.bkv;
   const int last_t = len > 0 ? min((len - 1) / p.bkv, nk - 1) : -1;
-  const int first_col = p.left >= 0 ? max(len - p.n_tok - p.left, 0) : 0;
+  const int first_col =
+      sharded ? max(fc, 0)
+              : (p.left >= 0 ? max(len - p.n_tok - p.left, 0) : 0);
   const int start_t = first_col / p.bkv;
   const int n_sink =
-      p.left >= 0 ? min(min((p.sink + p.bkv - 1) / p.bkv, start_t), last_t + 1)
-                  : 0;
+      p.left >= 0 || sharded
+          ? min(min((sink + p.bkv - 1) / p.bkv, start_t), last_t + 1)
+          : 0;
   const int n_live = n_sink + max(last_t - start_t + 1, 0);
   // an empty partial: lse -inf (the merge reads no out beside it; the
   // output itself, out 0, when it is the only partial)
@@ -396,8 +415,8 @@ __global__ void __launch_bounds__(NT, GP == 2 ? MINB : 2)
   // span when they fit it (the cluster's other blocks have none, and
   // nothing is exchanged), else evenly to all: this block's span is
   // columns [s0, s0 + e) of the tile
-  const int hi = min(p.bkv, (sink_tile ? min(p.sink, len) : len) - c0);
-  const int lo = c0 < p.sink ? 0 : max(first_col - c0, 0);
+  const int hi = min(p.bkv, (sink_tile ? min(sink, len) : len) - c0);
+  const int lo = c0 < sink ? 0 : max(first_col - c0, 0);
   const int n_vis = max(hi - lo, 0);
   const bool one = n_vis <= S;
   const int per = one ? S : (n_vis + p.cluster - 1) / p.cluster;
@@ -491,11 +510,12 @@ __global__ void __launch_bounds__(NT, GP == 2 ? MINB : 2)
             (ch * K::QP + c) * 16);
     }
   // the row this lane scores after the butterfly, and its bounds: columns
-  // <= qlim, and >= wlo unless a sink
+  // <= qlim, and >= wlo unless a sink (sharded: fc + the row's token)
   const int myrow = ch / (LPR / GP);
   const bool store = ch % (LPR / GP) == 0 && myrow < G;
-  const int qlim = len - p.n_tok + (r0 + myrow) % p.n_tok;
-  const int wlo = p.left >= 0 ? qlim - p.left : INT_MIN;
+  const int tok = (r0 + myrow) % p.n_tok;
+  const int qlim = len - p.n_tok + tok;
+  const int wlo = sharded ? fc + tok : p.left >= 0 ? qlim - p.left : INT_MIN;
   const float qscale = (S8 && myrow < G) ? p.qs[qrow0 + myrow] : 0.f;
   // ALiBi's slope (0 when off: s - 0 * (q - col) is s)
   const float slope = (p.slopes != nullptr && myrow < G)
@@ -595,7 +615,7 @@ __global__ void __launch_bounds__(NT, GP == 2 ? MINB : 2)
         // on its own as in the plain version
         s = s - __fmul_rn(slope, (float)(qlim - col));
         // per-row bounds: the run's causal limit and the row's window
-        if (col > qlim || (col < wlo && col >= p.sink)) s = kNegInf;
+        if (col > qlim || (col < wlo && col >= sink)) s = kNegInf;
         sc[myrow * SP + j] = s;
       }
     }
@@ -928,7 +948,9 @@ int launch_kind(const Params& p, bool safe, int gp, cudaStream_t st) {
 // out (b, h_kv, G, D) and lse (b, h_kv, G) fp32; with tiles > 1 the tiles'
 // partials go to part_out (b, tiles, h_kv, G, D) / part_lse first.
 // slopes: ALiBi's (h_kv, G) row slopes (times log2e in the fast form), or
-// null.
+// null. first_cols, sink_cols: a sequence-sharded cache's (b,) first
+// columns (unclipped, token 0's) and sink ends, or null; with them the
+// sink entry of dims is unused, left and tiles still size the walk.
 extern "C" int lca_decode_attention(const void* q, const float* qs,
                                     const void* k, const void* v,
                                     const float* ks, const float* vs,
@@ -937,7 +959,9 @@ extern "C" int lca_decode_attention(const void* q, const float* qs,
                                     float* part_lse, float* out, float* lse,
                                     const long long* dims, float sscale,
                                     float cap, int safe, void* stream,
-                                    const float* slopes) {
+                                    const float* slopes,
+                                    const int* first_cols,
+                                    const int* sink_cols) {
   Params p;
   p.q = q;
   p.qs = qs;
@@ -962,6 +986,10 @@ extern "C" int lca_decode_attention(const void* q, const float* qs,
   p.page = (int)dims[12];
   p.n_pages = (int)dims[13];
   p.pt = pt;
+  p.fc = first_cols;
+  p.scol = sink_cols;
+  if (first_cols == nullptr && sink_cols != nullptr)
+    return (int)cudaErrorInvalidValue;
   p.sscale = sscale;
   p.cap = cap;
   if (p.G < 1 || p.n_tok < 1 || p.G % p.n_tok || p.bkv < 1 || p.tiles < 1 ||

@@ -52,8 +52,8 @@
 // with the -inf-safe LSE merge (ops/merge.py merge_partials). The block
 // walks its split's share of the row's live bkv tiles (the sink tiles
 // before the band, then the band from the run's first token's window start
-// to the last token: decode_attention.cu's walk), each in chunks of CH =
-// 128 columns, and skips the chunks that hold no column the walk reads (the
+// to the last token, or from the row's first column on a sequence-sharded
+// cache: decode_attention.cu's walk), each in chunks of CH = 128 columns, and skips the chunks that hold no column the walk reads (the
 // band's first tile left of the window, a sink tile past the sinks, the
 // last tile past the row's length). A block has one producer warpgroup and
 // two consumer warpgroups of 64 rows each:
@@ -196,6 +196,8 @@ struct Params {
   const float* slopes;  // (h_kv, G) ALiBi row slopes, or null
   const int* lengths;   // (b,)
   const int* pt;        // (b, n_pages) page table, or null (dense)
+  const int* fc;        // (b,) sharded first columns, or null
+  const int* scol;      // (b,) sharded sink ends, or null
   float* out;           // (b, splits, h_kv, G, D) fp32 partials
   float* lse;           // (b, splits, h_kv, G)
   int b, h_kv, G, s_max, layer, bkv, splits, tps;
@@ -455,20 +457,25 @@ __device__ __forceinline__ void zero_rows(unsigned char* dst, int live,
 
 // A row's live bkv tiles, each once: the sink tiles before the window's
 // band, then the band [start_t, last_t] from the run's first token's window
-// to its last token (decode_attention.cu's walk); the block's split takes
-// tiles [i0, i1) of them
+// to its last token (decode_attention.cu's walk; a sequence-sharded cache's
+// row bands from its first column fc, unclipped, with its own sink end);
+// the block's split takes tiles [i0, i1) of them
 struct Walk {
-  int len, first_col, start_t, n_sink, i0, i1, bkv, sink;
+  int len, first_col, start_t, n_sink, i0, i1, bkv, sink, fc;
+  bool sharded;
   __device__ Walk(const Params& p, int ib, int sp) {
     len = p.lengths[ib];
     bkv = p.bkv;
-    sink = p.sink;
+    sharded = p.fc != nullptr;
+    fc = sharded ? p.fc[ib] : 0;
+    sink = sharded ? (p.scol != nullptr ? p.scol[ib] : 0) : p.sink;
     const int nk = (p.s_max + p.bkv - 1) / p.bkv;
     const int last_t = len > 0 ? min((len - 1) / p.bkv, nk - 1) : -1;
-    first_col = p.left >= 0 ? max(len - p.n_tok - p.left, 0) : 0;
+    first_col = sharded ? max(fc, 0)
+                        : (p.left >= 0 ? max(len - p.n_tok - p.left, 0) : 0);
     start_t = first_col / p.bkv;
-    n_sink = p.left >= 0
-                 ? min(min((p.sink + p.bkv - 1) / p.bkv, start_t), last_t + 1)
+    n_sink = p.left >= 0 || sharded
+                 ? min(min((sink + p.bkv - 1) / p.bkv, start_t), last_t + 1)
                  : 0;
     const int n_live = n_sink + max(last_t - start_t + 1, 0);
     i0 = sp * p.tps;
@@ -779,10 +786,11 @@ __global__ void __launch_bounds__(NT, 1)
     const bool alibi = p.slopes != nullptr;
     const float cap = p.cap;
     const bool feat = cap > 0.f || alibi;
-    const int sink = p.sink;
+    const int sink = w.sink;
 
     // the thread's rows g and g + 8: their positions' bounds (columns <=
-    // qlim, and >= wlo unless a sink), score multipliers and ALiBi slopes
+    // qlim, and >= wlo unless a sink; sharded: wlo = fc + the row's token),
+    // score multipliers and ALiBi slopes
     int qlim[2], wlo[2];
     float rs[2], slope[2];
 #pragma unroll
@@ -790,7 +798,9 @@ __global__ void __launch_bounds__(NT, 1)
       const int r = rbase + warp * 16 + g + 8 * hh;
       const bool real = r < p.G;
       qlim[hh] = w.len - p.n_tok + r % p.n_tok;
-      wlo[hh] = p.left >= 0 ? qlim[hh] - p.left : INT_MIN;
+      wlo[hh] = w.sharded     ? w.fc + r % p.n_tok
+                : p.left >= 0 ? qlim[hh] - p.left
+                              : INT_MIN;
       rs[hh] = S8 ? (real ? p.qs[((long long)ib * p.h_kv + hk) * p.G + r]
                           : 0.f)
                   : (SAFE ? p.sscale : 1.f);
@@ -891,8 +901,7 @@ __global__ void __launch_bounds__(NT, 1)
               reinterpret_cast<const float*>(smem + L::OFF_SC + ks * 1024);
           const bool full = __all_sync(
               0xffffffffu, col0 + CH - 1 <= qmin &&
-                               (p.left < 0 || col0 >= wmax ||
-                                col0 + CH - 1 < sink));
+                               (col0 >= wmax || col0 + CH - 1 < sink));
           auto body = [&](int i8, const float (&v)[4], float2 vsc) {
             if constexpr (SW == kMaxSweep) {
 #pragma unroll
@@ -1093,14 +1102,18 @@ int launch(const Maps& maps, const Params& p, cudaStream_t stream) {
 // out (b, h_kv, G, D) and lse (b, h_kv, G) fp32; with splits > 1 the
 // partials go to part_out (b, splits, h_kv, G, D) / part_lse first and a
 // second kernel merges them. slopes: ALiBi's (h_kv, G) row slopes (times
-// log2e in the fast form), or null.
+// log2e in the fast form), or null. first_cols, sink_cols: a
+// sequence-sharded cache's (b,) first columns and sink ends, or null
+// (decode_attention.cu's).
 extern "C" int lca_decode_run(const void* q, const float* qs, const void* k,
                               const void* v, const float* ks, const float* vs,
                               const int* lengths, const int* pt,
                               float* part_out, float* part_lse, float* out,
                               float* lse, const long long* dims, float sscale,
                               float cap, int safe, void* stream,
-                              const float* slopes) {
+                              const float* slopes,
+                              const int* first_cols,
+                              const int* sink_cols) {
   Params p;
   p.qs = qs;
   p.ks = ks;
@@ -1108,6 +1121,10 @@ extern "C" int lca_decode_run(const void* q, const float* qs, const void* k,
   p.slopes = slopes;
   p.lengths = lengths;
   p.pt = pt;
+  p.fc = first_cols;
+  p.scol = sink_cols;
+  if (first_cols == nullptr && sink_cols != nullptr)
+    return (int)cudaErrorInvalidValue;
   p.b = (int)dims[0];
   p.h_kv = (int)dims[1];
   p.G = (int)dims[2];

@@ -543,16 +543,18 @@ def prefill_chunk_step(params: Params, cache, tokens: torch.Tensor,
 
 @torch.no_grad()
 def decode_step(params: Params, cache, tokens: torch.Tensor,
-                cfg: ModelConfig, *, active: Optional[torch.Tensor] = None):
+                cfg: ModelConfig, *, active: Optional[torch.Tensor] = None,
+                mesh=None):
     """One single-token decode step against a KVCache or a PagedKVCache (the
     serving hot path): tokens (b,) -> (logits (b, vocab) fp32, cache). Each
     layer appends the new token's K/V (kernel B6) and then attends over the
     cache including it (kernel B7); a paged cache's page table rides both
     kernels. ``cache.length`` advances once at the end. The cache is
     updated IN PLACE. ``active`` (b,) bool marks live rows; inactive rows
-    write nothing and do not advance."""
+    write nothing and do not advance. ``mesh``: the cache is this rank's
+    block of a sequence-sharded cache (:func:`decode_multi_step`)."""
     logits, cache = decode_multi_step(params, cache, tokens[:, None], cfg,
-                                      active=active)
+                                      active=active, mesh=mesh)
     return logits[:, 0], cache
 
 
@@ -560,7 +562,7 @@ def decode_step(params: Params, cache, tokens: torch.Tensor,
 def decode_multi_step(params: Params, cache, tokens: torch.Tensor,
                       cfg: ModelConfig, *,
                       active: Optional[torch.Tensor] = None,
-                      last_index: Optional[int] = None):
+                      last_index: Optional[int] = None, mesh=None):
     """Teacher-forced multi-token decode: tokens (b, n) at per-row
     positions cache.length + [0, n) -> (logits (b, n, vocab) fp32, position
     i's logits following token i, and the cache with the n K/V appended and
@@ -573,7 +575,16 @@ def decode_multi_step(params: Params, cache, tokens: torch.Tensor,
 
     ``active``: (b,) bool; inactive rows write nothing and do not advance.
     ``last_index``: project only that run position through lm_head
-    (logits (b, 1, vocab))."""
+    (logits (b, 1, vocab)).
+
+    ``mesh`` (a ``make_usp_mesh`` mesh, JAX's ``shard_axes``; every
+    sequence rank runs the step alike): the cache is this rank's block of a
+    sequence-sharded cache (``serving/sharded.py``): its ``length`` is the
+    rows' global length, a dense cache holds s_max / n slots and a paged
+    one this rank's pool partition under the global table. Each layer's
+    append goes to the owner ranks and its attention merges every rank's
+    partial (one all-gather); softcap, window and sinks apply, ALiBi does
+    not (as in JAX)."""
     b, n = tokens.shape
     x = params["embed"][tokens]
     pos0 = cache.length
@@ -585,14 +596,27 @@ def decode_multi_step(params: Params, cache, tokens: torch.Tensor,
                                              device=pos0.device)[None]
     scale = cfg.head_dim ** -0.5
     pt = getattr(cache, "page_table", None)
+    shard = None
+    if mesh is not None:
+        from long_context_attention_tpu_torch.serving.sharded import (
+            ShardStep)
+
+        shard = ShardStep(mesh, cache, pos0, n, live, cfg.window_left,
+                          cfg.sink_tokens)
     for i, lp in enumerate(layer_params(params)):
         h = rmsnorm(x, lp["attn_norm"], cfg.norm_eps)
         q, k, v = _qkv(cfg, lp, h, positions)
-        cache_append_rows(cache, i, k, v, append_pos)
-        attn = decode_attention(q, cache.k, cache.v, att_len,
-                                cache.k_scale, cache.v_scale,
-                                softmax_scale=scale, layer=i, page_table=pt,
-                                **cfg.attention_kwargs())
+        if shard is not None:
+            shard.append(cache, i, k, v)
+            attn = shard.attention(q, cache, i, scale=scale,
+                                   softcap=cfg.softcap,
+                                   safe_softmax=cfg.safe_softmax)
+        else:
+            cache_append_rows(cache, i, k, v, append_pos)
+            attn = decode_attention(q, cache.k, cache.v, att_len,
+                                    cache.k_scale, cache.v_scale,
+                                    softmax_scale=scale, layer=i,
+                                    page_table=pt, **cfg.attention_kwargs())
         # the kernel's bf16 out meets the model's dtype, as JAX promotes it
         x = x + qdot(attn.reshape(b, n, cfg.q_dim).to(x.dtype),
                      lp["wo"]).to(x.dtype)

@@ -260,18 +260,19 @@ KERNELS: Dict[str, Kernel] = {
         [_VP, _VP],
         "long_context_attention_tpu/ops/decode.py:40"),
     # q, q scales, k, v, scales (2), lengths, page table (or null), the
-    # split partials (2), out, lse, dims, then scale, softcap, safe, stream
-    # and the ALiBi row slopes (or null)
+    # split partials (2), out, lse, dims, then scale, softcap, safe, stream,
+    # the ALiBi row slopes and a sequence-sharded cache's first columns and
+    # sink ends (each or null)
     "decode_attention": Kernel(
         "decode_attention", "decode_attention.cu", "lca_decode_attention",
-        [_VP] * 13 + [_F, _F, _I, _VP, _VP],
+        [_VP] * 13 + [_F, _F, _I, _VP, _VP, _VP, _VP],
         "long_context_attention_tpu/ops/decode.py:296"),
     # B7's multi-token form (decode_attention_core routes a call by shape,
     # decode_route): the runs of more than 8 query rows per kv head on
     # wgmma, with decode_attention's C signature
     "decode_run": Kernel(
         "decode_run", "decode_run_sm90.cu", "lca_decode_run",
-        [_VP] * 13 + [_F, _F, _I, _VP, _VP],
+        [_VP] * 13 + [_F, _F, _I, _VP, _VP, _VP, _VP],
         "long_context_attention_tpu/ops/decode.py:296"),
 }
 

@@ -39,9 +39,9 @@ Each wrapper runs its plain version (``*_plain``, same arithmetic) for CPU
 tensors and launches its kernel, or raises, for CUDA tensors. Decode takes
 a sliding window with StreamingLLM sinks, a logit softcap, ALiBi slopes and
 an explicit kv split count (``kv_splits``, dense caches); the kernel walks
-a row's sink tiles and window band only. Not ported yet, and raising
-``NotImplementedError``: the sequence-sharded cache's columns
-(``first_cols``, ``sink_cols``, ``sink_band``).
+a row's sink tiles and window band only. A sequence-sharded cache
+(``serving/sharded.py``) passes each rank's slice of the global window as
+per-row columns instead (``first_cols``, ``sink_cols``, ``sink_band``).
 """
 
 from __future__ import annotations
@@ -57,7 +57,7 @@ from long_context_attention_tpu_torch.ops.flash import _CLAMP, _LOG2E, _fold
 from long_context_attention_tpu_torch.ops.kv_cache import (
     _STORAGE, _dtype_name, _widen, quantize_kv)
 from long_context_attention_tpu_torch.ops.merge import merge_partials
-from long_context_attention_tpu_torch.utils.config import NEG_INF, not_ported
+from long_context_attention_tpu_torch.utils.config import NEG_INF
 
 __all__ = ["cache_append", "cache_append_plain", "cache_append_rows",
            "cache_append_rows_plain", "decode_attention",
@@ -525,7 +525,8 @@ def decode_attention_core_plain(q_in, q_rs, k_cache, v_cache, k_scale,
                                 window_left: int = -1, sink_tokens: int = 0,
                                 softcap: float = 0.0, n_tok: int = 1,
                                 page_table=None, alibi=None, kv_splits=None,
-                                p8_log=None):
+                                p8_log=None, first_cols=None,
+                                sink_cols=None):
     """Plain version of kernel B7, tile by tile on the kernel's tile grid.
 
     q_in (b, h_kv, G, d): G = g * n_tok query rows per kv head, ordered
@@ -548,10 +549,18 @@ def decode_attention_core_plain(q_in, q_rs, k_cache, v_cache, k_scale,
     rowsum(p); p *= v_scale[col]; s8: P requantized per tile, int32 PV;
     else acc += bf16(p) . v. ``kv_splits``: JAX's split count (None: one),
     the tiles cut in that many runs of ceil(tiles / splits), each run's
-    (out, lse) merged by :func:`merge_partials`. Every tile is visited
-    here; the kernel skips those with no visible column, which add nothing
-    (columns at or past a row's length are zeroed before use, so a page
-    past the live prefix is never used). ``p8_log``: a list to which the s8
+    (out, lse) merged by :func:`merge_partials`. ``first_cols`` (b,) int:
+    the sequence-sharded columns (JAX's), the UNCLIPPED first visible
+    column of each row's token 0, token i's bound being first_cols + i; it
+    replaces the window's bound (``window_left`` and ``sink_tokens`` then
+    only size the kernel's walk), and ``sink_cols`` (b,) keeps each row's
+    columns below it visible through that bound. ``lengths`` may then be
+    negative (no visible column: out 0, lse -inf) or, on a run, past the
+    slots (every column up to the run's bound visible). Every tile is
+    visited here; the kernel skips those with no visible column, which add
+    nothing (columns at or past a row's length are zeroed before use, so a
+    page past the live prefix, or a negative rebased page id, is never
+    used). ``p8_log``: a list to which the s8
     path appends each tile's (first column, requantized P) for tests.
     Returns fp32 out (b, h_kv, G, d) and lse (b, h_kv, G)."""
     slot_dim = k_cache.shape[3]
@@ -565,7 +574,7 @@ def decode_attention_core_plain(q_in, q_rs, k_cache, v_cache, k_scale,
                           page_table, alibi, range(t0 * block_kv,
                                                    min(t0 + per, nk)
                                                    * block_kv, block_kv),
-                          p8_log)
+                          p8_log, first_cols, sink_cols)
              for t0 in range(0, nk, per)]
     if len(parts) == 1:
         return parts[0]
@@ -576,7 +585,7 @@ def decode_attention_core_plain(q_in, q_rs, k_cache, v_cache, k_scale,
 def _plain_tiles(q_in, q_rs, k_cache, v_cache, k_scale, v_scale, lengths,
                  layer, block_kv, scale, safe_softmax, window_left,
                  sink_tokens, softcap, n_tok, page_table, alibi, tiles,
-                 p8_log=None):
+                 p8_log=None, first_cols=None, sink_cols=None):
     """(out, lse) of :func:`decode_attention_core_plain` over the tiles
     starting at the columns ``tiles``."""
     b, h_kv, G, d = q_in.shape
@@ -594,8 +603,14 @@ def _plain_tiles(q_in, q_rs, k_cache, v_cache, k_scale, v_scale, lengths,
     lens = lengths.to(device=dev, dtype=torch.long)
     tok = torch.arange(G, device=dev) % n_tok
     qpos = (lens[:, None] - n_tok + tok[None])[:, None, :, None]
-    first = (qpos - window_left if window_left >= 0
-             else torch.zeros_like(qpos))
+    if first_cols is not None:  # the sharded columns, per row
+        fc = first_cols.to(device=dev, dtype=torch.long)
+        first = (fc[:, None] + tok[None])[:, None, :, None]
+        sink_tokens = (0 if sink_cols is None else sink_cols.to(
+            device=dev, dtype=torch.long)[:, None, None, None])
+    else:
+        first = (qpos - window_left if window_left >= 0
+                 else torch.zeros_like(qpos))
     qf = q_in.float()
     for c0 in tiles:
         n = min(block_kv, cap - c0)
@@ -793,22 +808,31 @@ def decode_launch(kernel: str, b: int, h_kv: int, rows: int, cap: int,
 
 def decode_token_reads(launch: DecodeLaunch, length: int, n_tok: int,
                        cap: int, block_kv: int, window_left: int = -1,
-                       sink_tokens: int = 0) -> List[Tuple[int, int, int, int]]:
+                       sink_tokens: int = 0, first_col=None,
+                       sink_col=None) -> List[Tuple[int, int, int, int]]:
     """The cache columns each block of a ``decode_attention`` launch reads
     for one row of ``length``, as ``csrc/decode_attention.cu`` computes
     them: (tile slot, rank in the cluster, first column, end column) of
     every block with a non-empty span. A tile slot past the row's live
     tiles reads nothing; a live tile's columns [c0 + lo, c0 + hi) go to
     rank 0 when they fit one span, else evenly to the cluster's blocks
-    (ceil((hi - lo) / cluster) each, the last ones fewer)."""
-    sink = sink_tokens if window_left >= 0 else 0
+    (ceil((hi - lo) / cluster) each, the last ones fewer). ``first_col``
+    and ``sink_col``: the row's sharded columns (:func:`decode_attention`'s
+    ``first_cols`` / ``sink_cols``), which replace the window's bound and
+    the sinks."""
+    sharded = first_col is not None
+    if sharded:
+        sink = sink_col or 0
+        first_col = max(first_col, 0)
+    else:
+        sink = sink_tokens if window_left >= 0 else 0
+        first_col = (max(length - n_tok - window_left, 0)
+                     if window_left >= 0 else 0)
     nk = -(-cap // block_kv)
     last_t = min((length - 1) // block_kv, nk - 1) if length > 0 else -1
-    first_col = (max(length - n_tok - window_left, 0) if window_left >= 0
-                 else 0)
     start_t = first_col // block_kv
     n_sink = (min(-(-sink // block_kv), start_t, last_t + 1)
-              if window_left >= 0 else 0)
+              if window_left >= 0 or sharded else 0)
     n_live = n_sink + max(last_t - start_t + 1, 0)
     reads = []
     for slot in range(min(n_live, launch.splits // launch.cluster)):
@@ -835,9 +859,13 @@ def decode_attention_core(q_in, q_rs, k_cache, v_cache, k_scale, v_scale,
                           safe_softmax: bool = False, window_left: int = -1,
                           sink_tokens: int = 0, softcap: float = 0.0,
                           n_tok: int = 1, page_table=None, alibi=None,
-                          kv_splits=None):
+                          kv_splits=None, first_cols=None, sink_cols=None):
     """Kernel B7 wrapper (arguments as :func:`decode_attention_core_plain`,
     but ``kv_splits`` None lets the wrapper choose the split of a run).
+    With ``first_cols`` both kernels read each row's first column and sink
+    end (``sink_cols``) from the device; ``window_left`` and
+    ``sink_tokens`` (the static bound on ``sink_cols``) size the walk on
+    the host, so the launch needs no device read.
 
     A CUDA call launches one of B7's two kernels by shape
     (:func:`decode_route`): ``decode_run`` (``csrc/decode_run_sm90.cu``)
@@ -863,7 +891,8 @@ def decode_attention_core(q_in, q_rs, k_cache, v_cache, k_scale, v_scale,
             layer=layer, block_kv=block_kv, scale=scale,
             safe_softmax=safe_softmax, window_left=window_left,
             sink_tokens=sink_tokens, softcap=softcap, n_tok=n_tok,
-            page_table=page_table, alibi=alibi, kv_splits=kv_splits)
+            page_table=page_table, alibi=alibi, kv_splits=kv_splits,
+            first_cols=first_cols, sink_cols=sink_cols)
     b, h_kv, G, d = q_in.shape
     L, pool, _, slot_dim, dv = k_cache.shape
     dev = q_in.device
@@ -916,6 +945,15 @@ def decode_attention_core(q_in, q_rs, k_cache, v_cache, k_scale, v_scale,
     # a tile too large for shared memory fails in the launch (the C entry
     # point returns cudaErrorInvalidValue) and raises there
     lens = lengths.to(device=dev, dtype=torch.int32).contiguous()
+    fc = sc = None
+    if first_cols is not None:
+        fc, sc = (None if t is None else
+                  t.to(device=dev, dtype=torch.int32).contiguous()
+                  for t in (first_cols, sink_cols))
+        if fc.shape != (b,) or (sc is not None and sc.shape != (b,)):
+            raise ValueError(f"first_cols and sink_cols must be (b={b},)")
+    elif sink_cols is not None:
+        raise ValueError("sink_cols requires first_cols (the sharded path)")
     kernel = decode_route(G, block_kv, slot_dim)
     launch = decode_launch(kernel, b, h_kv, G, cap, block_kv, n_tok,
                            window_left, sink_tokens, kv_splits,
@@ -936,15 +974,32 @@ def decode_attention_core(q_in, q_rs, k_cache, v_cache, k_scale, v_scale,
                               splits if run else splits // launch.cluster,
                               launch.per_split if run else launch.span,
                               window_left,
-                              sink_tokens if window_left >= 0 else 0,
+                              sink_tokens if window_left >= 0 and fc is None
+                              else 0,
                               n_tok, pool, slot_dim, n_pages, kind])
     p = _build.ptr
     _build.KERNELS[kernel](
         p(q_in), p(q_rs), p(k_cache), p(v_cache), p(k_scale), p(v_scale),
         p(lens), p(pt), p(part_out), p(part_lse), p(out), p(lse), dims,
         scale, float(softcap), int(safe_softmax), _build.stream_ptr(dev),
-        p(alibi))
+        p(alibi), p(fc), p(sc))
     return out, lse
+
+
+def _check_sink_band(w_left: int, n_tok: int, bkv: int, nk: int,
+                     kv_splits, has_sink_cols: bool, sink_band: int) -> None:
+    """JAX's guard (decode.py:843-850): a windowed call whose walk is
+    banded and takes ``sink_cols`` needs ``sink_band`` to size its sink
+    tiles, or the sinks would silently drop out."""
+    splits = max(1, min(int(kv_splits or 1), nk))
+    band_ns = -(-sink_band // bkv) if sink_band > 0 else 0
+    banded = (w_left >= 0 and splits == 1
+              and band_ns + (w_left + n_tok) // bkv + 2 < nk)
+    if banded and has_sink_cols and band_ns == 0:
+        raise ValueError(
+            "banded windowed decode with sink_cols needs sink_band (the "
+            "static global sink_tokens bound) to size the walk's sink "
+            "tiles; without it the sink attention would be dropped")
 
 
 def decode_query_operands(q, k_cache, quant: bool, *, scale: float,
@@ -1010,14 +1065,24 @@ def decode_attention(q, k_cache, v_cache, lengths, k_scale=None,
     split of a long run into sub-runs follow the JAX package's rule
     (:func:`decode_run_plan`), each sub-run one kernel launch.
     ``kv_splits``: JAX's flash-decoding split count (dense caches; paged +
-    kv_splits > 1 raises ValueError, as JAX refuses it). Returns out (b, h,
-    d) bf16 (+ lse (b, h) fp32 with ``return_lse``); for a run out (b, n,
-    h, d) and lse (b, h, n)."""
+    kv_splits > 1 raises ValueError, as JAX refuses it).
+
+    A sequence-sharded cache (``serving/sharded.py``) passes each rank's
+    slice of the global window: ``first_cols`` (b,) int32, the UNCLIPPED
+    first visible local column of a run's token 0 (token i's is
+    first_cols + i; it may be negative), which replaces the window's bound;
+    ``sink_cols`` (b,) (needs ``first_cols``), the exclusive end of this
+    rank's slice of the sink prefix, visible through that bound; and
+    ``sink_band``, the static bound on ``sink_cols`` (the global sink
+    count) that sizes the walk's sink tiles. ``window_size`` still bounds
+    the walk's band, so the first columns must lie within the window of a
+    run's lengths (as the sharded path's do). ``lengths`` may be negative
+    (a rank past the data: out 0, lse -inf) and, for a run, exceed the
+    slots (an interior rank: every column visible up to the run's bound).
+    Returns out (b, h, d) bf16 (+ lse (b, h) fp32 with ``return_lse``);
+    for a run out (b, n, h, d) and lse (b, h, n)."""
     del interpret
     multi = q.dim() == 4
-    if first_cols is not None or sink_cols is not None or sink_band:
-        raise not_ported("sequence-sharded decode (first_cols/sink_cols/"
-                         "sink_band)")
     if softcap < 0:
         raise ValueError(f"softcap must be >= 0, got {softcap}")
     paged = page_table is not None
@@ -1038,6 +1103,16 @@ def decode_attention(q, k_cache, v_cache, lengths, k_scale=None,
     scale = softmax_scale if softmax_scale is not None else d ** -0.5
     w_left = int(tuple(window_size)[0])
     sink = int(sink_tokens) if w_left >= 0 else 0
+    sharded = first_cols is not None
+    if sink > 0 and sharded:
+        raise ValueError(
+            "with explicit first_cols pass the rank-local sink slice as "
+            "sink_cols, not the global sink_tokens")
+    if sink_cols is not None and not sharded:
+        raise ValueError("sink_cols requires first_cols (the sharded path)")
+    if sharded:
+        first_cols = torch.as_tensor(first_cols, device=q.device).to(
+            torch.int32)
     online = bool(safe_softmax) or softcap > 0
     slopes = None
     if alibi_slopes is not None:
@@ -1045,6 +1120,7 @@ def decode_attention(q, k_cache, v_cache, lengths, k_scale=None,
                                  device=q.device).reshape(h_kv, g, 1)
         if not online:
             slopes = slopes * _LOG2E  # the bias adds to exp2-unit scores
+    cap = (page_table.shape[1] * kc.shape[3] if paged else kc.shape[3])
     outs, lses = [], []
     for i, e, _ in decode_run_plan(n_tok, h_kv, g, d, kc.shape[3],
                                    kc.element_size(), block_kv=block_kv,
@@ -1053,15 +1129,23 @@ def decode_attention(q, k_cache, v_cache, lengths, k_scale=None,
         q_in, q_rs, bkv = decode_query_operands(
             qr[:, i:e], kc, s8, scale=scale, block_kv=block_kv,
             safe_softmax=online, paged=paged)
+        if sharded:
+            _check_sink_band(w_left, n, bkv, cap // bkv, kv_splits,
+                             sink_cols is not None, int(sink_band))
         # (h,) -> each (head, token) row's slope
         row_sl = (None if slopes is None
                   else slopes.expand(h_kv, g, n).reshape(h_kv, g * n))
+        # a sub-run's token 0 is the run's token i: its first column
+        # shifts by i (JAX's decode.py:719-720)
         out, lse = decode_attention_core(
             q_in, q_rs, kc, vc, ks, vs, lengths - (n_tok - e), layer=li,
             block_kv=bkv, scale=scale, safe_softmax=online,
-            window_left=w_left, sink_tokens=sink, softcap=float(softcap),
-            n_tok=n, page_table=page_table, alibi=row_sl,
-            kv_splits=kv_splits)
+            window_left=w_left,
+            sink_tokens=int(sink_band) if sharded else sink,
+            softcap=float(softcap), n_tok=n, page_table=page_table,
+            alibi=row_sl, kv_splits=kv_splits,
+            first_cols=first_cols + i if sharded else None,
+            sink_cols=sink_cols)
         # rows (head, token) -> (token, head)
         outs.append(out.to(torch.bfloat16).reshape(b, h_kv, g, n, d)
                     .permute(0, 3, 1, 2, 4).reshape(b, n, h, d))

@@ -15,7 +15,10 @@ explicit device list, with rank i in the place of device i:
   swapped, so a ring group holds consecutive ranks.
 
 A rank's sequence chunk is ``ring_idx * ulysses + ulysses_idx``, the
-ring-major order of ``MeshAxes.seq``; its batch chunk is ``dp_idx``. NCCL
+ring-major order of ``MeshAxes.seq``; its batch chunk is ``dp_idx``. The
+sequence group holds the ring x ulysses ranks of a dp replica in that
+order (a rank's place in it is its sequence chunk): the sharded serving
+path (``serving/sharded.py``) gathers its decode partials over it. NCCL
 serves the card (``device=None``), gloo the CPU (``device="cpu"``). Tensor,
 pipeline and expert parallel degrees above 1 are not ported.
 """
@@ -72,8 +75,10 @@ def usp_rank_grid(dp: int, ulysses: int, ring: int, *,
 class UspMesh:
     """This rank's place in the USP grid and its process groups.
 
-    ``ring_group`` and ``ulysses_group`` are None when their degree is 1
-    (the collectives are then the identity and never run)."""
+    ``ring_group``, ``ulysses_group`` and ``seq_group`` (the ring x
+    ulysses ranks of this dp replica, ring-major: this rank's place is
+    :attr:`seq_idx`) are None when their degree is 1 (the collectives are
+    then the identity and never run)."""
 
     dp: int
     ulysses: int
@@ -89,7 +94,14 @@ class UspMesh:
     ulysses_group: Optional[dist.ProcessGroup]
     ring_ranks: Tuple[int, ...]
     ulysses_ranks: Tuple[int, ...]
+    seq_group: Optional[dist.ProcessGroup] = None
+    seq_ranks: Tuple[int, ...] = ()
     axes: MeshAxes = MeshAxes()
+
+    @property
+    def n_seq(self) -> int:
+        """The sequence shards: ``ring * ulysses``."""
+        return self.ring * self.ulysses
 
     @property
     def seq_idx(self) -> int:
@@ -161,12 +173,20 @@ def make_usp_mesh(dp: int = 1, ulysses: int = 1, ring: int = 1, tp: int = 1,
                 g = dist.new_group([int(x) for x in grid[a, r, :]])
                 if (a, r) == (i_dp, i_ring):
                     uly_group = g
+    seq_group = None
+    if ring * ulysses > 1:
+        for a in range(dp):
+            g = dist.new_group([int(x) for x in grid[a].reshape(-1)])
+            if a == i_dp:
+                seq_group = g
     return UspMesh(dp=dp, ulysses=ulysses, ring=ring, ulysses_low=ulysses_low,
                    device=dev, grid=grid, rank=rank, dp_idx=i_dp,
                    ring_idx=i_ring, ulysses_idx=i_uly, ring_group=ring_group,
                    ulysses_group=uly_group,
                    ring_ranks=tuple(int(r) for r in grid[i_dp, :, i_uly]),
                    ulysses_ranks=tuple(int(r) for r in grid[i_dp, i_ring, :]),
+                   seq_group=seq_group,
+                   seq_ranks=tuple(int(r) for r in grid[i_dp].reshape(-1)),
                    axes=axes)
 
 

@@ -30,6 +30,9 @@ pages; its bookkeeping runs in the C++ host core (``serving/native.py``)
 when that builds. :class:`SpeculativeContinuousEngine` and
 :class:`PagedSpeculativeContinuousEngine` run draft-and-verify rounds
 (``serving/speculative.py``) in place of single decode steps.
+:class:`ShardedContinuousEngine` and
+:class:`ShardedSpeculativeContinuousEngine` run the same schedulers over a
+sequence-sharded cache (``serving/sharded.py``), every rank alike.
 
 Sampling: JAX's PRNG keys become ``torch.Generator``s. Request r samples
 from its own generator, seeded from ``(seed, r.id)`` (JAX folds the request
@@ -53,6 +56,7 @@ from long_context_attention_tpu_torch.models.llama import (
     decode_multi_step,
     decode_step,
     forward_local,
+    step_device,
 )
 from long_context_attention_tpu_torch.ops.decode import cache_append_rows
 from long_context_attention_tpu_torch.ops.kv_cache import (
@@ -60,6 +64,7 @@ from long_context_attention_tpu_torch.ops.kv_cache import (
     PagedKVCache,
 )
 from long_context_attention_tpu_torch.ops.wquant import quantize_decode_params
+from long_context_attention_tpu_torch.parallel.mesh import MeshAxes
 from long_context_attention_tpu_torch.serving.engine import (
     SamplingParams,
     sample_token,
@@ -70,6 +75,9 @@ from long_context_attention_tpu_torch.serving.prefix_cache import (
     PrefixPageAllocator,
     chain_hashes,
 )
+from long_context_attention_tpu_torch.serving.sharded_engine import (
+    ShardedEngine,
+)
 from long_context_attention_tpu_torch.serving.speculative import (
     SpeculativeEngine,
     draw_rows,
@@ -78,7 +86,8 @@ from long_context_attention_tpu_torch.utils.config import resolve_device
 
 __all__ = ["Request", "RequestResult", "ContinuousEngine",
            "PagedContinuousEngine", "SpeculativeContinuousEngine",
-           "PagedSpeculativeContinuousEngine"]
+           "PagedSpeculativeContinuousEngine", "ShardedContinuousEngine",
+           "ShardedSpeculativeContinuousEngine"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -211,7 +220,7 @@ class ContinuousEngine:
         toks, lps = [], []
         for _ in range(max(1, self.step_block)):
             logits, cache = decode_step(dparams, cache, tok, self.cfg,
-                                        active=act)
+                                        active=act, mesh=self._step_mesh)
             nxt = self._sample_rows(logits, sampling, gens)
             if self.return_logprobs:
                 lps.append(token_logprob(logits, nxt))
@@ -225,6 +234,12 @@ class ContinuousEngine:
             toks.append(nxt)
         lp = torch.stack(lps, dim=1) if self.return_logprobs else None
         return torch.stack(toks, dim=1), lp, tok, act, left
+
+    @property
+    def _step_mesh(self):
+        """The mesh the decode steps' cache is sequence-sharded over (the
+        sharded engines), or None."""
+        return None
 
     def _can_admit(self, req: Request, bi: int) -> bool:
         """Backpressure hook: may ``req`` enter row ``bi`` now? (The paged
@@ -685,7 +700,9 @@ class PagedContinuousEngine(ContinuousEngine):
         if self.interleave_admission:
             c = cs if cs is not None else min(self.prefill_chunk, pad)
             span = max(span, -(-n // c) * c)
-        return max(-(-span // self.page_size), self._rolling_pages())
+        # a rolling set past the row's pages is the whole row
+        return min(max(-(-span // self.page_size), self._rolling_pages()),
+                   self.n_pages)
 
     def init_cache(self) -> PagedKVCache:
         return PagedKVCache.init(self.cfg.n_layers, self.max_batch,
@@ -824,7 +841,7 @@ class PagedContinuousEngine(ContinuousEngine):
         and only ``last_index`` projects through lm_head."""
         logits, view = decode_multi_step(
             params, view, torch.as_tensor(toks, device=self.device),
-            self.cfg, last_index=last_index)
+            self.cfg, last_index=last_index, mesh=self._step_mesh)
         return logits[:, 0], view
 
     def _bucket_prefill(self, params, cache, req: Request, bi: int,
@@ -1064,20 +1081,24 @@ class SpeculativeContinuousEngine(ContinuousEngine):
     # --- round pieces ------------------------------------------------------
 
     def _draft_round(self, draft_params, dcache, t, active):
-        return self._spec._draft_run(draft_params, dcache, t, active)
+        return self._spec._draft_run(draft_params, dcache, t, active,
+                                     mesh=self._step_mesh)
 
     def _verify_round(self, params, tcache, run, active):
-        return self._spec._verify(params, tcache, run, active)
+        return self._spec._verify(params, tcache, run, active,
+                                  mesh=self._step_mesh)
 
     def _draft_round_sampled(self, draft_params, dcache, t, sampling, gens,
                              active):
         return self._spec._draft_run_sampled(draft_params, dcache, t,
-                                             sampling, gens, active)
+                                             sampling, gens, active,
+                                             mesh=self._step_mesh)
 
     def _verify_round_sampled(self, params, tcache, run, drafts, qdist,
                               sampling, gens, active):
         return self._spec._verify_sampled(params, tcache, run, drafts,
-                                          qdist, sampling, gens, active)
+                                          qdist, sampling, gens, active,
+                                          mesh=self._step_mesh)
 
     def serve(self, params, draft_params, requests: Sequence[Request], *,
               sampling: SamplingParams = SamplingParams(),
@@ -1230,3 +1251,88 @@ class PagedSpeculativeContinuousEngine(SpeculativeContinuousEngine,
         return self._with_allocator(
             requests, lambda: SpeculativeContinuousEngine.serve(
                 self, params, draft_params, requests, **kw))
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardedContinuousEngine(ContinuousEngine):
+    """Continuous batching over a sequence-sharded (multi-card) cache.
+
+    The host scheduler of :class:`ContinuousEngine` runs on every rank of
+    ``mesh`` (a ``make_usp_mesh`` mesh) and makes the same decisions from
+    the same replicated tokens; each rank holds its block of ``s_max / n``
+    slots of every row. Admission prefills one request USP-sharded
+    (:meth:`ShardedEngine.prefill_block` with the true last token's index,
+    any training layout) and writes the rank's block into the batch row in
+    place (kernel B6 through the one-entry table [[row]]: only the batch
+    axis moves); each decode step is the sharded :func:`decode_step`
+    (owner-routed append, attention merged over the ranks), gated by the
+    ``active`` rows. Prompt buckets are powers of two (then multiples of
+    2048), so they divide over a power-of-two shard count. ``device``: the
+    mesh's (None). Requests sample from generators seeded alike on every
+    rank, so every rank draws the same tokens."""
+
+    mesh: Optional[object] = None
+    axes: Optional[MeshAxes] = None
+
+    def __post_init__(self):
+        if self.mesh is None:
+            raise ValueError(f"{type(self).__name__} needs a mesh")
+        object.__setattr__(self, "device",
+                           step_device(self.mesh, self.device))
+        if self.axes is None:
+            object.__setattr__(self, "axes", MeshAxes())
+        super().__post_init__()
+        if self.s_max % self.mesh.n_seq:
+            raise ValueError(f"s_max {self.s_max} does not divide over the "
+                             f"{self.mesh.n_seq} sequence ranks")
+
+    @property
+    def _sub(self) -> ShardedEngine:
+        return ShardedEngine(self.cfg, self.mesh, self.s_max,
+                             self.cache_dtype, self.axes,
+                             device=self.device)
+
+    @property
+    def _step_mesh(self):
+        return self.mesh
+
+    def init_cache(self):
+        return self._sub.init_cache(self.max_batch)
+
+    def _prefill_block(self, params, req: Request):
+        """The request's bucket-padded USP prefill: (the true last token's
+        logits (1, vocab), this rank's block of its K/V (L, 1, m, h_kv,
+        d))."""
+        n = len(req.tokens)
+        toks = np.zeros((1, _bucket(n)), np.int64)
+        toks[0, :n] = np.asarray(req.tokens, np.int64)
+        return self._sub.prefill_block(
+            params, torch.as_tensor(toks, device=self.device), n - 1)
+
+    def _admit_row(self, params, cache, req: Request, bi: int,
+                   sampling: SamplingParams, gen):
+        logits, (kv_k, kv_v) = self._prefill_block(params, req)
+        if kv_k.shape[2]:
+            cache = self._insert_row(cache, kv_k, kv_v, bi, len(req.tokens))
+        cache.length[bi] = len(req.tokens)
+        first, lp = self._sample_first(logits, sampling, gen)
+        return cache, first, lp
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardedSpeculativeContinuousEngine(SpeculativeContinuousEngine,
+                                         ShardedContinuousEngine):
+    """Speculative continuous batching over a sequence-sharded cache: the
+    scheduler and acceptance rule of :class:`SpeculativeContinuousEngine`
+    with the target's AND the draft's caches sharded over ``mesh``. The
+    draft steps and the verify run the sharded steps; the verify's run of
+    gamma + 1 tokens appends across the block boundary it straddles and
+    merges its attention per token. Each request's generator is seeded
+    alike on every rank, so every rank draws the same accept and fallback
+    decisions."""
+
+    @property
+    def _draft_eng(self) -> ContinuousEngine:
+        return ShardedContinuousEngine(
+            self.draft_cfg, self.s_max, self.max_batch, self.cache_dtype,
+            device=self.device, mesh=self.mesh, axes=self.axes)

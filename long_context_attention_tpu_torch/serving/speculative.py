@@ -140,17 +140,19 @@ class SpeculativeEngine:
 
     @torch.no_grad()
     def _draft_run(self, draft_params, dcache, t: torch.Tensor,
-                   active: Optional[torch.Tensor] = None):
+                   active: Optional[torch.Tensor] = None, mesh=None):
         """gamma + 1 greedy draft steps from the last tokens t (b,): the
         first gamma proposals (b, gamma) and the draft cache, advanced IN
         PLACE. The extra step writes d_gamma's K/V, so a round that keeps
         every draft leaves the draft cache covering every kept slot.
         ``active``: inactive rows write nothing, advance nothing and repeat
-        their input token."""
+        their input token. ``mesh``: the caches are sequence-sharded over
+        it (the sharded continuous engines)."""
         tok, toks = t, []
         for _ in range(self.gamma + 1):
             logits, dcache = decode_step(draft_params, dcache, tok,
-                                         self.draft_cfg, active=active)
+                                         self.draft_cfg, active=active,
+                                         mesh=mesh)
             nxt = torch.argmax(logits, dim=-1).to(torch.int32)
             if active is not None:
                 nxt = torch.where(active, nxt, tok)
@@ -160,25 +162,27 @@ class SpeculativeEngine:
 
     @torch.no_grad()
     def _verify(self, params, tcache, toks: torch.Tensor,
-                active: Optional[torch.Tensor] = None):
+                active: Optional[torch.Tensor] = None, mesh=None):
         """The target scores the run [t, d_1..d_gamma] (b, gamma+1) in one
         multi-token step: its greedy choice after each position (b,
         gamma+1) and the cache advanced by gamma + 1, IN PLACE."""
         logits, tcache = decode_multi_step(params, tcache, toks, self.cfg,
-                                           active=active)
+                                           active=active, mesh=mesh)
         return torch.argmax(logits, dim=-1).to(torch.int32), tcache
 
     @torch.no_grad()
     def _draft_run_sampled(self, draft_params, dcache, t: torch.Tensor,
                            sampling: SamplingParams, gens: Gens,
-                           active: Optional[torch.Tensor] = None):
+                           active: Optional[torch.Tensor] = None,
+                           mesh=None):
         """gamma + 1 sampled draft steps, row i drawing with ``gens[i]``:
         (drafts (b, gamma), qdist (b, gamma, vocab), the distributions the
         drafts were drawn from, and the advanced cache)."""
         tok, toks, qs = t, [], []
         for _ in range(self.gamma + 1):
             logits, dcache = decode_step(draft_params, dcache, tok,
-                                         self.draft_cfg, active=active)
+                                         self.draft_cfg, active=active,
+                                         mesh=mesh)
             q = sampling_probs(logits, sampling)
             nxt = draw_rows(q, gens)
             if active is not None:
@@ -192,12 +196,12 @@ class SpeculativeEngine:
     @torch.no_grad()
     def _verify_sampled(self, params, tcache, toks, drafts, qdist,
                         sampling: SamplingParams, gens: Gens,
-                        active: Optional[torch.Tensor] = None):
+                        active: Optional[torch.Tensor] = None, mesh=None):
         """The target's verify and the Leviathan rule, row i drawing with
         ``gens[i]`` (rows without one accept nothing): (accept (b, gamma),
         fallback (b, gamma+1), the advanced cache)."""
         logits, tcache = decode_multi_step(params, tcache, toks, self.cfg,
-                                           active=active)
+                                           active=active, mesh=mesh)
         accept = torch.zeros(drafts.shape, dtype=torch.bool,
                              device=drafts.device)
         fallback = torch.zeros(toks.shape, dtype=torch.int32,

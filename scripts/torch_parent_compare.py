@@ -209,7 +209,11 @@ class Tree:
         # whether B7's entry point takes the ALiBi slopes (its last
         # argument), and whether its one-token kernel is the span kernel
         b7 = (self.csrc / "decode_attention.cu").read_text()
-        self.b7_slopes = "const float* slopes)" in b7
+        self.b7_slopes = ("const float* slopes)" in b7
+                          or "const float* slopes,\n" in b7)
+        # whether B7's entry points take a sharded cache's columns (after
+        # the slopes)
+        self.b7_cols = "const int* sink_cols)" in b7
         self.b7_spans = "cudaLaunchKernelEx" in b7
         # whether the sage entries take pv_int8's table (after lse)
         self.sage_table = "float *tbl" in (
@@ -258,12 +262,16 @@ class Tree:
                 self.fns[name].argtypes = args[:8] + args[9:]
                 self.fns[name] = (lambda fn: lambda *a: fn(*a[:8], *a[9:]))(
                     self.fns[name])
-            if name == "decode_attention" and not self.b7_slopes:
-                # no ALiBi slopes (and dims read up to n_pages): the
-                # argument is dropped; the cases pass none
-                self.fns[name].argtypes = self.fns[name].argtypes[:-1]
-                self.fns[name] = (lambda fn: lambda *a: fn(*a[:-1]))(
-                    self.fns[name])
+            if name in ("decode_attention", "decode_run"):
+                # no sharded columns (and, for decode_attention, no ALiBi
+                # slopes, dims read up to n_pages): those trailing
+                # arguments are dropped; the cases pass none
+                drop = (0 if self.b7_cols else 2) + (
+                    0 if self.b7_slopes or name == "decode_run" else 1)
+                if drop:
+                    self.fns[name].argtypes = self.fns[name].argtypes[:-drop]
+                    self.fns[name] = (lambda fn, k: lambda *a: fn(*a[:-k]))(
+                        self.fns[name], drop)
         if not self.b6_args:
             self.fns["cache_append"].argtypes = OLD_B6_ARGS
             self.fns["cache_append"] = b6_from_args(self.fns["cache_append"])

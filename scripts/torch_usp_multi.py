@@ -28,7 +28,18 @@ one-device call. Then, on the same ranks:
   gate), both timed;
 * the DiT forward at Wan2.1-1.3B's widths (30 layers, 32760 tokens on the
   cards) at ulysses 4 (3 heads a rank) and ring 4, timed beside one
-  device's, and its 2-layer model against one device's within 0.1.
+  device's, and its 2-layer model against one device's within 0.1;
+* ``ShardedEngine`` (the 0.88B config, int8 cache, s_max 131072: each card
+  holds a quarter of the cache) at ring 4 (zigzag), ulysses 4 and ulysses
+  2 x ring 2 on a 65536-token prompt with 64 new tokens, against one
+  card's ``Engine``: greedy tokens equal, or where a near tie parts them
+  the sharded tokens teacher-forced through one card's cache within 0.5
+  of the largest logit; each card's cache bytes and decode ms per step
+  beside one card's;
+* ``ShardedContinuousEngine``, ``ShardedPagedContinuousEngine`` and
+  ``ShardedSpeculativeContinuousEngine`` (self-draft) at ulysses 2 x ring
+  2 on 8 requests of 8K-32K tokens, against the one-card engines by the
+  same gate.
 
 Prints one JSON line per case, the card and its power limit, and exits
 non-zero when a check fails.
@@ -79,6 +90,15 @@ DIT = {False: dict(in_dim=64, dim=1536, n_layers=30, n_heads=12,
        True: dict(in_dim=8, dim=64, n_layers=2, n_heads=4, head_dim=16,
                   ffn_hidden=128)}
 DIT_TOKENS = {False: 21 * 30 * 52, True: 256}
+# the sharded engines: (name, ulysses, ring, layout), cache slots, the
+# generate prompt and new tokens, the continuous engines' request prompts
+SHARDED_MESHES = (("ring 4", 1, 4, "zigzag"), ("ulysses 4", 4, 1, "basic"),
+                  ("ulysses 2 x ring 2", 2, 2, "zigzag"))
+SHARDED_S_MAX = {False: 131072, True: 512}
+SHARDED_GEN = {False: (65536, 64), True: (128, 8)}
+CONT_S_MAX = {False: 65536, True: 512}
+CONT_PROMPTS = {False: (8192, 32768), True: (40, 200)}
+CONT_REQS, CONT_NEW = 8, {False: 32, True: 6}
 
 
 def _row_rel(got, want):
@@ -265,6 +285,160 @@ def _dit_cases(rank, device, cpu):
     return rows, ok
 
 
+def _cache_bytes(cache):
+    return sum(t.numel() * t.element_size() for t in (
+        cache.k, cache.v, cache.k_scale, cache.v_scale) if t is not None)
+
+
+def _teacher_gap(one, params, prompt, tokens):
+    """Largest gap between one card's greedy logit and its logit of the
+    sharded run's token, over the sharded tokens teacher-forced through one
+    card's int8 cache (prefill, then one multi-token step)."""
+    from long_context_attention_tpu_torch.models.llama import (
+        decode_multi_step)
+
+    logits, cache = one.prefill(params, prompt)
+    seq = torch.tensor([tokens[:-1]], device=prompt.device)
+    steps, _ = decode_multi_step(params, cache, seq, one.cfg)
+    lg = torch.cat([logits[:, None], steps], dim=1)[0].float()
+    idx = torch.tensor(tokens, device=lg.device)
+    return float((lg.max(-1).values - lg[torch.arange(len(tokens)),
+                                         idx]).max())
+
+
+def _sharded_cases(rank, device, cpu):
+    """ShardedEngine on each of SHARDED_MESHES and the sharded continuous
+    engines at ulysses 2 x ring 2, against one card's engines (rank 0)."""
+    from long_context_attention_tpu_torch import serving
+    from long_context_attention_tpu_torch.models.llama import (
+        ModelConfig, init_params)
+    from long_context_attention_tpu_torch.parallel import make_usp_mesh
+
+    base = {k: v for k, v in LLAMA[cpu].items() if k != "layout"}
+    if cpu:  # kv heads for ulysses 4
+        base.update(n_heads=8, n_kv_heads=4)
+    s_max = SHARDED_S_MAX[cpu]
+    s, new = SHARDED_GEN[cpu]
+    gen = torch.Generator(device=device).manual_seed(SEED + 5)
+    params = init_params(gen, ModelConfig(**base), device=device)
+    prompt = torch.randint(0, base["vocab"], (1, s), generator=gen,
+                           device=device)
+    rows, ok = [], True
+    one = want = None
+    one_row = {}
+    if rank == 0:  # one card (no collective here: the others wait)
+        one = serving.Engine(ModelConfig(**base), s_max, "int8",
+                             device=device)
+        one.prefill(params, prompt[:, :s // 8])  # warm-up
+        res, one_row["one_device_generate_s"] = _wall(
+            lambda: one.generate(params, prompt, new), cpu, barrier=False)
+        want = res.tokens[0].tolist()
+        one_row["one_device_cache_bytes"] = _cache_bytes(res.cache)
+        logits, cache = one.prefill(params, prompt)
+        first = torch.argmax(logits, -1).to(torch.int32)
+        _, one_s = _wall(lambda: one.decode_scan(params, cache, new, first),
+                         cpu, barrier=False)
+        one_row["one_device_decode_ms_per_step"] = 1e3 * one_s / new
+        del res, cache
+    for name, uly, ring, layout in SHARDED_MESHES:
+        mesh = make_usp_mesh(ulysses=uly, ring=ring, device=device)
+        eng = serving.ShardedEngine(ModelConfig(**base, layout=layout), mesh,
+                                    s_max, "int8")
+        eng.prefill(params, prompt[:, :s // 8])  # warm-up
+        (logits, cache), prefill_s = _wall(lambda: eng.prefill(params,
+                                                               prompt), cpu)
+        first = torch.argmax(logits, -1).to(torch.int32)
+        (toks, cache), decode_s = _wall(
+            lambda: eng._decode_scan(params, cache, new, first), cpu)
+        row = {"case": "ShardedEngine vs one card", "mesh": name,
+               "layout": layout, "prompt": s, "new_tokens": new,
+               "s_max": s_max, "cache_dtype": "int8",
+               "prefill_s": prefill_s,
+               "decode_ms_per_step": 1e3 * decode_s / new,
+               "cache_bytes_per_card": _cache_bytes(cache),
+               "cache_slots_per_card": cache.k.shape[3], **one_row}
+        if rank == 0:
+            got = toks[0].tolist()
+            row["tokens_equal"] = got == want
+            row["cache_bytes_vs_one_card"] = (
+                row["cache_bytes_per_card"]
+                / one_row["one_device_cache_bytes"])
+            if got != want:
+                row["first_divergence"] = next(
+                    i for i, (a, b) in enumerate(zip(got, want)) if a != b)
+                row["teacher_gap"] = _teacher_gap(one, params, prompt, got)
+                ok = ok and row["teacher_gap"] <= TEACHER_TOL
+        rows.append(row)
+        del cache, logits, toks
+        if not cpu:
+            torch.cuda.empty_cache()
+    del one
+    rows += _sharded_continuous(rank, device, cpu, base, params)[0]
+    return rows, ok and all(r.get("ok", True) for r in rows)
+
+
+def _sharded_continuous(rank, device, cpu, base, params):
+    """The sharded continuous engines at ulysses 2 x ring 2 (zigzag) on
+    CONT_REQS requests against the one-card engines (rank 0)."""
+    import numpy as np
+
+    from long_context_attention_tpu_torch import serving
+    from long_context_attention_tpu_torch.models.llama import ModelConfig
+    from long_context_attention_tpu_torch.parallel import make_usp_mesh
+
+    cfg = ModelConfig(**base, layout="zigzag")
+    rng = np.random.default_rng(SEED + 6)
+    reqs = [serving.Request(id=i, tokens=[int(t) for t in rng.integers(
+        0, cfg.vocab, int(rng.integers(*CONT_PROMPTS[cpu])))],
+        max_new=CONT_NEW[cpu]) for i in range(CONT_REQS)]
+    s_max, page = CONT_S_MAX[cpu], 2048 if not cpu else 128
+    common = dict(s_max=s_max, max_batch=8, cache_dtype="int8")
+    paged = dict(page_size=page, pool_pages=4 * (2 * (s_max // page) + 1))
+    one_paged = dict(page_size=page, pool_pages=8 * (s_max // page) + 1)
+    spec = dict(draft_cfg=cfg, gamma=4)
+    cases = (("ShardedContinuousEngine", serving.ShardedContinuousEngine,
+              serving.ContinuousEngine, {}, {}, False),
+             ("ShardedPagedContinuousEngine",
+              serving.ShardedPagedContinuousEngine,
+              serving.PagedContinuousEngine, paged, one_paged, False),
+             ("ShardedSpeculativeContinuousEngine",
+              serving.ShardedSpeculativeContinuousEngine,
+              serving.SpeculativeContinuousEngine, spec, spec, True))
+    mesh = make_usp_mesh(ulysses=2, ring=2, device=device)
+    rows = []
+    for name, sh, one_cls, kw, one_kw, draft in cases:
+        args = (params, params) if draft else (params,)
+        want = one_s = None
+        if rank == 0:
+            want, one_s = _wall(lambda: one_cls(
+                cfg, **common, **one_kw, device=device).serve(*args, reqs),
+                cpu, barrier=False)
+        got, sh_s = _wall(lambda: sh(cfg, **common, **kw, mesh=mesh).serve(
+            *args, reqs), cpu)
+        row = {"case": f"{name} vs one card", "mesh": "ulysses 2 x ring 2",
+               "requests": CONT_REQS, "prompts": [len(r.tokens)
+                                                   for r in reqs],
+               "max_new": CONT_NEW[cpu], "sharded_s": sh_s,
+               "one_device_s": one_s}
+        if rank == 0:
+            parted = [r.id for r in reqs if got[r.id].tokens
+                      != want[r.id].tokens]
+            row["parted"] = parted
+            row["ok"] = all(len(got[r.id].tokens) == r.max_new
+                            for r in reqs)
+            if parted:
+                one = serving.Engine(cfg, s_max, "int8", device=device)
+                row["teacher_gap"] = max(_teacher_gap(
+                    one, params, torch.tensor([reqs[i].tokens],
+                                              device=device),
+                    got[i].tokens) for i in parted)
+                row["ok"] = row["ok"] and row["teacher_gap"] <= TEACHER_TOL
+        rows.append(row)
+        if not cpu:
+            torch.cuda.empty_cache()
+    return rows, True
+
+
 def _worker(rank, port, cpu, shape, out_path):
     from long_context_attention_tpu_torch.ops import _build
     from long_context_attention_tpu_torch.ops.flash import flash_attention
@@ -339,7 +513,8 @@ def _worker(rank, port, cpu, shape, out_path):
         del out, grads, got, leaves, shards
     for cases in (lambda: _async_cases(device, cpu, q, k, v, dout),
                   lambda: _engine_cases(rank, device, cpu),
-                  lambda: _dit_cases(rank, device, cpu)):
+                  lambda: _dit_cases(rank, device, cpu),
+                  lambda: _sharded_cases(rank, device, cpu)):
         rows, case_ok = cases()
         results += rows
         ok = ok and case_ok

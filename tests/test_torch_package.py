@@ -72,9 +72,10 @@ def test_build_dir_is_gitignored():
 
 
 def test_unported_features_raise():
-    """Features outside the ported slices raise NotImplementedError (the
-    sequence-sharded decode's columns), and so does a gradient through the
-    int8-KV path, which is forward-only in the JAX package too. ALiBi
+    """A gradient through the int8-KV path raises NotImplementedError: it is
+    forward-only in the JAX package too. The sequence-sharded decode's
+    columns compute (a first column at the row's only column gives the
+    plain call, one past it a dead row). ALiBi
     through flash_attention and decode_attention, segments through the
     dense layer, int4 caches and fp8 K/V through the dense USP layers now
     compute (the oracle's biased output; the layer equals flash_attention
@@ -117,8 +118,12 @@ def test_unported_features_raise():
     one = torch.ones(1, dtype=torch.int32)
     assert torch.isfinite(decode_attention(
         q[:, 0], cache, cache, one, alibi_slopes=torch.ones(2))).all()
-    with pytest.raises(NotImplementedError):
-        decode_attention(q[:, 0], cache, cache, one, first_cols=one)
+    zero = torch.zeros(1, dtype=torch.int32)
+    assert torch.equal(
+        decode_attention(q[:, 0], cache, cache, one, first_cols=zero),
+        decode_attention(q[:, 0], cache, cache, one))
+    assert not decode_attention(q[:, 0], cache + 1, cache + 1, one,
+                                first_cols=one).any()
     # the dense USP layers (block_mask=None) compute since the dense ring,
     # segments and fp8 K/V included
     from long_context_attention_tpu_torch.parallel import (

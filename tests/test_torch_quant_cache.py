@@ -273,18 +273,28 @@ def test_paged_fp8_decode_matches_jax(rng):
 
 
 def test_decode_raises_what_remains():
-    """What still raises: the sequence-sharded cache's columns
-    (NotImplementedError), paged + kv_splits (ValueError, as JAX refuses
-    it)."""
-    kc = torch.zeros((1, 2, 128, D), dtype=torch.float8_e4m3fn)
-    sc = torch.ones((1, 2, 1, 128))
-    q = torch.zeros((1, 4, D), dtype=torch.bfloat16)
-    lens = torch.ones(1, dtype=torch.int32)
-    for kw in (dict(first_cols=torch.zeros(1, dtype=torch.int32)),
-               dict(sink_cols=torch.zeros(1, dtype=torch.int32)),
-               dict(sink_band=4)):
-        with pytest.raises(NotImplementedError, match="sharded"):
+    """What raises: JAX's guards on the sequence-sharded columns (sink_cols
+    without first_cols, the global sink count beside first_cols:
+    ValueError) and paged + kv_splits (ValueError, as JAX refuses it). The
+    columns themselves run: a row's first column equal to its window's
+    gives the windowed call's result, and its sink slice the sinks'."""
+    g = torch.Generator().manual_seed(0)
+    kc = torch.randn((1, 2, 128, D), generator=g).to(torch.float8_e4m3fn)
+    sc = torch.rand((1, 2, 1, 128), generator=g) + 0.5
+    q = torch.randn((1, 4, D), generator=g).to(torch.bfloat16)
+    lens = torch.full((1,), 100, dtype=torch.int32)
+    cols = torch.full((1,), 100 - 1 - 10, dtype=torch.int32)
+    for kw in (dict(sink_cols=cols),
+               dict(first_cols=cols, sink_tokens=4, window_size=(10, -1))):
+        with pytest.raises(ValueError, match="sink"):
             tdec.decode_attention(q, kc, kc, lens, sc, sc, **kw)
+    want = tdec.decode_attention(q, kc, kc, lens, sc, sc,
+                                 window_size=(10, -1), sink_tokens=4)
+    got = tdec.decode_attention(q, kc, kc, lens, sc, sc, first_cols=cols,
+                                sink_cols=torch.full((1,), 4,
+                                                     dtype=torch.int32),
+                                window_size=(10, -1), sink_band=4)
+    assert torch.equal(got, want)
     with pytest.raises(ValueError, match="kv_splits"):
         tdec.decode_attention(q, kc, kc, lens, sc, sc, kv_splits=2,
                               page_table=torch.zeros((1, 1),
