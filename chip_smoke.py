@@ -196,7 +196,28 @@ Phases, one JSON line each; any failure exits non-zero:
      greedy token target-greedy under a bf16 teacher within TEACHER_TOL,
      exact launch counts per round (gamma + 1 draft steps of B6 and
      one-token B7, the verify's B6 and B7 run on decode_run), rounds,
-     drafted and accepted tokens, tok/s and acceptance per run.
+     drafted and accepted tokens, tok/s and acceptance per run;
+ 23. sharded_emulated and serve_sharded: B7 with each rank's columns
+     emulated on one card, then the sharded engines on a one-rank NCCL
+     mesh against their meshless counterparts;
+ 24. moe_serve: the 0.88B config with 8 experts a layer (top-1 routing at
+     capacity 2.0, parallel/moe.py), bf16 weights, int8 cache:
+     prefill_chunked of 4 x 8192 in chunks of 2048 and 32 greedy decode
+     steps, generate at b=2 (bf16 cache), ContinuousEngine on 8 requests;
+     exact B1 / B3 / B6 / B7 counts, each layer's dropped-token share and
+     the tokens' teacher gaps; then generate and the requests at full
+     capacity, every greedy token within TEACHER_TOL of its bf16
+     teacher's largest logit (forward_local over prompt and tokens); and
+     weight_dtype="int8" raising;
+ 25. moe_train: that model through make_train_step at b=1, s=8192, AdamW:
+     one step on a one-rank NCCL mesh against the meshless step
+     (USP_LOSS_TOL, USP_LEAF_TOL), then 3 timed meshless steps with exact
+     B1 / B5 counts, a falling loss, each layer's dropped-token share and
+     the peak memory, and one step profiled;
+ 26. zero_train: make_zero_train_step and make_zero3_train_step (remat
+     full) on a one-rank NCCL mesh at the dense 0.88B config, one step
+     each against make_train_step's (the same gates), then timed steps
+     with exact B3 / B2a / B2b counts.
 Every paged phase asserts that the engine took the native allocator
 (csrc/lca_host.cc, built with g++ into build/host/).
 The kernel phase holds B6's quantizing entry (cache_append_rows: bf16
@@ -6044,6 +6065,13 @@ USP_LOSS_TOL = 1e-2
 # value: two bf16 ulps (AdamW's first update is about lr in size, below one
 # ulp of most weights, so the leaves differ where a gradient's sign does)
 USP_LEAF_TOL = 2.0 ** -7
+# moe_train and zero_train: a leaf's first update against the
+# single-device step's, ||p1 - p1_want|| over ||p1_want - p0||. USP_LEAF_TOL
+# alone passes a step that moved no weight (one update is about an ulp);
+# this reads 1 for that, about 1.4 for an update uncorrelated with the
+# single device's, and 2 sqrt(f) where a share f of the elements moved
+# the other way (a gradient within the rounding of zero)
+UPDATE_TOL = 0.25
 
 
 def train_usp_phase(pkg, build, dev, card):
@@ -7160,6 +7188,405 @@ def serve_sharded_phase(pkg, build, decode, dev, card):
           "launches": counts, "seconds": time.perf_counter() - t_phase})
     return counts
 
+# ---------------------------------------------------------------------------
+# the MoE model, served and trained; ZeRO-1/2 and ZeRO-3
+# ---------------------------------------------------------------------------
+
+# The 0.88B config with a routed FFN: 8 experts of its FFN width a layer,
+# top-1, at the JAX ModelConfig's default capacity factor 2.0 (3.23B
+# parameters, 2.90B of them experts); random weights from the seed. The
+# experts stay bf16 (int8 decode weights raise, as in JAX). With random
+# weights the deeper layers' routers send most tokens one way: at 2.0
+# they drop 12-75% of a prefill's tokens in layers 4-16.
+MOE = dict(MODEL, n_experts=8)
+MOE_REQS, MOE_REQ_NEW = 8, 16
+MOE_TRAIN_STEPS = 3
+ZERO_STEPS = 2
+
+
+def moe_drop_shares(drops, L):
+    """Each layer's dropped share of the routed tokens over the calls a
+    record_drops block saw (L a pass, in layer order), and the least router
+    margin."""
+    shares = []
+    for i in range(L):
+        rec = drops[i::L]
+        shares.append(sum(int(d["dropped"]) for d in rec)
+                      / sum(d["tokens"] for d in rec))
+    return shares, min(float(d["margin"]) for d in drops)
+
+
+def full_capacity(cfg):
+    """The config whose MoE routing drops nothing: the decode steps'."""
+    return dataclasses.replace(cfg, moe_capacity_factor=float(cfg.n_experts))
+
+
+def moe_serve_phase(pkg, build, dev, card):
+    """moe_serve: the MoE model (MOE) served with bf16 weights, int8 cache
+    unless named: at its capacity factor 2.0, prefill_chunked (4 x 8192 in
+    chunks of 2048) and decode_scan of NEW tokens, generate at b=2 over a
+    bf16 cache and ContinuousEngine on MOE_REQS requests, with exact launch
+    counts, each layer's dropped share and every token's teacher gap
+    (reported: the chunks, the admissions and a teacher's one forward
+    route different token sets, so where tokens drop their FFNs differ by
+    design, in JAX too); then the same generate and requests at full
+    capacity (nothing drops), where every greedy token is held within
+    TEACHER_TOL of its bf16 teacher's largest logit (forward_local).
+    weight_dtype="int8" raises. Returns each run's counts."""
+    from long_context_attention_tpu_torch.models.llama import init_params
+    from long_context_attention_tpu_torch.parallel.moe import record_drops
+    from long_context_attention_tpu_torch.serving import (
+        ContinuousEngine, Engine, Request)
+
+    base = pkg.ModelConfig(**MOE)
+    L = base.n_layers
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 23)
+    params = init_params(gen, base, device=dev)
+    prompt = torch.randint(0, base.vocab, (BATCH, PROMPT), generator=gen,
+                           device=dev)
+    try:
+        Engine(cfg=base, s_max=S_MAX, weight_dtype="int8",
+               device=dev).decode_params(params)
+        raise AssertionError("moe_serve: int8 weights did not raise")
+    except ValueError:
+        pass
+    eng = Engine(cfg=base, s_max=S_MAX, cache_dtype="int8", device=dev)
+    wl, wc = eng.prefill_chunked(params, prompt[:, :CHUNK], CHUNK)  # warm-up
+    eng.decode_scan(params, wc, 4, torch.argmax(wl, -1).to(torch.int32))
+    del wl, wc
+    torch.cuda.synchronize()
+    counts, numbers = {}, {}
+    gaps = {"capacity 2.0": {}, "full capacity": {}}
+    build.reset_launch_counts()
+    t0 = time.perf_counter()
+    with record_drops() as drops:
+        logits, cache = eng.prefill_chunked(params, prompt, CHUNK)
+        torch.cuda.synchronize()
+    numbers["prefill_s"] = time.perf_counter() - t0
+    numbers["prefill_drop_share_per_layer"], numbers[
+        "prefill_router_margin"] = moe_drop_shares(drops, L)
+    first = torch.argmax(logits, -1).to(torch.int32)
+    t0 = time.perf_counter()
+    toks, cache = eng.decode_scan(params, cache, NEW, first)
+    torch.cuda.synchronize()
+    numbers["decode_ms_per_step"] = 1e3 * (time.perf_counter() - t0) / NEW
+    counts["moe_serve prefill_chunked"] = expect_counts(build, {
+        "flash_fwd_causal_self": L * (PROMPT // CHUNK),
+        "flash_fwd_static": 0, "flash_fwd_pos": L * (PROMPT // CHUNK - 1),
+        "cache_append": L * (PROMPT // CHUNK) + L * NEW,
+        "decode_attention": L * NEW, "decode_run": 0})
+    if not torch.isfinite(logits).all() or toks.shape != (BATCH, NEW):
+        raise AssertionError("moe_serve: prefill logits not finite or bad "
+                             "decode shapes")
+    del cache
+    torch.cuda.empty_cache()
+    for i in range(BATCH):  # token 0 is the prefill's
+        gaps["capacity 2.0"][f"decode_scan {i}"] = target_greedy_gaps(
+            params, base, prompt[i].tolist(), toks[i].tolist(), dev)
+    rng = np.random.default_rng(23)
+    reqs = [Request(id=i, tokens=[int(t) for t in rng.integers(
+        0, base.vocab, int(rng.choice(list(CONT_PROMPTS))))],
+        max_new=MOE_REQ_NEW) for i in range(MOE_REQS)]
+    gprompt = prompt[:GEN_BATCH, :GEN_PROMPT]
+    for tag, cfg in (("capacity 2.0", base),
+                     ("full capacity", full_capacity(base))):
+        # generate at b=2 over a bf16 cache
+        gen_eng = Engine(cfg=cfg, s_max=GEN_PROMPT + GEN_NEW,
+                         cache_dtype="bfloat16", device=dev)
+        build.reset_launch_counts()
+        t0 = time.perf_counter()
+        with record_drops() as gdrops:
+            res = gen_eng.generate(params, gprompt, GEN_NEW)
+            torch.cuda.synchronize()
+        run = {"generate_s": time.perf_counter() - t0,
+               "generate_prefill_drop_share_per_layer": moe_drop_shares(
+                   gdrops[:L], L)[0]}
+        counts[f"moe_serve generate {tag}"] = expect_counts(build, {
+            "flash_fwd_causal_self": L, "flash_fwd_static": 0,
+            "flash_fwd_pos": 0, "cache_append": L + L * GEN_NEW,
+            "decode_attention": L * GEN_NEW, "decode_run": 0})
+        for i in range(GEN_BATCH):
+            gaps[tag][f"generate {i}"] = target_greedy_gaps(
+                params, cfg, gprompt[i].tolist(), res.tokens[i].tolist(),
+                dev)
+        # ContinuousEngine on MOE_REQS requests, bench_paged's lengths
+        ceng = probe_engine(ContinuousEngine)(
+            cfg, max_batch=MOE_REQS, s_max=CONT_S_MAX, cache_dtype="int8",
+            step_block=STEP_BLOCK, device=dev)
+        with record_drops() as cdrops:
+            out, wall, ntok, steps, ccounts = serve_timed(build, ceng,
+                                                          params, reqs)
+        expect_serving_counts(f"moe_serve continuous {tag}", ccounts, L,
+                              steps, MOE_REQS)
+        counts[f"moe_serve continuous {tag}"] = ccounts
+        run["continuous"] = {"wall_s": wall, "tok_per_s": ntok / wall,
+                             "decode_steps": steps,
+                             "dropped_tokens": sum(int(d["dropped"])
+                                                   for d in cdrops)}
+        for r in reqs:
+            if len(out[r.id].tokens) != MOE_REQ_NEW:
+                raise AssertionError(f"moe_serve continuous: request "
+                                     f"{r.id} emitted "
+                                     f"{len(out[r.id].tokens)} tokens")
+            gaps[tag][f"continuous {r.id}"] = target_greedy_gaps(
+                params, cfg, r.tokens, out[r.id].tokens, dev)
+        numbers[tag] = run
+        torch.cuda.empty_cache()
+    if numbers["full capacity"]["continuous"]["dropped_tokens"]:
+        raise AssertionError("moe_serve: tokens dropped at full capacity")
+    full = gaps["full capacity"]
+    worst = max(full, key=lambda k: full[k][0])
+    check(f"moe_serve full-capacity teacher gap ({worst} at "
+          f"{full[worst][1]})", full[worst][0], TEACHER_TOL)
+    emit({"phase": "moe_serve", "card": card, "model": "llama-0.88B moe",
+          "n_experts": base.n_experts,
+          "capacity_factor": base.moe_capacity_factor,
+          "batch": BATCH, "prompt": PROMPT, "chunk": CHUNK,
+          "new_tokens": NEW, "cache_dtype": "int8",
+          "weight_dtype": "bfloat16", "int8_weights_raise": True,
+          "generate": {"batch": GEN_BATCH, "prompt": GEN_PROMPT,
+                       "new_tokens": GEN_NEW, "cache_dtype": "bfloat16"},
+          "continuous_requests": MOE_REQS, "max_new": MOE_REQ_NEW,
+          "teacher_tol": TEACHER_TOL, "teacher_gaps": {
+              tag: {k: v[0] for k, v in g.items()}
+              for tag, g in gaps.items()}, **numbers,
+          "launches": counts, "seconds": time.perf_counter() - t_phase})
+    del params
+    torch.cuda.empty_cache()
+    return counts
+
+
+def leaf_rel(got, want):
+    """The worst leaf's max |got - want| over max |want|."""
+    from long_context_attention_tpu_torch.models.llama import param_leaves
+
+    worst = 0.0
+    for a, w in zip(param_leaves(got), param_leaves(want)):
+        a, w = a.detach().float(), w.detach().float()
+        worst = max(worst, float((a - w).abs().max()
+                                 / w.abs().max().clamp_min(1e-30)))
+    return worst
+
+
+def update_rel(got, want, p0):
+    """The worst leaf's ||got - want|| over ||want - p0|| (0 where neither
+    moved from p0), and that leaf's name."""
+    from long_context_attention_tpu_torch.models.llama import named_leaves
+
+    worst, name = 0.0, None
+    for (k, a), w, z in zip(named_leaves(got), (t for _, t in named_leaves(
+            want)), (t for _, t in named_leaves(p0))):
+        w = w.detach().float()
+        diff = float((a.detach().float() - w).norm())
+        move = float((w - z.float()).norm())
+        rel = (diff / move if move else 0.0 if diff == 0.0
+               else float("inf"))
+        if name is None or rel > worst:
+            worst, name = rel, k
+    return worst, name
+
+
+def moe_train_phase(pkg, build, dev, card):
+    """moe_train: make_train_step on the MoE model at b=1, s=TRAIN_SEQ,
+    AdamW: one step on a one-rank NCCL mesh against the meshless step from
+    the same params (USP_LOSS_TOL, USP_LEAF_TOL, UPDATE_TOL), then a
+    warm-up and
+    MOE_TRAIN_STEPS timed meshless steps with exact B1 / B5 counts, a
+    falling loss, each layer's dropped share and the peak memory, and one
+    more step profiled."""
+    import torch.distributed as dist
+
+    from long_context_attention_tpu_torch.models.llama import (
+        init_params, make_train_step, param_leaves)
+    from long_context_attention_tpu_torch.parallel import make_usp_mesh
+    from long_context_attention_tpu_torch.parallel.moe import record_drops
+
+    cfg = pkg.ModelConfig(**MOE)
+    L = cfg.n_layers
+    t_phase = time.perf_counter()
+    tokens, labels, mask = train_batch(cfg.vocab, TRAIN_SEQ, dev)
+    opt = functools.partial(torch.optim.AdamW, lr=LR,
+                            weight_decay=WEIGHT_DECAY)
+
+    def fresh():
+        return init_params(torch.Generator(device=dev).manual_seed(SEED),
+                           cfg, device=dev)
+
+    single = make_train_step(cfg, opt, device=dev)
+    p1, s1, loss1 = single(fresh(), None, tokens, labels, mask)
+    del s1
+    torch.cuda.empty_cache()
+    mesh = make_usp_mesh()
+    try:
+        p2, s2, loss2 = make_train_step(cfg, opt, mesh=mesh)(
+            fresh(), None, tokens, labels, mask)
+        one = {"loss_single": float(loss1), "loss_mesh": float(loss2),
+               "loss_diff": abs(float(loss1) - float(loss2)),
+               "worst_leaf_rel": leaf_rel(p2, p1)}
+    finally:
+        dist.destroy_process_group()
+    del s2
+    torch.cuda.empty_cache()
+    one["worst_update_rel"], one["worst_update_leaf"] = update_rel(
+        p2, p1, fresh())
+    check("moe_train one-rank mesh loss vs meshless", one["loss_diff"],
+          USP_LOSS_TOL)
+    check("moe_train one-rank mesh leaves vs meshless",
+          one["worst_leaf_rel"], USP_LEAF_TOL)
+    check("moe_train one-rank mesh update vs meshless",
+          one["worst_update_rel"], UPDATE_TOL)
+    del p1, p2
+    torch.cuda.empty_cache()
+    params, state, loss = single(fresh(), None, tokens, labels, mask)
+    losses = [float(loss)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launch_counts()
+    times = []
+    for i in range(MOE_TRAIN_STEPS):
+        t0 = time.perf_counter()
+        with record_drops() as drops:
+            params, state, loss = single(params, state, tokens, labels, mask)
+            losses.append(float(loss))
+        times.append(time.perf_counter() - t0)
+        if i == 0:
+            shares, margin = moe_drop_shares(drops, L)
+    counts = expect_counts(build, {
+        "flash_fwd_causal_self": MOE_TRAIN_STEPS * L,
+        "flash_bwd_fused": MOE_TRAIN_STEPS * L, "flash_fwd_static": 0,
+        "flash_fwd_pos": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0})
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"moe_train: the loss did not fall: {losses}")
+    ms = 1e3 * sum(times) / MOE_TRAIN_STEPS
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    # one more step under the profiler: where the MoE step's time goes
+    _, prof = profiled(lambda: single(params, state, tokens, labels,
+                                      mask)[2])
+    emit({"phase": "moe_train_profile", **prof})
+    emit({"phase": "moe_train", "card": card, "model": "llama-0.88B moe",
+          "n_experts": cfg.n_experts,
+          "capacity_factor": cfg.moe_capacity_factor, "batch": 1,
+          "seq": TRAIN_SEQ, "remat": cfg.remat,
+          "params": sum(t.numel() for t in param_leaves(params)),
+          "one_rank_mesh_step": one, "loss_tol": USP_LOSS_TOL,
+          "leaf_tol": USP_LEAF_TOL, "update_tol": UPDATE_TOL,
+          "steps": MOE_TRAIN_STEPS,
+          "ms_per_step": ms, "ms_all": [1e3 * t for t in times],
+          "tok_per_s": TRAIN_SEQ / (ms / 1e3),
+          "max_memory_allocated_gb": peak,
+          "drop_share_per_layer": shares, "router_margin": margin,
+          "losses": losses,
+          "launches_per_step": {n: c // MOE_TRAIN_STEPS
+                                for n, c in counts.items() if c},
+          "seconds": time.perf_counter() - t_phase})
+    del params, state, single
+    torch.cuda.empty_cache()
+    return counts
+
+
+def zero_train_phase(pkg, build, dev, card):
+    """zero_train: make_zero_train_step (ZeRO-1/2) and make_zero3_train_step
+    under remat full on a one-rank NCCL mesh at the dense 0.88B config,
+    b=1, s=TRAIN_SEQ, AdamW: one step each from the same params against
+    make_train_step's meshless step (USP_LOSS_TOL, USP_LEAF_TOL,
+    UPDATE_TOL), then
+    ZERO_STEPS timed steps with exact counts (the mesh's B3, B2a, B2b; B3
+    twice a layer under remat full), the optimizer's state bytes and the
+    peak memory. Returns each run's counts."""
+    import torch.distributed as dist
+
+    from long_context_attention_tpu_torch.models.llama import (
+        init_params, make_train_step, param_shapes, shard_params)
+    from long_context_attention_tpu_torch.parallel import make_usp_mesh
+    from long_context_attention_tpu_torch.parallel import zero
+
+    cfg = pkg.ModelConfig(**dict(MODEL, layout="zigzag"))
+    L = cfg.n_layers
+    t_phase = time.perf_counter()
+    tokens, labels, mask = train_batch(cfg.vocab, TRAIN_SEQ, dev)
+    opt = functools.partial(torch.optim.AdamW, lr=LR,
+                            weight_decay=WEIGHT_DECAY)
+
+    def fresh():
+        return init_params(torch.Generator(device=dev).manual_seed(SEED),
+                           cfg, device=dev)
+
+    want, _, want_loss = make_train_step(cfg, opt, device=dev)(
+        fresh(), None, tokens, labels, mask)
+    torch.cuda.empty_cache()
+    p0 = fresh()
+    mesh = make_usp_mesh()
+    report, counts = {}, {}
+    try:
+        for tag in ("zero1", "zero3"):
+            if tag == "zero1":
+                rcfg = cfg
+                step = zero.make_zero_train_step(rcfg, mesh, opt)
+                params = shard_params(fresh(), mesh)
+            else:
+                rcfg = dataclasses.replace(cfg, remat="full")
+                zs = zero.zero3_param_specs(param_shapes(rcfg), mesh)
+                step = zero.make_zero3_train_step(rcfg, mesh, opt)
+                params = zero.shard_params_zero3(fresh(), mesh, zs)
+            params, state, loss = step(params, None, tokens, labels, mask)
+            one = {"loss": float(loss), "loss_single": float(want_loss),
+                   "loss_diff": abs(float(loss) - float(want_loss)),
+                   "worst_leaf_rel": leaf_rel(params, want)}
+            one["worst_update_rel"], one["worst_update_leaf"] = update_rel(
+                params, want, p0)
+            check(f"zero_train {tag} loss vs make_train_step",
+                  one["loss_diff"], USP_LOSS_TOL)
+            check(f"zero_train {tag} leaves vs make_train_step",
+                  one["worst_leaf_rel"], USP_LEAF_TOL)
+            check(f"zero_train {tag} update vs make_train_step",
+                  one["worst_update_rel"], UPDATE_TOL)
+            losses = [float(loss)]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            build.reset_launch_counts()
+            times = []
+            for _ in range(ZERO_STEPS):
+                t0 = time.perf_counter()
+                params, state, loss = step(params, state, tokens, labels,
+                                           mask)
+                losses.append(float(loss))
+                times.append(time.perf_counter() - t0)
+            n_fwd = ZERO_STEPS * L * (2 if rcfg.remat == "full" else 1)
+            counts[f"zero_train {tag}"] = expect_counts(build, {
+                **{n: 0 for n in build.KERNELS},
+                "flash_fwd_pos": n_fwd, "flash_bwd_dq": ZERO_STEPS * L,
+                "flash_bwd_dkv": ZERO_STEPS * L})
+            if not losses[-1] < losses[0]:
+                raise AssertionError(f"zero_train {tag}: the loss did not "
+                                     f"fall: {losses}")
+            opt_state = state.optimizer if tag == "zero1" else state
+            state_bytes = sum(t.numel() * t.element_size()
+                              for st in opt_state.state.values()
+                              for t in st.values()
+                              if isinstance(t, torch.Tensor))
+            ms = 1e3 * sum(times) / ZERO_STEPS
+            report[tag] = {"remat": rcfg.remat, "one_step": one,
+                           "steps": ZERO_STEPS, "ms_per_step": ms,
+                           "ms_all": [1e3 * t for t in times],
+                           "tok_per_s": TRAIN_SEQ / (ms / 1e3),
+                           "optimizer_state_bytes": state_bytes,
+                           "max_memory_allocated_gb":
+                               torch.cuda.max_memory_allocated() / 2 ** 30,
+                           "losses": losses}
+            del params, state, step, loss
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    emit({"phase": "zero_train", "card": card, "model": "llama-0.88B",
+          "mesh": "dp 1 x ring 1 x ulysses 1 (NCCL)", "layout": "zigzag",
+          "batch": 1, "seq": TRAIN_SEQ, "loss_tol": USP_LOSS_TOL,
+          "leaf_tol": USP_LEAF_TOL, "update_tol": UPDATE_TOL, **report,
+          "launches": counts, "seconds": time.perf_counter() - t_phase})
+    del want, p0
+    torch.cuda.empty_cache()
+    return counts
+
 
 def main():
     if not torch.cuda.is_available():
@@ -7440,6 +7867,13 @@ def main():
     new_paths.update(serve_sharded_phase(pkg, build, decode, dev, smi))
     torch.cuda.empty_cache()
     lap("serve_sharded")
+    # the MoE model served and trained, ZeRO-1/2 and ZeRO-3
+    new_paths.update(moe_serve_phase(pkg, build, dev, smi))
+    lap("moe_serve")
+    new_paths["moe_train"] = moe_train_phase(pkg, build, dev, smi)
+    lap("moe_train")
+    new_paths.update(zero_train_phase(pkg, build, dev, smi))
+    lap("zero_train")
     emit({"phase": "timing", "seconds": seconds})
     path = {"flash_fwd_static": wcounts, "flash_bwd_fused": train_counts,
             "flash_bwd_dq": offsets_counts, "flash_bwd_dkv": offsets_counts,
@@ -7547,7 +7981,9 @@ def main():
                                   for c in sharded_cases[r["name"]]]
         # launches on the mesh engine's prefill and decode, the async
         # layer's forward and backward, the DiT forward and training, the
-        # rolling window pages' and the speculative engines' runs
+        # rolling window pages' and the speculative engines' runs, the
+        # sharded engines', the MoE model's serving and training runs and
+        # the ZeRO steps
         r["new_path_launches"] = {p: c[r["name"]] for p, c in
                                   new_paths.items() if c[r["name"]]}
     emit({"kernels": rows})

@@ -6,10 +6,15 @@ from long_context_attention_tpu_torch.models.llama import (  # noqa: F401
     decode_step,
     forward_local,
     init_params,
+    local_positions,
     loss_local,
+    make_forward,
+    make_pp_train_step,
     make_train_step,
     param_leaves,
+    param_specs,
     prefill_chunk_step,
+    shard_params,
 )
 from long_context_attention_tpu_torch.models.dit import (  # noqa: F401
     DiTConfig,

@@ -32,6 +32,7 @@ from long_context_attention_tpu_torch.models.llama import (
     step_device,
     world_size,
 )
+from long_context_attention_tpu_torch.parallel.mesh import check_seq_mesh
 from long_context_attention_tpu_torch.parallel.usp import usp_attention_local
 from long_context_attention_tpu_torch.utils.config import (
     BlockSizes,
@@ -143,7 +144,10 @@ def dit_forward_local(params: Params, x: torch.Tensor, t: torch.Tensor,
 
     Without ``mesh`` x is one device's whole token grid; with a USP
     ``mesh`` it is this rank's shard (b/dp, n/(R*U), in_dim) in the basic
-    layout and attention runs over the mesh. Differentiable."""
+    layout and attention runs over the mesh (dp x ring x ulysses: a mesh
+    with a tp, pp or ep axis raises, as the JAX DiT has none).
+    Differentiable."""
+    check_seq_mesh(mesh, "the DiT")
     c = timestep_embedding(t, cfg.dim)
     c = F.silu(c @ params["t_mlp1"].float())
     c = F.silu(c @ params["t_mlp2"].float())  # (b, dim) fp32
@@ -159,6 +163,7 @@ def make_dit_forward(cfg: DiTConfig, mesh=None, *, device=None) -> Callable:
     shard (the JAX package's ``make_dit_forward``; torch has no globally
     sharded array), on the mesh's device or, without one, ``device``
     (default: the card; raises without one). Runs without autograd."""
+    check_seq_mesh(mesh, "the DiT")
     dev = step_device(mesh, device)
 
     @torch.no_grad()
@@ -184,6 +189,7 @@ def make_dit_train_step(cfg: DiTConfig, optimizer: Callable, mesh=None, *,
     global mean's; every rank applies the same update IN PLACE and gets
     the global loss. Runs on the mesh's device or ``device`` (default: the
     card)."""
+    check_seq_mesh(mesh, "the DiT")
     dev = step_device(mesh, device)
 
     def step(params, opt_state, noisy, noise, t):

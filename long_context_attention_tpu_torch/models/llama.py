@@ -18,7 +18,17 @@ norms), RMSNorm, RoPE over global positions and dense SwiGLU FFN, with
   rematerialized per ``ModelConfig.remat``;
 * :func:`loss_local` and :func:`make_train_step`: next-token cross entropy
   and one optimizer step, on one device or over a mesh (the loss's
-  denominator and the gradients summed over dp x ring x ulysses);
+  denominator summed over dp x ring x ulysses, and ep; each gradient over
+  the axes its leaf is replicated on);
+* tensor parallelism over a mesh's tp axis (Megatron's column-parallel
+  wq / wk / wv / w_gate / w_up and row-parallel wo / w_down between the f
+  and g operators of ``parallel/tp.py``), the MoE FFN (``n_experts > 0``,
+  ``parallel/moe.py``, the experts sharded over the ep axis) and
+  :func:`make_pp_train_step` (GPipe over the pp axis,
+  ``parallel/pipeline.py``). torch has no globally sharded array:
+  :func:`param_specs` gives the JAX package's per-leaf split and
+  :func:`shard_params` cuts a full params dict into this rank's shard
+  (:func:`gather_params` is its inverse);
 * :func:`prefill_chunk_step`: one prompt chunk against the cache so far
   (chunk self-attention, attention over the cache prefix, LSE merge);
 * :func:`decode_step`: one token per row against the cache (append, then
@@ -31,8 +41,9 @@ The two cache steps run the flash and decode kernels whatever
 ``attn_impl`` is, as the JAX package's do.
 
 Both cache steps update the cache IN PLACE, and so does a train step its
-params. MoE, tensor and pipeline parallelism, and serving over a mesh,
-come in later slices.
+params. The prefill chunk routes the MoE FFN at the config's capacity, the
+decode and multi-token steps at full capacity (no token drops), as in
+JAX.
 """
 
 from __future__ import annotations
@@ -68,6 +79,22 @@ from long_context_attention_tpu_torch.parallel.layouts import (
     position_descriptor,
     positions_from_descriptor,
 )
+from long_context_attention_tpu_torch.parallel.collectives import (
+    all_gather_dim,
+)
+from long_context_attention_tpu_torch.parallel.mesh import (
+    MeshAxes,
+    mesh_axis,
+)
+from long_context_attention_tpu_torch.parallel.moe import (
+    MoEConfig,
+    moe_mlp_local,
+)
+from long_context_attention_tpu_torch.parallel.pipeline import pipeline_apply
+from long_context_attention_tpu_torch.parallel.tp import (
+    tp_region_input,
+    tp_region_output,
+)
 from long_context_attention_tpu_torch.parallel.ring import RING_ATTENTION_OP
 from long_context_attention_tpu_torch.parallel.usp import usp_attention_local
 from long_context_attention_tpu_torch.utils.config import (
@@ -78,10 +105,11 @@ from long_context_attention_tpu_torch.utils.config import (
 
 __all__ = ["ModelConfig", "init_params", "rmsnorm", "rope", "forward_local",
            "local_positions", "loss_local", "make_forward",
-           "make_train_step", "optimizer_step", "param_leaves",
-           "check_devices", "step_device", "world_size",
-           "prefill_chunk_step", "decode_step", "decode_multi_step",
-           "layer_params"]
+           "make_train_step", "make_pp_train_step", "optimizer_step",
+           "param_leaves", "named_leaves", "check_devices", "step_device",
+           "world_size", "prefill_chunk_step", "decode_step",
+           "decode_multi_step", "layer_params", "moe_cfg", "param_specs",
+           "param_shapes", "shard_params", "gather_params", "reduce_grads"]
 
 Params = Dict[str, Any]
 LAYOUTS = ("basic", "zigzag", "stripe")
@@ -129,14 +157,17 @@ class ModelConfig:
             raise NotImplementedError(
                 "sage_attention does not implement softcap; use "
                 "attn_impl='pallas'")
-        # Fields kept for parity with the JAX config whose other values
+        if self.n_experts < 0 or self.moe_capacity_factor <= 0:
+            raise ValueError(f"n_experts {self.n_experts} and "
+                             f"moe_capacity_factor "
+                             f"{self.moe_capacity_factor} must be >= 0 "
+                             f"and > 0")
+        # A field kept for parity with the JAX config whose other values
         # need a slice not ported yet. ``layout`` orders the sequence across
         # a mesh's ring; on one device every layout is the same model.
-        for name, what in (("block_sizes", "per-model kernel tile sizes"),
-                           ("n_experts", "MoE layers"),
-                           ("moe_capacity_factor", "MoE layers")):
-            if getattr(self, name) != _PARITY_DEFAULTS[name]:
-                raise not_ported(f"{what} ({name}={getattr(self, name)!r})")
+        if self.block_sizes != _PARITY_DEFAULTS["block_sizes"]:
+            raise not_ported(f"per-model kernel tile sizes (block_sizes="
+                             f"{self.block_sizes!r})")
 
     def attention_kwargs(self) -> Dict[str, Any]:
         """The attention-shape kwargs every attention call of the model
@@ -144,6 +175,10 @@ class ModelConfig:
         return dict(window_size=(self.window_left, -1), softcap=self.softcap,
                     sink_tokens=self.sink_tokens,
                     safe_softmax=self.safe_softmax)
+
+    @property
+    def moe(self) -> bool:
+        return self.n_experts > 0
 
     @property
     def q_dim(self) -> int:
@@ -160,38 +195,27 @@ _PARITY_DEFAULTS = {f.name: f.default
 
 def init_params(generator: torch.Generator, cfg: ModelConfig,
                 device=None) -> Params:
-    """He-style init, bf16 storage, layers stacked on a leading axis.
+    """He-style init, bf16 storage, layers stacked on a leading axis (an
+    MoE config's layers hold ``router`` (L, dim, E), ``moe_up`` (L, E,
+    dim, ffn) and ``moe_down`` (L, E, ffn, dim) in place of the dense FFN's
+    weights, as JAX's).
 
     Random numbers come from ``generator`` (drawn on the generator's own
     device) and the parameters land on ``device`` (default: the card)."""
     dev = resolve_device(device)
-    gdev = generator.device
 
-    def dense(fan_in, shape):
-        w = torch.randn(shape, generator=generator, device=gdev,
+    def leaf(name, shape):
+        if name.endswith("norm"):
+            return torch.ones(shape, dtype=torch.float32, device=dev)
+        fan_in = 1.0 if name == "embed" else shape[-2]
+        w = torch.randn(shape, generator=generator, device=generator.device,
                         dtype=torch.float32) / (fan_in ** 0.5)
         return w.to(device=dev, dtype=cfg.dtype)
 
-    L = cfg.n_layers
-
-    def ones(*shape):
-        return torch.ones(shape, dtype=torch.float32, device=dev)
-
-    embed = dense(1.0, (cfg.vocab, cfg.dim))
-    layers = {
-        "attn_norm": ones(L, cfg.dim),
-        "wq": dense(cfg.dim, (L, cfg.dim, cfg.q_dim)),
-        "wk": dense(cfg.dim, (L, cfg.dim, cfg.kv_dim)),
-        "wv": dense(cfg.dim, (L, cfg.dim, cfg.kv_dim)),
-        "wo": dense(cfg.q_dim, (L, cfg.q_dim, cfg.dim)),
-        "mlp_norm": ones(L, cfg.dim),
-        "w_gate": dense(cfg.dim, (L, cfg.dim, cfg.ffn_hidden)),
-        "w_up": dense(cfg.dim, (L, cfg.dim, cfg.ffn_hidden)),
-        "w_down": dense(cfg.ffn_hidden, (L, cfg.ffn_hidden, cfg.dim)),
-    }
-    return {"embed": embed, "layers": layers,
-            "final_norm": ones(cfg.dim),
-            "lm_head": dense(cfg.dim, (cfg.dim, cfg.vocab))}
+    # drawn in param_shapes' key order: embed, the layers' matrices, lm_head
+    return {k: ({kk: leaf(kk, sh) for kk, sh in v.items()}
+                if isinstance(v, dict) else leaf(k, v))
+            for k, v in param_shapes(cfg).items()}
 
 
 def layer_params(params: Params) -> List[Params]:
@@ -226,17 +250,43 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float
                      dim=-1).to(x.dtype)
 
 
-def _ffn(cfg: ModelConfig, lp: Params, h: torch.Tensor) -> torch.Tensor:
-    """Dense SwiGLU; ``qdot`` is ``@`` for bf16 weights and w8a8 for int8."""
+def moe_cfg(cfg: ModelConfig) -> MoEConfig:
+    """The ``parallel/moe.py`` config of this model's MoE FFN."""
+    return MoEConfig(dim=cfg.dim, ffn_hidden=cfg.ffn_hidden,
+                     n_experts=cfg.n_experts,
+                     capacity_factor=cfg.moe_capacity_factor,
+                     dtype=cfg.dtype)
+
+
+def _ffn(cfg: ModelConfig, lp: Params, h: torch.Tensor, *,
+         ep_axis=None, tokens_replicated: bool = True,
+         full_capacity: bool = False) -> torch.Tensor:
+    """The post-norm FFN: dense SwiGLU (``qdot`` is ``@`` for bf16 weights
+    and w8a8 for int8) or, for an MoE config, the routed experts.
+
+    ``ep_axis``: the ep process group sharding the experts (the tokens are
+    the same on its ranks); None: this rank holds every expert.
+    ``full_capacity`` raises each expert's capacity to the token count so
+    that routing drops nothing (the decode steps, where T is the batch)."""
+    if cfg.moe:
+        mc = moe_cfg(cfg)
+        if full_capacity:
+            mc = dataclasses.replace(mc, capacity_factor=float(cfg.n_experts))
+        mp = {"router": lp["router"], "w_up": lp["moe_up"],
+              "w_down": lp["moe_down"]}
+        return moe_mlp_local(mp, h, mc, ep_axis=ep_axis,
+                             tokens_replicated=tokens_replicated)
     gate = F.silu(qdot(h, lp["w_gate"]).float()).to(h.dtype)
     return qdot(gate * qdot(h, lp["w_up"]), lp["w_down"])
 
 
 def _qkv(cfg: ModelConfig, lp: Params, h: torch.Tensor, positions):
+    """The rotated q, k and v of this rank's heads (all of them, or its
+    1/tp under tensor parallelism)."""
     b, s, _ = h.shape
-    q = qdot(h, lp["wq"]).reshape(b, s, cfg.n_heads, cfg.head_dim)
-    k = qdot(h, lp["wk"]).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
-    v = qdot(h, lp["wv"]).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    q = qdot(h, lp["wq"]).reshape(b, s, -1, cfg.head_dim)
+    k = qdot(h, lp["wk"]).reshape(b, s, -1, cfg.head_dim)
+    v = qdot(h, lp["wv"]).reshape(b, s, -1, cfg.head_dim)
     return (rope(q, positions, cfg.rope_theta),
             rope(k, positions, cfg.rope_theta), v)
 
@@ -254,10 +304,20 @@ def local_positions(cfg: ModelConfig, s_local: int, mesh) -> torch.Tensor:
 
 
 def _layer(cfg: ModelConfig, positions: torch.Tensor, x: torch.Tensor,
-           lp: Params, mesh=None):
-    """One decoder layer of the full-sequence forward: (x, k, v)."""
+           lp: Params, mesh=None, layer_gather=None):
+    """One decoder layer of the full-sequence forward: (x, k, v).
+
+    Over a mesh with a tp axis, this rank's weight shards carry n_heads /
+    tp and n_kv_heads / tp heads and ffn / tp columns, with Megatron's f
+    and g around the attention and the dense FFN; an ep axis shards the
+    MoE FFN's experts. ``layer_gather`` maps the layer's weights before use
+    (ZeRO-3's gather of one layer, ``parallel/zero.py``)."""
+    if layer_gather is not None:
+        lp = layer_gather(lp)
     b, s, _ = x.shape
+    tpg = None if mesh is None else mesh.tp_group
     h = rmsnorm(x, lp["attn_norm"], cfg.norm_eps)
+    h = tp_region_input(h, tpg)  # Megatron "f": backward sums over tp
     q, k, v = _qkv(cfg, lp, h, positions)
     if mesh is not None:
         attn = usp_attention_local(
@@ -272,9 +332,14 @@ def _layer(cfg: ModelConfig, positions: torch.Tensor, x: torch.Tensor,
         attn = get_attn_impl(cfg.attn_impl).full(
             q, k, v, causal=True, window_size=(cfg.window_left, -1),
             softcap=cfg.softcap, sink_tokens=cfg.sink_tokens)
-    x = x + (attn.reshape(b, s, cfg.q_dim) @ lp["wo"]).to(x.dtype)
+    o = attn.reshape(b, s, -1) @ lp["wo"]
+    x = x + tp_region_output(o, tpg).to(x.dtype)  # Megatron "g"
     hh = rmsnorm(x, lp["mlp_norm"], cfg.norm_eps)
-    x = x + _ffn(cfg, lp, hh).to(x.dtype)
+    if cfg.moe:
+        m = _ffn(cfg, lp, hh, ep_axis=None if mesh is None else mesh.ep_group)
+    else:
+        m = tp_region_output(_ffn(cfg, lp, tp_region_input(hh, tpg)), tpg)
+    x = x + m.to(x.dtype)
     return x, k, v
 
 
@@ -322,7 +387,7 @@ def _maybe_remat(body: Callable, cfg: ModelConfig) -> Callable:
 
 def forward_local(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
                   mesh=None, return_kv: bool = False,
-                  last_index: Optional[int] = None):
+                  last_index: Optional[int] = None, layer_gather=None):
     """Forward: tokens (b, s) int -> logits fp32 (b, s, vocab).
 
     Without ``mesh`` the tokens are one device's whole sequence. With a USP
@@ -332,15 +397,20 @@ def forward_local(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
     it under ``torch.no_grad()``. ``return_kv=True`` also returns the
     per-layer post-RoPE (k, v), each (n_layers, b, s, h_kv, d).
     ``last_index`` projects only that position through lm_head (logits
-    (b, 1, vocab))."""
+    (b, 1, vocab)). A mesh with a tp or ep axis takes this rank's shard of
+    the params (:func:`shard_params`); ``layer_gather`` maps each layer's
+    weights inside its (rematerialized) body: ZeRO-3's gather, whose
+    backward reduce-scatters the layer's gradient, and which a "full" remat
+    runs again in the backward."""
     b, s = tokens.shape
     if mesh is None:
         positions = torch.arange(s, dtype=torch.int32, device=tokens.device)
     else:
+        _check_mesh_model(cfg, mesh)
         positions = local_positions(cfg, s, mesh)
     x = params["embed"][tokens]
-    body = _maybe_remat(functools.partial(_layer, cfg, positions, mesh=mesh),
-                        cfg)
+    body = _maybe_remat(functools.partial(_layer, cfg, positions, mesh=mesh,
+                                          layer_gather=layer_gather), cfg)
     ks, vs = [], []
     for lp in layer_params(params):
         x, k, v = body(x, lp)
@@ -357,37 +427,44 @@ def forward_local(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
 
 
 def loss_local(params: Params, tokens: torch.Tensor, labels: torch.Tensor,
-               mask: torch.Tensor, cfg: ModelConfig, *, mesh=None
-               ) -> torch.Tensor:
+               mask: torch.Tensor, cfg: ModelConfig, *, mesh=None,
+               layer_gather=None) -> torch.Tensor:
     """Masked-mean next-token cross entropy: tokens, labels, mask (b, s);
     labels[i] is the token after tokens[i] in the original order. -sum(log
     p(label) * mask) / max(sum(mask), 1), over fp32 logits.
 
     With a USP ``mesh`` the arguments are this rank's shards and the result
-    is its contribution: the denominator sums over every rank of the mesh
-    (dp x ring x ulysses), the numerator stays local, so the contributions
-    (and their gradients) sum to the global loss (and its gradient), as
-    JAX's ``loss_local``."""
-    logits = forward_local(params, tokens, cfg, mesh=mesh)
+    is its contribution: the denominator sums over the mesh's dp x ring x
+    ulysses ranks, and its ep ranks (which hold the same tokens, so each
+    contributes 1/ep), not over tp (whose ranks hold the same logits); the
+    numerator stays local, so the contributions (and their gradients)
+    sum to the global loss (and its gradient), as JAX's ``loss_local``.
+    ``layer_gather``: :func:`forward_local`'s."""
+    logits = forward_local(params, tokens, cfg, mesh=mesh,
+                           layer_gather=layer_gather)
     logp = torch.log_softmax(logits, dim=-1)
     ll = torch.gather(logp, -1, labels[..., None].long())[..., 0]
     maskf = mask.float()
     den = maskf.sum()
-    if mesh is not None and world_size(mesh) > 1:
+    if mesh is not None and mesh.loss_group is not None:
         den = den.detach().clone()
-        dist.all_reduce(den)
+        dist.all_reduce(den, group=mesh.loss_group)
     return -(ll * maskf).sum() / torch.clamp(den, min=1.0)
 
 
 def world_size(mesh) -> int:
-    """The number of ranks of a USP mesh (dp x ring x ulysses)."""
-    return mesh.dp * mesh.ring * mesh.ulysses
+    """The number of ranks of a USP mesh (dp x pp x ep x ring x ulysses x
+    tp)."""
+    return mesh.n_ranks
 
 
 def make_forward(cfg: ModelConfig, mesh):
     """The forward over a USP mesh: ``fwd(params, tokens) -> logits`` of
     this rank's token shard (the JAX package's ``make_forward``; torch has
-    no globally sharded array)."""
+    no globally sharded array). Over a tp or ep mesh ``params`` is this
+    rank's :func:`shard_params`; the logits are whole on every tp and ep
+    rank."""
+    _check_mesh_model(cfg, mesh)
     return functools.partial(_mesh_forward, cfg=cfg, mesh=mesh)
 
 
@@ -395,12 +472,161 @@ def _mesh_forward(params, tokens, *, cfg, mesh):
     return forward_local(params, tokens, cfg, mesh=mesh)
 
 
+def _check_mesh_model(cfg: ModelConfig, mesh) -> None:
+    """Raise unless the model splits over the mesh's tp axis: the heads,
+    the kv heads and the dense FFN's columns divide by the tp degree, and
+    an MoE model has no tp axis; the ep degree divides the experts."""
+    tp = mesh.tp
+    if tp > 1:
+        if cfg.moe:
+            raise ValueError("the MoE FFN does not compose with tensor "
+                             "parallelism (tp > 1)")
+        for name in ("n_heads", "n_kv_heads", "ffn_hidden"):
+            if getattr(cfg, name) % tp:
+                raise ValueError(f"{name}={getattr(cfg, name)} does not "
+                                 f"divide by the tp degree {tp}")
+    if mesh.ep > 1 and cfg.moe and cfg.n_experts % mesh.ep:
+        raise ValueError(f"n_experts={cfg.n_experts} does not divide by the "
+                         f"ep degree {mesh.ep}")
+
+
+def param_specs(axes: MeshAxes = MeshAxes(), tp: bool = False,
+                pp: bool = False, ep: bool = False, moe: bool = False):
+    """The per-leaf split of the params, the JAX package's PartitionSpecs
+    as tuples of axis names (None: that dimension is whole); ``()`` when
+    nothing is split.
+
+    Layer weights are stacked (n_layers, ...): pp splits the leading (layer)
+    axis into stages; tp splits the last axis of the column-parallel wq /
+    wk / wv / w_gate / w_up and the middle one of the row-parallel wo /
+    w_down; ep splits the expert axis of moe_up / moe_down; the router, the
+    norms, embed and lm_head are whole."""
+    if not (tp or pp or moe):
+        return ()
+    lead = axes.pp if pp else None
+    tpa = axes.tp if tp else None
+    col, row, norm = (lead, None, tpa), (lead, tpa, None), (lead, None)
+    if moe:
+        epa = axes.ep if ep else None
+        ffn = {"router": (lead, None, None),
+               "moe_up": (lead, epa, None, None),
+               "moe_down": (lead, epa, None, None)}
+    else:
+        ffn = {"w_gate": col, "w_up": col, "w_down": row}
+    return {"embed": (),
+            "layers": {"attn_norm": norm, "wq": col, "wk": col, "wv": col,
+                       "wo": row, "mlp_norm": norm, **ffn},
+            "final_norm": (), "lm_head": ()}
+
+
+def param_shapes(cfg: ModelConfig) -> Params:
+    """The shape of every leaf :func:`init_params` makes, allocating
+    nothing."""
+    L, d, F_ = cfg.n_layers, cfg.dim, cfg.ffn_hidden
+    layers = {"attn_norm": (L, d), "wq": (L, d, cfg.q_dim),
+              "wk": (L, d, cfg.kv_dim), "wv": (L, d, cfg.kv_dim),
+              "wo": (L, cfg.q_dim, d), "mlp_norm": (L, d)}
+    if cfg.moe:
+        E = cfg.n_experts
+        layers.update(router=(L, d, E), moe_up=(L, E, d, F_),
+                      moe_down=(L, E, F_, d))
+    else:
+        layers.update(w_gate=(L, d, F_), w_up=(L, d, F_), w_down=(L, F_, d))
+    return {"embed": (cfg.vocab, d), "layers": layers,
+            "final_norm": (d,), "lm_head": (d, cfg.vocab)}
+
+
+def _mesh_specs(params: Params, mesh, specs):
+    """``specs`` as a per-leaf tree (the mesh's :func:`param_specs` when
+    None)."""
+    if specs is None:
+        specs = param_specs(mesh.axes, mesh.tp > 1, mesh.pp > 1, mesh.ep > 1,
+                            moe="router" in params["layers"])
+    if isinstance(specs, tuple):
+        return _map(lambda _: specs, params)
+    return specs
+
+
+def _map(fn, *trees):
+    """``fn`` over the leaves of params-shaped dicts, keeping the keys."""
+    if isinstance(trees[0], dict):
+        return {k: _map(fn, *(t[k] for t in trees)) for k in trees[0]}
+    return fn(*trees)
+
+
+def shard_params(params: Params, mesh, specs=None) -> Params:
+    """This rank's shard of a full params dict: each leaf cut along every
+    dimension its spec names, to this rank's index on that axis (the
+    counterpart of JAX's ``shard_map`` in_specs). ``specs``: a
+    :func:`param_specs` tree or ``()`` (default: the mesh's). The shards
+    are new contiguous tensors."""
+    def cut(x, spec):
+        for dim, name in enumerate(spec):
+            if name is not None:
+                n, i, _ = mesh_axis(mesh, name)
+                if x.shape[dim] % n:
+                    raise ValueError(f"a leaf of shape {tuple(x.shape)} "
+                                     f"does not split {n} ways on dim {dim}")
+                x = x.chunk(n, dim=dim)[i]
+        return x.detach().clone()
+
+    return _map(cut, params, _mesh_specs(params, mesh, specs))
+
+
+def gather_params(params: Params, mesh, specs=None) -> Params:
+    """Inverse of :func:`shard_params`: every rank's shards gathered into
+    the full params dict, on every rank."""
+    def join(x, spec):
+        for dim, name in enumerate(spec):
+            if name is not None:
+                x = all_gather_dim(x.detach(), mesh_axis(mesh, name)[2], dim)
+        return x.contiguous()
+
+    return _map(join, params, _mesh_specs(params, mesh, specs))
+
+
+def named_leaves(params: Params, prefix: str = ""):
+    """(key path, tensor) of every leaf of a params dict, in its key order
+    (:func:`param_leaves`' order), paths joined by "/"."""
+    if isinstance(params, dict):
+        for k, v in params.items():
+            yield from named_leaves(v, f"{prefix}{k}/")
+    else:
+        yield prefix[:-1], params
+
+
+# leaves each ep rank holds only its experts of, whose gradients the MoE
+# all-to-all's backward already brought together
+_EP_SHARDED = ("layers/moe_up", "layers/moe_down")
+# leaves outside the pipeline's stages, used on its first or last stage
+_PP_REPLICATED = ("embed", "final_norm", "lm_head")
+
+
+def reduce_grads(params: Params, mesh) -> None:
+    """Sum each leaf's gradient IN PLACE over the mesh axes that leaf is
+    replicated on, as JAX's train steps do: every leaf over dp x ring x
+    ulysses; over ep all but the experts; over pp embed, final_norm and
+    lm_head (the stage-split layers stay per stage); never over tp (the f
+    and g operators leave each rank its shard's gradient). On a dp x ring
+    x ulysses mesh ``data_group`` is the whole world and there are no ep
+    or pp groups, so every leaf is summed over the whole world."""
+    leaves = list(named_leaves(params))
+    for _, p in leaves:
+        if p.grad is None:  # a leaf this rank's graph did not reach
+            p.grad = torch.zeros_like(p)
+    for name, p in leaves:
+        if mesh.data_group is not None:
+            dist.all_reduce(p.grad, group=mesh.data_group)
+        if mesh.ep_group is not None and name not in _EP_SHARDED:
+            dist.all_reduce(p.grad, group=mesh.ep_group)
+        if mesh.pp_group is not None and name in _PP_REPLICATED:
+            dist.all_reduce(p.grad, group=mesh.pp_group)
+
+
 def param_leaves(params: Params) -> List[torch.Tensor]:
     """The parameter tensors of a params dict, in its key order (the list
     an optimizer is built over)."""
-    if isinstance(params, dict):
-        return [t for v in params.values() for t in param_leaves(v)]
-    return [params]
+    return [t for _, t in named_leaves(params)]
 
 
 def check_devices(dev: torch.device, what: str, **tensors) -> None:
@@ -425,10 +651,10 @@ def step_device(mesh, device) -> torch.device:
 def optimizer_step(params: Params, opt_state, optimizer: Callable,
                    loss_fn: Callable, mesh=None):
     """One step of a train step: ``loss_fn(params)`` and its backward, the
-    gradients and the loss summed over the whole mesh when it has more than
-    one rank, then ``opt_state`` (built by ``optimizer`` over
-    :func:`param_leaves` when None) updates ``params`` IN PLACE. Returns
-    (params, opt_state, the detached loss)."""
+    gradients summed over the mesh (:func:`reduce_grads`) and the loss over
+    its ``loss_group`` when it has more than one rank, then ``opt_state``
+    (built by ``optimizer`` over :func:`param_leaves` when None) updates
+    ``params`` IN PLACE. Returns (params, opt_state, the detached loss)."""
     leaves = param_leaves(params)
     if opt_state is None:
         opt_state = optimizer(leaves)
@@ -441,10 +667,10 @@ def optimizer_step(params: Params, opt_state, optimizer: Callable,
     loss = loss_fn(params)
     loss.backward()
     loss = loss.detach()
-    if mesh is not None and world_size(mesh) > 1:
-        for p in leaves:
-            dist.all_reduce(p.grad)
-        dist.all_reduce(loss)
+    if mesh is not None:
+        reduce_grads(params, mesh)
+        if mesh.loss_group is not None:
+            dist.all_reduce(loss, group=mesh.loss_group)
     opt_state.step()
     opt_state.zero_grad(set_to_none=True)
     return params, opt_state, loss
@@ -466,15 +692,20 @@ def make_train_step(cfg: ModelConfig, optimizer: Callable, mesh=None, *,
     raise. A config with a window, sinks or softcap trains through the
     same kernels' masks.
 
-    With a USP ``mesh`` (``make_usp_mesh``: dp x ring x ulysses; every rank
-    calls the step) the batch is this rank's shard, ``seq_shard`` of the
-    sequence in ``cfg.layout`` order, labels and mask built in the original
-    order before the permutation; the step runs on the mesh's device, each
-    rank computes its loss contribution's gradients, which are summed over
-    the whole mesh (the data-parallel and sequence-parallel reduction), and
-    every rank applies the same update to its replica. The loss returned is
-    the global loss."""
+    With a USP ``mesh`` (``make_usp_mesh``: dp x ring x ulysses, and tp
+    or ep; every rank calls the step) the batch is this rank's shard,
+    ``seq_shard`` of the sequence in ``cfg.layout`` order, labels and mask
+    built in the original order before the permutation; the step runs on
+    the mesh's device, each rank computes its loss contribution's
+    gradients, which are summed over the axes each leaf is replicated on
+    (:func:`reduce_grads`: the data-parallel and sequence-parallel
+    reduction, and ep's), and every rank applies the same update to its
+    replica. Over a tp or ep mesh ``params`` is this rank's
+    :func:`shard_params` (the tokens are the same on its tp and ep ranks).
+    The loss returned is the global loss."""
     dev = step_device(mesh, device)
+    if mesh is not None:
+        _check_mesh_model(cfg, mesh)
 
     def step(params, opt_state, tokens, labels, mask):
         check_devices(dev, "step", **{"params['embed']": params["embed"]},
@@ -483,6 +714,79 @@ def make_train_step(cfg: ModelConfig, optimizer: Callable, mesh=None, *,
             params, opt_state, optimizer,
             lambda p: loss_local(p, tokens, labels, mask, cfg, mesh=mesh),
             mesh)
+
+    return step
+
+
+def make_pp_train_step(cfg: ModelConfig, mesh, optimizer: Callable,
+                       n_micro: int, *, device=None):
+    """The GPipe train step over a mesh with a pp axis (dp x pp x ring x
+    ulysses x tp): ``step(params, opt_state, tokens, labels, mask) ->
+    (params, opt_state, loss)``, as :func:`make_train_step`'s.
+
+    ``params`` is this rank's :func:`shard_params` (its stage's n_layers /
+    pp layers, its tp shards); the batch is its dp and sequence shard, the
+    same on every stage. The local batch splits into ``n_micro``
+    microbatches that stream through the stages
+    (``parallel/pipeline.py``); stage 0 embeds, the last stage takes the
+    final norm, lm_head and the loss's per-microbatch sums. The layer
+    gradients stay per stage; embed, final_norm and lm_head are also summed
+    over pp. Gradients are exact, so the trajectory is the plain step's.
+    Raises unless ``n_layers % pp == 0`` and the local batch divides by
+    ``n_micro``; an MoE config raises."""
+    dev = step_device(mesh, device)
+    if mesh.pp_group is None:
+        raise ValueError("the mesh has no pp axis (pp degree > 1)")
+    if cfg.moe:
+        raise ValueError("MoE with pipeline parallelism is not supported "
+                         "(as in the JAX package)")
+    if cfg.n_layers % mesh.pp:
+        raise ValueError(f"n_layers={cfg.n_layers} does not divide into "
+                         f"{mesh.pp} pipeline stages")
+    _check_mesh_model(cfg, mesh)
+
+    def loss_fn(p, tokens, labels, mask):
+        b, s = tokens.shape
+        if b % n_micro:
+            raise ValueError(f"the local batch {b} does not divide into "
+                             f"{n_micro} microbatches")
+        mb = b // n_micro
+        tok_mb, lab_mb, msk_mb = (x.reshape(n_micro, mb, s)
+                                  for x in (tokens, labels, mask))
+        positions = local_positions(cfg, s, mesh)
+        body = _maybe_remat(functools.partial(_layer, cfg, positions,
+                                              mesh=mesh), cfg)
+
+        def stage_fn(x, layers):
+            for lp in layer_params({"layers": layers}):
+                x, _, _ = body(x, lp)
+            return x
+
+        def inject(t):
+            return p["embed"][tok_mb[t]]
+
+        def collect(t, y):
+            x = rmsnorm(y, p["final_norm"], cfg.norm_eps)
+            logp = torch.log_softmax((x @ p["lm_head"]).float(), dim=-1)
+            ll = torch.gather(logp, -1, lab_mb[t][..., None].long())[..., 0]
+            mf = msk_mb[t].float()
+            return (ll * mf).sum(), mf.sum()
+
+        zero = torch.zeros((), dtype=torch.float32, device=tokens.device)
+        nums, dens = pipeline_apply(stage_fn, inject, collect, p["layers"],
+                                    n_micro, (zero, zero),
+                                    pp_axis=mesh.pp_group)
+        den = dens.sum().detach()
+        if mesh.data_group is not None:
+            dist.all_reduce(den, group=mesh.data_group)
+        return -nums.sum() / torch.clamp(den, min=1.0)
+
+    def step(params, opt_state, tokens, labels, mask):
+        check_devices(dev, "step", **{"params['embed']": params["embed"]},
+                      tokens=tokens, labels=labels, mask=mask)
+        return optimizer_step(
+            params, opt_state, optimizer,
+            lambda p: loss_fn(p, tokens, labels, mask), mesh)
 
     return step
 
@@ -621,7 +925,7 @@ def decode_multi_step(params: Params, cache, tokens: torch.Tensor,
         x = x + qdot(attn.reshape(b, n, cfg.q_dim).to(x.dtype),
                      lp["wo"]).to(x.dtype)
         hh = rmsnorm(x, lp["mlp_norm"], cfg.norm_eps)
-        x = x + _ffn(cfg, lp, hh).to(x.dtype)
+        x = x + _ffn(cfg, lp, hh, full_capacity=True).to(x.dtype)
     cache.length += n * live
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     if last_index is not None:

@@ -88,7 +88,11 @@ _DECODE_WEIGHT_KEYS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
 def quantize_decode_params(params):
     """Quantize the per-layer matmul weights and lm_head of a llama params
     dict to QTensors for decode; embedding and norms stay as they are. The
-    input dict is not modified."""
+    input dict is not modified. An MoE model's params raise (its experts
+    stay bf16, as in the JAX package)."""
+    if "router" in params["layers"]:
+        raise ValueError("int8 decode weights: the MoE experts stay bf16 "
+                         "(weight_dtype='bfloat16')")
     out = dict(params)
     layers = dict(params["layers"])
     for k in _DECODE_WEIGHT_KEYS:

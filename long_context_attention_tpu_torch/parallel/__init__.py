@@ -1,6 +1,7 @@
-"""Sequence parallelism of the port: layouts, the USP process-group mesh,
-the Ulysses all-to-all, the dense and the block-sparse rings, and the USP
-layers over them (the async, head-group pipelined one too)."""
+"""Parallelism of the port: layouts, the USP process-group mesh, the
+Ulysses all-to-all, the dense and the block-sparse rings, the USP layers
+over them (the async, head-group pipelined one too), tensor parallelism's
+f and g, the GPipe pipeline, the expert-parallel MoE MLP and ZeRO-1/2/3."""
 
 from long_context_attention_tpu_torch.parallel.layouts import (  # noqa: F401
     LAYOUTS,
@@ -18,9 +19,24 @@ from long_context_attention_tpu_torch.parallel.mesh import (  # noqa: F401
     MeshAxes,
     UspMesh,
     make_usp_mesh,
+    mesh_axis,
     seq_shard,
     seq_unshard,
     usp_rank_grid,
+)
+from long_context_attention_tpu_torch.parallel.moe import (  # noqa: F401
+    MoEConfig,
+    init_moe_params,
+    moe_mlp_local,
+    moe_param_specs,
+)
+from long_context_attention_tpu_torch.parallel.pipeline import (  # noqa: F401
+    pipeline_apply,
+)
+from long_context_attention_tpu_torch.parallel.tp import (  # noqa: F401
+    psum_for_value,
+    tp_region_input,
+    tp_region_output,
 )
 from long_context_attention_tpu_torch.parallel.ring import (  # noqa: F401
     RingComm,
@@ -45,4 +61,12 @@ from long_context_attention_tpu_torch.parallel.usp import (  # noqa: F401
     ulysses_sparse_attention_local,
     usp_attention_local,
     usp_ring_sparse_attention_local,
+)
+from long_context_attention_tpu_torch.parallel.zero import (  # noqa: F401
+    init_zero_opt_state,
+    make_zero3_train_step,
+    make_zero_train_step,
+    shard_params_zero3,
+    zero3_param_specs,
+    zero_param_specs,
 )

@@ -64,7 +64,10 @@ from long_context_attention_tpu_torch.ops.kv_cache import (
     PagedKVCache,
 )
 from long_context_attention_tpu_torch.ops.wquant import quantize_decode_params
-from long_context_attention_tpu_torch.parallel.mesh import MeshAxes
+from long_context_attention_tpu_torch.parallel.mesh import (
+    MeshAxes,
+    check_seq_mesh,
+)
 from long_context_attention_tpu_torch.serving.engine import (
     SamplingParams,
     sample_token,
@@ -1277,6 +1280,7 @@ class ShardedContinuousEngine(ContinuousEngine):
     def __post_init__(self):
         if self.mesh is None:
             raise ValueError(f"{type(self).__name__} needs a mesh")
+        check_seq_mesh(self.mesh, type(self).__name__)
         object.__setattr__(self, "device",
                            step_device(self.mesh, self.device))
         if self.axes is None:

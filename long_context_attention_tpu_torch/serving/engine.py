@@ -32,7 +32,10 @@ from long_context_attention_tpu_torch.parallel.layouts import (
     permute_for_layout,
     unpermute_from_layout,
 )
-from long_context_attention_tpu_torch.parallel.mesh import MeshAxes
+from long_context_attention_tpu_torch.parallel.mesh import (
+    MeshAxes,
+    check_seq_mesh,
+)
 from long_context_attention_tpu_torch.parallel.ulysses import gather_seq
 
 __all__ = ["Engine", "GenerationResult", "SamplingParams", "sample_token",
@@ -132,6 +135,7 @@ class Engine:
     def __post_init__(self):
         if self.weight_dtype not in ("bfloat16", "int8"):
             raise ValueError(f"weight_dtype {self.weight_dtype!r}")
+        check_seq_mesh(self.mesh, "Engine")
         object.__setattr__(self, "device",
                            step_device(self.mesh, self.device))
 

@@ -33,7 +33,10 @@ from long_context_attention_tpu_torch.parallel.layouts import (
     layout_permutation,
     permute_for_layout,
 )
-from long_context_attention_tpu_torch.parallel.mesh import MeshAxes
+from long_context_attention_tpu_torch.parallel.mesh import (
+    MeshAxes,
+    check_seq_mesh,
+)
 
 __all__ = ["ShardedEngine", "slot_exchange"]
 
@@ -88,6 +91,7 @@ class ShardedEngine:
     def __post_init__(self):
         if self.mesh is None:
             raise ValueError("ShardedEngine needs a mesh")
+        check_seq_mesh(self.mesh, "ShardedEngine")
         object.__setattr__(self, "device",
                            step_device(self.mesh, self.device))
         if self.s_max % self.n_seq:

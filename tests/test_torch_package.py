@@ -184,9 +184,10 @@ def test_model_config_rejects_unported_fields(field, value):
     """ModelConfig keeps the JAX config's fields; a value that needs a
     slice not ported yet raises instead of being ignored. A window, sinks
     or softcap serve and train, so the config takes them, hands them to
-    every attention call and builds a train step. attn_impl takes the
-    registry's impls (xla, sage) and raises ValueError on an unknown
-    one."""
+    every attention call and builds a train step; so does the MoE FFN
+    (n_experts, moe_capacity_factor; a negative value raises ValueError).
+    attn_impl takes the registry's impls (xla, sage) and raises ValueError
+    on an unknown one."""
     from long_context_attention_tpu_torch.models.llama import (
         ModelConfig, make_train_step)
     from long_context_attention_tpu_torch.utils.config import BlockSizes
@@ -206,6 +207,14 @@ def test_model_config_rejects_unported_fields(field, value):
         assert (kw["window_size"][0] if field == "window_left"
                 else kw[field]) == value
         assert callable(make_train_step(cfg, torch.optim.SGD, device="cpu"))
+        return
+    if field in ("n_experts", "moe_capacity_factor"):  # the MoE model
+        cfg = ModelConfig(**{field: value})
+        assert getattr(cfg, field) == value
+        assert cfg.moe == (field == "n_experts")
+        assert callable(make_train_step(cfg, torch.optim.SGD, device="cpu"))
+        with pytest.raises(ValueError):
+            ModelConfig(**{field: -value})
         return
     with pytest.raises(NotImplementedError, match=field):
         ModelConfig(**{field: value})

@@ -137,8 +137,8 @@ def test_layouts_match_jax(layout, ring):
 
 def test_mesh_raises(monkeypatch):
     """make_usp_mesh() is the card (NCCL): RuntimeError without CUDA; a
-    mesh of several ranks needs an initialised world; tp/pp/ep raise
-    NotImplementedError. On a one-rank gloo world the dense layers equal
+    mesh of several ranks (over any axis, tp, pp and ep too) needs an
+    initialised world of its size. On a one-rank gloo world the dense layers equal
     flash_attention (a zigzag ring of one: the two-chunk descriptor (0,
     s/2)), segment ids included, and with fp8 K/V flash_attention over the
     dequantized K/V; the sparse layers raise for stripe and for a window
@@ -150,14 +150,17 @@ def test_mesh_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         tmesh.make_usp_mesh()
-    with pytest.raises(NotImplementedError, match="tensor, pipeline"):
-        tmesh.make_usp_mesh(tp=2, device="cpu")
+    for axis in ("tp", "pp", "ep"):  # ported: several ranks, like dp
+        with pytest.raises(RuntimeError, match="not initialised"):
+            tmesh.make_usp_mesh(**{axis: 2}, device="cpu")
     assert not dist.is_initialized()
     with pytest.raises(RuntimeError, match="not initialised"):
         tmesh.make_usp_mesh(dp=2, device="cpu")
     mesh = tmesh.make_usp_mesh(device="cpu")
     try:
         assert (mesh.rank, mesh.seq_idx, mesh.ring_next) == (0, 0, 0)
+        with pytest.raises(ValueError, match="needs 2 ranks"):
+            tmesh.make_usp_mesh(tp=2, device="cpu")
         q = torch.zeros(1, 128, 2, 64)
         mask = np.ones((2, 2), bool)
         x = torch.randn(1, 128, 2, 64, generator=torch.Generator()
