@@ -217,7 +217,28 @@ Phases, one JSON line each; any failure exits non-zero:
  26. zero_train: make_zero_train_step and make_zero3_train_step (remat
      full) on a one-rank NCCL mesh at the dense 0.88B config, one step
      each against make_train_step's (the same gates), then timed steps
-     with exact B3 / B2a / B2b counts.
+     with exact B3 / B2a / B2b counts;
+ 27. slice_hd64: a Llama of head dim 64 at TinyLlama-1.1B's widths
+     (TINYLLAMA: 22 layers, dim 2048, 32 / 4 heads of 64, ffn 5632;
+     random weights) served as the slice serves the 0.88B config
+     (serve_phase), on the d = 64 kernels (ops/_build.py: each of the
+     serving path's sources built a second time with -DLCA_HEAD_DIM=64):
+     exact counts of B1, B3, B6 and one-token B7 at d = 64 and none at d
+     = 128, teacher forcing, a bf16-cache generate; then a two-chunk
+     prefill and 4 decode steps over fp8 and int4 caches;
+ 28. serve_paged_hd64: that model through PagedContinuousEngine with
+     interleaved admission over int8, fp8 and int4 pages: every chunk
+     sub-run on decode_run at d = 64 (the tile rule's plan, exact counts),
+     logprobs against teacher forcing.
+The kernel phase's kernel_hd64 holds the d = 64 kernels at TinyLlama's
+shapes against their plain versions at their rows' tolerances, each
+timed: B1 (fast and online, ragged), B3 over bf16, int8, fp8 and int4
+(fast, window 4096 and 4 sinks with its band check, online and softcap),
+B6 in every kind, dense and paged, at 1, 256 and 2048 tokens bit for bit,
+one-token B7 at G = 8 in every kind dense and paged (cast path, window
+and sinks), and B7's runs of 256 (three sub-runs) in every kind with the
+poison check; the d = 64 kernels get rows of their own in the kernel
+table, their cases' launches from the two phases above.
 Every paged phase asserts that the engine took the native allocator
 (csrc/lca_host.cc, built with g++ into build/host/).
 The kernel phase holds B6's quantizing entry (cache_append_rows: bf16
@@ -293,6 +314,14 @@ SEED = 0
 # The 0.88B llama config that bench.py serves (full width and depth).
 MODEL = dict(vocab=32000, dim=2048, n_layers=16, n_heads=16, n_kv_heads=8,
              head_dim=128, ffn_hidden=int(2048 * 2.7), layout="basic")
+# A Llama of head dim 64 at TinyLlama-1.1B's published widths
+# (TinyLlama/TinyLlama-1.1B-intermediate-step-1431k-3T, config.json: vocab
+# 32000, hidden 2048, 22 layers, 32 heads and 4 kv heads of 64, ffn 5632,
+# rope_theta 10000, rms eps 1e-5, an untied lm_head), random weights from
+# SEED; served at the slice's shapes (slice_hd64, serve_paged_hd64)
+TINYLLAMA = dict(vocab=32000, dim=2048, n_layers=22, n_heads=32,
+                 n_kv_heads=4, head_dim=64, ffn_hidden=5632,
+                 rope_theta=10000.0, norm_eps=1e-5, layout="basic")
 BATCH, PROMPT, CHUNK, NEW = 4, 8192, 2048, 32
 S_MAX = ((PROMPT + NEW + 4095) // 4096) * 4096
 GEN_BATCH, GEN_PROMPT, GEN_NEW = 2, 1024, 16
@@ -1293,9 +1322,6 @@ B6_PATHS = {("int8", False, 1): "slice", ("int8", False, 2048): "slice",
             ("int4", False, 2048): "slice_int4",
             ("float8_e4m3fn", True, 1): "serve_paged_fp8",
             ("float8_e4m3fn", True, 256): "serve_paged_fp8 interleaved"}
-# bytes a stored row of head_dim 128 takes, by cache dtype
-B6_ROW_BYTES = {"bfloat16": 256, "int8": 128, "float8_e4m3fn": 128,
-                "int4": 64}
 
 
 def scalar_divisor_quantize(kv_cache, x, dtype):
@@ -1334,11 +1360,12 @@ def quantize_mismatch(kv_cache, x, dtype, quantizer):
             "of": [sr.numel(), qr.numel()]}
 
 
-def b6_cache(kv_cache, dtype, paged, gen, dev):
+def b6_cache(kv_cache, dtype, paged, gen, dev, hk=MODEL["n_kv_heads"],
+             d=128):
     """A two-layer cache of ``dtype`` on the card with random contents:
     dense (BATCH rows of S_MAX) or the paged engine's pool (POOL pages of
-    PAGE, rows of PAGED_S_MAX on distinct random pages)."""
-    hk, d = MODEL["n_kv_heads"], 128
+    PAGE, rows of PAGED_S_MAX on distinct random pages), ``hk`` kv heads
+    of head dim ``d``."""
     if paged:
         c = kv_cache.PagedKVCache.init(2, BATCH, POOL, PAGE,
                                        PAGED_S_MAX // PAGE, hk, d, dtype,
@@ -1366,7 +1393,8 @@ def cpu_cache(c):
         if f.init and getattr(c, f.name) is not None})
 
 
-def b6_rows_case(decode, kv_cache, dtype, paged, n, gen, dev):
+def b6_rows_case(decode, kv_cache, dtype, paged, n, gen, dev,
+                 hk=MODEL["n_kv_heads"], d=128, paths=None):
     """B6's quantizing entry at one kind, layout and run: bf16 rows (b, n,
     h_kv, d) of the projection's layout written into layer 1 at slots that
     skip a row (append_pos = -n), run past the capacity and straddle a
@@ -1375,9 +1403,10 @@ def b6_rows_case(decode, kv_cache, dtype, paged, n, gen, dev):
     the CPU's quotients (quantize_kv must match: 0); device ms per launch
     under torch.profiler, the call's ms and the wrapper's host ms; the plain
     version on the card; the chain it replaces (quantize_kv of K and V on
-    the card, then the byte-copy append) as its library time."""
-    hk, d = MODEL["n_kv_heads"], 128
-    c = b6_cache(kv_cache, dtype, paged, gen, dev)
+    the card, then the byte-copy append) as its library time. ``hk``,
+    ``d``: the cache's kv heads and head dim; ``paths``: the phase of each
+    (dtype, paged, n) case (B6_PATHS by default)."""
+    c = b6_cache(kv_cache, dtype, paged, gen, dev, hk, d)
     cap = PAGED_S_MAX if paged else S_MAX
     pos = torch.tensor([{1: PROMPT, 256: 3 * PAGE - 100,
                          2048: PAGE - 1000}[n], -n, cap - (n + 1) // 2, 0],
@@ -1429,11 +1458,12 @@ def b6_rows_case(decode, kv_cache, dtype, paged, n, gen, dev):
     live = int(((slots >= 0) & (slots < cap)).sum())
     # each live token: K and V rows read in bf16, written quantized with
     # their fp32 scales
-    nbytes = 2 * live * hk * (2 * d + B6_ROW_BYTES[dtype]
+    nbytes = 2 * live * hk * (2 * d + int(CACHE_ELT[dtype] * d)
                               + 4 * (dtype != "bfloat16"))
     res = b7_row_times({"case": tag, "dtype": dtype, "paged": paged, "n": n,
-                        "rows_at": pos.tolist(),
-                        "path": B6_PATHS.get((dtype, paged, n)),
+                        "head_dim": d, "rows_at": pos.tolist(),
+                        "path": (B6_PATHS if paths is None else paths).get(
+                            (dtype, paged, n)),
                         "torch_chain_mismatch": mismatch,
                         **case_row([(0.0, 0.0)], times["ms"], plain_ms, 0,
                                    nbytes, lib_ms),
@@ -1817,11 +1847,11 @@ PAGED_LENS = (16384, 9000, 2049, 1)   # rows' lengths (a full row, ragged)
 RUN_LENS, RUN_PAGES = (16448, 5000), 10
 
 
-def paged_pool(gen, dev, dtype, L=2, lens=None, n_pages=None):
+def paged_pool(gen, dev, dtype, L=2, lens=None, n_pages=None,
+               hk=MODEL["n_kv_heads"], d=128):
     """A pool (L, POOL, h_kv, PAGE, d) of random values (int8 with scales
     in (0, 1/64]) and a page table: each row's live pages on random pool
     pages (never the scratch page 0), -1 past its prefix."""
-    hk, d = MODEL["n_kv_heads"], 128
     lens = PAGED_LENS if lens is None else lens
     n_pages = n_pages or PAGED_S_MAX // PAGE
     shape = (L, POOL, hk, PAGE, d)
@@ -2123,16 +2153,17 @@ def b7_run_case(decode, tag, q, cache, lens, pt, layer, timed=True, **kw):
     if routes != {"decode_run"}:
         raise AssertionError(f"B7 run {tag}: sub-runs routed to {routes}")
     build = decode._build
+    run_k, token_k = (build.kernel(n, d).name
+                      for n in ("decode_run", "decode_attention"))
     build.reset_launch_counts()
     o, l = decode.decode_attention(q, kc, vc, lens, ks, vs, layer=layer,
                                    page_table=pt, return_lse=True, **kw)
     torch.cuda.synchronize()
     got = build.launch_counts()
-    if got["decode_run"] != len(plan) or got["decode_attention"] != 0:
-        raise AssertionError(f"B7 run {tag}: decode_run launched "
-                             f"{got['decode_run']} times, decode_attention "
-                             f"{got['decode_attention']}, for {len(plan)} "
-                             f"sub-runs")
+    if got[run_k] != len(plan) or got[token_k] != 0:
+        raise AssertionError(f"B7 run {tag}: {run_k} launched {got[run_k]} "
+                             f"times, {token_k} {got[token_k]}, for "
+                             f"{len(plan)} sub-runs")
     cpu = [None if t is None else t[layer:layer + 1].cpu() for t in cache]
     po, pl_ = decode.decode_attention(
         q.cpu(), cpu[0], cpu[1], lens.cpu(), cpu[2], cpu[3], layer=0,
@@ -2324,6 +2355,248 @@ def kernel_b7_runs(K, decode, kv_cache, gen, dev):
 
 
 # ---------------------------------------------------------------------------
+# head dim 64: B1, B3, B6 and both B7 kernels at TinyLlama's shapes
+# ---------------------------------------------------------------------------
+
+# the phase whose counters give each d = 64 case its launches (None: a form
+# no phase of this run takes)
+HD_B3_PATHS = {"int8": "slice_hd64", "float8_e4m3fn": "slice_hd64 fp8",
+               "int4": "slice_hd64 int4"}
+HD_B6_PATHS = {("bfloat16", False, 1): "slice_hd64 generate",
+               ("int8", False, 1): "slice_hd64",
+               ("int8", False, 2048): "slice_hd64",
+               ("float8_e4m3fn", False, 2048): "slice_hd64 fp8",
+               ("int4", False, 2048): "slice_hd64 int4",
+               ("int8", True, 1): "serve_paged_hd64",
+               ("float8_e4m3fn", True, 1): "serve_paged_hd64 fp8",
+               ("int4", True, 1): "serve_paged_hd64 int4",
+               ("int8", True, 256): "serve_paged_hd64",
+               ("float8_e4m3fn", True, 256): "serve_paged_hd64 fp8",
+               ("int4", True, 256): "serve_paged_hd64 int4"}
+HD_B7_PATHS = {"bf16": "slice_hd64 generate",
+               "int8 s8": "slice_hd64", "fp8 cast": "slice_hd64 fp8",
+               "int4 s8": "slice_hd64 int4", "paged int8 s8":
+               "serve_paged_hd64", "paged fp8 cast": "serve_paged_hd64 fp8",
+               "paged int4 s8": "serve_paged_hd64 int4"}
+HD_RUN_PATHS = {"int8 n=256": "serve_paged_hd64",
+                "fp8 cast n=256": "serve_paged_hd64 fp8",
+                "int4 s8 n=256": "serve_paged_hd64 int4"}
+
+
+def kernel_hd64(K, flash, decode, kv_cache, gen, dev):
+    """The d = 64 kernels (their own libraries, -DLCA_HEAD_DIM=64) at
+    TinyLlama-1.1B's attention widths (32 heads, 4 kv heads of 64: G = 8),
+    each against its plain version on the card at its row's tolerance and
+    timed: B1 at the chunk's shape (b=4, s=2048) and ragged lengths, fast
+    and online; B3 over a bf16, int8, fp8 and int4 prefix of 6144 at the
+    next chunk's 2048 rows, fast, with a window of 4096 and 4 sinks (band
+    check), and online and softcap where the edges cut tiles; B6 in every
+    kind, dense and paged, n = 1, 256 and 2048, bit for bit; one-token B7
+    in every kind, dense and paged (the cast path too, window and sinks);
+    B7's runs of 256 (three sub-runs of the tile rule) over int8, bf16,
+    fp8 and int4 pools, with the poison check, window and sinks and the
+    online form. Returns {d = 128 row name: [cases]}."""
+    cfg = TINYLLAMA
+    h, hk, d = cfg["n_heads"], cfg["n_kv_heads"], cfg["head_dim"]
+    b, scale = BATCH, d ** -0.5
+    out = {n: [] for n in decode._build.HEAD_DIM_64}
+
+    def qkv(bb, ss):
+        return [torch.randn(shape, generator=gen, device=dev).bfloat16()
+                for shape in ((bb, ss, h, d), (bb, ss, hk, d),
+                              (bb, ss, hk, d))]
+
+    # B1
+    checks = []
+    for bb, ss in ((b, CHUNK), (1, 1000), (1, 64)):
+        q, k, v = qkv(bb, ss)
+        for safe in (False, True):
+            o, l = flash.flash_fwd_causal_self(q, k, v, scale=scale,
+                                               safe_softmax=safe)
+            po, pl_ = flash.flash_fwd_causal_self_plain(
+                q, k, v, scale=scale, safe_softmax=safe)
+            torch.cuda.synchronize()
+            checks.append(check_out(f"B1 d=64 out b={bb} s={ss} safe={safe}",
+                                    o, po))
+            check(f"B1 d=64 lse b={bb} s={ss} safe={safe}", max_err(l, pl_),
+                  LSE_TOL)
+        if bb == b:
+            qb, kb, vb = q, k, v
+    ms = time_ms(lambda: flash.flash_fwd_causal_self(qb, kb, vb,
+                                                     scale=scale))
+    plain_ms = time_ms(lambda: flash.flash_fwd_causal_self_plain(
+        qb, kb, vb, scale=scale), iters=3, warmup=1)
+    qh, kh, vh = (t.transpose(1, 2) for t in (qb, kb, vb))
+    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        qh, kh, vh, is_causal=True, enable_gqa=True))
+    out["flash_fwd_causal_self"].append({
+        "case": f"d=64 b={b} s={CHUNK} (and ragged 1000, 64), h={h} h_kv={hk}",
+        "kernel": K["flash_fwd_causal_self_d64"].name, "path": "slice_hd64",
+        **case_row(checks, ms, plain_ms, 2 * b * h * CHUNK * CHUNK * d,
+                   2 * (2 * qb.numel() + kb.numel() + vb.numel())
+                   + 4 * b * h * CHUNK, lib_ms)})
+    del qb, kb, vb, qh, kh, vh
+    # B3: the next chunk's rows against the cache's prefix, each kind
+    s_q, start = CHUNK, PROMPT - CHUNK
+    q = torch.randn((b, s_q, h, d), generator=gen, device=dev).bfloat16()
+    qh = q.transpose(1, 2)
+    win = dict(window_size=(WINDOW, -1), sink_tokens=SINKS)
+    for dtype in ("bfloat16", "int8", "float8_e4m3fn", "int4"):
+        kc, kst = quant_values(kv_cache, (b, hk, start, d), dtype, gen, dev)
+        vc, vst = quant_values(kv_cache, (b, hk, start, d), dtype, gen, dev)
+        args = (kc, vc, kst, vst)
+        kd, vd = ((t if sc is None else kv_cache.dequantize_kv(t, sc))
+                  for t, sc in ((kc, kst), (vc, vst)))
+        for wtag, wkw in (("dense", {}), ("window sinks", win)):
+            o, l = flash.flash_fwd_pos(q, *args, q_start=start, causal=True,
+                                       scale=scale, **wkw)
+            po, pl_ = flash.flash_fwd_pos_plain(q, *args, q_start=start,
+                                                causal=True, scale=scale,
+                                                **wkw)
+            torch.cuda.synchronize()
+            checks = [check_out(f"B3 d=64 out {dtype} {wtag}", o, po)]
+            check(f"B3 d=64 lse {dtype} {wtag}", max_err(l, pl_), LSE_TOL)
+            del po, pl_
+            vis = visible(s_q, start, start, True,
+                          **(dict(left=WINDOW, sink=SINKS) if wkw else {}),
+                          dev=dev)
+            if wkw and dtype != "bfloat16":  # NaN scales outside the walk
+                tiles = unseen_tiles(vis, B3_KV_TILE)
+                ksp, vsp = (poison(t, 2, tiles, B3_KV_TILE)
+                            for t in (kst, vst))
+                got, _ = flash.flash_fwd_pos(q, kc, vc, ksp, vsp,
+                                             q_start=start, causal=True,
+                                             scale=scale, **wkw)
+                torch.cuda.synchronize()
+                band_check(f"B3 d=64 {dtype}", got, o, len(tiles))
+                del ksp, vsp, got
+            # the online and softcap forms where lengths, the window edge
+            # and the sink edge cut tiles (300 rows at 1037 over 1337)
+            if not wkw:
+                small = tuple(t[:, :, :1337] for t in args if t is not None)
+                if dtype == "bfloat16":
+                    small = small + (None, None)
+                for ftag, fkw in (("safe", dict(safe_softmax=True)),
+                                  ("softcap", dict(softcap=SOFTCAP))):
+                    kw = dict(fkw, q_start=1037, causal=True, scale=scale,
+                              window_size=(500, -1), sink_tokens=70)
+                    qs_ = q[:, :300].contiguous()
+                    o2, l2 = flash.flash_fwd_pos(qs_, *small, **kw)
+                    po2, pl2 = flash.flash_fwd_pos_plain(qs_, *small, **kw)
+                    torch.cuda.synchronize()
+                    checks.append(check_out(
+                        f"B3 d=64 out {dtype} {ftag} window 500 sinks 70",
+                        o2, po2))
+                    check(f"B3 d=64 lse {dtype} {ftag}", max_err(l2, pl2),
+                          LSE_TOL)
+            ms = time_ms(lambda: flash.flash_fwd_pos(
+                q, *args, q_start=start, causal=True, scale=scale, **wkw))
+            plain_ms = time_ms(lambda: flash.flash_fwd_pos_plain(
+                q, *args, q_start=start, causal=True, scale=scale, **wkw),
+                iters=2, warmup=1)
+            lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+                qh, kd, vd, attn_mask=vis if wkw else None, enable_gqa=True))
+            cols = int(vis.any(0).sum())
+            quant = dtype != "bfloat16"
+            nbytes = int(2 * 2 * q.numel() + 4 * b * h * s_q + 2 * b * hk
+                         * cols * (d * CACHE_ELT[dtype] + 4 * quant))
+            out["flash_fwd_pos"].append({
+                "case": f"d=64 {dtype} prefix {start}, {s_q} rows, {wtag}"
+                        + ("" if wkw else "; safe and softcap at 300 rows "
+                           "over 1337"),
+                "kernel": K["flash_fwd_pos_d64"].name,
+                "path": None if wkw else HD_B3_PATHS.get(dtype),
+                **case_row(checks, ms, plain_ms,
+                           4 * b * h * d * int(vis.sum()), nbytes, lib_ms)})
+            del vis
+        del kc, vc, kst, vst, kd, vd, args
+        torch.cuda.empty_cache()
+    del q, qh
+    # B6: every kind, dense and paged, a decode token, a chunk's run and an
+    # admission's chunk
+    for dtype in ("bfloat16", "int8", "float8_e4m3fn", "int4"):
+        for paged in (False, True):
+            for n in (1, 256, 2048):
+                out["cache_append"].append(b6_rows_case(
+                    decode, kv_cache, dtype, paged, n, gen, dev, hk=hk, d=d,
+                    paths=HD_B6_PATHS))
+    # one-token B7 at G = 8 over the slice's cache (dense, a layer of
+    # B7_PAGED_LAYERS timed in turn) and the paged pool
+    lens = torch.tensor([PROMPT + 1, PROMPT - 42, PROMPT + NEW, PROMPT - 193],
+                        dtype=torch.int32, device=dev)
+    qt = torch.randn((b, h, d), generator=gen, device=dev).bfloat16()
+    L = B7_PAGED_LAYERS
+    for dtype, tags in (("bfloat16", (("bf16", {}),)),
+                        ("int8", (("int8 s8", {}),
+                                  ("int8 cast", dict(mxu_int8=False)))),
+                        ("float8_e4m3fn", (("fp8 cast", {}),)),
+                        ("int4", (("int4 s8", {}),))):
+        kc, ks = quant_values(kv_cache, (L, b, hk, S_MAX, d), dtype, gen, dev)
+        vc, vs = quant_values(kv_cache, (L, b, hk, S_MAX, d), dtype, gen, dev)
+        if ks is not None:
+            ks, vs = ks[..., None, :], vs[..., None, :]
+        for tag, kw in tags:
+            out["decode_attention"].append(
+                {**b7_dense_case(decode, kv_cache, f"d=64 {tag}", qt, kc, vc,
+                                 ks, vs, lens, 1, **kw),
+                 "kernel": K["decode_attention_d64"].name,
+                 "path": HD_B7_PATHS.get(tag)})
+        del kc, vc, ks, vs
+        torch.cuda.empty_cache()
+    lt = torch.tensor(PAGED_LENS, dtype=torch.int32, device=dev)
+    qp = torch.randn((len(PAGED_LENS), h, d), generator=gen,
+                     device=dev).bfloat16()
+    for dtype, tag, kw in (("bfloat16", "bf16", {}), ("int8", "int8 s8", {}),
+                           ("int8", "int8 s8 window sinks", win),
+                           ("float8_e4m3fn", "fp8 cast", {}),
+                           ("int4", "int4 s8", {})):
+        kc, vc, ks, vs, pt = paged_pool(gen, dev, "bfloat16", L=L, hk=hk,
+                                        d=d)
+        if dtype != "bfloat16":
+            (kc, ks), (vc, vs) = (kv_cache.quantize_kv(t, dtype)
+                                  for t in (kc, vc))
+            ks, vs = ks[..., None, :], vs[..., None, :]
+        out["decode_attention"].append(
+            {**b7_case(decode, f"d=64 {tag}", qp, kc, vc, ks, vs, lt, pt, 1,
+                       **kw),
+             "kernel": K["decode_attention_d64"].name,
+             "path": HD_B7_PATHS.get(f"paged {tag}")})
+        del kc, vc, ks, vs, pt
+        torch.cuda.empty_cache()
+    # B7's runs: a chunk of 256 over RUN_LENS's pool in every kind
+    rl = torch.tensor(RUN_LENS, dtype=torch.int32, device=dev)
+    q256 = torch.randn((len(RUN_LENS), 256, h, d), generator=gen,
+                       device=dev).bfloat16()
+    for dtype, tags in (("int8", (("int8", {}), ("int8 safe",
+                                                 dict(safe_softmax=True)),
+                                  ("int8 window sinks", win),
+                                  ("int8 cast", dict(mxu_int8=False)))),
+                        ("bfloat16", (("bf16", {}),)),
+                        ("float8_e4m3fn", (("fp8 cast", {}),)),
+                        ("int4", (("int4 s8", {}),))):
+        kc, vc, ks, vs, pt = paged_pool(gen, dev, "bfloat16", lens=RUN_LENS,
+                                        n_pages=RUN_PAGES, hk=hk, d=d)
+        if dtype != "bfloat16":
+            (kc, ks), (vc, vs) = (kv_cache.quantize_kv(t, dtype)
+                                  for t in (kc, vc))
+            ks, vs = ks[..., None, :], vs[..., None, :]
+        pool = (kc, vc, ks, vs)
+        for tag, kw in tags:
+            timed = tag in ("int8", "bf16", "fp8 cast", "int4 s8")
+            res, o = b7_run_case(decode, f"{tag} n=256", q256, pool, rl, pt,
+                                 1, timed=timed, **kw)
+            res.update(kernel=K["decode_run_d64"].name,
+                       path=HD_RUN_PATHS.get(f"{tag} n=256"))
+            out["decode_run"].append(res)
+            if timed and dtype != "int4":
+                poison_check(decode, f"d=64 {tag}", q256, pool, rl, pt, 1, o,
+                             **kw)
+        del kc, vc, ks, vs, pool, pt
+        torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
 # the fp8 and int4 caches: B6, B7 and B3 over fp8 and packed int4 values
 # ---------------------------------------------------------------------------
 
@@ -2440,7 +2713,8 @@ def b7_dense_case(decode, kv_cache, tag, q, kc, vc, ks, vs, lens, layer,
     library's yardstick."""
     o, l = decode.decode_attention(q, kc, vc, lens, ks, vs, layer=layer,
                                    return_lse=True, **kw)
-    cpu = [t[layer:layer + 1].cpu() for t in (kc, vc, ks, vs)]
+    cpu = [None if t is None else t[layer:layer + 1].cpu()
+           for t in (kc, vc, ks, vs)]
     po, pl_ = decode.decode_attention(q.cpu(), cpu[0], cpu[1], lens.cpu(),
                                       cpu[2], cpu[3], layer=0,
                                       return_lse=True, **kw)
@@ -2466,9 +2740,9 @@ def b7_dense_case(decode, kv_cache, tag, q, kc, vc, ks, vs, lens, layer,
     plain_ms = time_ms(lambda: decode.decode_attention_core_plain(
         *args, layer=layer, **ckw), iters=3, warmup=1)
     n = int(lens.max())
-    kd, vd = (kv_cache.dequantize_kv(t[layer, :, :, :n], sc[layer, :, :, 0,
-                                                            :n])
-              .repeat_interleave(g, 1) for t, sc in ((kc, ks), (vc, vs)))
+    kd, vd = ((t[layer, :, :, :n] if sc is None else kv_cache.dequantize_kv(
+        t[layer, :, :, :n], sc[layer, :, :, 0, :n])).repeat_interleave(g, 1)
+              for t, sc in ((kc, ks), (vc, vs)))
     cols = torch.arange(n, device=q.device)
     last = lens.long()[:, None] - 1
     mask = torch.where(cols[None] <= last, 0.0, -math.inf)[:, None, None]
@@ -2481,7 +2755,8 @@ def b7_dense_case(decode, kv_cache, tag, q, kc, vc, ks, vs, lens, layer,
         qh, kd, vd, attn_mask=mask), iters=20)
     live = int(lens.sum())
     elt = 0.5 if kc.dtype == torch.uint8 else kc.element_size()
-    nbytes = int(2 * hk * live * d * elt + 8 * hk * live + b * h * d * 2 * 2)
+    nbytes = int(2 * hk * live * d * elt + 8 * hk * live * (ks is not None)
+                 + b * h * d * 2 * 2)
     del kd, vd, mask
     return b7_row_times(
         {"case": f"{tag}, lengths {lens.tolist()}",
@@ -3194,29 +3469,38 @@ def cache_bytes(cache):
         cache.k, cache.v, cache.k_scale, cache.v_scale) if t is not None)
 
 
-def serve_phase(pkg, build, dev, card, windowed, cache_dtype="int8"):
+def serve_phase(pkg, build, dev, card, windowed, cache_dtype="int8",
+                model=MODEL, label="llama-0.88B", tag=None):
     """Serve the 0.88B config (dense, or with the sliding window and sinks)
     over a cache of ``cache_dtype``: prefill_chunked + decode_scan with
     exact launch counts, teacher forcing (its decode step profiled), and
     the cache's bytes. The int8 runs add a profile of a two-chunk prefill,
     and a generate at b=2. The fp8 and int4 runs (slice_fp8, slice_int4)
     hold fp8 to the int8 gate (TEACHER_TOL) and report int4's error, gated
-    on finite logits as the JAX suite gates an int4 cache. Returns the
+    on finite logits as the JAX suite gates an int4 cache. ``model``,
+    ``label``, ``tag``: another config to serve the same way (slice_hd64:
+    TinyLlama's widths at head dim 64, on the d = 64 kernels, whose
+    launches are counted and the d = 128 ones' held at 0). Returns the
     prefill_chunked + decode_scan run's launch counts and its serving
     numbers."""
     from long_context_attention_tpu_torch.models.llama import (
         decode_step, init_params)
     from long_context_attention_tpu_torch.serving.engine import Engine
 
-    tag = "slice_windowed" if windowed else "slice"
     quant = cache_dtype != "int8"  # the fp8 and int4 slices
-    if quant:
-        tag = f"slice_{QUANT_TAG[cache_dtype]}"
-    cfg = pkg.ModelConfig(**MODEL, **(WINDOWED if windowed else {}))
-    L = cfg.n_layers
+    if tag is None:
+        tag = "slice_windowed" if windowed else "slice"
+        if quant:
+            tag = f"slice_{QUANT_TAG[cache_dtype]}"
+    cfg = pkg.ModelConfig(**model, **(WINDOWED if windowed else {}))
+    L, d = cfg.n_layers, cfg.head_dim
+    kn = {n: build.kernel(n, d).name for n in build.HEAD_DIM_64}
+    # the other head dim's serving kernels launch none
+    idle = {} if d == 128 else dict.fromkeys(build.HEAD_DIM_64, 0)
     # a chunk's self-attention: B4 under the window, B1 without it
-    own, other = (("flash_fwd_static", "flash_fwd_causal_self") if windowed
-                  else ("flash_fwd_causal_self", "flash_fwd_static"))
+    own, other = (("flash_fwd_static", kn["flash_fwd_causal_self"])
+                  if windowed else
+                  (kn["flash_fwd_causal_self"], "flash_fwd_static"))
     gen = torch.Generator(device=dev).manual_seed(SEED)
     params = init_params(gen, cfg, device=dev)
     prompt = torch.randint(0, cfg.vocab, (BATCH, PROMPT), generator=gen,
@@ -3246,11 +3530,11 @@ def serve_phase(pkg, build, dev, card, windowed, cache_dtype="int8"):
     torch.cuda.synchronize()
     decode_s = time.perf_counter() - t0
     counts = expect_counts(build, {
-        own: L * (PROMPT // CHUNK), other: 0,
-        "flash_fwd_pos": L * (PROMPT // CHUNK - 1),
+        **idle, own: L * (PROMPT // CHUNK), other: 0,
+        kn["flash_fwd_pos"]: L * (PROMPT // CHUNK - 1),
         # B6: each chunk's write_prompt per layer, then each decode step's
-        "cache_append": L * (PROMPT // CHUNK) + L * NEW,
-        "decode_attention": L * NEW, "decode_run": 0})
+        kn["cache_append"]: L * (PROMPT // CHUNK) + L * NEW,
+        kn["decode_attention"]: L * NEW, kn["decode_run"]: 0})
     if not torch.isfinite(logits).all():
         raise AssertionError("prefill logits are not finite")
     if toks.shape != (BATCH, NEW) or cache.length.tolist() != [
@@ -3293,7 +3577,7 @@ def serve_phase(pkg, build, dev, card, windowed, cache_dtype="int8"):
                "decode_tok_per_s": BATCH * NEW / decode_s,
                "decode_step_device_ms": profile["device_ms"],
                "cache_bytes": n_bytes}
-    emit({"phase": tag, "card": card, "model": "llama-0.88B",
+    emit({"phase": tag, "card": card, "model": label, "head_dim": d,
           "window_left": cfg.window_left, "sink_tokens": cfg.sink_tokens,
           "batch": BATCH, "prompt": PROMPT, "chunk": CHUNK,
           "new_tokens": NEW, "cache_dtype": cache_dtype,
@@ -3315,9 +3599,9 @@ def serve_phase(pkg, build, dev, card, windowed, cache_dtype="int8"):
     torch.cuda.synchronize()
     gen_s = time.perf_counter() - t0
     gcounts = expect_counts(build, {
-        own: L, other: 0, "flash_fwd_pos": 0,
-        "cache_append": L + L * GEN_NEW, "decode_attention": L * GEN_NEW,
-        "decode_run": 0})
+        **idle, own: L, other: 0, kn["flash_fwd_pos"]: 0,
+        kn["cache_append"]: L + L * GEN_NEW,
+        kn["decode_attention"]: L * GEN_NEW, kn["decode_run"]: 0})
     if not torch.isfinite(res.prefill_logits).all() or res.tokens.shape != (
             GEN_BATCH, GEN_NEW):
         raise AssertionError("generate gave non-finite logits or bad shapes")
@@ -3325,6 +3609,7 @@ def serve_phase(pkg, build, dev, card, windowed, cache_dtype="int8"):
           "batch": GEN_BATCH, "prompt": GEN_PROMPT, "new_tokens": GEN_NEW,
           "cache_dtype": "bfloat16", "weight_dtype": "int8",
           "seconds": gen_s, "launches": gcounts})
+    numbers["generate_launches"] = gcounts
     return counts, numbers
 
 
@@ -3429,14 +3714,20 @@ def serve_timed(build, eng, params, reqs, **kw):
 
 
 def expect_serving_counts(tag, counts, L, steps, admissions, b6_runs=0,
-                          b7_runs=0):
+                          b7_runs=0, d=128):
     """Every decode step launches L B6 and L B7 (decode_attention, one
     token), every bucket admission L B1 and one B6 (the row's insert, every
     layer at once); multi-token chunks add ``b6_runs`` B6 and ``b7_runs``
-    B7 runs (decode_run)."""
-    want = {"cache_append": L * steps + admissions + b6_runs,
-            "decode_attention": L * steps, "decode_run": b7_runs,
-            "flash_fwd_causal_self": L * admissions}
+    B7 runs (decode_run). ``d``: the model's head dim, whose kernels count
+    (at d = 64 the d = 128 kernels launch none)."""
+    from long_context_attention_tpu_torch.ops import _build as build
+
+    want = {build.kernel(n, d).name: c for n, c in (
+        ("cache_append", L * steps + admissions + b6_runs),
+        ("decode_attention", L * steps), ("decode_run", b7_runs),
+        ("flash_fwd_causal_self", L * admissions))}
+    if d != 128:
+        want.update(dict.fromkeys(build.HEAD_DIM_64, 0))
     for name, n in want.items():
         if counts[name] != n:
             raise AssertionError(f"{tag}: {name} launched {counts[name]} "
@@ -3445,7 +3736,8 @@ def expect_serving_counts(tag, counts, L, steps, admissions, b6_runs=0,
 
 
 def run_subruns(decode, n_tok, cfg):
-    """The sub-runs of a paged int8 or fp8 chunk of n_tok tokens at the
+    """The sub-runs of a paged chunk of n_tok tokens (an int8, fp8 or int4
+    pool: one storage byte an element, as the tile rule counts) at the
     model's heads (the tile rule's plan), each of which must take B7's run
     kernel, decode_run (decode_route)."""
     hk = cfg.n_kv_heads
@@ -3639,6 +3931,130 @@ def serve_paged_fp8(build, cfg, params, reqs, common, pool, card, int8):
           "prefill_chunk": STALL_CHUNK, **out["fp8_interleaved"],
           "teacher_forcing_max_abs_err": tf, "teacher_tol": TEACHER_TOL})
     return out
+
+
+def slice_hd64_phase(pkg, build, dev, card):
+    """slice_hd64: the TinyLlama-1.1B-shaped model (head dim 64, 22 layers,
+    32 / 4 heads: G = 8) served as the slice serves the 0.88B one
+    (serve_phase: Engine(cache_dtype="int8", weight_dtype="int8"),
+    prefill_chunked 4 x 8192 in chunks of 2048, 32 decode_scan steps,
+    teacher forcing, a bf16-cache generate at b = 2), on the d = 64
+    kernels with exact counts and none of the d = 128 ones; then a
+    two-chunk prefill and 4 decode steps over an fp8 and an int4 cache (B3
+    over those kinds at d = 64), exact counts, finite logits. Returns
+    {path: launch counts}."""
+    from long_context_attention_tpu_torch.models.llama import init_params
+    from long_context_attention_tpu_torch.serving.engine import Engine
+
+    counts, numbers = serve_phase(pkg, build, dev, card, False,
+                                  model=TINYLLAMA,
+                                  label="TinyLlama-1.1B-shaped",
+                                  tag="slice_hd64")
+    paths = {"slice_hd64": counts,
+             "slice_hd64 generate": numbers["generate_launches"]}
+    cfg = pkg.ModelConfig(**TINYLLAMA)
+    L, steps = cfg.n_layers, 4
+    kn = {n: build.kernel(n, 64).name for n in build.HEAD_DIM_64}
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params = init_params(gen, cfg, device=dev)
+    prompt = torch.randint(0, cfg.vocab, (BATCH, 2 * CHUNK), generator=gen,
+                           device=dev)
+    for dt in QUANT_DTYPES:
+        eng = Engine(cfg=cfg, s_max=S_MAX, cache_dtype=dt,
+                     weight_dtype="int8", device=dev)
+        build.reset_launch_counts()
+        logits, cache = eng.prefill_chunked(params, prompt, CHUNK)
+        toks, cache = eng.decode_scan(eng.decode_params(params), cache,
+                                      steps,
+                                      torch.argmax(logits, -1).to(
+                                          torch.int32))
+        torch.cuda.synchronize()
+        if not torch.isfinite(logits).all() or toks.shape != (BATCH, steps):
+            raise AssertionError(f"slice_hd64 {dt}: non-finite logits or "
+                                 f"shapes {tuple(toks.shape)}")
+        tag = f"slice_hd64 {QUANT_TAG[dt]}"
+        paths[tag] = expect_counts(build, {
+            **dict.fromkeys(build.HEAD_DIM_64, 0),
+            kn["flash_fwd_causal_self"]: 2 * L, kn["flash_fwd_pos"]: L,
+            kn["cache_append"]: 2 * L + L * steps,
+            kn["decode_attention"]: L * steps, kn["decode_run"]: 0})
+        emit({"phase": tag, "card": card, "cache_dtype": dt,
+              "batch": BATCH, "prompt": 2 * CHUNK, "chunk": CHUNK,
+              "new_tokens": steps, "launches": paths[tag]})
+        del eng, cache, logits
+        torch.cuda.empty_cache()
+    return paths
+
+
+HD_REQUESTS, HD_PROMPTS, HD_NEW, HD_S_MAX = 8, (1024, 2048), 16, 4096
+
+
+def serve_paged_hd64_phase(pkg, build, decode, dev, card):
+    """serve_paged_hd64: the TinyLlama-1.1B-shaped model through
+    PagedContinuousEngine at 8 rows with interleaved admission (chunks of
+    STALL_CHUNK) over int8, fp8 and int4 pages of 2048, int8 weights:
+    HD_REQUESTS requests of 1-2K tokens (numpy.random.default_rng(0)), so
+    every prompt runs as chunk sub-runs on decode_run at d = 64 (each
+    sub-run's route asserted by the tile rule's plan, every launch counted
+    exactly), decode steps on one-token B7 at G = 8; int8 and fp8 held to
+    teacher forcing on their logprobs (TEACHER_TOL), int4's error
+    reported. Returns {path: launch counts}."""
+    from long_context_attention_tpu_torch.models.llama import init_params
+    from long_context_attention_tpu_torch.serving import (
+        PagedContinuousEngine, Request)
+
+    cfg = pkg.ModelConfig(**TINYLLAMA)
+    L = cfg.n_layers
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params = init_params(gen, cfg, device=dev)
+    rng = np.random.default_rng(0)
+    reqs = [Request(id=i, tokens=[int(t) for t in rng.integers(
+        0, cfg.vocab, int(rng.integers(HD_PROMPTS[0], HD_PROMPTS[1] + 1)))],
+        max_new=HD_NEW) for i in range(HD_REQUESTS)]
+    subruns = run_subruns(decode, STALL_CHUNK, cfg)
+    chunks = sum(-(-len(r.tokens) // STALL_CHUNK) for r in reqs)
+    pool = 8 * HD_S_MAX // PAGE + 1
+    paths = {}
+    for dt in ("int8",) + QUANT_DTYPES:
+        eng = probe_engine(PagedContinuousEngine)(
+            cfg, max_batch=8, page_size=PAGE, pool_pages=pool,
+            return_logprobs=True, interleave_admission=True,
+            prefill_chunk=STALL_CHUNK, s_max=HD_S_MAX, cache_dtype=dt,
+            weight_dtype="int8", step_block=STEP_BLOCK, host_overlap=False,
+            device=dev)
+        tag = "serve_paged_hd64" + ("" if dt == "int8"
+                                    else f" {QUANT_TAG[dt]}")
+        res, wall, toks, steps, counts = serve_timed(build, eng, params,
+                                                     reqs)
+        expect_native(tag, eng)
+        if sorted(res) != list(range(HD_REQUESTS)) or any(
+                len(r.tokens) != HD_NEW for r in res.values()):
+            raise AssertionError(f"{tag}: not every request completed")
+        launches = expect_serving_counts(tag, counts, L, steps, 0, L * chunks,
+                                         L * chunks * subruns, d=64)
+        paths[tag] = counts
+        tf = []
+        for i in range(CONT_TF_SAMPLE):
+            want = teacher_forced_logprobs(params, cfg, reqs[i].tokens,
+                                           res[i].tokens, dev)
+            tf.append(float((torch.tensor(res[i].logprobs) - want).abs()
+                            .max()))
+        if not all(math.isfinite(x) for x in tf):
+            raise AssertionError(f"{tag}: non-finite logprobs")
+        if dt != "int4":
+            check(f"{tag} teacher forcing (logprobs)", max(tf), TEACHER_TOL)
+        emit({"phase": tag, "card": card, "model": "TinyLlama-1.1B-shaped",
+              "cache_dtype": dt, "weight_dtype": "int8",
+              "requests": HD_REQUESTS, "max_new": HD_NEW, "max_batch": 8,
+              "s_max": HD_S_MAX, "page_size": PAGE, "pool_pages": pool,
+              "prefill_chunk": STALL_CHUNK, "chunks": chunks,
+              "subruns_per_chunk": subruns, "wall_s": wall,
+              "tok_per_s": toks / wall, "decode_steps": steps,
+              "launches": launches, "teacher_forcing_max_abs_err": tf,
+              "teacher_tol": None if dt == "int4" else TEACHER_TOL})
+        del eng
+        torch.cuda.empty_cache()
+    return paths
 
 
 def serve_prefix_phase(pkg, build, decode, dev, card):
@@ -7616,19 +8032,25 @@ def main():
         ("B2b, B9c", 0, 0), ("B5", 1, 0), ("B2b features", 0, 1))}
     fwd_lib = build.library("flash_fwd_sm90.cu")
     fwd_smem = {n: fwd_lib.lca_flash_fwd_smem(qt, ft) for n, qt, ft in (
-        ("B1, B3, B4, B9a", 0, 0), ("B3 int8", 1, 0),
-        ("B3 features", 0, 1), ("B3 int8 features", 1, 1))}
+        ("B1, B3, B4, B9a", 0, 0), ("B3 quantized", 1, 0),
+        ("B3 features", 0, 1), ("B3 quantized features", 1, 1))}
+    fwd64 = build.library("flash_fwd_sm90.cu", 64)
+    fwd_smem.update({"d=64 B1, B3": fwd64.lca_flash_fwd_smem(0, 0),
+                     "d=64 B3 quantized": fwd64.lca_flash_fwd_smem(1, 0)})
     dq_lib = build.library("flash_dq_sm90.cu")
     dq_smem = {n: dq_lib.lca_flash_dq_smem(ft)
                for n, ft in (("B2a, B9b", 0), ("B2a features", 1))}
     sage_lib = build.library("sage_fwd_sm90.cu")
     sage_smem = {"B8a, B8b, B8c": sage_lib.lca_sage_fwd_smem(0),
                  "pv_int8": sage_lib.lca_sage_fwd_smem(1)}
-    run_lib = build.library("decode_run_sm90.cu")
-    run_smem = {"bf16 and cast": run_lib.lca_decode_run_smem(0),
-                "s8": run_lib.lca_decode_run_smem(1)}
-    if run_smem != {"bf16 and cast": decode.decode_run_smem(False),
-                    "s8": decode.decode_run_smem(True)}:
+    run_smem, want_smem = {}, {}
+    for hd in (128, 64):
+        run_lib = build.library("decode_run_sm90.cu", hd)
+        for tag, s8 in (("bf16 and cast", 0), ("s8", 1)):
+            key = tag if hd == 128 else f"d=64 {tag}"
+            run_smem[key] = run_lib.lca_decode_run_smem(s8)
+            want_smem[key] = decode.decode_run_smem(bool(s8), hd)
+    if run_smem != want_smem:
         raise AssertionError(f"decode_run's shared memory {run_smem} is not "
                              f"the wrapper's (ops/decode.py decode_run_smem)")
     # one-token B7's block at the serving spans (int8 and fp8 256 columns,
@@ -7645,20 +8067,26 @@ def main():
     entries = {n: e for src in ("flash_fwd_sm90.cu", "flash_dq_sm90.cu",
                                 "flash_bwd_sm90.cu")
                for n, e in ptxas_entries(logs.get(src, "")).items()}
-    featured = re.compile(r"flash_fwd_sm90_kernelILb0ELi\dELi[01]ELb0ELb[01]"
+    # (B3's template arguments: TRI, FORM, QUANT, SPARSE, MULTI, FEAT; the
+    # quantized kind is a run-time value of its producers)
+    featured = re.compile(r"flash_fwd_sm90_kernelILb0ELi\dELb[01]ELb0ELb[01]"
                           r"ELb1E|DenseRowsILb[01]ELb[01]ELb1E|"
                           r"flash_bwd_sm90_kernelILb0ELb0ELi\dELb[01]ELb1E")
     new = {n: e for n, e in entries.items()
-           if ("kernelILb0ELi0ELi0ELb1E" in n or "flash_dq_sm90_kernel" in n
+           if ("kernelILb0ELi0ELb0ELb1E" in n or "flash_dq_sm90_kernel" in n
                or "flash_bwd_sm90_kernel" in n) and not featured.search(n)}
     feat_entries = {n: e for n, e in entries.items() if featured.search(n)}
-    # the fp8 and int4 K/V instantiations of B3 (KV = 2, 3) and B7's kinds
-    quant_kernels = re.compile(r"flash_fwd_sm90_kernelILb0ELi\dELi[23]E|"
+    # B3's quantized K/V instantiations (QUANT: int8, fp8 and int4 in one)
+    # and B7's kinds
+    quant_kernels = re.compile(r"flash_fwd_sm90_kernelILb0ELi\dELb1E|"
                                r"decode_span_kernelILi\dELb[01]E")
     quant_entries = {n: e for src in ("flash_fwd_sm90.cu",
                                       "decode_attention.cu")
                      for n, e in ptxas_entries(logs.get(src, "")).items()
                      if quant_kernels.search(n)}
+    # every instantiation of the head dim 64 libraries
+    hd64_entries = {src: ptxas_entries(log) for src, log in logs.items()
+                    if src.endswith(":d64")}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "sources": sorted(logs),
           "flash_fwd_sm90_dynamic_smem_bytes": fwd_smem,
@@ -7674,7 +8102,7 @@ def main():
               logs.get("decode_attention.cu", "")),
           "source_seconds": build.build_seconds(),
           "ptxas_bwd_dq_b9a": new, "ptxas_features": feat_entries,
-          "ptxas_quant_cache": quant_entries})
+          "ptxas_quant_cache": quant_entries, "ptxas_hd64": hd64_entries})
     for src, log in logs.items():
         for line in log.splitlines():
             if any(w in line for w in ("entry function", "registers",
@@ -7746,11 +8174,20 @@ def main():
     emit({"phase": "kernel", **run_row})
     rows.append(run_row)
     torch.cuda.empty_cache()
+    lap("kernels")
+    # the d = 64 kernels at TinyLlama's shapes
+    hd64_cases = kernel_hd64(K, flash, decode, kv_cache, gen, dev)
+    for name, cases in hd64_cases.items():
+        for case in cases:
+            emit({"phase": "kernel_hd64", "name": name, **case})
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    lap("kernel_hd64")
     # the four kernels at the dense ring's multi-chunk descriptors
     ring_rows = kernel_ring(K, flash, sage, ring, gen, dev)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    lap("kernels")
+    lap("kernel_ring")
     # B3, B2a and B2b with the features, and the exact keep-mask probes
     feat_rows = kernel_features(K, flash, ring, gen, dev)
     torch.cuda.synchronize()
@@ -7874,6 +8311,13 @@ def main():
     lap("moe_train")
     new_paths.update(zero_train_phase(pkg, build, dev, smi))
     lap("zero_train")
+    # head dim 64: the TinyLlama-1.1B-shaped model served, dense and paged
+    hd_paths = slice_hd64_phase(pkg, build, dev, smi)
+    torch.cuda.empty_cache()
+    lap("slice_hd64")
+    hd_paths.update(serve_paged_hd64_phase(pkg, build, decode, dev, smi))
+    torch.cuda.empty_cache()
+    lap("serve_paged_hd64")
     emit({"phase": "timing", "seconds": seconds})
     path = {"flash_fwd_static": wcounts, "flash_bwd_fused": train_counts,
             "flash_bwd_dq": offsets_counts, "flash_bwd_dkv": offsets_counts,
@@ -7986,6 +8430,32 @@ def main():
         # the ZeRO steps
         r["new_path_launches"] = {p: c[r["name"]] for p, c in
                                   new_paths.items() if c[r["name"]]}
+    # the d = 64 kernels: a row each (the slice_hd64 path's launches and
+    # its main case's numbers), their cases with the launches on the phase
+    # each names, and the d = 128 row naming it
+    by_name = {r["name"]: r for r in rows}
+    for name, cases in hd64_cases.items():
+        k64 = K[f"{name}_d64"]
+        for c in cases:
+            c["launches"] = (None if c["path"] is None
+                             else hd_paths[c["path"]][k64.name])
+        timed = [c for c in cases if "ms" in c]
+        main_case = next((c for c in timed if c["path"] in (
+            "slice_hd64", "serve_paged_hd64")), timed[0])
+        rows.append({
+            "name": k64.name, "route": "cuda",
+            "source": f"long_context_attention_tpu_torch/csrc/{k64.source}",
+            "replaces": k64.replaces, "head_dim": 64,
+            "build": f"{k64.lib} (-DLCA_HEAD_DIM=64)",
+            "launches": (hd_paths["slice_hd64"][k64.name]
+                         or hd_paths["serve_paged_hd64"][k64.name]),
+            "max_abs_err": max(c["max_abs_err"] for c in cases),
+            **{k: main_case[k] for k in ("ms", "plain_ms", "bound_ms",
+                                         "bound_by", "library_ms")},
+            "case": main_case["case"], "hd64_cases": cases,
+            "path_launches": {p: c[k64.name] for p, c in hd_paths.items()
+                              if c[k64.name]}})
+        by_name[name]["hd64_row"] = k64.name
     emit({"kernels": rows})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

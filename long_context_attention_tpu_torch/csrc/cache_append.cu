@@ -16,7 +16,8 @@
 //
 // Kinds (template KIND): kCopy writes rows already in the cache's storage
 // (opaque bytes, and their scales: the public cache_append); kBf16, kInt8,
-// kFp8 and kInt4 read bf16 rows of head_dim 128 and quantize each as
+// kFp8 and kInt4 read bf16 rows of head_dim D (128, or 64 in a second
+// library built with -DLCA_HEAD_DIM=64) and quantize each as
 // quantize_kv does: scale = max(absmax, 1e-6) / qmax and q = x / scale,
 // both IEEE divisions; int8 and int4 round half to even and clamp; fp8
 // clamps to +-448 and casts with round-to-nearest; int4 packs element 2i in
@@ -32,11 +33,13 @@
 // Design: one warp per (tensor, layer, row, head) and run of up to 4
 // consecutive tokens, the token groups fastest, in blocks of 8 warps; the
 // grid covers every item, which fills the card for a prefill chunk. A lane
-// holds 4 values of each of the warp's rows: the rows' 8-byte loads (the
-// input read in place through its strides) are issued first, before the
-// slot and page lookups they do not depend on, so a warp keeps up to 1 KB
-// in flight. The warp's max of |x| is exact in any order; lane 0 writes a
-// row's scale and each lane its 8 (bf16), 4 (int8, fp8) or 2 (int4) bytes.
+// holds D / 32 values of each of the warp's rows (4 at d = 128, 2 at 64):
+// the rows' 8-byte (4-byte) loads (the input read in place through its
+// strides) are issued first, before the slot and page lookups they do not
+// depend on, so a warp keeps up to 1 KB (512 bytes) in flight. The warp's
+// max of |x| is exact in any order; lane 0 writes a row's scale and each
+// lane its 8 (bf16), 4 (int8, fp8) or 2 (int4) bytes at d = 128, half that
+// at 64 (int4: one byte, two nibbles).
 // No shared memory, TMA or tensor cores: none helps work smaller than its
 // launch.
 
@@ -45,13 +48,33 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#ifndef LCA_HEAD_DIM
+#define LCA_HEAD_DIM 128
+#endif
+
 namespace {
 
 enum Kind { kCopy = 0, kBf16 = 1, kInt8 = 2, kFp8 = 3, kInt4 = 4 };
 
-constexpr int kWarps = 8;     // warps a block
-constexpr int kRows = 4;      // consecutive tokens (rows) a warp writes
-constexpr int kLaneVals = 4;  // values a lane of a quantizing kind (d = 128)
+constexpr int D = LCA_HEAD_DIM;
+static_assert(D == 64 || D == 128, "head dim 64 or 128");
+constexpr int kWarps = 8;          // warps a block
+constexpr int kRows = 4;           // consecutive tokens (rows) a warp writes
+constexpr int kLaneVals = D / 32;  // values a lane of a quantizing kind
+
+// a lane's kLaneVals bf16 values (8 or 4 bytes), and the unsigned integer
+// of n bytes
+template <int N>
+struct Bits;
+template <>
+struct Bits<1> { using T = uint8_t; };
+template <>
+struct Bits<2> { using T = uint16_t; };
+template <>
+struct Bits<4> { using T = uint32_t; };
+template <>
+struct Bits<8> { using T = uint2; };
+using LaneRaw = Bits<2 * kLaneVals>::T;
 
 // the int64 argument array's slots (ops/decode.py _A_*)
 enum Arg {
@@ -99,15 +122,15 @@ __device__ __forceinline__ long long slot_row(const Params& p, int li, int ib,
              p.page + off;
 }
 
-// One bf16 row (4 values a lane in `raw`) quantized to KIND and stored at
-// row `drow` of tensor t, with its scale.
+// One bf16 row (kLaneVals values a lane in `raw`) quantized to KIND and
+// stored at row `drow` of tensor t, with its scale.
 template <int KIND>
 __device__ __forceinline__ void store_row(const Params& p, int t,
-                                          long long drow, uint2 raw,
+                                          long long drow, LaneRaw raw,
                                           int lane) {
   char* dst = p.dst[t] + drow * p.row_bytes;
   if constexpr (KIND == kBf16) {
-    reinterpret_cast<uint2*>(dst)[lane] = raw;
+    reinterpret_cast<LaneRaw*>(dst)[lane] = raw;
   } else {
     constexpr float qmax = Quant<KIND>::qmax;
     const __nv_bfloat162* pair =
@@ -133,12 +156,14 @@ __device__ __forceinline__ void store_row(const Params& p, int t,
       if constexpr (KIND != kFp8) q[i] = rintf(q[i]);
       q[i] = fminf(fmaxf(q[i], -qmax), qmax);
     }
+    using Word = Bits<kLaneVals>::T;      // a lane's int8 / fp8 bytes
+    using Half = Bits<kLaneVals / 2>::T;  // ... its int4 bytes
     if constexpr (KIND == kInt8) {
       uint32_t word = 0;
 #pragma unroll
       for (int i = 0; i < kLaneVals; ++i)
         word |= (uint32_t)(uint8_t)(int8_t)q[i] << (8 * i);
-      reinterpret_cast<uint32_t*>(dst)[lane] = word;
+      reinterpret_cast<Word*>(dst)[lane] = (Word)word;
     } else if constexpr (KIND == kFp8) {
       uint32_t word = 0;
 #pragma unroll
@@ -146,13 +171,13 @@ __device__ __forceinline__ void store_row(const Params& p, int t,
         word |= (uint32_t)__nv_cvt_float_to_fp8(q[i], __NV_SATFINITE,
                                                 __NV_E4M3)
                 << (8 * i);
-      reinterpret_cast<uint32_t*>(dst)[lane] = word;
+      reinterpret_cast<Word*>(dst)[lane] = (Word)word;
     } else {  // kInt4
       uint32_t half = 0;
 #pragma unroll
       for (int i = 0; i < kLaneVals; ++i)
         half |= ((uint32_t)(int)q[i] & 0xFu) << (4 * i);
-      reinterpret_cast<uint16_t*>(dst)[lane] = (uint16_t)half;
+      reinterpret_cast<Half*>(dst)[lane] = (Half)half;
     }
     if (lane == 0) p.dsc[t][drow] = scale;
   }
@@ -191,9 +216,9 @@ __global__ void __launch_bounds__(kWarps * 32) append_rows(const Params p) {
     }
   } else {
     // the rows' loads first: they wait on no slot lookup
-    const uint2* src = reinterpret_cast<const uint2*>(
+    const LaneRaw* src = reinterpret_cast<const LaneRaw*>(
         reinterpret_cast<const __nv_bfloat16*>(p.src[t]) + se);
-    uint2 raw[kRows];
+    LaneRaw raw[kRows];
 #pragma unroll
     for (int r = 0; r < kRows; ++r)
       if (r < rows) raw[r] = src[r * st[2] / kLaneVals + lane];

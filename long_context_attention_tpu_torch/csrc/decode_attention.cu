@@ -95,6 +95,14 @@
 // it. The s8 path's P quantization is per JAX tile, so `bkv` is part of the
 // result and the plain version takes the same value.
 //
+// Head dim 64 (-DLCA_HEAD_DIM=64, a library of its own): the scores keep
+// each lane's 16 bytes of a row where the group's rows allow (half the
+// lanes a row: a 64-byte int8 row is 4 lanes), else as many lanes a row as
+// the group has rows (8 at G = 8, 8 bytes a lane of int8), so the
+// butterfly still leaves each lane one row's score; in PV a row's 64
+// features take 16 lanes, and the two half-warps take turns at the warp's
+// columns, each writing its own partial.
+//
 // LCA_TOKEN_PART (scripts/torch_decode_token_bound.py): 1 skips the
 // arithmetic of phases 1-3 (the loads and barriers alone), 2 skips the
 // loads (the arithmetic alone, over whatever shared memory holds), 3 skips
@@ -111,10 +119,19 @@
 #ifndef LCA_TOKEN_PART
 #define LCA_TOKEN_PART 0
 #endif
+// The head dim: 128, or 64 for a second library built with
+// -DLCA_HEAD_DIM=64 (ops/_build.py)
+#ifndef LCA_HEAD_DIM
+#define LCA_HEAD_DIM 128
+#endif
 
 namespace {
 
-constexpr int D = 128;
+constexpr int D = LCA_HEAD_DIM;
+static_assert(D == 64 || D == 128, "head dim 64 or 128");
+// PV: a lane holds 4 output features, so a row's D features take D / 4
+// lanes and a warp NSUB = 128 / D rows' columns at a time
+constexpr int NSUB = 128 / D;
 constexpr int NT = 256;
 constexpr int NW = NT / 32;
 constexpr int MAXG = 8;          // query rows per group
@@ -140,17 +157,21 @@ struct Kind {
   static constexpr bool I4 = KIND == kS8I4 || KIND == kCastI4;
   // bytes of a cache row; lanes sharing a row in the scores, the bytes each
   // loads of it and the values they hold (the cast path at 8 rows takes 16
-  // lanes a row, so q's bf16 slices fit the registers); q bytes per
-  // element and 16-byte q words a lane holds; rows of a chunk; V bytes a
-  // lane takes of a row in PV (4 features)
+  // lanes a row at d = 128, so q's bf16 slices fit the registers; at d = 64
+  // half as many, but never fewer than the group's rows, which the
+  // butterfly hands one to a lane); q bytes per element, the q bytes a
+  // lane holds and their 16-byte words (an 8-byte slice in the first);
+  // rows of a chunk; V bytes a lane takes of a row in PV (4 features)
   static constexpr int ROW = KIND == kBF16 ? 2 * D : (I4 ? D / 2 : D);
-  static constexpr int LPR = KIND == kBF16 || (CAST && GP == 8) ? 16 : 8;
+  static constexpr int LPR128 = KIND == kBF16 || (CAST && GP == 8) ? 16 : 8;
+  static constexpr int LPR = LPR128 * D / 128 > GP ? LPR128 * D / 128 : GP;
   static constexpr int LB = ROW / LPR;
   static constexpr int VPL = D / LPR;
   static constexpr int QEB = S8 ? 1 : 2;
-  static constexpr int QP = VPL * QEB / 16;
+  static constexpr int QB = VPL * QEB;
+  static constexpr int QP = QB >= 16 ? QB / 16 : 1;
   static constexpr int CR = CHB / ROW;
-  static constexpr int VB = ROW / 32;
+  static constexpr int VB = ROW / (D / 4);
 };
 
 struct Params {
@@ -504,10 +525,16 @@ __global__ void __launch_bounds__(NT, GP == 2 ? MINB : 2)
 #pragma unroll
     for (int c = 0; c < K::QP; ++c) {
       qreg[r][c].u = make_uint4(0, 0, 0, 0);
-      if (r < G)
-        qreg[r][c].u = *reinterpret_cast<const uint4*>(
-            static_cast<const char*>(p.q) + ((qrow0 + r) * D) * K::QEB +
-            (ch * K::QP + c) * 16);
+      if (r >= G) continue;
+      const char* qs = static_cast<const char*>(p.q) +
+                       ((qrow0 + r) * D) * K::QEB + ch * K::QB + c * 16;
+      if constexpr (K::QB >= 16) {
+        qreg[r][c].u = *reinterpret_cast<const uint4*>(qs);
+      } else {
+        const uint2 w = *reinterpret_cast<const uint2*>(qs);
+        qreg[r][c].u.x = w.x;
+        qreg[r][c].u.y = w.y;
+      }
     }
   // the row this lane scores after the butterfly, and its bounds: columns
   // <= qlim, and >= wlo unless a sink (sharded: fc + the row's token)
@@ -561,7 +588,7 @@ __global__ void __launch_bounds__(NT, GP == 2 ? MINB : 2)
         for (int r = 0; r < GP; ++r) {
           acc[r] = 0;
 #pragma unroll
-          for (int w = 0; w < 4; ++w)
+          for (int w = 0; w < K::VPL / 4; ++w)
             acc[r] = __dp4a(k8.i[w], qreg[r][0].i[w], acc[r]);
         }
         s = (float)lane_row_sum<GP, LPR>(acc, ch) * qscale;
@@ -597,7 +624,7 @@ __global__ void __launch_bounds__(NT, GP == 2 ? MINB : 2)
         for (int r = 0; r < GP; ++r) {
           acc[r] = 0.f;
 #pragma unroll
-          for (int w = 0; w < 4; ++w) {
+          for (int w = 0; w < K::VPL / 2; ++w) {
             const unsigned kw = (unsigned)kr.i[w];
             const unsigned qw = (unsigned)qreg[r][0].i[w];
             acc[r] = fmaf(bf16_lo(qw), bf16_lo(kw), acc[r]);
@@ -726,7 +753,11 @@ __global__ void __launch_bounds__(NT, GP == 2 ? MINB : 2)
   }
   __syncthreads();
 
-  // 3. PV: a lane's 4 output features, 4l..4l+3
+  // 3. PV: a lane's 4 output features, 4f..4f+3 (f = lane % (D / 4)), of
+  // the columns of its sub-warp (lane / (D / 4): NSUB sub-warps a warp,
+  // taking turns at the warp's columns)
+  const int fl = lane % (D / 4), sub = lane / (D / 4);
+  const int pw0 = warp * NSUB + sub;  // the partial's slot: NW * NSUB
   int iacc[GP][4];
   float facc[GP][4];
 #pragma unroll
@@ -740,12 +771,12 @@ __global__ void __launch_bounds__(NT, GP == 2 ? MINB : 2)
     int r_lo, r_hi;
     chunk_rows(i, r_lo, r_hi);
     wait_item(nch + i);
-    const unsigned char* vc = smem + ((nch + i) % RING) * CHB + lane * K::VB;
+    const unsigned char* vc = smem + ((nch + i) % RING) * CHB + fl * K::VB;
     if (kMath && S8) {
       // quads of columns: the 4 rows' bytes of the lane's features,
       // transposed, against the rows' packed p8 (0 from column e on: the
       // quad's rows past it hold bytes no copy wrote, and add nothing)
-      for (int j = r_lo + 4 * warp; j < r_hi; j += 4 * NW) {
+      for (int j = r_lo + 4 * pw0; j < r_hi; j += 4 * NW * NSUB) {
         uint32_t w[4], t[4];
 #pragma unroll
         for (int u = 0; u < 4; ++u) {
@@ -767,7 +798,7 @@ __global__ void __launch_bounds__(NT, GP == 2 ? MINB : 2)
       }
     } else if (kMath) {
 #pragma unroll 2
-      for (int j = r_lo + warp; j < r_hi; j += NW) {
+      for (int j = r_lo + pw0; j < r_hi; j += NW * NSUB) {
         float ve[4];
         const unsigned char* row = vc + (j - r_lo) * K::ROW;
         if constexpr (KIND == kBF16) {
@@ -794,10 +825,10 @@ __global__ void __launch_bounds__(NT, GP == 2 ? MINB : 2)
       if (tid == 0) issue(nch + i + RING);
     }
   }
-  // the warps' partials [NW][GP][D] in the ring, once every warp's PV is
-  // done, summed into the span's: out = acc / l (s8: int32 sum * ps; 0 on
-  // a dead row), lse = m + log l
-  static_assert(NW * GP * D * 4 <= RING * CHB, "the warps' partials");
+  // the sub-warps' partials [NW * NSUB][GP][D] in the ring, once every
+  // warp's PV is done, summed into the span's: out = acc / l (s8: int32
+  // sum * ps; 0 on a dead row), lse = m + log l
+  static_assert(NW * NSUB * GP * D * 4 <= RING * CHB, "the warps' partials");
   __syncthreads();
   {
     int4* red = reinterpret_cast<int4*>(smem);
@@ -810,7 +841,7 @@ __global__ void __launch_bounds__(NT, GP == 2 ? MINB : 2)
         v = make_int4(__float_as_int(facc[r][0]), __float_as_int(facc[r][1]),
                       __float_as_int(facc[r][2]), __float_as_int(facc[r][3]));
       }
-      red[(warp * GP + r) * (D / 4) + lane] = v;
+      red[(pw0 * GP + r) * (D / 4) + fl] = v;
     }
   }
   __syncthreads();
@@ -820,7 +851,7 @@ __global__ void __launch_bounds__(NT, GP == 2 ? MINB : 2)
     int is = 0;
     float fs = 0.f, l = 0.f;
 #pragma unroll
-    for (int w = 0; w < NW; ++w) {
+    for (int w = 0; w < NW * NSUB; ++w) {
       const int v = red[w * GP * D + i];
       if (S8)
         is += v;
@@ -840,7 +871,8 @@ __global__ void __launch_bounds__(NT, GP == 2 ? MINB : 2)
 // One block of MT threads per (query row, kv head, batch row): the
 // -inf-safe N-way LSE merge (ops/merge.py merge_partials) of the spans'
 // partials in one pass, in a fixed order: each of the 16 warps takes every
-// 16th partial, a lane 4 features, with a running max it rescales to;
+// 16th partial, a lane 4 features (the first D / 4 lanes), with a running
+// max it rescales to;
 // then the warps' sums are rescaled to the block's max and added in shared
 // memory.
 constexpr int MT = 512;
@@ -867,7 +899,10 @@ __global__ void __launch_bounds__(MT)
   for (int t = warp; t < n; t += MW) {
     const float lv = part_lse[cell(t)];
     const float4 o =
-        *reinterpret_cast<const float4*>(part_out + cell(t) * D + 4 * lane);
+        4 * lane < D
+            ? *reinterpret_cast<const float4*>(part_out + cell(t) * D +
+                                               4 * lane)
+            : make_float4(0.f, 0.f, 0.f, 0.f);
     // an empty partial adds nothing (its out is not written)
     const bool live = lv != neg_inf;
     const float mn = fmaxf(m, lv);

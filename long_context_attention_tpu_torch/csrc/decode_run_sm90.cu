@@ -105,6 +105,13 @@
 // V^T slots x 16384 + 3 x 16384 + 8 x 1024 + 2 P8 x 8192 = 227328; each +
 // 256 of barriers and 1024 of alignment slack.
 //
+// Head dim 64 (-DLCA_HEAD_DIM=64, a library of its own): Q, K and V are
+// one bf16 box a chunk; s8 Q and K rows are 64 bytes, loaded by TMA with
+// the 64-byte swizzle that the s8 QK^T's descriptors name (4 k32 steps
+// become 2); V^T is 64 d rows; PV is wgmma m64n64 (k16 bf16, k32 s8) into
+// a 32-register O. Shared memory: bf16 118016, s8 130304, with the
+// barriers and slack.
+//
 // The tensor maps are encoded on the host per call (sm90.cuh) and passed as
 // __grid_constant__ kernel parameters.
 
@@ -112,9 +119,16 @@
 
 #include "sm90.cuh"
 
+// The head dim: 128, or 64 for a second library built with
+// -DLCA_HEAD_DIM=64 (ops/_build.py)
+#ifndef LCA_HEAD_DIM
+#define LCA_HEAD_DIM 128
+#endif
+
 namespace {
 
-constexpr int D = 128;
+constexpr int D = LCA_HEAD_DIM;
+static_assert(D == 64 || D == 128, "head dim 64 or 128");
 constexpr int CH = 128;   // kv columns per chunk: one wgmma N
 constexpr int BR = 128;   // query rows per block: 64 per consumer warpgroup
 constexpr int NT = 384;   // one producer and two consumer warpgroups
@@ -133,10 +147,12 @@ constexpr int kBF16 = 0, kS8I8 = 1, kS8I4 = 2, kCastI8 = 3, kCastF8 = 4,
               kCastI4 = 5;
 
 // A 64-column bf16 box of 128 rows (128 rows of 128 bytes, 1024-byte
-// swizzle atoms of 8 rows); an int8 chunk or Q is one such box, a bf16 one
-// two (d 0-63, then 64-127)
+// swizzle atoms of 8 rows); at d = 128 an s8 chunk or Q is one such box, a
+// bf16 one two (d 0-63, then 64-127). At d = 64 a bf16 chunk or Q is one
+// box, and an s8 one 128 rows of 64 bytes (64-byte swizzle, 512-byte atoms)
 constexpr int BOX = 128 * 128;
-constexpr int RAW = 128 * 128;  // a raw chunk: int8 / fp8 rows (int4: half)
+constexpr int NBOX = D / 64;    // bf16 boxes of a row
+constexpr int RAW = 128 * D;    // a raw chunk: int8 / fp8 rows (int4: half)
 constexpr int KEEP = 4;         // s8: a tile of up to KEEP chunks keeps its K
 constexpr int LANDS = 8;        // items in flight: landing barriers, scales
 constexpr int RAWS = 3;         // raw chunks in flight
@@ -154,7 +170,8 @@ constexpr bool kMake = LCA_RUN_PART != 2;
 
 template <bool S8>
 struct Smem {
-  static constexpr int OP = S8 ? BOX : 2 * BOX;  // Q, a K or a V operand
+  // Q, a K or a V operand (s8 V^T: D rows of 128 kv bytes)
+  static constexpr int OP = S8 ? 128 * D : NBOX * BOX;
   static constexpr int KS = S8 ? 6 : 2;          // K slots
   static constexpr int VS = 2;                   // V (V^T) slots
   static constexpr int OFF_K = OP;               // after Q
@@ -214,6 +231,15 @@ __device__ __forceinline__ uint64_t desc_kmajor(uint32_t addr) {
   return desc_sw128(addr, 16, 1024);
 }
 
+// the s8 path's Q and K: rows of D bytes, 128-byte swizzle at d = 128,
+// 64-byte at d = 64 (8-row groups 512 bytes apart)
+__device__ __forceinline__ uint64_t desc_s8_qk(uint32_t addr) {
+  if constexpr (D == 128)
+    return desc_kmajor(addr);
+  else
+    return desc_sw64(addr, 16, 512);
+}
+
 // MN-major B operand (bf16 V, [kv, d] with d contiguous): 8 kv rows 1024
 // bytes apart, the second 64-column d box BOX bytes after the first
 __device__ __forceinline__ uint64_t desc_mnmajor(uint32_t addr) {
@@ -260,18 +286,79 @@ __device__ __forceinline__ void wgmma_s8_first(uint32_t (&d)[64], uint64_t da,
       : "l"(da), "l"(db));
 }
 
-// d = A * B over d = 128 (s8: 4 k32 steps) and over a chunk's 128 kv
-// columns (P8 V^T)
+// S = Q K^T over d (s8: D / 32 k32 steps)
 __device__ __forceinline__ void wgmma_s8_tile(uint32_t (&d)[64], uint32_t a,
                                               uint32_t b) {
-  wgmma_s8_first(d, desc_kmajor(a), desc_kmajor(b));
+  wgmma_s8_first(d, desc_s8_qk(a), desc_s8_qk(b));
 #pragma unroll
   for (int kk = 1; kk < D / 32; ++kk)
-    wgmma_s8(d, desc_kmajor(a + 32 * kk), desc_kmajor(b + 32 * kk));
+    wgmma_s8(d, desc_s8_qk(a + 32 * kk), desc_s8_qk(b + 32 * kk));
   wgmma_commit();
 }
 
-// ... bf16: 8 k16 steps, 4 in each 64-column d box
+// d (64 x 64 s32) = A (64 x 32 s8) * B (32 x 64 s8), both shared, K-major
+// (the d = 64 build's PV; the d = 128 build leaves it unused)
+__device__ __forceinline__ void wgmma_s8_n64(uint32_t (&d)[32], uint64_t da,
+                                             uint64_t db, bool acc) {
+  if (acc)
+    asm volatile(
+        "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 " LCA_D32
+        ", %32, %33, 1;\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+          "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
+          "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
+          "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+          "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
+          "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+          "+r"(d[30]), "+r"(d[31])
+        : "l"(da), "l"(db));
+  else
+    asm volatile(
+        "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 " LCA_D32
+        ", %32, %33, 0;\n"
+        : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3]), "=r"(d[4]),
+          "=r"(d[5]), "=r"(d[6]), "=r"(d[7]), "=r"(d[8]), "=r"(d[9]),
+          "=r"(d[10]), "=r"(d[11]), "=r"(d[12]), "=r"(d[13]), "=r"(d[14]),
+          "=r"(d[15]), "=r"(d[16]), "=r"(d[17]), "=r"(d[18]), "=r"(d[19]),
+          "=r"(d[20]), "=r"(d[21]), "=r"(d[22]), "=r"(d[23]), "=r"(d[24]),
+          "=r"(d[25]), "=r"(d[26]), "=r"(d[27]), "=r"(d[28]), "=r"(d[29]),
+          "=r"(d[30]), "=r"(d[31])
+        : "l"(da), "l"(db));
+}
+
+// O8 = P8 V^T over a chunk's 128 kv columns (4 k32 steps, 128-byte
+// swizzle): N = D, in N / 2 registers
+template <int N>
+__device__ __forceinline__ void wgmma_s8_pv(uint32_t (&d)[N], uint32_t a,
+                                            uint32_t b) {
+  static_assert(N == 32 || N == 64, "head dim 64 or 128");
+  if constexpr (N == 64) {
+    wgmma_s8_first(d, desc_kmajor(a), desc_kmajor(b));
+#pragma unroll
+    for (int kk = 1; kk < CH / 32; ++kk)
+      wgmma_s8(d, desc_kmajor(a + 32 * kk), desc_kmajor(b + 32 * kk));
+  } else {
+#pragma unroll
+    for (int kk = 0; kk < CH / 32; ++kk)
+      wgmma_s8_n64(d, desc_kmajor(a + 32 * kk), desc_kmajor(b + 32 * kk),
+                   kk > 0);
+  }
+  wgmma_commit();
+}
+
+// O += P V (bf16 P in registers, V MN-major): N = D, in N / 2 registers
+template <int N>
+__device__ __forceinline__ void wgmma_pv(float (&o)[N], uint32_t a0,
+                                         uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint64_t db) {
+  static_assert(N == 32 || N == 64, "head dim 64 or 128");
+  if constexpr (N == 64)
+    wgmma_rs(o, a0, a1, a2, a3, db);
+  else
+    wgmma_rs_n64(o, a0, a1, a2, a3, db);
+}
+
+// ... bf16: D / 16 k16 steps, 4 in each 64-column d box
 __device__ __forceinline__ void wgmma_bf16_tile(float (&d)[64], uint32_t a,
                                                 uint32_t b) {
   wgmma_ss_first(d, desc_kmajor(a), desc_kmajor(b));
@@ -324,33 +411,39 @@ __device__ __forceinline__ void st_shared_b16(uint32_t addr, uint32_t v) {
 // The producer's operand makers (128 threads, a chunk of 128 kv rows)
 // ---------------------------------------------------------------------------
 
-// A raw chunk of the cast path (int8 or fp8: 128 bytes a row; int4: 64)
-// widened exactly to the two swizzled bf16 boxes at dst; rows >= live
-// (past the row's length) are zeros. sm90.cuh widen_rows' walk: within
-// each 8-thread phase of a 16-byte access four threads read row r and four
-// row r + 1, and the bf16 chunks land on distinct banks.
+// A raw chunk of the cast path (int8 or fp8: D bytes a row; int4: D / 2)
+// widened exactly to the swizzled bf16 boxes at dst; rows >= live (past
+// the row's length) are zeros. sm90.cuh widen_rows' walk: within each
+// 8-thread phase of a 16-byte access the threads read 128 contiguous
+// bytes, and the bf16 chunks land on distinct banks.
 template <int KV>
 __device__ __forceinline__ void widen_chunk(const unsigned char* raw,
                                             unsigned char* dst, int live,
                                             int pt) {
   constexpr int BATCH = 2;
 #pragma unroll 1
-  for (int it = 0; it < 8; it += BATCH) {
+  for (int it = 0; it < CH * D / 16 / 128; it += BATCH) {
     uint4 w[BATCH];
     int row[BATCH], c[BATCH];
 #pragma unroll
     for (int u = 0; u < BATCH; ++u) {
       const int idx = (it + u) * 128 + pt;
-      const int j = idx & 15;
-      row[u] = 2 * (idx >> 4) + (((j >> 2) & 1) ^ (j >> 3));
-      c[u] = j & 7;  // chunk of 16 values of the row
+      if constexpr (D == 128) {
+        const int j = idx & 15;
+        row[u] = 2 * (idx >> 4) + (((j >> 2) & 1) ^ (j >> 3));
+        c[u] = j & 7;  // chunk of 16 values of the row
+      } else {
+        const int j = idx & 7;
+        row[u] = 2 * (idx >> 3) + (j >> 2);
+        c[u] = j & 3;
+      }
       if constexpr (KV == kKvInt4) {
-        const uint2 n =
-            *reinterpret_cast<const uint2*>(raw + row[u] * 64 + c[u] * 8);
+        const uint2 n = *reinterpret_cast<const uint2*>(raw + row[u] * (D / 2) +
+                                                        c[u] * 8);
         s4x8_to_s8(n.x, w[u].x, w[u].y);
         s4x8_to_s8(n.y, w[u].z, w[u].w);
       } else {
-        w[u] = *reinterpret_cast<const uint4*>(raw + row[u] * 128 + c[u] * 16);
+        w[u] = *reinterpret_cast<const uint4*>(raw + row[u] * D + c[u] * 16);
       }
     }
 #pragma unroll
@@ -385,43 +478,49 @@ __device__ __forceinline__ void widen_chunk(const unsigned char* raw,
   }
 }
 
-// s8 int4 K: a raw chunk (64 bytes a row) sign-extended into 128 swizzled
-// s8 rows of 128 bytes (a quarter warp reads a row's 64 bytes and writes
-// its 128)
+// s8 int4 K: a raw chunk (D / 2 bytes a row) sign-extended into 128
+// swizzled s8 rows of D bytes (d = 128: a quarter warp reads a row's 64
+// bytes and writes its 128, 128-byte swizzle; d = 64: an eighth warp its
+// 32 and 64, 64-byte swizzle)
 __device__ __forceinline__ void extend_rows(const unsigned char* raw,
                                             unsigned char* dst, int pt) {
+  constexpr int CPR = D / 16;  // 16-byte s8 chunks a row
 #pragma unroll 2
-  for (int it = 0; it < 8; ++it) {
+  for (int it = 0; it < CH * CPR / 128; ++it) {
     const int idx = it * 128 + pt;
-    const int row = idx >> 3, c = idx & 7;
-    const uint2 n = *reinterpret_cast<const uint2*>(raw + row * 64 + c * 8);
+    const int row = idx / CPR, c = idx % CPR;
+    const uint2 n =
+        *reinterpret_cast<const uint2*>(raw + row * (D / 2) + c * 8);
     uint4 w;
     s4x8_to_s8(n.x, w.x, w.y);
     s4x8_to_s8(n.y, w.z, w.w);
-    *reinterpret_cast<uint4*>(dst + row * 128 + ((c ^ (row & 7)) << 4)) = w;
+    // the swizzle: 16-byte chunk c of a row ^ address bits 7-9 (128-byte)
+    // or 7-8 (64-byte) of the row's start
+    const int sw = D == 128 ? (row & 7) : ((row >> 1) & 3);
+    *reinterpret_cast<uint4*>(dst + row * D + ((c ^ sw) << 4)) = w;
   }
 }
 
-// s8 V: a raw chunk (128 kv rows of 128 d bytes, or 64 of int4 nibbles
-// sign-extended on the way) into V^T (128 d rows of 128 kv bytes, 128-byte
+// s8 V: a raw chunk (128 kv rows of D d bytes, or D / 2 of int4 nibbles
+// sign-extended on the way) into V^T (D d rows of 128 kv bytes, 128-byte
 // swizzle), sage_fwd_sm90.cu transpose_v's 4 x 4 byte blocks by PRMT over
 // the 128 producer threads: lane l takes kv rows 4l .. 4l + 3 and d word
-// (l + warp + 4 jj) % 32 at turn jj, so a warp reads 32 banks and, with
-// the swizzle, writes 32.
+// (l + warp + 4 jj) % (D / 4) at turn jj, so a warp reads 32 banks (d =
+// 64: 16, each twice) and, with the swizzle, writes 32.
 __device__ __forceinline__ void transpose_chunk(const unsigned char* raw,
                                                 unsigned char* dst, int pt,
                                                 bool i4) {
   const int lane = pt & 31;
   const int k = 4 * lane;  // the block's first kv row: a V^T byte column
 #pragma unroll 2
-  for (int jj = 0; jj < 8; ++jj) {
-    const int dw = (lane + (pt >> 5) + 4 * jj) & 31;
+  for (int jj = 0; jj < D / 16; ++jj) {
+    const int dw = (lane + (pt >> 5) + 4 * jj) & (D / 4 - 1);
     uint32_t r[4];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
       r[i] = i4 ? s4x4_to_s8(*reinterpret_cast<const unsigned short*>(
-                      raw + (k + i) * 64 + 2 * dw))
-                : *reinterpret_cast<const uint32_t*>(raw + (k + i) * 128 +
+                      raw + (k + i) * (D / 2) + 2 * dw))
+                : *reinterpret_cast<const uint32_t*>(raw + (k + i) * D +
                                                      4 * dw);
     const uint32_t t0 = __byte_perm(r[0], r[1], 0x5140);
     const uint32_t t1 = __byte_perm(r[2], r[3], 0x5140);
@@ -441,11 +540,12 @@ __device__ __forceinline__ void transpose_chunk(const unsigned char* raw,
   }
 }
 
-// bf16 V rows [live, 128) of an operand slot (both d boxes) set to zero
+// bf16 V rows [live, 128) of an operand slot (every d box) set to zero
 __device__ __forceinline__ void zero_rows(unsigned char* dst, int live,
                                           int pt) {
-  for (int i = pt; i < (CH - live) * 16; i += 128) {
-    const int row = live + (i >> 4), c = i & 15;
+  constexpr int CPR = D / 8;  // 16-byte chunks of a bf16 row
+  for (int i = pt; i < (CH - live) * CPR; i += 128) {
+    const int row = live + i / CPR, c = i % CPR;
     *reinterpret_cast<uint4*>(dst + (c >> 3) * BOX + row * 128 +
                               (c & 7) * 16) = make_uint4(0, 0, 0, 0);
   }
@@ -584,7 +684,7 @@ __global__ void __launch_bounds__(NT, 1)
     // other kinds land raw and are made into the operand here
     const bool k_direct = kind == kBF16 || kind == kS8I8;
     const bool v_direct = kind == kBF16;
-    const int raw_bytes = (kind == kS8I4 || kind == kCastI4) ? CH * 64 : RAW;
+    const int raw_bytes = (kind == kS8I4 || kind == kCastI4) ? RAW / 2 : RAW;
     // the storage of the chunk at column col: its pool page (paged; thread
     // 0 keeps the last page-table entry it read) or the row's slab
     // (dense), and its first slot there
@@ -664,7 +764,7 @@ __global__ void __launch_bounds__(NT, 1)
         mbar_wait(empty_of(x), empty_parity(x));
         mbar_expect_tx(land, L::OP + (sc ? 2 * CH * 4 : 0));
         tma_load_3d(dst, map, land, 0, off, slab);
-        if (!S8) tma_load_3d(dst + BOX, map, land, 64, off, slab);
+        if (!S8 && NBOX == 2) tma_load_3d(dst + BOX, map, land, 64, off, slab);
       } else {
         mbar_expect_tx(land, raw_bytes + (sc ? 2 * CH * 4 : 0));
         tma_load_3d(sbase + L::OFF_RAW + (x.a % RAWS) * RAW, map, land, 0,
@@ -729,7 +829,8 @@ __global__ void __launch_bounds__(NT, 1)
       const int row = rb * BR, z = ib * p.h_kv + hk;
       mbar_expect_tx(bar(B_Q), L::OP);
       tma_load_3d(sbase, &maps.q, bar(B_Q), 0, row, z);
-      if (!S8) tma_load_3d(sbase + BOX, &maps.q, bar(B_Q), 64, row, z);
+      if (!S8 && NBOX == 2)
+        tma_load_3d(sbase + BOX, &maps.q, bar(B_Q), 64, row, z);
     }
     // ic: the next item thread 0 issues, cc: the next all complete. Up to
     // LANDS items are in flight, RAWS of them raw; a direct item goes once
@@ -782,7 +883,9 @@ __global__ void __launch_bounds__(NT, 1)
     const int cb = 2 * (lane & 3);  // accumulator column pair in each 8
     const int rbase = rb * BR + cw * 64;
     const bool idle = rbase >= p.G;  // no row of this warpgroup exists
-    const uint32_t q_half = sbase + cw * 64 * 128;
+    // this warpgroup's 64 rows of Q: rows of 128 bytes in each bf16 box,
+    // of D bytes on the s8 path
+    const uint32_t q_half = sbase + cw * 64 * (S8 ? D : 128);
     const bool alibi = p.slopes != nullptr;
     const float cap = p.cap;
     const bool feat = cap > 0.f || alibi;
@@ -810,9 +913,9 @@ __global__ void __launch_bounds__(NT, 1)
     const int qmin = __reduce_min_sync(0xffffffffu, min(qlim[0], qlim[1]));
     const int wmax = __reduce_max_sync(0xffffffffu, max(wlo[0], wlo[1]));
 
-    float o[64];
+    float o[D / 2];
 #pragma unroll
-    for (int i = 0; i < 64; ++i) o[i] = 0.f;
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
     float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
     // the s8 tile's P scale of each row, and its reciprocal
     float ps[2] = {1.f, 1.f}, rps[2] = {1.f, 1.f};
@@ -968,18 +1071,21 @@ __global__ void __launch_bounds__(NT, 1)
             if constexpr (S8) {
               fence_proxy_async();
               named_sync(NB_P8 + cw, 128);  // every row's P8 is written
+              // the scores' accumulator, done with, holds the product
+              uint32_t(&pacc)[D / 2] =
+                  *reinterpret_cast<uint32_t(*)[D / 2]>(&acc);
               wgmma_fence();
-              wgmma_s8_tile(acc, p8s, vop);
+              wgmma_s8_pv(pacc, p8s, vop);
               wgmma_wait<0>();
-              reg_fence(acc);
+              reg_fence(pacc);
 #pragma unroll
-              for (int k = 0; k < 64; ++k)
-                o[k] += i2f_small((int)acc[k]) * ps[(k >> 1) & 1];
+              for (int k = 0; k < D / 2; ++k)
+                o[k] += i2f_small((int)pacc[k]) * ps[(k >> 1) & 1];
             } else {
               wgmma_fence();
 #pragma unroll
               for (int kk = 0; kk < CH / 16; ++kk)
-                wgmma_rs(o, pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2],
+                wgmma_pv(o, pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2],
                          pa[4 * kk + 3], desc_mnmajor(vop + kk * 2048));
               wgmma_commit();
               wgmma_wait<0>();
@@ -1003,7 +1109,7 @@ __global__ void __launch_bounds__(NT, 1)
           l[hh] *= alpha[hh];
         }
 #pragma unroll
-        for (int k = 0; k < 64; ++k) o[k] *= alpha[(k >> 1) & 1];
+        for (int k = 0; k < D / 2; ++k) o[k] *= alpha[(k >> 1) & 1];
       } else if constexpr (SW == kStatSweep) {
 #pragma unroll
         for (int hh = 0; hh < 2; ++hh) {
@@ -1040,7 +1146,7 @@ __global__ void __launch_bounds__(NT, 1)
         const float lv = l[hh];
         float* orow = p.out + ob * D;
 #pragma unroll
-        for (int i = 0; i < 16; ++i) {
+        for (int i = 0; i < D / 8; ++i) {
           const float x0 = lv == 0.f ? 0.f : o[4 * i + 2 * hh] / lv;
           const float x1 = lv == 0.f ? 0.f : o[4 * i + 2 * hh + 1] / lv;
           *reinterpret_cast<float2*>(orow + 8 * i + cb) = make_float2(x0, x1);
@@ -1098,7 +1204,8 @@ int launch(const Maps& maps, const Params& p, cudaStream_t stream) {
 // dims: b, h_kv, G, s_max, layer, bkv, splits, tiles_per_split, left, sink,
 // n_tok, pool, page, n_pages, kind: decode_attention.cu's, and the same C
 // signature (lca_decode_attention). bkv is a multiple of 128 that divides
-// the page (dense: page = s_max, pool = b, pt null, n_pages = 1); d = 128.
+// the page (dense: page = s_max, pool = b, pt null, n_pages = 1); d = D,
+// the library's head dim.
 // out (b, h_kv, G, D) and lse (b, h_kv, G) fp32; with splits > 1 the
 // partials go to part_out (b, splits, h_kv, G, D) / part_lse first and a
 // second kernel merges them. slopes: ALiBi's (h_kv, G) row slopes (times
@@ -1167,7 +1274,10 @@ extern "C" int lca_decode_run(const void* q, const float* qs, const void* k,
   const long long bh = (long long)p.b * p.h_kv;
   const long long q_dims[3] = {D, p.G, bh};
   const long long q_str[2] = {D, (long long)p.G * D};
-  const cuuint32_t q_box[3] = {s8 ? 128u : 64u, (cuuint32_t)BR, 1};
+  const cuuint32_t q_box[3] = {s8 ? (cuuint32_t)D : 64u, (cuuint32_t)BR, 1};
+  // s8 rows of 64 bytes take the 64-byte swizzle
+  const CUtensorMapSwizzle s8_sw =
+      D == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
   const bool i4 = p.kind == kS8I4 || p.kind == kCastI4;
   const long long row = p.kind == kBF16 ? D : (i4 ? D / 2 : D);  // elements
   // the slabs of layers [0, layer] (the C call carries no layer count;
@@ -1175,8 +1285,8 @@ extern "C" int lca_decode_run(const void* q, const float* qs, const void* k,
   const long long slabs = ((long long)p.layer + 1) * p.pool * p.h_kv;
   const long long kv_dims[3] = {row, p.page, slabs};
   const long long kv_str[2] = {row, (long long)p.page * row};
-  const cuuint32_t op_box[3] = {p.kind == kBF16 ? 64u : 128u, (cuuint32_t)CH,
-                                1};
+  const cuuint32_t op_box[3] = {p.kind == kBF16 ? 64u : (cuuint32_t)D,
+                                (cuuint32_t)CH, 1};
   const cuuint32_t raw_box[3] = {(cuuint32_t)row, (cuuint32_t)CH, 1};
   const bool k_direct = p.kind == kBF16 || p.kind == kS8I8;
   const bool v_direct = p.kind == kBF16;
@@ -1194,10 +1304,10 @@ extern "C" int lca_decode_run(const void* q, const float* qs, const void* k,
         encode(&maps.vs, vs, f32, 4, 2, sc_dims, sc_str, sc_box,
                CU_TENSOR_MAP_SWIZZLE_NONE))) &&
       encode(&maps.q, q, s8 ? u8 : b16, s8 ? 1 : 2, 3, q_dims, q_str, q_box,
-             CU_TENSOR_MAP_SWIZZLE_128B) &&
+             s8 ? s8_sw : CU_TENSOR_MAP_SWIZZLE_128B) &&
       encode(&maps.k, k, kvt, kve, 3, kv_dims, kv_str,
              k_direct ? op_box : raw_box,
-             k_direct ? CU_TENSOR_MAP_SWIZZLE_128B
+             k_direct ? (s8 ? s8_sw : CU_TENSOR_MAP_SWIZZLE_128B)
                       : CU_TENSOR_MAP_SWIZZLE_NONE) &&
       encode(&maps.v, v, kvt, kve, 3, kv_dims, kv_str,
              v_direct ? op_box : raw_box,

@@ -55,7 +55,9 @@
 //     row-major [kv, d] as the transposed (MN-major) B operand. QK(j) and
 //     PV(j - 1) issue together and the softmax of tile j runs while PV(j -
 //     1) is on the tensor cores (FlashAttention-3's order);
-//   * int8 K/V (B3 over the quantized cache): one producer warpgroup widens
+//   * quantized K/V (B3 over the int8, fp8 or int4 cache; the kind is a
+//     run-time value that only the producers read, so the consumers'
+//     code is compiled once for the three): one producer warpgroup widens
 //     every K tile, the other every V tile, each at its own pace (56
 //     registers). TMA brings the int8 tiles (half the bytes; K with the
 //     tile's k and v scales) into a ring of 2 raw K and 1 raw V slots, each
@@ -74,6 +76,14 @@
 //             tile's scales 1024) = 218112, + barriers and slack;
 //   FEAT:     each stage's 128 kv segment ids (512) after the meta,
 //             128-byte aligned (a TMA destination): 232320 with bf16 K/V.
+//   d = 64:   every Q, K and V tile is one box (8192 bytes raw): bf16 K/V
+//             Q 16384 + 3 x 32768 = 114688; quantized Q 16384 + 2 x
+//             (32768 + 1024) + 3 x (8192 + 1024) = 111616; + barriers and
+//             slack.
+//
+// Head dim 64 (-DLCA_HEAD_DIM=64, a library of its own): QK^T takes 4 k16
+// steps in one box, PV is wgmma m64n64k16 into a 32-register O, and a
+// quantized row is 64 bytes (int4: 32) widened into one bf16 box.
 //
 // The kv walk is the TPU kernels' (_banded_gt) at BKV = 128: the sink tiles
 // that lie before the band, then the band; a tile outside the walk is never
@@ -135,9 +145,17 @@
 
 #include "sm90.cuh"
 
+// The head dim: 128, or 64 for a second library built with
+// -DLCA_HEAD_DIM=64 (ops/_build.py), which holds B1 and B3 without MULTI
+// or FEAT; its other entry points return cudaErrorNotSupported.
+#ifndef LCA_HEAD_DIM
+#define LCA_HEAD_DIM 128
+#endif
+
 namespace {
 
-constexpr int D = 128;
+constexpr int D = LCA_HEAD_DIM;
+static_assert(D == 64 || D == 128, "head dim 64 or 128");
 constexpr int BQ = 128;        // q rows per item: 64 per consumer warpgroup
 constexpr int BKV = 128;       // kv columns per tile
 // producer warpgroups (the int8 path widens K in one and V in the other),
@@ -153,6 +171,12 @@ constexpr float kNegInf = -1e30f;
 constexpr float kLn2 = 0.6931471805599453f;
 constexpr float kLog2e = 1.4426950408889634f;
 
+// a quantized kind as a type, for the producers' generic lambda
+template <int K>
+struct KvKind {
+  static constexpr int value = K;
+};
+
 // softmax forms (template parameter FORM)
 constexpr int kFast = 0;        // max-free clamped exp2, scale folded into q
 constexpr int kOnlineExp2 = 1;  // online softmax in exp2 units
@@ -162,12 +186,13 @@ constexpr int kSoftcap = 3;     // capped scores, online, natural units
 // Shared memory. A 64-column bf16 box of 128 rows is 128 rows of 128
 // bytes, swizzled in 1024-byte atoms of 8 rows: the layout TMA writes with
 // CU_TENSOR_MAP_SWIZZLE_128B and wgmma reads with a 128-byte-swizzle
-// descriptor. d = 128 is two boxes.
+// descriptor. d = 128 is two boxes, d = 64 one.
 constexpr int BOX = 128 * 128;             // one box: 16 KB
-constexpr int Q_BYTES = 2 * BOX;           // Q: d boxes 0 and 1, 128 rows
-constexpr int KV_BYTES = 2 * BOX;          // one bf16 K or V tile
+constexpr int NBOX = D / 64;               // boxes of a row
+constexpr int Q_BYTES = NBOX * BOX;        // Q: its d boxes, 128 rows
+constexpr int KV_BYTES = NBOX * BOX;       // one bf16 K or V tile
 constexpr int SC_BYTES = 2 * BKV * 4;      // a tile's k and v scales
-constexpr int RAW_BYTES = BKV * D;         // one int8 K or V tile
+constexpr int RAW_BYTES = BKV * D;         // one int8 / fp8 K or V tile
 constexpr int RAW_SLOT = RAW_BYTES + SC_BYTES;  // ... and a K tile's scales
 constexpr int RAW_K_SLOTS = 2;             // rings of raw int8 K and V
 constexpr int RAW_V_SLOTS = 1;
@@ -232,6 +257,7 @@ struct Params {
   const int* sched;
   int n_q, bq, bkv, per_head;
   Feat ft;  // FEAT: segments, ALiBi, dropout (sm90.cuh)
+  int kv;   // B3's kind of quantized K/V (sm90.cuh kKv*), the producers'
 };
 
 // K-major operand (Q, K): 8-row groups 1024 bytes apart; a k16 step moves
@@ -244,6 +270,19 @@ __device__ __forceinline__ uint64_t desc_kmajor(uint32_t addr) {
 // apart, the second 64-column d box BOX bytes after the first
 __device__ __forceinline__ uint64_t desc_mnmajor(uint32_t addr) {
   return desc_sw128(addr, BOX, 1024);
+}
+
+// O (64 x D fp32, N = D / 2 registers) += P (64 x 16 bf16, registers) V
+// (16 x D, shared)
+template <int N>
+__device__ __forceinline__ void wgmma_pv(float (&o)[N], uint32_t a0,
+                                         uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint64_t db) {
+  static_assert(N == 32 || N == 64, "head dim 64 or 128");
+  if constexpr (N == 64)
+    wgmma_rs(o, a0, a1, a2, a3, db);
+  else
+    wgmma_rs_n64(o, a0, a1, a2, a3, db);
 }
 
 // d (64 x 128 fp32) += A (64 x 16 bf16, shared, K-major) * B (16 x 128,
@@ -341,16 +380,16 @@ struct Frame {
 // ---------------------------------------------------------------------------
 
 // TRI: causal self-attention with compile-time masks (B1); else the masks
-// of Params (B3, and B4 at q_off 0). FORM: the softmax form; KV: bf16 K/V,
-// or int8, fp8 or packed int4 K/V with fp32 scales (kKv*). SPARSE: B9a's
+// of Params (B3, and B4 at q_off 0). FORM: the softmax form; QUANT: bf16
+// K/V, or quantized K/V with fp32 scales, whose kind (int8, fp8 or packed
+// int4: Params::kv) only the producers read. SPARSE: B9a's
 // walk over a block-sparse row. MULTI: a descriptor of two chunks on a
 // side (B3 on the ring's steps). FEAT: B3 with the features of Params
 // (segments, ALiBi, dropout).
-template <bool TRI, int FORM, int KV, bool SPARSE = false,
+template <bool TRI, int FORM, bool QUANT, bool SPARSE = false,
           bool MULTI = false, bool FEAT = false>
-__global__ void __launch_bounds__(Roles<KV != kKvBF16>::NT, 1)
+__global__ void __launch_bounds__(Roles<QUANT>::NT, 1)
     flash_fwd_sm90_kernel(const __grid_constant__ Maps maps, const Params p) {
-  constexpr bool QUANT = KV != kKvBF16;
   static_assert(!SPARSE || (!TRI && FORM == kFast && !QUANT),
                 "B9a: bf16 K/V, the fast form, the masks of its steps");
   static_assert(!FEAT || !(TRI || SPARSE), "the features are B3's");
@@ -437,26 +476,28 @@ __global__ void __launch_bounds__(Roles<KV != kKvBF16>::NT, 1)
           else if constexpr (MULTI)
             *meta(it) = dense_meta(p, x.q0, w, jt);
           mbar_expect_tx(bar(B_KFULL + s), KV_BYTES + (segs ? SEG_BYTES : 0));
-          tma_load_4d(st, &maps.k, bar(B_KFULL + s), 0, kv0, ihk, x.ib);
-          tma_load_4d(st + BOX, &maps.k, bar(B_KFULL + s), 64, kv0, ihk,
-                      x.ib);
+#pragma unroll
+          for (int bx = 0; bx < NBOX; ++bx)
+            tma_load_4d(st + bx * BOX, &maps.k, bar(B_KFULL + s), 64 * bx,
+                        kv0, ihk, x.ib);
           if (segs)  // the tile's kv ids, on K's barrier
             tma_load_2d(smem_u32(seg_slot(it)), &maps.kseg, bar(B_KFULL + s),
                         kv0, x.ib);
           if (jt == 0) {  // the item's Q, once its first K is in flight
             mbar_wait(bar(B_QEMPTY), (qn & 1) ^ 1);
             mbar_expect_tx(bar(B_QFULL), Q_BYTES);
-            tma_load_4d(sbase, &maps.q, bar(B_QFULL), 0, x.q0, x.ih, x.ib);
-            tma_load_4d(sbase + BOX, &maps.q, bar(B_QFULL), 64, x.q0, x.ih,
-                        x.ib);
+#pragma unroll
+            for (int bx = 0; bx < NBOX; ++bx)
+              tma_load_4d(sbase + bx * BOX, &maps.q, bar(B_QFULL), 64 * bx,
+                          x.q0, x.ih, x.ib);
             ++qn;
           }
           mbar_wait(bar(B_VEMPTY + s), use(it) ^ 1);
           mbar_expect_tx(bar(B_VFULL + s), KV_BYTES);
-          tma_load_4d(st + KV_BYTES, &maps.v, bar(B_VFULL + s), 0, kv0, ihk,
-                      x.ib);
-          tma_load_4d(st + KV_BYTES + BOX, &maps.v, bar(B_VFULL + s), 64, kv0,
-                      ihk, x.ib);
+#pragma unroll
+          for (int bx = 0; bx < NBOX; ++bx)
+            tma_load_4d(st + KV_BYTES + bx * BOX, &maps.v, bar(B_VFULL + s),
+                        64 * bx, kv0, ihk, x.ib);
           if constexpr (SPARSE) c = rw.next(c);
         }
       }
@@ -498,70 +539,84 @@ __global__ void __launch_bounds__(Roles<KV != kKvBF16>::NT, 1)
         else
           tma_load_4d(dst, map, b, d0, kv0, ihk, x.ib);
       };
-      // the i-th raw tile of this warpgroup's stream (K with its scales,
-      // or V) into slot i % nslots; an int4 tile fills half its slot
-      constexpr int raw_bytes = KV == kKvInt4 ? RAW_BYTES / 2 : RAW_BYTES;
-      auto load_raw = [&](const Cursor& c, int i) {
-        const uint32_t b = bar(b_raw + i % nslots);
-        const uint32_t dst = smem_u32(raw + (i % nslots) * RAW_SLOT);
-        if (is_v) {
-          mbar_expect_tx(b, raw_bytes);
-          tma(dst, &maps.v, b, c, 0);
-        } else {
-          mbar_expect_tx(b, raw_bytes + SC_BYTES);
-          tma(dst, &maps.k, b, c, 0);
-          tma(dst + RAW_BYTES, &maps.ks, b, c, -1);
-          tma(dst + RAW_BYTES + BKV * 4, &maps.vs, b, c, -1);
+      // this warpgroup's stream of tiles for the call's kind (Params::kv,
+      // read once): the loop is compiled once per kind, the consumers'
+      // code once for every kind
+      auto stream = [&](auto kind) {
+        constexpr int KV = decltype(kind)::value;
+        constexpr int raw_bytes = KV == kKvInt4 ? RAW_BYTES / 2 : RAW_BYTES;
+        // the i-th raw tile of the stream (K with its scales, or V) into
+        // slot i % nslots; an int4 tile fills half its slot
+        auto load_raw = [&](const Cursor& c, int i) {
+          const uint32_t b = bar(b_raw + i % nslots);
+          const uint32_t dst = smem_u32(raw + (i % nslots) * RAW_SLOT);
+          if (is_v) {
+            mbar_expect_tx(b, raw_bytes);
+            tma(dst, &maps.v, b, c, 0);
+          } else {
+            mbar_expect_tx(b, raw_bytes + SC_BYTES);
+            tma(dst, &maps.k, b, c, 0);
+            tma(dst + RAW_BYTES, &maps.ks, b, c, -1);
+            tma(dst + RAW_BYTES + BKV * 4, &maps.vs, b, c, -1);
+          }
+        };
+        Cursor cur = seek(0, 0);
+        Cursor ahead = cur;  // the tile nslots after cur
+        for (int i = 0; i < nslots; ++i) {
+          if (wtid == 0 && valid(ahead)) load_raw(ahead, i);
+          ahead = after(ahead);
+        }
+        for (int it = 0, qn = 0; valid(cur); ++it) {
+          const int s = it % STAGES;
+          unsigned char* st = smem + L::OFF_W + s * L::STAGE;
+          const unsigned char* slot = raw + (it % nslots) * RAW_SLOT;
+          mbar_wait(bar((is_v ? B_VEMPTY : B_KEMPTY) + s), use(it) ^ 1);
+          mbar_wait(bar(b_raw + it % nslots), (it / nslots) & 1);
+          unsigned char* op = st + (is_v ? KV_BYTES : 0);
+          widen_rows<BKV, KV, D>(slot, op, 0, wtid);
+          if (!is_v && wtid < SC_BYTES / 16)  // the scales, beside K
+            reinterpret_cast<float4*>(st + 2 * KV_BYTES)[wtid] =
+                reinterpret_cast<const float4*>(slot + RAW_BYTES)[wtid];
+          if (!is_v && wtid == 0 && MULTI) {  // the step's meta, beside K
+            const int q0 = item_of(p, item_index(cur.j)).q0;
+            *meta(it) = dense_meta(p, q0, walk_of<TRI, MULTI>(p, q0), cur.jt);
+          }
+          if (segs && !is_v && wtid < BKV / 4) {  // the tile's kv ids
+            const Item x = item_of(p, item_index(cur.j));
+            const int c =
+                walk_of<TRI, MULTI>(p, x.q0).tile(cur.jt) * BKV + 4 * wtid;
+            int4 ids = make_int4(0, 0, 0, 0);  // past s_kv: masked anyway
+            if (c < p.s_kv)
+              ids = *reinterpret_cast<const int4*>(p.ft.kvseg +
+                                                   x.ib * p.ft.kv_ld + c);
+            reinterpret_cast<int4*>(seg_slot(it))[wtid] = ids;
+          }
+          fence_proxy_async();
+          mbar_arrive(bar((is_v ? B_VFULL : B_KFULL) + s));
+          named_sync(NB_PRODUCER + wg, 128);  // all are done with the slot
+          if (wtid == 0) {
+            if (valid(ahead)) load_raw(ahead, it + nslots);
+            if (!is_v && cur.jt == 0) {  // the item's Q, once its first K
+              mbar_wait(bar(B_QEMPTY), (qn & 1) ^ 1);  // is ready
+              mbar_expect_tx(bar(B_QFULL), Q_BYTES);
+              const Item x = item_of(p, item_index(cur.j));
+  #pragma unroll
+              for (int bx = 0; bx < NBOX; ++bx)
+                tma_load_4d(sbase + bx * BOX, &maps.q, bar(B_QFULL), 64 * bx,
+                            x.q0, x.ih, x.ib);
+            }
+          }
+          if (cur.jt == 0) ++qn;
+          cur = after(cur);
+          ahead = after(ahead);
         }
       };
-      Cursor cur = seek(0, 0);
-      Cursor ahead = cur;  // the tile nslots after cur
-      for (int i = 0; i < nslots; ++i) {
-        if (wtid == 0 && valid(ahead)) load_raw(ahead, i);
-        ahead = after(ahead);
-      }
-      for (int it = 0, qn = 0; valid(cur); ++it) {
-        const int s = it % STAGES;
-        unsigned char* st = smem + L::OFF_W + s * L::STAGE;
-        const unsigned char* slot = raw + (it % nslots) * RAW_SLOT;
-        mbar_wait(bar((is_v ? B_VEMPTY : B_KEMPTY) + s), use(it) ^ 1);
-        mbar_wait(bar(b_raw + it % nslots), (it / nslots) & 1);
-        widen_rows<BKV, KV>(slot, st + (is_v ? KV_BYTES : 0), 0, wtid);
-        if (!is_v && wtid < SC_BYTES / 16)  // the scales, beside K
-          reinterpret_cast<float4*>(st + 2 * KV_BYTES)[wtid] =
-              reinterpret_cast<const float4*>(slot + RAW_BYTES)[wtid];
-        if (!is_v && wtid == 0 && MULTI) {  // the step's meta, beside K
-          const int q0 = item_of(p, item_index(cur.j)).q0;
-          *meta(it) = dense_meta(p, q0, walk_of<TRI, MULTI>(p, q0), cur.jt);
-        }
-        if (segs && !is_v && wtid < BKV / 4) {  // the tile's kv ids
-          const Item x = item_of(p, item_index(cur.j));
-          const int c =
-              walk_of<TRI, MULTI>(p, x.q0).tile(cur.jt) * BKV + 4 * wtid;
-          int4 ids = make_int4(0, 0, 0, 0);  // past s_kv: masked anyway
-          if (c < p.s_kv)
-            ids = *reinterpret_cast<const int4*>(p.ft.kvseg +
-                                                 x.ib * p.ft.kv_ld + c);
-          reinterpret_cast<int4*>(seg_slot(it))[wtid] = ids;
-        }
-        fence_proxy_async();
-        mbar_arrive(bar((is_v ? B_VFULL : B_KFULL) + s));
-        named_sync(NB_PRODUCER + wg, 128);  // all are done with the slot
-        if (wtid == 0) {
-          if (valid(ahead)) load_raw(ahead, it + nslots);
-          if (!is_v && cur.jt == 0) {  // the item's Q, once its first K
-            mbar_wait(bar(B_QEMPTY), (qn & 1) ^ 1);  // is ready
-            mbar_expect_tx(bar(B_QFULL), Q_BYTES);
-            const Item x = item_of(p, item_index(cur.j));
-            tma_load_4d(sbase, &maps.q, bar(B_QFULL), 0, x.q0, x.ih, x.ib);
-            tma_load_4d(sbase + BOX, &maps.q, bar(B_QFULL), 64, x.q0, x.ih,
-                        x.ib);
-          }
-        }
-        if (cur.jt == 0) ++qn;
-        cur = after(cur);
-        ahead = after(ahead);
-      }
+      if (p.kv == kKvFp8)
+        stream(KvKind<kKvFp8>());
+      else if (p.kv == kKvInt4)
+        stream(KvKind<kKvInt4>());
+      else
+        stream(KvKind<kKvInt8>());
     }
   } else {
     // ===================== consumer warpgroups =====================
@@ -577,7 +632,7 @@ __global__ void __launch_bounds__(Roles<KV != kKvBF16>::NT, 1)
     const bool has_left = LEFT_MASK && (MULTI || p.dsc.lo[0] > -kOpenRel);
     const uint32_t q_half = sbase + cw * 64 * 128;  // this warpgroup's rows
 
-    // S = Q K^T of the i-th tile: 8 k16 steps, 4 in each d box
+    // S = Q K^T of the i-th tile: D / 16 k16 steps, 4 in each d box
     auto issue_qk = [&](float (&sacc)[64], int i) {
       const uint32_t st = stage(i);
       wgmma_ss_first(sacc, desc_kmajor(q_half), desc_kmajor(st));
@@ -589,10 +644,10 @@ __global__ void __launch_bounds__(Roles<KV != kKvBF16>::NT, 1)
     };
     // O += P V of the i-th tile: 8 k16 steps of 16 kv rows (2048 bytes of
     // V each)
-    auto issue_pv = [&](float (&o)[64], const uint32_t (&pa)[32], int i) {
+    auto issue_pv = [&](float (&o)[D / 2], const uint32_t (&pa)[32], int i) {
 #pragma unroll
       for (int kk = 0; kk < BKV / 16; ++kk)
-        wgmma_rs(o, pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2],
+        wgmma_pv(o, pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2],
                  pa[4 * kk + 3], desc_mnmajor(stage(i) + KV_BYTES + kk * 2048));
       wgmma_commit();
     };
@@ -656,9 +711,9 @@ __global__ void __launch_bounds__(Roles<KV != kKvBF16>::NT, 1)
         }
       };
 
-      float o[64];
+      float o[D / 2];
 #pragma unroll
-      for (int i = 0; i < 64; ++i) o[i] = 0.f;
+      for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
       float m_row[2] = {kNegInf, kNegInf};  // rows g and g + 8
       float l_row[2] = {0.f, 0.f};
 
@@ -770,7 +825,7 @@ __global__ void __launch_bounds__(Roles<KV != kKvBF16>::NT, 1)
       auto to_pa = [&](const float (&sacc)[64]) {
         if (ONLINE) {
 #pragma unroll
-          for (int i8 = 0; i8 < 16; ++i8) {
+          for (int i8 = 0; i8 < D / 8; ++i8) {
             o[4 * i8] *= alpha[0];
             o[4 * i8 + 1] *= alpha[0];
             o[4 * i8 + 2] *= alpha[1];
@@ -800,8 +855,8 @@ __global__ void __launch_bounds__(Roles<KV != kKvBF16>::NT, 1)
         mbar_wait(bar(B_QFULL), qn & 1);
         if (!ONLINE) {  // fold scale*log2e into this warpgroup's q rows
 #pragma unroll
-          for (int i = 0; i < 8; ++i) {
-            const int c = i * 128 + wtid;  // 16-byte chunk of the two halves
+          for (int i = 0; i < D / 16; ++i) {
+            const int c = i * 128 + wtid;  // 16-byte chunk of the d boxes
             unsigned char* ptr =
                 smem + (c >> 9) * BOX + cw * 64 * 128 + (c & 511) * 16;
             uint4 val = *reinterpret_cast<uint4*>(ptr);
@@ -876,7 +931,7 @@ __global__ void __launch_bounds__(Roles<KV != kKvBF16>::NT, 1)
                               x.ib * p.o_sb + (long long)qi * p.o_ss +
                               x.ih * p.o_sh;
 #pragma unroll
-        for (int i = 0; i < 16; ++i) {
+        for (int i = 0; i < D / 8; ++i) {
           const float x0 = l == 0.f ? 0.f : o[4 * i + 2 * hh] / l;
           const float x1 = l == 0.f ? 0.f : o[4 * i + 2 * hh + 1] / l;
           *reinterpret_cast<uint32_t*>(orow + 8 * i + cb) = pack_bf16(x0, x1);
@@ -905,10 +960,12 @@ constexpr int kDimsDesc = 24;
 constexpr int kDimsFeat = kDimsDesc + kDescLen;
 constexpr int kDimsKind = kDimsFeat + kFeatLen;  // B3's kind of K/V
 
-template <bool TRI, int FORM, int KV, bool MULTI = false, bool FEAT = false>
+// kv: the kind of K/V (kKv*), bf16 exactly when !QUANT
+template <bool TRI, int FORM, bool QUANT, bool MULTI = false,
+          bool FEAT = false>
 int launch(const void* q, const void* k, const void* v, const float* ks,
            const float* vs, void* out, float* lse, const long long* dims,
-           float qfold, float sscale, float cap, const Feat& ft,
+           float qfold, float sscale, float cap, const Feat& ft, int kv,
            cudaStream_t stream) {
   Params p = {};
   p.out = out;
@@ -926,14 +983,16 @@ int launch(const void* q, const void* k, const void* v, const float* ks,
   p.sscale = sscale;
   p.cap = cap;
   p.ft = ft;
+  p.kv = kv;
   if (FEAT && !feat_ok(ft)) return (int)cudaErrorInvalidValue;
   p.nq = (p.s_q + BQ - 1) / BQ;
   p.n_items = p.nq * p.h * p.b;
   if (p.h_kv <= 0 || p.h % p.h_kv || !desc_ok(p.dsc, p.s_q, p.s_kv, BQ))
     return (int)cudaErrorInvalidValue;
   if ((p.dsc.nqc * p.dsc.nkc > 1) != MULTI) return (int)cudaErrorInvalidValue;
-  constexpr bool QUANT = KV != kKvBF16;
-  if (QUANT && dims[19] != 1) return (int)cudaErrorInvalidValue;
+  if ((kv != kKvBF16) != QUANT || kv < kKvBF16 || kv > kKvInt4 ||
+      (QUANT && dims[19] != 1))
+    return (int)cudaErrorInvalidValue;
   if (p.n_items == 0) return (int)cudaSuccess;
 
   Maps maps;
@@ -941,7 +1000,7 @@ int launch(const void* q, const void* k, const void* v, const float* ks,
                                             : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   const int kv_esize = QUANT ? 1 : 2;
   // a quantized K/V row is one box: d bytes (int8, fp8) or d / 2 (int4)
-  const int kv_row = KV == kKvInt4 ? D / 2 : D;
+  const int kv_row = kv == kKvInt4 ? D / 2 : D;
   const cuuint32_t q_box[4] = {64, BQ, 1, 1};
   const cuuint32_t kv_box[4] = {(cuuint32_t)(QUANT ? kv_row : 64), BKV, 1, 1};
   const cuuint32_t sc_box[3] = {BKV, 1, 1};
@@ -979,7 +1038,7 @@ int launch(const void* q, const void* k, const void* v, const float* ks,
   }
   if (!ok) return (int)cudaErrorInvalidValue;
 
-  auto kern = flash_fwd_sm90_kernel<TRI, FORM, KV, false, MULTI, FEAT>;
+  auto kern = flash_fwd_sm90_kernel<TRI, FORM, QUANT, false, MULTI, FEAT>;
   const int smem = Smem<QUANT, FEAT>::BYTES;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -997,6 +1056,9 @@ int launch_sparse(const void* q, const void* k, const void* v, void* out,
                   float* lse, const int* ptr, const int* ent,
                   const int* items, const int* sched_ptr, const int* sched,
                   const long long* dims, float qfold, cudaStream_t stream) {
+#if LCA_HEAD_DIM != 128
+  return (int)cudaErrorNotSupported;  // B9a at head dim 128 only
+#else
   Params p = {};
   p.out = out;
   p.lse = lse;
@@ -1043,13 +1105,14 @@ int launch_sparse(const void* q, const void* k, const void* v, void* out,
     return (int)cudaErrorInvalidValue;
   maps.ks = maps.vs = maps.kseg = maps.q;  // unused without scales
 
-  auto kern = flash_fwd_sm90_kernel<false, kFast, kKvBF16, true>;
+  auto kern = flash_fwd_sm90_kernel<false, kFast, false, true>;
   const int smem = Smem<false>::BYTES;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
   kern<<<n_blocks, Roles<false>::NT, smem, stream>>>(maps, p);
   return (int)cudaGetLastError();
+#endif
 }
 
 }  // namespace
@@ -1062,43 +1125,44 @@ extern "C" int lca_flash_fwd_causal_self(const void* q, const void* k,
                                          void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dims[3] != dims[4]) return (int)cudaErrorInvalidValue;
-  return safe ? launch<true, kOnlineExp2, kKvBF16>(
+  return safe ? launch<true, kOnlineExp2, false>(
                     q, k, v, nullptr, nullptr, out, lse, dims, qfold, sscale,
-                    0.f, Feat{}, st)
-              : launch<true, kFast, kKvBF16>(q, k, v, nullptr, nullptr, out,
-                                             lse, dims, qfold, sscale, 0.f,
-                                             Feat{}, st);
+                    0.f, Feat{}, kKvBF16, st)
+              : launch<true, kFast, false>(q, k, v, nullptr, nullptr, out,
+                                           lse, dims, qfold, sscale, 0.f,
+                                           Feat{}, kKvBF16, st);
 }
 
 namespace {
 
 // B3's instantiation for a softmax form (0 fast, 1 online in natural
 // units, 2 softcap)
-template <int KV, bool MULTI, bool FEAT, class Args>
+template <bool QUANT, bool MULTI, bool FEAT, class Args>
 int pos_form(int form, const Args& args) {
   switch (form) {
-    case 0: return args(launch<false, kFast, KV, MULTI, FEAT>);
-    case 1: return args(launch<false, kOnlineNat, KV, MULTI, FEAT>);
-    case 2: return args(launch<false, kSoftcap, KV, MULTI, FEAT>);
+    case 0: return args(launch<false, kFast, QUANT, MULTI, FEAT>);
+    case 1: return args(launch<false, kOnlineNat, QUANT, MULTI, FEAT>);
+    case 2: return args(launch<false, kSoftcap, QUANT, MULTI, FEAT>);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
-template <int KV, bool MULTI, class Args>
-int pos_feat(bool feat, int form, const Args& args) {
-  return feat ? pos_form<KV, MULTI, true>(form, args)
-              : pos_form<KV, MULTI, false>(form, args);
-}
-
+// ... and for the features and the K/V (bf16 or quantized: the kind itself
+// is a run-time value of the producers); at head dim 64 neither MULTI nor
+// FEAT
 template <bool MULTI, class Args>
-int pos_kind(int kv, bool feat, int form, const Args& args) {
-  switch (kv) {
-    case kKvBF16: return pos_feat<kKvBF16, MULTI>(feat, form, args);
-    case kKvInt8: return pos_feat<kKvInt8, MULTI>(feat, form, args);
-    case kKvFp8: return pos_feat<kKvFp8, MULTI>(feat, form, args);
-    case kKvInt4: return pos_feat<kKvInt4, MULTI>(feat, form, args);
-    default: return (int)cudaErrorInvalidValue;
-  }
+int pos_kind(bool quant, bool feat, int form, const Args& args) {
+#if LCA_HEAD_DIM != 128
+  if (MULTI || feat) return (int)cudaErrorNotSupported;
+  return quant ? pos_form<true, false, false>(form, args)
+               : pos_form<false, false, false>(form, args);
+#else
+  if (feat)
+    return quant ? pos_form<true, MULTI, true>(form, args)
+                 : pos_form<false, MULTI, true>(form, args);
+  return quant ? pos_form<true, MULTI, false>(form, args)
+               : pos_form<false, MULTI, false>(form, args);
+#endif
 }
 
 }  // namespace
@@ -1117,16 +1181,17 @@ extern "C" int lca_flash_fwd_pos(const void* q, const void* k, const void* v,
                                  int form, void* stream, LCA_FEAT_ARGS) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Feat ft = feat_from(dims, kDimsFeat, qseg, kvseg, slopes, drop_inv);
-  const auto args = [&](auto launcher) {
-    return launcher(q, k, v, ks, vs, out, lse, dims, qfold, sscale, cap, ft,
-                    st);
-  };
   const bool feat = ft.seg || ft.alibi || ft.drop;
   const int kv = (int)dims[kDimsKind];
-  if ((kv != kKvBF16) != (ks != nullptr)) return (int)cudaErrorInvalidValue;
+  const auto args = [&](auto launcher) {
+    return launcher(q, k, v, ks, vs, out, lse, dims, qfold, sscale, cap, ft,
+                    kv, st);
+  };
+  const bool quant = kv != kKvBF16;
+  if (quant != (ks != nullptr)) return (int)cudaErrorInvalidValue;
   if (dims[kDimsDesc] * dims[kDimsDesc + 1] > 1)
-    return pos_kind<true>(kv, feat, form, args);
-  return pos_kind<false>(kv, feat, form, args);
+    return pos_kind<true>(quant, feat, form, args);
+  return pos_kind<false>(quant, feat, form, args);
 }
 
 // Kernel B4: self-attention (s_q == s_kv, q_off 0) with any window, sinks
@@ -1139,23 +1204,27 @@ extern "C" int lca_flash_fwd_static(const void* q, const void* k,
                                     const long long* dims, float qfold,
                                     float sscale, float cap, int form,
                                     void* stream) {
+#if LCA_HEAD_DIM != 128
+  return (int)cudaErrorNotSupported;  // B4 at head dim 128 only
+#else
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dims[3] != dims[4] || dims[20] != 0) return (int)cudaErrorInvalidValue;
   const auto args = [&](auto launcher) {
     return launcher(q, k, v, nullptr, nullptr, out, lse, dims, qfold, sscale,
-                    cap, Feat{}, st);
+                    cap, Feat{}, kKvBF16, st);
   };
   const bool plain_causal =
       dims[22] == 0 && (dims[21] < 0 || dims[21] >= dims[4] - 1);
-  if (plain_causal && form == 0) return args(launch<true, kFast, kKvBF16>);
+  if (plain_causal && form == 0) return args(launch<true, kFast, false>);
   if (plain_causal && form == 1)
-    return args(launch<true, kOnlineExp2, kKvBF16>);
+    return args(launch<true, kOnlineExp2, false>);
   switch (form) {
-    case 0: return args(launch<false, kFast, kKvBF16>);
-    case 1: return args(launch<false, kOnlineExp2, kKvBF16>);
-    case 2: return args(launch<false, kSoftcap, kKvBF16>);
+    case 0: return args(launch<false, kFast, false>);
+    case 1: return args(launch<false, kOnlineExp2, false>);
+    case 2: return args(launch<false, kSoftcap, false>);
     default: return (int)cudaErrorInvalidValue;
   }
+#endif
 }
 
 // Kernel B9a: out (b, s_q, h, d) bf16 and lse (b, h, s_q) of a block-sparse

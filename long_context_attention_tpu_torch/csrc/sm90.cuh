@@ -201,6 +201,14 @@ __device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo,
          ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
 }
 
+// ... 64-byte swizzle (a K-major operand of 64-byte rows: s8 rows of head
+// dim 64, 8-row groups 512 bytes apart)
+__device__ __forceinline__ uint64_t desc_sw64(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (2ull << 62);
+}
+
 // wgmma accumulator operand lists: N read-write ("+f") or write-only ("=f")
 // fp32 registers, and the matching "{%0, ..., %N-1}" of the instruction
 #define LCA_ACC8(a, i)                                                 \
@@ -255,6 +263,18 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], uint32_t a0,
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db));
 }
 
+// d (64 x 64 fp32) += A (64 x 16 bf16 in registers) * B (16 x 64, shared,
+// MN-major): O += P V at head dim 64
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], uint32_t a0,
+                                             uint32_t a1, uint32_t a2,
+                                             uint32_t a3, uint64_t db) {
+  asm volatile(
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " LCA_D32
+      ", {%32, %33, %34, %35}, %36, 1, 1, 1, 1;\n"
+      : LCA_ACC32(d)
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db));
+}
+
 // tanh(x) = 1 - 2 / (exp(2x) + 1) by the fast exp and reciprocal (|x|
 // clamped at 15, where tanh rounds to 1): within a few ulp of 1 of tanhf,
 // absolute, for the backward's softcap, whose capped score cap * t carries
@@ -288,9 +308,9 @@ __device__ __forceinline__ uint32_t widen2(uint32_t w, uint32_t sel) {
   return *reinterpret_cast<const uint32_t*>(&r);
 }
 
-// B3's kinds of K/V (template parameter KV of the forward kernel): bf16,
-// or the quantized cache's int8, fp8 e4m3 or packed int4, widened to bf16
-// by its producers
+// B3's kinds of K/V (the forward kernel's run-time Params::kv, read by its
+// producers): bf16, or the quantized cache's int8, fp8 e4m3 or packed
+// int4, widened to bf16 by the producers
 constexpr int kKvBF16 = 0, kKvInt8 = 1, kKvFp8 = 2, kKvInt4 = 3;
 
 // two e4m3 values (the low 16 bits of x) -> two bf16, exactly
@@ -299,20 +319,24 @@ __device__ __forceinline__ uint32_t e4m3x2_to_bf16x2(uint32_t x) {
   return pack_bf16(f.x, f.y);
 }
 
-// Widen rows [r0, r0 + ROWS) of a raw tile of 128 rows (int8 or fp8: 128
-// bytes a row; int4: 64) into the two swizzled bf16 boxes at dst (d 0-63,
-// then 64-127; 128 rows of 128 bytes each, 128-byte swizzle), by the 128
-// threads of a warpgroup, two chunks of 16 values at a time (their loads
-// first, for the warp of each SM sub-partition to overlap). Within each
-// 8-thread phase of a 16-byte access, four threads read row r and four row
-// r + 1 (opposite halves of the rows: conflict-free), and their bf16
-// chunks land on distinct banks of the swizzled boxes. int4 chunks are 8
-// bytes, sign-extended to the int8 chunk first. r0 is a multiple of 8.
-template <int ROWS, int KV = kKvInt8>
+// Widen rows [r0, r0 + ROWS) of a raw tile of 128 rows of head dim DH
+// (int8 or fp8: DH bytes a row; int4: DH / 2) into the swizzled bf16 boxes
+// at dst (DH / 64 of them: d 0-63, then 64-127; 128 rows of 128 bytes
+// each, 128-byte swizzle), by the 128 threads of a warpgroup, two chunks
+// of 16 values at a time (their loads first, for the warp of each SM
+// sub-partition to overlap). Within each 8-thread phase of a 16-byte
+// access, the threads read 128 contiguous bytes (DH = 128: four threads
+// row r and four row r + 1, opposite halves of the rows; DH = 64: rows r
+// and r + 1 whole), and their bf16 chunks land on distinct banks of the
+// swizzled boxes. int4 chunks are 8 bytes, sign-extended to the int8 chunk
+// first. r0 is a multiple of 8.
+template <int ROWS, int KV = kKvInt8, int DH = 128>
 __device__ __forceinline__ void widen_rows(const unsigned char* raw,
                                            unsigned char* dst, int r0,
                                            int ptid) {
-  constexpr int CHUNKS = ROWS * 128 / 16 / 128;  // per thread
+  static_assert(DH == 64 || DH == 128, "head dim 64 or 128");
+  constexpr int CPR = DH / 16;                  // 16-value chunks a row
+  constexpr int CHUNKS = ROWS * CPR / 128;      // per thread
   constexpr int BATCH = 2;
 #pragma unroll 1
   for (int it = 0; it < CHUNKS; it += BATCH) {
@@ -321,16 +345,22 @@ __device__ __forceinline__ void widen_rows(const unsigned char* raw,
 #pragma unroll
     for (int u = 0; u < BATCH; ++u) {
       const int idx = (it + u) * 128 + ptid;
-      const int j = idx & 15;
-      row[u] = r0 + 2 * (idx >> 4) + (((j >> 2) & 1) ^ (j >> 3));
-      c[u] = j & 7;  // chunk of 16 values of the row
+      if constexpr (DH == 128) {
+        const int j = idx & 15;
+        row[u] = r0 + 2 * (idx >> 4) + (((j >> 2) & 1) ^ (j >> 3));
+        c[u] = j & 7;  // chunk of 16 values of the row
+      } else {
+        const int j = idx & 7;
+        row[u] = r0 + 2 * (idx >> 3) + (j >> 2);
+        c[u] = j & 3;
+      }
       if constexpr (KV == kKvInt4) {
-        const uint2 n =
-            *reinterpret_cast<const uint2*>(raw + row[u] * 64 + c[u] * 8);
+        const uint2 n = *reinterpret_cast<const uint2*>(
+            raw + row[u] * (DH / 2) + c[u] * 8);
         s4x8_to_s8(n.x, w[u].x, w[u].y);
         s4x8_to_s8(n.y, w[u].z, w[u].w);
       } else {
-        w[u] = *reinterpret_cast<const uint4*>(raw + row[u] * 128 + c[u] * 16);
+        w[u] = *reinterpret_cast<const uint4*>(raw + row[u] * DH + c[u] * 16);
       }
     }
 #pragma unroll

@@ -9,6 +9,14 @@ launch. Nothing is built or loaded at import time: the first launch builds
 its source (or :func:`build_all` builds every source in parallel), into
 ``build/kernels/`` at the repository root, keyed by a hash of the source, the
 shared headers (``csrc/*.cuh``) and the flags.
+
+The sources are written for head dim 128. The serving path's four sources
+(B1 and B3, B6, both B7 kernels) also build a second library each with
+``-DLCA_HEAD_DIM=64``, named ``"<source>:d64"`` (:func:`lib_name`): its
+entry points are kernels of their own, ``<name>_d64`` in :data:`KERNELS`,
+each with its own launch count. :func:`kernel` picks an entry point's
+kernel by head dim and raises ``NotImplementedError`` naming the head dims
+it takes.
 """
 
 from __future__ import annotations
@@ -22,10 +30,11 @@ import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 __all__ = ["Kernel", "KERNELS", "QUANT_PASSES", "BUILD_DIR", "build_all",
-           "build_seconds", "launch_counts", "library", "reset_launch_counts", "ptr",
+           "build_seconds", "head_dims", "kernel", "launch_counts",
+           "lib_name", "library", "reset_launch_counts", "ptr",
            "stream_ptr", "dims_array"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -55,23 +64,40 @@ def _nvcc() -> str:
                        "machine with the CUDA toolkit")
 
 
-def _lib_path(source: str) -> Path:
+def lib_name(source: str, head_dim: int = 128) -> str:
+    """The name of a source's library at a head dim: the source itself at
+    128, ``"<source>:d<head_dim>"`` for the build with that head dim."""
+    return source if head_dim == 128 else f"{source}:d{head_dim}"
+
+
+def _split(lib: str):
+    """(source, nvcc flags) of a library name."""
+    source, _, dim = lib.partition(":d")
+    return source, NVCC_FLAGS + ([f"-DLCA_HEAD_DIM={int(dim)}"] if dim
+                                 else [])
+
+
+def _lib_path(lib: str) -> Path:
     # the key covers the source, the headers it may include and the flags
+    source, flags = _split(lib)
     src = b"".join(p.read_bytes() for p in
                    [CSRC / source, *sorted(CSRC.glob("*.cuh"))])
-    key = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"{Path(source).stem}-{key}.so"
+    key = hashlib.sha1(src + " ".join(flags).encode()).hexdigest()[:12]
+    tag = lib.partition(":")[2]  # "d64" for a head dim 64 build
+    stem = Path(source).stem + (f"-{tag}" if tag else "")
+    return BUILD_DIR / f"{stem}-{key}.so"
 
 
-def _start_build(source: str):
-    """Start nvcc for one source; returns (Popen, tmp, final) or None when
+def _start_build(lib: str):
+    """Start nvcc for one library; returns (Popen, tmp, final) or None when
     the library is already built."""
-    out = _lib_path(source)
+    out = _lib_path(lib)
     if out.exists():
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / source)]
+    source, flags = _split(lib)
+    cmd = [_nvcc(), *flags, "-o", str(tmp), str(CSRC / source)]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return proc, tmp, out, time.perf_counter()
@@ -90,10 +116,11 @@ def _finish_build(source: str, job) -> None:
 
 
 def build_all(sources: Optional[Sequence[str]] = None) -> Dict[str, str]:
-    """Build every kernel source in parallel (one nvcc each, all started
-    together). Returns {source: compiler output} for the sources built now
+    """Build libraries in parallel (one nvcc each, all started together):
+    ``sources`` names them (:func:`lib_name`), by default every kernel's.
+    Returns {library: compiler output} for the libraries built now
     (``-Xptxas -v`` prints each kernel's registers and shared memory)."""
-    sources = list(sources or sorted({k.source for k in KERNELS.values()}))
+    sources = list(sources or sorted({k.lib for k in KERNELS.values()}))
     with _lock:
         jobs = [(s, _start_build(s)) for s in sources]
         # each compiler's output drained in its own thread, so a build's
@@ -106,14 +133,14 @@ def build_all(sources: Optional[Sequence[str]] = None) -> Dict[str, str]:
 
 
 def build_seconds() -> Dict[str, float]:
-    """Wall seconds of each source's nvcc run in this process."""
+    """Wall seconds of each library's nvcc run in this process."""
     return dict(_build_seconds)
 
 
-def library(source: str) -> ctypes.CDLL:
-    """The loaded library of one ``csrc`` source (built on first use), for
-    its entry points other than kernels."""
-    return _load(source)
+def library(source: str, head_dim: int = 128) -> ctypes.CDLL:
+    """The loaded library of one ``csrc`` source at a head dim (built on
+    first use), for its entry points other than kernels."""
+    return _load(lib_name(source, head_dim))
 
 
 def _load(source: str) -> ctypes.CDLL:
@@ -136,11 +163,13 @@ class Kernel:
     :func:`reset_launch_counts`."""
 
     def __init__(self, name: str, source: str, symbol: str,
-                 argtypes: List, replaces: str):
+                 argtypes: List, replaces: str, head_dim: int = 128):
         # replaces: file:line of the TPU kernel this one ports (of the
         # JAX function, for the QUANT_PASSES)
         self.name = name
         self.source = source
+        self.head_dim = head_dim
+        self.lib = lib_name(source, head_dim)
         self.symbol = symbol
         self.argtypes = argtypes
         self.replaces = replaces
@@ -149,7 +178,7 @@ class Kernel:
 
     def function(self):
         if self._fn is None:
-            lib = _load(self.source)
+            lib = _load(self.lib)
             fn = getattr(lib, self.symbol)
             fn.argtypes = self.argtypes
             fn.restype = _I
@@ -159,7 +188,7 @@ class Kernel:
     def __call__(self, *args) -> None:
         err = self.function()(*args)
         if err != 0:
-            msg = _load(self.source).lca_error_string(err).decode()
+            msg = _load(self.lib).lca_error_string(err).decode()
             raise RuntimeError(f"{self.name}: CUDA launch failed with error "
                                f"{err} ({msg})")
         self.launches += 1
@@ -277,9 +306,34 @@ KERNELS: Dict[str, Kernel] = {
 }
 
 
+# the entry points built at head dim 64 too (the serving path's: B1, B3,
+# B6 and both B7 kernels), as kernels of their own named <name>_d64
+HEAD_DIM_64 = ("flash_fwd_causal_self", "flash_fwd_pos", "cache_append",
+               "decode_attention", "decode_run")
+for _name in HEAD_DIM_64:
+    _k = KERNELS[_name]
+    KERNELS[f"{_name}_d64"] = Kernel(f"{_name}_d64", _k.source, _k.symbol,
+                                     _k.argtypes, _k.replaces, head_dim=64)
+
 # kernels that port no Pallas kernel but an XLA fusion of the JAX package
 QUANT_PASSES = ("sage_quant_kv", "sage_quant_q")
 
+
+def head_dims(name: str) -> Tuple[int, ...]:
+    """The head dims entry point ``name`` has a kernel for."""
+    return (64, 128) if name in HEAD_DIM_64 else (128,)
+
+
+def kernel(name: str, head_dim: int, what: Optional[str] = None) -> Kernel:
+    """Entry point ``name``'s kernel at ``head_dim``; raises
+    ``NotImplementedError`` naming the head dims it takes (``what``: the
+    kernel's name in the message, by default ``name``)."""
+    dims = head_dims(name)
+    if head_dim not in dims:
+        raise NotImplementedError(
+            f"the {what or name} kernel takes head_dim "
+            f"{' or '.join(map(str, dims))}, got d={head_dim}")
+    return KERNELS[name if head_dim == 128 else f"{name}_d{head_dim}"]
 
 def launch_counts() -> Dict[str, int]:
     return {name: k.launches for name, k in KERNELS.items()}

@@ -66,7 +66,6 @@ __all__ = ["cache_append", "cache_append_plain", "cache_append_rows",
            "decode_run_plan", "decode_run_smem", "decode_token_reads",
            "decode_token_span", "reference_block_kv", "DecodeLaunch"]
 
-_HEAD_DIM = 128
 _GROUP_ROWS = 8        # query rows per block of decode_attention.cu (MAXG)
 _RUN_ROWS = 128        # query rows per block of decode_run_sm90.cu (BR)
 _RUN_CHUNK = 128       # kv columns per chunk of decode_run_sm90.cu (CH)
@@ -277,9 +276,8 @@ class _RowsPlan:
         dev = kc.device
         name = _dtype_name(kc)
         d = 2 * dv if name == "int4" else dv
-        if d != _HEAD_DIM:
-            raise NotImplementedError(f"the B6 kernel takes head_dim "
-                                      f"{_HEAD_DIM}, got d={d}")
+        self.kernel = _build.kernel("cache_append", d, "B6")
+        self.d = d
         for label, t in (("k", kc), ("v", vc)):
             if t.shape != kc.shape or t.dtype != kc.dtype \
                     or t.device != dev or not t.is_contiguous():
@@ -324,7 +322,7 @@ class _RowsPlan:
         if (k.dtype is not torch.bfloat16 or v.dtype is not torch.bfloat16
                 or v.shape != shape or len(shape) != 4 + (layer is None)
                 or (layer is None and shape[0] != self.L)
-                or shape[-2] != self.h_kv or shape[-1] != _HEAD_DIM
+                or shape[-2] != self.h_kv or shape[-1] != self.d
                 or st[-1] != 1 or sv[-1] != 1
                 or (st[-2] | st[-3] | st[-4] | sv[-2] | sv[-3] | sv[-4]
                     | lk | lv) % 4 or (kp | vp) % 8
@@ -332,7 +330,7 @@ class _RowsPlan:
                 or v.get_device() != self.index):
             raise ValueError(
                 f"new K/V rows must be bf16 ({'L, ' * (layer is None)}b, n, "
-                f"h_kv={self.h_kv}, d={_HEAD_DIM}) on {self.device}, d "
+                f"h_kv={self.h_kv}, d={self.d}) on {self.device}, d "
                 f"contiguous, rows 8-byte aligned; got {k.dtype} "
                 f"{tuple(shape)} strides {st} and {v.dtype} "
                 f"{tuple(v.shape)} strides {sv} on {k.device}")
@@ -368,7 +366,7 @@ class _RowsPlan:
             n_pages * self.page, self.pool, self.page, n_pages)
         stream = (self.stream(self.index) if self.stream is not None
                   else _build.stream_ptr(self.device))
-        _build.KERNELS["cache_append"](self.addr, stream)
+        self.kernel(self.addr, stream)
 
 
 def _table(page_table, dev):
@@ -713,15 +711,16 @@ def decode_route(rows: int, block_kv: int, slot_dim: int) -> str:
     return "decode_attention"
 
 
-def decode_run_smem(s8: bool) -> int:
-    """Dynamic shared memory of a ``decode_run`` block (its C layout,
-    ``csrc/decode_run_sm90.cu`` Smem): Q, the K slots with their scales, the
-    V (s8: V^T) slots, three raw chunks, eight items' staged scales and, on
-    the s8 path, the two warpgroups' P8, then 256 bytes of barriers and
-    1024 of alignment."""
-    op = 16384 if s8 else 32768      # Q, a K or a V chunk operand
-    ks = 6 if s8 else 2              # K slots
-    return (op + ks * op + ks * 1024 + 2 * op + 3 * 16384 + 8 * 1024
+def decode_run_smem(s8: bool, d: int = 128) -> int:
+    """Dynamic shared memory of a ``decode_run`` block at head dim ``d`` (its
+    C layout, ``csrc/decode_run_sm90.cu`` Smem): Q, the K slots with their
+    scales, the V (s8: V^T) slots, three raw chunks, eight items' staged
+    scales and, on the s8 path, the two warpgroups' P8, then 256 bytes of
+    barriers and 1024 of alignment."""
+    op = _RUN_CHUNK * d * (1 if s8 else 2)  # Q, a K or a V chunk operand
+    ks = 6 if s8 else 2                     # K slots
+    raw = _RUN_CHUNK * d                    # a raw int8 / fp8 chunk
+    return (op + ks * op + ks * 1024 + 2 * op + 3 * raw + 8 * 1024
             + (2 * 64 * _RUN_CHUNK if s8 else 0) + 256 + 1024)
 
 
@@ -757,7 +756,7 @@ class DecodeLaunch(NamedTuple):
 def decode_launch(kernel: str, b: int, h_kv: int, rows: int, cap: int,
                   block_kv: int, n_tok: int = 1, window_left: int = -1,
                   sink_tokens: int = 0, kv_splits=None,
-                  row_bytes: int = _HEAD_DIM) -> DecodeLaunch:
+                  row_bytes: int = 128) -> DecodeLaunch:
     """The host side of a B7 launch. A row's live tiles are its sink
     tiles, then its window band, or all up to its length; at most
     ``nk`` = ceil(cap / block_kv) of them, or with a window the most its
@@ -765,7 +764,8 @@ def decode_launch(kernel: str, b: int, h_kv: int, rows: int, cap: int,
 
     ``decode_attention``: every tile slot (the i-th live tile of a row) is
     cut into :func:`decode_token_span`'s spans (``row_bytes``: a cache
-    row's bytes), one block each over each group of 8 query rows (on the
+    row's bytes, which a call passes: the default is an int8 row of head
+    dim 128), one block each over each group of 8 query rows (on the
     s8 path a thread block cluster, whose spans exchange the tile's
     statistics): grid (nk * cluster, h_kv * groups, b), one partial per
     span; ``kv_splits`` does not shape it (JAX's splits merge the same
@@ -898,9 +898,8 @@ def decode_attention_core(q_in, q_rs, k_cache, v_cache, k_scale, v_scale,
     dev = q_in.device
     quant = k_scale is not None
     kind = _kv_kind(q_in, q_rs, k_cache, k_scale)
-    if d != _HEAD_DIM:
-        raise NotImplementedError(
-            f"the B7 kernel takes head_dim {_HEAD_DIM}, got d={d}")
+    kernel = decode_route(G, block_kv, slot_dim)
+    kern = _build.kernel(kernel, d, "B7")
     if n_tok < 1 or G % n_tok:
         raise ValueError(f"{G} query rows do not hold runs of {n_tok}")
     if not q_in.is_contiguous():
@@ -954,7 +953,6 @@ def decode_attention_core(q_in, q_rs, k_cache, v_cache, k_scale, v_scale,
             raise ValueError(f"first_cols and sink_cols must be (b={b},)")
     elif sink_cols is not None:
         raise ValueError("sink_cols requires first_cols (the sharded path)")
-    kernel = decode_route(G, block_kv, slot_dim)
     launch = decode_launch(kernel, b, h_kv, G, cap, block_kv, n_tok,
                            window_left, sink_tokens, kv_splits,
                            row_bytes=dv * k_cache.element_size())
@@ -978,7 +976,7 @@ def decode_attention_core(q_in, q_rs, k_cache, v_cache, k_scale, v_scale,
                               else 0,
                               n_tok, pool, slot_dim, n_pages, kind])
     p = _build.ptr
-    _build.KERNELS[kernel](
+    kern(
         p(q_in), p(q_rs), p(k_cache), p(v_cache), p(k_scale), p(v_scale),
         p(lens), p(pt), p(part_out), p(part_lse), p(out), p(lse), dims,
         scale, float(softcap), int(safe_softmax), _build.stream_ptr(dev),

@@ -78,7 +78,6 @@ _LOG2E = math.log2(math.e)
 _LN2 = math.log(2.0)
 # Fast-softmax score clamp in exp2 units (raw score <= _CLAMP / log2(e)).
 _CLAMP = 90.0
-_HEAD_DIM = 128  # the head dim the Hopper kernels are built for
 # softmax forms of the forward kernels' C entry points
 _FAST, _ONLINE, _SOFTCAP = 0, 1, 2
 # B3's kinds of K/V (csrc/sm90.cuh kKv*): bf16, then the quantized cache
@@ -485,17 +484,18 @@ def _self_dims(q, k, v, out, left: int, right: int, sink: int):
         *pair_masks(Positions.at(0), s, s, left, right, sink)])
 
 
-def _check_self(name: str, q, k, v) -> None:
+def _check_self(name: str, entry: str, q, k, v) -> _build.Kernel:
+    """Check self-attention operands; returns entry point ``entry``'s
+    kernel at their head dim (raises on one it has none for)."""
     b, s, h, d = q.shape
     h_kv = k.shape[2]
     if k.shape != (b, s, h_kv, d) or v.shape != k.shape or h % h_kv:
         raise ValueError(f"shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)} are not self-attention")
-    if d != _HEAD_DIM:
-        raise NotImplementedError(f"the {name} kernel is built for head_dim "
-                                  f"{_HEAD_DIM}, got {d}")
+    kern = _build.kernel(entry, d, name)
     for arg, t in (("q", q), ("k", k), ("v", v)):
         _check_cuda_operand(arg, t, torch.bfloat16, q.device)
+    return kern
 
 
 # ---------------------------------------------------------------------------
@@ -525,11 +525,11 @@ def flash_fwd_causal_self(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         return flash_fwd_causal_self_plain(q, k, v, scale=scale,
                                            safe_softmax=safe_softmax)
-    _check_self("B1", q, k, v)
+    kern = _check_self("B1", "flash_fwd_causal_self", q, k, v)
     b, s, h, d = q.shape
     out = torch.empty((b, s, h, d), dtype=torch.bfloat16, device=q.device)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
-    _build.KERNELS["flash_fwd_causal_self"](
+    kern(
         _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(out),
         _build.ptr(lse), _self_dims(q, k, v, out, -1, 0, 0),
         scale * _LOG2E, scale * _LOG2E, int(safe_softmax),
@@ -581,12 +581,12 @@ def flash_fwd_static(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             sink_tokens=sink_tokens, softcap=softcap,
             safe_softmax=safe_softmax)
     left, right, sink = _masks(causal, window_size, sink_tokens, softcap)
-    _check_self("B4", q, k, v)
+    kern = _check_self("B4", "flash_fwd_static", q, k, v)
     b, s, h, d = q.shape
     out = torch.empty((b, s, h, d), dtype=torch.bfloat16, device=q.device)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     form = _form(safe_softmax, softcap)
-    _build.KERNELS["flash_fwd_static"](
+    kern(
         _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(out),
         _build.ptr(lse), _self_dims(q, k, v, out, left, right, sink),
         scale * _LOG2E, scale * _LOG2E if form == _ONLINE else scale,
@@ -744,9 +744,7 @@ def flash_fwd_pos(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if k.shape != (b, h_kv, s_kv, dk) or v.shape != k.shape or h % h_kv:
         raise ValueError(f"shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)} do not match")
-    if d != _HEAD_DIM:
-        raise NotImplementedError(f"the B3 kernel is built for head_dim "
-                                  f"{_HEAD_DIM}, got {d}")
+    kern = _build.kernel("flash_fwd_pos", d, "B3")
     _check_cuda_operand("q", q, torch.bfloat16, q.device)
     _check_cuda_operand("k", k, k.dtype, q.device)
     _check_cuda_operand("v", v, k.dtype, q.device)
@@ -767,13 +765,19 @@ def flash_fwd_pos(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lse = torch.empty((b, h, s_q), dtype=torch.float32, device=q.device)
     kst = (k.stride(0), k.stride(2), k.stride(1))  # (batch, seq, head)
     desc = pair_masks(pos, s_q, s_kv, left, right, sink)
+    if d != 128 and (desc[0] * desc[1] > 1
+                     or (features is not None and features.any)):
+        raise NotImplementedError(
+            "the B3 kernel takes two position chunks a side or the "
+            f"features (segments, ALiBi, dropout) at head_dim 128, got "
+            f"d={d}")
     q0, sink0 = legacy_dims(pos, sink)
     fdims, fargs = _feature_launch(features, b, h, s_q, s_kv, q.device)
     dims = _build.dims_array([
         b, h, h_kv, s_q, s_kv, *q.stride()[:3], *kst, *kst,
         *out.stride()[:3], *sc_strides, q0, left, right, sink0, *desc,
         *fdims, kind])
-    _build.KERNELS["flash_fwd_pos"](
+    kern(
         _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(k_scale),
         _build.ptr(v_scale), _build.ptr(out), _build.ptr(lse), dims,
         scale * _LOG2E, scale, float(softcap), _form(safe_softmax, softcap),
@@ -955,9 +959,7 @@ def _bwd_launch(kernel: str, q, k, v, dout, lse, delta, *, scale: float,
         raise ValueError(f"shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)}, dout {tuple(dout.shape)} do "
                          f"not match")
-    if d != _HEAD_DIM:
-        raise NotImplementedError(f"the backward kernels are built for "
-                                  f"head_dim {_HEAD_DIM}, got {d}")
+    kern = _build.kernel(kernel, d, "backward")
     for name, t in (("q", q), ("k", k), ("v", v), ("dout", dout)):
         _check_cuda_operand(name, t, torch.bfloat16, q.device)
     for name, t in (("lse", lse), ("delta", delta)):
@@ -987,7 +989,7 @@ def _bwd_launch(kernel: str, q, k, v, dout, lse, delta, *, scale: float,
         args.append(_build.ptr(order))
     if kernel != "flash_bwd_fused":  # B5 takes no features
         args += fargs
-    _build.KERNELS[kernel](*args)
+    kern(*args)
 
 
 def flash_bwd_dq(q, k, v, dout, lse, delta, *, scale: float,

@@ -54,7 +54,6 @@ import torch
 from long_context_attention_tpu_torch.ops import _build
 from long_context_attention_tpu_torch.ops.flash import (
     _CLAMP,
-    _HEAD_DIM,
     _LOG2E,
     _QUANT_FORWARD_ONLY,
     _check_cuda_operand,
@@ -129,10 +128,7 @@ def sage_quant_q_plain(q, scale: float, k_mean=None):
 
 
 def _check_quant_input(name, t, device) -> None:
-    if t.shape[-1] != _HEAD_DIM:
-        raise NotImplementedError(f"the sage quantization kernels are built "
-                                  f"for head_dim {_HEAD_DIM}, got "
-                                  f"{t.shape[-1]}")
+    _build.kernel("sage_quant_kv", t.shape[-1], "sage quantization")
     _check_cuda_operand(name, t, torch.bfloat16, device)
 
 
@@ -373,9 +369,7 @@ def _sage_launch(kernel: str, q8, qs, k8, ks, v8, vs, out_dtype, *,
         raise ValueError(f"shapes q8 {tuple(q8.shape)}, k8 "
                          f"{tuple(k8.shape)}, v8 {tuple(v8.shape)} do not "
                          f"match")
-    if d != _HEAD_DIM:
-        raise NotImplementedError(f"the sage kernels are built for head_dim "
-                                  f"{_HEAD_DIM}, got {d}")
+    _build.kernel(kernel, d, "sage")  # raises at a head dim it lacks
     for name, t in (("q8", q8), ("k8", k8), ("v8", v8)):
         _check_cuda_operand(name, t, torch.int8, q8.device)
     for name, t, shape in (("qs", qs, (b, h, s_q)), ("ks", ks, (b, h_kv, s_kv)),

@@ -60,7 +60,6 @@ import torch
 from long_context_attention_tpu_torch.ops import _build
 from long_context_attention_tpu_torch.ops.flash import (
     _CLAMP,
-    _HEAD_DIM,
     _LOG2E,
     _check_cuda_operand,
     _fold,
@@ -691,10 +690,7 @@ def _launch(kernel: str, q, k, v, plan: SparsePlan, *, scale: float,
             dk=None, dv=None) -> None:
     """Check a sparse kernel's operands and launch it on the current
     stream; the outputs are buffers made by the caller."""
-    d = q.shape[3]
-    if d != _HEAD_DIM:
-        raise NotImplementedError(f"the sparse kernels are built for "
-                                  f"head_dim {_HEAD_DIM}, got {d}")
+    kern = _build.kernel(kernel, q.shape[3], "sparse")
     if plan.bq % _KERNEL_BLOCK or plan.bkv % _KERNEL_BLOCK:
         raise NotImplementedError(
             f"the sparse kernels take block sizes that are multiples of "
@@ -728,7 +724,7 @@ def _launch(kernel: str, q, k, v, plan: SparsePlan, *, scale: float,
             *strides(v), *strides(dout), *strides(out), *strides(dk),
             plan.n_q, plan.n_kv, plan.bq, plan.bkv, int(plan.per_head),
             items.shape[0], sched[0].shape[0] - 1]
-    _build.KERNELS[kernel](
+    kern(
         *(_build.ptr(t) for t in (q, k, v, dout, lse, delta, *operands,
                                   items, *sched)),
         _build.dims_array(dims), *floats, _build.stream_ptr(q.device))

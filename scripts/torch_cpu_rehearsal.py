@@ -3,6 +3,8 @@
 
     python3 scripts/torch_cpu_rehearsal.py serve_windowed_paged --runs 20
     python3 scripts/torch_cpu_rehearsal.py sharded_emulated serve_sharded
+    python3 scripts/torch_cpu_rehearsal.py kernel_hd64 slice_hd64 \
+        serve_paged_hd64
 
 Each phase runs its own functions with the kernels' plain versions: a
 tiny model (vocab 256, dim 64, 2 layers, 4/2 heads of 32; 2/1 heads for
@@ -10,10 +12,14 @@ tiny model (vocab 256, dim 64, 2 layers, 4/2 heads of 32; 2/1 heads for
 timers stubbed, and the launch-count gates off (the plain versions count
 no launch). The sharded phases also shrink their caches (blocks of 4096
 slots, window 100 and 4 sinks, pages of 128), keeping the ranks' kv tiles
-the unsharded call's as the card's shapes do. Every other gate of a phase
-runs. A check of the Python, not of the kernels: prints one JSON line per
-run with its gates' result and seconds, and exits non-zero when a run
-fails.
+the unsharded call's as the card's shapes do. The head-dim-64 phases
+(``kernel_hd64``, ``slice_hd64``, ``serve_paged_hd64``) take a tiny d = 64
+model (vocab 256, dim 64, 2 layers, 8/1 heads of 64) in place of
+TinyLlama's widths, prompts of a few hundred tokens, pages of 128, the
+profiler stubbed and B7's plain version counting the launch its route
+names. Every other gate of a phase runs. A check of the Python, not of the
+kernels: prints one JSON line per run with its gates' result and seconds,
+and exits non-zero when a run fails.
 """
 
 import argparse
@@ -29,6 +35,7 @@ sys.path.insert(0, str(ROOT))
 
 TINY = dict(vocab=256, dim=64, n_layers=2, n_heads=4, n_kv_heads=2,
             head_dim=32, ffn_hidden=128, layout="basic")
+TINY_HD64 = dict(TINY, n_heads=8, n_kv_heads=1, head_dim=64)
 
 
 def _stub(cs):
@@ -37,6 +44,44 @@ def _stub(cs):
     cs.time_ms = lambda fn, iters=10, warmup=2: (fn(), 0.0)[1]
     cs.expect_counts = lambda build, want: dict(build.launch_counts())
     cs.emit = lambda obj: None
+
+
+def _hd64_sizes(cs):
+    """The head-dim-64 phases at a tiny model and sizes: prompts of 1024 in
+    chunks of 256, pages of 128, short requests; the serving counts' gates
+    off (the plain versions count no launch), the band and poison checks
+    off (the plain versions read every tile) and the profiler stubbed."""
+    cs.TINYLLAMA = TINY_HD64
+    cs.BATCH, cs.PROMPT, cs.CHUNK, cs.NEW = 4, 1024, 256, 4
+    cs.S_MAX, cs.GEN_PROMPT, cs.GEN_NEW = 2048, 64, 4
+    cs.PAGE, cs.PAGED_S_MAX, cs.POOL = 128, 512, 17
+    cs.PAGED_LENS, cs.RUN_LENS, cs.RUN_PAGES = (512, 300, 129, 1), (400,
+                                                                    200), 4
+    cs.WINDOW, cs.B7_PAGED_LAYERS = 100, 2
+    cs.WINDOWED = dict(window_left=100, sink_tokens=cs.SINKS)
+    cs.HD_REQUESTS, cs.HD_PROMPTS, cs.HD_NEW, cs.HD_S_MAX = 3, (100, 200), \
+        3, 512
+    cs.STALL_CHUNK, cs.CONT_TF_SAMPLE = 64, 2
+    cs.expect_serving_counts = lambda *a, **k: {}
+    # B7's plain version counts the launch of the kernel its route names,
+    # as the card's wrapper does (b7_run_case holds the sub-runs' count)
+    from long_context_attention_tpu_torch.ops import _build, decode
+
+    plain = decode.decode_attention_core
+
+    def counted(q_in, *a, block_kv, **k):
+        kern = decode.decode_route(q_in.shape[2], block_kv, a[1].shape[3])
+        _build.kernel(kern, q_in.shape[-1]).launches += 1
+        return plain(q_in, *a, block_kv=block_kv, **k)
+
+    decode.decode_attention_core = counted
+    # the band and poison checks hold a kernel that skips tiles: the plain
+    # versions read every tile
+    cs.band_check = lambda *a, **k: None
+    cs.poison_check = lambda *a, **k: None
+    cs.profiled = lambda fn: (fn(), {"wall_ms": 0.0, "device_ms": 0.0,
+                                     "device_busy_share": 0.0,
+                                     "kernel_launches": 0, "top": []})
 
 
 def _sharded_sizes(cs, par):
@@ -67,7 +112,8 @@ def _sharded_sizes(cs, par):
 def main():
     parser = argparse.ArgumentParser()
     parser.add_argument("phases", nargs="+", choices=(
-        "serve_windowed_paged", "sharded_emulated", "serve_sharded"))
+        "serve_windowed_paged", "sharded_emulated", "serve_sharded",
+        "kernel_hd64", "slice_hd64", "serve_paged_hd64"))
     parser.add_argument("--runs", type=int, default=1)
     parser.add_argument("--threads", type=int, default=2)
     args = parser.parse_args()
@@ -75,7 +121,8 @@ def main():
     import chip_smoke as cs
     import long_context_attention_tpu_torch as pkg
     import long_context_attention_tpu_torch.parallel as par
-    from long_context_attention_tpu_torch.ops import _build, decode, kv_cache
+    from long_context_attention_tpu_torch.ops import (
+        _build, decode, flash, kv_cache)
     from long_context_attention_tpu_torch.serving import sharded
 
     _stub(cs)
@@ -87,12 +134,20 @@ def main():
             _build, decode, kv_cache, sharded,
             torch.Generator().manual_seed(0), dev, "cpu"),
         "serve_sharded": lambda: cs.serve_sharded_phase(
+            pkg, _build, decode, dev, "cpu"),
+        "kernel_hd64": lambda: cs.kernel_hd64(
+            _build.KERNELS, flash, decode, kv_cache,
+            torch.Generator().manual_seed(0), dev),
+        "slice_hd64": lambda: cs.slice_hd64_phase(pkg, _build, dev, "cpu"),
+        "serve_paged_hd64": lambda: cs.serve_paged_hd64_phase(
             pkg, _build, decode, dev, "cpu")}
     failed = 0
     for name in args.phases:
         cs.MODEL = dict(TINY, **({"n_heads": 2, "n_kv_heads": 1}
                                  if name == "serve_windowed_paged" else {}))
-        if name != "serve_windowed_paged":
+        if name.endswith("hd64"):
+            _hd64_sizes(cs)
+        elif name != "serve_windowed_paged":
             _sharded_sizes(cs, par)
         for run in range(args.runs):
             t0 = time.perf_counter()

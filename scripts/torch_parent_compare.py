@@ -16,7 +16,10 @@ heads, head_dim 128, bf16):
 * kernels whose arithmetic both trees share, which must agree bit for bit:
   B1 causal self-attention at b=4, s=2048 and s=8192; B3 over an int8 kv
   prefix of 6144 with 2048 rows at q_start 6144, causal, and with window
-  4096 and 4 sinks, and over a bf16 kv at b=1, s=8192; B2b and B5 at b=1,
+  4096 and 4 sinks, in the online and softcap forms, the same over fp8
+  and packed int4 prefixes (every quantized kind, whose widening the
+  producers choose by a run-time value or a template argument), and over
+  a bf16 kv at b=1, s=8192; B2b and B5 at b=1,
   s=8192, causal (B5's dq is added by TMA reduce-adds in an order that
   changes from run to run, so it is held to ROW_REL_TOL of each row); the
   sage kernels B8a and B8b on the int8 operands of a 4 x 8192 prefill
@@ -553,6 +556,22 @@ def main():
     compare("B3 int8 window sinks", lambda: flash.flash_fwd_pos(
         q, k8, v8, ks, vs, q_start=start, causal=True, scale=SCALE,
         window_size=(WINDOW, -1), sink_tokens=SINKS))
+    for tag, kw in (("safe", dict(safe_softmax=True)),
+                    ("softcap", dict(softcap=50.0))):
+        compare(f"B3 int8 {tag}", lambda: flash.flash_fwd_pos(
+            q, k8, v8, ks, vs, q_start=start, causal=True, scale=SCALE,
+            **kw))
+    from long_context_attention_tpu_torch.ops import kv_cache
+    for dt in ("float8_e4m3fn", "int4"):
+        (kq, ksq), (vq, vsq) = (kv_cache.quantize_kv(
+            torch.randn((b, HKV, start, D), generator=gen, device=dev), dt)
+            for _ in range(2))
+        compare(f"B3 {dt} dense", lambda: flash.flash_fwd_pos(
+            q, kq, vq, ksq, vsq, q_start=start, causal=True, scale=SCALE))
+        compare(f"B3 {dt} window sinks safe", lambda: flash.flash_fwd_pos(
+            q, kq, vq, ksq, vsq, q_start=start, causal=True, scale=SCALE,
+            window_size=(WINDOW, -1), sink_tokens=SINKS, safe_softmax=True))
+        del kq, ksq, vq, vsq
     q1 = randn(1, 8192, H, D)
     kb, vb = (randn(1, 8192, HKV, D).transpose(1, 2) for _ in range(2))
     compare("B3 bf16 b=1 s=8192", lambda: flash.flash_fwd_pos(

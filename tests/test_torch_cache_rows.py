@@ -397,15 +397,15 @@ def test_plan_launch_writes_what_the_plain_path_does(rng, fake_b6, layout,
 def test_plan_checks_the_cache_once():
     """The plan holds a cache's own arrays by identity (replacing one
     makes a new plan) and raises, when made, on a cache the kernel cannot
-    take: head_dim other than 128, scales of the wrong dtype or shape, a
-    bf16 cache with scales."""
+    take: head_dim other than 64 or 128, scales of the wrong dtype or
+    shape, a bf16 cache with scales."""
     c = tkv.KVCache.init(L, 2, 64, HKV, _D128, "int8", device="cpu")
     plan = _plan(c)
     assert plan.holds(c)
     c.k = c.k.clone()
     assert not plan.holds(c)
-    with pytest.raises(NotImplementedError, match="head_dim"):
-        tdec._RowsPlan(tkv.KVCache.init(L, 2, 64, HKV, 64, "int8",
+    with pytest.raises(NotImplementedError, match="head_dim 64 or 128"):
+        tdec._RowsPlan(tkv.KVCache.init(L, 2, 64, HKV, 32, "int8",
                                         device="cpu"))
     bad = tkv.KVCache.init(L, 2, 64, HKV, _D128, "int8", device="cpu")
     bad.k_scale = bad.k_scale.double()

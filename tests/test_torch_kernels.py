@@ -143,7 +143,8 @@ def test_sm90_sources_build_for_sm90a():
     of B2b's kernel, B9a's of the forward kernel and B2a's and B9b's of the
     dq kernel, not second pipelines; so are the multi-chunk descriptor of
     B3, B2a, B2b and B8b (MULTI) and the features of B3, B2a and B2b
-    (FEAT: segments, ALiBi, dropout). The backward entry points share one C
+    (FEAT: segments, ALiBi, dropout); B3's quantized K/V kind is a
+    run-time value of its producers. The backward entry points share one C
     signature (B2b's takes its kv tile order after it, and B2a's and B2b's
     the features' operands last)."""
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
@@ -166,12 +167,16 @@ def test_sm90_sources_build_for_sm90a():
                    '#include "sm90.cuh"'):
         assert needle in fwd
     assert fwd.count("__global__") == 1
-    assert "flash_fwd_sm90_kernel<false, kFast, kKvBF16, true>" in fwd
+    assert "flash_fwd_sm90_kernel<false, kFast, false, true>" in fwd
     # B3 at multi-chunk positions and with the features, over bf16 K/V or
-    # the quantized cache's int8, fp8 and packed int4 (the KV kind)
-    assert "launch<false, kFast, KV, MULTI, FEAT>" in fwd
-    for kind in ("kKvBF16", "kKvInt8", "kKvFp8", "kKvInt4"):
-        assert f"pos_feat<{kind}, MULTI>(" in fwd
+    # the quantized cache (QUANT): its kind, int8, fp8 or packed int4, is a
+    # run-time value that the producers read to widen the raw tiles
+    assert "launch<false, kFast, QUANT, MULTI, FEAT>" in fwd
+    for quant in ("true", "false"):
+        assert f"pos_form<{quant}, MULTI, true>(" in fwd
+    assert "widen_rows<BKV, KV, D>(" in fwd
+    for kind in ("kKvInt8", "kKvFp8", "kKvInt4"):
+        assert f"stream(KvKind<{kind}>())" in fwd
     for multi in ("true", "false"):
         assert f"pos_kind<{multi}>(" in fwd
     # B7's kinds: bf16, the s8 path over int8 and int4, the cast path over
