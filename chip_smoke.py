@@ -229,7 +229,19 @@ Phases, one JSON line each; any failure exits non-zero:
  28. serve_paged_hd64: that model through PagedContinuousEngine with
      interleaved admission over int8, fp8 and int4 pages: every chunk
      sub-run on decode_run at d = 64 (the tile rule's plan, exact counts),
-     logprobs against teacher forcing.
+     logprobs against teacher forcing;
+ 29. train_hd64: that model trained as train trains the 0.88B config
+     (b=1, s=8192, AdamW; remat none and attn): exact counts of B1 and B5
+     at d = 64 and no other kernel, a falling loss, ms/step, tok/s, 6ND
+     MFU, peak memory, one step profiled;
+ 30. grad_check_hd64: its loss and every gradient at 2 layers, s=1024,
+     under remat none, attn and full, against the CPU's plain backward;
+ 31. train_usp_hd64: train_usp at that model (zigzag, a one-rank NCCL
+     mesh): one mesh step against the single-device step (loss, leaves,
+     updates), then timed steps with exact counts of B3, B2a and B2b at
+     d = 64 and no other kernel;
+ 32. usp_varlen_hd64: usp_varlen at its attention width (32 / 4 heads of
+     64, s = 32768): one B3, B2a and B2b at d = 64 a forward and backward.
 The kernel phase's kernel_hd64 holds the d = 64 kernels at TinyLlama's
 shapes against their plain versions at their rows' tolerances, each
 timed: B1 (fast and online, ragged), B3 over bf16, int8, fp8 and int4
@@ -237,8 +249,12 @@ timed: B1 (fast and online, ragged), B3 over bf16, int8, fp8 and int4
 B6 in every kind, dense and paged, at 1, 256 and 2048 tokens bit for bit,
 one-token B7 at G = 8 in every kind dense and paged (cast path, window
 and sinks), and B7's runs of 256 (three sub-runs) in every kind with the
-poison check; the d = 64 kernels get rows of their own in the kernel
-table, their cases' launches from the two phases above.
+poison check; and (kernel_hd64_train) at b=1, s=8192: B5 causal, B3, B2a
+and B2b at a one-rank zigzag ring's two chunks, B5 / B2a / B2b with the
+masks and their band checks, B3 / B2a / B2b at the W = 4 ring's
+descriptors and with segments, ALiBi and dropout; the d = 64 kernels get
+rows of their own in the kernel table, their cases' launches from the
+phases above.
 Every paged phase asserts that the engine took the native allocator
 (csrc/lca_host.cc, built with g++ into build/host/).
 The kernel phase holds B6's quantizing entry (cache_append_rows: bf16
@@ -2596,6 +2612,140 @@ def kernel_hd64(K, flash, decode, kv_cache, gen, dev):
     return out
 
 
+# the d = 64 kernel rows' main paths, in order: a row's launches are its
+# kernel's on the first of them that runs it
+HD_MAIN_PATHS = ("slice_hd64", "serve_paged_hd64", "train_hd64",
+                 "train_usp_hd64")
+# head dim 64 in training (train_hd64): remat policies and timed steps
+HD_TRAIN_STEPS = (("none", 3), ("attn", 2))
+
+
+def kernel_hd64_train(K, flash, ring, gen, dev):
+    """The d = 64 training kernels at TinyLlama-1.1B's attention widths
+    (b=1, s=8192, 32 / 4 heads of 64), each against its plain version on
+    the card at its d = 128 row's gate (ROW_REL_TOL) and timed beside its
+    bound and SDPA's: B5 causal (train_hd64's call), with SDPA's flash
+    backward; B3, B2a and B2b at the two-chunk descriptor of a one-rank
+    zigzag ring (train_usp_hd64's calls), B3 beside SDPA's causal forward
+    (the same function over the permuted sequence); B5 with window 4096 + 4
+    sinks, a non-causal two-sided window and softcap 50, B2a + B2b with
+    the windowed offsets and window + sinks + softcap from kv offset s/2
+    (kernel_bwd_masked, with its band checks); B3, B2a and B2b at the W = 4
+    ring's descriptors (kernel_ring, with ring_forms' softcap and online
+    forms) and with segments, ALiBi and dropout together at one chunk and
+    the ring's zigzag and stripe steps (kernel_features). Returns {d = 128
+    row name: [cases]}."""
+    cfg = TINYLLAMA
+    b, s, h, hk = 1, TRAIN_SEQ, cfg["n_heads"], cfg["n_kv_heads"]
+    d = cfg["head_dim"]
+    scale = d ** -0.5
+    out = {n: [] for n in ("flash_fwd_pos", "flash_bwd_dq", "flash_bwd_dkv",
+                           "flash_bwd_fused")}
+    tags = {"B3": "flash_fwd_pos", "B2a": "flash_bwd_dq",
+            "B2b": "flash_bwd_dkv", "B5": "flash_bwd_fused"}
+    q, dout = (torch.randn((b, s, h, d), generator=gen, device=dev)
+               .bfloat16() for _ in range(2))
+    k, v = (torch.randn((b, s, hk, d), generator=gen, device=dev).bfloat16()
+            for _ in range(2))
+    kt, vt = k.transpose(1, 2), v.transpose(1, 2)
+    lib_bwd = sdpa_backward_ms(q, k, v, dout)
+    qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+    lib_fwd = time_ms(lambda: F.scaled_dot_product_attention(
+        qh, kh, vh, is_causal=True, enable_gqa=True))
+    del qh, kh, vh
+    live = b * h * s * (s + 1) // 2
+    in_bytes = 2 * (2 * q.numel() + 2 * k.numel()) + 8 * b * h * s
+    work = {"B3": (4, 2 * (2 * q.numel() + 2 * k.numel()) + 4 * b * h * s),
+            "B2a": (6, in_bytes + 4 * q.numel()),
+            "B2b": (8, in_bytes + 8 * k.numel()),
+            "B5": (10, in_bytes + 4 * q.numel() + 8 * k.numel())}
+    library = {"B3": "SDPA causal forward, GQA",
+               **dict.fromkeys(("B2a", "B2b", "B5"),
+                               "SDPA flash backward (dq, dk, dv), K/V "
+                               "repeated to the query heads")}
+
+    def add(n, tag, checks, fn, plain, path):
+        ms = time_ms(fn)
+        pms = time_ms(plain, iters=1, warmup=0)
+        torch.cuda.empty_cache()
+        out[tags[n]].append({
+            "case": f"d=64 b={b} s={s} h={h}/{hk} {tag}",
+            "kernel": K[f"{tags[n]}_d64"].name, "path": path,
+            "library": library[n],
+            **case_row(checks, ms, pms, work[n][0] * d * live, work[n][1],
+                       lib_fwd if n == "B3" else lib_bwd)})
+
+    def delta_of(o):
+        return (dout.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+
+    # B5: causal self-attention on B1's out and lse, train_hd64's call
+    o, lse = flash.flash_fwd_causal_self(q, k, v, scale=scale)
+    args = (q, k, v, dout, lse, delta_of(o))
+    del o
+    kw = dict(scale=scale, causal=True)
+    got = flash.flash_bwd_fused(*args, **kw)
+    want = flash.flash_bwd_fused_plain(*args, **kw)
+    torch.cuda.synchronize()
+    checks = [check_out(f"B5 d=64 {g} causal", a, w, 0 if g == "dq" else None)
+              for g, a, w in zip(("dq", "dk", "dv"), got, want)]
+    del got, want
+    add("B5", "causal", checks, lambda: flash.flash_bwd_fused(*args, **kw),
+        lambda: flash.flash_bwd_fused_plain(*args, **kw), "train_hd64")
+    del args
+    # B3, B2a and B2b at a one-rank zigzag ring's descriptor (its two
+    # chunks at 0 and s / 2), train_usp_hd64's calls
+    fw = dict(pos=flash.Positions((0, s // 2), (0, s // 2)), causal=True,
+              scale=scale)
+    o, lse = flash.flash_fwd_pos(q, kt, vt, **fw)
+    po, pl_ = flash.flash_fwd_pos_plain(q, kt, vt, **fw)
+    torch.cuda.synchronize()
+    c3 = [check_out("B3 d=64 out zigzag one-rank", o, po)]
+    check("B3 d=64 lse zigzag one-rank", max_err(lse, pl_), LSE_TOL)
+    del po, pl_
+    add("B3", "zigzag one-rank ring", c3,
+        lambda: flash.flash_fwd_pos(q, kt, vt, **fw),
+        lambda: flash.flash_fwd_pos_plain(q, kt, vt, **fw), "train_usp_hd64")
+    args = (q, k, v, dout, lse, delta_of(o))
+    del o
+    dq = flash.flash_bwd_dq(*args, **fw)
+    pdq = flash.flash_bwd_dq_plain(*args, **fw)
+    torch.cuda.synchronize()
+    c2a = [check_out("B2a d=64 dq zigzag one-rank", dq, pdq, 0)]
+    del dq, pdq
+    dk, dv = flash.flash_bwd_dkv(*args, **fw)
+    pdk, pdv = flash.flash_bwd_dkv_plain(*args, **fw)
+    torch.cuda.synchronize()
+    c2b = [check_out("B2b d=64 dk zigzag one-rank", dk, pdk),
+           check_out("B2b d=64 dv zigzag one-rank", dv, pdv)]
+    del dk, dv, pdk, pdv
+    add("B2a", "zigzag one-rank ring", c2a,
+        lambda: flash.flash_bwd_dq(*args, **fw),
+        lambda: flash.flash_bwd_dq_plain(*args, **fw), "train_usp_hd64")
+    add("B2b", "zigzag one-rank ring", c2b,
+        lambda: flash.flash_bwd_dkv(*args, **fw),
+        lambda: flash.flash_bwd_dkv_plain(*args, **fw), "train_usp_hd64")
+    del args
+    torch.cuda.empty_cache()
+    # the masks with their band checks, the ring's descriptors, the
+    # features (their launches: usp_varlen_hd64's)
+    masked = kernel_bwd_masked(flash, dev, q, k, v, dout, scale)
+    del q, k, v, dout, kt, vt
+    torch.cuda.empty_cache()
+    groups = [(masked, "", None)]
+    groups.append((kernel_ring(K, flash, None, ring, gen, dev, model=cfg),
+                   "ring ", None))
+    torch.cuda.empty_cache()
+    groups.append((kernel_features(K, flash, ring, gen, dev, model=cfg),
+                   "features ", "usp_varlen_hd64"))
+    torch.cuda.empty_cache()
+    for rows, prefix, path in groups:
+        for n, cases in rows.items():
+            out[tags[n]] += [{**c, "case": f"d=64 {prefix}{c['case']}",
+                              "kernel": K[f"{tags[n]}_d64"].name,
+                              "path": path} for c in cases]
+    return out
+
+
 # ---------------------------------------------------------------------------
 # the fp8 and int4 caches: B6, B7 and B3 over fp8 and packed int4 values
 # ---------------------------------------------------------------------------
@@ -3109,16 +3259,19 @@ def kernel_bwd_masked(flash, dev, q, k, v, dout, scale):
     finite (B5: within the row limit, its dq being added in no fixed order;
     B2a: bit-equal), and q tiles (64 rows: B5's and B2b's) that see none of
     the last kv columns leave their dk and dv bit-equal. Each case timed,
-    with its bound from the visible pairs. Returns {kernel: [case rows]}."""
+    with its bound from the visible pairs. At head dim 64 B5's forward is
+    B3 at q position 0 (B4 takes 128 only). Returns {kernel: [case
+    rows]}."""
     b, s, h, _ = q.shape
     d = q.shape[-1]
     out = {"B2a": [], "B2b": [], "B5": []}
 
     def fwd(q_start, shape):
-        if q_start is None:
+        if q_start is None and d == 128:
             return flash.flash_fwd_static(q, k, v, scale=scale, **shape)
         return flash.flash_fwd_pos(q, k.transpose(1, 2), v.transpose(1, 2),
-                                   q_start=q_start, scale=scale, **shape)
+                                   q_start=q_start or 0, scale=scale,
+                                   **shape)
 
     def vis_of(q_start, shape):
         left, right = shape["window_size"]
@@ -3454,6 +3607,15 @@ def expect_counts(build, want):
             raise AssertionError(f"{name} launched {got[name]} times on the "
                                  f"path, expected {n} (all: {got})")
     return got
+
+
+def exact_counts(build, want, d=128):
+    """expect_counts over every kernel: each entry point of ``want`` (its
+    d = 128 name) at its count on its head dim d kernel, every other kernel
+    at 0."""
+    return expect_counts(build, {**dict.fromkeys(build.KERNELS, 0),
+                                 **{build.kernel(n, d).name: c
+                                    for n, c in want.items() if c}})
 
 
 def expect_native(tag, eng):
@@ -4740,30 +4902,31 @@ def train_batch(vocab, seq, dev):
 
 
 def train_phase(pkg, build, dev, card, impl="pallas", plan=TRAIN_STEPS,
-                windowed=False):
-    """make_train_step on the 0.88B config at b=1, s=8192 with attention
-    ``impl`` (pallas: B1 forward; sage: B8a and its quantization kernels;
-    B5 backward for both; ``windowed``: pallas with WINDOWED, B4 forward
-    and B5 over the band and the sink tiles): one
+                windowed=False, model=None, tag=None):
+    """make_train_step on ``model`` (the 0.88B config by default) at b=1,
+    s=8192 with attention ``impl`` (pallas: B1 forward; sage: B8a and its
+    quantization kernels; B5 backward for both; ``windowed``: pallas with
+    WINDOWED, B4 forward and B5 over the band and the sink tiles): one
     warm-up step, then timed steps on the same batch under each remat
-    policy of ``plan``, each step's launch counts checked exactly. Returns
-    the counts of the `none` run."""
+    policy of ``plan``, each step's launch counts checked exactly (those
+    kernels at the model's head dim, no other kernel). Returns the counts
+    of the `none` run."""
     from long_context_attention_tpu_torch.models.llama import (
         init_params, make_train_step, param_leaves)
 
-    L = MODEL["n_layers"]
-    fwd, other = FORWARD_KERNEL[impl], FORWARD_KERNEL[
-        "pallas" if impl == "sage" else "sage"]
-    shape, phase = {}, "train" if impl == "pallas" else "train_sage"
+    model = model or MODEL
+    L, d = model["n_layers"], model["head_dim"]
+    fwd = FORWARD_KERNEL[impl]
+    shape, phase = {}, tag or ("train" if impl == "pallas" else "train_sage")
     if windowed:
         shape, phase = WINDOWED, "train_windowed"
-        fwd, other = "flash_fwd_static", "flash_fwd_causal_self"
-    tokens, labels, mask = train_batch(MODEL["vocab"], TRAIN_SEQ, dev)
+        fwd = "flash_fwd_static"
+    tokens, labels, mask = train_batch(model["vocab"], TRAIN_SEQ, dev)
     opt = functools.partial(torch.optim.AdamW, lr=LR,
                             weight_decay=WEIGHT_DECAY)
     main_counts = None
     for remat, steps in plan:
-        cfg = pkg.ModelConfig(**MODEL, **shape, remat=remat, attn_impl=impl)
+        cfg = pkg.ModelConfig(**model, **shape, remat=remat, attn_impl=impl)
         params = init_params(torch.Generator(device=dev).manual_seed(SEED),
                              cfg, device=dev)
         n_params = sum(t.numel() for t in param_leaves(params))
@@ -4780,10 +4943,9 @@ def train_phase(pkg, build, dev, card, impl="pallas", plan=TRAIN_STEPS,
             losses.append(float(loss))  # synchronizes
             times.append(time.perf_counter() - t0)
         n_fwd = steps * L * (2 if remat == "full" else 1)
-        counts = expect_counts(build, {
-            fwd: n_fwd, other: 0, "flash_bwd_fused": steps * L,
-            "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "flash_fwd_pos": 0,
-            "sage_fwd_pos": 0, **quant_counts(n_fwd if impl == "sage" else 0)})
+        counts = exact_counts(build, {
+            fwd: n_fwd, "flash_bwd_fused": steps * L,
+            **quant_counts(n_fwd if impl == "sage" else 0)}, d)
         if not all(math.isfinite(x) for x in losses):
             raise AssertionError(f"remat={remat}: loss not finite: {losses}")
         if remat == "none":
@@ -4794,7 +4956,7 @@ def train_phase(pkg, build, dev, card, impl="pallas", plan=TRAIN_STEPS,
         ms = 1e3 * sum(times) / steps
         flops = 6 * TRAIN_SEQ * n_params  # the 6ND convention
         emit({"phase": phase, "card": card, "attn_impl": impl,
-              **shape, "remat": remat, "batch": 1,
+              **shape, "remat": remat, "batch": 1, "head_dim": d,
               "seq": TRAIN_SEQ, "params": n_params, "steps": steps,
               "ms_per_step": ms, "ms_min": 1e3 * min(times),
               "ms_max": 1e3 * max(times), "ms_all": [1e3 * t for t in times],
@@ -4804,12 +4966,12 @@ def train_phase(pkg, build, dev, card, impl="pallas", plan=TRAIN_STEPS,
               "max_memory_allocated_gb":
                   torch.cuda.max_memory_allocated() / 2 ** 30,
               "losses": losses, "launches_per_step":
-                  {n: c // steps for n, c in counts.items()}})
+                  {n: c // steps for n, c in counts.items() if c}})
         if remat == "none":
             _, prof = profiled(lambda: step(params, state, tokens, labels,
                                             mask)[2])
-            emit({"phase": "train_profile", "attn_impl": impl, **shape,
-                  "remat": remat, **prof})
+            emit({"phase": "train_profile", "of": phase, "attn_impl": impl,
+                  **shape, "remat": remat, **prof})
         del params, state, step, loss
         torch.cuda.empty_cache()
     return main_counts
@@ -4824,18 +4986,22 @@ def named_leaves(tree, prefix=""):
 
 
 def grad_check_phase(pkg, build, dev, card, impl="pallas",
-                     remats=("none", "attn", "full"), shape=None):
+                     remats=("none", "attn", "full"), shape=None,
+                     model=None, tag="grad_check"):
     """The loss and every parameter gradient of loss_local with attention
     ``impl`` on the card (kernels) under each remat policy against the same
-    backward on CPU copies without remat (plain versions), at 2 layers,
-    full width, b=1, s=1024, each card run's forward kernel (B1 or B8a; B4
-    with a ``shape``: GRAD_WINDOWED's window, sinks and softcap) and B5
-    launches checked."""
+    backward on CPU copies without remat (plain versions), at 2 layers of
+    ``model`` (the 0.88B config by default), full width, b=1, s=1024, each
+    card run's forward kernel (B1 or B8a; B4 with a ``shape``:
+    GRAD_WINDOWED's window, sinks and softcap) and B5 launches checked
+    exactly (at the model's head dim, no other kernel)."""
     from long_context_attention_tpu_torch.models.llama import (
         init_params, loss_local)
 
+    model = model or MODEL
+    d = model["head_dim"]
     fwd = "flash_fwd_static" if shape else FORWARD_KERNEL[impl]
-    cfg = pkg.ModelConfig(**{**MODEL, "n_layers": GRAD_LAYERS},
+    cfg = pkg.ModelConfig(**{**model, "n_layers": GRAD_LAYERS},
                           **(shape or {}), attn_impl=impl)
     params = init_params(torch.Generator(device=dev).manual_seed(SEED), cfg,
                          device=dev)
@@ -4860,9 +5026,9 @@ def grad_check_phase(pkg, build, dev, card, impl="pallas",
         build.reset_launch_counts()
         loss_card, g_card = loss_and_grads(dev, remat)
         n_fwd = GRAD_LAYERS * (2 if remat == "full" else 1)
-        counts = expect_counts(build, {
+        counts = exact_counts(build, {
             fwd: n_fwd, "flash_bwd_fused": GRAD_LAYERS,
-            **quant_counts(n_fwd if impl == "sage" else 0)})
+            **quant_counts(n_fwd if impl == "sage" else 0)}, d)
         leaves = {}
         for n, want in g_cpu.items():
             size = float(want.abs().max())
@@ -4870,21 +5036,19 @@ def grad_check_phase(pkg, build, dev, card, impl="pallas",
                          / size, "max_abs": size,
                          "mean_abs": float(want.abs().mean())}
         worst = max(x["rel_err"] for x in leaves.values())
-        emit({"phase": "grad_check", "card": card, "attn_impl": impl,
+        emit({"phase": tag, "card": card, "attn_impl": impl,
               **(shape or {}), "remat": remat, "layers": GRAD_LAYERS,
-              "seq": GRAD_SEQ,
+              "seq": GRAD_SEQ, "head_dim": d,
               "loss_card": loss_card,
               "loss_cpu": loss_cpu, "loss_tol": LOSS_TOL,
               "grad_tol": GRAD_TOL, "worst_rel_err": worst,
-              "launches": {n: counts[n] for n in (fwd, "flash_bwd_fused",
-                                                 *SAGE_QUANT)},
+              "launches": {n: c for n, c in counts.items() if c},
               "leaves": leaves})
-        tag = f"{impl}{' windowed' if shape else ''} remat={remat}"
-        check(f"grad_check {tag} loss",
-              abs(loss_card - loss_cpu), LOSS_TOL)
+        what = f"{tag} {impl}{' windowed' if shape else ''} remat={remat}"
+        check(f"{what} loss", abs(loss_card - loss_cpu), LOSS_TOL)
         for n, x in leaves.items():
-            check(f"grad_check {tag} {n} (relative to its "
-                  f"largest value)", x["rel_err"], GRAD_TOL)
+            check(f"{what} {n} (relative to its largest value)",
+                  x["rel_err"], GRAD_TOL)
 
 
 # The dense ring's descriptors: a W=4 ring at the 0.88B attention width
@@ -4919,22 +5083,28 @@ def ring_case_kwargs(ring, tag, fields, rank, step):
                      sink_tokens=kw.get("sink_tokens", 0))
 
 
-def kernel_ring(K, flash, sage, ring, gen, dev):
+def kernel_ring(K, flash, sage, ring, gen, dev, model=None):
     """B3, B2a, B2b and B8b at the dense ring's multi-chunk and strided
     descriptors (RING_CASES), each against its plain version row by row
     (dead rows exactly 0, lse -inf), timed beside its bound from the
     case's visible pairs and SDPA's memory-efficient kernel with the
-    equivalent boolean mask. Returns {kernel: [case rows]}."""
-    b, s, h, hk, d = 1, RING_LOCAL, MODEL["n_heads"], MODEL["n_kv_heads"], 128
+    equivalent boolean mask, at the attention widths of ``model`` (MODEL
+    by default; at head dim 64 without B8b, which takes 128 only).
+    Returns {kernel: [case rows]}."""
+    model = model or MODEL
+    b, s, h, hk = 1, RING_LOCAL, model["n_heads"], model["n_kv_heads"]
+    d = model["head_dim"]
     scale = d ** -0.5
     q, dout = (torch.randn((b, s, h, d), generator=gen, device=dev)
                .bfloat16() for _ in range(2))
     k, v = (torch.randn((b, s, hk, d), generator=gen, device=dev).bfloat16()
             for _ in range(2))
     kt, vt = k.transpose(1, 2), v.transpose(1, 2)
-    q8, qs, _ = sage.sage_quant_q(q, scale)
-    (k8, ks), (v8, vs) = (ring._quantize(t, "int8") for t in (k, v))
-    out_rows = {n: [] for n in ("B3", "B2a", "B2b", "B8b")}
+    with_sage = d == 128
+    if with_sage:
+        q8, qs, _ = sage.sage_quant_q(q, scale)
+        (k8, ks), (v8, vs) = (ring._quantize(t, "int8") for t in (k, v))
+    out_rows = {n: [] for n in ("B3", "B2a", "B2b", "B8b")[:3 + with_sage]}
     for tag, fields, rank, step in RING_CASES:
         pos, mk = ring_case_kwargs(ring, tag, fields, rank, step)
         left, right, sink = flash._masks(mk["causal"], mk["window_size"],
@@ -4964,13 +5134,14 @@ def kernel_ring(K, flash, sage, ring, gen, dev):
         c2b = [check_out(f"B2b {tag} dk", dk, pdk),
                check_out(f"B2b {tag} dv", dv, pdv)]
         del dk, dv, pdk, pdv
-        sargs = (q8, qs, k8, ks, v8, vs)
-        so, sl = sage.sage_fwd_pos(*sargs, pos=pos, **mk)
-        pso, psl = sage.sage_fwd_pos_plain(*sargs, pos=pos, **mk)
-        torch.cuda.synchronize()
-        c8 = [check_out(f"B8b {tag} out", so, pso)]
-        check(f"B8b {tag} lse", max_err(sl, psl), LSE_TOL)
-        del so, sl, pso, psl
+        if with_sage:
+            sargs = (q8, qs, k8, ks, v8, vs)
+            so, sl = sage.sage_fwd_pos(*sargs, pos=pos, **mk)
+            pso, psl = sage.sage_fwd_pos_plain(*sargs, pos=pos, **mk)
+            torch.cuda.synchronize()
+            c8 = [check_out(f"B8b {tag} out", so, pso)]
+            check(f"B8b {tag} lse", max_err(sl, psl), LSE_TOL)
+            del so, sl, pso, psl
         torch.cuda.empty_cache()
         sdpa_f, sdpa_b = sdpa_masked_ms(q, k, v, dout, vis)
         in_b = 2 * (2 * q.numel() + 2 * k.numel())
@@ -4983,11 +5154,13 @@ def kernel_ring(K, flash, sage, ring, gen, dev):
              in_b + 8 * b * h * s + 4 * q.numel(), PEAK_BF16_FLOPS, sdpa_b),
             ("B2b", c2b, lambda: flash.flash_bwd_dkv(*args, **bw),
              lambda: flash.flash_bwd_dkv_plain(*args, **bw), 8,
-             in_b + 8 * b * h * s + 8 * k.numel(), PEAK_BF16_FLOPS, sdpa_b),
-            ("B8b", c8, lambda: sage.sage_fwd_pos(*sargs, pos=pos, **mk),
-             lambda: sage.sage_fwd_pos_plain(*sargs, pos=pos, **mk), 4,
-             q.numel() + 2 * k.numel() + 2 * q.numel() + 4 * b * (h + 2 * hk) * s,
-             PEAK_SAGE_OPS, sdpa_f))
+             in_b + 8 * b * h * s + 8 * k.numel(), PEAK_BF16_FLOPS, sdpa_b))
+        if with_sage:
+            kinds += (
+                ("B8b", c8, lambda: sage.sage_fwd_pos(*sargs, pos=pos, **mk),
+                 lambda: sage.sage_fwd_pos_plain(*sargs, pos=pos, **mk), 4,
+                 q.numel() + 2 * k.numel() + 2 * q.numel()
+                 + 4 * b * (h + 2 * hk) * s, PEAK_SAGE_OPS, sdpa_f),)
         for n, checks, fn, plain, per_pair, nbytes, peak, lib in kinds:
             ms = time_ms(fn)
             pms = time_ms(plain, iters=1, warmup=1)
@@ -5009,17 +5182,19 @@ def kernel_ring(K, flash, sage, ring, gen, dev):
 def ring_forms(flash, ring, q, k, v, dout, scale):
     """The other instantiations the ring's steps reach at a two-chunk
     descriptor (zigzag rank 1 step 2), each against its plain version row
-    by row: B3 over int8 K/V (kv_quant="int8"), with softcap 50 and in the
-    online form (safe_softmax); B2a and B2b with softcap 50."""
+    by row: B3 over int8 K/V (kv_quant="int8"; head dim 128 only), with
+    softcap 50 and in the online form (safe_softmax); B2a and B2b with
+    softcap 50."""
     pos, mk = ring_case_kwargs(ring, *RING_CASES[0])
     kt, vt = k.transpose(1, 2), v.transpose(1, 2)
-    (k8, ks), (v8, vs) = (ring._quantize(t, "int8") for t in (k, v))
+    forms = [("softcap", (q, kt, vt), dict(softcap=SOFTCAP)),
+             ("safe_softmax", (q, kt, vt), dict(safe_softmax=True))]
+    if q.shape[-1] == 128:
+        (k8, ks), (v8, vs) = (ring._quantize(t, "int8") for t in (k, v))
+        forms.insert(0, ("int8 K/V", (q, k8.transpose(1, 2),
+                                      v8.transpose(1, 2), ks, vs), {}))
     errs = {}
-    for tag, args, kw in (
-            ("int8 K/V", (q, k8.transpose(1, 2), v8.transpose(1, 2), ks, vs),
-             {}),
-            ("softcap", (q, kt, vt), dict(softcap=SOFTCAP)),
-            ("safe_softmax", (q, kt, vt), dict(safe_softmax=True))):
+    for tag, args, kw in forms:
         fw = dict(pos=pos, scale=scale, **mk, **kw)
         got = flash.flash_fwd_pos(*args, **fw)
         want = flash.flash_fwd_pos_plain(*args, **fw)
@@ -5044,7 +5219,7 @@ def ring_forms(flash, ring, q, k, v, dout, scale):
         del got, want
         torch.cuda.empty_cache()
     emit({"phase": "ring_forms", "case": RING_CASES[0][0],
-          "row_rel_err": errs})
+          "head_dim": q.shape[-1], "row_rel_err": errs})
 
 
 # ---------------------------------------------------------------------------
@@ -5178,10 +5353,13 @@ def feature_mask(vis, feat, pos, s_q, s_kv, dev, dtype):
     return mask
 
 
-def kernel_features(K, flash, ring, gen, dev):
+def kernel_features(K, flash, ring, gen, dev, model=None):
     """B3, B2a and B2b with the features (packed segments, ALiBi with the
-    geometric slopes, dropout 0.1, all three) at the trainer's per-layer
-    shape (b=1, s=8192, 16/8 heads, causal), at one chunk and at the ring's
+    geometric slopes, dropout 0.1, all three; at head dim 64 all three
+    together only, and no int8 K/V nor kv_lengths: B3 over quantized K/V
+    takes the features at 128 only) at the trainer's per-layer shape (b=1,
+    s=8192, at ``model``'s widths: MODEL's 16/8 heads of 128 by default,
+    causal), at one chunk and at the ring's
     zigzag and stripe steps (feature_descs), each against its plain version
     (check_fwd_rows; the backward on the kernel forward's out and lse, rows
     within ROW_REL_TOL), timed with its bound (the visible pairs: causal and
@@ -5190,7 +5368,9 @@ def kernel_features(K, flash, ring, gen, dev):
     dropout 0.1 (its own mask: a cost yardstick). Then B3 over int8 K/V
     with segments and dropout at the zigzag step and with all three at one
     chunk, and with kv_lengths. Returns {kernel: [case rows]}."""
-    b, s, h, hk, d = 1, TRAIN_SEQ, MODEL["n_heads"], MODEL["n_kv_heads"], 128
+    model = model or MODEL
+    b, s, h, hk = 1, TRAIN_SEQ, model["n_heads"], model["n_kv_heads"]
+    d = model["head_dim"]
     scale = d ** -0.5
     slopes = alibi_slopes(h, dev)
     seed = (SEED + 0x5EED, 0)
@@ -5203,6 +5383,8 @@ def kernel_features(K, flash, ring, gen, dev):
     descs = feature_descs(flash, ring, dev)
     for dtag, pos, mk, q_ids, kv_ids in descs:
         for ftag, feat in feature_sets(flash, q_ids, kv_ids, slopes, seed):
+            if d != 128 and ftag != "segments alibi dropout":
+                continue
             tag = f"{dtag}, {ftag}"
             vis = feature_vis(flash, pos, mk, feat, s, s, dev)
             pairs = int(vis.sum()) * h * (b if vis.shape[0] == 1 else 1)
@@ -5271,6 +5453,8 @@ def kernel_features(K, flash, ring, gen, dev):
                   "bound_ms": {n: rows[n][-1]["bound_ms"] for n in rows}})
             del out, lse, args, delta
             torch.cuda.empty_cache()
+    if d != 128:
+        return rows
     # B3 over int8 K/V (kv_quant="int8"): segments and dropout at the
     # zigzag step, and all three features at one chunk (live pairs there:
     # the zigzag step's documents may not reach across its gap)
@@ -6373,10 +6557,11 @@ def varlen_plain_checks(flash, out, grads, lse, q, k, v, dout, ids, slopes,
     return res
 
 
-def usp_varlen_phase(build, flash, dev, card):
+def usp_varlen_phase(build, flash, dev, card, model=None, tag="usp_varlen"):
     """The slice's path: LongContextAttention(layout="zigzag") on a one-rank
-    NCCL mesh (make_usp_mesh()) at the 0.88B model's attention width (b=1,
-    s=32768, 16/8 heads, d=128), causal, on packed documents (DOC_LENS)
+    NCCL mesh (make_usp_mesh()) at ``model``'s attention width (the 0.88B
+    model's by default: b=1, s=32768, 16/8 heads, d=128; at head dim 64 the
+    d = 64 kernels), causal, on packed documents (DOC_LENS)
     with the geometric ALiBi slopes and dropout 0.1 keyed by a seeded
     torch.Generator: exactly one B3, one B2a and one B2b per forward and
     backward, nothing else; against a direct flash_attention with the same
@@ -6392,7 +6577,9 @@ def usp_varlen_phase(build, flash, dev, card):
     from long_context_attention_tpu_torch.parallel import (
         LongContextAttention, make_usp_mesh)
 
-    b, s, h, hk, d = 1, SPARSE_SEQ, MODEL["n_heads"], MODEL["n_kv_heads"], 128
+    model = model or MODEL
+    b, s, h, hk = 1, SPARSE_SEQ, model["n_heads"], model["n_kv_heads"]
+    d = model["head_dim"]
     gen = torch.Generator(device=dev).manual_seed(SEED + 10)
     q, k, v = (torch.randn(shape, generator=gen, device=dev).bfloat16()
                .requires_grad_()
@@ -6412,19 +6599,17 @@ def usp_varlen_phase(build, flash, dev, card):
         out = layer(q, k, v, causal=True, dropout_key=key(), **feats)
         grads = torch.autograd.grad(out, (q, k, v), dout)
         torch.cuda.synchronize()
-        counts = expect_counts(build, {
-            n: int(n in ("flash_fwd_pos", "flash_bwd_dq", "flash_bwd_dkv"))
-            for n in build.KERNELS})
+        counts = exact_counts(build, dict.fromkeys(
+            ("flash_fwd_pos", "flash_bwd_dq", "flash_bwd_dkv"), 1), d)
         ref = flash.flash_attention(q, k, v, causal=True, q_segment_ids=ids,
                                     kv_segment_ids=ids, alibi_slopes=slopes,
                                     dropout_p=DROPOUT_P, dropout_key=key())
         want = (ref.detach(), *torch.autograd.grad(ref, (q, k, v), dout))
-        errs = {"out_row_rel": check_out("usp_varlen out vs flash_attention",
+        errs = {"out_row_rel": check_out(f"{tag} out vs flash_attention",
                                          out.detach(), want[0])[1]}
         for name, a, w in zip(("dq", "dk", "dv"), grads, want[1:]):
             errs[name] = max_err(a, w)
-            check(f"usp_varlen {name} vs flash_attention", errs[name],
-                  BF16_ATOL)
+            check(f"{tag} {name} vs flash_attention", errs[name], BF16_ATOL)
         del ref, want
         torch.cuda.empty_cache()
         # B3 at the layer's descriptor and features gives the lse the layer
@@ -6459,7 +6644,7 @@ def usp_varlen_phase(build, flash, dev, card):
                            iters=5)}
     finally:
         dist.destroy_process_group()
-    emit({"phase": "usp_varlen", "card": card, "layer":
+    emit({"phase": tag, "card": card, "layer":
           "LongContextAttention(layout='zigzag'), ring 1 x ulysses 1 (NCCL)",
           "batch": b, "seq": s, "heads": h, "kv_heads": hk, "head_dim": d,
           "documents": int(ids.max()), "features":
@@ -6490,25 +6675,27 @@ USP_LEAF_TOL = 2.0 ** -7
 UPDATE_TOL = 0.25
 
 
-def train_usp_phase(pkg, build, dev, card):
-    """make_train_step(mesh=make_usp_mesh()) on the full-width 0.88B config
-    (layout zigzag: the ring of one's two-chunk descriptor) at b=1,
-    s=8192, AdamW as in train: every layer's attention through
-    usp_attention_local (B3 forward, B2a + B2b backward; B1 and B5 never).
-    From the same initial params and batch, one single-device step (B1 +
-    B5) and one mesh step: their losses within USP_LOSS_TOL, each leaf
-    within USP_LEAF_TOL of its largest value. Then timed steps under remat
-    none and attn with exact launch counts and a falling loss, beside the
-    single-device steps' time."""
+def train_usp_phase(pkg, build, dev, card, model=None, tag="train_usp"):
+    """make_train_step(mesh=make_usp_mesh()) on a full-width ``model`` (the
+    0.88B config by default; layout zigzag: the ring of one's two-chunk
+    descriptor) at b=1, s=8192, AdamW as in train: every layer's attention
+    through usp_attention_local (B3 forward, B2a + B2b backward, at the
+    model's head dim; B1 and B5 never). From the same initial params and
+    batch, one single-device step (B1 + B5) and one mesh step: their
+    losses within USP_LOSS_TOL, each leaf within USP_LEAF_TOL of its
+    largest value and its update within UPDATE_TOL of the single device's.
+    Then timed steps under remat none and attn with exact launch counts and
+    a falling loss, beside the single-device steps' time."""
     import torch.distributed as dist
 
     from long_context_attention_tpu_torch.models.llama import (
         init_params, make_train_step, param_leaves)
     from long_context_attention_tpu_torch.parallel import make_usp_mesh
 
-    L = MODEL["n_layers"]
-    usp_model = dict(MODEL, layout="zigzag")
-    tokens, labels, mask = train_batch(MODEL["vocab"], TRAIN_SEQ, dev)
+    model = model or MODEL
+    L, d = model["n_layers"], model["head_dim"]
+    usp_model = dict(model, layout="zigzag")
+    tokens, labels, mask = train_batch(model["vocab"], TRAIN_SEQ, dev)
     opt = functools.partial(torch.optim.AdamW, lr=LR,
                             weight_decay=WEIGHT_DECAY)
 
@@ -6525,16 +6712,17 @@ def train_usp_phase(pkg, build, dev, card):
         p1, s1, loss1 = single(fresh(cfg), None, tokens, labels, mask)
         p2, s2, loss2 = sharded(fresh(cfg), None, tokens, labels, mask)
         dloss = abs(float(loss1) - float(loss2))
-        check("train_usp loss vs single device", dloss, USP_LOSS_TOL)
-        worst = 0.0
-        for a, w in zip(param_leaves(p2), param_leaves(p1)):
-            a, w = a.detach().float(), w.detach().float()
-            rel = float((a - w).abs().max() / w.abs().max().clamp_min(1e-30))
-            worst = max(worst, rel)
-        check("train_usp leaves vs single device", worst, USP_LEAF_TOL)
+        check(f"{tag} loss vs single device", dloss, USP_LOSS_TOL)
+        worst = leaf_rel(p2, p1)
+        check(f"{tag} leaves vs single device", worst, USP_LEAF_TOL)
+        upd, upd_leaf = update_rel(p2, p1, fresh(cfg))
+        check(f"{tag} update of {upd_leaf} vs single device", upd,
+              UPDATE_TOL)
         report["one_step"] = {"loss_single": float(loss1),
                               "loss_mesh": float(loss2), "loss_diff": dloss,
-                              "worst_leaf_rel": worst}
+                              "worst_leaf_rel": worst,
+                              "worst_update_rel": upd,
+                              "worst_update_leaf": upd_leaf}
         # the single-device steps' time on this batch (B1 + B5)
         times = []
         for _ in range(3):
@@ -6561,14 +6749,13 @@ def train_usp_phase(pkg, build, dev, card):
                                            mask)
                 losses.append(float(loss))
                 times.append(time.perf_counter() - t0)
-            counts = expect_counts(build, {
-                n: steps * L if n in ("flash_fwd_pos", "flash_bwd_dq",
-                                      "flash_bwd_dkv") else 0
-                for n in build.KERNELS})
+            counts = exact_counts(build, dict.fromkeys(
+                ("flash_fwd_pos", "flash_bwd_dq", "flash_bwd_dkv"),
+                steps * L), d)
             if not all(math.isfinite(x) for x in losses):
-                raise AssertionError(f"train_usp {remat}: loss {losses}")
+                raise AssertionError(f"{tag} {remat}: loss {losses}")
             if not losses[-1] < losses[0]:
-                raise AssertionError(f"train_usp {remat}: the loss did not "
+                raise AssertionError(f"{tag} {remat}: the loss did not "
                                      f"fall: {losses}")
             ms = 1e3 * sum(times) / steps
             n_params = sum(t.numel() for t in param_leaves(params))
@@ -6588,9 +6775,9 @@ def train_usp_phase(pkg, build, dev, card):
         dist.destroy_process_group()
     report["single_tok_per_s"] = TRAIN_SEQ / (report["single_ms_per_step"]
                                               / 1e3)
-    emit({"phase": "train_usp", "card": card, "mesh": "dp 1 x ring 1 x "
+    emit({"phase": tag, "card": card, "mesh": "dp 1 x ring 1 x "
           "ulysses 1 (NCCL)", "layout": "zigzag", "batch": 1,
-          "seq": TRAIN_SEQ, **report})
+          "seq": TRAIN_SEQ, "head_dim": d, **report})
     return counts
 
 
@@ -8027,19 +8214,28 @@ def main():
     logs = build.build_all()
     # the sm90 kernels' dynamic shared memory (ptxas sees only static
     # memory)
-    bwd_lib = build.library("flash_bwd_sm90.cu")
-    bwd_smem = {n: bwd_lib.lca_flash_bwd_smem(f, ft) for n, f, ft in (
-        ("B2b, B9c", 0, 0), ("B5", 1, 0), ("B2b features", 0, 1))}
+    bwd_smem = {}
+    for hd in (128, 64):
+        bwd_lib = build.library("flash_bwd_sm90.cu", hd)
+        bwd_smem.update({("" if hd == 128 else "d=64 ") + n:
+                         bwd_lib.lca_flash_bwd_smem(f, ft) for n, f, ft in (
+                             ("B2b, B9c" if hd == 128 else "B2b", 0, 0),
+                             ("B5", 1, 0), ("B2b features", 0, 1))})
     fwd_lib = build.library("flash_fwd_sm90.cu")
     fwd_smem = {n: fwd_lib.lca_flash_fwd_smem(qt, ft) for n, qt, ft in (
         ("B1, B3, B4, B9a", 0, 0), ("B3 quantized", 1, 0),
         ("B3 features", 0, 1), ("B3 quantized features", 1, 1))}
     fwd64 = build.library("flash_fwd_sm90.cu", 64)
     fwd_smem.update({"d=64 B1, B3": fwd64.lca_flash_fwd_smem(0, 0),
-                     "d=64 B3 quantized": fwd64.lca_flash_fwd_smem(1, 0)})
-    dq_lib = build.library("flash_dq_sm90.cu")
-    dq_smem = {n: dq_lib.lca_flash_dq_smem(ft)
-               for n, ft in (("B2a, B9b", 0), ("B2a features", 1))}
+                     "d=64 B3 quantized": fwd64.lca_flash_fwd_smem(1, 0),
+                     "d=64 B3 features": fwd64.lca_flash_fwd_smem(0, 1)})
+    dq_smem = {}
+    for hd in (128, 64):
+        dq_lib = build.library("flash_dq_sm90.cu", hd)
+        dq_smem.update({("" if hd == 128 else "d=64 ") + n:
+                        dq_lib.lca_flash_dq_smem(ft) for n, ft in (
+                            ("B2a, B9b" if hd == 128 else "B2a", 0),
+                            ("B2a features", 1))})
     sage_lib = build.library("sage_fwd_sm90.cu")
     sage_smem = {"B8a, B8b, B8c": sage_lib.lca_sage_fwd_smem(0),
                  "pv_int8": sage_lib.lca_sage_fwd_smem(1)}
@@ -8175,8 +8371,11 @@ def main():
     rows.append(run_row)
     torch.cuda.empty_cache()
     lap("kernels")
-    # the d = 64 kernels at TinyLlama's shapes
+    # the d = 64 kernels at TinyLlama's shapes, serving's and training's
     hd64_cases = kernel_hd64(K, flash, decode, kv_cache, gen, dev)
+    torch.cuda.empty_cache()
+    for name, cases in kernel_hd64_train(K, flash, ring, gen, dev).items():
+        hd64_cases[name] += cases
     for name, cases in hd64_cases.items():
         for case in cases:
             emit({"phase": "kernel_hd64", "name": name, **case})
@@ -8318,6 +8517,28 @@ def main():
     hd_paths.update(serve_paged_hd64_phase(pkg, build, decode, dev, smi))
     torch.cuda.empty_cache()
     lap("serve_paged_hd64")
+    # head dim 64 in training: the same model on one card, its gradients
+    # against the CPU's, over a one-rank mesh, and the USP layer on packed
+    # documents
+    hd_paths["train_hd64"] = train_phase(pkg, build, dev, smi,
+                                         plan=HD_TRAIN_STEPS,
+                                         model=TINYLLAMA, tag="train_hd64")
+    torch.cuda.empty_cache()
+    lap("train_hd64")
+    grad_check_phase(pkg, build, dev, smi, model=TINYLLAMA,
+                     tag="grad_check_hd64")
+    torch.cuda.empty_cache()
+    lap("grad_check_hd64")
+    hd_paths["train_usp_hd64"] = train_usp_phase(pkg, build, dev, smi,
+                                                 model=TINYLLAMA,
+                                                 tag="train_usp_hd64")
+    torch.cuda.empty_cache()
+    lap("train_usp_hd64")
+    hd_paths["usp_varlen_hd64"] = usp_varlen_phase(build, flash, dev, smi,
+                                                   model=TINYLLAMA,
+                                                   tag="usp_varlen_hd64")
+    torch.cuda.empty_cache()
+    lap("usp_varlen_hd64")
     emit({"phase": "timing", "seconds": seconds})
     path = {"flash_fwd_static": wcounts, "flash_bwd_fused": train_counts,
             "flash_bwd_dq": offsets_counts, "flash_bwd_dkv": offsets_counts,
@@ -8430,9 +8651,10 @@ def main():
         # the ZeRO steps
         r["new_path_launches"] = {p: c[r["name"]] for p, c in
                                   new_paths.items() if c[r["name"]]}
-    # the d = 64 kernels: a row each (the slice_hd64 path's launches and
-    # its main case's numbers), their cases with the launches on the phase
-    # each names, and the d = 128 row naming it
+    # the d = 64 kernels: a row each (the launches on the first of
+    # HD_MAIN_PATHS that runs it, the numbers of its first case there),
+    # their cases with the launches on the phase each names, and the d =
+    # 128 row naming it
     by_name = {r["name"]: r for r in rows}
     for name, cases in hd64_cases.items():
         k64 = K[f"{name}_d64"]
@@ -8440,15 +8662,15 @@ def main():
             c["launches"] = (None if c["path"] is None
                              else hd_paths[c["path"]][k64.name])
         timed = [c for c in cases if "ms" in c]
-        main_case = next((c for c in timed if c["path"] in (
-            "slice_hd64", "serve_paged_hd64")), timed[0])
+        main_path = next(p for p in HD_MAIN_PATHS if hd_paths[p][k64.name])
+        main_case = next((c for c in timed if c["path"] == main_path),
+                         timed[0])
         rows.append({
             "name": k64.name, "route": "cuda",
             "source": f"long_context_attention_tpu_torch/csrc/{k64.source}",
             "replaces": k64.replaces, "head_dim": 64,
             "build": f"{k64.lib} (-DLCA_HEAD_DIM=64)",
-            "launches": (hd_paths["slice_hd64"][k64.name]
-                         or hd_paths["serve_paged_hd64"][k64.name]),
+            "launches": hd_paths[main_path][k64.name],
             "max_abs_err": max(c["max_abs_err"] for c in cases),
             **{k: main_case[k] for k in ("ms", "plain_ms", "bound_ms",
                                          "bound_by", "library_ms")},

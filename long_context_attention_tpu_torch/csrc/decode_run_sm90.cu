@@ -346,18 +346,6 @@ __device__ __forceinline__ void wgmma_s8_pv(uint32_t (&d)[N], uint32_t a,
   wgmma_commit();
 }
 
-// O += P V (bf16 P in registers, V MN-major): N = D, in N / 2 registers
-template <int N>
-__device__ __forceinline__ void wgmma_pv(float (&o)[N], uint32_t a0,
-                                         uint32_t a1, uint32_t a2,
-                                         uint32_t a3, uint64_t db) {
-  static_assert(N == 32 || N == 64, "head dim 64 or 128");
-  if constexpr (N == 64)
-    wgmma_rs(o, a0, a1, a2, a3, db);
-  else
-    wgmma_rs_n64(o, a0, a1, a2, a3, db);
-}
-
 // ... bf16: D / 16 k16 steps, 4 in each 64-column d box
 __device__ __forceinline__ void wgmma_bf16_tile(float (&d)[64], uint32_t a,
                                                 uint32_t b) {
@@ -1085,8 +1073,8 @@ __global__ void __launch_bounds__(NT, 1)
               wgmma_fence();
 #pragma unroll
               for (int kk = 0; kk < CH / 16; ++kk)
-                wgmma_pv(o, pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2],
-                         pa[4 * kk + 3], desc_mnmajor(vop + kk * 2048));
+                wgmma_rs_d(o, pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2],
+                           pa[4 * kk + 3], desc_mnmajor(vop + kk * 2048));
               wgmma_commit();
               wgmma_wait<0>();
               reg_fence(o);

@@ -78,7 +78,9 @@
 // positions), and for B5 2 dS^T tiles (16384 each) + the dq tile 32768; 3
 // stages for B5 (230936), 4 for B2b and B9c (198688), + 256 of barriers and
 // 1024 of alignment slack; B2b with the features 512 more per stage (a
-// step's q segment ids and hash parts beside lse and delta).
+// step's q segment ids and hash parts beside lse and delta). d = 64 halves
+// every bf16 tile: 150296 for B5, 101664 for B2b (103712 with the
+// features).
 //
 // B9c's walk. The host lists the items once per mask plan, longest walk
 // first (ops/sparse.py SparsePlan.dkv_items), and deals them to the
@@ -128,14 +130,30 @@
 //   q-row parts beside lse and delta; each consumer thread holds its two
 //   kv rows' ids and positions, and a step's keep bits in one register.
 //
+// Head dim 64 (-DLCA_HEAD_DIM=64, a library of its own with B5 and B2b;
+// B9c returns cudaErrorNotSupported there): a bf16 row is one 128-byte
+// swizzle atom, so every K, V, Q and dout tile is one box; S^T and dP^T take
+// 4 k16 steps; dV += P^T dout and dK += dS^T Q are wgmma m64n64k16 into 32
+// registers each. B5's dQ has one 64-column box of d to share out, so each
+// consumer computes the 64 x 64 partial dS K over its own 64 kv rows (4 k16
+// steps, after a barrier of its own warpgroup only) and the reduce-adds add
+// both partials into dq (the same four 32-column boxes a step).
+//
 // The tensor maps are encoded on the host per call (sm90.cuh) and passed as
 // __grid_constant__ kernel parameters.
 
 #include "sm90.cuh"
 
+// The head dim: 128, or 64 for a second library built with
+// -DLCA_HEAD_DIM=64 (ops/_build.py)
+#ifndef LCA_HEAD_DIM
+#define LCA_HEAD_DIM 128
+#endif
+
 namespace {
 
-constexpr int D = 128;
+constexpr int D = LCA_HEAD_DIM;
+static_assert(D == 64 || D == 128, "head dim 64 or 128");
 constexpr int BQ = 64;    // q rows per step
 constexpr int BKV = 128;  // kv rows per item: 64 per consumer warpgroup
 constexpr int NT = 384;   // a producer and two consumer warpgroups
@@ -160,14 +178,17 @@ constexpr int kOpen = 1 << 20;  // an unbounded end of a row's columns
 
 // Shared memory. A bf16 tile is stored as 64-column boxes of 128-byte rows,
 // swizzled in 1024-byte atoms of 8 rows (CU_TENSOR_MAP_SWIZZLE_128B, read by
-// wgmma with a 128-byte-swizzle descriptor); d = 128 is two boxes.
-constexpr int KBOX = BKV * 128;      // a 64-column box of K or V: 16 KB
-constexpr int KV_BYTES = 2 * KBOX;   // one K or V tile
-constexpr int QBOX = BQ * 128;       // a 64-column box of Q or dout: 8 KB
-constexpr int QT_BYTES = 2 * QBOX;   // one Q or dout tile
+// wgmma with a 128-byte-swizzle descriptor); d = 128 is two boxes, d = 64
+// one.
+constexpr int NBOX = D / 64;            // boxes of a row
+constexpr int KBOX = BKV * 128;         // a 64-column box of K or V: 16 KB
+constexpr int KV_BYTES = NBOX * KBOX;   // one K or V tile
+constexpr int QBOX = BQ * 128;          // a 64-column box of Q or dout: 8 KB
+constexpr int QT_BYTES = NBOX * QBOX;   // one Q or dout tile
 constexpr int DS_BYTES = BKV * BQ * 2;  // bf16 dS^T [kv][q]: 16 KB
 constexpr int DQBOX = BQ * 128;      // 32 fp32 columns of the dq tile: 8 KB
-constexpr int DQ_BYTES = 4 * DQBOX;  // the 64 x 128 fp32 dq tile
+// the 64 x 128 fp32 dq tile (d = 64: the two consumers' 64 x 64 partials)
+constexpr int DQ_BYTES = 4 * DQBOX;
 constexpr int LD_BYTES = 2 * BQ * 4;  // a step's lse and delta
 constexpr int META_BYTES = 8;         // B9c: a step's positions (int2)
 
@@ -195,7 +216,8 @@ static_assert(Smem<true>::BYTES <= 232448 && Smem<false>::BYTES <= 232448 &&
 // tile full (written by the consumers) and empty (read by TMA)
 constexpr int B_KVFULL = 0, B_KVEMPTY = 1, B_FULL = 2, B_EMPTY = 6,
               B_DQFULL = 10, B_DQEMPTY = 11;
-// named barrier (0 is __syncthreads): both consumers' dS^T rows written
+// named barriers (0 is __syncthreads): both consumers' dS^T rows written;
+// d = 64: each consumer's own (NB_DS + 1 + its index)
 constexpr int NB_DS = 1;
 
 struct Maps {  // TMA descriptors, in the kernel's parameter space
@@ -558,7 +580,7 @@ __global__ void __launch_bounds__(NT, 1)
         if (lane == 0) {
           mbar_wait(bar(B_KVEMPTY), (kvn & 1) ^ 1);
           mbar_expect_tx(bar(B_KVFULL), 2 * KV_BYTES);
-          for (int hb = 0; hb < 2; ++hb) {
+          for (int hb = 0; hb < NBOX; ++hb) {
             tma_load_4d(sbase + L::OFF_K + hb * KBOX, &maps.k, bar(B_KVFULL),
                         64 * hb, x.k0, x.ihk, x.ib);
             tma_load_4d(sbase + L::OFF_V + hb * KBOX, &maps.v, bar(B_KVFULL),
@@ -583,7 +605,7 @@ __global__ void __launch_bounds__(NT, 1)
           if (lane == 0) {
             const uint32_t st = stage(it);
             mbar_expect_tx(bar(B_FULL + s), 2 * QT_BYTES);
-            for (int hb = 0; hb < 2; ++hb) {
+            for (int hb = 0; hb < NBOX; ++hb) {
               tma_load_4d(st + hb * QBOX, &maps.q, bar(B_FULL + s), 64 * hb,
                           q0, ih, x.ib);
               tma_load_4d(st + QT_BYTES + hb * QBOX, &maps.dout,
@@ -643,9 +665,10 @@ __global__ void __launch_bounds__(NT, 1)
         const QWalk<BAND, MULTI> w(p, x.ik);
         for (int js = 0; js < w.n; ++js, ++dn) {
           mbar_wait(bar(B_DQFULL), dn & 1);
-          for (int bx = 0; bx < 4; ++bx)
+          for (int bx = 0; bx < 4; ++bx)  // d = 64: each partial's 2 boxes
             tma_reduce_add_4d(&maps.dq, sbase + L::OFF_DQ + bx * DQBOX,
-                              32 * bx, w.q0(p, js), w.head(x, p, js), x.ib);
+                              32 * (bx % (D / 32)), w.q0(p, js),
+                              w.head(x, p, js), x.ib);
           bulk_commit();
           bulk_wait_read();
           mbar_arrive(bar(B_DQEMPTY));
@@ -680,9 +703,9 @@ __global__ void __launch_bounds__(NT, 1)
     // B9c: rows of the next mask column (the second half of a 64-row item)
     const bool idle = SPARSE && cw * 64 >= x.rows;
 
-    float dk[64], dv[64];
+    float dk[D / 2], dv[D / 2];
 #pragma unroll
-    for (int i = 0; i < 64; ++i) dk[i] = dv[i] = 0.f;
+    for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
 
     // FEAT: this lane's kv rows r0 and r0 + 8 of the item (global
     // positions, kv segment ids); per step the q head's -slope, the global
@@ -824,7 +847,8 @@ __global__ void __launch_bounds__(NT, 1)
           causal = p.causal != 0;
         }
 
-        // S^T = K Q^T, then dP^T = V dout^T: 8 k16 steps, 4 in each d box
+        // S^T = K Q^T, then dP^T = V dout^T: D / 16 k16 steps, 4 in each d
+        // box
         float sacc[32], dpacc[32];
         wgmma_fence();
         wgmma64_first<0>(sacc, desc_kmajor(k_rows), desc_kmajor(st));
@@ -920,26 +944,32 @@ __global__ void __launch_bounds__(NT, 1)
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < BQ / 16; ++kk)
-          wgmma_rs(dv, pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2],
-                   pa[4 * kk + 3],
-                   desc_mnmajor(st + QT_BYTES + kk * 2048, QBOX));
+          wgmma_rs_d(dv, pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2],
+                     pa[4 * kk + 3],
+                     desc_mnmajor(st + QT_BYTES + kk * 2048, QBOX));
 #pragma unroll
         for (int kk = 0; kk < BQ / 16; ++kk)
-          wgmma_rs(dk, da[4 * kk], da[4 * kk + 1], da[4 * kk + 2],
-                   da[4 * kk + 3], desc_mnmajor(st + kk * 2048, QBOX));
+          wgmma_rs_d(dk, da[4 * kk], da[4 * kk + 1], da[4 * kk + 2],
+                     da[4 * kk + 3], desc_mnmajor(st + kk * 2048, QBOX));
         wgmma_commit();
 
         if (FUSED) {
           // dQ = dS K for this warpgroup's 64 d columns: 8 k16 steps of 16
-          // kv rows, dS (from dS^T) and K both MN-major
-          named_sync(NB_DS, 256);  // both warpgroups' dS^T rows are in
+          // kv rows, dS (from dS^T) and K both MN-major. d = 64: the 64 x 64
+          // partial over this warpgroup's own 64 kv rows, 4 k16 steps
           float dq[32];
-          const uint32_t kb = sbase + L::OFF_K + cw * KBOX;
-          wgmma64_first<1>(dq, desc_mnmajor(ds_buf, 0),
-                           desc_mnmajor(kb, 0));
+          uint32_t da0 = ds_buf, kb = sbase + L::OFF_K + cw * KBOX;
+          if constexpr (D == 128) {
+            named_sync(NB_DS, 256);  // both warpgroups' dS^T rows are in
+          } else {
+            named_sync(NB_DS + 1 + cw, 128);  // this warpgroup's rows are in
+            da0 = ds_buf + cw * 64 * 128;
+            kb = sbase + L::OFF_K + cw * 64 * 128;
+          }
+          wgmma64_first<1>(dq, desc_mnmajor(da0, 0), desc_mnmajor(kb, 0));
 #pragma unroll
-          for (int kk = 1; kk < BKV / 16; ++kk)
-            wgmma64<1>(dq, desc_mnmajor(ds_buf + kk * 2048, 0),
+          for (int kk = 1; kk < (D == 128 ? BKV : 64) / 16; ++kk)
+            wgmma64<1>(dq, desc_mnmajor(da0 + kk * 2048, 0),
                        desc_mnmajor(kb + kk * 2048, 0));
           wgmma_commit();
           wgmma_wait<0>();
@@ -951,7 +981,8 @@ __global__ void __launch_bounds__(NT, 1)
           __syncwarp();
           if (lane == 0) mbar_arrive(bar(B_EMPTY + s));
           // the dq tile into the reduce-add's layout: four boxes of 32 fp32
-          // columns, 128-byte rows, 16-byte chunks swizzled by row
+          // columns, 128-byte rows, 16-byte chunks swizzled by row (d = 64:
+          // this warpgroup's partial in its two)
           mbar_wait(bar(B_DQEMPTY), (dn & 1) ^ 1);
           const uint32_t row = sbase + L::OFF_DQ + 2 * cw * DQBOX +
                                (warp * 16 + g) * 128 + (cb & 3) * 4;
@@ -992,7 +1023,7 @@ __global__ void __launch_bounds__(NT, 1)
       const long long at = x.ib * p.dk_sb + (long long)kv * p.dk_ss +
                            x.ihk * p.dk_sh;
 #pragma unroll
-      for (int i8 = 0; i8 < 16; ++i8) {
+      for (int i8 = 0; i8 < D / 8; ++i8) {
         float2 dk2 = make_float2(dk[4 * i8 + 2 * hh], dk[4 * i8 + 2 * hh + 1]);
         if constexpr (SPARSE) {
           dk2.x *= p.scale;
@@ -1180,6 +1211,9 @@ extern "C" int lca_sparse_bwd_dkv(const void* q, const void* k, const void* v,
                                   const int* items, const int* sched_ptr,
                                   const int* sched, const long long* dims,
                                   float scale, void* stream) {
+#if LCA_HEAD_DIM != 128
+  return (int)cudaErrorNotSupported;  // B9c at head dim 128 only
+#else
   Params p = base_params(lse, delta, dk, dv, dims, scale);
   p.ptr = ptr;
   p.ent = reinterpret_cast<const int4*>(ent);
@@ -1200,6 +1234,7 @@ extern "C" int lca_sparse_bwd_dkv(const void* q, const void* k, const void* v,
     return (int)cudaErrorInvalidValue;
   return launch<false, true>(q, k, v, dout, nullptr, dims, p, n_blocks,
                              static_cast<cudaStream_t>(stream));
+#endif
 }
 
 // The dynamic shared memory a block of B5 (fused != 0) or B2b and B9c

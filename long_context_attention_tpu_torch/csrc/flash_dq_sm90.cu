@@ -77,7 +77,7 @@
 // 3 K stages x 32768 + 2 V stages x 32768 = 229376, + 64 of step meta, 256 of
 // barriers and 1024 of alignment slack (230720); with the features each K
 // stage's 128 kv segment ids (512) after the barriers, 128-byte aligned
-// (232320).
+// (232320). d = 64 halves every tile: 116032 (117632 with the features).
 //
 // Numerics follow the TPU kernels (_dq_kernel, _sparse_dq_kernel,
 // _recompute_p, _ds_to_dqk):
@@ -101,14 +101,27 @@
 //   and held in two registers until ds. The kv ids of a step come by TMA
 //   beside its K, on K's full barrier.
 //
+// Head dim 64 (-DLCA_HEAD_DIM=64, a library of its own with B2a; B9b
+// returns cudaErrorNotSupported there): every Q, dout, K and V tile is one
+// box (a bf16 row is one 128-byte swizzle atom), S and dP take 4 k16 steps,
+// and dQ += dS K is wgmma m64n64k16 into a 32-register dq (64 x 64 a
+// consumer).
+//
 // The tensor maps are encoded on the host per call (sm90.cuh) and passed as
 // __grid_constant__ kernel parameters.
 
 #include "sm90.cuh"
 
+// The head dim: 128, or 64 for a second library built with
+// -DLCA_HEAD_DIM=64 (ops/_build.py)
+#ifndef LCA_HEAD_DIM
+#define LCA_HEAD_DIM 128
+#endif
+
 namespace {
 
-constexpr int D = 128;
+constexpr int D = LCA_HEAD_DIM;
+static_assert(D == 64 || D == 128, "head dim 64 or 128");
 constexpr int BQ = 128;        // q rows per item: 64 per consumer warpgroup
 constexpr int BKV = kRowStep;  // kv columns per step
 constexpr int NT = 384;        // a producer and two consumer warpgroups
@@ -122,9 +135,11 @@ constexpr float kLog2e = 1.4426950408889634f;
 
 // Shared memory. A 64-column bf16 box of 128 rows is 128 rows of 128
 // bytes, swizzled in 1024-byte atoms of 8 rows (CU_TENSOR_MAP_SWIZZLE_128B,
-// read by wgmma with a 128-byte-swizzle descriptor); d = 128 is two boxes.
-constexpr int BOX = 128 * 128;  // one box: 16 KB
-constexpr int TILE = 2 * BOX;   // a 128 x 128 tile of Q, dout, K or V
+// read by wgmma with a 128-byte-swizzle descriptor); d = 128 is two boxes,
+// d = 64 one.
+constexpr int BOX = 128 * 128;   // one box: 16 KB
+constexpr int NBOX = D / 64;     // boxes of a row
+constexpr int TILE = NBOX * BOX;  // a 128 x D tile of Q, dout, K or V
 constexpr int K_STAGES = 3, V_STAGES = 2;
 constexpr int OFF_Q = 0;
 constexpr int OFF_DO = TILE;
@@ -367,7 +382,7 @@ __global__ void __launch_bounds__(NT, 1)
         if constexpr (!Walk::kBand || Walk::kMulti)
           *meta(it) = c.meta(p, x);  // released by K's full barrier
         mbar_expect_tx(bar(B_KFULL + ks), TILE + (segs ? SEG_BYTES : 0));
-        for (int hb = 0; hb < 2; ++hb)
+        for (int hb = 0; hb < NBOX; ++hb)
           tma_load_4d(k_stage(it) + hb * BOX, &maps.k, bar(B_KFULL + ks),
                       64 * hb, kv0, ihk, x.ib);
         if (segs)  // the step's kv ids, on K's barrier
@@ -376,7 +391,7 @@ __global__ void __launch_bounds__(NT, 1)
         if (js == 0) {  // the item's Q and dout, once its first K is in flight
           mbar_wait(bar(B_QEMPTY), (qn & 1) ^ 1);
           mbar_expect_tx(bar(B_QFULL), 2 * TILE);
-          for (int hb = 0; hb < 2; ++hb) {
+          for (int hb = 0; hb < NBOX; ++hb) {
             tma_load_4d(sbase + OFF_Q + hb * BOX, &maps.q, bar(B_QFULL),
                         64 * hb, x.q0, x.ih, x.ib);
             tma_load_4d(sbase + OFF_DO + hb * BOX, &maps.dout, bar(B_QFULL),
@@ -386,7 +401,7 @@ __global__ void __launch_bounds__(NT, 1)
         }
         mbar_wait(bar(B_VEMPTY + vs), v_use(it) ^ 1);
         mbar_expect_tx(bar(B_VFULL + vs), TILE);
-        for (int hb = 0; hb < 2; ++hb)
+        for (int hb = 0; hb < NBOX; ++hb)
           tma_load_4d(v_stage(it) + hb * BOX, &maps.v, bar(B_VFULL + vs),
                       64 * hb, kv0, ihk, x.ib);
         c.next();
@@ -406,7 +421,7 @@ __global__ void __launch_bounds__(NT, 1)
   const uint32_t do_rows = sbase + OFF_DO + cw * 64 * 128;
 
   // acc = A B^T over d: A this warpgroup's 64 rows of Q or dout, B a K or V
-  // stage; 8 k16 steps, 4 in each d box
+  // stage; D / 16 k16 steps, 4 in each d box
   auto issue_ss = [&](float (&acc)[64], uint32_t a, uint32_t b) {
     wgmma_ss_first(acc, desc_kmajor(a), desc_kmajor(b));
 #pragma unroll
@@ -417,11 +432,11 @@ __global__ void __launch_bounds__(NT, 1)
   };
   // dQ += dS K of the i-th step: 8 k16 steps of 16 kv rows (2048 bytes of
   // K each)
-  auto issue_dq = [&](float (&dq)[64], const uint32_t (&da)[32], int i) {
+  auto issue_dq = [&](float (&dq)[D / 2], const uint32_t (&da)[32], int i) {
 #pragma unroll
     for (int kk = 0; kk < BKV / 16; ++kk)
-      wgmma_rs(dq, da[4 * kk], da[4 * kk + 1], da[4 * kk + 2],
-               da[4 * kk + 3], desc_mnmajor(k_stage(i) + kk * 2048));
+      wgmma_rs_d(dq, da[4 * kk], da[4 * kk + 1], da[4 * kk + 2],
+                 da[4 * kk + 3], desc_mnmajor(k_stage(i) + kk * 2048));
     wgmma_commit();
   };
   auto release = [&](int b) {
@@ -439,9 +454,9 @@ __global__ void __launch_bounds__(NT, 1)
     // rows of the next q tile (the second half of a 64-row item)
     const bool idle = cw * 64 >= x.rows;
 
-    float dq[64];
+    float dq[D / 2];
 #pragma unroll
-    for (int i = 0; i < 64; ++i) dq[i] = 0.f;
+    for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
 
     if (x.n > 0 && idle) {  // release Q and every stage unread
       mbar_wait(bar(B_QFULL), qn & 1);
@@ -676,7 +691,7 @@ __global__ void __launch_bounds__(NT, 1)
       float* row = p.dq + x.ib * p.dq_sb + (long long)qi * p.dq_ss +
                    x.ih * p.dq_sh;
 #pragma unroll
-      for (int i8 = 0; i8 < 16; ++i8) {
+      for (int i8 = 0; i8 < D / 8; ++i8) {
         float2 v = make_float2(dq[4 * i8 + 2 * hh], dq[4 * i8 + 2 * hh + 1]);
         if constexpr (!Walk::kBand) {
           v.x *= p.scale;
@@ -813,6 +828,9 @@ extern "C" int lca_sparse_bwd_dq(const void* q, const void* k, const void* v,
                                  const int* sched_ptr, const int* sched,
                                  const long long* dims, float qfold,
                                  float scale, void* stream) {
+#if LCA_HEAD_DIM != 128
+  return (int)cudaErrorNotSupported;  // B9b at head dim 128 only
+#else
   Params p = base_params(lse, delta, out, dims, scale);
   p.ptr = ptr;
   p.ent = reinterpret_cast<const int4*>(ent);
@@ -833,6 +851,7 @@ extern "C" int lca_sparse_bwd_dq(const void* q, const void* k, const void* v,
   if (n_blocks <= 0 || n_blocks > p.n_items) return (int)cudaErrorInvalidValue;
   return launch<SparseRows>(q, k, v, dout, dims, p, n_blocks,
                             static_cast<cudaStream_t>(stream));
+#endif
 }
 
 // The dynamic shared memory a block takes (feat != 0: B2a's features).

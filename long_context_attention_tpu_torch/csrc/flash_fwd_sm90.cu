@@ -146,8 +146,9 @@
 #include "sm90.cuh"
 
 // The head dim: 128, or 64 for a second library built with
-// -DLCA_HEAD_DIM=64 (ops/_build.py), which holds B1 and B3 without MULTI
-// or FEAT; its other entry points return cudaErrorNotSupported.
+// -DLCA_HEAD_DIM=64 (ops/_build.py), which holds B1 and B3 (quantized K/V
+// neither at MULTI nor with FEAT); B4 and B9a return cudaErrorNotSupported
+// there.
 #ifndef LCA_HEAD_DIM
 #define LCA_HEAD_DIM 128
 #endif
@@ -270,19 +271,6 @@ __device__ __forceinline__ uint64_t desc_kmajor(uint32_t addr) {
 // apart, the second 64-column d box BOX bytes after the first
 __device__ __forceinline__ uint64_t desc_mnmajor(uint32_t addr) {
   return desc_sw128(addr, BOX, 1024);
-}
-
-// O (64 x D fp32, N = D / 2 registers) += P (64 x 16 bf16, registers) V
-// (16 x D, shared)
-template <int N>
-__device__ __forceinline__ void wgmma_pv(float (&o)[N], uint32_t a0,
-                                         uint32_t a1, uint32_t a2,
-                                         uint32_t a3, uint64_t db) {
-  static_assert(N == 32 || N == 64, "head dim 64 or 128");
-  if constexpr (N == 64)
-    wgmma_rs(o, a0, a1, a2, a3, db);
-  else
-    wgmma_rs_n64(o, a0, a1, a2, a3, db);
 }
 
 // d (64 x 128 fp32) += A (64 x 16 bf16, shared, K-major) * B (16 x 128,
@@ -647,8 +635,9 @@ __global__ void __launch_bounds__(Roles<QUANT>::NT, 1)
     auto issue_pv = [&](float (&o)[D / 2], const uint32_t (&pa)[32], int i) {
 #pragma unroll
       for (int kk = 0; kk < BKV / 16; ++kk)
-        wgmma_pv(o, pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2],
-                 pa[4 * kk + 3], desc_mnmajor(stage(i) + KV_BYTES + kk * 2048));
+        wgmma_rs_d(o, pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2],
+                   pa[4 * kk + 3],
+                   desc_mnmajor(stage(i) + KV_BYTES + kk * 2048));
       wgmma_commit();
     };
     auto release = [&](int b, int i) {
@@ -1148,14 +1137,16 @@ int pos_form(int form, const Args& args) {
 }
 
 // ... and for the features and the K/V (bf16 or quantized: the kind itself
-// is a run-time value of the producers); at head dim 64 neither MULTI nor
-// FEAT
+// is a run-time value of the producers); at head dim 64 quantized K/V
+// neither at MULTI nor with FEAT
 template <bool MULTI, class Args>
 int pos_kind(bool quant, bool feat, int form, const Args& args) {
 #if LCA_HEAD_DIM != 128
-  if (MULTI || feat) return (int)cudaErrorNotSupported;
-  return quant ? pos_form<true, false, false>(form, args)
-               : pos_form<false, false, false>(form, args);
+  if (quant)
+    return MULTI || feat ? (int)cudaErrorNotSupported
+                         : pos_form<true, false, false>(form, args);
+  return feat ? pos_form<false, MULTI, true>(form, args)
+              : pos_form<false, MULTI, false>(form, args);
 #else
   if (feat)
     return quant ? pos_form<true, MULTI, true>(form, args)

@@ -275,6 +275,20 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], uint32_t a0,
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db));
 }
 
+// d (64 x D fp32, N = D / 2 registers) += A (64 x 16 bf16 in registers) *
+// B (16 x D, shared, MN-major) at head dim D = 128 or 64: O += P V, and the
+// backward's dV, dK and dQ products
+template <int N>
+__device__ __forceinline__ void wgmma_rs_d(float (&d)[N], uint32_t a0,
+                                           uint32_t a1, uint32_t a2,
+                                           uint32_t a3, uint64_t db) {
+  static_assert(N == 32 || N == 64, "head dim 64 or 128");
+  if constexpr (N == 64)
+    wgmma_rs(d, a0, a1, a2, a3, db);
+  else
+    wgmma_rs_n64(d, a0, a1, a2, a3, db);
+}
+
 // tanh(x) = 1 - 2 / (exp(2x) + 1) by the fast exp and reciprocal (|x|
 // clamped at 15, where tanh rounds to 1): within a few ulp of 1 of tanhf,
 // absolute, for the backward's softcap, whose capped score cap * t carries

@@ -10,13 +10,13 @@ its source (or :func:`build_all` builds every source in parallel), into
 ``build/kernels/`` at the repository root, keyed by a hash of the source, the
 shared headers (``csrc/*.cuh``) and the flags.
 
-The sources are written for head dim 128. The serving path's four sources
-(B1 and B3, B6, both B7 kernels) also build a second library each with
-``-DLCA_HEAD_DIM=64``, named ``"<source>:d64"`` (:func:`lib_name`): its
-entry points are kernels of their own, ``<name>_d64`` in :data:`KERNELS`,
-each with its own launch count. :func:`kernel` picks an entry point's
-kernel by head dim and raises ``NotImplementedError`` naming the head dims
-it takes.
+The sources are written for head dim 128. The serving and training paths'
+six sources (B1 and B3, B6, both B7 kernels, B2a, B2b and B5) also build a
+second library each with ``-DLCA_HEAD_DIM=64``, named ``"<source>:d64"``
+(:func:`lib_name`): its entry points are kernels of their own,
+``<name>_d64`` in :data:`KERNELS`, each with its own launch count.
+:func:`kernel` picks an entry point's kernel by head dim and raises
+``NotImplementedError`` naming the head dims it takes.
 """
 
 from __future__ import annotations
@@ -307,9 +307,11 @@ KERNELS: Dict[str, Kernel] = {
 
 
 # the entry points built at head dim 64 too (the serving path's: B1, B3,
-# B6 and both B7 kernels), as kernels of their own named <name>_d64
+# B6 and both B7 kernels; the training path's: B2a, B2b and B5), as kernels
+# of their own named <name>_d64
 HEAD_DIM_64 = ("flash_fwd_causal_self", "flash_fwd_pos", "cache_append",
-               "decode_attention", "decode_run")
+               "decode_attention", "decode_run", "flash_bwd_dq",
+               "flash_bwd_dkv", "flash_bwd_fused")
 for _name in HEAD_DIM_64:
     _k = KERNELS[_name]
     KERNELS[f"{_name}_d64"] = Kernel(f"{_name}_d64", _k.source, _k.symbol,

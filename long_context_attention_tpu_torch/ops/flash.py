@@ -765,12 +765,12 @@ def flash_fwd_pos(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lse = torch.empty((b, h, s_q), dtype=torch.float32, device=q.device)
     kst = (k.stride(0), k.stride(2), k.stride(1))  # (batch, seq, head)
     desc = pair_masks(pos, s_q, s_kv, left, right, sink)
-    if d != 128 and (desc[0] * desc[1] > 1
-                     or (features is not None and features.any)):
+    if d != 128 and quant and (desc[0] * desc[1] > 1
+                               or (features is not None and features.any)):
         raise NotImplementedError(
-            "the B3 kernel takes two position chunks a side or the "
-            f"features (segments, ALiBi, dropout) at head_dim 128, got "
-            f"d={d}")
+            "the B3 kernel takes quantized K/V at two position chunks a "
+            "side or with the features (segments, ALiBi, dropout) at "
+            f"head_dim 128, got d={d}")
     q0, sink0 = legacy_dims(pos, sink)
     fdims, fargs = _feature_launch(features, b, h, s_q, s_kv, q.device)
     dims = _build.dims_array([

@@ -5,21 +5,28 @@
     python3 scripts/torch_cpu_rehearsal.py sharded_emulated serve_sharded
     python3 scripts/torch_cpu_rehearsal.py kernel_hd64 slice_hd64 \
         serve_paged_hd64
+    python3 scripts/torch_cpu_rehearsal.py train_hd64 grad_check_hd64 \
+        train_usp_hd64 usp_varlen_hd64
 
-Each phase runs its own functions with the kernels' plain versions: a
-tiny model (vocab 256, dim 64, 2 layers, 4/2 heads of 32; 2/1 heads for
-``serve_windowed_paged``, as its first rehearsals ran), the CUDA syncs and
-timers stubbed, and the launch-count gates off (the plain versions count
-no launch). The sharded phases also shrink their caches (blocks of 4096
-slots, window 100 and 4 sinks, pages of 128), keeping the ranks' kv tiles
-the unsharded call's as the card's shapes do. The head-dim-64 phases
-(``kernel_hd64``, ``slice_hd64``, ``serve_paged_hd64``) take a tiny d = 64
-model (vocab 256, dim 64, 2 layers, 8/1 heads of 64) in place of
-TinyLlama's widths, prompts of a few hundred tokens, pages of 128, the
-profiler stubbed and B7's plain version counting the launch its route
-names. Every other gate of a phase runs. A check of the Python, not of the
-kernels: prints one JSON line per run with its gates' result and seconds,
-and exits non-zero when a run fails.
+Each phase runs its own functions with the kernels' plain versions: a tiny
+model (vocab 256, dim 64, 2 layers, 4/2 heads of 32; 2/1 heads for
+``serve_windowed_paged``, as its first rehearsals ran), the CUDA syncs,
+timers, memory statistics and SDPA yardsticks stubbed, and the
+launch-count gates off (the plain versions count no launch). The sharded
+phases also shrink their caches (blocks of 4096 slots, window 100 and 4
+sinks, pages of 128), keeping the ranks' kv tiles the unsharded call's as
+the card's shapes do. The head-dim-64 phases (``kernel_hd64``,
+``slice_hd64``, ``serve_paged_hd64``) take a tiny d = 64 model (vocab 256,
+dim 64, 2 layers, 8/1 heads of 64) in place of TinyLlama's widths, prompts
+of a few hundred tokens, pages of 128, the profiler stubbed and B7's plain
+version counting the launch its route names; the training ones
+(``train_hd64``, ``grad_check_hd64``, ``train_usp_hd64``,
+``usp_varlen_hd64``, and ``kernel_hd64``'s training kernels) sequences of
+512 (ring shards too; the varlen layer's 1024, the gradient check's 128),
+documents of 40-200 tokens and a window of 100 with 4 sinks, on a one-rank
+gloo mesh. Every other gate of a phase runs. A check of the Python, not of
+the kernels: prints one JSON line per run with its gates' result and
+seconds, and exits non-zero when a run fails.
 """
 
 import argparse
@@ -44,6 +51,10 @@ def _stub(cs):
     cs.time_ms = lambda fn, iters=10, warmup=2: (fn(), 0.0)[1]
     cs.expect_counts = lambda build, want: dict(build.launch_counts())
     cs.emit = lambda obj: None
+    cs.sdpa_backward_ms = lambda *a, **k: 0.0
+    cs.sdpa_masked_ms = lambda *a, **k: (0.0, 0.0)
+    torch.cuda.reset_peak_memory_stats = lambda *a, **k: None
+    torch.cuda.max_memory_allocated = lambda *a, **k: 0
 
 
 def _hd64_sizes(cs):
@@ -79,9 +90,34 @@ def _hd64_sizes(cs):
     # versions read every tile
     cs.band_check = lambda *a, **k: None
     cs.poison_check = lambda *a, **k: None
+    cs.poison = lambda t, *a, **k: t
     cs.profiled = lambda fn: (fn(), {"wall_ms": 0.0, "device_ms": 0.0,
                                      "device_busy_share": 0.0,
                                      "kernel_launches": 0, "top": []})
+    # training: short sequences, small documents, the masked backward's
+    # cases at a window of 100 and band checks over blocks of 128
+    cs.TRAIN_SEQ, cs.GRAD_SEQ, cs.RING_LOCAL, cs.DOC_LENS = 512, 128, 512, (
+        40, 200)
+    cs.SPARSE_SEQ, cs.VARLEN_SLICE = 1024, 128
+    cs.VARLEN_ROWS, cs.VARLEN_COLS = (448, 896), (0, 448)
+    win = dict(causal=True, window_size=(100, -1), sink_tokens=4)
+    cs.BWD_MASKED = {
+        "B5": (("window sinks", None, win),
+               ("non-causal window (64, 32) sinks", None,
+                dict(causal=False, window_size=(64, 32), sink_tokens=4)),
+               ("window sinks softcap", None, dict(win, softcap=cs.SOFTCAP))),
+        "B2a": (("offsets window sinks", 0, win),
+                ("kv offset s/2 window sinks softcap", -256,
+                 dict(win, softcap=cs.SOFTCAP)))}
+    rows, cols = cs.rows_seeing_less, cs.cols_seen_by_few
+    cs.rows_seeing_less = lambda vis, tile, n=2048: rows(vis, tile, 128)
+    cs.cols_seen_by_few = lambda vis, tile, n=2048: cols(vis, tile, 128)
+    import long_context_attention_tpu_torch.parallel as par
+
+    if not getattr(par.make_usp_mesh, "on_cpu", False):
+        real = par.make_usp_mesh
+        par.make_usp_mesh = lambda *a, **k: real(device="cpu")
+        par.make_usp_mesh.on_cpu = True
 
 
 def _sharded_sizes(cs, par):
@@ -105,15 +141,18 @@ def _sharded_sizes(cs, par):
     cs.SHARDED_PROMPTS, cs.SHARDED_S_MAX, cs.SHARDED_REQ_NEW = (200, 400), \
         512, 6
     cs.CHUNK = 128
-    real = par.make_usp_mesh
-    par.make_usp_mesh = lambda *a, **k: real(device="cpu")
+    if not getattr(par.make_usp_mesh, "on_cpu", False):
+        real = par.make_usp_mesh
+        par.make_usp_mesh = lambda *a, **k: real(device="cpu")
+        par.make_usp_mesh.on_cpu = True
 
 
 def main():
     parser = argparse.ArgumentParser()
     parser.add_argument("phases", nargs="+", choices=(
         "serve_windowed_paged", "sharded_emulated", "serve_sharded",
-        "kernel_hd64", "slice_hd64", "serve_paged_hd64"))
+        "kernel_hd64", "slice_hd64", "serve_paged_hd64", "train_hd64",
+        "grad_check_hd64", "train_usp_hd64", "usp_varlen_hd64"))
     parser.add_argument("--runs", type=int, default=1)
     parser.add_argument("--threads", type=int, default=2)
     args = parser.parse_args()
@@ -123,6 +162,7 @@ def main():
     import long_context_attention_tpu_torch.parallel as par
     from long_context_attention_tpu_torch.ops import (
         _build, decode, flash, kv_cache)
+    from long_context_attention_tpu_torch.parallel import ring
     from long_context_attention_tpu_torch.serving import sharded
 
     _stub(cs)
@@ -135,12 +175,26 @@ def main():
             torch.Generator().manual_seed(0), dev, "cpu"),
         "serve_sharded": lambda: cs.serve_sharded_phase(
             pkg, _build, decode, dev, "cpu"),
-        "kernel_hd64": lambda: cs.kernel_hd64(
-            _build.KERNELS, flash, decode, kv_cache,
-            torch.Generator().manual_seed(0), dev),
+        "kernel_hd64": lambda: (
+            cs.kernel_hd64(_build.KERNELS, flash, decode, kv_cache,
+                           torch.Generator().manual_seed(0), dev),
+            cs.kernel_hd64_train(_build.KERNELS, flash, ring,
+                                 torch.Generator().manual_seed(0), dev)),
         "slice_hd64": lambda: cs.slice_hd64_phase(pkg, _build, dev, "cpu"),
         "serve_paged_hd64": lambda: cs.serve_paged_hd64_phase(
-            pkg, _build, decode, dev, "cpu")}
+            pkg, _build, decode, dev, "cpu"),
+        "train_hd64": lambda: cs.train_phase(
+            pkg, _build, dev, "cpu", plan=cs.HD_TRAIN_STEPS,
+            model=cs.TINYLLAMA, tag="train_hd64"),
+        "grad_check_hd64": lambda: cs.grad_check_phase(
+            pkg, _build, dev, "cpu", model=cs.TINYLLAMA,
+            tag="grad_check_hd64"),
+        "train_usp_hd64": lambda: cs.train_usp_phase(
+            pkg, _build, dev, "cpu", model=cs.TINYLLAMA,
+            tag="train_usp_hd64"),
+        "usp_varlen_hd64": lambda: cs.usp_varlen_phase(
+            _build, flash, dev, "cpu", model=cs.TINYLLAMA,
+            tag="usp_varlen_hd64")}
     failed = 0
     for name in args.phases:
         cs.MODEL = dict(TINY, **({"n_heads": 2, "n_kv_heads": 1}

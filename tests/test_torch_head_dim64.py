@@ -473,15 +473,16 @@ def _meta(*shape, dtype=torch.bfloat16):
 
 
 def test_head_dims_of_each_entry_point():
-    """B1, B3, B6 and both B7 kernels take head dims 64 and 128, every
-    other entry point 128; each picks its own kernel (and launch count) at
-    each head dim."""
-    serving = ("flash_fwd_causal_self", "flash_fwd_pos", "cache_append",
-               "decode_attention", "decode_run")
+    """B1, B3, B6, both B7 kernels and the backward (B2a, B2b, B5) take
+    head dims 64 and 128, every other entry point 128; each picks its own
+    kernel (and launch count) at each head dim."""
+    both = ("flash_fwd_causal_self", "flash_fwd_pos", "cache_append",
+            "decode_attention", "decode_run", "flash_bwd_dq",
+            "flash_bwd_dkv", "flash_bwd_fused")
     for name in _build.KERNELS:
         if name.endswith("_d64"):
             continue
-        want = (64, 128) if name in serving else (128,)
+        want = (64, 128) if name in both else (128,)
         assert _build.head_dims(name) == want, name
         for d in want:
             k = _build.kernel(name, d)
@@ -493,8 +494,9 @@ def test_head_dims_of_each_entry_point():
 
 @pytest.mark.parametrize("d", [32, 96])
 def test_serving_kernels_raise_at_other_head_dims(d):
-    """B1, B3, B6 and B7 raise NotImplementedError naming 64 and 128 at
-    another head dim, before any launch."""
+    """B1, B3 (at one chunk, two position chunks and with the features),
+    B6, B7 and the backward (B2a, B2b, B5) raise NotImplementedError naming
+    64 and 128 at another head dim, before any launch."""
     msg = "head_dim 64 or 128"
     with pytest.raises(NotImplementedError, match=f"B1.*{msg}"):
         tflash.flash_fwd_causal_self(_meta(1, 128, 8, d), _meta(1, 128, 1, d),
@@ -512,22 +514,33 @@ def test_serving_kernels_raise_at_other_head_dims(d):
     cache = tkv.KVCache.init(1, 1, 128, 1, d, "int8", device="cpu")
     with pytest.raises(NotImplementedError, match=f"B6.*{msg}"):
         tdec._RowsPlan(cache)
+    kv = _meta(1, 1, 512, d)
+    with pytest.raises(NotImplementedError, match=f"B3.*{msg}"):
+        tflash.flash_fwd_pos(_meta(1, 256, 8, d), kv, kv, scale=1.0,
+                             causal=True,
+                             pos=tflash.Positions((0, 1 << 20),
+                                                  (0, 1 << 20), 1))
+    with pytest.raises(NotImplementedError, match=f"B3.*{msg}"):
+        tflash.flash_fwd_pos(
+            _meta(1, 256, 8, d), kv, kv, q_start=256, causal=True, scale=1.0,
+            features=tflash.Features(slopes=torch.ones(8, device="meta")))
+    q, k = _meta(1, 256, 8, d), _meta(1, 256, 1, d)
+    lse = torch.zeros((1, 8, 256), device="meta")
+    for fn in (tflash.flash_bwd_dq, tflash.flash_bwd_dkv,
+               tflash.flash_bwd_fused):
+        with pytest.raises(NotImplementedError, match=f"backward.*{msg}"):
+            fn(q, k, k, q, lse, lse, scale=1.0)
 
 
 def test_other_kernels_raise_at_head_dim_64():
-    """B4, the backward (B2a, B2b, B5), sage (its quantizers and B8a-c),
-    the block-sparse kernels (B9a-c) and B3 with two position chunks or
-    the features raise NotImplementedError naming head dim 128 at d = 64."""
+    """B4, sage (its quantizers and B8a-c), the block-sparse kernels
+    (B9a-c) and B3 over quantized K/V at two position chunks or with the
+    features raise NotImplementedError naming head dim 128 at d = 64."""
     q, k, v = _meta(1, 256, 8, D), _meta(1, 256, 1, D), _meta(1, 256, 1, D)
     msg = "head_dim 128, got d=64"
     with pytest.raises(NotImplementedError, match=f"B4.*{msg}"):
         tflash.flash_fwd_static(q, k, v, scale=1.0, causal=True,
                                 window_size=(64, -1))
-    lse = torch.zeros((1, 8, 256), device="meta")
-    for fn in (tflash.flash_bwd_dq, tflash.flash_bwd_dkv,
-               tflash.flash_bwd_fused):
-        with pytest.raises(NotImplementedError, match=f"backward.*{msg}"):
-            fn(q, k, v, q, lse, lse, scale=1.0)
     with pytest.raises(NotImplementedError,
                        match=f"sage quantization.*{msg}"):
         tsage.sage_quant_kv(k, v, torch.zeros(1, 1, D, device="meta"))
@@ -541,12 +554,15 @@ def test_other_kernels_raise_at_head_dim_64():
     with pytest.raises(NotImplementedError, match=f"sparse.*{msg}"):
         tsp.block_sparse_attention(q, k, v, np.ones((4, 4), bool),
                                    block_q=64, block_kv=64)
-    kv = _meta(1, 1, 512, D)
-    with pytest.raises(NotImplementedError, match="B3.*position chunks"):
-        tflash.flash_fwd_pos(q, kv, kv, scale=1.0, causal=True,
+    kv8 = _meta(1, 1, 512, D, dtype=torch.int8)
+    sc = torch.zeros((1, 1, 512), device="meta")
+    with pytest.raises(NotImplementedError,
+                       match=f"B3.*quantized K/V.*position chunks.*{msg}"):
+        tflash.flash_fwd_pos(q, kv8, kv8, sc, sc, scale=1.0, causal=True,
                              pos=tflash.Positions((0, 1 << 20), (0, 1 << 20),
                                                   1))
-    with pytest.raises(NotImplementedError, match="B3.*features"):
+    with pytest.raises(NotImplementedError,
+                       match=f"B3.*quantized K/V.*features.*{msg}"):
         tflash.flash_fwd_pos(
-            q, kv, kv, q_start=256, causal=True, scale=1.0,
+            q, kv8, kv8, sc, sc, q_start=256, causal=True, scale=1.0,
             features=tflash.Features(slopes=torch.ones(8, device="meta")))

@@ -146,7 +146,10 @@ def test_sm90_sources_build_for_sm90a():
     (FEAT: segments, ALiBi, dropout); B3's quantized K/V kind is a
     run-time value of its producers. The backward entry points share one C
     signature (B2b's takes its kv tile order after it, and B2a's and B2b's
-    the features' operands last)."""
+    the features' operands last). The three sources build at head dim 64
+    too (-DLCA_HEAD_DIM=64): B2a, B2b, B5, and B3 at two chunks and with
+    the features over bf16 K/V; B9b and B9c return cudaErrorNotSupported
+    there."""
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     header = (_build.CSRC / "sm90.cuh").read_text()
     bwd = (_build.CSRC / "flash_bwd_sm90.cu").read_text()
@@ -162,6 +165,15 @@ def test_sm90_sources_build_for_sm90a():
         assert f"launch<false, false, {mask}, MULTI, FEAT>(" in bwd
     for multi in ("true", "false"):
         assert f"launch_dkv<{multi}, true>(" in bwd
+    # head dim 64: the d-wide products through wgmma_rs_d (m64n64 at d =
+    # 64); the sparse entries stay at 128
+    dq = (_build.CSRC / "flash_dq_sm90.cu").read_text()
+    for src in (bwd, dq):
+        assert "constexpr int D = LCA_HEAD_DIM;" in src
+        assert "wgmma_rs_d(" in src
+        assert ("#if LCA_HEAD_DIM != 128\n  return (int)cudaErrorNotSupported;"
+                in src)
+    assert "wgmma_rs_n64(" in header
     fwd = (_build.CSRC / "flash_fwd_sm90.cu").read_text()
     for needle in ("wgmma.mma_async", "tma_load_4d", "setmaxnreg_inc",
                    '#include "sm90.cuh"'):
@@ -179,6 +191,8 @@ def test_sm90_sources_build_for_sm90a():
         assert f"stream(KvKind<{kind}>())" in fwd
     for multi in ("true", "false"):
         assert f"pos_kind<{multi}>(" in fwd
+    # at head dim 64: MULTI and FEAT over bf16 K/V
+    assert fwd.count("pos_form<false, MULTI, true>(") == 2
     # B7's kinds: bf16, the s8 path over int8 and int4, the cast path over
     # int8, fp8 and int4
     b7 = (_build.CSRC / "decode_attention.cu").read_text()
@@ -231,7 +245,7 @@ def test_decode_run_sm90_source():
     src = (_build.CSRC / "decode_run_sm90.cu").read_text()
     for needle in ("wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8",
                    "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16",
-                   "wgmma_rs(", '#include "sm90.cuh"', "setmaxnreg_inc",
+                   "wgmma_rs_d(", '#include "sm90.cuh"', "setmaxnreg_inc",
                    "setmaxnreg_dec", "tma_load_3d", "transpose_chunk(",
                    "widen_chunk<kKvFp8>", "widen_chunk<kKvInt4>",
                    "widen_chunk<kKvInt8>"):
